@@ -1,0 +1,69 @@
+"""Weight bridge: the JAX package's pytrees <-> the port's tensor dicts.
+
+Both packages keep parameters as nested dicts with identical keys and
+``[L, ...]`` stacking, so the bridge is a 1:1 key map through numpy.
+Leaves come in as numpy arrays (``np.asarray`` of a JAX array); bf16 may
+arrive either as the ``bfloat16`` numpy dtype or as raw ``uint16`` bits
+(the way the checkpoint format stores it), and goes out as ``uint16``
+bits. Tests use it to give both packages the same weights.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import resolve_device
+
+
+def tensor_from_numpy(arr: Any, device) -> torch.Tensor:
+    """One leaf: bf16 (named dtype or uint16 bits) -> torch.bfloat16,
+    anything else keeps its dtype."""
+    arr = np.asarray(arr)
+    if arr.dtype.name in ("bfloat16", "uint16"):
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """One leaf back to numpy: bf16 as uint16 bits."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _map(tree: Any, fn) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_numpy(cfg: ModelConfig, tree: Dict, device=None) -> Dict:
+    """Backbone params of ``cfg`` from the JAX package's param tree."""
+    dev = resolve_device(device)
+    params = _map(tree, lambda a: tensor_from_numpy(a, dev))
+    want = (cfg.vocab_size, cfg.d_model)
+    if tuple(params["embed"].shape) != want:
+        raise ValueError(f"embed has shape {tuple(params['embed'].shape)}, "
+                         f"config {cfg.name} wants {want}")
+    if params["layers"]["q_proj"].shape[0] != cfg.num_layers:
+        raise ValueError("layer stack depth does not match the config")
+    return params
+
+
+def lora_from_numpy(tree: Dict, device=None) -> Dict:
+    """A stacked LoRA tree ``{target: {"A", "B"}}`` from the JAX one."""
+    dev = resolve_device(device)
+    return _map(tree, lambda a: tensor_from_numpy(a, dev))
+
+
+def params_to_numpy(params: Dict) -> Dict:
+    return _map(params, tensor_to_numpy)
+
+
+def lora_to_numpy(tree: Dict) -> Dict:
+    return _map(tree, tensor_to_numpy)

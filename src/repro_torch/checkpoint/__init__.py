@@ -1,0 +1,1 @@
+"""npz checkpoints in the JAX package's on-disk layout."""

@@ -1,0 +1,4 @@
+"""Config system: dataclasses and the architectures the port runs."""
+from repro_torch.configs.base import (LoRAConfig, ModelConfig, RoPEConfig)
+
+__all__ = ["LoRAConfig", "ModelConfig", "RoPEConfig"]

@@ -1,0 +1,35 @@
+"""Architecture registry: resolves ``--arch <id>`` strings to ModelConfigs.
+
+Lists only the architectures the port runs (the dense family); every other
+architecture of the JAX package raises "not ported yet"."""
+from __future__ import annotations
+
+from typing import Dict, List
+
+from repro_torch.configs import paper_llama_tiny, stablelm_3b
+from repro_torch.configs.base import ModelConfig
+
+ARCHS: Dict[str, ModelConfig] = {
+    m.CONFIG.name: m.CONFIG for m in (stablelm_3b, paper_llama_tiny)}
+
+# the JAX package's other architectures (other families or not yet copied)
+NOT_PORTED = (
+    "rwkv6-3b", "granite-moe-1b-a400m", "mistral-nemo-12b", "hymba-1.5b",
+    "llama4-scout-17b-a16e", "musicgen-medium", "qwen2-vl-72b",
+    "granite-8b", "glm4-9b",
+)
+
+
+def get_arch(name: str) -> ModelConfig:
+    if name in NOT_PORTED:
+        raise KeyError(f"arch {name!r} is not ported yet; have {sorted(ARCHS)}")
+    try:
+        cfg = ARCHS[name]
+    except KeyError:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
+    cfg.validate()
+    return cfg
+
+
+def list_archs() -> List[str]:
+    return sorted(ARCHS)

@@ -1,0 +1,291 @@
+"""Unified multi-adapter decoder: init / forward / prefill / decode.
+
+Parameters are plain dicts of tensors with the JAX package's keys and
+``[L, ...]`` stacking (``bridge.py`` maps one onto the other 1:1); the JAX
+package's ``lax.scan`` over the stacked layers is a Python loop over L.
+
+Caches are updated IN PLACE: ``forward``, ``decode_step``, ``reset_lanes``
+and ``prefill_lanes`` write the K/V rows they own into the cache tensors
+and return the same cache dict (with ``pos`` / ``k_pos`` replaced). Lanes a
+call does not own — idle lanes under ``active``, lanes outside
+``lane_mask`` — stay bitwise untouched, the contract the JAX package keeps
+with whole-cache selects.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ATTN_SLIDING, ModelConfig
+from repro_torch.models import blocks as B
+from repro_torch.models.common import (dtype_of, he_init, normal_init,
+                                       resolve_device, rms_norm)
+from repro_torch.models.rope import rope_angles, text_positions
+
+RING_INIT_POS = -(1 << 30)    # ring-cache slots start far in the past
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device: Optional[str | torch.device] = None) -> Dict:
+    """Random backbone weights from ``torch.Generator(device).manual_seed
+    (seed)``, on the card unless ``device`` says otherwise."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dtype = dtype_of(cfg.dtype)
+    emb = normal_init(gen, (cfg.vocab_size, cfg.d_model), 0.02, dtype)
+    layer_list = [B.init_layer_params(gen, cfg, dtype)
+                  for _ in range(cfg.num_layers)]
+    layers = {k: torch.stack([lp.pop(k) for lp in layer_list])
+              for k in list(layer_list[0])}
+    params = {"embed": emb, "layers": layers,
+              "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32,
+                                       device=dev)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = he_init(gen, (cfg.d_model, cfg.vocab_size),
+                                    cfg.d_model, dtype)
+    return params
+
+
+def target_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, int]]:
+    return B.target_shapes(cfg)
+
+
+# ---------------------------------------------------------------------------
+# Shared pieces
+# ---------------------------------------------------------------------------
+
+def _train_window(cfg: ModelConfig) -> int:
+    return cfg.sliding_window if cfg.attn_kind == ATTN_SLIDING else 0
+
+
+def _embed(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens.long()]                  # [Z,b,S,d]
+
+
+def _angles(cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
+    return rope_angles(positions, cfg.resolved_head_dim, cfg.rope)
+
+
+def _unembed(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
+    W = params["lm_head"] if not cfg.tie_embeddings else params["embed"].T
+    return x @ W
+
+
+def _run_layers(cfg: ModelConfig, x: torch.Tensor, params: Dict, lora: Dict,
+                ctx: Dict[str, Any], layers: Optional[Dict]) -> torch.Tensor:
+    """The JAX package's ``_scan_layers`` as a loop over the stacked
+    layers; layer l reads its base weights at ``[l]`` and its cache views
+    ``layers["attn"]["k"|"v"][l]``."""
+    stacked = params["layers"]
+    for l in range(cfg.num_layers):
+        p = {k: v[l] for k, v in stacked.items()}
+        if layers is not None:
+            ctx["cache"] = {"k": layers["attn"]["k"][l],
+                            "v": layers["attn"]["v"][l]}
+        x = B.transformer_block(cfg, x, p, lora, l, ctx)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill)
+# ---------------------------------------------------------------------------
+
+def forward(cfg: ModelConfig, params: Dict, lora: Dict, tokens: torch.Tensor,
+            *, positions: Optional[torch.Tensor] = None,
+            cache: Optional[Dict] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
+    """Full-sequence causal forward.
+
+    tokens: [Z, b, S] int. Returns (final_hidden [Z,b,S,d] (post final
+    norm, pre-unembed), aux scalar (0 for the dense family), cache|None).
+    With ``cache`` given (prefill), every lane's K/V are written at index
+    0..S-1 in place and the cache's position is set to S."""
+    Z, b, S = tokens.shape
+    dev = tokens.device
+    x = _embed(params, tokens)
+    if positions is None:
+        positions = text_positions((), S, cfg.rope, device=dev)
+    ctx: Dict[str, Any] = {
+        "angles": _angles(cfg, positions),
+        "q_pos": torch.arange(S, dtype=torch.int32, device=dev),
+        "window": _train_window(cfg),
+    }
+    if cache is not None:
+        ctx["write_index"] = 0
+    x = _run_layers(cfg, x, params, lora, ctx,
+                    cache["layers"] if cache is not None else None)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cache is not None:
+        per_lane = cache["pos"].dim() == 2
+        cache["pos"] = (torch.full_like(cache["pos"], S) if per_lane
+                        else torch.tensor(S, dtype=torch.int32, device=dev))
+        if "k_pos" in cache:
+            kp = torch.arange(cache["k_pos"].shape[-1], dtype=torch.int32,
+                              device=dev)
+            cache["k_pos"] = (kp.expand_as(cache["k_pos"]).clone()
+                              if per_lane else kp)
+    return x, torch.zeros((), dtype=torch.float32, device=dev), cache
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, Z: int, bsz: int, max_len: int, *,
+               ring: bool = False, per_lane: bool = False,
+               device: Optional[str | torch.device] = None) -> Dict:
+    """Build a decode cache (on the card unless ``device`` says
+    otherwise). ``ring=True`` => sliding-window ring buffer of size
+    ``cfg.sliding_window``; ``per_lane=True`` => the decode position is a
+    ``[Z, bsz]`` vector (and the ring ``k_pos`` a ``[Z, bsz, Sc]``
+    tensor), so every (slot, lane) stream advances independently."""
+    B._require_dense(cfg)
+    dev = resolve_device(device)
+    dtype = dtype_of(cfg.dtype)
+    L, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    Sc = cfg.sliding_window if ring else max_len
+    shape = (L, Z, bsz, Sc, KV, hd)
+    cache: Dict[str, Any] = {
+        "layers": {"attn": {
+            "k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}},
+        "pos": (torch.zeros((Z, bsz), dtype=torch.int32, device=dev)
+                if per_lane
+                else torch.tensor(0, dtype=torch.int32, device=dev)),
+    }
+    if ring:
+        kp = torch.full((Sc,), RING_INIT_POS, dtype=torch.int32, device=dev)
+        cache["k_pos"] = (kp.expand(Z, bsz, Sc).clone() if per_lane else kp)
+    return cache
+
+
+def decode_step(cfg: ModelConfig, params: Dict, lora: Dict, cache: Dict,
+                tokens: torch.Tensor,
+                active: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+    """One decode step. tokens: [Z, b] int -> (logits [Z,b,V], cache).
+
+    With a global position cache (``cache["pos"]`` 0-d) every lane writes
+    and reads at the same position. With a per-lane cache (``pos`` is
+    [Z, b]) each (slot, lane) stream writes at its own index and sees only
+    keys up to its own position. ``active`` ([Z, b] bool, per-lane caches
+    only) freezes idle lanes: their K/V rows and position stay bitwise
+    untouched while live lanes advance."""
+    Z, bsz = tokens.shape
+    pos = cache["pos"]
+    per_lane = pos.dim() == 2
+    if active is not None and not per_lane:
+        raise ValueError("an active mask needs a per-lane cache")
+    dev = tokens.device
+    x = _embed(params, tokens[:, :, None])
+    positions = (pos[..., None] if per_lane
+                 else text_positions((), 1, cfg.rope, offset=pos,
+                                     device=dev))
+    ctx: Dict[str, Any] = {
+        "angles": _angles(cfg, positions),
+        "q_pos": pos[..., None] if per_lane else pos[None],
+        "write_mask": active,
+    }
+    new_kpos = None
+    if "k_pos" in cache:
+        W = cfg.sliding_window
+        widx = torch.remainder(pos, W)
+        if per_lane:
+            sel = (torch.arange(W, dtype=torch.int32, device=dev)[None, None]
+                   == widx[..., None])                       # [Z, b, W]
+            new_kpos = torch.where(sel, pos[..., None], cache["k_pos"])
+            if active is not None:
+                new_kpos = torch.where(active[..., None], new_kpos,
+                                       cache["k_pos"])
+        else:
+            new_kpos = cache["k_pos"].clone()
+            new_kpos.index_copy_(0, widx.view(1).long(), pos.view(1))
+        ctx.update(write_index=widx, k_pos=new_kpos, window=W)
+    else:
+        ctx.update(write_index=pos, kv_valid_len=pos + 1,
+                   window=_train_window(cfg))
+    x = _run_layers(cfg, x, params, lora, ctx, cache["layers"])
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _unembed(cfg, params, x[:, :, 0])
+    new_pos = pos + 1
+    if active is not None:
+        new_pos = torch.where(active, new_pos, pos)
+    cache["pos"] = new_pos
+    if new_kpos is not None:
+        cache["k_pos"] = new_kpos
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Lane lifecycle (continuous batching over a per-lane cache)
+# ---------------------------------------------------------------------------
+
+def reset_lanes(cfg: ModelConfig, cache: Dict,
+                lane_mask: torch.Tensor) -> Dict:
+    """Reset the masked lanes in place to the just-initialized state (pos
+    0, zero K/V, ring slots pushed to the far past) so a fresh request can
+    join them. Unmasked lanes are bitwise untouched."""
+    if cache["pos"].dim() != 2:
+        raise ValueError("reset_lanes needs a per-lane cache")
+    m = lane_mask[None, :, :, None, None, None]
+    for leaf in cache["layers"]["attn"].values():
+        leaf.masked_fill_(m, 0)
+    cache["pos"] = torch.where(lane_mask, 0, cache["pos"]).to(torch.int32)
+    if "k_pos" in cache:
+        cache["k_pos"] = torch.where(lane_mask[..., None], RING_INIT_POS,
+                                     cache["k_pos"]).to(torch.int32)
+    return cache
+
+
+def prefill_lanes(cfg: ModelConfig, params: Dict, lora: Dict, cache: Dict,
+                  tokens: torch.Tensor, lane_mask: torch.Tensor,
+                  plens: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Dict]:
+    """Block-prefill a subset of lanes of a live per-lane cache.
+
+    tokens: [Z, b, P] int (rows of non-joining lanes are ignored);
+    lane_mask: [Z, b] bool. The forward runs over every lane, but only the
+    joining lanes are reset and get their prompt's K/V written at 0..P-1;
+    their positions become P (or ``plens``). Every other lane — mid-decode
+    or idle — stays bitwise untouched. Returns (last-token logits
+    [Z, b, V], cache).
+
+    ``plens`` ([Z, b] int) serves ragged joins in one launch: each joining
+    lane's true prompt length, with ``tokens`` right-padded to P. The
+    padded tail writes garbage K/V at indices >= len — harmless because
+    causality hides index i until the lane's position reaches i, and
+    decode writes index i before it reads it (write-before-read).
+
+    Non-ring caches only (ring caches join by streaming the prompt through
+    ``decode_step``)."""
+    if cache["pos"].dim() != 2 or "k_pos" in cache:
+        raise ValueError("prefill_lanes needs a per-lane non-ring cache")
+    Z, b, P = tokens.shape
+    dev = tokens.device
+    reset_lanes(cfg, cache, lane_mask)
+    x = _embed(params, tokens)
+    ctx: Dict[str, Any] = {
+        "angles": _angles(cfg, text_positions((), P, cfg.rope, device=dev)),
+        "q_pos": torch.arange(P, dtype=torch.int32, device=dev),
+        "window": _train_window(cfg),
+        "write_index": 0,
+        "write_mask": lane_mask,
+    }
+    x = _run_layers(cfg, x, params, lora, ctx, cache["layers"])
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if plens is None:
+        last = x[:, :, -1]
+        new_pos = torch.full_like(cache["pos"], P)
+    else:
+        idx = (plens.long() - 1)[:, :, None, None].expand(Z, b, 1, x.shape[-1])
+        last = torch.gather(x, 2, idx)[:, :, 0]
+        new_pos = plens.to(torch.int32)
+    logits = _unembed(cfg, params, last)
+    cache["pos"] = torch.where(lane_mask, new_pos,
+                               cache["pos"]).to(torch.int32)
+    return logits, cache
