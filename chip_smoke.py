@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch port: multi-adapter serving of stablelm-3b
-on one NVIDIA card, through the port's hand-written CUDA kernels.
+"""Chip smoke test of the PyTorch port: multi-adapter serving and rank-sweep
+LoRA training of stablelm-3b on one NVIDIA card, through the port's
+hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -11,14 +12,18 @@ package. Phases, none of them caught:
 
 1. card   — name and power limit (nvidia-smi), torch and CUDA versions;
             TF32 off for matmuls and cuDNN.
-2. build  — nvcc builds the rank-local grouped-LoRA kernels from
-            ``src/repro_torch/kernels/grouped_lora/csrc``.
+2. build  — nvcc builds the six rank-local grouped-LoRA kernels from
+            ``src/repro_torch/kernels/grouped_lora/csrc`` (one nvcc per
+            source, started together).
 3. kernels — each kernel against its plain PyTorch version at stablelm-3b
             shapes (bf16 activations, fp32 adapter masters, Z = 4 slots):
-            times (CUDA events around a replayed CUDA graph of many calls,
-            and around the same calls made eagerly; median of 21), a
-            ``torch.bmm`` yardstick the port never calls, and the bound
-            (max of bytes / 3.35 TB/s and flops / 989 TFLOP/s).
+            the forward pair at serving shapes and the eval-step shape
+            (4,096 token rows per slot), all six at training shapes (1,024
+            token rows per slot, ranks 4/8/16/32, one case with rows < T
+            and a dead slot); times (CUDA
+            events around a replayed CUDA graph of many calls; median of
+            21), a ``torch.bmm`` yardstick the port never calls, and the
+            bound (max of bytes / 3.35 TB/s and flops / 989 TFLOP/s).
 4. serve  — full-width, full-depth stablelm-3b (bf16, random weights from a
             seed), 4 adapters at true ranks 8/16/32/64, 4 lanes, max_len
             256: 16 greedy requests (prompts of 32-128 tokens, 32 new
@@ -31,6 +36,21 @@ package. Phases, none of them caught:
             (every delta dropped, one slot's delta halved) must not;
             then a warm join step is timed and four decode steps run
             under torch.profiler (device busy time, top kernels).
+5. train  — one full-size make_train_step (4 slots at ranks 4/8/16/32,
+            b = 4, S = 256, non-zero B) with the kernels against the same
+            step on the plain versions: per slot loss, grad norm and the
+            relative RMS of dA and dB, while four planted faults in the
+            plain run (one slot's dA zeroed, the rank-32 slot's dB halved,
+            the LoRA branch's dX dropped, the rank-4 slot's delta halved
+            in the forward) must break the bars, the last the loss bar.
+6. executor — BatchedExecutor.run_task on full-size stablelm-3b: a rank
+            sweep of 8 jobs (ranks 4/8/16/32 x lr 1e-4/1e-3) on 4 slots,
+            two warmup waves with rotation, selection, continue; every
+            fused train step must launch xa/sb_add 448 times and
+            ds/da/db 224 (dx 221), every eval step xa/sb_add 224 times;
+            real tokens/s over the whole run_task wall, the median
+            train-step call by resident slots, eval step, peak memory, and
+            two train steps under torch.profiler.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernel table as JSON.
@@ -65,6 +85,28 @@ LOGITS_REL_RMS = 0.03
 RANKS = (8, 16, 32, 64)
 LANES, MAX_LEN, MAX_NEW, N_REQ = 4, 256, 32, 16
 
+# training: 4 slots at these true ranks (r_max 64), b sequences of S tokens
+TRAIN_RANKS = (4, 8, 16, 32)
+TRAIN_B, TRAIN_S = 4, 256
+EVAL_B = 16                   # sequences per slot in an executor eval step
+# backward kernels with fp32 outputs (dA, dB), kernel vs plain: both sum
+# the same 1,024 bf16 products per entry in fp32, in another order, so an
+# entry may differ by a few fp32 roundings of the running sum:
+# |diff| <= 1e-4 * |plain| + 1e-5 * max|plain|
+GRAD_KERNEL_RTOL = 1e-4
+GRAD_KERNEL_ATOL_REL = 1e-5
+# full-size train step, kernels vs plain versions, per slot and relative
+# to the plain run: |loss diff|, |grad-norm diff|, and the RMS of the dA
+# (dB) differences over all 224 projections over the RMS of dA (dB). The
+# one-ulp bf16 differences of the kernels compound through 32 layers
+# forward and backward. The loss bar guards the forward: it sits between
+# the sound reading and that of a planted forward fault (the rank-4 slot's
+# delta halved), which must break it. On an H100 the sound run reads at
+# most 5.9e-05 and that fault 1.68e-03 (see PERF.md).
+TRAIN_LOSS_REL = 3e-4
+TRAIN_NORM_REL = 0.05
+TRAIN_GRAD_REL_RMS = 0.05
+
 
 def require(ok: bool, what: str) -> None:
     """A check that stays under ``python -O`` (unlike ``assert``)."""
@@ -80,6 +122,14 @@ def sh(*cmd: str) -> str:
 def card_line() -> str:
     return sh("nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader").splitlines()[0]
+
+
+def bound(nbytes: float, flops: float):
+    """(least ms the card could take, "bytes" or "operations"): the larger
+    of the bytes over the memory rate and the flops over the bf16 peak."""
+    t_bytes, t_ops = nbytes / H100_BYTES_S, flops / H100_BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def time_ms(torch, fn, n_inner: int, samples: int = 21):
@@ -118,9 +168,10 @@ def time_ms(torch, fn, n_inner: int, samples: int = 21):
 
 
 def kernel_phase(torch, RL, ref):
-    """Each kernel against its plain version; returns per-kernel results
-    at the decode shape the serving path launches most (T = lanes,
-    din = dout = d_model = 2560) and prints every case."""
+    """The forward pair against its plain versions at the serving shapes
+    and the executor's eval-step shape (T = 4,096 rows per slot); returns
+    per-kernel results at the decode shape the serving path launches most
+    (T = lanes, din = dout = d_model = 2560) and prints every case."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(1)
     Z, r = 4, 64
@@ -132,6 +183,9 @@ def kernel_phase(torch, RL, ref):
         ("prefill", LANES * 128, 6912, 2560, RANKS, None),
         ("edge", LANES * 128, 2560, 6912, (0, 13, 32, 64),
          (LANES * 128, LANES * 128 - 1, 200, 7)),
+        # the executor's eval step: [Z, EVAL_B, TRAIN_S] tokens per slot
+        ("eval", EVAL_B * TRAIN_S, 2560, 6912, TRAIN_RANKS, None),
+        ("eval", EVAL_B * TRAIN_S, 6912, 2560, TRAIN_RANKS, None),
     ]
     results = {}
     print("times in ms per call: graph replay (device time); after '|' the "
@@ -211,10 +265,7 @@ def kernel_phase(torch, RL, ref):
             ms, eager_ms = time_ms(torch, kern, inner)
             plain_ms, plain_eager = time_ms(torch, plain, inner)
             lib_ms, lib_eager = time_ms(torch, lib, inner)
-            nbytes, flops = work[name]
-            t_bytes, t_ops = nbytes / H100_BYTES_S, flops / H100_BF16_FLOPS
-            bound_ms = max(t_bytes, t_ops) * 1e3
-            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            bound_ms, bound_by = bound(*work[name])
             print(f"{name:7s} {label:8s} {T:4d} {din:5d} {dout:5d}  "
                   f"{str(ranks_t):16s} {str(rows_t):15s} {ms:9.5f} "
                   f"{plain_ms:9.5f} {lib_ms:9.5f}  {bound_ms:9.6f} "
@@ -230,9 +281,9 @@ def kernel_phase(torch, RL, ref):
     return results
 
 
-def serve_phase(torch, RL, cfg):
-    """Serve N_REQ requests on ``cfg`` (stablelm-3b at full size in
-    ``main``) on the card."""
+def serve_phase(torch, RL, cfg, params):
+    """Serve N_REQ requests on ``cfg`` with backbone ``params``
+    (stablelm-3b at full size in ``main``) on the card."""
     import numpy as np
 
     from repro_torch.core import lora as LORA
@@ -246,7 +297,6 @@ def serve_phase(torch, RL, cfg):
     sync = torch.cuda.synchronize
     Z = len(RANKS)
     t0 = time.perf_counter()
-    params = M.init_params(cfg, seed=0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     stack = LORA.init_lora_tree(gen, cfg, Z,
                                 torch.tensor(RANKS, dtype=torch.int32),
@@ -262,7 +312,7 @@ def serve_phase(torch, RL, cfg):
     print(f"serve: {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
           f"H={cfg.num_heads} hd={cfg.resolved_head_dim} ff={cfg.d_ff} "
           f"V={cfg.vocab_size} {cfg.dtype}; ranks={RANKS} lanes={LANES} "
-          f"max_len={MAX_LEN}; init {time.perf_counter() - t0:.1f} s")
+          f"max_len={MAX_LEN}; adapters {time.perf_counter() - t0:.1f} s")
 
     rep = ServingReplica(cfg, params, pool, lanes=LANES, max_len=MAX_LEN,
                          device=dev)
@@ -441,6 +491,490 @@ def serve_phase(torch, RL, cfg):
     return launches
 
 
+def backward_kernel_phase(torch, RL, ref):
+    """The four backward kernels, and the forward pair, against their
+    plain versions at the training shapes (Z = 4 slots, T = TRAIN_B *
+    TRAIN_S = 1024 token rows per slot, d in {2560, 6912}, true ranks
+    4/8/16/32 of r_max 64, bf16 activations, fp32 masters with garbage
+    past each rank); returns per-kernel results (times of the backward
+    four at the q/k/v/o shape, din = dout = 2560) and prints every
+    case."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(2)
+    Z, r, T = len(TRAIN_RANKS), 64, TRAIN_B * TRAIN_S
+    cases = [  # (label, din, dout, ranks, rows)
+        ("train", 2560, 2560, TRAIN_RANKS, None),
+        ("train", 2560, 6912, TRAIN_RANKS, None),
+        ("train", 6912, 2560, TRAIN_RANKS, None),
+        ("ragged", 2560, 6912, TRAIN_RANKS, (T, T - TRAIN_S, 300, 0)),
+    ]
+    results = {}
+    print("backward kernels, times in ms per call (graph replay)")
+    print("kernel  case     din   dout  rows                    ms        "
+          "plain_ms  library_ms bound_ms  bound_by   max_abs_err")
+    for label, din, dout, ranks_t, rows_t in cases:
+        ranks = torch.tensor(ranks_t, dtype=torch.int32, device=dev)
+        rows = (None if rows_t is None else
+                torch.tensor(rows_t, dtype=torch.int32, device=dev))
+        nrows = [T] * Z if rows_t is None else list(rows_t)
+        live = [rk if nr else 0 for rk, nr in zip(ranks_t, nrows)]
+        # two copies of the activations (2 x 4 x 1024 x 6912 bf16 = 113 MB,
+        # more than the 50 MB L2), so a timing loop reads them from memory
+        xs = [torch.randn(Z, T, din, generator=gen, device=dev)
+              .to(torch.bfloat16) for _ in range(2)]
+        dys = [torch.randn(Z, T, dout, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(2)]
+        A = torch.randn(Z, din, r, generator=gen, device=dev) / din ** 0.5
+        B = torch.randn(Z, r, dout, generator=gen, device=dev) / r ** 0.5
+        scale = torch.full((Z,), 2.0, device=dev)
+        keep = (torch.arange(r, device=dev)[None, :] < ranks[:, None])
+        A_lib = (A * keep[:, None, :]).to(torch.bfloat16).transpose(1, 2)
+        B_lib = (B * keep[:, :, None]).to(torch.bfloat16).transpose(1, 2)
+        ss = [RL.xa(x, A, rows, ranks) for x in xs]
+        dss = [RL.ds(dy, B, scale, rows, ranks) for dy in dys]
+        torch.cuda.synchronize()
+        s, x, dy, dS = ss[0], xs[0], dys[0], dss[0]
+        # --- correctness: the forward pair as a train step launches it
+        # (the Function's forward and each layer's recompute), then the
+        # backward four
+        y = RL.sb_add(s, B, scale, rows, ranks)
+        outs = {"xa": (s, ref.ranklocal_xa_ref(x, A, rows, ranks)),
+                "sb_add": (y, ref.ranklocal_sb_add_ref(s, B, scale, rows,
+                                                       ranks)),
+                "ds": (dS, ref.ranklocal_ds_ref(dy, B, scale, rows, ranks)),
+                "dx": (RL.dx(dS, A, rows, ranks),
+                       ref.ranklocal_dx_ref(dS, A, rows, ranks)),
+                "da": (RL.da(x, dS, rows, ranks),
+                       ref.ranklocal_da_ref(x, dS, rows, ranks)),
+                "db": (RL.db(s, dy, scale, rows, ranks),
+                       ref.ranklocal_db_ref(s, dy, scale, rows, ranks))}
+        torch.cuda.synchronize()
+        errs = {}
+        for name, (out, want) in outs.items():
+            o, w = out.float(), want.float()
+            bf16_out = name in ("xa", "sb_add", "ds", "dx")
+            torch.testing.assert_close(
+                o, w, rtol=KERNEL_RTOL if bf16_out else GRAD_KERNEL_RTOL,
+                atol=(KERNEL_ATOL_REL if bf16_out else GRAD_KERNEL_ATOL_REL)
+                * float(w.abs().max()), msg=f"{name} {label} {din}x{dout}")
+            errs[name] = float((o - w).abs().max())
+        for name, err in errs.items():
+            res = results.setdefault(name, {"max_abs_err": 0.0})
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+        for z in range(Z):                   # exact zeros where nothing lives
+            rk, nr = live[z], nrows[z]
+            require(bool((outs["xa"][0][z, :, rk:] == 0).all()
+                         and (outs["xa"][0][z, nr:] == 0).all()),
+                    "xa: padded rank region or dead rows not exactly 0")
+            require(bool((outs["sb_add"][0][z, nr:] == 0).all()
+                         and (rk or (outs["sb_add"][0][z] == 0).all())),
+                    "sb_add: dead rows or dead slot not exactly 0")
+            require(bool((outs["ds"][0][z, :, rk:] == 0).all()
+                         and (outs["ds"][0][z, nr:] == 0).all()),
+                    "ds: padded rank region or dead rows not exactly 0")
+            require(bool((outs["dx"][0][z, nr:] == 0).all()),
+                    "dx: dead rows not exactly 0")
+            require(bool((outs["da"][0][z, :, rk:] == 0).all()),
+                    "da: columns past the rank not exactly 0")
+            require(bool((outs["db"][0][z, rk:] == 0).all()),
+                    "db: rows past the rank not exactly 0")
+        print(f"xa, sb_add {label:8s} {din:5d} {dout:5d}  {str(rows_t):22s} "
+              f"max_abs_err {errs['xa']:.3g}, {errs['sb_add']:.3g} (within "
+              f"one bf16 ulp of the plain versions)")
+        del outs, y
+        # --- timing, alternating between the two activation copies
+        timing = {
+            "ds": (lambda i: RL.ds(dys[i % 2], B, scale, rows, ranks),
+                   lambda i: ref.ranklocal_ds_ref(dys[i % 2], B, scale, rows,
+                                                  ranks),
+                   lambda i: torch.bmm(dys[i % 2], B_lib)),
+            "dx": (lambda i: RL.dx(dss[i % 2], A, rows, ranks),
+                   lambda i: ref.ranklocal_dx_ref(dss[i % 2], A, rows, ranks),
+                   lambda i: torch.bmm(dss[i % 2], A_lib)),
+            "da": (lambda i: RL.da(xs[i % 2], dss[i % 2], rows, ranks),
+                   lambda i: ref.ranklocal_da_ref(xs[i % 2], dss[i % 2],
+                                                  rows, ranks),
+                   lambda i: torch.bmm(xs[i % 2].transpose(1, 2),
+                                       dss[i % 2])),
+            "db": (lambda i: RL.db(ss[i % 2], dys[i % 2], scale, rows,
+                                   ranks),
+                   lambda i: ref.ranklocal_db_ref(ss[i % 2], dys[i % 2],
+                                                  scale, rows, ranks),
+                   lambda i: torch.bmm(ss[i % 2].transpose(1, 2),
+                                       dys[i % 2])),
+        }
+        # the bytes each function must move (inputs read once, outputs
+        # written once, live rows/ranks only) and its flops
+        sum_rr = sum(rk * nr for rk, nr in zip(live, nrows))
+        rows_x = sum(nr for nr, rk in zip(nrows, live) if rk)
+        work = {
+            "ds": (rows_x * dout * 2 + sum(live) * dout * 4 + Z * T * r * 2,
+                   2 * sum_rr * dout),
+            "dx": (sum_rr * 2 + sum(live) * din * 4 + Z * T * din * 2,
+                   2 * sum_rr * din),
+            "da": (rows_x * din * 2 + sum_rr * 2 + Z * din * r * 4,
+                   2 * sum_rr * din),
+            "db": (sum_rr * 2 + rows_x * dout * 2 + Z * r * dout * 4,
+                   2 * sum_rr * dout),
+        }
+        for name, (kern, plain, lib) in timing.items():
+            ms, _ = time_ms(torch, kern, 10)
+            plain_ms, _ = time_ms(torch, plain, 10)
+            lib_ms, _ = time_ms(torch, lib, 10)
+            bound_ms, bound_by = bound(*work[name])
+            print(f"{name:7s} {label:8s} {din:5d} {dout:5d}  "
+                  f"{str(rows_t):22s} {ms:9.5f} {plain_ms:9.5f} "
+                  f"{lib_ms:9.5f}  {bound_ms:9.6f} {bound_by:10s} "
+                  f"{errs[name]:.3g}")
+            if (label, din, dout) == ("train", 2560, 2560):
+                results[name].update(ms=ms, plain_ms=plain_ms,
+                                     library_ms=lib_ms, bound_ms=bound_ms,
+                                     bound_by=bound_by)
+        del xs, dys, ss, dss, timing
+        torch.cuda.empty_cache()
+    return results
+
+
+def _train_lora(torch, cfg, M, LORA):
+    """Slot-stacked adapters at TRAIN_RANKS: A from the LoRA init, B ~
+    N(0, 0.003) inside each true rank (B = 0, the init, would make dS = 0
+    and hide ds, dx and da), garbage in the padded rank region."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ranks = torch.tensor(TRAIN_RANKS, dtype=torch.int32, device=dev)
+    lora = LORA.init_lora_tree(gen, cfg, len(TRAIN_RANKS), ranks,
+                               M.target_shapes(cfg))
+    pad = 1.0 - LORA.rank_mask(ranks, cfg.lora.r_max)          # [Z, r]
+    for ab in lora.values():
+        ab["B"].normal_(0.0, 0.003, generator=gen)
+        ab["B"].mul_(1.0 - pad[None, :, :, None])
+        ab["B"].add_(torch.randn(ab["B"].shape, generator=gen, device=dev)
+                     * pad[None, :, :, None])
+        ab["A"].add_(torch.randn(ab["A"].shape, generator=gen, device=dev)
+                     * pad[None, :, None, :])
+    return lora, ranks
+
+
+def _rank_sweep_data(cfg):
+    from repro_torch.data.synthetic import make_task_dataset
+    return make_task_dataset("rank-sweep", cfg.vocab_size, seq_len=TRAIN_S,
+                             num_train=64, num_val=EVAL_B, difficulty=0.3,
+                             seed=0)
+
+
+def train_check(torch, cfg, params):
+    """One full-size train step with the kernels against the same step on
+    their plain versions (LoRA backend "torch": autograd through them),
+    per slot: loss, grad norm, and the relative RMS of dA and dB over all
+    224 projections; then four planted faults in the plain run, each of
+    which must break the bars: three in the backward, and one in the
+    forward (slot 0's LoRA delta halved) that must break the loss bar
+    itself."""
+    import contextlib
+
+    from repro_torch.core import lora as LORA
+    from repro_torch.core import steps as STEPS
+    from repro_torch.data.synthetic import SlotBatcher
+    from repro_torch.kernels.grouped_lora import ref
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    dev = "cuda"
+    Z = len(TRAIN_RANKS)
+    lora, ranks = _train_lora(torch, cfg, M, LORA)
+    nb = SlotBatcher(_rank_sweep_data(cfg), Z, TRAIN_B, seed=0)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in nb.next_batch_dict().items()}
+    batch["slot_ranks"] = ranks
+    active = torch.ones((Z,), dtype=torch.int32, device=dev)
+
+    def step(backend):
+        """make_train_step on copies of the adapters and fresh moments."""
+        tree = {t: {m: x.clone() for m, x in ab.items()}
+                for t, ab in lora.items()}
+        opt = adamw.init_state(tree, Z)
+        hp = adamw.SlotHParams.broadcast(Z, lr=1e-4, device=dev)
+        with LORA.backend(backend):
+            _, _, met = STEPS.make_train_step(cfg)(params, tree, opt, hp,
+                                                   active, ranks, batch)
+        return met["per_slot_loss"], met["grad_norm"]
+
+    def grads_of(tree, backend):
+        with LORA.backend(backend):
+            return STEPS.lora_grads(cfg, params, tree, batch, active)
+
+    def grads(backend):
+        return grads_of(lora, backend)
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    k_loss, k_norm = step("kernel")
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t
+    p_loss, p_norm = step("torch")
+    torch.cuda.synchronize()
+    print(f"train check: {cfg.name} full size, Z={Z} ranks {TRAIN_RANKS}, "
+          f"b={TRAIN_B} S={TRAIN_S}; one make_train_step with the kernels "
+          f"{t_k:.2f} s (first, cold), then on the plain versions")
+    _, gk = grads("kernel")
+    _, gp = grads("torch")
+
+    def rel_rms(a, b, m):
+        """Per slot ||a - b|| / ||gp|| over leaf ``m`` of every target,
+        normalized by the sound plain run's gradient."""
+        num = den = 0.0
+        for t in b:
+            dims = (0, 2, 3)
+            num = num + (a[t][m] - b[t][m]).float().square().sum(dims)
+            den = den + gp[t][m].float().square().sum(dims)
+        return (num / den).sqrt()
+
+    def gap(loss, norm, g):
+        """Kernel run vs a plain run, relative to the sound plain run."""
+        return {"loss": ((k_loss - loss).abs() / p_loss.abs()).tolist(),
+                "grad_norm": ((k_norm - norm).abs() / p_norm).tolist(),
+                "dA": rel_rms(gk, g, "A").tolist(),
+                "dB": rel_rms(gk, g, "B").tolist()}
+
+    bars = {"loss": TRAIN_LOSS_REL, "grad_norm": TRAIN_NORM_REL,
+            "dA": TRAIN_GRAD_REL_RMS, "dB": TRAIN_GRAD_REL_RMS}
+
+    def within(g):
+        return all(max(g[k]) <= bars[k] for k in bars)
+
+    def show(g):
+        return "; ".join(f"{k} {[float(f'{v:.4g}') for v in g[k]]}"
+                         for k in bars)
+
+    sound = gap(p_loss, p_norm, gp)
+    print(f"train check: kernels vs plain per slot (relative): "
+          f"{show(sound)}; bars {bars}")
+    require(bool(torch.isfinite(k_loss).all()
+                 and torch.isfinite(k_norm).all()),
+            "train step losses or grad norms not finite")
+    require(within(sound), "kernel train step too far from the plain one")
+
+    # planted faults in the plain run, each held to the same bars
+    def faulted(leaf, z, factor):
+        g = {t: {m: x.clone() for m, x in ab.items()} for t, ab in gp.items()}
+        for ab in g.values():
+            ab[leaf][:, z] *= factor
+        return g
+
+    @contextlib.contextmanager
+    def lora_dx_dropped():
+        """The plain LoRA branch with its dX dropped (x detached): the
+        earlier layers no longer see the adapters' share of the
+        gradient."""
+        plain = ref.ranklocal_lora_ref
+
+        def no_dx(x, *args, **kw):
+            return plain(x.detach(), *args, **kw)
+        ref.ranklocal_lora_ref = no_dx
+        try:
+            yield
+        finally:
+            ref.ranklocal_lora_ref = plain
+
+    g0 = faulted("A", 0, 0.0)
+    g3 = faulted("B", Z - 1, 0.5)
+    with lora_dx_dropped():
+        f_loss, g_nodx = grads("torch")
+    controls = [
+        (f"slot 0 (rank {TRAIN_RANKS[0]}) dA zeroed", p_loss, g0),
+        (f"slot {Z - 1} (rank {TRAIN_RANKS[-1]}) dB halved", p_loss, g3),
+        ("LoRA branch dX dropped", f_loss, g_nodx),
+    ]
+    for what, loss, g in controls:
+        c = gap(loss, adamw.per_slot_global_norm(g), g)
+        print(f"train check: control, {what}: {show(c)}")
+        require(not within(c), f"control '{what}' passes the train bars")
+    del g0, g3, g_nodx
+    # the forward fault: slot 0's delta halved (its B halved) in the plain
+    # forward; the loss alone must tell it from the kernels' rounding
+    half = {t: {"A": ab["A"], "B": ab["B"].clone()} for t, ab in lora.items()}
+    for ab in half.values():
+        ab["B"][:, 0] *= 0.5
+    h_loss, g_half = grads_of(half, "torch")
+    c = gap(h_loss, adamw.per_slot_global_norm(g_half), g_half)
+    print(f"train check: control, slot 0 (rank {TRAIN_RANKS[0]}) delta "
+          f"halved in the forward: {show(c)}")
+    require(max(c["loss"]) > TRAIN_LOSS_REL,
+            "control 'slot 0 delta halved' passes the loss bar")
+    del gk, gp, g_half, half, lora
+    torch.cuda.empty_cache()
+
+
+def executor_phase(torch, RL, cfg, params):
+    """The rank sweep through the port's entry point: BatchedExecutor
+    .run_task on full-size stablelm-3b, 8 jobs (ranks 4/8/16/32 x lr
+    1e-4/1e-3) on 4 slots. Every fused train step and every eval step is
+    wrapped to count its kernel launches and time it; two train steps of
+    the second warmup wave run under torch.profiler."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.early_exit import EarlyExitConfig
+    from repro_torch.core.executor import BatchedExecutor, TaskResult
+
+    sync = torch.cuda.synchronize
+    Z = len(TRAIN_RANKS)
+    per_forward = len(cfg.lora.targets) * cfg.num_layers
+    # the first layer's q/k/v read the normed embedding, which hangs off
+    # no differentiable leaf, so their LoRA dX is never asked for
+    no_dx = len({"q_proj", "k_proj", "v_proj"} & set(cfg.lora.targets))
+    want_train = {"xa": 2 * per_forward, "sb_add": 2 * per_forward,
+                  "ds": per_forward, "dx": per_forward - no_dx,
+                  "da": per_forward, "db": per_forward}
+    want_eval = {k: (per_forward if k in ("xa", "sb_add") else 0)
+                 for k in RL.LAUNCHES}
+    jobs = {f"r{r}-lr{lr:g}": TrainConfig(learning_rate=lr, lora_rank=r,
+                                          per_adapter_batch=TRAIN_B)
+            for r in TRAIN_RANKS for lr in (1e-4, 1e-3)}
+    bx = BatchedExecutor(cfg, params, _rank_sweep_data(cfg), Z=Z,
+                         per_adapter_batch=TRAIN_B,
+                         ee=EarlyExitConfig(warmup_ratio=0.25,
+                                            select_ratio=0.25),
+                         eval_every=2)
+    ex = bx.backbone
+    # per step: (launch deltas, ms, real tokens, profiled, resident slots)
+    log = {"train": [], "eval": []}
+    prof = {"busy_us": 0.0, "wall_us": 0.0, "kernels": {}}
+    traces = []
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def counted(fn, kind):
+        def run(*args):
+            tokens = ex.slots.occupied_tokens()
+            residents = len(ex.slots.occupied())
+            profiled = kind == "train" and len(log["train"]) in (2, 3)
+            before = dict(RL.LAUNCHES)
+            sync()
+            t = time.perf_counter()
+            if profiled:
+                with torch.profiler.profile(activities=acts) as p:
+                    out = fn(*args)
+                    sync()
+            else:
+                out = fn(*args)
+                sync()
+            dt = time.perf_counter() - t
+            delta = {k: RL.LAUNCHES[k] - before[k] for k in before}
+            log[kind].append((delta, dt * 1e3, tokens, profiled, residents))
+            if profiled:     # its events are read after run_task
+                prof["wall_us"] += dt * 1e6
+                traces.append(p)
+            return out
+        return run
+
+    ex._train_step = counted(ex._train_step, "train")
+    ex._eval_step = counted(ex._eval_step, "eval")
+    # seconds of the run_task wall spent in each executor operation around
+    # the steps (device work synced on both sides)
+    spent = {}
+
+    def clocked(name):
+        fn = getattr(ex, name)
+
+        def run(*args, **kw):
+            sync()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            sync()
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t
+            return out
+        setattr(ex, name, run)
+
+    for name in ("_assemble", "eval_task", "snapshot", "restore", "admit",
+                 "evict", "adapter_at"):
+        clocked(name)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    RL.reset_launches()
+    t0 = time.perf_counter()
+    result = bx.run_task("rank-sweep", jobs, total_steps=8)
+    wall = time.perf_counter() - t0
+    launches = dict(RL.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for p in traces:
+        for e in p.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                n, us = prof["kernels"].get(e.name, (0, 0.0))
+                us_e = e.time_range.elapsed_us()
+                prof["kernels"][e.name] = (n + 1, us + us_e)
+                prof["busy_us"] += us_e
+    del traces
+
+    require(isinstance(result, TaskResult) and result.best_job in jobs,
+            f"run_task returned {result!r}")
+    finite = [r.best_val for r in result.job_results.values()
+              if r.exit_reason is None or r.exit_reason.value != "diverging"]
+    require(all(v == v and abs(v) < float("inf") for v in finite),
+            f"non-finite val losses {finite}")
+    for kind, want in (("train", want_train), ("eval", want_eval)):
+        bad = [d for d, *_ in log[kind] if d != want]
+        require(log[kind] and not bad,
+                f"{kind} steps launched {bad[:2]}, expected {want} each")
+    n_train, n_eval = len(log["train"]), len(log["eval"])
+    require(all(launches[k] == n_train * want_train[k]
+                + n_eval * want_eval[k] for k in launches),
+            f"run launches {launches}")
+    # all work over all the time: the real tokens of every fused train
+    # step over the whole run_task wall (batch assembly, copies to the
+    # card, loss reads, evals, rotations, the cold first step and the two
+    # profiled steps included), and the same without the profiled windows
+    trained = sum(tok for _, _, tok, _, _ in log["train"])
+    prof_tok = sum(tok for _, _, tok, p, _ in log["train"] if p)
+    run_tok_s = trained / wall
+    run_tok_s_np = (trained - prof_tok) / (wall - prof["wall_us"] / 1e6)
+    # one _train_step call (its device work synced), warm and unprofiled,
+    # by the number of resident slots
+    by_res = {}
+    for _, ms, tok, p, k in log["train"][1:]:
+        if not p:
+            by_res.setdefault(k, []).append((ms, tok))
+    eval_ms = statistics.median(ms for _, ms, *_ in log["eval"][1:])
+    print(f"executor: BatchedExecutor.run_task('rank-sweep', 8 jobs, "
+          f"total_steps=8) on {cfg.name}: best {result.best_job} "
+          f"(val {result.best_val:.4f}), exits {result.exit_counts}, "
+          f"saved {result.samples_saved_frac:.3f} of the samples; "
+          f"{n_train} fused train steps, {n_eval} eval steps in {wall:.1f} s")
+    print(f"executor: launches per train step {want_train}, per eval step "
+          f"{want_eval} (every step checked); run total {launches}")
+    print(f"executor: run_task wall {wall:.3f} s for {trained} real trained "
+          f"tokens = {run_tok_s:.1f} tokens/s over the whole run (every "
+          f"step, eval and rotation included); {run_tok_s_np:.1f} tokens/s "
+          f"without the two profiled steps' windows and tokens")
+    train_s = sum(ms for _, ms, *_ in log["train"]) / 1e3
+    eval_s = sum(ms for _, ms, *_ in log["eval"]) / 1e3
+    parts = {"train steps": train_s, **spent}
+    print(f"executor: run_task wall {wall:.3f} s = " + " + ".join(
+        f"{k} {v:.3f} s" for k, v in parts.items())
+        + f" + other {wall - sum(parts.values()):.3f} s (eval_task holds "
+        f"the eval steps' {eval_s:.3f} s; the train steps hold the two "
+        f"profiled ones' {prof['wall_us'] / 1e6:.3f} s)")
+    for k, steps in sorted(by_res.items(), reverse=True):
+        ms = [m for m, _ in steps]
+        print(f"executor: {k} resident slots: median _train_step call "
+              f"{statistics.median(ms):.2f} ms over {len(ms)} warm "
+              f"unprofiled steps (min {min(ms):.2f}, max {max(ms):.2f}), "
+              f"{sum(t for _, t in steps) / sum(ms) * 1e3:.1f} real tokens/s "
+              f"within the calls")
+    print(f"executor: first train step {log['train'][0][1]:.1f} ms (cold); "
+          f"median eval step {eval_ms:.2f} ms ([{Z}, {EVAL_B}, {TRAIN_S}] "
+          f"tokens); peak memory {peak / 2**30:.2f} GiB")
+    busy, pw = prof["busy_us"], prof["wall_us"]
+    print(f"profile: 2 train steps (profiler on) {pw / 2e3:.2f} ms/step wall,"
+          f" device busy {busy / 2e3:.2f} ms/step = {busy / pw:.3f} of the "
+          f"wall, {sum(n for n, _ in prof['kernels'].values()) / 2:.0f} "
+          f"device events/step" if busy else
+          "profile: no device events traced: not measured")
+    for name, (n, us) in sorted(prof["kernels"].items(),
+                                key=lambda kv: -kv[1][1])[:10]:
+        print(f"profile:   {us / 2e3:8.3f} ms/step {n // 2:5d}/step "
+              f"{name[:90]}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -451,8 +985,10 @@ def main() -> int:
               "from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.registry import get_arch
     from repro_torch.kernels.grouped_lora import ranklocal as RL
     from repro_torch.kernels.grouped_lora import ref
+    from repro_torch.models import model as M
 
     t_all = time.perf_counter()
     card = card_line()
@@ -467,18 +1003,39 @@ def main() -> int:
 
     print(f"kernels on {card}:")
     kern = kernel_phase(torch, RL, ref)
-    from repro_torch.configs.registry import get_arch
-    launches = serve_phase(torch, RL, get_arch("stablelm-3b"))
+    for name, res in backward_kernel_phase(torch, RL, ref).items():
+        err = max(res["max_abs_err"], kern.get(name, {}).get("max_abs_err",
+                                                              0.0))
+        kern.setdefault(name, {}).update(res, max_abs_err=err)
+    print(f"kernel phases done at {time.perf_counter() - t_all:.1f} s")
 
-    src = "src/repro_torch/kernels/grouped_lora/csrc/ranklocal.cu"
-    table = {"kernels": [
-        {"name": "ranklocal_xa", "route": "cuda", "source": src,
-         "replaces": "src/repro/kernels/grouped_lora/ranklocal.py:97",
-         "launches": launches["xa"], **kern["xa"]},
-        {"name": "ranklocal_sb_add", "route": "cuda", "source": src,
-         "replaces": "src/repro/kernels/grouped_lora/ranklocal.py:187",
-         "launches": launches["sb_add"], **kern["sb_add"]},
-    ]}
+    cfg = get_arch("stablelm-3b")
+    t = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"init: {cfg.name} backbone in {time.perf_counter() - t:.1f} s")
+    serve_launches = serve_phase(torch, RL, cfg, params)
+    torch.cuda.empty_cache()
+    print(f"serve phase done at {time.perf_counter() - t_all:.1f} s")
+    train_check(torch, cfg, params)
+    print(f"train check done at {time.perf_counter() - t_all:.1f} s")
+    train_launches = executor_phase(torch, RL, cfg, params)
+    print(f"executor phase done at {time.perf_counter() - t_all:.1f} s")
+
+    fwd = "src/repro_torch/kernels/grouped_lora/csrc/ranklocal.cu"
+    bwd = "src/repro_torch/kernels/grouped_lora/csrc/ranklocal_bwd.cu"
+    tpu = "src/repro/kernels/grouped_lora/ranklocal.py"
+    rows = [("xa", fwd, 97), ("sb_add", fwd, 187), ("ds", bwd, 240),
+            ("dx", bwd, 297), ("da", bwd, 355), ("db", bwd, 407)]
+    table = {"kernels": []}
+    for name, src, line in rows:
+        by_path = {"train": train_launches[name]}
+        if name in serve_launches:
+            by_path["serve"] = serve_launches[name]
+        table["kernels"].append({
+            "name": f"ranklocal_{name}", "route": "cuda", "source": src,
+            "replaces": f"{tpu}:{line}", "launches": sum(by_path.values()),
+            "launches_by_path": by_path, **kern[name]})
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(card_line())
     print(json.dumps(table))

@@ -5,17 +5,23 @@ Both packages keep parameters as nested dicts with identical keys and
 Leaves come in as numpy arrays (``np.asarray`` of a JAX array); bf16 may
 arrive either as the ``bfloat16`` numpy dtype or as raw ``uint16`` bits
 (the way the checkpoint format stores it), and goes out as ``uint16``
-bits. Tests use it to give both packages the same weights.
+bits. Tests use it to give both packages the same weights, and — for
+training — the same optimizer moments (``AdamWState``), per-slot
+hyperparameters (``SlotHParams``) and rotated-out job state
+(``SlotSnapshot``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.adapter_state import SlotSnapshot
 from repro_torch.models.common import resolve_device
+from repro_torch.optim.adamw import AdamWState, SlotHParams
 
 
 def tensor_from_numpy(arr: Any, device) -> torch.Tensor:
@@ -67,3 +73,49 @@ def params_to_numpy(params: Dict) -> Dict:
 
 def lora_to_numpy(tree: Dict) -> Dict:
     return _map(tree, tensor_to_numpy)
+
+
+def adamw_state_from_numpy(state: Any, device=None) -> AdamWState:
+    """The port's AdamWState from anything with ``mu``, ``nu`` (trees) and
+    ``count`` ([Z] int) — e.g. the JAX package's AdamWState with numpy
+    leaves."""
+    dev = resolve_device(device)
+    conv = lambda a: tensor_from_numpy(a, dev)
+    return AdamWState(mu=_map(state.mu, conv), nu=_map(state.nu, conv),
+                      count=conv(np.asarray(state.count, np.int32)))
+
+
+def adamw_state_to_numpy(state: AdamWState) -> Dict:
+    """{"mu", "nu", "count"} as numpy (the JAX AdamWState's fields)."""
+    return {"mu": _map(state.mu, tensor_to_numpy),
+            "nu": _map(state.nu, tensor_to_numpy),
+            "count": tensor_to_numpy(state.count)}
+
+
+def hparams_from_numpy(hp: Any, device=None) -> SlotHParams:
+    """SlotHParams from anything with its five [Z] fields."""
+    dev = resolve_device(device)
+    return SlotHParams(*(tensor_from_numpy(
+        np.asarray(getattr(hp, f), np.float32), dev)
+        for f in SlotHParams._fields))
+
+
+def snapshot_from_numpy(snap: Any) -> SlotSnapshot:
+    """A host SlotSnapshot (CPU tensors) from one with numpy leaves — e.g.
+    the JAX package's."""
+    conv = lambda a: tensor_from_numpy(a, "cpu")
+    return SlotSnapshot(
+        job_id=snap.job_id, lora=_map(snap.lora, conv),
+        mu=_map(snap.mu, conv), nu=_map(snap.nu, conv),
+        count=int(snap.count), rank=int(snap.rank),
+        per_adapter_batch=int(snap.per_adapter_batch),
+        seq_len=int(snap.seq_len))
+
+
+def snapshot_to_numpy(snap: SlotSnapshot) -> Dict:
+    """The SlotSnapshot's fields with numpy leaves (keyword arguments of
+    the JAX package's SlotSnapshot)."""
+    d = {f.name: getattr(snap, f.name) for f in dataclasses.fields(snap)}
+    for k in ("lora", "mu", "nu"):
+        d[k] = _map(d[k], tensor_to_numpy)
+    return d

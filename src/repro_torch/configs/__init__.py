@@ -1,4 +1,5 @@
 """Config system: dataclasses and the architectures the port runs."""
-from repro_torch.configs.base import (LoRAConfig, ModelConfig, RoPEConfig)
+from repro_torch.configs.base import (LoRAConfig, ModelConfig, RoPEConfig,
+                                      TrainConfig)
 
-__all__ = ["LoRAConfig", "ModelConfig", "RoPEConfig"]
+__all__ = ["LoRAConfig", "ModelConfig", "RoPEConfig", "TrainConfig"]

@@ -4,8 +4,9 @@ The port imports nothing of the JAX package, so the dataclasses and
 ``reduced()`` are copied here unchanged; the two packages must agree on
 every field so that a test can hand the same configuration to both.
 
-The input-shape, mesh and training-hyperparameter configs of the JAX
-package come with the slices that use them.
+``TrainConfig`` (per-job training hyperparameters) is copied too; the
+input-shape and mesh configs of the JAX package come with the slices that
+use them.
 
 Design rules:
   * No config object ever touches device state at import time.
@@ -244,3 +245,23 @@ class ModelConfig:
             lora=replace(self.lora, r_max=8),
             num_modality_tokens=min(self.num_modality_tokens, 8),
         )
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Per-job training hyperparameters (one point in the search space)."""
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.01
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    lora_rank: int = 16
+    per_adapter_batch: int = 4
+    max_steps: int = 100
+    warmup_steps: int = 0
+    grad_clip: float = 1.0
+    seed: int = 0
+
+    def label(self) -> str:
+        return (f"lr{self.learning_rate:g}_r{self.lora_rank}"
+                f"_b{self.per_adapter_batch}_s{self.seed}")

@@ -11,14 +11,20 @@ dimension: ``lora_delta`` goes to the rank-local grouped-LoRA kernels
 (``kernels/grouped_lora``), which skip dead rank tiles and never read the
 padded region into the output.
 
-``lora_delta`` under ``slot_ranks`` with the default ``"kernel"`` backend
-calls ``ranklocal_grouped_lora`` (the CUDA kernels for CUDA tensors, their
-plain versions for CPU tensors). The ``"torch"`` backend computes the same
-function with the kernels' plain versions on any device — the reference a
-run on the card compares its kernels against. Without a ``slot_ranks``
-binding the delta is plain PyTorch math (the JAX package's ``jnp`` path):
-the dense and ragged kernels that path reaches come with the training
-slice.
+``lora_delta`` is differentiable in x, A and B on both backends. Under
+``slot_ranks`` the default ``"kernel"`` backend calls
+``ranklocal_grouped_lora`` (an autograd Function over the six CUDA
+kernels for CUDA tensors, their plain versions for CPU tensors); the
+``"torch"`` backend takes autograd through the kernels' plain versions on
+any device — the reference a run on the card compares its kernels
+against. Without a ``slot_ranks`` binding the delta is plain PyTorch math
+(the JAX package's ``jnp`` path): the dense and ragged kernels that path
+reaches are not ported yet.
+
+The bindings are thread-local. A step that recomputes layers during the
+backward pass (``torch.utils.checkpoint``; on the card autograd runs the
+backward in its own thread) captures them with ``current_binding()`` and
+re-enters them with ``bound()``.
 """
 from __future__ import annotations
 
@@ -91,6 +97,21 @@ def slot_ranks(ranks: Optional[torch.Tensor]):
 
 def get_slot_ranks() -> Optional[torch.Tensor]:
     return getattr(_backend, "ranks", None)
+
+
+def current_binding() -> Tuple[str, Optional[torch.Tensor],
+                               Optional[torch.Tensor]]:
+    """(backend, ragged rows, slot ranks) bound in this thread."""
+    return get_backend(), get_ragged_rows(), get_slot_ranks()
+
+
+@contextlib.contextmanager
+def bound(binding: Tuple[str, Optional[torch.Tensor],
+                         Optional[torch.Tensor]]):
+    """Re-enter a binding taken with ``current_binding()``."""
+    name, rows, ranks = binding
+    with backend(name), ragged_rows(rows), slot_ranks(ranks):
+        yield
 
 
 def _apply_row_mask(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -203,13 +224,15 @@ def init_lora_tree(gen: torch.Generator, cfg: ModelConfig, Z: int,
 
 
 def mask_lora_tree(tree: Dict, ranks: torch.Tensor, r_max: int) -> Dict:
-    """Re-apply rank masks to a stacked LoRA tree."""
-    out = {}
-    for t, ab in tree.items():
-        m = rank_mask(ranks.to(ab["A"].device), r_max)   # [Z, r]
-        out[t] = {"A": ab["A"] * m[None, :, None, :],
-                  "B": ab["B"] * m[None, :, :, None]}
-    return out
+    """Re-apply rank masks to a stacked LoRA tree IN PLACE (the JAX
+    package returns a new tree; the post-step re-mask here multiplies the
+    slot-stacked tensors where they lie); returns the same tree."""
+    with torch.no_grad():
+        for ab in tree.values():
+            m = rank_mask(ranks.to(ab["A"].device), r_max)   # [Z, r]
+            ab["A"].mul_(m[None, :, None, :])
+            ab["B"].mul_(m[None, :, :, None])
+    return tree
 
 
 def slot_update(tree: Dict, slot: int, new_tree_slot: Dict) -> Dict:

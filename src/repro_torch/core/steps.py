@@ -1,19 +1,116 @@
-"""Serving steps: prefill / serve / lane prefill / join+decode.
+"""Step builders: train / eval / prefill / serve / lane prefill /
+join+decode.
 
 Each ``make_*`` returns a plain function (PyTorch runs eagerly; the JAX
 package ``jit``-compiles the same functions). The base ``params`` are
-frozen and serving takes no gradients: callers run the steps under
-``torch.inference_mode()``. The training and eval steps come with the
-training slice.
+frozen: gradients flow only through the slot-stacked LoRA tree. Serving
+takes no gradients, and its callers run the serving steps under
+``torch.inference_mode()``; the train step's LoRA and optimizer tensors
+must not be inference tensors (autograd cannot save those).
 """
 from __future__ import annotations
 
-from typing import Callable
+import contextlib
+from typing import Callable, Dict, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import losses as LS
+from repro_torch.core import lora as LORA
 from repro_torch.models import model as M
+from repro_torch.optim import adamw
+
+
+@contextlib.contextmanager
+def _bind(batch: Dict):
+    """Pop ``slot_rows``/``slot_ranks`` off ``batch`` (a copy) and bind
+    them around the loss; yields the remaining batch."""
+    batch = dict(batch)
+    slot_rows = batch.pop("slot_rows", None)
+    slot_ranks = batch.pop("slot_ranks", None)
+    with LORA.ragged_rows(slot_rows), LORA.slot_ranks(slot_ranks):
+        yield batch
+
+
+def lora_grads(cfg: ModelConfig, params: Dict, lora: Dict, batch: Dict,
+               active: torch.Tensor, *, loss_kind: str = "sft"
+               ) -> Tuple[torch.Tensor, Dict]:
+    """(per-slot loss [Z], gradient tree) of the summed active per-slot
+    loss with respect to the LoRA leaves only (the backbone is frozen).
+    ``batch`` may carry ``slot_rows``/``slot_ranks`` as ``make_train_step``
+    describes."""
+    LS.check_loss_kind(loss_kind)
+    keys = [(t, m) for t in sorted(lora) for m in sorted(lora[t])]
+    leaves = {t: {m: x.detach().requires_grad_(True)
+                  for m, x in ab.items()} for t, ab in lora.items()}
+    # per-layer views taken once: indexing a stacked [L, ...] leaf once per
+    # layer would hand autograd L full-size gradients per leaf to sum (L^2
+    # traffic); unbind's backward stacks the L layer gradients once
+    layered = {t: {m: x.unbind(0) for m, x in ab.items()}
+               for t, ab in leaves.items()}
+    with _bind(batch) as b:
+        total, per_slot = LS.sft_loss(cfg, params, layered, b, active)
+        flat = torch.autograd.grad(total, [leaves[t][m] for t, m in keys])
+    grads: Dict[str, Dict[str, torch.Tensor]] = {t: {} for t in lora}
+    for (t, m), g in zip(keys, flat):
+        grads[t][m] = g
+    return per_slot.detach(), grads
+
+
+def make_train_step(cfg: ModelConfig, *, loss_kind: str = "sft",
+                    remat: bool = True) -> Callable:
+    """train_step(params, lora, opt_state, hp, active, ranks, batch)
+    -> (lora', opt_state', metrics{per_slot_loss[Z], grad_norm[Z]}).
+
+    ``batch`` may carry ``slot_rows`` ([Z] int32, valid token rows per
+    slot in flattened b*seq units): ragged slot widths — LoRA deltas are
+    then computed over only each slot's own rows (zero delta and zero
+    gradient on padding rows). It may also carry ``slot_ranks`` ([Z]
+    int32, per-slot TRUE adapter ranks): LoRA deltas then take the
+    rank-local kernels, which confine each slot to its first ranks[z]
+    rank rows/columns (dead rank tiles skip their work, the padded rank
+    region gets exactly zero gradient, and the post-step rank re-mask is
+    redundant). ``lora'`` and ``opt_state'`` are the given tensors,
+    updated in place (``adamw.apply_updates``).
+
+    The forward is always rematerialized, one checkpoint per layer
+    (``models.model.forward``); ``remat=False`` is not ported and
+    raises."""
+    LS.check_loss_kind(loss_kind)
+    if not remat:
+        raise NotImplementedError("remat=False is not ported: the train "
+                                  "step checkpoints every layer")
+
+    def train_step(params, lora, opt_state, hp: adamw.SlotHParams,
+                   active: torch.Tensor, ranks: torch.Tensor, batch: Dict):
+        per_slot, grads = lora_grads(cfg, params, lora, batch, active,
+                                     loss_kind=loss_kind)
+        norms = adamw.per_slot_global_norm(grads)
+        new_lora, new_opt = adamw.apply_updates(
+            lora, grads, opt_state, hp, active,
+            rank_masker=lambda t: LORA.mask_lora_tree(t, ranks,
+                                                      cfg.lora.r_max))
+        return new_lora, new_opt, {"per_slot_loss": per_slot,
+                                   "grad_norm": norms}
+
+    return train_step
+
+
+def make_eval_step(cfg: ModelConfig, *, loss_kind: str = "sft") -> Callable:
+    """eval_step(params, lora, active, batch) -> per-slot val loss [Z].
+
+    ``batch`` may carry ``slot_ranks`` like the train step (eval rides the
+    same rank-local LoRA path as training on mixed-rank replicas). Runs
+    under ``torch.no_grad()``."""
+    LS.check_loss_kind(loss_kind)
+
+    def eval_step(params, lora, active, batch):
+        with torch.no_grad(), _bind(batch) as b:
+            _, per_slot = LS.sft_loss(cfg, params, lora, b, active)
+        return per_slot
+
+    return eval_step
 
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:

@@ -1,8 +1,9 @@
-"""Synthetic task datasets: a copy of ``repro.data.synthetic``'s sampler.
+"""Synthetic task datasets: a copy of ``repro.data.synthetic``.
 
-Only ``make_task_dataset`` and ``TaskDataset`` are copied (the serving CLI
-draws its prompts from them); for a given seed they give the same tokens as
-the JAX package's copy, so both CLIs serve the same prompts.
+``make_task_dataset``, ``TaskDataset`` and ``SlotBatcher`` are copied
+verbatim: for a given seed they give the same tokens and the same batches
+as the JAX package's, so both packages train and serve on identical data.
+The DPO ``PairSlotBatcher`` is not ported yet.
 
 The paper's GSM8K/Tulu-3/
 OpenThoughts3 are replaced by synthetic language-modeling *task families*
@@ -17,6 +18,7 @@ rather than scripted.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -66,3 +68,85 @@ def make_task_dataset(name: str, vocab_size: int, seq_len: int,
     val = sample(num_val, np.random.default_rng(seed + 2))
     return TaskDataset(name=name, train=train, val=val, vocab_size=V,
                        seed=seed)
+
+
+class SlotBatcher:
+    """Per-slot epoch-cycling batch streams, stacked to [Z, b, S].
+
+    Each slot has its own cursor/shuffle (independent jobs). ``b`` is the
+    slot's DEFAULT per-adapter batch size; ragged executors instead draw
+    per-lane via ``lane_batch_dict(lane, n)`` with the occupying job's own
+    width (paper §A.1 generalized to heterogeneous batch grouping). A
+    lane's stream depends only on its own draw history — never on which
+    other lanes exist or what they draw — which is what keeps a task's
+    batches identical whether it runs alone or co-located.
+    """
+
+    def __init__(self, ds: TaskDataset, Z: int, per_adapter_batch: int,
+                 seed: int = 0):
+        self.ds = ds
+        self.Z = Z
+        self.b = per_adapter_batch
+        self._rngs = [np.random.default_rng(seed * 1000 + z)
+                      for z in range(Z)]
+        self._perm = [self._rngs[z].permutation(ds.num_train)
+                      for z in range(Z)]
+        self._cursor = [0] * Z
+        self.epochs = [0] * Z
+
+    @property
+    def seq_len(self) -> int:
+        return self.ds.train.shape[1] - 1
+
+    def reset_slot(self, z: int, seed: Optional[int] = None) -> None:
+        if seed is not None:
+            self._rngs[z] = np.random.default_rng(seed)
+        self._perm[z] = self._rngs[z].permutation(self.ds.num_train)
+        self._cursor[z] = 0
+        self.epochs[z] = 0
+
+    def take(self, z: int, n: int) -> np.ndarray:
+        """Draw n rows from lane z's stream (epoch-cycling): [n, S+1]."""
+        idx = []
+        while len(idx) < n:
+            grab = min(n - len(idx), self.ds.num_train - self._cursor[z])
+            idx.extend(self._perm[z][self._cursor[z]:self._cursor[z] + grab])
+            self._cursor[z] += grab
+            if self._cursor[z] >= self.ds.num_train:
+                self._perm[z] = self._rngs[z].permutation(self.ds.num_train)
+                self._cursor[z] = 0
+                self.epochs[z] += 1
+        return self.ds.train[np.asarray(idx)]
+
+    def _slot_batch(self, z: int) -> np.ndarray:
+        return self.take(z, self.b)
+
+    def lane_batch_dict(self, lane: int, n: int) -> dict:
+        """One lane's ragged draw: {tokens [n,S], labels [n,S]}."""
+        rows = self.take(lane, n)
+        return {"tokens": rows[:, :-1].astype(np.int32),
+                "labels": rows[:, 1:].astype(np.int32)}
+
+    def next_batch(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Returns (tokens [Z,b,S], labels [Z,b,S])."""
+        rows = np.stack([self._slot_batch(z) for z in range(self.Z)])
+        return rows[:, :, :-1].astype(np.int32), rows[:, :, 1:].astype(np.int32)
+
+    def val_batch(self, max_rows: int = 64) -> Tuple[np.ndarray, np.ndarray]:
+        """Validation batch, same rows for every slot: [Z, n, S] x2."""
+        rows = self.ds.val[:max_rows]
+        n = (len(rows) // self.b) * self.b or len(rows)
+        rows = rows[:max(n, 1)]
+        stacked = np.broadcast_to(
+            rows[None], (self.Z, *rows.shape)).copy()
+        return (stacked[:, :, :-1].astype(np.int32),
+                stacked[:, :, 1:].astype(np.int32))
+
+    # dict interfaces (shared with the DPO pair batcher)
+    def next_batch_dict(self) -> dict:
+        t, l = self.next_batch()
+        return {"tokens": t, "labels": l}
+
+    def val_batch_dict(self, max_rows: int = 64) -> dict:
+        t, l = self.val_batch(max_rows)
+        return {"tokens": t, "labels": l}

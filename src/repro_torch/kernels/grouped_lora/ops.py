@@ -1,17 +1,27 @@
-"""Rank-local grouped LoRA forward over the two CUDA kernels.
+"""Differentiable rank-local grouped LoRA over the six CUDA kernels.
 
 ``ranklocal_grouped_lora(x, A, B, scale, ranks, rows=None, y_base=None)``
 == scale*(x@A)@B (+ y_base) with slot z confined to its first ranks[z]
 rank columns of A / rows of B (and its first rows[z] token rows).
 
-Forward only: serving runs under ``torch.inference_mode()``; the
-``torch.autograd.Function`` with the dS/dX/dA/dB kernels comes with the
-training slice. The JAX wrapper's padding to TPU tiles is gone (the
-kernels mask their own edges), and so is its ``_concrete_min`` dispatch
-of full-rank calls to the dense kernels: PyTorch always knows the ranks,
-so mirroring it would send an all-full-rank pool to dense kernels this
-slice does not port, while the JAX serving step (ranks traced under jit)
-always takes the rank-local path — as this function does.
+A ``torch.autograd.Function``, the counterpart of the JAX package's custom
+VJP (``src/repro/kernels/grouped_lora/ops.py:303-347``): the forward runs
+``xa`` then ``sb_add`` and caches S in x's dtype (paper §6.1, "the forward
+caches intermediate S"); the backward rounds dy to x's dtype and runs
+``ds``, then ``dx``, ``da`` and ``db``. ``scale``, ``ranks`` and ``rows``
+get no gradient; ``y_base`` gets dy. On CPU tensors each wrapper takes its
+plain version, so the Function computes the same function there.
+
+``dx`` runs only when x needs a gradient: in a training step that is every
+LoRA projection except those reading the embedding output directly (the
+first layer's q/k/v), whose input hangs off no differentiable leaf.
+
+The JAX wrapper's padding to TPU tiles is gone (the kernels mask their own
+edges), and so is its ``_concrete_min`` dispatch of full-rank calls to the
+dense kernels: PyTorch always knows the ranks, so mirroring it would send
+an all-full-rank mix to dense kernels not yet ported, while the jitted JAX
+steps (ranks traced) always take the rank-local path — as this function
+does whenever ranks are bound.
 """
 from __future__ import annotations
 
@@ -22,6 +32,33 @@ import torch
 from repro_torch.kernels.grouped_lora import ranklocal as RL
 
 
+class _RankLocalLoRA(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, A, B, scale, ranks, rows, y_base):
+        s = RL.xa(x, A, rows, ranks)
+        y = RL.sb_add(s, B, scale, rows, ranks, y_base)
+        ctx.save_for_backward(x, A, B, scale, ranks, rows, s)
+        ctx.has_base = y_base is not None
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, A, B, scale, ranks, rows, s = ctx.saved_tensors
+        need_x, need_a, need_b = ctx.needs_input_grad[:3]
+        dy = dy.to(x.dtype).contiguous()
+        dx = da = db = None
+        if need_x or need_a:
+            ds = RL.ds(dy, B, scale, rows, ranks)
+            if need_x:
+                dx = RL.dx(ds, A, rows, ranks)
+            if need_a:
+                da = RL.da(x, ds, rows, ranks)
+        if need_b:
+            db = RL.db(s, dy, scale, rows, ranks)
+        return dx, da, db, None, None, None, (dy if ctx.has_base else None)
+
+
 def ranklocal_grouped_lora(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                            scale: torch.Tensor | float, ranks: torch.Tensor,
                            rows: Optional[torch.Tensor] = None,
@@ -29,6 +66,10 @@ def ranklocal_grouped_lora(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                            ) -> torch.Tensor:
     """x: [Z,T,din]; A: [Z,din,r] and B: [Z,r,dout] fp32 masters (rounded
     to x's dtype inside the kernels); scale: float or [Z] fp32;
-    ranks/rows: [Z] int32. Returns [Z,T,dout] in x's dtype."""
-    s = RL.xa(x, A, rows, ranks)
-    return RL.sb_add(s, B, scale, rows, ranks, y_base)
+    ranks/rows: [Z] int32. Returns [Z,T,dout] in x's dtype,
+    differentiable in x, A, B and y_base."""
+    if not isinstance(scale, torch.Tensor):     # the model's float scale
+        scale = torch.full((x.shape[0],), float(scale), dtype=torch.float32,
+                           device=x.device)
+    return _RankLocalLoRA.apply(x.contiguous(), A.contiguous(),
+                                B.contiguous(), scale, ranks, rows, y_base)

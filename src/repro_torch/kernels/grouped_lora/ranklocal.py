@@ -1,18 +1,25 @@
-"""Rank-local grouped-LoRA forward kernels: CUDA wrappers and launch counts.
+"""Rank-local grouped-LoRA kernels: CUDA wrappers and launch counts.
 
-Port of ``src/repro/kernels/grouped_lora/ranklocal.py``'s forward pair:
+Port of ``src/repro/kernels/grouped_lora/ranklocal.py``'s six kernels:
 
   * ``xa``     — S = X @ A over rows < rows[z] and rank columns < ranks[z]
                  (``ranklocal.py:xa`` :88 / pallas_call :97);
   * ``sb_add`` — Y = (S @ B over rank < ranks[z]) * scale[z] (+ y_base)
-                 (``ranklocal.py:sb_add`` :165 / pallas_call :187).
+                 (``ranklocal.py:sb_add`` :165 / pallas_call :187);
+  * ``ds``     — dS = scale[z] * dY @ B^T (``ranklocal.py:ds`` :231 / :240);
+  * ``dx``     — dX = dS @ A^T (``ranklocal.py:dx`` :288 / :297);
+  * ``da``     — dA = X^T @ dS, fp32 (``ranklocal.py:da`` :346 / :355);
+  * ``db``     — dB = scale[z] * S^T @ dY, fp32 (``ranklocal.py:db``
+                 :398 / :407).
 
-The kernels are CUDA C++ for ``sm_90a`` in ``csrc/ranklocal.cu``, compiled
-by ``nvcc`` into a shared library with a plain C interface under ``build/``
-beside this file at first use, and called through ``ctypes``. A wrapper
-takes its plain PyTorch version (``ref.py``) only for tensors on the CPU;
-for CUDA tensors it launches the kernel or raises — there is no fallback.
-``LAUNCHES`` counts kernel launches (plain-version calls do not count).
+The kernels are CUDA C++ for ``sm_90a`` in ``csrc/ranklocal.cu`` (forward)
+and ``csrc/ranklocal_bwd.cu`` (backward), compiled by ``nvcc`` — one
+process per source, started together — and linked into a shared library
+with a plain C interface under ``build/`` beside this file at first use,
+and called through ``ctypes``. A wrapper takes its plain PyTorch version
+(``ref.py``) only for tensors on the CPU; for CUDA tensors it launches the
+kernel or raises — there is no fallback. ``LAUNCHES`` counts kernel
+launches (plain-version calls do not count).
 """
 from __future__ import annotations
 
@@ -30,13 +37,14 @@ import torch
 from repro_torch.kernels.grouped_lora import ref
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = (_HERE / "csrc" / "ranklocal.cu",)
+SOURCES = (_HERE / "csrc" / "ranklocal.cu", _HERE / "csrc" / "ranklocal_bwd.cu")
+HEADERS = (_HERE / "csrc" / "ranklocal_common.cuh",)
 BUILD_DIR = _HERE / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 # launches of each kernel since the last ``reset_launches()``
-LAUNCHES = {"xa": 0, "sb_add": 0}
+LAUNCHES = {"xa": 0, "sb_add": 0, "ds": 0, "dx": 0, "da": 0, "db": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib: Optional[ctypes.CDLL] = None
@@ -56,24 +64,45 @@ def _nvcc() -> str:
     return found
 
 
+def _run(procs) -> None:
+    """Wait for every nvcc process; raise with the output of any that
+    failed."""
+    errors = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{' '.join(cmd)} -> {proc.returncode}\n{out}\n{err}")
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+
+
 def build() -> Path:
-    """Compile ``csrc/*.cu`` into ``build/ranklocal-<hash>.so`` unless a
-    library of the same sources and flags is already there; returns its
-    path."""
+    """Compile ``SOURCES`` (one ``nvcc -c`` per source, all started
+    together) and link them into ``build/ranklocal-<hash>.so``, unless a
+    library of the same sources, headers and flags is already there;
+    returns its path."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     out = BUILD_DIR / f"ranklocal-{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    nvcc, tag = _nvcc(), f"tmp{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}-{tag}.o" for src in SOURCES]
+    compiles = []
+    for src, obj in zip(SOURCES, objs):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        compiles.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    _run(compiles)
+    tmp = out.with_suffix(f".{tag}.so")
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    _run([(link, subprocess.Popen(link, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True))])
     os.replace(tmp, out)
+    for obj in objs:
+        obj.unlink()
     return out
 
 
@@ -88,6 +117,12 @@ def _load() -> ctypes.CDLL:
             lib.rl_sb_add.argtypes = [P, P, P, ctypes.c_float, P, P, P, P,
                                       I, I, I, I, I, P]
             lib.rl_sb_add.restype = I
+            lib.rl_ds.argtypes = [P, P, P, P, P, P, I, I, I, I, I, P]
+            lib.rl_dx.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
+            lib.rl_da.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
+            lib.rl_db.argtypes = [P, P, P, P, P, P, I, I, I, I, I, P]
+            for fn in (lib.rl_ds, lib.rl_dx, lib.rl_da, lib.rl_db):
+                fn.restype = I
             _lib = lib
     return _lib
 
@@ -119,23 +154,37 @@ def _raise_if(err: int, name: str) -> None:
                            f"error {err}")
 
 
+def _on_card(name: str, t: torch.Tensor) -> bool:
+    """True for a CUDA tensor of a type the kernels take, False for a CPU
+    tensor (the plain version runs); raises for anything else."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    if t.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: activations must be fp32 or bf16, "
+                        f"not {t.dtype}")
+    return True
+
+
+def _check_counts(rows: Optional[torch.Tensor], ranks: torch.Tensor, Z: int,
+                  device: torch.device) -> None:
+    _check("ranks", ranks, torch.int32, (Z,), device)
+    if rows is not None:
+        _check("rows", rows, torch.int32, (Z,), device)
+
+
 def xa(x: torch.Tensor, A: torch.Tensor, rows: Optional[torch.Tensor],
        ranks: torch.Tensor) -> torch.Tensor:
     """x: [Z,T,din], A: [Z,din,r] fp32 -> S [Z,T,r] in x's dtype; entries
     past rows[z] / ranks[z] are exactly 0. ``rows=None`` = every row."""
-    if x.device.type == "cpu":
+    if not _on_card("xa", x):
         return ref.ranklocal_xa_ref(x, A, rows, ranks)
-    if x.device.type != "cuda":
-        raise ValueError(f"xa: unsupported device {x.device}")
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"xa: activations must be fp32 or bf16, not {x.dtype}")
     Z, T, din = x.shape
     r = A.shape[2]
     _check("x", x, x.dtype, (Z, T, din), x.device)
     _check("A", A, torch.float32, (Z, din, r), x.device)
-    _check("ranks", ranks, torch.int32, (Z,), x.device)
-    if rows is not None:
-        _check("rows", rows, torch.int32, (Z,), x.device)
+    _check_counts(rows, ranks, Z, x.device)
     s = torch.empty((Z, T, r), dtype=x.dtype, device=x.device)
     err = _load().rl_xa(x.data_ptr(), A.data_ptr(), s.data_ptr(),
                         _ptr(rows), ranks.data_ptr(), Z, T, din, r,
@@ -151,20 +200,13 @@ def sb_add(s: torch.Tensor, B: torch.Tensor, scale: torch.Tensor | float,
     """s: [Z,T,r], B: [Z,r,dout] fp32 -> Y [Z,T,dout] in s's dtype;
     ``scale`` is a float for every slot or a [Z] fp32 tensor. Dead rows and
     empty slots (rank 0) give a zero delta: the base passes through."""
-    if s.device.type == "cpu":
+    if not _on_card("sb_add", s):
         return ref.ranklocal_sb_add_ref(s, B, scale, rows, ranks, y_base)
-    if s.device.type != "cuda":
-        raise ValueError(f"sb_add: unsupported device {s.device}")
-    if s.dtype not in _DTYPE_CODE:
-        raise TypeError(f"sb_add: activations must be fp32 or bf16, "
-                        f"not {s.dtype}")
     Z, T, r = s.shape
     dout = B.shape[2]
     _check("s", s, s.dtype, (Z, T, r), s.device)
     _check("B", B, torch.float32, (Z, r, dout), s.device)
-    _check("ranks", ranks, torch.int32, (Z,), s.device)
-    if rows is not None:
-        _check("rows", rows, torch.int32, (Z,), s.device)
+    _check_counts(rows, ranks, Z, s.device)
     if y_base is not None:
         _check("y_base", y_base, s.dtype, (Z, T, dout), s.device)
     if isinstance(scale, torch.Tensor):
@@ -180,3 +222,87 @@ def sb_add(s: torch.Tensor, B: torch.Tensor, scale: torch.Tensor | float,
     _raise_if(err, "sb_add")
     LAUNCHES["sb_add"] += 1
     return y
+
+
+def ds(dy: torch.Tensor, B: torch.Tensor, scale: torch.Tensor,
+       rows: Optional[torch.Tensor], ranks: torch.Tensor) -> torch.Tensor:
+    """dy: [Z,T,dout] (x's dtype), B: [Z,r,dout] fp32, scale: [Z] fp32 ->
+    dS = scale[z] * dY @ B^T [Z,T,r] in dy's dtype; entries past ranks[z]
+    / rows[z] are exactly 0."""
+    if not _on_card("ds", dy):
+        return ref.ranklocal_ds_ref(dy, B, scale, rows, ranks)
+    Z, T, dout = dy.shape
+    r = B.shape[1]
+    _check("dy", dy, dy.dtype, (Z, T, dout), dy.device)
+    _check("B", B, torch.float32, (Z, r, dout), dy.device)
+    _check("scale", scale, torch.float32, (Z,), dy.device)
+    _check_counts(rows, ranks, Z, dy.device)
+    out = torch.empty((Z, T, r), dtype=dy.dtype, device=dy.device)
+    err = _load().rl_ds(dy.data_ptr(), B.data_ptr(), scale.data_ptr(),
+                        out.data_ptr(), _ptr(rows), ranks.data_ptr(), Z, T,
+                        dout, r, _DTYPE_CODE[dy.dtype], _stream(dy.device))
+    _raise_if(err, "ds")
+    LAUNCHES["ds"] += 1
+    return out
+
+
+def dx(ds_: torch.Tensor, A: torch.Tensor, rows: Optional[torch.Tensor],
+       ranks: torch.Tensor) -> torch.Tensor:
+    """ds: [Z,T,r], A: [Z,din,r] fp32 -> dX = dS @ A^T [Z,T,din] in ds's
+    dtype; only ranks < ranks[z] and rows < rows[z] contribute."""
+    if not _on_card("dx", ds_):
+        return ref.ranklocal_dx_ref(ds_, A, rows, ranks)
+    Z, T, r = ds_.shape
+    din = A.shape[1]
+    _check("ds", ds_, ds_.dtype, (Z, T, r), ds_.device)
+    _check("A", A, torch.float32, (Z, din, r), ds_.device)
+    _check_counts(rows, ranks, Z, ds_.device)
+    out = torch.empty((Z, T, din), dtype=ds_.dtype, device=ds_.device)
+    err = _load().rl_dx(ds_.data_ptr(), A.data_ptr(), out.data_ptr(),
+                        _ptr(rows), ranks.data_ptr(), Z, T, din, r,
+                        _DTYPE_CODE[ds_.dtype], _stream(ds_.device))
+    _raise_if(err, "dx")
+    LAUNCHES["dx"] += 1
+    return out
+
+
+def da(x: torch.Tensor, ds_: torch.Tensor, rows: Optional[torch.Tensor],
+       ranks: torch.Tensor) -> torch.Tensor:
+    """x: [Z,T,din], ds: [Z,T,r] (one dtype) -> dA = X^T @ dS [Z,din,r]
+    fp32 over rows < rows[z]; columns past ranks[z] are exactly 0."""
+    if not _on_card("da", x):
+        return ref.ranklocal_da_ref(x, ds_, rows, ranks)
+    Z, T, din = x.shape
+    r = ds_.shape[2]
+    _check("x", x, x.dtype, (Z, T, din), x.device)
+    _check("ds", ds_, x.dtype, (Z, T, r), x.device)
+    _check_counts(rows, ranks, Z, x.device)
+    out = torch.empty((Z, din, r), dtype=torch.float32, device=x.device)
+    err = _load().rl_da(x.data_ptr(), ds_.data_ptr(), out.data_ptr(),
+                        _ptr(rows), ranks.data_ptr(), Z, T, din, r,
+                        _DTYPE_CODE[x.dtype], _stream(x.device))
+    _raise_if(err, "da")
+    LAUNCHES["da"] += 1
+    return out
+
+
+def db(s: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+       rows: Optional[torch.Tensor], ranks: torch.Tensor) -> torch.Tensor:
+    """s: [Z,T,r], dy: [Z,T,dout] (one dtype), scale: [Z] fp32 ->
+    dB = scale[z] * S^T @ dY [Z,r,dout] fp32 over rows < rows[z]; rows
+    past ranks[z] are exactly 0."""
+    if not _on_card("db", s):
+        return ref.ranklocal_db_ref(s, dy, scale, rows, ranks)
+    Z, T, r = s.shape
+    dout = dy.shape[2]
+    _check("s", s, s.dtype, (Z, T, r), s.device)
+    _check("dy", dy, s.dtype, (Z, T, dout), s.device)
+    _check("scale", scale, torch.float32, (Z,), s.device)
+    _check_counts(rows, ranks, Z, s.device)
+    out = torch.empty((Z, r, dout), dtype=torch.float32, device=s.device)
+    err = _load().rl_db(s.data_ptr(), dy.data_ptr(), scale.data_ptr(),
+                        out.data_ptr(), _ptr(rows), ranks.data_ptr(), Z, T,
+                        dout, r, _DTYPE_CODE[s.dtype], _stream(s.device))
+    _raise_if(err, "db")
+    LAUNCHES["db"] += 1
+    return out

@@ -16,8 +16,10 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN_SLIDING, ModelConfig
+from repro_torch.core import lora as LORA
 from repro_torch.models import blocks as B
 from repro_torch.models.common import (dtype_of, he_init, normal_init,
                                        resolve_device, rms_norm)
@@ -76,18 +78,35 @@ def _unembed(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     return x @ W
 
 
+def _remat_block(binding, cfg: ModelConfig, x: torch.Tensor, p: Dict,
+                 lora: Dict, layer: int, ctx: Dict[str, Any]) -> torch.Tensor:
+    """One layer under the LoRA binding of the forward that checkpointed
+    it: the recompute runs in the backward pass, possibly in autograd's
+    own thread, where the thread-local binding is not set."""
+    with LORA.bound(binding):
+        return B.transformer_block(cfg, x, p, lora, layer, ctx)
+
+
 def _run_layers(cfg: ModelConfig, x: torch.Tensor, params: Dict, lora: Dict,
-                ctx: Dict[str, Any], layers: Optional[Dict]) -> torch.Tensor:
+                ctx: Dict[str, Any], layers: Optional[Dict],
+                remat: bool = False) -> torch.Tensor:
     """The JAX package's ``_scan_layers`` as a loop over the stacked
     layers; layer l reads its base weights at ``[l]`` and its cache views
-    ``layers["attn"]["k"|"v"][l]``."""
+    ``layers["attn"]["k"|"v"][l]``. ``remat`` checkpoints each layer
+    (``jax.checkpoint`` around the scan body): its activations are
+    recomputed in the backward pass instead of kept."""
     stacked = params["layers"]
+    binding = LORA.current_binding()
     for l in range(cfg.num_layers):
         p = {k: v[l] for k, v in stacked.items()}
         if layers is not None:
             ctx["cache"] = {"k": layers["attn"]["k"][l],
                             "v": layers["attn"]["v"][l]}
-        x = B.transformer_block(cfg, x, p, lora, l, ctx)
+        if remat:
+            x = checkpoint(_remat_block, binding, cfg, x, p, lora, l, ctx,
+                           use_reentrant=False)
+        else:
+            x = B.transformer_block(cfg, x, p, lora, l, ctx)
     return x
 
 
@@ -104,7 +123,10 @@ def forward(cfg: ModelConfig, params: Dict, lora: Dict, tokens: torch.Tensor,
     tokens: [Z, b, S] int. Returns (final_hidden [Z,b,S,d] (post final
     norm, pre-unembed), aux scalar (0 for the dense family), cache|None).
     With ``cache`` given (prefill), every lane's K/V are written at index
-    0..S-1 in place and the cache's position is set to S."""
+    0..S-1 in place and the cache's position is set to S. While gradients
+    are recorded and no cache is written (a training forward), every layer
+    is checkpointed (``torch.utils.checkpoint``), as the JAX package's
+    train step rematerializes its forward."""
     Z, b, S = tokens.shape
     dev = tokens.device
     x = _embed(params, tokens)
@@ -117,8 +139,9 @@ def forward(cfg: ModelConfig, params: Dict, lora: Dict, tokens: torch.Tensor,
     }
     if cache is not None:
         ctx["write_index"] = 0
+    remat = cache is None and torch.is_grad_enabled()
     x = _run_layers(cfg, x, params, lora, ctx,
-                    cache["layers"] if cache is not None else None)
+                    cache["layers"] if cache is not None else None, remat)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cache is not None:
         per_lane = cache["pos"].dim() == 2
@@ -130,6 +153,38 @@ def forward(cfg: ModelConfig, params: Dict, lora: Dict, tokens: torch.Tensor,
             cache["k_pos"] = (kp.expand_as(cache["k_pos"]).clone()
                               if per_lane else kp)
     return x, torch.zeros((), dtype=torch.float32, device=dev), cache
+
+
+# ---------------------------------------------------------------------------
+# Losses (chunked over sequence so [*, S, V] logits are never materialized)
+# ---------------------------------------------------------------------------
+
+def per_slot_xent(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
+                  labels: torch.Tensor, chunk: int = 512
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """hidden: [Z,b,S,d]; labels: [Z,b,S] int (-1 = ignore).
+
+    Returns (sum_nll [Z] fp32, token_count [Z] fp32). The logits of one
+    sequence chunk at a time are computed in the hidden dtype and taken to
+    fp32, as the JAX package's scan over chunks does."""
+    Z, b, S, d = hidden.shape
+    W = (params["lm_head"] if not cfg.tie_embeddings
+         else params["embed"].T)
+    c = min(chunk, S)
+    while S % c:
+        c -= 1
+    s = torch.zeros((Z,), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((Z,), dtype=torch.float32, device=hidden.device)
+    for i in range(0, S, c):
+        lab = labels[:, :, i:i + c]
+        logits = (hidden[:, :, i:i + c] @ W).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            lab.clamp_min(0).long()[..., None])[..., 0]
+        mask = (lab >= 0).float()
+        s = s + ((lse - gold) * mask).sum(dim=(1, 2))
+        cnt = cnt + mask.sum(dim=(1, 2))
+    return s, cnt
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,20 @@
-"""The §A.3+k2 linear memory model the serving frontend admits against.
+"""Online greedy intra-task scheduler (paper §7.1, §A.3).
 
-A copy of ``MemoryModel`` from ``repro.sched.intra_task`` (the port imports
-nothing of the JAX package): ``M_hat = k0 + k1 * tokens + k2 *
-rank_tokens`` must stay within ``capacity * safety_margin``. The
-scheduler's admission and profiling functions come with a later slice.
+Copied from ``repro.sched.intra_task`` (the port imports nothing of the
+JAX package): the linear memory model ``M_hat = k0 + k1 * tokens + k2 *
+rank_tokens``, which must stay within ``capacity * safety_margin`` — the
+serving frontend and the executor's admission both budget against it —
+and the greedy admission/backfill policy over one executor's slots
+(``IntraTaskScheduler``, exported to the executor as ``ExecutorSlots``).
+Admit pending jobs greedily in decreasing batch-size order while M_hat
+stays within the safety margin; slots are ragged, so mixed batch sizes
+co-train freely. The memory-model fit, profiling and cross-task admission
+come with the service slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, List, Optional
 
 
 @dataclasses.dataclass
@@ -74,3 +80,81 @@ class MemoryModel:
         if lora_rank:
             return lora_rank
         return self.r_max if self.r_max else 1
+
+
+@dataclasses.dataclass
+class PendingJob:
+    job_id: str
+    per_adapter_batch: int
+    lora_rank: int = 0        # TRUE rank; 0 = unknown (charged at r_max)
+
+
+class IntraTaskScheduler:
+    """Greedy admission/backfill over one executor's slots."""
+
+    def __init__(self, mem: MemoryModel, max_slots: int):
+        self.mem = mem
+        self.max_slots = max_slots
+        self.resident: Dict[str, int] = {}        # job_id -> b
+        self.resident_ranks: Dict[str, int] = {}  # job_id -> true rank
+
+    @property
+    def total_batch(self) -> int:
+        return sum(self.resident.values())
+
+    def _rank_tokens(self) -> float:
+        """Resident rank-weighted FLOP-tokens (b * seq * charged rank)."""
+        return sum(b * self.mem.seq_len
+                   * self.mem.charged_rank(self.resident_ranks.get(j))
+                   for j, b in self.resident.items())
+
+    def can_admit(self, b: int, rank: int = 0) -> bool:
+        if len(self.resident) >= self.max_slots:
+            return False
+        if self.mem.k2 <= 0:
+            return self.mem.fits(self.total_batch + b)
+        rt = self._rank_tokens() + (b * self.mem.seq_len
+                                    * self.mem.charged_rank(rank))
+        return self.mem.fits_ranked((self.total_batch + b) * self.mem.seq_len,
+                                    rt)
+
+    def _admit(self, job: PendingJob) -> None:
+        self.resident[job.job_id] = job.per_adapter_batch
+        if job.lora_rank:
+            self.resident_ranks[job.job_id] = job.lora_rank
+
+    def admit_initial(self, queue: List[PendingJob]) -> List[PendingJob]:
+        """Greedy decreasing-batch-size admission (paper §A.3). Returns the
+        admitted jobs, removing them from ``queue`` in place."""
+        admitted: List[PendingJob] = []
+        for job in sorted(queue, key=lambda j: -j.per_adapter_batch):
+            if self.can_admit(job.per_adapter_batch, job.lora_rank):
+                self._admit(job)
+                admitted.append(job)
+        for j in admitted:
+            queue.remove(j)
+        return admitted
+
+    def evict(self, job_id: str) -> None:
+        del self.resident[job_id]
+        self.resident_ranks.pop(job_id, None)
+
+    def backfill(self, queue: List[PendingJob]) -> Optional[PendingJob]:
+        """Admit the largest pending job the memory-model budget accepts.
+
+        The historical same-batch-size fast path is gone: slots are ragged
+        (the fused step packs per-slot row counts through the ragged
+        grouped-GEMM path), so homogeneous packing buys nothing — the only
+        constraint is the (rank-aware) §A.3 budget, which charges each
+        job's TRUE rank when it is known instead of the padded r_max."""
+        for j in sorted(queue, key=lambda j: -j.per_adapter_batch):
+            if self.can_admit(j.per_adapter_batch, j.lora_rank):
+                queue.remove(j)
+                self._admit(j)
+                return j
+        return None
+
+
+# The executor's per-slot admission/backfill policy is the same object —
+# exported under the name the executor layer uses (§A.3 "executor slots").
+ExecutorSlots = IntraTaskScheduler

@@ -1,5 +1,6 @@
 """PyTorch port on the card: the rank-local grouped-LoRA CUDA kernels
-against their plain PyTorch versions.
+(forward and backward) against their plain PyTorch versions, and the
+autograd Function's backward against autograd through the plain versions.
 
 Imports neither JAX nor the JAX package, so it runs on a machine with a
 card and no JAX: ``PYTHONPATH=src python -m pytest -q --noconftest
@@ -10,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.grouped_lora import ops
 from repro_torch.kernels.grouped_lora import ranklocal as RL
 from repro_torch.kernels.grouped_lora import ref
 
@@ -54,7 +56,8 @@ def test_cuda_kernels_match_plain(case):
         s = RL.xa(xc, A, rw, rk)
         y = RL.sb_add(s, B, scale, rw, rk, bc)
         torch.cuda.synchronize()
-        assert RL.LAUNCHES == {"xa": 1, "sb_add": 1}
+        assert RL.LAUNCHES == {"xa": 1, "sb_add": 1, "ds": 0, "dx": 0,
+                               "da": 0, "db": 0}
         torch.testing.assert_close(s.float(),
                                    ref.ranklocal_xa_ref(xc, A, rw, rk).float(),
                                    rtol=rtol, atol=atol)
@@ -66,3 +69,93 @@ def test_cuda_kernels_match_plain(case):
             assert torch.all(s[z, :, ranks[z]:] == 0)
             assert torch.all(s[z, live_rows[z]:] == 0)
             assert torch.equal(y[z, live_rows[z]:], bc[z, live_rows[z]:])
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+
+
+def _bwd_inputs(case, dt, seed=0):
+    """x, dy in ``dt``; fp32 masters with garbage past the true rank; S
+    from the plain forward; scale, ranks, rows on the card."""
+    Z, T, din, dout, r, ranks, rows = case
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).to("cuda")
+
+    x = t(rng.standard_normal((Z, T, din), dtype=np.float32)).to(dt)
+    dy = t(rng.standard_normal((Z, T, dout), dtype=np.float32)).to(dt)
+    A = t(rng.standard_normal((Z, din, r), dtype=np.float32) / din ** 0.5)
+    B = t(rng.standard_normal((Z, r, dout), dtype=np.float32) / r ** 0.5)
+    scale = t(rng.uniform(0.5, 2.0, Z).astype(np.float32))
+    rk = t(np.asarray(ranks, np.int32))
+    rw = None if rows is None else t(np.asarray(rows, np.int32))
+    s = ref.ranklocal_xa_ref(x, A, rw, rk)
+    return x, dy, A, B, scale, rk, rw, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+def test_cuda_backward_kernels_match_plain(case):
+    """ds/dx/da/db build, launch once each and agree with their plain
+    versions: fp32 within 1e-5 relative (sum order); bf16 dS/dX within one
+    bf16 rounding (rtol 2**-7); bf16-input dA/dB (fp32 out) within 1e-4
+    relative to their largest entry (the same bf16 products summed in
+    another order). Entries past ranks[z] / rows[z] are exactly 0."""
+    _need_card()
+    Z, T, din, dout, r, ranks, rows = case
+    live_rows = rows if rows is not None else [T] * Z
+    for dt, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -7)):
+        x, dy, A, B, scale, rk, rw, s = _bwd_inputs(case, dt)
+        RL.reset_launches()
+        dS = RL.ds(dy, B, scale, rw, rk)
+        dX = RL.dx(dS, A, rw, rk)
+        dA = RL.da(x, dS, rw, rk)
+        dB = RL.db(s, dy, scale, rw, rk)
+        torch.cuda.synchronize()
+        assert RL.LAUNCHES == {"xa": 0, "sb_add": 0, "ds": 1, "dx": 1,
+                               "da": 1, "db": 1}
+        want = {"ds": ref.ranklocal_ds_ref(dy, B, scale, rw, rk),
+                "dx": ref.ranklocal_dx_ref(dS, A, rw, rk),
+                "da": ref.ranklocal_da_ref(x, dS, rw, rk),
+                "db": ref.ranklocal_db_ref(s, dy, scale, rw, rk)}
+        for name, got in (("ds", dS), ("dx", dX), ("da", dA), ("db", dB)):
+            w = want[name].float()
+            if name in ("ds", "dx"):
+                bar = rtol
+                atol = (1e-5 if dt == torch.float32 else 1e-3) * float(
+                    w.abs().max())
+            else:
+                bar = 1e-4
+                atol = bar * float(w.abs().max())
+            torch.testing.assert_close(got.float(), w, rtol=bar, atol=atol,
+                                       msg=f"{name} {dt}")
+        assert dA.dtype == dB.dtype == torch.float32
+        for z in range(Z):
+            assert torch.all(dS[z, :, ranks[z]:] == 0)
+            assert torch.all(dS[z, live_rows[z]:] == 0)
+            assert torch.all(dX[z, live_rows[z]:] == 0)
+            assert torch.all(dA[z, :, ranks[z]:] == 0)
+            assert torch.all(dB[z, ranks[z]:] == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_function_backward_matches_torch_autograd():
+    """One ``ranklocal_grouped_lora`` forward + backward through the
+    kernels against autograd through the plain versions, in fp32 (1e-5
+    relative: sum order only)."""
+    _need_card()
+    case = CASES[3]
+    x, dy, A, B, scale, rk, rw, _ = _bwd_inputs(case, torch.float32, seed=1)
+    base = torch.randn_like(dy)
+    outs = []
+    for fn in (ops.ranklocal_grouped_lora, ref.ranklocal_lora_ref):
+        leaves = [t.clone().requires_grad_(True) for t in (x, A, B, base)]
+        y = fn(leaves[0], leaves[1], leaves[2], scale, rk, rw, leaves[3])
+        outs.append([y] + list(torch.autograd.grad(y, leaves, dy)))
+    for got, want in zip(*outs):
+        torch.testing.assert_close(
+            got.detach(), want.detach(), rtol=1e-5,
+            atol=1e-5 * float(want.detach().abs().max()))

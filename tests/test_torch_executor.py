@@ -1,0 +1,359 @@
+"""PyTorch port: the shared-backbone executor and its host modules.
+
+(a) The port's copies of the host modules (early exit, ``SlotBatcher``,
+    ``IntraTaskScheduler``) give the JAX package's decisions and batches
+    on identical inputs.
+(b) ``SlotSnapshot`` round trip is bit-exact, across slots, managers and
+    the bridge (a port snapshot restores into the JAX ``SlotManager``).
+(c) Co-located == solo loss histories, bitwise, inside the port.
+(d) ``suspend``/``resume`` onto a second executor == never moved, bitwise.
+(e) A rank-sweep ``BatchedExecutor.run_task`` goes warmup -> selection ->
+    continue and returns a ``TaskResult``.
+
+(c) and (d) hold for tasks whose slots are all below r_max: every step
+then takes the rank-local path, whose per-slot sums do not depend on the
+co-tenants. Everything runs on the CPU (``device="cpu"``) at a reduced
+float32 size.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import adapter_state as JAS
+from repro.core import early_exit as JEE
+from repro.data import synthetic as JSYN
+from repro.sched import intra_task as JIT
+from repro_torch import bridge
+from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.registry import get_arch
+from repro_torch.core import early_exit as TEE
+from repro_torch.core.adapter_state import SlotManager
+from repro_torch.core.executor import (BatchedExecutor,
+                                       SharedBackboneExecutor, TaskLifecycle,
+                                       TaskResult, run_colocated)
+from repro_torch.data import synthetic as TSYN
+from repro_torch.kernels.grouped_lora import ranklocal as TRL
+from repro_torch.models import model as TM
+from repro_torch.sched import intra_task as TIT
+from repro_torch.sched.events import EventKind
+from tests.conftest import reduced_f32
+
+
+@pytest.fixture(scope="module")
+def env():
+    cfg = dataclasses.replace(
+        get_arch("paper-llama-tiny").reduced(num_layers=2, d_model=64,
+                                             vocab=128), dtype="float32")
+    assert cfg.lora.r_max == 8
+    params = TM.init_params(cfg, seed=0, device="cpu")
+    ds_a = TSYN.make_task_dataset("task-a", cfg.vocab_size, seq_len=16,
+                                  num_train=32, num_val=8, difficulty=0.2,
+                                  seed=1)
+    ds_b = TSYN.make_task_dataset("task-b", cfg.vocab_size, seq_len=16,
+                                  num_train=32, num_val=8, difficulty=0.6,
+                                  seed=2)
+    return cfg, params, ds_a, ds_b
+
+
+# ---------------------------------------------------------------------------
+# (a) copied host modules
+# ---------------------------------------------------------------------------
+
+def _loss_stream(seed, n):
+    """Train/val losses that fall, then rise (divergence) or split
+    (overfitting), with noise and one non-finite point."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n, dtype=np.float64)
+    train = 3.0 - 0.05 * t + 0.02 * rng.standard_normal(n)
+    val = train + np.where(t > n // 2, 0.03 * (t - n // 2), 0.0) \
+        + 0.02 * rng.standard_normal(n)
+    if seed % 3 == 0:
+        train[n // 2:] += 0.2 * (t[n // 2:] - n // 2)
+    if seed % 5 == 0:
+        val[-2] = np.inf
+    return train.tolist(), val.tolist()
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_early_exit_decisions_match_jax(seed):
+    cfg_kw = dict(warmup_ratio=0.25, select_ratio=0.5)
+    jcfg, tcfg = JEE.EarlyExitConfig(**cfg_kw), TEE.EarlyExitConfig(**cfg_kw)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    jmons, tmons = {}, {}
+    for j in range(4):
+        train, val = _loss_stream(seed * 10 + j, 24)
+        jm, tm = JEE.JobMonitor(jcfg, f"j{j}"), TEE.JobMonitor(tcfg, f"j{j}")
+        for step, (lt, lv) in enumerate(zip(train, val)):
+            jm.observe_train(lt)
+            tm.observe_train(lt)
+            if step % 2:
+                jd, td = jm.observe_val(lv, step), tm.observe_val(lv, step)
+                assert (jd is None) == (td is None)
+                if jd is not None:
+                    assert (jd.reason.value, jd.step, jd.best_val) == (
+                        td.reason.value, td.step, td.best_val)
+                    break
+        jmons[f"j{j}"], tmons[f"j{j}"] = jm, tm
+    assert JEE.warmup_select(jmons, jcfg, 4) == TEE.warmup_select(tmons,
+                                                                  tcfg, 4)
+    assert jcfg.warmup_steps(37) == tcfg.warmup_steps(37)
+
+
+def test_slot_batcher_draws_the_jax_batches():
+    kw = dict(vocab_size=64, seq_len=12, num_train=20, num_val=9, seed=4)
+    jds, tds = (JSYN.make_task_dataset("t", **kw),
+                TSYN.make_task_dataset("t", **kw))
+    np.testing.assert_array_equal(jds.train, tds.train)
+    jb, tb = JSYN.SlotBatcher(jds, 3, 2, seed=7), TSYN.SlotBatcher(tds, 3, 2,
+                                                                   seed=7)
+    for i in range(25):              # past an epoch boundary of every lane
+        lane, n = i % 3, 1 + i % 4
+        want, got = jb.lane_batch_dict(lane, n), tb.lane_batch_dict(lane, n)
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v)
+    jt, jl = jb.next_batch()
+    tt, tl = tb.next_batch()
+    np.testing.assert_array_equal(jt, tt)
+    np.testing.assert_array_equal(jl, tl)
+    for k, v in jb.val_batch_dict(4).items():
+        np.testing.assert_array_equal(tb.val_batch_dict(4)[k], v)
+    assert jb.epochs == tb.epochs
+
+
+def test_intra_task_scheduler_decisions_match_jax():
+    mem_kw = dict(k0=1e9, k1=2e5, seq_len=16, capacity=2e9, k2=3e3, r_max=64)
+    scheds = [mod.IntraTaskScheduler(mod.MemoryModel(**mem_kw), 4)
+              for mod in (JIT, TIT)]
+    rng = np.random.default_rng(3)
+    specs = [(f"j{i}", int(rng.integers(1, 9)), int(rng.choice([0, 4, 16,
+                                                                 64])))
+             for i in range(10)]
+    queues = [[mod.PendingJob(*s) for s in specs] for mod in (JIT, TIT)]
+    admitted = [[j.job_id for j in s.admit_initial(q)]
+                for s, q in zip(scheds, queues)]
+    assert admitted[0] == admitted[1]
+    for victim in admitted[0]:
+        picks = []
+        for s, q in zip(scheds, queues):
+            s.evict(victim)
+            p = s.backfill(q)
+            picks.append(None if p is None else p.job_id)
+        assert picks[0] == picks[1]
+        assert scheds[0].resident == scheds[1].resident
+
+
+# ---------------------------------------------------------------------------
+# (b) SlotSnapshot round trip
+# ---------------------------------------------------------------------------
+
+def _fill_slot(sm, slot, seed):
+    """Give a slot non-trivial adapter, moments and step count."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for tree in (sm.lora, sm.opt_state.mu, sm.opt_state.nu):
+            for ab in tree.values():
+                for x in ab.values():
+                    x[:, slot] = torch.randn(x[:, slot].shape, generator=g)
+    sm.opt_state.count[slot] = 7
+
+
+def _slot_state(sm, slot):
+    return [x[:, slot].clone() for tree in (sm.lora, sm.opt_state.mu,
+                                            sm.opt_state.nu)
+            for ab in tree.values() for x in ab.values()] + [
+        sm.opt_state.count[slot].clone(), sm.ranks[slot].clone()]
+
+
+def test_slot_snapshot_round_trip_is_bit_exact(env):
+    cfg = env[0]
+    shapes = TM.target_shapes(cfg)
+    tc = TrainConfig(lora_rank=4, per_adapter_batch=2, learning_rate=3e-3)
+    sm1 = SlotManager(cfg, 4, shapes, device="cpu")
+    sm1.admit(1, "job", tc, torch.Generator().manual_seed(0), task="t",
+              b=2, seq=16)
+    _fill_slot(sm1, 1, seed=3)
+    want = _slot_state(sm1, 1)
+    snap = sm1.snapshot(1)
+    sm1.evict(1)
+    assert sm1.slot_jobs[1] is None and sm1.slot_rank[1] == 0
+    assert all(float(x[:, 1].abs().max()) == 0 for ab in sm1.lora.values()
+               for x in ab.values())
+    # the snapshot crosses the bridge and back, then lands on another slot
+    # of another manager that already holds a job
+    snap2 = bridge.snapshot_from_numpy(
+        JAS.SlotSnapshot(**bridge.snapshot_to_numpy(snap)))
+    sm2 = SlotManager(cfg, 4, shapes, device="cpu")
+    sm2.admit(0, "other", tc, torch.Generator().manual_seed(1))
+    sm2.restore(3, snap2, tc, task="t")
+    got = _slot_state(sm2, 3)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (sm2.slot_b[3], sm2.slot_seq[3], sm2.slot_rank[3]) == (2, 16, 4)
+    assert float(sm2.hp.lr[3]) == pytest.approx(3e-3)
+    # a port snapshot restores bit-exactly into the JAX package's manager
+    jsm = JAS.SlotManager(reduced_f32("paper-llama-tiny", num_layers=2,
+                                      d_model=64, vocab=128), 4, shapes,
+                          jax.random.PRNGKey(0))
+    jsm.restore(2, JAS.SlotSnapshot(**bridge.snapshot_to_numpy(snap)), tc)
+    for t, ab in jsm.adapter_at(2).items():
+        for m, x in ab.items():
+            np.testing.assert_array_equal(x, snap.lora[t][m].numpy())
+    assert int(jsm.opt_state.count[2]) == 7
+
+
+# ---------------------------------------------------------------------------
+# (c) co-located == solo, (d) migrated == never migrated
+# ---------------------------------------------------------------------------
+
+def _lifecycle(ex, name, ds, seed, ranks, total_steps=8):
+    jobs = {f"{name}/j{i}": TrainConfig(learning_rate=lr, lora_rank=rk,
+                                        max_steps=total_steps)
+            for i, (lr, rk) in enumerate(zip((3e-3, 1e-3), ranks))}
+    ee = TEE.EarlyExitConfig(warmup_ratio=0.25, select_ratio=1.0)
+    return TaskLifecycle(ex, name, jobs, total_steps, ee=ee, max_slots=2,
+                         batcher=TSYN.SlotBatcher(ds, 2, ex.b_cap, seed=seed),
+                         seed=seed)
+
+
+def _executor(cfg, params):
+    return SharedBackboneExecutor(cfg, params, Z=4, per_adapter_batch=2,
+                                  eval_every=2, seed=0, device="cpu")
+
+
+def _hists(lc):
+    return {j: (tuple(m.val_hist), tuple(m.raw_train_hist))
+            for j, m in lc.monitors.items()}
+
+
+def _drive(ex, lcs, steps=None):
+    """Minimal coordinator (run_colocated's loop, stoppable mid-run)."""
+    done = 0
+    while any(not lc.done for lc in lcs):
+        live = [lc for lc in lcs if not lc.done]
+        n = max(min(min(lc.steps_until_boundary() for lc in live),
+                    ex.eval_every), 1)
+        ex.run_steps(n)
+        for lc in live:
+            lc.on_steps(n)
+        done += n
+        if steps is not None and done >= steps:
+            return
+
+
+def test_colocated_losses_bitwise_equal_solo(env):
+    """Two tasks at different true ranks (2/4 and 3/5 of r_max 8) fused on
+    one executor produce bitwise the loss histories of each task alone."""
+    cfg, params, ds_a, ds_b = env
+    specs = [("A", ds_a, 3, (2, 4)), ("B", ds_b, 4, (3, 5))]
+
+    def run(chosen):
+        ex = _executor(cfg, params)
+        lcs = [_lifecycle(ex, *s) for s in chosen]
+        return run_colocated(ex, lcs), {lc.task_name: _hists(lc)
+                                        for lc in lcs}
+
+    fused, fused_h = run(specs)
+    solo_a, solo_a_h = run(specs[:1])
+    solo_b, solo_b_h = run(specs[1:])
+    assert fused_h["A"] == solo_a_h["A"]        # bitwise: tuples of floats
+    assert fused_h["B"] == solo_b_h["B"]
+    assert fused["A"].best_val == solo_a["A"].best_val
+    assert fused["B"].best_val == solo_b["B"].best_val
+    assert np.isfinite(fused["A"].best_val)
+    assert set(TRL.LAUNCHES.values()) == {0}    # CPU: plain versions only
+
+
+def test_migration_across_executors_bitwise_equal(env):
+    """A task suspended mid-training on one executor and resumed on a
+    second one that hosts a different resident mix (so its physical slots
+    change) trains on bitwise as if it had never moved."""
+    cfg, params, ds_a, ds_b = env
+    ds_c = TSYN.make_task_dataset("task-c", cfg.vocab_size, seq_len=16,
+                                  num_train=32, num_val=8, difficulty=0.4,
+                                  seed=3)
+    ex0 = _executor(cfg, params)
+    a0 = _lifecycle(ex0, "A", ds_a, 3, (2, 4))
+    b0 = _lifecycle(ex0, "B", ds_b, 4, (3, 5))
+    run_colocated(ex0, [a0, b0])
+    ref = _hists(a0)
+
+    ex1, ex2 = _executor(cfg, params), _executor(cfg, params)
+    A = _lifecycle(ex1, "A", ds_a, 3, (2, 4))
+    B = _lifecycle(ex1, "B", ds_b, 4, (3, 5))
+    C = _lifecycle(ex2, "C", ds_c, 5, (2, 6))
+    ex2.add_task(C)
+    C.begin()
+    _drive(ex2, [C], steps=4)           # C occupies replica 2's low slots
+    for lc in (A, B):
+        ex1.add_task(lc)
+        lc.begin()
+    _drive(ex1, [A, B], steps=4)        # A mid-flight on replica 1
+    slots_before = {j: s for j, (_, s) in A.resident.items()}
+    A.suspend()
+    assert ex2.can_admit_task(A)
+    A.resume(ex2)
+    slots_after = {j: s for j, (_, s) in A.resident.items()}
+    assert set(slots_before.values()) != set(slots_after.values())
+    _drive(ex2, [A, C])
+    _drive(ex1, [B])
+    assert _hists(A) == ref             # bitwise: tuples of floats
+    assert A.result().best_val == a0.result().best_val
+    assert A.result().best_job == a0.result().best_job
+    assert np.isfinite(C.result().best_val)
+
+
+# ---------------------------------------------------------------------------
+# (e) a rank sweep through BatchedExecutor
+# ---------------------------------------------------------------------------
+
+def test_rank_sweep_runs_warmup_selection_continue(env):
+    """8 jobs (ranks 2/3/4/6 x two learning rates) on 4 slots: two warmup
+    waves with rotation, Pattern-3 selection of the top 2, continue to the
+    step budget, per-slot evals — the chip smoke's run_task at a reduced
+    size."""
+    cfg, params, ds_a, _ = env
+    jobs = {f"r{r}-lr{lr:g}": TrainConfig(learning_rate=lr, lora_rank=r,
+                                          per_adapter_batch=2)
+            for r in (2, 3, 4, 6) for lr in (1e-3, 1e-2)}
+    bx = BatchedExecutor(cfg, params, ds_a, Z=4, per_adapter_batch=2,
+                         ee=TEE.EarlyExitConfig(warmup_ratio=0.25,
+                                                select_ratio=0.25),
+                         eval_every=2, device="cpu")
+    gen = bx.run_task_chunks("rank-sweep", jobs, total_steps=8)
+    phases, events = [], []
+    while True:
+        try:
+            rep = next(gen)
+        except StopIteration as stop:
+            result = stop.value
+            break
+        phases.append(rep.phase)
+        events.extend(rep.events)
+        if rep.steps_executed:
+            assert rep.wall_time_s > 0 and rep.tokens_executed > 0
+    assert isinstance(result, TaskResult) and result.best_job in jobs
+    assert phases[0] == "warmup" and "continue" in phases
+    assert phases[-1] == "done"
+    sel = [e for e in events if e.kind == EventKind.WARMUP_SELECTION]
+    assert len(sel) == 1 and len(sel[0].dropped) == 6
+    assert result.exit_counts.get("underperforming") == 6
+    assert sum(result.exit_counts.values()) == 8
+    assert all(np.isfinite(r.best_val) for r in result.job_results.values()
+               if r.exit_reason is not None and
+               r.exit_reason.value != "diverging")
+    assert result.job_results[result.best_job].adapter is not None
+    assert 0 < result.samples_saved_frac < 1
+
+
+def test_executor_refuses_params_on_another_device(env):
+    cfg, params, _, _ = env
+    meta = {k: (v.to("meta") if isinstance(v, torch.Tensor) else v)
+            for k, v in params.items()}
+    with pytest.raises(ValueError, match="params lie on"):
+        SharedBackboneExecutor(cfg, meta, Z=2, per_adapter_batch=1,
+                               device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        SharedBackboneExecutor(cfg, params, Z=2, per_adapter_batch=1,
+                               device="cpu", loss_kind="dpo")

@@ -135,7 +135,7 @@ def test_ops_scale_float_equals_vector_and_counts_no_cpu_launch():
     y_v = TOPS.ranklocal_grouped_lora(_t(x), _t(A), _t(B),
                                       torch.full((3,), 2.0), _t(ranks))
     assert torch.equal(y_f, y_v)
-    assert TRL.LAUNCHES == {"xa": 0, "sb_add": 0}   # plain versions only
+    assert set(TRL.LAUNCHES.values()) == {0}        # plain versions only
 
 
 def test_wrappers_refuse_devices_they_cannot_run():

@@ -12,6 +12,9 @@ import pytest
 import torch
 
 from repro_torch.configs.registry import get_arch
+from repro_torch.core.adapter_state import SlotManager
+from repro_torch.core.executor import BatchedExecutor, SharedBackboneExecutor
+from repro_torch.data.synthetic import make_task_dataset
 from repro_torch.launch import serve as cli
 from repro_torch.models import model as M
 from repro_torch.serve import AdapterPool, ServingReplica
@@ -62,6 +65,15 @@ ENTRY_POINTS = {
         _tiny(), M.init_params(_tiny(), device="cpu"),
         AdapterPool(_tiny(), 1, device="cpu")),
     "cli": lambda: cli.main(["--arch", "paper-llama-tiny", "--reduced"]),
+    "SlotManager": lambda: SlotManager(_tiny(), 1,
+                                       M.target_shapes(_tiny())),
+    "SharedBackboneExecutor": lambda: SharedBackboneExecutor(
+        _tiny(), M.init_params(_tiny(), device="cpu"), Z=1,
+        per_adapter_batch=1),
+    "BatchedExecutor": lambda: BatchedExecutor(
+        _tiny(), M.init_params(_tiny(), device="cpu"),
+        make_task_dataset("t", 64, 8, num_train=4, num_val=2), Z=1,
+        per_adapter_batch=1),
 }
 
 
