@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch port: multi-adapter serving and rank-sweep
-LoRA training of stablelm-3b on one NVIDIA card, through the port's
-hand-written CUDA kernels.
+"""Chip smoke test of the PyTorch port: multi-adapter serving, rank-sweep
+and full-rank learning-rate-sweep LoRA training of stablelm-3b on one
+NVIDIA card, through the port's hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -12,18 +12,24 @@ package. Phases, none of them caught:
 
 1. card   — name and power limit (nvidia-smi), torch and CUDA versions;
             TF32 off for matmuls and cuDNN.
-2. build  — nvcc builds the six rank-local grouped-LoRA kernels from
-            ``src/repro_torch/kernels/grouped_lora/csrc`` (one nvcc per
+2. build  — nvcc builds the twelve grouped-LoRA kernels from the three
+            sources in ``src/repro_torch/kernels/grouped_lora/csrc``
+            (ranklocal.cu, ranklocal_bwd.cu, grouped_lora.cu; one nvcc per
             source, started together).
-3. kernels — each kernel against its plain PyTorch version at stablelm-3b
-            shapes (bf16 activations, fp32 adapter masters, Z = 4 slots):
-            the forward pair at serving shapes and the eval-step shape
-            (4,096 token rows per slot), all six at training shapes (1,024
-            token rows per slot, ranks 4/8/16/32, one case with rows < T
-            and a dead slot); times (CUDA
-            events around a replayed CUDA graph of many calls; median of
-            21), a ``torch.bmm`` yardstick the port never calls, and the
-            bound (max of bytes / 3.35 TB/s and flops / 989 TFLOP/s).
+3. kernels — each rank-local kernel against its plain PyTorch version at
+            stablelm-3b shapes (bf16 activations, fp32 adapter masters,
+            Z = 4 slots): the forward pair at serving shapes and the
+            eval-step shape (4,096 token rows per slot), all six at
+            training shapes (1,024 token rows per slot, ranks 4/8/16/32,
+            one case with rows < T and a dead slot); then each dense kernel
+            at r = 64 (T = 1,024, din x dout in 2560 x 2560, 2560 x 6912,
+            6912 x 2560; the forward pair also at T = 4,096; sb_add with
+            and without a base; non-zero B, a different scale per slot)
+            against its plain version and, bit for bit, against its
+            rank-local twin at ranks (64, 64, 64, 64). Times (CUDA events
+            around a replayed CUDA graph of many calls; median of 21), a
+            ``torch.bmm`` yardstick the port never calls, and the bound
+            (max of bytes / 3.35 TB/s and flops / 989 TFLOP/s).
 4. serve  — full-width, full-depth stablelm-3b (bf16, random weights from a
             seed), 4 adapters at true ranks 8/16/32/64, 4 lanes, max_len
             256: 16 greedy requests (prompts of 32-128 tokens, 32 new
@@ -43,21 +49,37 @@ package. Phases, none of them caught:
             plain run (one slot's dA zeroed, the rank-32 slot's dB halved,
             the LoRA branch's dX dropped, the rank-4 slot's delta halved
             in the forward) must break the bars, the last the loss bar.
-6. executor — BatchedExecutor.run_task on full-size stablelm-3b: a rank
-            sweep of 8 jobs (ranks 4/8/16/32 x lr 1e-4/1e-3) on 4 slots,
-            two warmup waves with rotation, selection, continue; every
-            fused train step must launch xa/sb_add 448 times and
-            ds/da/db 224 (dx 221), every eval step xa/sb_add 224 times;
-            real tokens/s over the whole run_task wall, the median
-            train-step call by resident slots, eval step, peak memory, and
-            two train steps under torch.profiler.
+6. rank sweep — BatchedExecutor.run_task on full-size stablelm-3b: 8 jobs
+            (ranks 4/8/16/32 x lr 1e-4/1e-3) on 4 slots, two warmup waves
+            with rotation, selection, continue; every fused train step must
+            launch the rank-local xa/sb_add 448 times and ds/da/db 224 (dx
+            221), every eval step xa/sb_add 224 times, and the dense
+            kernels never; real tokens/s over the whole run_task wall, the
+            median train-step call by resident slots, eval step, peak
+            memory, and two train steps under torch.profiler.
+7. dense train — phase 5 with every slot at r_max 64 and nothing bound
+            (the dense kernels), the same bars and planted faults; then the
+            same step with slot_ranks bound to (64, 64, 64, 64), through
+            the rank-local kernels, must give bitwise the per-slot losses
+            and every dA and dB.
+8. co-located — stablelm-3b at full width and 4 layers: a full-rank task
+            (64/64) and a low-rank one (4/8) fused on one
+            SharedBackboneExecutor through run_colocated, and each alone:
+            loss histories and best validation losses bitwise equal (the
+            full-rank task takes the dense kernels alone, the rank-local
+            ones fused).
+9. lr sweep — phase 6 with 8 jobs all at rank 64 (lr 1e-4/3e-4/1e-3/3e-3
+            x weight decay 0/0.01): every step on the dense kernels (the
+            same launch counts), the rank-local kernels never.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernel table as JSON.
 """
 from __future__ import annotations
 
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -88,6 +110,10 @@ LANES, MAX_LEN, MAX_NEW, N_REQ = 4, 256, 32, 16
 # training: 4 slots at these true ranks (r_max 64), b sequences of S tokens
 TRAIN_RANKS = (4, 8, 16, 32)
 TRAIN_B, TRAIN_S = 4, 256
+# the full-rank learning-rate sweep: every slot at r_max 64
+FULL_RANKS = (64, 64, 64, 64)
+# layers of the co-located == solo phase (full width, depth cut for time)
+COLO_LAYERS = 4
 EVAL_B = 16                   # sequences per slot in an executor eval step
 # backward kernels with fp32 outputs (dA, dB), kernel vs plain: both sum
 # the same 1,024 bf16 products per entry in fp32, in another order, so an
@@ -100,9 +126,10 @@ GRAD_KERNEL_ATOL_REL = 1e-5
 # (dB) differences over all 224 projections over the RMS of dA (dB). The
 # one-ulp bf16 differences of the kernels compound through 32 layers
 # forward and backward. The loss bar guards the forward: it sits between
-# the sound reading and that of a planted forward fault (the rank-4 slot's
-# delta halved), which must break it. On an H100 the sound run reads at
-# most 5.9e-05 and that fault 1.68e-03 (see PERF.md).
+# the sound reading and that of a planted forward fault (slot 0's delta
+# halved), which must break it. On an H100 the sound run reads at most
+# 5.9e-05 and that fault 1.68e-03 at ranks 4-32 (slot 0 at rank 4); at
+# r = 64 (the dense kernels) 4.5e-05 and 5.78e-03 (see PERF.md).
 TRAIN_LOSS_REL = 3e-4
 TRAIN_NORM_REL = 0.05
 TRAIN_GRAD_REL_RMS = 0.05
@@ -635,14 +662,164 @@ def backward_kernel_phase(torch, RL, ref):
     return results
 
 
-def _train_lora(torch, cfg, M, LORA):
-    """Slot-stacked adapters at TRAIN_RANKS: A from the LoRA init, B ~
-    N(0, 0.003) inside each true rank (B = 0, the init, would make dS = 0
-    and hide ds, dx and da), garbage in the padded rank region."""
+def dense_kernel_phase(torch, GL, RL, ref):
+    """The six dense kernels at the shapes the lr sweep gives them (Z = 4
+    slots at r = r_max = 64, T = 1,024 token rows per slot, din x dout in
+    {2560 x 2560, 2560 x 6912, 6912 x 2560}; the forward pair also at the
+    eval step's T = 4,096; bf16 activations, fp32 masters, non-zero B, a
+    different scale per slot): each against its plain version (sb_add with
+    and without a base), and bit for bit against its rank-local twin called
+    with ranks = (64, 64, 64, 64), rows None, on the same inputs. Times
+    (graph replay) of the kernel, the plain version, the rank-local twin
+    and a ``torch.bmm`` yardstick; returns per-kernel results (times at
+    T = 1,024, din = dout = 2560)."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(4)
+    Z, r, T = 4, 64, TRAIN_B * TRAIN_S
+    every = ("xa", "sb_add", "ds", "dx", "da", "db")
+    cases = [  # (label, T, din, dout, kernels)
+        ("train", T, 2560, 2560, every),
+        ("train", T, 2560, 6912, every),
+        ("train", T, 6912, 2560, every),
+        ("eval", EVAL_B * TRAIN_S, 2560, 6912, every[:2]),
+        ("eval", EVAL_B * TRAIN_S, 6912, 2560, every[:2]),
+    ]
+    full = torch.full((Z,), r, dtype=torch.int32, device=dev)
+    scale = torch.tensor([0.5, 1.0, 1.5, 2.0], device=dev)
+    results = {}
+    print("dense kernels (every slot at r = 64), times in ms per call "
+          "(graph replay); 'twin' = the rank-local kernel at ranks 64")
+    print("kernel  case     T     din   dout  ms        plain_ms  twin_ms   "
+          "library_ms bound_ms  bound_by   max_abs_err  bitwise")
+    for label, T_, din, dout, names in cases:
+        # two copies of the activations (more than the 50 MB L2), so a
+        # timing loop reads them from memory
+        xs = [torch.randn(Z, T_, din, generator=gen, device=dev)
+              .to(torch.bfloat16) for _ in range(2)]
+        dys = [torch.randn(Z, T_, dout, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(2)]
+        base = torch.randn(Z, T_, dout, generator=gen,
+                           device=dev).to(torch.bfloat16)
+        A = torch.randn(Z, din, r, generator=gen, device=dev) / din ** 0.5
+        B = torch.randn(Z, r, dout, generator=gen, device=dev) / r ** 0.5
+        A_lib = A.to(torch.bfloat16)
+        B_lib = B.to(torch.bfloat16)
+        ss = [GL.xa(x, A) for x in xs]
+        dss = [GL.ds(dy, B, scale) for dy in dys]
+        x, dy, s, dS = xs[0], dys[0], ss[0], dss[0]
+        # --- correctness: kernel vs plain version, and vs the twin
+        outs = {  # name: (dense kernel, rank-local twin, plain version)
+            "xa": (s, RL.xa(x, A, None, full), ref.grouped_xa_ref(x, A)),
+            "sb_add": (GL.sb_add(s, B, scale),
+                       RL.sb_add(s, B, scale, None, full),
+                       ref.grouped_sb_add_ref(s, B, scale)),
+            "sb_add+base": (GL.sb_add(s, B, scale, base),
+                            RL.sb_add(s, B, scale, None, full, base),
+                            ref.grouped_sb_add_ref(s, B, scale, base)),
+        }
+        if "ds" in names:
+            outs.update({
+                "ds": (dS, RL.ds(dy, B, scale, None, full),
+                       ref.grouped_ds_ref(dy, B, scale)),
+                "dx": (GL.dx(dS, A), RL.dx(dS, A, None, full),
+                       ref.grouped_dx_ref(dS, A)),
+                "da": (GL.da(x, dS), RL.da(x, dS, None, full),
+                       ref.grouped_da_ref(x, dS)),
+                "db": (GL.db(s, dy, scale), RL.db(s, dy, scale, None, full),
+                       ref.grouped_db_ref(s, dy, scale))})
+        torch.cuda.synchronize()
+        errs = {}
+        for name, (out, twin, want) in outs.items():
+            require(torch.equal(out, twin),
+                    f"dense {name} {label} {din}x{dout} differs from its "
+                    f"rank-local twin at ranks 64 (max |diff| "
+                    f"{float((out.float() - twin.float()).abs().max()):.3g})")
+            o, w = out.float(), want.float()
+            bf16_out = name not in ("da", "db")
+            torch.testing.assert_close(
+                o, w, rtol=KERNEL_RTOL if bf16_out else GRAD_KERNEL_RTOL,
+                atol=(KERNEL_ATOL_REL if bf16_out else GRAD_KERNEL_ATOL_REL)
+                * float(w.abs().max()), msg=f"dense {name} {label} "
+                f"{din}x{dout}")
+            errs[name] = float((o - w).abs().max())
+        require(bool(torch.isfinite(outs["sb_add"][0]).all()),
+                "dense sb_add output not finite")
+        print(f"sb_add+base {label:6s} {T_:5d} {din:5d} {dout:5d}  "
+              f"max_abs_err {errs.pop('sb_add+base'):.3g}, bitwise equal to "
+              f"the twin")
+        del outs
+        # --- timing, alternating between the two activation copies
+        timing = {
+            "xa": (lambda i: GL.xa(xs[i % 2], A),
+                   lambda i: ref.grouped_xa_ref(xs[i % 2], A),
+                   lambda i: RL.xa(xs[i % 2], A, None, full),
+                   lambda i: torch.bmm(xs[i % 2], A_lib)),
+            "sb_add": (lambda i: GL.sb_add(ss[i % 2], B, scale),
+                       lambda i: ref.grouped_sb_add_ref(ss[i % 2], B, scale),
+                       lambda i: RL.sb_add(ss[i % 2], B, scale, None, full),
+                       lambda i: torch.bmm(ss[i % 2], B_lib)),
+            "ds": (lambda i: GL.ds(dys[i % 2], B, scale),
+                   lambda i: ref.grouped_ds_ref(dys[i % 2], B, scale),
+                   lambda i: RL.ds(dys[i % 2], B, scale, None, full),
+                   lambda i: torch.bmm(dys[i % 2], B_lib.transpose(1, 2))),
+            "dx": (lambda i: GL.dx(dss[i % 2], A),
+                   lambda i: ref.grouped_dx_ref(dss[i % 2], A),
+                   lambda i: RL.dx(dss[i % 2], A, None, full),
+                   lambda i: torch.bmm(dss[i % 2], A_lib.transpose(1, 2))),
+            "da": (lambda i: GL.da(xs[i % 2], dss[i % 2]),
+                   lambda i: ref.grouped_da_ref(xs[i % 2], dss[i % 2]),
+                   lambda i: RL.da(xs[i % 2], dss[i % 2], None, full),
+                   lambda i: torch.bmm(xs[i % 2].transpose(1, 2),
+                                       dss[i % 2])),
+            "db": (lambda i: GL.db(ss[i % 2], dys[i % 2], scale),
+                   lambda i: ref.grouped_db_ref(ss[i % 2], dys[i % 2],
+                                                scale),
+                   lambda i: RL.db(ss[i % 2], dys[i % 2], scale, None, full),
+                   lambda i: torch.bmm(ss[i % 2].transpose(1, 2),
+                                       dys[i % 2])),
+        }
+        # the bytes each function must move (each input read once, each
+        # output written once: one [Z,T,d] bf16 activation, the [Z,T,r] bf16
+        # narrow operand, one fp32 master) and its flops
+        act_in, act_out, narrow = Z * T_ * din * 2, Z * T_ * dout * 2, \
+            Z * T_ * r * 2
+        a_mst, b_mst = Z * din * r * 4, Z * r * dout * 4
+        fl_in, fl_out = 2 * Z * T_ * r * din, 2 * Z * T_ * r * dout
+        work = {"xa": (act_in + a_mst + narrow, fl_in),
+                "sb_add": (narrow + b_mst + act_out, fl_out),
+                "ds": (act_out + b_mst + narrow, fl_out),
+                "dx": (narrow + a_mst + act_in, fl_in),
+                "da": (act_in + narrow + a_mst, fl_in),
+                "db": (narrow + act_out + b_mst, fl_out)}
+        for name in names:
+            kern, plain, twin, lib = timing[name]
+            ms, _ = time_ms(torch, kern, 10)
+            plain_ms, _ = time_ms(torch, plain, 10)
+            twin_ms, _ = time_ms(torch, twin, 10)
+            lib_ms, _ = time_ms(torch, lib, 10)
+            bound_ms, bound_by = bound(*work[name])
+            print(f"{name:7s} {label:6s} {T_:5d} {din:5d} {dout:5d}  "
+                  f"{ms:9.5f} {plain_ms:9.5f} {twin_ms:9.5f} {lib_ms:9.5f}  "
+                  f"{bound_ms:9.6f} {bound_by:10s} {errs[name]:.3g}  yes")
+            res = results.setdefault(name, {"max_abs_err": 0.0})
+            res["max_abs_err"] = max(res["max_abs_err"], errs[name])
+            if (label, din, dout) == ("train", 2560, 2560):
+                res.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
+        del xs, dys, ss, dss, timing, base
+        torch.cuda.empty_cache()
+    return results
+
+
+def _train_lora(torch, cfg, M, LORA, ranks_t):
+    """Slot-stacked adapters at true ranks ``ranks_t``: A from the LoRA
+    init, B ~ N(0, 0.003) inside each true rank (B = 0, the init, would
+    make dS = 0 and hide ds, dx and da), garbage in the padded rank
+    region."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(3)
-    ranks = torch.tensor(TRAIN_RANKS, dtype=torch.int32, device=dev)
-    lora = LORA.init_lora_tree(gen, cfg, len(TRAIN_RANKS), ranks,
+    ranks = torch.tensor(ranks_t, dtype=torch.int32, device=dev)
+    lora = LORA.init_lora_tree(gen, cfg, len(ranks_t), ranks,
                                M.target_shapes(cfg))
     pad = 1.0 - LORA.rank_mask(ranks, cfg.lora.r_max)          # [Z, r]
     for ab in lora.values():
@@ -655,21 +832,29 @@ def _train_lora(torch, cfg, M, LORA):
     return lora, ranks
 
 
-def _rank_sweep_data(cfg):
+def _task_data(cfg, name):
     from repro_torch.data.synthetic import make_task_dataset
-    return make_task_dataset("rank-sweep", cfg.vocab_size, seq_len=TRAIN_S,
+    return make_task_dataset(name, cfg.vocab_size, seq_len=TRAIN_S,
                              num_train=64, num_val=EVAL_B, difficulty=0.3,
                              seed=0)
 
 
-def train_check(torch, cfg, params):
+def train_check(torch, RL, GL, cfg, params, ranks_t, dense):
     """One full-size train step with the kernels against the same step on
     their plain versions (LoRA backend "torch": autograd through them),
     per slot: loss, grad norm, and the relative RMS of dA and dB over all
     224 projections; then four planted faults in the plain run, each of
     which must break the bars: three in the backward, and one in the
     forward (slot 0's LoRA delta halved) that must break the loss bar
-    itself."""
+    itself.
+
+    ``dense`` False: slots at the true ranks ``ranks_t`` < r_max, with
+    ``slot_ranks`` bound (the rank-local kernels). ``dense`` True: every
+    slot at r_max and nothing bound (the dense kernels); the plain run
+    binds ``slot_ranks`` = r_max, whose plain versions give bitwise the
+    dense ones'. Then the kernel step runs again with ``slot_ranks`` bound
+    to r_max, through the rank-local kernels: its per-slot losses and every
+    dA and dB must equal the dense step's bit for bit."""
     import contextlib
 
     from repro_torch.core import lora as LORA
@@ -680,13 +865,19 @@ def train_check(torch, cfg, params):
     from repro_torch.optim import adamw
 
     dev = "cuda"
-    Z = len(TRAIN_RANKS)
-    lora, ranks = _train_lora(torch, cfg, M, LORA)
-    nb = SlotBatcher(_rank_sweep_data(cfg), Z, TRAIN_B, seed=0)
-    batch = {k: torch.from_numpy(v).to(dev)
-             for k, v in nb.next_batch_dict().items()}
-    batch["slot_ranks"] = ranks
+    Z = len(ranks_t)
+    what = "dense" if dense else "rank-local"
+    lora, ranks = _train_lora(torch, cfg, M, LORA, ranks_t)
+    nb = SlotBatcher(_task_data(cfg, "rank-sweep"), Z, TRAIN_B, seed=0)
+    kbatch = {k: torch.from_numpy(v).to(dev)
+              for k, v in nb.next_batch_dict().items()}
+    pbatch = dict(kbatch, slot_ranks=ranks)
+    if not dense:
+        kbatch = pbatch
     active = torch.ones((Z,), dtype=torch.int32, device=dev)
+
+    def batch_of(backend):
+        return kbatch if backend == "kernel" else pbatch
 
     def step(backend):
         """make_train_step on copies of the adapters and fresh moments."""
@@ -695,13 +886,14 @@ def train_check(torch, cfg, params):
         opt = adamw.init_state(tree, Z)
         hp = adamw.SlotHParams.broadcast(Z, lr=1e-4, device=dev)
         with LORA.backend(backend):
-            _, _, met = STEPS.make_train_step(cfg)(params, tree, opt, hp,
-                                                   active, ranks, batch)
+            _, _, met = STEPS.make_train_step(cfg)(
+                params, tree, opt, hp, active, ranks, batch_of(backend))
         return met["per_slot_loss"], met["grad_norm"]
 
-    def grads_of(tree, backend):
+    def grads_of(tree, backend, batch=None):
         with LORA.backend(backend):
-            return STEPS.lora_grads(cfg, params, tree, batch, active)
+            return STEPS.lora_grads(cfg, params, tree,
+                                    batch or batch_of(backend), active)
 
     def grads(backend):
         return grads_of(lora, backend)
@@ -713,10 +905,18 @@ def train_check(torch, cfg, params):
     t_k = time.perf_counter() - t
     p_loss, p_norm = step("torch")
     torch.cuda.synchronize()
-    print(f"train check: {cfg.name} full size, Z={Z} ranks {TRAIN_RANKS}, "
-          f"b={TRAIN_B} S={TRAIN_S}; one make_train_step with the kernels "
-          f"{t_k:.2f} s (first, cold), then on the plain versions")
-    _, gk = grads("kernel")
+    print(f"train check ({what}): {cfg.name} full size, Z={Z} ranks "
+          f"{ranks_t}, b={TRAIN_B} S={TRAIN_S}; one make_train_step with the "
+          f"kernels {t_k:.2f} s, then on the plain versions")
+    RL.reset_launches()
+    GL.reset_launches()
+    k_gloss, gk = grads("kernel")
+    torch.cuda.synchronize()
+    used, unused = (GL, RL) if dense else (RL, GL)
+    require(min(used.LAUNCHES.values()) > 0
+            and set(unused.LAUNCHES.values()) == {0},
+            f"{what} train check launched dense {GL.LAUNCHES}, rank-local "
+            f"{RL.LAUNCHES}")
     _, gp = grads("torch")
 
     def rel_rms(a, b, m):
@@ -747,12 +947,13 @@ def train_check(torch, cfg, params):
                          for k in bars)
 
     sound = gap(p_loss, p_norm, gp)
-    print(f"train check: kernels vs plain per slot (relative): "
+    print(f"train check ({what}): kernels vs plain per slot (relative): "
           f"{show(sound)}; bars {bars}")
     require(bool(torch.isfinite(k_loss).all()
                  and torch.isfinite(k_norm).all()),
             "train step losses or grad norms not finite")
-    require(within(sound), "kernel train step too far from the plain one")
+    require(within(sound), f"{what} kernel train step too far from the "
+            "plain one")
 
     # planted faults in the plain run, each held to the same bars
     def faulted(leaf, z, factor):
@@ -781,14 +982,14 @@ def train_check(torch, cfg, params):
     with lora_dx_dropped():
         f_loss, g_nodx = grads("torch")
     controls = [
-        (f"slot 0 (rank {TRAIN_RANKS[0]}) dA zeroed", p_loss, g0),
-        (f"slot {Z - 1} (rank {TRAIN_RANKS[-1]}) dB halved", p_loss, g3),
+        (f"slot 0 (rank {ranks_t[0]}) dA zeroed", p_loss, g0),
+        (f"slot {Z - 1} (rank {ranks_t[-1]}) dB halved", p_loss, g3),
         ("LoRA branch dX dropped", f_loss, g_nodx),
     ]
-    for what, loss, g in controls:
+    for label, loss, g in controls:
         c = gap(loss, adamw.per_slot_global_norm(g), g)
-        print(f"train check: control, {what}: {show(c)}")
-        require(not within(c), f"control '{what}' passes the train bars")
+        print(f"train check ({what}): control, {label}: {show(c)}")
+        require(not within(c), f"control '{label}' passes the train bars")
     del g0, g3, g_nodx
     # the forward fault: slot 0's delta halved (its B halved) in the plain
     # forward; the loss alone must tell it from the kernels' rounding
@@ -797,26 +998,47 @@ def train_check(torch, cfg, params):
         ab["B"][:, 0] *= 0.5
     h_loss, g_half = grads_of(half, "torch")
     c = gap(h_loss, adamw.per_slot_global_norm(g_half), g_half)
-    print(f"train check: control, slot 0 (rank {TRAIN_RANKS[0]}) delta "
+    print(f"train check ({what}): control, slot 0 (rank {ranks_t[0]}) delta "
           f"halved in the forward: {show(c)}")
     require(max(c["loss"]) > TRAIN_LOSS_REL,
             "control 'slot 0 delta halved' passes the loss bar")
-    del gk, gp, g_half, half, lora
+    del g_half, half
+    if dense:
+        # the same step with slot_ranks bound to r_max: the rank-local
+        # kernels, which must give the dense step's numbers bit for bit
+        RL.reset_launches()
+        GL.reset_launches()
+        r_loss, gr = grads_of(lora, "kernel", pbatch)
+        torch.cuda.synchronize()
+        require(min(RL.LAUNCHES.values()) > 0
+                and set(GL.LAUNCHES.values()) == {0},
+                f"bound step launched dense {GL.LAUNCHES}, rank-local "
+                f"{RL.LAUNCHES}")
+        same = [torch.equal(gr[t][m], gk[t][m]) for t in gk for m in gk[t]]
+        print(f"train check (dense): the step with slot_ranks bound to "
+              f"{ranks_t} (rank-local kernels): per-slot loss bitwise equal "
+              f"{torch.equal(r_loss, k_gloss)}, dA/dB bitwise equal on "
+              f"{sum(same)} of {len(same)} leaves")
+        require(torch.equal(r_loss, k_gloss) and all(same),
+                "rank-local kernels at full rank differ from the dense ones")
+        del gr
+    del gk, gp, lora
     torch.cuda.empty_cache()
 
 
-def executor_phase(torch, RL, cfg, params):
-    """The rank sweep through the port's entry point: BatchedExecutor
-    .run_task on full-size stablelm-3b, 8 jobs (ranks 4/8/16/32 x lr
-    1e-4/1e-3) on 4 slots. Every fused train step and every eval step is
-    wrapped to count its kernel launches and time it; two train steps of
-    the second warmup wave run under torch.profiler."""
-    from repro_torch.configs.base import TrainConfig
+def executor_phase(torch, fam, other, cfg, params, task, jobs):
+    """A sweep through the port's entry point: BatchedExecutor.run_task on
+    full-size stablelm-3b, ``jobs`` (8) on 4 slots. Every fused train step
+    and every eval step is wrapped to count the launches of the kernel set
+    ``fam`` (the path's: rank-local for a rank sweep, dense for a full-rank
+    lr sweep) and time it; the other set, ``other``, must launch nothing in
+    the run. Two train steps of the second warmup wave run under
+    torch.profiler."""
     from repro_torch.core.early_exit import EarlyExitConfig
     from repro_torch.core.executor import BatchedExecutor, TaskResult
 
     sync = torch.cuda.synchronize
-    Z = len(TRAIN_RANKS)
+    Z = 4
     per_forward = len(cfg.lora.targets) * cfg.num_layers
     # the first layer's q/k/v read the normed embedding, which hangs off
     # no differentiable leaf, so their LoRA dX is never asked for
@@ -825,11 +1047,8 @@ def executor_phase(torch, RL, cfg, params):
                   "ds": per_forward, "dx": per_forward - no_dx,
                   "da": per_forward, "db": per_forward}
     want_eval = {k: (per_forward if k in ("xa", "sb_add") else 0)
-                 for k in RL.LAUNCHES}
-    jobs = {f"r{r}-lr{lr:g}": TrainConfig(learning_rate=lr, lora_rank=r,
-                                          per_adapter_batch=TRAIN_B)
-            for r in TRAIN_RANKS for lr in (1e-4, 1e-3)}
-    bx = BatchedExecutor(cfg, params, _rank_sweep_data(cfg), Z=Z,
+                 for k in fam.LAUNCHES}
+    bx = BatchedExecutor(cfg, params, _task_data(cfg, task), Z=Z,
                          per_adapter_batch=TRAIN_B,
                          ee=EarlyExitConfig(warmup_ratio=0.25,
                                             select_ratio=0.25),
@@ -847,7 +1066,7 @@ def executor_phase(torch, RL, cfg, params):
             tokens = ex.slots.occupied_tokens()
             residents = len(ex.slots.occupied())
             profiled = kind == "train" and len(log["train"]) in (2, 3)
-            before = dict(RL.LAUNCHES)
+            before = dict(fam.LAUNCHES)
             sync()
             t = time.perf_counter()
             if profiled:
@@ -858,7 +1077,7 @@ def executor_phase(torch, RL, cfg, params):
                 out = fn(*args)
                 sync()
             dt = time.perf_counter() - t
-            delta = {k: RL.LAUNCHES[k] - before[k] for k in before}
+            delta = {k: fam.LAUNCHES[k] - before[k] for k in before}
             log[kind].append((delta, dt * 1e3, tokens, profiled, residents))
             if profiled:     # its events are read after run_task
                 prof["wall_us"] += dt * 1e6
@@ -887,13 +1106,19 @@ def executor_phase(torch, RL, cfg, params):
     for name in ("_assemble", "eval_task", "snapshot", "restore", "admit",
                  "evict", "adapter_at"):
         clocked(name)
+    # an earlier executor phase's executor lives on in the reference cycle
+    # its wrapped methods make (its adapters and moments, ~4.8 GB at r_max
+    # 64): free it before the peak is read
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    RL.reset_launches()
+    fam.reset_launches()
+    other.reset_launches()
     t0 = time.perf_counter()
-    result = bx.run_task("rank-sweep", jobs, total_steps=8)
+    result = bx.run_task(task, jobs, total_steps=8)
     wall = time.perf_counter() - t0
-    launches = dict(RL.LAUNCHES)
+    launches = dict(fam.LAUNCHES)
+    stray = dict(other.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     for p in traces:
         for e in p.events():
@@ -918,6 +1143,8 @@ def executor_phase(torch, RL, cfg, params):
     require(all(launches[k] == n_train * want_train[k]
                 + n_eval * want_eval[k] for k in launches),
             f"run launches {launches}")
+    require(set(stray.values()) == {0},
+            f"the other kernel set launched {stray} in the {task} run")
     # all work over all the time: the real tokens of every fused train
     # step over the whole run_task wall (batch assembly, copies to the
     # card, loss reads, evals, rotations, the cold first step and the two
@@ -933,46 +1160,130 @@ def executor_phase(torch, RL, cfg, params):
         if not p:
             by_res.setdefault(k, []).append((ms, tok))
     eval_ms = statistics.median(ms for _, ms, *_ in log["eval"][1:])
-    print(f"executor: BatchedExecutor.run_task('rank-sweep', 8 jobs, "
+    tag = f"executor ({task})"
+    print(f"{tag}: BatchedExecutor.run_task('{task}', {len(jobs)} jobs, "
           f"total_steps=8) on {cfg.name}: best {result.best_job} "
           f"(val {result.best_val:.4f}), exits {result.exit_counts}, "
           f"saved {result.samples_saved_frac:.3f} of the samples; "
           f"{n_train} fused train steps, {n_eval} eval steps in {wall:.1f} s")
-    print(f"executor: launches per train step {want_train}, per eval step "
+    print(f"{tag}: launches per train step {want_train}, per eval step "
           f"{want_eval} (every step checked); run total {launches}")
-    print(f"executor: run_task wall {wall:.3f} s for {trained} real trained "
+    print(f"{tag}: run_task wall {wall:.3f} s for {trained} real trained "
           f"tokens = {run_tok_s:.1f} tokens/s over the whole run (every "
           f"step, eval and rotation included); {run_tok_s_np:.1f} tokens/s "
           f"without the two profiled steps' windows and tokens")
     train_s = sum(ms for _, ms, *_ in log["train"]) / 1e3
     eval_s = sum(ms for _, ms, *_ in log["eval"]) / 1e3
     parts = {"train steps": train_s, **spent}
-    print(f"executor: run_task wall {wall:.3f} s = " + " + ".join(
+    print(f"{tag}: run_task wall {wall:.3f} s = " + " + ".join(
         f"{k} {v:.3f} s" for k, v in parts.items())
         + f" + other {wall - sum(parts.values()):.3f} s (eval_task holds "
         f"the eval steps' {eval_s:.3f} s; the train steps hold the two "
         f"profiled ones' {prof['wall_us'] / 1e6:.3f} s)")
     for k, steps in sorted(by_res.items(), reverse=True):
         ms = [m for m, _ in steps]
-        print(f"executor: {k} resident slots: median _train_step call "
+        print(f"{tag}: {k} resident slots: median _train_step call "
               f"{statistics.median(ms):.2f} ms over {len(ms)} warm "
               f"unprofiled steps (min {min(ms):.2f}, max {max(ms):.2f}), "
               f"{sum(t for _, t in steps) / sum(ms) * 1e3:.1f} real tokens/s "
               f"within the calls")
-    print(f"executor: first train step {log['train'][0][1]:.1f} ms (cold); "
+    print(f"{tag}: first train step {log['train'][0][1]:.1f} ms (cold); "
           f"median eval step {eval_ms:.2f} ms ([{Z}, {EVAL_B}, {TRAIN_S}] "
           f"tokens); peak memory {peak / 2**30:.2f} GiB")
     busy, pw = prof["busy_us"], prof["wall_us"]
-    print(f"profile: 2 train steps (profiler on) {pw / 2e3:.2f} ms/step wall,"
-          f" device busy {busy / 2e3:.2f} ms/step = {busy / pw:.3f} of the "
-          f"wall, {sum(n for n, _ in prof['kernels'].values()) / 2:.0f} "
+    print(f"profile ({task}): 2 train steps (profiler on) {pw / 2e3:.2f} "
+          f"ms/step wall, device busy {busy / 2e3:.2f} ms/step = "
+          f"{busy / pw:.3f} of the wall, "
+          f"{sum(n for n, _ in prof['kernels'].values()) / 2:.0f} "
           f"device events/step" if busy else
-          "profile: no device events traced: not measured")
+          f"profile ({task}): no device events traced: not measured")
     for name, (n, us) in sorted(prof["kernels"].items(),
                                 key=lambda kv: -kv[1][1])[:10]:
-        print(f"profile:   {us / 2e3:8.3f} ms/step {n // 2:5d}/step "
+        print(f"profile ({task}):   {us / 2e3:8.3f} ms/step {n // 2:5d}/step "
               f"{name[:90]}")
     return launches
+
+
+def colocated_phase(torch, RL, GL, cfg):
+    """Co-located == solo on the card (the port of the JAX package's
+    ``test_ranklocal_cross_task_losses_bitwise_equal_solo``): stablelm-3b
+    at full width and COLO_LAYERS layers, a full-rank task (two jobs at
+    64/64) and a low-rank one (4/8) fused on one SharedBackboneExecutor
+    through run_colocated, then each alone on a fresh executor of the same
+    shape. Loss histories and best validation losses must be equal bit for
+    bit; the full-rank task takes the dense kernels alone and the
+    rank-local kernels when fused."""
+    import dataclasses
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.early_exit import EarlyExitConfig
+    from repro_torch.core.executor import (SharedBackboneExecutor,
+                                           TaskLifecycle, run_colocated)
+    from repro_torch.data.synthetic import SlotBatcher, make_task_dataset
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(cfg, num_layers=COLO_LAYERS)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    r_max = cfg.lora.r_max
+    specs = [("full", 3, (r_max, r_max), 0.2),
+             ("low", 4, (4, 8), 0.6)]
+    data = {name: make_task_dataset(name, cfg.vocab_size, seq_len=TRAIN_S,
+                                    num_train=32, num_val=8,
+                                    difficulty=diff, seed=seed)
+            for name, seed, _, diff in specs}
+
+    def run(chosen):
+        ex = SharedBackboneExecutor(cfg, params, Z=4,
+                                    per_adapter_batch=TRAIN_B, eval_every=2,
+                                    seed=0)
+        lcs = []
+        for name, seed, ranks, _ in chosen:
+            jobs = {f"{name}/j{i}": TrainConfig(learning_rate=lr,
+                                                lora_rank=rk, max_steps=8)
+                    for i, (lr, rk) in enumerate(zip((3e-3, 1e-3), ranks))}
+            lcs.append(TaskLifecycle(
+                ex, name, jobs, 8,
+                ee=EarlyExitConfig(warmup_ratio=0.25, select_ratio=1.0),
+                max_slots=2, batcher=SlotBatcher(data[name], 2, ex.b_cap,
+                                                 seed=seed), seed=seed))
+        RL.reset_launches()
+        GL.reset_launches()
+        results = run_colocated(ex, lcs)
+        torch.cuda.synchronize()
+        hists = {lc.task_name: {j: (tuple(m.val_hist),
+                                    tuple(m.raw_train_hist))
+                                for j, m in lc.monitors.items()}
+                 for lc in lcs}
+        return (results, hists, sum(RL.LAUNCHES.values()),
+                sum(GL.LAUNCHES.values()))
+
+    t = time.perf_counter()
+    fused, fused_h, fused_rl, fused_gl = run(specs)
+    solo_f, solo_f_h, solo_f_rl, solo_f_gl = run(specs[:1])
+    solo_l, solo_l_h, solo_l_rl, solo_l_gl = run(specs[1:])
+    print(f"colocated: {cfg.name} d={cfg.d_model} ff={cfg.d_ff} "
+          f"L={cfg.num_layers}, Z=4, b={TRAIN_B} S={TRAIN_S}; tasks "
+          f"'full' (ranks {specs[0][2]}) and 'low' (ranks {specs[1][2]}), "
+          f"fused then each alone, {time.perf_counter() - t:.1f} s; "
+          f"kernel launches (rank-local, dense): fused ({fused_rl}, "
+          f"{fused_gl}), full alone ({solo_f_rl}, {solo_f_gl}), low alone "
+          f"({solo_l_rl}, {solo_l_gl})")
+    require(fused_rl > 0 and fused_gl == 0,
+            "fused run did not take the rank-local kernels alone")
+    require(solo_f_gl > 0 and solo_f_rl == 0,
+            "full-rank task alone did not take the dense kernels alone")
+    for name, solo, solo_h in (("full", solo_f, solo_f_h),
+                               ("low", solo_l, solo_l_h)):
+        same = fused_h[name] == solo_h[name]    # bitwise: tuples of floats
+        print(f"colocated: task '{name}' best val fused "
+              f"{fused[name].best_val!r}, alone {solo[name].best_val!r}; "
+              f"loss histories bitwise equal {same}")
+        require(same and fused[name].best_val == solo[name].best_val,
+                f"task '{name}' co-located differs from alone")
+        require(math.isfinite(fused[name].best_val),
+                f"task '{name}' best val not finite")
+    del params
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -985,7 +1296,9 @@ def main() -> int:
               "from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.grouped_lora import grouped_lora as GL
     from repro_torch.kernels.grouped_lora import ranklocal as RL
     from repro_torch.kernels.grouped_lora import ref
     from repro_torch.models import model as M
@@ -999,7 +1312,9 @@ def main() -> int:
 
     t = time.perf_counter()
     lib = RL.build()
-    print(f"build: {lib.name} in {time.perf_counter() - t:.2f} s")
+    print(f"build: {lib.name} from {len(RL.SOURCES)} sources "
+          f"({', '.join(p.name for p in RL.SOURCES)}, one nvcc each, started "
+          f"together) in {time.perf_counter() - t:.2f} s")
 
     print(f"kernels on {card}:")
     kern = kernel_phase(torch, RL, ref)
@@ -1007,6 +1322,7 @@ def main() -> int:
         err = max(res["max_abs_err"], kern.get(name, {}).get("max_abs_err",
                                                               0.0))
         kern.setdefault(name, {}).update(res, max_abs_err=err)
+    dense = dense_kernel_phase(torch, GL, RL, ref)
     print(f"kernel phases done at {time.perf_counter() - t_all:.1f} s")
 
     cfg = get_arch("stablelm-3b")
@@ -1017,25 +1333,55 @@ def main() -> int:
     serve_launches = serve_phase(torch, RL, cfg, params)
     torch.cuda.empty_cache()
     print(f"serve phase done at {time.perf_counter() - t_all:.1f} s")
-    train_check(torch, cfg, params)
+    train_check(torch, RL, GL, cfg, params, TRAIN_RANKS, dense=False)
     print(f"train check done at {time.perf_counter() - t_all:.1f} s")
-    train_launches = executor_phase(torch, RL, cfg, params)
-    print(f"executor phase done at {time.perf_counter() - t_all:.1f} s")
+    rank_jobs = {f"r{r}-lr{lr:g}": TrainConfig(learning_rate=lr, lora_rank=r,
+                                               per_adapter_batch=TRAIN_B)
+                 for r in TRAIN_RANKS for lr in (1e-4, 1e-3)}
+    train_launches = executor_phase(torch, RL, GL, cfg, params, "rank-sweep",
+                                    rank_jobs)
+    print(f"rank-sweep executor phase done at "
+          f"{time.perf_counter() - t_all:.1f} s")
+    train_check(torch, RL, GL, cfg, params, FULL_RANKS, dense=True)
+    print(f"full-rank train check done at {time.perf_counter() - t_all:.1f} s")
+    colocated_phase(torch, RL, GL, cfg)
+    print(f"co-located phase done at {time.perf_counter() - t_all:.1f} s")
+    lr_jobs = {f"lr{lr:g}-wd{wd:g}": TrainConfig(
+                   learning_rate=lr, weight_decay=wd,
+                   lora_rank=cfg.lora.r_max, per_adapter_batch=TRAIN_B)
+               for lr in (1e-4, 3e-4, 1e-3, 3e-3) for wd in (0.0, 0.01)}
+    lr_launches = executor_phase(torch, GL, RL, cfg, params, "lr-sweep",
+                                 lr_jobs)
+    print(f"lr-sweep executor phase done at "
+          f"{time.perf_counter() - t_all:.1f} s")
 
-    fwd = "src/repro_torch/kernels/grouped_lora/csrc/ranklocal.cu"
-    bwd = "src/repro_torch/kernels/grouped_lora/csrc/ranklocal_bwd.cu"
-    tpu = "src/repro/kernels/grouped_lora/ranklocal.py"
-    rows = [("xa", fwd, 97), ("sb_add", fwd, 187), ("ds", bwd, 240),
-            ("dx", bwd, 297), ("da", bwd, 355), ("db", bwd, 407)]
+    csrc = "src/repro_torch/kernels/grouped_lora/csrc"
+    rows = [  # (name, kernel source, TPU kernel file, its pallas_call line)
+        ("xa", "ranklocal.cu", "ranklocal.py", 97),
+        ("sb_add", "ranklocal.cu", "ranklocal.py", 187),
+        ("ds", "ranklocal_bwd.cu", "ranklocal.py", 240),
+        ("dx", "ranklocal_bwd.cu", "ranklocal.py", 297),
+        ("da", "ranklocal_bwd.cu", "ranklocal.py", 355),
+        ("db", "ranklocal_bwd.cu", "ranklocal.py", 407)]
+    rows += [(name, "grouped_lora.cu", "grouped_lora.py", line)
+             for name, line in (("xa", 71), ("sb_add", 121), ("ds", 162),
+                                ("dx", 197), ("da", 238), ("db", 275))]
     table = {"kernels": []}
-    for name, src, line in rows:
-        by_path = {"train": train_launches[name]}
-        if name in serve_launches:
-            by_path["serve"] = serve_launches[name]
+    for name, src, tpu, line in rows:
+        if src == "grouped_lora.cu":
+            prefix, by_path, res = "grouped_lora", {
+                "lr_sweep": lr_launches[name]}, dense[name]
+        else:
+            prefix, by_path, res = "ranklocal", {
+                "train": train_launches[name]}, kern[name]
+            if name in serve_launches:
+                by_path["serve"] = serve_launches[name]
         table["kernels"].append({
-            "name": f"ranklocal_{name}", "route": "cuda", "source": src,
-            "replaces": f"{tpu}:{line}", "launches": sum(by_path.values()),
-            "launches_by_path": by_path, **kern[name]})
+            "name": f"{prefix}_{name}", "route": "cuda",
+            "source": f"{csrc}/{src}",
+            "replaces": f"src/repro/kernels/grouped_lora/{tpu}:{line}",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            **res})
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(card_line())
     print(json.dumps(table))

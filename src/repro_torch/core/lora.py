@@ -11,15 +11,23 @@ dimension: ``lora_delta`` goes to the rank-local grouped-LoRA kernels
 (``kernels/grouped_lora``), which skip dead rank tiles and never read the
 padded region into the output.
 
-``lora_delta`` is differentiable in x, A and B on both backends. Under
-``slot_ranks`` the default ``"kernel"`` backend calls
-``ranklocal_grouped_lora`` (an autograd Function over the six CUDA
-kernels for CUDA tensors, their plain versions for CPU tensors); the
-``"torch"`` backend takes autograd through the kernels' plain versions on
-any device — the reference a run on the card compares its kernels
-against. Without a ``slot_ranks`` binding the delta is plain PyTorch math
-(the JAX package's ``jnp`` path): the dense and ragged kernels that path
-reaches are not ported yet.
+``lora_delta`` is differentiable in x, A and B on both backends. The
+default ``"kernel"`` backend takes, as the JAX package's Pallas backends
+do:
+  * under ``slot_ranks``: ``ranklocal_grouped_lora``, an autograd Function
+    over the six rank-local CUDA kernels;
+  * with nothing bound (every resident slot at r_max and full width):
+    ``grouped_lora``, an autograd Function over the six dense CUDA
+    kernels, which give bitwise the rank-local kernels' result at full
+    rank;
+  * under ``ragged_rows`` alone (full rank, mixed widths): the ragged
+    kernels, not ported yet. On a CUDA tensor this raises; on the CPU the
+    delta is the plain math below with the row mask.
+For CPU tensors each Function runs its kernels' plain versions. The
+``"torch"`` backend takes autograd through the rank-local kernels' plain
+versions under ``slot_ranks`` and plain PyTorch math otherwise (the JAX
+package's ``jnp`` path), on any device — the reference a run on the card
+compares its kernels against.
 
 The bindings are thread-local. A step that recomputes layers during the
 backward pass (``torch.utils.checkpoint``; on the card autograd runs the
@@ -144,16 +152,24 @@ def lora_delta(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     [Z]. Under ``ragged_rows`` slot z's delta covers only its first rows[z]
     token rows; under ``slot_ranks`` only its first ranks[z] ranks."""
     rows, ranks = get_ragged_rows(), get_slot_ranks()
+    kernel = get_backend() == "kernel"
+    lead, Z = x.shape[:-1], x.shape[0]
+    xt = x.reshape(Z, -1, x.shape[-1])
     if ranks is not None:
-        lead, Z = x.shape[:-1], x.shape[0]
-        xt = x.reshape(Z, -1, x.shape[-1])
-        if get_backend() == "kernel":
+        if kernel:
             y = kops.ranklocal_grouped_lora(xt, A, B, scale, ranks, rows)
         else:
             y = kref.ranklocal_lora_ref(xt, A, B,
                                         _scale_vec(scale, Z, x.device),
                                         ranks, rows)
         return y.reshape(*lead, B.shape[-1])
+    if kernel and rows is None:
+        return kops.grouped_lora(xt, A, B, scale).reshape(*lead, B.shape[-1])
+    if kernel and x.device.type != "cpu":
+        raise NotImplementedError(
+            "lora_delta under ragged_rows without slot_ranks needs the "
+            "ragged grouped-LoRA kernels, which are not ported yet "
+            "(ROADMAP.md, modules to port, item 2)")
     if rows is not None:
         x = _apply_row_mask(x, rows)
     return _lora_delta_torch(x, A, B, scale)

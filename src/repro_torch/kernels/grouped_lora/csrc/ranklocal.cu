@@ -34,11 +34,11 @@
 // so launch overhead will likely dominate until a later change captures the
 // step in a CUDA graph.
 //
-// Structure (ranklocal_common.cuh): the TPU grid's sequential contraction
-// axis becomes a loop inside the block; each block reads rows[z] and
-// ranks[z] itself; edges are masked in the kernel (no padding to tile
-// multiples). Plain fp32 FMA (no tensor cores): a simple, correct first
-// kernel (wgmma/TMA come later).
+// Structure (ranklocal_common.cuh, BOUND = true): the TPU grid's
+// sequential contraction axis becomes a loop inside the block; each block
+// reads rows[z] and ranks[z] itself; edges are masked in the kernel (no
+// padding to tile multiples). Plain fp32 FMA (no tensor cores): a simple,
+// correct first kernel (wgmma/TMA come later).
 
 #include "ranklocal_common.cuh"
 
@@ -47,21 +47,8 @@
 extern "C" int rl_xa(const void* x, const float* A, void* S, const int* rows,
                      const int* ranks, int Z, int T, int din, int r,
                      int dtype, void* stream) {
-  dim3 grid(cdiv(r, NO_BR), cdiv(T, NO_BM), Z);
-  if (!grid_ok(grid.x, grid.y, grid.z) || din < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    narrow_out_kernel<float><<<grid, NO_THREADS, 0, st>>>(
-        (const float*)x, A, r, 1, nullptr, (float*)S, rows, ranks, T, din, r);
-  } else if (dtype == 1) {
-    narrow_out_kernel<__nv_bfloat16><<<grid, NO_THREADS, 0, st>>>(
-        (const __nv_bfloat16*)x, A, r, 1, nullptr, (__nv_bfloat16*)S, rows,
-        ranks, T, din, r);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  GL_DISPATCH_ACT(dtype, launch_xa<Act, true>(x, A, S, rows, ranks, Z, T, din,
+                                              r, (cudaStream_t)stream));
 }
 
 // scale may be null (then every slot uses scale_all); ybase may be null
@@ -70,21 +57,7 @@ extern "C" int rl_sb_add(const void* S, const float* B, const float* scale,
                          float scale_all, const void* ybase, void* Y,
                          const int* rows, const int* ranks, int Z, int T,
                          int r, int dout, int dtype, void* stream) {
-  dim3 grid(cdiv(dout, RS_BN), cdiv(T, RS_BM), Z);
-  if (!grid_ok(grid.x, grid.y, grid.z) || r < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    rank_sum_kernel<float, false><<<grid, RS_THREADS, 0, st>>>(
-        (const float*)S, B, scale, scale_all, (const float*)ybase, (float*)Y,
-        rows, ranks, T, r, dout);
-  } else if (dtype == 1) {
-    rank_sum_kernel<__nv_bfloat16, false><<<grid, RS_THREADS, 0, st>>>(
-        (const __nv_bfloat16*)S, B, scale, scale_all,
-        (const __nv_bfloat16*)ybase, (__nv_bfloat16*)Y, rows, ranks, T, r,
-        dout);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  GL_DISPATCH_ACT(dtype, launch_sb_add<Act, true>(
+      S, B, scale, scale_all, ybase, Y, rows, ranks, Z, T, r, dout,
+      (cudaStream_t)stream));
 }

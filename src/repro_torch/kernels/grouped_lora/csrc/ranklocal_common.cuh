@@ -1,22 +1,38 @@
-// Shared pieces of the rank-local grouped-LoRA kernels (sm_90a): type
-// helpers and the two kernel templates that both the forward pair
-// (ranklocal.cu) and the backward set (ranklocal_bwd.cu) instantiate.
+// Shared pieces of the grouped-LoRA kernels (sm_90a): type helpers, the
+// three kernel templates and their launchers, instantiated by the
+// rank-local forward pair (ranklocal.cu), the rank-local backward set
+// (ranklocal_bwd.cu) and the dense set (grouped_lora.cu).
 //
 //   narrow_out_kernel  — a long contraction into a narrow rank-wide output:
-//                        S  = X  @ A   (rl_xa, contraction over din)
-//                        dS = dY @ B^T (rl_ds, contraction over dout)
+//                        S  = X  @ A   (xa, contraction over din)
+//                        dS = dY @ B^T (ds, contraction over dout)
 //   rank_sum_kernel    — a contraction over at most r_max ranks into a wide
 //                        output:
-//                        Y  = S  @ B   (rl_sb_add)
-//                        dX = dS @ A^T (rl_dx)
+//                        Y  = S  @ B   (sb_add)
+//                        dX = dS @ A^T (dx)
+//   tn_kernel          — a contraction over token rows into an fp32 weight
+//                        gradient:
+//                        dA = X^T @ dS       (da)
+//                        dB = scale * S^T dY (db)
 //
-// Both read rows[z] / ranks[z] in the block, skip dead rank and row tiles,
-// mask the boundary tile on load, round the fp32 adapter masters to the
-// activation type in registers, and sum in fp32 in a fixed order (no
-// atomics), so a slot's result depends on nothing but its own operands.
+// BOUND = true (the rank-local kernels): each block reads rows[z] and
+// ranks[z], skips dead rank and row tiles and masks the boundary tile on
+// load. BOUND = false (the dense kernels): no per-slot counts exist; every
+// row and rank is live and the tests are compiled out. Both instantiations
+// run one grid, one tiling and one fp32 summation order per output element,
+// so a dense kernel equals its rank-local twin called with ranks = r_max
+// and rows = T bit for bit — what the executor's co-located == solo
+// contract needs, since a full-rank slot takes the dense kernels alone and
+// the rank-local ones beside a lower-rank co-tenant. A speed change to one
+// instantiation is a change to both.
+//
+// Every kernel rounds the fp32 adapter masters to the activation type in
+// registers and sums in fp32 in a fixed order inside one block (no
+// atomics, no split of a contraction across blocks), so a slot's result
+// depends on nothing but its own operands.
 //
 // Included by each .cu file; everything is in an anonymous namespace so the
-// two translation units keep separate copies.
+// translation units keep separate copies.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -42,8 +58,11 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f<T>(from_f<T>(v));
 }
 
-__device__ __forceinline__ int clamp_count(const int* v, int z, int hi) {
-  if (v == nullptr) return hi;
+// live extent of slot z on an axis of extent hi: v[z] clamped to [0, hi]
+// (v null: hi); without BOUND the whole extent, read from nowhere
+template <bool BOUND>
+__device__ __forceinline__ int live_count(const int* v, int z, int hi) {
+  if (!BOUND || v == nullptr) return hi;
   int c = v[z];
   return c < 0 ? 0 : (c > hi ? hi : c);
 }
@@ -69,7 +88,7 @@ bool grid_ok(int gx, int gy, int gz) {
 constexpr int NO_BM = 4, NO_BR = 16, NO_THREADS = 256;
 constexpr int NO_WARPS = NO_THREADS / 32;
 
-template <typename T>
+template <typename T, bool BOUND>
 __global__ void __launch_bounds__(NO_THREADS)
 narrow_out_kernel(const T* __restrict__ X, const float* __restrict__ W,
                   int sk, int sj, const float* __restrict__ scale,
@@ -80,8 +99,8 @@ narrow_out_kernel(const T* __restrict__ X, const float* __restrict__ W,
   const int m0 = blockIdx.y * NO_BM;
   const int j0 = blockIdx.x * NO_BR;
   const int tid = threadIdx.x;
-  const int nrow = min(NO_BM, clamp_count(rows, z, T_) - m0);   // live rows
-  const int ncol = min(NO_BR, clamp_count(ranks, z, r) - j0);   // live ranks
+  const int nrow = min(NO_BM, live_count<BOUND>(rows, z, T_) - m0);  // live rows
+  const int ncol = min(NO_BR, live_count<BOUND>(ranks, z, r) - j0);  // live ranks
 
   const T* xz = X + ((size_t)z * T_ + m0) * K;
   const float* wz = W + (size_t)z * K * r + (size_t)j0 * sj;
@@ -145,7 +164,7 @@ narrow_out_kernel(const T* __restrict__ X, const float* __restrict__ W,
 // ---------------------------------------------------------------------------
 constexpr int RS_BM = 32, RS_BN = 64, RS_BR = 16, RS_THREADS = 128;
 
-template <typename T, bool W_T>
+template <typename T, bool W_T, bool BOUND>
 __global__ void __launch_bounds__(RS_THREADS)
 rank_sum_kernel(const T* __restrict__ S, const float* __restrict__ W,
                 const float* __restrict__ scale, float scale_all,
@@ -158,8 +177,8 @@ rank_sum_kernel(const T* __restrict__ S, const float* __restrict__ W,
   const int m0 = blockIdx.y * RS_BM;
   const int n0 = blockIdx.x * RS_BN;
   const int tid = threadIdx.x;
-  const int vrows = clamp_count(rows, z, T_);
-  const int vr = clamp_count(ranks, z, r);
+  const int vrows = live_count<BOUND>(rows, z, T_);
+  const int vr = live_count<BOUND>(ranks, z, r);
   const int cn = tid % 16;
   const int rg = (tid / 16) * 4;
 
@@ -224,4 +243,182 @@ rank_sum_kernel(const T* __restrict__ S, const float* __restrict__ W,
   }
 }
 
+// ---------------------------------------------------------------------------
+// OUT[z][a][b] = sc * sum_{t < rows[z]} P[z][t][a] * Q[z][t][b]  (fp32 out)
+// P: [T, NA], Q: [T, NB] in the activation type; OUT: [NA, NB] fp32. The
+// rank axis is b (RANK_A = false: dA = X^T dS, NB = r) or a (RANK_A = true:
+// dB = S^T dY, NA = r); entries past ranks[z] on it are exactly 0, and dead
+// rank tiles skip the row loop. Both operands' dead rows are masked. A
+// 2048-entry output tile per block (BA x BB), a loop over 32-row token
+// chunks staged in shared memory, 4 x 4 fp32 accumulators per thread.
+// ---------------------------------------------------------------------------
+constexpr int TN_BT = 32, TN_THREADS = 128;
+
+template <typename T, int BA, int BB, bool RANK_A, bool BOUND>
+__global__ void __launch_bounds__(TN_THREADS)
+tn_kernel(const T* __restrict__ P, const T* __restrict__ Q,
+          const float* __restrict__ scale, float* __restrict__ OUT,
+          const int* __restrict__ rows, const int* __restrict__ ranks,
+          int T_, int NA, int NB, int r) {
+  static_assert(BA * BB == 16 * TN_THREADS, "4 x 4 outputs per thread");
+  constexpr int TA = BA / 4, TB = BB / 4;
+  __shared__ float sp[TN_BT][BA];
+  __shared__ float sq[TN_BT][BB];
+  const int z = blockIdx.z;
+  const int a0 = blockIdx.y * BA;
+  const int b0 = blockIdx.x * BB;
+  const int tid = threadIdx.x;
+  const int ia = tid / TB, ib = tid % TB;
+  const int vrows = live_count<BOUND>(rows, z, T_);
+  const int vr = live_count<BOUND>(ranks, z, r);
+  const int va = RANK_A ? min(vr, NA) : NA;    // live extent of each axis
+  const int vb = RANK_A ? NB : min(vr, NB);
+
+  const T* pz = P + (size_t)z * T_ * NA;
+  const T* qz = Q + (size_t)z * T_ * NB;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
+
+  const bool live = a0 < va && b0 < vb;        // dead rank tile: no loads
+  for (int t0 = 0; live && t0 < vrows; t0 += TN_BT) {
+    for (int e = tid; e < TN_BT * BA; e += TN_THREADS) {
+      const int i = e / BA, a = e % BA;
+      const int t = t0 + i, aa = a0 + a;
+      sp[i][a] = (t < vrows && aa < va) ? to_f<T>(pz[(size_t)t * NA + aa])
+                                        : 0.f;
+    }
+    for (int e = tid; e < TN_BT * BB; e += TN_THREADS) {
+      const int i = e / BB, b = e % BB;
+      const int t = t0 + i, bb = b0 + b;
+      sq[i][b] = (t < vrows && bb < vb) ? to_f<T>(qz[(size_t)t * NB + bb])
+                                        : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int i = 0; i < TN_BT; ++i) {
+      float pv[4], qv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) pv[u] = sp[i][ia + TA * u];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) qv[u] = sq[i][ib + TB * u];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int w = 0; w < 4; ++w) acc[u][w] = fmaf(pv[u], qv[w], acc[u][w]);
+    }
+    __syncthreads();
+  }
+
+  const float sc = scale != nullptr ? scale[z] : 1.f;
+  float* oz = OUT + (size_t)z * NA * NB;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int a = a0 + ia + TA * u;
+    if (a >= NA) continue;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const int b = b0 + ib + TB * w;
+      if (b >= NB) continue;
+      // past ranks[z] on the rank axis: exactly 0
+      oz[(size_t)a * NB + b] = (a < va && b < vb) ? acc[u][w] * sc : 0.f;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launchers: one grid per function, shared by both instantiations. Act is
+// the activation type of every non-master operand. rows/ranks are read only
+// when BOUND (null rows: every row live). Each returns cudaGetLastError()
+// after its launch (0 = launched).
+// ---------------------------------------------------------------------------
+
+template <typename Act, bool BOUND>
+int launch_xa(const void* x, const float* A, void* S, const int* rows,
+              const int* ranks, int Z, int T, int din, int r,
+              cudaStream_t st) {
+  dim3 grid(cdiv(r, NO_BR), cdiv(T, NO_BM), Z);
+  if (!grid_ok(grid.x, grid.y, grid.z) || din < 1)
+    return (int)cudaErrorInvalidValue;
+  narrow_out_kernel<Act, BOUND><<<grid, NO_THREADS, 0, st>>>(
+      (const Act*)x, A, r, 1, nullptr, (Act*)S, rows, ranks, T, din, r);
+  return (int)cudaGetLastError();
+}
+
+template <typename Act, bool BOUND>
+int launch_sb_add(const void* S, const float* B, const float* scale,
+                  float scale_all, const void* ybase, void* Y,
+                  const int* rows, const int* ranks, int Z, int T, int r,
+                  int dout, cudaStream_t st) {
+  dim3 grid(cdiv(dout, RS_BN), cdiv(T, RS_BM), Z);
+  if (!grid_ok(grid.x, grid.y, grid.z) || r < 1)
+    return (int)cudaErrorInvalidValue;
+  rank_sum_kernel<Act, false, BOUND><<<grid, RS_THREADS, 0, st>>>(
+      (const Act*)S, B, scale, scale_all, (const Act*)ybase, (Act*)Y, rows,
+      ranks, T, r, dout);
+  return (int)cudaGetLastError();
+}
+
+template <typename Act, bool BOUND>
+int launch_ds(const void* dy, const float* B, const float* scale, void* dS,
+              const int* rows, const int* ranks, int Z, int T, int dout,
+              int r, cudaStream_t st) {
+  dim3 grid(cdiv(r, NO_BR), cdiv(T, NO_BM), Z);
+  if (!grid_ok(grid.x, grid.y, grid.z) || dout < 1 || scale == nullptr)
+    return (int)cudaErrorInvalidValue;
+  narrow_out_kernel<Act, BOUND><<<grid, NO_THREADS, 0, st>>>(
+      (const Act*)dy, B, 1, dout, scale, (Act*)dS, rows, ranks, T, dout, r);
+  return (int)cudaGetLastError();
+}
+
+template <typename Act, bool BOUND>
+int launch_dx(const void* dS, const float* A, void* dX, const int* rows,
+              const int* ranks, int Z, int T, int din, int r,
+              cudaStream_t st) {
+  dim3 grid(cdiv(din, RS_BN), cdiv(T, RS_BM), Z);
+  if (!grid_ok(grid.x, grid.y, grid.z) || r < 1)
+    return (int)cudaErrorInvalidValue;
+  rank_sum_kernel<Act, true, BOUND><<<grid, RS_THREADS, 0, st>>>(
+      (const Act*)dS, A, nullptr, 1.f, nullptr, (Act*)dX, rows, ranks, T, r,
+      din);
+  return (int)cudaGetLastError();
+}
+
+template <typename Act, bool BOUND>
+int launch_da(const void* x, const void* dS, float* dA, const int* rows,
+              const int* ranks, int Z, int T, int din, int r,
+              cudaStream_t st) {
+  constexpr int BA = 128, BB = 16;
+  dim3 grid(cdiv(r, BB), cdiv(din, BA), Z);
+  if (!grid_ok(grid.x, grid.y, grid.z) || T < 1)
+    return (int)cudaErrorInvalidValue;
+  tn_kernel<Act, BA, BB, false, BOUND><<<grid, TN_THREADS, 0, st>>>(
+      (const Act*)x, (const Act*)dS, nullptr, dA, rows, ranks, T, din, r, r);
+  return (int)cudaGetLastError();
+}
+
+template <typename Act, bool BOUND>
+int launch_db(const void* S, const void* dy, const float* scale, float* dB,
+              const int* rows, const int* ranks, int Z, int T, int dout,
+              int r, cudaStream_t st) {
+  constexpr int BA = 16, BB = 128;
+  dim3 grid(cdiv(dout, BB), cdiv(r, BA), Z);
+  if (!grid_ok(grid.x, grid.y, grid.z) || T < 1 || scale == nullptr)
+    return (int)cudaErrorInvalidValue;
+  tn_kernel<Act, BA, BB, true, BOUND><<<grid, TN_THREADS, 0, st>>>(
+      (const Act*)S, (const Act*)dy, scale, dB, rows, ranks, T, r, dout, r);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. Returns the launcher call given after
+// it with ``Act`` bound to that activation type; refuses any other code.
+#define GL_DISPATCH_ACT(dtype, ...)                                   \
+  do {                                                                \
+    if ((dtype) == 0) { using Act = float; return __VA_ARGS__; }      \
+    if ((dtype) == 1) { using Act = __nv_bfloat16; return __VA_ARGS__; } \
+    return (int)cudaErrorInvalidValue;                                \
+  } while (0)

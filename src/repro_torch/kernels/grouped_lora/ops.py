@@ -1,27 +1,33 @@
-"""Differentiable rank-local grouped LoRA over the six CUDA kernels.
+"""Differentiable grouped LoRA over the CUDA kernels: dense and rank-local.
 
-``ranklocal_grouped_lora(x, A, B, scale, ranks, rows=None, y_base=None)``
-== scale*(x@A)@B (+ y_base) with slot z confined to its first ranks[z]
-rank columns of A / rows of B (and its first rows[z] token rows).
+``grouped_lora(x, A, B, scale, y_base=None)`` == scale*(x@A)@B (+ y_base),
+every slot at full rank; ``ranklocal_grouped_lora(x, A, B, scale, ranks,
+rows=None, y_base=None)`` the same with slot z confined to its first
+ranks[z] rank columns of A / rows of B (and its first rows[z] token rows).
 
-A ``torch.autograd.Function``, the counterpart of the JAX package's custom
-VJP (``src/repro/kernels/grouped_lora/ops.py:303-347``): the forward runs
-``xa`` then ``sb_add`` and caches S in x's dtype (paper §6.1, "the forward
-caches intermediate S"); the backward rounds dy to x's dtype and runs
-``ds``, then ``dx``, ``da`` and ``db``. ``scale``, ``ranks`` and ``rows``
-get no gradient; ``y_base`` gets dy. On CPU tensors each wrapper takes its
-plain version, so the Function computes the same function there.
+Each is a ``torch.autograd.Function``, the counterpart of the JAX package's
+custom VJPs (``src/repro/kernels/grouped_lora/ops.py:112-170`` dense,
+``:303-347`` rank-local): the forward runs ``xa`` then ``sb_add`` and
+caches S in x's dtype (paper §6.1, "the forward caches intermediate S");
+the backward rounds dy to x's dtype and runs ``ds``, then ``dx``, ``da``
+and ``db``. ``scale``, ``ranks`` and ``rows`` get no gradient; ``y_base``
+gets dy. On CPU tensors each wrapper takes its plain version, so the
+Functions compute the same functions there.
 
 ``dx`` runs only when x needs a gradient: in a training step that is every
 LoRA projection except those reading the embedding output directly (the
 first layer's q/k/v), whose input hangs off no differentiable leaf.
 
 The JAX wrapper's padding to TPU tiles is gone (the kernels mask their own
-edges), and so is its ``_concrete_min`` dispatch of full-rank calls to the
-dense kernels: PyTorch always knows the ranks, so mirroring it would send
-an all-full-rank mix to dense kernels not yet ported, while the jitted JAX
-steps (ranks traced) always take the rank-local path — as this function
-does whenever ranks are bound.
+edges), and so is its ``_concrete_min`` dispatch of concrete full-rank
+``ranks`` to the dense kernels: here the ranks would be a tensor on the
+card, and reading them back to the host in every call would cost one sync
+per projection (224 per step), while the jitted JAX steps, whose ranks are
+traced, never take it. The choice between the two Functions is made once
+per step on the host, by the executor's ``SlotManager.mixed_rank``, as in
+the JAX package: bound ranks take the rank-local Function, no binding the
+dense one. The two give bitwise one result at full rank, so the choice
+never moves a loss.
 """
 from __future__ import annotations
 
@@ -29,7 +35,54 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.grouped_lora import grouped_lora as GL
 from repro_torch.kernels.grouped_lora import ranklocal as RL
+
+
+def _scale_tensor(scale: torch.Tensor | float, x: torch.Tensor
+                  ) -> torch.Tensor:
+    """The [Z] fp32 scale the kernels read (the model passes a float)."""
+    if isinstance(scale, torch.Tensor):
+        return scale
+    return torch.full((x.shape[0],), float(scale), dtype=torch.float32,
+                      device=x.device)
+
+
+class _GroupedLoRA(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, A, B, scale, y_base):
+        s = GL.xa(x, A)
+        y = GL.sb_add(s, B, scale, y_base)
+        ctx.save_for_backward(x, A, B, scale, s)
+        ctx.has_base = y_base is not None
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, A, B, scale, s = ctx.saved_tensors
+        need_x, need_a, need_b = ctx.needs_input_grad[:3]
+        dy = dy.to(x.dtype).contiguous()
+        dx = da = db = None
+        if need_x or need_a:
+            ds = GL.ds(dy, B, scale)
+            if need_x:
+                dx = GL.dx(ds, A)
+            if need_a:
+                da = GL.da(x, ds)
+        if need_b:
+            db = GL.db(s, dy, scale)
+        return dx, da, db, None, (dy if ctx.has_base else None)
+
+
+def grouped_lora(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                 scale: torch.Tensor | float,
+                 y_base: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: [Z,T,din]; A: [Z,din,r] and B: [Z,r,dout] fp32 masters (rounded
+    to x's dtype inside the kernels); scale: float or [Z] fp32. Returns
+    [Z,T,dout] in x's dtype, differentiable in x, A, B and y_base."""
+    return _GroupedLoRA.apply(x.contiguous(), A.contiguous(), B.contiguous(),
+                              _scale_tensor(scale, x), y_base)
 
 
 class _RankLocalLoRA(torch.autograd.Function):
@@ -68,8 +121,6 @@ def ranklocal_grouped_lora(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     to x's dtype inside the kernels); scale: float or [Z] fp32;
     ranks/rows: [Z] int32. Returns [Z,T,dout] in x's dtype,
     differentiable in x, A, B and y_base."""
-    if not isinstance(scale, torch.Tensor):     # the model's float scale
-        scale = torch.full((x.shape[0],), float(scale), dtype=torch.float32,
-                           device=x.device)
     return _RankLocalLoRA.apply(x.contiguous(), A.contiguous(),
-                                B.contiguous(), scale, ranks, rows, y_base)
+                                B.contiguous(), _scale_tensor(scale, x),
+                                ranks, rows, y_base)

@@ -14,12 +14,13 @@ Port of ``src/repro/kernels/grouped_lora/ranklocal.py``'s six kernels:
 
 The kernels are CUDA C++ for ``sm_90a`` in ``csrc/ranklocal.cu`` (forward)
 and ``csrc/ranklocal_bwd.cu`` (backward), compiled by ``nvcc`` — one
-process per source, started together — and linked into a shared library
-with a plain C interface under ``build/`` beside this file at first use,
-and called through ``ctypes``. A wrapper takes its plain PyTorch version
-(``ref.py``) only for tensors on the CPU; for CUDA tensors it launches the
-kernel or raises — there is no fallback. ``LAUNCHES`` counts kernel
-launches (plain-version calls do not count).
+process per source, started together — and linked, with the dense kernels
+of ``csrc/grouped_lora.cu`` (wrapped in ``grouped_lora.py``), into one
+shared library with a plain C interface under ``build/`` beside this file
+at first use, and called through ``ctypes``. A wrapper takes its plain
+PyTorch version (``ref.py``) only for tensors on the CPU; for CUDA tensors
+it launches the kernel or raises — there is no fallback. ``LAUNCHES``
+counts kernel launches (plain-version calls do not count).
 """
 from __future__ import annotations
 
@@ -37,7 +38,9 @@ import torch
 from repro_torch.kernels.grouped_lora import ref
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = (_HERE / "csrc" / "ranklocal.cu", _HERE / "csrc" / "ranklocal_bwd.cu")
+# the dense kernels (grouped_lora.py) share this library and its build
+SOURCES = tuple(_HERE / "csrc" / name for name in (
+    "ranklocal.cu", "ranklocal_bwd.cu", "grouped_lora.cu"))
 HEADERS = (_HERE / "csrc" / "ranklocal_common.cuh",)
 BUILD_DIR = _HERE / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -59,7 +62,7 @@ def reset_launches() -> None:
 def _nvcc() -> str:
     found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the rank-local LoRA kernels are "
+        raise RuntimeError("nvcc not found: the grouped-LoRA kernels are "
                            "built from csrc/ at first use on the card")
     return found
 
@@ -78,13 +81,13 @@ def _run(procs) -> None:
 
 def build() -> Path:
     """Compile ``SOURCES`` (one ``nvcc -c`` per source, all started
-    together) and link them into ``build/ranklocal-<hash>.so``, unless a
+    together) and link them into ``build/grouped_lora-<hash>.so``, unless a
     library of the same sources, headers and flags is already there;
     returns its path."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
-    out = BUILD_DIR / f"ranklocal-{h.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"grouped_lora-{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -106,23 +109,35 @@ def build() -> Path:
     return out
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# argument types of every C entry point in the library (all return int)
+_SIGNATURES = {
+    "rl_xa": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rl_sb_add": [_P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _I, _I, _I,
+                  _I, _I, _P],
+    "rl_ds": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rl_dx": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rl_da": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rl_db": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gl_xa": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gl_sb_add": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gl_ds": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gl_dx": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gl_da": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gl_db": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+
 def _load() -> ctypes.CDLL:
+    """The kernel library, built at first use, with its entry points
+    typed."""
     global _lib
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            P, I = ctypes.c_void_p, ctypes.c_int
-            lib.rl_xa.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
-            lib.rl_xa.restype = I
-            lib.rl_sb_add.argtypes = [P, P, P, ctypes.c_float, P, P, P, P,
-                                      I, I, I, I, I, P]
-            lib.rl_sb_add.restype = I
-            lib.rl_ds.argtypes = [P, P, P, P, P, P, I, I, I, I, I, P]
-            lib.rl_dx.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
-            lib.rl_da.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
-            lib.rl_db.argtypes = [P, P, P, P, P, P, I, I, I, I, I, P]
-            for fn in (lib.rl_ds, lib.rl_dx, lib.rl_da, lib.rl_db):
-                fn.restype = I
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, _I
             _lib = lib
     return _lib
 
@@ -148,9 +163,9 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _raise_if(err: int, name: str) -> None:
+def _raise_if(err: int, name: str, family: str = "rank-local") -> None:
     if err != 0:
-        raise RuntimeError(f"rank-local {name} kernel launch failed: CUDA "
+        raise RuntimeError(f"{family} {name} kernel launch failed: CUDA "
                            f"error {err}")
 
 

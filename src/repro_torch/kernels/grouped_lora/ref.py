@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the rank-local grouped-LoRA kernels.
+"""Plain PyTorch versions of the grouped-LoRA kernels: the dense set
+(every slot at full rank, every token row live) and the rank-local set.
 
 Shapes (slot-stacked, paper §A.1 rank-only padding):
     x:      [Z, T, d_in]      (bf16 on the serving path, fp32 in tests)
@@ -18,9 +19,14 @@ dtype, products summed in fp32, S rounded to x's dtype, and
 dS = fp32 acc * scale[z] and dX rounded to x's dtype, dA and dB (= fp32 acc
 * scale[z]) kept in fp32. Entries past ``ranks[z]`` (rank) or ``rows[z]``
 (token row) contribute nothing even when they hold garbage, and the S, dS,
-dA and dB entries there are exactly zero. The CUDA
-wrappers in ``ranklocal.py`` call these for CPU tensors, and the tests and
-``chip_smoke.py`` hold the kernels against them.
+dA and dB entries there are exactly zero. The dense versions are the same
+arithmetic with nothing masked, and each rank-local version is its dense
+one on operands whose dead rows and rank columns are zeroed: at ranks = r
+and rows = None (or T) nothing is zeroed, so the two agree bit for bit,
+as the CUDA kernels do on the card.
+The CUDA wrappers in ``grouped_lora.py`` and ``ranklocal.py`` call these
+for CPU tensors, and the tests and ``chip_smoke.py`` hold the kernels
+against them.
 """
 from __future__ import annotations
 
@@ -49,6 +55,68 @@ def _scaled(y: torch.Tensor, scale: torch.Tensor | float) -> torch.Tensor:
                 if isinstance(scale, torch.Tensor) else float(scale))
 
 
+# ---------------------------------------------------------------------------
+# dense: grouped_lora.py's kernels
+# ---------------------------------------------------------------------------
+
+def grouped_xa_ref(x: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """S = X @ A, fp32 sums; returns [Z, T, r] in x's dtype."""
+    return torch.bmm(x.float(), A.to(x.dtype).float()).to(x.dtype)
+
+
+def grouped_sb_add_ref(s: torch.Tensor, B: torch.Tensor,
+                       scale: torch.Tensor | float,
+                       y_base: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Y = (S @ B) * scale[z] (+ y_base), rounded once; returns
+    [Z, T, d_out] in s's dtype."""
+    y = _scaled(torch.bmm(s.float(), B.to(s.dtype).float()), scale)
+    if y_base is not None:
+        y = y + y_base.float()
+    return y.to(s.dtype)
+
+
+def grouped_lora_ref(x, A, B, scale, y_base=None) -> torch.Tensor:
+    """Dense oracle: both forward kernels' plain versions composed."""
+    return grouped_sb_add_ref(grouped_xa_ref(x, A), B, scale, y_base)
+
+
+def grouped_ds_ref(dy: torch.Tensor, B: torch.Tensor,
+                   scale) -> torch.Tensor:
+    """dS = scale[z] * dY @ B^T; returns [Z, T, r] in dy's dtype."""
+    Bf = B.to(dy.dtype).float()
+    return _scaled(torch.bmm(dy.float(), Bf.transpose(1, 2)),
+                   scale).to(dy.dtype)
+
+
+def grouped_dx_ref(ds: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """dX = dS @ A^T; returns [Z, T, d_in] in ds's dtype."""
+    Af = A.to(ds.dtype).float()
+    return torch.bmm(ds.float(), Af.transpose(1, 2)).to(ds.dtype)
+
+
+def grouped_da_ref(x: torch.Tensor, ds: torch.Tensor) -> torch.Tensor:
+    """dA = X^T @ dS; returns [Z, d_in, r] fp32."""
+    return torch.bmm(x.float().transpose(1, 2), ds.float())
+
+
+def grouped_db_ref(s: torch.Tensor, dy: torch.Tensor,
+                   scale) -> torch.Tensor:
+    """dB = scale[z] * S^T @ dY; returns [Z, r, d_out] fp32."""
+    return _scaled(torch.bmm(s.float().transpose(1, 2), dy.float()), scale)
+
+
+# ---------------------------------------------------------------------------
+# rank-local: ranklocal.py's kernels
+# ---------------------------------------------------------------------------
+
+def _live(keep: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``t`` where ``keep`` holds, exactly 0 elsewhere (garbage, NaN
+    included, never reaches a product)."""
+    return torch.where(keep, t, torch.zeros((), dtype=t.dtype,
+                                            device=t.device))
+
+
 def ranklocal_xa_ref(x: torch.Tensor, A: torch.Tensor,
                      rows: Optional[torch.Tensor],
                      ranks: torch.Tensor) -> torch.Tensor:
@@ -56,12 +124,9 @@ def ranklocal_xa_ref(x: torch.Tensor, A: torch.Tensor,
     other S entry is exactly 0. Returns [Z, T, r] in x's dtype."""
     Z, T, _ = x.shape
     r = A.shape[2]
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    xf = torch.where(_keep_rows(Z, T, rows, x.device)[:, :, None],
-                     x.float(), zero)
-    Af = torch.where(_keep_ranks(Z, r, ranks, x.device)[:, None, :],
-                     A.to(x.dtype).float(), zero)
-    return torch.bmm(xf, Af).to(x.dtype)
+    return grouped_xa_ref(
+        _live(_keep_rows(Z, T, rows, x.device)[:, :, None], x),
+        _live(_keep_ranks(Z, r, ranks, x.device)[:, None, :], A))
 
 
 def ranklocal_sb_add_ref(s: torch.Tensor, B: torch.Tensor,
@@ -73,15 +138,11 @@ def ranklocal_sb_add_ref(s: torch.Tensor, B: torch.Tensor,
     (+ y_base); dead rows and empty slots give a zero delta (the base
     passes through). Returns [Z, T, d_out] in s's dtype."""
     Z, T, r = s.shape
-    zero = torch.zeros((), dtype=torch.float32, device=s.device)
     keep_r = _keep_ranks(Z, r, ranks, s.device)
-    sf = torch.where(_keep_rows(Z, T, rows, s.device)[:, :, None]
-                     & keep_r[:, None, :], s.float(), zero)
-    Bf = torch.where(keep_r[:, :, None], B.to(s.dtype).float(), zero)
-    y = _scaled(torch.bmm(sf, Bf), scale)
-    if y_base is not None:
-        y = y + y_base.float()
-    return y.to(s.dtype)
+    return grouped_sb_add_ref(
+        _live(_keep_rows(Z, T, rows, s.device)[:, :, None]
+              & keep_r[:, None, :], s),
+        _live(keep_r[:, :, None], B), scale, y_base)
 
 
 def ranklocal_lora_ref(x, A, B, scale, ranks, rows=None,
@@ -98,12 +159,9 @@ def ranklocal_ds_ref(dy: torch.Tensor, B: torch.Tensor, scale,
     ranks[z] zeroed. Returns [Z, T, r] in dy's dtype."""
     Z, T, _ = dy.shape
     r = B.shape[1]
-    zero = torch.zeros((), dtype=torch.float32, device=dy.device)
-    dyf = torch.where(_keep_rows(Z, T, rows, dy.device)[:, :, None],
-                      dy.float(), zero)
-    Bf = torch.where(_keep_ranks(Z, r, ranks, dy.device)[:, :, None],
-                     B.to(dy.dtype).float(), zero)
-    return _scaled(torch.bmm(dyf, Bf.transpose(1, 2)), scale).to(dy.dtype)
+    return grouped_ds_ref(
+        _live(_keep_rows(Z, T, rows, dy.device)[:, :, None], dy),
+        _live(_keep_ranks(Z, r, ranks, dy.device)[:, :, None], B), scale)
 
 
 def ranklocal_dx_ref(ds: torch.Tensor, A: torch.Tensor,
@@ -112,12 +170,11 @@ def ranklocal_dx_ref(ds: torch.Tensor, A: torch.Tensor,
     """dX = dS @ A^T with dS rows >= rows[z] and A columns >= ranks[z]
     zeroed. Returns [Z, T, d_in] in ds's dtype."""
     Z, T, r = ds.shape
-    zero = torch.zeros((), dtype=torch.float32, device=ds.device)
     keep_r = _keep_ranks(Z, r, ranks, ds.device)
-    dsf = torch.where(_keep_rows(Z, T, rows, ds.device)[:, :, None]
-                      & keep_r[:, None, :], ds.float(), zero)
-    Af = torch.where(keep_r[:, None, :], A.to(ds.dtype).float(), zero)
-    return torch.bmm(dsf, Af.transpose(1, 2)).to(ds.dtype)
+    return grouped_dx_ref(
+        _live(_keep_rows(Z, T, rows, ds.device)[:, :, None]
+              & keep_r[:, None, :], ds),
+        _live(keep_r[:, None, :], A))
 
 
 def ranklocal_da_ref(x: torch.Tensor, ds: torch.Tensor,
@@ -127,12 +184,10 @@ def ranklocal_da_ref(x: torch.Tensor, ds: torch.Tensor,
     Returns [Z, d_in, r] fp32."""
     Z, T, _ = x.shape
     r = ds.shape[2]
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
     keep_t = _keep_rows(Z, T, rows, x.device)[:, :, None]
-    xf = torch.where(keep_t, x.float(), zero)
-    dsf = torch.where(keep_t & _keep_ranks(Z, r, ranks, x.device)[:, None, :],
-                      ds.float(), zero)
-    return torch.bmm(xf.transpose(1, 2), dsf)
+    return grouped_da_ref(
+        _live(keep_t, x),
+        _live(keep_t & _keep_ranks(Z, r, ranks, x.device)[:, None, :], ds))
 
 
 def ranklocal_db_ref(s: torch.Tensor, dy: torch.Tensor, scale,
@@ -141,9 +196,7 @@ def ranklocal_db_ref(s: torch.Tensor, dy: torch.Tensor, scale,
     """dB = scale[z] * S^T @ dY over rows < rows[z]; rows >= ranks[z]
     exactly 0. Returns [Z, r, d_out] fp32."""
     Z, T, r = s.shape
-    zero = torch.zeros((), dtype=torch.float32, device=s.device)
     keep_t = _keep_rows(Z, T, rows, s.device)[:, :, None]
-    sf = torch.where(keep_t & _keep_ranks(Z, r, ranks, s.device)[:, None, :],
-                     s.float(), zero)
-    dyf = torch.where(keep_t, dy.float(), zero)
-    return _scaled(torch.bmm(sf.transpose(1, 2), dyf), scale)
+    return grouped_db_ref(
+        _live(keep_t & _keep_ranks(Z, r, ranks, s.device)[:, None, :], s),
+        _live(keep_t, dy), scale)

@@ -1,6 +1,8 @@
-"""PyTorch port on the card: the rank-local grouped-LoRA CUDA kernels
-(forward and backward) against their plain PyTorch versions, and the
-autograd Function's backward against autograd through the plain versions.
+"""PyTorch port on the card: the grouped-LoRA CUDA kernels (rank-local and
+dense, forward and backward) against their plain PyTorch versions, the
+dense kernels bitwise equal to the rank-local ones at full rank, the
+autograd Functions' backward against autograd through the plain versions,
+and ``lora_delta`` refusing the unported ragged path on the card.
 
 Imports neither JAX nor the JAX package, so it runs on a machine with a
 card and no JAX: ``PYTHONPATH=src python -m pytest -q --noconftest
@@ -11,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import lora as LORA
+from repro_torch.kernels.grouped_lora import grouped_lora as GL
 from repro_torch.kernels.grouped_lora import ops
 from repro_torch.kernels.grouped_lora import ranklocal as RL
 from repro_torch.kernels.grouped_lora import ref
@@ -159,3 +163,96 @@ def test_cuda_function_backward_matches_torch_autograd():
         torch.testing.assert_close(
             got.detach(), want.detach(), rtol=1e-5,
             atol=1e-5 * float(want.detach().abs().max()))
+
+
+# (Z, T, din, dout, r): full rank, T/din/dout off every tile multiple, and
+# the stablelm-3b MLP shape
+DENSE_CASES = [(3, 37, 40, 24, 16), (2, 7, 33, 17, 8),
+               (4, 64, 2560, 6912, 64), (4, 64, 6912, 2560, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DENSE_CASES)
+def test_cuda_dense_kernels_match_plain_and_ranklocal_bitwise(case):
+    """The six dense kernels launch once each, agree with their plain
+    versions (the rank-local tests' bars), and equal the rank-local
+    kernels at ranks = r, rows = None bit for bit, with and without a
+    base, in fp32 and bf16."""
+    _need_card()
+    Z, T, din, dout, r = case
+    full = torch.full((Z,), r, dtype=torch.int32, device="cuda")
+    for dt, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -7)):
+        x, dy, A, B, scale, _, _, _ = _bwd_inputs(
+            (Z, T, din, dout, r, [r] * Z, None), dt)
+        base = torch.randn_like(dy)
+        GL.reset_launches()
+        RL.reset_launches()
+        s = GL.xa(x, A)
+        y = GL.sb_add(s, B, scale, base)
+        dS = GL.ds(dy, B, scale)
+        got = {"xa": s, "sb_add": y, "ds": dS, "dx": GL.dx(dS, A),
+               "da": GL.da(x, dS), "db": GL.db(s, dy, scale)}
+        torch.cuda.synchronize()
+        assert GL.LAUNCHES == dict.fromkeys(GL.LAUNCHES, 1)
+        assert set(RL.LAUNCHES.values()) == {0}
+        twin = {"xa": RL.xa(x, A, None, full),
+                "sb_add": RL.sb_add(s, B, scale, None, full, base),
+                "ds": RL.ds(dy, B, scale, None, full),
+                "dx": RL.dx(dS, A, None, full),
+                "da": RL.da(x, dS, None, full),
+                "db": RL.db(s, dy, scale, None, full)}
+        plain = {"xa": ref.grouped_xa_ref(x, A),
+                 "sb_add": ref.grouped_sb_add_ref(s, B, scale, base),
+                 "ds": ref.grouped_ds_ref(dy, B, scale),
+                 "dx": ref.grouped_dx_ref(dS, A),
+                 "da": ref.grouped_da_ref(x, dS),
+                 "db": ref.grouped_db_ref(s, dy, scale)}
+        for name, out in got.items():
+            assert torch.equal(out, twin[name]), f"{name} {dt} not bitwise"
+            w = plain[name].float()
+            fp32_out = name in ("da", "db")
+            bar = 1e-4 if (fp32_out and dt == torch.bfloat16) else rtol
+            atol = (1e-5 if dt == torch.float32 else 1e-3) * float(
+                w.abs().max())
+            torch.testing.assert_close(out.float(), w, rtol=bar, atol=atol,
+                                       msg=f"{name} {dt}")
+
+
+@pytest.mark.cuda
+def test_cuda_dense_function_backward_matches_torch_autograd():
+    """One ``ops.grouped_lora`` forward + backward through the dense
+    kernels against autograd through ``grouped_lora_ref``, in fp32 (1e-5
+    relative: sum order only)."""
+    _need_card()
+    Z, T, din, dout, r = DENSE_CASES[0]
+    x, dy, A, B, scale, _, _, _ = _bwd_inputs(
+        (Z, T, din, dout, r, [r] * Z, None), torch.float32, seed=1)
+    base = torch.randn_like(dy)
+    outs = []
+    for fn in (ops.grouped_lora, ref.grouped_lora_ref):
+        leaves = [t.clone().requires_grad_(True) for t in (x, A, B, base)]
+        y = fn(leaves[0], leaves[1], leaves[2], scale, leaves[3])
+        outs.append([y] + list(torch.autograd.grad(y, leaves, dy)))
+    for got, want in zip(*outs):
+        torch.testing.assert_close(
+            got.detach(), want.detach(), rtol=1e-5,
+            atol=1e-5 * float(want.detach().abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_lora_delta_refuses_the_unported_ragged_path():
+    """``ragged_rows`` bound without ``slot_ranks`` on a CUDA tensor raises
+    (its ragged kernels are not ported) under the kernel backend; with
+    nothing bound the dense kernels run."""
+    _need_card()
+    x = torch.randn(2, 1, 8, 16, device="cuda")
+    A = torch.randn(2, 16, 8, device="cuda")
+    B = torch.randn(2, 8, 12, device="cuda")
+    rows = torch.tensor([8, 4], dtype=torch.int32, device="cuda")
+    with LORA.ragged_rows(rows), pytest.raises(NotImplementedError,
+                                               match="ROADMAP"):
+        LORA.lora_delta(x, A, B, 2.0)
+    GL.reset_launches()
+    LORA.lora_delta(x, A, B, 2.0)
+    torch.cuda.synchronize()
+    assert GL.LAUNCHES["xa"] == GL.LAUNCHES["sb_add"] == 1

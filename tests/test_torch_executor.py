@@ -7,13 +7,16 @@
     the bridge (a port snapshot restores into the JAX ``SlotManager``).
 (c) Co-located == solo loss histories, bitwise, inside the port.
 (d) ``suspend``/``resume`` onto a second executor == never moved, bitwise.
-(e) A rank-sweep ``BatchedExecutor.run_task`` goes warmup -> selection ->
-    continue and returns a ``TaskResult``.
+(e) A rank-sweep and a full-rank learning-rate sweep through
+    ``BatchedExecutor.run_task`` go warmup -> selection -> continue and
+    return a ``TaskResult``.
 
-(c) and (d) hold for tasks whose slots are all below r_max: every step
-then takes the rank-local path, whose per-slot sums do not depend on the
-co-tenants. Everything runs on the CPU (``device="cpu"``) at a reduced
-float32 size.
+(c) and (d) hold for low-rank tasks, whose steps take the rank-local path
+(per-slot sums that do not depend on the co-tenants), and for full-rank
+tasks, which take the dense path alone or beside other full-rank tasks and
+the rank-local path beside a lower-rank one: the two give bitwise one
+result at full rank. Everything runs on the CPU (``device="cpu"``) at a
+reduced float32 size.
 """
 import dataclasses
 
@@ -35,11 +38,14 @@ from repro_torch.core.executor import (BatchedExecutor,
                                        SharedBackboneExecutor, TaskLifecycle,
                                        TaskResult, run_colocated)
 from repro_torch.data import synthetic as TSYN
+from repro_torch.kernels.grouped_lora import grouped_lora as TGL
+from repro_torch.kernels.grouped_lora import ops as TOPS
 from repro_torch.kernels.grouped_lora import ranklocal as TRL
 from repro_torch.models import model as TM
 from repro_torch.sched import intra_task as TIT
 from repro_torch.sched.events import EventKind
 from tests.conftest import reduced_f32
+from tests.test_torch_grouped_lora import _spy
 
 
 @pytest.fixture(scope="module")
@@ -265,24 +271,58 @@ def test_colocated_losses_bitwise_equal_solo(env):
     assert set(TRL.LAUNCHES.values()) == {0}    # CPU: plain versions only
 
 
-def test_migration_across_executors_bitwise_equal(env):
-    """A task suspended mid-training on one executor and resumed on a
-    second one that hosts a different resident mix (so its physical slots
-    change) trains on bitwise as if it had never moved."""
+def test_full_rank_colocated_losses_bitwise_equal_solo(env, monkeypatch):
+    """Port of the JAX package's ranklocal cross-task test: a low-rank task
+    (2/4 of r_max 8) and a full-rank one (8/8) fused on one executor give
+    bitwise each task's solo loss histories and best validation loss. The
+    full-rank task takes the dense path alone (nothing bound) and the
+    rank-local path fused (its slots at ranks = r_max): its losses must
+    not move a bit."""
+    cfg, params, ds_a, ds_b = env
+    specs = [("A", ds_a, 3, (2, 4)), ("B", ds_b, 4, (8, 8))]
+    dense = _spy(monkeypatch, TOPS, "grouped_lora")
+    local = _spy(monkeypatch, TOPS, "ranklocal_grouped_lora")
+
+    def run(chosen):
+        ex = _executor(cfg, params)
+        lcs = [_lifecycle(ex, *s) for s in chosen]
+        calls = (len(dense), len(local))
+        out = run_colocated(ex, lcs), {lc.task_name: _hists(lc)
+                                       for lc in lcs}
+        return out + ((len(dense) - calls[0], len(local) - calls[1]),)
+
+    fused, fused_h, fused_calls = run(specs)
+    solo_a, solo_a_h, _ = run(specs[:1])
+    solo_b, solo_b_h, solo_b_calls = run(specs[1:])
+    assert fused_calls[1] > 0               # fused: the rank-local path
+    assert solo_b_calls[0] > 0 and solo_b_calls[1] == 0   # B alone: dense
+    assert fused_h["A"] == solo_a_h["A"]        # bitwise: tuples of floats
+    assert fused_h["B"] == solo_b_h["B"]
+    assert fused["A"].best_val == solo_a["A"].best_val
+    assert fused["B"].best_val == solo_b["B"].best_val
+    assert np.isfinite(fused["B"].best_val)
+    assert set(TGL.LAUNCHES.values()) == {0}    # CPU: plain versions only
+
+
+def _migrated_equals_unmoved(env, a_ranks, b_ranks, c_ranks):
+    """Task A runs to the end beside B on one executor (the reference);
+    again beside B for 4 steps, then is suspended and resumed on a second
+    executor that hosts C (so its physical slots change); it must train on
+    bitwise as if it had never moved."""
     cfg, params, ds_a, ds_b = env
     ds_c = TSYN.make_task_dataset("task-c", cfg.vocab_size, seq_len=16,
                                   num_train=32, num_val=8, difficulty=0.4,
                                   seed=3)
     ex0 = _executor(cfg, params)
-    a0 = _lifecycle(ex0, "A", ds_a, 3, (2, 4))
-    b0 = _lifecycle(ex0, "B", ds_b, 4, (3, 5))
+    a0 = _lifecycle(ex0, "A", ds_a, 3, a_ranks)
+    b0 = _lifecycle(ex0, "B", ds_b, 4, b_ranks)
     run_colocated(ex0, [a0, b0])
     ref = _hists(a0)
 
     ex1, ex2 = _executor(cfg, params), _executor(cfg, params)
-    A = _lifecycle(ex1, "A", ds_a, 3, (2, 4))
-    B = _lifecycle(ex1, "B", ds_b, 4, (3, 5))
-    C = _lifecycle(ex2, "C", ds_c, 5, (2, 6))
+    A = _lifecycle(ex1, "A", ds_a, 3, a_ranks)
+    B = _lifecycle(ex1, "B", ds_b, 4, b_ranks)
+    C = _lifecycle(ex2, "C", ds_c, 5, c_ranks)
     ex2.add_task(C)
     C.begin()
     _drive(ex2, [C], steps=4)           # C occupies replica 2's low slots
@@ -302,6 +342,25 @@ def test_migration_across_executors_bitwise_equal(env):
     assert A.result().best_val == a0.result().best_val
     assert A.result().best_job == a0.result().best_job
     assert np.isfinite(C.result().best_val)
+
+
+def test_migration_across_executors_bitwise_equal(env):
+    """A low-rank task moved mid-training from beside another low-rank
+    task to beside a third one trains on bitwise as if it had never
+    moved."""
+    _migrated_equals_unmoved(env, (2, 4), (3, 5), (2, 6))
+
+
+def test_full_rank_migration_across_executors_bitwise_equal(env,
+                                                            monkeypatch):
+    """A full-rank task (8/8) moved mid-training from a replica where
+    every slot is at r_max (the dense path) to one beside a low-rank task
+    (the rank-local path) trains on bitwise as if it had never moved (its
+    reference run stays on the dense path throughout)."""
+    dense = _spy(monkeypatch, TOPS, "grouped_lora")
+    local = _spy(monkeypatch, TOPS, "ranklocal_grouped_lora")
+    _migrated_equals_unmoved(env, (8, 8), (8, 8), (2, 6))
+    assert dense and local              # both paths were taken
 
 
 # ---------------------------------------------------------------------------
@@ -357,3 +416,32 @@ def test_executor_refuses_params_on_another_device(env):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         SharedBackboneExecutor(cfg, params, Z=2, per_adapter_batch=1,
                                device="cpu", loss_kind="dpo")
+
+
+def test_full_rank_lr_sweep_runs_on_the_dense_path(env, monkeypatch):
+    """8 jobs, all at r_max (4 learning rates x 2 weight decays), on 4
+    slots through ``BatchedExecutor.run_task``: every fused train and eval
+    step leaves nothing bound, so every LoRA projection takes the dense
+    Function and none the rank-local one — the chip smoke's lr sweep at a
+    reduced size."""
+    cfg, params, ds_a, _ = env
+    r_max = cfg.lora.r_max
+    jobs = {f"lr{lr:g}-wd{wd:g}": TrainConfig(learning_rate=lr,
+                                              weight_decay=wd,
+                                              lora_rank=r_max,
+                                              per_adapter_batch=2)
+            for lr in (1e-4, 3e-4, 1e-3, 3e-3) for wd in (0.0, 0.01)}
+    dense = _spy(monkeypatch, TOPS, "grouped_lora")
+    local = _spy(monkeypatch, TOPS, "ranklocal_grouped_lora")
+    bx = BatchedExecutor(cfg, params, ds_a, Z=4, per_adapter_batch=2,
+                         ee=TEE.EarlyExitConfig(warmup_ratio=0.25,
+                                                select_ratio=0.25),
+                         eval_every=2, device="cpu")
+    result = bx.run_task("lr-sweep", jobs, total_steps=8)
+    assert isinstance(result, TaskResult) and result.best_job in jobs
+    assert sum(result.exit_counts.values()) == 8
+    assert result.exit_counts.get("underperforming") == 6
+    assert result.job_results[result.best_job].adapter is not None
+    per_forward = cfg.num_layers * len(cfg.lora.targets)
+    assert dense and len(dense) % per_forward == 0
+    assert not local

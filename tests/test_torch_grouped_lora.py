@@ -1,14 +1,18 @@
-"""PyTorch port: the rank-local grouped-LoRA forward kernels' plain versions
-and the port's ``lora_delta`` held against the JAX package.
+"""PyTorch port: the grouped-LoRA kernels' plain versions and the port's
+``lora_delta`` held against the JAX package.
 
 Inputs come from a numpy seed and go to both packages. On the CPU the port's
-wrappers (``ranklocal.xa`` / ``ranklocal.sb_add``) take their plain
-versions; the JAX side runs the Pallas kernels in interpret mode (through
-``ops._ranklocal_fwd_impl``, which pads to TPU tiles and slices back) and
-the pure-jnp oracle. Tolerance: float32 rtol/atol 5e-4, the JAX package's
-own backend bar (tests/test_kernel_backends.py). The CUDA kernels
-themselves run only on the card (tests/test_torch_cuda.py).
+wrappers (``ranklocal.*``, ``grouped_lora.*``) take their plain versions;
+the JAX side runs the Pallas kernels in interpret mode (through
+``ops._ranklocal_fwd_impl``, ``ops._fwd_impl`` and ``ops._bwd_impl``, which
+pad to TPU tiles and slice back) and the pure-jnp oracle. Tolerance:
+float32 rtol/atol 5e-4 forward and 2e-3 for gradients, the JAX package's
+own backend bars (tests/test_kernel_backends.py). The dense plain versions
+equal the rank-local ones at full rank bit for bit, as the CUDA kernels
+must on the card; those run only there (tests/test_torch_cuda.py).
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,10 +22,17 @@ from repro.core import lora as JLORA
 from repro.kernels.grouped_lora import ops as JOPS
 from repro.kernels.grouped_lora import ref as JREF
 from repro_torch.core import lora as TLORA
+from repro_torch.kernels.grouped_lora import grouped_lora as TGL
 from repro_torch.kernels.grouped_lora import ops as TOPS
 from repro_torch.kernels.grouped_lora import ranklocal as TRL
+from repro_torch.kernels.grouped_lora import ref as TREF
+
+# the JAX package re-exports its wrapper function under the kernel
+# module's name, so the module comes through importlib
+JGL = importlib.import_module("repro.kernels.grouped_lora.grouped_lora")
 
 RTOL = ATOL = 5e-4      # float32 forward bar of the JAX package
+GRAD_TOL = dict(rtol=2e-3, atol=2e-3)    # its gradient bar
 
 # (Z, T, din, dout, r, ranks, rows): ranks cover an empty slot (0), full
 # r_max and non-multiples of 8; rows < T; T/din/dout off tile multiples
@@ -47,6 +58,18 @@ def _inputs(case, seed=0, garbage_pad=True):
     ranks = np.asarray(ranks, np.int32)
     rows = None if rows is None else np.asarray(rows, np.int32)
     return x, A, B, scale, ranks, rows, base
+
+
+def _spy(monkeypatch, module, name):
+    """Count the calls of ``module.name`` (still calling through)."""
+    calls = []
+    real = getattr(module, name)
+
+    def spy(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+    monkeypatch.setattr(module, name, spy)
+    return calls
 
 
 def _t(a, dtype=None):
@@ -178,3 +201,190 @@ def test_lora_delta_under_slot_ranks_matches_jax(case, rows_bound):
                                           jnp.asarray(B), 2.0))
     y = TLORA.lora_delta(_t(x4), _t(A), _t(B), 2.0).numpy()
     np.testing.assert_allclose(y, ref, rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# dense kernels (grouped_lora.py): every slot at full rank, every row live
+# ---------------------------------------------------------------------------
+
+# (Z, T, din, r, dout): the JAX package's own kernel-test shapes
+# (tests/test_kernels_grouped_lora.py), aligned and deliberately unaligned
+DENSE_SHAPES = [
+    (1, 128, 256, 16, 256),
+    (2, 64, 96, 8, 80),
+    (3, 100, 130, 12, 200),
+    (4, 256, 512, 64, 512),
+    (8, 32, 64, 128, 64),
+    (2, 7, 33, 4, 17),
+]
+
+
+def _dense_inputs(shape, seed=0):
+    """x, A, B (fp32 masters), a different scale per slot, y_base and dy."""
+    Z, T, din, r, dout = shape
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((Z, T, din), dtype=np.float32)
+    A = rng.standard_normal((Z, din, r), dtype=np.float32) / din ** 0.5
+    B = rng.standard_normal((Z, r, dout), dtype=np.float32) / r ** 0.5
+    scale = rng.uniform(0.5, 2.0, Z).astype(np.float32)
+    base = rng.standard_normal((Z, T, dout), dtype=np.float32)
+    dy = rng.standard_normal((Z, T, dout), dtype=np.float32)
+    return x, A, B, scale, base, dy
+
+
+def _dense_port(x, A, B, scale, base, dy):
+    """(S, Y, dS, dX, dA, dB) through the port's dense wrappers."""
+    s = TGL.xa(x, A)
+    ds = TGL.ds(dy, B, scale)
+    return (s, TGL.sb_add(s, B, scale, base), ds, TGL.dx(ds, A),
+            TGL.da(x, ds), TGL.db(s, dy, scale))
+
+
+@pytest.mark.parametrize("with_base", [False, True])
+@pytest.mark.parametrize("shape", DENSE_SHAPES)
+def test_dense_plain_kernels_match_jax_pallas_interpret(shape, with_base):
+    """S and Y against ``ops._fwd_impl``, dS against ``grouped_lora.ds``
+    and dX/dA/dB against ``ops._bwd_impl``, all in interpret mode."""
+    x, A, B, scale, base, dy = _dense_inputs(shape)
+    Z, T, din, r, dout = shape
+    jx, jA, jB, jsc, jdy = (jnp.asarray(a) for a in (x, A, B, scale, dy))
+    jbase = jnp.asarray(base) if with_base else None
+    y_j, s_j = JOPS._fwd_impl(jx, jA, jB, jsc, jbase, interpret=True)
+    dx_j, dA_j, dB_j = JOPS._bwd_impl(jx, jA, jB, jsc, s_j, jdy,
+                                      interpret=True)
+    _, _, Bp, _, dyp = JOPS._pad_bwd(jx, jA, jB, s_j, jdy)
+    ds_j = JGL.ds(dyp, Bp, jsc, interpret=True)[:, :T, :r]
+    TGL.reset_launches()
+    s, y, ds, dx, dA, dB = _dense_port(_t(x), _t(A), _t(B), _t(scale),
+                                       _t(base) if with_base else None,
+                                       _t(dy))
+    assert set(TGL.LAUNCHES.values()) == {0}     # CPU: plain versions
+    for name, got, want in (("s", s, s_j[:, :, :r]), ("y", y, y_j),
+                            ("ds", ds, ds_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=RTOL, atol=ATOL, err_msg=name)
+    for name, got, want in (("dx", dx, dx_j), ("da", dA, dA_j),
+                            ("db", dB, dB_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   err_msg=name, **GRAD_TOL)
+    # and the JAX pure-jnp oracles
+    np.testing.assert_allclose(
+        y.numpy(), np.asarray(JREF.grouped_lora_ref(jx, jA, jB, jsc, jbase)),
+        rtol=RTOL, atol=ATOL)
+    for got, want in zip((dx, dA, dB), JREF.grouped_lora_bwd_ref(
+            jx, jA, jB, jsc, s_j[:, :, :r], jdy)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **GRAD_TOL)
+
+
+def test_dense_plain_kernels_bf16_round_where_the_jax_kernels_do():
+    """bf16 activations: A/B rounded to bf16, fp32 sums, S/Y/dS/dX stored
+    in bf16, dA/dB fp32. The two sides may differ by one bf16 rounding
+    (fp32 sums in another order): 2 bf16 ulps (rtol 2**-7) plus 1e-2;
+    dA/dB rtol 1e-4 plus 1e-4 of their largest entry."""
+    shape = DENSE_SHAPES[2]
+    Z, T, din, r, dout = shape
+    x, A, B, scale, base, dy = _dense_inputs(shape, seed=4)
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+    jdy = jnp.asarray(dy).astype(jnp.bfloat16)
+    jbase = jnp.asarray(base).astype(jnp.bfloat16)
+    jA, jB, jsc = jnp.asarray(A), jnp.asarray(B), jnp.asarray(scale)
+    y_j, s_j = JOPS._fwd_impl(jx, jA, jB, jsc, jbase, interpret=True)
+    want = [s_j[:, :, :r], y_j, *JOPS._bwd_impl(jx, jA, jB, jsc, s_j, jdy,
+                                               interpret=True)]
+
+    def bf16(a):
+        return _t(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16)
+
+    s, y, _, dx, dA, dB = _dense_port(bf16(jx), _t(A), _t(B), _t(scale),
+                                      bf16(jbase), bf16(jdy))
+    got = [s, y, dx, dA, dB]
+    assert [g.dtype for g in got] == [torch.bfloat16] * 3 + [torch.float32] * 2
+    for name, g, w in zip(("s", "y", "dx", "da", "db"), got, want):
+        w = np.asarray(w.astype(jnp.float32))
+        tol = (dict(rtol=2 ** -7, atol=1e-2) if g.dtype == torch.bfloat16
+               else dict(rtol=1e-4, atol=1e-4 * np.abs(w).max()))
+        np.testing.assert_allclose(g.float().numpy(), w, err_msg=name, **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DENSE_SHAPES)
+def test_dense_plain_equals_ranklocal_plain_at_full_rank(shape, dtype):
+    """Each dense plain version gives, bit for bit, its rank-local plain
+    version called with ranks = r and rows = None (and rows = T), the
+    CPU side of the co-located == solo contract for a full-rank task."""
+    Z, T, din, r, dout = shape
+    x, A, B, scale, base, dy = (_t(a) for a in _dense_inputs(shape, seed=2))
+    x, base, dy = x.to(dtype), base.to(dtype), dy.to(dtype)
+    full = torch.full((Z,), r, dtype=torch.int32)
+    s, y, ds, dx, dA, dB = _dense_port(x, A, B, scale, base, dy)
+    for rows in (None, torch.full((Z,), T, dtype=torch.int32)):
+        want = {"s": TREF.ranklocal_xa_ref(x, A, rows, full),
+                "y": TREF.ranklocal_sb_add_ref(s, B, scale, rows, full,
+                                               base),
+                "ds": TREF.ranklocal_ds_ref(dy, B, scale, rows, full),
+                "dx": TREF.ranklocal_dx_ref(ds, A, rows, full),
+                "da": TREF.ranklocal_da_ref(x, ds, rows, full),
+                "db": TREF.ranklocal_db_ref(s, dy, scale, rows, full)}
+        for name, got in zip(("s", "y", "ds", "dx", "da", "db"),
+                             (s, y, ds, dx, dA, dB)):
+            assert got.dtype == want[name].dtype, name
+            assert torch.equal(got, want[name]), name
+    assert torch.equal(TOPS.grouped_lora(x, A, B, scale, base),
+                       TOPS.ranklocal_grouped_lora(x, A, B, scale, full,
+                                                   None, base))
+
+
+def test_dense_wrappers_refuse_devices_they_cannot_run():
+    x = torch.zeros((1, 2, 4), device="meta")
+    with pytest.raises(ValueError):
+        TGL.xa(x, torch.zeros((1, 4, 8), device="meta"))
+    with pytest.raises(ValueError):
+        TGL.ds(torch.zeros((1, 2, 4), device="meta"),
+               torch.zeros((1, 8, 4), device="meta"),
+               torch.ones((1,), device="meta"))
+
+
+@pytest.mark.parametrize("shape", [DENSE_SHAPES[1], DENSE_SHAPES[5]])
+def test_lora_delta_unbound_takes_the_dense_path_and_matches_jax(
+        shape, monkeypatch):
+    """With nothing bound, the port's ``"kernel"`` backend goes through
+    ``ops.grouped_lora`` (the dense Function) and matches the JAX
+    ``lora_delta`` on its ``"pallas_interpret"`` backend (the dense Pallas
+    kernels) and its ``"jnp"`` backend, on [Z, b, S, din] activations."""
+    Z, T, din, r, dout = shape
+    x, A, B, scale, _, _ = _dense_inputs(shape, seed=3)
+    x4 = x.reshape(Z, 1, T, din)
+    calls = _spy(monkeypatch, TOPS, "grouped_lora")
+    y = TLORA.lora_delta(_t(x4), _t(A), _t(B), _t(scale)).numpy()
+    assert calls == [1]
+    for name in ("pallas_interpret", "jnp"):
+        with JLORA.backend(name):
+            want = np.asarray(JLORA.lora_delta(
+                jnp.asarray(x4), jnp.asarray(A), jnp.asarray(B),
+                jnp.asarray(scale)))
+        np.testing.assert_allclose(y, want, rtol=RTOL, atol=ATOL,
+                                   err_msg=name)
+
+
+def test_lora_delta_ragged_rows_alone_stays_plain_math_on_the_cpu():
+    """``ragged_rows`` bound without ``slot_ranks`` (the full-rank
+    mixed-width path, whose ragged kernels are not ported) keeps the
+    row-masked plain math on CPU tensors under both backends, and refuses
+    a tensor on any other device instead of computing it there."""
+    Z, T, din, dout, r, _, rows = CASES[0]
+    x, A, B, _, _, rows, _ = _inputs(CASES[0], seed=6)
+    x4 = x.reshape(Z, 1, T, din)
+    with JLORA.backend("jnp"), JLORA.ragged_rows(jnp.asarray(rows)):
+        want = np.asarray(JLORA.lora_delta(jnp.asarray(x4), jnp.asarray(A),
+                                           jnp.asarray(B), 2.0))
+    for name in TLORA.BACKENDS:
+        with TLORA.backend(name), TLORA.ragged_rows(_t(rows)):
+            y = TLORA.lora_delta(_t(x4), _t(A), _t(B), 2.0).numpy()
+        np.testing.assert_allclose(y, want, rtol=RTOL, atol=ATOL,
+                                   err_msg=name)
+    with TLORA.ragged_rows(_t(rows)), \
+            pytest.raises(NotImplementedError, match="ROADMAP"):
+        TLORA.lora_delta(torch.zeros(x4.shape, device="meta"),
+                         torch.zeros(A.shape, device="meta"),
+                         torch.zeros(B.shape, device="meta"), 2.0)

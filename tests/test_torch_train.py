@@ -3,16 +3,18 @@
 (a) The four rank-local backward kernels' plain versions against the JAX
     VJP (``ops._ranklocal_bwd_impl`` and ``ranklocal.ds`` in Pallas
     interpret mode) on the forward tests' cases, fp32 and one bf16 case.
-(b) The autograd Function's gradients against autograd through the
-    kernels' plain versions (the ``"torch"`` LoRA backend).
+(b) The autograd Functions' gradients (rank-local and dense) against
+    autograd through the kernels' plain versions (the ``"torch"`` LoRA
+    backend).
 (c) ``make_train_step`` in both packages from bridged weights, adapters
     (non-zero B, garbage in the padded rank region), moments and batches,
-    for 3 steps on reduced float32 stablelm-3b, with ``slot_ranks`` bound
-    so both sides take the rank-local path (the JAX side under
-    ``LORA.backend("pallas_interpret")``); AdamW alone on identical numpy
-    gradients.
+    for 3 steps on reduced float32 stablelm-3b, the JAX side under
+    ``LORA.backend("pallas_interpret")``: with ``slot_ranks`` bound, so
+    both sides take the rank-local path, and with every slot at r_max and
+    nothing bound, so both take the dense path; AdamW alone on identical
+    numpy gradients.
 (d) The padded rank region stays exactly 0 across steps with no re-mask.
-(e) ``make_eval_step`` parity.
+(e) ``make_eval_step`` parity, on the rank-local and the dense path.
 
 Bars: the JAX package's own (tests/test_kernel_backends.py) — float32
 kernels rtol/atol 5e-4, loss rtol 1e-4, gradients rtol/atol 2e-3; AdamW
@@ -37,13 +39,14 @@ from repro_torch import bridge
 from repro_torch.configs.registry import get_arch as tget_arch
 from repro_torch.core import lora as TLORA
 from repro_torch.core import steps as TSTEPS
+from repro_torch.kernels.grouped_lora import grouped_lora as TGL
 from repro_torch.kernels.grouped_lora import ops as TOPS
 from repro_torch.kernels.grouped_lora import ranklocal as TRL
 from repro_torch.kernels.grouped_lora import ref as TREF
 from repro_torch.models import model as TM
 from repro_torch.optim import adamw as TAD
 from tests.conftest import reduced_f32
-from tests.test_torch_grouped_lora import CASES, _inputs, _t
+from tests.test_torch_grouped_lora import CASES, _inputs, _spy, _t
 
 KTOL = dict(rtol=5e-4, atol=5e-4)      # float32 kernels
 GTOL = dict(rtol=2e-3, atol=2e-3)      # gradients, parameters
@@ -160,6 +163,37 @@ def test_function_gradients_match_autograd_through_plain(case, with_base):
                                    atol=1e-5)
 
 
+@pytest.mark.parametrize("with_base", [False, True])
+@pytest.mark.parametrize("shape", [(2, 7, 33, 4, 17), (3, 100, 130, 12, 200)])
+def test_dense_function_gradients_match_autograd_through_plain(shape,
+                                                                with_base):
+    """``ops.grouped_lora`` (the dense Function: ds -> dx, da, db) against
+    autograd through ``grouped_lora_ref`` on CPU tensors: fp32 sum order
+    only, rtol 1e-5 plus 1e-5 of the largest entry (dA sums up to 100
+    products of unit-scale values, which cancel); no launch is counted."""
+    Z, T, din, r, dout = shape
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((Z, T, din), dtype=np.float32)
+    A = rng.standard_normal((Z, din, r), dtype=np.float32) / din ** 0.5
+    B = rng.standard_normal((Z, r, dout), dtype=np.float32) / r ** 0.5
+    base = rng.standard_normal((Z, T, dout), dtype=np.float32)
+    scale = _t(rng.uniform(0.5, 2.0, Z).astype(np.float32))
+    dy = _t(rng.standard_normal((Z, T, dout), dtype=np.float32))
+    outs = []
+    TGL.reset_launches()
+    for fn in (TOPS.grouped_lora, TREF.grouped_lora_ref):
+        leaves = [_t(a).requires_grad_(True) for a in (x, A, B, base)]
+        y = fn(leaves[0], leaves[1], leaves[2], scale,
+               leaves[3] if with_base else None)
+        used = leaves if with_base else leaves[:3]
+        outs.append([y] + list(torch.autograd.grad(y, used, dy)))
+    assert set(TGL.LAUNCHES.values()) == {0}          # CPU: plain versions
+    for got, want in zip(*outs):
+        want = want.detach().numpy()
+        np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())
+
+
 def test_lora_delta_backends_agree_in_gradient():
     """``lora_delta`` under ``slot_ranks`` + ``ragged_rows`` on
     [Z, b, S, d] activations: the kernel backend (Function) and the torch
@@ -185,12 +219,15 @@ def test_lora_delta_backends_agree_in_gradient():
 
 Z, BSZ, SEQ = 4, 2, 16
 ROWS = BSZ * SEQ
-# (ranks, active, slot_rows); r_max is 8 on the reduced config
+R_MAX = 8          # r_max of the reduced config
+# (ranks, active, slot_rows); ranks None: every slot at r_max and nothing
+# bound, the executor's all-full-rank dense step
 STEP_CASES = {
     "rows=T": ([2, 4, 6, 3], [1, 1, 1, 1], None),
     "ragged": ([2, 4, 6, 3], [1, 1, 1, 1], [ROWS, SEQ, ROWS, SEQ]),
     "mixed+empty": ([8, 3, 0, 5], [1, 1, 0, 1], None),
     "ragged x rank": ([1, 8, 5, 0], [1, 1, 1, 0], [ROWS, SEQ, SEQ, 0]),
+    "dense": (None, [1, 1, 1, 1], None),
 }
 
 
@@ -209,13 +246,14 @@ def env():
 
     def jfn(params, lora, opt, hp, active, ranks, batch):
         """JAX gradients and the JAX train step in one compiled call
-        (interpret-mode Pallas compiles slowly); ``batch`` always carries
-        ``slot_rows`` (all T when the port runs without them)."""
+        (interpret-mode Pallas compiles slowly); ``batch`` carries
+        ``slot_rows`` (all T when the port runs without them) and
+        ``slot_ranks`` unless nothing is bound (the dense step)."""
         b = {k: v for k, v in batch.items()
              if k not in ("slot_rows", "slot_ranks")}
         with JLORA.backend("pallas_interpret"):
-            with JLORA.ragged_rows(batch["slot_rows"]), \
-                    JLORA.slot_ranks(batch["slot_ranks"]):
+            with JLORA.ragged_rows(batch.get("slot_rows")), \
+                    JLORA.slot_ranks(batch.get("slot_ranks")):
                 grads = jax.grad(lambda l_: jsft_loss(
                     jcfg, params, l_, b, active)[0])(lora)
             return grads, jtrain(params, lora, opt, hp, active, ranks, batch)
@@ -272,11 +310,13 @@ def _assert_tree_close(t_tree, j_tree, what, **tol):
 
 
 @pytest.mark.parametrize("name", list(STEP_CASES))
-def test_train_step_matches_jax_over_three_steps(env, name):
+def test_train_step_matches_jax_over_three_steps(env, name, monkeypatch):
     jcfg, tcfg, jparams, tparams, jstep, _ = env
     ranks, active, rows = STEP_CASES[name]
-    lora, opt, hp, ranks, active, batches = _step_inputs(jcfg, ranks,
-                                                         active, rows)
+    bind = ranks is not None
+    dense_calls = _spy(monkeypatch, TOPS, "grouped_lora")
+    lora, opt, hp, ranks, active, batches = _step_inputs(
+        jcfg, ranks if bind else [R_MAX] * Z, active, rows)
     jl = jax.tree_util.tree_map(jnp.asarray, lora)
     jo = jax.tree_util.tree_map(jnp.asarray, opt)
     jhp = jax.tree_util.tree_map(jnp.asarray, hp)
@@ -288,9 +328,11 @@ def test_train_step_matches_jax_over_three_steps(env, name):
                        Z, ROWS)
     for i, nb in enumerate(batches):
         jb = {k: jnp.asarray(v) for k, v in nb.items()}
-        jb.update(slot_rows=jnp.asarray(jrows), slot_ranks=jnp.asarray(ranks))
         tb = {k: _t(v) for k, v in nb.items()}
-        tb["slot_ranks"] = _t(ranks)
+        if bind:
+            jb.update(slot_rows=jnp.asarray(jrows),
+                      slot_ranks=jnp.asarray(ranks))
+            tb["slot_ranks"] = _t(ranks)
         if rows is not None:
             tb["slot_rows"] = _t(np.asarray(rows, np.int32))
         jgrads, (jl, jo, jm) = jstep(jparams, jl, jo, jhp,
@@ -308,24 +350,45 @@ def test_train_step_matches_jax_over_three_steps(env, name):
     _assert_tree_close(tl, jl, "lora", **GTOL)
     _assert_tree_close(to.mu, jo.mu, "mu", **GTOL)
     np.testing.assert_array_equal(to.count.numpy(), np.asarray(jo.count))
+    # the dense Function runs exactly when nothing is bound: once per LoRA
+    # projection of each forward, and remat runs each forward twice, in
+    # lora_grads and in the step, 3 steps
+    per_forward = tcfg.num_layers * len(tcfg.lora.targets)
+    assert len(dense_calls) == (0 if bind else 3 * 2 * 2 * per_forward)
 
 
-def test_eval_step_matches_jax(env):
+def _eval_matches_jax(env, name):
     jcfg, tcfg, jparams, tparams, _, jeval = env
-    ranks, active, _ = STEP_CASES["mixed+empty"]
-    lora, _, _, ranks, active, batches = _step_inputs(jcfg, ranks, active,
-                                                      None, seed=1)
+    ranks, active, _ = STEP_CASES[name]
+    bind = ranks is not None
+    lora, _, _, ranks, active, batches = _step_inputs(
+        jcfg, ranks if bind else [R_MAX] * Z, active, None, seed=1)
     jb = {k: jnp.asarray(v) for k, v in batches[0].items()}
-    jb["slot_ranks"] = jnp.asarray(ranks)
+    tb = {k: _t(v) for k, v in batches[0].items()}
+    if bind:
+        jb["slot_ranks"] = jnp.asarray(ranks)
+        tb["slot_ranks"] = _t(ranks)
     want = jeval(jparams, jax.tree_util.tree_map(jnp.asarray, lora),
                  jnp.asarray(active), jb)
-    tb = {k: _t(v) for k, v in batches[0].items()}
-    tb["slot_ranks"] = _t(ranks)
     got = TSTEPS.make_eval_step(tcfg)(
         tparams, bridge.lora_from_numpy(lora, "cpu"), _t(active), tb)
     assert not got.requires_grad
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=LOSS_RTOL)
+
+
+def test_eval_step_matches_jax(env):
+    _eval_matches_jax(env, "mixed+empty")
+
+
+def test_dense_eval_step_matches_jax(env, monkeypatch):
+    """Every slot at r_max, nothing bound: the port's eval step takes the
+    dense Function (once per LoRA projection), the JAX one the dense
+    Pallas kernels."""
+    calls = _spy(monkeypatch, TOPS, "grouped_lora")
+    _eval_matches_jax(env, "dense")
+    cfg = env[1]
+    assert len(calls) == cfg.num_layers * len(cfg.lora.targets)
 
 
 def test_adamw_matches_jax_on_identical_gradients():
