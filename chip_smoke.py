@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port: multi-adapter serving, rank-sweep
-and full-rank learning-rate-sweep LoRA training of stablelm-3b on one
-NVIDIA card, through the port's hand-written CUDA kernels.
+and full-rank learning-rate-sweep LoRA training, and heterogeneous
+multi-task co-location of stablelm-3b on one NVIDIA card, through the
+port's hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -12,10 +13,10 @@ package. Phases, none of them caught:
 
 1. card   — name and power limit (nvidia-smi), torch and CUDA versions;
             TF32 off for matmuls and cuDNN.
-2. build  — nvcc builds the twelve grouped-LoRA kernels from the three
+2. build  — nvcc builds the eighteen grouped-LoRA kernels from the four
             sources in ``src/repro_torch/kernels/grouped_lora/csrc``
-            (ranklocal.cu, ranklocal_bwd.cu, grouped_lora.cu; one nvcc per
-            source, started together).
+            (ranklocal.cu, ranklocal_bwd.cu, grouped_lora.cu, ragged.cu;
+            one nvcc per source, started together).
 3. kernels — each rank-local kernel against its plain PyTorch version at
             stablelm-3b shapes (bf16 activations, fp32 adapter masters,
             Z = 4 slots): the forward pair at serving shapes and the
@@ -26,10 +27,16 @@ package. Phases, none of them caught:
             6912 x 2560; the forward pair also at T = 4,096; sb_add with
             and without a base; non-zero B, a different scale per slot)
             against its plain version and, bit for bit, against its
-            rank-local twin at ranks (64, 64, 64, 64). Times (CUDA events
-            around a replayed CUDA graph of many calls; median of 21), a
-            ``torch.bmm`` yardstick the port never calls, and the bound
-            (max of bytes / 3.35 TB/s and flops / 989 TFLOP/s).
+            rank-local twin at ranks (64, 64, 64, 64); then each ragged
+            kernel at r = 64, T = 1,024 and the same three shapes, at rows
+            (1024, 512, 1024, 512) and (1024, 300, 0, 1024), against its
+            plain version (exact zeros and the base passed through on dead
+            rows), bit for bit against its rank-local twin at ranks 64 with
+            the same rows and against its dense twin at rows = T. Times
+            (CUDA events around a replayed CUDA graph of many calls; median
+            of 21), a ``torch.bmm`` yardstick the port never calls, and the
+            bound (max of bytes / 3.35 TB/s and flops / 989 TFLOP/s, at the
+            live rows and ranks).
 4. serve  — full-width, full-depth stablelm-3b (bf16, random weights from a
             seed), 4 adapters at true ranks 8/16/32/64, 4 lanes, max_len
             256: 16 greedy requests (prompts of 32-128 tokens, 32 new
@@ -53,24 +60,49 @@ package. Phases, none of them caught:
             (ranks 4/8/16/32 x lr 1e-4/1e-3) on 4 slots, two warmup waves
             with rotation, selection, continue; every fused train step must
             launch the rank-local xa/sb_add 448 times and ds/da/db 224 (dx
-            221), every eval step xa/sb_add 224 times, and the dense
-            kernels never; real tokens/s over the whole run_task wall, the
-            median train-step call by resident slots, eval step, peak
-            memory, and two train steps under torch.profiler.
+            221), every eval step xa/sb_add 224 times, and the dense and
+            ragged kernels never; real tokens/s over the whole run_task
+            wall, the median train-step call by resident slots, eval step,
+            peak memory, and two train steps under torch.profiler.
 7. dense train — phase 5 with every slot at r_max 64 and nothing bound
             (the dense kernels), the same bars and planted faults; then the
             same step with slot_ranks bound to (64, 64, 64, 64), through
             the rank-local kernels, must give bitwise the per-slot losses
             and every dA and dB.
-8. co-located — stablelm-3b at full width and 4 layers: a full-rank task
+8. ragged train — phase 7 with slot_rows bound to (1024, 512, 1024, 512)
+            (labels -1 on the pad; the ragged kernels), the same bars and
+            faults plus one of this path (the narrow slots' last live
+            32-row tile treated as dead in the plain forward), which must
+            break the loss bar; then the same step with slot_ranks bound to
+            (64, 64, 64, 64) must give bitwise the per-slot losses, dA
+            and dB.
+9. co-located — stablelm-3b at full width and 4 layers: a full-rank task
             (64/64) and a low-rank one (4/8) fused on one
             SharedBackboneExecutor through run_colocated, and each alone:
             loss histories and best validation losses bitwise equal (the
             full-rank task takes the dense kernels alone, the rank-local
             ones fused).
-9. lr sweep — phase 6 with 8 jobs all at rank 64 (lr 1e-4/3e-4/1e-3/3e-3
+10. co-located, mixed widths — the same at 4 layers for full-rank tasks of
+            different widths: a b = 4 host beside a b = 2 guest (the ragged
+            kernels fused, the dense ones for the host alone), beside an
+            S = 128 guest on a seq_cap = 256 executor, and beside a rank
+            4/8, b = 2 guest (the rank-local kernels): every task's
+            histories bitwise equal alone and fused.
+11. lr sweep — phase 6 with 8 jobs all at rank 64 (lr 1e-4/3e-4/1e-3/3e-3
             x weight decay 0/0.01): every step on the dense kernels (the
-            same launch counts), the rank-local kernels never.
+            same launch counts), the rank-local and ragged kernels never.
+12. heterogeneous co-location — the slice's main path: three full-rank
+            tuning tasks of widths (b, S) = (4, 256), (2, 256) and
+            (4, 128), 4 jobs each on 2 slots each, through run_colocated
+            over one SharedBackboneExecutor (Z = 4, b_cap = 4, seq_cap =
+            256) on full-size stablelm-3b; the third waits at the admission
+            gate until a running task frees its slots. Every train step
+            launches the kernel set its dense flag selects (ragged when a
+            slot is narrower than the lane, dense otherwise; the rank-local
+            set never), every eval step the dense forward pair; real
+            tokens/s over the whole run, the padded share, the wall's
+            breakdown, the median step per resident mix, peak memory, and
+            two mixed-width steps under torch.profiler.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernel table as JSON.
@@ -80,6 +112,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -112,8 +145,13 @@ TRAIN_RANKS = (4, 8, 16, 32)
 TRAIN_B, TRAIN_S = 4, 256
 # the full-rank learning-rate sweep: every slot at r_max 64
 FULL_RANKS = (64, 64, 64, 64)
-# layers of the co-located == solo phase (full width, depth cut for time)
+# layers of the co-located == solo phases (full width, depth cut for time)
 COLO_LAYERS = 4
+# token rows per slot of the executor's b = 4 / b = 2 mix (S = 256), and a
+# pattern with a boundary inside a tile and an empty slot
+RAGGED_ROWS = (1024, 512, 1024, 512)
+RAGGED_EDGE_ROWS = (1024, 300, 0, 1024)
+ROW_TILE = 32         # token rows per tile of sb_add, dx, da and db
 EVAL_B = 16                   # sequences per slot in an executor eval step
 # backward kernels with fp32 outputs (dA, dB), kernel vs plain: both sum
 # the same 1,024 bf16 products per entry in fp32, in another order, so an
@@ -811,6 +849,209 @@ def dense_kernel_phase(torch, GL, RL, ref):
     return results
 
 
+def ragged_kernel_phase(torch, RG, GL, RL, ref):
+    """The six ragged kernels at the shapes the heterogeneous co-location
+    gives them (Z = 4 slots at r = 64, T = 1,024 token rows per slot, din x
+    dout in {2560 x 2560, 2560 x 6912, 6912 x 2560}, bf16 activations, fp32
+    masters, non-zero B, a different scale per slot), at rows RAGGED_ROWS
+    (the executor's b = 4 / b = 2 mix) and RAGGED_EDGE_ROWS (a boundary
+    inside a tile, an empty slot): each against its plain version (sb_add
+    with and without a base; exact zeros and the base passed through on
+    dead rows), bit for bit against its rank-local twin at ranks (64, 64,
+    64, 64) with the same rows, and at rows = T bit for bit against its
+    dense twin, on the same inputs. Times (graph replay) at RAGGED_ROWS of
+    the kernel, its plain version, the dense twin (every row), the ragged
+    kernel at rows = T and a ``torch.bmm`` yardstick, beside the bound at
+    the live rows; returns per-kernel results (times at din = dout =
+    2560)."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(5)
+    Z, r, T = 4, 64, TRAIN_B * TRAIN_S
+    full = torch.full((Z,), r, dtype=torch.int32, device=dev)
+    every = torch.full((Z,), T, dtype=torch.int32, device=dev)
+    scale = torch.tensor([0.5, 1.0, 1.5, 2.0], device=dev)
+    names = ("xa", "sb_add", "ds", "dx", "da", "db")
+    results = {}
+    print(f"ragged kernels (every slot at r = 64, T = {T}), times in ms per "
+          f"call (graph replay) at rows {RAGGED_ROWS}; 'dense' = the dense "
+          f"twin over every row, 'at T' = the ragged kernel at rows = T")
+    print("kernel  din   dout  ms        plain_ms  dense_ms  at_T_ms   "
+          "library_ms bound_ms  bound_by   max_abs_err")
+    for din, dout in ((2560, 2560), (2560, 6912), (6912, 2560)):
+        # two copies of the activations (more than the 50 MB L2), so a
+        # timing loop reads them from memory
+        xs = [torch.randn(Z, T, din, generator=gen, device=dev)
+              .to(torch.bfloat16) for _ in range(2)]
+        dys = [torch.randn(Z, T, dout, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(2)]
+        base = torch.randn(Z, T, dout, generator=gen,
+                           device=dev).to(torch.bfloat16)
+        A = torch.randn(Z, din, r, generator=gen, device=dev) / din ** 0.5
+        B = torch.randn(Z, r, dout, generator=gen, device=dev) / r ** 0.5
+        A_lib, B_lib = A.to(torch.bfloat16), B.to(torch.bfloat16)
+        for rows_t in (RAGGED_ROWS, RAGGED_EDGE_ROWS):
+            rows = torch.tensor(rows_t, dtype=torch.int32, device=dev)
+            ss = [RG.xa(x, A, rows) for x in xs]
+            dss = [RG.ds(dy, B, scale, rows) for dy in dys]
+            x, dy, s, dS = xs[0], dys[0], ss[0], dss[0]
+            # --- correctness: (ragged kernel, rank-local twin, plain)
+            outs = {
+                "xa": (s, RL.xa(x, A, rows, full),
+                       ref.ragged_xa_ref(x, A, rows)),
+                "sb_add": (RG.sb_add(s, B, scale, rows),
+                           RL.sb_add(s, B, scale, rows, full),
+                           ref.ragged_sb_add_ref(s, B, scale, rows)),
+                "sb_add+base": (RG.sb_add(s, B, scale, rows, base),
+                                RL.sb_add(s, B, scale, rows, full, base),
+                                ref.ragged_sb_add_ref(s, B, scale, rows,
+                                                      base)),
+                "ds": (dS, RL.ds(dy, B, scale, rows, full),
+                       ref.ragged_ds_ref(dy, B, scale, rows)),
+                "dx": (RG.dx(dS, A, rows), RL.dx(dS, A, rows, full),
+                       ref.ragged_dx_ref(dS, A, rows)),
+                "da": (RG.da(x, dS, rows), RL.da(x, dS, rows, full),
+                       ref.ragged_da_ref(x, dS, rows)),
+                "db": (RG.db(s, dy, scale, rows),
+                       RL.db(s, dy, scale, rows, full),
+                       ref.ragged_db_ref(s, dy, scale, rows))}
+            # at rows = T on the same operands: (ragged kernel, dense twin)
+            at_t = {"xa": (RG.xa(x, A, every), GL.xa(x, A)),
+                    "sb_add": (RG.sb_add(s, B, scale, every),
+                               GL.sb_add(s, B, scale)),
+                    "sb_add+base": (RG.sb_add(s, B, scale, every, base),
+                                    GL.sb_add(s, B, scale, base)),
+                    "ds": (RG.ds(dy, B, scale, every), GL.ds(dy, B, scale)),
+                    "dx": (RG.dx(dS, A, every), GL.dx(dS, A)),
+                    "da": (RG.da(x, dS, every), GL.da(x, dS)),
+                    "db": (RG.db(s, dy, scale, every), GL.db(s, dy, scale))}
+            torch.cuda.synchronize()
+            errs = {}
+            tag = f"ragged {din}x{dout} rows {rows_t}"
+            for name, (out, twin, want) in outs.items():
+                gap = float((out.float() - twin.float()).abs().max())
+                require(torch.equal(out, twin),
+                        f"{tag}: {name} differs from its rank-local twin at "
+                        f"ranks 64 (max |diff| {gap:.3g})")
+                got_t, dense_t = at_t[name]
+                require(torch.equal(got_t, dense_t),
+                        f"ragged {din}x{dout}: {name} at rows = T differs "
+                        f"from its dense twin")
+                o, w = out.float(), want.float()
+                bf16_out = name not in ("da", "db")
+                torch.testing.assert_close(
+                    o, w, rtol=KERNEL_RTOL if bf16_out else GRAD_KERNEL_RTOL,
+                    atol=(KERNEL_ATOL_REL if bf16_out else
+                          GRAD_KERNEL_ATOL_REL) * float(w.abs().max()),
+                    msg=f"{tag}: {name}")
+                errs[name] = float((o - w).abs().max())
+            for z, nr in enumerate(rows_t):      # dead rows: exact zeros
+                for name in ("xa", "sb_add", "ds", "dx"):
+                    require(bool((outs[name][0][z, nr:] == 0).all()),
+                            f"{tag}: {name} dead rows of slot {z} not 0")
+                require(torch.equal(outs["sb_add+base"][0][z, nr:],
+                                    base[z, nr:]),
+                        f"{tag}: sb_add does not pass the base through on "
+                        f"slot {z}'s dead rows")
+                if nr == 0:
+                    require(bool((outs["da"][0][z] == 0).all()
+                                 and (outs["db"][0][z] == 0).all()),
+                            f"{tag}: empty slot {z} has a weight gradient")
+            print(f"{tag}: max_abs_err "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                  + "; bitwise equal to the rank-local twin and, at rows = "
+                  "T, to the dense twin")
+            for name in names:
+                res = results.setdefault(name, {"max_abs_err": 0.0})
+                res["max_abs_err"] = max(res["max_abs_err"], errs[name],
+                                         errs["sb_add+base"]
+                                         if name == "sb_add" else 0.0)
+            del outs, at_t
+            if rows_t != RAGGED_ROWS:
+                continue
+            # --- timing at the executor's mix, alternating between the
+            # two activation copies
+            timing = {  # (ragged, plain, dense twin, ragged at T, library)
+                "xa": (lambda i: RG.xa(xs[i % 2], A, rows),
+                       lambda i: ref.ragged_xa_ref(xs[i % 2], A, rows),
+                       lambda i: GL.xa(xs[i % 2], A),
+                       lambda i: RG.xa(xs[i % 2], A, every),
+                       lambda i: torch.bmm(xs[i % 2], A_lib)),
+                "sb_add": (lambda i: RG.sb_add(ss[i % 2], B, scale, rows),
+                           lambda i: ref.ragged_sb_add_ref(ss[i % 2], B,
+                                                           scale, rows),
+                           lambda i: GL.sb_add(ss[i % 2], B, scale),
+                           lambda i: RG.sb_add(ss[i % 2], B, scale, every),
+                           lambda i: torch.bmm(ss[i % 2], B_lib)),
+                "ds": (lambda i: RG.ds(dys[i % 2], B, scale, rows),
+                       lambda i: ref.ragged_ds_ref(dys[i % 2], B, scale,
+                                                   rows),
+                       lambda i: GL.ds(dys[i % 2], B, scale),
+                       lambda i: RG.ds(dys[i % 2], B, scale, every),
+                       lambda i: torch.bmm(dys[i % 2],
+                                           B_lib.transpose(1, 2))),
+                "dx": (lambda i: RG.dx(dss[i % 2], A, rows),
+                       lambda i: ref.ragged_dx_ref(dss[i % 2], A, rows),
+                       lambda i: GL.dx(dss[i % 2], A),
+                       lambda i: RG.dx(dss[i % 2], A, every),
+                       lambda i: torch.bmm(dss[i % 2],
+                                           A_lib.transpose(1, 2))),
+                "da": (lambda i: RG.da(xs[i % 2], dss[i % 2], rows),
+                       lambda i: ref.ragged_da_ref(xs[i % 2], dss[i % 2],
+                                                   rows),
+                       lambda i: GL.da(xs[i % 2], dss[i % 2]),
+                       lambda i: RG.da(xs[i % 2], dss[i % 2], every),
+                       lambda i: torch.bmm(xs[i % 2].transpose(1, 2),
+                                           dss[i % 2])),
+                "db": (lambda i: RG.db(ss[i % 2], dys[i % 2], scale, rows),
+                       lambda i: ref.ragged_db_ref(ss[i % 2], dys[i % 2],
+                                                   scale, rows),
+                       lambda i: GL.db(ss[i % 2], dys[i % 2], scale),
+                       lambda i: RG.db(ss[i % 2], dys[i % 2], scale, every),
+                       lambda i: torch.bmm(ss[i % 2].transpose(1, 2),
+                                           dys[i % 2])),
+            }
+            # the bytes each function must move at these rows (live rows of
+            # each input read once, the masters of non-empty slots once,
+            # each output written once) and its flops
+            L = sum(rows_t)
+            live = sum(1 for nr in rows_t if nr)
+            work = {
+                "xa": (L * din * 2 + live * din * r * 4 + Z * T * r * 2,
+                       2 * L * r * din),
+                "sb_add": (L * r * 2 + live * r * dout * 4 + Z * T * dout * 2,
+                           2 * L * r * dout),
+                "ds": (L * dout * 2 + live * r * dout * 4 + Z * T * r * 2,
+                       2 * L * r * dout),
+                "dx": (L * r * 2 + live * din * r * 4 + Z * T * din * 2,
+                       2 * L * r * din),
+                "da": (L * din * 2 + L * r * 2 + Z * din * r * 4,
+                       2 * L * r * din),
+                "db": (L * r * 2 + L * dout * 2 + Z * r * dout * 4,
+                       2 * L * r * dout)}
+            for name in names:
+                kern, plain, dense, at_T, lib = timing[name]
+                ms, _ = time_ms(torch, kern, 10)
+                plain_ms, _ = time_ms(torch, plain, 10)
+                dense_ms, _ = time_ms(torch, dense, 10)
+                at_t_ms, _ = time_ms(torch, at_T, 10)
+                lib_ms, _ = time_ms(torch, lib, 10)
+                bound_ms, bound_by = bound(*work[name])
+                print(f"{name:7s} {din:5d} {dout:5d}  {ms:9.5f} "
+                      f"{plain_ms:9.5f} {dense_ms:9.5f} {at_t_ms:9.5f} "
+                      f"{lib_ms:9.5f}  {bound_ms:9.6f} {bound_by:10s} "
+                      f"{errs[name]:.3g}")
+                if (din, dout) == (2560, 2560):
+                    results[name].update(ms=ms, plain_ms=plain_ms,
+                                         library_ms=lib_ms,
+                                         bound_ms=bound_ms,
+                                         bound_by=bound_by)
+            del timing
+            del ss, dss
+        del xs, dys, base
+        torch.cuda.empty_cache()
+    return results
+
+
 def _train_lora(torch, cfg, M, LORA, ranks_t):
     """Slot-stacked adapters at true ranks ``ranks_t``: A from the LoRA
     init, B ~ N(0, 0.003) inside each true rank (B = 0, the init, would
@@ -839,7 +1080,7 @@ def _task_data(cfg, name):
                              seed=0)
 
 
-def train_check(torch, RL, GL, cfg, params, ranks_t, dense):
+def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None):
     """One full-size train step with the kernels against the same step on
     their plain versions (LoRA backend "torch": autograd through them),
     per slot: loss, grad norm, and the relative RMS of dA and dB over all
@@ -848,13 +1089,18 @@ def train_check(torch, RL, GL, cfg, params, ranks_t, dense):
     forward (slot 0's LoRA delta halved) that must break the loss bar
     itself.
 
-    ``dense`` False: slots at the true ranks ``ranks_t`` < r_max, with
-    ``slot_ranks`` bound (the rank-local kernels). ``dense`` True: every
-    slot at r_max and nothing bound (the dense kernels); the plain run
-    binds ``slot_ranks`` = r_max, whose plain versions give bitwise the
-    dense ones'. Then the kernel step runs again with ``slot_ranks`` bound
-    to r_max, through the rank-local kernels: its per-slot losses and every
-    dA and dB must equal the dense step's bit for bit."""
+    ``path`` "rank-local": slots at the true ranks ``ranks_t`` < r_max,
+    with ``slot_ranks`` bound (the rank-local kernels). "dense": every slot
+    at r_max and nothing bound (the dense kernels). "ragged": every slot at
+    r_max and ``slot_rows`` bound to ``rows_t`` alone (the ragged kernels;
+    labels -1 and tokens 0 past each slot's rows), with one more planted
+    fault: the narrow slots' last live ROW_TILE-row tile treated as dead in
+    the plain forward, which must break the loss bar. In the last two the
+    plain run binds ``slot_ranks`` = r_max, whose plain versions give
+    bitwise the dense and ragged ones'; then the kernel step runs again
+    with ``slot_ranks`` bound to r_max, through the rank-local kernels: its
+    per-slot losses and every dA and dB must equal the first kernel step's
+    bit for bit. ``fams`` maps each path to its kernel module."""
     import contextlib
 
     from repro_torch.core import lora as LORA
@@ -866,13 +1112,19 @@ def train_check(torch, RL, GL, cfg, params, ranks_t, dense):
 
     dev = "cuda"
     Z = len(ranks_t)
-    what = "dense" if dense else "rank-local"
     lora, ranks = _train_lora(torch, cfg, M, LORA, ranks_t)
     nb = SlotBatcher(_task_data(cfg, "rank-sweep"), Z, TRAIN_B, seed=0)
-    kbatch = {k: torch.from_numpy(v).to(dev)
-              for k, v in nb.next_batch_dict().items()}
+    raw = nb.next_batch_dict()
+    if rows_t is not None:     # the pad past each slot's rows
+        for z, nr in enumerate(rows_t):
+            raw["labels"][z].reshape(-1)[nr:] = -1
+            raw["tokens"][z].reshape(-1)[nr:] = 0
+    kbatch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    if rows_t is not None:
+        kbatch["slot_rows"] = torch.tensor(rows_t, dtype=torch.int32,
+                                           device=dev)
     pbatch = dict(kbatch, slot_ranks=ranks)
-    if not dense:
+    if path == "rank-local":
         kbatch = pbatch
     active = torch.ones((Z,), dtype=torch.int32, device=dev)
 
@@ -905,18 +1157,24 @@ def train_check(torch, RL, GL, cfg, params, ranks_t, dense):
     t_k = time.perf_counter() - t
     p_loss, p_norm = step("torch")
     torch.cuda.synchronize()
-    print(f"train check ({what}): {cfg.name} full size, Z={Z} ranks "
-          f"{ranks_t}, b={TRAIN_B} S={TRAIN_S}; one make_train_step with the "
-          f"kernels {t_k:.2f} s, then on the plain versions")
-    RL.reset_launches()
-    GL.reset_launches()
+    print(f"train check ({path}): {cfg.name} full size, Z={Z} ranks "
+          f"{ranks_t}, b={TRAIN_B} S={TRAIN_S}, rows {rows_t or 'all'}; one "
+          f"make_train_step with the kernels {t_k:.2f} s, then on the plain "
+          f"versions")
+    def launched_only(want):
+        """Require the kernel set ``want`` launched and no other did."""
+        counts = {k: dict(m.LAUNCHES) for k, m in fams.items()}
+        require(min(counts[want].values()) > 0
+                and all(set(c.values()) == {0} for k, c in counts.items()
+                        if k != want),
+                f"{path} train check launched {counts}, expected only "
+                f"the {want} kernels")
+
+    for m in fams.values():
+        m.reset_launches()
     k_gloss, gk = grads("kernel")
     torch.cuda.synchronize()
-    used, unused = (GL, RL) if dense else (RL, GL)
-    require(min(used.LAUNCHES.values()) > 0
-            and set(unused.LAUNCHES.values()) == {0},
-            f"{what} train check launched dense {GL.LAUNCHES}, rank-local "
-            f"{RL.LAUNCHES}")
+    launched_only(path)
     _, gp = grads("torch")
 
     def rel_rms(a, b, m):
@@ -947,12 +1205,12 @@ def train_check(torch, RL, GL, cfg, params, ranks_t, dense):
                          for k in bars)
 
     sound = gap(p_loss, p_norm, gp)
-    print(f"train check ({what}): kernels vs plain per slot (relative): "
+    print(f"train check ({path}): kernels vs plain per slot (relative): "
           f"{show(sound)}; bars {bars}")
     require(bool(torch.isfinite(k_loss).all()
                  and torch.isfinite(k_norm).all()),
             "train step losses or grad norms not finite")
-    require(within(sound), f"{what} kernel train step too far from the "
+    require(within(sound), f"{path} kernel train step too far from the "
             "plain one")
 
     # planted faults in the plain run, each held to the same bars
@@ -988,7 +1246,7 @@ def train_check(torch, RL, GL, cfg, params, ranks_t, dense):
     ]
     for label, loss, g in controls:
         c = gap(loss, adamw.per_slot_global_norm(g), g)
-        print(f"train check ({what}): control, {label}: {show(c)}")
+        print(f"train check ({path}): control, {label}: {show(c)}")
         require(not within(c), f"control '{label}' passes the train bars")
     del g0, g3, g_nodx
     # the forward fault: slot 0's delta halved (its B halved) in the plain
@@ -998,56 +1256,96 @@ def train_check(torch, RL, GL, cfg, params, ranks_t, dense):
         ab["B"][:, 0] *= 0.5
     h_loss, g_half = grads_of(half, "torch")
     c = gap(h_loss, adamw.per_slot_global_norm(g_half), g_half)
-    print(f"train check ({what}): control, slot 0 (rank {ranks_t[0]}) delta "
+    print(f"train check ({path}): control, slot 0 (rank {ranks_t[0]}) delta "
           f"halved in the forward: {show(c)}")
     require(max(c["loss"]) > TRAIN_LOSS_REL,
             "control 'slot 0 delta halved' passes the loss bar")
     del g_half, half
-    if dense:
+    if rows_t is not None:
+        # the narrow slots' last live row tile treated as dead in the plain
+        # forward: its rows lose their LoRA delta
+        cut = [nr - ROW_TILE if nr < max(rows_t) else nr for nr in rows_t]
+        short = dict(pbatch, slot_rows=torch.tensor(cut, dtype=torch.int32,
+                                                    device=dev))
+        t_loss, g_tile = grads_of(lora, "torch", short)
+        c = gap(t_loss, adamw.per_slot_global_norm(g_tile), g_tile)
+        print(f"train check ({path}): control, the narrow slots' last live "
+              f"{ROW_TILE}-row tile dead in the forward (rows {cut}): "
+              f"{show(c)}")
+        require(max(c["loss"]) > TRAIN_LOSS_REL,
+                "control 'last live row tile dead' passes the loss bar")
+        del g_tile
+    if path != "rank-local":
         # the same step with slot_ranks bound to r_max: the rank-local
-        # kernels, which must give the dense step's numbers bit for bit
-        RL.reset_launches()
-        GL.reset_launches()
+        # kernels, which must give the first step's numbers bit for bit
+        for m in fams.values():
+            m.reset_launches()
         r_loss, gr = grads_of(lora, "kernel", pbatch)
         torch.cuda.synchronize()
-        require(min(RL.LAUNCHES.values()) > 0
-                and set(GL.LAUNCHES.values()) == {0},
-                f"bound step launched dense {GL.LAUNCHES}, rank-local "
-                f"{RL.LAUNCHES}")
+        launched_only("rank-local")
         same = [torch.equal(gr[t][m], gk[t][m]) for t in gk for m in gk[t]]
-        print(f"train check (dense): the step with slot_ranks bound to "
+        print(f"train check ({path}): the step with slot_ranks bound to "
               f"{ranks_t} (rank-local kernels): per-slot loss bitwise equal "
               f"{torch.equal(r_loss, k_gloss)}, dA/dB bitwise equal on "
               f"{sum(same)} of {len(same)} leaves")
         require(torch.equal(r_loss, k_gloss) and all(same),
-                "rank-local kernels at full rank differ from the dense ones")
+                f"rank-local kernels at full rank differ from the {path} "
+                f"ones")
         del gr
     del gk, gp, lora
     torch.cuda.empty_cache()
 
 
-def executor_phase(torch, fam, other, cfg, params, task, jobs):
+def _step_launches(cfg):
+    """Launches of each kernel of the path's set per fused train step
+    (remat runs each forward twice; the first layer's q/k/v read the normed
+    embedding, which hangs off no differentiable leaf, so their LoRA dX is
+    never asked for) and per eval step (the forward pair once)."""
+    per_forward = len(cfg.lora.targets) * cfg.num_layers
+    no_dx = len({"q_proj", "k_proj", "v_proj"} & set(cfg.lora.targets))
+    train = {"xa": 2 * per_forward, "sb_add": 2 * per_forward,
+             "ds": per_forward, "dx": per_forward - no_dx,
+             "da": per_forward, "db": per_forward}
+    return train, {k: (per_forward if k in ("xa", "sb_add") else 0)
+                   for k in train}
+
+
+def _clock(torch, ex, spent):
+    """Wrap the executor operations around the steps so that ``spent``
+    gathers the seconds each takes (device work synced on both sides)."""
+    sync = torch.cuda.synchronize
+
+    def clocked(name):
+        fn = getattr(ex, name)
+
+        def run(*args, **kw):
+            sync()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            sync()
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t
+            return out
+        setattr(ex, name, run)
+
+    for name in ("_assemble", "eval_task", "snapshot", "restore", "admit",
+                 "evict", "adapter_at"):
+        clocked(name)
+
+
+def executor_phase(torch, fam, others, cfg, params, task, jobs):
     """A sweep through the port's entry point: BatchedExecutor.run_task on
     full-size stablelm-3b, ``jobs`` (8) on 4 slots. Every fused train step
     and every eval step is wrapped to count the launches of the kernel set
     ``fam`` (the path's: rank-local for a rank sweep, dense for a full-rank
-    lr sweep) and time it; the other set, ``other``, must launch nothing in
-    the run. Two train steps of the second warmup wave run under
+    lr sweep) and time it; the other sets, ``others``, must launch nothing
+    in the run. Two train steps of the second warmup wave run under
     torch.profiler."""
     from repro_torch.core.early_exit import EarlyExitConfig
     from repro_torch.core.executor import BatchedExecutor, TaskResult
 
     sync = torch.cuda.synchronize
     Z = 4
-    per_forward = len(cfg.lora.targets) * cfg.num_layers
-    # the first layer's q/k/v read the normed embedding, which hangs off
-    # no differentiable leaf, so their LoRA dX is never asked for
-    no_dx = len({"q_proj", "k_proj", "v_proj"} & set(cfg.lora.targets))
-    want_train = {"xa": 2 * per_forward, "sb_add": 2 * per_forward,
-                  "ds": per_forward, "dx": per_forward - no_dx,
-                  "da": per_forward, "db": per_forward}
-    want_eval = {k: (per_forward if k in ("xa", "sb_add") else 0)
-                 for k in fam.LAUNCHES}
+    want_train, want_eval = _step_launches(cfg)
     bx = BatchedExecutor(cfg, params, _task_data(cfg, task), Z=Z,
                          per_adapter_batch=TRAIN_B,
                          ee=EarlyExitConfig(warmup_ratio=0.25,
@@ -1088,37 +1386,22 @@ def executor_phase(torch, fam, other, cfg, params, task, jobs):
     ex._train_step = counted(ex._train_step, "train")
     ex._eval_step = counted(ex._eval_step, "eval")
     # seconds of the run_task wall spent in each executor operation around
-    # the steps (device work synced on both sides)
+    # the steps
     spent = {}
-
-    def clocked(name):
-        fn = getattr(ex, name)
-
-        def run(*args, **kw):
-            sync()
-            t = time.perf_counter()
-            out = fn(*args, **kw)
-            sync()
-            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t
-            return out
-        setattr(ex, name, run)
-
-    for name in ("_assemble", "eval_task", "snapshot", "restore", "admit",
-                 "evict", "adapter_at"):
-        clocked(name)
+    _clock(torch, ex, spent)
     # an earlier executor phase's executor lives on in the reference cycle
     # its wrapped methods make (its adapters and moments, ~4.8 GB at r_max
     # 64): free it before the peak is read
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    fam.reset_launches()
-    other.reset_launches()
+    for m in (fam, *others):
+        m.reset_launches()
     t0 = time.perf_counter()
     result = bx.run_task(task, jobs, total_steps=8)
     wall = time.perf_counter() - t0
     launches = dict(fam.LAUNCHES)
-    stray = dict(other.LAUNCHES)
+    stray = [dict(m.LAUNCHES) for m in others]
     peak = torch.cuda.max_memory_allocated()
     for p in traces:
         for e in p.events():
@@ -1143,8 +1426,8 @@ def executor_phase(torch, fam, other, cfg, params, task, jobs):
     require(all(launches[k] == n_train * want_train[k]
                 + n_eval * want_eval[k] for k in launches),
             f"run launches {launches}")
-    require(set(stray.values()) == {0},
-            f"the other kernel set launched {stray} in the {task} run")
+    require(all(set(c.values()) == {0} for c in stray),
+            f"the other kernel sets launched {stray} in the {task} run")
     # all work over all the time: the real tokens of every fused train
     # step over the whole run_task wall (batch assembly, copies to the
     # card, loss reads, evals, rotations, the cold first step and the two
@@ -1204,15 +1487,30 @@ def executor_phase(torch, fam, other, cfg, params, task, jobs):
     return launches
 
 
-def colocated_phase(torch, RL, GL, cfg):
-    """Co-located == solo on the card (the port of the JAX package's
-    ``test_ranklocal_cross_task_losses_bitwise_equal_solo``): stablelm-3b
-    at full width and COLO_LAYERS layers, a full-rank task (two jobs at
-    64/64) and a low-rank one (4/8) fused on one SharedBackboneExecutor
-    through run_colocated, then each alone on a fresh executor of the same
-    shape. Loss histories and best validation losses must be equal bit for
-    bit; the full-rank task takes the dense kernels alone and the
-    rank-local kernels when fused."""
+def colocated_phase(torch, fams, cfg):
+    """Co-located == solo on the card, stablelm-3b at full width and
+    COLO_LAYERS layers: ports of the JAX package's isolation tests
+    (tests/test_lora_isolation.py), each task trained fused with a
+    co-tenant through run_colocated on one SharedBackboneExecutor (Z = 4,
+    b_cap = 4, seq_cap = 256), then alone on a fresh executor of the same
+    shape. The full-rank b = 4 task "full" is the host of every pair:
+      * beside "low" (ranks 4/8, b = 4;
+        ``test_ranklocal_cross_task_losses_bitwise_equal_solo``): the
+        rank-local kernels fused, the dense ones for "full" alone;
+      * beside "narrow" (full rank, b = 2;
+        ``test_ragged_cross_task_losses_bitwise_equal_solo`` and
+        ``test_ragged_full_width_host_unperturbed_by_narrow_guest``): the
+        ragged kernels fused and for "narrow" alone;
+      * beside "short" (full rank, b = 2, S = 128;
+        ``test_ragged_mixed_seq_len_cross_task_bitwise``): the ragged
+        kernels, each lane padded mid-row;
+      * beside "low-narrow" (ranks 4/8, b = 2;
+        ``test_ranklocal_ragged_rank_and_width_compose_bitwise``): the
+        rank-local kernels with rows bound.
+    Loss histories and best validation losses must be equal bit for bit
+    fused and alone; the kernel sets each run launched (train and eval
+    steps; an eval step binds nothing unless a rank is below r_max) are
+    printed and checked."""
     import dataclasses
 
     from repro_torch.configs.base import TrainConfig
@@ -1225,65 +1523,322 @@ def colocated_phase(torch, RL, GL, cfg):
     cfg = dataclasses.replace(cfg, num_layers=COLO_LAYERS)
     params = M.init_params(cfg, seed=0, device="cuda")
     r_max = cfg.lora.r_max
-    specs = [("full", 3, (r_max, r_max), 0.2),
-             ("low", 4, (4, 8), 0.6)]
-    data = {name: make_task_dataset(name, cfg.vocab_size, seq_len=TRAIN_S,
+    full = (r_max, r_max)
+    tasks = {  # name: (seed, ranks, per-adapter batch, seq len, difficulty)
+        "full": (3, full, TRAIN_B, TRAIN_S, 0.2),
+        "low": (4, (4, 8), TRAIN_B, TRAIN_S, 0.6),
+        "narrow": (5, full, 2, TRAIN_S, 0.4),
+        "short": (6, full, 2, TRAIN_S // 2, 0.4),
+        "low-narrow": (7, (4, 8), 2, TRAIN_S, 0.6),
+    }
+    data = {name: make_task_dataset(name, cfg.vocab_size, seq_len=seq,
                                     num_train=32, num_val=8,
                                     difficulty=diff, seed=seed)
-            for name, seed, _, diff in specs}
+            for name, (seed, _, _, seq, diff) in tasks.items()}
 
     def run(chosen):
         ex = SharedBackboneExecutor(cfg, params, Z=4,
                                     per_adapter_batch=TRAIN_B, eval_every=2,
-                                    seed=0)
+                                    seed=0, seq_cap=TRAIN_S)
         lcs = []
-        for name, seed, ranks, _ in chosen:
-            jobs = {f"{name}/j{i}": TrainConfig(learning_rate=lr,
-                                                lora_rank=rk, max_steps=8)
+        for name in chosen:
+            seed, ranks, b, _, _ = tasks[name]
+            jobs = {f"{name}/j{i}": TrainConfig(
+                        learning_rate=lr, lora_rank=rk, max_steps=8,
+                        per_adapter_batch=b)
                     for i, (lr, rk) in enumerate(zip((3e-3, 1e-3), ranks))}
             lcs.append(TaskLifecycle(
                 ex, name, jobs, 8,
                 ee=EarlyExitConfig(warmup_ratio=0.25, select_ratio=1.0),
                 max_slots=2, batcher=SlotBatcher(data[name], 2, ex.b_cap,
                                                  seed=seed), seed=seed))
-        RL.reset_launches()
-        GL.reset_launches()
+        for m in fams.values():
+            m.reset_launches()
         results = run_colocated(ex, lcs)
         torch.cuda.synchronize()
         hists = {lc.task_name: {j: (tuple(m.val_hist),
                                     tuple(m.raw_train_hist))
                                 for j, m in lc.monitors.items()}
                  for lc in lcs}
-        return (results, hists, sum(RL.LAUNCHES.values()),
-                sum(GL.LAUNCHES.values()))
+        launched = {k: sum(m.LAUNCHES.values()) for k, m in fams.items()}
+        print(f"colocated: {' + '.join(chosen)}: launches {launched}")
+        return results, hists, launched
 
     t = time.perf_counter()
-    fused, fused_h, fused_rl, fused_gl = run(specs)
-    solo_f, solo_f_h, solo_f_rl, solo_f_gl = run(specs[:1])
-    solo_l, solo_l_h, solo_l_rl, solo_l_gl = run(specs[1:])
     print(f"colocated: {cfg.name} d={cfg.d_model} ff={cfg.d_ff} "
-          f"L={cfg.num_layers}, Z=4, b={TRAIN_B} S={TRAIN_S}; tasks "
-          f"'full' (ranks {specs[0][2]}) and 'low' (ranks {specs[1][2]}), "
-          f"fused then each alone, {time.perf_counter() - t:.1f} s; "
-          f"kernel launches (rank-local, dense): fused ({fused_rl}, "
-          f"{fused_gl}), full alone ({solo_f_rl}, {solo_f_gl}), low alone "
-          f"({solo_l_rl}, {solo_l_gl})")
-    require(fused_rl > 0 and fused_gl == 0,
-            "fused run did not take the rank-local kernels alone")
-    require(solo_f_gl > 0 and solo_f_rl == 0,
-            "full-rank task alone did not take the dense kernels alone")
-    for name, solo, solo_h in (("full", solo_f, solo_f_h),
-                               ("low", solo_l, solo_l_h)):
-        same = fused_h[name] == solo_h[name]    # bitwise: tuples of floats
-        print(f"colocated: task '{name}' best val fused "
-              f"{fused[name].best_val!r}, alone {solo[name].best_val!r}; "
-              f"loss histories bitwise equal {same}")
-        require(same and fused[name].best_val == solo[name].best_val,
-                f"task '{name}' co-located differs from alone")
-        require(math.isfinite(fused[name].best_val),
-                f"task '{name}' best val not finite")
+          f"L={cfg.num_layers}, Z=4, b_cap={TRAIN_B}, seq_cap={TRAIN_S}; "
+          f"tasks (seed, ranks, b, S, difficulty) {tasks}")
+    alone = {name: run([name]) for name in tasks}
+    # the kernel set each run must launch (> 0) and those it must not (0)
+    want = {("full",): ("dense", ("ragged", "rank-local")),
+            ("low",): ("rank-local", ("dense", "ragged")),
+            ("narrow",): ("ragged", ("rank-local",)),
+            ("short",): ("ragged", ("rank-local",)),
+            ("low-narrow",): ("rank-local", ("dense", "ragged")),
+            ("full", "low"): ("rank-local", ("dense", "ragged")),
+            ("full", "narrow"): ("ragged", ("rank-local",)),
+            ("full", "short"): ("ragged", ("rank-local",)),
+            ("full", "low-narrow"): ("rank-local", ("dense", "ragged"))}
+    fused = {pair: run(list(pair)) for pair in want if len(pair) == 2}
+    for chosen, (used, unused) in want.items():
+        launched = (alone[chosen[0]] if len(chosen) == 1
+                    else fused[chosen])[2]
+        require(launched[used] > 0
+                and all(launched[k] == 0 for k in unused),
+                f"colocated {chosen}: launched {launched}, expected the "
+                f"{used} kernels and none of {unused}")
+    for (host, guest), (res, hists, _) in fused.items():
+        for name in (host, guest):
+            solo, solo_h, _ = alone[name]
+            same = hists[name] == solo_h[name]  # bitwise: tuples of floats
+            print(f"colocated: task '{name}' beside "
+                  f"'{guest if name == host else host}': best val fused "
+                  f"{res[name].best_val!r}, alone {solo[name].best_val!r}; "
+                  f"loss histories bitwise equal {same}")
+            require(same and res[name].best_val == solo[name].best_val,
+                    f"task '{name}' co-located with "
+                    f"{(host, guest)} differs from alone")
+            require(math.isfinite(res[name].best_val),
+                    f"task '{name}' best val not finite")
+    print(f"colocated: {len(alone) + len(fused)} runs in "
+          f"{time.perf_counter() - t:.1f} s")
     del params
     torch.cuda.empty_cache()
+
+
+def _kernel_family(name: str) -> str:
+    """The kernel set a profiled grouped-LoRA kernel belongs to, read from
+    its last two template arguments (ROWS, RANKS); "" for other kernels."""
+    if not any(k in name for k in ("narrow_out_kernel", "rank_sum_kernel",
+                                   "tn_kernel")):
+        return ""
+    flags = re.findall(r"(true|false), (true|false)>", name)
+    return {("true", "true"): "rank-local", ("true", "false"): "ragged",
+            ("false", "false"): "dense"}.get(flags[-1] if flags else None,
+                                             "unidentified")
+
+
+def colocation_phase(torch, fams, cfg, params):
+    """The slice's main path: heterogeneous multi-task co-location on
+    full-size ``cfg``. Three full-rank tuning tasks, 4 jobs each (every job
+    at r_max), each on at most 2 slots of one SharedBackboneExecutor (Z =
+    4, b_cap = TRAIN_B, seq_cap = TRAIN_S), given to run_colocated in this
+    order: "wide" (b = 4, S = 256, lr 1e-4/1e-3 x wd 0/0.01), "narrow"
+    (b = 2, S = 256, lr 3e-4/3e-3 x wd 0/0.01), "short" (b = 4, S = 128,
+    lr 1e-4/1e-3 x wd 0/0.01); 8 steps per job, warmup 0.25, select 0.5.
+    "short" must wait at the admission gate until a running task frees its
+    slots. Every fused train step must launch the kernel set that
+    ``_assemble``'s dense flag selects (the ragged set when some slot is
+    narrower than the lane, the dense set otherwise; xa/sb_add 448, ds/da/db
+    224, dx 221) and no other, every eval step the dense forward pair
+    (224 each), the rank-local set never. Reports real tokens/s over the
+    whole run_colocated wall and the padded share of the capacity tokens,
+    the wall's breakdown, the median _train_step call per resident mix,
+    peak memory, each task's best job, and two mixed-width train steps
+    under torch.profiler (device busy, the ragged kernels' share). Returns
+    the run's launches per kernel set."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.early_exit import EarlyExitConfig
+    from repro_torch.core.executor import (SharedBackboneExecutor,
+                                           TaskLifecycle, run_colocated)
+    from repro_torch.data.synthetic import make_task_dataset
+
+    sync = torch.cuda.synchronize
+    Z = 4
+    want_train, want_eval = _step_launches(cfg)
+    zero = dict.fromkeys(want_train, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ex = SharedBackboneExecutor(cfg, params, Z=Z, per_adapter_batch=TRAIN_B,
+                                eval_every=2, seq_cap=TRAIN_S)
+    ee = EarlyExitConfig(warmup_ratio=0.25, select_ratio=0.5)
+    specs = [("wide", TRAIN_B, TRAIN_S, (1e-4, 1e-3), 1),
+             ("narrow", 2, TRAIN_S, (3e-4, 3e-3), 2),
+             ("short", TRAIN_B, TRAIN_S // 2, (1e-4, 1e-3), 3)]
+    lcs = []
+    for name, b, seq, lrs, seed in specs:
+        ds = make_task_dataset(name, cfg.vocab_size, seq_len=seq,
+                               num_train=64, num_val=EVAL_B, difficulty=0.3,
+                               seed=seed)
+        jobs = {f"{name}/lr{lr:g}-wd{wd:g}": TrainConfig(
+                    learning_rate=lr, weight_decay=wd,
+                    lora_rank=cfg.lora.r_max, per_adapter_batch=b)
+                for lr in lrs for wd in (0.0, 0.01)}
+        lcs.append(TaskLifecycle(ex, name, jobs, 8, ee=ee, max_slots=2,
+                                 dataset=ds, seed=seed))
+    # per train step: (mix, dense, launches per set, ms, real tokens,
+    # profiled); per eval step: launches per set
+    log = {"train": [], "eval": []}
+    began = {}
+    flag = {}
+    prof = {"busy_us": 0.0, "wall_us": 0.0, "kernels": {}}
+    traces = []
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def launches():
+        return {k: dict(m.LAUNCHES) for k, m in fams.items()}
+
+    def delta(before):
+        now = launches()
+        return {k: {n: now[k][n] - before[k][n] for n in now[k]}
+                for k in now}
+
+    real_assemble = ex._assemble
+
+    def assemble():
+        out = real_assemble()
+        flag["dense"] = out[2]
+        return out
+    ex._assemble = assemble
+
+    def counted(fn, kind):
+        def run(*args):
+            mix = "+".join(lc.task_name for lc in ex.resident_tasks())
+            tokens = ex.slots.occupied_tokens()
+            profiled = (kind == "train" and len(log["train"]) in (2, 3))
+            before = launches()
+            sync()
+            t = time.perf_counter()
+            if profiled:
+                with torch.profiler.profile(activities=acts) as p:
+                    out = fn(*args)
+                    sync()
+            else:
+                out = fn(*args)
+                sync()
+            dt = time.perf_counter() - t
+            if kind == "train":
+                log["train"].append((mix, flag["dense"], delta(before),
+                                     dt * 1e3, tokens, profiled))
+            else:
+                log["eval"].append(delta(before))
+            if profiled:     # its events are read after the run
+                prof["wall_us"] += dt * 1e6
+                traces.append(p)
+            return out
+        return run
+
+    ex._train_step = counted(ex._train_step, "train")
+    ex._eval_step = counted(ex._eval_step, "eval")
+    spent = {}
+    _clock(torch, ex, spent)
+    for lc in lcs:
+        def begin(lc=lc, real=lc.begin):
+            others = {o.task_name: (o.phase, o.slots_bound()) for o in lcs
+                      if o is not lc and o.phase != "idle"}
+            began[lc.task_name] = (len(log["train"]), others)
+            real()
+        lc.begin = begin
+    torch.cuda.reset_peak_memory_stats()
+    for m in fams.values():
+        m.reset_launches()
+    t0 = time.perf_counter()
+    results = run_colocated(ex, lcs)
+    wall = time.perf_counter() - t0
+    totals = launches()
+    peak = torch.cuda.max_memory_allocated()
+    by_family = {}
+    for p in traces:
+        for e in p.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                n, us = prof["kernels"].get(e.name, (0, 0.0))
+                us_e = e.time_range.elapsed_us()
+                prof["kernels"][e.name] = (n + 1, us + us_e)
+                prof["busy_us"] += us_e
+                fam = _kernel_family(e.name)
+                if fam:
+                    by_family[fam] = by_family.get(fam, 0.0) + us_e
+    del traces
+
+    tag = "colocation"
+    require(set(results) == {name for name, *_ in specs},
+            f"run_colocated returned {sorted(results)}")
+    for lc in lcs:
+        res = results[lc.task_name]
+        require(res.best_job in lc.jobs and math.isfinite(res.best_val),
+                f"task {lc.task_name}: best {res.best_job} {res.best_val}")
+    step_short, others = began["short"]
+    print(f"{tag}: 'short' admitted before fused train step {step_short} "
+          f"(0-based), the other tasks then (phase, slots bound) {others}; "
+          f"'wide' and 'narrow' at steps {began['wide'][0]} and "
+          f"{began['narrow'][0]}")
+    require(began["wide"][0] == began["narrow"][0] == 0 and step_short > 0,
+            "'short' did not wait at the admission gate")
+    require(sum(b for _, b in others.values()) <= Z - lcs[2].m,
+            "'short' admitted before the running tasks freed its slots")
+    for i, (mix, dense, d, *_rest) in enumerate(log["train"]):
+        used, unused = ("dense", "ragged") if dense else ("ragged", "dense")
+        require(d[used] == want_train and d[unused] == zero
+                and d["rank-local"] == zero,
+                f"train step {i} ({mix}, dense {dense}) launched {d}, "
+                f"expected {want_train} of the {used} kernels only")
+    for i, d in enumerate(log["eval"]):
+        require(d["dense"] == want_eval and d["ragged"] == zero
+                and d["rank-local"] == zero,
+                f"eval step {i} launched {d}, expected {want_eval} of the "
+                f"dense kernels only")
+    n_dense = sum(1 for _, dense, *_ in log["train"] if dense)
+    require(not any(dense for _, dense, _, _, _, p in log["train"] if p),
+            "a profiled train step was not a mixed-width one")
+    require(set(totals["rank-local"].values()) == {0},
+            f"the rank-local kernels launched {totals['rank-local']}")
+    for lc in lcs:
+        res = results[lc.task_name]
+        print(f"{tag}: task '{lc.task_name}': best {res.best_job} (val "
+              f"{res.best_val!r}), exits {res.exit_counts}, saved "
+              f"{res.samples_saved_frac:.3f} of the samples")
+    n_train, n_eval = len(log["train"]), len(log["eval"])
+    print(f"{tag}: {n_train} fused train steps ({n_train - n_dense} ragged, "
+          f"{n_dense} dense), {n_eval} eval steps; launches per train step "
+          f"{want_train} of the set its dense flag selects, per eval step "
+          f"{want_eval} (every step checked); run totals {totals}")
+    trained = sum(tok for _, _, _, _, tok, _ in log["train"])
+    capacity = n_train * Z * TRAIN_B * TRAIN_S
+    prof_tok = sum(tok for _, _, _, _, tok, p in log["train"] if p)
+    print(f"{tag}: run_colocated wall {wall:.3f} s for {trained} real "
+          f"trained tokens = {trained / wall:.1f} tokens/s over the whole "
+          f"run (every step, eval, rotation and admission included); "
+          f"{(trained - prof_tok) / (wall - prof['wall_us'] / 1e6):.1f} "
+          f"tokens/s without the two profiled steps; padded share of the "
+          f"capacity tokens (Z x b_cap x seq_cap per step) "
+          f"{1 - trained / capacity:.4f}")
+    train_s = sum(ms for _, _, _, ms, _, _ in log["train"]) / 1e3
+    parts = {"train steps": train_s, **spent}
+    print(f"{tag}: run_colocated wall {wall:.3f} s = " + " + ".join(
+        f"{k} {v:.3f} s" for k, v in parts.items())
+        + f" + other {wall - sum(parts.values()):.3f} s (eval_task holds "
+        f"the eval steps; the train steps hold the two profiled ones' "
+        f"{prof['wall_us'] / 1e6:.3f} s)")
+    by_mix = {}
+    for mix, dense, _, ms, tok, p in log["train"][1:]:
+        if not p:
+            by_mix.setdefault((mix, dense), []).append((ms, tok))
+    for (mix, dense), steps in by_mix.items():
+        ms = [m for m, _ in steps]
+        print(f"{tag}: resident {mix} ({'dense' if dense else 'ragged'}): "
+              f"median _train_step call {statistics.median(ms):.2f} ms over "
+              f"{len(ms)} warm unprofiled steps (min {min(ms):.2f}, max "
+              f"{max(ms):.2f}), {sum(t for _, t in steps) / sum(ms) * 1e3:.1f}"
+              f" real tokens/s within the calls")
+    print(f"{tag}: first train step {log['train'][0][3]:.1f} ms (cold); "
+          f"peak memory {peak / 2**30:.2f} GiB")
+    busy, pw = prof["busy_us"], prof["wall_us"]
+    if busy:
+        print(f"profile ({tag}): 2 mixed-width train steps (profiler on) "
+              f"{pw / 2e3:.2f} ms/step wall, device busy {busy / 2e3:.2f} "
+              f"ms/step = {busy / pw:.3f} of the wall, "
+              f"{sum(n for n, _ in prof['kernels'].values()) / 2:.0f} device "
+              f"events/step; grouped-LoRA kernels by set (ms/step): "
+              + ", ".join(f"{k} {v / 2e3:.2f} ({v / busy:.3f} of busy)"
+                          for k, v in sorted(by_family.items())))
+    else:
+        print(f"profile ({tag}): no device events traced: not measured")
+    for name, (n, us) in sorted(prof["kernels"].items(),
+                                key=lambda kv: -kv[1][1])[:10]:
+        print(f"profile ({tag}):   {us / 2e3:8.3f} ms/step {n // 2:5d}/step "
+              f"{name[:90]}")
+    return totals
 
 
 def main() -> int:
@@ -1299,6 +1854,7 @@ def main() -> int:
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels.grouped_lora import grouped_lora as GL
+    from repro_torch.kernels.grouped_lora import ragged as RG
     from repro_torch.kernels.grouped_lora import ranklocal as RL
     from repro_torch.kernels.grouped_lora import ref
     from repro_torch.models import model as M
@@ -1323,7 +1879,9 @@ def main() -> int:
                                                               0.0))
         kern.setdefault(name, {}).update(res, max_abs_err=err)
     dense = dense_kernel_phase(torch, GL, RL, ref)
+    ragged = ragged_kernel_phase(torch, RG, GL, RL, ref)
     print(f"kernel phases done at {time.perf_counter() - t_all:.1f} s")
+    fams = {"dense": GL, "ragged": RG, "rank-local": RL}
 
     cfg = get_arch("stablelm-3b")
     t = time.perf_counter()
@@ -1333,26 +1891,31 @@ def main() -> int:
     serve_launches = serve_phase(torch, RL, cfg, params)
     torch.cuda.empty_cache()
     print(f"serve phase done at {time.perf_counter() - t_all:.1f} s")
-    train_check(torch, RL, GL, cfg, params, TRAIN_RANKS, dense=False)
+    train_check(torch, fams, cfg, params, TRAIN_RANKS, "rank-local")
     print(f"train check done at {time.perf_counter() - t_all:.1f} s")
     rank_jobs = {f"r{r}-lr{lr:g}": TrainConfig(learning_rate=lr, lora_rank=r,
                                                per_adapter_batch=TRAIN_B)
                  for r in TRAIN_RANKS for lr in (1e-4, 1e-3)}
-    train_launches = executor_phase(torch, RL, GL, cfg, params, "rank-sweep",
-                                    rank_jobs)
+    train_launches = executor_phase(torch, RL, (GL, RG), cfg, params,
+                                    "rank-sweep", rank_jobs)
     print(f"rank-sweep executor phase done at "
           f"{time.perf_counter() - t_all:.1f} s")
-    train_check(torch, RL, GL, cfg, params, FULL_RANKS, dense=True)
+    train_check(torch, fams, cfg, params, FULL_RANKS, "dense")
     print(f"full-rank train check done at {time.perf_counter() - t_all:.1f} s")
-    colocated_phase(torch, RL, GL, cfg)
-    print(f"co-located phase done at {time.perf_counter() - t_all:.1f} s")
+    train_check(torch, fams, cfg, params, FULL_RANKS, "ragged", RAGGED_ROWS)
+    print(f"ragged train check done at {time.perf_counter() - t_all:.1f} s")
+    colocated_phase(torch, fams, cfg)
+    print(f"co-located phases done at {time.perf_counter() - t_all:.1f} s")
     lr_jobs = {f"lr{lr:g}-wd{wd:g}": TrainConfig(
                    learning_rate=lr, weight_decay=wd,
                    lora_rank=cfg.lora.r_max, per_adapter_batch=TRAIN_B)
                for lr in (1e-4, 3e-4, 1e-3, 3e-3) for wd in (0.0, 0.01)}
-    lr_launches = executor_phase(torch, GL, RL, cfg, params, "lr-sweep",
-                                 lr_jobs)
+    lr_launches = executor_phase(torch, GL, (RL, RG), cfg, params,
+                                 "lr-sweep", lr_jobs)
     print(f"lr-sweep executor phase done at "
+          f"{time.perf_counter() - t_all:.1f} s")
+    colo_launches = colocation_phase(torch, fams, cfg, params)
+    print(f"heterogeneous co-location phase done at "
           f"{time.perf_counter() - t_all:.1f} s")
 
     csrc = "src/repro_torch/kernels/grouped_lora/csrc"
@@ -1366,11 +1929,18 @@ def main() -> int:
     rows += [(name, "grouped_lora.cu", "grouped_lora.py", line)
              for name, line in (("xa", 71), ("sb_add", 121), ("ds", 162),
                                 ("dx", 197), ("da", 238), ("db", 275))]
+    rows += [(name, "ragged.cu", "ragged.py", line)
+             for name, line in (("xa", 80), ("sb_add", 152), ("ds", 198),
+                                ("dx", 244), ("da", 295), ("db", 341))]
     table = {"kernels": []}
     for name, src, tpu, line in rows:
         if src == "grouped_lora.cu":
             prefix, by_path, res = "grouped_lora", {
-                "lr_sweep": lr_launches[name]}, dense[name]
+                "lr_sweep": lr_launches[name],
+                "colocation": colo_launches["dense"][name]}, dense[name]
+        elif src == "ragged.cu":
+            prefix, by_path, res = "ragged", {
+                "colocation": colo_launches["ragged"][name]}, ragged[name]
         else:
             prefix, by_path, res = "ranklocal", {
                 "train": train_launches[name]}, kern[name]

@@ -2,9 +2,12 @@
 
 Port of ``repro.core.executor`` (PyTorch, eager). Every fused train step
 runs the model forward, the backward over the LoRA leaves and AdamW on the
-card (``core/steps.py``); with mixed ranks resident (the rank sweep) every
-LoRA projection goes through the rank-local CUDA kernels forward and
-backward. The host side — lifecycles, early exit, batch packing,
+card (``core/steps.py``). Every LoRA projection goes through one of three
+CUDA kernel sets forward and backward, chosen once per step on the host:
+the rank-local set when a resident slot is below r_max (the rank sweep),
+the ragged set when every slot is at r_max but some slot is narrower than
+the lane (full-rank mixed-width co-location), the dense set otherwise (the
+full-rank lr sweep). The host side — lifecycles, early exit, batch packing,
 admission — is the JAX package's, line for line. ``BatchedExecutor``'s
 resume from a durable mid-task checkpoint needs ``checkpoint/taskstate.py``
 and is not ported yet.
@@ -44,7 +47,8 @@ masked out of every loss and gradient) and dispatches dense (all resident
 slots full-width — the homogeneous fast case, no padding, no masks) vs
 ragged (per-slot token-row counts ride the batch as ``slot_rows`` and
 confine each slot's LoRA delta to its own rows: the rank-local kernels'
-row counts when ranks are bound, a row mask otherwise). The kernel-level
+row counts when ranks are bound, the ragged kernels' otherwise). The
+kernel-level
 dead-tile skip covers BATCH raggedness (whole missing rows); a shorter-seq
 guest is exact via label masking but pays padded compute for its seq-pad
 columns (mid-lane padding is inexpressible as a row-prefix count). Admission budgets *tokens* (sum of b_z * seq_z), not
@@ -330,7 +334,8 @@ class SharedBackboneExecutor:
             if self.slots.mixed_rank(self.cfg.lora.r_max):
                 # some resident rank < r_max: route LoRA through the
                 # rank-local kernels (dead rank tiles skip their work); a
-                # homogeneous full-rank mix stays on the plain path
+                # full-rank mix takes the ragged kernels when slot_rows is
+                # bound and the dense ones when it is not
                 batch["slot_ranks"] = self.slots.ranks
             self.slots.lora, self.slots.opt_state, metrics = self._train_step(
                 self.params, self.slots.lora, self.slots.opt_state,
@@ -396,11 +401,13 @@ class TaskLifecycle:
     (lane-indexed, not physical-slot-indexed) — so its loss trajectory is
     bitwise identical whether the executor hosts it alone or co-located
     with other tasks (the loss-isolation property, tested in
-    tests/test_torch_executor.py). One caveat: a full-rank task that
-    gains a low-rank co-tenant flips from the plain path to the rank-local
-    kernels, which sum in another order, so its losses are parity-level
-    (not bitwise) against running alone; the bitwise invariants hold for
-    tasks whose slots are all below r_max."""
+    tests/test_torch_executor.py). That holds for full-rank tasks too,
+    whose steps cross between kernel sets as co-tenants come and go: the
+    dense kernels alone or beside full-width full-rank co-tenants, the
+    ragged ones beside a narrower full-rank co-tenant, the rank-local ones
+    beside a lower-rank co-tenant. The three are one template instantiated
+    three times (one grid, tiling and fp32 summation order), so a
+    full-rank slot's result is bitwise the same on each."""
 
     def __init__(self, ex: SharedBackboneExecutor, task_name: str,
                  jobs: Dict[str, TrainConfig], total_steps: int, *,

@@ -14,20 +14,23 @@ padded region into the output.
 ``lora_delta`` is differentiable in x, A and B on both backends. The
 default ``"kernel"`` backend takes, as the JAX package's Pallas backends
 do:
-  * under ``slot_ranks``: ``ranklocal_grouped_lora``, an autograd Function
-    over the six rank-local CUDA kernels;
+  * under ``slot_ranks`` (with or without ``ragged_rows``):
+    ``ranklocal_grouped_lora``, an autograd Function over the six
+    rank-local CUDA kernels;
+  * under ``ragged_rows`` alone (every resident slot at r_max, mixed
+    widths): ``ragged_grouped_lora``, an autograd Function over the six
+    ragged CUDA kernels;
   * with nothing bound (every resident slot at r_max and full width):
     ``grouped_lora``, an autograd Function over the six dense CUDA
-    kernels, which give bitwise the rank-local kernels' result at full
-    rank;
-  * under ``ragged_rows`` alone (full rank, mixed widths): the ragged
-    kernels, not ported yet. On a CUDA tensor this raises; on the CPU the
-    delta is the plain math below with the row mask.
-For CPU tensors each Function runs its kernels' plain versions. The
-``"torch"`` backend takes autograd through the rank-local kernels' plain
-versions under ``slot_ranks`` and plain PyTorch math otherwise (the JAX
-package's ``jnp`` path), on any device — the reference a run on the card
-compares its kernels against.
+    kernels.
+The three kernel sets are one template instantiated three times, so a
+full-rank slot gets bitwise one result whichever its co-tenants select.
+For CPU tensors each Function runs its kernels' plain versions; on a CUDA
+tensor no branch does plain math. The ``"torch"`` backend takes autograd
+through the rank-local kernels' plain versions under ``slot_ranks`` and
+plain PyTorch math otherwise, with the row mask under ``ragged_rows`` (the
+JAX package's ``jnp`` path), on any device — the reference a run on the
+card compares its kernels against.
 
 The bindings are thread-local. A step that recomputes layers during the
 backward pass (``torch.utils.checkpoint``; on the card autograd runs the
@@ -163,13 +166,10 @@ def lora_delta(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                                         _scale_vec(scale, Z, x.device),
                                         ranks, rows)
         return y.reshape(*lead, B.shape[-1])
-    if kernel and rows is None:
-        return kops.grouped_lora(xt, A, B, scale).reshape(*lead, B.shape[-1])
-    if kernel and x.device.type != "cpu":
-        raise NotImplementedError(
-            "lora_delta under ragged_rows without slot_ranks needs the "
-            "ragged grouped-LoRA kernels, which are not ported yet "
-            "(ROADMAP.md, modules to port, item 2)")
+    if kernel:
+        y = (kops.grouped_lora(xt, A, B, scale) if rows is None else
+             kops.ragged_grouped_lora(xt, A, B, scale, rows))
+        return y.reshape(*lead, B.shape[-1])
     if rows is not None:
         x = _apply_row_mask(x, rows)
     return _lora_delta_torch(x, A, B, scale)

@@ -29,12 +29,14 @@
 // to the activation type, dA and dB stay fp32.
 //
 // Structure: these are the rank-local kernels' templates
-// (ranklocal_common.cuh) instantiated with BOUND = false — the same grids,
-// tiles and fp32 summation order with the row and rank tests compiled out —
-// so each output element equals, bit for bit, the rank-local kernel's at
-// ranks = r and rows = T. The executor relies on it: a full-rank slot takes
-// these kernels when every resident slot is at r_max and the rank-local ones
-// when a lower-rank co-tenant joins, and its losses must not move a bit
+// (ranklocal_common.cuh) instantiated with ROWS = RANKS = false — the same
+// grids, tiles and fp32 summation order with the row and rank tests
+// compiled out — so each output element equals, bit for bit, the
+// rank-local kernel's at ranks = r and rows = T, and the ragged kernel's
+// (ragged.cu) at rows = T. The executor relies on it: a full-rank slot takes
+// these kernels when every resident slot is full-width and at r_max, the
+// ragged ones beside a narrower co-tenant and the rank-local ones beside a
+// lower-rank co-tenant, and its losses must not move a bit
 // (docs/ARCHITECTURE.md, "Bitwise loss isolation"). Not re-derived from
 // the Pallas tiling: the TPU kernels carry their fp32 sums across a
 // sequential grid axis, which Hopper blocks do not have.
@@ -45,8 +47,8 @@
 // far below the ~295 the tensor cores need, so the bound is bytes (about
 // 24 MB, ~0.007 ms at din = dout = 2560). These first kernels run on fp32
 // FMA units and re-read the narrow operand from L2 per tile; a redesign for
-// speed has to change the rank-local twin with it, or the bitwise contract
-// above breaks.
+// speed has to change the rank-local and ragged twins with it, or the
+// bitwise contract above breaks.
 
 #include "ranklocal_common.cuh"
 
@@ -55,16 +57,15 @@
 // Each returns cudaGetLastError() after its launch (0 = launched).
 extern "C" int gl_xa(const void* x, const float* A, void* S, int Z, int T,
                      int din, int r, int dtype, void* stream) {
-  GL_DISPATCH_ACT(dtype, launch_xa<Act, false>(x, A, S, nullptr, nullptr, Z,
-                                               T, din, r,
-                                               (cudaStream_t)stream));
+  GL_DISPATCH_ACT(dtype, launch_xa<Act, false, false>(
+      x, A, S, nullptr, nullptr, Z, T, din, r, (cudaStream_t)stream));
 }
 
 extern "C" int gl_sb_add(const void* S, const float* B, const float* scale,
                          const void* ybase, void* Y, int Z, int T, int r,
                          int dout, int dtype, void* stream) {
   if (scale == nullptr) return (int)cudaErrorInvalidValue;
-  GL_DISPATCH_ACT(dtype, launch_sb_add<Act, false>(
+  GL_DISPATCH_ACT(dtype, launch_sb_add<Act, false, false>(
       S, B, scale, 0.f, ybase, Y, nullptr, nullptr, Z, T, r, dout,
       (cudaStream_t)stream));
 }
@@ -72,29 +73,27 @@ extern "C" int gl_sb_add(const void* S, const float* B, const float* scale,
 extern "C" int gl_ds(const void* dy, const float* B, const float* scale,
                      void* dS, int Z, int T, int dout, int r, int dtype,
                      void* stream) {
-  GL_DISPATCH_ACT(dtype, launch_ds<Act, false>(dy, B, scale, dS, nullptr,
-                                               nullptr, Z, T, dout, r,
-                                               (cudaStream_t)stream));
+  GL_DISPATCH_ACT(dtype, launch_ds<Act, false, false>(
+      dy, B, scale, dS, nullptr, nullptr, Z, T, dout, r,
+      (cudaStream_t)stream));
 }
 
 extern "C" int gl_dx(const void* dS, const float* A, void* dX, int Z, int T,
                      int din, int r, int dtype, void* stream) {
-  GL_DISPATCH_ACT(dtype, launch_dx<Act, false>(dS, A, dX, nullptr, nullptr,
-                                               Z, T, din, r,
-                                               (cudaStream_t)stream));
+  GL_DISPATCH_ACT(dtype, launch_dx<Act, false, false>(
+      dS, A, dX, nullptr, nullptr, Z, T, din, r, (cudaStream_t)stream));
 }
 
 extern "C" int gl_da(const void* x, const void* dS, float* dA, int Z, int T,
                      int din, int r, int dtype, void* stream) {
-  GL_DISPATCH_ACT(dtype, launch_da<Act, false>(x, dS, dA, nullptr, nullptr,
-                                               Z, T, din, r,
-                                               (cudaStream_t)stream));
+  GL_DISPATCH_ACT(dtype, launch_da<Act, false, false>(
+      x, dS, dA, nullptr, nullptr, Z, T, din, r, (cudaStream_t)stream));
 }
 
 extern "C" int gl_db(const void* S, const void* dy, const float* scale,
                      float* dB, int Z, int T, int dout, int r, int dtype,
                      void* stream) {
-  GL_DISPATCH_ACT(dtype, launch_db<Act, false>(S, dy, scale, dB, nullptr,
-                                               nullptr, Z, T, dout, r,
-                                               (cudaStream_t)stream));
+  GL_DISPATCH_ACT(dtype, launch_db<Act, false, false>(
+      S, dy, scale, dB, nullptr, nullptr, Z, T, dout, r,
+      (cudaStream_t)stream));
 }

@@ -34,7 +34,7 @@
 // so launch overhead will likely dominate until a later change captures the
 // step in a CUDA graph.
 //
-// Structure (ranklocal_common.cuh, BOUND = true): the TPU grid's
+// Structure (ranklocal_common.cuh, ROWS = RANKS = true): the TPU grid's
 // sequential contraction axis becomes a loop inside the block; each block
 // reads rows[z] and ranks[z] itself; edges are masked in the kernel (no
 // padding to tile multiples). Plain fp32 FMA (no tensor cores): a simple,
@@ -47,8 +47,8 @@
 extern "C" int rl_xa(const void* x, const float* A, void* S, const int* rows,
                      const int* ranks, int Z, int T, int din, int r,
                      int dtype, void* stream) {
-  GL_DISPATCH_ACT(dtype, launch_xa<Act, true>(x, A, S, rows, ranks, Z, T, din,
-                                              r, (cudaStream_t)stream));
+  GL_DISPATCH_ACT(dtype, launch_xa<Act, true, true>(
+      x, A, S, rows, ranks, Z, T, din, r, (cudaStream_t)stream));
 }
 
 // scale may be null (then every slot uses scale_all); ybase may be null
@@ -57,7 +57,7 @@ extern "C" int rl_sb_add(const void* S, const float* B, const float* scale,
                          float scale_all, const void* ybase, void* Y,
                          const int* rows, const int* ranks, int Z, int T,
                          int r, int dout, int dtype, void* stream) {
-  GL_DISPATCH_ACT(dtype, launch_sb_add<Act, true>(
+  GL_DISPATCH_ACT(dtype, launch_sb_add<Act, true, true>(
       S, B, scale, scale_all, ybase, Y, rows, ranks, Z, T, r, dout,
       (cudaStream_t)stream));
 }

@@ -42,7 +42,7 @@
 // inside one block (no atomics, no split across blocks): each slot's
 // results are deterministic and independent of the other slots, which the
 // port's co-located == solo and migrated == never-migrated invariants need.
-// All in ranklocal_common.cuh, instantiated with BOUND = true:
+// All in ranklocal_common.cuh, instantiated with ROWS = RANKS = true:
 //   ds: narrow_out_kernel, as xa: 4 token rows x 16 ranks per block, the
 //       dout contraction split over 256 threads.
 //   dx: rank_sum_kernel with A read transposed, as sb_add: 32 rows x 64
@@ -59,29 +59,27 @@
 extern "C" int rl_ds(const void* dy, const float* B, const float* scale,
                      void* dS, const int* rows, const int* ranks, int Z,
                      int T, int dout, int r, int dtype, void* stream) {
-  GL_DISPATCH_ACT(dtype, launch_ds<Act, true>(dy, B, scale, dS, rows, ranks,
-                                              Z, T, dout, r,
-                                              (cudaStream_t)stream));
+  GL_DISPATCH_ACT(dtype, launch_ds<Act, true, true>(
+      dy, B, scale, dS, rows, ranks, Z, T, dout, r, (cudaStream_t)stream));
 }
 
 extern "C" int rl_dx(const void* dS, const float* A, void* dX,
                      const int* rows, const int* ranks, int Z, int T,
                      int din, int r, int dtype, void* stream) {
-  GL_DISPATCH_ACT(dtype, launch_dx<Act, true>(dS, A, dX, rows, ranks, Z, T,
-                                              din, r, (cudaStream_t)stream));
+  GL_DISPATCH_ACT(dtype, launch_dx<Act, true, true>(
+      dS, A, dX, rows, ranks, Z, T, din, r, (cudaStream_t)stream));
 }
 
 extern "C" int rl_da(const void* x, const void* dS, float* dA,
                      const int* rows, const int* ranks, int Z, int T,
                      int din, int r, int dtype, void* stream) {
-  GL_DISPATCH_ACT(dtype, launch_da<Act, true>(x, dS, dA, rows, ranks, Z, T,
-                                              din, r, (cudaStream_t)stream));
+  GL_DISPATCH_ACT(dtype, launch_da<Act, true, true>(
+      x, dS, dA, rows, ranks, Z, T, din, r, (cudaStream_t)stream));
 }
 
 extern "C" int rl_db(const void* S, const void* dy, const float* scale,
                      float* dB, const int* rows, const int* ranks, int Z,
                      int T, int dout, int r, int dtype, void* stream) {
-  GL_DISPATCH_ACT(dtype, launch_db<Act, true>(S, dy, scale, dB, rows, ranks,
-                                              Z, T, dout, r,
-                                              (cudaStream_t)stream));
+  GL_DISPATCH_ACT(dtype, launch_db<Act, true, true>(
+      S, dy, scale, dB, rows, ranks, Z, T, dout, r, (cudaStream_t)stream));
 }

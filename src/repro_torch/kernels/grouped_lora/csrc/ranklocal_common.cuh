@@ -1,7 +1,8 @@
 // Shared pieces of the grouped-LoRA kernels (sm_90a): type helpers, the
 // three kernel templates and their launchers, instantiated by the
 // rank-local forward pair (ranklocal.cu), the rank-local backward set
-// (ranklocal_bwd.cu) and the dense set (grouped_lora.cu).
+// (ranklocal_bwd.cu), the ragged set (ragged.cu) and the dense set
+// (grouped_lora.cu).
 //
 //   narrow_out_kernel  — a long contraction into a narrow rank-wide output:
 //                        S  = X  @ A   (xa, contraction over din)
@@ -15,16 +16,23 @@
 //                        dA = X^T @ dS       (da)
 //                        dB = scale * S^T dY (db)
 //
-// BOUND = true (the rank-local kernels): each block reads rows[z] and
-// ranks[z], skips dead rank and row tiles and masks the boundary tile on
-// load. BOUND = false (the dense kernels): no per-slot counts exist; every
-// row and rank is live and the tests are compiled out. Both instantiations
-// run one grid, one tiling and one fp32 summation order per output element,
-// so a dense kernel equals its rank-local twin called with ranks = r_max
-// and rows = T bit for bit — what the executor's co-located == solo
-// contract needs, since a full-rank slot takes the dense kernels alone and
-// the rank-local ones beside a lower-rank co-tenant. A speed change to one
-// instantiation is a change to both.
+// Two compile-time flags say which per-slot counts exist. ROWS: each block
+// reads rows[z], skips dead row tiles and masks the boundary row tile on
+// load. RANKS: each block reads ranks[z], skips dead rank tiles and masks
+// the boundary rank tile. Three instantiations:
+//   rank-local <ROWS = true,  RANKS = true>   (ranklocal*.cu)
+//   ragged     <ROWS = true,  RANKS = false>  (ragged.cu)
+//   dense      <ROWS = false, RANKS = false>  (grouped_lora.cu)
+// A flag that is false compiles its tests out: every row (rank) is live.
+// All three run one grid, one tiling and one fp32 summation order per
+// output element, so at full rank and every row live they agree bit for
+// bit: dense == ragged at rows = T == rank-local at ranks = r_max, and
+// ragged == rank-local at ranks = r_max for any rows. The executor needs
+// it: a full-rank slot takes the dense kernels when its co-tenants are
+// full-width and full-rank, the ragged ones beside a narrower co-tenant and
+// the rank-local ones beside a lower-rank co-tenant, and its losses must
+// not move a bit. A speed change to one instantiation is a change to all
+// three.
 //
 // Every kernel rounds the fp32 adapter masters to the activation type in
 // registers and sums in fp32 in a fixed order inside one block (no
@@ -59,10 +67,10 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
 }
 
 // live extent of slot z on an axis of extent hi: v[z] clamped to [0, hi]
-// (v null: hi); without BOUND the whole extent, read from nowhere
-template <bool BOUND>
+// (v null: hi); without COUNTED the whole extent, read from nowhere
+template <bool COUNTED>
 __device__ __forceinline__ int live_count(const int* v, int z, int hi) {
-  if (!BOUND || v == nullptr) return hi;
+  if (!COUNTED || v == nullptr) return hi;
   int c = v[z];
   return c < 0 ? 0 : (c > hi ? hi : c);
 }
@@ -88,7 +96,7 @@ bool grid_ok(int gx, int gy, int gz) {
 constexpr int NO_BM = 4, NO_BR = 16, NO_THREADS = 256;
 constexpr int NO_WARPS = NO_THREADS / 32;
 
-template <typename T, bool BOUND>
+template <typename T, bool ROWS, bool RANKS>
 __global__ void __launch_bounds__(NO_THREADS)
 narrow_out_kernel(const T* __restrict__ X, const float* __restrict__ W,
                   int sk, int sj, const float* __restrict__ scale,
@@ -99,8 +107,8 @@ narrow_out_kernel(const T* __restrict__ X, const float* __restrict__ W,
   const int m0 = blockIdx.y * NO_BM;
   const int j0 = blockIdx.x * NO_BR;
   const int tid = threadIdx.x;
-  const int nrow = min(NO_BM, live_count<BOUND>(rows, z, T_) - m0);  // live rows
-  const int ncol = min(NO_BR, live_count<BOUND>(ranks, z, r) - j0);  // live ranks
+  const int nrow = min(NO_BM, live_count<ROWS>(rows, z, T_) - m0);  // rows
+  const int ncol = min(NO_BR, live_count<RANKS>(ranks, z, r) - j0);  // ranks
 
   const T* xz = X + ((size_t)z * T_ + m0) * K;
   const float* wz = W + (size_t)z * K * r + (size_t)j0 * sj;
@@ -164,7 +172,7 @@ narrow_out_kernel(const T* __restrict__ X, const float* __restrict__ W,
 // ---------------------------------------------------------------------------
 constexpr int RS_BM = 32, RS_BN = 64, RS_BR = 16, RS_THREADS = 128;
 
-template <typename T, bool W_T, bool BOUND>
+template <typename T, bool W_T, bool ROWS, bool RANKS>
 __global__ void __launch_bounds__(RS_THREADS)
 rank_sum_kernel(const T* __restrict__ S, const float* __restrict__ W,
                 const float* __restrict__ scale, float scale_all,
@@ -177,8 +185,8 @@ rank_sum_kernel(const T* __restrict__ S, const float* __restrict__ W,
   const int m0 = blockIdx.y * RS_BM;
   const int n0 = blockIdx.x * RS_BN;
   const int tid = threadIdx.x;
-  const int vrows = live_count<BOUND>(rows, z, T_);
-  const int vr = live_count<BOUND>(ranks, z, r);
+  const int vrows = live_count<ROWS>(rows, z, T_);
+  const int vr = live_count<RANKS>(ranks, z, r);
   const int cn = tid % 16;
   const int rg = (tid / 16) * 4;
 
@@ -254,7 +262,7 @@ rank_sum_kernel(const T* __restrict__ S, const float* __restrict__ W,
 // ---------------------------------------------------------------------------
 constexpr int TN_BT = 32, TN_THREADS = 128;
 
-template <typename T, int BA, int BB, bool RANK_A, bool BOUND>
+template <typename T, int BA, int BB, bool RANK_A, bool ROWS, bool RANKS>
 __global__ void __launch_bounds__(TN_THREADS)
 tn_kernel(const T* __restrict__ P, const T* __restrict__ Q,
           const float* __restrict__ scale, float* __restrict__ OUT,
@@ -269,8 +277,8 @@ tn_kernel(const T* __restrict__ P, const T* __restrict__ Q,
   const int b0 = blockIdx.x * BB;
   const int tid = threadIdx.x;
   const int ia = tid / TB, ib = tid % TB;
-  const int vrows = live_count<BOUND>(rows, z, T_);
-  const int vr = live_count<BOUND>(ranks, z, r);
+  const int vrows = live_count<ROWS>(rows, z, T_);
+  const int vr = live_count<RANKS>(ranks, z, r);
   const int va = RANK_A ? min(vr, NA) : NA;    // live extent of each axis
   const int vb = RANK_A ? NB : min(vr, NB);
 
@@ -329,25 +337,25 @@ tn_kernel(const T* __restrict__ P, const T* __restrict__ Q,
 }
 
 // ---------------------------------------------------------------------------
-// Launchers: one grid per function, shared by both instantiations. Act is
-// the activation type of every non-master operand. rows/ranks are read only
-// when BOUND (null rows: every row live). Each returns cudaGetLastError()
-// after its launch (0 = launched).
+// Launchers: one grid per function, shared by all three instantiations.
+// Act is the activation type of every non-master operand. rows is read only
+// when ROWS (null rows: every row live), ranks only when RANKS. Each
+// returns cudaGetLastError() after its launch (0 = launched).
 // ---------------------------------------------------------------------------
 
-template <typename Act, bool BOUND>
+template <typename Act, bool ROWS, bool RANKS>
 int launch_xa(const void* x, const float* A, void* S, const int* rows,
               const int* ranks, int Z, int T, int din, int r,
               cudaStream_t st) {
   dim3 grid(cdiv(r, NO_BR), cdiv(T, NO_BM), Z);
   if (!grid_ok(grid.x, grid.y, grid.z) || din < 1)
     return (int)cudaErrorInvalidValue;
-  narrow_out_kernel<Act, BOUND><<<grid, NO_THREADS, 0, st>>>(
+  narrow_out_kernel<Act, ROWS, RANKS><<<grid, NO_THREADS, 0, st>>>(
       (const Act*)x, A, r, 1, nullptr, (Act*)S, rows, ranks, T, din, r);
   return (int)cudaGetLastError();
 }
 
-template <typename Act, bool BOUND>
+template <typename Act, bool ROWS, bool RANKS>
 int launch_sb_add(const void* S, const float* B, const float* scale,
                   float scale_all, const void* ybase, void* Y,
                   const int* rows, const int* ranks, int Z, int T, int r,
@@ -355,38 +363,38 @@ int launch_sb_add(const void* S, const float* B, const float* scale,
   dim3 grid(cdiv(dout, RS_BN), cdiv(T, RS_BM), Z);
   if (!grid_ok(grid.x, grid.y, grid.z) || r < 1)
     return (int)cudaErrorInvalidValue;
-  rank_sum_kernel<Act, false, BOUND><<<grid, RS_THREADS, 0, st>>>(
+  rank_sum_kernel<Act, false, ROWS, RANKS><<<grid, RS_THREADS, 0, st>>>(
       (const Act*)S, B, scale, scale_all, (const Act*)ybase, (Act*)Y, rows,
       ranks, T, r, dout);
   return (int)cudaGetLastError();
 }
 
-template <typename Act, bool BOUND>
+template <typename Act, bool ROWS, bool RANKS>
 int launch_ds(const void* dy, const float* B, const float* scale, void* dS,
               const int* rows, const int* ranks, int Z, int T, int dout,
               int r, cudaStream_t st) {
   dim3 grid(cdiv(r, NO_BR), cdiv(T, NO_BM), Z);
   if (!grid_ok(grid.x, grid.y, grid.z) || dout < 1 || scale == nullptr)
     return (int)cudaErrorInvalidValue;
-  narrow_out_kernel<Act, BOUND><<<grid, NO_THREADS, 0, st>>>(
+  narrow_out_kernel<Act, ROWS, RANKS><<<grid, NO_THREADS, 0, st>>>(
       (const Act*)dy, B, 1, dout, scale, (Act*)dS, rows, ranks, T, dout, r);
   return (int)cudaGetLastError();
 }
 
-template <typename Act, bool BOUND>
+template <typename Act, bool ROWS, bool RANKS>
 int launch_dx(const void* dS, const float* A, void* dX, const int* rows,
               const int* ranks, int Z, int T, int din, int r,
               cudaStream_t st) {
   dim3 grid(cdiv(din, RS_BN), cdiv(T, RS_BM), Z);
   if (!grid_ok(grid.x, grid.y, grid.z) || r < 1)
     return (int)cudaErrorInvalidValue;
-  rank_sum_kernel<Act, true, BOUND><<<grid, RS_THREADS, 0, st>>>(
+  rank_sum_kernel<Act, true, ROWS, RANKS><<<grid, RS_THREADS, 0, st>>>(
       (const Act*)dS, A, nullptr, 1.f, nullptr, (Act*)dX, rows, ranks, T, r,
       din);
   return (int)cudaGetLastError();
 }
 
-template <typename Act, bool BOUND>
+template <typename Act, bool ROWS, bool RANKS>
 int launch_da(const void* x, const void* dS, float* dA, const int* rows,
               const int* ranks, int Z, int T, int din, int r,
               cudaStream_t st) {
@@ -394,12 +402,12 @@ int launch_da(const void* x, const void* dS, float* dA, const int* rows,
   dim3 grid(cdiv(r, BB), cdiv(din, BA), Z);
   if (!grid_ok(grid.x, grid.y, grid.z) || T < 1)
     return (int)cudaErrorInvalidValue;
-  tn_kernel<Act, BA, BB, false, BOUND><<<grid, TN_THREADS, 0, st>>>(
+  tn_kernel<Act, BA, BB, false, ROWS, RANKS><<<grid, TN_THREADS, 0, st>>>(
       (const Act*)x, (const Act*)dS, nullptr, dA, rows, ranks, T, din, r, r);
   return (int)cudaGetLastError();
 }
 
-template <typename Act, bool BOUND>
+template <typename Act, bool ROWS, bool RANKS>
 int launch_db(const void* S, const void* dy, const float* scale, float* dB,
               const int* rows, const int* ranks, int Z, int T, int dout,
               int r, cudaStream_t st) {
@@ -407,7 +415,7 @@ int launch_db(const void* S, const void* dy, const float* scale, float* dB,
   dim3 grid(cdiv(dout, BB), cdiv(r, BA), Z);
   if (!grid_ok(grid.x, grid.y, grid.z) || T < 1 || scale == nullptr)
     return (int)cudaErrorInvalidValue;
-  tn_kernel<Act, BA, BB, true, BOUND><<<grid, TN_THREADS, 0, st>>>(
+  tn_kernel<Act, BA, BB, true, ROWS, RANKS><<<grid, TN_THREADS, 0, st>>>(
       (const Act*)S, (const Act*)dy, scale, dB, rows, ranks, T, r, dout, r);
   return (int)cudaGetLastError();
 }

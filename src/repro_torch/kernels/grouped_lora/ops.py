@@ -1,18 +1,22 @@
-"""Differentiable grouped LoRA over the CUDA kernels: dense and rank-local.
+"""Differentiable grouped LoRA over the CUDA kernels: dense, ragged and
+rank-local.
 
 ``grouped_lora(x, A, B, scale, y_base=None)`` == scale*(x@A)@B (+ y_base),
-every slot at full rank; ``ranklocal_grouped_lora(x, A, B, scale, ranks,
-rows=None, y_base=None)`` the same with slot z confined to its first
-ranks[z] rank columns of A / rows of B (and its first rows[z] token rows).
+every slot at full rank; ``ragged_grouped_lora(x, A, B, scale, rows,
+y_base=None)`` the same with slot z confined to its first rows[z] token
+rows (dead rows: zero delta, y_base passed through, zero gradients);
+``ranklocal_grouped_lora(x, A, B, scale, ranks, rows=None, y_base=None)``
+the same with slot z also confined to its first ranks[z] rank columns of
+A / rows of B.
 
 Each is a ``torch.autograd.Function``, the counterpart of the JAX package's
 custom VJPs (``src/repro/kernels/grouped_lora/ops.py:112-170`` dense,
-``:303-347`` rank-local): the forward runs ``xa`` then ``sb_add`` and
-caches S in x's dtype (paper §6.1, "the forward caches intermediate S");
-the backward rounds dy to x's dtype and runs ``ds``, then ``dx``, ``da``
-and ``db``. ``scale``, ``ranks`` and ``rows`` get no gradient; ``y_base``
-gets dy. On CPU tensors each wrapper takes its plain version, so the
-Functions compute the same functions there.
+``:174-270`` ragged, ``:303-347`` rank-local): the forward runs ``xa``
+then ``sb_add`` and caches S in x's dtype (paper §6.1, "the forward caches
+intermediate S"); the backward rounds dy to x's dtype and runs ``ds``,
+then ``dx``, ``da`` and ``db``. ``scale``, ``ranks`` and ``rows`` get no
+gradient; ``y_base`` gets dy. On CPU tensors each wrapper takes its plain
+version, so the Functions compute the same functions there.
 
 ``dx`` runs only when x needs a gradient: in a training step that is every
 LoRA projection except those reading the embedding output directly (the
@@ -23,11 +27,13 @@ edges), and so is its ``_concrete_min`` dispatch of concrete full-rank
 ``ranks`` to the dense kernels: here the ranks would be a tensor on the
 card, and reading them back to the host in every call would cost one sync
 per projection (224 per step), while the jitted JAX steps, whose ranks are
-traced, never take it. The choice between the two Functions is made once
-per step on the host, by the executor's ``SlotManager.mixed_rank``, as in
-the JAX package: bound ranks take the rank-local Function, no binding the
-dense one. The two give bitwise one result at full rank, so the choice
-never moves a loss.
+traced, never take it. The choice between the three Functions is made once
+per step on the host, by the executor (``SlotManager.mixed_rank`` binds
+ranks, ``_assemble`` rows), as in the JAX package: bound ranks take the
+rank-local Function, bound rows alone the ragged one, no binding the dense
+one. The three give bitwise one
+result where they meet (full rank; rows = T), so the choice never moves a
+loss.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.grouped_lora import grouped_lora as GL
+from repro_torch.kernels.grouped_lora import ragged as RG
 from repro_torch.kernels.grouped_lora import ranklocal as RL
 
 
@@ -83,6 +90,46 @@ def grouped_lora(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     [Z,T,dout] in x's dtype, differentiable in x, A, B and y_base."""
     return _GroupedLoRA.apply(x.contiguous(), A.contiguous(), B.contiguous(),
                               _scale_tensor(scale, x), y_base)
+
+
+class _RaggedLoRA(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, A, B, scale, rows, y_base):
+        s = RG.xa(x, A, rows)
+        y = RG.sb_add(s, B, scale, rows, y_base)
+        ctx.save_for_backward(x, A, B, scale, rows, s)
+        ctx.has_base = y_base is not None
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, A, B, scale, rows, s = ctx.saved_tensors
+        need_x, need_a, need_b = ctx.needs_input_grad[:3]
+        dy = dy.to(x.dtype).contiguous()
+        dx = da = db = None
+        if need_x or need_a:
+            ds = RG.ds(dy, B, scale, rows)
+            if need_x:
+                dx = RG.dx(ds, A, rows)
+            if need_a:
+                da = RG.da(x, ds, rows)
+        if need_b:
+            db = RG.db(s, dy, scale, rows)
+        return dx, da, db, None, None, (dy if ctx.has_base else None)
+
+
+def ragged_grouped_lora(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                        scale: torch.Tensor | float, rows: torch.Tensor,
+                        y_base: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """x: [Z,T,din]; A: [Z,din,r] and B: [Z,r,dout] fp32 masters (rounded
+    to x's dtype inside the kernels); scale: float or [Z] fp32; rows: [Z]
+    int32. Returns [Z,T,dout] in x's dtype, differentiable in x, A, B and
+    y_base; rows >= rows[z] of slot z get a zero delta and zero
+    gradients."""
+    return _RaggedLoRA.apply(x.contiguous(), A.contiguous(), B.contiguous(),
+                             _scale_tensor(scale, x), rows, y_base)
 
 
 class _RankLocalLoRA(torch.autograd.Function):

@@ -15,7 +15,8 @@ Port of ``src/repro/kernels/grouped_lora/ranklocal.py``'s six kernels:
 The kernels are CUDA C++ for ``sm_90a`` in ``csrc/ranklocal.cu`` (forward)
 and ``csrc/ranklocal_bwd.cu`` (backward), compiled by ``nvcc`` — one
 process per source, started together — and linked, with the dense kernels
-of ``csrc/grouped_lora.cu`` (wrapped in ``grouped_lora.py``), into one
+of ``csrc/grouped_lora.cu`` (wrapped in ``grouped_lora.py``) and the
+ragged ones of ``csrc/ragged.cu`` (wrapped in ``ragged.py``), into one
 shared library with a plain C interface under ``build/`` beside this file
 at first use, and called through ``ctypes``. A wrapper takes its plain
 PyTorch version (``ref.py``) only for tensors on the CPU; for CUDA tensors
@@ -38,9 +39,10 @@ import torch
 from repro_torch.kernels.grouped_lora import ref
 
 _HERE = Path(__file__).resolve().parent
-# the dense kernels (grouped_lora.py) share this library and its build
+# the dense (grouped_lora.py) and ragged (ragged.py) kernels share this
+# library and its build
 SOURCES = tuple(_HERE / "csrc" / name for name in (
-    "ranklocal.cu", "ranklocal_bwd.cu", "grouped_lora.cu"))
+    "ranklocal.cu", "ranklocal_bwd.cu", "grouped_lora.cu", "ragged.cu"))
 HEADERS = (_HERE / "csrc" / "ranklocal_common.cuh",)
 BUILD_DIR = _HERE / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -125,6 +127,12 @@ _SIGNATURES = {
     "gl_dx": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gl_da": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gl_db": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rg_xa": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rg_sb_add": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rg_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rg_dx": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rg_da": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rg_db": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the grouped-LoRA kernels: the dense set
-(every slot at full rank, every token row live) and the rank-local set.
+(every slot at full rank, every token row live), the ragged set (full rank,
+per-slot token rows) and the rank-local set (per-slot ranks and rows).
 
 Shapes (slot-stacked, paper §A.1 rank-only padding):
     x:      [Z, T, d_in]      (bf16 on the serving path, fp32 in tests)
@@ -20,13 +21,15 @@ dS = fp32 acc * scale[z] and dX rounded to x's dtype, dA and dB (= fp32 acc
 * scale[z]) kept in fp32. Entries past ``ranks[z]`` (rank) or ``rows[z]``
 (token row) contribute nothing even when they hold garbage, and the S, dS,
 dA and dB entries there are exactly zero. The dense versions are the same
-arithmetic with nothing masked, and each rank-local version is its dense
-one on operands whose dead rows and rank columns are zeroed: at ranks = r
-and rows = None (or T) nothing is zeroed, so the two agree bit for bit,
-as the CUDA kernels do on the card.
-The CUDA wrappers in ``grouped_lora.py`` and ``ranklocal.py`` call these
-for CPU tensors, and the tests and ``chip_smoke.py`` hold the kernels
-against them.
+arithmetic with nothing masked; each ragged version is its dense one on
+operands whose dead token rows are zeroed, and each rank-local version
+its dense one on operands whose dead rows and rank columns are zeroed. At
+rows = T nothing is zeroed, so ragged == dense bit for bit; at ranks = r
+the rank masks zero nothing, so rank-local == ragged with the same rows
+(== dense at rows = None or T) bit for bit, as the CUDA kernels agree on
+the card. The CUDA wrappers in ``grouped_lora.py``, ``ragged.py`` and
+``ranklocal.py`` call these for CPU tensors, and the tests and
+``chip_smoke.py`` hold the kernels against them.
 """
 from __future__ import annotations
 
@@ -106,16 +109,76 @@ def grouped_db_ref(s: torch.Tensor, dy: torch.Tensor,
     return _scaled(torch.bmm(s.float().transpose(1, 2), dy.float()), scale)
 
 
-# ---------------------------------------------------------------------------
-# rank-local: ranklocal.py's kernels
-# ---------------------------------------------------------------------------
-
 def _live(keep: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """``t`` where ``keep`` holds, exactly 0 elsewhere (garbage, NaN
     included, never reaches a product)."""
     return torch.where(keep, t, torch.zeros((), dtype=t.dtype,
                                             device=t.device))
 
+
+# ---------------------------------------------------------------------------
+# ragged: ragged.py's kernels (full rank, per-slot token rows)
+# ---------------------------------------------------------------------------
+
+def _live_rows(t: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """[Z, T, d] ``t`` with token rows >= rows[z] exactly 0."""
+    Z, T = t.shape[:2]
+    return _live(_keep_rows(Z, T, rows, t.device)[:, :, None], t)
+
+
+def ragged_xa_ref(x: torch.Tensor, A: torch.Tensor,
+                  rows: torch.Tensor) -> torch.Tensor:
+    """S = X @ A over rows < rows[z]; S rows past rows[z] are exactly 0.
+    Returns [Z, T, r] in x's dtype."""
+    return grouped_xa_ref(_live_rows(x, rows), A)
+
+
+def ragged_sb_add_ref(s: torch.Tensor, B: torch.Tensor,
+                      scale: torch.Tensor | float, rows: torch.Tensor,
+                      y_base: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Y = (S @ B) * scale[z] (+ y_base) over rows < rows[z]; dead rows
+    give a zero delta (0, or the base passed through). Returns
+    [Z, T, d_out] in s's dtype."""
+    return grouped_sb_add_ref(_live_rows(s, rows), B, scale, y_base)
+
+
+def ragged_lora_ref(x, A, B, scale, rows, y_base=None) -> torch.Tensor:
+    """Ragged oracle: both forward kernels' plain versions composed."""
+    return ragged_sb_add_ref(ragged_xa_ref(x, A, rows), B, scale, rows,
+                             y_base)
+
+
+def ragged_ds_ref(dy: torch.Tensor, B: torch.Tensor, scale,
+                  rows: torch.Tensor) -> torch.Tensor:
+    """dS = scale[z] * dY @ B^T with dY rows >= rows[z] zeroed. Returns
+    [Z, T, r] in dy's dtype."""
+    return grouped_ds_ref(_live_rows(dy, rows), B, scale)
+
+
+def ragged_dx_ref(ds: torch.Tensor, A: torch.Tensor,
+                  rows: torch.Tensor) -> torch.Tensor:
+    """dX = dS @ A^T with dS rows >= rows[z] zeroed. Returns [Z, T, d_in]
+    in ds's dtype."""
+    return grouped_dx_ref(_live_rows(ds, rows), A)
+
+
+def ragged_da_ref(x: torch.Tensor, ds: torch.Tensor,
+                  rows: torch.Tensor) -> torch.Tensor:
+    """dA = X^T @ dS over rows < rows[z]. Returns [Z, d_in, r] fp32."""
+    return grouped_da_ref(_live_rows(x, rows), _live_rows(ds, rows))
+
+
+def ragged_db_ref(s: torch.Tensor, dy: torch.Tensor, scale,
+                  rows: torch.Tensor) -> torch.Tensor:
+    """dB = scale[z] * S^T @ dY over rows < rows[z]. Returns [Z, r, d_out]
+    fp32."""
+    return grouped_db_ref(_live_rows(s, rows), _live_rows(dy, rows), scale)
+
+
+# ---------------------------------------------------------------------------
+# rank-local: ranklocal.py's kernels
+# ---------------------------------------------------------------------------
 
 def ranklocal_xa_ref(x: torch.Tensor, A: torch.Tensor,
                      rows: Optional[torch.Tensor],

@@ -1,8 +1,10 @@
-"""PyTorch port on the card: the grouped-LoRA CUDA kernels (rank-local and
-dense, forward and backward) against their plain PyTorch versions, the
-dense kernels bitwise equal to the rank-local ones at full rank, the
-autograd Functions' backward against autograd through the plain versions,
-and ``lora_delta`` refusing the unported ragged path on the card.
+"""PyTorch port on the card: the grouped-LoRA CUDA kernels (rank-local,
+dense and ragged, forward and backward) against their plain PyTorch
+versions, the dense kernels bitwise equal to the rank-local ones at full
+rank, the ragged kernels bitwise equal to the dense ones at rows = T and to
+the rank-local ones at full rank for any rows, the autograd Functions'
+backward against autograd through the plain versions, and ``lora_delta``
+under ``ragged_rows`` alone launching the ragged kernels.
 
 Imports neither JAX nor the JAX package, so it runs on a machine with a
 card and no JAX: ``PYTHONPATH=src python -m pytest -q --noconftest
@@ -16,6 +18,7 @@ import torch
 from repro_torch.core import lora as LORA
 from repro_torch.kernels.grouped_lora import grouped_lora as GL
 from repro_torch.kernels.grouped_lora import ops
+from repro_torch.kernels.grouped_lora import ragged as RG
 from repro_torch.kernels.grouped_lora import ranklocal as RL
 from repro_torch.kernels.grouped_lora import ref
 
@@ -239,20 +242,139 @@ def test_cuda_dense_function_backward_matches_torch_autograd():
             atol=1e-5 * float(want.detach().abs().max()))
 
 
+# (Z, T, din, dout, r, rows): a boundary inside a 4-row and a 32-row tile,
+# an empty slot, rows = T; the stablelm-3b MLP shapes at the executor's
+# b = 4 / b = 2 mix (in units of 16-token sequences)
+RAGGED_CASES = [(4, 37, 40, 24, 16, [37, 13, 0, 30]),
+                (2, 7, 33, 17, 8, [7, 7]),
+                (4, 64, 2560, 6912, 64, [64, 32, 64, 32]),
+                (4, 64, 6912, 2560, 64, [64, 30, 0, 64])]
+
+
 @pytest.mark.cuda
-def test_cuda_lora_delta_refuses_the_unported_ragged_path():
-    """``ragged_rows`` bound without ``slot_ranks`` on a CUDA tensor raises
-    (its ragged kernels are not ported) under the kernel backend; with
+@pytest.mark.parametrize("case", RAGGED_CASES)
+def test_cuda_ragged_kernels_match_plain_and_twins_bitwise(case):
+    """The six ragged kernels launch once each, agree with their plain
+    versions (the rank-local tests' bars; exact zeros past rows[z], the
+    base passed through on dead rows), equal the rank-local kernels at
+    ranks = r with the same rows bit for bit, and the dense kernels at
+    rows = T bit for bit, in fp32 and bf16."""
+    _need_card()
+    Z, T, din, dout, r, rows_l = case
+    full = torch.full((Z,), r, dtype=torch.int32, device="cuda")
+    all_rows = torch.full((Z,), T, dtype=torch.int32, device="cuda")
+    for dt, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -7)):
+        x, dy, A, B, scale, _, rows, _ = _bwd_inputs(
+            (Z, T, din, dout, r, [r] * Z, rows_l), dt)
+        base = torch.randn_like(dy)
+
+        def run(mod, rw, *extra):
+            s = mod.xa(x, A, rw, *extra)
+            dS = mod.ds(dy, B, scale, rw, *extra)
+            return {"xa": s,
+                    "sb_add": mod.sb_add(s, B, scale, rw, *extra),
+                    "sb_add+base": mod.sb_add(s, B, scale, rw, *extra,
+                                              y_base=base),
+                    "ds": dS, "dx": mod.dx(dS, A, rw, *extra),
+                    "da": mod.da(x, dS, rw, *extra),
+                    "db": mod.db(s, dy, scale, rw, *extra)}
+
+        RG.reset_launches()
+        RL.reset_launches()
+        GL.reset_launches()
+        got = run(RG, rows)
+        torch.cuda.synchronize()
+        assert RG.LAUNCHES == {"xa": 1, "sb_add": 2, "ds": 1, "dx": 1,
+                               "da": 1, "db": 1}
+        assert set(RL.LAUNCHES.values()) == set(GL.LAUNCHES.values()) == {0}
+        twin = run(RL, rows, full)
+        s, dS = got["xa"], got["ds"]
+        plain = {"xa": ref.ragged_xa_ref(x, A, rows),
+                 "sb_add": ref.ragged_sb_add_ref(s, B, scale, rows),
+                 "sb_add+base": ref.ragged_sb_add_ref(s, B, scale, rows,
+                                                      base),
+                 "ds": ref.ragged_ds_ref(dy, B, scale, rows),
+                 "dx": ref.ragged_dx_ref(dS, A, rows),
+                 "da": ref.ragged_da_ref(x, dS, rows),
+                 "db": ref.ragged_db_ref(s, dy, scale, rows)}
+        for name, out in got.items():
+            assert torch.equal(out, twin[name]), f"{name} {dt} vs rank-local"
+            w = plain[name].float()
+            fp32_out = name in ("da", "db")
+            bar = 1e-4 if (fp32_out and dt == torch.bfloat16) else rtol
+            atol = (1e-5 if dt == torch.float32 else 1e-3) * float(
+                w.abs().max())
+            torch.testing.assert_close(out.float(), w, rtol=bar, atol=atol,
+                                       msg=f"{name} {dt}")
+        for z, nr in enumerate(rows_l):
+            for name in ("xa", "sb_add", "ds", "dx"):
+                assert torch.all(got[name][z, nr:] == 0), name
+            assert torch.equal(got["sb_add+base"][z, nr:], base[z, nr:])
+        # at rows = T the dense kernels, bit for bit
+        at_t = run(RG, all_rows)
+        dense = {"xa": GL.xa(x, A), "sb_add": GL.sb_add(s, B, scale),
+                 "sb_add+base": GL.sb_add(s, B, scale, base),
+                 "ds": GL.ds(dy, B, scale), "dx": GL.dx(dS, A),
+                 "da": GL.da(x, dS), "db": GL.db(s, dy, scale)}
+        for name in ("xa", "ds"):
+            assert torch.equal(at_t[name], dense[name]), f"{name} {dt} T"
+        # sb_add, dx, da and db read S or dS, which depend on rows: hold
+        # them on the same S and dS
+        for name, out in (("sb_add", RG.sb_add(s, B, scale, all_rows)),
+                          ("sb_add+base", RG.sb_add(s, B, scale, all_rows,
+                                                    base)),
+                          ("dx", RG.dx(dS, A, all_rows)),
+                          ("da", RG.da(x, dS, all_rows)),
+                          ("db", RG.db(s, dy, scale, all_rows))):
+            assert torch.equal(out, dense[name]), f"{name} {dt} T"
+
+
+@pytest.mark.cuda
+def test_cuda_ragged_function_backward_matches_torch_autograd():
+    """One ``ops.ragged_grouped_lora`` forward + backward through the
+    ragged kernels against autograd through ``ragged_lora_ref``, in fp32
+    (1e-5 relative: sum order only)."""
+    _need_card()
+    Z, T, din, dout, r, rows_l = RAGGED_CASES[0]
+    x, dy, A, B, scale, _, rows, _ = _bwd_inputs(
+        (Z, T, din, dout, r, [r] * Z, rows_l), torch.float32, seed=1)
+    base = torch.randn_like(dy)
+    outs = []
+    for fn in (ops.ragged_grouped_lora, ref.ragged_lora_ref):
+        leaves = [t.clone().requires_grad_(True) for t in (x, A, B, base)]
+        y = fn(leaves[0], leaves[1], leaves[2], scale, rows, leaves[3])
+        outs.append([y] + list(torch.autograd.grad(y, leaves, dy)))
+    for got, want in zip(*outs):
+        torch.testing.assert_close(
+            got.detach(), want.detach(), rtol=1e-5,
+            atol=1e-5 * float(want.detach().abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_lora_delta_ragged_rows_alone_launches_the_ragged_kernels():
+    """``ragged_rows`` bound without ``slot_ranks`` on a CUDA tensor takes
+    the ragged kernels under the kernel backend (and no other set), and
+    agrees with the ``"torch"`` backend's row-masked plain math; with
     nothing bound the dense kernels run."""
     _need_card()
-    x = torch.randn(2, 1, 8, 16, device="cuda")
-    A = torch.randn(2, 16, 8, device="cuda")
-    B = torch.randn(2, 8, 12, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(2, 1, 8, 16, device="cuda", generator=gen)
+    A = torch.randn(2, 16, 8, device="cuda", generator=gen)
+    B = torch.randn(2, 8, 12, device="cuda", generator=gen)
     rows = torch.tensor([8, 4], dtype=torch.int32, device="cuda")
-    with LORA.ragged_rows(rows), pytest.raises(NotImplementedError,
-                                               match="ROADMAP"):
-        LORA.lora_delta(x, A, B, 2.0)
+    RG.reset_launches()
+    RL.reset_launches()
     GL.reset_launches()
+    with LORA.ragged_rows(rows):
+        y = LORA.lora_delta(x, A, B, 2.0)
+        with LORA.backend("torch"):
+            want = LORA.lora_delta(x, A, B, 2.0)
+    torch.cuda.synchronize()
+    assert RG.LAUNCHES["xa"] == RG.LAUNCHES["sb_add"] == 1
+    assert set(RL.LAUNCHES.values()) == set(GL.LAUNCHES.values()) == {0}
+    torch.testing.assert_close(y, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    assert torch.all(y[1, 0, 4:] == 0)
     LORA.lora_delta(x, A, B, 2.0)
     torch.cuda.synchronize()
     assert GL.LAUNCHES["xa"] == GL.LAUNCHES["sb_add"] == 1

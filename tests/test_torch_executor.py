@@ -5,18 +5,23 @@
     on identical inputs.
 (b) ``SlotSnapshot`` round trip is bit-exact, across slots, managers and
     the bridge (a port snapshot restores into the JAX ``SlotManager``).
-(c) Co-located == solo loss histories, bitwise, inside the port.
+(c) Co-located == solo loss histories, bitwise, inside the port, for tasks
+    of different ranks, per-adapter batch sizes and sequence lengths (the
+    JAX package's tests/test_lora_isolation.py contracts).
 (d) ``suspend``/``resume`` onto a second executor == never moved, bitwise.
 (e) A rank-sweep and a full-rank learning-rate sweep through
     ``BatchedExecutor.run_task`` go warmup -> selection -> continue and
-    return a ``TaskResult``.
+    return a ``TaskResult``; three full-rank tasks of different widths
+    share one executor through ``run_colocated``, the third admitted only
+    when a running task frees its slots.
 
 (c) and (d) hold for low-rank tasks, whose steps take the rank-local path
 (per-slot sums that do not depend on the co-tenants), and for full-rank
-tasks, which take the dense path alone or beside other full-rank tasks and
-the rank-local path beside a lower-rank one: the two give bitwise one
-result at full rank. Everything runs on the CPU (``device="cpu"``) at a
-reduced float32 size.
+tasks, which take the dense path alone or beside full-width full-rank
+tasks, the ragged path beside a narrower full-rank one and the rank-local
+path beside a lower-rank one: the three give bitwise one result at full
+rank. Everything runs on the CPU (``device="cpu"``) at a reduced float32
+size.
 """
 import dataclasses
 
@@ -45,6 +50,7 @@ from repro_torch.models import model as TM
 from repro_torch.sched import intra_task as TIT
 from repro_torch.sched.events import EventKind
 from tests.conftest import reduced_f32
+from tests.test_torch_grouped_lora import _one_torch_thread  # noqa: F401
 from tests.test_torch_grouped_lora import _spy
 
 
@@ -213,9 +219,10 @@ def test_slot_snapshot_round_trip_is_bit_exact(env):
 # (c) co-located == solo, (d) migrated == never migrated
 # ---------------------------------------------------------------------------
 
-def _lifecycle(ex, name, ds, seed, ranks, total_steps=8):
+def _lifecycle(ex, name, ds, seed, ranks, total_steps=8, width=None):
+    kw = {} if width is None else {"per_adapter_batch": width}
     jobs = {f"{name}/j{i}": TrainConfig(learning_rate=lr, lora_rank=rk,
-                                        max_steps=total_steps)
+                                        max_steps=total_steps, **kw)
             for i, (lr, rk) in enumerate(zip((3e-3, 1e-3), ranks))}
     ee = TEE.EarlyExitConfig(warmup_ratio=0.25, select_ratio=1.0)
     return TaskLifecycle(ex, name, jobs, total_steps, ee=ee, max_slots=2,
@@ -302,6 +309,120 @@ def test_full_rank_colocated_losses_bitwise_equal_solo(env, monkeypatch):
     assert fused["B"].best_val == solo_b["B"].best_val
     assert np.isfinite(fused["B"].best_val)
     assert set(TGL.LAUNCHES.values()) == {0}    # CPU: plain versions only
+
+
+_FUNCTIONS = ("grouped_lora", "ragged_grouped_lora", "ranklocal_grouped_lora")
+
+
+def _run_mixed(cfg, params, specs, monkeypatch, seq_cap=None):
+    """Run ``specs`` (name, ds, seed, ranks, width) co-located on a fresh
+    Z=4, b_cap=4 executor. Returns (results, histories, calls): ``calls``
+    counts the run's calls of each grouped-LoRA Function (dense, ragged,
+    rank-local), train and eval steps together."""
+    spies = {n: _spy(monkeypatch, TOPS, n) for n in _FUNCTIONS}
+    before = {n: len(c) for n, c in spies.items()}
+    ex = SharedBackboneExecutor(cfg, params, Z=4, per_adapter_batch=4,
+                                eval_every=2, seed=0, seq_cap=seq_cap,
+                                device="cpu")
+    lcs = [_lifecycle(ex, name, ds, seed, ranks, width=w)
+           for name, ds, seed, ranks, w in specs]
+    results = run_colocated(ex, lcs)
+    calls = {n[:-len("grouped_lora")] or "dense": len(c) - before[n]
+             for n, c in spies.items()}
+    monkeypatch.undo()
+    return results, {lc.task_name: _hists(lc) for lc in lcs}, calls
+
+
+def _assert_isolated(fused, fused_h, solos):
+    """Each task's fused histories and best val equal its solo run's bit
+    for bit."""
+    for name, (solo, solo_h) in solos.items():
+        assert fused_h[name] == solo_h[name], name   # tuples of floats
+        assert fused[name].best_val == solo[name].best_val, name
+        assert np.isfinite(fused[name].best_val), name
+
+
+def test_ragged_full_rank_losses_bitwise_equal_solo(env, monkeypatch):
+    """Port of the JAX package's ragged cross-task test with both tasks at
+    full rank (8/8): A trains at b = 2, B at b = 4 in the same fused step
+    (the ragged path); alone, A is still narrower than the lane (ragged)
+    and B is full-width (dense). Loss histories are bitwise those of each
+    task alone, and each task trained at its own width."""
+    cfg, params, ds_a, ds_b = env
+    specs = [("A", ds_a, 3, (8, 8), 2), ("B", ds_b, 4, (8, 8), 4)]
+    fused, fused_h, calls = _run_mixed(cfg, params, specs, monkeypatch)
+    solo_a, solo_a_h, calls_a = _run_mixed(cfg, params, specs[:1],
+                                           monkeypatch)
+    solo_b, solo_b_h, calls_b = _run_mixed(cfg, params, specs[1:],
+                                           monkeypatch)
+    assert calls["ragged_"] > 0 and calls["ranklocal_"] == 0
+    assert calls_a["ragged_"] > 0 and calls_a["ranklocal_"] == 0
+    assert calls_b["ragged_"] == calls_b["ranklocal_"] == 0
+    assert calls_b["dense"] > 0
+    _assert_isolated(fused, fused_h, {"A": (solo_a, solo_a_h),
+                                      "B": (solo_b, solo_b_h)})
+    for name, width in (("A", 2), ("B", 4)):
+        for r in fused[name].job_results.values():
+            assert r.samples_trained == r.steps_trained * width
+
+
+def test_ragged_full_width_host_unperturbed_by_narrow_guest(env,
+                                                            monkeypatch):
+    """A full-width full-rank host takes the dense path alone and the
+    ragged path beside a narrow (b = 2) full-rank guest: its losses must
+    not move a bit either way."""
+    cfg, params, ds_a, ds_b = env
+    specs = [("A", ds_a, 3, (8, 8), 4), ("B", ds_b, 4, (8, 8), 2)]
+    fused, fused_h, calls = _run_mixed(cfg, params, specs, monkeypatch)
+    solo, solo_h, calls_a = _run_mixed(cfg, params, specs[:1], monkeypatch)
+    assert calls["ragged_"] > 0 and calls["ranklocal_"] == 0
+    assert calls_a["dense"] > 0 and calls_a["ragged_"] == 0
+    assert calls_a["ranklocal_"] == 0
+    _assert_isolated(fused, fused_h, {"A": (solo, solo_h)})
+
+
+def test_ragged_mixed_seq_len_full_rank_bitwise(env, monkeypatch):
+    """Full-rank tasks of different sequence lengths (16 and 8) and widths
+    (4 and 2) fused on one seq_cap=16 executor: the short guest's lanes pad
+    mid-row (label masking keeps it exact) and every slot's row count is
+    bound, so the step takes the ragged path; alone, the full-width host is
+    dense. Both tasks' histories equal their solo runs' bit for bit."""
+    cfg, params, ds_a, _ = env
+    ds_short = TSYN.make_task_dataset("task-c", cfg.vocab_size, seq_len=8,
+                                      num_train=32, num_val=8,
+                                      difficulty=0.4, seed=5)
+    specs = [("A", ds_a, 3, (8, 8), 4), ("C", ds_short, 5, (8, 8), 2)]
+    fused, fused_h, calls = _run_mixed(cfg, params, specs, monkeypatch,
+                                       seq_cap=16)
+    solo_a, solo_a_h, calls_a = _run_mixed(cfg, params, specs[:1],
+                                           monkeypatch, seq_cap=16)
+    solo_c, solo_c_h, calls_c = _run_mixed(cfg, params, specs[1:],
+                                           monkeypatch, seq_cap=16)
+    assert calls["ragged_"] > 0 and calls["ranklocal_"] == 0
+    assert calls_a["ragged_"] == 0 and calls_a["dense"] > 0
+    assert calls_c["ragged_"] > 0
+    _assert_isolated(fused, fused_h, {"A": (solo_a, solo_a_h),
+                                      "C": (solo_c, solo_c_h)})
+
+
+def test_ranklocal_ragged_rank_and_width_compose_bitwise(env, monkeypatch):
+    """A full-rank b = 4 host beside a rank 2/4, b = 2 guest rides the
+    rank-local path with rows bound; alone the host takes the dense path
+    and the guest the rank-local one. Both tasks' histories equal their
+    solo runs' bit for bit."""
+    cfg, params, ds_a, ds_b = env
+    specs = [("A", ds_a, 3, (8, 8), 4), ("B", ds_b, 4, (2, 4), 2)]
+    fused, fused_h, calls = _run_mixed(cfg, params, specs, monkeypatch)
+    solo_a, solo_a_h, calls_a = _run_mixed(cfg, params, specs[:1],
+                                           monkeypatch)
+    solo_b, solo_b_h, calls_b = _run_mixed(cfg, params, specs[1:],
+                                           monkeypatch)
+    assert calls["ranklocal_"] > 0 and calls["ragged_"] == 0
+    assert calls_a["dense"] > 0 and calls_a["ragged_"] == 0
+    assert calls_a["ranklocal_"] == 0
+    assert calls_b["ranklocal_"] > 0 and calls_b["ragged_"] == 0
+    _assert_isolated(fused, fused_h, {"A": (solo_a, solo_a_h),
+                                      "B": (solo_b, solo_b_h)})
 
 
 def _migrated_equals_unmoved(env, a_ranks, b_ranks, c_ranks):
@@ -445,3 +566,64 @@ def test_full_rank_lr_sweep_runs_on_the_dense_path(env, monkeypatch):
     per_forward = cfg.num_layers * len(cfg.lora.targets)
     assert dense and len(dense) % per_forward == 0
     assert not local
+
+
+def test_heterogeneous_colocation_admits_the_third_task_when_slots_free(
+        env, monkeypatch):
+    """The chip smoke's main path at a reduced size: three full-rank tasks
+    of widths (b, S) = (4, 16), (2, 16) and (4, 8), 4 jobs each on 2 slots
+    each, through ``run_colocated`` on one Z=4, b_cap=4, seq_cap=16
+    executor. The third waits at the admission gate and starts only once a
+    running task has finished or shed its slots; every mixed-width train
+    step takes the ragged Function, none the rank-local one, and every task
+    ends with a finite best validation loss."""
+    cfg, params, ds_a, ds_b = env
+    ds_short = TSYN.make_task_dataset("task-c", cfg.vocab_size, seq_len=8,
+                                      num_train=32, num_val=8,
+                                      difficulty=0.4, seed=5)
+    r_max = cfg.lora.r_max
+    ex = SharedBackboneExecutor(cfg, params, Z=4, per_adapter_batch=4,
+                                eval_every=2, seed=0, seq_cap=16,
+                                device="cpu")
+    ee = TEE.EarlyExitConfig(warmup_ratio=0.25, select_ratio=0.5)
+    lcs = []
+    for name, ds, b, lrs, seed in (("wide", ds_a, 4, (1e-4, 1e-3), 1),
+                                   ("narrow", ds_b, 2, (3e-4, 3e-3), 2),
+                                   ("short", ds_short, 4, (1e-4, 1e-3), 3)):
+        jobs = {f"{name}/lr{lr:g}-wd{wd:g}": TrainConfig(
+                    learning_rate=lr, weight_decay=wd, lora_rank=r_max,
+                    per_adapter_batch=b)
+                for lr in lrs for wd in (0.0, 0.01)}
+        lcs.append(TaskLifecycle(ex, name, jobs, 8, ee=ee, max_slots=2,
+                                 dataset=ds, seed=seed))
+    steps, began = [0], {}
+    real_run_steps = ex.run_steps
+
+    def run_steps(n):
+        real_run_steps(n)
+        steps[0] += n
+    ex.run_steps = run_steps
+    for lc in lcs:
+        def begin(lc=lc, real=lc.begin):
+            others = [o for o in lcs if o is not lc and o.phase != "idle"]
+            began[lc.task_name] = (steps[0],
+                                   [o.phase for o in others],
+                                   sum(o.slots_bound() for o in others))
+            real()
+        lc.begin = begin
+    dense = _spy(monkeypatch, TOPS, "grouped_lora")
+    ragged = _spy(monkeypatch, TOPS, "ragged_grouped_lora")
+    local = _spy(monkeypatch, TOPS, "ranklocal_grouped_lora")
+    results = run_colocated(ex, lcs)
+    assert began["wide"][0] == began["narrow"][0] == 0
+    step, phases, bound = began["short"]
+    assert step > 0                     # it waited at the gate
+    assert bound <= ex.Z - lcs[2].m     # until the others freed its slots
+    assert "done" in phases or bound < 2 * lcs[2].m
+    assert set(results) == {"wide", "narrow", "short"}
+    for name, res in results.items():
+        assert res.best_job in lcs[[lc.task_name for lc in lcs].index(
+            name)].jobs and np.isfinite(res.best_val)
+    assert ragged and dense and not local
+    per_forward = cfg.num_layers * len(cfg.lora.targets)
+    assert len(ragged) % per_forward == 0

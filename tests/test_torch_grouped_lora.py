@@ -2,14 +2,17 @@
 ``lora_delta`` held against the JAX package.
 
 Inputs come from a numpy seed and go to both packages. On the CPU the port's
-wrappers (``ranklocal.*``, ``grouped_lora.*``) take their plain versions;
-the JAX side runs the Pallas kernels in interpret mode (through
-``ops._ranklocal_fwd_impl``, ``ops._fwd_impl`` and ``ops._bwd_impl``, which
-pad to TPU tiles and slice back) and the pure-jnp oracle. Tolerance:
-float32 rtol/atol 5e-4 forward and 2e-3 for gradients, the JAX package's
-own backend bars (tests/test_kernel_backends.py). The dense plain versions
-equal the rank-local ones at full rank bit for bit, as the CUDA kernels
-must on the card; those run only there (tests/test_torch_cuda.py).
+wrappers (``ranklocal.*``, ``grouped_lora.*``, ``ragged.*``) take their
+plain versions; the JAX side runs the Pallas kernels in interpret mode
+(through ``ops._ranklocal_fwd_impl``, ``ops._fwd_impl``, ``ops._bwd_impl``,
+``ops._ragged_fwd_impl`` and ``ops._ragged_bwd_impl``, which pad to TPU
+tiles and slice back) and the pure-jnp oracle. Tolerance: float32
+rtol/atol 5e-4 forward and 2e-3 for gradients, the JAX package's own
+backend bars (tests/test_kernel_backends.py). The dense plain versions
+equal the rank-local ones at full rank bit for bit, and the ragged ones
+equal the dense ones at rows = T and the rank-local ones at full rank for
+any rows bit for bit, as the CUDA kernels must on the card; those run only
+there (tests/test_torch_cuda.py).
 """
 import importlib
 
@@ -24,12 +27,14 @@ from repro.kernels.grouped_lora import ref as JREF
 from repro_torch.core import lora as TLORA
 from repro_torch.kernels.grouped_lora import grouped_lora as TGL
 from repro_torch.kernels.grouped_lora import ops as TOPS
+from repro_torch.kernels.grouped_lora import ragged as TRG
 from repro_torch.kernels.grouped_lora import ranklocal as TRL
 from repro_torch.kernels.grouped_lora import ref as TREF
 
 # the JAX package re-exports its wrapper function under the kernel
 # module's name, so the module comes through importlib
 JGL = importlib.import_module("repro.kernels.grouped_lora.grouped_lora")
+JRG = importlib.import_module("repro.kernels.grouped_lora.ragged")
 
 RTOL = ATOL = 5e-4      # float32 forward bar of the JAX package
 GRAD_TOL = dict(rtol=2e-3, atol=2e-3)    # its gradient bar
@@ -41,6 +46,18 @@ CASES = [
     (3, 8, 32, 48, 8, [8, 3, 0], None),
     (2, 21, 72, 17, 24, [11, 24], [21, 20]),
 ]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small torch ops are slowed down many times over by torch's intra-op
+    thread pool when other test processes hold the cores; one thread per
+    process keeps a file's time independent of its neighbours'. Restored
+    afterwards. The executor and train tests import it too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _inputs(case, seed=0, garbage_pad=True):
@@ -367,24 +384,181 @@ def test_lora_delta_unbound_takes_the_dense_path_and_matches_jax(
                                    err_msg=name)
 
 
-def test_lora_delta_ragged_rows_alone_stays_plain_math_on_the_cpu():
+# ---------------------------------------------------------------------------
+# ragged kernels (ragged.py): every slot at full rank, per-slot token rows
+# ---------------------------------------------------------------------------
+
+# (Z, T, din, r, dout, rows): a boundary inside a tile, an empty slot, a
+# one-row slot, rows = T, and T/din/dout off tile multiples
+RAGGED_SHAPES = [
+    (4, 37, 40, 16, 24, [37, 13, 0, 30]),
+    (2, 7, 33, 4, 17, [7, 7]),
+    (3, 100, 130, 12, 200, [100, 64, 1]),
+]
+
+
+def _ragged_inputs(shape, seed=0):
+    """x, A, B, scale, y_base, dy (numpy, fp32) and rows (int32)."""
+    *dims, rows = shape
+    return (*_dense_inputs(tuple(dims), seed), np.asarray(rows, np.int32))
+
+
+def _ragged_port(x, A, B, scale, base, dy, rows):
+    """(S, Y, dS, dX, dA, dB) through the port's ragged wrappers."""
+    s = TRG.xa(x, A, rows)
+    ds = TRG.ds(dy, B, scale, rows)
+    return (s, TRG.sb_add(s, B, scale, rows, base), ds, TRG.dx(ds, A, rows),
+            TRG.da(x, ds, rows), TRG.db(s, dy, scale, rows))
+
+
+def _ragged_jax(x, A, B, scale, base, dy, rows):
+    """(S, Y, dS, dX, dA, dB) of the JAX ragged VJP, interpret mode."""
+    T, r = x.shape[1], A.shape[2]
+    jx, jA, jB, jsc, jdy, jrows = (jnp.asarray(a)
+                                   for a in (x, A, B, scale, dy, rows))
+    jbase = None if base is None else jnp.asarray(base)
+    y, s = JOPS._ragged_fwd_impl(jx, jA, jB, jsc, jrows, jbase,
+                                 interpret=True)
+    dx, dA, dB = JOPS._ragged_bwd_impl(jx, jA, jB, jsc, jrows, s, jdy,
+                                       interpret=True)
+    _, _, Bp, _, dyp = JOPS._pad_bwd(jx, jA, jB, s, jdy)
+    ds = JRG.ds(dyp, Bp, jsc, jrows, interpret=True)[:, :T, :r]
+    return s[:, :, :r], y, ds, dx, dA, dB
+
+
+@pytest.mark.parametrize("with_base", [False, True])
+@pytest.mark.parametrize("shape", RAGGED_SHAPES)
+def test_ragged_plain_kernels_match_jax_pallas_interpret(shape, with_base):
+    """The six ragged plain versions against the JAX ragged kernels in
+    interpret mode (S, Y through ``ops._ragged_fwd_impl``, dS through
+    ``ragged.ds``, dX/dA/dB through ``ops._ragged_bwd_impl``) and the
+    JAX pure-jnp oracles; exact zeros past rows[z], the base passed
+    through bit for bit on dead rows."""
+    x, A, B, scale, base, dy, rows = _ragged_inputs(shape)
+    base = base if with_base else None
+    want = _ragged_jax(x, A, B, scale, base, dy, rows)
+    TRG.reset_launches()
+    got = _ragged_port(_t(x), _t(A), _t(B), _t(scale), _t(base), _t(dy),
+                       _t(rows))
+    assert set(TRG.LAUNCHES.values()) == {0}     # CPU: plain versions
+    for name, g, w in zip(("s", "y", "ds", "dx", "da", "db"), got, want):
+        tol = GRAD_TOL if name in ("dx", "da", "db") else dict(rtol=RTOL,
+                                                                atol=ATOL)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   **tol)
+    jargs = [jnp.asarray(a) for a in (x, A, B, scale)]
+    np.testing.assert_allclose(
+        got[1].numpy(), np.asarray(JREF.ragged_lora_ref(
+            *jargs, jnp.asarray(rows), None if base is None
+            else jnp.asarray(base))), rtol=RTOL, atol=ATOL)
+    for g, w in zip(got[3:], JREF.ragged_lora_bwd_ref(
+            *jargs, jnp.asarray(rows), jnp.asarray(got[0].numpy()),
+            jnp.asarray(dy))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL)
+    s, y, ds, dx, _, _ = (g.numpy() for g in got)
+    for z, nr in enumerate(rows):
+        assert np.all(s[z, nr:] == 0) and np.all(ds[z, nr:] == 0)
+        assert np.all(dx[z, nr:] == 0)
+        if base is None:
+            assert np.all(y[z, nr:] == 0)
+        else:
+            np.testing.assert_array_equal(y[z, nr:], base[z, nr:])
+
+
+def test_ragged_plain_kernels_bf16_round_where_the_jax_kernels_do():
+    """bf16 activations, with a base: A/B rounded to bf16, fp32 sums,
+    S/Y/dS/dX stored in bf16, dA/dB fp32. The two sides may differ by one
+    bf16 rounding (fp32 sums in another order): 2 bf16 ulps (rtol 2**-7)
+    plus 1e-2; dA/dB rtol 1e-4 plus 1e-4 of their largest entry."""
+    x, A, B, scale, base, dy, rows = _ragged_inputs(RAGGED_SHAPES[2], seed=4)
+
+    def bf(a):
+        return np.asarray(jnp.asarray(a).astype(jnp.bfloat16)
+                          .astype(jnp.float32))
+
+    x, base, dy = bf(x), bf(base), bf(dy)
+    jx, jbase, jdy = (jnp.asarray(a).astype(jnp.bfloat16)
+                      for a in (x, base, dy))
+    want = _ragged_jax(jx, A, B, scale, jbase, jdy, rows)
+    got = _ragged_port(_t(x).to(torch.bfloat16), _t(A), _t(B), _t(scale),
+                       _t(base).to(torch.bfloat16),
+                       _t(dy).to(torch.bfloat16), _t(rows))
+    assert [g.dtype for g in got] == [torch.bfloat16] * 4 + [torch.float32] * 2
+    for name, g, w in zip(("s", "y", "ds", "dx", "da", "db"), got, want):
+        w = np.asarray(jnp.asarray(w).astype(jnp.float32))
+        tol = (dict(rtol=2 ** -7, atol=1e-2) if g.dtype == torch.bfloat16
+               else dict(rtol=1e-4, atol=1e-4 * np.abs(w).max()))
+        np.testing.assert_allclose(g.float().numpy(), w, err_msg=name, **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", RAGGED_SHAPES)
+def test_ragged_plain_equals_dense_at_full_rows_and_ranklocal_at_full_rank(
+        shape, dtype):
+    """Each ragged plain version gives, bit for bit, its dense plain
+    version at rows = T, and its rank-local plain version at ranks = r
+    with the same rows (and at rows = T): the CPU side of the three-way
+    co-located == solo contract for a full-rank task."""
+    Z, T, din, r, dout, _ = shape
+    x, A, B, scale, base, dy, rows = (_t(a) for a in _ragged_inputs(
+        shape, seed=2))
+    x, base, dy = x.to(dtype), base.to(dtype), dy.to(dtype)
+    full = torch.full((Z,), r, dtype=torch.int32)
+    every = torch.full((Z,), T, dtype=torch.int32)
+    names = ("s", "y", "ds", "dx", "da", "db")
+    dense = _dense_port(x, A, B, scale, base, dy)
+    for got, want in zip(_ragged_port(x, A, B, scale, base, dy, every),
+                         dense):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    for rw in (rows, every):
+        got = _ragged_port(x, A, B, scale, base, dy, rw)
+        s, ds = got[0], got[2]
+        twin = (TREF.ranklocal_xa_ref(x, A, rw, full),
+                TREF.ranklocal_sb_add_ref(s, B, scale, rw, full, base),
+                TREF.ranklocal_ds_ref(dy, B, scale, rw, full),
+                TREF.ranklocal_dx_ref(ds, A, rw, full),
+                TREF.ranklocal_da_ref(x, ds, rw, full),
+                TREF.ranklocal_db_ref(s, dy, scale, rw, full))
+        for name, g, w in zip(names, got, twin):
+            assert g.dtype == w.dtype and torch.equal(g, w), name
+        assert torch.equal(
+            TOPS.ragged_grouped_lora(x, A, B, scale, rw, base),
+            TOPS.ranklocal_grouped_lora(x, A, B, scale, full, rw, base))
+    assert torch.equal(TOPS.ragged_grouped_lora(x, A, B, scale, every, base),
+                       TOPS.grouped_lora(x, A, B, scale, base))
+
+
+def test_lora_delta_ragged_rows_alone_stays_plain_math_on_the_cpu(
+        monkeypatch):
     """``ragged_rows`` bound without ``slot_ranks`` (the full-rank
-    mixed-width path, whose ragged kernels are not ported) keeps the
-    row-masked plain math on CPU tensors under both backends, and refuses
-    a tensor on any other device instead of computing it there."""
+    mixed-width path): the port's ``"kernel"`` backend goes through
+    ``ops.ragged_grouped_lora`` (the ragged Function, whose wrappers take
+    their plain versions on CPU tensors) and neither of the other two,
+    and both port backends match the JAX ``lora_delta`` under
+    ``ragged_rows`` on its ``"pallas_interpret"`` backend (the ragged
+    Pallas kernels) and its ``"jnp"`` backend, on [Z, b, S, din]
+    activations. A tensor on a device the kernels cannot run on is
+    refused, not computed there."""
     Z, T, din, dout, r, _, rows = CASES[0]
     x, A, B, _, _, rows, _ = _inputs(CASES[0], seed=6)
     x4 = x.reshape(Z, 1, T, din)
-    with JLORA.backend("jnp"), JLORA.ragged_rows(jnp.asarray(rows)):
-        want = np.asarray(JLORA.lora_delta(jnp.asarray(x4), jnp.asarray(A),
-                                           jnp.asarray(B), 2.0))
-    for name in TLORA.BACKENDS:
-        with TLORA.backend(name), TLORA.ragged_rows(_t(rows)):
+    calls = {name: _spy(monkeypatch, TOPS, name) for name in (
+        "ragged_grouped_lora", "grouped_lora", "ranklocal_grouped_lora")}
+    want = {}
+    for name in ("pallas_interpret", "jnp"):
+        with JLORA.backend(name), JLORA.ragged_rows(jnp.asarray(rows)):
+            want[name] = np.asarray(JLORA.lora_delta(
+                jnp.asarray(x4), jnp.asarray(A), jnp.asarray(B), 2.0))
+    for tb in TLORA.BACKENDS:
+        with TLORA.backend(tb), TLORA.ragged_rows(_t(rows)):
             y = TLORA.lora_delta(_t(x4), _t(A), _t(B), 2.0).numpy()
-        np.testing.assert_allclose(y, want, rtol=RTOL, atol=ATOL,
-                                   err_msg=name)
-    with TLORA.ragged_rows(_t(rows)), \
-            pytest.raises(NotImplementedError, match="ROADMAP"):
+        for name, w in want.items():
+            np.testing.assert_allclose(y, w, rtol=RTOL, atol=ATOL,
+                                       err_msg=f"{tb} vs jax {name}")
+    assert {k: len(v) for k, v in calls.items()} == {
+        "ragged_grouped_lora": 1, "grouped_lora": 0,
+        "ranklocal_grouped_lora": 0}
+    with TLORA.ragged_rows(_t(rows)), pytest.raises(ValueError):
         TLORA.lora_delta(torch.zeros(x4.shape, device="meta"),
                          torch.zeros(A.shape, device="meta"),
                          torch.zeros(B.shape, device="meta"), 2.0)

@@ -3,16 +3,17 @@
 (a) The four rank-local backward kernels' plain versions against the JAX
     VJP (``ops._ranklocal_bwd_impl`` and ``ranklocal.ds`` in Pallas
     interpret mode) on the forward tests' cases, fp32 and one bf16 case.
-(b) The autograd Functions' gradients (rank-local and dense) against
-    autograd through the kernels' plain versions (the ``"torch"`` LoRA
-    backend).
+(b) The autograd Functions' gradients (rank-local, dense and ragged)
+    against autograd through the kernels' plain versions (the ``"torch"``
+    LoRA backend).
 (c) ``make_train_step`` in both packages from bridged weights, adapters
     (non-zero B, garbage in the padded rank region), moments and batches,
     for 3 steps on reduced float32 stablelm-3b, the JAX side under
     ``LORA.backend("pallas_interpret")``: with ``slot_ranks`` bound, so
-    both sides take the rank-local path, and with every slot at r_max and
-    nothing bound, so both take the dense path; AdamW alone on identical
-    numpy gradients.
+    both sides take the rank-local path; with every slot at r_max and
+    nothing bound, so both take the dense path; and with every slot at
+    r_max and ``slot_rows`` bound alone, so both take the ragged path;
+    AdamW alone on identical numpy gradients.
 (d) The padded rank region stays exactly 0 across steps with no re-mask.
 (e) ``make_eval_step`` parity, on the rank-local and the dense path.
 
@@ -41,12 +42,14 @@ from repro_torch.core import lora as TLORA
 from repro_torch.core import steps as TSTEPS
 from repro_torch.kernels.grouped_lora import grouped_lora as TGL
 from repro_torch.kernels.grouped_lora import ops as TOPS
+from repro_torch.kernels.grouped_lora import ragged as TRG
 from repro_torch.kernels.grouped_lora import ranklocal as TRL
 from repro_torch.kernels.grouped_lora import ref as TREF
 from repro_torch.models import model as TM
 from repro_torch.optim import adamw as TAD
 from tests.conftest import reduced_f32
-from tests.test_torch_grouped_lora import CASES, _inputs, _spy, _t
+from tests.test_torch_grouped_lora import (  # noqa: F401
+    CASES, _inputs, _one_torch_thread, _spy, _t)
 
 KTOL = dict(rtol=5e-4, atol=5e-4)      # float32 kernels
 GTOL = dict(rtol=2e-3, atol=2e-3)      # gradients, parameters
@@ -194,6 +197,42 @@ def test_dense_function_gradients_match_autograd_through_plain(shape,
                                    atol=1e-5 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("with_base", [False, True])
+@pytest.mark.parametrize("shape", [(4, 37, 40, 16, 24, [37, 13, 0, 30]),
+                                   (3, 100, 130, 12, 200, [100, 64, 1])])
+def test_ragged_function_gradients_match_autograd_through_plain(shape,
+                                                                 with_base):
+    """``ops.ragged_grouped_lora`` (the ragged Function: ds -> dx, da, db)
+    against autograd through ``ragged_lora_ref`` on CPU tensors: fp32 sum
+    order only, rtol 1e-5 plus 1e-5 of the largest entry; dead rows get a
+    zero gradient and no launch is counted."""
+    Z, T, din, r, dout, rows = shape
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((Z, T, din), dtype=np.float32)
+    A = rng.standard_normal((Z, din, r), dtype=np.float32) / din ** 0.5
+    B = rng.standard_normal((Z, r, dout), dtype=np.float32) / r ** 0.5
+    base = rng.standard_normal((Z, T, dout), dtype=np.float32)
+    scale = _t(rng.uniform(0.5, 2.0, Z).astype(np.float32))
+    dy = _t(rng.standard_normal((Z, T, dout), dtype=np.float32))
+    rw = _t(np.asarray(rows, np.int32))
+    outs = []
+    TRG.reset_launches()
+    for fn in (TOPS.ragged_grouped_lora, TREF.ragged_lora_ref):
+        leaves = [_t(a).requires_grad_(True) for a in (x, A, B, base)]
+        y = fn(leaves[0], leaves[1], leaves[2], scale, rw,
+               leaves[3] if with_base else None)
+        used = leaves if with_base else leaves[:3]
+        outs.append([y] + list(torch.autograd.grad(y, used, dy)))
+    assert set(TRG.LAUNCHES.values()) == {0}          # CPU: plain versions
+    for got, want in zip(*outs):
+        want = want.detach().numpy()
+        np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())
+    dx = outs[0][1].numpy()
+    for z, nr in enumerate(rows):
+        assert np.all(dx[z, nr:] == 0)
+
+
 def test_lora_delta_backends_agree_in_gradient():
     """``lora_delta`` under ``slot_ranks`` + ``ragged_rows`` on
     [Z, b, S, d] activations: the kernel backend (Function) and the torch
@@ -220,14 +259,15 @@ def test_lora_delta_backends_agree_in_gradient():
 Z, BSZ, SEQ = 4, 2, 16
 ROWS = BSZ * SEQ
 R_MAX = 8          # r_max of the reduced config
-# (ranks, active, slot_rows); ranks None: every slot at r_max and nothing
-# bound, the executor's all-full-rank dense step
+# (ranks, active, slot_rows); ranks None: every slot at r_max and no ranks
+# bound, the executor's all-full-rank step (dense without rows, ragged with)
 STEP_CASES = {
     "rows=T": ([2, 4, 6, 3], [1, 1, 1, 1], None),
     "ragged": ([2, 4, 6, 3], [1, 1, 1, 1], [ROWS, SEQ, ROWS, SEQ]),
     "mixed+empty": ([8, 3, 0, 5], [1, 1, 0, 1], None),
     "ragged x rank": ([1, 8, 5, 0], [1, 1, 1, 0], [ROWS, SEQ, SEQ, 0]),
     "dense": (None, [1, 1, 1, 1], None),
+    "ragged full-rank": (None, [1, 1, 1, 1], [ROWS, SEQ, ROWS, SEQ]),
 }
 
 
@@ -315,6 +355,7 @@ def test_train_step_matches_jax_over_three_steps(env, name, monkeypatch):
     ranks, active, rows = STEP_CASES[name]
     bind = ranks is not None
     dense_calls = _spy(monkeypatch, TOPS, "grouped_lora")
+    ragged_calls = _spy(monkeypatch, TOPS, "ragged_grouped_lora")
     lora, opt, hp, ranks, active, batches = _step_inputs(
         jcfg, ranks if bind else [R_MAX] * Z, active, rows)
     jl = jax.tree_util.tree_map(jnp.asarray, lora)
@@ -333,6 +374,8 @@ def test_train_step_matches_jax_over_three_steps(env, name, monkeypatch):
             jb.update(slot_rows=jnp.asarray(jrows),
                       slot_ranks=jnp.asarray(ranks))
             tb["slot_ranks"] = _t(ranks)
+        elif rows is not None:
+            jb["slot_rows"] = jnp.asarray(jrows)
         if rows is not None:
             tb["slot_rows"] = _t(np.asarray(rows, np.int32))
         jgrads, (jl, jo, jm) = jstep(jparams, jl, jo, jhp,
@@ -350,11 +393,14 @@ def test_train_step_matches_jax_over_three_steps(env, name, monkeypatch):
     _assert_tree_close(tl, jl, "lora", **GTOL)
     _assert_tree_close(to.mu, jo.mu, "mu", **GTOL)
     np.testing.assert_array_equal(to.count.numpy(), np.asarray(jo.count))
-    # the dense Function runs exactly when nothing is bound: once per LoRA
-    # projection of each forward, and remat runs each forward twice, in
-    # lora_grads and in the step, 3 steps
-    per_forward = tcfg.num_layers * len(tcfg.lora.targets)
-    assert len(dense_calls) == (0 if bind else 3 * 2 * 2 * per_forward)
+    # the dense Function runs exactly when nothing is bound, the ragged one
+    # when slot_rows is bound alone: once per LoRA projection of each
+    # forward, and remat runs each forward twice, in lora_grads and in the
+    # step, 3 steps
+    calls = 3 * 2 * 2 * tcfg.num_layers * len(tcfg.lora.targets)
+    ragged = not bind and rows is not None
+    assert len(dense_calls) == (0 if bind or ragged else calls)
+    assert len(ragged_calls) == (calls if ragged else 0)
 
 
 def _eval_matches_jax(env, name):
