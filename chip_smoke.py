@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port: multi-adapter serving, rank-sweep
-and full-rank learning-rate-sweep LoRA training, and heterogeneous
-multi-task co-location of stablelm-3b on one NVIDIA card, through the
-port's hand-written CUDA kernels.
+and full-rank learning-rate-sweep LoRA training, heterogeneous multi-task
+co-location, and DPO preference tuning with crash-and-resume of
+stablelm-3b on one NVIDIA card, through the port's hand-written CUDA
+kernels.
 
     python3 chip_smoke.py
 
@@ -15,14 +16,19 @@ package. Phases, none of them caught:
             TF32 off for matmuls and cuDNN.
 2. build  — nvcc builds the eighteen grouped-LoRA kernels from the four
             sources in ``src/repro_torch/kernels/grouped_lora/csrc``
-            (ranklocal.cu, ranklocal_bwd.cu, grouped_lora.cu, ragged.cu;
-            one nvcc per source, started together).
+            (ranklocal.cu, ranklocal_bwd.cu, grouped_lora.cu, ragged.cu)
+            and the flash-attention kernel from
+            ``src/repro_torch/kernels/flash_attention/csrc/
+            flash_attention.cu``: one nvcc per source, all five started
+            together.
 3. kernels — each rank-local kernel against its plain PyTorch version at
             stablelm-3b shapes (bf16 activations, fp32 adapter masters,
             Z = 4 slots): the forward pair at serving shapes and the
             eval-step shape (4,096 token rows per slot), all six at
             training shapes (1,024 token rows per slot, ranks 4/8/16/32,
-            one case with rows < T and a dead slot); then each dense kernel
+            one case with rows < T and a dead slot) and at the DPO step's
+            (512 rows per slot in each policy forward, not timed); then
+            each dense kernel
             at r = 64 (T = 1,024, din x dout in 2560 x 2560, 2560 x 6912,
             6912 x 2560; the forward pair also at T = 4,096; sb_add with
             and without a base; non-zero B, a different scale per slot)
@@ -37,6 +43,20 @@ package. Phases, none of them caught:
             of 21), a ``torch.bmm`` yardstick the port never calls, and the
             bound (max of bytes / 3.35 TB/s and flops / 989 TFLOP/s, at the
             live rows and ranks).
+3b. flash — the flash-attention kernel against its plain PyTorch version
+            at the shapes the path gives it (bf16, hd 80, causal: the SFT
+            train step's B = Z*b*H = 512, the eval step's 2,048, a DPO
+            forward's 256; S = 256) and at window 64, Sq 128 < Sk 256, Sq
+            256 > Sk 128 (fully masked rows must be exactly 0), hd 64 and
+            128, and fp32 inputs. The reading is the largest |diff| in
+            units of one bf16 rounding (fp32: 1e-5 relative) and must be
+            <= 1, while two faults planted in the plain version (the second
+            32-key tile dropped, the softmax scale off by 1%) must read > 1;
+            entries 0-127 of the B = 512 call must equal a B = 128 call
+            bit for bit. Times (graph replay) of the kernel, the plain
+            version and a yardstick the port never calls
+            (``scaled_dot_product_attention(is_causal=True)`` on [Z*b, H,
+            S, hd]), beside the bound.
 4. serve  — full-width, full-depth stablelm-3b (bf16, random weights from a
             seed), 4 adapters at true ranks 8/16/32/64, 4 lanes, max_len
             256: 16 greedy requests (prompts of 32-128 tokens, 32 new
@@ -48,7 +68,9 @@ package. Phases, none of them caught:
             plain versions, while three reruns with a planted LoRA fault
             (every delta dropped, one slot's delta halved) must not;
             then a warm join step is timed and four decode steps run
-            under torch.profiler (device busy time, top kernels).
+            under torch.profiler (device busy time, top kernels). Serving
+            prefills into a longer cache and decodes: the flash kernel
+            must launch 0 times.
 5. train  — one full-size make_train_step (4 slots at ranks 4/8/16/32,
             b = 4, S = 256, non-zero B) with the kernels against the same
             step on the plain versions: per slot loss, grad norm and the
@@ -56,12 +78,19 @@ package. Phases, none of them caught:
             plain run (one slot's dA zeroed, the rank-32 slot's dB halved,
             the LoRA branch's dX dropped, the rank-4 slot's delta halved
             in the forward) must break the bars, the last the loss bar.
+            The kernel run takes flash attention (2 launches per layer:
+            forward and remat), the plain run the baseline einsum
+            attention (model backend "torch"); a fifth planted fault in
+            the plain run, every query seeing one future key, must break
+            the loss bar too. Then one step's gradients under
+            torch.profiler with flash attention and with the baseline
+            attention (the LoRA kernels in both): device busy time each.
 6. rank sweep — BatchedExecutor.run_task on full-size stablelm-3b: 8 jobs
             (ranks 4/8/16/32 x lr 1e-4/1e-3) on 4 slots, two warmup waves
             with rotation, selection, continue; every fused train step must
             launch the rank-local xa/sb_add 448 times and ds/da/db 224 (dx
-            221), every eval step xa/sb_add 224 times, and the dense and
-            ragged kernels never; real tokens/s over the whole run_task
+            221) and flash attention 64, every eval step xa/sb_add 224
+            times and flash 32, and the dense and ragged kernels never; real tokens/s over the whole run_task
             wall, the median train-step call by resident slots, eval step,
             peak memory, and two train steps under torch.profiler.
 7. dense train — phase 5 with every slot at r_max 64 and nothing bound
@@ -102,13 +131,50 @@ package. Phases, none of them caught:
             set never), every eval step the dense forward pair; real
             tokens/s over the whole run, the padded share, the wall's
             breakdown, the median step per resident mix, peak memory, and
-            two mixed-width steps under torch.profiler.
+            two mixed-width steps under torch.profiler. Every step launches
+            flash attention 64 times (train) or 32 (eval).
+13. DPO train — phase 5 with the DPO loss on 2 preference pairs a slot
+            (four forwards: policy chosen and rejected through the LoRA
+            kernels at 512 rows per slot, reference chosen and rejected
+            without adapters). The DPO loss reads beta times a difference
+            of four per-slot sums of 512 token NLLs, which amplifies the
+            backbone's bf16 rounding (printed, not held); so the loss bar
+            holds each forward's per-slot summed NLL, and the grad-norm,
+            dA and dB bars the gradients of the margin (each run's
+            per-slot gradients divided by its own |d loss / d margin| = 1
+            - exp(-loss)). The same planted faults must break the same
+            bars.
+14. DPO    — the slice's main path: BatchedExecutor(Z = 4,
+            per_adapter_batch = 2, loss_kind = "dpo", PairSlotBatcher,
+            EarlyExitConfig(0.25, 0.25), eval_every = 2).run_task on
+            full-size stablelm-3b, 8 jobs (ranks 4/8/16/32 x lr 1e-4/1e-3),
+            S = 256: two warmup waves with rotation, selection, continue.
+            Every slot's first DPO loss must read log 2 within 1e-3 (B = 0:
+            the policy is the reference); every train step must launch
+            flash 192 times (two policy forwards with remat, two reference
+            forwards), the rank-local xa/sb_add 896, ds/da/db 448, dx 442,
+            every eval step flash 128 and xa/sb_add 448, the dense and
+            ragged kernels never; the same measurements as phase 6, with
+            flash attention's share of the device time.
+15. recovery — the DPO task of phase 14 at full width and 4 layers, run
+            uninterrupted, then again with a TaskCheckpointer(every=1) as
+            its ckpt_hook and a SimulatedCrash after the third durable
+            checkpoint (the one exception caught, by type), then resumed
+            from the latest file on a fresh executor with
+            resume_task_chunks: the tail's per-step per-slot losses, every
+            job's loss history, the best job, its value and the winner's
+            adapter must equal the uninterrupted run's bit for bit, with
+            fewer steps run; the same file with one AdamW moment of the
+            uninterrupted run's winner perturbed must change the loss
+            histories and the winner's adapter.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
-kernel table as JSON.
+kernel table as JSON (nineteen kernels), with each kernel's launches by
+path.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -116,12 +182,14 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak (NVIDIA data sheet)
 H100_BYTES_S = 3.35e12        # HBM3 bandwidth (NVIDIA data sheet)
+H100_FP32_FLOPS = 67e12       # fp32 outside the tensor cores (data sheet)
 
 # kernel vs plain, bf16 outputs: the two sum the same fp32 products in
 # another order, so an output may round to the neighbouring bf16 value:
@@ -159,6 +227,15 @@ EVAL_B = 16                   # sequences per slot in an executor eval step
 # |diff| <= 1e-4 * |plain| + 1e-5 * max|plain|
 GRAD_KERNEL_RTOL = 1e-4
 GRAD_KERNEL_ATOL_REL = 1e-5
+# flash attention, kernel vs plain: both take the same fp32 scores and
+# weights to the output in another order (online vs two-pass softmax) and
+# round once, so a bf16 output may land on the neighbouring bf16 value:
+# |diff| <= 2**-7 * |plain| + 1e-5 * max|plain| (fp32 outputs: 1e-5
+# relative). The phase prints the largest |diff| in units of that bar.
+FLASH_RTOL = {"bf16": 2 ** -7, "fp32": 1e-5}
+FLASH_ATOL_REL = 1e-5
+DPO_B = 2                     # preference pairs per slot in the DPO phase
+RECOVERY_STEPS = 12           # steps per job of the recovery phase's task
 # full-size train step, kernels vs plain versions, per slot and relative
 # to the plain run: |loss diff|, |grad-norm diff|, and the RMS of the dA
 # (dB) differences over all 224 projections over the RMS of dA (dB). The
@@ -189,10 +266,11 @@ def card_line() -> str:
               "--format=csv,noheader").splitlines()[0]
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = H100_BF16_FLOPS):
     """(least ms the card could take, "bytes" or "operations"): the larger
-    of the bytes over the memory rate and the flops over the bf16 peak."""
-    t_bytes, t_ops = nbytes / H100_BYTES_S, flops / H100_BF16_FLOPS
+    of the bytes over the memory rate and the flops over the peak rate of
+    the inputs' type (bf16 unless ``peak`` says otherwise)."""
+    t_bytes, t_ops = nbytes / H100_BYTES_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -354,6 +432,7 @@ def serve_phase(torch, RL, cfg, params):
     from repro_torch.core import lora as LORA
     from repro_torch.core.steps import make_join_decode_step
     from repro_torch.data.synthetic import make_task_dataset
+    from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.models import model as M
     from repro_torch.serve import (AdapterPool, ServingFrontend,
                                    ServingReplica)
@@ -391,6 +470,7 @@ def serve_phase(torch, RL, cfg, params):
             for i in range(N_REQ)]
 
     RL.reset_launches()
+    FA.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     step_ms = []
     t_serve = time.perf_counter()
@@ -415,6 +495,10 @@ def serve_phase(torch, RL, cfg, params):
     want = per_forward * forwards
     require(forwards > 0 and launches["xa"] == launches["sb_add"] == want,
             f"launches {launches}, expected {want} each")
+    # prefill into the longer cache and decode: no contiguous causal forward
+    launches.update(FA.LAUNCHES)
+    require(launches["flash_attention"] == 0,
+            f"serving launched flash attention {FA.LAUNCHES}")
     print(f"serve: {len(out)} requests x {MAX_NEW} tokens; "
           f"{rep.total_decode_steps} fused steps ({rep.block_prefills} "
           f"with a join), {forwards} forwards; launches {launches} "
@@ -561,23 +645,29 @@ def backward_kernel_phase(torch, RL, ref):
     plain versions at the training shapes (Z = 4 slots, T = TRAIN_B *
     TRAIN_S = 1024 token rows per slot, d in {2560, 6912}, true ranks
     4/8/16/32 of r_max 64, bf16 activations, fp32 masters with garbage
-    past each rank); returns per-kernel results (times of the backward
-    four at the q/k/v/o shape, din = dout = 2560) and prints every
-    case."""
+    past each rank) and at the DPO step's shapes (T = DPO_B * TRAIN_S =
+    512 rows per slot in each policy forward; checked, not timed); returns
+    per-kernel results (times of the backward four at the q/k/v/o shape,
+    din = dout = 2560) and prints every case."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(2)
-    Z, r, T = len(TRAIN_RANKS), 64, TRAIN_B * TRAIN_S
-    cases = [  # (label, din, dout, ranks, rows)
-        ("train", 2560, 2560, TRAIN_RANKS, None),
-        ("train", 2560, 6912, TRAIN_RANKS, None),
-        ("train", 6912, 2560, TRAIN_RANKS, None),
-        ("ragged", 2560, 6912, TRAIN_RANKS, (T, T - TRAIN_S, 300, 0)),
+    Z, r = len(TRAIN_RANKS), 64
+    T_train, T_dpo = TRAIN_B * TRAIN_S, DPO_B * TRAIN_S
+    cases = [  # (label, T, din, dout, ranks, rows)
+        ("train", T_train, 2560, 2560, TRAIN_RANKS, None),
+        ("train", T_train, 2560, 6912, TRAIN_RANKS, None),
+        ("train", T_train, 6912, 2560, TRAIN_RANKS, None),
+        ("ragged", T_train, 2560, 6912, TRAIN_RANKS,
+         (T_train, T_train - TRAIN_S, 300, 0)),
+        ("dpo", T_dpo, 2560, 2560, TRAIN_RANKS, None),
+        ("dpo", T_dpo, 2560, 6912, TRAIN_RANKS, None),
+        ("dpo", T_dpo, 6912, 2560, TRAIN_RANKS, None),
     ]
     results = {}
     print("backward kernels, times in ms per call (graph replay)")
     print("kernel  case     din   dout  rows                    ms        "
           "plain_ms  library_ms bound_ms  bound_by   max_abs_err")
-    for label, din, dout, ranks_t, rows_t in cases:
+    for label, T, din, dout, ranks_t, rows_t in cases:
         ranks = torch.tensor(ranks_t, dtype=torch.int32, device=dev)
         rows = (None if rows_t is None else
                 torch.tensor(rows_t, dtype=torch.int32, device=dev))
@@ -647,6 +737,14 @@ def backward_kernel_phase(torch, RL, ref):
               f"max_abs_err {errs['xa']:.3g}, {errs['sb_add']:.3g} (within "
               f"one bf16 ulp of the plain versions)")
         del outs, y
+        if label == "dpo":
+            print(f"ds, dx, da, db {label} T={T} {din:5d} {dout:5d}  "
+                  f"max_abs_err " + ", ".join(
+                      f"{errs[n]:.3g}" for n in ("ds", "dx", "da", "db"))
+                  + " (within the bars; not timed)")
+            del xs, dys, ss, dss
+            torch.cuda.empty_cache()
+            continue
         # --- timing, alternating between the two activation copies
         timing = {
             "ds": (lambda i: RL.ds(dys[i % 2], B, scale, rows, ranks),
@@ -1052,6 +1150,135 @@ def ragged_kernel_phase(torch, RG, GL, RL, ref):
     return results
 
 
+def _attention_plain(torch, q, k, v, window=0, scale_mul=1.0, drop=None):
+    """The plain version's arithmetic (kernels/flash_attention/ref.py) with
+    a fault planted on request: the softmax scale times ``scale_mul``, the
+    keys of slice ``drop`` hidden."""
+    B, Sq, hd = q.shape
+    Sk = k.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (
+        hd ** -0.5 * scale_mul)
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    vis = kpos <= qpos
+    if window > 0:
+        vis &= kpos > qpos - window
+    if drop is not None:
+        vis &= (kpos < drop.start) | (kpos >= drop.stop)
+    p = torch.softmax(torch.where(vis, s, float("-inf")), dim=-1)
+    p = torch.where(torch.isfinite(p), p, 0.0)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def flash_kernel_phase(torch, FA, fref, cfg):
+    """The flash-attention kernel against its plain version at the shapes
+    the path gives it and at the edges of its mask; the reading of each
+    case (largest |diff| in units of the bar) with two planted faults of
+    the plain version beside it; the batch-independence check; times of
+    the kernel, the plain version and the SDPA yardstick beside the bound.
+    Returns the results at the SFT train step's shape."""
+    import torch.nn.functional as F
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(5)
+    H, hd, S = cfg.num_heads, cfg.resolved_head_dim, TRAIN_S
+    bf16, fp32 = torch.bfloat16, torch.float32
+    B_train, Z = 4 * TRAIN_B * H, 4
+    cases = [  # (label, B, Sq, Sk, hd, window, dtype)
+        ("train", B_train, S, S, hd, 0, bf16),
+        ("eval", Z * EVAL_B * H, S, S, hd, 0, bf16),
+        ("dpo", Z * DPO_B * H, S, S, hd, 0, bf16),
+        ("window", B_train, S, S, hd, 64, bf16),
+        ("Sq<Sk", B_train, S // 2, S, hd, 0, bf16),
+        ("Sq>Sk", B_train, S, S // 2, hd, 0, bf16),
+        ("hd64", B_train, S, S, 64, 0, bf16),
+        ("hd128", B_train, S, S, 128, 0, bf16),
+        ("fp32", B_train, S, S, hd, 0, fp32),
+    ]
+    print("flash attention: reading = max |kernel - plain| / (rtol |plain| "
+          f"+ {FLASH_ATOL_REL} max|plain|), rtol {FLASH_RTOL}; bar 1; "
+          "controls: the plain version with the second 32-key tile dropped, "
+          "with the softmax scale x 1.01. Times in ms per call (graph "
+          "replay)")
+    print("case    B      Sq   Sk   hd  window dtype  reading    tile-drop "
+          " scale+1%   ms         plain_ms   library_ms bound_ms   bound_by")
+    results = {}
+    for label, B, Sq, Sk, d, window, dt in cases:
+        q, k, v = (torch.randn(B, n, d, generator=gen, device=dev).to(dt)
+                   for n in (Sq, Sk, Sk))
+        FA.reset_launches()
+        out = FA.flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        require(FA.LAUNCHES["flash_attention"] == 1,
+                f"flash {label}: {FA.LAUNCHES} launches for one call")
+        want = fref.flash_attention_ref(q, k, v, window=window)
+        kind = "bf16" if dt == bf16 else "fp32"
+
+        def reading(got):
+            w = want.float()
+            tol = FLASH_RTOL[kind] * w.abs() + FLASH_ATOL_REL * float(
+                w.abs().max())
+            return float(((got.float() - w).abs() / tol).max())
+
+        sound = reading(out)
+        faults = (reading(_attention_plain(torch, q, k, v, window,
+                                           drop=slice(32, 64))),
+                  reading(_attention_plain(torch, q, k, v, window,
+                                           scale_mul=1.01)))
+        require(bool(torch.isfinite(out).all()) and sound <= 1.0,
+                f"flash {label}: kernel reads {sound:.3g} of the bar")
+        require(min(faults) > 1.0,
+                f"flash {label}: a planted fault passes the bar {faults}")
+        if Sq > Sk:
+            require(bool((out[:, :Sq - Sk] == 0).all()),
+                    f"flash {label}: fully masked rows not exactly 0")
+        if label == "train":
+            head = [t[:128].contiguous() for t in (q, k, v)]
+            require(torch.equal(FA.flash_attention(*head), out[:128]),
+                    "flash: entries 0-127 of the B = 512 call differ from a "
+                    "B = 128 call")
+            print(f"flash: the B = {B} call's entries 0-127 equal a B = 128 "
+                  f"call on them bit for bit")
+        # work: q, k, v read once and o written once; 4 * hd flops per
+        # visible (query, key) pair (scores and weighted values)
+        qpos = torch.arange(Sq)[:, None] + (Sk - Sq)
+        kpos = torch.arange(Sk)[None, :]
+        vis = kpos <= qpos
+        if window > 0:
+            vis &= kpos > qpos - window
+        pairs = int(vis.sum()) * B
+        nbytes = q.element_size() * d * B * (2 * Sq + 2 * Sk)
+        bound_ms, bound_by = bound(nbytes, 4 * d * pairs,
+                                   H100_BF16_FLOPS if dt == bf16
+                                   else H100_FP32_FLOPS)
+        inner = 10 if B <= B_train else 4
+        ms, _ = time_ms(torch, lambda i: FA.flash_attention(
+            q, k, v, window=window), inner)
+        plain_ms = lib_ms = None
+        if label in ("train", "eval", "dpo"):
+            plain_ms, _ = time_ms(torch, lambda i: fref.flash_attention_ref(
+                q, k, v, window=window), inner)
+            q4, k4, v4 = (t.view(B // H, H, -1, d) for t in (q, k, v))
+            lib_ms, _ = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True), inner)
+        fmt = lambda x: "-" if x is None else f"{x:.5f}"
+        print(f"{label:7s} {B:5d} {Sq:5d} {Sk:4d} {d:4d} {window:6d} "
+              f"{kind:5s}  {sound:.4g}  {faults[0]:10.4g} {faults[1]:10.4g}"
+              f"  {ms:.5f}  {fmt(plain_ms):10s} {fmt(lib_ms):10s} "
+              f"{bound_ms:.6f}  {bound_by}")
+        results[label] = {"max_abs_err": float((out.float()
+                                                - want.float()).abs().max()),
+                          "ms": ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by}
+        del q, k, v, out, want
+        torch.cuda.empty_cache()
+    res = dict(results["train"])
+    res["max_abs_err"] = max(r["max_abs_err"] for lab, r in results.items()
+                             if lab in ("train", "eval", "dpo"))
+    return res
+
+
 def _train_lora(torch, cfg, M, LORA, ranks_t):
     """Slot-stacked adapters at true ranks ``ranks_t``: A from the LoRA
     init, B ~ N(0, 0.003) inside each true rank (B = 0, the init, would
@@ -1080,7 +1307,8 @@ def _task_data(cfg, name):
                              seed=0)
 
 
-def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None):
+def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
+                loss_kind="sft"):
     """One full-size train step with the kernels against the same step on
     their plain versions (LoRA backend "torch": autograd through them),
     per slot: loss, grad norm, and the relative RMS of dA and dB over all
@@ -1100,20 +1328,44 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None):
     bitwise the dense and ragged ones'; then the kernel step runs again
     with ``slot_ranks`` bound to r_max, through the rank-local kernels: its
     per-slot losses and every dA and dB must equal the first kernel step's
-    bit for bit. ``fams`` maps each path to its kernel module."""
-    import contextlib
+    bit for bit. ``fams`` maps each path to its kernel module.
 
+    The kernel runs take flash attention (model backend "kernel": two
+    launches per layer, the forward and its remat recompute), the plain
+    runs the baseline einsum attention (model backend "torch"); one more
+    fault planted in the plain run, every query seeing one future key,
+    must break the loss bar. On the rank-local SFT path, one step's
+    gradients then run under torch.profiler with each attention (the LoRA
+    kernels in both) and the device busy times are printed.
+
+    ``loss_kind`` "dpo" (rank-local path): the same step on DPO_B
+    preference pairs per slot from the DPO phase's PairSlotBatcher, whose
+    policy forwards give the LoRA kernels T = DPO_B * TRAIN_S rows per
+    slot; the same bars and planted faults (the attention fault reaches the
+    reference forwards too). Beside the bars it prints how far apart the
+    two runs' per-slot sequence log-probabilities are, in each of the four
+    forwards."""
     from repro_torch.core import lora as LORA
     from repro_torch.core import steps as STEPS
-    from repro_torch.data.synthetic import SlotBatcher
+    from repro_torch.data.synthetic import PairSlotBatcher, SlotBatcher
+    from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.grouped_lora import ref
+    from repro_torch.models import attention as ATT
+    from repro_torch.models import backend as BK
     from repro_torch.models import model as M
     from repro_torch.optim import adamw
 
     dev = "cuda"
     Z = len(ranks_t)
+    dpo = loss_kind == "dpo"
+    require(not dpo or (path == "rank-local" and rows_t is None),
+            "the DPO train check runs on the rank-local path")
+    tag = f"{path}, {loss_kind}" if dpo else path
     lora, ranks = _train_lora(torch, cfg, M, LORA, ranks_t)
-    nb = SlotBatcher(_task_data(cfg, "rank-sweep"), Z, TRAIN_B, seed=0)
+    if dpo:
+        nb = PairSlotBatcher(*_pair_data(cfg), Z, DPO_B, seed=0)
+    else:
+        nb = SlotBatcher(_task_data(cfg, "rank-sweep"), Z, TRAIN_B, seed=0)
     raw = nb.next_batch_dict()
     if rows_t is not None:     # the pad past each slot's rows
         for z, nr in enumerate(rows_t):
@@ -1137,15 +1389,16 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None):
                 for t, ab in lora.items()}
         opt = adamw.init_state(tree, Z)
         hp = adamw.SlotHParams.broadcast(Z, lr=1e-4, device=dev)
-        with LORA.backend(backend):
-            _, _, met = STEPS.make_train_step(cfg)(
+        with LORA.backend(backend), BK.backend(backend):
+            _, _, met = STEPS.make_train_step(cfg, loss_kind=loss_kind)(
                 params, tree, opt, hp, active, ranks, batch_of(backend))
         return met["per_slot_loss"], met["grad_norm"]
 
     def grads_of(tree, backend, batch=None):
-        with LORA.backend(backend):
+        with LORA.backend(backend), BK.backend(backend):
             return STEPS.lora_grads(cfg, params, tree,
-                                    batch or batch_of(backend), active)
+                                    batch or batch_of(backend), active,
+                                    loss_kind=loss_kind)
 
     def grads(backend):
         return grads_of(lora, backend)
@@ -1157,10 +1410,11 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None):
     t_k = time.perf_counter() - t
     p_loss, p_norm = step("torch")
     torch.cuda.synchronize()
-    print(f"train check ({path}): {cfg.name} full size, Z={Z} ranks "
-          f"{ranks_t}, b={TRAIN_B} S={TRAIN_S}, rows {rows_t or 'all'}; one "
-          f"make_train_step with the kernels {t_k:.2f} s, then on the plain "
-          f"versions")
+    print(f"train check ({tag}): {cfg.name} full size, Z={Z} ranks "
+          f"{ranks_t}, b={DPO_B if dpo else TRAIN_B} "
+          f"{'pairs ' if dpo else ''}S={TRAIN_S}, rows {rows_t or 'all'}; "
+          f"one make_train_step with the kernels {t_k:.2f} s, then on the "
+          f"plain versions")
     def launched_only(want):
         """Require the kernel set ``want`` launched and no other did."""
         counts = {k: dict(m.LAUNCHES) for k, m in fams.items()}
@@ -1170,29 +1424,90 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None):
                 f"{path} train check launched {counts}, expected only "
                 f"the {want} kernels")
 
-    for m in fams.values():
+    @contextlib.contextmanager
+    def seq_logp(into):
+        """Gather each forward's per-slot summed NLL (a DPO loss runs
+        four: policy chosen, policy rejected, reference chosen, reference
+        rejected)."""
+        xent = M.per_slot_xent
+
+        def kept(*args, **kw):
+            out = xent(*args, **kw)
+            into.append(out[0].detach().float())
+            return out
+        M.per_slot_xent = kept
+        try:
+            yield
+        finally:
+            M.per_slot_xent = xent
+
+    for m in (*fams.values(), FA):
         m.reset_launches()
-    k_gloss, gk = grads("kernel")
+    nll_k, nll_p = [], []
+    with seq_logp(nll_k):
+        k_gloss, gk = grads("kernel")
     torch.cuda.synchronize()
     launched_only(path)
-    _, gp = grads("torch")
+    with seq_logp(nll_p):
+        _, gp = grads("torch")
+    torch.cuda.synchronize()
+    flash_want = _step_launches(cfg, loss_kind)[2][0]
+    require(FA.LAUNCHES["flash_attention"] == flash_want,
+            f"{tag} train check: flash launched {FA.LAUNCHES}, expected "
+            f"{flash_want} in the kernel run and 0 in the plain one")
+    names = (("policy chosen", "policy rejected", "reference chosen",
+              "reference rejected") if dpo else ("forward",))
+    require(len(nll_k) == len(nll_p) == len(names),
+            f"{tag} train check: {len(nll_k)}/{len(nll_p)} forwards, "
+            f"expected {len(names)}")
 
-    def rel_rms(a, b, m):
-        """Per slot ||a - b|| / ||gp|| over leaf ``m`` of every target,
-        normalized by the sound plain run's gradient."""
+    def dlm(loss):
+        """Per slot |d loss / d margin| of a DPO loss -log sigmoid(m),
+        from the loss itself: 1 - sigmoid(m) = 1 - exp(-loss); 1 for
+        SFT."""
+        return -torch.expm1(-loss) if dpo else torch.ones_like(loss)
+
+    def rel_rms(a, b, m, fa, fb, fs):
+        """Per slot ||a / fa - b / fb|| / ||gp / fs|| over leaf ``m`` of
+        every target, normalized by the sound plain run's gradient."""
         num = den = 0.0
         for t in b:
             dims = (0, 2, 3)
-            num = num + (a[t][m] - b[t][m]).float().square().sum(dims)
-            den = den + gp[t][m].float().square().sum(dims)
+            num = num + (a[t][m] / fa[None, :, None, None]
+                         - b[t][m] / fb[None, :, None, None]
+                         ).float().square().sum(dims)
+            den = den + (gp[t][m] / fs[None, :, None, None]
+                         ).float().square().sum(dims)
         return (num / den).sqrt()
 
-    def gap(loss, norm, g):
-        """Kernel run vs a plain run, relative to the sound plain run."""
-        return {"loss": ((k_loss - loss).abs() / p_loss.abs()).tolist(),
-                "grad_norm": ((k_norm - norm).abs() / p_norm).tolist(),
-                "dA": rel_rms(gk, g, "A").tolist(),
-                "dB": rel_rms(gk, g, "B").tolist()}
+    def gap(loss, norm, g, nll, raw=False):
+        """Kernel run vs a plain run, relative to the sound plain run. SFT:
+        the per-slot loss, grad norm, dA and dB. DPO (unless ``raw``):
+        each of the four forwards' per-slot summed NLL (the SFT loss's
+        quantity, summed), and the gradients of the margin (each run's
+        per-slot gradients divided by its own |d loss / d margin|)."""
+        margin = dpo and not raw
+        fa, fb, fs = ((dlm(k_loss), dlm(loss), dlm(p_loss)) if margin
+                      else (one, one, one))
+        if margin:
+            lg = torch.stack([(a - b).abs() / c.abs() for a, b, c in
+                              zip(nll_k, nll, nll_p)]).amax(0)
+        else:
+            lg = (k_loss - loss).abs() / p_loss.abs()
+        return {"loss": lg.tolist(),
+                "grad_norm": ((k_norm / fa - norm / fb).abs()
+                              / (p_norm / fs)).tolist(),
+                "dA": rel_rms(gk, g, "A", fa, fb, fs).tolist(),
+                "dB": rel_rms(gk, g, "B", fa, fb, fs).tolist()}
+
+    def plain_run(tree=None, batch=None):
+        """(per-slot loss, grads, per-forward summed NLL) of a plain
+        run."""
+        nll = []
+        with seq_logp(nll):
+            loss, g = grads_of(lora if tree is None else tree, "torch",
+                               batch)
+        return loss, g, nll
 
     bars = {"loss": TRAIN_LOSS_REL, "grad_norm": TRAIN_NORM_REL,
             "dA": TRAIN_GRAD_REL_RMS, "dB": TRAIN_GRAD_REL_RMS}
@@ -1204,13 +1519,25 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None):
         return "; ".join(f"{k} {[float(f'{v:.4g}') for v in g[k]]}"
                          for k in bars)
 
-    sound = gap(p_loss, p_norm, gp)
-    print(f"train check ({path}): kernels vs plain per slot (relative): "
+    one = torch.ones_like(p_loss)
+    sound = gap(p_loss, p_norm, gp, nll_p)
+    if dpo:
+        print(f"train check ({tag}): the DPO loss -log sigmoid(beta x "
+              f"margin) reads a difference of four per-slot sums of "
+              f"{DPO_B * TRAIN_S} token NLLs (~{float(nll_p[0].mean()):.0f} "
+              f"nats each), which amplifies the backbone's bf16 rounding; "
+              f"raw per-slot readings, not held: "
+              f"{show(gap(p_loss, p_norm, gp, nll_p, raw=True))}. Held "
+              f"instead: 'loss' = the largest relative gap of the four "
+              f"forwards' summed NLL (the SFT loss's quantity), the "
+              f"gradients divided by each run's own |d loss / d margin| "
+              f"{[float(f'{v:.4g}') for v in dlm(k_loss).tolist()]}")
+    print(f"train check ({tag}): kernels vs plain per slot (relative): "
           f"{show(sound)}; bars {bars}")
     require(bool(torch.isfinite(k_loss).all()
                  and torch.isfinite(k_norm).all()),
             "train step losses or grad norms not finite")
-    require(within(sound), f"{path} kernel train step too far from the "
+    require(within(sound), f"{tag} kernel train step too far from the "
             "plain one")
 
     # planted faults in the plain run, each held to the same bars
@@ -1238,15 +1565,15 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None):
     g0 = faulted("A", 0, 0.0)
     g3 = faulted("B", Z - 1, 0.5)
     with lora_dx_dropped():
-        f_loss, g_nodx = grads("torch")
+        f_loss, g_nodx, f_nll = plain_run()
     controls = [
-        (f"slot 0 (rank {ranks_t[0]}) dA zeroed", p_loss, g0),
-        (f"slot {Z - 1} (rank {ranks_t[-1]}) dB halved", p_loss, g3),
-        ("LoRA branch dX dropped", f_loss, g_nodx),
+        (f"slot 0 (rank {ranks_t[0]}) dA zeroed", p_loss, g0, nll_p),
+        (f"slot {Z - 1} (rank {ranks_t[-1]}) dB halved", p_loss, g3, nll_p),
+        ("LoRA branch dX dropped", f_loss, g_nodx, f_nll),
     ]
-    for label, loss, g in controls:
-        c = gap(loss, adamw.per_slot_global_norm(g), g)
-        print(f"train check ({path}): control, {label}: {show(c)}")
+    for label, loss, g, nll in controls:
+        c = gap(loss, adamw.per_slot_global_norm(g), g, nll)
+        print(f"train check ({tag}): control, {label}: {show(c)}")
         require(not within(c), f"control '{label}' passes the train bars")
     del g0, g3, g_nodx
     # the forward fault: slot 0's delta halved (its B halved) in the plain
@@ -1254,21 +1581,67 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None):
     half = {t: {"A": ab["A"], "B": ab["B"].clone()} for t, ab in lora.items()}
     for ab in half.values():
         ab["B"][:, 0] *= 0.5
-    h_loss, g_half = grads_of(half, "torch")
-    c = gap(h_loss, adamw.per_slot_global_norm(g_half), g_half)
-    print(f"train check ({path}): control, slot 0 (rank {ranks_t[0]}) delta "
+    h_loss, g_half, h_nll = plain_run(half)
+    c = gap(h_loss, adamw.per_slot_global_norm(g_half), g_half, h_nll)
+    print(f"train check ({tag}): control, slot 0 (rank {ranks_t[0]}) delta "
           f"halved in the forward: {show(c)}")
     require(max(c["loss"]) > TRAIN_LOSS_REL,
             "control 'slot 0 delta halved' passes the loss bar")
     del g_half, half
+
+    @contextlib.contextmanager
+    def attention_peeks_ahead():
+        """The plain (baseline) attention with every query seeing one
+        future key."""
+        plain = ATT.causal_mask_bias
+
+        def ahead(q_pos, k_pos, window=0):
+            return plain(q_pos + 1, k_pos, window)
+        ATT.causal_mask_bias = ahead
+        try:
+            yield
+        finally:
+            ATT.causal_mask_bias = plain
+
+    with attention_peeks_ahead():
+        a_loss, g_att, a_nll = plain_run()
+    c = gap(a_loss, adamw.per_slot_global_norm(g_att), g_att, a_nll)
+    print(f"train check ({tag}): control, every query sees one future key "
+          f"in the plain attention: {show(c)}")
+    require(max(c["loss"]) > TRAIN_LOSS_REL,
+            "control 'one future key' passes the loss bar")
+    del g_att
+    if path == "rank-local" and not dpo:
+        # one step's gradients, LoRA kernels both times: flash attention,
+        # then the baseline einsum attention
+        busy = {}
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        for attn in ("kernel", "torch"):
+            with (LORA.backend("kernel"), BK.backend(attn),
+                  torch.profiler.profile(activities=acts) as prof):
+                STEPS.lora_grads(cfg, params, lora, kbatch, active)
+                torch.cuda.synchronize()
+            evs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy[attn] = (sum(us for _, us in evs) / 1e3,
+                          sum(us for n, us in evs if "flash_fwd" in n) / 1e3)
+        print(f"train check ({path}): one step's gradients (lora_grads, "
+              f"profiler on): device busy {busy['kernel'][0]:.2f} ms with "
+              f"flash attention (the flash kernel {busy['kernel'][1]:.2f} ms "
+              f"of it, {2 * cfg.num_layers} launches), "
+              f"{busy['torch'][0]:.2f} ms with the baseline einsum attention "
+              f"(difference {busy['torch'][0] - busy['kernel'][0]:.2f} ms)"
+              if busy["kernel"][0] else
+              f"train check ({path}): no device events traced: not measured")
     if rows_t is not None:
         # the narrow slots' last live row tile treated as dead in the plain
         # forward: its rows lose their LoRA delta
         cut = [nr - ROW_TILE if nr < max(rows_t) else nr for nr in rows_t]
         short = dict(pbatch, slot_rows=torch.tensor(cut, dtype=torch.int32,
                                                     device=dev))
-        t_loss, g_tile = grads_of(lora, "torch", short)
-        c = gap(t_loss, adamw.per_slot_global_norm(g_tile), g_tile)
+        t_loss, g_tile, t_nll = plain_run(batch=short)
+        c = gap(t_loss, adamw.per_slot_global_norm(g_tile), g_tile, t_nll)
         print(f"train check ({path}): control, the narrow slots' last live "
               f"{ROW_TILE}-row tile dead in the forward (rows {cut}): "
               f"{show(c)}")
@@ -1296,18 +1669,25 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None):
     torch.cuda.empty_cache()
 
 
-def _step_launches(cfg):
-    """Launches of each kernel of the path's set per fused train step
-    (remat runs each forward twice; the first layer's q/k/v read the normed
-    embedding, which hangs off no differentiable leaf, so their LoRA dX is
-    never asked for) and per eval step (the forward pair once)."""
+def _step_launches(cfg, loss_kind="sft"):
+    """Launches per fused train step and per eval step: of each kernel of
+    the path's grouped-LoRA set (remat runs each forward twice; the first
+    layer's q/k/v read the normed embedding, which hangs off no
+    differentiable leaf, so their LoRA dX is never asked for), and of flash
+    attention (once per layer of every forward and every recompute). A DPO
+    step runs two policy forwards (chosen, rejected) through the adapters
+    and two reference forwards without them, under no_grad (no remat)."""
+    policy, reference = (2, 2) if loss_kind == "dpo" else (1, 0)
     per_forward = len(cfg.lora.targets) * cfg.num_layers
     no_dx = len({"q_proj", "k_proj", "v_proj"} & set(cfg.lora.targets))
-    train = {"xa": 2 * per_forward, "sb_add": 2 * per_forward,
-             "ds": per_forward, "dx": per_forward - no_dx,
-             "da": per_forward, "db": per_forward}
-    return train, {k: (per_forward if k in ("xa", "sb_add") else 0)
-                   for k in train}
+    train = {"xa": 2 * policy * per_forward, "sb_add": 2 * policy * per_forward,
+             "ds": policy * per_forward, "dx": policy * (per_forward - no_dx),
+             "da": policy * per_forward, "db": policy * per_forward}
+    evals = {k: (policy * per_forward if k in ("xa", "sb_add") else 0)
+             for k in train}
+    L = cfg.num_layers
+    return train, evals, ((2 * policy + reference) * L,
+                          (policy + reference) * L)
 
 
 def _clock(torch, ex, spent):
@@ -1332,39 +1712,52 @@ def _clock(torch, ex, spent):
         clocked(name)
 
 
-def executor_phase(torch, fam, others, cfg, params, task, jobs):
+def executor_phase(torch, fam, others, cfg, params, task, jobs,
+                   loss_kind="sft", batcher=None, b=TRAIN_B):
     """A sweep through the port's entry point: BatchedExecutor.run_task on
     full-size stablelm-3b, ``jobs`` (8) on 4 slots. Every fused train step
     and every eval step is wrapped to count the launches of the kernel set
-    ``fam`` (the path's: rank-local for a rank sweep, dense for a full-rank
-    lr sweep) and time it; the other sets, ``others``, must launch nothing
-    in the run. Two train steps of the second warmup wave run under
-    torch.profiler."""
+    ``fam`` (the path's: rank-local for a rank sweep or DPO, dense for a
+    full-rank lr sweep) and of flash attention, and time it; the other
+    sets, ``others``, must launch nothing in the run. Two train steps of
+    the second warmup wave run under torch.profiler. ``loss_kind`` "dpo"
+    trains preference pairs from ``batcher`` (a PairSlotBatcher), b pairs
+    per slot; every slot's first loss must then read log 2."""
     from repro_torch.core.early_exit import EarlyExitConfig
     from repro_torch.core.executor import BatchedExecutor, TaskResult
+    from repro_torch.kernels.flash_attention import flash_attention as FA
 
     sync = torch.cuda.synchronize
     Z = 4
-    want_train, want_eval = _step_launches(cfg)
-    bx = BatchedExecutor(cfg, params, _task_data(cfg, task), Z=Z,
-                         per_adapter_batch=TRAIN_B,
+    lora_train, lora_eval, (flash_train, flash_eval) = _step_launches(
+        cfg, loss_kind)
+    want_train = {**lora_train, "flash_attention": flash_train}
+    want_eval = {**lora_eval, "flash_attention": flash_eval}
+    bx = BatchedExecutor(cfg, params,
+                         _task_data(cfg, task) if batcher is None else None,
+                         Z=Z, per_adapter_batch=b,
                          ee=EarlyExitConfig(warmup_ratio=0.25,
                                             select_ratio=0.25),
-                         eval_every=2)
+                         eval_every=2, loss_kind=loss_kind, batcher=batcher,
+                         seq_cap=TRAIN_S)
     ex = bx.backbone
     # per step: (launch deltas, ms, real tokens, profiled, resident slots)
     log = {"train": [], "eval": []}
     prof = {"busy_us": 0.0, "wall_us": 0.0, "kernels": {}}
     traces = []
+    first = {}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+
+    def counts():
+        return {**fam.LAUNCHES, **FA.LAUNCHES}
 
     def counted(fn, kind):
         def run(*args):
             tokens = ex.slots.occupied_tokens()
             residents = len(ex.slots.occupied())
             profiled = kind == "train" and len(log["train"]) in (2, 3)
-            before = dict(fam.LAUNCHES)
+            before = counts()
             sync()
             t = time.perf_counter()
             if profiled:
@@ -1375,7 +1768,11 @@ def executor_phase(torch, fam, others, cfg, params, task, jobs):
                 out = fn(*args)
                 sync()
             dt = time.perf_counter() - t
-            delta = {k: fam.LAUNCHES[k] - before[k] for k in before}
+            now = counts()
+            delta = {k: now[k] - before[k] for k in before}
+            if kind == "train" and not log["train"]:
+                first.update(loss=out[2]["per_slot_loss"].float().cpu(),
+                             active=ex.slots.active.cpu().clone())
             log[kind].append((delta, dt * 1e3, tokens, profiled, residents))
             if profiled:     # its events are read after run_task
                 prof["wall_us"] += dt * 1e6
@@ -1395,12 +1792,12 @@ def executor_phase(torch, fam, others, cfg, params, task, jobs):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for m in (fam, *others):
+    for m in (fam, *others, FA):
         m.reset_launches()
     t0 = time.perf_counter()
     result = bx.run_task(task, jobs, total_steps=8)
     wall = time.perf_counter() - t0
-    launches = dict(fam.LAUNCHES)
+    launches = counts()
     stray = [dict(m.LAUNCHES) for m in others]
     peak = torch.cuda.max_memory_allocated()
     for p in traces:
@@ -1414,6 +1811,15 @@ def executor_phase(torch, fam, others, cfg, params, task, jobs):
 
     require(isinstance(result, TaskResult) and result.best_job in jobs,
             f"run_task returned {result!r}")
+    tag = f"executor ({task})"
+    if loss_kind == "dpo":
+        live = first["active"].bool()
+        gap = (first["loss"] - math.log(2.0)).abs()[live]
+        print(f"{tag}: first train step's per-slot DPO losses "
+              f"{first['loss'].tolist()} (active {first['active'].tolist()}); "
+              f"largest |loss - log 2| {float(gap.max()):.3g} (bar 1e-3)")
+        require(bool(live.any()) and float(gap.max()) <= 1e-3,
+                "a slot's first DPO loss is not log 2 within 1e-3")
     finite = [r.best_val for r in result.job_results.values()
               if r.exit_reason is None or r.exit_reason.value != "diverging"]
     require(all(v == v and abs(v) < float("inf") for v in finite),
@@ -1443,7 +1849,6 @@ def executor_phase(torch, fam, others, cfg, params, task, jobs):
         if not p:
             by_res.setdefault(k, []).append((ms, tok))
     eval_ms = statistics.median(ms for _, ms, *_ in log["eval"][1:])
-    tag = f"executor ({task})"
     print(f"{tag}: BatchedExecutor.run_task('{task}', {len(jobs)} jobs, "
           f"total_steps=8) on {cfg.name}: best {result.best_job} "
           f"(val {result.best_val:.4f}), exits {result.exit_counts}, "
@@ -1474,11 +1879,14 @@ def executor_phase(torch, fam, others, cfg, params, task, jobs):
           f"median eval step {eval_ms:.2f} ms ([{Z}, {EVAL_B}, {TRAIN_S}] "
           f"tokens); peak memory {peak / 2**30:.2f} GiB")
     busy, pw = prof["busy_us"], prof["wall_us"]
+    flash_us = sum(us for name, (_, us) in prof["kernels"].items()
+                   if "flash_fwd" in name)
     print(f"profile ({task}): 2 train steps (profiler on) {pw / 2e3:.2f} "
           f"ms/step wall, device busy {busy / 2e3:.2f} ms/step = "
           f"{busy / pw:.3f} of the wall, "
           f"{sum(n for n, _ in prof['kernels'].values()) / 2:.0f} "
-          f"device events/step" if busy else
+          f"device events/step; flash attention {flash_us / 2e3:.2f} "
+          f"ms/step = {flash_us / busy:.3f} of the device time" if busy else
           f"profile ({task}): no device events traced: not measured")
     for name, (n, us) in sorted(prof["kernels"].items(),
                                 key=lambda kv: -kv[1][1])[:10]:
@@ -1518,6 +1926,7 @@ def colocated_phase(torch, fams, cfg):
     from repro_torch.core.executor import (SharedBackboneExecutor,
                                            TaskLifecycle, run_colocated)
     from repro_torch.data.synthetic import SlotBatcher, make_task_dataset
+    from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.models import model as M
 
     cfg = dataclasses.replace(cfg, num_layers=COLO_LAYERS)
@@ -1552,7 +1961,7 @@ def colocated_phase(torch, fams, cfg):
                 ee=EarlyExitConfig(warmup_ratio=0.25, select_ratio=1.0),
                 max_slots=2, batcher=SlotBatcher(data[name], 2, ex.b_cap,
                                                  seed=seed), seed=seed))
-        for m in fams.values():
+        for m in (*fams.values(), FA):
             m.reset_launches()
         results = run_colocated(ex, lcs)
         torch.cuda.synchronize()
@@ -1561,7 +1970,10 @@ def colocated_phase(torch, fams, cfg):
                                 for j, m in lc.monitors.items()}
                  for lc in lcs}
         launched = {k: sum(m.LAUNCHES.values()) for k, m in fams.items()}
+        launched["flash"] = FA.LAUNCHES["flash_attention"]
         print(f"colocated: {' + '.join(chosen)}: launches {launched}")
+        require(launched["flash"] > 0,
+                f"colocated {chosen}: flash attention never launched")
         return results, hists, launched
 
     t = time.perf_counter()
@@ -1606,6 +2018,189 @@ def colocated_phase(torch, fams, cfg):
     torch.cuda.empty_cache()
 
 
+def _pair_data(cfg):
+    """The DPO task's preference data: 'chosen' sequences from a
+    low-entropy chain, 'rejected' from a near-uniform one."""
+    from repro_torch.data.synthetic import make_task_dataset
+    return tuple(make_task_dataset(name, cfg.vocab_size, seq_len=TRAIN_S,
+                                   num_train=64, num_val=EVAL_B,
+                                   difficulty=diff, seed=seed)
+                 for name, diff, seed in (("dpo-chosen", 0.2, 5),
+                                          ("dpo-rejected", 0.9, 6)))
+
+
+def _dpo_jobs():
+    from repro_torch.configs.base import TrainConfig
+    return {f"r{r}-lr{lr:g}": TrainConfig(learning_rate=lr, lora_rank=r,
+                                          per_adapter_batch=DPO_B)
+            for r in TRAIN_RANKS for lr in (1e-4, 1e-3)}
+
+
+def recovery_phase(torch, cfg):
+    """Crash and resume of the DPO task on the card, stablelm-3b at full
+    width and COLO_LAYERS layers, RECOVERY_STEPS steps per job (three
+    warmup steps per wave, so the third chunk boundary falls inside the
+    second wave, with the first wave's jobs rotated out: the crash lands
+    mid-rotation): uninterrupted; crashed by a
+    SimulatedCrash after the third durable checkpoint (TaskCheckpointer,
+    every chunk); resumed from the latest file on a fresh executor. The
+    tail's per-step losses of every resident job, every job's loss
+    history, the best job and value and the winner's adapter must equal the
+    uninterrupted run's bit for bit, with fewer steps run; resuming from the
+    same file with one AdamW first moment of the uninterrupted run's winner
+    perturbed must change the loss histories and the winner's adapter (the
+    tail's losses may still read equal: the DPO losses saturate to 0 within
+    a few steps here). The crash comes after the third save, or after
+    the last if early exits end the task sooner (the checkpointer saves
+    only at the chunk boundaries of a live task)."""
+    import dataclasses
+
+    from repro_torch.checkpoint.taskstate import (SimulatedCrash,
+                                                  TaskCheckpointer,
+                                                  load_task_checkpoint)
+    from repro_torch.core.early_exit import EarlyExitConfig
+    from repro_torch.core.executor import BatchedExecutor
+    from repro_torch.data.synthetic import PairSlotBatcher
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(cfg, num_layers=COLO_LAYERS)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    chosen, rejected = _pair_data(cfg)
+    jobs = _dpo_jobs()
+    task = "dpo-recovery"
+
+    def executor(steps, seen):
+        """A fresh executor whose train steps log each resident job's loss
+        and keep the lifecycle, and whose hook counts the live chunk
+        boundaries."""
+        bx = BatchedExecutor(
+            cfg, params, None, Z=4, per_adapter_batch=DPO_B,
+            ee=EarlyExitConfig(warmup_ratio=0.25, select_ratio=0.25),
+            eval_every=2, loss_kind="dpo",
+            batcher=PairSlotBatcher(chosen, rejected, 4, DPO_B, seed=0),
+            seq_cap=TRAIN_S)
+        ex, step = bx.backbone, bx.backbone._train_step
+
+        def logged(*args):
+            out = step(*args)
+            loss = out[2]["per_slot_loss"].cpu()
+            (lc,) = ex.resident_tasks()
+            steps.append({job: float(loss[slot])
+                          for job, (_, slot) in lc.resident.items()})
+            seen["lc"] = lc
+            return out
+        ex._train_step = logged
+
+        def hook(lc, chunk_i):
+            seen["boundaries"] = seen.get("boundaries", 0) + 1
+        bx.ckpt_hook = hook
+        return bx
+
+    def drain(gen):
+        while True:
+            try:
+                next(gen)
+            except StopIteration as done:
+                return done.value
+
+    def histories(lc):
+        return {j: (tuple(m.val_hist), tuple(m.raw_train_hist))
+                for j, m in lc.monitors.items()}
+
+    def same_winner(a, b):
+        wa = a.job_results[a.best_job].adapter
+        wb = b.job_results[b.best_job].adapter
+        return (a.best_job == b.best_job and a.best_val == b.best_val
+                and all(torch.equal(wa[t][m], wb[t][m])
+                        for t in wa for m in wa[t]))
+
+    t = time.perf_counter()
+    steps0, seen0 = [], {}
+    res0 = executor(steps0, seen0).run_task(task, jobs, RECOVERY_STEPS)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t
+    fail_after = min(3, seen0["boundaries"])
+    print(f"recovery: the uninterrupted run passed {seen0['boundaries']} "
+          f"live chunk boundaries: crash after save {fail_after}")
+    with tempfile.TemporaryDirectory() as state_dir:
+        ck = TaskCheckpointer(state_dir, every=1)
+        ck.fail_after["*"] = fail_after
+        bx = executor([], {})
+        bx.ckpt_hook = ck.on_chunk
+        crash = None
+        t = time.perf_counter()
+        try:
+            bx.run_task(task, jobs, RECOVERY_STEPS)
+        except SimulatedCrash as e:      # the check's own mechanism
+            crash = e
+        t_crash = time.perf_counter() - t
+        require(crash is not None,
+                f"the run did not crash at save {fail_after}")
+        path = ck.latest(task)
+        size = Path(path).stat().st_size
+        del bx
+        gc.collect()
+        t = time.perf_counter()
+        state = load_task_checkpoint(path)
+        require(state is not None, f"checkpoint {path} did not load")
+        steps1, seen1 = [], {}
+        res1 = drain(executor(steps1, seen1).resume_task_chunks(
+            task, jobs, RECOVERY_STEPS, state,
+            start_chunk=state[1]["chunk"]))
+        torch.cuda.synchronize()
+        t_resume = time.perf_counter() - t
+        # the same file with one first moment of the winner perturbed
+        tree, meta = load_task_checkpoint(path)
+        job = res0.best_job
+        require(job in tree["snap"], f"the winner {job} has no state in the "
+                f"checkpoint (jobs {sorted(tree['snap'])})")
+        tree["snap"][job]["mu"]["q_proj"]["A"].reshape(-1)[0] += 1e-3
+        steps2, seen2 = [], {}
+        res2 = drain(executor(steps2, seen2).resume_task_chunks(
+            task, jobs, RECOVERY_STEPS, (tree, meta),
+            start_chunk=meta["chunk"]))
+    tail = steps0[len(steps0) - len(steps1):]
+    print(f"recovery: {cfg.name} d={cfg.d_model} L={cfg.num_layers}, DPO, "
+          f"{len(jobs)} jobs on 4 slots: uninterrupted {len(steps0)} train "
+          f"steps in {t_run:.1f} s; crashed ({crash}) in {t_crash:.1f} s "
+          f"(checkpoint at chunk {state[1]['chunk']}, phase "
+          f"{state[1]['phase']}, {size / 2**20:.0f} MiB); resumed "
+          f"{len(steps1)} train steps in {t_resume:.1f} s")
+
+    def versus(steps, seen, res):
+        """(tail per-job losses, every loss history, every job's result,
+        the winner and its adapter) each equal to the uninterrupted
+        run's."""
+        return (steps == tail,
+                histories(seen["lc"]) == histories(seen0["lc"]),
+                all((r.best_val, r.best_val_step, r.exit_reason,
+                     r.steps_trained)
+                    == (res0.job_results[j].best_val,
+                        res0.job_results[j].best_val_step,
+                        res0.job_results[j].exit_reason,
+                        res0.job_results[j].steps_trained)
+                    for j, r in res.job_results.items()),
+                same_winner(res, res0))
+
+    same = versus(steps1, seen1, res1)
+    print(f"recovery: resumed vs uninterrupted, bitwise equal: tail per-job "
+          f"losses, every loss history, every job's result, the winner and "
+          f"its adapter {same}; best {res1.best_job} (val "
+          f"{res1.best_val!r}) vs {res0.best_job} ({res0.best_val!r})")
+    require(all(same), "the resumed run differs from the uninterrupted one")
+    require(0 < len(steps1) < len(steps0),
+            f"resumed {len(steps1)} steps, uninterrupted {len(steps0)}")
+    moved = versus(steps2, seen2, res2)
+    print(f"recovery: control, the winner {job}'s mu[q_proj.A][0] + 1e-3 in "
+          f"the file: tail, histories, results, winner and adapter equal "
+          f"{moved}")
+    require(not moved[1] and not moved[3],
+            "a perturbed AdamW moment of the winner left the loss histories "
+            "or the winner's adapter unchanged")
+    del params
+    torch.cuda.empty_cache()
+
+
 def _kernel_family(name: str) -> str:
     """The kernel set a profiled grouped-LoRA kernel belongs to, read from
     its last two template arguments (ROWS, RANKS); "" for other kernels."""
@@ -1642,11 +2237,13 @@ def colocation_phase(torch, fams, cfg, params):
     from repro_torch.core.executor import (SharedBackboneExecutor,
                                            TaskLifecycle, run_colocated)
     from repro_torch.data.synthetic import make_task_dataset
+    from repro_torch.kernels.flash_attention import flash_attention as FA
 
     sync = torch.cuda.synchronize
     Z = 4
-    want_train, want_eval = _step_launches(cfg)
+    want_train, want_eval, (flash_train, flash_eval) = _step_launches(cfg)
     zero = dict.fromkeys(want_train, 0)
+    fams = dict(fams, flash=FA)
     gc.collect()
     torch.cuda.empty_cache()
     ex = SharedBackboneExecutor(cfg, params, Z=Z, per_adapter_batch=TRAIN_B,
@@ -1770,14 +2367,17 @@ def colocation_phase(torch, fams, cfg, params):
     for i, (mix, dense, d, *_rest) in enumerate(log["train"]):
         used, unused = ("dense", "ragged") if dense else ("ragged", "dense")
         require(d[used] == want_train and d[unused] == zero
-                and d["rank-local"] == zero,
+                and d["rank-local"] == zero
+                and d["flash"]["flash_attention"] == flash_train,
                 f"train step {i} ({mix}, dense {dense}) launched {d}, "
-                f"expected {want_train} of the {used} kernels only")
+                f"expected {want_train} of the {used} kernels only and "
+                f"flash {flash_train}")
     for i, d in enumerate(log["eval"]):
         require(d["dense"] == want_eval and d["ragged"] == zero
-                and d["rank-local"] == zero,
+                and d["rank-local"] == zero
+                and d["flash"]["flash_attention"] == flash_eval,
                 f"eval step {i} launched {d}, expected {want_eval} of the "
-                f"dense kernels only")
+                f"dense kernels only and flash {flash_eval}")
     n_dense = sum(1 for _, dense, *_ in log["train"] if dense)
     require(not any(dense for _, dense, _, _, _, p in log["train"] if p),
             "a profiled train step was not a mixed-width one")
@@ -1791,8 +2391,9 @@ def colocation_phase(torch, fams, cfg, params):
     n_train, n_eval = len(log["train"]), len(log["eval"])
     print(f"{tag}: {n_train} fused train steps ({n_train - n_dense} ragged, "
           f"{n_dense} dense), {n_eval} eval steps; launches per train step "
-          f"{want_train} of the set its dense flag selects, per eval step "
-          f"{want_eval} (every step checked); run totals {totals}")
+          f"{want_train} of the set its dense flag selects and flash "
+          f"{flash_train}, per eval step {want_eval} and flash {flash_eval} "
+          f"(every step checked); run totals {totals}")
     trained = sum(tok for _, _, _, _, tok, _ in log["train"])
     capacity = n_train * Z * TRAIN_B * TRAIN_S
     prof_tok = sum(tok for _, _, _, _, tok, p in log["train"] if p)
@@ -1825,6 +2426,10 @@ def colocation_phase(torch, fams, cfg, params):
           f"peak memory {peak / 2**30:.2f} GiB")
     busy, pw = prof["busy_us"], prof["wall_us"]
     if busy:
+        flash_us = sum(us for name, (_, us) in prof["kernels"].items()
+                       if "flash_fwd" in name)
+        print(f"profile ({tag}): flash attention {flash_us / 2e3:.2f} "
+              f"ms/step = {flash_us / busy:.3f} of the device time")
         print(f"profile ({tag}): 2 mixed-width train steps (profiler on) "
               f"{pw / 2e3:.2f} ms/step wall, device busy {busy / 2e3:.2f} "
               f"ms/step = {busy / pw:.3f} of the wall, "
@@ -1851,8 +2456,13 @@ def main() -> int:
               "from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.registry import get_arch
+    from repro_torch.data.synthetic import PairSlotBatcher
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.grouped_lora import grouped_lora as GL
     from repro_torch.kernels.grouped_lora import ragged as RG
     from repro_torch.kernels.grouped_lora import ranklocal as RL
@@ -1867,10 +2477,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t = time.perf_counter()
-    lib = RL.build()
-    print(f"build: {lib.name} from {len(RL.SOURCES)} sources "
-          f"({', '.join(p.name for p in RL.SOURCES)}, one nvcc each, started "
-          f"together) in {time.perf_counter() - t:.2f} s")
+    with ThreadPoolExecutor(2) as pool:     # every nvcc starts at once
+        builds = [(m, pool.submit(m.build)) for m in (RL, FA)]
+    for m, fut in builds:
+        lib = fut.result()
+        print(f"build: {lib.name} from {len(m.SOURCES)} sources "
+              f"({', '.join(p.name for p in m.SOURCES)})")
+    print(f"build: {sum(len(m.SOURCES) for m, _ in builds)} sources, one "
+          f"nvcc each, started together, in {time.perf_counter() - t:.2f} s")
 
     print(f"kernels on {card}:")
     kern = kernel_phase(torch, RL, ref)
@@ -1880,10 +2494,11 @@ def main() -> int:
         kern.setdefault(name, {}).update(res, max_abs_err=err)
     dense = dense_kernel_phase(torch, GL, RL, ref)
     ragged = ragged_kernel_phase(torch, RG, GL, RL, ref)
-    print(f"kernel phases done at {time.perf_counter() - t_all:.1f} s")
     fams = {"dense": GL, "ragged": RG, "rank-local": RL}
-
     cfg = get_arch("stablelm-3b")
+    flash = flash_kernel_phase(torch, FA, fref, cfg)
+    print(f"kernel phases done at {time.perf_counter() - t_all:.1f} s")
+
     t = time.perf_counter()
     params = M.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -1917,6 +2532,20 @@ def main() -> int:
     colo_launches = colocation_phase(torch, fams, cfg, params)
     print(f"heterogeneous co-location phase done at "
           f"{time.perf_counter() - t_all:.1f} s")
+    train_check(torch, fams, cfg, params, TRAIN_RANKS, "rank-local",
+                loss_kind="dpo")
+    print(f"DPO train check done at {time.perf_counter() - t_all:.1f} s")
+    chosen, rejected = _pair_data(cfg)
+    dpo_launches = executor_phase(
+        torch, RL, (GL, RG), cfg, params, "dpo", _dpo_jobs(),
+        loss_kind="dpo", b=DPO_B,
+        batcher=PairSlotBatcher(chosen, rejected, 4, DPO_B, seed=0))
+    print(f"DPO executor phase done at {time.perf_counter() - t_all:.1f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    recovery_phase(torch, cfg)
+    print(f"recovery phase done at {time.perf_counter() - t_all:.1f} s")
 
     csrc = "src/repro_torch/kernels/grouped_lora/csrc"
     rows = [  # (name, kernel source, TPU kernel file, its pallas_call line)
@@ -1943,7 +2572,8 @@ def main() -> int:
                 "colocation": colo_launches["ragged"][name]}, ragged[name]
         else:
             prefix, by_path, res = "ranklocal", {
-                "train": train_launches[name]}, kern[name]
+                "train": train_launches[name],
+                "dpo": dpo_launches[name]}, kern[name]
             if name in serve_launches:
                 by_path["serve"] = serve_launches[name]
         table["kernels"].append({
@@ -1952,6 +2582,18 @@ def main() -> int:
             "replaces": f"src/repro/kernels/grouped_lora/{tpu}:{line}",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             **res})
+    by_path = {"serve": serve_launches["flash_attention"],
+               "train": train_launches["flash_attention"],
+               "lr_sweep": lr_launches["flash_attention"],
+               "colocation": colo_launches["flash"]["flash_attention"],
+               "dpo": dpo_launches["flash_attention"]}
+    table["kernels"].append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:89",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        **flash})
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(card_line())
     print(json.dumps(table))

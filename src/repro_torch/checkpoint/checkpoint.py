@@ -5,12 +5,16 @@
 dict path (keys sorted, as JAX flattens dicts), bf16 stored as raw
 ``uint16`` bits, plus ``__meta__`` and ``__dtypes__`` JSON entries. An
 adapter saved by either package therefore loads in the other.
+``save_state_tree`` / ``load_state_tree`` do the same for the JAX package's
+free-form nested-dict checkpoints (the durable lifecycle state of
+``checkpoint/taskstate.py``): positional arrays, their leaf paths and dtypes
+as JSON, dict order kept.
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -100,7 +104,76 @@ def load_pytree(path: str, like: Any) -> Tuple[Any, Dict]:
     return _unflatten(out), meta
 
 
+def save_state_tree(path: str, tree: Dict,
+                    meta: Optional[Dict] = None) -> None:
+    """Free-form nested-dict checkpoint (always atomic).
+
+    Keys may contain ``/`` (job ids do: ``task/label``) and no ``like``
+    template is needed to load: leaf paths are stored as a JSON array
+    beside positional arrays. Leaves are tensors (any device) or numpy
+    arrays. Dict insertion order survives a round trip, which the
+    lifecycle restore relies on (resident order is semantic)."""
+    if not path.endswith(".npz"):
+        path = path + ".npz"
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    paths: list = []
+    dtypes: list = []
+    arrays: Dict[str, np.ndarray] = {}
+
+    def walk(prefix: list, node: Any) -> None:
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(prefix + [str(k)], v)
+        else:
+            arr, dt = _to_numpy(node)
+            dtypes.append(dt)
+            arrays[f"arr_{len(paths)}"] = arr
+            paths.append(prefix)
+
+    walk([], tree)
+    _atomic_savez(path, dict(__meta__=json.dumps(meta or {}),
+                             __paths__=json.dumps(paths),
+                             __dtypes__=json.dumps(dtypes), **arrays))
+
+
+def load_state_tree(path: str) -> Tuple[Dict, Dict]:
+    """Inverse of ``save_state_tree``: ``(nested host tree, meta)``. Leaves
+    are numpy arrays; bf16 ones (numpy has no such type) come back as CPU
+    ``torch.bfloat16`` tensors."""
+    if not path.endswith(".npz"):
+        path = path + ".npz"
+    data = np.load(path, allow_pickle=False)
+    meta = json.loads(str(data["__meta__"]))
+    paths = json.loads(str(data["__paths__"]))
+    dtypes = json.loads(str(data["__dtypes__"]))
+    tree: Dict = {}
+    for i, (p, dt) in enumerate(zip(paths, dtypes)):
+        arr = data[f"arr_{i}"]
+        if dt == "bfloat16":
+            arr = torch.from_numpy(arr.view(np.int16).copy()).view(
+                torch.bfloat16)
+        node = tree
+        for k in p[:-1]:
+            node = node.setdefault(k, {})
+        node[p[-1]] = arr
+    return tree, meta
+
+
 def extract_slot(lora_tree: Dict, slot: int) -> Dict:
     """Pull one adapter out of a slot-stacked tree: [L,Z,...] -> [L,...]."""
     return {t: {m: x[:, slot] for m, x in ab.items()}
             for t, ab in lora_tree.items()}
+
+
+def insert_slot(lora_tree: Dict, slot: int, adapter: Dict) -> Dict:
+    """A new slot-stacked tree with one adapter ([L, ...] leaves) in slot
+    ``slot``; ``lora_tree`` is left as it was."""
+    out: Dict = {}
+    for t, ab in lora_tree.items():
+        out[t] = {}
+        for m, x in ab.items():
+            y = x.detach().clone()
+            y[:, slot] = torch.as_tensor(adapter[t][m], dtype=y.dtype,
+                                         device=y.device)
+            out[t][m] = y
+    return out

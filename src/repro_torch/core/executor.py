@@ -8,9 +8,11 @@ the rank-local set when a resident slot is below r_max (the rank sweep),
 the ragged set when every slot is at r_max but some slot is narrower than
 the lane (full-rank mixed-width co-location), the dense set otherwise (the
 full-rank lr sweep). The host side — lifecycles, early exit, batch packing,
-admission — is the JAX package's, line for line. ``BatchedExecutor``'s
-resume from a durable mid-task checkpoint needs ``checkpoint/taskstate.py``
-and is not ported yet.
+admission — is the JAX package's, line for line, including
+``BatchedExecutor``'s durable checkpoint hook and its resume from a mid-task
+checkpoint (``checkpoint/taskstate.py``). The loss kind ("sft" or "dpo",
+``core/losses.py``) is fixed per executor: tasks of different kinds never
+share one.
 
 Implements the full per-task ALTO lifecycle (paper §4-§6) on top of a
 slot-multiplexing shared executor (paper's central claim: concurrent
@@ -922,6 +924,10 @@ class BatchedExecutor:
         self.seed = seed
         self._batcher = batcher
         self.slots = self.backbone.slots      # compat: direct slot access
+        # Optional durability hook, called as ``ckpt_hook(lc, chunk_i)``
+        # after every completed chunk while the lifecycle is still live —
+        # a ``checkpoint.taskstate.TaskCheckpointer.on_chunk`` goes here.
+        self.ckpt_hook = None
 
     # ------------------------------------------------------------------ run
     def run_task(self, task_name: str, jobs: Dict[str, TrainConfig],
@@ -951,6 +957,27 @@ class BatchedExecutor:
         lc.begin()
         return (yield from self._drive_chunks(lc, 0))
 
+    def resume_task_chunks(self, task_name: str,
+                           jobs: Dict[str, TrainConfig], total_steps: int,
+                           state, start_chunk: int = 0):
+        """``run_task_chunks`` continued from a durable mid-task checkpoint
+        (``checkpoint/taskstate.py`` state). The restored lifecycle picks
+        up at its exact step — batch-stream cursors, init seed and
+        admission counter, monitors, optimizer moments and per-slot
+        rank/width all come from the snapshot — so the remaining chunk
+        stream is bitwise identical to the uninterrupted run's tail."""
+        from repro_torch.checkpoint.taskstate import restore_lifecycle
+        ex = self.backbone
+        batcher = (self._batcher if self._batcher is not None
+                   else SlotBatcher(self.dataset, self.Z, self.b,
+                                    seed=self.seed))
+        lc = restore_lifecycle(ex, task_name, jobs, total_steps, ee=self.ee,
+                               max_slots=self.Z, batcher=batcher, state=state)
+        ex.add_task(lc)
+        ex.take_wall()
+        ex.take_tokens()
+        return (yield from self._drive_chunks(lc, start_chunk))
+
     def _drive_chunks(self, lc: TaskLifecycle, chunk_i: int):
         ex = self.backbone
         guard = 10 + 20 * lc.total_steps * max(len(lc.jobs), 1)
@@ -960,6 +987,8 @@ class BatchedExecutor:
             guard -= n
             lc.on_steps(n)
             chunk_i += 1
+            if self.ckpt_hook is not None and not lc.done:
+                self.ckpt_hook(lc, chunk_i)
             yield self._flush(lc, n)
         assert guard > 0, f"task {lc.task_name} stopped progressing"
         yield self._flush(lc, 0)

@@ -6,8 +6,8 @@ z's loss depends only on adapter z (the base is frozen), so each adapter's
 gradient is exactly what it would be if trained alone — co-location changes
 throughput, not optimization.
 
-The JAX package's DPO loss (with its ``PairSlotBatcher``) is not ported
-yet.
+``dpo_loss`` keeps that shape for preference pairs: per slot, the
+``-log sigmoid`` of the policy's margin over the frozen base model.
 """
 from __future__ import annotations
 
@@ -18,12 +18,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 
-LOSS_KINDS = ("sft",)
+LOSS_KINDS = ("sft", "dpo")
 
 
 def check_loss_kind(loss_kind: str) -> None:
-    if loss_kind == "dpo":
-        raise NotImplementedError("loss_kind 'dpo' is not ported yet")
     if loss_kind not in LOSS_KINDS:
         raise ValueError(f"unknown loss kind {loss_kind!r}")
 
@@ -37,3 +35,40 @@ def sft_loss(cfg: ModelConfig, params: Dict, lora: Dict, batch: Dict,
     per_slot = nll_sum / torch.clamp_min(cnt, 1.0)
     total = torch.sum(per_slot * active.float())
     return total, per_slot
+
+
+def dpo_loss(cfg: ModelConfig, params: Dict, lora: Dict, batch: Dict,
+             active: torch.Tensor, beta: float = 0.1
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Direct Preference Optimization over (chosen, rejected) pairs.
+
+    batch: tokens_chosen/labels_chosen/tokens_rejected/labels_rejected,
+    each [Z, b, S]. The REFERENCE policy is the frozen base model — the
+    LoRA-free forward (the empty adapter tree) — so no reference copy is
+    ever materialized. The reference forwards take no gradient and run
+    under ``torch.no_grad()``: the same values, no graph kept.
+
+    Returns (total scalar, per-slot mean -log sigmoid margin [Z])."""
+    def seq_logp(lora_tree, tokens, labels):
+        h, _, _ = M.forward(cfg, params, lora_tree, tokens)
+        nll_sum, _ = M.per_slot_xent(cfg, params, h, labels)
+        return -nll_sum   # sum log p per slot
+
+    lp_c = seq_logp(lora, batch["tokens_chosen"], batch["labels_chosen"])
+    lp_r = seq_logp(lora, batch["tokens_rejected"], batch["labels_rejected"])
+    with torch.no_grad():   # reference = base model (empty adapter set)
+        ref_c = seq_logp({}, batch["tokens_chosen"], batch["labels_chosen"])
+        ref_r = seq_logp({}, batch["tokens_rejected"],
+                         batch["labels_rejected"])
+    margin = beta * ((lp_c - ref_c) - (lp_r - ref_r))
+    per_slot = -torch.log(torch.clamp(
+        (1.0 / (1.0 + torch.exp(-margin))).float(), 1e-12, 1.0))
+    total = torch.sum(per_slot * active.float())
+    return total, per_slot
+
+
+def dpo_reward_accuracy(margin_per_slot: torch.Tensor) -> torch.Tensor:
+    return (margin_per_slot > 0).float()
+
+
+LOSSES = {"sft": sft_loss, "dpo": dpo_loss}

@@ -50,7 +50,8 @@ def lora_grads(cfg: ModelConfig, params: Dict, lora: Dict, batch: Dict,
     layered = {t: {m: x.unbind(0) for m, x in ab.items()}
                for t, ab in leaves.items()}
     with _bind(batch) as b:
-        total, per_slot = LS.sft_loss(cfg, params, layered, b, active)
+        total, per_slot = LS.LOSSES[loss_kind](cfg, params, layered, b,
+                                               active)
         flat = torch.autograd.grad(total, [leaves[t][m] for t, m in keys])
     grads: Dict[str, Dict[str, torch.Tensor]] = {t: {} for t in lora}
     for (t, m), g in zip(keys, flat):
@@ -74,9 +75,11 @@ def make_train_step(cfg: ModelConfig, *, loss_kind: str = "sft",
     redundant). ``lora'`` and ``opt_state'`` are the given tensors,
     updated in place (``adamw.apply_updates``).
 
-    The forward is always rematerialized, one checkpoint per layer
-    (``models.model.forward``); ``remat=False`` is not ported and
-    raises."""
+    ``loss_kind`` is "sft" or "dpo" (``core/losses.py``; a DPO batch
+    carries ``tokens_chosen``/``labels_chosen``/``tokens_rejected``/
+    ``labels_rejected``). The forward is always rematerialized, one
+    checkpoint per layer (``models.model.forward``); ``remat=False`` is
+    not ported and raises."""
     LS.check_loss_kind(loss_kind)
     if not remat:
         raise NotImplementedError("remat=False is not ported: the train "
@@ -107,7 +110,7 @@ def make_eval_step(cfg: ModelConfig, *, loss_kind: str = "sft") -> Callable:
 
     def eval_step(params, lora, active, batch):
         with torch.no_grad(), _bind(batch) as b:
-            _, per_slot = LS.sft_loss(cfg, params, lora, b, active)
+            _, per_slot = LS.LOSSES[loss_kind](cfg, params, lora, b, active)
         return per_slot
 
     return eval_step

@@ -1,9 +1,9 @@
 """Synthetic task datasets: a copy of ``repro.data.synthetic``.
 
-``make_task_dataset``, ``TaskDataset`` and ``SlotBatcher`` are copied
-verbatim: for a given seed they give the same tokens and the same batches
-as the JAX package's, so both packages train and serve on identical data.
-The DPO ``PairSlotBatcher`` is not ported yet.
+``make_task_dataset``, ``TaskDataset``, ``SlotBatcher`` and the DPO
+``PairSlotBatcher`` are copied verbatim: for a given seed they give the
+same tokens and the same batches as the JAX package's, so both packages
+train and serve on identical data.
 
 The paper's GSM8K/Tulu-3/
 OpenThoughts3 are replaced by synthetic language-modeling *task families*
@@ -150,3 +150,48 @@ class SlotBatcher:
     def val_batch_dict(self, max_rows: int = 64) -> dict:
         t, l = self.val_batch(max_rows)
         return {"tokens": t, "labels": l}
+
+
+class PairSlotBatcher:
+    """Preference-pair batches for DPO (paper §8.2 RL end-to-end).
+
+    'Chosen' sequences come from the task's low-entropy chain; 'rejected'
+    from a higher-entropy (noisier) chain over the same vocabulary — a
+    synthetic preference structure a DPO adapter genuinely learns to
+    separate."""
+
+    def __init__(self, chosen: TaskDataset, rejected: TaskDataset, Z: int,
+                 per_adapter_batch: int, seed: int = 0):
+        self.chosen = SlotBatcher(chosen, Z, per_adapter_batch, seed=seed)
+        self.rejected = SlotBatcher(rejected, Z, per_adapter_batch,
+                                    seed=seed + 7)
+        self.Z, self.b = Z, per_adapter_batch
+        self.epochs = self.chosen.epochs
+
+    @property
+    def seq_len(self) -> int:
+        return self.chosen.seq_len
+
+    def reset_slot(self, z: int, seed=None) -> None:
+        self.chosen.reset_slot(z, seed)
+        self.rejected.reset_slot(z, seed)
+
+    def lane_batch_dict(self, lane: int, n: int) -> dict:
+        c = self.chosen.lane_batch_dict(lane, n)
+        r = self.rejected.lane_batch_dict(lane, n)
+        return {"tokens_chosen": c["tokens"], "labels_chosen": c["labels"],
+                "tokens_rejected": r["tokens"],
+                "labels_rejected": r["labels"]}
+
+    def next_batch_dict(self) -> dict:
+        tc, lc = self.chosen.next_batch()
+        tr, lr = self.rejected.next_batch()
+        return {"tokens_chosen": tc, "labels_chosen": lc,
+                "tokens_rejected": tr, "labels_rejected": lr}
+
+    def val_batch_dict(self, max_rows: int = 64) -> dict:
+        tc, lc = self.chosen.val_batch(max_rows)
+        tr, lr = self.rejected.val_batch(max_rows)
+        n = min(tc.shape[1], tr.shape[1])
+        return {"tokens_chosen": tc[:, :n], "labels_chosen": lc[:, :n],
+                "tokens_rejected": tr[:, :n], "labels_rejected": lr[:, :n]}

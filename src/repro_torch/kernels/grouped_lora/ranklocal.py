@@ -26,10 +26,6 @@ counts kernel launches (plain-version calls do not count).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Optional
@@ -37,6 +33,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.grouped_lora import ref
+from repro_torch.kernels.nvcc import NVCC_FLAGS, build_library
 
 _HERE = Path(__file__).resolve().parent
 # the dense (grouped_lora.py) and ragged (ragged.py) kernels share this
@@ -45,8 +42,6 @@ SOURCES = tuple(_HERE / "csrc" / name for name in (
     "ranklocal.cu", "ranklocal_bwd.cu", "grouped_lora.cu", "ragged.cu"))
 HEADERS = (_HERE / "csrc" / "ranklocal_common.cuh",)
 BUILD_DIR = _HERE / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
 
 # launches of each kernel since the last ``reset_launches()``
 LAUNCHES = {"xa": 0, "sb_add": 0, "ds": 0, "dx": 0, "da": 0, "db": 0}
@@ -61,54 +56,13 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the grouped-LoRA kernels are "
-                           "built from csrc/ at first use on the card")
-    return found
-
-
-def _run(procs) -> None:
-    """Wait for every nvcc process; raise with the output of any that
-    failed."""
-    errors = []
-    for cmd, proc in procs:
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"{' '.join(cmd)} -> {proc.returncode}\n{out}\n{err}")
-    if errors:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
-
-
 def build() -> Path:
     """Compile ``SOURCES`` (one ``nvcc -c`` per source, all started
     together) and link them into ``build/grouped_lora-<hash>.so``, unless a
     library of the same sources, headers and flags is already there;
     returns its path."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES + HEADERS:
-        h.update(src.read_bytes())
-    out = BUILD_DIR / f"grouped_lora-{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc, tag = _nvcc(), f"tmp{os.getpid()}"
-    objs = [BUILD_DIR / f"{src.stem}-{tag}.o" for src in SOURCES]
-    compiles = []
-    for src, obj in zip(SOURCES, objs):
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-        compiles.append((cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    _run(compiles)
-    tmp = out.with_suffix(f".{tag}.so")
-    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
-    _run([(link, subprocess.Popen(link, stdout=subprocess.PIPE,
-                                  stderr=subprocess.PIPE, text=True))])
-    os.replace(tmp, out)
-    for obj in objs:
-        obj.unlink()
-    return out
+    return build_library("grouped_lora", SOURCES, HEADERS, BUILD_DIR,
+                         NVCC_FLAGS)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

@@ -1,12 +1,18 @@
-"""GQA causal attention: the JAX package's single-device "baseline" path.
+"""GQA causal attention: the flash-attention kernel for contiguous causal
+forwards, the JAX package's single-device "baseline" path otherwise.
 
-Grouped-query einsums with an fp32 softmax per query chunk; a per-lane
-``[Z, b, Sq, Sk]`` bias when positions carry lane dims (continuous
-batching), and ``_softmax_chunk``'s ``-1e30`` floor so fully masked rows
-give zeros. Plain PyTorch, as the JAX package computes decode attention
-outside any Pallas kernel; the flash-attention kernel it reaches for
-contiguous causal training/prefill comes with a later slice, and the
-repeat/kshard sharding layouts with the ``launch/`` slice.
+Under the "kernel" model backend (``models/backend.py``, the default) a
+contiguous causal forward — more than one query, no ``kv_valid_len``, 1-D
+positions, as many keys as queries: every training, remat and eval forward
+and a prefill that fills its whole cache — goes to
+``kernels/flash_attention`` in the ``[Z*b*H, S, hd]`` layout, with K/V
+repeated to the query heads for GQA, as ``src/repro/models/attention.py:
+102-124`` dispatches to the Pallas kernel. Prefill into a longer cache,
+decode and the "torch" backend take the baseline path: grouped-query
+einsums with an fp32 softmax per query chunk, a per-lane ``[Z, b, Sq, Sk]``
+bias when positions carry lane dims (continuous batching), and
+``_softmax_chunk``'s ``-1e30`` floor so fully masked rows give zeros. The
+repeat/kshard sharding layouts come with the ``launch/`` slice.
 """
 from __future__ import annotations
 
@@ -14,6 +20,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.flash_attention import ops as FA
+from repro_torch.models import backend as BK
 from repro_torch.models.common import causal_mask_bias
 
 
@@ -57,6 +65,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if H % KV:
         raise ValueError(f"GQA needs H % KV == 0, got H={H} KV={KV}")
     G = H // KV
+    if (BK.use_kernel() and Sq > 1 and kv_valid_len is None
+            and q_pos.dim() == 1 and k_pos.dim() == 1
+            and q_pos.shape[0] == Sq and k_pos.shape[0] == k.shape[2]
+            and k.shape[2] == Sq):
+        # the hand kernel: contiguous causal (suffix-aligned ranges, no
+        # partially filled or longer cache)
+        kk = k.repeat_interleave(G, dim=3) if G > 1 else k
+        vv = v.repeat_interleave(G, dim=3) if G > 1 else v
+        qf = q.permute(0, 1, 3, 2, 4).reshape(Z * b * H, Sq, hd)
+        kf = kk.permute(0, 1, 3, 2, 4).reshape(Z * b * H, Sq, hd)
+        vf = vv.permute(0, 1, 3, 2, 4).reshape(Z * b * H, Sq, hd)
+        out = FA.flash_attention(qf, kf, vf, causal=True, window=window)
+        return out.reshape(Z, b, H, Sq, hd).permute(0, 1, 3, 2, 4)
     scale = hd ** -0.5
     kv_index = torch.arange(k.shape[2], dtype=torch.int32, device=q.device)
 

@@ -20,6 +20,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN_SLIDING, ModelConfig
 from repro_torch.core import lora as LORA
+from repro_torch.models import backend as BK
 from repro_torch.models import blocks as B
 from repro_torch.models.common import (dtype_of, he_init, normal_init,
                                        resolve_device, rms_norm)
@@ -78,12 +79,14 @@ def _unembed(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     return x @ W
 
 
-def _remat_block(binding, cfg: ModelConfig, x: torch.Tensor, p: Dict,
-                 lora: Dict, layer: int, ctx: Dict[str, Any]) -> torch.Tensor:
-    """One layer under the LoRA binding of the forward that checkpointed
-    it: the recompute runs in the backward pass, possibly in autograd's
-    own thread, where the thread-local binding is not set."""
-    with LORA.bound(binding):
+def _remat_block(binding, model_backend: str, cfg: ModelConfig,
+                 x: torch.Tensor, p: Dict, lora: Dict, layer: int,
+                 ctx: Dict[str, Any]) -> torch.Tensor:
+    """One layer under the LoRA binding and model backend of the forward
+    that checkpointed it: the recompute runs in the backward pass, possibly
+    in autograd's own thread, where the thread-local choices are not
+    set."""
+    with LORA.bound(binding), BK.backend(model_backend):
         return B.transformer_block(cfg, x, p, lora, layer, ctx)
 
 
@@ -96,15 +99,15 @@ def _run_layers(cfg: ModelConfig, x: torch.Tensor, params: Dict, lora: Dict,
     (``jax.checkpoint`` around the scan body): its activations are
     recomputed in the backward pass instead of kept."""
     stacked = params["layers"]
-    binding = LORA.current_binding()
+    binding, model_backend = LORA.current_binding(), BK.get_backend()
     for l in range(cfg.num_layers):
         p = {k: v[l] for k, v in stacked.items()}
         if layers is not None:
             ctx["cache"] = {"k": layers["attn"]["k"][l],
                             "v": layers["attn"]["v"][l]}
         if remat:
-            x = checkpoint(_remat_block, binding, cfg, x, p, lora, l, ctx,
-                           use_reentrant=False)
+            x = checkpoint(_remat_block, binding, model_backend, cfg, x, p,
+                           lora, l, ctx, use_reentrant=False)
         else:
             x = B.transformer_block(cfg, x, p, lora, l, ctx)
     return x

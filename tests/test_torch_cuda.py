@@ -3,8 +3,12 @@ dense and ragged, forward and backward) against their plain PyTorch
 versions, the dense kernels bitwise equal to the rank-local ones at full
 rank, the ragged kernels bitwise equal to the dense ones at rows = T and to
 the rank-local ones at full rank for any rows, the autograd Functions'
-backward against autograd through the plain versions, and ``lora_delta``
-under ``ragged_rows`` alone launching the ragged kernels.
+backward against autograd through the plain versions, ``lora_delta``
+under ``ragged_rows`` alone launching the ragged kernels; and the
+flash-attention kernel against its plain version (fp32 and bf16, head dims
+16 to 128, windows, Sq < Sk and Sq > Sk with fully masked rows exactly 0),
+batch independent bit for bit, its autograd Function's gradients, and the
+model's contiguous causal forwards launching it.
 
 Imports neither JAX nor the JAX package, so it runs on a machine with a
 card and no JAX: ``PYTHONPATH=src python -m pytest -q --noconftest
@@ -20,6 +24,9 @@ from repro_torch.kernels.grouped_lora import grouped_lora as GL
 from repro_torch.kernels.grouped_lora import ops
 from repro_torch.kernels.grouped_lora import ragged as RG
 from repro_torch.kernels.grouped_lora import ranklocal as RL
+from repro_torch.kernels.flash_attention import flash_attention as FA
+from repro_torch.kernels.flash_attention import ops as FOPS
+from repro_torch.kernels.flash_attention import ref as FREF
 from repro_torch.kernels.grouped_lora import ref
 
 # (Z, T, din, dout, r, ranks, rows): an empty slot, full r_max, ranks off
@@ -378,3 +385,119 @@ def test_cuda_lora_delta_ragged_rows_alone_launches_the_ragged_kernels():
     LORA.lora_delta(x, A, B, 2.0)
     torch.cuda.synchronize()
     assert GL.LAUNCHES["xa"] == GL.LAUNCHES["sb_add"] == 1
+
+
+# (B, Sq, Sk, hd, window): ragged lengths off the 64 x 32 tiles, suffix
+# alignment, fully masked rows (Sq > Sk), windows, every instantiated hd
+FLASH_CASES = [
+    (3, 37, 37, 16, 0),
+    (2, 64, 96, 32, 24),
+    (4, 100, 40, 64, 0),
+    (2, 130, 130, 80, 0),
+    (2, 256, 256, 80, 64),
+    (1, 72, 72, 16, 17),
+    (2, 64, 64, 128, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_attention_matches_plain(case):
+    """One launch per call; fp32 within 1e-5 of the plain version (sum
+    order), bf16 within one bf16 rounding; rows that see no key exactly 0;
+    the first rows of a batch bitwise equal to a call on them alone."""
+    _need_card()
+    B, Sq, Sk, hd, window = case
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, hd),
+                                                    dtype=np.float32))
+               .to("cuda") for S in (Sq, Sk, Sk))
+    for dt, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -7)):
+        qc, kc, vc = q.to(dt), k.to(dt), v.to(dt)
+        FA.reset_launches()
+        out = FA.flash_attention(qc, kc, vc, window=window)
+        torch.cuda.synchronize()
+        assert FA.LAUNCHES == {"flash_attention": 1}
+        assert out.dtype == dt and out.shape == (B, Sq, hd)
+        want = FREF.flash_attention_ref(qc, kc, vc, window=window)
+        torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                                   atol=1e-5 * float(want.abs().max()))
+        if Sq > Sk:
+            assert torch.all(out[:, :Sq - Sk] == 0)
+        one = FA.flash_attention(qc[:1].contiguous(), kc[:1].contiguous(),
+                                 vc[:1].contiguous(), window=window)
+        assert torch.equal(one, out[:1])
+    noncausal = FA.flash_attention(q, k, v, causal=False)
+    torch.testing.assert_close(
+        noncausal, FREF.flash_attention_ref(q, k, v, causal=False),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_what_it_does_not_take():
+    _need_card()
+    q = torch.randn(2, 8, 48, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention(q, q, q)
+    q = torch.randn(2, 8, 64, device="cuda")
+    with pytest.raises(TypeError):
+        FA.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_attention(q, q.transpose(0, 1).contiguous().transpose(0, 1),
+                           q)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_function_backward_matches_autograd_through_plain():
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn(4, 70, 80, device="cuda", generator=gen)
+               for _ in range(3))
+    dy = torch.randn(4, 70, 80, device="cuda", generator=gen)
+    outs = []
+    for fn in (FOPS.flash_attention, FREF.flash_attention_ref):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        y = fn(*leaves, window=30)
+        outs.append([y] + list(torch.autograd.grad(y, leaves, dy)))
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got.detach(), want.detach(), rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_model_forward_launches_flash_per_layer():
+    """A training forward and its remat recompute launch the kernel once
+    per layer each, an eval forward once per layer, decode never; the
+    "torch" backend agrees with it."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import backend as BK
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_arch("stablelm-3b").reduced(
+        num_layers=2, d_model=160, vocab=256), head_dim=80, num_heads=2,
+        num_kv_heads=2)
+    params = M.init_params(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, 256, (2, 2, 40), device="cuda", generator=gen)
+    lora = LORA.init_lora_tree(gen, cfg, 2, torch.tensor([4, 8],
+                                                         device="cuda"),
+                               M.target_shapes(cfg))
+    for ab in lora.values():
+        ab["A"].requires_grad_(True)
+    FA.reset_launches()
+    h, _, _ = M.forward(cfg, params, lora, tokens)
+    h.float().sum().backward()
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attention"] == 2 * cfg.num_layers
+    FA.reset_launches()
+    with torch.no_grad():
+        h1, _, _ = M.forward(cfg, params, lora, tokens)
+        with BK.backend("torch"):
+            h2, _, _ = M.forward(cfg, params, lora, tokens)
+        cache = M.init_cache(cfg, 2, 2, 64, per_lane=True)
+        M.decode_step(cfg, params, lora, cache, tokens[:, :, 0])
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attention"] == cfg.num_layers
+    torch.testing.assert_close(h1.float(), h2.float(), rtol=0.05, atol=0.05)

@@ -534,9 +534,13 @@ def test_executor_refuses_params_on_another_device(env):
     with pytest.raises(ValueError, match="params lie on"):
         SharedBackboneExecutor(cfg, meta, Z=2, per_adapter_batch=1,
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="unknown loss kind"):
         SharedBackboneExecutor(cfg, params, Z=2, per_adapter_batch=1,
-                               device="cpu", loss_kind="dpo")
+                               device="cpu", loss_kind="ppo")
+    # DPO is ported: the executor takes it
+    assert SharedBackboneExecutor(cfg, params, Z=2, per_adapter_batch=1,
+                                  device="cpu",
+                                  loss_kind="dpo").loss_kind == "dpo"
 
 
 def test_full_rank_lr_sweep_runs_on_the_dense_path(env, monkeypatch):
