@@ -2,8 +2,8 @@
 """Chip smoke test of the PyTorch port: multi-adapter serving, rank-sweep
 and full-rank learning-rate-sweep LoRA training, heterogeneous multi-task
 co-location, and DPO preference tuning with crash-and-resume of
-stablelm-3b on one NVIDIA card, through the port's hand-written CUDA
-kernels.
+stablelm-3b, then serving and rank-sweep LoRA training of rwkv6-3b, on one
+NVIDIA card, through the port's hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -16,11 +16,12 @@ package. Phases, none of them caught:
             TF32 off for matmuls and cuDNN.
 2. build  — nvcc builds the eighteen grouped-LoRA kernels from the four
             sources in ``src/repro_torch/kernels/grouped_lora/csrc``
-            (ranklocal.cu, ranklocal_bwd.cu, grouped_lora.cu, ragged.cu)
-            and the flash-attention kernel from
+            (ranklocal.cu, ranklocal_bwd.cu, grouped_lora.cu, ragged.cu),
+            the flash-attention kernel from
             ``src/repro_torch/kernels/flash_attention/csrc/
-            flash_attention.cu``: one nvcc per source, all five started
-            together.
+            flash_attention.cu`` and the linear-scan kernel from
+            ``src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu``:
+            one nvcc per source, all six started together.
 3. kernels — each rank-local kernel against its plain PyTorch version at
             stablelm-3b shapes (bf16 activations, fp32 adapter masters,
             Z = 4 slots): the forward pair at serving shapes and the
@@ -118,8 +119,10 @@ package. Phases, none of them caught:
             4/8, b = 2 guest (the rank-local kernels): every task's
             histories bitwise equal alone and fused.
 11. lr sweep — phase 6 with 8 jobs all at rank 64 (lr 1e-4/3e-4/1e-3/3e-3
-            x weight decay 0/0.01): every step on the dense kernels (the
-            same launch counts), the rank-local and ragged kernels never.
+            x weight decay 0/0.01), at full width and 8 of the 32 layers
+            (depth cut for time): every step on the dense
+            kernels (the launch counts of 8 layers), the rank-local and
+            ragged kernels never.
 12. heterogeneous co-location — the slice's main path: three full-rank
             tuning tasks of widths (b, S) = (4, 256), (2, 256) and
             (4, 128), 4 jobs each on 2 slots each, through run_colocated
@@ -168,13 +171,66 @@ package. Phases, none of them caught:
             uninterrupted run's winner perturbed must change the loss
             histories and the winner's adapter.
 
+The stablelm-3b backbone is freed; the rwkv6-3b phases (32 layers, d_model
+2560, 40 heads of 64, d_ff 8960, vocab 65536, scan chunk 128, bf16, random
+weights from a seed; LoRA on r/k/v/g/o and ffn_k/ffn_v, 224 projections
+per forward) follow:
+
+16. scan kernel — the linear-scan kernel against its plain PyTorch version
+            at the path's shapes (S = 256, chunk 128, K = V = 64, bf16
+            q/k/v: the train step's B = Z*b*H = 640 rows and the eval
+            step's 2,560), at hymba's SSD shape (K = 16, V = 64, no bonus),
+            with an initial state, at the decay clip (logw = -e^4 every
+            token) and in fp32. The reading (largest |diff| of y and the
+            final state in units of one bf16 rounding; fp32 y and the
+            state: 1e-5 relative) must be <= 1, while three faults planted
+            in the plain version (the state not carried across chunks, the
+            bonus dropped, the causal mask off by one) must read > 1 (at
+            the clip a state is forgotten within one token: the carry
+            fault cannot show there); rows 0-127 of the B = 640 call must
+            equal a B = 128 call bit for bit. Times (graph replay) of the
+            kernel and the plain version beside the bound: the larger of
+            the bytes over the memory rate and the C*C*K/2 visible pair
+            exponentials per chunk over the special-function units' rate
+            (16 a clock per SM at the card's maximum SM clock). No single
+            PyTorch call computes the function: no yardstick.
+17. rwkv serve — 8 greedy requests (prompts of 16-48 tokens, 16 new) on 4
+            adapters through AdapterPool -> ServingReplica ->
+            ServingFrontend; the family streams prompts through the
+            recurrent decode step: the linear-scan and flash kernels
+            launch 0 times, the LoRA forward pair once per projection of
+            every fused step.
+18. rwkv train — phase 5 on rwkv6-3b at full width, in fp32 (the
+            kernels' fp32 instantiations): at its random init the
+            backward amplifies rounding past any bar at full depth (the
+            plain step against itself with 1e-7 noise on the scan's output
+            reads as the kernels do; RWKV_GRAD_LAYERS), so at 32 layers
+            the loss bar is held with the two forward faults (slot 0's
+            delta halved; the bonus dropped from the plain scan) and the
+            gradient readings are printed, and at 2 layers every bar and
+            every planted fault of phase 5 is held. The kernel runs launch
+            the linear-scan kernel twice per layer (forward and remat) and
+            flash attention never. The backward of the scan is autograd
+            through the plain version (as the JAX package's custom VJP),
+            one chunk at a time (``torch.utils.checkpoint`` per chunk).
+19. rwkv rank sweep — the slice's main path: phase 6 on rwkv6-3b at full
+            width and depth (8 jobs, ranks 4/8/16/32 x lr 1e-4/1e-3, Z = 4,
+            b = 4, S = 256): every fused train step must launch the
+            rank-local xa/sb_add 448 times, ds/da/db 224, dx 220 (the
+            first layer's r/k/v/g read the embedding's token-shift
+            lerps), the linear scan 64 and flash 0; every eval step
+            xa/sb_add 224 and the linear scan 32; the dense and ragged
+            kernels never. The same measurements as phase 6, with the scan
+            kernel's share of the device time.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
-kernel table as JSON (nineteen kernels), with each kernel's launches by
+kernel table as JSON (twenty kernels), with each kernel's launches by
 path.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -215,6 +271,9 @@ TRAIN_B, TRAIN_S = 4, 256
 FULL_RANKS = (64, 64, 64, 64)
 # layers of the co-located == solo phases (full width, depth cut for time)
 COLO_LAYERS = 4
+# layers of the lr sweep (full width; cut from 32 so that the rwkv6-3b
+# phases fit in half the script's time limit)
+LR_SWEEP_LAYERS = 8
 # token rows per slot of the executor's b = 4 / b = 2 mix (S = 256), and a
 # pattern with a boundary inside a tile and an empty slot
 RAGGED_ROWS = (1024, 512, 1024, 512)
@@ -234,6 +293,23 @@ GRAD_KERNEL_ATOL_REL = 1e-5
 # relative). The phase prints the largest |diff| in units of that bar.
 FLASH_RTOL = {"bf16": 2 ** -7, "fp32": 1e-5}
 FLASH_ATOL_REL = 1e-5
+# linear scan, kernel vs plain: both take the same fp32 terms to y in
+# another order and round once, so a bf16 y may land on the neighbouring
+# bf16 value: |diff| <= 2**-7 |plain| + 1e-5 max|plain| (fp32 y and the
+# final state: 1e-5 relative)
+SCAN_RTOL = {"bf16": 2 ** -7, "fp32": 1e-5}
+SCAN_ATOL_REL = 1e-5
+SFU_PER_CLOCK_SM = 16         # exponentials per clock per SM (cc 9.0)
+# rwkv6-3b's backward at its random init amplifies rounding past any bar:
+# at full depth in fp32 the plain |dB| falls from ~2e6 at layer 0 to ~1 at
+# the top, and the plain step against itself with the scan's y moved by
+# 1e-7 relative reads per-slot gradient gaps of 0.3-10, as large as the
+# kernels' 0.2-5.5 (phase 18 prints both; PERF.md). Its train check
+# therefore runs in fp32 at full width twice: at full depth holding the
+# loss bar and the forward faults, and at RWKV_GRAD_LAYERS layers, where
+# the kernels read <= 3.6e-4 against the 0.05 gradient bars, holding every
+# bar and every fault
+RWKV_GRAD_LAYERS = 2
 DPO_B = 2                     # preference pairs per slot in the DPO phase
 RECOVERY_STEPS = 12           # steps per job of the recovery phase's task
 # full-size train step, kernels vs plain versions, per slot and relative
@@ -1308,7 +1384,7 @@ def _task_data(cfg, name):
 
 
 def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
-                loss_kind="sft"):
+                loss_kind="sft", hold_grads=True):
     """One full-size train step with the kernels against the same step on
     their plain versions (LoRA backend "torch": autograd through them),
     per slot: loss, grad norm, and the relative RMS of dA and dB over all
@@ -1330,13 +1406,15 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
     per-slot losses and every dA and dB must equal the first kernel step's
     bit for bit. ``fams`` maps each path to its kernel module.
 
-    The kernel runs take flash attention (model backend "kernel": two
+    The kernel runs take the family's sequence kernel (model backend
+    "kernel": flash attention, or the linear scan for rwkv6-3b; two
     launches per layer, the forward and its remat recompute), the plain
-    runs the baseline einsum attention (model backend "torch"); one more
-    fault planted in the plain run, every query seeing one future key,
-    must break the loss bar. On the rank-local SFT path, one step's
-    gradients then run under torch.profiler with each attention (the LoRA
-    kernels in both) and the device busy times are printed.
+    runs its plain version (model backend "torch"); one more fault planted
+    in the plain run, every query seeing one future key (rwkv6-3b: the
+    bonus dropped from the scan), must break the loss bar. On the
+    rank-local SFT path of an attention model, one step's gradients then
+    run under torch.profiler with each attention (the LoRA kernels in
+    both) and the device busy times are printed.
 
     ``loss_kind`` "dpo" (rank-local path): the same step on DPO_B
     preference pairs per slot from the DPO phase's PairSlotBatcher, whose
@@ -1344,12 +1422,19 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
     slot; the same bars and planted faults (the attention fault reaches the
     reference forwards too). Beside the bars it prints how far apart the
     two runs' per-slot sequence log-probabilities are, in each of the four
-    forwards."""
+    forwards.
+
+    ``hold_grads`` False holds the loss bar alone, with the two forward
+    faults (slot 0's delta halved, the sequence fault), and prints the
+    gradient readings: for a model whose backward amplifies rounding past
+    any bar (rwkv6-3b at full depth, see RWKV_GRAD_LAYERS)."""
     from repro_torch.core import lora as LORA
     from repro_torch.core import steps as STEPS
     from repro_torch.data.synthetic import PairSlotBatcher, SlotBatcher
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.grouped_lora import ref
+    from repro_torch.kernels.linear_scan import linear_scan as LSK
+    from repro_torch.kernels.linear_scan import ref as LSREF
     from repro_torch.models import attention as ATT
     from repro_torch.models import backend as BK
     from repro_torch.models import model as M
@@ -1357,6 +1442,7 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
 
     dev = "cuda"
     Z = len(ranks_t)
+    ssm = cfg.family == "ssm"
     dpo = loss_kind == "dpo"
     require(not dpo or (path == "rank-local" and rows_t is None),
             "the DPO train check runs on the rank-local path")
@@ -1410,7 +1496,8 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
     t_k = time.perf_counter() - t
     p_loss, p_norm = step("torch")
     torch.cuda.synchronize()
-    print(f"train check ({tag}): {cfg.name} full size, Z={Z} ranks "
+    print(f"train check ({tag}): {cfg.name} full width, "
+          f"{cfg.num_layers} layers, {cfg.dtype}, Z={Z} ranks "
           f"{ranks_t}, b={DPO_B if dpo else TRAIN_B} "
           f"{'pairs ' if dpo else ''}S={TRAIN_S}, rows {rows_t or 'all'}; "
           f"one make_train_step with the kernels {t_k:.2f} s, then on the "
@@ -1441,7 +1528,7 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
         finally:
             M.per_slot_xent = xent
 
-    for m in (*fams.values(), FA):
+    for m in (*fams.values(), FA, LSK):
         m.reset_launches()
     nll_k, nll_p = [], []
     with seq_logp(nll_k):
@@ -1451,10 +1538,11 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
     with seq_logp(nll_p):
         _, gp = grads("torch")
     torch.cuda.synchronize()
-    flash_want = _step_launches(cfg, loss_kind)[2][0]
-    require(FA.LAUNCHES["flash_attention"] == flash_want,
-            f"{tag} train check: flash launched {FA.LAUNCHES}, expected "
-            f"{flash_want} in the kernel run and 0 in the plain one")
+    seq_want = _seq_counts(cfg, _step_launches(cfg, loss_kind)[2][0])
+    seq_got = {**FA.LAUNCHES, **LSK.LAUNCHES}
+    require(seq_got == seq_want,
+            f"{tag} train check: the sequence kernels launched {seq_got}, "
+            f"expected {seq_want} in the kernel run and 0 in the plain one")
     names = (("policy chosen", "policy rejected", "reference chosen",
               "reference rejected") if dpo else ("forward",))
     require(len(nll_k) == len(nll_p) == len(names),
@@ -1537,8 +1625,40 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
     require(bool(torch.isfinite(k_loss).all()
                  and torch.isfinite(k_norm).all()),
             "train step losses or grad norms not finite")
-    require(within(sound), f"{tag} kernel train step too far from the "
-            "plain one")
+    require(within(sound) if hold_grads
+            else max(sound["loss"]) <= TRAIN_LOSS_REL,
+            f"{tag} kernel train step too far from the plain one")
+    if not hold_grads:
+        # why: the same plain step again with the sequence kernel's plain
+        # output moved by 1e-7 relative (rounding-sized noise, not a
+        # fault), and the plain gradients' size by layer
+        plain_scan = LSREF.linear_scan_ref
+        noise_gen = torch.Generator(device=dev).manual_seed(11)
+
+        def noisy_scan(*args, **kw):
+            y, st = plain_scan(*args, **kw)
+            eps = torch.randn(y.shape, generator=noise_gen, device=dev)
+            return y + (y * 1e-7 * eps.to(y.dtype)).detach(), st
+        LSREF.linear_scan_ref = noisy_scan
+        try:
+            n_loss, g_noise, _ = plain_run()
+        finally:
+            LSREF.linear_scan_ref = plain_scan
+        n_norm = adamw.per_slot_global_norm(g_noise)
+        noise = {"loss": ((n_loss - p_loss).abs() / p_loss.abs()).tolist(),
+                 "grad_norm": ((n_norm - p_norm).abs() / p_norm).tolist(),
+                 "dA": rel_rms(g_noise, gp, "A", one, one, one).tolist(),
+                 "dB": rel_rms(g_noise, gp, "B", one, one, one).tolist()}
+        by_layer = [float(sum(gp[t]["B"][lyr].float().square().sum()
+                              for t in gp).sqrt())
+                    for lyr in range(cfg.num_layers)]
+        print(f"train check ({tag}): the plain step against itself with "
+              f"the scan's y moved by 1e-7 relative: {show(noise)}; the "
+              f"plain |dB| by layer (0 first): "
+              f"{[float(f'{x:.3g}') for x in by_layer]}")
+        print(f"train check ({tag}): gradients not held at {cfg.num_layers} "
+              f"layers; the loss bar and the forward faults are")
+        del g_noise
 
     # planted faults in the plain run, each held to the same bars
     def faulted(leaf, z, factor):
@@ -1562,20 +1682,23 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
         finally:
             ref.ranklocal_lora_ref = plain
 
-    g0 = faulted("A", 0, 0.0)
-    g3 = faulted("B", Z - 1, 0.5)
-    with lora_dx_dropped():
-        f_loss, g_nodx, f_nll = plain_run()
-    controls = [
-        (f"slot 0 (rank {ranks_t[0]}) dA zeroed", p_loss, g0, nll_p),
-        (f"slot {Z - 1} (rank {ranks_t[-1]}) dB halved", p_loss, g3, nll_p),
-        ("LoRA branch dX dropped", f_loss, g_nodx, f_nll),
-    ]
-    for label, loss, g, nll in controls:
-        c = gap(loss, adamw.per_slot_global_norm(g), g, nll)
-        print(f"train check ({tag}): control, {label}: {show(c)}")
-        require(not within(c), f"control '{label}' passes the train bars")
-    del g0, g3, g_nodx
+    if hold_grads:
+        g0 = faulted("A", 0, 0.0)
+        g3 = faulted("B", Z - 1, 0.5)
+        with lora_dx_dropped():
+            f_loss, g_nodx, f_nll = plain_run()
+        controls = [
+            (f"slot 0 (rank {ranks_t[0]}) dA zeroed", p_loss, g0, nll_p),
+            (f"slot {Z - 1} (rank {ranks_t[-1]}) dB halved", p_loss, g3,
+             nll_p),
+            ("LoRA branch dX dropped", f_loss, g_nodx, f_nll),
+        ]
+        for label, loss, g, nll in controls:
+            c = gap(loss, adamw.per_slot_global_norm(g), g, nll)
+            print(f"train check ({tag}): control, {label}: {show(c)}")
+            require(not within(c),
+                    f"control '{label}' passes the train bars")
+        del g0, g3, g_nodx
     # the forward fault: slot 0's delta halved (its B halved) in the plain
     # forward; the loss alone must tell it from the kernels' rounding
     half = {t: {"A": ab["A"], "B": ab["B"].clone()} for t, ab in lora.items()}
@@ -1603,15 +1726,32 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
         finally:
             ATT.causal_mask_bias = plain
 
-    with attention_peeks_ahead():
+    @contextlib.contextmanager
+    def scan_without_bonus():
+        """The plain linear scan with the bonus u dropped (the diagonal
+        current-token term of every RWKV head)."""
+        plain = LSREF.linear_scan_ref
+
+        def no_bonus(*args, **kw):
+            return plain(*args, **dict(kw, bonus=None))
+        LSREF.linear_scan_ref = no_bonus
+        try:
+            yield
+        finally:
+            LSREF.linear_scan_ref = plain
+
+    fault, what = ((scan_without_bonus, "the bonus dropped from the plain "
+                    "linear scan") if ssm else
+                   (attention_peeks_ahead, "every query sees one future key "
+                    "in the plain attention"))
+    with fault():
         a_loss, g_att, a_nll = plain_run()
     c = gap(a_loss, adamw.per_slot_global_norm(g_att), g_att, a_nll)
-    print(f"train check ({tag}): control, every query sees one future key "
-          f"in the plain attention: {show(c)}")
+    print(f"train check ({tag}): control, {what}: {show(c)}")
     require(max(c["loss"]) > TRAIN_LOSS_REL,
-            "control 'one future key' passes the loss bar")
+            f"control '{what}' passes the loss bar")
     del g_att
-    if path == "rank-local" and not dpo:
+    if path == "rank-local" and not dpo and not ssm:
         # one step's gradients, LoRA kernels both times: flash attention,
         # then the baseline einsum attention
         busy = {}
@@ -1669,17 +1809,31 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
     torch.cuda.empty_cache()
 
 
+# the projections whose inputs are the first layer's normed embedding (for
+# RWKV: its token-shift lerps), which hang off no differentiable leaf
+FIRST_LAYER_NO_DX = {"dense": {"q_proj", "k_proj", "v_proj"},
+                     "ssm": {"r_proj", "k_proj", "v_proj", "g_proj"}}
+
+
+def _seq_counts(cfg, n):
+    """Launch counts of the two sequence kernels when the family's own
+    (flash attention, or the linear scan for ssm) launched ``n`` times."""
+    own = "linear_scan" if cfg.family == "ssm" else "flash_attention"
+    return {"flash_attention": 0, "linear_scan": 0, own: n}
+
+
 def _step_launches(cfg, loss_kind="sft"):
     """Launches per fused train step and per eval step: of each kernel of
     the path's grouped-LoRA set (remat runs each forward twice; the first
-    layer's q/k/v read the normed embedding, which hangs off no
-    differentiable leaf, so their LoRA dX is never asked for), and of flash
-    attention (once per layer of every forward and every recompute). A DPO
-    step runs two policy forwards (chosen, rejected) through the adapters
-    and two reference forwards without them, under no_grad (no remat)."""
+    layer's q/k/v — RWKV: r/k/v/g — read the normed embedding, which hangs
+    off no differentiable leaf, so their LoRA dX is never asked for), and
+    of the family's sequence kernel, flash attention or the linear scan
+    (once per layer of every forward and every recompute). A DPO step runs
+    two policy forwards (chosen, rejected) through the adapters and two
+    reference forwards without them, under no_grad (no remat)."""
     policy, reference = (2, 2) if loss_kind == "dpo" else (1, 0)
     per_forward = len(cfg.lora.targets) * cfg.num_layers
-    no_dx = len({"q_proj", "k_proj", "v_proj"} & set(cfg.lora.targets))
+    no_dx = len(FIRST_LAYER_NO_DX[cfg.family] & set(cfg.lora.targets))
     train = {"xa": 2 * policy * per_forward, "sb_add": 2 * policy * per_forward,
              "ds": policy * per_forward, "dx": policy * (per_forward - no_dx),
              "da": policy * per_forward, "db": policy * per_forward}
@@ -1715,24 +1869,26 @@ def _clock(torch, ex, spent):
 def executor_phase(torch, fam, others, cfg, params, task, jobs,
                    loss_kind="sft", batcher=None, b=TRAIN_B):
     """A sweep through the port's entry point: BatchedExecutor.run_task on
-    full-size stablelm-3b, ``jobs`` (8) on 4 slots. Every fused train step
-    and every eval step is wrapped to count the launches of the kernel set
-    ``fam`` (the path's: rank-local for a rank sweep or DPO, dense for a
-    full-rank lr sweep) and of flash attention, and time it; the other
-    sets, ``others``, must launch nothing in the run. Two train steps of
+    ``cfg`` at full size (stablelm-3b or rwkv6-3b), ``jobs`` (8) on 4
+    slots. Every fused train step and every eval step is wrapped to count
+    the launches of the kernel set ``fam`` (the path's: rank-local for a
+    rank sweep or DPO, dense for a full-rank lr sweep) and of the two
+    sequence kernels (flash attention, the linear scan), and time it; the
+    other sets, ``others``, must launch nothing in the run. Two train steps of
     the second warmup wave run under torch.profiler. ``loss_kind`` "dpo"
     trains preference pairs from ``batcher`` (a PairSlotBatcher), b pairs
     per slot; every slot's first loss must then read log 2."""
     from repro_torch.core.early_exit import EarlyExitConfig
     from repro_torch.core.executor import BatchedExecutor, TaskResult
     from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.linear_scan import linear_scan as LSK
 
     sync = torch.cuda.synchronize
     Z = 4
-    lora_train, lora_eval, (flash_train, flash_eval) = _step_launches(
+    lora_train, lora_eval, (seq_train, seq_eval) = _step_launches(
         cfg, loss_kind)
-    want_train = {**lora_train, "flash_attention": flash_train}
-    want_eval = {**lora_eval, "flash_attention": flash_eval}
+    want_train = {**lora_train, **_seq_counts(cfg, seq_train)}
+    want_eval = {**lora_eval, **_seq_counts(cfg, seq_eval)}
     bx = BatchedExecutor(cfg, params,
                          _task_data(cfg, task) if batcher is None else None,
                          Z=Z, per_adapter_batch=b,
@@ -1750,7 +1906,7 @@ def executor_phase(torch, fam, others, cfg, params, task, jobs,
             torch.profiler.ProfilerActivity.CUDA]
 
     def counts():
-        return {**fam.LAUNCHES, **FA.LAUNCHES}
+        return {**fam.LAUNCHES, **FA.LAUNCHES, **LSK.LAUNCHES}
 
     def counted(fn, kind):
         def run(*args):
@@ -1792,7 +1948,7 @@ def executor_phase(torch, fam, others, cfg, params, task, jobs,
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for m in (fam, *others, FA):
+    for m in (fam, *others, FA, LSK):
         m.reset_launches()
     t0 = time.perf_counter()
     result = bx.run_task(task, jobs, total_steps=8)
@@ -1879,14 +2035,17 @@ def executor_phase(torch, fam, others, cfg, params, task, jobs,
           f"median eval step {eval_ms:.2f} ms ([{Z}, {EVAL_B}, {TRAIN_S}] "
           f"tokens); peak memory {peak / 2**30:.2f} GiB")
     busy, pw = prof["busy_us"], prof["wall_us"]
-    flash_us = sum(us for name, (_, us) in prof["kernels"].items()
-                   if "flash_fwd" in name)
+    seq_name, seq_label = (("linear_scan_kernel", "the linear scan")
+                           if cfg.family == "ssm" else
+                           ("flash_fwd", "flash attention"))
+    seq_us = sum(us for name, (_, us) in prof["kernels"].items()
+                 if seq_name in name)
     print(f"profile ({task}): 2 train steps (profiler on) {pw / 2e3:.2f} "
           f"ms/step wall, device busy {busy / 2e3:.2f} ms/step = "
           f"{busy / pw:.3f} of the wall, "
           f"{sum(n for n, _ in prof['kernels'].values()) / 2:.0f} "
-          f"device events/step; flash attention {flash_us / 2e3:.2f} "
-          f"ms/step = {flash_us / busy:.3f} of the device time" if busy else
+          f"device events/step; {seq_label} {seq_us / 2e3:.2f} "
+          f"ms/step = {seq_us / busy:.3f} of the device time" if busy else
           f"profile ({task}): no device events traced: not measured")
     for name, (n, us) in sorted(prof["kernels"].items(),
                                 key=lambda kv: -kv[1][1])[:10]:
@@ -2446,6 +2605,323 @@ def colocation_phase(torch, fams, cfg, params):
     return totals
 
 
+def sfu_exp_rate(torch) -> float:
+    """Exponentials per second the card's special-function units give at
+    most: 16 results per clock per SM (compute capability 9.0, the CUDA C++
+    Programming Guide's arithmetic-instruction throughput table) times the
+    SM count times the card's maximum SM clock (nvidia-smi)."""
+    mhz = float(sh("nvidia-smi", "--query-gpu=clocks.max.sm",
+                   "--format=csv,noheader,nounits").splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return SFU_PER_CLOCK_SM * sms * mhz * 1e6
+
+
+def _scan_mask_fault(torch, q, k, v, logw, bonus, s0, chunk, doq):
+    """The plain scan (kernels/linear_scan/ref.py's arithmetic) with its
+    causal mask off by one: RWKV sees pairs t >= i (the diagonal through
+    the decay), SSD only t > i."""
+    import torch.nn.functional as F
+    B, S, K = q.shape
+    C = min(chunk, S)
+    qf, kf, vf, lw = (x.float() for x in (q, k, v, logw))
+    state = (torch.zeros(B, K, v.shape[-1], device=q.device)
+             if s0 is None else s0.float())
+    t = torch.arange(C, device=q.device)
+    visible = (t[:, None] > t[None, :]) if doq else (t[:, None] >= t[None, :])
+    ys = []
+    for c in range(0, S, C):
+        qb, kb, vb = qf[:, c:c + C], kf[:, c:c + C], vf[:, c:c + C]
+        L = torch.cumsum(lw[:, c:c + C], dim=1)
+        Lq = L if doq else F.pad(L, (0, 0, 1, 0))[:, :-1]
+        dd = torch.where(visible[..., None],
+                         Lq[:, :, None, :] - L[:, None, :, :], -1e30)
+        P = (qb[:, :, None, :] * kb[:, None, :, :] * torch.exp(dd)).sum(-1)
+        if bonus is not None:
+            P = P + ((qb * bonus[:, None, :] * kb).sum(-1)[:, :, None]
+                     * torch.eye(C, device=q.device))
+        ys.append(torch.bmm(qb * torch.exp(Lq), state) + torch.bmm(P, vb))
+        L_end = L[:, -1:, :]
+        state = (state * torch.exp(L_end[:, 0])[:, :, None]
+                 + torch.bmm((kb * torch.exp(L_end - L)).transpose(1, 2),
+                             vb))
+    return torch.cat(ys, dim=1).to(q.dtype), state
+
+
+def scan_kernel_phase(torch, LSK, lsref, cfg):
+    """The linear-scan kernel against its plain version at the shapes the
+    rwkv6-3b path gives it (the train step's B = Z*b*H = 640 rows and the
+    eval step's 2,560, S = 256, chunk 128, K = V = 64, bf16 q/k/v, fp32
+    logw and bonus), at hymba's SSD shape (K = 16, no bonus, H = 50), with
+    an initial state, at the decay clip (logw = -e^4 every token) and in
+    fp32. The reading of y and the final state is the largest |diff| in
+    units of the bar (bf16 y: one bf16 rounding; fp32 y and the state: 1e-5
+    relative), beside three planted faults in the plain version: the state
+    not carried across chunks, the bonus dropped, the causal mask off by
+    one. Rows 0-127 of the B = 640 call must equal a B = 128 call bit for
+    bit. Times (graph replay) of the kernel and the plain version beside
+    the bound, which counts the C*C*K/2 visible pair exponentials per chunk
+    at the special-function units' rate as well as the bytes. Returns the
+    results at the train step's shape."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(6)
+    H, hs, C, S = cfg.num_heads, cfg.ssm.head_size, cfg.ssm.chunk_size, \
+        TRAIN_S
+    bf16, fp32 = torch.bfloat16, torch.float32
+    B_train, Z = 4 * TRAIN_B * H, 4
+    sfu = sfu_exp_rate(torch)
+    cases = [  # (label, B, K, V, SSD, initial state, decay, dtype)
+        ("train", B_train, hs, hs, False, False, 1.0, bf16),
+        ("eval", Z * EVAL_B * H, hs, hs, False, False, 1.0, bf16),
+        ("ssd-K16", 4 * TRAIN_B * 50, 16, 64, True, True, 1.0, bf16),
+        ("state", B_train, hs, hs, False, True, 1.0, bf16),
+        ("clip", B_train, hs, hs, False, False, "clip", bf16),
+        ("fp32", B_train, hs, hs, False, True, 1.0, fp32),
+    ]
+    print(f"linear scan: reading = max |kernel - plain| / (rtol |plain| + "
+          f"{SCAN_ATOL_REL} max|plain|) over y and the final state, rtol "
+          f"{SCAN_RTOL} (the state 1e-5); bar 1; controls: the plain version "
+          f"with the state not carried across chunks, the bonus dropped, the "
+          f"mask off by one. S {S}, chunk {C}; SFU rate {sfu:.4g} exp/s. "
+          f"Times in ms per call (graph replay)")
+    print("case     B      K   V   mode  dtype  reading    no-carry   "
+          "no-bonus   mask+-1    ms         plain_ms   bound_ms   bound_by")
+    results = {}
+    for label, B, K, V, doq, with_s0, decay, dt in cases:
+        q, k = (torch.randn(B, S, K, generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        v = torch.randn(B, S, V, generator=gen, device=dev).to(dt)
+        if decay == "clip":
+            logw = torch.full((B, S, K), -math.exp(4.0), device=dev)
+        else:
+            logw = -decay * torch.exp(torch.randn(B, S, K, generator=gen,
+                                                  device=dev))
+        bonus = None if doq else 0.3 * torch.randn(B, K, generator=gen,
+                                                   device=dev)
+        s0 = (torch.randn(B, K, V, generator=gen, device=dev) if with_s0
+              else None)
+        kw = dict(bonus=bonus, decay_on_query=doq, initial_state=s0,
+                  chunk=C)
+        LSK.reset_launches()
+        y, st = LSK.linear_scan(q, k, v, logw, **kw)
+        torch.cuda.synchronize()
+        require(LSK.LAUNCHES["linear_scan"] == 1,
+                f"linear scan {label}: {LSK.LAUNCHES} launches for one call")
+        kind = "bf16" if dt == bf16 else "fp32"
+
+        def sliced(fn):
+            """The plain function over 640-row slices (rows are
+            independent; bounds its [B, C, C, K] temporaries)."""
+            outs = []
+            for i in range(0, B, B_train):
+                sl = slice(i, i + B_train)
+                part = lambda x: None if x is None else x[sl]
+                outs.append(fn(q[sl], k[sl], v[sl], logw[sl], part(bonus),
+                               part(s0)))
+            return (torch.cat([o[0] for o in outs]),
+                    torch.cat([o[1] for o in outs]))
+
+        def plain(q_, k_, v_, lw_, u_, s0_):
+            return lsref.linear_scan_ref(q_, k_, v_, lw_, bonus=u_,
+                                         decay_on_query=doq,
+                                         initial_state=s0_, chunk=C)
+
+        def no_carry(q_, k_, v_, lw_, u_, s0_):
+            parts = [lsref.linear_scan_ref(
+                q_[:, c:c + C], k_[:, c:c + C], v_[:, c:c + C],
+                lw_[:, c:c + C], bonus=u_, decay_on_query=doq,
+                initial_state=s0_, chunk=C) for c in range(0, S, C)]
+            return (torch.cat([p[0] for p in parts], dim=1), parts[-1][1])
+
+        def no_bonus(q_, k_, v_, lw_, u_, s0_):
+            return plain(q_, k_, v_, lw_, None, s0_)
+
+        def mask(q_, k_, v_, lw_, u_, s0_):
+            return _scan_mask_fault(torch, q_, k_, v_, lw_, u_, s0_, C, doq)
+
+        want_y, want_s = sliced(plain)
+
+        def reading(got):
+            out = 0.0
+            for g, w, rtol in ((got[0], want_y, SCAN_RTOL[kind]),
+                               (got[1], want_s, 1e-5)):
+                w = w.float()
+                tol = rtol * w.abs() + SCAN_ATOL_REL * float(w.abs().max())
+                r = torch.nan_to_num((g.float() - w).abs() / tol,
+                                     nan=math.inf)
+                out = max(out, float(r.max()))
+            return out
+
+        sound = reading((y, st))
+        faults = {"no-carry": sliced(no_carry),
+                  "no-bonus": None if doq else sliced(no_bonus),
+                  "mask": sliced(mask)}
+        faults = {n: (None if f is None else reading(f))
+                  for n, f in faults.items()}
+        require(bool(torch.isfinite(y).all()) and sound <= 1.0,
+                f"linear scan {label}: kernel reads {sound:.3g} of the bar")
+        # at the decay clip a state is forgotten within one token, so the
+        # carried state cannot show: that control reads as 0 there
+        shown = {n: r for n, r in faults.items() if r is not None
+                 and not (n == "no-carry" and decay == "clip")}
+        require(min(shown.values()) > 1.0,
+                f"linear scan {label}: a planted fault passes the bar "
+                f"{faults}")
+        if label == "train":
+            head = [x[:128].contiguous() for x in (q, k, v, logw)]
+            y2, s2 = LSK.linear_scan(*head, bonus=bonus[:128].contiguous(),
+                                     chunk=C)
+            require(torch.equal(y2, y[:128]) and torch.equal(s2, st[:128]),
+                    "linear scan: rows 0-127 of the B = 640 call differ from "
+                    "a B = 128 call")
+            print(f"linear scan: the B = {B} call's rows 0-127 equal a "
+                  f"B = 128 call on them bit for bit (y and state)")
+        # work: q, k, v, logw, bonus and s0 read once, y and the state
+        # written once; the visible pair exponentials of every chunk
+        n = S // C
+        pairs = C * (C + 1) // 2 if doq else C * (C - 1) // 2
+        exps = B * n * pairs * K
+        nbytes = (B * S * (2 * K + 2 * V) * q.element_size()
+                  + B * S * K * 4 + B * K * V * 4 * (2 if with_s0 else 1)
+                  + (0 if doq else B * K * 4))
+        t_bytes, t_sfu = nbytes / H100_BYTES_S, exps / sfu
+        bound_ms = max(t_bytes, t_sfu) * 1e3
+        bound_by = "bytes" if t_bytes >= t_sfu else "operations"
+        inner = 10 if B <= B_train else 4
+        ms, _ = time_ms(torch, lambda i: LSK.linear_scan(q, k, v, logw, **kw),
+                        inner)
+        plain_ms = None
+        if label == "train":
+            plain_ms, _ = time_ms(torch, lambda i: plain(q, k, v, logw, bonus,
+                                                         s0), 2)
+        fmt = lambda x: "-" if x is None else f"{x:.5f}"
+        fr = lambda x: "n/a" if x is None else f"{x:.4g}"
+        print(f"{label:8s} {B:5d} {K:4d} {V:3d}  {'ssd' if doq else 'rwkv':4s}"
+              f"  {kind:5s}  {sound:.4g}  {fr(faults['no-carry']):10s} "
+              f"{fr(faults['no-bonus']):10s} {fr(faults['mask']):10s} "
+              f"{ms:.5f}  {fmt(plain_ms):10s} {bound_ms:.6f}  {bound_by}")
+        results[label] = {"max_abs_err": float((y.float()
+                                                - want_y.float()).abs().max()),
+                          "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                          "bound_ms": bound_ms, "bound_by": bound_by}
+        del q, k, v, logw, bonus, s0, y, st, want_y, want_s
+        torch.cuda.empty_cache()
+    res = dict(results["train"])
+    res["max_abs_err"] = max(results[lab]["max_abs_err"]
+                             for lab in ("train", "eval"))
+    res["eval_ms"] = results["eval"]["ms"]
+    return res
+
+
+def rwkv_serve_phase(torch, RL, cfg, params):
+    """A short serve of rwkv6-3b through AdapterPool -> ServingReplica ->
+    ServingFrontend: 4 adapters at ranks RANKS, 4 lanes, 8 greedy requests
+    (prompts of 16-48 tokens, 16 new tokens). The recurrent family has no
+    block prefill: prompts stream through the recurrent decode step, so
+    the linear-scan and flash kernels must launch 0 times and the LoRA
+    forward pair once per projection of every fused step."""
+    import numpy as np
+
+    from repro_torch.core import lora as LORA
+    from repro_torch.data.synthetic import make_task_dataset
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.linear_scan import linear_scan as LSK
+    from repro_torch.models import model as M
+    from repro_torch.serve import (AdapterPool, ServingFrontend,
+                                   ServingReplica)
+
+    dev, sync, Z, n_req, new = "cuda", torch.cuda.synchronize, len(RANKS), \
+        8, 16
+    gen = torch.Generator(device=dev).manual_seed(1)
+    stack = LORA.init_lora_tree(gen, cfg, Z,
+                                torch.tensor(RANKS, dtype=torch.int32),
+                                M.target_shapes(cfg))
+    for ab in stack.values():
+        ab["B"].normal_(0.0, 0.003, generator=gen)
+    pool = AdapterPool(cfg, Z, device=dev)
+    pool.publish_many([(f"a{z}", {t: {m: x[:, z] for m, x in ab.items()}
+                                  for t, ab in stack.items()}, RANKS[z])
+                       for z in range(Z)])
+    del stack
+    rep = ServingReplica(cfg, params, pool, lanes=LANES, max_len=MAX_LEN,
+                         device=dev)
+    require(not rep.ring and not rep._block_prefill,
+            "the rwkv replica must stream prompts through decode")
+    fe = ServingFrontend(rep, mode="continuous")
+    ds = make_task_dataset("rwkv-serve", cfg.vocab_size, seq_len=48,
+                           num_train=n_req, difficulty=0.3, seed=0)
+    lens = [int(x) for x in np.random.default_rng(0).integers(16, 49,
+                                                              n_req)]
+    rids = [fe.submit(f"a{i % Z}", ds.train[i, :lens[i]], new)
+            for i in range(n_req)]
+    for m in (RL, FA, LSK):
+        m.reset_launches()
+    sync()
+    t = time.perf_counter()
+    out = fe.drain()
+    sync()
+    wall = time.perf_counter() - t
+    launches = {**RL.LAUNCHES, **FA.LAUNCHES, **LSK.LAUNCHES}
+    require(all(len(out[r]) == new for r in rids),
+            f"token counts {[len(out[r]) for r in rids]}")
+    want = len(cfg.lora.targets) * cfg.num_layers * rep.total_decode_steps
+    require(rep.block_prefills == 0 and launches["xa"] == launches["sb_add"]
+            == want and launches["flash_attention"] == 0
+            and launches["linear_scan"] == 0,
+            f"rwkv serve launched {launches}; expected xa = sb_add = {want} "
+            f"and no flash or scan launch")
+    print(f"serve ({cfg.name}): {n_req} requests (prompts {min(lens)}-"
+          f"{max(lens)} tokens streamed through decode) x {new} tokens on "
+          f"{LANES} lanes x {Z} adapters: {rep.total_decode_steps} fused "
+          f"steps in {wall:.3f} s, {rep.total_generated / wall:.1f} "
+          f"generated tok/s; launches {launches}")
+    del pool, rep, fe
+    return launches
+
+
+def rwkv_phases(torch, fams, t_all):
+    """Phases 16-19 on rwkv6-3b: the scan kernel against its plain version,
+    a short serve, the train checks and the rank sweep (the main path).
+    ``fams`` maps each grouped-LoRA path to its kernel module. Returns
+    (the scan kernel's results, the serve's launches, the sweep's
+    launches)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.linear_scan import linear_scan as LSK
+    from repro_torch.kernels.linear_scan import ref as lsref
+    from repro_torch.models import model as M
+
+    RL = fams["rank-local"]
+    rcfg = get_arch("rwkv6-3b")
+    scan = scan_kernel_phase(torch, LSK, lsref, rcfg)
+    print(f"linear-scan kernel phase done at "
+          f"{time.perf_counter() - t_all:.1f} s")
+    t = time.perf_counter()
+    rparams = M.init_params(rcfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"init: {rcfg.name} backbone in {time.perf_counter() - t:.1f} s")
+    serve = rwkv_serve_phase(torch, RL, rcfg, rparams)
+    print(f"rwkv serve phase done at {time.perf_counter() - t_all:.1f} s")
+    for layers, hold in ((rcfg.num_layers, False), (RWKV_GRAD_LAYERS, True)):
+        ccfg = dataclasses.replace(rcfg, num_layers=layers, dtype="float32")
+        cparams = {k: ({n: x[:layers].float() for n, x in v.items()}
+                       if k == "layers" else v.float())
+                   for k, v in rparams.items()}
+        train_check(torch, fams, ccfg, cparams, TRAIN_RANKS, "rank-local",
+                    hold_grads=hold)
+        del cparams
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"rwkv train checks done at {time.perf_counter() - t_all:.1f} s")
+    jobs = {f"r{r}-lr{lr:g}": TrainConfig(learning_rate=lr, lora_rank=r,
+                                          per_adapter_batch=TRAIN_B)
+            for r in TRAIN_RANKS for lr in (1e-4, 1e-3)}
+    launches = executor_phase(torch, RL, (fams["dense"], fams["ragged"]),
+                              rcfg, rparams, "rwkv-rank-sweep", jobs)
+    print(f"rwkv rank-sweep executor phase done at "
+          f"{time.perf_counter() - t_all:.1f} s")
+    return scan, serve, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2467,6 +2943,7 @@ def main() -> int:
     from repro_torch.kernels.grouped_lora import ragged as RG
     from repro_torch.kernels.grouped_lora import ranklocal as RL
     from repro_torch.kernels.grouped_lora import ref
+    from repro_torch.kernels.linear_scan import linear_scan as LSK
     from repro_torch.models import model as M
 
     t_all = time.perf_counter()
@@ -2477,8 +2954,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:     # every nvcc starts at once
-        builds = [(m, pool.submit(m.build)) for m in (RL, FA)]
+    with ThreadPoolExecutor(3) as pool:     # every nvcc starts at once
+        builds = [(m, pool.submit(m.build)) for m in (RL, FA, LSK)]
     for m, fut in builds:
         lib = fut.result()
         print(f"build: {lib.name} from {len(m.SOURCES)} sources "
@@ -2525,8 +3002,13 @@ def main() -> int:
                    learning_rate=lr, weight_decay=wd,
                    lora_rank=cfg.lora.r_max, per_adapter_batch=TRAIN_B)
                for lr in (1e-4, 3e-4, 1e-3, 3e-3) for wd in (0.0, 0.01)}
-    lr_launches = executor_phase(torch, GL, (RL, RG), cfg, params,
+    # depth cut (LR_SWEEP_LAYERS) to keep the script within half its limit
+    lr_cfg = dataclasses.replace(cfg, num_layers=LR_SWEEP_LAYERS)
+    lr_params = dict(params, layers={k: v[:LR_SWEEP_LAYERS]
+                                     for k, v in params["layers"].items()})
+    lr_launches = executor_phase(torch, GL, (RL, RG), lr_cfg, lr_params,
                                  "lr-sweep", lr_jobs)
+    del lr_params
     print(f"lr-sweep executor phase done at "
           f"{time.perf_counter() - t_all:.1f} s")
     colo_launches = colocation_phase(torch, fams, cfg, params)
@@ -2546,6 +3028,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     recovery_phase(torch, cfg)
     print(f"recovery phase done at {time.perf_counter() - t_all:.1f} s")
+
+    scan, rwkv_serve, rwkv_launches = rwkv_phases(torch, fams, t_all)
 
     csrc = "src/repro_torch/kernels/grouped_lora/csrc"
     rows = [  # (name, kernel source, TPU kernel file, its pallas_call line)
@@ -2573,9 +3057,11 @@ def main() -> int:
         else:
             prefix, by_path, res = "ranklocal", {
                 "train": train_launches[name],
-                "dpo": dpo_launches[name]}, kern[name]
+                "dpo": dpo_launches[name],
+                "rwkv_train": rwkv_launches[name]}, kern[name]
             if name in serve_launches:
                 by_path["serve"] = serve_launches[name]
+                by_path["rwkv_serve"] = rwkv_serve[name]
         table["kernels"].append({
             "name": f"{prefix}_{name}", "route": "cuda",
             "source": f"{csrc}/{src}",
@@ -2594,6 +3080,14 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:89",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         **flash})
+    by_path = {"rwkv_train": rwkv_launches["linear_scan"],
+               "rwkv_serve": rwkv_serve["linear_scan"]}
+    table["kernels"].append({
+        "name": "linear_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
+        "replaces": "src/repro/kernels/linear_scan/linear_scan.py:111",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        **scan})
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(card_line())
     print(json.dumps(table))

@@ -56,8 +56,10 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict, device=None) -> Dict:
     if tuple(params["embed"].shape) != want:
         raise ValueError(f"embed has shape {tuple(params['embed'].shape)}, "
                          f"config {cfg.name} wants {want}")
-    if params["layers"]["q_proj"].shape[0] != cfg.num_layers:
-        raise ValueError("layer stack depth does not match the config")
+    depths = {k: v.shape[0] for k, v in params["layers"].items()}
+    if set(depths.values()) != {cfg.num_layers}:
+        raise ValueError(f"layer stack depths {depths} do not match the "
+                         f"config's {cfg.num_layers} layers")
     return params
 
 

@@ -1,10 +1,12 @@
-"""Dense transformer block with multi-adapter LoRA hooks.
+"""Per-family blocks with multi-adapter LoRA hooks: the dense transformer
+block and the RWKV-6 block (``ssm``); ``apply_block`` picks one by family.
 
-The block operates on slot-major activations ``x: [Z, b, S, d]`` (Z =
+Every block operates on slot-major activations ``x: [Z, b, S, d]`` (Z =
 adapter slots). Base weights are slot-shared and frozen; LoRA pairs are
-slot-stacked. The other families (MoE, RWKV, hybrid) are not ported yet.
+slot-stacked. The other families (MoE, hybrid) are not ported yet.
 
-KV caches are written IN PLACE, and only for the lanes allowed to write
+Caches — the dense block's K/V, the RWKV block's recurrent state — are
+written IN PLACE, and only for the lanes allowed to write
 (``ctx["write_mask"]``, [Z, b] bool; None = every lane): the JAX package
 instead builds a whole new cache with a ``jnp.where`` select and restores
 idle lanes afterwards, which at full width copies the whole cache every
@@ -19,14 +21,16 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lora import proj
 from repro_torch.models.attention import attention
-from repro_torch.models.common import he_init, rms_norm, swiglu
+from repro_torch.models.common import he_init, lora_at, rms_norm, swiglu
 from repro_torch.models.rope import apply_rope
+from repro_torch.models.rwkv import (init_rwkv_layer, rwkv_channel_mix,
+                                     rwkv_target_shapes, rwkv_time_mix)
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.is_moe:
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "ssm") or cfg.is_moe:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"family {cfg.family!r} is not ported yet (dense and ssm only)")
 
 
 # ---------------------------------------------------------------------------
@@ -48,7 +52,9 @@ def mlp_target_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, int]]:
 
 
 def target_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, int]]:
-    _require_dense(cfg)
+    _require_ported(cfg)
+    if cfg.family == "ssm":
+        return rwkv_target_shapes(cfg)
     return {**attn_target_shapes(cfg), **mlp_target_shapes(cfg)}
 
 
@@ -58,7 +64,9 @@ def target_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, int]]:
 
 def init_layer_params(gen: torch.Generator, cfg: ModelConfig,
                       dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    _require_dense(cfg)
+    _require_ported(cfg)
+    if cfg.family == "ssm":
+        return init_rwkv_layer(gen, cfg, dtype)
     d, dev = cfg.d_model, gen.device
     return {
         "attn_norm": torch.ones((d,), dtype=torch.float32, device=dev),
@@ -95,6 +103,17 @@ def _write_lanes(c: torch.Tensor, new: torch.Tensor, index: torch.Tensor,
     c[zi, bi, idx] = row
 
 
+def _write_state(c: torch.Tensor, new: torch.Tensor,
+                 mask: Optional[torch.Tensor]) -> None:
+    """Write a recurrent state ([Z, b, ...]) into its cache view in place,
+    only for the lanes in ``mask`` ([Z, b]; None = all)."""
+    new = new.to(c.dtype)
+    if mask is not None:
+        new = torch.where(mask.reshape(*mask.shape, *(1,) * (c.dim() - 2)),
+                          new, c)
+    c.copy_(new)
+
+
 def _write_span(c: torch.Tensor, new: torch.Tensor, start,
                 mask: Optional[torch.Tensor]) -> None:
     """Write ``new`` ([Z,b,S,KV,hd]) at cache positions start..start+S-1
@@ -117,9 +136,6 @@ def _write_span(c: torch.Tensor, new: torch.Tensor, start,
 # ---------------------------------------------------------------------------
 # Sublayers
 # ---------------------------------------------------------------------------
-
-def _lp(lora: Dict, t: str, layer: int):
-    return (lora[t]["A"][layer], lora[t]["B"][layer]) if t in lora else None
 
 
 def cfg_q_chunk(cfg: ModelConfig, S: int) -> int:
@@ -145,9 +161,9 @@ def attn_sublayer(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
     Z, b, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
 
-    q = proj(x, p["q_proj"], _lp(lora, "q_proj", layer), scale)
-    k = proj(x, p["k_proj"], _lp(lora, "k_proj", layer), scale)
-    v = proj(x, p["v_proj"], _lp(lora, "v_proj", layer), scale)
+    q = proj(x, p["q_proj"], lora_at(lora, "q_proj", layer), scale)
+    k = proj(x, p["k_proj"], lora_at(lora, "k_proj", layer), scale)
+    v = proj(x, p["v_proj"], lora_at(lora, "v_proj", layer), scale)
     q = apply_rope(q.reshape(Z, b, S, H, hd), angles)
     k = apply_rope(k.reshape(Z, b, S, KV, hd), angles)
     v = v.reshape(Z, b, S, KV, hd)
@@ -173,14 +189,17 @@ def attn_sublayer(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
     out = attention(q, k_all, v_all, q_pos, kp, window=window,
                     q_chunk=cfg_q_chunk(cfg, S), kv_valid_len=kv_valid_len)
     out = out.reshape(Z, b, S, H * hd)
-    return proj(out, p["o_proj"], _lp(lora, "o_proj", layer), scale)
+    return proj(out, p["o_proj"], lora_at(lora, "o_proj", layer), scale)
 
 
 def mlp_sublayer(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
                  scale=2.0) -> torch.Tensor:
-    h = swiglu(proj(x, p["gate_proj"], _lp(lora, "gate_proj", layer), scale),
-               proj(x, p["up_proj"], _lp(lora, "up_proj", layer), scale))
-    return proj(h, p["down_proj"], _lp(lora, "down_proj", layer), scale)
+    def lp(t):
+        return lora_at(lora, t, layer)
+
+    h = swiglu(proj(x, p["gate_proj"], lp("gate_proj"), scale),
+               proj(x, p["up_proj"], lp("up_proj"), scale))
+    return proj(h, p["down_proj"], lp("down_proj"), scale)
 
 
 def transformer_block(cfg: ModelConfig, x: torch.Tensor, p: Dict,
@@ -200,3 +219,43 @@ def transformer_block(cfg: ModelConfig, x: torch.Tensor, p: Dict,
         scale=scale)
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
     return x + mlp_sublayer(h, p, lora, layer, scale)
+
+
+def rwkv_block(cfg: ModelConfig, x: torch.Tensor, p: Dict, lora: Dict,
+               layer: int, ctx: Dict[str, Any]) -> torch.Tensor:
+    """One RWKV-6 layer. With a cache (``ctx["cache"]``: this layer's
+    ``wkv`` / ``tm_x`` / ``cm_x`` views) the recurrence continues from the
+    cached state and the new state is written back in place under
+    ``ctx["write_mask"]``. The token-shift states carry the normed stream,
+    so decode continues exactly (RMS pre-norms, as the JAX package)."""
+    scale = cfg.lora.scale_for_rank(0)
+    cache = ctx.get("cache")
+    state = cache if cache is not None else {}
+    xn = rms_norm(x, p["tm_norm"], cfg.norm_eps)
+    tm_out, wkv, tm_last = rwkv_time_mix(
+        xn, p, lora, layer, cfg, prev_x=state.get("tm_x"),
+        state=state.get("wkv"), scale=scale)
+    x = x + tm_out
+    xn = rms_norm(x, p["cm_norm"], cfg.norm_eps)
+    cm_out, cm_last = rwkv_channel_mix(xn, p, lora, layer, cfg,
+                                       prev_x=state.get("cm_x"), scale=scale)
+    x = x + cm_out
+    if cache is not None:
+        mask = ctx.get("write_mask")
+        for name, new in (("wkv", wkv), ("tm_x", tm_last), ("cm_x", cm_last)):
+            _write_state(cache[name], new, mask)
+    return x
+
+
+def layer_cache(cfg: ModelConfig, layers: Dict, layer: int) -> Dict:
+    """Layer ``layer``'s views of the stacked cache leaves: the dense
+    block's ``{"k", "v"}``, the RWKV block's ``{"wkv", "tm_x", "cm_x"}``."""
+    src = layers if cfg.family == "ssm" else layers["attn"]
+    return {k: v[layer] for k, v in src.items()}
+
+
+def apply_block(cfg: ModelConfig, x: torch.Tensor, p: Dict, lora: Dict,
+                layer: int, ctx: Dict[str, Any]) -> torch.Tensor:
+    if cfg.family == "ssm":
+        return rwkv_block(cfg, x, p, lora, layer, ctx)
+    return transformer_block(cfg, x, p, lora, layer, ctx)

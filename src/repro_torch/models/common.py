@@ -1,7 +1,7 @@
 """Shared low-level model components: norms, init, dtype and device policy."""
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +49,15 @@ def normal_init(gen: torch.Generator, shape: Sequence[int], scale: float,
 def he_init(gen: torch.Generator, shape: Sequence[int], fan_in: int,
             dtype: torch.dtype) -> torch.Tensor:
     return normal_init(gen, shape, 1.0 / np.sqrt(max(fan_in, 1)), dtype)
+
+
+def lora_at(lora: Dict, target: str, layer: int
+            ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """Layer ``layer``'s (A, B) of a stacked LoRA tree, or None when the
+    tree has no adapter on ``target``."""
+    if target not in lora:
+        return None
+    return lora[target]["A"][layer], lora[target]["B"][layer]
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

@@ -5,11 +5,11 @@ Parameters are plain dicts of tensors with the JAX package's keys and
 package's ``lax.scan`` over the stacked layers is a Python loop over L.
 
 Caches are updated IN PLACE: ``forward``, ``decode_step``, ``reset_lanes``
-and ``prefill_lanes`` write the K/V rows they own into the cache tensors
-and return the same cache dict (with ``pos`` / ``k_pos`` replaced). Lanes a
-call does not own — idle lanes under ``active``, lanes outside
-``lane_mask`` — stay bitwise untouched, the contract the JAX package keeps
-with whole-cache selects.
+and ``prefill_lanes`` write the K/V rows (dense) or recurrent state (RWKV,
+``ssm``) they own into the cache tensors and return the same cache dict
+(with ``pos`` / ``k_pos`` replaced). Lanes a call does not own — idle lanes
+under ``active``, lanes outside ``lane_mask`` — stay bitwise untouched, the
+contract the JAX package keeps with whole-cache selects.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN_SLIDING, ModelConfig
+from repro_torch.configs.base import ATTN_NONE, ATTN_SLIDING, ModelConfig
 from repro_torch.core import lora as LORA
 from repro_torch.models import backend as BK
 from repro_torch.models import blocks as B
@@ -70,7 +70,10 @@ def _embed(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.long()]                  # [Z,b,S,d]
 
 
-def _angles(cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
+def _angles(cfg: ModelConfig,
+            positions: torch.Tensor) -> Optional[torch.Tensor]:
+    if cfg.attn_kind == ATTN_NONE:
+        return None
     return rope_angles(positions, cfg.resolved_head_dim, cfg.rope)
 
 
@@ -87,7 +90,7 @@ def _remat_block(binding, model_backend: str, cfg: ModelConfig,
     in autograd's own thread, where the thread-local choices are not
     set."""
     with LORA.bound(binding), BK.backend(model_backend):
-        return B.transformer_block(cfg, x, p, lora, layer, ctx)
+        return B.apply_block(cfg, x, p, lora, layer, ctx)
 
 
 def _run_layers(cfg: ModelConfig, x: torch.Tensor, params: Dict, lora: Dict,
@@ -95,7 +98,7 @@ def _run_layers(cfg: ModelConfig, x: torch.Tensor, params: Dict, lora: Dict,
                 remat: bool = False) -> torch.Tensor:
     """The JAX package's ``_scan_layers`` as a loop over the stacked
     layers; layer l reads its base weights at ``[l]`` and its cache views
-    ``layers["attn"]["k"|"v"][l]``. ``remat`` checkpoints each layer
+    at ``[l]`` (``blocks.layer_cache``). ``remat`` checkpoints each layer
     (``jax.checkpoint`` around the scan body): its activations are
     recomputed in the backward pass instead of kept."""
     stacked = params["layers"]
@@ -103,13 +106,12 @@ def _run_layers(cfg: ModelConfig, x: torch.Tensor, params: Dict, lora: Dict,
     for l in range(cfg.num_layers):
         p = {k: v[l] for k, v in stacked.items()}
         if layers is not None:
-            ctx["cache"] = {"k": layers["attn"]["k"][l],
-                            "v": layers["attn"]["v"][l]}
+            ctx["cache"] = B.layer_cache(cfg, layers, l)
         if remat:
             x = checkpoint(_remat_block, binding, model_backend, cfg, x, p,
                            lora, l, ctx, use_reentrant=False)
         else:
-            x = B.transformer_block(cfg, x, p, lora, l, ctx)
+            x = B.apply_block(cfg, x, p, lora, l, ctx)
     return x
 
 
@@ -124,9 +126,10 @@ def forward(cfg: ModelConfig, params: Dict, lora: Dict, tokens: torch.Tensor,
     """Full-sequence causal forward.
 
     tokens: [Z, b, S] int. Returns (final_hidden [Z,b,S,d] (post final
-    norm, pre-unembed), aux scalar (0 for the dense family), cache|None).
+    norm, pre-unembed), aux scalar (0 for the ported families), cache|None).
     With ``cache`` given (prefill), every lane's K/V are written at index
-    0..S-1 in place and the cache's position is set to S. While gradients
+    0..S-1 (RWKV: its recurrent state continued from the cached one) in
+    place and the cache's position is set to S. While gradients
     are recorded and no cache is written (a training forward), every layer
     is checkpointed (``torch.utils.checkpoint``), as the JAX package's
     train step rematerializes its forward."""
@@ -201,17 +204,33 @@ def init_cache(cfg: ModelConfig, Z: int, bsz: int, max_len: int, *,
     otherwise). ``ring=True`` => sliding-window ring buffer of size
     ``cfg.sliding_window``; ``per_lane=True`` => the decode position is a
     ``[Z, bsz]`` vector (and the ring ``k_pos`` a ``[Z, bsz, Sc]``
-    tensor), so every (slot, lane) stream advances independently."""
-    B._require_dense(cfg)
+    tensor), so every (slot, lane) stream advances independently.
+
+    The RWKV family (``ssm``) keeps a recurrent state instead of K/V
+    (``src/repro/models/model.py:238-241``): ``wkv`` [L,Z,bsz,H,hs,hs]
+    fp32 and the token-shift streams ``tm_x`` / ``cm_x`` [L,Z,bsz,d]; it
+    needs no ring (``ring`` is ignored) and no ``max_len``."""
+    B._require_ported(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
     L, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
-    Sc = cfg.sliding_window if ring else max_len
-    shape = (L, Z, bsz, Sc, KV, hd)
-    cache: Dict[str, Any] = {
-        "layers": {"attn": {
+    if cfg.family == "ssm":
+        H, hs, d = cfg.num_heads, cfg.ssm.head_size, cfg.d_model
+        layers = {"wkv": torch.zeros((L, Z, bsz, H, hs, hs),
+                                     dtype=torch.float32, device=dev),
+                  "tm_x": torch.zeros((L, Z, bsz, d), dtype=dtype,
+                                      device=dev),
+                  "cm_x": torch.zeros((L, Z, bsz, d), dtype=dtype,
+                                      device=dev)}
+        ring = False
+    else:
+        Sc = cfg.sliding_window if ring else max_len
+        shape = (L, Z, bsz, Sc, KV, hd)
+        layers = {"attn": {
             "k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}},
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}}
+    cache: Dict[str, Any] = {
+        "layers": layers,
         "pos": (torch.zeros((Z, bsz), dtype=torch.int32, device=dev)
                 if per_lane
                 else torch.tensor(0, dtype=torch.int32, device=dev)),
@@ -232,8 +251,8 @@ def decode_step(cfg: ModelConfig, params: Dict, lora: Dict, cache: Dict,
     and reads at the same position. With a per-lane cache (``pos`` is
     [Z, b]) each (slot, lane) stream writes at its own index and sees only
     keys up to its own position. ``active`` ([Z, b] bool, per-lane caches
-    only) freezes idle lanes: their K/V rows and position stay bitwise
-    untouched while live lanes advance."""
+    only) freezes idle lanes: their K/V rows (RWKV: recurrent state) and
+    position stay bitwise untouched while live lanes advance."""
     Z, bsz = tokens.shape
     pos = cache["pos"]
     per_lane = pos.dim() == 2
@@ -250,7 +269,9 @@ def decode_step(cfg: ModelConfig, params: Dict, lora: Dict, cache: Dict,
         "write_mask": active,
     }
     new_kpos = None
-    if "k_pos" in cache:
+    if cfg.family == "ssm":
+        pass                  # the recurrent state needs no positions
+    elif "k_pos" in cache:
         W = cfg.sliding_window
         widx = torch.remainder(pos, W)
         if per_lane:
@@ -286,13 +307,18 @@ def decode_step(cfg: ModelConfig, params: Dict, lora: Dict, cache: Dict,
 def reset_lanes(cfg: ModelConfig, cache: Dict,
                 lane_mask: torch.Tensor) -> Dict:
     """Reset the masked lanes in place to the just-initialized state (pos
-    0, zero K/V, ring slots pushed to the far past) so a fresh request can
-    join them. Unmasked lanes are bitwise untouched."""
+    0, zero K/V and recurrent state, ring slots pushed to the far past) so
+    a fresh request can join them. Unmasked lanes are bitwise untouched."""
     if cache["pos"].dim() != 2:
         raise ValueError("reset_lanes needs a per-lane cache")
-    m = lane_mask[None, :, :, None, None, None]
-    for leaf in cache["layers"]["attn"].values():
-        leaf.masked_fill_(m, 0)
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from (leaves(v) if isinstance(v, dict) else (v,))
+
+    for leaf in leaves(cache["layers"]):           # [L, Z, b, ...]
+        leaf.masked_fill_(lane_mask.reshape(
+            1, *lane_mask.shape, *(1,) * (leaf.dim() - 3)), 0)
     cache["pos"] = torch.where(lane_mask, 0, cache["pos"]).to(torch.int32)
     if "k_pos" in cache:
         cache["k_pos"] = torch.where(lane_mask[..., None], RING_INIT_POS,
@@ -319,10 +345,12 @@ def prefill_lanes(cfg: ModelConfig, params: Dict, lora: Dict, cache: Dict,
     causality hides index i until the lane's position reaches i, and
     decode writes index i before it reads it (write-before-read).
 
-    Non-ring caches only (ring caches join by streaming the prompt through
-    ``decode_step``)."""
-    if cache["pos"].dim() != 2 or "k_pos" in cache:
-        raise ValueError("prefill_lanes needs a per-lane non-ring cache")
+    Non-ring attention caches only (ring caches and the recurrent family
+    join by streaming the prompt through ``decode_step``)."""
+    if (cache["pos"].dim() != 2 or "k_pos" in cache
+            or cfg.family == "ssm"):
+        raise ValueError("prefill_lanes needs a per-lane non-ring "
+                         "attention cache")
     Z, b, P = tokens.shape
     dev = tokens.device
     reset_lanes(cfg, cache, lane_mask)

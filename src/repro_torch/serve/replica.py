@@ -117,10 +117,11 @@ class ServingReplica:
         self.pool = pool
         self.lanes = lanes
         self.max_len = max_len
-        self.ring = ring
+        self.ring = ring and cfg.family != "ssm"
         # block prefill writes the whole prompt in one forward; ring caches
-        # need per-position writes
-        self._block_prefill = not self.ring
+        # and the recurrent family need per-position writes: their prompts
+        # stream through decode_step
+        self._block_prefill = not self.ring and cfg.family != "ssm"
         prefill = make_prefill_step(cfg)
         serve = make_serve_step(cfg)
         lane_prefill = make_lane_prefill_step(cfg)

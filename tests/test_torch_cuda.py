@@ -8,7 +8,12 @@ under ``ragged_rows`` alone launching the ragged kernels; and the
 flash-attention kernel against its plain version (fp32 and bf16, head dims
 16 to 128, windows, Sq < Sk and Sq > Sk with fully masked rows exactly 0),
 batch independent bit for bit, its autograd Function's gradients, and the
-model's contiguous causal forwards launching it.
+model's contiguous causal forwards launching it; and the chunked
+linear-scan kernel against its plain version in both modes (RWKV with the
+bonus, SSD), fp32 and bf16, with an initial state and at the decay clip,
+batch independent bit for bit, a planted fault (the bonus dropped) outside
+the bar, its autograd Function's gradients, and the rwkv model's scans
+launching it.
 
 Imports neither JAX nor the JAX package, so it runs on a machine with a
 card and no JAX: ``PYTHONPATH=src python -m pytest -q --noconftest
@@ -28,6 +33,9 @@ from repro_torch.kernels.flash_attention import flash_attention as FA
 from repro_torch.kernels.flash_attention import ops as FOPS
 from repro_torch.kernels.flash_attention import ref as FREF
 from repro_torch.kernels.grouped_lora import ref
+from repro_torch.kernels.linear_scan import linear_scan as LSK
+from repro_torch.kernels.linear_scan import ops as LSOPS
+from repro_torch.kernels.linear_scan import ref as LSREF
 
 # (Z, T, din, dout, r, ranks, rows): an empty slot, full r_max, ranks off
 # multiples of the 16-wide rank tile, rows < T, ragged T/din/dout
@@ -501,3 +509,143 @@ def test_cuda_model_forward_launches_flash_per_layer():
     torch.cuda.synchronize()
     assert FA.LAUNCHES["flash_attention"] == cfg.num_layers
     torch.testing.assert_close(h1.float(), h2.float(), rtol=0.05, atol=0.05)
+
+
+# (B, S, K, V, chunk, decay_on_query, initial state, decay): small edges, an
+# rwkv6-3b head (K = V = 64, chunk 128) at the decay clip -e^4, a hymba SSD
+# head (K = 16)
+SCAN_CASES = [
+    (3, 32, 16, 8, 8, False, True, 1.0),
+    (2, 24, 8, 12, 12, True, False, 1.0),
+    (5, 42, 4, 4, 21, False, False, 6.0),     # C not a multiple of 4
+    (8, 256, 64, 64, 128, False, False, "clip"),
+    (8, 256, 64, 64, 128, False, True, 1.0),
+    (6, 256, 16, 64, 128, True, True, 1.0),
+]
+
+
+def _scan_inputs(case, dt, seed=0):
+    B, S, K, V, chunk, doq, with_s0, decay = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k = (torch.randn(B, S, K, device="cuda", generator=gen).to(dt)
+            for _ in range(2))
+    v = torch.randn(B, S, V, device="cuda", generator=gen).to(dt)
+    if decay == "clip":
+        logw = torch.full((B, S, K), -float(np.exp(4.0)), device="cuda")
+    else:
+        logw = -decay * torch.exp(torch.randn(B, S, K, device="cuda",
+                                              generator=gen))
+    bonus = None if doq else 0.3 * torch.randn(B, K, device="cuda",
+                                               generator=gen)
+    s0 = (torch.randn(B, K, V, device="cuda", generator=gen) if with_s0
+          else None)
+    return (q, k, v, logw), dict(bonus=bonus, decay_on_query=doq,
+                                 initial_state=s0, chunk=chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_cuda_linear_scan_matches_plain(case):
+    """One launch per call; y within one bf16 rounding of the plain
+    version (fp32: 1e-5), the final state within 1e-5; the first rows of
+    a batch bitwise equal to a call on them alone; with the bonus dropped
+    from the plain version the RWKV cases leave the bar."""
+    _need_card()
+    for dt, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -7)):
+        args, kw = _scan_inputs(case, dt)
+        LSK.reset_launches()
+        y, st = LSK.linear_scan(*args, **kw)
+        torch.cuda.synchronize()
+        assert LSK.LAUNCHES == {"linear_scan": 1}
+        assert y.dtype == dt and st.dtype == torch.float32
+        assert bool(torch.isfinite(y).all())
+        wy, ws = LSREF.linear_scan_ref(*args, **kw)
+        torch.testing.assert_close(y.float(), wy.float(), rtol=rtol,
+                                   atol=1e-5 * float(wy.abs().max()))
+        torch.testing.assert_close(st, ws, rtol=1e-5,
+                                   atol=1e-5 * float(ws.abs().max()))
+        head = [t[:2].contiguous() for t in args]
+        hkw = {k_: (v_[:2].contiguous() if torch.is_tensor(v_) else v_)
+               for k_, v_ in kw.items()}
+        y2, s2 = LSK.linear_scan(*head, **hkw)
+        assert torch.equal(y2, y[:2]) and torch.equal(s2, st[:2])
+        if kw["bonus"] is not None:
+            fy, _ = LSREF.linear_scan_ref(*args, **dict(kw, bonus=None))
+            assert not torch.allclose(y.float(), fy.float(), rtol=rtol,
+                                      atol=1e-5 * float(fy.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_linear_scan_refuses_what_it_does_not_take():
+    _need_card()
+    q = torch.randn(2, 16, 6, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 4"):
+        LSK.linear_scan(q, q, q, -q.abs(), chunk=8)
+    q = torch.randn(2, 16, 8, device="cuda")
+    with pytest.raises(TypeError):
+        LSK.linear_scan(q.half(), q.half(), q.half(), -q.abs(), chunk=8)
+    with pytest.raises(ValueError, match="does not divide"):
+        LSK.linear_scan(q, q, q, -q.abs(), chunk=6)
+    with pytest.raises(TypeError):
+        LSK.linear_scan(q, q, q, -q.abs().double(), chunk=8)
+    big = torch.randn(1, 512, 64, device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        LSK.linear_scan(big, big, big, -big.abs(), chunk=512)
+
+
+@pytest.mark.cuda
+def test_cuda_linear_scan_function_backward_matches_autograd_through_plain():
+    """The Function's gradients (autograd through the plain version on the
+    saved inputs) equal autograd through the plain version; a None state
+    cotangent is accepted."""
+    _need_card()
+    args, kw = _scan_inputs((3, 64, 16, 16, 32, False, True, 1.0),
+                            torch.float32, seed=4)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dy = torch.randn(3, 64, 16, device="cuda", generator=gen)
+    outs = []
+    for fn in (LSOPS.linear_scan, LSREF.linear_scan_ref):
+        leaves = [t.clone().requires_grad_(True) for t in args]
+        y, _ = fn(*leaves, **kw)
+        outs.append([y] + list(torch.autograd.grad(y, leaves, dy)))
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got.detach(), want.detach(), rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv_model_scans_launch_the_kernel():
+    """An rwkv training forward and its remat recompute launch the scan
+    kernel once per layer each, an eval forward once per layer, decode
+    never; the "torch" backend agrees with the kernel."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import backend as BK
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_arch("rwkv6-3b").reduced(
+        num_layers=2, d_model=128, vocab=256), dtype="float32")
+    params = M.init_params(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, 256, (2, 2, 32), device="cuda", generator=gen)
+    lora = LORA.init_lora_tree(gen, cfg, 2, torch.tensor([4, 8],
+                                                         device="cuda"),
+                               M.target_shapes(cfg))
+    for ab in lora.values():
+        ab["A"].requires_grad_(True)
+    LSK.reset_launches()
+    h, _, _ = M.forward(cfg, params, lora, tokens)
+    h.sum().backward()
+    torch.cuda.synchronize()
+    assert LSK.LAUNCHES["linear_scan"] == 2 * cfg.num_layers
+    LSK.reset_launches()
+    with torch.no_grad():
+        h1, _, _ = M.forward(cfg, params, lora, tokens)
+        with BK.backend("torch"):
+            h2, _, _ = M.forward(cfg, params, lora, tokens)
+        cache = M.init_cache(cfg, 2, 2, 64, per_lane=True)
+        M.decode_step(cfg, params, lora, cache, tokens[:, :, 0])
+    torch.cuda.synchronize()
+    assert LSK.LAUNCHES["linear_scan"] == cfg.num_layers
+    torch.testing.assert_close(h1, h2, rtol=1e-4, atol=1e-4)

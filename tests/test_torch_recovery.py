@@ -386,7 +386,14 @@ def test_exported_tree_has_the_jax_keys(tiny, tmp_path):
     exported at its first chunk boundary (the first warmup wave rotated
     out, the second resident): the same tree paths, the same meta keys and
     the same host decisions (phase, counters, residents, batch-stream
-    state). The JAX package's checkpoint file then resumes in the port."""
+    state). The JAX package's checkpoint file then resumes in both
+    packages and the continuations agree: the same best job, every job's
+    loss histories within the loss bar (1e-4) and the winner's adapter
+    within the gradient bar (2e-3). No job is admitted fresh after the
+    resume (the admission counter is the file's at the end of both runs):
+    fresh inits are drawn differently in the two packages by design, so
+    the continuations are comparable exactly when every resident and
+    rotated job comes from the file."""
     cfg, tparams, *_ = tiny
     (jc, jr), (tc, tr) = _pair_data()
     jcfg = reduced_f32("paper-llama-tiny", num_layers=2, d_model=64,
@@ -447,11 +454,41 @@ def test_exported_tree_has_the_jax_keys(tiny, tmp_path):
         ee=EarlyExitConfig(warmup_ratio=0.25, select_ratio=0.5),
         loss_kind="dpo", batcher=TSYN.PairSlotBatcher(tc, tr, 2, 2, seed=0),
         seq_cap=16, device="cpu")
+    ends = {}
+    rbx.ckpt_hook = lambda lc, i: ends.update(port=lc)
     res = _drain(rbx.resume_task_chunks(
         "dpo", {j: TrainConfig(learning_rate=lr, lora_rank=r)
                 for j, (lr, r) in jobs.items()}, 8, state, start_chunk=1))
     assert res.best_job in jobs and np.isfinite(res.best_val)
     assert sum(r.steps_trained for r in res.job_results.values()) > 4
+    # the same file resumed by the JAX package
+    jrbx = JEX.BatchedExecutor(
+        jcfg, jparams, None, Z=2, per_adapter_batch=2, eval_every=2,
+        ee=JEarlyExitConfig(warmup_ratio=0.25, select_ratio=0.5),
+        loss_kind="dpo", batcher=JSYN.PairSlotBatcher(jc, jr, 2, 2, seed=0),
+        seq_cap=16)
+    jrbx.ckpt_hook = lambda lc, i: ends.update(jax=lc)
+    jres = _drain(jrbx.resume_task_chunks(
+        "dpo", {j: JTrainConfig(learning_rate=lr, lora_rank=r)
+                for j, (lr, r) in jobs.items()}, 8,
+        JTS.load_task_checkpoint(path), start_chunk=1))
+    admitted = jmeta["admissions"]
+    assert ends["port"]._admissions == ends["jax"]._admissions == admitted
+    assert res.best_job == jres.best_job
+    np.testing.assert_allclose(res.best_val, jres.best_val, rtol=LOSS_RTOL)
+    for j, m in ends["jax"].monitors.items():
+        tm_ = ends["port"].monitors[j]
+        for h in ("val_hist", "raw_train_hist"):
+            want, got = getattr(m, h), getattr(tm_, h)
+            assert len(got) == len(want), (j, h)
+            np.testing.assert_allclose(got, want, rtol=LOSS_RTOL,
+                                       err_msg=f"{j} {h}")
+    tw = res.job_results[res.best_job].adapter
+    jw = jres.job_results[jres.best_job].adapter
+    for t in jw:
+        for m in jw[t]:
+            np.testing.assert_allclose(tw[t][m].numpy(), np.asarray(jw[t][m]),
+                                       err_msg=f"{t}.{m}", **GTOL)
 
 
 # ---------------------------------------------------------------------------
