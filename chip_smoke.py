@@ -21,7 +21,11 @@ package. Phases, none of them caught:
             ``src/repro_torch/kernels/flash_attention/csrc/
             flash_attention.cu`` and the linear-scan kernel from
             ``src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu``:
-            one nvcc per source, all six started together.
+            one nvcc per source, all six started together; then
+            ``cuobjdump`` of the grouped-LoRA library: every bf16
+            narrow_out_kernel and tn_kernel holds tensor-core (HMMA)
+            instructions and no fp32 one does (registers and local bytes
+            printed).
 3. kernels — each rank-local kernel against its plain PyTorch version at
             stablelm-3b shapes (bf16 activations, fp32 adapter masters,
             Z = 4 slots): the forward pair at serving shapes and the
@@ -43,7 +47,16 @@ package. Phases, none of them caught:
             (CUDA events around a replayed CUDA graph of many calls; median
             of 21), a ``torch.bmm`` yardstick the port never calls, and the
             bound (max of bytes / 3.35 TB/s and flops / 989 TFLOP/s, at the
-            live rows and ranks).
+            live rows and ranks); the rank-local forward pair's row is its
+            decode time, its eval and train times kept beside it
+            (``shapes`` in the kernel JSON).
+3a. invariance — one fp32 summation order per output element of the bf16
+            xa, ds, da and db (the tensor-core kernels) in all three sets,
+            at Z = 4, T = 1,024, r_max 64, 2560 -> 2560 and 2560 -> 6912,
+            bit for bit: the rows of a T = 4 call equal the same rows of
+            the T = 1,024 call (xa, ds), a Z = 1 call its slot inside Z = 4,
+            a slot of rows = 512 a T = 512 call (the dense set's too), and
+            operands off 16-byte alignment the aligned call.
 3b. flash — the flash-attention kernel against its plain PyTorch version
             at the shapes the path gives it (bf16, hd 80, causal: the SFT
             train step's B = Z*b*H = 512, the eval step's 2,048, a DPO
@@ -93,7 +106,10 @@ package. Phases, none of them caught:
             221) and flash attention 64, every eval step xa/sb_add 224
             times and flash 32, and the dense and ragged kernels never; real tokens/s over the whole run_task
             wall, the median train-step call by resident slots, eval step,
-            peak memory, and two train steps under torch.profiler.
+            peak memory, and two train steps under torch.profiler (device
+            busy, the top kernels, and the per-step time and launches of
+            each grouped-LoRA kernel template: narrow_out_kernel,
+            rank_sum_kernel, tn_kernel).
 7. dense train — phase 5 with every slot at r_max 64 and nothing bound
             (the dense kernels), the same bars and planted faults; then the
             same step with slot_ranks bound to (64, 64, 64, 64), through
@@ -246,6 +262,11 @@ ROOT = Path(__file__).resolve().parent
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak (NVIDIA data sheet)
 H100_BYTES_S = 3.35e12        # HBM3 bandwidth (NVIDIA data sheet)
 H100_FP32_FLOPS = 67e12       # fp32 outside the tensor cores (data sheet)
+# narrow_out_kernel and tn_kernel instantiations in the grouped-LoRA
+# library, by "is bf16": bf16 xa and ds of three sets at two tiles (12) and
+# da and db of three sets (6), all with HMMA; fp32 one narrow_out in each
+# of the four sources and da and db of three sets, none with HMMA
+TC_INSTANTIATIONS = {True: 18, False: 10}
 
 # kernel vs plain, bf16 outputs: the two sum the same fp32 products in
 # another order, so an output may round to the neighbouring bf16 value:
@@ -318,9 +339,15 @@ RECOVERY_STEPS = 12           # steps per job of the recovery phase's task
 # one-ulp bf16 differences of the kernels compound through 32 layers
 # forward and backward. The loss bar guards the forward: it sits between
 # the sound reading and that of a planted forward fault (slot 0's delta
-# halved), which must break it. On an H100 the sound run reads at most
-# 5.9e-05 and that fault 1.68e-03 at ranks 4-32 (slot 0 at rank 4); at
-# r = 64 (the dense kernels) 4.5e-05 and 5.78e-03 (see PERF.md).
+# halved), which must break it. On an H100, with the bf16 kernels on the
+# tensor cores, the sound run reads at most (the fault in brackets):
+# rank-local, ranks 4-32 and slot 0 at rank 4, 1.098e-04 (1.684e-03);
+# dense, r = 64, 1.065e-04 (5.87e-03); ragged 1.899e-04 (5.87e-03; the
+# narrow slots' dead tile 8.116e-04); DPO 1.842e-04 (1.313e-03); dA and
+# dB at most 0.03744, against 0.05. The fp32-FMA kernels they replaced
+# read 1.007e-04, 1.616e-04, 1.616e-04, 2.148e-04 and 0.03719 on the
+# same seeds: the readings are set by the whole step's bf16 rounding,
+# not by one kernel set (PERF.md).
 TRAIN_LOSS_REL = 3e-4
 TRAIN_NORM_REL = 0.05
 TRAIN_GRAD_REL_RMS = 0.05
@@ -349,6 +376,44 @@ def bound(nbytes: float, flops: float, peak: float = H100_BF16_FLOPS):
     t_bytes, t_ops = nbytes / H100_BYTES_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def tensor_core_check(lib: Path) -> None:
+    """The grouped-LoRA library's machine code (``cuobjdump``): every bf16
+    instantiation of narrow_out_kernel and tn_kernel holds tensor-core
+    (HMMA) instructions, no fp32 one does; prints each instantiation's
+    HMMA count, registers and local (spill) bytes."""
+    from repro_torch.kernels.nvcc import nvcc
+
+    tool = str(Path(nvcc()).with_name("cuobjdump"))
+    hmma, fn = {}, None
+    for line in sh(tool, "-sass", str(lib)).splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            hmma[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            hmma[fn] += 1
+    usage = dict(re.findall(r"Function (\S+):\s*\n\s*(REG:\d+ STACK:\d+ "
+                            r"SHARED:\d+ LOCAL:\d+)",
+                            sh(tool, "-res-usage", str(lib))))
+    seen = {True: 0, False: 0}
+    for name in sorted(hmma):
+        at = max(name.find("narrow_out_kernel"), name.find("tn_kernel"))
+        if at < 0:
+            continue
+        bf16 = "kernelI13__nv_bfloat16" in name
+        require(bf16 == (hmma[name] > 0),
+                f"{name}: {hmma[name]} HMMA instructions")
+        seen[bf16] += 1
+        print(f"build: {name[at:].split('EEv')[0]}> (mangled) HMMA "
+              f"{hmma[name]} {usage.get(name, 'no resource line')}")
+    print(f"build: {seen[True]} bf16 narrow_out / tn instantiations with "
+          f"HMMA, {seen[False]} fp32 ones without")
+    require(seen == TC_INSTANTIATIONS,
+            f"narrow_out / tn instantiations (bf16, fp32): "
+            f"({seen[True]}, {seen[False]}), expected "
+            f"({TC_INSTANTIATIONS[True]}, {TC_INSTANTIATIONS[False]})")
 
 
 def time_ms(torch, fn, n_inner: int, samples: int = 21):
@@ -390,7 +455,8 @@ def kernel_phase(torch, RL, ref):
     """The forward pair against its plain versions at the serving shapes
     and the executor's eval-step shape (T = 4,096 rows per slot); returns
     per-kernel results at the decode shape the serving path launches most
-    (T = lanes, din = dout = d_model = 2560) and prints every case."""
+    (T = lanes, din = dout = d_model = 2560; the eval step's 2560 -> 6912
+    under ``shapes["eval"]``) and prints every case."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(1)
     Z, r = 4, 64
@@ -492,9 +558,12 @@ def kernel_phase(torch, RL, ref):
                   f"{plain_eager:.5f} {lib_eager:.5f}")
             res = results.setdefault(name, {"max_abs_err": 0.0})
             res["max_abs_err"] = max(res["max_abs_err"], errs[name])
+            times = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
             if (label, din, dout) == ("decode", 2560, 2560):
-                res.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=bound_ms, bound_by=bound_by)
+                res.update(times)
+            elif (label, din, dout) == ("eval", 2560, 6912):
+                res.setdefault("shapes", {})["eval"] = times
         del xs, As, Bs, As_lib, Bs_lib, ss
         torch.cuda.empty_cache()
     return results
@@ -724,7 +793,8 @@ def backward_kernel_phase(torch, RL, ref):
     past each rank) and at the DPO step's shapes (T = DPO_B * TRAIN_S =
     512 rows per slot in each policy forward; checked, not timed); returns
     per-kernel results (times of the backward four at the q/k/v/o shape,
-    din = dout = 2560) and prints every case."""
+    din = dout = 2560; the forward pair's there under ``shapes["train"]``)
+    and prints every case."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(2)
     Z, r = len(TRAIN_RANKS), 64
@@ -823,6 +893,13 @@ def backward_kernel_phase(torch, RL, ref):
             continue
         # --- timing, alternating between the two activation copies
         timing = {
+            "xa": (lambda i: RL.xa(xs[i % 2], A, rows, ranks),
+                   lambda i: ref.ranklocal_xa_ref(xs[i % 2], A, rows, ranks),
+                   lambda i: torch.bmm(xs[i % 2], A_lib.transpose(1, 2))),
+            "sb_add": (lambda i: RL.sb_add(ss[i % 2], B, scale, rows, ranks),
+                       lambda i: ref.ranklocal_sb_add_ref(
+                           ss[i % 2], B, scale, rows, ranks),
+                       lambda i: torch.bmm(ss[i % 2], B_lib.transpose(1, 2))),
             "ds": (lambda i: RL.ds(dys[i % 2], B, scale, rows, ranks),
                    lambda i: ref.ranklocal_ds_ref(dys[i % 2], B, scale, rows,
                                                   ranks),
@@ -847,6 +924,10 @@ def backward_kernel_phase(torch, RL, ref):
         sum_rr = sum(rk * nr for rk, nr in zip(live, nrows))
         rows_x = sum(nr for nr, rk in zip(nrows, live) if rk)
         work = {
+            "xa": (rows_x * din * 2 + sum(live) * din * 4 + Z * T * r * 2,
+                   2 * sum_rr * din),
+            "sb_add": (sum_rr * 2 + sum(live) * dout * 4 + Z * T * dout * 2,
+                       2 * sum_rr * dout),
             "ds": (rows_x * dout * 2 + sum(live) * dout * 4 + Z * T * r * 2,
                    2 * sum_rr * dout),
             "dx": (sum_rr * 2 + sum(live) * din * 4 + Z * T * din * 2,
@@ -865,10 +946,14 @@ def backward_kernel_phase(torch, RL, ref):
                   f"{str(rows_t):22s} {ms:9.5f} {plain_ms:9.5f} "
                   f"{lib_ms:9.5f}  {bound_ms:9.6f} {bound_by:10s} "
                   f"{errs[name]:.3g}")
-            if (label, din, dout) == ("train", 2560, 2560):
-                results[name].update(ms=ms, plain_ms=plain_ms,
-                                     library_ms=lib_ms, bound_ms=bound_ms,
-                                     bound_by=bound_by)
+            if (label, din, dout) != ("train", 2560, 2560):
+                continue
+            times = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+            if name in ("xa", "sb_add"):    # their rows are decode's
+                results[name].setdefault("shapes", {})["train"] = times
+            else:
+                results[name].update(times)
         del xs, dys, ss, dss, timing
         torch.cuda.empty_cache()
     return results
@@ -1224,6 +1309,93 @@ def ragged_kernel_phase(torch, RG, GL, RL, ref):
         del xs, dys, base
         torch.cuda.empty_cache()
     return results
+
+
+def invariance_phase(torch, GL, RG, RL):
+    """One fp32 summation order per output element of the bf16 xa, ds, da
+    and db, in all three sets, at the main paths' shapes (Z = 4, T = 1,024
+    rows a slot, r_max 64, 2560 -> 2560 and 2560 -> 6912; rows (1024, 512,
+    1024, 512), ranks (64, 13, 32, 64)), bit for bit: the rows of a T = 4
+    call (decode) equal the same rows of the T = 1,024 call (xa, ds); a
+    Z = 1 call equals its slot inside Z = 4; a slot of rows = 512 equals a
+    T = 512 call (the DPO step's rows), the dense set's too; operands that
+    are not 16-byte aligned (the masked scalar loads) give the aligned
+    call's bits."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(6)
+    Z, T, r = 4, TRAIN_B * TRAIN_S, 64
+    rows_t, ranks_t = (1024, 512, 1024, 512), (64, 13, 32, 64)
+
+    def ints(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    def contract(mod, x, dy, A, B, scale, s, dS, *c):
+        return {"xa": mod.xa(x, A, *c), "ds": mod.ds(dy, B, scale, *c),
+                "da": mod.da(x, dS, *c), "db": mod.db(s, dy, scale, *c)}
+
+    def shifted(t):              # the same values, 2 or 4 bytes off 16
+        buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=dev)
+        out = buf[1:1 + t.numel()].view(t.shape)
+        out.copy_(t)
+        return out
+
+    sets = {"dense": (GL, ()), "ragged": (RG, (ints(rows_t),)),
+            "rank-local": (RL, (ints(rows_t), ints(ranks_t)))}
+    for din, dout in ((2560, 2560), (2560, 6912)):
+        x = torch.randn(Z, T, din, generator=gen, device=dev).bfloat16()
+        dy = torch.randn(Z, T, dout, generator=gen, device=dev).bfloat16()
+        A = torch.randn(Z, din, r, generator=gen, device=dev) / din ** 0.5
+        B = torch.randn(Z, r, dout, generator=gen, device=dev) / r ** 0.5
+        scale = torch.tensor([0.5, 1.0, 1.5, 2.0], device=dev)
+        s, dS = GL.xa(x, A), GL.ds(dy, B, scale)
+        full = (x, dy, A, B, scale, s, dS)
+
+        def rows_cut(n):         # the token-row operands' first n rows
+            return [t[:, :n].contiguous() if i in (0, 1, 5, 6) else t
+                    for i, t in enumerate(full)]
+
+        for fam, (mod, c) in sets.items():
+            tag = f"invariance {fam} {din}x{dout}"
+            big = contract(mod, *full, *c)
+            c4 = tuple(v.clamp(max=4) for v in c[:1]) + c[1:]
+            small = contract(mod, *rows_cut(4), *c4)
+            for name in ("xa", "ds"):
+                require(torch.equal(small[name], big[name][:, :4]),
+                        f"{tag}: {name} rows of a T = 4 call differ from "
+                        f"the T = {T} call's")
+            for z in (1, 2):
+                one = contract(mod, *(t[z:z + 1].contiguous() for t in full),
+                               *(v[z:z + 1].contiguous() for v in c))
+                for name, out in one.items():
+                    require(torch.equal(out[0], big[name][z]),
+                            f"{tag}: {name} of a Z = 1 call differs from "
+                            f"slot {z} of the Z = 4 call")
+            # slot 1 holds 512 rows: the ragged call's (the dense set's T =
+            # 512 call meets the ragged one's)
+            c512 = tuple(v.clamp(max=512) for v in c[:1]) + c[1:]
+            half = contract(mod, *rows_cut(512), *c512)
+            slot = big if fam != "dense" else contract(RG, *full,
+                                                       *sets["ragged"][1])
+            for name in ("xa", "ds"):
+                require(torch.equal(half[name][1], slot[name][1][:512])
+                        and bool((slot[name][1][512:] == 0).all()),
+                        f"{tag}: {name} of rows = 512 differs from a T = "
+                        f"512 call")
+            for name in ("da", "db"):
+                require(torch.equal(half[name][1], slot[name][1]),
+                        f"{tag}: {name} of rows = 512 differs from a T = "
+                        f"512 call")
+            moved = contract(mod, *(shifted(t) if t.dim() == 3 else t
+                                    for t in full), *c)
+            for name, out in moved.items():
+                require(torch.equal(out, big[name]),
+                        f"{tag}: {name} on unaligned operands differs from "
+                        f"the aligned call")
+            print(f"{tag}: xa, ds, da, db bitwise equal across T = 4 / "
+                  f"{T}, Z = 1 / {Z}, rows = 512 / T = 512 and unaligned / "
+                  f"aligned operands")
+        del x, dy, A, B, s, dS, full
+        torch.cuda.empty_cache()
 
 
 def _attention_plain(torch, q, k, v, window=0, scale_mul=1.0, drop=None):
@@ -2047,6 +2219,8 @@ def executor_phase(torch, fam, others, cfg, params, task, jobs,
           f"device events/step; {seq_label} {seq_us / 2e3:.2f} "
           f"ms/step = {seq_us / busy:.3f} of the device time" if busy else
           f"profile ({task}): no device events traced: not measured")
+    if busy:
+        print_template_sums(task, prof["kernels"], busy)
     for name, (n, us) in sorted(prof["kernels"].items(),
                                 key=lambda kv: -kv[1][1])[:10]:
         print(f"profile ({task}):   {us / 2e3:8.3f} ms/step {n // 2:5d}/step "
@@ -2372,6 +2546,27 @@ def _kernel_family(name: str) -> str:
                                              "unidentified")
 
 
+LORA_TEMPLATES = ("narrow_out_kernel", "rank_sum_kernel", "tn_kernel")
+
+
+def print_template_sums(tag, kernels, busy_us, steps=2):
+    """Per-step device time and launches of each grouped-LoRA kernel
+    template (all three sets together) in a profile's ``kernels`` ({name:
+    (launches, us)}), and their share of the device busy time."""
+    sums = {t: [0, 0.0] for t in LORA_TEMPLATES}
+    for name, (n, us) in kernels.items():
+        for t in LORA_TEMPLATES:
+            if t in name:
+                sums[t][0] += n
+                sums[t][1] += us
+    total = sum(us for _, us in sums.values())
+    print(f"profile ({tag}): grouped-LoRA templates per step: " + ", ".join(
+        f"{t} {us / steps / 1e3:.2f} ms ({n // steps} launches)"
+        for t, (n, us) in sums.items())
+        + f"; together {total / steps / 1e3:.2f} ms = "
+        f"{total / busy_us:.3f} of the device busy time")
+
+
 def colocation_phase(torch, fams, cfg, params):
     """The slice's main path: heterogeneous multi-task co-location on
     full-size ``cfg``. Three full-rank tuning tasks, 4 jobs each (every job
@@ -2596,6 +2791,7 @@ def colocation_phase(torch, fams, cfg, params):
               f"events/step; grouped-LoRA kernels by set (ms/step): "
               + ", ".join(f"{k} {v / 2e3:.2f} ({v / busy:.3f} of busy)"
                           for k, v in sorted(by_family.items())))
+        print_template_sums(tag, prof["kernels"], busy)
     else:
         print(f"profile ({tag}): no device events traced: not measured")
     for name, (n, us) in sorted(prof["kernels"].items(),
@@ -2962,15 +3158,20 @@ def main() -> int:
               f"({', '.join(p.name for p in m.SOURCES)})")
     print(f"build: {sum(len(m.SOURCES) for m, _ in builds)} sources, one "
           f"nvcc each, started together, in {time.perf_counter() - t:.2f} s")
+    tensor_core_check(builds[0][1].result())
 
     print(f"kernels on {card}:")
     kern = kernel_phase(torch, RL, ref)
     for name, res in backward_kernel_phase(torch, RL, ref).items():
-        err = max(res["max_abs_err"], kern.get(name, {}).get("max_abs_err",
-                                                              0.0))
-        kern.setdefault(name, {}).update(res, max_abs_err=err)
+        had = kern.setdefault(name, {})
+        err = max(res["max_abs_err"], had.get("max_abs_err", 0.0))
+        shapes = {**had.get("shapes", {}), **res.get("shapes", {})}
+        had.update(res, max_abs_err=err)
+        if shapes:              # xa, sb_add: eval and train beside decode
+            had["shapes"] = shapes
     dense = dense_kernel_phase(torch, GL, RL, ref)
     ragged = ragged_kernel_phase(torch, RG, GL, RL, ref)
+    invariance_phase(torch, GL, RG, RL)
     fams = {"dense": GL, "ragged": RG, "rank-local": RL}
     cfg = get_arch("stablelm-3b")
     flash = flash_kernel_phase(torch, FA, fref, cfg)

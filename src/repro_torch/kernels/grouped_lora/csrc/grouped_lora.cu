@@ -45,10 +45,15 @@
 // slot, d in {2560, 6912}, r = 64): each reads one [Z,T,d] activation and
 // the fp32 master once and does 2*T*r*d flops per slot, ~r flops per byte,
 // far below the ~295 the tensor cores need, so the bound is bytes (about
-// 24 MB, ~0.007 ms at din = dout = 2560). These first kernels run on fp32
-// FMA units and re-read the narrow operand from L2 per tile; a redesign for
-// speed has to change the rank-local and ragged twins with it, or the
-// bitwise contract above breaks.
+// 24 MB, ~0.007 ms at din = dout = 2560). In bf16, xa, ds, da and db
+// contract on the tensor cores (mma.sync, fp32 accumulators) over operand
+// tiles staged by cp.async, each activation row read once per 32 rank
+// columns (xa, ds) or once (da, db: a block holds all 64 ranks);
+// the fp32 master of xa and ds is read once per 64-row tile. sb_add and dx
+// still run on fp32 FMA units and re-read the narrow operand from L2 per
+// tile, as every fp32 instantiation does (fp32 must hold 1e-5 relative,
+// which TF32 cannot). A redesign for speed has to change the rank-local
+// and ragged twins with it, or the bitwise contract above breaks.
 
 #include "ranklocal_common.cuh"
 

@@ -35,18 +35,21 @@
 //
 // Structure: the templates of ranklocal_common.cuh instantiated with ROWS =
 // true and RANKS = false: each block reads rows[z], a dead row tile skips
-// its loads and FMAs (in xa/ds/sb_add/dx the block's tile, in da/db the
-// token loop stops at rows[z]) and the boundary tile is masked on load,
-// while the rank tests are compiled out. One grid, tiling and fp32
-// summation order with the dense and rank-local instantiations, so a
-// ragged kernel equals its dense twin at rows = T and its rank-local twin
-// at ranks = r for any rows, bit for bit — what the co-located == solo
-// contract needs when a full-rank slot's co-tenants change width.
+// its loads and MMAs or FMAs (in xa/ds/sb_add/dx the block's tile, in da/db
+// the token loop stops at rows[z]) and the boundary tile is masked on load,
+// while the rank tests are compiled out. One fp32 summation order per
+// output element with the dense and rank-local instantiations (in bf16 xa,
+// ds, da and db run on the tensor cores, their order a function of the
+// contraction length alone), so a ragged kernel equals its dense twin at
+// rows = T and its rank-local twin at ranks = r for any rows, bit for bit —
+// what the co-located == solo contract needs when a full-rank slot's
+// co-tenants change width.
 //
 // Unlike the TPU kernels, which skip whole 128-row tiles, a narrow slot
-// here pays for 4-row (xa, ds) or 32-row (sb_add, dx, da, db) tiles past its
-// last live row at most. The backbone still runs over the padded lane; only
-// the LoRA kernels skip the dead rows.
+// here pays at most for the rest of the tile holding its last live row: 64
+// rows (bf16 xa, ds), 16 (da, db: one k16 step) or 32 (sb_add, dx). The
+// backbone still runs over the padded lane; only the LoRA kernels skip the
+// dead rows.
 
 #include "ranklocal_common.cuh"
 

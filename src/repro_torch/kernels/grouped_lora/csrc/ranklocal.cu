@@ -26,19 +26,23 @@
 // ranks[z]*dout of B) and does ~2*T flops per value read, far below the
 // ~295 flops/byte the card needs to be compute bound, so they are bound by
 // bytes. In training (T = 1024 rows per slot) xa does 2*T flops per A value
-// but re-reads A for every 4-row tile from L2, and both run on fp32 FMA
-// units, not tensor cores. The design reads only live rank columns (dead
-// rank tiles are skipped, the boundary tile is masked on load) and reads
-// the fp32 masters directly instead of a separate cast pass. A decode step
-// of stablelm-3b launches 7 targets x 32 layers x 2 = 448 of these kernels,
+// read, still bytes. The design reads only live rank columns (dead rank
+// tiles are skipped, the boundary tile is masked on load) and reads the
+// fp32 masters directly instead of a separate cast pass. In bf16, xa runs
+// on the tensor cores (mma.sync, fp32 accumulators) over cp.async stages:
+// a 16-row x 8-rank tile a block at decode, so a slot's A is spread over
+// ranks[z] / 8 blocks, and 32 x 32 in training, each master tile read once
+// per 32 rows. sb_add runs on fp32 FMA units, as does every fp32
+// instantiation (1e-5 relative, which TF32 cannot hold). A decode step of
+// stablelm-3b launches 7 targets x 32 layers x 2 = 448 of these kernels,
 // so launch overhead will likely dominate until a later change captures the
 // step in a CUDA graph.
 //
 // Structure (ranklocal_common.cuh, ROWS = RANKS = true): the TPU grid's
-// sequential contraction axis becomes a loop inside the block; each block
-// reads rows[z] and ranks[z] itself; edges are masked in the kernel (no
-// padding to tile multiples). Plain fp32 FMA (no tensor cores): a simple,
-// correct first kernel (wgmma/TMA come later).
+// sequential contraction axis becomes a loop inside the block (xa's split
+// over the block's 8 warps in a fixed order, a function of din alone);
+// each block reads rows[z] and ranks[z] itself; edges are masked in the
+// kernel (no padding to tile multiples).
 
 #include "ranklocal_common.cuh"
 

@@ -32,10 +32,14 @@
 // 2 * sum_z rows[z]*ranks[z]*d flops on ~2 * rows*d bytes of activations,
 // i.e. about ranks[z] flops per byte, far below the ~295 the tensor cores
 // need, so the bound is bytes (reading dY or X once, writing dX once).
-// These first kernels run on fp32 FMA units and re-read the narrow operand
-// from L2 per tile; what the design does about the bound is to touch only
-// live rows and live rank tiles (dead tiles skip all loads and write exact
-// zeros) and to read the fp32 masters directly, with no cast pass.
+// What the design does about the bound: touch only live rows and live rank
+// tiles (dead tiles skip all loads and write exact zeros), read the fp32
+// masters directly, with no cast pass, and in bf16 contract ds, da and db
+// on the tensor cores (mma.sync, fp32 accumulators) over cp.async stages,
+// reading dY once per 32 rank columns (ds) and X or dY once (da, db). dx,
+// and every fp32 instantiation, runs on fp32 FMA units (fp32 holds 1e-5
+// relative, which TF32 cannot) and re-reads the narrow operand from L2 per
+// tile.
 //
 // Structure. The TPU kernels carry an fp32 accumulator across a sequential
 // grid axis; Hopper blocks run in no order, so every contraction is a loop
@@ -43,13 +47,19 @@
 // results are deterministic and independent of the other slots, which the
 // port's co-located == solo and migrated == never-migrated invariants need.
 // All in ranklocal_common.cuh, instantiated with ROWS = RANKS = true:
-//   ds: narrow_out_kernel, as xa: 4 token rows x 16 ranks per block, the
-//       dout contraction split over 256 threads.
+//   ds: narrow_out_kernel, as xa: in bf16 32 token rows x 32 ranks per
+//       block (16 x 8 when T <= 16), the dout contraction split over the
+//       block's 8 warps in k32 chunks (warp w takes chunks w, w + 8, ...),
+//       the partial tiles summed in warp order; in fp32 4 rows x 16 ranks,
+//       the contraction split over 256 threads.
 //   dx: rank_sum_kernel with A read transposed, as sb_add: 32 rows x 64
 //       columns per block, a loop over <= 4 live 16-wide rank tiles.
-//   da, db: tn_kernel: a 2048-entry output tile (128 x 16 for dA, 16 x 128
-//       for dB) per block, a loop over 32-row token chunks staged in shared
-//       memory, 4 x 4 fp32 accumulators per thread.
+//   da, db: tn_kernel: in bf16 a 64 x 64 output tile per block (every rank
+//       of r_max 64 on one side), 8 warps of 32 x 16, the token loop in
+//       128-row stages, k16 steps from row 0 up to rows[z]; in fp32 a
+//       2048-entry tile (128 x 16 for dA, 16 x 128 for dB), a loop over
+//       32-row token chunks staged in shared memory, 4 x 4 fp32
+//       accumulators per thread.
 
 #include "ranklocal_common.cuh"
 

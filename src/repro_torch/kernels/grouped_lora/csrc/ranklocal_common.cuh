@@ -24,20 +24,24 @@
 //   ragged     <ROWS = true,  RANKS = false>  (ragged.cu)
 //   dense      <ROWS = false, RANKS = false>  (grouped_lora.cu)
 // A flag that is false compiles its tests out: every row (rank) is live.
-// All three run one grid, one tiling and one fp32 summation order per
-// output element, so at full rank and every row live they agree bit for
-// bit: dense == ragged at rows = T == rank-local at ranks = r_max, and
-// ragged == rank-local at ranks = r_max for any rows. The executor needs
-// it: a full-rank slot takes the dense kernels when its co-tenants are
-// full-width and full-rank, the ragged ones beside a narrower co-tenant and
-// the rank-local ones beside a lower-rank co-tenant, and its losses must
-// not move a bit. A speed change to one instantiation is a change to all
-// three.
+// All three run one fp32 summation order per output element, so at full
+// rank and every row live they agree bit for bit: dense == ragged at rows
+// = T == rank-local at ranks = r_max, and ragged == rank-local at ranks =
+// r_max for any rows. The executor needs it: a full-rank slot takes the
+// dense kernels when its co-tenants are full-width and full-rank, the
+// ragged ones beside a narrower co-tenant and the rank-local ones beside a
+// lower-rank co-tenant, and its losses must not move a bit. A speed change
+// to one instantiation is a change to all three.
 //
-// Every kernel rounds the fp32 adapter masters to the activation type in
-// registers and sums in fp32 in a fixed order inside one block (no
-// atomics, no split of a contraction across blocks), so a slot's result
-// depends on nothing but its own operands.
+// Every kernel rounds the fp32 adapter masters to the activation type once
+// and sums in fp32 in a fixed order inside one block (no atomics, no split
+// of a contraction across blocks), so a slot's result depends on nothing
+// but its own operands. In bf16, narrow_out_kernel and tn_kernel contract
+// on the tensor cores (mma.sync m16n8k16, fp32 accumulators) and stage
+// their operands with cp.async; their fp32 instantiations, and
+// rank_sum_kernel, run on the fp32 FMA units: the fp32 path must hold the
+// plain versions to 1e-5 relative, which TF32 tensor cores (10-bit
+// mantissas) cannot, and nothing timed runs in fp32.
 //
 // Included by each .cu file; everything is in an anonymous namespace so the
 // translation units keep separate copies.
@@ -47,17 +51,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+template <> __device__ __forceinline__ float to_f<bf16>(bf16 v) {
   return __bfloat162float(v);
 }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
@@ -75,33 +83,143 @@ __device__ __forceinline__ int live_count(const int* v, int z, int hi) {
   return c < 0 ? 0 : (c > hi ? hi : c);
 }
 
-inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 bool grid_ok(int gx, int gy, int gz) {
   return gx >= 1 && gy >= 1 && gz >= 1 && gy <= 65535 && gz <= 65535;
 }
 
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 // ---------------------------------------------------------------------------
+// Tensor-core and copy primitives (inline PTX, sm_80+).
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; !ok fills the 16 bytes with zeros
+// and reads nothing (src must still be a valid address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four 8x8 b16 matrices; lane l gives the row address of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t (&d)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&d)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(smem_addr(p)));
+}
+
+// d (16 x 8 fp32) += a (16 x 16 bf16, row) * b (16 x 8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two fp32 masters rounded to bf16 (round to nearest even, as round_to),
+// lo in the low half: one register of a B fragment
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// narrow_out_kernel:
 // OUT[z][t][j] = scale[z] * sum_k X[z][t][k] * W[z](k, j), for token rows
 // t < rows[z] and rank columns j < ranks[z]; every other entry exactly 0.
-// W(k, j) is the fp32 master at W + z*K*r + k*sk + j*sj (xa: A [K, r], so
-// sk = r, sj = 1; ds: B [r, K], so sk = 1, sj = K). One block per (4 token
-// rows, 16 rank columns, slot). The K contraction is split over the block's
-// 256 threads (thread k-strided, so a warp's X loads are contiguous), each
-// thread keeping a 4 x 16 fp32 partial tile in registers; warp shuffles and
-// one shared-memory pass sum the partials in a fixed order. A block has only
-// K/256 contraction steps per thread instead of a serial loop over K, so
-// load latency overlaps.
+// W(k, j) is the fp32 master: W_KN -> W [K, r] (xa's A: sk = r, sj = 1),
+// else W [r, K] (ds's B: sk = 1, sj = K).
+//
+// bf16 (every timed call). What bounds it: 2*T*r*K flops on T*K bf16
+// activations plus K*r fp32 masters, ~r flops a byte, far below the ~295
+// the tensor cores need: bytes. A block owns BM token rows x BN rank
+// columns of one slot: 64 x 32 (32 x 32 for rank-local calls, where most
+// rank tiles past 32 are dead; 16 x 8 when a slot has at most 16 rows, as
+// at decode, so that a slot's master spreads over ranks[z] / 8 blocks).
+// The tile moves no bit. Its 8 warps split the contraction: warp w takes
+// the k32 chunks k0 = 32*w + 256*i, i = 0, 1, ..., and each chunk's two k16
+// steps in order, accumulating with mma.sync in fp32 registers; the 8
+// partial tiles meet in shared memory and are summed in warp order 0..7.
+// That order depends on K alone, so every output element has one summation
+// order whatever T, rows, ranks, Z or the tile. Each 256-wide k stage
+// lands in a ring of up to 8 shared-memory buffers (220 KB: one block an
+// SM) by cp.async, 16 bytes a thread, coalesced (the X tile in rows of 256
+// bf16, the master in rows of BN (xa) or 256 (ds) fp32), with dead rows,
+// dead rank columns and the K tail filled with zeros instead of read:
+// large stages, because each stage costs a barrier and a wait. X fragments
+// come by ldmatrix; each warp rounds the fp32 master entries of its own
+// k16 step to bf16 (__floats2bfloat162_rn, the value round_to gives)
+// straight into B fragments, so every master entry is rounded once per
+// block. Dead rank n8 tiles and dead row m16 tiles skip their MMAs; a block
+// with no live row or rank skips every load. The epilogue scales (ds),
+// zeroes every entry past rows[z] / ranks[z] and rounds once. A row that
+// is not 16-byte aligned (K % 8, r % 4, or the pointer) takes masked scalar
+// loads into the same tiles: the MMA sequence stays the same. What is left
+// between it and the byte bound: the fp32 master is read once per row tile
+// from L2 (twice the bytes of a bf16 copy), and X once per 32 ranks.
+//
+// fp32 (FMA, unchanged): one block per (4 token rows, 16 rank columns,
+// slot); the K contraction is split over the block's 256 threads (thread
+// k-strided), each thread keeping a 4 x 16 fp32 partial tile in registers;
+// warp shuffles and one shared-memory pass sum the partials in a fixed
+// order.
 // ---------------------------------------------------------------------------
 constexpr int NO_BM = 4, NO_BR = 16, NO_THREADS = 256;
 constexpr int NO_WARPS = NO_THREADS / 32;
+constexpr int NO_KW = 32;                    // k per warp per stage
+constexpr int NO_BK = NO_WARPS * NO_KW;      // k per stage
+constexpr int NO_XS = NO_BK + 8;             // bf16 row stride of an X tile
+constexpr int NO_SMEM_BUDGET = 220 * 1024;   // ring bytes: 1 block an SM
+constexpr int NO_MAX_STAGES = 8;
+
+template <int BM, int BN, bool W_KN> struct NoTile {
+  static_assert(BM % 16 == 0 && BN % 8 == 0, "m16 x n8 MMA tiles");
+  // fp32 row stride of the master tile: [256 k][BN] (xa) or [BN][256 k]
+  // (ds), padded so that the fragment reads hit 32 distinct banks
+  static constexpr int WS = W_KN ? BN + 4 : NO_BK + 8;
+  static constexpr int X_BYTES = BM * NO_XS * 2;
+  static constexpr int W_BYTES = (W_KN ? NO_BK : BN) * WS * 4;
+  static constexpr int STAGE = X_BYTES + W_BYTES;
+  static constexpr int STAGES = NO_SMEM_BUDGET / STAGE < NO_MAX_STAGES
+                                    ? NO_SMEM_BUDGET / STAGE
+                                    : NO_MAX_STAGES;
+  static_assert(STAGES >= 2, "a ring of at least two stages");
+  // fp32 row stride of a warp's partial tile in the reduction
+  static constexpr int RS = (BN % 32 == 8 || BN % 32 == 24) ? BN : BN + 8;
+  static constexpr int RED = NO_WARPS * BM * RS * 4;
+  static constexpr int SMEM = STAGES * STAGE > RED ? STAGES * STAGE : RED;
+};
 
 template <typename T, bool ROWS, bool RANKS>
-__global__ void __launch_bounds__(NO_THREADS)
-narrow_out_kernel(const T* __restrict__ X, const float* __restrict__ W,
-                  int sk, int sj, const float* __restrict__ scale,
-                  T* __restrict__ OUT, const int* __restrict__ rows,
-                  const int* __restrict__ ranks, int T_, int K, int r) {
+__device__ __forceinline__ void narrow_out_fma(
+    const T* __restrict__ X, const float* __restrict__ W, int sk, int sj,
+    const float* __restrict__ scale, T* __restrict__ OUT,
+    const int* __restrict__ rows, const int* __restrict__ ranks, int T_,
+    int K, int r) {
   __shared__ float red[NO_WARPS][NO_BM * NO_BR];
   const int z = blockIdx.z;
   const int m0 = blockIdx.y * NO_BM;
@@ -157,6 +275,187 @@ narrow_out_kernel(const T* __restrict__ X, const float* __restrict__ W,
       OUT[((size_t)z * T_ + t) * r + jj] = from_f<T>(v);
     }
   }
+}
+
+// vec bit 0: X rows are 16-byte aligned (cp.async); bit 1: the master's are
+template <bool W_KN, int BM, int BN, bool ROWS, bool RANKS>
+__device__ __forceinline__ void narrow_out_mma(
+    const bf16* __restrict__ X, const float* __restrict__ W,
+    const float* __restrict__ scale, bf16* __restrict__ OUT,
+    const int* __restrict__ rows, const int* __restrict__ ranks, int T_,
+    int K, int r, int vec) {
+  using Cfg = NoTile<BM, BN, W_KN>;
+  constexpr int MT = BM / 16, NT = BN / 8, WS = Cfg::WS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int z = blockIdx.z;
+  const int m0 = blockIdx.y * BM;
+  const int j0 = blockIdx.x * BN;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int nrow = min(BM, live_count<ROWS>(rows, z, T_) - m0);  // live rows
+  const int ncol = min(BN, live_count<RANKS>(ranks, z, r) - j0);  // ranks
+  const bf16* xz = X + ((size_t)z * T_ + m0) * K;
+  const float* wz = W + (size_t)z * K * r;
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+
+  // stage s (k in [NO_BK s, NO_BK s + NO_BK)) into ring buffer b
+  auto load = [&](int s, int b) {
+    unsigned char* st = smem + b * Cfg::STAGE;
+    bf16* xs = reinterpret_cast<bf16*>(st);
+    float* ws = reinterpret_cast<float*>(st + Cfg::X_BYTES);
+    const int k0 = s * NO_BK;
+    if (vec & 1) {
+      for (int e = tid; e < BM * (NO_BK / 8); e += NO_THREADS) {
+        const int m = e / (NO_BK / 8), c = e % (NO_BK / 8), k = k0 + 8 * c;
+        const bool ok = m < nrow && k < K;
+        cp_async16(xs + m * NO_XS + 8 * c, ok ? xz + (size_t)m * K + k : X,
+                   ok);
+      }
+    } else {
+      for (int e = tid; e < BM * NO_BK; e += NO_THREADS) {
+        const int m = e / NO_BK, kk = e % NO_BK, k = k0 + kk;
+        xs[m * NO_XS + kk] = (m < nrow && k < K) ? xz[(size_t)m * K + k]
+                                                 : __float2bfloat16_rn(0.f);
+      }
+    }
+    if constexpr (W_KN) {          // A [K, r]: a row of r rank columns
+      if (vec & 2) {
+        for (int e = tid; e < NO_BK * (BN / 4); e += NO_THREADS) {
+          const int kk = e / (BN / 4), c = e % (BN / 4), k = k0 + kk;
+          const bool ok = k < K && 4 * c < ncol;
+          cp_async16(ws + kk * WS + 4 * c,
+                     ok ? wz + (size_t)k * r + j0 + 4 * c : W, ok);
+        }
+      } else {
+        for (int e = tid; e < NO_BK * BN; e += NO_THREADS) {
+          const int kk = e / BN, n = e % BN, k = k0 + kk;
+          ws[kk * WS + n] =
+              (k < K && n < ncol) ? wz[(size_t)k * r + j0 + n] : 0.f;
+        }
+      }
+    } else {                       // B [r, K]: a row of K contraction entries
+      if (vec & 2) {
+        for (int e = tid; e < BN * (NO_BK / 4); e += NO_THREADS) {
+          const int n = e / (NO_BK / 4), c = e % (NO_BK / 4), k = k0 + 4 * c;
+          const bool ok = n < ncol && k < K;
+          cp_async16(ws + n * WS + 4 * c,
+                     ok ? wz + (size_t)(j0 + n) * K + k : W, ok);
+        }
+      } else {
+        for (int e = tid; e < BN * NO_BK; e += NO_THREADS) {
+          const int n = e / NO_BK, kk = e % NO_BK, k = k0 + kk;
+          ws[n * WS + kk] =
+              (n < ncol && k < K) ? wz[(size_t)(j0 + n) * K + k] : 0.f;
+        }
+      }
+    }
+  };
+
+  // this warp's k16 step of ring buffer b
+  const int g = lane / 4, c2 = 2 * (lane % 4);
+  const int lq = lane / 8, li = lane % 8;
+  auto compute = [&](int b) {
+    const unsigned char* st = smem + b * Cfg::STAGE;
+    const bf16* xs = reinterpret_cast<const bf16*>(st);
+    const float* ws = reinterpret_cast<const float*>(st + Cfg::X_BYTES);
+#pragma unroll
+    for (int kw = warp * NO_KW; kw < (warp + 1) * NO_KW; kw += 16) {
+      uint32_t bfr[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if (8 * nt >= ncol) break;                  // dead rank n8 tiles
+        const int n = 8 * nt + g, k = kw + c2;
+        if constexpr (W_KN) {
+          bfr[nt][0] = pack_bf16(ws[k * WS + n], ws[(k + 1) * WS + n]);
+          bfr[nt][1] = pack_bf16(ws[(k + 8) * WS + n], ws[(k + 9) * WS + n]);
+        } else {
+          const float2 lo = *reinterpret_cast<const float2*>(ws + n * WS + k);
+          const float2 hi =
+              *reinterpret_cast<const float2*>(ws + n * WS + k + 8);
+          bfr[nt][0] = pack_bf16(lo.x, lo.y);
+          bfr[nt][1] = pack_bf16(hi.x, hi.y);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if (16 * mt >= nrow) break;                 // dead row m16 tiles
+        uint32_t afr[4];
+        ldsm_x4(afr, xs + (16 * mt + li + 8 * (lq & 1)) * NO_XS + kw +
+                         8 * (lq >> 1));
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          if (8 * nt >= ncol) break;
+          mma_bf16(acc[mt][nt], afr, bfr[nt][0], bfr[nt][1]);
+        }
+      }
+    }
+  };
+
+  constexpr int S = Cfg::STAGES;
+  const int nst = (nrow > 0 && ncol > 0) ? cdiv(K, NO_BK) : 0;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nst) load(s, s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<S - 2>();
+    __syncthreads();               // stage s landed; stage s - 1 consumed
+    if (s + S - 1 < nst) load(s + S - 1, (s + S - 1) % S);
+    cp_async_commit();
+    compute(s % S);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the 8 warps' partial tiles, summed in warp order
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float* p = red + (warp * BM + 16 * mt + g) * Cfg::RS + 8 * nt + c2;
+      *reinterpret_cast<float2*>(p) = make_float2(acc[mt][nt][0],
+                                                  acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(p + 8 * Cfg::RS) =
+          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+  __syncthreads();
+  const float sc = scale != nullptr ? scale[z] : 1.f;
+  for (int e = tid; e < BM * BN; e += NO_THREADS) {
+    const int m = e / BN, n = e % BN, t = m0 + m, j = j0 + n;
+    if (t >= T_ || j >= r) continue;
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < NO_WARPS; ++w) v += red[(w * BM + m) * Cfg::RS + n];
+    if (scale != nullptr) v *= sc;
+    if (m >= nrow || n >= ncol) v = 0.f;                    // exact zeros
+    OUT[((size_t)z * T_ + t) * r + j] = __float2bfloat16_rn(v);
+  }
+}
+
+// BM, BN and W_KN shape the bf16 path only; the fp32 path reads the
+// master's layout from sk, sj, and its launcher fixes the three, so xa
+// and ds share one fp32 kernel
+template <typename T, bool W_KN, int BM, int BN, bool ROWS, bool RANKS>
+__global__ void __launch_bounds__(NO_THREADS)
+narrow_out_kernel(const T* __restrict__ X, const float* __restrict__ W,
+                  int sk, int sj, const float* __restrict__ scale,
+                  T* __restrict__ OUT, const int* __restrict__ rows,
+                  const int* __restrict__ ranks, int T_, int K, int r,
+                  int vec) {
+  if constexpr (std::is_same<T, float>::value)
+    narrow_out_fma<T, ROWS, RANKS>(X, W, sk, sj, scale, OUT, rows, ranks, T_,
+                                   K, r);
+  else
+    narrow_out_mma<W_KN, BM, BN, ROWS, RANKS>(X, W, scale, OUT, rows, ranks,
+                                              T_, K, r, vec);
 }
 
 // ---------------------------------------------------------------------------
@@ -252,22 +551,43 @@ rank_sum_kernel(const T* __restrict__ S, const float* __restrict__ W,
 }
 
 // ---------------------------------------------------------------------------
+// tn_kernel:
 // OUT[z][a][b] = sc * sum_{t < rows[z]} P[z][t][a] * Q[z][t][b]  (fp32 out)
 // P: [T, NA], Q: [T, NB] in the activation type; OUT: [NA, NB] fp32. The
 // rank axis is b (RANK_A = false: dA = X^T dS, NB = r) or a (RANK_A = true:
 // dB = S^T dY, NA = r); entries past ranks[z] on it are exactly 0, and dead
-// rank tiles skip the row loop. Both operands' dead rows are masked. A
-// 2048-entry output tile per block (BA x BB), a loop over 32-row token
-// chunks staged in shared memory, 4 x 4 fp32 accumulators per thread.
+// rank tiles skip their loads and MMAs. Both operands' dead rows are masked.
+//
+// bf16 (every timed call). What bounds it: 2*rows*r*d flops on rows*d bf16
+// of the wide operand (X or dY) and rows*r of the narrow one: bytes. A
+// block owns BA x BB = 64 x 64 outputs, so one block covers every rank of
+// r_max = 64 and reads each wide-operand entry once; 8 warps own 32 x 16
+// each (2 m16 x 2 n8 tiles, fp32 accumulators). The token loop runs in
+// 128-row stages from row 0 up to rows[z], staged in a 3-deep cp.async
+// ring (110 KB: two blocks an SM) with dead rows and dead rank columns
+// filled with zeros instead of read; both operands are contracted over
+// their leading (token) axis, so their fragments come by ldmatrix.trans,
+// and each k16 step at or past rows[z] is skipped. Each output element is
+// summed in k16 steps from row 0 in order: the same bits whether a slot
+// has T = 512 or T = 1,024 with rows = 512, and whatever the tile. The
+// epilogue scales (db) and writes exact zeros past ranks[z]. A row that is
+// not 16-byte aligned takes masked scalar loads into the same tiles.
+//
+// fp32 (FMA, unchanged): a 2048-entry output tile per block (BA x BB), a
+// loop over 32-row token chunks staged in shared memory, 4 x 4 fp32
+// accumulators per thread.
 // ---------------------------------------------------------------------------
 constexpr int TN_BT = 32, TN_THREADS = 128;
+constexpr int TC_STAGES = 3, TC_BK = 128;    // ring depth, rows a stage
+constexpr int TC_TILE = 64;                  // bf16 tile: TC_TILE squared
+constexpr int TC_WN = 16;                    // b columns a warp (a rows: 32)
 
 template <typename T, int BA, int BB, bool RANK_A, bool ROWS, bool RANKS>
-__global__ void __launch_bounds__(TN_THREADS)
-tn_kernel(const T* __restrict__ P, const T* __restrict__ Q,
-          const float* __restrict__ scale, float* __restrict__ OUT,
-          const int* __restrict__ rows, const int* __restrict__ ranks,
-          int T_, int NA, int NB, int r) {
+__device__ __forceinline__ void tn_fma(
+    const T* __restrict__ P, const T* __restrict__ Q,
+    const float* __restrict__ scale, float* __restrict__ OUT,
+    const int* __restrict__ rows, const int* __restrict__ ranks, int T_,
+    int NA, int NB, int r) {
   static_assert(BA * BB == 16 * TN_THREADS, "4 x 4 outputs per thread");
   constexpr int TA = BA / 4, TB = BB / 4;
   __shared__ float sp[TN_BT][BA];
@@ -336,23 +656,206 @@ tn_kernel(const T* __restrict__ P, const T* __restrict__ Q,
   }
 }
 
+// vec bit 0: P rows are 16-byte aligned (cp.async); bit 1: Q rows are
+template <int BA, int BB, bool RANK_A, bool ROWS, bool RANKS>
+__device__ __forceinline__ void tn_mma(
+    const bf16* __restrict__ P, const bf16* __restrict__ Q,
+    const float* __restrict__ scale, float* __restrict__ OUT,
+    const int* __restrict__ rows, const int* __restrict__ ranks, int T_,
+    int NA, int NB, int r, int vec) {
+  static_assert(BA % 32 == 0 && BB % TC_WN == 0, "32 x TC_WN a warp");
+  constexpr int BK = TC_BK, S = TC_STAGES, NT = TC_WN / 8;
+  constexpr int SA = BA + 8, SB = BB + 8;      // bf16 row strides
+  constexpr int THREADS = BA * BB / TC_WN;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // rings of [BK rows][BA columns] tiles of P and [BK][BB] tiles of Q
+  const auto sp = reinterpret_cast<bf16 (*)[BK][SA]>(smem);
+  const auto sq = reinterpret_cast<bf16 (*)[BK][SB]>(
+      smem + S * BK * SA * sizeof(bf16));
+  const int z = blockIdx.z;
+  const int a0 = blockIdx.y * BA;
+  const int b0 = blockIdx.x * BB;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wa = 32 * (warp / (BB / TC_WN));
+  const int wb = TC_WN * (warp % (BB / TC_WN));
+  const int vrows = live_count<ROWS>(rows, z, T_);
+  const int vr = live_count<RANKS>(ranks, z, r);
+  const int va = RANK_A ? min(vr, NA) : NA;    // live extent of each axis
+  const int vb = RANK_A ? NB : min(vr, NB);
+  const int la = min(BA, va - a0);             // live extent in this tile
+  const int lb = min(BB, vb - b0);
+  const bf16* pz = P + (size_t)z * T_ * NA;
+  const bf16* qz = Q + (size_t)z * T_ * NB;
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+
+  // one [BK rows][W columns] tile of an operand: columns >= live and rows
+  // >= vrows filled with zeros
+  auto load_tile = [&](auto dst, auto width, const bf16* src, int N, int c0,
+                       int live, int t0, bool v16, const bf16* any) {
+    constexpr int W = decltype(width)::value;
+    if (v16) {
+      for (int e = tid; e < BK * (W / 8); e += THREADS) {
+        const int i = e / (W / 8), c = 8 * (e % (W / 8)), t = t0 + i;
+        const bool ok = t < vrows && c < live;
+        cp_async16(&dst[i][c], ok ? src + (size_t)t * N + c0 + c : any, ok);
+      }
+    } else {
+      for (int e = tid; e < BK * W; e += THREADS) {
+        const int i = e / W, c = e % W, t = t0 + i;
+        dst[i][c] = (t < vrows && c < live) ? src[(size_t)t * N + c0 + c]
+                                            : __float2bfloat16_rn(0.f);
+      }
+    }
+  };
+  auto load = [&](int s, int b) {
+    load_tile(sp[b], std::integral_constant<int, BA>(), pz, NA, a0, la,
+              s * BK, vec & 1, P);
+    load_tile(sq[b], std::integral_constant<int, BB>(), qz, NB, b0, lb,
+              s * BK, vec & 2, Q);
+  };
+
+  const int lq = lane / 8, li = lane % 8;
+  auto compute = [&](int b, int t0) {
+#pragma unroll
+    for (int ks = 0; ks < BK; ks += 16) {
+      if (t0 + ks >= vrows) break;              // k16 steps past rows[z]
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        if (wa + 16 * mt < la)
+          ldsm_x4_t(af[mt], &sp[b][ks + li + 8 * (lq >> 1)]
+                                [wa + 16 * mt + 8 * (lq & 1)]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        const int n = wb + 16 * np;
+        if (n >= lb) break;                     // dead n8 tiles
+        uint32_t bq[4];
+        ldsm_x4_t(bq, &sq[b][ks + li + 8 * (lq & 1)][n + 8 * (lq >> 1)]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          if (wa + 16 * mt >= la) break;        // dead m16 tiles
+          mma_bf16(acc[mt][2 * np], af[mt], bq[0], bq[1]);
+          if (n + 8 < lb) mma_bf16(acc[mt][2 * np + 1], af[mt], bq[2], bq[3]);
+        }
+      }
+    }
+  };
+
+  const int nst = (la > 0 && lb > 0) ? cdiv(vrows, BK) : 0;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nst) load(s, s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<S - 2>();
+    __syncthreads();               // stage s landed; stage s - 1 consumed
+    if (s + S - 1 < nst) load(s + S - 1, (s + S - 1) % S);
+    cp_async_commit();
+    compute(s % S, s * BK);
+  }
+  cp_async_wait<0>();
+
+  const float sc = scale != nullptr ? scale[z] : 1.f;
+  float* oz = OUT + (size_t)z * NA * NB;
+  const int g = lane / 4, c2 = 2 * (lane % 4);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int a = a0 + wa + 16 * mt + g + 8 * (q / 2);
+        const int b = b0 + wb + 8 * nt + c2 + (q % 2);
+        if (a >= NA || b >= NB) continue;
+        // past ranks[z] on the rank axis: exactly 0
+        oz[(size_t)a * NB + b] =
+            (a < va && b < vb) ? acc[mt][nt][q] * sc : 0.f;
+      }
+}
+
+// BA x BB is the block's output tile (fp32: 128 threads of 4 x 4 outputs;
+// bf16: one warp per 32 x TC_WN = 32 x 16)
+template <typename T, int BA, int BB, bool RANK_A, bool ROWS, bool RANKS>
+__global__ void __launch_bounds__(std::is_same<T, float>::value
+                                      ? TN_THREADS : BA * BB / TC_WN)
+tn_kernel(const T* __restrict__ P, const T* __restrict__ Q,
+          const float* __restrict__ scale, float* __restrict__ OUT,
+          const int* __restrict__ rows, const int* __restrict__ ranks,
+          int T_, int NA, int NB, int r, int vec) {
+  if constexpr (std::is_same<T, float>::value)
+    tn_fma<T, BA, BB, RANK_A, ROWS, RANKS>(P, Q, scale, OUT, rows, ranks, T_,
+                                           NA, NB, r);
+  else
+    tn_mma<BA, BB, RANK_A, ROWS, RANKS>(P, Q, scale, OUT, rows, ranks, T_,
+                                        NA, NB, r, vec);
+}
+
 // ---------------------------------------------------------------------------
-// Launchers: one grid per function, shared by all three instantiations.
-// Act is the activation type of every non-master operand. rows is read only
-// when ROWS (null rows: every row live), ranks only when RANKS. Each
-// returns cudaGetLastError() after its launch (0 = launched).
+// Launchers: one grid per function and tile, shared by all three
+// instantiations. Act is the activation type of every non-master operand.
+// rows is read only when ROWS (null rows: every row live), ranks only when
+// RANKS. Each returns cudaGetLastError() after its launch (0 = launched).
 // ---------------------------------------------------------------------------
+
+template <typename Act, bool W_KN, int BM, int BN, bool ROWS, bool RANKS>
+int launch_narrow_out(const void* x, const float* W, int sk, int sj,
+                      const float* scale, void* out, const int* rows,
+                      const int* ranks, int Z, int T, int K, int r, int vec,
+                      cudaStream_t st) {
+  constexpr bool FP32 = std::is_same<Act, float>::value;
+  constexpr int TM = FP32 ? NO_BM : BM, TR = FP32 ? NO_BR : BN;
+  dim3 grid(cdiv(r, TR), cdiv(T, TM), Z);
+  if (!grid_ok(grid.x, grid.y, grid.z) || K < 1)
+    return (int)cudaErrorInvalidValue;
+  const auto kern = narrow_out_kernel<Act, W_KN, BM, BN, ROWS, RANKS>;
+  int smem = 0;
+  if constexpr (!FP32) {
+    smem = NoTile<BM, BN, W_KN>::SMEM;     // above 48 KB: opt in, once
+    static const cudaError_t opt_in = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (opt_in != cudaSuccess) return (int)opt_in;
+  }
+  kern<<<grid, NO_THREADS, smem, st>>>((const Act*)x, W, sk, sj, scale,
+                                       (Act*)out, rows, ranks, T, K, r, vec);
+  return (int)cudaGetLastError();
+}
+
+// the bf16 tile of xa / ds: 16 x 8 when a slot has at most 16 rows
+// (decode: the most blocks for the master's bytes), else 32 or 64 rows x
+// 32 ranks (rank-local calls: most rank tiles past 32 are dead, so half the
+// rows a block keeps the card filled)
+template <typename Act, bool W_KN, bool ROWS, bool RANKS>
+int launch_narrow(const void* x, const float* W, int sk, int sj,
+                  const float* scale, void* out, const int* rows,
+                  const int* ranks, int Z, int T, int K, int r, int vec,
+                  cudaStream_t st) {
+  if constexpr (std::is_same<Act, float>::value)
+    return launch_narrow_out<Act, false, NO_BM, NO_BR, ROWS, RANKS>(
+        x, W, sk, sj, scale, out, rows, ranks, Z, T, K, r, vec, st);
+  else if (T <= 16)
+    return launch_narrow_out<Act, W_KN, 16, 8, ROWS, RANKS>(
+        x, W, sk, sj, scale, out, rows, ranks, Z, T, K, r, vec, st);
+  else
+    return launch_narrow_out<Act, W_KN, RANKS ? 32 : 64, 32, ROWS, RANKS>(
+        x, W, sk, sj, scale, out, rows, ranks, Z, T, K, r, vec, st);
+}
 
 template <typename Act, bool ROWS, bool RANKS>
 int launch_xa(const void* x, const float* A, void* S, const int* rows,
               const int* ranks, int Z, int T, int din, int r,
               cudaStream_t st) {
-  dim3 grid(cdiv(r, NO_BR), cdiv(T, NO_BM), Z);
-  if (!grid_ok(grid.x, grid.y, grid.z) || din < 1)
-    return (int)cudaErrorInvalidValue;
-  narrow_out_kernel<Act, ROWS, RANKS><<<grid, NO_THREADS, 0, st>>>(
-      (const Act*)x, A, r, 1, nullptr, (Act*)S, rows, ranks, T, din, r);
-  return (int)cudaGetLastError();
+  const int vec = (aligned16(x) && din % 8 == 0 ? 1 : 0) |
+                  (aligned16(A) && r % 4 == 0 ? 2 : 0);
+  return launch_narrow<Act, true, ROWS, RANKS>(
+      x, A, r, 1, nullptr, S, rows, ranks, Z, T, din, r, vec, st);
 }
 
 template <typename Act, bool ROWS, bool RANKS>
@@ -373,12 +876,11 @@ template <typename Act, bool ROWS, bool RANKS>
 int launch_ds(const void* dy, const float* B, const float* scale, void* dS,
               const int* rows, const int* ranks, int Z, int T, int dout,
               int r, cudaStream_t st) {
-  dim3 grid(cdiv(r, NO_BR), cdiv(T, NO_BM), Z);
-  if (!grid_ok(grid.x, grid.y, grid.z) || dout < 1 || scale == nullptr)
-    return (int)cudaErrorInvalidValue;
-  narrow_out_kernel<Act, ROWS, RANKS><<<grid, NO_THREADS, 0, st>>>(
-      (const Act*)dy, B, 1, dout, scale, (Act*)dS, rows, ranks, T, dout, r);
-  return (int)cudaGetLastError();
+  if (scale == nullptr) return (int)cudaErrorInvalidValue;
+  const int vec = (aligned16(dy) && dout % 8 == 0 ? 1 : 0) |
+                  (aligned16(B) && dout % 4 == 0 ? 2 : 0);
+  return launch_narrow<Act, false, ROWS, RANKS>(
+      dy, B, 1, dout, scale, dS, rows, ranks, Z, T, dout, r, vec, st);
 }
 
 template <typename Act, bool ROWS, bool RANKS>
@@ -394,34 +896,55 @@ int launch_dx(const void* dS, const float* A, void* dX, const int* rows,
   return (int)cudaGetLastError();
 }
 
+// OUT [NA, NB] = sc * P^T Q over BA x BB output tiles
+template <typename Act, int BA, int BB, bool RANK_A, bool ROWS, bool RANKS>
+int launch_tn(const void* P, const void* Q, const float* scale, float* out,
+              const int* rows, const int* ranks, int Z, int T, int NA,
+              int NB, int r, cudaStream_t st) {
+  constexpr bool FP32 = std::is_same<Act, float>::value;
+  dim3 grid(cdiv(NB, BB), cdiv(NA, BA), Z);
+  if (!grid_ok(grid.x, grid.y, grid.z) || T < 1)
+    return (int)cudaErrorInvalidValue;
+  const int vec = (aligned16(P) && NA % 8 == 0 ? 1 : 0) |
+                  (aligned16(Q) && NB % 8 == 0 ? 2 : 0);
+  const auto kern = tn_kernel<Act, BA, BB, RANK_A, ROWS, RANKS>;
+  int smem = 0, threads = TN_THREADS;
+  if constexpr (!FP32) {
+    smem = TC_STAGES * TC_BK * (BA + BB + 16) * (int)sizeof(bf16);
+    threads = BA * BB / TC_WN;
+    static const cudaError_t opt_in = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (opt_in != cudaSuccess) return (int)opt_in;
+  }
+  kern<<<grid, threads, smem, st>>>((const Act*)P, (const Act*)Q, scale, out,
+                                    rows, ranks, T, NA, NB, r, vec);
+  return (int)cudaGetLastError();
+}
+
+// fp32 tiles 128 x 16 (da) and 16 x 128 (db); bf16 64 x 64: every rank of
+// r_max 64 in one block
 template <typename Act, bool ROWS, bool RANKS>
 int launch_da(const void* x, const void* dS, float* dA, const int* rows,
               const int* ranks, int Z, int T, int din, int r,
               cudaStream_t st) {
-  constexpr int BA = 128, BB = 16;
-  dim3 grid(cdiv(r, BB), cdiv(din, BA), Z);
-  if (!grid_ok(grid.x, grid.y, grid.z) || T < 1)
-    return (int)cudaErrorInvalidValue;
-  tn_kernel<Act, BA, BB, false, ROWS, RANKS><<<grid, TN_THREADS, 0, st>>>(
-      (const Act*)x, (const Act*)dS, nullptr, dA, rows, ranks, T, din, r, r);
-  return (int)cudaGetLastError();
+  constexpr bool FP32 = std::is_same<Act, float>::value;
+  return launch_tn<Act, FP32 ? 128 : TC_TILE, FP32 ? 16 : TC_TILE, false,
+                   ROWS, RANKS>(x, dS, nullptr, dA, rows, ranks, Z, T, din,
+                                r, r, st);
 }
 
 template <typename Act, bool ROWS, bool RANKS>
 int launch_db(const void* S, const void* dy, const float* scale, float* dB,
               const int* rows, const int* ranks, int Z, int T, int dout,
               int r, cudaStream_t st) {
-  constexpr int BA = 16, BB = 128;
-  dim3 grid(cdiv(dout, BB), cdiv(r, BA), Z);
-  if (!grid_ok(grid.x, grid.y, grid.z) || T < 1 || scale == nullptr)
-    return (int)cudaErrorInvalidValue;
-  tn_kernel<Act, BA, BB, true, ROWS, RANKS><<<grid, TN_THREADS, 0, st>>>(
-      (const Act*)S, (const Act*)dy, scale, dB, rows, ranks, T, r, dout, r);
-  return (int)cudaGetLastError();
+  constexpr bool FP32 = std::is_same<Act, float>::value;
+  if (scale == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_tn<Act, FP32 ? 16 : TC_TILE, FP32 ? 128 : TC_TILE, true,
+                   ROWS, RANKS>(S, dy, scale, dB, rows, ranks, Z, T, r, dout,
+                                r, st);
 }
 
 }  // namespace
-
 // dtype: 0 = float32, 1 = bfloat16. Returns the launcher call given after
 // it with ``Act`` bound to that activation type; refuses any other code.
 #define GL_DISPATCH_ACT(dtype, ...)                                   \

@@ -395,6 +395,169 @@ def test_cuda_lora_delta_ragged_rows_alone_launches_the_ragged_kernels():
     assert GL.LAUNCHES["xa"] == GL.LAUNCHES["sb_add"] == 1
 
 
+# the three sets: (wrapper module, prefix of the plain versions in ref.py)
+LORA_SETS = {"dense": (GL, "grouped"), "ragged": (RG, "ragged"),
+             "rank-local": (RL, "ranklocal")}
+
+
+def _contract(fn, x, dy, A, B, scale, s, dS, *counts):
+    """xa, ds, da and db of one set; ``fn(name)`` is its function ``name``
+    (a kernel wrapper or a plain version), ``counts`` its rows / ranks."""
+    return {"xa": fn("xa")(x, A, *counts),
+            "ds": fn("ds")(dy, B, scale, *counts),
+            "da": fn("da")(x, dS, *counts),
+            "db": fn("db")(s, dy, scale, *counts)}
+
+
+def _kernels(family):
+    mod = LORA_SETS[family][0]
+    return lambda name: getattr(mod, name)
+
+
+def _plain(family):
+    prefix = LORA_SETS[family][1]
+    return lambda name: getattr(ref, f"{prefix}_{name}_ref")
+
+
+def _train_inputs(Z, T, din, dout, r, seed=0):
+    """bf16 x, dy, S and dS (S and dS from the plain versions), fp32
+    masters and per-slot scales on the card."""
+    x, dy, A, B, scale, _, _, _ = _bwd_inputs(
+        (Z, T, din, dout, r, [r] * Z, None), torch.bfloat16, seed)
+    return (x, dy, A, B, scale, ref.grouped_xa_ref(x, A),
+            ref.grouped_ds_ref(dy, B, scale))
+
+
+def _ints(values):
+    return torch.tensor(values, dtype=torch.int32, device="cuda")
+
+
+# (T, din, dout) at r_max 64: a train step's projections of stablelm-3b
+# (2560 -> 64 and 6912 -> 64) and of rwkv6-3b's channel mix (2560 / 8960)
+# at T = 1,024 rows a slot, and a DPO policy forward's T = 512
+TRAIN_SHAPE_CASES = [(1024, 2560, 6912), (1024, 6912, 2560),
+                     (1024, 2560, 8960), (1024, 8960, 2560),
+                     (512, 2560, 2560)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TRAIN_SHAPE_CASES)
+def test_cuda_bf16_contractions_at_train_shapes(case):
+    """bf16 xa, ds, da and db of the three sets at the main paths' shapes:
+    each within chip_smoke's bars of its plain version (bf16 S and dS: one
+    bf16 rounding, 2**-7 relative + 1e-5 of the largest entry; fp32 dA and
+    dB: 1e-4 relative + 1e-5 of the largest), exact zeros past rows[z] and
+    ranks[z], and the sets bitwise equal where they meet."""
+    _need_card()
+    T, din, dout = case
+    Z, r = 4, 64
+    x, dy, A, B, scale, s, dS = _train_inputs(Z, T, din, dout, r)
+    rows_l, ranks_l = [T, T // 2, T, T // 2 - 3], [4, 8, 16, 33]
+    counts = {"dense": (), "ragged": (_ints(rows_l),),
+              "rank-local": (_ints(rows_l), _ints(ranks_l))}
+    got = {}
+    for fam, c in counts.items():
+        got[fam] = _contract(_kernels(fam), x, dy, A, B, scale, s, dS, *c)
+        want = _contract(_plain(fam), x, dy, A, B, scale, s, dS, *c)
+        for name, out in got[fam].items():
+            w = want[name].float()
+            rtol = 2 ** -7 if name in ("xa", "ds") else 1e-4
+            torch.testing.assert_close(out.float(), w, rtol=rtol,
+                                       atol=1e-5 * float(w.abs().max()),
+                                       msg=f"{fam} {name} {case}")
+    for z in range(Z):
+        nr, rk = rows_l[z], ranks_l[z]
+        for fam in ("ragged", "rank-local"):
+            for name in ("xa", "ds"):
+                assert torch.all(got[fam][name][z, nr:] == 0), (fam, name)
+        for name in ("xa", "ds"):
+            assert torch.all(got["rank-local"][name][z, :, rk:] == 0), name
+        assert torch.all(got["rank-local"]["da"][z, :, rk:] == 0)
+        assert torch.all(got["rank-local"]["db"][z, rk:] == 0)
+    # where the sets meet: dense == ragged at rows = T == rank-local at
+    # ranks = r_max, and ragged == rank-local at ranks = r_max for any rows
+    every, full = _ints([T] * Z), _ints([r] * Z)
+    meet = {"ragged at rows = T": _contract(_kernels("ragged"), x, dy, A, B,
+                                            scale, s, dS, every),
+            "rank-local at r_max": _contract(_kernels("rank-local"), x, dy,
+                                             A, B, scale, s, dS, None, full)}
+    ragged_full = _contract(_kernels("rank-local"), x, dy, A, B, scale, s,
+                            dS, _ints(rows_l), full)
+    for name, out in got["dense"].items():
+        for label, twin in meet.items():
+            assert torch.equal(out, twin[name]), f"dense {name} vs {label}"
+        assert torch.equal(got["ragged"][name], ragged_full[name]), name
+
+
+def _shifted(t):
+    """``t``'s values in a contiguous tensor whose data starts one element
+    past a 16-byte boundary (the kernels' masked scalar loads)."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+INVARIANCE_KINDS = ["rows of T=4 in T=1024", "slot of Z=1 in Z=4",
+                    "rows=512 of T=1024 is T=512", "unaligned is aligned"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", INVARIANCE_KINDS)
+def test_cuda_bf16_contractions_invariant(kind):
+    """Each output element of bf16 xa, ds, da and db has one fp32
+    summation order, a function of the contraction length alone, in all
+    three sets: the rows of a T = 4 call equal the same rows of a T =
+    1,024 call (xa, ds); a Z = 1 call equals the same slot inside Z = 4; a
+    slot with rows = 512 at T = 1,024 equals a T = 512 call (and the dense
+    kernels there); operands that are not 16-byte aligned (the masked
+    scalar loads) give the aligned call's bits. All bit for bit."""
+    _need_card()
+    Z, T, din, dout, r = 4, 1024, 2560, 6912, 64
+    x, dy, A, B, scale, s, dS = _train_inputs(Z, T, din, dout, r, seed=3)
+    rows_l, ranks_l = [1024, 512, 1024, 512], [64, 13, 32, 64]
+    counts = {"dense": (), "ragged": (_ints(rows_l),),
+              "rank-local": (_ints(rows_l), _ints(ranks_l))}
+    ops_ = (x, dy, A, B, scale, s, dS)
+    for fam, c in counts.items():
+        run = _kernels(fam)
+        big = _contract(run, *ops_, *c)
+        if kind == "rows of T=4 in T=1024":
+            small = [t[:, :4].contiguous() if t.dim() == 3 and t.shape[1] == T
+                     else t for t in ops_]
+            c4 = tuple(v.clamp(max=4) for v in c[:1]) + c[1:]
+            out = _contract(run, *small, *c4)
+            for name in ("xa", "ds"):
+                assert torch.equal(out[name], big[name][:, :4]), (fam, name)
+        elif kind == "slot of Z=1 in Z=4":
+            for z in (1, 2):
+                one = _contract(run, *(t[z:z + 1].contiguous() for t in ops_),
+                                *(v[z:z + 1].contiguous() for v in c))
+                for name, out in one.items():
+                    assert torch.equal(out[0], big[name][z]), (fam, name, z)
+        elif kind == "rows=512 of T=1024 is T=512":
+            half = [t[:, :512].contiguous() if t.dim() == 3 and t.shape[1] == T
+                    else t for t in ops_]
+            c512 = tuple(v.clamp(max=512) for v in c[:1]) + c[1:]
+            ref_fam = "ragged" if fam == "dense" else fam
+            # a slot of rows = 512 in the T = 1,024 call of this set (the
+            # dense set has none: its T = 512 call meets the ragged one's)
+            slot = big if fam != "dense" else _contract(
+                _kernels(ref_fam), *ops_, *counts[ref_fam])
+            out = _contract(run, *half, *c512)
+            for name in ("xa", "ds"):
+                assert torch.equal(out[name][1], slot[name][1][:512]), \
+                    (fam, name)
+                assert torch.all(slot[name][1][512:] == 0), (fam, name)
+            for name in ("da", "db"):
+                assert torch.equal(out[name][1], slot[name][1]), (fam, name)
+        else:
+            out = _contract(run, *(_shifted(t) if t.dim() == 3 else t
+                                   for t in ops_), *c)
+            for name in out:
+                assert torch.equal(out[name], big[name]), (fam, name)
+
+
 # (B, Sq, Sk, hd, window): ragged lengths off the 64 x 32 tiles, suffix
 # alignment, fully masked rows (Sq > Sk), windows, every instantiated hd
 FLASH_CASES = [
