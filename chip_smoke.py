@@ -22,10 +22,12 @@ package. Phases, none of them caught:
             flash_attention.cu`` and the linear-scan kernel from
             ``src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu``:
             one nvcc per source, all six started together; then
-            ``cuobjdump`` of the grouped-LoRA library: every bf16
-            narrow_out_kernel and tn_kernel holds tensor-core (HMMA)
-            instructions and no fp32 one does (registers and local bytes
-            printed).
+            ``cuobjdump`` of the grouped-LoRA and flash-attention
+            libraries: every bf16 narrow_out_kernel, tn_kernel,
+            rank_sum_kernel and flash_fwd_kernel instantiation holds
+            tensor-core (HMMA) instructions, no fp32 one does, none spills
+            to local memory, and each template has exactly its listed
+            instantiations (registers and local bytes printed).
 3. kernels — each rank-local kernel against its plain PyTorch version at
             stablelm-3b shapes (bf16 activations, fp32 adapter masters,
             Z = 4 slots): the forward pair at serving shapes and the
@@ -51,12 +53,14 @@ package. Phases, none of them caught:
             decode time, its eval and train times kept beside it
             (``shapes`` in the kernel JSON).
 3a. invariance — one fp32 summation order per output element of the bf16
-            xa, ds, da and db (the tensor-core kernels) in all three sets,
-            at Z = 4, T = 1,024, r_max 64, 2560 -> 2560 and 2560 -> 6912,
-            bit for bit: the rows of a T = 4 call equal the same rows of
-            the T = 1,024 call (xa, ds), a Z = 1 call its slot inside Z = 4,
-            a slot of rows = 512 a T = 512 call (the dense set's too), and
-            operands off 16-byte alignment the aligned call.
+            xa, ds, da, db, sb_add (with and without a base) and dx (the
+            tensor-core kernels) in all three sets, at Z = 4, T = 1,024,
+            r_max 64, 2560 -> 2560 and 2560 -> 6912, bit for bit: the rows
+            of a T = 4 call equal the same rows of the T = 1,024 call
+            (every output of one row per token row), a Z = 1 call its slot
+            inside Z = 4, a slot of rows = 512 a T = 512 call (the dense
+            set's too), and operands off 16-byte alignment the aligned
+            call.
 3b. flash — the flash-attention kernel against its plain PyTorch version
             at the shapes the path gives it (bf16, hd 80, causal: the SFT
             train step's B = Z*b*H = 512, the eval step's 2,048, a DPO
@@ -262,11 +266,13 @@ ROOT = Path(__file__).resolve().parent
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak (NVIDIA data sheet)
 H100_BYTES_S = 3.35e12        # HBM3 bandwidth (NVIDIA data sheet)
 H100_FP32_FLOPS = 67e12       # fp32 outside the tensor cores (data sheet)
-# narrow_out_kernel and tn_kernel instantiations in the grouped-LoRA
-# library, by "is bf16": bf16 xa and ds of three sets at two tiles (12) and
-# da and db of three sets (6), all with HMMA; fp32 one narrow_out in each
-# of the four sources and da and db of three sets, none with HMMA
-TC_INSTANTIATIONS = {True: 18, False: 10}
+# instantiations of each kernel template, (bf16, fp32): every bf16 one
+# holds tensor-core (HMMA) instructions, no fp32 one does. narrow_out: xa
+# and ds of three sets at two tiles, fp32 one in each of the four sources;
+# tn: da and db of three sets; rank_sum: sb_add and dx of three sets at two
+# tiles (bf16) or one (fp32); flash: one per head dim
+TC_INSTANTIATIONS = {"narrow_out_kernel": (12, 4), "tn_kernel": (6, 6),
+                     "rank_sum_kernel": (12, 6), "flash_fwd_kernel": (5, 5)}
 
 # kernel vs plain, bf16 outputs: the two sum the same fp32 products in
 # another order, so an output may round to the neighbouring bf16 value:
@@ -299,7 +305,7 @@ LR_SWEEP_LAYERS = 8
 # pattern with a boundary inside a tile and an empty slot
 RAGGED_ROWS = (1024, 512, 1024, 512)
 RAGGED_EDGE_ROWS = (1024, 300, 0, 1024)
-ROW_TILE = 32         # token rows per tile of sb_add, dx, da and db
+ROW_TILE = 32         # token rows the ragged train check's tile fault drops
 EVAL_B = 16                   # sequences per slot in an executor eval step
 # backward kernels with fp32 outputs (dA, dB), kernel vs plain: both sum
 # the same 1,024 bf16 products per entry in fp32, in another order, so an
@@ -339,15 +345,16 @@ RECOVERY_STEPS = 12           # steps per job of the recovery phase's task
 # one-ulp bf16 differences of the kernels compound through 32 layers
 # forward and backward. The loss bar guards the forward: it sits between
 # the sound reading and that of a planted forward fault (slot 0's delta
-# halved), which must break it. On an H100, with the bf16 kernels on the
-# tensor cores, the sound run reads at most (the fault in brackets):
-# rank-local, ranks 4-32 and slot 0 at rank 4, 1.098e-04 (1.684e-03);
-# dense, r = 64, 1.065e-04 (5.87e-03); ragged 1.899e-04 (5.87e-03; the
-# narrow slots' dead tile 8.116e-04); DPO 1.842e-04 (1.313e-03); dA and
-# dB at most 0.03744, against 0.05. The fp32-FMA kernels they replaced
-# read 1.007e-04, 1.616e-04, 1.616e-04, 2.148e-04 and 0.03719 on the
-# same seeds: the readings are set by the whole step's bf16 rounding,
-# not by one kernel set (PERF.md).
+# halved), which must break it. On an H100, with every bf16 LoRA kernel
+# and the flash forward on the tensor cores, the sound run reads at most
+# (the fault in brackets): rank-local, ranks 4-32 and slot 0 at rank 4,
+# 1.142e-04 (1.647e-03); dense, r = 64, 9.505e-05 (5.858e-03); ragged
+# 1.723e-04 (5.858e-03; the narrow slots' dead tile 8.199e-04); DPO
+# 1.836e-04 (1.256e-03); dA and dB at most 0.03733, against 0.05. With
+# sb_add, dx and flash still on the FMA units they read 1.098e-04,
+# 1.065e-04, 1.899e-04, 1.842e-04 and 0.03744 on the same seeds: the
+# readings are set by the whole step's bf16 rounding, not by one kernel
+# (PERF.md).
 TRAIN_LOSS_REL = 3e-4
 TRAIN_NORM_REL = 0.05
 TRAIN_GRAD_REL_RMS = 0.05
@@ -378,42 +385,48 @@ def bound(nbytes: float, flops: float, peak: float = H100_BF16_FLOPS):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def tensor_core_check(lib: Path) -> None:
-    """The grouped-LoRA library's machine code (``cuobjdump``): every bf16
-    instantiation of narrow_out_kernel and tn_kernel holds tensor-core
-    (HMMA) instructions, no fp32 one does; prints each instantiation's
-    HMMA count, registers and local (spill) bytes."""
+def tensor_core_check(libs) -> None:
+    """The machine code (``cuobjdump``) of the grouped-LoRA and the
+    flash-attention libraries: every bf16 instantiation of the templates in
+    ``TC_INSTANTIATIONS`` holds tensor-core (HMMA) instructions, no fp32 one
+    does, no instantiation spills to local memory, and each template has
+    exactly the instantiations listed; prints each one's HMMA count,
+    registers and local bytes."""
     from repro_torch.kernels.nvcc import nvcc
 
     tool = str(Path(nvcc()).with_name("cuobjdump"))
-    hmma, fn = {}, None
-    for line in sh(tool, "-sass", str(lib)).splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            fn = m.group(1)
-            hmma[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            hmma[fn] += 1
-    usage = dict(re.findall(r"Function (\S+):\s*\n\s*(REG:\d+ STACK:\d+ "
-                            r"SHARED:\d+ LOCAL:\d+)",
-                            sh(tool, "-res-usage", str(lib))))
-    seen = {True: 0, False: 0}
-    for name in sorted(hmma):
-        at = max(name.find("narrow_out_kernel"), name.find("tn_kernel"))
-        if at < 0:
-            continue
-        bf16 = "kernelI13__nv_bfloat16" in name
-        require(bf16 == (hmma[name] > 0),
-                f"{name}: {hmma[name]} HMMA instructions")
-        seen[bf16] += 1
-        print(f"build: {name[at:].split('EEv')[0]}> (mangled) HMMA "
-              f"{hmma[name]} {usage.get(name, 'no resource line')}")
-    print(f"build: {seen[True]} bf16 narrow_out / tn instantiations with "
-          f"HMMA, {seen[False]} fp32 ones without")
-    require(seen == TC_INSTANTIATIONS,
-            f"narrow_out / tn instantiations (bf16, fp32): "
-            f"({seen[True]}, {seen[False]}), expected "
-            f"({TC_INSTANTIATIONS[True]}, {TC_INSTANTIATIONS[False]})")
+    seen = {t: [0, 0] for t in TC_INSTANTIATIONS}
+    for lib in libs:
+        hmma, fn = {}, None
+        for line in sh(tool, "-sass", str(lib)).splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                hmma[fn] = 0
+            elif fn is not None and "HMMA" in line:
+                hmma[fn] += 1
+        usage = dict(re.findall(r"Function (\S+):\s*\n\s*(REG:\d+ "
+                                r"STACK:\d+ SHARED:\d+ LOCAL:\d+)",
+                                sh(tool, "-res-usage", str(lib))))
+        for name in sorted(hmma):
+            tmpl = next((t for t in TC_INSTANTIATIONS if t in name), None)
+            if tmpl is None:
+                continue
+            at = name.find(tmpl)
+            bf16 = f"{tmpl}I13__nv_bfloat16" in name
+            res = usage.get(name, "no resource line")
+            require(bf16 == (hmma[name] > 0),
+                    f"{name}: {hmma[name]} HMMA instructions")
+            require(res.endswith(" LOCAL:0"), f"{name}: {res}")
+            seen[tmpl][0 if bf16 else 1] += 1
+            print(f"build: {name[at:].split('EEv')[0]}> (mangled) HMMA "
+                  f"{hmma[name]} {res}")
+    for tmpl, (n_bf16, n_fp32) in seen.items():
+        print(f"build: {n_bf16} bf16 {tmpl} instantiations with HMMA, "
+              f"{n_fp32} fp32 ones without")
+    require({t: tuple(n) for t, n in seen.items()} == TC_INSTANTIATIONS,
+            f"instantiations (bf16, fp32) {seen}, expected "
+            f"{TC_INSTANTIATIONS}")
 
 
 def time_ms(torch, fn, n_inner: int, samples: int = 21):
@@ -1312,15 +1325,16 @@ def ragged_kernel_phase(torch, RG, GL, RL, ref):
 
 
 def invariance_phase(torch, GL, RG, RL):
-    """One fp32 summation order per output element of the bf16 xa, ds, da
-    and db, in all three sets, at the main paths' shapes (Z = 4, T = 1,024
-    rows a slot, r_max 64, 2560 -> 2560 and 2560 -> 6912; rows (1024, 512,
-    1024, 512), ranks (64, 13, 32, 64)), bit for bit: the rows of a T = 4
-    call (decode) equal the same rows of the T = 1,024 call (xa, ds); a
+    """One fp32 summation order per output element of the bf16 xa, ds, da,
+    db, sb_add (with and without a base) and dx, in all three sets, at the
+    main paths' shapes (Z = 4, T = 1,024 rows a slot, r_max 64, 2560 ->
+    2560 and 2560 -> 6912; rows (1024, 512, 1024, 512), ranks (64, 13, 32,
+    64)), bit for bit: the rows of a T = 4 call (decode) equal the same
+    rows of the T = 1,024 call (every output of one row per token row); a
     Z = 1 call equals its slot inside Z = 4; a slot of rows = 512 equals a
     T = 512 call (the DPO step's rows), the dense set's too; operands that
-    are not 16-byte aligned (the masked scalar loads) give the aligned
-    call's bits."""
+    are not 16-byte aligned (the masked scalar loads and stores) give the
+    aligned call's bits."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(6)
     Z, T, r = 4, TRAIN_B * TRAIN_S, 64
@@ -1331,7 +1345,13 @@ def invariance_phase(torch, GL, RG, RL):
 
     def contract(mod, x, dy, A, B, scale, s, dS, *c):
         return {"xa": mod.xa(x, A, *c), "ds": mod.ds(dy, B, scale, *c),
-                "da": mod.da(x, dS, *c), "db": mod.db(s, dy, scale, *c)}
+                "da": mod.da(x, dS, *c), "db": mod.db(s, dy, scale, *c),
+                "sb_add": mod.sb_add(s, B, scale, *c),
+                "sb_add+base": mod.sb_add(s, B, scale, *c, y_base=dy),
+                "dx": mod.dx(dS, A, *c)}
+
+    # one row of output per token row (dead rows: 0, or the base)
+    row_outs = ("xa", "ds", "sb_add", "sb_add+base", "dx")
 
     def shifted(t):              # the same values, 2 or 4 bytes off 16
         buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=dev)
@@ -1359,7 +1379,7 @@ def invariance_phase(torch, GL, RG, RL):
             big = contract(mod, *full, *c)
             c4 = tuple(v.clamp(max=4) for v in c[:1]) + c[1:]
             small = contract(mod, *rows_cut(4), *c4)
-            for name in ("xa", "ds"):
+            for name in row_outs:
                 require(torch.equal(small[name], big[name][:, :4]),
                         f"{tag}: {name} rows of a T = 4 call differ from "
                         f"the T = {T} call's")
@@ -1376,9 +1396,10 @@ def invariance_phase(torch, GL, RG, RL):
             half = contract(mod, *rows_cut(512), *c512)
             slot = big if fam != "dense" else contract(RG, *full,
                                                        *sets["ragged"][1])
-            for name in ("xa", "ds"):
+            for name in row_outs:
+                dead = dy[1, 512:] if name == "sb_add+base" else 0
                 require(torch.equal(half[name][1], slot[name][1][:512])
-                        and bool((slot[name][1][512:] == 0).all()),
+                        and bool((slot[name][1][512:] == dead).all()),
                         f"{tag}: {name} of rows = 512 differs from a T = "
                         f"512 call")
             for name in ("da", "db"):
@@ -1391,7 +1412,8 @@ def invariance_phase(torch, GL, RG, RL):
                 require(torch.equal(out, big[name]),
                         f"{tag}: {name} on unaligned operands differs from "
                         f"the aligned call")
-            print(f"{tag}: xa, ds, da, db bitwise equal across T = 4 / "
+            print(f"{tag}: xa, ds, da, db, sb_add (+base), dx bitwise "
+                  f"equal across T = 4 / "
                   f"{T}, Z = 1 / {Z}, rows = 512 / T = 512 and unaligned / "
                   f"aligned operands")
         del x, dy, A, B, s, dS, full
@@ -3158,7 +3180,7 @@ def main() -> int:
               f"({', '.join(p.name for p in m.SOURCES)})")
     print(f"build: {sum(len(m.SOURCES) for m, _ in builds)} sources, one "
           f"nvcc each, started together, in {time.perf_counter() - t:.2f} s")
-    tensor_core_check(builds[0][1].result())
+    tensor_core_check([builds[0][1].result(), builds[1][1].result()])
 
     print(f"kernels on {card}:")
     kern = kernel_phase(torch, RL, ref)

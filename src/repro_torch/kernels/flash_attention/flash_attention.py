@@ -11,8 +11,9 @@ on the CPU; for CUDA tensors it launches the kernel or raises.
 ``LAUNCHES`` counts kernel launches (plain-version calls do not count).
 
 The TPU kernel's tiles (BQ = 256, BK = 512) were VMEM choices and are not
-carried over: the CUDA kernel tiles 64 query rows by 32 keys and masks its
-own edges, so no length needs to divide a tile. Grouped-query attention
+carried over: the CUDA kernel tiles 64 query rows by 64 keys (bf16, on the
+tensor cores) or 32 keys (fp32, on the FMA units) and masks its own edges,
+so no length needs to divide a tile. Grouped-query attention
 is the caller's: ``models/attention.py`` repeats K/V to the query heads
 before the call, as the JAX package does.
 """
@@ -30,6 +31,7 @@ from repro_torch.kernels.nvcc import NVCC_FLAGS, build_library
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = (_HERE / "csrc" / "flash_attention.cu",)
+HEADERS = (_HERE.parent / "tensor_core.cuh",)
 BUILD_DIR = _HERE / "build"
 HEAD_DIMS = (16, 32, 64, 80, 128)    # the kernel's instantiations
 
@@ -49,7 +51,7 @@ def reset_launches() -> None:
 def build() -> Path:
     """Compile ``csrc/flash_attention.cu`` into
     ``build/flash_attention-<hash>.so`` unless it is already there."""
-    return build_library("flash_attention", SOURCES, (), BUILD_DIR,
+    return build_library("flash_attention", SOURCES, HEADERS, BUILD_DIR,
                          NVCC_FLAGS)
 
 

@@ -45,15 +45,17 @@
 // slot, d in {2560, 6912}, r = 64): each reads one [Z,T,d] activation and
 // the fp32 master once and does 2*T*r*d flops per slot, ~r flops per byte,
 // far below the ~295 the tensor cores need, so the bound is bytes (about
-// 24 MB, ~0.007 ms at din = dout = 2560). In bf16, xa, ds, da and db
-// contract on the tensor cores (mma.sync, fp32 accumulators) over operand
-// tiles staged by cp.async, each activation row read once per 32 rank
-// columns (xa, ds) or once (da, db: a block holds all 64 ranks);
-// the fp32 master of xa and ds is read once per 64-row tile. sb_add and dx
-// still run on fp32 FMA units and re-read the narrow operand from L2 per
-// tile, as every fp32 instantiation does (fp32 must hold 1e-5 relative,
-// which TF32 cannot). A redesign for speed has to change the rank-local
-// and ragged twins with it, or the bitwise contract above breaks.
+// 24 MB, ~0.007 ms at din = dout = 2560). In bf16 all six contract on the
+// tensor cores (mma.sync, fp32 accumulators) over operand tiles staged by
+// cp.async: xa and ds read each activation row once per 32 rank columns
+// and their fp32 master once per 64-row tile; da and db read each
+// activation row once (a block holds all 64 ranks); sb_add and dx write
+// each wide output row once, in 16-byte stores, from 128 x 128 tiles that
+// stage the whole rank extent, so their master crosses L2 once per 128
+// rows. Every fp32 instantiation stays on the FMA units (fp32 must hold
+// 1e-5 relative, which TF32 cannot). A redesign for speed has to change
+// the rank-local and ragged twins with it, or the bitwise contract above
+// breaks.
 
 #include "ranklocal_common.cuh"
 

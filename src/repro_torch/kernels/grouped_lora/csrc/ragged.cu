@@ -38,18 +38,20 @@
 // its loads and MMAs or FMAs (in xa/ds/sb_add/dx the block's tile, in da/db
 // the token loop stops at rows[z]) and the boundary tile is masked on load,
 // while the rank tests are compiled out. One fp32 summation order per
-// output element with the dense and rank-local instantiations (in bf16 xa,
-// ds, da and db run on the tensor cores, their order a function of the
-// contraction length alone), so a ragged kernel equals its dense twin at
-// rows = T and its rank-local twin at ranks = r for any rows, bit for bit —
-// what the co-located == solo contract needs when a full-rank slot's
-// co-tenants change width.
+// output element with the dense and rank-local instantiations (in bf16 all
+// six run on the tensor cores, their order a function of the contraction
+// length alone), so a ragged kernel equals its dense twin at rows = T and
+// its rank-local twin at ranks = r for any rows, bit for bit — what the
+// co-located == solo contract needs when a full-rank slot's co-tenants
+// change width. fp32 instantiations run on the FMA units (1e-5 relative,
+// which TF32 cannot hold).
 //
 // Unlike the TPU kernels, which skip whole 128-row tiles, a narrow slot
 // here pays at most for the rest of the tile holding its last live row: 64
-// rows (bf16 xa, ds), 16 (da, db: one k16 step) or 32 (sb_add, dx). The
-// backbone still runs over the padded lane; only the LoRA kernels skip the
-// dead rows.
+// rows (bf16 xa, ds), 16 (da, db: one k16 step) or 16 (bf16 sb_add, dx:
+// one m16 step of a 128-row tile; its dead rows are written, as 0 or the
+// base, but read no operand). The backbone still runs over the padded
+// lane; only the LoRA kernels skip the dead rows.
 
 #include "ranklocal_common.cuh"
 

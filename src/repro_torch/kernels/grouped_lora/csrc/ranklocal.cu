@@ -32,8 +32,12 @@
 // on the tensor cores (mma.sync, fp32 accumulators) over cp.async stages:
 // a 16-row x 8-rank tile a block at decode, so a slot's A is spread over
 // ranks[z] / 8 blocks, and 32 x 32 in training, each master tile read once
-// per 32 rows. sb_add runs on fp32 FMA units, as does every fp32
-// instantiation (1e-5 relative, which TF32 cannot hold). A decode step of
+// per 32 rows. In bf16, sb_add runs on the tensor cores too, writing each
+// output row once in 16-byte stores: a 16-row x 64-column tile a block at
+// decode (a slot's B spread over dout / 64 blocks), 128 x 128 in training,
+// the live ranks staged at once and contracted in k16 steps up to
+// ranks[z]. Every fp32 instantiation runs on fp32 FMA units (1e-5
+// relative, which TF32 cannot hold). A decode step of
 // stablelm-3b launches 7 targets x 32 layers x 2 = 448 of these kernels,
 // so launch overhead will likely dominate until a later change captures the
 // step in a CUDA graph.

@@ -34,12 +34,11 @@
 // need, so the bound is bytes (reading dY or X once, writing dX once).
 // What the design does about the bound: touch only live rows and live rank
 // tiles (dead tiles skip all loads and write exact zeros), read the fp32
-// masters directly, with no cast pass, and in bf16 contract ds, da and db
-// on the tensor cores (mma.sync, fp32 accumulators) over cp.async stages,
-// reading dY once per 32 rank columns (ds) and X or dY once (da, db). dx,
-// and every fp32 instantiation, runs on fp32 FMA units (fp32 holds 1e-5
-// relative, which TF32 cannot) and re-reads the narrow operand from L2 per
-// tile.
+// masters directly, with no cast pass, and in bf16 contract all four on
+// the tensor cores (mma.sync, fp32 accumulators) over cp.async stages,
+// reading dY once per 32 rank columns (ds), X or dY once (da, db), and
+// writing dX once in 16-byte stores (dx). Every fp32 instantiation runs on
+// fp32 FMA units (fp32 holds 1e-5 relative, which TF32 cannot).
 //
 // Structure. The TPU kernels carry an fp32 accumulator across a sequential
 // grid axis; Hopper blocks run in no order, so every contraction is a loop
@@ -52,8 +51,11 @@
 //       block's 8 warps in k32 chunks (warp w takes chunks w, w + 8, ...),
 //       the partial tiles summed in warp order; in fp32 4 rows x 16 ranks,
 //       the contraction split over 256 threads.
-//   dx: rank_sum_kernel with A read transposed, as sb_add: 32 rows x 64
-//       columns per block, a loop over <= 4 live 16-wide rank tiles.
+//   dx: rank_sum_kernel with A read transposed, as sb_add: in bf16 128
+//       rows x 128 columns per block (16 x 64 when T <= 16), the live
+//       ranks staged at once, rounded to bf16 into a [column][rank] tile
+//       and contracted in k16 steps up to ranks[z]; in fp32 32 rows x 64
+//       columns, a loop over <= 4 live 16-wide rank tiles.
 //   da, db: tn_kernel: in bf16 a 64 x 64 output tile per block (every rank
 //       of r_max 64 on one side), 8 warps of 32 x 16, the token loop in
 //       128-row stages, k16 steps from row 0 up to rows[z]; in fp32 a

@@ -36,15 +36,16 @@
 // Every kernel rounds the fp32 adapter masters to the activation type once
 // and sums in fp32 in a fixed order inside one block (no atomics, no split
 // of a contraction across blocks), so a slot's result depends on nothing
-// but its own operands. In bf16, narrow_out_kernel and tn_kernel contract
-// on the tensor cores (mma.sync m16n8k16, fp32 accumulators) and stage
-// their operands with cp.async; their fp32 instantiations, and
-// rank_sum_kernel, run on the fp32 FMA units: the fp32 path must hold the
-// plain versions to 1e-5 relative, which TF32 tensor cores (10-bit
-// mantissas) cannot, and nothing timed runs in fp32.
+// but its own operands. In bf16 all three templates contract on the tensor
+// cores (mma.sync m16n8k16, fp32 accumulators) over operands staged with
+// cp.async; their fp32 instantiations run on the fp32 FMA units: the fp32
+// path must hold the plain versions to 1e-5 relative, which TF32 tensor
+// cores (10-bit mantissas) cannot, and nothing timed runs in fp32. Each
+// template picks its body at compile time (if constexpr on the type).
 //
 // Included by each .cu file; everything is in an anonymous namespace so the
-// translation units keep separate copies.
+// translation units keep separate copies. The tensor-core and copy
+// primitives are in ../../tensor_core.cuh, shared with flash attention.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -52,6 +53,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "../../tensor_core.cuh"
 
 namespace {
 
@@ -87,64 +90,6 @@ __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 bool grid_ok(int gx, int gy, int gz) {
   return gx >= 1 && gy >= 1 && gz >= 1 && gy <= 65535 && gz <= 65535;
-}
-
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-// ---------------------------------------------------------------------------
-// Tensor-core and copy primitives (inline PTX, sm_80+).
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, bypassing L1; !ok fills the 16 bytes with zeros
-// and reads nothing (src must still be a valid address)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// four 8x8 b16 matrices; lane l gives the row address of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t (&d)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&d)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
-      : "r"(smem_addr(p)));
-}
-
-// d (16 x 8 fp32) += a (16 x 16 bf16, row) * b (16 x 8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two fp32 masters rounded to bf16 (round to nearest even, as round_to),
-// lo in the low half: one register of a B fragment
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // ---------------------------------------------------------------------------
@@ -459,25 +404,58 @@ narrow_out_kernel(const T* __restrict__ X, const float* __restrict__ W,
 }
 
 // ---------------------------------------------------------------------------
+// rank_sum_kernel:
 // OUT[z][t][n] = (sum_{j < ranks[z]} S[z][t][j] * W[z](j, n)) * scale[z]
 // (+ BASE[z][t][n]) for t < rows[z]; dead rows give acc = 0 (the base
 // passes through). W(j, n) is the fp32 master: W_T = false -> W [r, N]
-// (sb_add's B), W_T = true -> W [N, r] (dx's A, read transposed). One block
-// per (32 token rows, 64 output columns, slot); the rank contraction is a
-// loop over 16-wide rank tiles that stops at ranks[z]; each thread owns a
-// 4 x 4 micro-tile (columns strided by 16 so neighbouring threads read
-// neighbouring shared-memory words). The W tile is staged with the load
-// order that keeps global reads contiguous for its layout.
+// (sb_add's B), W_T = true -> W [N, r] (dx's A, read transposed).
+//
+// bf16 (every timed call). What bounds it: 2*T*r*N flops on a [T, N] bf16
+// output (and as many base bytes for sb_add), T*r bf16 of S and r*N fp32
+// masters, ~r/2 flops a byte: bytes, almost all of them the wide output.
+// So the design moves each output byte once, in 16-byte stores, and keeps
+// the rest on chip. A block owns BM token rows x BN output columns of one
+// slot: 128 x 128, its 8 warps 32 x 64 each (2 m16 x 8 n8 tiles, fp32
+// accumulators), so the fp32 master crosses L2 once per 128 rows and S
+// once per 128 columns; at T <= 16 (decode) 16 x 64, each warp 16 x 8, so
+// a slot's master spreads over N / 64 blocks. The block stages the whole
+// live rank extent at once (64 ranks a chunk): S by cp.async (zero-filled
+// past rows[z] and ranks[z] instead of read) and the master by 16-byte
+// loads, rounded once to bf16 (__floats2bfloat162_rn, the value round_to
+// gives) into the layout the MMA's B operand wants ([rank][column] for
+// ldmatrix.trans, [column][rank] for ldmatrix). The contraction runs with
+// mma.sync m16n8k16 in k16 steps from rank 0 up to the live extent,
+// never split, so every output element has one summation order, a
+// function of the rank extent alone: the same bits whatever T, rows, Z or
+// the tile, and in the three sets where they meet. The accumulators pass
+// through shared memory to an epilogue in which each thread writes 8
+// outputs, v = fmaf(acc, scale, base) (acc * scale without a base), in
+// one 16-byte store beside one 16-byte base load. A row or pointer that is
+// not 16-byte aligned takes masked scalar loads and stores on the same
+// tiles: the MMA sequence and the epilogue's arithmetic stay the same.
+// What is left between it and the byte bound: one stage a block, so a
+// block's loads, MMAs and stores do not overlap inside it, only across the
+// two or three blocks an SM holds.
+//
+// fp32 (FMA, unchanged): one block of 128 threads per (32 token rows, 64
+// output columns, slot); the rank contraction is a loop over 16-wide rank
+// tiles that stops at ranks[z]; each thread owns a 4 x 4 micro-tile
+// (columns strided by 16 so neighbouring threads read neighbouring
+// shared-memory words). fp32 must hold the plain versions to 1e-5
+// relative, which TF32 tensor cores cannot.
 // ---------------------------------------------------------------------------
 constexpr int RS_BM = 32, RS_BN = 64, RS_BR = 16, RS_THREADS = 128;
+constexpr int RC_THREADS = 256;             // bf16: 8 warps
+constexpr int RC_RK = 64;                   // ranks staged a chunk
+constexpr int RC_SS = RC_RK + 8;            // bf16 row stride of S, W [n][r]
 
 template <typename T, bool W_T, bool ROWS, bool RANKS>
-__global__ void __launch_bounds__(RS_THREADS)
-rank_sum_kernel(const T* __restrict__ S, const float* __restrict__ W,
-                const float* __restrict__ scale, float scale_all,
-                const T* __restrict__ base, T* __restrict__ OUT,
-                const int* __restrict__ rows, const int* __restrict__ ranks,
-                int T_, int r, int N) {
+__device__ __forceinline__ void rank_sum_fma(
+    const T* __restrict__ S, const float* __restrict__ W,
+    const float* __restrict__ scale, float scale_all,
+    const T* __restrict__ base, T* __restrict__ OUT,
+    const int* __restrict__ rows, const int* __restrict__ ranks, int T_,
+    int r, int N) {
   __shared__ float ss[RS_BM][RS_BR + 1];
   __shared__ float sw[RS_BR][RS_BN + 1];
   const int z = blockIdx.z;
@@ -548,6 +526,238 @@ rank_sum_kernel(const T* __restrict__ S, const float* __restrict__ W,
       oz[o] = from_f<T>(v);
     }
   }
+}
+
+// shared bytes of the bf16 tile: S [BM][RC_SS] and the rounded master
+// ([RC_RK][BN + 8] for W [r, N], [BN][RC_SS] for W [N, r]) while the
+// contraction runs, then the fp32 accumulators [BM][BN + 8]
+template <int BM, int BN, bool W_T> struct RcTile {
+  static constexpr int WM = BM / 16 < 4 ? BM / 16 : 4;   // warps along rows
+  static constexpr int WN = RC_THREADS / 32 / WM;        // along columns
+  static constexpr int MT = BM / (16 * WM), NT = BN / (8 * WN);
+  static_assert(MT >= 1 && NT >= 1 && (NT == 1 || NT % 2 == 0),
+                "m16 x n8 tiles, n8 tiles in pairs");
+  static constexpr int WS = W_T ? RC_SS : BN + 8;        // bf16 master stride
+  static constexpr int S_BYTES = BM * RC_SS * 2;
+  static constexpr int W_BYTES = (W_T ? BN : RC_RK) * WS * 2;
+  static constexpr int RS = BN + 8;                      // fp32 epilogue stride
+  static constexpr int RED = BM * RS * 4;
+  static constexpr int SMEM =
+      S_BYTES + W_BYTES > RED ? S_BYTES + W_BYTES : RED;
+};
+
+// one output of the epilogue: acc * scale (+ base), one fp32 rounding
+__device__ __forceinline__ float rs_out(float a, float sc, bool has_base,
+                                        float b) {
+  return has_base ? fmaf(a, sc, b) : a * sc;
+}
+
+// vec bit 0: S rows are 16-byte aligned (cp.async); bit 1: the master's
+// rows are (float4 loads); bit 2: OUT and BASE rows are (16-byte stores)
+template <bool W_T, int BM, int BN, bool ROWS, bool RANKS>
+__device__ __forceinline__ void rank_sum_mma(
+    const bf16* __restrict__ S, const float* __restrict__ W,
+    const float* __restrict__ scale, float scale_all,
+    const bf16* __restrict__ base, bf16* __restrict__ OUT,
+    const int* __restrict__ rows, const int* __restrict__ ranks, int T_,
+    int r, int N, int vec) {
+  using Cfg = RcTile<BM, BN, W_T>;
+  constexpr int MT = Cfg::MT, NT = Cfg::NT, WS = Cfg::WS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ss = reinterpret_cast<bf16*>(smem);
+  bf16* ws = reinterpret_cast<bf16*>(smem + Cfg::S_BYTES);
+  const int z = blockIdx.z;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = 16 * MT * (warp / Cfg::WN), wn = 8 * NT * (warp % Cfg::WN);
+  const int g = lane / 4, c2 = 2 * (lane % 4);
+  const int lq = lane / 8, li = lane % 8;
+  const int vrows = live_count<ROWS>(rows, z, T_);
+  const int vr = live_count<RANKS>(ranks, z, r);
+  const int nrow = min(BM, vrows - m0);      // live rows of this tile
+  const bf16* sz = S + ((size_t)z * T_ + m0) * r;
+  const float* wz = W + (size_t)z * r * N;
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  // a dead row tile skips every load and MMA
+  for (int j0 = 0; nrow > 0 && j0 < vr; j0 += RC_RK) {
+    const int kext = min(RC_RK, vr - j0);          // live ranks this chunk
+    const int kpad = (kext + 15) & ~15;            // in k16 steps
+    if (j0 > 0) __syncthreads();                   // last chunk consumed
+    // S [BM][kpad]: rows >= nrow and ranks >= kext zero-filled
+    if (vec & 1) {
+      for (int e = tid; e < BM * (kpad / 8); e += RC_THREADS) {
+        const int m = e / (kpad / 8), c = 8 * (e % (kpad / 8));
+        const int nb = m < nrow ? 2 * max(0, min(8, kext - c)) : 0;
+        cp_async16n(ss + m * RC_SS + c,
+                    nb > 0 ? sz + (size_t)m * r + j0 + c : S, nb);
+      }
+      cp_async_commit();
+    } else {
+      for (int e = tid; e < BM * kpad; e += RC_THREADS) {
+        const int m = e / kpad, c = e % kpad;
+        ss[m * RC_SS + c] = (m < nrow && c < kext)
+                                ? sz[(size_t)m * r + j0 + c]
+                                : __float2bfloat16_rn(0.f);
+      }
+    }
+    // the master [kpad ranks][BN columns], rounded to bf16 once
+    if constexpr (!W_T) {            // W [r, N]: rows of N columns
+      for (int e = tid; e < kpad * (BN / 4); e += RC_THREADS) {
+        const int jj = e / (BN / 4), c = 4 * (e % (BN / 4));
+        const int n = n0 + c;
+        float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (jj < kext && n < N) {
+          const float* src = wz + (size_t)(j0 + jj) * N + n;
+          if (vec & 2) {
+            w = *reinterpret_cast<const float4*>(src);
+          } else {
+            w.x = src[0];
+            if (n + 1 < N) w.y = src[1];
+            if (n + 2 < N) w.z = src[2];
+            if (n + 3 < N) w.w = src[3];
+          }
+        }
+        *reinterpret_cast<uint2*>(ws + jj * WS + c) =
+            make_uint2(pack_bf16(w.x, w.y), pack_bf16(w.z, w.w));
+      }
+    } else {                         // W [N, r]: rows of r ranks
+      for (int e = tid; e < BN * (kpad / 4); e += RC_THREADS) {
+        const int nn = e / (kpad / 4), c = 4 * (e % (kpad / 4));
+        const int n = n0 + nn;
+        float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (c < kext && n < N) {
+          const float* src = wz + (size_t)n * r + j0 + c;
+          if (vec & 2) {
+            w = *reinterpret_cast<const float4*>(src);
+          } else {
+            w.x = src[0];
+            if (c + 1 < kext) w.y = src[1];
+            if (c + 2 < kext) w.z = src[2];
+            if (c + 3 < kext) w.w = src[3];
+          }
+          if (c + 1 >= kext) w.y = 0.f;            // ranks past the extent
+          if (c + 2 >= kext) w.z = 0.f;
+          if (c + 3 >= kext) w.w = 0.f;
+        }
+        *reinterpret_cast<uint2*>(ws + nn * WS + c) =
+            make_uint2(pack_bf16(w.x, w.y), pack_bf16(w.z, w.w));
+      }
+    }
+    if (vec & 1) cp_async_wait<0>();
+    __syncthreads();
+
+    for (int ks = 0; ks < kpad; ks += 16) {
+      uint32_t af[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        if (wm + 16 * mt < nrow)
+          ldsm_x4(af[mt], ss + (wm + 16 * mt + li + 8 * (lq & 1)) * RC_SS +
+                              ks + 8 * (lq >> 1));
+#pragma unroll
+      for (int np = 0; np < (NT + 1) / 2; ++np) {
+        uint32_t bq[4];
+        const int n = wn + 16 * np;
+        if constexpr (NT == 1) {
+          uint32_t b2[2];
+          if constexpr (W_T)
+            ldsm_x2(b2, ws + (n + li) * WS + ks + 8 * (lq & 1));
+          else
+            ldsm_x2_t(b2, ws + (ks + li + 8 * (lq & 1)) * WS + n);
+          bq[0] = b2[0];
+          bq[1] = b2[1];
+        } else if constexpr (W_T) {
+          ldsm_x4(bq, ws + (n + li + 8 * (lq >> 1)) * WS + ks + 8 * (lq & 1));
+        } else {
+          ldsm_x4_t(bq, ws + (ks + li + 8 * (lq & 1)) * WS + n +
+                            8 * (lq >> 1));
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if (wm + 16 * mt >= nrow) break;       // dead m16 tiles
+          mma_bf16(acc[mt][2 * np], af[mt], bq[0], bq[1]);
+          if constexpr (NT > 1)
+            mma_bf16(acc[mt][2 * np + 1], af[mt], bq[2], bq[3]);
+        }
+      }
+    }
+  }
+
+  // epilogue: the accumulators through shared memory, 8 outputs a thread
+  __syncthreads();                   // the tiles' last reads are done
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float* p = red + (wm + 16 * mt + g) * Cfg::RS + wn + 8 * nt + c2;
+      *reinterpret_cast<float2*>(p) = make_float2(acc[mt][nt][0],
+                                                  acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(p + 8 * Cfg::RS) =
+          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+  __syncthreads();
+  const float sc = scale != nullptr ? scale[z] : scale_all;
+  const bool has_base = base != nullptr;
+  const size_t zo = (size_t)z * T_ * N;
+  for (int e = tid; e < BM * (BN / 8); e += RC_THREADS) {
+    const int m = e / (BN / 8), c = 8 * (e % (BN / 8));
+    const int t = m0 + m, n = n0 + c;
+    if (t >= T_ || n >= N) continue;
+    const bool live = m < nrow;      // dead rows: acc is exactly 0
+    const float* a = red + m * Cfg::RS + c;
+    const size_t o = zo + (size_t)t * N + n;
+    if (vec & 4) {
+      float4 a0 = make_float4(0.f, 0.f, 0.f, 0.f), a1 = a0;
+      if (live) {
+        a0 = *reinterpret_cast<const float4*>(a);
+        a1 = *reinterpret_cast<const float4*>(a + 4);
+      }
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      uint4 bv = make_uint4(0, 0, 0, 0);
+      if (has_base) bv = *reinterpret_cast<const uint4*>(base + o);
+      const uint32_t bw[4] = {bv.x, bv.y, bv.z, bv.w};
+      uint32_t outv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)            // bf16 -> fp32 is exact
+        outv[i] = pack_bf16(
+            rs_out(av[2 * i], sc, has_base, __uint_as_float(bw[i] << 16)),
+            rs_out(av[2 * i + 1], sc, has_base,
+                   __uint_as_float(bw[i] & 0xffff0000u)));
+      *reinterpret_cast<uint4*>(OUT + o) =
+          make_uint4(outv[0], outv[1], outv[2], outv[3]);
+    } else {
+      for (int i = 0; i < 8 && n + i < N; ++i)
+        OUT[o + i] = __float2bfloat16_rn(rs_out(
+            live ? a[i] : 0.f, sc, has_base,
+            has_base ? __bfloat162float(base[o + i]) : 0.f));
+    }
+  }
+}
+
+// BM, BN shape the bf16 path only; the fp32 launcher fixes them
+template <typename T, bool W_T, int BM, int BN, bool ROWS, bool RANKS>
+__global__ void __launch_bounds__(std::is_same<T, float>::value
+                                      ? RS_THREADS : RC_THREADS)
+rank_sum_kernel(const T* __restrict__ S, const float* __restrict__ W,
+                const float* __restrict__ scale, float scale_all,
+                const T* __restrict__ base, T* __restrict__ OUT,
+                const int* __restrict__ rows, const int* __restrict__ ranks,
+                int T_, int r, int N, int vec) {
+  if constexpr (std::is_same<T, float>::value)
+    rank_sum_fma<T, W_T, ROWS, RANKS>(S, W, scale, scale_all, base, OUT,
+                                      rows, ranks, T_, r, N);
+  else
+    rank_sum_mma<W_T, BM, BN, ROWS, RANKS>(S, W, scale, scale_all, base, OUT,
+                                           rows, ranks, T_, r, N, vec);
 }
 
 // ---------------------------------------------------------------------------
@@ -858,18 +1068,61 @@ int launch_xa(const void* x, const float* A, void* S, const int* rows,
       x, A, r, 1, nullptr, S, rows, ranks, Z, T, din, r, vec, st);
 }
 
+template <typename Act, bool W_T, int BM, int BN, bool ROWS, bool RANKS>
+int launch_rank_sum_tile(const void* S, const float* W, const float* scale,
+                         float scale_all, const void* base, void* out,
+                         const int* rows, const int* ranks, int Z, int T,
+                         int r, int N, int vec, cudaStream_t st) {
+  constexpr bool FP32 = std::is_same<Act, float>::value;
+  dim3 grid(cdiv(N, BN), cdiv(T, BM), Z);
+  if (!grid_ok(grid.x, grid.y, grid.z) || r < 1)
+    return (int)cudaErrorInvalidValue;
+  const auto kern = rank_sum_kernel<Act, W_T, BM, BN, ROWS, RANKS>;
+  int smem = 0, threads = RS_THREADS;
+  if constexpr (!FP32) {
+    smem = RcTile<BM, BN, W_T>::SMEM;      // above 48 KB: opt in, once
+    threads = RC_THREADS;
+    static const cudaError_t opt_in = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (opt_in != cudaSuccess) return (int)opt_in;
+  }
+  kern<<<grid, threads, smem, st>>>((const Act*)S, W, scale, scale_all,
+                                    (const Act*)base, (Act*)out, rows, ranks,
+                                    T, r, N, vec);
+  return (int)cudaGetLastError();
+}
+
+// the bf16 tile of sb_add / dx: 16 x 64 when a slot has at most 16 rows
+// (decode: the most blocks for the master's bytes), else 128 x 128; fp32
+// 32 x 64
+template <typename Act, bool W_T, bool ROWS, bool RANKS>
+int launch_rank_sum(const void* S, const float* W, const float* scale,
+                    float scale_all, const void* base, void* out,
+                    const int* rows, const int* ranks, int Z, int T, int r,
+                    int N, cudaStream_t st) {
+  const bool rows16 = aligned16(out) && N % 8 == 0 &&
+                      (base == nullptr || aligned16(base));
+  const int vec = (aligned16(S) && r % 8 == 0 ? 1 : 0) |
+                  (aligned16(W) && (W_T ? r : N) % 4 == 0 ? 2 : 0) |
+                  (rows16 ? 4 : 0);
+  if constexpr (std::is_same<Act, float>::value)
+    return launch_rank_sum_tile<Act, W_T, RS_BM, RS_BN, ROWS, RANKS>(
+        S, W, scale, scale_all, base, out, rows, ranks, Z, T, r, N, vec, st);
+  else if (T <= 16)
+    return launch_rank_sum_tile<Act, W_T, 16, 64, ROWS, RANKS>(
+        S, W, scale, scale_all, base, out, rows, ranks, Z, T, r, N, vec, st);
+  else
+    return launch_rank_sum_tile<Act, W_T, 128, 128, ROWS, RANKS>(
+        S, W, scale, scale_all, base, out, rows, ranks, Z, T, r, N, vec, st);
+}
+
 template <typename Act, bool ROWS, bool RANKS>
 int launch_sb_add(const void* S, const float* B, const float* scale,
                   float scale_all, const void* ybase, void* Y,
                   const int* rows, const int* ranks, int Z, int T, int r,
                   int dout, cudaStream_t st) {
-  dim3 grid(cdiv(dout, RS_BN), cdiv(T, RS_BM), Z);
-  if (!grid_ok(grid.x, grid.y, grid.z) || r < 1)
-    return (int)cudaErrorInvalidValue;
-  rank_sum_kernel<Act, false, ROWS, RANKS><<<grid, RS_THREADS, 0, st>>>(
-      (const Act*)S, B, scale, scale_all, (const Act*)ybase, (Act*)Y, rows,
-      ranks, T, r, dout);
-  return (int)cudaGetLastError();
+  return launch_rank_sum<Act, false, ROWS, RANKS>(
+      S, B, scale, scale_all, ybase, Y, rows, ranks, Z, T, r, dout, st);
 }
 
 template <typename Act, bool ROWS, bool RANKS>
@@ -887,13 +1140,8 @@ template <typename Act, bool ROWS, bool RANKS>
 int launch_dx(const void* dS, const float* A, void* dX, const int* rows,
               const int* ranks, int Z, int T, int din, int r,
               cudaStream_t st) {
-  dim3 grid(cdiv(din, RS_BN), cdiv(T, RS_BM), Z);
-  if (!grid_ok(grid.x, grid.y, grid.z) || r < 1)
-    return (int)cudaErrorInvalidValue;
-  rank_sum_kernel<Act, true, ROWS, RANKS><<<grid, RS_THREADS, 0, st>>>(
-      (const Act*)dS, A, nullptr, 1.f, nullptr, (Act*)dX, rows, ranks, T, r,
-      din);
-  return (int)cudaGetLastError();
+  return launch_rank_sum<Act, true, ROWS, RANKS>(
+      dS, A, nullptr, 1.f, nullptr, dX, rows, ranks, Z, T, r, din, st);
 }
 
 // OUT [NA, NB] = sc * P^T Q over BA x BB output tiles

@@ -40,7 +40,8 @@ _HERE = Path(__file__).resolve().parent
 # library and its build
 SOURCES = tuple(_HERE / "csrc" / name for name in (
     "ranklocal.cu", "ranklocal_bwd.cu", "grouped_lora.cu", "ragged.cu"))
-HEADERS = (_HERE / "csrc" / "ranklocal_common.cuh",)
+HEADERS = (_HERE / "csrc" / "ranklocal_common.cuh",
+           _HERE.parent / "tensor_core.cuh")
 BUILD_DIR = _HERE / "build"
 
 # launches of each kernel since the last ``reset_launches()``

@@ -401,12 +401,21 @@ LORA_SETS = {"dense": (GL, "grouped"), "ragged": (RG, "ragged"),
 
 
 def _contract(fn, x, dy, A, B, scale, s, dS, *counts):
-    """xa, ds, da and db of one set; ``fn(name)`` is its function ``name``
-    (a kernel wrapper or a plain version), ``counts`` its rows / ranks."""
+    """xa, ds, da, db, sb_add (without a base, and with dy as its base) and
+    dx of one set; ``fn(name)`` is its function ``name`` (a kernel wrapper
+    or a plain version), ``counts`` its rows / ranks."""
     return {"xa": fn("xa")(x, A, *counts),
             "ds": fn("ds")(dy, B, scale, *counts),
             "da": fn("da")(x, dS, *counts),
-            "db": fn("db")(s, dy, scale, *counts)}
+            "db": fn("db")(s, dy, scale, *counts),
+            "sb_add": fn("sb_add")(s, B, scale, *counts),
+            "sb_add+base": fn("sb_add")(s, B, scale, *counts, y_base=dy),
+            "dx": fn("dx")(dS, A, *counts)}
+
+
+# the outputs of one row per token row: dead rows exactly 0 (sb_add+base:
+# the base passes through)
+ROW_OUTPUTS = ("xa", "ds", "sb_add", "sb_add+base", "dx")
 
 
 def _kernels(family):
@@ -443,11 +452,12 @@ TRAIN_SHAPE_CASES = [(1024, 2560, 6912), (1024, 6912, 2560),
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", TRAIN_SHAPE_CASES)
 def test_cuda_bf16_contractions_at_train_shapes(case):
-    """bf16 xa, ds, da and db of the three sets at the main paths' shapes:
-    each within chip_smoke's bars of its plain version (bf16 S and dS: one
-    bf16 rounding, 2**-7 relative + 1e-5 of the largest entry; fp32 dA and
-    dB: 1e-4 relative + 1e-5 of the largest), exact zeros past rows[z] and
-    ranks[z], and the sets bitwise equal where they meet."""
+    """bf16 xa, ds, da, db, sb_add (with and without a base) and dx of the
+    three sets at the main paths' shapes: each within chip_smoke's bars of
+    its plain version (bf16 outputs: one bf16 rounding, 2**-7 relative +
+    1e-5 of the largest entry; fp32 dA and dB: 1e-4 relative + 1e-5 of the
+    largest), exact zeros past rows[z] and ranks[z] (the base passed
+    through), and the sets bitwise equal where they meet."""
     _need_card()
     T, din, dout = case
     Z, r = 4, 64
@@ -461,15 +471,17 @@ def test_cuda_bf16_contractions_at_train_shapes(case):
         want = _contract(_plain(fam), x, dy, A, B, scale, s, dS, *c)
         for name, out in got[fam].items():
             w = want[name].float()
-            rtol = 2 ** -7 if name in ("xa", "ds") else 1e-4
+            rtol = 1e-4 if name in ("da", "db") else 2 ** -7
             torch.testing.assert_close(out.float(), w, rtol=rtol,
                                        atol=1e-5 * float(w.abs().max()),
                                        msg=f"{fam} {name} {case}")
     for z in range(Z):
         nr, rk = rows_l[z], ranks_l[z]
         for fam in ("ragged", "rank-local"):
-            for name in ("xa", "ds"):
-                assert torch.all(got[fam][name][z, nr:] == 0), (fam, name)
+            for name in ROW_OUTPUTS:
+                dead = got[fam][name][z, nr:]
+                want = dy[z, nr:] if name == "sb_add+base" else 0
+                assert torch.all(dead == want), (fam, name)
         for name in ("xa", "ds"):
             assert torch.all(got["rank-local"][name][z, :, rk:] == 0), name
         assert torch.all(got["rank-local"]["da"][z, :, rk:] == 0)
@@ -505,10 +517,11 @@ INVARIANCE_KINDS = ["rows of T=4 in T=1024", "slot of Z=1 in Z=4",
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", INVARIANCE_KINDS)
 def test_cuda_bf16_contractions_invariant(kind):
-    """Each output element of bf16 xa, ds, da and db has one fp32
-    summation order, a function of the contraction length alone, in all
-    three sets: the rows of a T = 4 call equal the same rows of a T =
-    1,024 call (xa, ds); a Z = 1 call equals the same slot inside Z = 4; a
+    """Each output element of bf16 xa, ds, da, db, sb_add (with and without
+    a base) and dx has one fp32 summation order, a function of the
+    contraction length alone, in all three sets: the rows of a T = 4 call
+    equal the same rows of a T = 1,024 call (every output of one row per
+    token row); a Z = 1 call equals the same slot inside Z = 4; a
     slot with rows = 512 at T = 1,024 equals a T = 512 call (and the dense
     kernels there); operands that are not 16-byte aligned (the masked
     scalar loads) give the aligned call's bits. All bit for bit."""
@@ -527,7 +540,7 @@ def test_cuda_bf16_contractions_invariant(kind):
                      else t for t in ops_]
             c4 = tuple(v.clamp(max=4) for v in c[:1]) + c[1:]
             out = _contract(run, *small, *c4)
-            for name in ("xa", "ds"):
+            for name in ROW_OUTPUTS:
                 assert torch.equal(out[name], big[name][:, :4]), (fam, name)
         elif kind == "slot of Z=1 in Z=4":
             for z in (1, 2):
@@ -545,10 +558,11 @@ def test_cuda_bf16_contractions_invariant(kind):
             slot = big if fam != "dense" else _contract(
                 _kernels(ref_fam), *ops_, *counts[ref_fam])
             out = _contract(run, *half, *c512)
-            for name in ("xa", "ds"):
+            for name in ROW_OUTPUTS:
                 assert torch.equal(out[name][1], slot[name][1][:512]), \
                     (fam, name)
-                assert torch.all(slot[name][1][512:] == 0), (fam, name)
+                dead = dy[1, 512:] if name == "sb_add+base" else 0
+                assert torch.all(slot[name][1][512:] == dead), (fam, name)
             for name in ("da", "db"):
                 assert torch.equal(out[name][1], slot[name][1]), (fam, name)
         else:
@@ -558,8 +572,9 @@ def test_cuda_bf16_contractions_invariant(kind):
                 assert torch.equal(out[name], big[name]), (fam, name)
 
 
-# (B, Sq, Sk, hd, window): ragged lengths off the 64 x 32 tiles, suffix
-# alignment, fully masked rows (Sq > Sk), windows, every instantiated hd
+# (B, Sq, Sk, hd, window): ragged lengths off the 64-row query tile and the
+# 64-key (bf16) and 32-key (fp32) key tiles, suffix alignment, fully masked
+# rows (Sq > Sk), windows, every instantiated hd
 FLASH_CASES = [
     (3, 37, 37, 16, 0),
     (2, 64, 96, 32, 24),
@@ -568,6 +583,8 @@ FLASH_CASES = [
     (2, 256, 256, 80, 64),
     (1, 72, 72, 16, 17),
     (2, 64, 64, 128, 0),
+    (2, 200, 232, 80, 0),
+    (3, 136, 100, 128, 48),
 ]
 
 
@@ -602,6 +619,31 @@ def test_cuda_flash_attention_matches_plain(case):
     torch.testing.assert_close(
         noncausal, FREF.flash_attention_ref(q, k, v, causal=False),
         rtol=1e-5, atol=1e-5)
+
+
+# the fused batch-heads of the stablelm-3b paths at S = 256, hd 80: an SFT
+# train step (4 slots x 4 sequences x 32 heads), an eval step (x 16) and
+# a DPO forward (x 2)
+FLASH_PATH_B = [512, 2048, 256]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", FLASH_PATH_B)
+def test_cuda_flash_attention_bf16_at_path_shapes(B):
+    """The bf16 kernel at the shapes the main paths give it, within one
+    bf16 rounding of the plain version (2**-7 relative + 1e-5 of the
+    largest output), and the first 128 fused heads bitwise equal to a call
+    on them alone."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(B)
+    q, k, v = (torch.randn(B, 256, 80, device="cuda", generator=gen)
+               .bfloat16() for _ in range(3))
+    out = FA.flash_attention(q, k, v)
+    want = FREF.flash_attention_ref(q, k, v).float()
+    torch.testing.assert_close(out.float(), want, rtol=2 ** -7,
+                               atol=1e-5 * float(want.abs().max()))
+    head = FA.flash_attention(*(t[:128].contiguous() for t in (q, k, v)))
+    assert torch.equal(head, out[:128])
 
 
 @pytest.mark.cuda

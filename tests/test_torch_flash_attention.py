@@ -130,6 +130,47 @@ def test_fully_masked_rows_are_exact_zeros():
     np.testing.assert_allclose(got, want, **FTOL)
 
 
+# the card's bf16 bar for the kernel against its plain version
+# (chip_smoke.FLASH_RTOL["bf16"], FLASH_ATOL_REL): one bf16 rounding
+BF16_RTOL, BF16_ATOL_REL = 2 ** -7, 1e-5
+
+
+def _attention_p_rounded(q, k, v, round_p):
+    """The plain version's causal attention with the unnormalised softmax
+    weights p = exp(s - rowmax) rounded by ``round_p`` before the product
+    with V (fp32 sums, then / sum p), as the card's bf16 kernel feeds p to
+    the tensor cores; out in q's dtype."""
+    S, hd = q.shape[1], q.shape[2]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * hd ** -0.5
+    vis = torch.ones(S, S, dtype=torch.bool).tril()
+    s = torch.where(vis, s, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    out = torch.einsum("bqk,bkd->bqd", round_p(p), v.float())
+    return (out / p.sum(-1, keepdim=True)).to(q.dtype)
+
+
+def _bf16(t):
+    return t.bfloat16().float()
+
+
+def test_bf16_kernel_keeps_p_to_two_bf16_halves():
+    """Why the bf16 kernel multiplies V by p as hi = bf16(p) plus lo =
+    bf16(p - hi): the plain attention with p so split reads <= 1 of the
+    card's bf16 bar, and with p rounded once to bf16 it reads > 1."""
+    q, k, v = _t(*_qkv(16, 128, 128, 80, seed=4), dtype=torch.bfloat16)
+    want = tref(q, k, v).float()
+
+    def reading(got):
+        tol = BF16_RTOL * want.abs() + BF16_ATOL_REL * float(want.abs().max())
+        return float(((got.float() - want).abs() / tol).max())
+
+    split = reading(_attention_p_rounded(
+        q, k, v, lambda p: _bf16(p) + _bf16(p - _bf16(p))))
+    once = reading(_attention_p_rounded(q, k, v, _bf16))
+    assert split <= 1.0
+    assert once > 1.0
+
+
 @pytest.mark.parametrize("window", [0, 12])
 def test_gradients_match_jax_vjp(window):
     """q/k/v gradients of the Function (autograd through the oracle)
