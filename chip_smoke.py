@@ -27,7 +27,10 @@ package. Phases, none of them caught:
             rank_sum_kernel and flash_fwd_kernel instantiation holds
             tensor-core (HMMA) instructions, no fp32 one does, none spills
             to local memory, and each template has exactly its listed
-            instantiations (registers and local bytes printed).
+            instantiations (registers and local bytes printed); and of
+            the linear-scan library: both linear_scan_kernel
+            instantiations are there, none spills to local memory
+            (registers and local bytes printed).
 3. kernels — each rank-local kernel against its plain PyTorch version at
             stablelm-3b shapes (bf16 activations, fp32 adapter masters,
             Z = 4 slots): the forward pair at serving shapes and the
@@ -201,7 +204,8 @@ per forward) follow:
             q/k/v: the train step's B = Z*b*H = 640 rows and the eval
             step's 2,560), at hymba's SSD shape (K = 16, V = 64, no bonus),
             with an initial state, at the decay clip (logw = -e^4 every
-            token) and in fp32. The reading (largest |diff| of y and the
+            token), with the even channels at the clip and the odd ones
+            near 0, and in fp32. The reading (largest |diff| of y and the
             final state in units of one bf16 rounding; fp32 y and the
             state: 1e-5 relative) must be <= 1, while three faults planted
             in the plain version (the state not carried across chunks, the
@@ -209,10 +213,13 @@ per forward) follow:
             the clip a state is forgotten within one token: the carry
             fault cannot show there); rows 0-127 of the B = 640 call must
             equal a B = 128 call bit for bit. Times (graph replay) of the
-            kernel and the plain version beside the bound: the larger of
-            the bytes over the memory rate and the C*C*K/2 visible pair
-            exponentials per chunk over the special-function units' rate
-            (16 a clock per SM at the card's maximum SM clock). No single
+            kernel and the plain version beside the bound: the largest of
+            the bytes over the memory rate, the kernel's exponentials
+            (its pivoted form, ``scan_form_work``) over the
+            special-function units' rate (16 a clock per SM at the card's
+            maximum SM clock) and its multiply-adds over the fp32 rate;
+            beside it the bound of the form with one exponential per
+            visible pair. No single
             PyTorch call computes the function: no yardstick.
 17. rwkv serve — 8 greedy requests (prompts of 16-48 tokens, 16 new) on 4
             adapters through AdapterPool -> ServingReplica ->
@@ -427,6 +434,25 @@ def tensor_core_check(libs) -> None:
     require({t: tuple(n) for t, n in seen.items()} == TC_INSTANTIATIONS,
             f"instantiations (bf16, fp32) {seen}, expected "
             f"{TC_INSTANTIATIONS}")
+
+
+def scan_resource_check(lib) -> None:
+    """The machine code (``cuobjdump -res-usage``) of the linear-scan
+    library: both instantiations of ``linear_scan_kernel`` are there and
+    neither spills to local memory; prints each one's registers and local
+    bytes."""
+    from repro_torch.kernels.nvcc import nvcc
+
+    tool = str(Path(nvcc()).with_name("cuobjdump"))
+    usage = dict(re.findall(r"Function (\S*linear_scan_kernel\S*):\s*\n\s*"
+                            r"(REG:\d+ STACK:\d+ SHARED:\d+ LOCAL:\d+)",
+                            sh(tool, "-res-usage", str(lib))))
+    for name, res in sorted(usage.items()):
+        kind = "bf16" if "__nv_bfloat16" in name else "fp32"
+        print(f"build: linear_scan_kernel<{kind}> {res}")
+        require(res.endswith(" LOCAL:0"), f"{name}: {res}")
+    require(len(usage) == 2, f"linear_scan_kernel instantiations: "
+            f"{sorted(usage)}")
 
 
 def time_ms(torch, fn, n_inner: int, samples: int = 21):
@@ -2865,20 +2891,56 @@ def _scan_mask_fault(torch, q, k, v, logw, bonus, s0, chunk, doq):
     return torch.cat(ys, dim=1).to(q.dtype), state
 
 
+def scan_form_work(C, K, V, doq, bonus):
+    """(exponentials, multiply-adds) of one chunk-row in the kernel's form
+    (csrc/linear_scan.cu), over the chunk's real tokens. Blocks of 16
+    tokens, quads of 4 within them. Exponentials: q~ and k~ one per
+    (token, channel), e^{PV[T]} one per (token quad, channel), the tables
+    one per (block, channel), (block pair two or more apart, channel) and
+    channel; a quad pair below a block's diagonal one per (token of either
+    quad, channel) and one for the pair; a quad on the diagonal one per
+    (visible pair, channel). Multiply-adds: every visible pair over K (the
+    off-diagonal tiles, the quads below the diagonal, the quads on it),
+    the state term and the update (C*K*V each), P v over every visible
+    pair (and the diagonal with the bonus) over V, and the bonus over K."""
+    sizes = [min(16, C - t) for t in range(0, C, 16)]
+    nb = len(sizes)
+    vis = (lambda s: s * (s + 1) // 2) if doq else (lambda s: s * (s - 1) // 2)
+    exps = (2 * C * K + (C + 3) // 4 * K
+            + (nb + (nb - 1) * (nb - 2) // 2 + 1) * K)
+    pairs = 0
+    for s in sizes:
+        quads = [min(4, s - t) for t in range(0, s, 4)]
+        for tq in range(len(quads)):
+            for iq in range(tq):
+                exps += (quads[tq] + quads[iq] + 1) * K
+            exps += vis(quads[tq]) * K
+        pairs += vis(s)
+    pairs += (C * C - sum(s * s for s in sizes)) // 2
+    with_diag = C if bonus and not doq else 0
+    fmas = (pairs * K + 2 * C * K * V + (pairs + with_diag) * V
+            + (C * K if bonus else 0))
+    return exps, fmas
+
+
 def scan_kernel_phase(torch, LSK, lsref, cfg):
     """The linear-scan kernel against its plain version at the shapes the
     rwkv6-3b path gives it (the train step's B = Z*b*H = 640 rows and the
     eval step's 2,560, S = 256, chunk 128, K = V = 64, bf16 q/k/v, fp32
     logw and bonus), at hymba's SSD shape (K = 16, no bonus, H = 50), with
-    an initial state, at the decay clip (logw = -e^4 every token) and in
-    fp32. The reading of y and the final state is the largest |diff| in
-    units of the bar (bf16 y: one bf16 rounding; fp32 y and the state: 1e-5
+    an initial state, at the decay clip (logw = -e^4 every token), with
+    the even channels at the clip and the odd ones near 0, and in fp32.
+    The reading of y and the final state is the largest |diff| in units
+    of the bar (bf16 y: one bf16 rounding; fp32 y and the state: 1e-5
     relative), beside three planted faults in the plain version: the state
     not carried across chunks, the bonus dropped, the causal mask off by
     one. Rows 0-127 of the B = 640 call must equal a B = 128 call bit for
     bit. Times (graph replay) of the kernel and the plain version beside
-    the bound, which counts the C*C*K/2 visible pair exponentials per chunk
-    at the special-function units' rate as well as the bytes. Returns the
+    the bound, the largest of the bytes, the pivoted form's exponentials
+    at the special-function units' rate and its multiply-adds at the fp32
+    rate (``scan_form_work``), printed beside the bound of the form with
+    one exponential per visible pair (the bytes and C*C*K/2 exponentials
+    per chunk). Returns the
     results at the train step's shape."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -2893,6 +2955,7 @@ def scan_kernel_phase(torch, LSK, lsref, cfg):
         ("ssd-K16", 4 * TRAIN_B * 50, 16, 64, True, True, 1.0, bf16),
         ("state", B_train, hs, hs, False, True, 1.0, bf16),
         ("clip", B_train, hs, hs, False, False, "clip", bf16),
+        ("mixed", B_train, hs, hs, False, False, "mixed", bf16),
         ("fp32", B_train, hs, hs, False, True, 1.0, fp32),
     ]
     print(f"linear scan: reading = max |kernel - plain| / (rtol |plain| + "
@@ -2902,7 +2965,8 @@ def scan_kernel_phase(torch, LSK, lsref, cfg):
           f"mask off by one. S {S}, chunk {C}; SFU rate {sfu:.4g} exp/s. "
           f"Times in ms per call (graph replay)")
     print("case     B      K   V   mode  dtype  reading    no-carry   "
-          "no-bonus   mask+-1    ms         plain_ms   bound_ms   bound_by")
+          "no-bonus   mask+-1    ms         plain_ms   bound_ms   bound_by"
+          "    bytes_ms   sfu_ms     fma_ms     pair_exp_bound_ms")
     results = {}
     for label, B, K, V, doq, with_s0, decay, dt in cases:
         q, k = (torch.randn(B, S, K, generator=gen, device=dev).to(dt)
@@ -2910,6 +2974,10 @@ def scan_kernel_phase(torch, LSK, lsref, cfg):
         v = torch.randn(B, S, V, generator=gen, device=dev).to(dt)
         if decay == "clip":
             logw = torch.full((B, S, K), -math.exp(4.0), device=dev)
+        elif decay == "mixed":     # even channels at the clip, odd near 0
+            logw = -1e-3 * torch.exp(torch.randn(B, S, K, generator=gen,
+                                                 device=dev))
+            logw[..., 0::2] = -math.exp(4.0)
         else:
             logw = -decay * torch.exp(torch.randn(B, S, K, generator=gen,
                                                   device=dev))
@@ -2994,16 +3062,21 @@ def scan_kernel_phase(torch, LSK, lsref, cfg):
             print(f"linear scan: the B = {B} call's rows 0-127 equal a "
                   f"B = 128 call on them bit for bit (y and state)")
         # work: q, k, v, logw, bonus and s0 read once, y and the state
-        # written once; the visible pair exponentials of every chunk
+        # written once; the pivoted form's exponentials at the
+        # special-function units' rate and its multiply-adds at the fp32
+        # rate; beside it, the bound of the form with one exponential per
+        # visible pair
         n = S // C
-        pairs = C * (C + 1) // 2 if doq else C * (C - 1) // 2
-        exps = B * n * pairs * K
+        exps, fmas = scan_form_work(C, K, V, doq, bonus is not None)
         nbytes = (B * S * (2 * K + 2 * V) * q.element_size()
                   + B * S * K * 4 + B * K * V * 4 * (2 if with_s0 else 1)
                   + (0 if doq else B * K * 4))
-        t_bytes, t_sfu = nbytes / H100_BYTES_S, exps / sfu
-        bound_ms = max(t_bytes, t_sfu) * 1e3
-        bound_by = "bytes" if t_bytes >= t_sfu else "operations"
+        t_bytes, t_sfu = nbytes / H100_BYTES_S, B * n * exps / sfu
+        t_fma = 2 * B * n * fmas / H100_FP32_FLOPS
+        bound_ms = max(t_bytes, t_sfu, t_fma) * 1e3
+        bound_by = "bytes" if t_bytes >= max(t_sfu, t_fma) else "operations"
+        pairs = C * (C + 1) // 2 if doq else C * (C - 1) // 2
+        pair_exp_bound_ms = max(t_bytes, B * n * pairs * K / sfu) * 1e3
         inner = 10 if B <= B_train else 4
         ms, _ = time_ms(torch, lambda i: LSK.linear_scan(q, k, v, logw, **kw),
                         inner)
@@ -3016,14 +3089,18 @@ def scan_kernel_phase(torch, LSK, lsref, cfg):
         print(f"{label:8s} {B:5d} {K:4d} {V:3d}  {'ssd' if doq else 'rwkv':4s}"
               f"  {kind:5s}  {sound:.4g}  {fr(faults['no-carry']):10s} "
               f"{fr(faults['no-bonus']):10s} {fr(faults['mask']):10s} "
-              f"{ms:.5f}  {fmt(plain_ms):10s} {bound_ms:.6f}  {bound_by}")
+              f"{ms:.5f}  {fmt(plain_ms):10s} {bound_ms:.6f}  {bound_by:10s}"
+              f"  {t_bytes * 1e3:.6f}  {t_sfu * 1e3:.6f}  {t_fma * 1e3:.6f}"
+              f"  {pair_exp_bound_ms:.6f}")
         results[label] = {"max_abs_err": float((y.float()
                                                 - want_y.float()).abs().max()),
                           "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                          "bound_ms": bound_ms, "bound_by": bound_by}
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "pair_exp_bound_ms": pair_exp_bound_ms}
         del q, k, v, logw, bonus, s0, y, st, want_y, want_s
         torch.cuda.empty_cache()
     res = dict(results["train"])
+    del res["pair_exp_bound_ms"]
     res["max_abs_err"] = max(results[lab]["max_abs_err"]
                              for lab in ("train", "eval"))
     res["eval_ms"] = results["eval"]["ms"]
@@ -3181,6 +3258,7 @@ def main() -> int:
     print(f"build: {sum(len(m.SOURCES) for m, _ in builds)} sources, one "
           f"nvcc each, started together, in {time.perf_counter() - t:.2f} s")
     tensor_core_check([builds[0][1].result(), builds[1][1].result()])
+    scan_resource_check(builds[2][1].result())
 
     print(f"kernels on {card}:")
     kern = kernel_phase(torch, RL, ref)

@@ -717,15 +717,21 @@ def test_cuda_model_forward_launches_flash_per_layer():
 
 
 # (B, S, K, V, chunk, decay_on_query, initial state, decay): small edges, an
-# rwkv6-3b head (K = V = 64, chunk 128) at the decay clip -e^4, a hymba SSD
-# head (K = 16)
+# rwkv6-3b head (K = V = 64, chunk 128) at the decay clip -e^4 and with the
+# even channels at the clip and the odd ones near 0, a chunk of 40 (blocks
+# of 16, 16 and 8 tokens in the kernel's pivoted form), a hymba SSD head
+# (K = 16), and V = 128 at chunk 128 (more rows of y than the kernel's y
+# group holds in registers: its general path)
 SCAN_CASES = [
     (3, 32, 16, 8, 8, False, True, 1.0),
     (2, 24, 8, 12, 12, True, False, 1.0),
     (5, 42, 4, 4, 21, False, False, 6.0),     # C not a multiple of 4
     (8, 256, 64, 64, 128, False, False, "clip"),
+    (8, 256, 64, 64, 128, False, False, "mixed"),
     (8, 256, 64, 64, 128, False, True, 1.0),
+    (4, 200, 64, 64, 40, False, True, 1.0),   # C not a multiple of 16
     (6, 256, 16, 64, 128, True, True, 1.0),
+    (3, 256, 16, 128, 128, False, True, 1.0),
 ]
 
 
@@ -737,6 +743,10 @@ def _scan_inputs(case, dt, seed=0):
     v = torch.randn(B, S, V, device="cuda", generator=gen).to(dt)
     if decay == "clip":
         logw = torch.full((B, S, K), -float(np.exp(4.0)), device="cuda")
+    elif decay == "mixed":
+        logw = -1e-3 * torch.exp(torch.randn(B, S, K, device="cuda",
+                                             generator=gen))
+        logw[..., 0::2] = -float(np.exp(4.0))
     else:
         logw = -decay * torch.exp(torch.randn(B, S, K, device="cuda",
                                               generator=gen))

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels.linear_scan import ops as jops
 from repro.kernels.linear_scan.ref import linear_scan_ref as jref
@@ -146,6 +147,136 @@ def test_function_gradient_only_where_asked():
     gk, gs = torch.autograd.grad(y.sum(), (k, s0))
     assert gk.shape == k.shape and gs.shape == s0.shape
     assert q.grad is None and logw.grad is None
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's pivoted chunk algebra, modelled in plain torch
+# ---------------------------------------------------------------------------
+
+BLOCK = 16   # tokens of a block of the pivoted form (csrc/linear_scan.cu)
+
+
+def _pivoted_scan(q, k, v, logw, bonus, doq, s0, chunk, exponents):
+    """The linear scan in the form of ``csrc/linear_scan.cu``: per chunk,
+    L by ``torch.cumsum``; blocks of ``BLOCK`` tokens with PV[T] = L at the
+    last token of block T-1 (PV[0] = 0, PV[nb] = L_end); off-diagonal
+    tiles as contractions of q~ = q e^{Lq - PV[T]}, g = e^{PV[T] - PV[I+1]}
+    and k~ = k e^{PV[I+1] - L}; diagonal tiles with one exponential per
+    visible pair; the state term from q~ e^{PV[T]}, the update from
+    k~ e^{PV[nb] - PV[I+1]} and e^{L_end}. Every exponent argument it forms
+    is appended to ``exponents``. fp32 in, (y, state) out."""
+    B, S, K = q.shape
+    C = min(chunk, S)
+    state = torch.zeros(B, K, v.shape[-1]) if s0 is None else s0.clone()
+
+    def ex(x):
+        exponents.append(x.detach().reshape(-1))
+        return torch.exp(x)
+
+    starts = list(range(0, C, BLOCK))
+    ends = [min(b + BLOCK, C) for b in starts]
+    blk = torch.arange(C) // BLOCK
+    ys = []
+    for c in range(0, S, C):
+        qc, kc, vc = q[:, c:c + C], k[:, c:c + C], v[:, c:c + C]
+        L = torch.cumsum(logw[:, c:c + C], dim=1)
+        Lq = L if doq else F.pad(L, (0, 0, 1, 0))[:, :-1]
+        PV = torch.stack([torch.zeros_like(L[:, 0])]
+                         + [L[:, e - 1] for e in ends], dim=1)
+        qt = qc * ex(Lq - PV[:, blk])
+        kt = kc * ex(PV[:, blk + 1] - L)
+        P = torch.zeros(B, C, C)
+        for T, (s, e) in enumerate(zip(starts, ends)):
+            for I in range(T):
+                si, ei = starts[I], ends[I]
+                g = ex(PV[:, T] - PV[:, I + 1])
+                P[:, s:e, si:ei] = torch.einsum("btk,bk,bik->bti",
+                                                qt[:, s:e], g, kt[:, si:ei])
+            t = torch.arange(s, e)
+            vis = (t[:, None] >= t[None, :]) if doq else (
+                t[:, None] > t[None, :])
+            d = Lq[:, s:e, None, :] - L[:, None, s:e, :]
+            w = torch.zeros_like(d)
+            w[:, vis] = ex(d[:, vis])
+            P[:, s:e, s:e] = (qc[:, s:e, None, :] * kc[:, None, s:e, :]
+                              * w).sum(-1)
+        if bonus is not None:
+            P = P + torch.diag_embed((qc * bonus[:, None, :] * kc).sum(-1))
+        qh = qt * ex(PV[:, blk])
+        kh = kt * ex(PV[:, -1:] - PV[:, blk + 1])
+        ys.append(torch.bmm(qh, state) + torch.bmm(P, vc))
+        state = (state * ex(PV[:, -1])[:, :, None]
+                 + torch.bmm(kh.transpose(1, 2), vc))
+    return torch.cat(ys, dim=1), state
+
+
+def _decayed(B, S, K, V, decay, seed=11):
+    """_make's inputs with logw at chip_smoke's decay (-exp(N(0,1))),
+    at the clip -e^4 on every token, or with the even channels at the clip
+    and the odd ones near 0 (-1e-3 exp(N(0,1)))."""
+    q, k, v, logw, u = _make(B, S, K, V, seed=seed)
+    if decay == "clip":
+        logw = np.full_like(logw, -np.exp(4.0))
+    elif decay == "mixed":
+        logw = (1e-3 * logw).astype(np.float32)
+        logw[..., 0::2] = -np.exp(4.0)
+    return q, k, v, logw, (0.3 * u).astype(np.float32)
+
+
+@pytest.mark.parametrize("B,S,K,V,chunk,with_state", [
+    (2, 256, 64, 64, 128, False),     # an rwkv6-3b head at its chunk
+    (3, 80, 16, 8, 40, True),         # K 16; C 40 = 16 + 16 + 8
+])
+@pytest.mark.parametrize("decay", ["phase", "clip", "mixed"])
+@pytest.mark.parametrize("mode", ["rwkv", "ssd"])
+def test_pivoted_form_matches_plain_and_jax(B, S, K, V, chunk, with_state,
+                                            decay, mode):
+    """The kernel's pivoted algebra against the plain core at the card's
+    fp32 bar (|diff| <= 1e-5 |plain| + 1e-5 max|plain|, y and the state)
+    and against the JAX kernel in interpret mode at this file's bars (3e-4;
+    1e-3 at the strong decays); every exponent argument it forms is <= 0
+    and every output finite."""
+    q, k, v, logw, u = _decayed(B, S, K, V, decay)
+    doq = mode == "ssd"
+    bonus = None if doq else u
+    s0 = (np.random.default_rng(12).standard_normal((B, K, V)).astype(
+        np.float32) if with_state else None)
+    tq, tk, tv, tl, tu, ts = _t(q, k, v, logw, bonus, s0)
+    exps = []
+    y, st = _pivoted_scan(tq, tk, tv, tl, tu, doq, ts, chunk, exps)
+    assert float(torch.cat(exps).max()) <= 0.0
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    wy, ws = tref(tq, tk, tv, tl, bonus=tu, decay_on_query=doq,
+                  initial_state=ts, chunk=chunk)
+    for got, want in ((y, wy), (st, ws)):
+        bar = 1e-5 * want.abs() + 1e-5 * float(want.abs().max())
+        assert float(((got - want).abs() / bar).max()) <= 1.0
+    jy, js = jops.linear_scan(q, k, v, logw, bonus=bonus, decay_on_query=doq,
+                              initial_state=s0, chunk=chunk, interpret=True)
+    tol = TOL if decay == "phase" else dict(rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **tol)
+    np.testing.assert_allclose(st.numpy(), np.asarray(js), **tol)
+
+
+@pytest.mark.parametrize("mode", ["rwkv", "ssd"])
+def test_unpivoted_factorisation_overflows_at_the_clip(mode):
+    """The control: (q e^{Lq}) (k e^{-L})^T, the factorisation the kernel
+    refuses, gives non-finite y at the decay clip, where the pivoted form
+    stays finite and within the fp32 bar."""
+    q, k, v, logw, u = _t(*_decayed(2, 128, 16, 16, "clip"))
+    doq = mode == "ssd"
+    L = torch.cumsum(logw, dim=1)
+    Lq = L if doq else F.pad(L, (0, 0, 1, 0))[:, :-1]
+    t = torch.arange(128)
+    vis = (t[:, None] >= t[None, :]) if doq else (t[:, None] > t[None, :])
+    P = torch.bmm(q * torch.exp(Lq), (k * torch.exp(-L)).transpose(1, 2))
+    naive = torch.bmm(P * vis, v)
+    assert not bool(torch.isfinite(naive).all())
+    y, _ = _pivoted_scan(q, k, v, logw, None, doq, None, 128, [])
+    want, _ = tref(q, k, v, logw, decay_on_query=doq, chunk=128)
+    assert bool(torch.isfinite(y).all())
+    bar = 1e-5 * want.abs() + 1e-5 * float(want.abs().max())
+    assert float(((y - want).abs() / bar).max()) <= 1.0
 
 
 # ---------------------------------------------------------------------------
