@@ -2,8 +2,9 @@
 """Chip smoke test of the PyTorch port: multi-adapter serving, rank-sweep
 and full-rank learning-rate-sweep LoRA training, heterogeneous multi-task
 co-location, and DPO preference tuning with crash-and-resume of
-stablelm-3b, then serving and rank-sweep LoRA training of rwkv6-3b, on one
-NVIDIA card, through the port's hand-written CUDA kernels.
+stablelm-3b, then serving and rank-sweep LoRA training of rwkv6-3b and of
+hymba-1.5b, on one NVIDIA card, through the port's hand-written CUDA
+kernels.
 
     python3 chip_smoke.py
 
@@ -226,7 +227,8 @@ per forward) follow:
             ServingFrontend; the family streams prompts through the
             recurrent decode step: the linear-scan and flash kernels
             launch 0 times, the LoRA forward pair once per projection of
-            every fused step.
+            every fused step; every join (lane reset) and every decode
+            step leaves the other lanes' state bitwise untouched.
 18. rwkv train — phase 5 on rwkv6-3b at full width, in fp32 (the
             kernels' fp32 instantiations): at its random init the
             backward amplifies rounding past any bar at full depth (the
@@ -249,6 +251,52 @@ per forward) follow:
             xa/sb_add 224 and the linear scan 32; the dense and ragged
             kernels never. The same measurements as phase 6, with the scan
             kernel's share of the device time.
+
+The rwkv6-3b backbone is freed; the hymba-1.5b phases (32 layers, d_model
+1600, 25 heads of 64 with 5 KV heads, sliding window 1,024, d_ff 5504,
+vocab 32001, a Mamba branch of 50 heads of 64 with state 16 and scan chunk
+128, bf16, random weights from a seed; LoRA on in_proj, q/k/v/o and
+gate/up/down, 256 projections per forward) follow, at S = 2,048 so that
+the window binds in every forward:
+
+20. hymba kernels — the six rank-local kernels against their plain
+            versions at the train step's T = 2 x 2,048 rows a slot, ranks
+            4/8/16/32 of r_max 64, at each projection's din x dout (1600 x
+            1600, 1600 x 320, 1600 x 6400, 1600 x 5504, 5504 x 1600), timed
+            beside the bound and ``torch.bmm``; at full rank the dense,
+            ragged (rows = T) and rank-local kernels bit for bit equal at
+            each shape; flash attention (bf16, hd 64, window 1,024, S
+            2,048; B = 200 for a train step, 400 for an eval step) with
+            phase 3b's bars and faults plus the window one key wider, and
+            batch independence; the scan in SSD mode (K 16, V 64, no bonus,
+            chunk 128, S 2,048; B = 400 and 800) with phase 16's bars and
+            faults and batch independence. SDPA with the band as a boolean
+            mask is flash's yardstick.
+21. hymba serve — phase 17 on hymba-1.5b over ring caches of 1,024 slots:
+            prompts stream through the decode step (no block prefill), so
+            the scan and flash launch 0 times; every join (lane reset) and
+            every decode step leaves the other lanes' K/V, k_pos, conv and
+            ssm state bitwise untouched (phase 17 holds the same for
+            rwkv6-3b's state).
+22. hymba train — phase 5 on hymba-1.5b at S = 2,048, b = 2, in fp32 at
+            full width and depth (the kernels' fp32 instantiations): every
+            bar and every planted fault of phase 5 (the loss bar an fp32
+            one, HYMBA_LOSS_REL), with two more forward faults that must
+            break the loss bar: the plain scan's decay applied before the
+            query reads the state (RWKV's order), and every query seeing
+            one key beyond the window. Unlike rwkv6-3b's, hymba's backward
+            at random init does not amplify rounding (the kernels read
+            8e-06 on dA / dB at 32 layers). The kernel runs launch flash
+            and the scan twice per layer each.
+23. hymba rank sweep — the slice's main path: phase 6 on hymba-1.5b at full
+            width and depth (8 jobs, ranks 4/8/16/32 x lr 1e-4/1e-3, Z = 4,
+            b = 2, S = 2,048, eval b = 4): every fused train step must
+            launch the rank-local xa/sb_add 512 times, ds/da/db 256, dx
+            252 (the first layer's q/k/v and in_proj read the normed
+            embedding), flash 64 and the scan 64; every eval step xa/sb_add
+            256, flash 32 and the scan 32; the dense and ragged kernels
+            never. The same measurements as phase 6, with flash's and the
+            scan's shares of the device time.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernel table as JSON (twenty kernels), with each kernel's launches by
@@ -344,6 +392,26 @@ SFU_PER_CLOCK_SM = 16         # exponentials per clock per SM (cc 9.0)
 # the kernels read <= 3.6e-4 against the 0.05 gradient bars, holding every
 # bar and every fault
 RWKV_GRAD_LAYERS = 2
+# hymba-1.5b's paths: S = 2048 (its sliding window of 1024 binds in every
+# forward), b = 2 sequences a slot in a train step, HYMBA_EVAL_B in an eval
+# step; its LoRA projections (din, dout): q/o, k/v, in_proj, gate/up, down
+HYMBA_S, HYMBA_B, HYMBA_EVAL_B = 2048, 2, 4
+HYMBA_SHAPES = ((1600, 1600), (1600, 320), (1600, 6400), (1600, 5504),
+                (5504, 1600))
+# hymba-1.5b's train check runs in fp32 at full depth (its backward at
+# random init does not amplify rounding as rwkv6-3b's does: on an NVIDIA
+# H100 80GB HBM3 at 700 W the kernels read at most 8.8e-08 on the loss,
+# one fp32 rounding of it, and 8.1e-06 on dA / dB against the 0.05 bars),
+# so its loss bar is an fp32 one: 2e-6 sits between that reading and the
+# mildest planted forward fault's (slot 0's rank-4 delta halved, 6.6e-05;
+# see PERF.md)
+HYMBA_LOSS_REL = 2e-6
+# hymba-1.5b's ring past its wrap: two lanes prefilled with RING_PREFILL
+# tokens, then one lane decodes RING_STEPS more (positions 1,000-1,063: the
+# ring of 1,024 slots wraps after 24 steps), in fp32; its logits against
+# the full forward's, as max |diff| / max |forward|
+RING_PREFILL, RING_STEPS = 1000, 64
+RING_LOGITS_REL = 1e-4
 DPO_B = 2                     # preference pairs per slot in the DPO phase
 RECOVERY_STEPS = 12           # steps per job of the recovery phase's task
 # full-size train step, kernels vs plain versions, per slot and relative
@@ -455,6 +523,17 @@ def scan_resource_check(lib) -> None:
             f"{sorted(usage)}")
 
 
+def device_events(torch, prof):
+    """(name, us) of every device event of a finished torch.profiler run,
+    read from the profiler's raw Kineto events: parsing them into
+    FunctionEvents (``prof.events()``), which builds the whole CPU op tree
+    too, is far slower at a hymba-1.5b train step's ~10^5 events."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), (e.end_ns() - e.start_ns()) / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
+
+
 def time_ms(torch, fn, n_inner: int, samples: int = 21):
     """Per-call time of ``fn(i)`` on the card, two ways: replaying a CUDA
     graph that holds ``n_inner`` calls (device time alone), and calling it
@@ -490,16 +569,20 @@ def time_ms(torch, fn, n_inner: int, samples: int = 21):
     return median_ms(graph.replay), median_ms(eager)
 
 
-def kernel_phase(torch, RL, ref):
+def kernel_phase(torch, RL, ref, cases=None, timed=None):
     """The forward pair against its plain versions at the serving shapes
     and the executor's eval-step shape (T = 4,096 rows per slot); returns
     per-kernel results at the decode shape the serving path launches most
     (T = lanes, din = dout = d_model = 2560; the eval step's 2560 -> 6912
-    under ``shapes["eval"]``) and prints every case."""
+    under ``shapes["eval"]``) and prints every case. ``cases`` replaces
+    the shapes and ``timed`` maps the (label, din, dout) whose times are
+    kept to their key under ``shapes``."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(1)
     Z, r = 4, 64
-    cases = [  # (label, T, din, dout, ranks, rows)
+    timed = timed or {("decode", 2560, 2560): None,
+                      ("eval", 2560, 6912): "eval"}
+    cases = cases or [  # (label, T, din, dout, ranks, rows)
         ("decode", LANES, 2560, 2560, RANKS, None),
         ("decode", LANES, 2560, 6912, RANKS, None),
         ("decode", LANES, 6912, 2560, RANKS, None),
@@ -599,10 +682,13 @@ def kernel_phase(torch, RL, ref):
             res["max_abs_err"] = max(res["max_abs_err"], errs[name])
             times = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bound_ms, bound_by=bound_by)
-            if (label, din, dout) == ("decode", 2560, 2560):
+            if (label, din, dout) not in timed:
+                continue
+            key = timed[label, din, dout]
+            if key is None:
                 res.update(times)
-            elif (label, din, dout) == ("eval", 2560, 6912):
-                res.setdefault("shapes", {})["eval"] = times
+            else:
+                res.setdefault("shapes", {})[key] = times
         del xs, As, Bs, As_lib, Bs_lib, ss
         torch.cuda.empty_cache()
     return results
@@ -805,10 +891,9 @@ def serve_phase(torch, RL, cfg, params):
         sync()
         wall_us = (time.perf_counter() - t) * 1e6
     kernels = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n, us = kernels.get(e.name, (0, 0.0))
-            kernels[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    for name, us_e in device_events(torch, prof):
+        n, us = kernels.get(name, (0, 0.0))
+        kernels[name] = (n + 1, us + us_e)
     busy = sum(us for _, us in kernels.values())
     print(f"profile: 4 decode steps (profiler on) {wall_us / 4e3:.2f} "
           f"ms/step wall, device busy {busy / 4e3:.2f} ms/step = "
@@ -824,7 +909,8 @@ def serve_phase(torch, RL, cfg, params):
     return launches
 
 
-def backward_kernel_phase(torch, RL, ref):
+def backward_kernel_phase(torch, RL, ref, cases=None,
+                          timed=("train", 2560, 2560)):
     """The four backward kernels, and the forward pair, against their
     plain versions at the training shapes (Z = 4 slots, T = TRAIN_B *
     TRAIN_S = 1024 token rows per slot, d in {2560, 6912}, true ranks
@@ -833,12 +919,13 @@ def backward_kernel_phase(torch, RL, ref):
     512 rows per slot in each policy forward; checked, not timed); returns
     per-kernel results (times of the backward four at the q/k/v/o shape,
     din = dout = 2560; the forward pair's there under ``shapes["train"]``)
-    and prints every case."""
+    and prints every case. ``cases`` replaces the shapes: then the times of
+    all six at ``timed`` (label, din, dout) go under ``shapes[label]``."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(2)
     Z, r = len(TRAIN_RANKS), 64
     T_train, T_dpo = TRAIN_B * TRAIN_S, DPO_B * TRAIN_S
-    cases = [  # (label, T, din, dout, ranks, rows)
+    cases = cases or [  # (label, T, din, dout, ranks, rows)
         ("train", T_train, 2560, 2560, TRAIN_RANKS, None),
         ("train", T_train, 2560, 6912, TRAIN_RANKS, None),
         ("train", T_train, 6912, 2560, TRAIN_RANKS, None),
@@ -985,12 +1072,13 @@ def backward_kernel_phase(torch, RL, ref):
                   f"{str(rows_t):22s} {ms:9.5f} {plain_ms:9.5f} "
                   f"{lib_ms:9.5f}  {bound_ms:9.6f} {bound_by:10s} "
                   f"{errs[name]:.3g}")
-            if (label, din, dout) != ("train", 2560, 2560):
+            if (label, din, dout) != timed:
                 continue
             times = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bound_ms, bound_by=bound_by)
-            if name in ("xa", "sb_add"):    # their rows are decode's
-                results[name].setdefault("shapes", {})["train"] = times
+            if name in ("xa", "sb_add") or label != "train":
+                # xa, sb_add: their rows are decode's
+                results[name].setdefault("shapes", {})[label] = times
             else:
                 results[name].update(times)
         del xs, dys, ss, dss, timing
@@ -1350,12 +1438,12 @@ def ragged_kernel_phase(torch, RG, GL, RL, ref):
     return results
 
 
-def invariance_phase(torch, GL, RG, RL):
+def invariance_phase(torch, GL, RG, RL, shapes=((2560, 2560), (2560, 6912))):
     """One fp32 summation order per output element of the bf16 xa, ds, da,
     db, sb_add (with and without a base) and dx, in all three sets, at the
-    main paths' shapes (Z = 4, T = 1,024 rows a slot, r_max 64, 2560 ->
-    2560 and 2560 -> 6912; rows (1024, 512, 1024, 512), ranks (64, 13, 32,
-    64)), bit for bit: the rows of a T = 4 call (decode) equal the same
+    main paths' shapes (Z = 4, T = 1,024 rows a slot, r_max 64, din x dout
+    in ``shapes``; rows (1024, 512, 1024, 512), ranks (64, 13, 32, 64)),
+    bit for bit: the rows of a T = 4 call (decode) equal the same
     rows of the T = 1,024 call (every output of one row per token row); a
     Z = 1 call equals its slot inside Z = 4; a slot of rows = 512 equals a
     T = 512 call (the DPO step's rows), the dense set's too; operands that
@@ -1387,7 +1475,7 @@ def invariance_phase(torch, GL, RG, RL):
 
     sets = {"dense": (GL, ()), "ragged": (RG, (ints(rows_t),)),
             "rank-local": (RL, (ints(rows_t), ints(ranks_t)))}
-    for din, dout in ((2560, 2560), (2560, 6912)):
+    for din, dout in shapes:
         x = torch.randn(Z, T, din, generator=gen, device=dev).bfloat16()
         dy = torch.randn(Z, T, dout, generator=gen, device=dev).bfloat16()
         A = torch.randn(Z, din, r, generator=gen, device=dev) / din ** 0.5
@@ -1466,13 +1554,17 @@ def _attention_plain(torch, q, k, v, window=0, scale_mul=1.0, drop=None):
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
 
 
-def flash_kernel_phase(torch, FA, fref, cfg):
+def flash_kernel_phase(torch, FA, fref, cfg, cases=None,
+                       plain_labels=("train", "eval", "dpo")):
     """The flash-attention kernel against its plain version at the shapes
     the path gives it and at the edges of its mask; the reading of each
     case (largest |diff| in units of the bar) with two planted faults of
-    the plain version beside it; the batch-independence check; times of
-    the kernel, the plain version and the SDPA yardstick beside the bound.
-    Returns the results at the SFT train step's shape."""
+    the plain version beside it (with a window, a third: the window one
+    key wider); the batch-independence check; times of the kernel, the
+    plain version (cases labelled in ``plain_labels``) and the SDPA
+    yardstick (with the window as a boolean mask) beside the bound.
+    ``cases`` replaces stablelm-3b's. Returns (the results at the SFT
+    train step's shape, every case's results by label)."""
     import torch.nn.functional as F
 
     dev = "cuda"
@@ -1480,7 +1572,7 @@ def flash_kernel_phase(torch, FA, fref, cfg):
     H, hd, S = cfg.num_heads, cfg.resolved_head_dim, TRAIN_S
     bf16, fp32 = torch.bfloat16, torch.float32
     B_train, Z = 4 * TRAIN_B * H, 4
-    cases = [  # (label, B, Sq, Sk, hd, window, dtype)
+    cases = cases or [  # (label, B, Sq, Sk, hd, window, dtype)
         ("train", B_train, S, S, hd, 0, bf16),
         ("eval", Z * EVAL_B * H, S, S, hd, 0, bf16),
         ("dpo", Z * DPO_B * H, S, S, hd, 0, bf16),
@@ -1494,10 +1586,11 @@ def flash_kernel_phase(torch, FA, fref, cfg):
     print("flash attention: reading = max |kernel - plain| / (rtol |plain| "
           f"+ {FLASH_ATOL_REL} max|plain|), rtol {FLASH_RTOL}; bar 1; "
           "controls: the plain version with the second 32-key tile dropped, "
-          "with the softmax scale x 1.01. Times in ms per call (graph "
-          "replay)")
+          "with the softmax scale x 1.01, with the window one key wider. "
+          "Times in ms per call (graph replay)")
     print("case    B      Sq   Sk   hd  window dtype  reading    tile-drop "
-          " scale+1%   ms         plain_ms   library_ms bound_ms   bound_by")
+          " scale+1%   window+1   ms         plain_ms   library_ms bound_ms "
+          "  bound_by")
     results = {}
     for label, B, Sq, Sk, d, window, dt in cases:
         q, k, v = (torch.randn(B, n, d, generator=gen, device=dev).to(dt)
@@ -1520,19 +1613,22 @@ def flash_kernel_phase(torch, FA, fref, cfg):
         faults = (reading(_attention_plain(torch, q, k, v, window,
                                            drop=slice(32, 64))),
                   reading(_attention_plain(torch, q, k, v, window,
-                                           scale_mul=1.01)))
+                                           scale_mul=1.01)),
+                  reading(_attention_plain(torch, q, k, v, window + 1))
+                  if window else None)
         require(bool(torch.isfinite(out).all()) and sound <= 1.0,
                 f"flash {label}: kernel reads {sound:.3g} of the bar")
-        require(min(faults) > 1.0,
+        require(min(f for f in faults if f is not None) > 1.0,
                 f"flash {label}: a planted fault passes the bar {faults}")
         if Sq > Sk:
             require(bool((out[:, :Sq - Sk] == 0).all()),
                     f"flash {label}: fully masked rows not exactly 0")
         if label == "train":
             head = [t[:128].contiguous() for t in (q, k, v)]
-            require(torch.equal(FA.flash_attention(*head), out[:128]),
-                    "flash: entries 0-127 of the B = 512 call differ from a "
-                    "B = 128 call")
+            require(torch.equal(FA.flash_attention(*head, window=window),
+                                out[:128]),
+                    f"flash: entries 0-127 of the B = {B} call differ from "
+                    f"a B = 128 call")
             print(f"flash: the B = {B} call's entries 0-127 equal a B = 128 "
                   f"call on them bit for bit")
         # work: q, k, v read once and o written once; 4 * hd flops per
@@ -1551,17 +1647,23 @@ def flash_kernel_phase(torch, FA, fref, cfg):
         ms, _ = time_ms(torch, lambda i: FA.flash_attention(
             q, k, v, window=window), inner)
         plain_ms = lib_ms = None
-        if label in ("train", "eval", "dpo"):
+        if label in plain_labels:
             plain_ms, _ = time_ms(torch, lambda i: fref.flash_attention_ref(
                 q, k, v, window=window), inner)
+        if label in ("train", "eval", "dpo"):
             q4, k4, v4 = (t.view(B // H, H, -1, d) for t in (q, k, v))
-            lib_ms, _ = time_ms(torch, lambda i: F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=True), inner)
+            band = ((kpos <= qpos) & (kpos > qpos - window)).to(dev)
+            sdpa = ((lambda i: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=band)) if window else
+                (lambda i: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True)))
+            lib_ms, _ = time_ms(torch, sdpa, inner)
         fmt = lambda x: "-" if x is None else f"{x:.5f}"
+        fr = lambda x: "-" if x is None else f"{x:.4g}"
         print(f"{label:7s} {B:5d} {Sq:5d} {Sk:4d} {d:4d} {window:6d} "
               f"{kind:5s}  {sound:.4g}  {faults[0]:10.4g} {faults[1]:10.4g}"
-              f"  {ms:.5f}  {fmt(plain_ms):10s} {fmt(lib_ms):10s} "
-              f"{bound_ms:.6f}  {bound_by}")
+              f" {fr(faults[2]):10s} {ms:.5f}  {fmt(plain_ms):10s} "
+              f"{fmt(lib_ms):10s} {bound_ms:.6f}  {bound_by}")
         results[label] = {"max_abs_err": float((out.float()
                                                 - want.float()).abs().max()),
                           "ms": ms, "plain_ms": plain_ms,
@@ -1572,7 +1674,7 @@ def flash_kernel_phase(torch, FA, fref, cfg):
     res = dict(results["train"])
     res["max_abs_err"] = max(r["max_abs_err"] for lab, r in results.items()
                              if lab in ("train", "eval", "dpo"))
-    return res
+    return res, results
 
 
 def _train_lora(torch, cfg, M, LORA, ranks_t):
@@ -1596,15 +1698,16 @@ def _train_lora(torch, cfg, M, LORA, ranks_t):
     return lora, ranks
 
 
-def _task_data(cfg, name):
+def _task_data(cfg, name, S=TRAIN_S, num_val=EVAL_B):
     from repro_torch.data.synthetic import make_task_dataset
-    return make_task_dataset(name, cfg.vocab_size, seq_len=TRAIN_S,
-                             num_train=64, num_val=EVAL_B, difficulty=0.3,
+    return make_task_dataset(name, cfg.vocab_size, seq_len=S,
+                             num_train=64, num_val=num_val, difficulty=0.3,
                              seed=0)
 
 
 def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
-                loss_kind="sft", hold_grads=True):
+                loss_kind="sft", hold_grads=True, S=TRAIN_S, b=TRAIN_B,
+                loss_bar=TRAIN_LOSS_REL):
     """One full-size train step with the kernels against the same step on
     their plain versions (LoRA backend "torch": autograd through them),
     per slot: loss, grad norm, and the relative RMS of dA and dB over all
@@ -1626,15 +1729,19 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
     per-slot losses and every dA and dB must equal the first kernel step's
     bit for bit. ``fams`` maps each path to its kernel module.
 
-    The kernel runs take the family's sequence kernel (model backend
-    "kernel": flash attention, or the linear scan for rwkv6-3b; two
-    launches per layer, the forward and its remat recompute), the plain
-    runs its plain version (model backend "torch"); one more fault planted
-    in the plain run, every query seeing one future key (rwkv6-3b: the
-    bonus dropped from the scan), must break the loss bar. On the
-    rank-local SFT path of an attention model, one step's gradients then
-    run under torch.profiler with each attention (the LoRA kernels in
-    both) and the device busy times are printed.
+    The kernel runs take the family's sequence kernels (model backend
+    "kernel": flash attention, the linear scan for rwkv6-3b, both for
+    hymba-1.5b; two launches per layer each, the forward and its remat
+    recompute), the plain runs their plain versions (model backend
+    "torch"); one more fault planted in the plain run, every query seeing
+    one future key (rwkv6-3b: the bonus dropped from the scan; hymba-1.5b
+    two: the scan's decay applied before the query reads the state, RWKV's
+    order, and every query seeing one key beyond the window), must break
+    the loss bar. On the rank-local SFT path of a dense model, one step's
+    gradients then run under torch.profiler with each attention (the LoRA
+    kernels in both) and the device busy times are printed. ``S`` and
+    ``b`` are the batch's sequence length and sequences a slot;
+    ``loss_bar`` the loss bar (hymba-1.5b's fp32 check: HYMBA_LOSS_REL).
 
     ``loss_kind`` "dpo" (rank-local path): the same step on DPO_B
     preference pairs per slot from the DPO phase's PairSlotBatcher, whose
@@ -1662,7 +1769,6 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
 
     dev = "cuda"
     Z = len(ranks_t)
-    ssm = cfg.family == "ssm"
     dpo = loss_kind == "dpo"
     require(not dpo or (path == "rank-local" and rows_t is None),
             "the DPO train check runs on the rank-local path")
@@ -1671,7 +1777,7 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
     if dpo:
         nb = PairSlotBatcher(*_pair_data(cfg), Z, DPO_B, seed=0)
     else:
-        nb = SlotBatcher(_task_data(cfg, "rank-sweep"), Z, TRAIN_B, seed=0)
+        nb = SlotBatcher(_task_data(cfg, "rank-sweep", S), Z, b, seed=0)
     raw = nb.next_batch_dict()
     if rows_t is not None:     # the pad past each slot's rows
         for z, nr in enumerate(rows_t):
@@ -1718,8 +1824,8 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
     torch.cuda.synchronize()
     print(f"train check ({tag}): {cfg.name} full width, "
           f"{cfg.num_layers} layers, {cfg.dtype}, Z={Z} ranks "
-          f"{ranks_t}, b={DPO_B if dpo else TRAIN_B} "
-          f"{'pairs ' if dpo else ''}S={TRAIN_S}, rows {rows_t or 'all'}; "
+          f"{ranks_t}, b={DPO_B if dpo else b} "
+          f"{'pairs ' if dpo else ''}S={S}, rows {rows_t or 'all'}; "
           f"one make_train_step with the kernels {t_k:.2f} s, then on the "
           f"plain versions")
     def launched_only(want):
@@ -1817,7 +1923,7 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
                                batch)
         return loss, g, nll
 
-    bars = {"loss": TRAIN_LOSS_REL, "grad_norm": TRAIN_NORM_REL,
+    bars = {"loss": loss_bar, "grad_norm": TRAIN_NORM_REL,
             "dA": TRAIN_GRAD_REL_RMS, "dB": TRAIN_GRAD_REL_RMS}
 
     def within(g):
@@ -1846,7 +1952,7 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
                  and torch.isfinite(k_norm).all()),
             "train step losses or grad norms not finite")
     require(within(sound) if hold_grads
-            else max(sound["loss"]) <= TRAIN_LOSS_REL,
+            else max(sound["loss"]) <= loss_bar,
             f"{tag} kernel train step too far from the plain one")
     if not hold_grads:
         # why: the same plain step again with the sequence kernel's plain
@@ -1928,7 +2034,7 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
     c = gap(h_loss, adamw.per_slot_global_norm(g_half), g_half, h_nll)
     print(f"train check ({tag}): control, slot 0 (rank {ranks_t[0]}) delta "
           f"halved in the forward: {show(c)}")
-    require(max(c["loss"]) > TRAIN_LOSS_REL,
+    require(max(c["loss"]) > loss_bar,
             "control 'slot 0 delta halved' passes the loss bar")
     del g_half, half
 
@@ -1960,18 +2066,53 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
         finally:
             LSREF.linear_scan_ref = plain
 
-    fault, what = ((scan_without_bonus, "the bonus dropped from the plain "
-                    "linear scan") if ssm else
-                   (attention_peeks_ahead, "every query sees one future key "
-                    "in the plain attention"))
-    with fault():
-        a_loss, g_att, a_nll = plain_run()
-    c = gap(a_loss, adamw.per_slot_global_norm(g_att), g_att, a_nll)
-    print(f"train check ({tag}): control, {what}: {show(c)}")
-    require(max(c["loss"]) > TRAIN_LOSS_REL,
-            f"control '{what}' passes the loss bar")
-    del g_att
-    if path == "rank-local" and not dpo and not ssm:
+    @contextlib.contextmanager
+    def scan_decay_first():
+        """The plain linear scan in RWKV's order: the query reads the state
+        before the token's decay and write (pairs t > i), instead of after
+        them (SSD, pairs t >= i)."""
+        plain = LSREF.linear_scan_ref
+
+        def rwkv_order(*args, **kw):
+            return plain(*args, **dict(kw, decay_on_query=False))
+        LSREF.linear_scan_ref = rwkv_order
+        try:
+            yield
+        finally:
+            LSREF.linear_scan_ref = plain
+
+    @contextlib.contextmanager
+    def attention_window_wider():
+        """The plain (baseline) attention with every query seeing one key
+        beyond its window."""
+        plain = ATT.causal_mask_bias
+
+        def wider(q_pos, k_pos, window=0):
+            return plain(q_pos, k_pos, window + 1 if window else 0)
+        ATT.causal_mask_bias = wider
+        try:
+            yield
+        finally:
+            ATT.causal_mask_bias = plain
+
+    faults = {
+        "ssm": [(scan_without_bonus, "the bonus dropped from the plain "
+                 "linear scan")],
+        "hybrid": [(scan_decay_first, "the plain scan's decay applied "
+                    "before the query reads the state (RWKV's order)"),
+                   (attention_window_wider, "every query sees one key "
+                    "beyond the window in the plain attention")],
+    }.get(cfg.family, [(attention_peeks_ahead, "every query sees one future "
+                        "key in the plain attention")])
+    for fault, what in faults:
+        with fault():
+            a_loss, g_att, a_nll = plain_run()
+        c = gap(a_loss, adamw.per_slot_global_norm(g_att), g_att, a_nll)
+        print(f"train check ({tag}): control, {what}: {show(c)}")
+        require(max(c["loss"]) > loss_bar,
+                f"control '{what}' passes the loss bar")
+        del g_att
+    if path == "rank-local" and not dpo and cfg.family == "dense":
         # one step's gradients, LoRA kernels both times: flash attention,
         # then the baseline einsum attention
         busy = {}
@@ -1982,8 +2123,7 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
                   torch.profiler.profile(activities=acts) as prof):
                 STEPS.lora_grads(cfg, params, lora, kbatch, active)
                 torch.cuda.synchronize()
-            evs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            evs = device_events(torch, prof)
             busy[attn] = (sum(us for _, us in evs) / 1e3,
                           sum(us for n, us in evs if "flash_fwd" in n) / 1e3)
         print(f"train check ({path}): one step's gradients (lora_grads, "
@@ -2005,7 +2145,7 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
         print(f"train check ({path}): control, the narrow slots' last live "
               f"{ROW_TILE}-row tile dead in the forward (rows {cut}): "
               f"{show(c)}")
-        require(max(c["loss"]) > TRAIN_LOSS_REL,
+        require(max(c["loss"]) > loss_bar,
                 "control 'last live row tile dead' passes the loss bar")
         del g_tile
     if path != "rank-local":
@@ -2032,14 +2172,20 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
 # the projections whose inputs are the first layer's normed embedding (for
 # RWKV: its token-shift lerps), which hang off no differentiable leaf
 FIRST_LAYER_NO_DX = {"dense": {"q_proj", "k_proj", "v_proj"},
-                     "ssm": {"r_proj", "k_proj", "v_proj", "g_proj"}}
+                     "ssm": {"r_proj", "k_proj", "v_proj", "g_proj"},
+                     "hybrid": {"q_proj", "k_proj", "v_proj", "in_proj"}}
+# the sequence kernels of each family: one launch each per layer of a
+# forward
+SEQ_KERNELS = {"dense": ("flash_attention",), "ssm": ("linear_scan",),
+               "hybrid": ("flash_attention", "linear_scan")}
 
 
 def _seq_counts(cfg, n):
-    """Launch counts of the two sequence kernels when the family's own
-    (flash attention, or the linear scan for ssm) launched ``n`` times."""
-    own = "linear_scan" if cfg.family == "ssm" else "flash_attention"
-    return {"flash_attention": 0, "linear_scan": 0, own: n}
+    """Launch counts of the two sequence kernels when each of the family's
+    own (flash attention, the linear scan, or both) launched ``n``
+    times."""
+    return {k: (n if k in SEQ_KERNELS[cfg.family] else 0)
+            for k in ("flash_attention", "linear_scan")}
 
 
 def _step_launches(cfg, loss_kind="sft"):
@@ -2047,8 +2193,8 @@ def _step_launches(cfg, loss_kind="sft"):
     the path's grouped-LoRA set (remat runs each forward twice; the first
     layer's q/k/v — RWKV: r/k/v/g — read the normed embedding, which hangs
     off no differentiable leaf, so their LoRA dX is never asked for), and
-    of the family's sequence kernel, flash attention or the linear scan
-    (once per layer of every forward and every recompute). A DPO step runs
+    of each of the family's sequence kernels, flash attention and / or the
+    linear scan (once per layer of every forward and every recompute). A DPO step runs
     two policy forwards (chosen, rejected) through the adapters and two
     reference forwards without them, under no_grad (no remat)."""
     policy, reference = (2, 2) if loss_kind == "dpo" else (1, 0)
@@ -2087,9 +2233,11 @@ def _clock(torch, ex, spent):
 
 
 def executor_phase(torch, fam, others, cfg, params, task, jobs,
-                   loss_kind="sft", batcher=None, b=TRAIN_B):
+                   loss_kind="sft", batcher=None, b=TRAIN_B, S=TRAIN_S,
+                   eval_b=EVAL_B):
     """A sweep through the port's entry point: BatchedExecutor.run_task on
-    ``cfg`` at full size (stablelm-3b or rwkv6-3b), ``jobs`` (8) on 4
+    ``cfg`` at full size (stablelm-3b, rwkv6-3b or hymba-1.5b; b sequences
+    of S tokens a slot, eval_b in an eval step), ``jobs`` (8) on 4
     slots. Every fused train step and every eval step is wrapped to count
     the launches of the kernel set ``fam`` (the path's: rank-local for a
     rank sweep or DPO, dense for a full-rank lr sweep) and of the two
@@ -2110,12 +2258,13 @@ def executor_phase(torch, fam, others, cfg, params, task, jobs,
     want_train = {**lora_train, **_seq_counts(cfg, seq_train)}
     want_eval = {**lora_eval, **_seq_counts(cfg, seq_eval)}
     bx = BatchedExecutor(cfg, params,
-                         _task_data(cfg, task) if batcher is None else None,
+                         _task_data(cfg, task, S, eval_b) if batcher is None
+                         else None,
                          Z=Z, per_adapter_batch=b,
                          ee=EarlyExitConfig(warmup_ratio=0.25,
                                             select_ratio=0.25),
                          eval_every=2, loss_kind=loss_kind, batcher=batcher,
-                         seq_cap=TRAIN_S)
+                         seq_cap=S)
     ex = bx.backbone
     # per step: (launch deltas, ms, real tokens, profiled, resident slots)
     log = {"train": [], "eval": []}
@@ -2176,14 +2325,14 @@ def executor_phase(torch, fam, others, cfg, params, task, jobs,
     launches = counts()
     stray = [dict(m.LAUNCHES) for m in others]
     peak = torch.cuda.max_memory_allocated()
+    t_read = time.perf_counter()
     for p in traces:
-        for e in p.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                n, us = prof["kernels"].get(e.name, (0, 0.0))
-                us_e = e.time_range.elapsed_us()
-                prof["kernels"][e.name] = (n + 1, us + us_e)
-                prof["busy_us"] += us_e
+        for name, us_e in device_events(torch, p):
+            n, us = prof["kernels"].get(name, (0, 0.0))
+            prof["kernels"][name] = (n + 1, us + us_e)
+            prof["busy_us"] += us_e
     del traces
+    read_s = time.perf_counter() - t_read
 
     require(isinstance(result, TaskResult) and result.best_job in jobs,
             f"run_task returned {result!r}")
@@ -2252,20 +2401,23 @@ def executor_phase(torch, fam, others, cfg, params, task, jobs,
               f"{sum(t for _, t in steps) / sum(ms) * 1e3:.1f} real tokens/s "
               f"within the calls")
     print(f"{tag}: first train step {log['train'][0][1]:.1f} ms (cold); "
-          f"median eval step {eval_ms:.2f} ms ([{Z}, {EVAL_B}, {TRAIN_S}] "
+          f"median eval step {eval_ms:.2f} ms ([{Z}, {eval_b}, {S}] "
           f"tokens); peak memory {peak / 2**30:.2f} GiB")
     busy, pw = prof["busy_us"], prof["wall_us"]
-    seq_name, seq_label = (("linear_scan_kernel", "the linear scan")
-                           if cfg.family == "ssm" else
-                           ("flash_fwd", "flash attention"))
-    seq_us = sum(us for name, (_, us) in prof["kernels"].items()
-                 if seq_name in name)
+    seq_names = {"flash_attention": ("flash_fwd", "flash attention"),
+                 "linear_scan": ("linear_scan_kernel", "the linear scan")}
+    seq = []
+    for kern in SEQ_KERNELS[cfg.family]:
+        name, label = seq_names[kern]
+        us = sum(u for n, (_, u) in prof["kernels"].items() if name in n)
+        seq.append(f"{label} {us / 2e3:.2f} ms/step = "
+                   f"{us / busy if busy else 0:.3f} of the device time")
     print(f"profile ({task}): 2 train steps (profiler on) {pw / 2e3:.2f} "
           f"ms/step wall, device busy {busy / 2e3:.2f} ms/step = "
           f"{busy / pw:.3f} of the wall, "
           f"{sum(n for n, _ in prof['kernels'].values()) / 2:.0f} "
-          f"device events/step; {seq_label} {seq_us / 2e3:.2f} "
-          f"ms/step = {seq_us / busy:.3f} of the device time" if busy else
+          f"device events/step; " + "; ".join(seq)
+          + f"; reading the two traces took {read_s:.1f} s" if busy else
           f"profile ({task}): no device events traced: not measured")
     if busy:
         print_template_sums(task, prof["kernels"], busy)
@@ -2739,15 +2891,13 @@ def colocation_phase(torch, fams, cfg, params):
     peak = torch.cuda.max_memory_allocated()
     by_family = {}
     for p in traces:
-        for e in p.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                n, us = prof["kernels"].get(e.name, (0, 0.0))
-                us_e = e.time_range.elapsed_us()
-                prof["kernels"][e.name] = (n + 1, us + us_e)
-                prof["busy_us"] += us_e
-                fam = _kernel_family(e.name)
-                if fam:
-                    by_family[fam] = by_family.get(fam, 0.0) + us_e
+        for name, us_e in device_events(torch, p):
+            n, us = prof["kernels"].get(name, (0, 0.0))
+            prof["kernels"][name] = (n + 1, us + us_e)
+            prof["busy_us"] += us_e
+            fam = _kernel_family(name)
+            if fam:
+                by_family[fam] = by_family.get(fam, 0.0) + us_e
     del traces
 
     tag = "colocation"
@@ -2923,7 +3073,7 @@ def scan_form_work(C, K, V, doq, bonus):
     return exps, fmas
 
 
-def scan_kernel_phase(torch, LSK, lsref, cfg):
+def scan_kernel_phase(torch, LSK, lsref, cfg, cases=None, S=TRAIN_S):
     """The linear-scan kernel against its plain version at the shapes the
     rwkv6-3b path gives it (the train step's B = Z*b*H = 640 rows and the
     eval step's 2,560, S = 256, chunk 128, K = V = 64, bf16 q/k/v, fp32
@@ -2940,16 +3090,17 @@ def scan_kernel_phase(torch, LSK, lsref, cfg):
     at the special-function units' rate and its multiply-adds at the fp32
     rate (``scan_form_work``), printed beside the bound of the form with
     one exponential per visible pair (the bytes and C*C*K/2 exponentials
-    per chunk). Returns the
-    results at the train step's shape."""
+    per chunk). ``cases`` and ``S`` replace rwkv6-3b's (the plain version
+    runs over slices of 4 * TRAIN_B * cfg.num_heads rows). Returns (the
+    results at the train step's shape, the eval step's time under
+    ``eval_ms``; every case's results by label)."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(6)
-    H, hs, C, S = cfg.num_heads, cfg.ssm.head_size, cfg.ssm.chunk_size, \
-        TRAIN_S
+    H, hs, C = cfg.num_heads, cfg.ssm.head_size, cfg.ssm.chunk_size
     bf16, fp32 = torch.bfloat16, torch.float32
     B_train, Z = 4 * TRAIN_B * H, 4
     sfu = sfu_exp_rate(torch)
-    cases = [  # (label, B, K, V, SSD, initial state, decay, dtype)
+    cases = cases or [  # (label, B, K, V, SSD, initial state, decay, dtype)
         ("train", B_train, hs, hs, False, False, 1.0, bf16),
         ("eval", Z * EVAL_B * H, hs, hs, False, False, 1.0, bf16),
         ("ssd-K16", 4 * TRAIN_B * 50, 16, 64, True, True, 1.0, bf16),
@@ -3054,11 +3205,12 @@ def scan_kernel_phase(torch, LSK, lsref, cfg):
                 f"{faults}")
         if label == "train":
             head = [x[:128].contiguous() for x in (q, k, v, logw)]
-            y2, s2 = LSK.linear_scan(*head, bonus=bonus[:128].contiguous(),
-                                     chunk=C)
+            cut = lambda x: None if x is None else x[:128].contiguous()
+            y2, s2 = LSK.linear_scan(*head, **dict(
+                kw, bonus=cut(bonus), initial_state=cut(s0)))
             require(torch.equal(y2, y[:128]) and torch.equal(s2, st[:128]),
-                    "linear scan: rows 0-127 of the B = 640 call differ from "
-                    "a B = 128 call")
+                    f"linear scan: rows 0-127 of the B = {B} call differ "
+                    f"from a B = 128 call")
             print(f"linear scan: the B = {B} call's rows 0-127 equal a "
                   f"B = 128 call on them bit for bit (y and state)")
         # work: q, k, v, logw, bonus and s0 read once, y and the state
@@ -3104,16 +3256,34 @@ def scan_kernel_phase(torch, LSK, lsref, cfg):
     res["max_abs_err"] = max(results[lab]["max_abs_err"]
                              for lab in ("train", "eval"))
     res["eval_ms"] = results["eval"]["ms"]
-    return res
+    return res, results
 
 
-def rwkv_serve_phase(torch, RL, cfg, params):
-    """A short serve of rwkv6-3b through AdapterPool -> ServingReplica ->
-    ServingFrontend: 4 adapters at ranks RANKS, 4 lanes, 8 greedy requests
-    (prompts of 16-48 tokens, 16 new tokens). The recurrent family has no
-    block prefill: prompts stream through the recurrent decode step, so
-    the linear-scan and flash kernels must launch 0 times and the LoRA
-    forward pair once per projection of every fused step."""
+def _lanes_first(cache):
+    """Every per-lane tensor of a per-lane cache with the (Z, b) lane axes
+    first: the layer leaves [L, Z, b, ...] moved to [Z, b, L, ...], and the
+    positions (``pos``, a ring's ``k_pos``)."""
+    def leaves(tree):
+        for v in tree.values():
+            yield from (leaves(v) if isinstance(v, dict) else (v,))
+    out = [v.movedim(0, 2) for v in leaves(cache["layers"])]
+    return out + [cache[k] for k in ("pos", "k_pos") if k in cache]
+
+
+def streamed_serve_phase(torch, RL, cfg, params):
+    """A short serve of rwkv6-3b or hymba-1.5b through AdapterPool ->
+    ServingReplica -> ServingFrontend: 4 adapters at ranks RANKS, 4 lanes,
+    8 greedy requests (prompts of 16-48 tokens, 16 new tokens); hymba over
+    a ring cache of its window (1,024 slots; no stream here reaches 64
+    positions, so the ring never wraps: ``ring_wrap_check`` decodes past
+    it). Neither family has block prefill: prompts stream through the
+    decode step, so the linear-scan and flash kernels must launch 0 times
+    and the LoRA forward pair once per projection of every fused step. A
+    first pass with lane guards: every lane reset (a join) and every
+    decode step under ``active`` must leave the lanes it does not own
+    bitwise untouched (K/V, ``k_pos``, the recurrent state, the
+    position). Then the same requests again without the guards, timed and
+    counted (the main path), must give the same tokens."""
     import numpy as np
 
     from repro_torch.core import lora as LORA
@@ -3137,40 +3307,282 @@ def rwkv_serve_phase(torch, RL, cfg, params):
                                   for t, ab in stack.items()}, RANKS[z])
                        for z in range(Z)])
     del stack
+    ring = cfg.family == "hybrid"
     rep = ServingReplica(cfg, params, pool, lanes=LANES, max_len=MAX_LEN,
-                         device=dev)
-    require(not rep.ring and not rep._block_prefill,
-            "the rwkv replica must stream prompts through decode")
+                         ring=ring, device=dev)
+    require(rep.ring == ring and not rep._block_prefill,
+            f"the {cfg.name} replica must stream prompts through decode")
+    checked = {"reset": 0, "decode": 0}
+
+    def guarded(fn, kind, cache_at, mask_at):
+        def run(*args):
+            before = [t.clone() for t in _lanes_first(args[cache_at])]
+            out = fn(*args)
+            keep = ~args[mask_at]
+            after = _lanes_first(out[-1] if kind == "decode" else out)
+            require(all(torch.equal(a[keep], b[keep])
+                        for a, b in zip(after, before)),
+                    f"serve ({cfg.name}): a {kind} changed a lane it does "
+                    f"not own")
+            checked[kind] += 1
+            return out
+        return run
+
     fe = ServingFrontend(rep, mode="continuous")
-    ds = make_task_dataset("rwkv-serve", cfg.vocab_size, seq_len=48,
+    name = {"ssm": "rwkv-serve", "hybrid": "hymba-serve"}[cfg.family]
+    ds = make_task_dataset(name, cfg.vocab_size, seq_len=48,
                            num_train=n_req, difficulty=0.3, seed=0)
     lens = [int(x) for x in np.random.default_rng(0).integers(16, 49,
                                                               n_req)]
-    rids = [fe.submit(f"a{i % Z}", ds.train[i, :lens[i]], new)
-            for i in range(n_req)]
+
+    def serve():
+        rids = [fe.submit(f"a{i % Z}", ds.train[i, :lens[i]], new)
+                for i in range(n_req)]
+        sync()
+        t = time.perf_counter()
+        out = fe.drain()
+        sync()
+        return [out[r] for r in rids], time.perf_counter() - t
+
+    plain = rep._reset_lanes, rep._decode_lanes
+    rep._reset_lanes = guarded(plain[0], "reset", 0, 1)
+    rep._decode_lanes = guarded(plain[1], "decode", 2, 4)
+    want_out, guarded_wall = serve()
+    require(checked["reset"] > 0 and checked["decode"] > 0,
+            f"serve ({cfg.name}): lane guards ran {checked}")
+    rep._reset_lanes, rep._decode_lanes = plain
+    steps0, generated0 = rep.total_decode_steps, rep.total_generated
     for m in (RL, FA, LSK):
         m.reset_launches()
-    sync()
-    t = time.perf_counter()
-    out = fe.drain()
-    sync()
-    wall = time.perf_counter() - t
+    out, wall = serve()
     launches = {**RL.LAUNCHES, **FA.LAUNCHES, **LSK.LAUNCHES}
-    require(all(len(out[r]) == new for r in rids),
-            f"token counts {[len(out[r]) for r in rids]}")
-    want = len(cfg.lora.targets) * cfg.num_layers * rep.total_decode_steps
+    steps = rep.total_decode_steps - steps0
+    generated = rep.total_generated - generated0
+    require(all(len(o) == new for o in out),
+            f"token counts {[len(o) for o in out]}")
+    require(out == want_out, f"serve ({cfg.name}): the unguarded pass's "
+            f"greedy tokens differ from the guarded pass's")
+    want = len(cfg.lora.targets) * cfg.num_layers * steps
     require(rep.block_prefills == 0 and launches["xa"] == launches["sb_add"]
             == want and launches["flash_attention"] == 0
             and launches["linear_scan"] == 0,
-            f"rwkv serve launched {launches}; expected xa = sb_add = {want} "
-            f"and no flash or scan launch")
+            f"{cfg.name} serve launched {launches}; expected xa = sb_add = "
+            f"{want} and no flash or scan launch")
     print(f"serve ({cfg.name}): {n_req} requests (prompts {min(lens)}-"
           f"{max(lens)} tokens streamed through decode) x {new} tokens on "
-          f"{LANES} lanes x {Z} adapters: {rep.total_decode_steps} fused "
-          f"steps in {wall:.3f} s, {rep.total_generated / wall:.1f} "
-          f"generated tok/s; launches {launches}")
+          f"{LANES} lanes x {Z} adapters{', ring cache' if ring else ''}: "
+          f"{steps} fused steps in {wall:.3f} s, {generated / wall:.1f} "
+          f"generated tok/s (lane guards off); launches {launches}; the "
+          f"guarded pass before it ({guarded_wall:.3f} s, not counted) gave "
+          f"the same tokens, and its {checked['reset']} lane resets (joins) "
+          f"and {checked['decode']} decode steps left every other lane "
+          f"bitwise untouched")
     del pool, rep, fe
     return launches
+
+
+def full_rank_twins(torch, fams, T, din, dout):
+    """At full rank the three kernel sets meet: the rank-local kernels at
+    ranks (64, 64, 64, 64) with rows None, the dense kernels, and the
+    ragged kernels at rows = T must give the same bits for all six
+    functions (sb_add with and without a base) at the shape (T, din, dout)
+    (bf16 activations, fp32 masters, non-zero B, a different scale per
+    slot)."""
+    dev, Z, r = "cuda", 4, 64
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(Z, T, din, generator=gen, device=dev).to(torch.bfloat16)
+    dy = torch.randn(Z, T, dout, generator=gen, device=dev).to(torch.bfloat16)
+    A = torch.randn(Z, din, r, generator=gen, device=dev) / din ** 0.5
+    B = torch.randn(Z, r, dout, generator=gen, device=dev) / r ** 0.5
+    scale = torch.tensor([0.5, 1.0, 1.5, 2.0], device=dev)
+    full = torch.full((Z,), r, dtype=torch.int32, device=dev)
+    every = torch.full((Z,), T, dtype=torch.int32, device=dev)
+    GL, RG, RL = fams["dense"], fams["ragged"], fams["rank-local"]
+    s, dS = GL.xa(x, A), GL.ds(dy, B, scale)
+
+    def outs(mod, *c):
+        return {"xa": mod.xa(x, A, *c), "ds": mod.ds(dy, B, scale, *c),
+                "da": mod.da(x, dS, *c), "db": mod.db(s, dy, scale, *c),
+                "sb_add": mod.sb_add(s, B, scale, *c),
+                "sb_add+base": mod.sb_add(s, B, scale, *c, y_base=dy),
+                "dx": mod.dx(dS, A, *c)}
+
+    dense, ragged, local = outs(GL), outs(RG, every), outs(RL, None, full)
+    for name, out in dense.items():
+        require(torch.equal(out, ragged[name])
+                and torch.equal(out, local[name]),
+                f"{name} at {din} x {dout}, T = {T}: the dense, ragged "
+                f"(rows = T) and rank-local (ranks 64) kernels differ")
+    print(f"full rank, T = {T}, {din} x {dout}: the dense, ragged and "
+          f"rank-local kernels give the same bits for all {len(dense)} "
+          f"outputs")
+
+
+def _cut_layers(params, layers, dtype):
+    """``params`` with the first ``layers`` of every stacked leaf (nested
+    ones too), each leaf cast to ``dtype``."""
+    def conv(x, stacked):
+        return (x[:layers] if stacked else x).to(dtype)
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict) else conv(v, True)
+                for k, v in tree.items()}
+    return {k: walk(v) if k == "layers" else conv(v, False)
+            for k, v in params.items()}
+
+
+def ring_wrap_check(torch, cfg, params):
+    """Windowed decode over a wrapped ring at full width, in fp32 (the
+    train check's copy of the backbone): the two lanes of one slot take
+    RING_PREFILL tokens through the forward into a per-lane ring of the
+    window's size, then lane 0 alone decodes RING_STEPS tokens under
+    ``active`` (rank-64 adapters on every target) while lane 1 waits.
+    After the wrap every step overwrites the oldest slot. Each step's
+    logits are held against the full forward over the same tokens (flash
+    with the window binding, the scan over the whole prefix); the controls
+    are that forward with the window one key wider and with no window cut
+    (a ring that never evicts). Lane 1's K/V, ``k_pos``, ``conv``, ``ssm``
+    and position must stay bitwise."""
+    from repro_torch.core import lora as LORA
+    from repro_torch.models import model as M
+
+    dev, W, P, n = "cuda", cfg.sliding_window, RING_PREFILL, RING_STEPS
+    require(P < W < P + n, "the ring check must decode past the wrap")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ranks = torch.tensor([cfg.lora.r_max], dtype=torch.int32)
+    lora = LORA.init_lora_tree(gen, cfg, 1, ranks, M.target_shapes(cfg))
+    for ab in lora.values():
+        ab["B"].normal_(0.0, 0.003, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2, P + n), generator=gen,
+                           device=dev)
+    active = torch.tensor([[True, False]], device=dev)
+
+    def forward_logits(window):
+        c = dataclasses.replace(cfg, sliding_window=window)
+        x, _, _ = M.forward(c, params, lora, tokens[:, :1])
+        return M._unembed(c, params, x[0, 0, P:])
+
+    with torch.inference_mode(), LORA.slot_ranks(ranks.to(dev)):
+        cache = M.init_cache(cfg, 1, 2, P + n, ring=True, per_lane=True,
+                             device=dev)
+        _, _, cache = M.forward(cfg, params, lora, tokens[:, :, :P],
+                                cache=cache)
+        idle = [t[0, 1].clone() for t in _lanes_first(cache)]
+        got = []
+        for i in range(n):
+            logits, cache = M.decode_step(cfg, params, lora, cache,
+                                          tokens[:, :, P + i], active)
+            got.append(logits[0, 0])
+        got = torch.stack(got)
+        want = forward_logits(W)
+        wider, unbounded = forward_logits(W + 1), forward_logits(2 * W)
+    torch.cuda.synchronize()
+    require(all(torch.equal(t[0, 1], b)
+                for t, b in zip(_lanes_first(cache), idle)),
+            "ring check: lane 0's decode changed the waiting lane 1")
+    kpos = cache["k_pos"][0, 0].sort().values
+    require(torch.equal(kpos, torch.arange(P + n - W, P + n, device=dev,
+                                           dtype=kpos.dtype)),
+            "ring check: the ring does not hold the last window's positions")
+    top = float(want.abs().max())
+
+    def reading(x):
+        return float((x - want).abs().max()) / top
+    err, wide, none = reading(got), reading(wider), reading(unbounded)
+    print(f"ring check ({cfg.name}, {cfg.dtype}, {cfg.num_layers} layers, "
+          f"ring of {W}): {P} tokens prefilled on 2 lanes, lane 0 decoded "
+          f"positions {P}-{P + n - 1} ({P + n - W} past the wrap) while "
+          f"lane 1 stayed bitwise; logits max |decode - forward| / max "
+          f"|forward| {err:.3g} (bar {RING_LOGITS_REL}); controls: the "
+          f"forward with the window one key wider {wide:.3g}, with no "
+          f"window cut {none:.3g}")
+    require(err <= RING_LOGITS_REL,
+            f"ring check: decode past the wrap reads {err:.3g}")
+    require(min(wide, none) > RING_LOGITS_REL,
+            f"ring check: the controls read {wide:.3g} and {none:.3g}, "
+            f"within the bar")
+
+
+def hymba_phases(torch, fams, t_all):
+    """Phases 20-23 on hymba-1.5b: the kernels at its shapes against their
+    plain versions, a short serve over a ring cache, the train checks and
+    the rank sweep at S = 2048 (the main path). ``fams`` maps each
+    grouped-LoRA path to its kernel module. Returns (the rank-local
+    kernels' results, flash's and the scan's results by case, the serve's
+    launches, the sweep's launches)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.grouped_lora import ref
+    from repro_torch.kernels.linear_scan import linear_scan as LSK
+    from repro_torch.kernels.linear_scan import ref as lsref
+    from repro_torch.models import model as M
+    from repro_torch.models.mamba import mamba_dims
+
+    RL = fams["rank-local"]
+    hcfg = get_arch("hymba-1.5b")
+    Z, S, T, bf16 = 4, HYMBA_S, HYMBA_B * HYMBA_S, torch.bfloat16
+    lora = backward_kernel_phase(
+        torch, RL, ref, timed=("hymba", 1600, 1600),
+        cases=[("hymba", T, din, dout, TRAIN_RANKS, None)
+               for din, dout in HYMBA_SHAPES])
+    # the forward pair at the serve's decode rows (T = lanes) and the eval
+    # step's (T = 4 x 2,048) at every projection shape
+    fwd = kernel_phase(
+        torch, RL, ref,
+        cases=[("decode", LANES, din, dout, RANKS, None)
+               for din, dout in HYMBA_SHAPES]
+        + [("eval", HYMBA_EVAL_B * S, din, dout, TRAIN_RANKS, None)
+           for din, dout in HYMBA_SHAPES],
+        timed={("decode", 1600, 1600): "hymba_decode",
+               ("eval", 1600, 1600): "hymba_eval"})
+    for name, res in fwd.items():
+        lora[name]["shapes"].update(res["shapes"])
+        lora[name]["max_abs_err"] = max(lora[name]["max_abs_err"],
+                                        res["max_abs_err"])
+    invariance_phase(torch, fams["dense"], fams["ragged"], RL,
+                     shapes=HYMBA_SHAPES)
+    for din, dout in HYMBA_SHAPES:
+        full_rank_twins(torch, fams, T, din, dout)
+    H, hd, W = hcfg.num_heads, hcfg.resolved_head_dim, hcfg.sliding_window
+    _, flash = flash_kernel_phase(
+        torch, FA, fref, hcfg, plain_labels=("train",),
+        cases=[("train", Z * HYMBA_B * H, S, S, hd, W, bf16),
+               ("eval", Z * HYMBA_EVAL_B * H, S, S, hd, W, bf16)])
+    _, Hs, hs = mamba_dims(hcfg)
+    N = hcfg.ssm.state_size
+    _, scan = scan_kernel_phase(
+        torch, LSK, lsref, hcfg, S=S,
+        cases=[("train", Z * HYMBA_B * Hs, N, hs, True, False, 1.0, bf16),
+               ("eval", Z * HYMBA_EVAL_B * Hs, N, hs, True, False, 1.0,
+                bf16)])
+    print(f"hymba kernel phases done at {time.perf_counter() - t_all:.1f} s")
+    t = time.perf_counter()
+    hparams = M.init_params(hcfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"init: {hcfg.name} backbone in {time.perf_counter() - t:.1f} s")
+    serve = streamed_serve_phase(torch, RL, hcfg, hparams)
+    print(f"hymba serve phase done at {time.perf_counter() - t_all:.1f} s")
+    ccfg = dataclasses.replace(hcfg, dtype="float32")
+    cparams = _cut_layers(hparams, hcfg.num_layers, torch.float32)
+    train_check(torch, fams, ccfg, cparams, TRAIN_RANKS, "rank-local", S=S,
+                b=HYMBA_B, loss_bar=HYMBA_LOSS_REL)
+    ring_wrap_check(torch, ccfg, cparams)
+    del cparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"hymba train and ring checks done at "
+          f"{time.perf_counter() - t_all:.1f} s")
+    jobs = {f"r{r}-lr{lr:g}": TrainConfig(learning_rate=lr, lora_rank=r,
+                                          per_adapter_batch=HYMBA_B)
+            for r in TRAIN_RANKS for lr in (1e-4, 1e-3)}
+    launches = executor_phase(torch, RL, (fams["dense"], fams["ragged"]),
+                              hcfg, hparams, "hymba-rank-sweep", jobs,
+                              b=HYMBA_B, S=S, eval_b=HYMBA_EVAL_B)
+    print(f"hymba rank-sweep executor phase done at "
+          f"{time.perf_counter() - t_all:.1f} s")
+    return lora, flash, scan, serve, launches
 
 
 def rwkv_phases(torch, fams, t_all):
@@ -3187,20 +3599,18 @@ def rwkv_phases(torch, fams, t_all):
 
     RL = fams["rank-local"]
     rcfg = get_arch("rwkv6-3b")
-    scan = scan_kernel_phase(torch, LSK, lsref, rcfg)
+    scan, _ = scan_kernel_phase(torch, LSK, lsref, rcfg)
     print(f"linear-scan kernel phase done at "
           f"{time.perf_counter() - t_all:.1f} s")
     t = time.perf_counter()
     rparams = M.init_params(rcfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     print(f"init: {rcfg.name} backbone in {time.perf_counter() - t:.1f} s")
-    serve = rwkv_serve_phase(torch, RL, rcfg, rparams)
+    serve = streamed_serve_phase(torch, RL, rcfg, rparams)
     print(f"rwkv serve phase done at {time.perf_counter() - t_all:.1f} s")
     for layers, hold in ((rcfg.num_layers, False), (RWKV_GRAD_LAYERS, True)):
         ccfg = dataclasses.replace(rcfg, num_layers=layers, dtype="float32")
-        cparams = {k: ({n: x[:layers].float() for n, x in v.items()}
-                       if k == "layers" else v.float())
-                   for k, v in rparams.items()}
+        cparams = _cut_layers(rparams, layers, torch.float32)
         train_check(torch, fams, ccfg, cparams, TRAIN_RANKS, "rank-local",
                     hold_grads=hold)
         del cparams
@@ -3274,7 +3684,7 @@ def main() -> int:
     invariance_phase(torch, GL, RG, RL)
     fams = {"dense": GL, "ragged": RG, "rank-local": RL}
     cfg = get_arch("stablelm-3b")
-    flash = flash_kernel_phase(torch, FA, fref, cfg)
+    flash, _ = flash_kernel_phase(torch, FA, fref, cfg)
     print(f"kernel phases done at {time.perf_counter() - t_all:.1f} s")
 
     t = time.perf_counter()
@@ -3305,8 +3715,7 @@ def main() -> int:
                for lr in (1e-4, 3e-4, 1e-3, 3e-3) for wd in (0.0, 0.01)}
     # depth cut (LR_SWEEP_LAYERS) to keep the script within half its limit
     lr_cfg = dataclasses.replace(cfg, num_layers=LR_SWEEP_LAYERS)
-    lr_params = dict(params, layers={k: v[:LR_SWEEP_LAYERS]
-                                     for k, v in params["layers"].items()})
+    lr_params = _cut_layers(params, LR_SWEEP_LAYERS, torch.bfloat16)
     lr_launches = executor_phase(torch, GL, (RL, RG), lr_cfg, lr_params,
                                  "lr-sweep", lr_jobs)
     del lr_params
@@ -3331,6 +3740,10 @@ def main() -> int:
     print(f"recovery phase done at {time.perf_counter() - t_all:.1f} s")
 
     scan, rwkv_serve, rwkv_launches = rwkv_phases(torch, fams, t_all)
+    gc.collect()                 # the rwkv6-3b backbone
+    torch.cuda.empty_cache()
+    h_lora, h_flash, h_scan, h_serve, h_launches = hymba_phases(
+        torch, fams, t_all)
 
     csrc = "src/repro_torch/kernels/grouped_lora/csrc"
     rows = [  # (name, kernel source, TPU kernel file, its pallas_call line)
@@ -3359,36 +3772,57 @@ def main() -> int:
             prefix, by_path, res = "ranklocal", {
                 "train": train_launches[name],
                 "dpo": dpo_launches[name],
-                "rwkv_train": rwkv_launches[name]}, kern[name]
+                "rwkv_train": rwkv_launches[name],
+                "hymba_train": h_launches[name]}, dict(kern[name])
             if name in serve_launches:
                 by_path["serve"] = serve_launches[name]
                 by_path["rwkv_serve"] = rwkv_serve[name]
+                by_path["hymba_serve"] = h_serve[name]
+            res["shapes"] = {**res.get("shapes", {}),
+                             **h_lora[name]["shapes"]}
+            res["max_abs_err"] = max(res["max_abs_err"],
+                                     h_lora[name]["max_abs_err"])
         table["kernels"].append({
             "name": f"{prefix}_{name}", "route": "cuda",
             "source": f"{csrc}/{src}",
             "replaces": f"src/repro/kernels/grouped_lora/{tpu}:{line}",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             **res})
+
+    def with_hymba(res, cases):
+        """The kernel's row with hymba's path shapes beside its own."""
+        res = dict(res)
+        res["shapes"] = {f"hymba_{lab}": {k: v for k, v in r.items()
+                                          if k != "pair_exp_bound_ms"}
+                         for lab, r in cases.items()}
+        res["max_abs_err"] = max([res["max_abs_err"]]
+                                 + [r["max_abs_err"] for r in cases.values()])
+        return res
+
     by_path = {"serve": serve_launches["flash_attention"],
                "train": train_launches["flash_attention"],
                "lr_sweep": lr_launches["flash_attention"],
                "colocation": colo_launches["flash"]["flash_attention"],
-               "dpo": dpo_launches["flash_attention"]}
+               "dpo": dpo_launches["flash_attention"],
+               "hymba_train": h_launches["flash_attention"],
+               "hymba_serve": h_serve["flash_attention"]}
     table["kernels"].append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:89",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
-        **flash})
+        **with_hymba(flash, h_flash)})
     by_path = {"rwkv_train": rwkv_launches["linear_scan"],
-               "rwkv_serve": rwkv_serve["linear_scan"]}
+               "rwkv_serve": rwkv_serve["linear_scan"],
+               "hymba_train": h_launches["linear_scan"],
+               "hymba_serve": h_serve["linear_scan"]}
     table["kernels"].append({
         "name": "linear_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
         "replaces": "src/repro/kernels/linear_scan/linear_scan.py:111",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
-        **scan})
+        **with_hymba(scan, h_scan)})
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(card_line())
     print(json.dumps(table))

@@ -56,7 +56,14 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict, device=None) -> Dict:
     if tuple(params["embed"].shape) != want:
         raise ValueError(f"embed has shape {tuple(params['embed'].shape)}, "
                          f"config {cfg.name} wants {want}")
-    depths = {k: v.shape[0] for k, v in params["layers"].items()}
+    def depths(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from depths(v, f"{prefix}{k}.")
+            else:
+                yield f"{prefix}{k}", v.shape[0]
+
+    depths = dict(depths(params["layers"]))
     if set(depths.values()) != {cfg.num_layers}:
         raise ValueError(f"layer stack depths {depths} do not match the "
                          f"config's {cfg.num_layers} layers")

@@ -70,12 +70,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             and q_pos.shape[0] == Sq and k_pos.shape[0] == k.shape[2]
             and k.shape[2] == Sq):
         # the hand kernel: contiguous causal (suffix-aligned ranges, no
-        # partially filled or longer cache)
+        # partially filled or longer cache); at Z = b = 1 the reshape is a
+        # strided view, so the rows are made contiguous
         kk = k.repeat_interleave(G, dim=3) if G > 1 else k
         vv = v.repeat_interleave(G, dim=3) if G > 1 else v
-        qf = q.permute(0, 1, 3, 2, 4).reshape(Z * b * H, Sq, hd)
-        kf = kk.permute(0, 1, 3, 2, 4).reshape(Z * b * H, Sq, hd)
-        vf = vv.permute(0, 1, 3, 2, 4).reshape(Z * b * H, Sq, hd)
+        qf, kf, vf = (t.permute(0, 1, 3, 2, 4).reshape(Z * b * H, Sq, hd)
+                      .contiguous() for t in (q, kk, vv))
         out = FA.flash_attention(qf, kf, vf, causal=True, window=window)
         return out.reshape(Z, b, H, Sq, hd).permute(0, 1, 3, 2, 4)
     scale = hd ** -0.5

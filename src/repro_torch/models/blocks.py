@@ -1,11 +1,12 @@
-"""Per-family blocks with multi-adapter LoRA hooks: the dense transformer
-block and the RWKV-6 block (``ssm``); ``apply_block`` picks one by family.
+"""Per-family blocks with multi-adapter LoRA hooks: the transformer block
+(dense, and Hymba's ``hybrid``: attention and a Mamba branch side by side)
+and the RWKV-6 block (``ssm``); ``apply_block`` picks one by family.
 
 Every block operates on slot-major activations ``x: [Z, b, S, d]`` (Z =
 adapter slots). Base weights are slot-shared and frozen; LoRA pairs are
-slot-stacked. The other families (MoE, hybrid) are not ported yet.
+slot-stacked. The MoE family is not ported yet.
 
-Caches — the dense block's K/V, the RWKV block's recurrent state — are
+Caches — the attention K/V, the RWKV and Mamba recurrent states — are
 written IN PLACE, and only for the lanes allowed to write
 (``ctx["write_mask"]``, [Z, b] bool; None = every lane): the JAX package
 instead builds a whole new cache with a ``jnp.where`` select and restores
@@ -22,15 +23,18 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lora import proj
 from repro_torch.models.attention import attention
 from repro_torch.models.common import he_init, lora_at, rms_norm, swiglu
+from repro_torch.models.mamba import (init_mamba_params, mamba_block,
+                                      mamba_target_shapes)
 from repro_torch.models.rope import apply_rope
 from repro_torch.models.rwkv import (init_rwkv_layer, rwkv_channel_mix,
                                      rwkv_target_shapes, rwkv_time_mix)
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm") or cfg.is_moe:
+    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.is_moe:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense and ssm only)")
+            f"family {cfg.family!r} is not ported yet (dense, ssm and "
+            f"hybrid only)")
 
 
 # ---------------------------------------------------------------------------
@@ -55,7 +59,11 @@ def target_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, int]]:
     _require_ported(cfg)
     if cfg.family == "ssm":
         return rwkv_target_shapes(cfg)
-    return {**attn_target_shapes(cfg), **mlp_target_shapes(cfg)}
+    shapes = dict(attn_target_shapes(cfg))
+    if cfg.family == "hybrid":
+        shapes.update(mamba_target_shapes(cfg))
+    shapes.update(mlp_target_shapes(cfg))
+    return shapes
 
 
 # ---------------------------------------------------------------------------
@@ -68,7 +76,7 @@ def init_layer_params(gen: torch.Generator, cfg: ModelConfig,
     if cfg.family == "ssm":
         return init_rwkv_layer(gen, cfg, dtype)
     d, dev = cfg.d_model, gen.device
-    return {
+    p: Dict[str, Any] = {
         "attn_norm": torch.ones((d,), dtype=torch.float32, device=dev),
         "mlp_norm": torch.ones((d,), dtype=torch.float32, device=dev),
         "q_proj": he_init(gen, (d, cfg.q_dim), d, dtype),
@@ -79,6 +87,13 @@ def init_layer_params(gen: torch.Generator, cfg: ModelConfig,
         "up_proj": he_init(gen, (d, cfg.d_ff), d, dtype),
         "down_proj": he_init(gen, (cfg.d_ff, d), cfg.d_ff, dtype),
     }
+    if cfg.family == "hybrid":
+        p["mamba"] = init_mamba_params(gen, cfg, dtype)
+        p["branch_norm_attn"] = torch.ones((d,), dtype=torch.float32,
+                                           device=dev)
+        p["branch_norm_ssm"] = torch.ones((d,), dtype=torch.float32,
+                                          device=dev)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -205,18 +220,36 @@ def mlp_sublayer(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
 def transformer_block(cfg: ModelConfig, x: torch.Tensor, p: Dict,
                       lora: Dict, layer: int, ctx: Dict[str, Any]
                       ) -> torch.Tensor:
-    """One dense layer. ``p`` holds the layer's base weights, ``lora`` the
-    stacked tree (indexed at ``layer``), ``ctx`` the rope angles,
-    positions, window and this layer's cache (``ctx["cache"]``)."""
+    """One dense or hybrid layer. ``p`` holds the layer's base weights,
+    ``lora`` the stacked tree (indexed at ``layer``), ``ctx`` the rope
+    angles, positions, window and this layer's cache (``ctx["cache"]``).
+
+    Hybrid (Hymba): attention and the Mamba branch both read the same
+    normed ``h``; each output is RMS-normed by its own branch norm and the
+    residual adds their mean. With a cache the Mamba branch continues from
+    the cached ``conv`` / ``ssm`` state and writes the new one back in
+    place under ``ctx["write_mask"]``."""
     scale = cfg.lora.scale_for_rank(0)
+    cache = ctx.get("cache")
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    x = x + attn_sublayer(
+    attn_out = attn_sublayer(
         h, p, lora, layer, cfg, ctx["angles"], ctx["q_pos"],
-        cache=ctx.get("cache"), k_pos=ctx.get("k_pos"),
+        cache=cache, k_pos=ctx.get("k_pos"),
         kv_valid_len=ctx.get("kv_valid_len"),
         write_index=ctx.get("write_index"),
         write_mask=ctx.get("write_mask"), window=ctx.get("window", 0),
         scale=scale)
+    if cfg.family == "hybrid":
+        ssm_out, new_mamba = mamba_block(h, p["mamba"], lora, layer, cfg,
+                                         state=cache, scale=scale)
+        attn_out = rms_norm(attn_out, p["branch_norm_attn"], cfg.norm_eps)
+        ssm_out = rms_norm(ssm_out, p["branch_norm_ssm"], cfg.norm_eps)
+        x = x + 0.5 * (attn_out + ssm_out)
+        if cache is not None:
+            for name, new in new_mamba.items():
+                _write_state(cache[name], new, ctx.get("write_mask"))
+    else:
+        x = x + attn_out
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
     return x + mlp_sublayer(h, p, lora, layer, scale)
 
@@ -249,9 +282,14 @@ def rwkv_block(cfg: ModelConfig, x: torch.Tensor, p: Dict, lora: Dict,
 
 def layer_cache(cfg: ModelConfig, layers: Dict, layer: int) -> Dict:
     """Layer ``layer``'s views of the stacked cache leaves: the dense
-    block's ``{"k", "v"}``, the RWKV block's ``{"wkv", "tm_x", "cm_x"}``."""
-    src = layers if cfg.family == "ssm" else layers["attn"]
-    return {k: v[layer] for k, v in src.items()}
+    block's ``{"k", "v"}``, the RWKV block's ``{"wkv", "tm_x", "cm_x"}``,
+    the hybrid block's ``{"k", "v", "conv", "ssm"}``."""
+    if cfg.family == "ssm":
+        return {k: v[layer] for k, v in layers.items()}
+    views = {k: v[layer] for k, v in layers["attn"].items()}
+    if cfg.family == "hybrid":
+        views.update({k: v[layer] for k, v in layers["mamba"].items()})
+    return views
 
 
 def apply_block(cfg: ModelConfig, x: torch.Tensor, p: Dict, lora: Dict,

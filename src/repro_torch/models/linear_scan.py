@@ -49,8 +49,8 @@ def chunked_linear_attention(
         C -= 1
     Bf = Z * b * H
 
-    def to_rows(x, d):
-        return x.permute(0, 1, 3, 2, 4).reshape(Bf, S, d)
+    def to_rows(x, d):        # a strided view at Z = b = 1: made contiguous
+        return x.permute(0, 1, 3, 2, 4).reshape(Bf, S, d).contiguous()
 
     bon = (bonus.float()[None, None].expand(Z, b, H, K).reshape(Bf, K)
            if bonus is not None else None)

@@ -5,8 +5,8 @@ Parameters are plain dicts of tensors with the JAX package's keys and
 package's ``lax.scan`` over the stacked layers is a Python loop over L.
 
 Caches are updated IN PLACE: ``forward``, ``decode_step``, ``reset_lanes``
-and ``prefill_lanes`` write the K/V rows (dense) or recurrent state (RWKV,
-``ssm``) they own into the cache tensors and return the same cache dict
+and ``prefill_lanes`` write the K/V rows (dense), the recurrent state (RWKV,
+``ssm``) or both (Hymba, ``hybrid``: K/V and the Mamba state) they own into the cache tensors and return the same cache dict
 (with ``pos`` / ``k_pos`` replaced). Lanes a call does not own — idle lanes
 under ``active``, lanes outside ``lane_mask`` — stay bitwise untouched, the
 contract the JAX package keeps with whole-cache selects.
@@ -24,6 +24,7 @@ from repro_torch.models import backend as BK
 from repro_torch.models import blocks as B
 from repro_torch.models.common import (dtype_of, he_init, normal_init,
                                        resolve_device, rms_norm)
+from repro_torch.models.mamba import init_mamba_state
 from repro_torch.models.rope import rope_angles, text_positions
 
 RING_INIT_POS = -(1 << 30)    # ring-cache slots start far in the past
@@ -43,8 +44,15 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     emb = normal_init(gen, (cfg.vocab_size, cfg.d_model), 0.02, dtype)
     layer_list = [B.init_layer_params(gen, cfg, dtype)
                   for _ in range(cfg.num_layers)]
-    layers = {k: torch.stack([lp.pop(k) for lp in layer_list])
-              for k in list(layer_list[0])}
+
+    def stacked(trees):
+        """Stack each leaf over the layers (nested dicts per leaf)."""
+        return {k: (stacked([t.pop(k) for t in trees])
+                    if isinstance(trees[0][k], dict)
+                    else torch.stack([t.pop(k) for t in trees]))
+                for k in list(trees[0])}
+
+    layers = stacked(layer_list)
     params = {"embed": emb, "layers": layers,
               "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32,
                                        device=dev)}
@@ -104,7 +112,8 @@ def _run_layers(cfg: ModelConfig, x: torch.Tensor, params: Dict, lora: Dict,
     stacked = params["layers"]
     binding, model_backend = LORA.current_binding(), BK.get_backend()
     for l in range(cfg.num_layers):
-        p = {k: v[l] for k, v in stacked.items()}
+        p = {k: ({n: w[l] for n, w in v.items()} if isinstance(v, dict)
+                 else v[l]) for k, v in stacked.items()}
         if layers is not None:
             ctx["cache"] = B.layer_cache(cfg, layers, l)
         if remat:
@@ -128,7 +137,8 @@ def forward(cfg: ModelConfig, params: Dict, lora: Dict, tokens: torch.Tensor,
     tokens: [Z, b, S] int. Returns (final_hidden [Z,b,S,d] (post final
     norm, pre-unembed), aux scalar (0 for the ported families), cache|None).
     With ``cache`` given (prefill), every lane's K/V are written at index
-    0..S-1 (RWKV: its recurrent state continued from the cached one) in
+    0..S-1 (RWKV: its recurrent state continued from the cached one;
+    hybrid: both, the Mamba state continued from the cached one) in
     place and the cache's position is set to S. While gradients
     are recorded and no cache is written (a training forward), every layer
     is checkpointed (``torch.utils.checkpoint``), as the JAX package's
@@ -209,7 +219,10 @@ def init_cache(cfg: ModelConfig, Z: int, bsz: int, max_len: int, *,
     The RWKV family (``ssm``) keeps a recurrent state instead of K/V
     (``src/repro/models/model.py:238-241``): ``wkv`` [L,Z,bsz,H,hs,hs]
     fp32 and the token-shift streams ``tm_x`` / ``cm_x`` [L,Z,bsz,d]; it
-    needs no ring (``ring`` is ignored) and no ``max_len``."""
+    needs no ring (``ring`` is ignored) and no ``max_len``. The hybrid
+    family keeps the attention K/V (ring or not) beside the Mamba state
+    (``:243-253``): ``conv`` [L,Z,bsz,W-1,inner] and ``ssm``
+    [L,Z,bsz,H,N,hs], both fp32."""
     B._require_ported(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
@@ -229,6 +242,8 @@ def init_cache(cfg: ModelConfig, Z: int, bsz: int, max_len: int, *,
         layers = {"attn": {
             "k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}}
+        if cfg.family == "hybrid":
+            layers["mamba"] = init_mamba_state(cfg, L, Z, bsz, device=dev)
     cache: Dict[str, Any] = {
         "layers": layers,
         "pos": (torch.zeros((Z, bsz), dtype=torch.int32, device=dev)
@@ -251,7 +266,7 @@ def decode_step(cfg: ModelConfig, params: Dict, lora: Dict, cache: Dict,
     and reads at the same position. With a per-lane cache (``pos`` is
     [Z, b]) each (slot, lane) stream writes at its own index and sees only
     keys up to its own position. ``active`` ([Z, b] bool, per-lane caches
-    only) freezes idle lanes: their K/V rows (RWKV: recurrent state) and
+    only) freezes idle lanes: their K/V rows and recurrent state and
     position stay bitwise untouched while live lanes advance."""
     Z, bsz = tokens.shape
     pos = cache["pos"]
@@ -345,10 +360,10 @@ def prefill_lanes(cfg: ModelConfig, params: Dict, lora: Dict, cache: Dict,
     causality hides index i until the lane's position reaches i, and
     decode writes index i before it reads it (write-before-read).
 
-    Non-ring attention caches only (ring caches and the recurrent family
-    join by streaming the prompt through ``decode_step``)."""
+    Non-ring attention caches only (ring caches and the recurrent and
+    hybrid families join by streaming the prompt through ``decode_step``)."""
     if (cache["pos"].dim() != 2 or "k_pos" in cache
-            or cfg.family == "ssm"):
+            or cfg.family in ("ssm", "hybrid")):
         raise ValueError("prefill_lanes needs a per-lane non-ring "
                          "attention cache")
     Z, b, P = tokens.shape

@@ -13,8 +13,8 @@ Two batching disciplines share the replica:
 **Continuous (default drive mode).** The decode cache carries a per-lane
 position vector, so every lane is its own stream: a request joins the
 moment a lane in its adapter's slot frees up (block prefill writes its
-prompt into its own lane cache; ring caches stream the prompt through the
-decode step after a lane reset) and leaves the moment it has ``max_new``
+prompt into its own lane cache; ring caches and the recurrent and hybrid
+families stream the prompt through the decode step after a lane reset) and leaves the moment it has ``max_new``
 tokens. Idle lanes are frozen bitwise by the ``active`` mask.
 
 **Round-based (baseline).** ``serve_round`` keeps one global cache
@@ -119,9 +119,10 @@ class ServingReplica:
         self.max_len = max_len
         self.ring = ring and cfg.family != "ssm"
         # block prefill writes the whole prompt in one forward; ring caches
-        # and the recurrent family need per-position writes: their prompts
-        # stream through decode_step
-        self._block_prefill = not self.ring and cfg.family != "ssm"
+        # and the recurrent and hybrid families need per-position writes:
+        # their prompts stream through decode_step
+        self._block_prefill = (not self.ring
+                               and cfg.family not in ("ssm", "hybrid"))
         prefill = make_prefill_step(cfg)
         serve = make_serve_step(cfg)
         lane_prefill = make_lane_prefill_step(cfg)

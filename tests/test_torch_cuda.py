@@ -13,7 +13,10 @@ linear-scan kernel against its plain version in both modes (RWKV with the
 bonus, SSD), fp32 and bf16, with an initial state and at the decay clip,
 batch independent bit for bit, a planted fault (the bonus dropped) outside
 the bar, its autograd Function's gradients, and the rwkv model's scans
-launching it.
+launching it; and, at hymba-1.5b's shapes, the bf16 LoRA contractions of
+its five projections, flash attention with the window of 1,024 at S 2,048
+and the scan in SSD mode at S 2,048, each with a planted fault outside
+the bar, and the hybrid model's forwards launching both sequence kernels.
 
 Imports neither JAX nor the JAX package, so it runs on a machine with a
 card and no JAX: ``PYTHONPATH=src python -m pytest -q --noconftest
@@ -447,10 +450,16 @@ def _ints(values):
 TRAIN_SHAPE_CASES = [(1024, 2560, 6912), (1024, 6912, 2560),
                      (1024, 2560, 8960), (1024, 8960, 2560),
                      (512, 2560, 2560)]
+# hymba-1.5b's five projections (q/o, k/v, in_proj, gate/up, down) at its
+# train step's T = 2 x 2,048 rows a slot: edges of 320, 1,600 and 5,504
+# (43 x 128) inside the 128-wide tiles
+HYMBA_SHAPE_CASES = [(4096, 1600, 1600), (4096, 1600, 320),
+                     (4096, 1600, 6400), (4096, 1600, 5504),
+                     (4096, 5504, 1600)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", TRAIN_SHAPE_CASES)
+@pytest.mark.parametrize("case", TRAIN_SHAPE_CASES + HYMBA_SHAPE_CASES)
 def test_cuda_bf16_contractions_at_train_shapes(case):
     """bf16 xa, ds, da, db, sb_add (with and without a base) and dx of the
     three sets at the main paths' shapes: each within chip_smoke's bars of
@@ -499,6 +508,40 @@ def test_cuda_bf16_contractions_at_train_shapes(case):
         for label, twin in meet.items():
             assert torch.equal(out, twin[name]), f"dense {name} vs {label}"
         assert torch.equal(got["ragged"][name], ragged_full[name]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c[1:] for c in HYMBA_SHAPE_CASES])
+def test_cuda_bf16_contractions_at_hymba_decode_rows(case):
+    """hymba-1.5b's serve runs the six contractions' forward pair at T = 4
+    decode rows a slot (ranks 8-64), where rank_sum takes its 16 x 64
+    tile: at each of the family's five projection shapes the bf16 xa, ds,
+    da, db, sb_add (with and without a base) and dx of the three sets are
+    within chip_smoke's bars of their plain versions, and the rows of the
+    T = 4 call equal the same rows of a T = 1,024 call bit for bit."""
+    _need_card()
+    din, dout = case
+    Z, T, r = 4, 1024, 64
+    x, dy, A, B, scale, s, dS = _train_inputs(Z, T, din, dout, r, seed=4)
+    ops_ = (x, dy, A, B, scale, s, dS)
+    small = [t[:, :4].contiguous() if t.dim() == 3 and t.shape[1] == T
+             else t for t in ops_]
+    rows_l, ranks_l = [1024, 512, 1024, 3], [8, 16, 32, 64]
+    counts = {"dense": (), "ragged": (_ints(rows_l),),
+              "rank-local": (_ints(rows_l), _ints(ranks_l))}
+    for fam, c in counts.items():
+        c4 = tuple(v.clamp(max=4) for v in c[:1]) + c[1:]
+        got = _contract(_kernels(fam), *small, *c4)
+        want = _contract(_plain(fam), *small, *c4)
+        for name, out in got.items():
+            w = want[name].float()
+            rtol = 1e-4 if name in ("da", "db") else 2 ** -7
+            torch.testing.assert_close(out.float(), w, rtol=rtol,
+                                       atol=1e-5 * float(w.abs().max()),
+                                       msg=f"{fam} {name} {case}")
+        big = _contract(_kernels(fam), *ops_, *c)
+        for name in ROW_OUTPUTS:
+            assert torch.equal(got[name], big[name][:, :4]), (fam, name)
 
 
 def _shifted(t):
@@ -646,6 +689,35 @@ def test_cuda_flash_attention_bf16_at_path_shapes(B):
     assert torch.equal(head, out[:128])
 
 
+# hymba-1.5b at S 2,048, hd 64, window 1,024: its train step's fused
+# batch-heads (4 slots x 2 sequences x 25 heads, K/V repeated to the query
+# heads) and an eval step's (x 4)
+FLASH_HYMBA_B = [200, 400]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", FLASH_HYMBA_B)
+def test_cuda_flash_attention_bf16_at_hymba_shapes(B):
+    """The bf16 kernel with hymba's window of 1,024 at S 2,048 (the window
+    binds for every query past 1,024) within one bf16 rounding of the plain
+    version; the plain version with the window one key wider leaves that
+    bar; the first 128 fused heads bitwise equal to a call on them
+    alone."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(B)
+    q, k, v = (torch.randn(B, 2048, 64, device="cuda", generator=gen)
+               .bfloat16() for _ in range(3))
+    out = FA.flash_attention(q, k, v, window=1024)
+    want = FREF.flash_attention_ref(q, k, v, window=1024).float()
+    tol = dict(rtol=2 ** -7, atol=1e-5 * float(want.abs().max()))
+    torch.testing.assert_close(out.float(), want, **tol)
+    wider = FREF.flash_attention_ref(q, k, v, window=1025).float()
+    assert not torch.allclose(out.float(), wider, **tol)
+    head = FA.flash_attention(*(t[:128].contiguous() for t in (q, k, v)),
+                              window=1024)
+    assert torch.equal(head, out[:128])
+
+
 @pytest.mark.cuda
 def test_cuda_flash_attention_refuses_what_it_does_not_take():
     _need_card()
@@ -790,6 +862,35 @@ def test_cuda_linear_scan_matches_plain(case):
                                       atol=1e-5 * float(fy.abs().max()))
 
 
+# hymba-1.5b's Mamba heads in SSD mode at S 2,048 (16 chunks of 128; K =
+# the state size 16, V = the head size 64, no bonus): its train step's
+# rows (4 slots x 2 sequences x 50 heads) and an eval step's (x 4)
+SCAN_HYMBA_B = [400, 800]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", SCAN_HYMBA_B)
+def test_cuda_linear_scan_ssd_at_hymba_shapes(B):
+    """The bf16 scan in SSD mode at hymba's shapes within one bf16
+    rounding of the plain version (the final state within 1e-5); the plain
+    version in RWKV's order (the query reads the state before the token's
+    decay and write) leaves that bar; the first 128 rows bitwise equal to
+    a call on them alone."""
+    _need_card()
+    args, kw = _scan_inputs((B, 2048, 16, 64, 128, True, False, 1.0),
+                            torch.bfloat16, seed=B)
+    y, st = LSK.linear_scan(*args, **kw)
+    wy, ws = LSREF.linear_scan_ref(*args, **kw)
+    tol = dict(rtol=2 ** -7, atol=1e-5 * float(wy.float().abs().max()))
+    torch.testing.assert_close(y.float(), wy.float(), **tol)
+    torch.testing.assert_close(st, ws, rtol=1e-5,
+                               atol=1e-5 * float(ws.abs().max()))
+    fy, _ = LSREF.linear_scan_ref(*args, **dict(kw, decay_on_query=False))
+    assert not torch.allclose(y.float(), fy.float(), **tol)
+    y2, s2 = LSK.linear_scan(*(t[:128].contiguous() for t in args), **kw)
+    assert torch.equal(y2, y[:128]) and torch.equal(s2, st[:128])
+
+
 @pytest.mark.cuda
 def test_cuda_linear_scan_refuses_what_it_does_not_take():
     _need_card()
@@ -863,4 +964,47 @@ def test_cuda_rwkv_model_scans_launch_the_kernel():
         M.decode_step(cfg, params, lora, cache, tokens[:, :, 0])
     torch.cuda.synchronize()
     assert LSK.LAUNCHES["linear_scan"] == cfg.num_layers
+    torch.testing.assert_close(h1, h2, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_hybrid_model_forwards_launch_flash_and_the_scan():
+    """A hymba training forward and its remat recompute launch flash
+    attention and the scan once per layer each, an eval forward once per
+    layer, decode over a ring cache neither; the "torch" backend agrees
+    with the kernels at S 96 past the reduced window of 64."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import backend as BK
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_arch("hymba-1.5b").reduced(
+        num_layers=2, d_model=128, vocab=256), dtype="float32")
+    params = M.init_params(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, 256, (2, 2, 96), device="cuda", generator=gen)
+    lora = LORA.init_lora_tree(gen, cfg, 2, torch.tensor([4, 8],
+                                                         device="cuda"),
+                               M.target_shapes(cfg))
+    for ab in lora.values():
+        ab["A"].requires_grad_(True)
+    counts = lambda: {**FA.LAUNCHES, **LSK.LAUNCHES}
+    FA.reset_launches()
+    LSK.reset_launches()
+    h, _, _ = M.forward(cfg, params, lora, tokens)
+    h.sum().backward()
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    assert counts() == {"flash_attention": 2 * L, "linear_scan": 2 * L}
+    FA.reset_launches()
+    LSK.reset_launches()
+    with torch.no_grad():
+        h1, _, _ = M.forward(cfg, params, lora, tokens)
+        with BK.backend("torch"):
+            h2, _, _ = M.forward(cfg, params, lora, tokens)
+        cache = M.init_cache(cfg, 2, 2, 64, ring=True, per_lane=True)
+        M.decode_step(cfg, params, lora, cache, tokens[:, :, 0])
+    torch.cuda.synchronize()
+    assert counts() == {"flash_attention": L, "linear_scan": L}
     torch.testing.assert_close(h1, h2, rtol=1e-4, atol=1e-4)
