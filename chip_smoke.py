@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port: multi-adapter serving, rank-sweep
 and full-rank learning-rate-sweep LoRA training, heterogeneous multi-task
-co-location, and DPO preference tuning with crash-and-resume of
-stablelm-3b, then serving and rank-sweep LoRA training of rwkv6-3b and of
-hymba-1.5b, on one NVIDIA card, through the port's hand-written CUDA
-kernels.
+co-location, DPO preference tuning, the engine (paper Listing 1)
+scheduling and running three tuning tasks statically and elastically, and
+crash-and-resume of stablelm-3b, then serving and rank-sweep LoRA training
+of rwkv6-3b and of hymba-1.5b, on one NVIDIA card, through the port's
+hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -183,6 +184,38 @@ package. Phases, none of them caught:
             every eval step flash 128 and xa/sb_add 448, the dense and
             ragged kernels never; the same measurements as phase 6, with
             flash attention's share of the device time.
+14a. engine — the slice's main path: Listing 1 through the port's entry
+            points. Engine(total_gpus = 2, eval_every = 2) on full-size
+            stablelm-3b (its own backbone, random weights from seed 0)
+            with three tasks at S = 256, max_steps = 8, Z from the memory
+            model at the card's HBM_BYTES (num_slots = 0) and
+            EarlyExit(0.25, 0.5): "rank-sweep" (ranks 8/32 x lr
+            1e-4/1e-3, one GPU; the rank-local kernels), "lr-sweep" (rank
+            64, lr 1e-4/1e-3 x weight decay 0/0.01, which Task.jobs()
+            labels as two jobs, as the JAX package does; two GPUs; the
+            dense kernels) and "mixed-batch" (rank 64, b 2 and 4, one GPU;
+            the ragged kernels while both widths are resident).
+            Engine.schedule(method = "cp") places them on the virtual
+            cluster of 2 GPUs at the H100 constants; then
+            batched_execution(strategy = "static"), then an
+            ElasticClusterRuntime(2) fed each task's profile_raw spec and
+            executor_driver_factory driver, from the same schedule. One
+            card trains every task in turn; the strategies differ in the
+            virtual timeline. Every train step must launch exactly one
+            LoRA set at phase 6's counts and flash 64 times, every eval
+            step one set's forward pair (224 each) and flash 32 times, the
+            scan never; each strategy must launch all three sets. Each
+            task's results (best job and value, every job's exit, steps,
+            samples, loss and validation histories, the kept adapters)
+            must be equal in both runs bit for bit, and the elastic
+            virtual makespan no larger than the static one (the runtime's
+            epsilon, 1e-9 s). The planner's HBM_BYTES must not exceed the
+            card's memory. Printed: the placements with their analytic
+            durations, each strategy's virtual makespan, utilization,
+            replans and real tokens/s over its wall; per task Z, the
+            memory model's M_hat(Z b) beside the measured peak, the
+            analytic step time beside the observed wall step
+            (ExecutorTaskDriver.observed_wall_step_s), real tokens/s.
 15. recovery — the DPO task of phase 14 at full width and 4 layers, run
             uninterrupted, then again with a TaskCheckpointer(every=1) as
             its ckpt_hook and a SimulatedCrash after the third durable
@@ -300,7 +333,8 @@ the window binds in every forward:
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernel table as JSON (twenty kernels), with each kernel's launches by
-path.
+path (``engine_static`` and ``engine_elastic`` for the engine phase's two
+runs).
 """
 from __future__ import annotations
 
@@ -318,8 +352,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak (NVIDIA data sheet)
-H100_BYTES_S = 3.35e12        # HBM3 bandwidth (NVIDIA data sheet)
+# the card's dense bf16 tensor-core peak and HBM3 bandwidth (NVIDIA data
+# sheet): main() reads them from repro_torch.sched.profiler, so that the
+# bounds and the engine's planner use one copy of the numbers
+H100_BF16_FLOPS = H100_BYTES_S = None
 H100_FP32_FLOPS = 67e12       # fp32 outside the tensor cores (data sheet)
 # instantiations of each kernel template, (bf16, fp32): every bf16 one
 # holds tensor-core (HMMA) instructions, no fp32 one does. narrow_out: xa
@@ -414,6 +450,7 @@ RING_PREFILL, RING_STEPS = 1000, 64
 RING_LOGITS_REL = 1e-4
 DPO_B = 2                     # preference pairs per slot in the DPO phase
 RECOVERY_STEPS = 12           # steps per job of the recovery phase's task
+ENGINE_G = 2                  # GPUs of the engine phase's virtual cluster
 # full-size train step, kernels vs plain versions, per slot and relative
 # to the plain run: |loss diff|, |grad-norm diff|, and the RMS of the dA
 # (dB) differences over all 224 projections over the RMS of dA (dB). The
@@ -451,10 +488,11 @@ def card_line() -> str:
               "--format=csv,noheader").splitlines()[0]
 
 
-def bound(nbytes: float, flops: float, peak: float = H100_BF16_FLOPS):
+def bound(nbytes: float, flops: float, peak: float | None = None):
     """(least ms the card could take, "bytes" or "operations"): the larger
     of the bytes over the memory rate and the flops over the peak rate of
     the inputs' type (bf16 unless ``peak`` says otherwise)."""
+    peak = H100_BF16_FLOPS if peak is None else peak
     t_bytes, t_ops = nbytes / H100_BYTES_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -2569,6 +2607,12 @@ def _dpo_jobs():
             for r in TRAIN_RANKS for lr in (1e-4, 1e-3)}
 
 
+def _histories(lc):
+    """Every job's validation and raw train-loss history."""
+    return {j: (tuple(m.val_hist), tuple(m.raw_train_hist))
+            for j, m in lc.monitors.items()}
+
+
 def recovery_phase(torch, cfg):
     """Crash and resume of the DPO task on the card, stablelm-3b at full
     width and COLO_LAYERS layers, RECOVERY_STEPS steps per job (three
@@ -2636,10 +2680,6 @@ def recovery_phase(torch, cfg):
             except StopIteration as done:
                 return done.value
 
-    def histories(lc):
-        return {j: (tuple(m.val_hist), tuple(m.raw_train_hist))
-                for j, m in lc.monitors.items()}
-
     def same_winner(a, b):
         wa = a.job_results[a.best_job].adapter
         wb = b.job_results[b.best_job].adapter
@@ -2705,7 +2745,7 @@ def recovery_phase(torch, cfg):
         the winner and its adapter) each equal to the uninterrupted
         run's."""
         return (steps == tail,
-                histories(seen["lc"]) == histories(seen0["lc"]),
+                _histories(seen["lc"]) == _histories(seen0["lc"]),
                 all((r.best_val, r.best_val_step, r.exit_reason,
                      r.steps_trained)
                     == (res0.job_results[j].best_val,
@@ -2732,6 +2772,258 @@ def recovery_phase(torch, cfg):
             "or the winner's adapter unchanged")
     del params
     torch.cuda.empty_cache()
+
+
+def _engine_tasks(alto, cfg):
+    """The engine phase's three tasks: a rank sweep (the rank-local set), a
+    full-rank lr sweep on the virtual cluster's two GPUs (the dense set)
+    and a full-rank task of two widths (the ragged set while both are
+    resident); Z from the memory model (``num_slots=0``)."""
+    spaces = (("rank-sweep", 1, {"rank": [8, 32], "lr": [1e-4, 1e-3]}),
+              ("lr-sweep", 2, {"rank": [64], "lr": [1e-4, 1e-3],
+                               "wd": [0.0, 0.01]}),
+              ("mixed-batch", 1, {"rank": [64], "batch_size": [2, 4],
+                                  "lr": [3e-4]}))
+    return [alto.Task(model=cfg, dataset=_task_data(cfg, name), name=name,
+                      num_gpus=g, max_steps=8, search_space=space)
+            for name, g, space in spaces]
+
+
+def _same_task_result(torch, a, b, hists_a, hists_b):
+    """(best job and value, every job's result, every loss and validation
+    history, every kept adapter) of two runs of one task, bit for bit."""
+    jobs = {j: (r.best_val, r.best_val_step, r.exit_reason, r.steps_trained,
+                r.samples_trained) for j, r in a.job_results.items()}
+    adapters = all(
+        (ra.adapter is None) == (b.job_results[j].adapter is None)
+        and (ra.adapter is None or all(
+            torch.equal(ra.adapter[t][m], b.job_results[j].adapter[t][m])
+            for t in ra.adapter for m in ra.adapter[t]))
+        for j, ra in a.job_results.items())
+    return ((a.best_job, a.best_val) == (b.best_job, b.best_val),
+            jobs == {j: (r.best_val, r.best_val_step, r.exit_reason,
+                         r.steps_trained, r.samples_trained)
+                     for j, r in b.job_results.items()},
+            hists_a == hists_b, adapters)
+
+
+def engine_phase(torch, fams):
+    """Listing 1 on the card: ``Engine(total_gpus=ENGINE_G, eval_every=2,
+    device="cuda")`` on full-size stablelm-3b (its own backbone, random
+    weights from seed 0) schedules three tasks on a virtual cluster of
+    ENGINE_G GPUs and runs them twice, one card training every task in
+    turn: through ``batched_execution(strategy="static")``, then through an
+    ``ElasticClusterRuntime`` fed ``profile_raw`` specs and
+    ``executor_driver_factory`` drivers from the same schedule. Every
+    executor the engine makes is wrapped: each train step must launch
+    exactly one LoRA set with ``_step_launches``' counts and flash 64
+    times, each eval step one set's forward pair and flash 32 times, the
+    linear scan never. Each task's results must be equal in both runs bit
+    for bit and the elastic virtual makespan no larger than the static one;
+    the three sets must each launch. Returns each strategy's launches by
+    kernel module."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import engine as alto
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.linear_scan import linear_scan as LSK
+    from repro_torch.sched import cluster, profiler
+
+    sync = torch.cuda.synchronize
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"engine: planner's HBM_BYTES {profiler.HBM_BYTES:.4g} B "
+          f"({profiler.HBM_BYTES / 2**30:.2f} GiB), card {total} B "
+          f"({total / 2**30:.2f} GiB); PEAK_FLOPS_BF16 "
+          f"{profiler.PEAK_FLOPS_BF16:.4g}, HBM_BYTES_PER_S "
+          f"{profiler.HBM_BYTES_PER_S:.4g}")
+    require(profiler.HBM_BYTES <= total,
+            f"the planner's HBM_BYTES {profiler.HBM_BYTES} exceeds the "
+            f"card's {total} bytes")
+    cfg = get_arch("stablelm-3b")
+    ee = alto.EarlyExit(warmup_ratio=0.25, select_ratio=0.5)
+    lora_train, lora_eval, (seq_train, seq_eval) = _step_launches(cfg)
+    mods = {**fams, "flash": FA, "scan": LSK}
+
+    def counts():
+        return {k: dict(m.LAUNCHES) for k, m in mods.items()}
+
+    def reset():
+        for m in mods.values():
+            m.reset_launches()
+
+    def check_step(kind, delta):
+        """Exactly one LoRA set, at its counts; flash at the family's."""
+        want = lora_train if kind == "train" else lora_eval
+        sets = [k for k in fams if any(delta[k].values())]
+        ok = (len(sets) == 1 and delta[sets[0]] == want
+              and delta["flash"]["flash_attention"]
+              == (seq_train if kind == "train" else seq_eval)
+              and not any(delta["scan"].values()))
+        require(ok, f"an engine {kind} step launched {delta}; expected one "
+                    f"LoRA set at {want}, flash "
+                    f"{seq_train if kind == 'train' else seq_eval}, no scan")
+        return sets[0]
+
+    def instrumented(engine, log):
+        """Wrap every executor ``engine`` makes from now on (replacing an
+        earlier wrapping): per-step launch checks, real tokens, its
+        lifecycle, and its task's wall and peak memory, into ``log``."""
+        def make(task, early_exit):
+            return alto.Engine._make_executor(engine, task, early_exit)
+
+        def making(task, early_exit):
+            bx = make(task, early_exit)
+            ex = bx.backbone
+            rec = log.setdefault(task.task_name, {
+                "sets": {}, "tokens": 0, "train": 0, "eval": 0})
+
+            def counted(fn, kind):
+                def run(*args):
+                    tokens = ex.slots.occupied_tokens()
+                    before = counts()
+                    out = fn(*args)
+                    now = counts()
+                    s = check_step(kind, {
+                        k: {n: now[k][n] - before[k][n] for n in now[k]}
+                        for k in now})
+                    by_set = rec["sets"].setdefault(kind, {})
+                    by_set[s] = by_set.get(s, 0) + 1
+                    rec[kind] += 1
+                    if kind == "train":
+                        rec["tokens"] += tokens
+                    return out
+                return run
+            ex._train_step = counted(ex._train_step, "train")
+            ex._eval_step = counted(ex._eval_step, "eval")
+            add = ex.add_task
+
+            def add_task(lc):
+                rec["lc"] = lc
+                add(lc)
+            ex.add_task = add_task
+            chunks = bx.run_task_chunks
+
+            def run_task_chunks(*args):
+                gc.collect()        # the previous task's executor
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                result = yield from chunks(*args)
+                sync()
+                rec["wall"] = time.perf_counter() - t
+                rec["peak"] = torch.cuda.max_memory_allocated()
+                # the lifecycle holds the executor: keep its histories only
+                rec["hists"] = _histories(rec.pop("lc"))
+                return result
+            bx.run_task_chunks = run_task_chunks
+            return bx
+        engine._make_executor = making
+
+    t = time.perf_counter()
+    engine = alto.Engine(total_gpus=ENGINE_G, eval_every=2, device="cuda")
+    tasks = _engine_tasks(alto, cfg)
+    schedule = engine.schedule(tasks, method="cp", early_exit=ee)
+    schedule.validate(ENGINE_G)
+    note = (f"virtual cluster of G = {ENGINE_G}; one card trains every task "
+            f"in turn")
+    print(f"engine: schedule ({note}), cp, {schedule.solve_time_s * 1e3:.2f}"
+          f" ms to solve, optimal {schedule.optimal}, virtual makespan "
+          f"{schedule.makespan!r} s at the H100 constants (analytic, mfu "
+          f"0.4):")
+    for p in sorted(schedule.placements, key=lambda p: p.start):
+        task = next(x for x in tasks if x.task_name == p.task.name)
+        print(f"engine:   {p.task.name}: start {p.start!r} s on GPUs "
+              f"{p.gpu_ids}, duration {p.task.duration!r} s = "
+              f"{len(task.jobs())} jobs on Z = {engine.pick_slots(task)} "
+              f"at an analytic {engine.profiled_step_time(task) * 1e3:.3f} "
+              f"ms a step")
+
+    static_log, elastic_log = {}, {}
+    instrumented(engine, static_log)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset()
+    t0 = time.perf_counter()
+    static = engine.batched_execution(tasks, schedule, ee, strategy="static")
+    static_wall = time.perf_counter() - t0
+    static_launches = counts()
+
+    drivers = {}
+    instrumented(engine, elastic_log)
+    rt = cluster.ElasticClusterRuntime(ENGINE_G)
+    for task in tasks:
+        factory = engine.executor_driver_factory(task, ee)
+
+        def keeping(factory=factory, name=task.task_name):
+            drivers[name] = factory()
+            return drivers[name]
+        rt.submit(engine.profile_raw(task, ee), keeping)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset()
+    t0 = time.perf_counter()
+    elastic = rt.run(initial=schedule)
+    elastic_wall = time.perf_counter() - t0
+    elastic_launches = counts()
+
+    for label, rep_mk, util, replans, wall, log in (
+            ("static", static.virtual_makespan, static.utilization,
+             static.replans, static_wall, static_log),
+            ("elastic", elastic.makespan, elastic.utilization,
+             elastic.replans, elastic_wall, elastic_log)):
+        tokens = sum(r["tokens"] for r in log.values())
+        print(f"engine: {label}: virtual makespan {rep_mk!r} s, utilization "
+              f"{util:.4f}, replans {replans} ({note}); wall {wall:.3f} s "
+              f"for {tokens} real trained tokens = {tokens / wall:.1f} "
+              f"tokens/s over the whole run")
+    for task in tasks:
+        name = task.task_name
+        s, e, d = static_log[name], elastic_log[name], drivers[name]
+        Z = engine.pick_slots(task)
+        b = max(tc.per_adapter_batch for tc in task.jobs().values())
+        m_hat = engine.memory_model(task).predict(Z * b)
+        same = _same_task_result(torch, elastic.results[name],
+                                 static.task_results[name], e["hists"],
+                                 s["hists"])
+        res = static.task_results[name]
+        print(f"engine: {name}: {len(task.jobs())} jobs on Z = {Z} "
+              f"(pick_slots), b {b}, {task.num_gpus} virtual GPU(s); best "
+              f"{res.best_job} (val {res.best_val!r}), exits "
+              f"{res.exit_counts}; steps by LoRA set: static {s['sets']}, "
+              f"elastic {e['sets']}")
+        print(f"engine: {name}: M_hat(Z b = {Z * b}) {m_hat / 2**30:.2f} GiB "
+              f"(per virtual GPU of {task.num_gpus}) vs measured peak "
+              f"{e['peak'] / 2**30:.2f} GiB elastic, {s['peak'] / 2**30:.2f}"
+              f" GiB static")
+        step_s = engine.profiled_step_time(task)
+        print(f"engine: {name}: analytic step {step_s * 1e3:.3f} ms (mfu "
+              f"0.4, {task.num_gpus} GPU(s)) vs observed "
+              f"wall step {d.observed_wall_step_s() * 1e3:.3f} ms "
+              f"(ExecutorTaskDriver.observed_wall_step_s); real tokens/s "
+              f"over the task's wall: elastic "
+              f"{e['tokens'] / e['wall']:.1f}, static "
+              f"{s['tokens'] / s['wall']:.1f}")
+        print(f"engine: {name}: elastic == static, bit for bit (best, jobs, "
+              f"histories, adapters): {same}")
+        require(all(same), f"{name}: the elastic run's TaskResult differs "
+                           f"from the static run's")
+    eps = cluster._EPS
+    print(f"engine: elastic virtual makespan {elastic.makespan!r} <= static "
+          f"{static.virtual_makespan!r} (+ the runtime's epsilon {eps:g}): "
+          f"{elastic.makespan <= static.virtual_makespan + eps}")
+    require(elastic.makespan <= static.virtual_makespan + eps,
+            "the elastic virtual makespan exceeds the static one")
+    for label, launches in (("static", static_launches),
+                            ("elastic", elastic_launches)):
+        print(f"engine: {label} launches {launches}")
+        require(all(any(launches[k].values()) for k in fams)
+                and not any(launches["scan"].values()),
+                f"the {label} run did not launch every LoRA set, or ran "
+                f"the scan: {launches}")
+    del engine, drivers, static, elastic, static_log, elastic_log
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"engine phase took {time.perf_counter() - t:.1f} s")
+    return static_launches, elastic_launches
 
 
 def _kernel_family(name: str) -> str:
@@ -3639,6 +3931,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from concurrent.futures import ThreadPoolExecutor
 
+    from repro_torch.sched import profiler
+    global H100_BF16_FLOPS, H100_BYTES_S
+    H100_BF16_FLOPS = profiler.PEAK_FLOPS_BF16
+    H100_BYTES_S = profiler.HBM_BYTES_PER_S
+
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.registry import get_arch
     from repro_torch.data.synthetic import PairSlotBatcher
@@ -3736,6 +4033,8 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    eng_static, eng_elastic = engine_phase(torch, fams)
+    print(f"engine phase done at {time.perf_counter() - t_all:.1f} s")
     recovery_phase(torch, cfg)
     print(f"recovery phase done at {time.perf_counter() - t_all:.1f} s")
 
@@ -3782,6 +4081,10 @@ def main() -> int:
                              **h_lora[name]["shapes"]}
             res["max_abs_err"] = max(res["max_abs_err"],
                                      h_lora[name]["max_abs_err"])
+        fam = {"grouped_lora": "dense", "ragged": "ragged"}.get(
+            prefix, "rank-local")
+        by_path["engine_static"] = eng_static[fam][name]
+        by_path["engine_elastic"] = eng_elastic[fam][name]
         table["kernels"].append({
             "name": f"{prefix}_{name}", "route": "cuda",
             "source": f"{csrc}/{src}",
@@ -3805,7 +4108,9 @@ def main() -> int:
                "colocation": colo_launches["flash"]["flash_attention"],
                "dpo": dpo_launches["flash_attention"],
                "hymba_train": h_launches["flash_attention"],
-               "hymba_serve": h_serve["flash_attention"]}
+               "hymba_serve": h_serve["flash_attention"],
+               "engine_static": eng_static["flash"]["flash_attention"],
+               "engine_elastic": eng_elastic["flash"]["flash_attention"]}
     table["kernels"].append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"

@@ -1,20 +1,53 @@
 """Online greedy intra-task scheduler (paper §7.1, §A.3).
 
-Copied from ``repro.sched.intra_task`` (the port imports nothing of the
-JAX package): the linear memory model ``M_hat = k0 + k1 * tokens + k2 *
-rank_tokens``, which must stay within ``capacity * safety_margin`` — the
-serving frontend and the executor's admission both budget against it —
-and the greedy admission/backfill policy over one executor's slots
-(``IntraTaskScheduler``, exported to the executor as ``ExecutorSlots``).
-Admit pending jobs greedily in decreasing batch-size order while M_hat
-stays within the safety margin; slots are ragged, so mixed batch sizes
-co-train freely. The memory-model fit, profiling and cross-task admission
-come with the service slice.
+A verbatim copy of ``repro.sched.intra_task`` (numpy only): the port
+imports nothing of the JAX package.
+
+Decides how many adapters to co-locate on an executor and when to
+admit/evict, under a fitted linear memory model
+
+    M_hat(B) = k0 + k1 * B * L        (B = total batch, L = seq len)
+
+Profiling (paper §A.3 two-phase): (1) binary-search the largest
+single-adapter batch B_max that fits; (2) sweep (N, b) grid points with
+N*b <= B_max, measure peak memory, fit the regression
+(``fit_memory_model``). The engine (``core/engine.py``) fits the analytic
+accounting of ``sched/profiler.py`` at the card's memory size (same
+linear structure); the measured peaks are read beside it on the card.
+
+Admission policy: admit pending jobs greedily in decreasing batch-size
+order while M_hat stays within the safety margin. Slots are RAGGED
+(variable-width: the fused step packs per-slot row counts through the
+ragged grouped-LoRA kernels), so mixed batch sizes co-train freely — the
+budget is the token-linear memory model, never same-width slot counting.
+Cross-task admission (``admit_cross_task``) budgets the same way over
+TOKENS (slots * b * seq), letting tasks with different batch sizes and
+seq lens share one frozen-backbone replica.
+
+Rank-aware extension (rank-local grouped GEMM): adapters are also RANK-
+heterogeneous, and with the rank-local kernels a slot's compute/memory
+footprint scales with its TRUE rank, not the padded r_max. A fitted
+``k2`` term budgets rank-weighted FLOP-tokens (b * seq * rank per slot);
+requests that don't know their rank are charged r_max — the historical
+Z*r_max padded accounting, now the pessimistic fallback rather than the
+only option.
+
+Layer contract: this module is the single source of truth for "does this
+adapter set fit this replica" — ``MemoryModel.fits_ranked`` (k0 + k1*tokens
++ k2*rank_tokens <= capacity*safety_margin) is the invariant every
+admission path checks: intra-task backfill (``ExecutorSlots``), cross-task
+fusion (``admit_cross_task``), and — linearized into
+``ReplicaState.mem_budget`` — the fusion-aware inter-task planner
+(``plan_fused`` in inter_task.py). The three layers budgeting the same
+quantity is what makes a plan-level fusion decision realizable at
+admission time. The serving frontend budgets against the same model.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 
 @dataclasses.dataclass
@@ -80,6 +113,19 @@ class MemoryModel:
         if lora_rank:
             return lora_rank
         return self.r_max if self.r_max else 1
+
+
+def fit_memory_model(points: Sequence[Tuple[int, float]], seq_len: int,
+                     capacity: float, safety_margin: float = 0.9
+                     ) -> MemoryModel:
+    """OLS fit of peak-memory measurements: points = [(total_batch, bytes)]."""
+    B = np.asarray([p[0] * seq_len for p in points], np.float64)
+    M = np.asarray([p[1] for p in points], np.float64)
+    A = np.stack([np.ones_like(B), B], axis=1)
+    coef, *_ = np.linalg.lstsq(A, M, rcond=None)
+    return MemoryModel(k0=float(coef[0]), k1=float(coef[1]),
+                       seq_len=seq_len, capacity=capacity,
+                       safety_margin=safety_margin)
 
 
 @dataclasses.dataclass
@@ -158,3 +204,82 @@ class IntraTaskScheduler:
 # The executor's per-slot admission/backfill policy is the same object —
 # exported under the name the executor layer uses (§A.3 "executor slots").
 ExecutorSlots = IntraTaskScheduler
+
+
+# --------------------------------------------------------------------------
+# Cross-task admission (shared-backbone co-location)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ColoRequest:
+    """One task's demand on a shared replica: its concurrent-slot upper
+    bound, per-adapter batch size, seq len, and TRUE adapter rank.
+    ``seq_len=None`` falls back to the memory model's fit-time seq len
+    (homogeneous-seq legacy callers); ``lora_rank=None`` means the rank is
+    unknown and the task is charged at the model's padded r_max — the
+    rank-masked accounting the rank-local path replaces. M_hat budgets
+    slots * b * seq TOKENS plus k2 * rank-weighted FLOP-tokens."""
+    name: str
+    slots: int
+    per_adapter_batch: int
+    seq_len: Optional[int] = None
+    lora_rank: Optional[int] = None
+
+    def tokens(self, default_seq: int = 1) -> int:
+        seq = self.seq_len if self.seq_len else default_seq
+        return self.slots * self.per_adapter_batch * seq
+
+    def rank_tokens(self, default_seq: int = 1, default_rank: int = 1) -> int:
+        rank = self.lora_rank if self.lora_rank else default_rank
+        return self.tokens(default_seq) * rank
+
+
+def admit_cross_task(resident: Sequence[ColoRequest],
+                     pending: Sequence[ColoRequest],
+                     capacity_slots: int,
+                     mem: Optional[MemoryModel] = None) -> List[str]:
+    """§A.3 admission generalized across TASK boundaries: greedily admit
+    pending tasks in decreasing per-slot FLOP-token width (b * seq * rank;
+    ties broken by name for determinism) while the replica's slot capacity
+    holds and the fitted memory model M_hat stays inside the safety
+    margin. Tasks need NOT share a batch size, seq len, or rank — ragged
+    slots fuse heterogeneous widths and the rank-local kernels fuse
+    heterogeneous ranks in one step, so the only compatibility the key
+    retains is (arch, gpus, loss kind).
+
+    A rank-aware model (``mem.k2 > 0``) budgets rank-weighted FLOP-tokens
+    at each task's TRUE rank; requests without rank information — and
+    every request under a rank-neutral model — are charged the padded
+    ``r_max``, which is exactly the historical Z*r_max accounting.
+
+    ``resident`` are tasks already co-located on the replica (the host
+    included); their ``slots`` should be *current future-use bounds*, so
+    capacity freed by early exits is reclaimable the moment it frees.
+    Returns the admitted task names, in admission order."""
+    default_seq = mem.seq_len if mem is not None else 1
+    default_rank = mem.charged_rank(None) if mem is not None else 1
+    ranked = mem is not None and mem.k2 > 0
+    used_slots = sum(r.slots for r in resident)
+    used_tokens = sum(r.tokens(default_seq) for r in resident)
+    used_rtok = sum(r.rank_tokens(default_seq, default_rank)
+                    for r in resident)
+    admitted: List[str] = []
+
+    def width(r: ColoRequest) -> int:
+        w = r.per_adapter_batch * (r.seq_len if r.seq_len else default_seq)
+        if ranked:
+            w *= r.lora_rank if r.lora_rank else default_rank
+        return w
+
+    for r in sorted(pending, key=lambda r: (-width(r), r.name)):
+        if used_slots + r.slots > capacity_slots:
+            continue
+        tokens = used_tokens + r.tokens(default_seq)
+        rtok = used_rtok + r.rank_tokens(default_seq, default_rank)
+        if mem is not None and not mem.fits_ranked(tokens, rtok):
+            continue
+        admitted.append(r.name)
+        used_slots += r.slots
+        used_tokens = tokens
+        used_rtok = rtok
+    return admitted

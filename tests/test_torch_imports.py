@@ -1,7 +1,8 @@
 """PyTorch port: package rules.
 
 (e) No file under ``src/repro_torch/`` nor ``chip_smoke.py`` imports
-``jax`` or the JAX package ``repro`` (``repro_torch`` itself is fine).
+``jax`` or the JAX package ``repro`` (``repro_torch`` itself is fine): the
+scheduler (``sched/``) and the engine (``core/engine.py``) included.
 (f) Entry points run on the card by default: called without ``device`` on
 a machine without one they raise instead of running on the CPU.
 """
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.adapter_state import SlotManager
+from repro_torch.core.engine import Engine
 from repro_torch.core.executor import BatchedExecutor, SharedBackboneExecutor
 from repro_torch.data.synthetic import make_task_dataset
 from repro_torch.launch import serve as cli
@@ -70,6 +72,8 @@ ENTRY_POINTS = {
     "SharedBackboneExecutor": lambda: SharedBackboneExecutor(
         _tiny(), M.init_params(_tiny(), device="cpu"), Z=1,
         per_adapter_batch=1),
+    "Engine": lambda: Engine(total_gpus=1).batched_execution(
+        [], None, strategy="static"),
     "BatchedExecutor": lambda: BatchedExecutor(
         _tiny(), M.init_params(_tiny(), device="cpu"),
         make_task_dataset("t", 64, 8, num_train=4, num_val=2), Z=1,
