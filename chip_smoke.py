@@ -2,10 +2,11 @@
 """Chip smoke test of the PyTorch port: multi-adapter serving, rank-sweep
 and full-rank learning-rate-sweep LoRA training, heterogeneous multi-task
 co-location, DPO preference tuning, the engine (paper Listing 1)
-scheduling and running three tuning tasks statically and elastically, and
-crash-and-resume of stablelm-3b, then serving and rank-sweep LoRA training
-of rwkv6-3b and of hymba-1.5b, on one NVIDIA card, through the port's
-hand-written CUDA kernels.
+scheduling and running three tuning tasks statically and elastically, a
+live tuning-service session with tune-to-serve, and crash-and-resume of
+stablelm-3b, at the executor and through the service's journal, then
+serving and rank-sweep LoRA training of rwkv6-3b and of hymba-1.5b, on one
+NVIDIA card, through the port's hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -197,11 +198,12 @@ package. Phases, none of them caught:
             the ragged kernels while both widths are resident).
             Engine.schedule(method = "cp") places them on the virtual
             cluster of 2 GPUs at the H100 constants; then
-            batched_execution(strategy = "static"), then an
-            ElasticClusterRuntime(2) fed each task's profile_raw spec and
-            executor_driver_factory driver, from the same schedule. One
-            card trains every task in turn; the strategies differ in the
-            virtual timeline. Every train step must launch exactly one
+            batched_execution(strategy = "static"), then
+            batched_execution elastic (the default: a one-shot
+            TuningService session under the strict adoption rule, without
+            co-location), from the same schedule. One card trains every
+            task in turn; the strategies differ in the virtual timeline.
+            Every train step must launch exactly one
             LoRA set at phase 6's counts and flash 64 times, every eval
             step one set's forward pair (224 each) and flash 32 times, the
             scan never; each strategy must launch all three sets. Each
@@ -216,6 +218,29 @@ package. Phases, none of them caught:
             memory model's M_hat(Z b) beside the measured peak, the
             analytic step time beside the observed wall step
             (ExecutorTaskDriver.observed_wall_step_s), real tokens/s.
+14b. service — one live TuningService session on full-size stablelm-3b (its
+            own backbone from seed 0): Engine(total_gpus = 2, eval_every =
+            2) with the service's defaults (bounded-delay adoption at
+            delta 2, co-location, fusion planning, migration), winners
+            written under a temporary serve_dir, and phase 4's frontend
+            shape (an empty AdapterPool of 4, 4 lanes, max_len 256) over
+            the same backbone attached as a serving lease of one virtual
+            GPU. Phase 14a's tasks under their names: rank-sweep (tenant-a)
+            at 0, mixed-batch (tenant-b) at 0.25 x rank-sweep's admitted
+            duration, lr-sweep (tenant-c, 2 GPUs) at 2 x, cancelled at
+            0.25 x. Driven through the handles; then the lease is
+            cancelled. Checked: the states (lr-sweep's result() raises
+            TaskCancelled, it never trains); mixed-batch fused onto
+            rank-sweep's replica, ending inside it; each completed task
+            equal to phase 14a's static run bit for bit; two artifacts
+            with rank, spec version, arch, fuse key and best job in their
+            metadata, both published from the file (ADAPTER_PUBLISHED);
+            8 greedy requests (4 per winner, prompts 32-128, 32 new) equal
+            to a fresh pool holding the live winners, with the rank-local
+            forward pair and no flash launch; the feedback loop's two
+            observations of the key and its two step observations (the
+            memory model's peak printed beside the card's); every step's
+            launches as in 14a.
 15. recovery — the DPO task of phase 14 at full width and 4 layers, run
             uninterrupted, then again with a TaskCheckpointer(every=1) as
             its ckpt_hook and a SimulatedCrash after the third durable
@@ -227,6 +252,22 @@ package. Phases, none of them caught:
             fewer steps run; the same file with one AdamW moment of the
             uninterrupted run's winner perturbed must change the loss
             histories and the winner's adapter.
+15a. service recovery — kill and recover through the service at full
+            width and 4 layers: a task of 8 jobs (lr 1e-4/1e-3, rank
+            8/32, b 2/4) on 4 slots, 12 steps a job, EarlyExit(0.2, 0.5),
+            run by an uninterrupted session; then by a session with a
+            state_dir (the write-ahead journal and a checkpoint every
+            chunk) and a serve_dir that a SimulatedCrash ends after the
+            third durable checkpoint; then TuningService.recover(state_dir,
+            tasks, serve_frontend, device = "cuda"). The recovered result
+            equals the uninterrupted one bit for bit with fewer steps, one
+            TASK_RECOVERED "resumed"; the journal holds the session, one
+            submit, the checkpoints and the task's end; the winner is
+            published once from its artifact and served as the live winner
+            on a fresh pool, also after the serving pod is replaced
+            (republish_served). Control: a second crash with every
+            snapshot trashed recovers by requeue, equal, with as many
+            steps.
 
 The stablelm-3b backbone is freed; the rwkv6-3b phases (32 layers, d_model
 2560, 40 heads of 64, d_ff 8960, vocab 65536, scan chunk 128, bf16, random
@@ -334,7 +375,8 @@ the window binds in every forward:
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernel table as JSON (twenty kernels), with each kernel's launches by
 path (``engine_static`` and ``engine_elastic`` for the engine phase's two
-runs).
+runs, ``service`` and ``service_recovery`` for the service's trainings,
+``service_serve`` for its served requests).
 """
 from __future__ import annotations
 
@@ -344,6 +386,7 @@ import gc
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -451,6 +494,11 @@ RING_LOGITS_REL = 1e-4
 DPO_B = 2                     # preference pairs per slot in the DPO phase
 RECOVERY_STEPS = 12           # steps per job of the recovery phase's task
 ENGINE_G = 2                  # GPUs of the engine phase's virtual cluster
+# virtual seconds per chunk of the service phase's serving lease: finer
+# than the tasks' chunks (0.12-0.24 s), since the runtime admits an
+# arrival only once its clock passes it, and the lease's default 60 s
+# chunks carry that clock to 60 s before mixed-batch's arrival at 0.24 s
+LEASE_CHUNK_S = 0.05
 # full-size train step, kernels vs plain versions, per slot and relative
 # to the plain run: |loss diff|, |grad-norm diff|, and the RMS of the dA
 # (dB) differences over all 224 projections over the RMS of dA (dB). The
@@ -2807,71 +2855,64 @@ def _same_task_result(torch, a, b, hists_a, hists_b):
             hists_a == hists_b, adapters)
 
 
-def engine_phase(torch, fams):
-    """Listing 1 on the card: ``Engine(total_gpus=ENGINE_G, eval_every=2,
-    device="cuda")`` on full-size stablelm-3b (its own backbone, random
-    weights from seed 0) schedules three tasks on a virtual cluster of
-    ENGINE_G GPUs and runs them twice, one card training every task in
-    turn: through ``batched_execution(strategy="static")``, then through an
-    ``ElasticClusterRuntime`` fed ``profile_raw`` specs and
-    ``executor_driver_factory`` drivers from the same schedule. Every
-    executor the engine makes is wrapped: each train step must launch
-    exactly one LoRA set with ``_step_launches``' counts and flash 64
-    times, each eval step one set's forward pair and flash 32 times, the
-    linear scan never. Each task's results must be equal in both runs bit
-    for bit and the elastic virtual makespan no larger than the static one;
-    the three sets must each launch. Returns each strategy's launches by
-    kernel module."""
-    from repro_torch.configs.registry import get_arch
-    from repro_torch.core import engine as alto
-    from repro_torch.kernels.flash_attention import flash_attention as FA
-    from repro_torch.kernels.linear_scan import linear_scan as LSK
-    from repro_torch.sched import cluster, profiler
+def _cpu_result(torch, res):
+    """A TaskResult with every kept adapter moved to the CPU, so that a
+    finished task's adapters hold no card memory while later phases run."""
+    def cpu(ad):
+        return None if ad is None else {
+            t: {m: x.detach().cpu() for m, x in ab.items()}
+            for t, ab in ad.items()}
+    return dataclasses.replace(res, job_results={
+        j: dataclasses.replace(r, adapter=cpu(r.adapter))
+        for j, r in res.job_results.items()})
 
-    sync = torch.cuda.synchronize
-    total = torch.cuda.get_device_properties(0).total_memory
-    print(f"engine: planner's HBM_BYTES {profiler.HBM_BYTES:.4g} B "
-          f"({profiler.HBM_BYTES / 2**30:.2f} GiB), card {total} B "
-          f"({total / 2**30:.2f} GiB); PEAK_FLOPS_BF16 "
-          f"{profiler.PEAK_FLOPS_BF16:.4g}, HBM_BYTES_PER_S "
-          f"{profiler.HBM_BYTES_PER_S:.4g}")
-    require(profiler.HBM_BYTES <= total,
-            f"the planner's HBM_BYTES {profiler.HBM_BYTES} exceeds the "
-            f"card's {total} bytes")
-    cfg = get_arch("stablelm-3b")
-    ee = alto.EarlyExit(warmup_ratio=0.25, select_ratio=0.5)
-    lora_train, lora_eval, (seq_train, seq_eval) = _step_launches(cfg)
-    mods = {**fams, "flash": FA, "scan": LSK}
 
-    def counts():
-        return {k: dict(m.LAUNCHES) for k, m in mods.items()}
+class LaunchProbe:
+    """The engine phases' per-step checks, on every executor an engine
+    makes: each train step must launch exactly one LoRA set at
+    ``_step_launches(cfg)``' counts and flash attention once per layer of
+    each forward and recompute, each eval step one set's forward pair and
+    flash once per layer, the linear scan never. ``instrument`` also
+    records each task's real trained tokens, steps by set, wall, peak
+    memory and loss and validation histories."""
 
-    def reset():
-        for m in mods.values():
+    def __init__(self, torch, fams, cfg):
+        from repro_torch.kernels.flash_attention import flash_attention as FA
+        from repro_torch.kernels.linear_scan import linear_scan as LSK
+        self.torch = torch
+        self.fams = fams
+        self.mods = {**fams, "flash": FA, "scan": LSK}
+        self.lora_train, self.lora_eval, (self.seq_train, self.seq_eval) = \
+            _step_launches(cfg)
+
+    def counts(self):
+        return {k: dict(m.LAUNCHES) for k, m in self.mods.items()}
+
+    def reset(self):
+        for m in self.mods.values():
             m.reset_launches()
 
-    def check_step(kind, delta):
+    def check_step(self, kind, delta):
         """Exactly one LoRA set, at its counts; flash at the family's."""
-        want = lora_train if kind == "train" else lora_eval
-        sets = [k for k in fams if any(delta[k].values())]
+        want = self.lora_train if kind == "train" else self.lora_eval
+        seq = self.seq_train if kind == "train" else self.seq_eval
+        sets = [k for k in self.fams if any(delta[k].values())]
         ok = (len(sets) == 1 and delta[sets[0]] == want
-              and delta["flash"]["flash_attention"]
-              == (seq_train if kind == "train" else seq_eval)
+              and delta["flash"]["flash_attention"] == seq
               and not any(delta["scan"].values()))
         require(ok, f"an engine {kind} step launched {delta}; expected one "
-                    f"LoRA set at {want}, flash "
-                    f"{seq_train if kind == 'train' else seq_eval}, no scan")
+                    f"LoRA set at {want}, flash {seq}, no scan")
         return sets[0]
 
-    def instrumented(engine, log):
+    def instrument(self, engine, log):
         """Wrap every executor ``engine`` makes from now on (replacing an
         earlier wrapping): per-step launch checks, real tokens, its
         lifecycle, and its task's wall and peak memory, into ``log``."""
-        def make(task, early_exit):
-            return alto.Engine._make_executor(engine, task, early_exit)
+        from repro_torch.core import engine as alto
+        torch = self.torch
 
         def making(task, early_exit):
-            bx = make(task, early_exit)
+            bx = alto.Engine._make_executor(engine, task, early_exit)
             ex = bx.backbone
             rec = log.setdefault(task.task_name, {
                 "sets": {}, "tokens": 0, "train": 0, "eval": 0})
@@ -2879,10 +2920,10 @@ def engine_phase(torch, fams):
             def counted(fn, kind):
                 def run(*args):
                     tokens = ex.slots.occupied_tokens()
-                    before = counts()
+                    before = self.counts()
                     out = fn(*args)
-                    now = counts()
-                    s = check_step(kind, {
+                    now = self.counts()
+                    s = self.check_step(kind, {
                         k: {n: now[k][n] - before[k][n] for n in now[k]}
                         for k in now})
                     by_set = rec["sets"].setdefault(kind, {})
@@ -2901,22 +2942,73 @@ def engine_phase(torch, fams):
                 add(lc)
             ex.add_task = add_task
             chunks = bx.run_task_chunks
+            resume = bx.resume_task_chunks
 
-            def run_task_chunks(*args):
+            def timed(gen):
                 gc.collect()        # the previous task's executor
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
                 t = time.perf_counter()
-                result = yield from chunks(*args)
-                sync()
+                result = yield from gen
+                torch.cuda.synchronize()
                 rec["wall"] = time.perf_counter() - t
                 rec["peak"] = torch.cuda.max_memory_allocated()
                 # the lifecycle holds the executor: keep its histories only
                 rec["hists"] = _histories(rec.pop("lc"))
                 return result
-            bx.run_task_chunks = run_task_chunks
+            bx.run_task_chunks = lambda *a, **k: timed(chunks(*a, **k))
+            bx.resume_task_chunks = lambda *a, **k: timed(resume(*a, **k))
             return bx
         engine._make_executor = making
+
+    def keep_drivers(self, engine, drivers):
+        """Keep every driver ``engine``'s factories make, by task name."""
+        from repro_torch.core import engine as alto
+
+        def keeping(task, early_exit):
+            factory = alto.Engine.executor_driver_factory(engine, task,
+                                                          early_exit)
+
+            def make():
+                drivers[task.task_name] = factory()
+                return drivers[task.task_name]
+            return make
+        engine.executor_driver_factory = keeping
+
+
+def engine_phase(torch, fams):
+    """Listing 1 on the card: ``Engine(total_gpus=ENGINE_G, eval_every=2,
+    device="cuda")`` on full-size stablelm-3b (its own backbone, random
+    weights from seed 0) schedules three tasks on a virtual cluster of
+    ENGINE_G GPUs and runs them twice, one card training every task in
+    turn: through ``batched_execution(strategy="static")``, then through
+    ``batched_execution`` elastic (the default: a one-shot ``TuningService``
+    session under the strict adoption rule, without co-location) from the
+    same schedule. Every executor the engine makes is wrapped
+    (``LaunchProbe``): each train step must launch exactly one LoRA set
+    with ``_step_launches``' counts and flash 64 times, each eval step one
+    set's forward pair and flash 32 times, the linear scan never. Each
+    task's results must be equal in both runs bit for bit and the elastic
+    virtual makespan no larger than the static one; the three sets must
+    each launch. Returns each strategy's launches by kernel module and,
+    per task, the static result (adapters on the CPU) and its histories
+    for the service phase."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import engine as alto
+    from repro_torch.sched import cluster, profiler
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"engine: planner's HBM_BYTES {profiler.HBM_BYTES:.4g} B "
+          f"({profiler.HBM_BYTES / 2**30:.2f} GiB), card {total} B "
+          f"({total / 2**30:.2f} GiB); PEAK_FLOPS_BF16 "
+          f"{profiler.PEAK_FLOPS_BF16:.4g}, HBM_BYTES_PER_S "
+          f"{profiler.HBM_BYTES_PER_S:.4g}")
+    require(profiler.HBM_BYTES <= total,
+            f"the planner's HBM_BYTES {profiler.HBM_BYTES} exceeds the "
+            f"card's {total} bytes")
+    cfg = get_arch("stablelm-3b")
+    ee = alto.EarlyExit(warmup_ratio=0.25, select_ratio=0.5)
+    probe = LaunchProbe(torch, fams, cfg)
 
     t = time.perf_counter()
     engine = alto.Engine(total_gpus=ENGINE_G, eval_every=2, device="cuda")
@@ -2937,51 +3029,43 @@ def engine_phase(torch, fams):
               f"at an analytic {engine.profiled_step_time(task) * 1e3:.3f} "
               f"ms a step")
 
-    static_log, elastic_log = {}, {}
-    instrumented(engine, static_log)
+    static_log, elastic_log, drivers = {}, {}, {}
+    probe.instrument(engine, static_log)
     gc.collect()
     torch.cuda.empty_cache()
-    reset()
+    probe.reset()
     t0 = time.perf_counter()
     static = engine.batched_execution(tasks, schedule, ee, strategy="static")
     static_wall = time.perf_counter() - t0
-    static_launches = counts()
+    static_launches = probe.counts()
 
-    drivers = {}
-    instrumented(engine, elastic_log)
-    rt = cluster.ElasticClusterRuntime(ENGINE_G)
-    for task in tasks:
-        factory = engine.executor_driver_factory(task, ee)
-
-        def keeping(factory=factory, name=task.task_name):
-            drivers[name] = factory()
-            return drivers[name]
-        rt.submit(engine.profile_raw(task, ee), keeping)
+    probe.instrument(engine, elastic_log)
+    probe.keep_drivers(engine, drivers)
     gc.collect()
     torch.cuda.empty_cache()
-    reset()
+    probe.reset()
     t0 = time.perf_counter()
-    elastic = rt.run(initial=schedule)
+    elastic = engine.batched_execution(tasks, schedule, ee)
     elastic_wall = time.perf_counter() - t0
-    elastic_launches = counts()
+    elastic_launches = probe.counts()
+    require(elastic.execution == "elastic", f"batched_execution ran "
+            f"{elastic.execution!r} by default")
 
-    for label, rep_mk, util, replans, wall, log in (
-            ("static", static.virtual_makespan, static.utilization,
-             static.replans, static_wall, static_log),
-            ("elastic", elastic.makespan, elastic.utilization,
-             elastic.replans, elastic_wall, elastic_log)):
+    for label, rep, wall, log in (("static", static, static_wall, static_log),
+                                  ("elastic", elastic, elastic_wall,
+                                   elastic_log)):
         tokens = sum(r["tokens"] for r in log.values())
-        print(f"engine: {label}: virtual makespan {rep_mk!r} s, utilization "
-              f"{util:.4f}, replans {replans} ({note}); wall {wall:.3f} s "
-              f"for {tokens} real trained tokens = {tokens / wall:.1f} "
-              f"tokens/s over the whole run")
+        print(f"engine: {label}: virtual makespan {rep.virtual_makespan!r} "
+              f"s, utilization {rep.utilization:.4f}, replans {rep.replans} "
+              f"({note}); wall {wall:.3f} s for {tokens} real trained "
+              f"tokens = {tokens / wall:.1f} tokens/s over the whole run")
     for task in tasks:
         name = task.task_name
         s, e, d = static_log[name], elastic_log[name], drivers[name]
         Z = engine.pick_slots(task)
         b = max(tc.per_adapter_batch for tc in task.jobs().values())
         m_hat = engine.memory_model(task).predict(Z * b)
-        same = _same_task_result(torch, elastic.results[name],
+        same = _same_task_result(torch, elastic.task_results[name],
                                  static.task_results[name], e["hists"],
                                  s["hists"])
         res = static.task_results[name]
@@ -3007,10 +3091,10 @@ def engine_phase(torch, fams):
         require(all(same), f"{name}: the elastic run's TaskResult differs "
                            f"from the static run's")
     eps = cluster._EPS
-    print(f"engine: elastic virtual makespan {elastic.makespan!r} <= static "
-          f"{static.virtual_makespan!r} (+ the runtime's epsilon {eps:g}): "
-          f"{elastic.makespan <= static.virtual_makespan + eps}")
-    require(elastic.makespan <= static.virtual_makespan + eps,
+    mk, smk = elastic.virtual_makespan, static.virtual_makespan
+    print(f"engine: elastic virtual makespan {mk!r} <= static {smk!r} (+ "
+          f"the runtime's epsilon {eps:g}): {mk <= smk + eps}")
+    require(mk <= smk + eps,
             "the elastic virtual makespan exceeds the static one")
     for label, launches in (("static", static_launches),
                             ("elastic", elastic_launches)):
@@ -3019,11 +3103,469 @@ def engine_phase(torch, fams):
                 and not any(launches["scan"].values()),
                 f"the {label} run did not launch every LoRA set, or ran "
                 f"the scan: {launches}")
+    handover = {name: (_cpu_result(torch, res), static_log[name]["hists"])
+                for name, res in static.task_results.items()}
     del engine, drivers, static, elastic, static_log, elastic_log
     gc.collect()
     torch.cuda.empty_cache()
     print(f"engine phase took {time.perf_counter() - t:.1f} s")
-    return static_launches, elastic_launches
+    return static_launches, elastic_launches, handover
+
+
+def _serving_frontend(torch, cfg, params, Z=4):
+    """The serve cell's frontend over ``params``: an empty AdapterPool of
+    ``Z`` slots, a ServingReplica of LANES lanes and MAX_LEN positions."""
+    from repro_torch.serve import AdapterPool, ServingFrontend, ServingReplica
+    pool = AdapterPool(cfg, Z, device="cuda")
+    rep = ServingReplica(cfg, params, pool, lanes=LANES, max_len=MAX_LEN,
+                         device="cuda")
+    return pool, ServingFrontend(rep, mode="continuous")
+
+
+def _served_tokens(fe, requests):
+    """Greedy token streams of ``requests`` ((adapter id, prompt) pairs)
+    through ``fe``, in submission order."""
+    rids = [fe.submit(aid, prompt, MAX_NEW) for aid, prompt in requests]
+    fe.drain()
+    return [fe.result(r) for r in rids]
+
+
+def _fresh_tokens(torch, cfg, params, published, requests):
+    """The same requests through a fresh pool, replica and frontend on the
+    same backbone, into which each ``(adapter id, adapter, rank)`` of
+    ``published`` was published from memory."""
+    pool, fe = _serving_frontend(torch, cfg, params)
+    for aid, adapter, rank in published:
+        pool.publish(aid, adapter, rank)
+    out = _served_tokens(fe, requests)
+    del pool, fe
+    return out
+
+
+def _serve_requests(cfg, adapters, n_each, seed=7):
+    """``n_each`` greedy requests per adapter id, prompts of 32-128
+    tokens from a seeded task dataset."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import make_task_dataset
+    n = n_each * len(adapters)
+    ds = make_task_dataset("served", cfg.vocab_size, seq_len=128,
+                           num_train=n, difficulty=0.3, seed=seed)
+    lens = np.random.default_rng(seed).integers(32, 129, n)
+    return [(adapters[i % len(adapters)], ds.train[i, :int(lens[i])])
+            for i in range(n)]
+
+
+def service_phase(torch, fams, handover):
+    """One live ``TuningService`` session on full-size stablelm-3b (its own
+    backbone, random weights from seed 0): ``TuningService(engine=Engine(
+    total_gpus=ENGINE_G, eval_every=2, device="cuda"), serve_dir=...)`` with
+    the defaults (bounded-delay adoption at delta 2, co-location, fusion
+    planning, migration) and the serve cell's frontend attached as a
+    serving lease of one virtual GPU. The engine phase's tasks, under
+    their names and tenants: rank-sweep at 0, mixed-batch at 0.25 x
+    rank-sweep's admitted duration (the lease and rank-sweep hold both
+    virtual GPUs, so it must fuse onto rank-sweep's replica), lr-sweep at
+    2 x, cancelled at 0.25 x before it arrives. Driven through the
+    handles, then the lease is cancelled. Checked: states; the fusion;
+    each completed task equal to the engine phase's static result bit for
+    bit; the two winners published from their artifacts with their
+    metadata; 8 served requests equal to a fresh pool holding the live
+    winners; the feedback loop's observations; every step's launches.
+    Returns the training launches and the serving launches by module."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import engine as alto
+    from repro_torch.core.service import (TaskCancelled, TaskState,
+                                          TuningService)
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.grouped_lora import ranklocal as RL
+    from repro_torch.sched.events import EventKind
+    from repro_torch.serve import SPEC_VERSION
+
+    t = time.perf_counter()
+    cfg = get_arch("stablelm-3b")
+    ee = alto.EarlyExit(warmup_ratio=0.25, select_ratio=0.5)
+    probe = LaunchProbe(torch, fams, cfg)
+    tasks = {x.task_name: x for x in _engine_tasks(alto, cfg)}
+    engine = alto.Engine(total_gpus=ENGINE_G, eval_every=2, device="cuda")
+    log, drivers = {}, {}
+    probe.instrument(engine, log)
+    probe.keep_drivers(engine, drivers)
+    params = engine._base_params(cfg)
+    serve_dir = tempfile.mkdtemp(prefix="service-serve-")
+    try:
+        svc = TuningService(engine=engine, serve_dir=serve_dir)
+        pool, fe = _serving_frontend(torch, cfg, params)
+        lease = svc.attach_serving(fe, gpus=1, horizon_s=10_000.0,
+                                   chunk_s=LEASE_CHUNK_S)
+        gc.collect()
+        torch.cuda.empty_cache()
+        probe.reset()
+        t0 = time.perf_counter()
+        h_rank = svc.submit(tasks["rank-sweep"], early_exit=ee,
+                            tenant="tenant-a")
+        dur = svc._meta["rank-sweep"].spec.duration
+        h_mixed = svc.submit(tasks["mixed-batch"], at=0.25 * dur,
+                             early_exit=ee, tenant="tenant-b")
+        h_lr = svc.submit(tasks["lr-sweep"], at=2 * dur, early_exit=ee,
+                          tenant="tenant-c")
+        h_lr.cancel(at=0.25 * dur)
+        res = {"rank-sweep": h_rank.result(),
+               "mixed-batch": h_mixed.result()}
+        lease.cancel()
+        report = svc.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = probe.counts()
+
+        # 1. states
+        states = {h.name: h.status().state
+                  for h in (h_rank, h_mixed, h_lr, lease)}
+        print(f"service: {cfg.name} L={cfg.num_layers} d={cfg.d_model}, "
+              f"virtual cluster of {ENGINE_G} (a 1-GPU serving lease and "
+              f"the tasks), rank-sweep admitted for {dur!r} s: states "
+              f"{ {n: s.value for n, s in states.items()} }; wall "
+              f"{wall:.3f} s")
+        require(states == {"rank-sweep": TaskState.COMPLETED,
+                           "mixed-batch": TaskState.COMPLETED,
+                           "lr-sweep": TaskState.CANCELLED,
+                           "serve/replica-0": TaskState.CANCELLED},
+                f"service states {states}")
+        cancelled = False
+        try:
+            h_lr.result()
+        except TaskCancelled:       # the check's own mechanism
+            cancelled = True
+        require(cancelled and "lr-sweep" not in log,
+                "lr-sweep's result() did not raise TaskCancelled, or it "
+                "trained")
+        # 2. co-location on rank-sweep's replica
+        fused = [e for e in report.events if e.kind is EventKind.TASK_FUSED]
+        starts, ends = report.task_starts, report.task_ends
+        print(f"service: co-located {report.colocated}, fused events "
+              f"{[(e.task, e.time, e.detail) for e in fused]}; submitted "
+              f"at {svc.status('mixed-batch').submitted_at!r}; starts "
+              f"{starts}, ends {ends}; makespan {report.makespan!r}, "
+              f"replans {report.replans}, adopted {report.plans_adopted}, "
+              f"rejected {report.plans_rejected}")
+        require(report.colocated == {"mixed-batch": "rank-sweep"}
+                and [e.task for e in fused] == ["mixed-batch"]
+                and starts["mixed-batch"] < ends["rank-sweep"]
+                and ends["mixed-batch"] <= ends["rank-sweep"],
+                f"mixed-batch did not run on rank-sweep's replica: "
+                f"{report.colocated}, ends {ends}")
+        # 3. bitwise against the engine phase's static runs
+        for name, r in res.items():
+            base, hists = handover[name]
+            same = _same_task_result(torch, _cpu_result(torch, r), base,
+                                     log[name]["hists"], hists)
+            rec = log[name]
+            print(f"service: {name}: best {r.best_job} (val "
+                  f"{r.best_val!r}); {rec['tokens']} real trained tokens in "
+                  f"{rec['wall']:.3f} s = {rec['tokens'] / rec['wall']:.1f} "
+                  f"tokens/s; == the engine phase's static run, bit for bit "
+                  f"(best, jobs, histories, adapters): {same}")
+            require(all(same), f"{name}: the service's TaskResult differs "
+                               f"from the static engine's")
+        # 4. tune-to-serve artifacts and publish events
+        pubs = [e for e in report.events
+                if e.kind is EventKind.ADAPTER_PUBLISHED]
+        arts = sorted(Path(serve_dir).glob("*.npz"))
+        print(f"service: artifacts {[p.name for p in arts]} "
+              f"({sum(p.stat().st_size for p in arts) / 2**20:.1f} MiB); "
+              f"publish events {[(e.task, e.reason, e.detail) for e in pubs]}"
+              f"; pool {pool.resident()}")
+        require(len(arts) == 2 and sorted(e.task for e in pubs) == sorted(res)
+                and all(e.reason == "published"
+                        and "from=checkpoint" in e.detail for e in pubs)
+                and set(pool.resident()) == set(res),
+                "the winners were not both published from their artifacts")
+        for name, r in res.items():
+            meta = json.loads(str(np.load(svc._ckpt_paths[name],
+                                          allow_pickle=False)["__meta__"]))
+            jr = r.job_results[r.best_job]
+            want = {"rank": jr.config.lora_rank, "spec_version": SPEC_VERSION,
+                    "arch": cfg.name, "fuse_key": [cfg.name, 1, "sft"],
+                    "job": r.best_job}
+            require({k: meta[k] for k in want} == want,
+                    f"{name}: artifact metadata {meta} != {want}")
+        # 5. served answers against the live winners on a fresh pool
+        requests = _serve_requests(cfg, sorted(res), 4)
+        RL.reset_launches()
+        FA.reset_launches()
+        t1 = time.perf_counter()
+        served = _served_tokens(fe, requests)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t1
+        serve_launches = {"ranklocal": dict(RL.LAUNCHES),
+                          "flash": dict(FA.LAUNCHES)}
+        fresh = _fresh_tokens(torch, cfg, params, [
+            (n, r.job_results[r.best_job].adapter,
+             r.job_results[r.best_job].config.lora_rank)
+            for n, r in res.items()], requests)
+        n_tok = sum(len(s) for s in served)
+        print(f"service: served {len(requests)} requests ({n_tok} tokens) "
+              f"from the published artifacts in {serve_s:.3f} s = "
+              f"{n_tok / serve_s:.1f} tok/s; == a fresh pool holding the "
+              f"live winners, token for token: {served == fresh}; launches "
+              f"{serve_launches}")
+        require(served == fresh and all(len(s) == MAX_NEW for s in served),
+                "served tokens from the artifacts differ from the live "
+                "winners'")
+        require(all(serve_launches["ranklocal"][k] > 0
+                    for k in ("xa", "sb_add"))
+                and not any(serve_launches["ranklocal"][k]
+                            for k in ("ds", "dx", "da", "db"))
+                and serve_launches["flash"]["flash_attention"] == 0,
+                f"serving launched {serve_launches}")
+        # 6. the feedback loop
+        store = svc.profile_store
+        done = sorted(res, key=lambda n: ends[n])   # the order recorded
+        for name in done:
+            key = engine.profile_key(tasks[name])
+            est = svc._meta[name].unscaled_duration
+            realized = ends[name] - starts[name]
+            again = store.scaled_duration(
+                key, engine.profile_raw(tasks[name], ee).duration)
+            step_s = engine.profiled_step_time(tasks[name])
+            print(f"service: {name}: key {key}: realized/estimated "
+                  f"{realized!r} / {est!r} = {realized / est:.4f} (the "
+                  f"runtime's recorded start to its end); wall step "
+                  f"{drivers[name].observed_wall_step_s() * 1e3:.3f} ms vs "
+                  f"analytic {step_s * 1e3:.3f} ms; a second submission "
+                  f"would be admitted for {again!r} s (scale "
+                  f"{store.duration_scale(key):.4f})")
+        key = engine.profile_key(tasks["rank-sweep"])
+        require(key == engine.profile_key(tasks["mixed-batch"]),
+                "rank-sweep and mixed-batch have different profile keys")
+        obs = store.step_observations(key)
+        for name, o in zip(done, obs):
+            print(f"service: step observation ({name}): tokens {o.tokens:g}, "
+                  f"rank-tokens {o.rank_tokens:g}, wall {o.wall_s * 1e3:.3f} "
+                  f"ms, recorded peak (the memory model's prediction) "
+                  f"{o.peak_memory / 2**30:.2f} GiB vs the card's measured "
+                  f"peak {log[name]['peak'] / 2**30:.2f} GiB")
+        require(store.observations(key) == 2 and len(obs) == 2
+                and store.wall_step_time(key) > 0,
+                f"feedback: {store.observations(key)} observations, "
+                f"{len(obs)} step observations")
+        # 7. launches
+        print(f"service: launches {launches}; steps by LoRA set "
+              f"{ {n: r['sets'] for n, r in log.items()} }")
+        require(set(log) == set(res)
+                and not any(launches["scan"].values()),
+                f"the service trained {sorted(log)} or ran the scan")
+        del svc, lease, h_rank, h_mixed, h_lr, res, report, pool, fe
+    finally:
+        shutil.rmtree(serve_dir, ignore_errors=True)
+    del engine, params, drivers, log
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"service phase took {time.perf_counter() - t:.1f} s")
+    return launches, serve_launches
+
+
+def service_recovery_phase(torch, fams):
+    """Kill and recover through the service at full width and COLO_LAYERS
+    layers: the reference's recovery task (8 jobs of lr 1e-4/1e-3, rank
+    8/32, b 2/4 on 4 slots, 1 GPU, RECOVERY_STEPS steps a job,
+    EarlyExit(0.2, 0.5)) run by an uninterrupted session; then by a
+    session with ``state_dir``, ``serve_dir`` and ``ckpt_every=1`` that a
+    SimulatedCrash ends after the third durable checkpoint; then
+    ``TuningService.recover(state_dir, tasks=..., serve_frontend=fe4,
+    device="cuda")``. The recovered result must equal the uninterrupted
+    one bit for bit with fewer steps run, one TASK_RECOVERED "resumed",
+    the journal must hold the session, one submit, the checkpoints and
+    the task's end; the winner is published once from its artifact and
+    served as the live winner on a fresh pool, also after a serving pod
+    is replaced (``republish_served``). Control: a second crash with every
+    snapshot trashed recovers by requeue, equal, with as many steps.
+    Returns the launches by module of the recovered session."""
+    from repro_torch.checkpoint.taskstate import SimulatedCrash
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import engine as alto
+    from repro_torch.core.service import TuningService
+    from repro_torch.models import model as M
+    from repro_torch.sched.events import EventKind
+    from repro_torch.sched.journal import replay_journal
+
+    t = time.perf_counter()
+    cfg = dataclasses.replace(get_arch("stablelm-3b"), num_layers=COLO_LAYERS)
+    ee = alto.EarlyExit(warmup_ratio=0.2, select_ratio=0.5)
+    probe = LaunchProbe(torch, fams, cfg)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    name = "tenant-r"
+    task = alto.Task(model=cfg, dataset=_task_data(cfg, name), name=name,
+                     num_gpus=1, max_steps=RECOVERY_STEPS, num_slots=4,
+                     search_space={"lr": [1e-4, 1e-3], "rank": [8, 32],
+                                   "batch_size": [2, 4]})
+
+    def engine(log):
+        eng = alto.Engine(total_gpus=ENGINE_G, eval_every=2, device="cuda")
+        eng._param_cache[cfg.name] = params
+        probe.instrument(eng, log)
+        return eng
+
+    def timed_saves(ck, spent):
+        """Gather the seconds of each durable save of ``ck`` (the lifecycle
+        export, the fsynced file and the journal record) into ``spent``."""
+        save = ck.on_chunk
+
+        def on_chunk(lc, chunk_i):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            before = ck.saves.get(lc.task_name, 0)
+            try:
+                save(lc, chunk_i)
+            finally:
+                if ck.saves.get(lc.task_name, 0) > before:
+                    spent.append(time.perf_counter() - t0)
+        ck.on_chunk = on_chunk
+
+    def crash(state_dir, serve_dir, spent):
+        """A session that dies after its third durable checkpoint."""
+        svc = TuningService(engine=engine({}), state_dir=state_dir,
+                            serve_dir=serve_dir, ckpt_every=1)
+        svc._ckpt.fail_after["*"] = 3
+        timed_saves(svc._ckpt, spent)
+        h = svc.submit(task, early_exit=ee)
+        t0 = time.perf_counter()
+        died = None
+        try:
+            h.result()
+        except SimulatedCrash as e:      # the check's own mechanism
+            died = e
+        require(died is not None, "the session did not crash")
+        saves = svc._ckpt.saves.get(name, 0)
+        svc._journal.close()
+        del svc, h
+        gc.collect()
+        torch.cuda.empty_cache()
+        return died, saves, time.perf_counter() - t0
+
+    def recover(state_dir, fe, spent):
+        """(service, report, log, seconds to rebuild the session from the
+        journal and the latest snapshot, seconds to drain it)."""
+        log = {}
+        t0 = time.perf_counter()
+        svc = TuningService.recover(state_dir, tasks=[(task, ee)],
+                                    serve_frontend=fe, device="cuda")
+        t_load = time.perf_counter() - t0
+        svc.engine._param_cache[cfg.name] = params
+        probe.instrument(svc.engine, log)
+        timed_saves(svc._ckpt, spent)
+        t0 = time.perf_counter()
+        rep = svc.run_until_idle()
+        torch.cuda.synchronize()
+        return svc, rep, log, t_load, time.perf_counter() - t0
+
+    base_log = {}
+    t0 = time.perf_counter()
+    svc0 = TuningService(engine=engine(base_log))
+    res0 = svc0.submit(task, early_exit=ee).result()
+    torch.cuda.synchronize()
+    t_base = time.perf_counter() - t0
+    steps0 = svc0._meta[name].driver._steps
+    del svc0
+    win0 = res0.job_results[res0.best_job]
+    requests = _serve_requests(cfg, [name], 2)
+    want = _fresh_tokens(torch, cfg, params, [
+        (name, win0.adapter, win0.config.lora_rank)], requests)
+    with tempfile.TemporaryDirectory() as root:
+        state_dir, serve_dir = f"{root}/state", f"{root}/serve"
+        saves_s = []
+        died, saves, t_crash = crash(state_dir, serve_dir, saves_s)
+        journal = Path(state_dir, "journal")
+        j_bytes = sum(p.stat().st_size for p in journal.glob("*.jsonl"))
+        ckpts = sorted(Path(state_dir, "ckpt").rglob("*.npz"))
+        print(f"service recovery: {cfg.name} d={cfg.d_model} "
+              f"L={cfg.num_layers}, {len(task.jobs())} jobs on Z 4: "
+              f"uninterrupted {steps0} steps in {t_base:.1f} s; crashed "
+              f"({died}) after {saves} saves in {t_crash:.1f} s; journal "
+              f"{len(replay_journal(state_dir).records)} records, {j_bytes} "
+              f"B; snapshots kept {[p.name for p in ckpts]}, "
+              f"{sum(p.stat().st_size for p in ckpts) / 2**20:.0f} MiB; "
+              f"saves {[round(s, 3) for s in saves_s]} s")
+        pool4, fe4 = _serving_frontend(torch, cfg, params)
+        probe.reset()
+        rec_saves = []
+        svc, rep, log, t_load, t_rec = recover(state_dir, fe4, rec_saves)
+        launches = probe.counts()
+        res = rep.task_results[name]
+        steps = svc._meta[name].driver._steps
+        same = _same_task_result(torch, res, res0, log[name]["hists"],
+                                 base_log[name]["hists"])
+        recov = [(e.task, e.reason, e.detail) for e in rep.events
+                 if e.kind is EventKind.TASK_RECOVERED]
+        print(f"service recovery: recover() (journal replay, snapshot "
+              f"load, resubmission) {t_load:.3f} s; then {steps} steps in "
+              f"{t_rec:.1f} s with {len(rec_saves)} saves of "
+              f"{sum(rec_saves):.1f} s together ({recov}); == uninterrupted, "
+              f"bit for bit (best, jobs, histories, adapters): {same}; best "
+              f"{res.best_job} (val {res.best_val!r})")
+        require(all(same) and 0 < steps < steps0
+                and [r[:2] for r in recov] == [(name, "resumed")],
+                f"recovered {steps} steps (uninterrupted {steps0}), "
+                f"{recov}, equal {same}")
+        jr = replay_journal(state_dir)
+        kinds = [r["rec"] for r in jr.records]
+        j_bytes = sum(p.stat().st_size for p in journal.glob("*.jsonl"))
+        print(f"service recovery: journal {len(kinds)} records, {j_bytes} "
+              f"B ({ {k: kinds.count(k) for k in sorted(set(kinds))} }), "
+              f"corrupt {jr.corrupt}, torn {jr.torn_tail}")
+        require(jr.session() is not None and len(jr.submits()) == 1
+                and kinds.count("ckpt") >= 3
+                and name in jr.terminal_tasks() and not jr.corrupt,
+                "the journal lacks the session, the submit, the "
+                "checkpoints or the task's end")
+        pubs = [(e.reason, e.detail) for e in rep.events
+                if e.kind is EventKind.ADAPTER_PUBLISHED]
+        got = _served_tokens(fe4, requests)
+        print(f"service recovery: published {pubs}; served == the "
+              f"uninterrupted run's live winner on a fresh pool: "
+              f"{got == want}")
+        require(len(pubs) == 1 and pubs[0][0] == "published"
+                and "from=checkpoint" in pubs[0][1] and got == want
+                and set(pool4.resident()) == {name},
+                "the recovered winner was not served from its artifact")
+        del pool4, fe4
+        pool5, fe5 = _serving_frontend(torch, cfg, params)
+        again = svc.republish_served(fe5)
+        got5 = _served_tokens(fe5, requests)
+        print(f"service recovery: a replaced serving pod republished "
+              f"{again}; served == live winner: {got5 == want}")
+        require(again == [name] and got5 == want,
+                "the replaced serving pod did not serve the winner")
+        del svc, rep, res, pool5, fe5
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # control: every snapshot trashed, recovery requeues from zero
+        state_dir, serve_dir = f"{root}/state2", f"{root}/serve2"
+        crash(state_dir, serve_dir, [])
+        for p in Path(state_dir, "ckpt").rglob("*.npz"):
+            p.write_bytes(b"\x00" * 100)
+        svc, rep, log, _, t_rec = recover(state_dir, None, [])
+        res = rep.task_results[name]
+        steps = svc._meta[name].driver._steps
+        same = _same_task_result(torch, res, res0, log[name]["hists"],
+                                 base_log[name]["hists"])
+        recov = [(e.task, e.reason) for e in rep.events
+                 if e.kind is EventKind.TASK_RECOVERED]
+        print(f"service recovery: control, snapshots trashed: {recov}, "
+              f"{steps} steps in {t_rec:.1f} s, == uninterrupted {same}")
+        require(recov == [(name, "requeued")] and all(same)
+                and steps == steps0,
+                f"the control recovered {recov} with {steps} steps, equal "
+                f"{same}")
+        del svc, rep, res
+    del params, res0, win0
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"service recovery phase took {time.perf_counter() - t:.1f} s")
+    return launches
 
 
 def _kernel_family(name: str) -> str:
@@ -4033,10 +4575,16 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    eng_static, eng_elastic = engine_phase(torch, fams)
+    eng_static, eng_elastic, handover = engine_phase(torch, fams)
     print(f"engine phase done at {time.perf_counter() - t_all:.1f} s")
+    svc_launches, svc_serve = service_phase(torch, fams, handover)
+    del handover
+    print(f"service phase done at {time.perf_counter() - t_all:.1f} s")
     recovery_phase(torch, cfg)
     print(f"recovery phase done at {time.perf_counter() - t_all:.1f} s")
+    svc_rec_launches = service_recovery_phase(torch, fams)
+    print(f"service recovery phase done at "
+          f"{time.perf_counter() - t_all:.1f} s")
 
     scan, rwkv_serve, rwkv_launches = rwkv_phases(torch, fams, t_all)
     gc.collect()                 # the rwkv6-3b backbone
@@ -4085,6 +4633,10 @@ def main() -> int:
             prefix, "rank-local")
         by_path["engine_static"] = eng_static[fam][name]
         by_path["engine_elastic"] = eng_elastic[fam][name]
+        by_path["service"] = svc_launches[fam][name]
+        by_path["service_recovery"] = svc_rec_launches[fam][name]
+        if fam == "rank-local" and name in ("xa", "sb_add"):
+            by_path["service_serve"] = svc_serve["ranklocal"][name]
         table["kernels"].append({
             "name": f"{prefix}_{name}", "route": "cuda",
             "source": f"{csrc}/{src}",
@@ -4110,7 +4662,11 @@ def main() -> int:
                "hymba_train": h_launches["flash_attention"],
                "hymba_serve": h_serve["flash_attention"],
                "engine_static": eng_static["flash"]["flash_attention"],
-               "engine_elastic": eng_elastic["flash"]["flash_attention"]}
+               "engine_elastic": eng_elastic["flash"]["flash_attention"],
+               "service": svc_launches["flash"]["flash_attention"],
+               "service_recovery":
+                   svc_rec_launches["flash"]["flash_attention"],
+               "service_serve": svc_serve["flash"]["flash_attention"]}
     table["kernels"].append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -4121,7 +4677,9 @@ def main() -> int:
     by_path = {"rwkv_train": rwkv_launches["linear_scan"],
                "rwkv_serve": rwkv_serve["linear_scan"],
                "hymba_train": h_launches["linear_scan"],
-               "hymba_serve": h_serve["linear_scan"]}
+               "hymba_serve": h_serve["linear_scan"],
+               "service": svc_launches["scan"]["linear_scan"],
+               "service_recovery": svc_rec_launches["scan"]["linear_scan"]}
     table["kernels"].append({
         "name": "linear_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",

@@ -12,15 +12,20 @@ rank-sweep training through the same executor. The hybrid family
 (hymba-1.5b) adds the Mamba branch (``models/mamba.py``) beside attention
 and its cache. Above the executor sit the engine of paper Listing 1
 (``core/engine.py``: tasks, slot sizing from the memory model, profiling,
-``schedule`` and static ``batched_execution``) and the host-side scheduler
+``schedule`` and ``batched_execution``) and the host-side scheduler
 (``sched/``: the inter-task planner, the elastic cluster runtime over
 ``ExecutorTaskDriver``s, the intra-task admission policy, the profiler at
 H100 constants, the fitted cost models and the event vocabulary), copies
-of the JAX package's. The elastic ``batched_execution`` waits for the
-tuning service. The kernels are written in CUDA C++ for Hopper: the
-rank-local, dense and ragged grouped-LoRA forward and backward kernels
-(``kernels/grouped_lora``), causal flash attention
-(``kernels/flash_attention``) and the chunked linear scan
-(``kernels/linear_scan``).
+of the JAX package's. Above the engine sits the tuning service
+(``core/service.py``: ``TuningService`` sessions with arrivals, co-location,
+cancellation, per-tenant quotas, the profiler feedback loop and
+tune-to-serve into a live ``ServingFrontend``; the elastic
+``batched_execution`` is a one-shot session), with its write-ahead journal
+(``sched/journal.py``) and kill-and-recover, the chaos harness
+(``sched/chaos.py``) and serving leases (``serve/driver.py``). The kernels
+are written in CUDA C++ for Hopper: the rank-local, dense and ragged
+grouped-LoRA forward and backward kernels (``kernels/grouped_lora``),
+causal flash attention (``kernels/flash_attention``) and the chunked
+linear scan (``kernels/linear_scan``).
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

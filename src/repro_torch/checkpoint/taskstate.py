@@ -30,9 +30,10 @@ stream is bitwise identical to the uninterrupted run's tail.
 the lifecycle atomically every ``every`` chunks under
 ``state_dir/ckpt/<task>/chunk-%06d.npz``, prunes stale snapshots, and can
 raise ``SimulatedCrash`` after N saves (a kill at a chunk boundary: what is
-on disk is already fsynced). The JAX package's event journal, which the
-service writes ``ckpt`` records to, belongs to the service slice and is not
-ported yet.
+on disk is already fsynced). Given the service's ``EventJournal``
+(``sched/journal.py``), it appends a ``ckpt`` record (task, path, chunk,
+remaining-steps bound) for each save, which ``TuningService.recover``
+resumes from.
 """
 from __future__ import annotations
 
@@ -236,16 +237,13 @@ class TaskCheckpointer:
     completed chunks. Keeps the last ``keep`` snapshots per task. If
     ``fail_after[task]`` (or the ``"*"`` wildcard) is set, raises
     ``SimulatedCrash`` once that many saves have landed for the task —
-    AFTER the save is durable, mimicking a pod death at a boundary.
-    ``journal`` must be None: the event journal comes with the service."""
+    AFTER the save is durable, mimicking a pod death at a boundary."""
 
     def __init__(self, state_dir: str, journal=None, every: int = 1,
                  keep: int = 2):
-        if journal is not None:
-            raise NotImplementedError(
-                "the event journal is not ported yet (service slice)")
         self.dir = os.path.join(state_dir, "ckpt")
         os.makedirs(self.dir, exist_ok=True)
+        self.journal = journal
         self.every = max(int(every), 1)
         self.keep = max(int(keep), 1)
         self.fail_after: Dict[str, int] = {}
@@ -259,6 +257,11 @@ class TaskCheckpointer:
         tree, meta = export_lifecycle(lc)
         meta["chunk"] = chunk_i
         save_state_tree(path, tree, meta)
+        if self.journal is not None:
+            self.journal.append({
+                "rec": "ckpt", "task": lc.task_name, "path": path,
+                "chunk": chunk_i,
+                "remaining_steps_bound": meta["remaining_steps_bound"]})
         self._prune(tdir)
         self.saves[lc.task_name] = self.saves.get(lc.task_name, 0) + 1
         limit = self.fail_after.get(lc.task_name, self.fail_after.get("*"))

@@ -1,1 +1,2 @@
-"""Slot-stacked LoRA and the serving steps."""
+"""The LoRA core, the train and eval steps, the executor, the engine of
+paper Listing 1 and the tuning service."""

@@ -6,8 +6,7 @@
                        dataset=..., search_space={...})]
     early_exit = alto.EarlyExit(warmup_ratio=0.05)
     schedule = engine.schedule(tasks, method="cp")
-    best = engine.batched_execution(tasks, schedule, early_exit,
-                                    strategy="static")
+    best = engine.batched_execution(tasks, schedule, early_exit)
 
 The engine profiles each task (duration d_i, GPU need g_i), computes the
 inter-task placement, instantiates one BatchedExecutor per task hosting
@@ -15,15 +14,14 @@ multiple jobs on a shared base-model replica, monitors loss trajectories,
 and returns the best adapter per task — all transparently to the user.
 
 Port of ``repro.core.engine``: the host side (task expansion, slot sizing,
-profiling, scheduling, the static execution path, the driver factories)
-is the reference's line for line, at the H100 constants of
-``sched/profiler.py``. The engine runs on the card unless the caller passes
-``device="cpu"``; every task trains through the port's ``BatchedExecutor``
-and its CUDA kernels. ``batched_execution(strategy="elastic")`` runs
-through the tuning service in the reference and raises here until the
-service is ported; the elastic runtime itself runs today as the service
-runs it inside: an ``ElasticClusterRuntime`` fed ``profile_raw`` specs and
-``executor_driver_factory`` drivers.
+profiling, scheduling, both execution paths, the driver factories) is the
+reference's line for line, at the H100 constants of ``sched/profiler.py``.
+The engine runs on the card unless the caller passes ``device="cpu"``;
+every task trains through the port's ``BatchedExecutor`` and its CUDA
+kernels. ``batched_execution(strategy="elastic")`` (the default) is a
+one-shot ``TuningService`` session (``core/service.py``): an
+``ElasticClusterRuntime`` over ``executor_driver_factory`` drivers under
+the strict adoption rule, with exclusive placement.
 """
 from __future__ import annotations
 
@@ -345,14 +343,13 @@ class Engine:
                           strategy: str = "elastic") -> EngineReport:
         """Execute every task and return best adapters.
 
-        In the reference this is a thin wrapper over a one-shot
-        ``TuningService`` session: every task is submitted at t=0 and the
-        session is drained to idle. strategy="elastic" (default) runs the
-        event loop with the strict anomaly-safe adoption rule
-        (delay_delta=None), preserving the elastic<=static makespan
-        guarantee; it raises ``NotImplementedError`` here until the service
-        is ported (drive ``ElasticClusterRuntime`` over
-        ``executor_driver_factory`` drivers meanwhile). strategy="static"
+        A thin wrapper over a one-shot ``TuningService`` session: every
+        task is submitted at t=0 and the session is drained to idle.
+        strategy="elastic" (default) runs the event loop with the strict
+        anomaly-safe adoption rule (delay_delta=None) and no co-location,
+        preserving the elastic<=static makespan guarantee; each task's
+        residual estimate is seeded with the worst of its planned and its
+        executing duration. strategy="static"
         keeps the precomputed plan for A/B: tasks run to completion in
         schedule start order and the makespan estimate is the plan's worst
         case.
@@ -384,8 +381,30 @@ class Engine:
                 execution="static", virtual_makespan=schedule.makespan,
                 utilization=util)
 
-        raise NotImplementedError(
-            "batched_execution(strategy='elastic') runs through the tuning "
-            "service (core/service.py), which is not ported yet; use "
-            "strategy='static', or an ElasticClusterRuntime over "
-            "executor_driver_factory drivers")
+        from repro_torch.core.service import TuningService
+        # colocate=False: the batch A/B contract is exclusive placement
+        # under the strict adoption rule; shared-replica fusion is the
+        # service path's lever (TuningService defaults it on)
+        service = TuningService(engine=self, delay_delta=None,
+                                colocate=False)
+        for placement in schedule.placements:
+            task = by_name[placement.task.name]
+            # The schedule may have been solved under a different
+            # EarlyExitConfig than the one now executing (warmup/selection
+            # shape the lifecycle). Seed the runtime's residual estimate
+            # with the worst case of both so it stays a true upper bound —
+            # otherwise the replanner would project GPUs free too early.
+            # (raw: the service applies the feedback scale exactly once)
+            exec_spec = self.profile_raw(task, early_exit)
+            spec = dataclasses.replace(
+                placement.task,
+                duration=max(placement.task.duration, exec_spec.duration))
+            service.submit(task, at=0.0, early_exit=early_exit, spec=spec)
+        report = service.run_until_idle(initial=schedule)
+        return EngineReport(
+            task_results=dict(report.task_results), schedule=schedule,
+            makespan_estimate=schedule.makespan,
+            wall_time_s=time.time() - t0,
+            execution="elastic", virtual_makespan=report.makespan,
+            utilization=report.utilization, replans=report.replans,
+            events=report.events)

@@ -22,8 +22,9 @@
     GPUs one task waits for the others. The three tasks reach the dense,
     rank-local and ragged LoRA Functions. Weights come from the JAX
     package through ``bridge``.
-(d) ``batched_execution(strategy="elastic")`` raises until the tuning
-    service is ported.
+(d) ``batched_execution(strategy="elastic")``, the default, is a one-shot
+    tuning-service session: each task's result equals the static run's
+    bit for bit, with a virtual makespan no larger.
 
 Everything runs on the CPU (``device="cpu"``).
 """
@@ -345,16 +346,36 @@ def test_static_solo_elastic_bitwise(env, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# (d) the elastic wrapper
+# (d) the elastic wrapper: a one-shot tuning-service session
 # ---------------------------------------------------------------------------
 
-def test_elastic_batched_execution_waits_for_the_service(env):
+def test_elastic_batched_execution_runs_through_the_service(env):
+    """``batched_execution`` (elastic by default) submits every placement
+    to a one-shot ``TuningService`` session (strict adoption rule, no
+    co-location) and drains it: each task's TaskResult equals the static
+    run's bit for bit (best job and value, every job, loss and validation
+    histories, kept adapters), the virtual makespan is no larger, and the
+    report carries the session's events and replans."""
     cfg, ds, params = env
+    ee = TENG.EarlyExit(**EE)
+    tasks = _tasks(cfg, ds)
     engine = _engine(cfg, params)
-    tasks = _tasks(cfg, ds)[:1]
-    schedule = engine.schedule(tasks)
-    with pytest.raises(NotImplementedError, match="tuning service"):
-        engine.batched_execution(tasks, schedule)
-    with pytest.raises(NotImplementedError, match="tuning service"):
-        engine.batched_execution(tasks, schedule, strategy="elastic")
-    assert engine._param_cache == {cfg.name: params}   # nothing trained
+    static_lcs = _record_lifecycles(engine)
+    schedule = engine.schedule(tasks, method="cp", early_exit=ee)
+    static = engine.batched_execution(tasks, schedule, ee, strategy="static")
+    engine2 = _engine(cfg, params)
+    elastic_lcs = _record_lifecycles(engine2)
+    elastic = engine2.batched_execution(tasks, schedule, ee)
+    assert elastic.execution == "elastic"
+    assert set(elastic.task_results) == {t.task_name for t in tasks}
+    for task in tasks:
+        name = task.task_name
+        assert _same(elastic.task_results[name], static.task_results[name],
+                     elastic_lcs[name], static_lcs[name]), name
+    assert elastic.virtual_makespan <= static.virtual_makespan + 1e-9
+    assert elastic.replans > 0 and elastic.utilization > 0.0
+    kinds = [e.kind.value for e in elastic.events]
+    assert kinds.count("task_completed") == len(tasks)
+    assert "task_cancelled" not in kinds
+    assert elastic.schedule is schedule
+    assert elastic.makespan_estimate == schedule.makespan

@@ -2,7 +2,9 @@
 
 (e) No file under ``src/repro_torch/`` nor ``chip_smoke.py`` imports
 ``jax`` or the JAX package ``repro`` (``repro_torch`` itself is fine): the
-scheduler (``sched/``) and the engine (``core/engine.py``) included.
+scheduler (``sched/``, the journal and chaos harness among it), the engine
+(``core/engine.py``), the tuning service (``core/service.py``) and the
+serving lease (``serve/driver.py``) included.
 (f) Entry points run on the card by default: called without ``device`` on
 a machine without one they raise instead of running on the CPU.
 """
@@ -16,6 +18,7 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.core.adapter_state import SlotManager
 from repro_torch.core.engine import Engine
 from repro_torch.core.executor import BatchedExecutor, SharedBackboneExecutor
+from repro_torch.core.service import TuningService
 from repro_torch.data.synthetic import make_task_dataset
 from repro_torch.launch import serve as cli
 from repro_torch.models import model as M
@@ -74,6 +77,7 @@ ENTRY_POINTS = {
         per_adapter_batch=1),
     "Engine": lambda: Engine(total_gpus=1).batched_execution(
         [], None, strategy="static"),
+    "TuningService": lambda: TuningService(total_gpus=1),
     "BatchedExecutor": lambda: BatchedExecutor(
         _tiny(), M.init_params(_tiny(), device="cpu"),
         make_task_dataset("t", 64, 8, num_train=4, num_val=2), Z=1,

@@ -10,8 +10,9 @@ task, against the JAX package and inside the port.
 (c) The durable state: ``save_state_tree`` round trips and reads and writes
     the JAX package's files, ``TaskCheckpointer`` prunes and finds the
     latest file, a corrupt file degrades to ``None``
-    (tests/test_recovery.py:112, :228, :193), and the port's exported
-    lifecycle tree has the JAX package's keys.
+    (tests/test_recovery.py:112, :228, :193), given the service's journal it
+    appends one ``ckpt`` record per save, and the port's exported lifecycle
+    tree has the JAX package's keys.
 (d) Kill and recover at the executor: a task crashed by ``SimulatedCrash``
     after a durable checkpoint and resumed on a fresh executor with
     ``resume_task_chunks`` ends bitwise equal to the uninterrupted run (every
@@ -370,9 +371,31 @@ def test_corrupt_or_stale_checkpoint_degrades_to_none(tmp_path):
     assert TTS.load_task_checkpoint(str(tmp_path / "missing.npz")) is None
 
 
-def test_journal_is_not_ported_yet(tmp_path):
-    with pytest.raises(NotImplementedError, match="journal"):
-        TTS.TaskCheckpointer(str(tmp_path), journal=object())
+def test_checkpointer_journals_each_save(tiny, tmp_path):
+    """Given the service's journal, ``TaskCheckpointer`` appends one ``ckpt``
+    record per save (the reference's keys), each naming a file whose meta
+    holds its chunk and remaining-steps bound; the JAX package's replay
+    reads the port's journal to the same records."""
+    from repro.sched.journal import replay_journal as jreplay
+    from repro_torch.sched.journal import EventJournal, replay_journal
+    sd = str(tmp_path / "state")
+    jobs, make = _task(tiny, "sft")
+    ck = TTS.TaskCheckpointer(sd, journal=EventJournal(sd), every=1, keep=8)
+    bx = make()
+    bx.ckpt_hook = ck.on_chunk
+    bx.run_task("sft", jobs, 8)
+    rep = replay_journal(sd)
+    recs = [r for r in rep.records if r["rec"] == "ckpt"]
+    assert len(recs) == ck.saves["sft"] >= 3
+    for i, r in enumerate(recs, 1):
+        assert set(r) == {"rec", "task", "path", "chunk",
+                          "remaining_steps_bound"}
+        meta = TTS.load_task_checkpoint(r["path"])[1]
+        assert (r["task"], r["chunk"], r["remaining_steps_bound"]) == (
+            "sft", meta["chunk"], meta["remaining_steps_bound"])
+    assert [r["chunk"] for r in recs] == sorted({r["chunk"] for r in recs})
+    assert rep.checkpoints()["sft"] == recs[-1]
+    assert jreplay(sd).records == rep.records
 
 
 def _keys(node):
