@@ -5,8 +5,10 @@ co-location, DPO preference tuning, the engine (paper Listing 1)
 scheduling and running three tuning tasks statically and elastically, a
 live tuning-service session with tune-to-serve, and crash-and-resume of
 stablelm-3b, at the executor and through the service's journal, then
-serving and rank-sweep LoRA training of rwkv6-3b and of hymba-1.5b, on one
-NVIDIA card, through the port's hand-written CUDA kernels.
+serving and rank-sweep LoRA training of rwkv6-3b, of hymba-1.5b and of the
+MoE granite-moe-1b-a400m, and a train check of llama4-scout-17b-a16e at
+full width, on one NVIDIA card, through the port's hand-written CUDA
+kernels.
 
     python3 chip_smoke.py
 
@@ -372,11 +374,65 @@ the window binds in every forward:
             never. The same measurements as phase 6, with flash's and the
             scan's shares of the device time.
 
+The hymba-1.5b backbone is freed; the MoE phases follow
+(``moe_phases``), on granite-moe-1b-a400m (24 layers, d_model 1024, 16
+heads of 64 with 8 KV heads, 32 routed experts of d_ff 512, top-8,
+capacity factor 1.25, vocab 49155, tied embeddings, bf16, random weights
+from a seed; LoRA on q/k/v/o, 96 projections per forward; the experts,
+router and embeddings frozen), then llama4-scout-17b-a16e:
+
+24. moe kernels — the six rank-local kernels against their plain versions
+            at granite's q/o (1024 x 1024) and k/v (1024 x 512) shapes at
+            the train step's T = 1,024 rows a slot (ranks 4/8/16/32), the
+            forward pair at the serve's decode rows (T = 4) and the eval
+            step's (T = 4,096), timed beside the bound and ``torch.bmm``;
+            flash attention against its plain version at granite's B =
+            Z*b*H = 256 (train) and 1,024 (eval), S 256, hd 64 (GQA 16 / 8,
+            the KV heads repeated before the kernel), and at llama4-scout's
+            hd 128 (B = 640, 40 heads) in fp32 (its train check's path) and
+            bf16, with phase 3b's bars, faults and batch independence.
+25. moe layer — layer 0's MoE block at the train step's 4,096 tokens (one
+            group, capacity 1,280), bf16: the device time of the router,
+            the dispatch, the expert GEMMs, the combine and the whole
+            block's forward (graph replay), the block's and the expert
+            GEMMs' forward + backward (events); the router, dispatch and
+            combine's time in one train step of 24 layers is printed
+            beside the rank sweep's profiled busy time. The same for
+            llama4-scout's layer (top-1 of 16, capacity 384, the shared
+            expert).
+26. moe serve — phase 4 on granite-moe: 16 greedy requests on 4 adapters
+            (ranks 8-64), 4 lanes; the same launch counts (96 per forward),
+            bars and planted faults; decode at T = 16 is lossless, the
+            joins' block prefill (T up to 2,048) capacity-bound; flash 0.
+27. moe train — phase 5 on granite-moe in fp32 at full width and depth
+            (~5.3 GB of weights), the same bars and planted faults, plus a
+            routing fault (the plain run's selected gates left
+            unnormalized) that must break the loss bar; the kernel step
+            run twice must give the same per-slot losses and every dA / dB
+            bit for bit; the (token, choice) routing disagreements between
+            one kernel and one plain forward, and each layer's dropped
+            share, printed. Flash launches twice per layer.
+28. moe rank sweep — the slice's main path: phase 6 on granite-moe at full
+            width and depth (8 jobs, ranks 4/8/16/32 x lr 1e-4/1e-3, Z =
+            4, b = 4, S = 256, eval b = 16): every fused train step must
+            launch the rank-local xa/sb_add 192 times, ds/da/db 96, dx 93
+            (the first layer's q/k/v read the normed embedding), flash 48;
+            every eval step xa/sb_add 96 and flash 24; the dense and
+            ragged kernels never. The same measurements as phase 6.
+29. llama4 train — llama4-scout-17b-a16e at full width (d_model 5120, 40
+            heads of 128 with 8 KV heads, 16 routed experts of d_ff 8192,
+            top-1, one shared expert of 8192, capacity factor 1.5, vocab
+            202048, untied head) cut to LLAMA4_LAYERS of its 48 layers, in
+            fp32 (~26 GB of weights): phase 27's checks; flash at hd 128
+            on a model path.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernel table as JSON (twenty kernels), with each kernel's launches by
 path (``engine_static`` and ``engine_elastic`` for the engine phase's two
 runs, ``service`` and ``service_recovery`` for the service's trainings,
-``service_serve`` for its served requests).
+``service_serve`` for its served requests, ``moe_train`` and
+``moe_serve`` for granite-moe's sweep and serve, ``llama4_train`` for
+llama4-scout's kernel step).
 """
 from __future__ import annotations
 
@@ -491,6 +547,20 @@ HYMBA_LOSS_REL = 2e-6
 # the full forward's, as max |diff| / max |forward|
 RING_PREFILL, RING_STEPS = 1000, 64
 RING_LOGITS_REL = 1e-4
+# granite-moe-1b-a400m's LoRA projections (din, dout): q/o, k/v
+GRANITE_SHAPES = ((1024, 1024), (1024, 512))
+# llama4-scout-17b-a16e at full width is cut to LLAMA4_LAYERS of its 48
+# layers: its fp32 train check then holds ~26 GB of weights
+LLAMA4_LAYERS = 2
+# the MoE train checks' loss bar, an fp32 one as HYMBA_LOSS_REL: on an
+# NVIDIA H100 80GB HBM3 at 700 W the kernels read at most 8.7e-08
+# (granite-moe, 24 layers; 4 of its 786,432 (token, choice) pairs routed
+# otherwise) and 7.5e-08 (llama4-scout, 2 layers), while the mildest
+# planted forward fault, slot 0's rank-4 delta halved, reads 6.4e-05 and
+# 3.1e-04 (PERF.md)
+MOE_LOSS_REL = 2e-6
+# device busy ms per profiled train step of each executor phase, by task
+STEP_BUSY_MS = {}
 DPO_B = 2                     # preference pairs per slot in the DPO phase
 RECOVERY_STEPS = 12           # steps per job of the recovery phase's task
 ENGINE_G = 2                  # GPUs of the engine phase's virtual cluster
@@ -782,7 +852,8 @@ def kernel_phase(torch, RL, ref, cases=None, timed=None):
 
 def serve_phase(torch, RL, cfg, params):
     """Serve N_REQ requests on ``cfg`` with backbone ``params``
-    (stablelm-3b at full size in ``main``) on the card."""
+    (stablelm-3b at full size in ``main``, granite-moe-1b-a400m in
+    ``moe_phases``) on the card."""
     import numpy as np
 
     from repro_torch.core import lora as LORA
@@ -1840,7 +1911,19 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
     ``hold_grads`` False holds the loss bar alone, with the two forward
     faults (slot 0's delta halved, the sequence fault), and prints the
     gradient readings: for a model whose backward amplifies rounding past
-    any bar (rwkv6-3b at full depth, see RWKV_GRAD_LAYERS)."""
+    any bar (rwkv6-3b at full depth, see RWKV_GRAD_LAYERS).
+
+    MoE (granite-moe, llama4-scout): the kernel step runs again and must
+    give the first one's per-slot losses and every dA and dB bit for bit;
+    one forward of each run (no gradients) reads every layer's routing
+    through ``moe.route``, and the count of (token, choice) pairs routed to
+    another expert or kept / dropped otherwise in the plain run, and each
+    layer's dropped share, are printed; one more forward fault in the
+    plain run, the selected gates left unnormalized, must break the loss
+    bar.
+
+    Returns the kernel run's launches (the path's set and both sequence
+    kernels)."""
     from repro_torch.core import lora as LORA
     from repro_torch.core import steps as STEPS
     from repro_torch.data.synthetic import PairSlotBatcher, SlotBatcher
@@ -1851,6 +1934,7 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
     from repro_torch.models import attention as ATT
     from repro_torch.models import backend as BK
     from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
     from repro_torch.optim import adamw
 
     dev = "cuda"
@@ -1947,6 +2031,7 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
         k_gloss, gk = grads("kernel")
     torch.cuda.synchronize()
     launched_only(path)
+    kernel_launches = {**fams[path].LAUNCHES, **FA.LAUNCHES, **LSK.LAUNCHES}
     with seq_logp(nll_p):
         _, gp = grads("torch")
     torch.cuda.synchronize()
@@ -2040,6 +2125,9 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
     require(within(sound) if hold_grads
             else max(sound["loss"]) <= loss_bar,
             f"{tag} kernel train step too far from the plain one")
+    if cfg.is_moe:
+        moe_routing_checks(torch, cfg, params, lora, kbatch, pbatch,
+                           k_gloss, gk, grads)
     if not hold_grads:
         # why: the same plain step again with the sequence kernel's plain
         # output moved by 1e-7 relative (rounding-sized noise, not a
@@ -2181,7 +2269,27 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
         finally:
             ATT.causal_mask_bias = plain
 
+    @contextlib.contextmanager
+    def gates_unnormalized():
+        """The plain routing with the selected gates left as the router's
+        probabilities (not renormalized over the top k)."""
+        plain = MOE.route
+
+        def raw_gates(xt, router, moe, cap):
+            gates, idx, pos, keep, aux = plain(xt, router, moe, cap)
+            probs = torch.softmax(xt.float() @ router, dim=-1)
+            return torch.gather(probs, -1, idx) * keep, idx, pos, keep, aux
+        MOE.route = raw_gates
+        try:
+            yield
+        finally:
+            MOE.route = plain
+
     faults = {
+        "moe": [(attention_peeks_ahead, "every query sees one future key "
+                 "in the plain attention"),
+                (gates_unnormalized, "the plain routing's selected gates "
+                 "left unnormalized")],
         "ssm": [(scan_without_bonus, "the bonus dropped from the plain "
                  "linear scan")],
         "hybrid": [(scan_decay_first, "the plain scan's decay applied "
@@ -2253,16 +2361,84 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
         del gr
     del gk, gp, lora
     torch.cuda.empty_cache()
+    return kernel_launches
+
+
+def moe_routing_checks(torch, cfg, params, lora, kbatch, pbatch, k_gloss,
+                       gk, grads):
+    """An MoE train check's own parts: the kernel step's gradients again,
+    which must equal the first run's (``k_gloss``, ``gk``) bit for bit;
+    then one forward with the kernels and one on the plain versions, no
+    gradients, each layer's routing read through ``moe.route``: the
+    (token, choice) pairs the two runs route differently (another expert,
+    or kept in one and dropped in the other) and each layer's dropped
+    share are printed."""
+    from repro_torch.core import lora as LORA
+    from repro_torch.models import backend as BK
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+
+    r_gloss, gr = grads("kernel")
+    torch.cuda.synchronize()
+    same = [torch.equal(gr[t][m], gk[t][m]) for t in gk for m in gk[t]]
+    print(f"train check ({cfg.name}): the kernel step again: per-slot loss "
+          f"bitwise equal {torch.equal(r_gloss, k_gloss)}, dA/dB bitwise "
+          f"equal on {sum(same)} of {len(same)} leaves")
+    require(torch.equal(r_gloss, k_gloss) and all(same),
+            f"{cfg.name}: two identical kernel train steps differ")
+    del gr
+
+    plain = MOE.route
+
+    def routing(backend, batch):
+        seen = []
+
+        def tapped(*args):
+            out = plain(*args)
+            seen.append((out[1], out[3]))
+            return out
+        MOE.route = tapped
+        try:
+            with (torch.no_grad(), LORA.backend(backend),
+                  BK.backend(backend),
+                  LORA.slot_ranks(batch.get("slot_ranks"))):
+                M.forward(cfg, params, lora, batch["tokens"])
+        finally:
+            MOE.route = plain
+        return seen
+
+    k_route = routing("kernel", kbatch)
+    p_route = routing("torch", pbatch)
+    require(len(k_route) == len(p_route) == cfg.num_layers,
+            f"{len(k_route)} / {len(p_route)} routed layers")
+    other = sum(int((ki != pi).sum()) for (ki, _), (pi, _)
+                in zip(k_route, p_route))
+    kept = sum(int(((kk != pk) & (ki == pi)).sum()) for (ki, kk), (pi, pk)
+               in zip(k_route, p_route))
+    n = k_route[0][0].numel() * cfg.num_layers
+    drop = [1.0 - float(kk.float().mean()) for _, kk in k_route]
+    G, s, k = k_route[0][0].shape
+    print(f"train check ({cfg.name}): routing, kernels vs plain versions: "
+          f"{other} of {n} (token, choice) pairs routed to another expert, "
+          f"{kept} more kept in one run and dropped in the other "
+          f"({cfg.num_layers} layers, {G} group(s) of {s} tokens, top-"
+          f"{k} of {cfg.moe.num_experts}, capacity "
+          f"{MOE.capacity(cfg.moe, s)})")
+    print(f"train check ({cfg.name}): dropped share of the choices by "
+          f"layer (0 first): {[float(f'{x:.4g}') for x in drop]}; mean "
+          f"{statistics.mean(drop):.4g}")
 
 
 # the projections whose inputs are the first layer's normed embedding (for
 # RWKV: its token-shift lerps), which hang off no differentiable leaf
 FIRST_LAYER_NO_DX = {"dense": {"q_proj", "k_proj", "v_proj"},
+                     "moe": {"q_proj", "k_proj", "v_proj"},
                      "ssm": {"r_proj", "k_proj", "v_proj", "g_proj"},
                      "hybrid": {"q_proj", "k_proj", "v_proj", "in_proj"}}
 # the sequence kernels of each family: one launch each per layer of a
 # forward
-SEQ_KERNELS = {"dense": ("flash_attention",), "ssm": ("linear_scan",),
+SEQ_KERNELS = {"dense": ("flash_attention",), "moe": ("flash_attention",),
+               "ssm": ("linear_scan",),
                "hybrid": ("flash_attention", "linear_scan")}
 
 
@@ -2322,7 +2498,8 @@ def executor_phase(torch, fam, others, cfg, params, task, jobs,
                    loss_kind="sft", batcher=None, b=TRAIN_B, S=TRAIN_S,
                    eval_b=EVAL_B):
     """A sweep through the port's entry point: BatchedExecutor.run_task on
-    ``cfg`` at full size (stablelm-3b, rwkv6-3b or hymba-1.5b; b sequences
+    ``cfg`` at full size (stablelm-3b, rwkv6-3b, hymba-1.5b or
+    granite-moe-1b-a400m; b sequences
     of S tokens a slot, eval_b in an eval step), ``jobs`` (8) on 4
     slots. Every fused train step and every eval step is wrapped to count
     the launches of the kernel set ``fam`` (the path's: rank-local for a
@@ -2490,6 +2667,7 @@ def executor_phase(torch, fam, others, cfg, params, task, jobs,
           f"median eval step {eval_ms:.2f} ms ([{Z}, {eval_b}, {S}] "
           f"tokens); peak memory {peak / 2**30:.2f} GiB")
     busy, pw = prof["busy_us"], prof["wall_us"]
+    STEP_BUSY_MS[task] = busy / 2e3 if busy else None
     seq_names = {"flash_attention": ("flash_fwd", "flash attention"),
                  "linear_scan": ("linear_scan_kernel", "the linear scan")}
     seq = []
@@ -4093,14 +4271,21 @@ def scan_kernel_phase(torch, LSK, lsref, cfg, cases=None, S=TRAIN_S):
     return res, results
 
 
+def _leaves(tree):
+    """The tensors of a nested dict."""
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def _gbytes(tree) -> float:
+    return sum(x.numel() * x.element_size() for x in _leaves(tree)) / 1e9
+
+
 def _lanes_first(cache):
     """Every per-lane tensor of a per-lane cache with the (Z, b) lane axes
     first: the layer leaves [L, Z, b, ...] moved to [Z, b, L, ...], and the
     positions (``pos``, a ring's ``k_pos``)."""
-    def leaves(tree):
-        for v in tree.values():
-            yield from (leaves(v) if isinstance(v, dict) else (v,))
-    out = [v.movedim(0, 2) for v in leaves(cache["layers"])]
+    out = [v.movedim(0, 2) for v in _leaves(cache["layers"])]
     return out + [cache[k] for k in ("pos", "k_pos") if k in cache]
 
 
@@ -4461,6 +4646,206 @@ def rwkv_phases(torch, fams, t_all):
     return scan, serve, launches
 
 
+def moe_layer_phase(torch, cfg, params, b=TRAIN_B, S=TRAIN_S):
+    """Layer 0's MoE block of ``cfg`` at a train step's tokens (Z = 4
+    slots of b sequences of S; granite-moe: 4,096 tokens, one group,
+    capacity 1,280), in bf16 (the router in fp32) with activations from a
+    seed: the device time of each
+    part of ``moe_block``'s forward (graph replay): the router (logits,
+    softmax, top-k, gates, aux and queue positions), the dispatch into the
+    expert buffer, the expert GEMMs, the combine, the shared expert if
+    any, and the whole block; then, with CUDA events around eager calls,
+    the whole block's forward and backward (dL/dx, as a LoRA step asks)
+    and the expert GEMMs' alone. Returns (ms of the router, dispatch and
+    combine in one train step of all the layers: each layer's forward runs
+    twice, the forward and its remat, and the backward once; the parts'
+    times)."""
+    from repro_torch.models import moe as MOE
+
+    dev, bf16 = "cuda", torch.bfloat16
+    moe, d, E = cfg.moe, cfg.d_model, cfg.moe.num_experts
+    def first(w, name):     # layer 0; the router stays fp32
+        return w[0] if name == "router" else w[0].to(bf16)
+
+    p = {k: ({n: first(w, n) for n, w in v.items()} if isinstance(v, dict)
+             else first(v, k)) for k, v in params["layers"]["moe"].items()}
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn(4, b, S, d, generator=gen, device=dev).to(bf16)
+    T = x.numel() // d
+    s = MOE.pick_group_size(T)
+    G, cap = T // s, MOE.capacity(moe, s)
+    xt = x.reshape(G, s, d)
+    gates, idx, pos, keep, aux = MOE.route(xt, p["router"], moe, cap)
+    slot = MOE.slots(idx, pos, keep, E, cap)
+    e_in = MOE.dispatch(xt, slot, E, cap)
+    e_out = MOE.experts(e_in, p)
+    parts = {
+        "router": lambda i: MOE.route(xt, p["router"], moe, cap),
+        "dispatch": lambda i: MOE.dispatch(
+            xt, MOE.slots(idx, pos, keep, E, cap), E, cap),
+        "experts": lambda i: MOE.experts(e_in, p),
+        "combine": lambda i: MOE.combine(e_out, slot, gates, bf16),
+        "block": lambda i: MOE.moe_block(x, p, moe),
+    }
+    if "shared" in p:
+        parts["shared"] = lambda i: MOE.shared_expert(xt, p["shared"])
+    ms = {}
+    with torch.no_grad():
+        for name, fn in parts.items():
+            ms[name], _ = time_ms(torch, fn, 10)
+
+    def events_ms(fn, n=10):
+        for _ in range(2):
+            fn()
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        e.record()
+        e.synchronize()
+        return a.elapsed_time(e) / n
+
+    xg = x.detach().requires_grad_(True)
+    g_out = torch.randn(x.shape, generator=gen, device=dev).to(bf16)
+    one = torch.ones((), device=dev)
+
+    def block_fb():
+        out, a_ = MOE.moe_block(xg, p, moe)
+        torch.autograd.grad((out, a_), xg, (g_out, one))
+
+    e_in_g = e_in.detach().requires_grad_(True)
+    g_e = torch.randn(e_out.shape, generator=gen, device=dev).to(bf16)
+
+    def experts_fb():
+        torch.autograd.grad(MOE.experts(e_in_g, p), e_in_g, g_e)
+
+    ms["block_fwd_bwd"] = events_ms(block_fb)
+    ms["experts_fwd_bwd"] = events_ms(experts_fb)
+    rdc = ms["router"] + ms["dispatch"] + ms["combine"]
+    shared = ms.get("shared", 0.0)
+    per_step = cfg.num_layers * (rdc + ms["block_fwd_bwd"]
+                                 - ms["experts_fwd_bwd"] - 2 * shared)
+    kept = float(keep.float().mean())
+    print(f"moe layer ({cfg.name}): T {T} tokens, {G} group(s) of {s}, "
+          f"top-{moe.top_k} of {E}, capacity {cap}, kept {kept:.4f} of the "
+          f"choices; forward ms (graph replay): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in ms.items()
+              if not k.endswith("fwd_bwd"))
+          + f"; router + dispatch + combine {rdc:.4f} = "
+          f"{rdc / ms['block']:.3f} of the block's forward")
+    print(f"moe layer ({cfg.name}): forward + backward (events, eager): "
+          f"block {ms['block_fwd_bwd']:.4f} ms, expert GEMMs alone "
+          f"{ms['experts_fwd_bwd']:.4f} ms; router, dispatch and combine in "
+          f"one train step of {cfg.num_layers} layers (forward, remat and "
+          f"backward) ~{per_step:.3f} ms")
+    del xg, e_in_g, e_in, e_out
+    torch.cuda.empty_cache()
+    return per_step, ms
+
+
+def moe_phases(torch, fams, t_all):
+    """Phases 24-29, the MoE family: the rank-local kernels and flash
+    attention at granite-moe-1b-a400m's shapes (and flash at
+    llama4-scout's head dim 128), one MoE layer's parts timed, a serve of
+    granite-moe, its fp32 train check at full depth, its rank sweep (the
+    main path), then llama4-scout at full width and LLAMA4_LAYERS layers:
+    its fp32 train check. Returns (the rank-local kernels' results,
+    flash's by case, the serve's launches, the sweep's launches, the
+    llama4 kernel step's launches)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.grouped_lora import ref
+    from repro_torch.models import model as M
+
+    RL = fams["rank-local"]
+    gcfg = get_arch("granite-moe-1b-a400m")
+    lcfg = get_arch("llama4-scout-17b-a16e")
+    T = TRAIN_B * TRAIN_S
+    bf16, fp32 = torch.bfloat16, torch.float32
+    lora = backward_kernel_phase(
+        torch, RL, ref, timed=("granite", 1024, 1024),
+        cases=[("granite", T, din, dout, TRAIN_RANKS, None)
+               for din, dout in GRANITE_SHAPES])
+    fwd = kernel_phase(
+        torch, RL, ref,
+        cases=[("decode", LANES, din, dout, RANKS, None)
+               for din, dout in GRANITE_SHAPES]
+        + [("eval", EVAL_B * TRAIN_S, din, dout, TRAIN_RANKS, None)
+           for din, dout in GRANITE_SHAPES],
+        timed={("decode", 1024, 1024): "granite_decode",
+               ("eval", 1024, 1024): "granite_eval"})
+    for name, res in fwd.items():
+        lora[name]["shapes"].update(res["shapes"])
+        lora[name]["max_abs_err"] = max(lora[name]["max_abs_err"],
+                                        res["max_abs_err"])
+    H, hd = gcfg.num_heads, gcfg.resolved_head_dim
+    _, flash = flash_kernel_phase(
+        torch, FA, fref, gcfg, plain_labels=("train",),
+        cases=[("train", 4 * TRAIN_B * H, TRAIN_S, TRAIN_S, hd, 0, bf16),
+               ("eval", 4 * EVAL_B * H, TRAIN_S, TRAIN_S, hd, 0, bf16)])
+    lH, lhd = lcfg.num_heads, lcfg.resolved_head_dim
+    _, l_flash = flash_kernel_phase(
+        torch, FA, fref, lcfg, plain_labels=("train",),
+        cases=[("train", 4 * TRAIN_B * lH, TRAIN_S, TRAIN_S, lhd, 0, fp32),
+               ("bf16", 4 * TRAIN_B * lH, TRAIN_S, TRAIN_S, lhd, 0, bf16)])
+    flash.update({f"llama4_{k}": v for k, v in l_flash.items()})
+    print(f"moe kernel phases done at {time.perf_counter() - t_all:.1f} s")
+
+    t = time.perf_counter()
+    gparams = M.init_params(gcfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"init: {gcfg.name} backbone in {time.perf_counter() - t:.1f} s "
+          f"({_gbytes(gparams):.2f} GB)")
+    rdc_step_ms, _ = moe_layer_phase(torch, gcfg, gparams)
+    serve = serve_phase(torch, RL, gcfg, gparams)
+    torch.cuda.empty_cache()
+    print(f"moe serve phase done at {time.perf_counter() - t_all:.1f} s")
+    ccfg = dataclasses.replace(gcfg, dtype="float32")
+    cparams = _cut_layers(gparams, gcfg.num_layers, fp32)
+    train_check(torch, fams, ccfg, cparams, TRAIN_RANKS, "rank-local",
+                loss_bar=MOE_LOSS_REL)
+    del cparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"moe train check done at {time.perf_counter() - t_all:.1f} s")
+    jobs = {f"r{r}-lr{lr:g}": TrainConfig(learning_rate=lr, lora_rank=r,
+                                          per_adapter_batch=TRAIN_B)
+            for r in TRAIN_RANKS for lr in (1e-4, 1e-3)}
+    launches = executor_phase(torch, RL, (fams["dense"], fams["ragged"]),
+                              gcfg, gparams, "moe-rank-sweep", jobs)
+    busy = STEP_BUSY_MS.get("moe-rank-sweep")
+    print(f"moe: router, dispatch and combine ~{rdc_step_ms:.3f} ms of a "
+          f"train step's device busy {busy:.3f} ms = "
+          f"{rdc_step_ms / busy:.3f} (moe layer phase over the sweep's "
+          f"profile)" if busy else "moe: step busy not measured")
+    print(f"moe rank-sweep executor phase done at "
+          f"{time.perf_counter() - t_all:.1f} s")
+    del gparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    l2 = dataclasses.replace(lcfg, num_layers=LLAMA4_LAYERS,
+                             dtype="float32")
+    lparams = M.init_params(l2, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"init: {lcfg.name} at full width, {LLAMA4_LAYERS} of "
+          f"{lcfg.num_layers} layers, fp32, in "
+          f"{time.perf_counter() - t:.1f} s ({_gbytes(lparams):.2f} GB)")
+    moe_layer_phase(torch, l2, lparams)
+    l_launches = train_check(torch, fams, l2, lparams, TRAIN_RANKS,
+                             "rank-local", loss_bar=MOE_LOSS_REL)
+    del lparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"llama4 train check done at {time.perf_counter() - t_all:.1f} s")
+    return lora, flash, serve, launches, l_launches
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4591,6 +4976,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     h_lora, h_flash, h_scan, h_serve, h_launches = hymba_phases(
         torch, fams, t_all)
+    gc.collect()                 # the hymba-1.5b backbone
+    torch.cuda.empty_cache()
+    m_lora, m_flash, m_serve, m_launches, l4_launches = moe_phases(
+        torch, fams, t_all)
 
     csrc = "src/repro_torch/kernels/grouped_lora/csrc"
     rows = [  # (name, kernel source, TPU kernel file, its pallas_call line)
@@ -4620,15 +5009,20 @@ def main() -> int:
                 "train": train_launches[name],
                 "dpo": dpo_launches[name],
                 "rwkv_train": rwkv_launches[name],
-                "hymba_train": h_launches[name]}, dict(kern[name])
+                "hymba_train": h_launches[name],
+                "moe_train": m_launches[name],
+                "llama4_train": l4_launches[name]}, dict(kern[name])
             if name in serve_launches:
                 by_path["serve"] = serve_launches[name]
                 by_path["rwkv_serve"] = rwkv_serve[name]
                 by_path["hymba_serve"] = h_serve[name]
+                by_path["moe_serve"] = m_serve[name]
             res["shapes"] = {**res.get("shapes", {}),
-                             **h_lora[name]["shapes"]}
+                             **h_lora[name]["shapes"],
+                             **m_lora[name]["shapes"]}
             res["max_abs_err"] = max(res["max_abs_err"],
-                                     h_lora[name]["max_abs_err"])
+                                     h_lora[name]["max_abs_err"],
+                                     m_lora[name]["max_abs_err"])
         fam = {"grouped_lora": "dense", "ragged": "ragged"}.get(
             prefix, "rank-local")
         by_path["engine_static"] = eng_static[fam][name]
@@ -4644,14 +5038,18 @@ def main() -> int:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             **res})
 
-    def with_hymba(res, cases):
-        """The kernel's row with hymba's path shapes beside its own."""
+    def with_paths(res, **paths):
+        """The kernel's row with other paths' shapes (hymba's, the MoE
+        family's) beside its own."""
         res = dict(res)
-        res["shapes"] = {f"hymba_{lab}": {k: v for k, v in r.items()
-                                          if k != "pair_exp_bound_ms"}
+        res["shapes"] = {f"{path}_{lab}": {k: v for k, v in r.items()
+                                           if k != "pair_exp_bound_ms"}
+                         for path, cases in paths.items()
                          for lab, r in cases.items()}
         res["max_abs_err"] = max([res["max_abs_err"]]
-                                 + [r["max_abs_err"] for r in cases.values()])
+                                 + [r["max_abs_err"]
+                                    for cases in paths.values()
+                                    for r in cases.values()])
         return res
 
     by_path = {"serve": serve_launches["flash_attention"],
@@ -4661,6 +5059,9 @@ def main() -> int:
                "dpo": dpo_launches["flash_attention"],
                "hymba_train": h_launches["flash_attention"],
                "hymba_serve": h_serve["flash_attention"],
+               "moe_train": m_launches["flash_attention"],
+               "moe_serve": m_serve["flash_attention"],
+               "llama4_train": l4_launches["flash_attention"],
                "engine_static": eng_static["flash"]["flash_attention"],
                "engine_elastic": eng_elastic["flash"]["flash_attention"],
                "service": svc_launches["flash"]["flash_attention"],
@@ -4673,7 +5074,7 @@ def main() -> int:
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:89",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
-        **with_hymba(flash, h_flash)})
+        **with_paths(flash, hymba=h_flash, moe=m_flash)})
     by_path = {"rwkv_train": rwkv_launches["linear_scan"],
                "rwkv_serve": rwkv_serve["linear_scan"],
                "hymba_train": h_launches["linear_scan"],
@@ -4685,7 +5086,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
         "replaces": "src/repro/kernels/linear_scan/linear_scan.py:111",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
-        **with_hymba(scan, h_scan)})
+        **with_paths(scan, hymba=h_scan)})
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(card_line())
     print(json.dumps(table))

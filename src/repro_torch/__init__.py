@@ -10,9 +10,14 @@ the recurrent model (``models/rwkv.py``, ``models/linear_scan.py``), its
 recurrent-state cache, serving by streaming prompts through decode, and
 rank-sweep training through the same executor. The hybrid family
 (hymba-1.5b) adds the Mamba branch (``models/mamba.py``) beside attention
-and its cache. Above the executor sit the engine of paper Listing 1
-(``core/engine.py``: tasks, slot sizing from the memory model, profiling,
-``schedule`` and ``batched_execution``) and the host-side scheduler
+and its cache. The MoE family (granite-moe-1b-a400m,
+llama4-scout-17b-a16e) replaces the MLP by frozen routed experts
+(``models/moe.py``: grouped, capacity-bound top-k routing, dispatched and
+combined by index, an optional shared expert) with attention-only LoRA,
+and adds the router's load-balance term to the SFT loss. Above the
+executor sit the engine of paper Listing 1 (``core/engine.py``: tasks,
+slot sizing from the memory model, profiling, ``schedule`` and
+``batched_execution``) and the host-side scheduler
 (``sched/``: the inter-task planner, the elastic cluster runtime over
 ``ExecutorTaskDriver``s, the intra-task admission policy, the profiler at
 H100 constants, the fitted cost models and the event vocabulary), copies

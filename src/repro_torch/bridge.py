@@ -67,7 +67,27 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict, device=None) -> Dict:
     if set(depths.values()) != {cfg.num_layers}:
         raise ValueError(f"layer stack depths {depths} do not match the "
                          f"config's {cfg.num_layers} layers")
+    if cfg.is_moe:
+        _check_moe(cfg, params["layers"].get("moe", {}))
     return params
+
+
+def _check_moe(cfg: ModelConfig, moe: Dict) -> None:
+    """The ``moe`` subtree's ``[L, E, ...]`` shapes against the config."""
+    L, d, m = cfg.num_layers, cfg.d_model, cfg.moe
+    E, ff = m.num_experts, m.d_ff_expert
+    want = {"router": (L, d, E), "w_gate": (L, E, d, ff),
+            "w_up": (L, E, d, ff), "w_down": (L, E, ff, d)}
+    if m.num_shared_experts:
+        ffs = m.d_ff_shared * m.num_shared_experts
+        want.update({"shared.gate": (L, d, ffs), "shared.up": (L, d, ffs),
+                     "shared.down": (L, ffs, d)})
+    got = {k: tuple(v.shape) for k, v in moe.items() if k != "shared"}
+    got.update({f"shared.{k}": tuple(v.shape)
+                for k, v in moe.get("shared", {}).items()})
+    if got != want:
+        raise ValueError(f"moe weights {got}, config {cfg.name} wants "
+                         f"{want}")
 
 
 def lora_from_numpy(tree: Dict, device=None) -> Dict:

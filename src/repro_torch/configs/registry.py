@@ -1,24 +1,27 @@
 """Architecture registry: resolves ``--arch <id>`` strings to ModelConfigs.
 
-Lists only the architectures the port runs (the dense family, the RWKV
-``ssm`` family and the Hymba ``hybrid`` family); every other architecture
-of the JAX package raises "not ported yet"."""
+Lists only the architectures the port runs (the dense family, the MoE
+family, the RWKV ``ssm`` family and the Hymba ``hybrid`` family); every
+other architecture of the JAX package raises "not ported yet"."""
 from __future__ import annotations
 
 from typing import Dict, List
 
-from repro_torch.configs import (hymba_1p5b, paper_llama_tiny, rwkv6_3b,
-                                 stablelm_3b)
+from repro_torch.configs import (granite_moe_1b_a400m, hymba_1p5b,
+                                 llama4_scout_17b_a16e, paper_llama_tiny,
+                                 rwkv6_3b, stablelm_3b)
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG for m in (stablelm_3b, paper_llama_tiny,
-                                       rwkv6_3b, hymba_1p5b)}
+                                       rwkv6_3b, hymba_1p5b,
+                                       granite_moe_1b_a400m,
+                                       llama4_scout_17b_a16e)}
 
 # the JAX package's other architectures (other families or not yet copied)
 NOT_PORTED = (
-    "granite-moe-1b-a400m", "mistral-nemo-12b", "llama4-scout-17b-a16e",
-    "musicgen-medium", "qwen2-vl-72b", "granite-8b", "glm4-9b",
+    "mistral-nemo-12b", "musicgen-medium", "qwen2-vl-72b", "granite-8b",
+    "glm4-9b",
 )
 
 

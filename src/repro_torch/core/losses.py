@@ -28,12 +28,18 @@ def check_loss_kind(loss_kind: str) -> None:
 
 def sft_loss(cfg: ModelConfig, params: Dict, lora: Dict, batch: Dict,
              active: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (total scalar for backward, per-slot mean NLL [Z] fp32)."""
-    h, _, _ = M.forward(cfg, params, lora, batch["tokens"],
-                        positions=batch.get("positions"))
+    """Returns (total scalar for backward, per-slot mean NLL [Z] fp32).
+
+    MoE adds ``router_aux_weight`` times the load-balance term to the
+    total, unmasked by ``active``, as the JAX package does: it is a mean
+    over token groups that may span slots."""
+    h, aux, _ = M.forward(cfg, params, lora, batch["tokens"],
+                          positions=batch.get("positions"))
     nll_sum, cnt = M.per_slot_xent(cfg, params, h, batch["labels"])
     per_slot = nll_sum / torch.clamp_min(cnt, 1.0)
     total = torch.sum(per_slot * active.float())
+    if cfg.is_moe:
+        total = total + cfg.moe.router_aux_weight * aux
     return total, per_slot
 
 

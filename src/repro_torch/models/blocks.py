@@ -1,10 +1,13 @@
 """Per-family blocks with multi-adapter LoRA hooks: the transformer block
-(dense, and Hymba's ``hybrid``: attention and a Mamba branch side by side)
-and the RWKV-6 block (``ssm``); ``apply_block`` picks one by family.
+(dense; MoE, with the routed experts in place of the MLP; and Hymba's
+``hybrid``: attention and a Mamba branch side by side) and the RWKV-6 block
+(``ssm``); ``apply_block`` picks one by family and returns the new
+activations and the layer's MoE load-balance term (None for the other
+families).
 
 Every block operates on slot-major activations ``x: [Z, b, S, d]`` (Z =
 adapter slots). Base weights are slot-shared and frozen; LoRA pairs are
-slot-stacked. The MoE family is not ported yet.
+slot-stacked. Audio and VLM are not ported yet.
 
 Caches — the attention K/V, the RWKV and Mamba recurrent states — are
 written IN PLACE, and only for the lanes allowed to write
@@ -23,6 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lora import proj
 from repro_torch.models.attention import attention
 from repro_torch.models.common import he_init, lora_at, rms_norm, swiglu
+from repro_torch.models import moe as MOE
 from repro_torch.models.mamba import (init_mamba_params, mamba_block,
                                       mamba_target_shapes)
 from repro_torch.models.rope import apply_rope
@@ -31,9 +35,9 @@ from repro_torch.models.rwkv import (init_rwkv_layer, rwkv_channel_mix,
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.is_moe:
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, ssm and "
+            f"family {cfg.family!r} is not ported yet (dense, moe, ssm and "
             f"hybrid only)")
 
 
@@ -62,7 +66,8 @@ def target_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, int]]:
     shapes = dict(attn_target_shapes(cfg))
     if cfg.family == "hybrid":
         shapes.update(mamba_target_shapes(cfg))
-    shapes.update(mlp_target_shapes(cfg))
+    if not cfg.is_moe:   # experts frozen: attention-only LoRA
+        shapes.update(mlp_target_shapes(cfg))
     return shapes
 
 
@@ -83,10 +88,13 @@ def init_layer_params(gen: torch.Generator, cfg: ModelConfig,
         "k_proj": he_init(gen, (d, cfg.kv_dim), d, dtype),
         "v_proj": he_init(gen, (d, cfg.kv_dim), d, dtype),
         "o_proj": he_init(gen, (cfg.q_dim, d), cfg.q_dim, dtype),
-        "gate_proj": he_init(gen, (d, cfg.d_ff), d, dtype),
-        "up_proj": he_init(gen, (d, cfg.d_ff), d, dtype),
-        "down_proj": he_init(gen, (cfg.d_ff, d), cfg.d_ff, dtype),
     }
+    if cfg.is_moe:
+        p["moe"] = MOE.init_moe_params(gen, d, cfg.moe, dtype)
+    else:
+        p["gate_proj"] = he_init(gen, (d, cfg.d_ff), d, dtype)
+        p["up_proj"] = he_init(gen, (d, cfg.d_ff), d, dtype)
+        p["down_proj"] = he_init(gen, (cfg.d_ff, d), cfg.d_ff, dtype)
     if cfg.family == "hybrid":
         p["mamba"] = init_mamba_params(gen, cfg, dtype)
         p["branch_norm_attn"] = torch.ones((d,), dtype=torch.float32,
@@ -185,16 +193,28 @@ def attn_sublayer(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
 
     if cache is not None and write_index is not None:
         ck, cv = cache["k"], cache["v"]
-        if isinstance(write_index, torch.Tensor) and write_index.dim() == 2:
-            # per-lane decode: each (Z, b) stream writes at its own index
-            if S != 1:
-                raise ValueError("per-lane cache writes are decode-only")
-            _write_lanes(ck, k[:, :, 0], write_index, write_mask)
-            _write_lanes(cv, v[:, :, 0], write_index, write_mask)
-        else:
-            _write_span(ck, k, write_index, write_mask)
-            _write_span(cv, v, write_index, write_mask)
+        per_lane = (isinstance(write_index, torch.Tensor)
+                    and write_index.dim() == 2)
+        if per_lane and S != 1:
+            raise ValueError("per-lane cache writes are decode-only")
+
+        def write(c, new, mask):
+            if per_lane:   # each (Z, b) stream writes at its own index
+                _write_lanes(c, new[:, :, 0], write_index, mask)
+            else:
+                _write_span(c, new, write_index, mask)
+
+        write(ck, k, write_mask)
+        write(cv, v, write_mask)
         k_all, v_all = ck, cv
+        if write_mask is not None and cfg.is_moe:
+            # the lanes outside the mask keep their cache, but their rows
+            # still share the experts' capacity with the others: they
+            # attend as if written, as in the JAX package (which writes
+            # every lane into a working copy and keeps the masked ones)
+            k_all, v_all = ck.clone(), cv.clone()
+            write(k_all, k, None)
+            write(v_all, v, None)
         kp = k_pos if k_pos is not None else torch.arange(
             ck.shape[2], dtype=torch.int32, device=x.device)
     else:
@@ -219,8 +239,9 @@ def mlp_sublayer(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
 
 def transformer_block(cfg: ModelConfig, x: torch.Tensor, p: Dict,
                       lora: Dict, layer: int, ctx: Dict[str, Any]
-                      ) -> torch.Tensor:
-    """One dense or hybrid layer. ``p`` holds the layer's base weights,
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One dense, MoE or hybrid layer; returns (x, the MoE load-balance
+    term: None unless ``cfg.is_moe``). ``p`` holds the layer's base weights,
     ``lora`` the stacked tree (indexed at ``layer``), ``ctx`` the rope
     angles, positions, window and this layer's cache (``ctx["cache"]``).
 
@@ -251,11 +272,14 @@ def transformer_block(cfg: ModelConfig, x: torch.Tensor, p: Dict,
     else:
         x = x + attn_out
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-    return x + mlp_sublayer(h, p, lora, layer, scale)
+    if cfg.is_moe:
+        moe_out, aux = MOE.moe_block(h, p["moe"], cfg.moe)
+        return x + moe_out, aux
+    return x + mlp_sublayer(h, p, lora, layer, scale), None
 
 
 def rwkv_block(cfg: ModelConfig, x: torch.Tensor, p: Dict, lora: Dict,
-               layer: int, ctx: Dict[str, Any]) -> torch.Tensor:
+               layer: int, ctx: Dict[str, Any]) -> Tuple[torch.Tensor, None]:
     """One RWKV-6 layer. With a cache (``ctx["cache"]``: this layer's
     ``wkv`` / ``tm_x`` / ``cm_x`` views) the recurrence continues from the
     cached state and the new state is written back in place under
@@ -277,7 +301,7 @@ def rwkv_block(cfg: ModelConfig, x: torch.Tensor, p: Dict, lora: Dict,
         mask = ctx.get("write_mask")
         for name, new in (("wkv", wkv), ("tm_x", tm_last), ("cm_x", cm_last)):
             _write_state(cache[name], new, mask)
-    return x
+    return x, None
 
 
 def layer_cache(cfg: ModelConfig, layers: Dict, layer: int) -> Dict:
@@ -293,7 +317,10 @@ def layer_cache(cfg: ModelConfig, layers: Dict, layer: int) -> Dict:
 
 
 def apply_block(cfg: ModelConfig, x: torch.Tensor, p: Dict, lora: Dict,
-                layer: int, ctx: Dict[str, Any]) -> torch.Tensor:
+                layer: int, ctx: Dict[str, Any]
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(x after the layer, its MoE load-balance term: an fp32 scalar, None
+    for the families without experts)."""
     if cfg.family == "ssm":
         return rwkv_block(cfg, x, p, lora, layer, ctx)
     return transformer_block(cfg, x, p, lora, layer, ctx)

@@ -92,7 +92,8 @@ def _unembed(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
 
 def _remat_block(binding, model_backend: str, cfg: ModelConfig,
                  x: torch.Tensor, p: Dict, lora: Dict, layer: int,
-                 ctx: Dict[str, Any]) -> torch.Tensor:
+                 ctx: Dict[str, Any]
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer under the LoRA binding and model backend of the forward
     that checkpointed it: the recompute runs in the backward pass, possibly
     in autograd's own thread, where the thread-local choices are not
@@ -101,27 +102,38 @@ def _remat_block(binding, model_backend: str, cfg: ModelConfig,
         return B.apply_block(cfg, x, p, lora, layer, ctx)
 
 
+def _layer_slice(tree: Dict, l: int) -> Dict:
+    """Layer ``l`` of a tree of ``[L, ...]`` stacked leaves, at any
+    depth (MoE's ``moe.shared`` sits two dicts down)."""
+    return {k: (_layer_slice(v, l) if isinstance(v, dict) else v[l])
+            for k, v in tree.items()}
+
+
 def _run_layers(cfg: ModelConfig, x: torch.Tensor, params: Dict, lora: Dict,
                 ctx: Dict[str, Any], layers: Optional[Dict],
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """The JAX package's ``_scan_layers`` as a loop over the stacked
     layers; layer l reads its base weights at ``[l]`` and its cache views
     at ``[l]`` (``blocks.layer_cache``). ``remat`` checkpoints each layer
     (``jax.checkpoint`` around the scan body): its activations are
-    recomputed in the backward pass instead of kept."""
+    recomputed in the backward pass instead of kept. Returns (x, the sum
+    of the layers' MoE load-balance terms: fp32, 0 for the families
+    without experts)."""
     stacked = params["layers"]
     binding, model_backend = LORA.current_binding(), BK.get_backend()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l in range(cfg.num_layers):
-        p = {k: ({n: w[l] for n, w in v.items()} if isinstance(v, dict)
-                 else v[l]) for k, v in stacked.items()}
+        p = _layer_slice(stacked, l)
         if layers is not None:
             ctx["cache"] = B.layer_cache(cfg, layers, l)
         if remat:
-            x = checkpoint(_remat_block, binding, model_backend, cfg, x, p,
-                           lora, l, ctx, use_reentrant=False)
+            x, a = checkpoint(_remat_block, binding, model_backend, cfg, x,
+                              p, lora, l, ctx, use_reentrant=False)
         else:
-            x = B.apply_block(cfg, x, p, lora, l, ctx)
-    return x
+            x, a = B.apply_block(cfg, x, p, lora, l, ctx)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -135,7 +147,8 @@ def forward(cfg: ModelConfig, params: Dict, lora: Dict, tokens: torch.Tensor,
     """Full-sequence causal forward.
 
     tokens: [Z, b, S] int. Returns (final_hidden [Z,b,S,d] (post final
-    norm, pre-unembed), aux scalar (0 for the ported families), cache|None).
+    norm, pre-unembed), the MoE load-balance term summed over the layers
+    (fp32 scalar; 0 for the other families), cache|None).
     With ``cache`` given (prefill), every lane's K/V are written at index
     0..S-1 (RWKV: its recurrent state continued from the cached one;
     hybrid: both, the Mamba state continued from the cached one) in
@@ -156,8 +169,9 @@ def forward(cfg: ModelConfig, params: Dict, lora: Dict, tokens: torch.Tensor,
     if cache is not None:
         ctx["write_index"] = 0
     remat = cache is None and torch.is_grad_enabled()
-    x = _run_layers(cfg, x, params, lora, ctx,
-                    cache["layers"] if cache is not None else None, remat)
+    x, aux = _run_layers(cfg, x, params, lora, ctx,
+                         cache["layers"] if cache is not None else None,
+                         remat)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cache is not None:
         per_lane = cache["pos"].dim() == 2
@@ -168,7 +182,7 @@ def forward(cfg: ModelConfig, params: Dict, lora: Dict, tokens: torch.Tensor,
                               device=dev)
             cache["k_pos"] = (kp.expand_as(cache["k_pos"]).clone()
                               if per_lane else kp)
-    return x, torch.zeros((), dtype=torch.float32, device=dev), cache
+    return x, aux, cache
 
 
 # ---------------------------------------------------------------------------
@@ -303,7 +317,7 @@ def decode_step(cfg: ModelConfig, params: Dict, lora: Dict, cache: Dict,
     else:
         ctx.update(write_index=pos, kv_valid_len=pos + 1,
                    window=_train_window(cfg))
-    x = _run_layers(cfg, x, params, lora, ctx, cache["layers"])
+    x, _ = _run_layers(cfg, x, params, lora, ctx, cache["layers"])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _unembed(cfg, params, x[:, :, 0])
     new_pos = pos + 1
@@ -377,7 +391,7 @@ def prefill_lanes(cfg: ModelConfig, params: Dict, lora: Dict, cache: Dict,
         "write_index": 0,
         "write_mask": lane_mask,
     }
-    x = _run_layers(cfg, x, params, lora, ctx, cache["layers"])
+    x, _ = _run_layers(cfg, x, params, lora, ctx, cache["layers"])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if plens is None:
         last = x[:, :, -1]

@@ -1,0 +1,198 @@
+"""Mixture-of-Experts with grouped, capacity-bound token-choice routing.
+
+The same function as the JAX package's ``moe_block``: the flattened
+``Z·b·S`` tokens split into groups of ``pick_group_size(T)``; each token
+picks its top-k experts from an fp32 softmax router, the selected gates are
+renormalized, and every expert takes at most ``cap`` choices per group, in
+token-major priority order (earlier tokens first, then lower k). A dropped
+choice keeps a zero gate (the kept gates are not renormalized). The routed
+experts, the router and the shared expert are frozen base weights (LoRA
+attaches to attention only); the load-balance term ``aux`` is returned for
+the loss.
+
+Dispatch and combine go by index instead of the reference's ``[G, s, E,
+cap]`` one-hot contractions (their entries are 0 or 1, so the values are
+the same exactly; at granite-moe's train step each one-hot tensor would
+hold 671 MB in fp32): each kept choice writes its token's row into its
+own ``(e, g, c)`` slot of the expert buffer, and each token gathers its k
+expert outputs back and sums them over k in a fixed order. Dropped choices
+write into, and read from, one spare row whose value and gradient are
+never used. Every other row has one writer and one reader at most, so no
+pass, forward or backward, adds into a row in a data-dependent order: the
+backward is deterministic, bit for bit. The expert GEMMs are ``torch.bmm``
+over the experts (the JAX package computes them outside any Pallas kernel,
+so this layer has no kernel of its own).
+
+``moe_block`` reads ``route`` and its other parts at call time, so a check
+can wrap one (to read the routing or time it) or replace it (to plant a
+fault).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import MoEConfig
+from repro_torch.models.common import he_init, swiglu
+
+
+def pick_group_size(num_tokens: int, lo: int = 128, hi: int = 4096) -> int:
+    """Largest power-of-two group size in [lo, hi] dividing num_tokens."""
+    g = 1
+    t = num_tokens
+    while t % 2 == 0 and g < hi:
+        g *= 2
+        t //= 2
+    if g < lo:
+        return num_tokens if num_tokens <= hi else g
+    return min(g, hi)
+
+
+def capacity(moe: MoEConfig, s: int) -> int:
+    """Choices each expert takes per group of ``s`` tokens: lossless for
+    tiny groups (decode steps), else ``capacity_factor · s · k / E``."""
+    if s <= 64:
+        return s * moe.top_k
+    return max(int(moe.capacity_factor * s * moe.top_k / moe.num_experts), 1)
+
+
+def init_moe_params(gen: torch.Generator, d_model: int, moe: MoEConfig,
+                    dtype: torch.dtype) -> Dict:
+    """The router (fp32), the routed experts' stacked SwiGLU weights and
+    the shared expert (model dtype)."""
+    E, ff = moe.num_experts, moe.d_ff_expert
+    p = {
+        "router": he_init(gen, (d_model, E), d_model, torch.float32),
+        "w_gate": he_init(gen, (E, d_model, ff), d_model, dtype),
+        "w_up": he_init(gen, (E, d_model, ff), d_model, dtype),
+        "w_down": he_init(gen, (E, ff, d_model), ff, dtype),
+    }
+    if moe.num_shared_experts:
+        ffs = moe.d_ff_shared * moe.num_shared_experts
+        p["shared"] = {
+            "gate": he_init(gen, (d_model, ffs), d_model, dtype),
+            "up": he_init(gen, (d_model, ffs), d_model, dtype),
+            "down": he_init(gen, (ffs, d_model), ffs, dtype),
+        }
+    return p
+
+
+def route(xt: torch.Tensor, router: torch.Tensor, moe: MoEConfig, cap: int
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                     torch.Tensor]:
+    """xt: [G, s, d] -> (gates [G,s,k] fp32 with dropped choices zeroed,
+    expert_idx [G,s,k], pos [G,s,k] (each choice's place in its expert's
+    queue), keep [G,s,k] bool, aux scalar fp32)."""
+    E, k = moe.num_experts, moe.top_k
+    probs = torch.softmax(xt.float() @ router, dim=-1)           # [G,s,E]
+    gates, expert_idx = torch.topk(probs, k, dim=-1, sorted=True)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+
+    ids = torch.arange(E, device=xt.device)
+    # load balance: mean router mass times the top-1 share, per group
+    me = probs.mean(dim=1)                                       # [G,E]
+    ce = (expert_idx[..., :1] == ids).float().mean(dim=1)       # [G,E]
+    aux = E * (me * ce).sum(-1).mean()
+
+    # place in the expert's queue over the flattened (s, k) axis: earlier
+    # tokens first, then lower k. The running counts run along the last
+    # axis, [G, E, s·k] (a scan along a middle axis of [G, s·k, E] is
+    # far slower on the card)
+    G, s = expert_idx.shape[:2]
+    flat = expert_idx.reshape(G, 1, s * k)
+    sel = (flat == ids[:, None]).to(torch.int32)                 # [G,E,s·k]
+    before = torch.cumsum(sel, dim=-1, dtype=torch.int32) - sel
+    pos = before.gather(1, flat).reshape(G, s, k)
+    keep = pos < cap
+    return gates * keep, expert_idx, pos, keep, aux
+
+
+def slots(expert_idx: torch.Tensor, pos: torch.Tensor, keep: torch.Tensor,
+          num_experts: int, cap: int) -> torch.Tensor:
+    """Each choice's row of the flat expert buffer, ``[G·s·k]``: row
+    ``(e·G + g)·cap + pos`` (the reference's ``egcd`` layout), or the
+    spare last row ``E·G·cap`` for a dropped choice."""
+    G = expert_idx.shape[0]
+    g = torch.arange(G, device=pos.device)[:, None, None]
+    row = (expert_idx * G + g) * cap + pos
+    return torch.where(keep, row, num_experts * G * cap).reshape(-1)
+
+
+def dispatch(xt: torch.Tensor, slot: torch.Tensor, num_experts: int,
+             cap: int) -> torch.Tensor:
+    """xt: [G, s, d] -> the experts' inputs [E, G·cap, d]: every kept
+    choice writes its token's row into its own slot (empty slots stay 0).
+    The backward is a gather of the slots' gradients and a sum over k."""
+    G, s, d = xt.shape
+    k = slot.numel() // (G * s)
+    n = num_experts * G * cap
+    rows = xt[:, :, None].expand(G, s, k, d).reshape(-1, d)
+    buf = xt.new_zeros((n + 1, d)).index_put((slot,), rows)
+    return buf[:n].reshape(num_experts, G * cap, d)
+
+
+def experts(expert_in: torch.Tensor, params: Dict) -> torch.Tensor:
+    """The routed experts' SwiGLU over their slots: [E, G·cap, d] ->
+    [E·G·cap, d]."""
+    h = swiglu(torch.bmm(expert_in, params["w_gate"]),
+               torch.bmm(expert_in, params["w_up"]))
+    return torch.bmm(h, params["w_down"]).reshape(-1, expert_in.shape[-1])
+
+
+class _GatherRows(torch.autograd.Function):
+    """``src[idx]`` for an ``idx`` that reads every row of ``src`` at most
+    once, its last (spare) row aside: the backward writes each gradient
+    row back to its own source row with no accumulation (the spare row's
+    gradient is never used). Autograd's own backward of an index
+    accumulates, sorting the indices first, which took ~3 ms a layer at
+    granite-moe's train step on an H100."""
+
+    @staticmethod
+    def forward(ctx, src, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = src.shape[0]
+        return src[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        out = grad.new_zeros((ctx.rows, grad.shape[-1]))
+        return out.index_put_((idx,), grad), None
+
+
+def combine(expert_out: torch.Tensor, slot: torch.Tensor,
+            gates: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Each token's k expert outputs gathered back (a dropped choice reads
+    the zero spare row) and summed over k in fp32, weighted by the gates
+    cast to the activation dtype: -> [G, s, d] in ``dtype``."""
+    G, s, k = gates.shape
+    d = expert_out.shape[-1]
+    spare = torch.cat([expert_out, expert_out.new_zeros((1, d))])
+    picked = _GatherRows.apply(spare, slot).reshape(G, s, k, d)
+    w = gates.to(dtype).float()[..., None]
+    return (picked.float() * w).sum(dim=2).to(dtype)
+
+
+def shared_expert(xt: torch.Tensor, sh: Dict) -> torch.Tensor:
+    """The always-on shared expert's SwiGLU on every token."""
+    return swiglu(xt @ sh["gate"], xt @ sh["up"]) @ sh["down"]
+
+
+def moe_block(x: torch.Tensor, params: Dict, moe: MoEConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [Z, b, S, d] -> (out [Z, b, S, d], aux scalar fp32)."""
+    Z, b, S, d = x.shape
+    T = Z * b * S
+    s = pick_group_size(T)
+    G = T // s
+    cap = capacity(moe, s)
+    E = moe.num_experts
+    xt = x.reshape(G, s, d)
+    gates, expert_idx, pos, keep, aux = route(xt, params["router"], moe, cap)
+    slot = slots(expert_idx, pos, keep, E, cap)
+    out = combine(experts(dispatch(xt, slot, E, cap), params), slot, gates,
+                  x.dtype)
+    if "shared" in params:
+        out = out + shared_expert(xt, params["shared"])
+    return out.reshape(Z, b, S, d), aux
