@@ -5,10 +5,12 @@ co-location, DPO preference tuning, the engine (paper Listing 1)
 scheduling and running three tuning tasks statically and elastically, a
 live tuning-service session with tune-to-serve, and crash-and-resume of
 stablelm-3b, at the executor and through the service's journal, then
-serving and rank-sweep LoRA training of rwkv6-3b, of hymba-1.5b and of the
-MoE granite-moe-1b-a400m, and a train check of llama4-scout-17b-a16e at
-full width, on one NVIDIA card, through the port's hand-written CUDA
-kernels.
+serving and rank-sweep LoRA training of rwkv6-3b, of hymba-1.5b, of the
+MoE granite-moe-1b-a400m, of the vision-language qwen2-vl-72b (depth cut,
+with image-prefixed train and serve checks) and of musicgen-medium, and
+train checks of llama4-scout-17b-a16e, glm4-9b, granite-8b and
+mistral-nemo-12b at full width, on one NVIDIA card, through the port's
+hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -319,14 +321,15 @@ per forward) follow:
             through the plain version (as the JAX package's custom VJP),
             one chunk at a time (``torch.utils.checkpoint`` per chunk).
 19. rwkv rank sweep — the slice's main path: phase 6 on rwkv6-3b at full
-            width and depth (8 jobs, ranks 4/8/16/32 x lr 1e-4/1e-3, Z = 4,
-            b = 4, S = 256): every fused train step must launch the
-            rank-local xa/sb_add 448 times, ds/da/db 224, dx 220 (the
-            first layer's r/k/v/g read the embedding's token-shift
-            lerps), the linear scan 64 and flash 0; every eval step
-            xa/sb_add 224 and the linear scan 32; the dense and ragged
-            kernels never. The same measurements as phase 6, with the scan
-            kernel's share of the device time.
+            width and RWKV_SWEEP_LAYERS = 16 of its 32 layers (depth cut
+            for time; 8 jobs, ranks 4/8/16/32 x lr 1e-4/1e-3, Z = 4, b =
+            4, S = 256): every fused train step must launch the rank-local
+            xa/sb_add 224 times, ds/da/db 112, dx 108 (the first layer's
+            r/k/v/g read the embedding's token-shift lerps), the linear
+            scan 32 and flash 0; every eval step xa/sb_add 112 and the
+            linear scan 16; the dense and ragged kernels never. The same
+            measurements as phase 6, with the scan kernel's share of the
+            device time.
 
 The rwkv6-3b backbone is freed; the hymba-1.5b phases (32 layers, d_model
 1600, 25 heads of 64 with 5 KV heads, sliding window 1,024, d_ff 5504,
@@ -426,13 +429,71 @@ router and embeddings frozen), then llama4-scout-17b-a16e:
             fp32 (~26 GB of weights): phase 27's checks; flash at hd 128
             on a model path.
 
+The llama4-scout backbone is freed; the last families' phases follow
+(``family_phases``): qwen2-vl-72b (vlm: 80 layers, d_model 8192, 64 heads
+of 128 with 8 KV heads, d_ff 29568, vocab 152064, untied, M-RoPE sections
+(16, 24, 24) over (t, h, w) positions, a stub vision tower feeding 256
+patch embeddings at the start of a sequence) cut to QWEN_LAYERS; then
+musicgen-medium (audio: 48 layers, d_model 1536, 24 heads of 64, d_ff
+6144, vocab 2048) at full size; then glm4-9b (2 KV heads, d_ff 13696),
+granite-8b and mistral-nemo-12b (q_dim 4096 != d_model 5120) at full width
+and DENSE_LAYERS layers; random weights from a seed:
+
+30. family kernels — the six rank-local kernels against their plain
+            versions at the train step's T = 1,024 rows a slot (ranks
+            4-32) and the forward pair at decode rows (T = 4, ranks 8-64),
+            timed beside the bound and ``torch.bmm``, at qwen2-vl's 8192 x
+            8192, 8192 x 1024, 8192 x 29568 and 29568 x 8192, mistral's
+            5120 x 4096 and 4096 x 5120, glm4's 4096 x 256 and 13696 x
+            4096 and musicgen's 1536 x 6144; the dense, ragged and
+            rank-local twins bitwise at full rank at 4096 x 5120 and 4096
+            x 256; phase 3a's invariance at mistral's two shapes; flash in
+            bf16 at hd 128 (qwen2-vl's B = 512 at S 512 and its eval B =
+            4,096; glm4's B = 512, whose 2 KV heads are repeated 16 times)
+            and at hd 64 (musicgen's B = 384 and 1,536), with phase 3b's
+            bars, faults, SDPA yardstick and batch independence.
+31. qwen2-vl — at full width and QWEN_LAYERS = 4 of 80 layers in bf16
+            (~12 GB): an fp32 train check at QWEN_TRAIN_LAYERS = 2 (~17
+            GB; Z 4, b 2, S 512) on an image-prefixed batch (256 patch
+            embeddings of a 16 x 16 grid, N(0, 0.02) from a seed; patch
+            (row, col) at (0, row, col), the text after it at (16 + i,
+            16 + i, 16 + i); labels -1 on the prefix): phase 5's bars and
+            faults at an fp32 loss bar (FAMILY_LOSS_REL), and three more
+            planted faults in the plain run that must break it: the text
+            positions (t, t, t), the token embeddings in place of the
+            patch embeddings, the h and w sections swapped. Then the rank
+            sweep (the vlm family's main path; text batches, as the
+            reference's executor feeds): phase 6's settings and
+            measurements, LoRA 56/56/28/25/28/28 and flash 8 a train step,
+            28 and 4 an eval step; a serve (phase 4 over per-lane caches,
+            whose decode positions are M-RoPE's (3, Z, b, 1)); and an
+            image-prefixed prompt (``image_prompt_check``): 4 slots of 256
+            patches and 64 text tokens prefilled into a global cache by
+            ``make_prefill_step``, 8 greedy ``make_serve_step`` steps, the
+            logits held against the plain versions within phase 4's bars,
+            the run without the patch embeddings outside them.
+32. musicgen — at full size (1.82 B parameters, 3.6 GB in bf16): the rank
+            sweep (the audio family's main path; LoRA
+            672/672/336/333/336/336 and flash 96 a train step, 336 and 48
+            an eval step), a serve, and an fp32 train check at full depth
+            (phase 5's bars and faults, loss bar FAMILY_LOSS_REL).
+33. dense configs — fp32 train checks of glm4-9b, granite-8b and
+            mistral-nemo-12b at full width and DENSE_LAYERS = 2 layers on
+            the rank-local path (phase 5's bars and faults, loss bar
+            FAMILY_LOSS_REL); mistral's also on the dense path at ranks 64,
+            where the rank-local kernels at r_max must give its numbers
+            bit for bit.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernel table as JSON (twenty kernels), with each kernel's launches by
 path (``engine_static`` and ``engine_elastic`` for the engine phase's two
 runs, ``service`` and ``service_recovery`` for the service's trainings,
 ``service_serve`` for its served requests, ``moe_train`` and
 ``moe_serve`` for granite-moe's sweep and serve, ``llama4_train`` for
-llama4-scout's kernel step).
+llama4-scout's kernel step, ``vlm_train``, ``vlm_sweep``, ``vlm_serve``
+and ``vlm_prompt`` for qwen2-vl's train check, sweep, serve and image
+prompt, ``audio_sweep``, ``audio_serve`` and ``audio_train`` for
+musicgen's, ``dense_cfg_train`` for the dense configs' train checks).
 """
 from __future__ import annotations
 
@@ -527,6 +588,9 @@ SFU_PER_CLOCK_SM = 16         # exponentials per clock per SM (cc 9.0)
 # the kernels read <= 3.6e-4 against the 0.05 gradient bars, holding every
 # bar and every fault
 RWKV_GRAD_LAYERS = 2
+# layers of the rwkv rank sweep (full width; cut from 32 so that the last
+# families' phases fit the script's time)
+RWKV_SWEEP_LAYERS = 16
 # hymba-1.5b's paths: S = 2048 (its sliding window of 1024 binds in every
 # forward), b = 2 sequences a slot in a train step, HYMBA_EVAL_B in an eval
 # step; its LoRA projections (din, dout): q/o, k/v, in_proj, gate/up, down
@@ -559,6 +623,31 @@ LLAMA4_LAYERS = 2
 # planted forward fault, slot 0's rank-4 delta halved, reads 6.4e-05 and
 # 3.1e-04 (PERF.md)
 MOE_LOSS_REL = 2e-6
+# qwen2-vl-72b at full width is cut to QWEN_LAYERS of its 80 layers in bf16
+# (~12 GB: 1.76 GB a layer, 4.98 GB for the untied embedding and head) and
+# to QWEN_TRAIN_LAYERS in its fp32 train check (~17 GB); that check's
+# batch: b = QWEN_B sequences of QWEN_S tokens a slot, each led by the
+# stub vision tower's 256 patch embeddings of a QWEN_GRID patch grid
+QWEN_LAYERS, QWEN_TRAIN_LAYERS = 4, 2
+QWEN_S, QWEN_B = 512, 2
+QWEN_GRID = (16, 16)
+# decode steps after the image-prefixed prompt; its text tokens
+IMAGE_DECODES, IMAGE_TEXT = 8, 64
+# glm4-9b, granite-8b and mistral-nemo-12b at full width, DENSE_LAYERS of
+# their 36-40 layers, in their fp32 train checks
+DENSE_LAYERS = 2
+# the LoRA projections (din, dout) of the last families: qwen2-vl's q/o,
+# k/v, gate/up and down; mistral-nemo's q and o (q_dim 4,096 != d_model
+# 5,120); glm4's k/v (2 KV heads of 128) and down (13,696 = 107 x 128);
+# musicgen's gate/up
+FAMILY_SHAPES = {"qwen2-vl": ((8192, 8192), (8192, 1024), (8192, 29568),
+                              (29568, 8192)),
+                 "mistral": ((5120, 4096), (4096, 5120)),
+                 "glm4": ((4096, 256), (13696, 4096)),
+                 "musicgen": ((1536, 6144),)}
+# the fp32 train checks of the last families: an fp32 loss bar, as
+# MOE_LOSS_REL
+FAMILY_LOSS_REL = 2e-6
 # device busy ms per profiled train step of each executor phase, by task
 STEP_BUSY_MS = {}
 DPO_B = 2                     # preference pairs per slot in the DPO phase
@@ -1864,7 +1953,7 @@ def _task_data(cfg, name, S=TRAIN_S, num_val=EVAL_B):
 
 def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
                 loss_kind="sft", hold_grads=True, S=TRAIN_S, b=TRAIN_B,
-                loss_bar=TRAIN_LOSS_REL):
+                loss_bar=TRAIN_LOSS_REL, image=False):
     """One full-size train step with the kernels against the same step on
     their plain versions (LoRA backend "torch": autograd through them),
     per slot: loss, grad norm, and the relative RMS of dA and dB over all
@@ -1922,6 +2011,13 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
     plain run, the selected gates left unnormalized, must break the loss
     bar.
 
+    ``image`` (qwen2-vl): every sequence starts with the stub vision
+    tower's patch embeddings and (t, h, w) positions (``image_inputs``),
+    labels -1 over the prefix; three more planted faults in the plain run,
+    each of which must break the loss bar: the text positions (t, t, t) in
+    place of the image's, the token embeddings in place of the patch
+    embeddings, and the h and w sections swapped (``image_faults``).
+
     Returns the kernel run's launches (the path's set and both sequence
     kernels)."""
     from repro_torch.core import lora as LORA
@@ -1953,7 +2049,11 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
         for z, nr in enumerate(rows_t):
             raw["labels"][z].reshape(-1)[nr:] = -1
             raw["tokens"][z].reshape(-1)[nr:] = 0
+    if image:                  # no loss over the patch prefix
+        raw["labels"][:, :, :cfg.num_modality_tokens] = -1
     kbatch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    if image:
+        kbatch.update(image_inputs(torch, cfg, Z, b, S))
     if rows_t is not None:
         kbatch["slot_rows"] = torch.tensor(rows_t, dtype=torch.int32,
                                            device=dev)
@@ -2306,6 +2406,13 @@ def train_check(torch, fams, cfg, params, ranks_t, path, rows_t=None,
         require(max(c["loss"]) > loss_bar,
                 f"control '{what}' passes the loss bar")
         del g_att
+    for what, batch in (image_faults(pbatch) if image else ()):
+        a_loss, g_img, a_nll = plain_run(batch=batch)
+        c = gap(a_loss, adamw.per_slot_global_norm(g_img), g_img, a_nll)
+        print(f"train check ({tag}): control, {what}: {show(c)}")
+        require(max(c["loss"]) > loss_bar,
+                f"control '{what}' passes the loss bar")
+        del g_img
     if path == "rank-local" and not dpo and cfg.family == "dense":
         # one step's gradients, LoRA kernels both times: flash attention,
         # then the baseline einsum attention
@@ -2432,12 +2539,15 @@ def moe_routing_checks(torch, cfg, params, lora, kbatch, pbatch, k_gloss,
 # the projections whose inputs are the first layer's normed embedding (for
 # RWKV: its token-shift lerps), which hang off no differentiable leaf
 FIRST_LAYER_NO_DX = {"dense": {"q_proj", "k_proj", "v_proj"},
+                     "vlm": {"q_proj", "k_proj", "v_proj"},
+                     "audio": {"q_proj", "k_proj", "v_proj"},
                      "moe": {"q_proj", "k_proj", "v_proj"},
                      "ssm": {"r_proj", "k_proj", "v_proj", "g_proj"},
                      "hybrid": {"q_proj", "k_proj", "v_proj", "in_proj"}}
 # the sequence kernels of each family: one launch each per layer of a
 # forward
 SEQ_KERNELS = {"dense": ("flash_attention",), "moe": ("flash_attention",),
+               "vlm": ("flash_attention",), "audio": ("flash_attention",),
                "ssm": ("linear_scan",),
                "hybrid": ("flash_attention", "linear_scan")}
 
@@ -4437,11 +4547,13 @@ def full_rank_twins(torch, fams, T, din, dout):
           f"outputs")
 
 
-def _cut_layers(params, layers, dtype):
+def _cut_layers(params, layers, dtype=None):
     """``params`` with the first ``layers`` of every stacked leaf (nested
-    ones too), each leaf cast to ``dtype``."""
+    ones too), each leaf cast to ``dtype`` (None: each keeps its own, as
+    rwkv6-3b's fp32 leaves beside its bf16 ones need)."""
     def conv(x, stacked):
-        return (x[:layers] if stacked else x).to(dtype)
+        x = x[:layers] if stacked else x
+        return x if dtype is None else x.to(dtype)
 
     def walk(tree):
         return {k: walk(v) if isinstance(v, dict) else conv(v, True)
@@ -4556,10 +4668,7 @@ def hymba_phases(torch, fams, t_all):
            for din, dout in HYMBA_SHAPES],
         timed={("decode", 1600, 1600): "hymba_decode",
                ("eval", 1600, 1600): "hymba_eval"})
-    for name, res in fwd.items():
-        lora[name]["shapes"].update(res["shapes"])
-        lora[name]["max_abs_err"] = max(lora[name]["max_abs_err"],
-                                        res["max_abs_err"])
+    _merged(lora, fwd)
     invariance_phase(torch, fams["dense"], fams["ragged"], RL,
                      shapes=HYMBA_SHAPES)
     for din, dout in HYMBA_SHAPES:
@@ -4639,8 +4748,11 @@ def rwkv_phases(torch, fams, t_all):
     jobs = {f"r{r}-lr{lr:g}": TrainConfig(learning_rate=lr, lora_rank=r,
                                           per_adapter_batch=TRAIN_B)
             for r in TRAIN_RANKS for lr in (1e-4, 1e-3)}
+    # depth cut (RWKV_SWEEP_LAYERS) to keep the script within its time
+    scfg = dataclasses.replace(rcfg, num_layers=RWKV_SWEEP_LAYERS)
+    sparams = _cut_layers(rparams, RWKV_SWEEP_LAYERS)
     launches = executor_phase(torch, RL, (fams["dense"], fams["ragged"]),
-                              rcfg, rparams, "rwkv-rank-sweep", jobs)
+                              scfg, sparams, "rwkv-rank-sweep", jobs)
     print(f"rwkv rank-sweep executor phase done at "
           f"{time.perf_counter() - t_all:.1f} s")
     return scan, serve, launches
@@ -4777,10 +4889,7 @@ def moe_phases(torch, fams, t_all):
            for din, dout in GRANITE_SHAPES],
         timed={("decode", 1024, 1024): "granite_decode",
                ("eval", 1024, 1024): "granite_eval"})
-    for name, res in fwd.items():
-        lora[name]["shapes"].update(res["shapes"])
-        lora[name]["max_abs_err"] = max(lora[name]["max_abs_err"],
-                                        res["max_abs_err"])
+    _merged(lora, fwd)
     H, hd = gcfg.num_heads, gcfg.resolved_head_dim
     _, flash = flash_kernel_phase(
         torch, FA, fref, gcfg, plain_labels=("train",),
@@ -4844,6 +4953,311 @@ def moe_phases(torch, fams, t_all):
     print(f"llama4 train check done at {time.perf_counter() - t_all:.1f} s")
     return lora, flash, serve, launches, l_launches
 
+
+
+def image_positions(torch, grid, S, device):
+    """[3, S] M-RoPE positions of a patch-grid prefix and the text after
+    it: patch (row, col) at (0, row, col), text token i at (G + i, G + i,
+    G + i) with G = max(grid) (Qwen2-VL's rule for one still image at the
+    start of a sequence)."""
+    rows, cols = grid
+    idx = torch.arange(rows * cols, device=device)
+    text = max(grid) + torch.arange(S - rows * cols, device=device)
+    return torch.stack([torch.cat([torch.zeros_like(idx), text]),
+                        torch.cat([idx // cols, text]),
+                        torch.cat([idx % cols, text])]).to(torch.int32)
+
+
+def image_inputs(torch, cfg, Z, b, S, seed=4):
+    """The stub vision tower's output for a [Z, b, S] batch: the
+    ``num_modality_tokens`` patch embeddings of a QWEN_GRID image a sequence
+    ([Z, b, P, d] in the config's dtype, N(0, 0.02) from a seeded
+    generator, as tests/test_arch_smoke.py makes them) and the (t, h, w)
+    positions of the patches and the text after them ([3, Z, b, S])."""
+    from repro_torch.models.common import dtype_of
+
+    P = cfg.num_modality_tokens
+    require(P == QWEN_GRID[0] * QWEN_GRID[1],
+            f"{cfg.name}: {P} modality tokens, a {QWEN_GRID} grid")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    emb = 0.02 * torch.randn(Z, b, P, cfg.d_model, generator=gen,
+                             device="cuda")
+    pos = image_positions(torch, QWEN_GRID, S, "cuda")
+    return {"modal_embeds": emb.to(dtype_of(cfg.dtype)),
+            "positions": pos[:, None, None].expand(3, Z, b, S).contiguous()}
+
+
+def image_faults(batch):
+    """Copies of an image-prefixed ``batch`` with a fault planted: the text
+    positions (t, t, t) (the forward's default) in place of the image's;
+    the token embeddings in place of the patch embeddings; the h and w
+    sections' positions swapped."""
+    text = {k: v for k, v in batch.items() if k != "positions"}
+    tokens = {k: v for k, v in batch.items() if k != "modal_embeds"}
+    return [("the text positions (t, t, t) in place of the image's", text),
+            ("the token embeddings in place of the patch embeddings",
+             tokens),
+            ("the h and w sections' positions swapped",
+             dict(batch, positions=batch["positions"][[0, 2, 1]]))]
+
+
+def image_prompt_check(torch, RL, cfg, params):
+    """An image-prefixed prompt through the serving steps on qwen2-vl: 4
+    slots (adapters at ranks RANKS, non-zero B), one sequence each of the
+    stub's 256 patch embeddings and IMAGE_TEXT text tokens with their
+    (t, h, w) positions, prefilled with ``make_prefill_step`` into a global
+    cache, then IMAGE_DECODES greedy ``make_serve_step`` steps (decode
+    continues at (p, p, p), p the sequence index, as the JAX package
+    does). The kernel run's logits at every step are held against a run on
+    the plain versions (model and LoRA backend "torch") fed the kernel
+    run's tokens, per slot within LOGITS_ATOL_REL / LOGITS_REL_RMS; the
+    same plain run without the patch embeddings must fail those bars in
+    every slot. Returns the kernel run's launches."""
+    from repro_torch.core import lora as LORA
+    from repro_torch.core import steps as STEPS
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.models import backend as BK
+    from repro_torch.models import model as M
+
+    dev, Z = "cuda", len(RANKS)
+    P = cfg.num_modality_tokens
+    S = P + IMAGE_TEXT
+    gen = torch.Generator(device=dev).manual_seed(9)
+    ranks = torch.tensor(RANKS, dtype=torch.int32, device=dev)
+    lora = LORA.init_lora_tree(gen, cfg, Z, ranks, M.target_shapes(cfg))
+    for ab in lora.values():
+        ab["B"].normal_(0.0, 0.003, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (Z, 1, S), generator=gen,
+                           device=dev, dtype=torch.int32)
+    batch = {"tokens": tokens, **image_inputs(torch, cfg, Z, 1, S)}
+
+    def run(backend, batch, feed=None):
+        """(logits of the prefill and every decode step [n+1, Z, 1, V]
+        fp32, the tokens fed)."""
+        cache = M.init_cache(cfg, Z, 1, S + IMAGE_DECODES, device=dev)
+        serve = STEPS.make_serve_step(cfg)
+        out, fed = [], []
+        with (torch.inference_mode(), LORA.backend(backend),
+              BK.backend(backend), LORA.slot_ranks(ranks)):
+            logits, cache = STEPS.make_prefill_step(cfg)(params, lora, cache,
+                                                         batch)
+            for i in range(IMAGE_DECODES):
+                out.append(logits.float())
+                cur = (logits.argmax(-1).to(torch.int32) if feed is None
+                       else feed[i])
+                fed.append(cur)
+                logits, cache = serve(params, lora, cache, cur)
+            out.append(logits.float())
+        require(int(cache["pos"]) == S + IMAGE_DECODES,
+                f"image prompt: cache position {int(cache['pos'])}")
+        return torch.stack(out), fed
+
+    RL.reset_launches()
+    FA.reset_launches()
+    t = time.perf_counter()
+    k_logits, fed = run("kernel", batch)
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t
+    launches = {**RL.LAUNCHES, **FA.LAUNCHES}
+    want = len(cfg.lora.targets) * cfg.num_layers * (1 + IMAGE_DECODES)
+    require(launches["xa"] == launches["sb_add"] == want
+            and launches["flash_attention"] == 0,
+            f"image prompt: launches {launches}, expected {want} of xa and "
+            f"sb_add and no flash (a prefill into a longer cache)")
+    p_logits, _ = run("torch", batch, fed)
+    no_img, _ = run("torch", {k: v for k, v in batch.items()
+                              if k != "modal_embeds"}, fed)
+
+    def gap(a, b):
+        """Per slot over every step: max|a-b| / max|b| and the relative
+        RMS."""
+        d, b = (a - b).transpose(0, 1).flatten(1), b.transpose(0, 1).flatten(1)
+        return ((d.abs().amax(1) / b.abs().amax(1)).tolist(),
+                (d.norm(dim=1) / b.norm(dim=1)).tolist())
+
+    sound, control = gap(k_logits, p_logits), gap(no_img, p_logits)
+    agree = float((k_logits.argmax(-1) == p_logits.argmax(-1)).float().mean())
+    show = lambda g: (f"max|diff|/max|logit| {[round(v, 5) for v in g[0]]}, "
+                      f"relative RMS {[round(v, 5) for v in g[1]]}")
+    print(f"image prompt ({cfg.name}, {cfg.num_layers} layers, {cfg.dtype}): "
+          f"{Z} slots x ({P} patches of a {QWEN_GRID} grid + {IMAGE_TEXT} "
+          f"text tokens) prefilled, {IMAGE_DECODES} greedy decode steps at "
+          f"positions ({S}, {S}, {S}) on, in {t_k:.2f} s with the kernels; "
+          f"launches {launches} = {want // (1 + IMAGE_DECODES)} a forward")
+    print(f"image prompt: kernels vs plain versions per slot over the "
+          f"prefill and decode logits: {show(sound)} (bars "
+          f"{LOGITS_ATOL_REL}, {LOGITS_REL_RMS}); greedy agreement "
+          f"{agree:.3f}; the plain run without the patch embeddings: "
+          f"{show(control)}")
+    require(bool(torch.isfinite(k_logits).all())
+            and tuple(k_logits.shape) == (IMAGE_DECODES + 1, Z, 1,
+                                          cfg.vocab_size),
+            f"image prompt: logits {tuple(k_logits.shape)} not finite or "
+            f"misshapen")
+    require(max(sound[0]) <= LOGITS_ATOL_REL
+            and max(sound[1]) <= LOGITS_REL_RMS,
+            "image prompt: kernel logits too far from the plain versions'")
+    require(min(control[0]) > LOGITS_ATOL_REL
+            and min(control[1]) > LOGITS_REL_RMS,
+            "image prompt: the run without the patch embeddings passes the "
+            "logits bars")
+    del lora, k_logits, p_logits, no_img
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _merged(into, more):
+    """Kernel results by name with ``more``'s shapes beside ``into``'s and
+    the larger error."""
+    for name, res in more.items():
+        had = into.setdefault(name, {"max_abs_err": 0.0})
+        had.setdefault("shapes", {}).update(res.get("shapes", {}))
+        had["max_abs_err"] = max(had["max_abs_err"], res["max_abs_err"])
+    return into
+
+
+def family_phases(torch, fams, t_all):
+    """Phases 30-33, the last model families at full width: the rank-local
+    kernels at their new edges and flash at head dim 128 in bf16;
+    qwen2-vl-72b (the vlm family: M-RoPE and the stub vision tower's patch
+    prefix) at QWEN_LAYERS layers, with an image-prefixed fp32 train check
+    at QWEN_TRAIN_LAYERS, a rank sweep (its main path), a serve and an
+    image-prefixed prompt; musicgen-medium (the audio family) at full size:
+    its rank sweep (its main path), a serve and an fp32 train check; then
+    fp32 train checks of glm4-9b, granite-8b and mistral-nemo-12b at
+    DENSE_LAYERS layers (mistral's also on the dense path). Returns (the
+    rank-local kernels' results, flash's by case, launches by path: of the
+    rank-local set, of the dense set, of flash)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.grouped_lora import ref
+    from repro_torch.models import model as M
+
+    RL = fams["rank-local"]
+    qcfg = get_arch("qwen2-vl-72b")
+    mcfg = get_arch("musicgen-medium")
+    gcfg = get_arch("glm4-9b")
+    T = TRAIN_B * TRAIN_S
+    bf16 = torch.bfloat16
+    t = time.perf_counter()
+    lora = {}
+    for model, shapes in FAMILY_SHAPES.items():
+        _merged(lora, backward_kernel_phase(
+            torch, RL, ref, timed=(model, *shapes[0]),
+            cases=[(model, T, din, dout, TRAIN_RANKS, None)
+                   for din, dout in shapes]))
+        _merged(lora, kernel_phase(
+            torch, RL, ref,
+            cases=[("decode", LANES, din, dout, RANKS, None)
+                   for din, dout in shapes],
+            timed={("decode", *shapes[0]): f"{model}_decode"}))
+    for din, dout in ((4096, 5120), (4096, 256)):
+        full_rank_twins(torch, fams, T, din, dout)
+    invariance_phase(torch, fams["dense"], fams["ragged"], RL,
+                     shapes=FAMILY_SHAPES["mistral"])
+    H, hd = qcfg.num_heads, qcfg.resolved_head_dim
+    _, flash = flash_kernel_phase(
+        torch, FA, fref, qcfg, plain_labels=("train",),
+        cases=[("train", 4 * QWEN_B * H, QWEN_S, QWEN_S, hd, 0, bf16),
+               ("eval", 4 * EVAL_B * H, TRAIN_S, TRAIN_S, hd, 0, bf16)])
+    flash = {f"qwen2-vl_{k}": v for k, v in flash.items()}
+    _, g_flash = flash_kernel_phase(
+        torch, FA, fref, gcfg, plain_labels=("train",),
+        cases=[("train", 4 * TRAIN_B * gcfg.num_heads, TRAIN_S, TRAIN_S,
+                gcfg.resolved_head_dim, 0, bf16)])
+    _, m_flash = flash_kernel_phase(
+        torch, FA, fref, mcfg, plain_labels=("train",),
+        cases=[("train", 4 * TRAIN_B * mcfg.num_heads, TRAIN_S, TRAIN_S,
+                mcfg.resolved_head_dim, 0, bf16),
+               ("eval", 4 * EVAL_B * mcfg.num_heads, TRAIN_S, TRAIN_S,
+                mcfg.resolved_head_dim, 0, bf16)])
+    flash.update({f"glm4_{k}": v for k, v in g_flash.items()})
+    flash.update({f"musicgen_{k}": v for k, v in m_flash.items()})
+    print(f"family kernel phases done at {time.perf_counter() - t_all:.1f} s "
+          f"({time.perf_counter() - t:.1f} s)")
+
+    rank_jobs = {f"r{r}-lr{lr:g}": TrainConfig(learning_rate=lr, lora_rank=r,
+                                               per_adapter_batch=TRAIN_B)
+                 for r in TRAIN_RANKS for lr in (1e-4, 1e-3)}
+    paths = {}
+    t = time.perf_counter()
+    q4 = dataclasses.replace(qcfg, num_layers=QWEN_LAYERS)
+    qparams = M.init_params(q4, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"init: {qcfg.name} at full width, {QWEN_LAYERS} of "
+          f"{qcfg.num_layers} layers, bf16, in {time.perf_counter() - t:.1f} "
+          f"s ({_gbytes(qparams):.2f} GB)")
+    q2 = dataclasses.replace(qcfg, num_layers=QWEN_TRAIN_LAYERS,
+                             dtype="float32")
+    cparams = _cut_layers(qparams, QWEN_TRAIN_LAYERS, torch.float32)
+    paths["vlm_train"] = train_check(
+        torch, fams, q2, cparams, TRAIN_RANKS, "rank-local", S=QWEN_S,
+        b=QWEN_B, loss_bar=FAMILY_LOSS_REL, image=True)
+    del cparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"vlm train check done at {time.perf_counter() - t_all:.1f} s")
+    paths["vlm_sweep"] = executor_phase(
+        torch, RL, (fams["dense"], fams["ragged"]), q4, qparams,
+        "vlm-rank-sweep", rank_jobs)
+    print(f"vlm rank-sweep executor phase done at "
+          f"{time.perf_counter() - t_all:.1f} s")
+    paths["vlm_serve"] = serve_phase(torch, RL, q4, qparams)
+    paths["vlm_prompt"] = image_prompt_check(torch, RL, q4, qparams)
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"vlm serve phases done at {time.perf_counter() - t_all:.1f} s")
+
+    t = time.perf_counter()
+    mparams = M.init_params(mcfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"init: {mcfg.name} backbone in {time.perf_counter() - t:.1f} s "
+          f"({_gbytes(mparams):.2f} GB)")
+    paths["audio_sweep"] = executor_phase(
+        torch, RL, (fams["dense"], fams["ragged"]), mcfg, mparams,
+        "audio-rank-sweep", rank_jobs)
+    print(f"audio rank-sweep executor phase done at "
+          f"{time.perf_counter() - t_all:.1f} s")
+    paths["audio_serve"] = serve_phase(torch, RL, mcfg, mparams)
+    m32 = dataclasses.replace(mcfg, dtype="float32")
+    cparams = _cut_layers(mparams, mcfg.num_layers, torch.float32)
+    del mparams
+    paths["audio_train"] = train_check(torch, fams, m32, cparams,
+                                       TRAIN_RANKS, "rank-local",
+                                       loss_bar=FAMILY_LOSS_REL)
+    del cparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"audio phases done at {time.perf_counter() - t_all:.1f} s")
+
+    dense_cfg = {}
+    for arch in ("glm4-9b", "granite-8b", "mistral-nemo-12b"):
+        t = time.perf_counter()
+        c = dataclasses.replace(get_arch(arch), num_layers=DENSE_LAYERS,
+                                dtype="float32")
+        params = M.init_params(c, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        print(f"init: {arch} at full width, {DENSE_LAYERS} layers, fp32, in "
+              f"{time.perf_counter() - t:.1f} s ({_gbytes(params):.2f} GB)")
+        checks = [(TRAIN_RANKS, "rank-local")]
+        if arch == "mistral-nemo-12b":
+            checks.append((FULL_RANKS, "dense"))
+        for ranks_t, path in checks:
+            got = train_check(torch, fams, c, params, ranks_t, path,
+                              loss_bar=FAMILY_LOSS_REL)
+            mine = dense_cfg.setdefault(path, {})
+            for k, v in got.items():
+                mine[k] = mine.get(k, 0) + v
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    paths["dense_cfg_train"] = dense_cfg
+    print(f"dense config train checks done at "
+          f"{time.perf_counter() - t_all:.1f} s")
+    return lora, flash, paths
 
 
 def main() -> int:
@@ -4980,6 +5394,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     m_lora, m_flash, m_serve, m_launches, l4_launches = moe_phases(
         torch, fams, t_all)
+    gc.collect()                 # the llama4-scout backbone
+    torch.cuda.empty_cache()
+    f_lora, f_flash, f_paths = family_phases(torch, fams, t_all)
+    f_dense = f_paths.pop("dense_cfg_train")
+    f_paths["dense_cfg_train"] = f_dense["rank-local"]
 
     csrc = "src/repro_torch/kernels/grouped_lora/csrc"
     rows = [  # (name, kernel source, TPU kernel file, its pallas_call line)
@@ -5000,7 +5419,8 @@ def main() -> int:
         if src == "grouped_lora.cu":
             prefix, by_path, res = "grouped_lora", {
                 "lr_sweep": lr_launches[name],
-                "colocation": colo_launches["dense"][name]}, dense[name]
+                "colocation": colo_launches["dense"][name],
+                "dense_cfg_train": f_dense["dense"][name]}, dense[name]
         elif src == "ragged.cu":
             prefix, by_path, res = "ragged", {
                 "colocation": colo_launches["ragged"][name]}, ragged[name]
@@ -5011,18 +5431,21 @@ def main() -> int:
                 "rwkv_train": rwkv_launches[name],
                 "hymba_train": h_launches[name],
                 "moe_train": m_launches[name],
-                "llama4_train": l4_launches[name]}, dict(kern[name])
-            if name in serve_launches:
-                by_path["serve"] = serve_launches[name]
-                by_path["rwkv_serve"] = rwkv_serve[name]
-                by_path["hymba_serve"] = h_serve[name]
-                by_path["moe_serve"] = m_serve[name]
+                "llama4_train": l4_launches[name],
+                **{path: got[name] for path, got in f_paths.items()}}, \
+                dict(kern[name])
+            by_path["serve"] = serve_launches[name]
+            by_path["rwkv_serve"] = rwkv_serve[name]
+            by_path["hymba_serve"] = h_serve[name]
+            by_path["moe_serve"] = m_serve[name]
             res["shapes"] = {**res.get("shapes", {}),
                              **h_lora[name]["shapes"],
-                             **m_lora[name]["shapes"]}
+                             **m_lora[name]["shapes"],
+                             **f_lora[name]["shapes"]}
             res["max_abs_err"] = max(res["max_abs_err"],
                                      h_lora[name]["max_abs_err"],
-                                     m_lora[name]["max_abs_err"])
+                                     m_lora[name]["max_abs_err"],
+                                     f_lora[name]["max_abs_err"])
         fam = {"grouped_lora": "dense", "ragged": "ragged"}.get(
             prefix, "rank-local")
         by_path["engine_static"] = eng_static[fam][name]
@@ -5067,14 +5490,18 @@ def main() -> int:
                "service": svc_launches["flash"]["flash_attention"],
                "service_recovery":
                    svc_rec_launches["flash"]["flash_attention"],
-               "service_serve": svc_serve["flash"]["flash_attention"]}
+               "service_serve": svc_serve["flash"]["flash_attention"],
+               **{path: got["flash_attention"]
+                  for path, got in f_paths.items()}}
+    by_path["dense_cfg_train"] = sum(got["flash_attention"]
+                                     for got in f_dense.values())
     table["kernels"].append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:89",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
-        **with_paths(flash, hymba=h_flash, moe=m_flash)})
+        **with_paths(flash, hymba=h_flash, moe=m_flash, families=f_flash)})
     by_path = {"rwkv_train": rwkv_launches["linear_scan"],
                "rwkv_serve": rwkv_serve["linear_scan"],
                "hymba_train": h_launches["linear_scan"],

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.adapter_state import SlotSnapshot
+from repro_torch.models import blocks as B
 from repro_torch.models.common import resolve_device
 from repro_torch.optim.adamw import AdamWState, SlotHParams
 
@@ -67,9 +68,31 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict, device=None) -> Dict:
     if set(depths.values()) != {cfg.num_layers}:
         raise ValueError(f"layer stack depths {depths} do not match the "
                          f"config's {cfg.num_layers} layers")
+    _check_projections(cfg, params)
     if cfg.is_moe:
         _check_moe(cfg, params["layers"].get("moe", {}))
     return params
+
+
+def _check_projections(cfg: ModelConfig, params: Dict) -> None:
+    """The attention and MLP projections' ``[L, in, out]`` shapes (q_dim
+    may differ from d_model) and an untied ``lm_head`` against the
+    config."""
+    if cfg.family == "ssm":
+        want: Dict[str, tuple] = {}
+    else:
+        want = dict(B.attn_target_shapes(cfg))
+        if not cfg.is_moe:
+            want.update(B.mlp_target_shapes(cfg))
+    got = {k: tuple(params["layers"][k].shape[1:]) for k in want
+           if k in params["layers"]}
+    if not cfg.tie_embeddings:
+        want["lm_head"] = (cfg.d_model, cfg.vocab_size)
+        if "lm_head" in params:
+            got["lm_head"] = tuple(params["lm_head"].shape)
+    if got != want:
+        raise ValueError(f"projections {got}, config {cfg.name} wants "
+                         f"{want}")
 
 
 def _check_moe(cfg: ModelConfig, moe: Dict) -> None:

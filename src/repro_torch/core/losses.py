@@ -34,7 +34,8 @@ def sft_loss(cfg: ModelConfig, params: Dict, lora: Dict, batch: Dict,
     total, unmasked by ``active``, as the JAX package does: it is a mean
     over token groups that may span slots."""
     h, aux, _ = M.forward(cfg, params, lora, batch["tokens"],
-                          positions=batch.get("positions"))
+                          positions=batch.get("positions"),
+                          modal_embeds=batch.get("modal_embeds"))
     nll_sum, cnt = M.per_slot_xent(cfg, params, h, batch["labels"])
     per_slot = nll_sum / torch.clamp_min(cnt, 1.0)
     total = torch.sum(per_slot * active.float())

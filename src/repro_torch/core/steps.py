@@ -123,6 +123,7 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
     def prefill_step(params, lora, cache, batch):
         h, _, cache = M.forward(cfg, params, lora, batch["tokens"],
                                 positions=batch.get("positions"),
+                                modal_embeds=batch.get("modal_embeds"),
                                 cache=cache)
         return M._unembed(cfg, params, h[:, :, -1]), cache
 

@@ -18,7 +18,7 @@ import time
 
 import torch
 
-from repro_torch.configs.registry import get_arch, list_archs
+from repro_torch.configs.registry import ASSIGNED, get_arch
 from repro_torch.core import lora as LORA
 from repro_torch.data.synthetic import make_task_dataset
 from repro_torch.models import model as M
@@ -39,7 +39,8 @@ def _parse_ranks(spec: str, Z: int, r_max: int) -> list:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="stablelm-3b", choices=list_archs())
+    ap.add_argument("--arch", default="stablelm-3b",
+                    choices=ASSIGNED + ["paper-llama-tiny"])
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--slots", type=int, default=2)
     ap.add_argument("--requests", type=int, default=4,

@@ -7,7 +7,9 @@ families).
 
 Every block operates on slot-major activations ``x: [Z, b, S, d]`` (Z =
 adapter slots). Base weights are slot-shared and frozen; LoRA pairs are
-slot-stacked. Audio and VLM are not ported yet.
+slot-stacked. The ``vlm`` and ``audio`` families take the dense branch, as
+in the JAX package: their modality stubs feed embeddings and positions to
+the forward, not to the blocks.
 
 Caches — the attention K/V, the RWKV and Mamba recurrent states — are
 written IN PLACE, and only for the lanes allowed to write
@@ -34,13 +36,6 @@ from repro_torch.models.rwkv import (init_rwkv_layer, rwkv_channel_mix,
                                      rwkv_target_shapes, rwkv_time_mix)
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, moe, ssm and "
-            f"hybrid only)")
-
-
 # ---------------------------------------------------------------------------
 # Target shapes (for LoRA init)
 # ---------------------------------------------------------------------------
@@ -60,7 +55,6 @@ def mlp_target_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, int]]:
 
 
 def target_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, int]]:
-    _require_ported(cfg)
     if cfg.family == "ssm":
         return rwkv_target_shapes(cfg)
     shapes = dict(attn_target_shapes(cfg))
@@ -77,7 +71,6 @@ def target_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, int]]:
 
 def init_layer_params(gen: torch.Generator, cfg: ModelConfig,
                       dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    _require_ported(cfg)
     if cfg.family == "ssm":
         return init_rwkv_layer(gen, cfg, dtype)
     d, dev = cfg.d_model, gen.device

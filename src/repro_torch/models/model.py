@@ -74,8 +74,15 @@ def _train_window(cfg: ModelConfig) -> int:
     return cfg.sliding_window if cfg.attn_kind == ATTN_SLIDING else 0
 
 
-def _embed(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]                  # [Z,b,S,d]
+def _embed(params: Dict, tokens: torch.Tensor,
+           modal_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings [Z,b,S,d]; ``modal_embeds`` ([Z,b,P,d], the stub
+    modality encoder's output) replace the first P positions."""
+    x = params["embed"][tokens.long()]                     # [Z,b,S,d]
+    if modal_embeds is not None:
+        P = modal_embeds.shape[2]
+        x = torch.cat([modal_embeds.to(x.dtype), x[:, :, P:]], dim=2)
+    return x
 
 
 def _angles(cfg: ModelConfig,
@@ -142,11 +149,14 @@ def _run_layers(cfg: ModelConfig, x: torch.Tensor, params: Dict, lora: Dict,
 
 def forward(cfg: ModelConfig, params: Dict, lora: Dict, tokens: torch.Tensor,
             *, positions: Optional[torch.Tensor] = None,
+            modal_embeds: Optional[torch.Tensor] = None,
             cache: Optional[Dict] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
     """Full-sequence causal forward.
 
-    tokens: [Z, b, S] int. Returns (final_hidden [Z,b,S,d] (post final
+    tokens: [Z, b, S] int; ``positions`` [..., S] (M-RoPE: [3, ..., S]; by
+    default ``text_positions``); ``modal_embeds`` [Z, b, P, d] written over
+    the first P token embeddings. Returns (final_hidden [Z,b,S,d] (post final
     norm, pre-unembed), the MoE load-balance term summed over the layers
     (fp32 scalar; 0 for the other families), cache|None).
     With ``cache`` given (prefill), every lane's K/V are written at index
@@ -158,7 +168,7 @@ def forward(cfg: ModelConfig, params: Dict, lora: Dict, tokens: torch.Tensor,
     train step rematerializes its forward."""
     Z, b, S = tokens.shape
     dev = tokens.device
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, modal_embeds)
     if positions is None:
         positions = text_positions((), S, cfg.rope, device=dev)
     ctx: Dict[str, Any] = {
@@ -237,7 +247,6 @@ def init_cache(cfg: ModelConfig, Z: int, bsz: int, max_len: int, *,
     family keeps the attention K/V (ring or not) beside the Mamba state
     (``:243-253``): ``conv`` [L,Z,bsz,W-1,inner] and ``ssm``
     [L,Z,bsz,H,N,hs], both fp32."""
-    B._require_ported(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
     L, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -289,9 +298,12 @@ def decode_step(cfg: ModelConfig, params: Dict, lora: Dict, cache: Dict,
         raise ValueError("an active mask needs a per-lane cache")
     dev = tokens.device
     x = _embed(params, tokens[:, :, None])
-    positions = (pos[..., None] if per_lane
-                 else text_positions((), 1, cfg.rope, offset=pos,
-                                     device=dev))
+    if per_lane:
+        positions = pos[..., None]                         # [Z, b, 1]
+        if cfg.rope.is_mrope:
+            positions = positions.expand(3, Z, bsz, 1)
+    else:
+        positions = text_positions((), 1, cfg.rope, offset=pos, device=dev)
     ctx: Dict[str, Any] = {
         "angles": _angles(cfg, positions),
         "q_pos": pos[..., None] if per_lane else pos[None],

@@ -1,6 +1,9 @@
-"""Rotary position embeddings (standard RoPE; the dense family's only kind).
+"""Rotary position embeddings: standard RoPE and Qwen2-VL M-RoPE.
 
-M-RoPE (Qwen2-VL) belongs to the VLM family, which is not ported yet.
+M-RoPE [arXiv:2409.12191]: the head_dim/2 rotary frequencies are split into
+three sections (temporal, height, width); each section consumes the matching
+component of a 3-part position id. Text tokens carry (t,t,t) so M-RoPE
+degrades exactly to RoPE on text.
 """
 from __future__ import annotations
 
@@ -21,12 +24,24 @@ def rope_freqs(head_dim: int, theta: float,
 
 def rope_angles(positions: torch.Tensor, head_dim: int,
                 cfg: RoPEConfig) -> torch.Tensor:
-    """Rotation angles: positions [..., S] int -> [..., S, head_dim // 2]
-    fp32."""
-    if cfg.is_mrope:
-        raise NotImplementedError("M-RoPE (VLM family) is not ported yet")
+    """Rotation angles.
+
+    positions: [..., S] int for RoPE, or [3, ..., S] for M-RoPE.
+    returns angles [..., S, head_dim // 2] fp32.
+    """
     inv = rope_freqs(head_dim, cfg.theta, positions.device)
-    return positions[..., None].float() * inv
+    if not cfg.is_mrope:
+        return positions[..., None].float() * inv
+    sections = cfg.mrope_sections
+    assert positions.shape[0] == 3, "M-RoPE expects [3, ..., S] positions"
+    assert sum(sections) == head_dim // 2, (sections, head_dim)
+    parts = []
+    off = 0
+    for comp in range(3):
+        sec = sections[comp]
+        parts.append(positions[comp][..., None].float() * inv[off:off + sec])
+        off += sec
+    return torch.cat(parts, dim=-1)
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
@@ -45,8 +60,10 @@ def text_positions(batch_shape: Tuple[int, ...], seq_len: int,
                    cfg: RoPEConfig, offset=0,
                    device: torch.device | str = "cpu") -> torch.Tensor:
     """Default positions: ``arange(seq_len) + offset`` broadcast to
-    ``(*batch_shape, seq_len)``."""
-    if cfg.is_mrope:
-        raise NotImplementedError("M-RoPE (VLM family) is not ported yet")
+    ``(*batch_shape, seq_len)``; the (t,t,t) stack ``(3, *batch_shape,
+    seq_len)`` for M-RoPE."""
     pos = torch.arange(seq_len, dtype=torch.int32, device=device) + offset
-    return pos.expand(*batch_shape, seq_len)
+    pos = pos.expand(*batch_shape, seq_len)
+    if cfg.is_mrope:
+        pos = pos[None].expand(3, *batch_shape, seq_len)
+    return pos

@@ -456,10 +456,20 @@ TRAIN_SHAPE_CASES = [(1024, 2560, 6912), (1024, 6912, 2560),
 HYMBA_SHAPE_CASES = [(4096, 1600, 1600), (4096, 1600, 320),
                      (4096, 1600, 6400), (4096, 1600, 5504),
                      (4096, 5504, 1600)]
+# the last families' projections at T = 1,024 rows a slot: qwen2-vl-72b's
+# q/o, k/v, gate/up and down (29,568 = 231 x 128); mistral-nemo-12b's q and
+# o (q_dim 4,096 != d_model 5,120); glm4-9b's k/v (2 KV heads of 128) and
+# down (13,696 = 107 x 128); musicgen-medium's gate/up
+FAMILY_SHAPE_CASES = [(1024, 8192, 8192), (1024, 8192, 1024),
+                      (1024, 8192, 29568), (1024, 29568, 8192),
+                      (1024, 5120, 4096), (1024, 4096, 5120),
+                      (1024, 4096, 256), (1024, 13696, 4096),
+                      (1024, 1536, 6144)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", TRAIN_SHAPE_CASES + HYMBA_SHAPE_CASES)
+@pytest.mark.parametrize("case", TRAIN_SHAPE_CASES + HYMBA_SHAPE_CASES
+                         + FAMILY_SHAPE_CASES)
 def test_cuda_bf16_contractions_at_train_shapes(case):
     """bf16 xa, ds, da, db, sb_add (with and without a base) and dx of the
     three sets at the main paths' shapes: each within chip_smoke's bars of
@@ -715,6 +725,34 @@ def test_cuda_flash_attention_bf16_at_hymba_shapes(B):
     assert not torch.allclose(out.float(), wider, **tol)
     head = FA.flash_attention(*(t[:128].contiguous() for t in (q, k, v)),
                               window=1024)
+    assert torch.equal(head, out[:128])
+
+
+# bf16 at hd 128 on the last families' paths: (B, S, KV groups) of
+# qwen2-vl-72b's train check (4 slots x 2 sequences x 64 heads, S 512) and
+# sweep (4 x 4 x 64, S 256), and glm4-9b's train step (4 x 4 x 32 heads, S
+# 256), whose 2 KV heads are repeated 16 times before the kernel
+FLASH_HD128_CASES = [(512, 512, 8), (1024, 256, 8), (512, 256, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_HD128_CASES)
+def test_cuda_flash_attention_bf16_at_hd128_family_shapes(case):
+    """The bf16 kernel at head dim 128 on K / V repeated from the KV heads,
+    as the GQA path hands them over, within one bf16 rounding of the plain
+    version; the first 128 fused heads bitwise equal to a call on them
+    alone."""
+    _need_card()
+    B, S, G = case
+    gen = torch.Generator(device="cuda").manual_seed(B + S)
+    q = torch.randn(B, S, 128, device="cuda", generator=gen).bfloat16()
+    k, v = (torch.randn(B // G, S, 128, device="cuda", generator=gen)
+            .bfloat16().repeat_interleave(G, dim=0) for _ in range(2))
+    out = FA.flash_attention(q, k, v)
+    want = FREF.flash_attention_ref(q, k, v).float()
+    torch.testing.assert_close(out.float(), want, rtol=2 ** -7,
+                               atol=1e-5 * float(want.abs().max()))
+    head = FA.flash_attention(*(t[:128].contiguous() for t in (q, k, v)))
     assert torch.equal(head, out[:128])
 
 
