@@ -9,8 +9,9 @@ serving and rank-sweep LoRA training of rwkv6-3b, of hymba-1.5b, of the
 MoE granite-moe-1b-a400m, of the vision-language qwen2-vl-72b (depth cut,
 with image-prefixed train and serve checks) and of musicgen-medium, and
 train checks of llama4-scout-17b-a16e, glm4-9b, granite-8b and
-mistral-nemo-12b at full width, on one NVIDIA card, through the port's
-hand-written CUDA kernels.
+mistral-nemo-12b at full width, the grouped-LoRA tile autotuner, and the
+training launcher on a one-rank mesh at train_4k's sequence length, on one
+NVIDIA card, through the port's hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -85,6 +86,21 @@ package. Phases, none of them caught:
             version and a yardstick the port never calls
             (``scaled_dot_product_attention(is_causal=True)`` on [Z*b, H,
             S, hd]), beside the bound.
+3c. autotune — the tile autotuner (``kernels/grouped_lora/autotune.py``)
+            at stablelm-3b's projection shapes (2560 x 2560, 2560 x 6912,
+            6912 x 2560), r_max 64, Z 4, at 1,024 rows a slot and at decode
+            (T 4): the library's compiled plan set (``gl_plan_tiles``)
+            equals ``autotune.PLAN_SET``; a planted candidate one ulp off
+            the default is discarded by the sweep's gate; each key's sweep
+            (the six kernels of the three sets, 18 outputs, each candidate
+            held bit for bit to the default and timed from a replayed CUDA
+            graph) prints the candidates tried and discarded, the default
+            and tuned ms and the speedup; the winners persist to a
+            ``ProfileStore`` in a temporary directory and a fresh store on
+            the same path serves them with zero sweeps; at each key the
+            dense, ragged and rank-local Functions' forward and backward
+            under the tuned plan and every other candidate equal the
+            default plan's and each other's, bit for bit.
 4. serve  — full-width, full-depth stablelm-3b (bf16, random weights from a
             seed), 4 adapters at true ranks 8/16/32/64, 4 lanes, max_len
             256: 16 greedy requests (prompts of 32-128 tokens, 32 new
@@ -368,13 +384,13 @@ the window binds in every forward:
             8e-06 on dA / dB at 32 layers). The kernel runs launch flash
             and the scan twice per layer each.
 23. hymba rank sweep — the slice's main path: phase 6 on hymba-1.5b at full
-            width and depth (8 jobs, ranks 4/8/16/32 x lr 1e-4/1e-3, Z = 4,
-            b = 2, S = 2,048, eval b = 4): every fused train step must
-            launch the rank-local xa/sb_add 512 times, ds/da/db 256, dx
-            252 (the first layer's q/k/v and in_proj read the normed
-            embedding), flash 64 and the scan 64; every eval step xa/sb_add
-            256, flash 32 and the scan 32; the dense and ragged kernels
-            never. The same measurements as phase 6, with flash's and the
+            width and HYMBA_SWEEP_LAYERS = 16 of its 32 layers (depth cut
+            for time; 8 jobs, ranks 4/8/16/32 x lr 1e-4/1e-3, Z = 4, b = 2,
+            S = 2,048, eval b = 4): every fused train step must launch the
+            rank-local xa/sb_add 256 times, ds/da/db 128, dx 124 (the first
+            layer's q/k/v and in_proj read the normed embedding), flash 32
+            and the scan 32; every eval step xa/sb_add 128, flash 16 and
+            the scan 16; the dense and ragged kernels never. The same measurements as phase 6, with flash's and the
             scan's shares of the device time.
 
 The hymba-1.5b backbone is freed; the MoE phases follow
@@ -483,6 +499,18 @@ and DENSE_LAYERS layers; random weights from a seed:
             FAMILY_LOSS_REL); mistral's also on the dense path at ranks 64,
             where the rank-local kernels at r_max must give its numbers
             bit for bit.
+34. launch — the training launcher (``launch/train.py``) over a
+            world-size-1 NCCL process group and ``make_local_mesh((1,
+            1))``, destroyed at the end: ``run`` on full-width stablelm-3b
+            at train_4k's b = 4 and S = 4,096 with LAUNCH_Z slots and all 32
+            layers, 3 steps through ``steps_dist.make_train_step`` (finite
+            per-slot losses, the peak GiB, LoRA 448/448/224/221/224/224 on
+            the dense set and flash 64 in every step); at
+            LAUNCH_CHECK_LAYERS = 4 layers ``remat=False`` == ``remat=True``
+            and opt levels 0 / 1 / 2 bit for bit, and the scan kernel at the
+            opt-level-2 policy's ``scan_chunk`` 32 against its plain
+            version; then the CLI, ``main(["--reduced", "--steps",
+            "2"])``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernel table as JSON (twenty kernels), with each kernel's launches by
@@ -493,7 +521,8 @@ runs, ``service`` and ``service_recovery`` for the service's trainings,
 llama4-scout's kernel step, ``vlm_train``, ``vlm_sweep``, ``vlm_serve``
 and ``vlm_prompt`` for qwen2-vl's train check, sweep, serve and image
 prompt, ``audio_sweep``, ``audio_serve`` and ``audio_train`` for
-musicgen's, ``dense_cfg_train`` for the dense configs' train checks).
+musicgen's, ``dense_cfg_train`` for the dense configs' train checks,
+``launch_train`` for the launcher's full-width steps).
 """
 from __future__ import annotations
 
@@ -519,11 +548,15 @@ H100_BF16_FLOPS = H100_BYTES_S = None
 H100_FP32_FLOPS = 67e12       # fp32 outside the tensor cores (data sheet)
 # instantiations of each kernel template, (bf16, fp32): every bf16 one
 # holds tensor-core (HMMA) instructions, no fp32 one does. narrow_out: xa
-# and ds of three sets at two tiles, fp32 one in each of the four sources;
-# tn: da and db of three sets; rank_sum: sb_add and dx of three sets at two
-# tiles (bf16) or one (fp32); flash: one per head dim
-TC_INSTANTIATIONS = {"narrow_out_kernel": (12, 4), "tn_kernel": (6, 6),
-                     "rank_sum_kernel": (12, 6), "flash_fwd_kernel": (5, 5)}
+# and ds of three sets at two default tiles and the three more of the tile
+# plans (autotune.PLAN_SET: 64 x 32 / 32 x 32, 32 x 64, 16 x 32), fp32 one
+# in each of the four sources; tn: da and db of three sets at the default
+# 64 x 64 and two plan tiles each (da 128 x 32, 64 x 32; db 32 x 128,
+# 32 x 64), fp32 one each; rank_sum: sb_add and dx of three sets at two
+# default tiles and five plan tiles (bf16) or one (fp32); flash: one per
+# head dim
+TC_INSTANTIATIONS = {"narrow_out_kernel": (30, 4), "tn_kernel": (18, 6),
+                     "rank_sum_kernel": (42, 6), "flash_fwd_kernel": (5, 5)}
 
 # kernel vs plain, bf16 outputs: the two sum the same fp32 products in
 # another order, so an output may round to the neighbouring bf16 value:
@@ -595,6 +628,9 @@ RWKV_SWEEP_LAYERS = 16
 # forward), b = 2 sequences a slot in a train step, HYMBA_EVAL_B in an eval
 # step; its LoRA projections (din, dout): q/o, k/v, in_proj, gate/up, down
 HYMBA_S, HYMBA_B, HYMBA_EVAL_B = 2048, 2, 4
+# layers of the hymba rank sweep (full width; cut from 32 so that the
+# autotune and launch phases fit the script's time)
+HYMBA_SWEEP_LAYERS = 16
 HYMBA_SHAPES = ((1600, 1600), (1600, 320), (1600, 6400), (1600, 5504),
                 (5504, 1600))
 # hymba-1.5b's train check runs in fp32 at full depth (its backward at
@@ -648,6 +684,11 @@ FAMILY_SHAPES = {"qwen2-vl": ((8192, 8192), (8192, 1024), (8192, 29568),
 # the fp32 train checks of the last families: an fp32 loss bar, as
 # MOE_LOSS_REL
 FAMILY_LOSS_REL = 2e-6
+# the launcher at full width and train_4k's b = 4, S = 4,096: LAUNCH_Z
+# slots of train_4k's 64 (what the card holds, see PERF.md), all 32
+# layers; its bitwise checks at LAUNCH_CHECK_LAYERS layers
+LAUNCH_Z = 1
+LAUNCH_CHECK_LAYERS = 4
 # device busy ms per profiled train step of each executor phase, by task
 STEP_BUSY_MS = {}
 DPO_B = 2                     # preference pairs per slot in the DPO phase
@@ -1778,6 +1819,181 @@ def invariance_phase(torch, GL, RG, RL, shapes=((2560, 2560), (2560, 6912))):
                   f"aligned operands")
         del x, dy, A, B, s, dS, full
         torch.cuda.empty_cache()
+
+
+def _one_ulp_fault(torch, AT, bad):
+    """``autotune.six_kernel_step`` with one planted fault: under plan
+    ``bad`` the first output (the rank-local S) has its first entry moved
+    to the next representable value above it; every other plan's outputs
+    are the real ones."""
+    real = AT.six_kernel_step
+
+    def step_of(plan):
+        step = real(plan)
+        if plan != bad:
+            return step
+
+        def faulted(*args):
+            outs = list(step(*args))
+            s = outs[0].clone()
+            flat = s.view(-1)
+            flat[:1] = torch.nextafter(flat[:1],
+                                       torch.full_like(flat[:1], float("inf")))
+            outs[0] = s
+            return tuple(outs)
+
+        return faulted
+
+    return step_of
+
+
+def autotune_phase(torch, fams):
+    """The tile autotuner (``kernels/grouped_lora/autotune.py``) at
+    stablelm-3b's projection shapes (2560 x 2560, 2560 x 6912, 6912 x
+    2560), r_max 64, Z 4, at the train step's 1,024 rows a slot and at
+    decode (T 4): the C plan set equals ``autotune.PLAN_SET``; a planted
+    candidate one ulp off the default is discarded by the sweep's gate;
+    each key's sweep through ``autotune_tile_plan`` (candidates tried and
+    discarded, default and tuned ms of the 18 kernels, graph-replayed) with
+    the winners persisted to a ``ProfileStore`` in a temporary directory,
+    which a fresh store on the same path then serves with zero sweeps; and
+    at each key the dense, ragged and rank-local Functions' forward and
+    backward under the tuned plan equal the default plan's and each
+    other's (full rank, every row live) bit for bit. Returns {key label:
+    {default/tuned plan and ms, tried, discarded}}."""
+    from repro_torch.kernels.grouped_lora import autotune as AT
+    from repro_torch.kernels.grouped_lora import ops
+    from repro_torch.kernels.grouped_lora import ranklocal as RL
+    from repro_torch.sched.profiler import ProfileStore
+
+    import ctypes
+
+    lib = RL._load()
+    out3 = (ctypes.c_int * 3)()
+    c_set = []
+    for i in range(lib.gl_plan_count()):
+        require(lib.gl_plan_tiles(i, out3) == 0, f"gl_plan_tiles({i})")
+        c_set.append(tuple(out3))
+    py_set = [(p.bm, p.bn, p.br) for p in AT.PLAN_SET]
+    require(c_set == py_set, f"compiled plan set {c_set} != PLAN_SET "
+                             f"{py_set}")
+    require(lib.gl_plan_tiles(len(c_set), out3) != 0,
+            "an index past the plan set was accepted")
+    print(f"autotune: compiled plan set (bm, bn, br) {c_set} == "
+          f"autotune.PLAN_SET")
+
+    Z, r_max = 4, 64
+    shapes = ((2560, 2560), (2560, 6912), (6912, 2560))
+    keys = [(din, dout, T) for T in (TRAIN_B * TRAIN_S, 4)
+            for din, dout in shapes]
+
+    # the gate: a candidate one ulp off the default is discarded
+    bad = AT.PLAN_SET[0]
+    real = AT.six_kernel_step
+    AT.six_kernel_step = _one_ulp_fault(torch, AT, bad)
+    try:
+        res = AT.sweep(2560, 2560, r_max, Z, 4, iters=5, repeats=3)
+    finally:
+        AT.six_kernel_step = real
+    require(bad in res.discarded and res.plan != bad,
+            f"the planted one-ulp candidate {bad} was not discarded "
+            f"({res.discarded}, winner {res.plan})")
+    print(f"autotune: planted one-ulp candidate {bad} discarded by the "
+          f"gate (winner {res.plan}, {len(res.candidates)} tried)")
+
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "profile.json")
+        store = ProfileStore()
+        AT.clear_plan_cache()
+        n0 = len(AT.SWEEPS)
+        for din, dout, T in keys:
+            plan = AT.autotune_tile_plan(din, dout, r_max, Z, T, store=store,
+                                         iters=20, repeats=5)
+            res = AT.SWEEPS[-1]
+            require(res.plan == plan, f"sweep winner {res.plan} != {plan}")
+            label = f"{din}x{dout} T{T}"
+            tried = len(res.candidates)
+            disc = res.discarded
+            results[label] = {
+                "key": list(res.key), "default": AT.DEFAULT_PLAN.to_json(),
+                "tuned": plan.to_json(), "default_ms": res.default_s * 1e3,
+                "tuned_ms": res.best_s * 1e3, "speedup": res.speedup,
+                "tried": tried, "discarded": len(disc),
+                "candidate_ms": {str((c.plan.bm, c.plan.bn, c.plan.br)):
+                                 c.seconds * 1e3 for c in res.candidates}}
+            print(f"autotune: key {res.key}: {tried} candidates tried, "
+                  f"{len(disc)} discarded; default {res.default_s * 1e3:.5f}"
+                  f" ms, tuned {(plan.bm, plan.bn, plan.br)} "
+                  f"{res.best_s * 1e3:.5f} ms, speedup {res.speedup:.4f} "
+                  f"(18 kernels, graph-replayed); candidates "
+                  f"{results[label]['candidate_ms']}")
+        require(len(AT.SWEEPS) - n0 == len(keys),
+                f"{len(AT.SWEEPS) - n0} sweeps for {len(keys)} keys")
+        store.save(path)
+        fresh = ProfileStore.load(path)
+        AT.clear_plan_cache()
+        n1 = len(AT.SWEEPS)
+        for (din, dout, T), got in zip(keys, results.values()):
+            plan = AT.autotune_tile_plan(din, dout, r_max, Z, T, store=fresh)
+            require(plan.to_json() == got["tuned"],
+                    f"reloaded plan {plan} != the sweep's {got['tuned']}")
+        require(len(AT.SWEEPS) == n1, f"{len(AT.SWEEPS) - n1} sweeps after "
+                                      f"the reload")
+        print(f"autotune: a fresh ProfileStore on {Path(path).name} served "
+              f"{len(keys)} keys with {len(AT.SWEEPS) - n1} sweeps")
+
+    # the tuned plans: forward and backward of the three Functions equal
+    # the default plan's, and each other's at full rank and rows = T
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(25)
+    for (din, dout, T), got in zip(keys, results.values()):
+        plan = AT.TilePlan.from_json(got["tuned"])
+        x = torch.randn(Z, T, din, generator=gen, device=dev).bfloat16()
+        A = torch.randn(Z, din, r_max, generator=gen, device=dev) / din ** .5
+        B = torch.randn(Z, r_max, dout, generator=gen, device=dev) / 8
+        dy = torch.randn(Z, T, dout, generator=gen, device=dev).bfloat16()
+        scale = torch.tensor([0.5, 1.0, 1.5, 2.0], device=dev)
+        full = torch.full((Z,), r_max, dtype=torch.int32, device=dev)
+        rows = torch.full((Z,), T, dtype=torch.int32, device=dev)
+
+        def run(fn, p):
+            xs, As, Bs = (t.clone().requires_grad_(True) for t in (x, A, B))
+            y = fn(xs, As, Bs, p)
+            y.backward(dy)
+            return [y.detach(), xs.grad, As.grad, Bs.grad]
+
+        fns = {"dense": lambda a, b, c, p: ops.grouped_lora(
+                   a, b, c, scale, plan=p),
+               "ragged": lambda a, b, c, p: ops.ragged_grouped_lora(
+                   a, b, c, scale, rows, plan=p),
+               "rank-local": lambda a, b, c, p: ops.ranklocal_grouped_lora(
+                   a, b, c, scale, full, rows, plan=p)}
+        # the tuned plan first, then every other candidate of the key
+        plans = [plan] + [p for p in AT.candidate_plans(T, din, dout, r_max,
+                                                        Z=Z)
+                          if p not in (plan, AT.DEFAULT_PLAN)]
+        for p in plans:
+            outs = {}
+            for fam, fn in fns.items():
+                got, default = run(fn, p), run(fn, None)
+                require(all(torch.equal(a, b)
+                            for a, b in zip(got, default)),
+                        f"autotune {din}x{dout} T{T}: {fam} under {p} "
+                        f"differs from the default plan")
+                outs[fam] = got
+            require(all(torch.equal(a, b) and torch.equal(a, c)
+                        for a, b, c in zip(outs["dense"], outs["ragged"],
+                                           outs["rank-local"])),
+                    f"autotune {din}x{dout} T{T}: dense, ragged and "
+                    f"rank-local differ under {p}")
+        print(f"autotune {din}x{dout} T{T}: y, dx, dA, dB of the dense, "
+              f"ragged and rank-local Functions under the tuned plan "
+              f"{(plan.bm, plan.bn, plan.br)} and the {len(plans) - 1} "
+              f"other candidates == the default plan's, and dense == "
+              f"ragged == rank-local, bit for bit")
+    torch.cuda.empty_cache()
+    return results
 
 
 def _attention_plain(torch, q, k, v, window=0, scale_mul=1.0, drop=None):
@@ -4705,9 +4921,13 @@ def hymba_phases(torch, fams, t_all):
     jobs = {f"r{r}-lr{lr:g}": TrainConfig(learning_rate=lr, lora_rank=r,
                                           per_adapter_batch=HYMBA_B)
             for r in TRAIN_RANKS for lr in (1e-4, 1e-3)}
+    # depth cut (HYMBA_SWEEP_LAYERS) to keep the script within its time
+    scfg = dataclasses.replace(hcfg, num_layers=HYMBA_SWEEP_LAYERS)
+    sparams = _cut_layers(hparams, HYMBA_SWEEP_LAYERS)
     launches = executor_phase(torch, RL, (fams["dense"], fams["ragged"]),
-                              hcfg, hparams, "hymba-rank-sweep", jobs,
+                              scfg, sparams, "hymba-rank-sweep", jobs,
                               b=HYMBA_B, S=S, eval_b=HYMBA_EVAL_B)
+    del sparams
     print(f"hymba rank-sweep executor phase done at "
           f"{time.perf_counter() - t_all:.1f} s")
     return lora, flash, scan, serve, launches
@@ -5260,6 +5480,168 @@ def family_phases(torch, fams, t_all):
     return lora, flash, paths
 
 
+def _counts(fams, FA):
+    """The LoRA launches of each set and the flash launches since the last
+    reset, then reset."""
+    got = {fam: dict(mod.LAUNCHES) for fam, mod in fams.items()}
+    got["flash"] = FA.LAUNCHES["flash_attention"]
+    for mod in (*fams.values(), FA):
+        mod.reset_launches()
+    return got
+
+
+def launch_phase(torch, fams):
+    """The training launcher (``launch/train.py``) over a world-size-1 NCCL
+    process group (127.0.0.1, a free port; destroyed at the end, even on
+    failure) and ``make_local_mesh((1, 1))``: ``run`` on full-width
+    stablelm-3b at train_4k's b = 4 and S = 4,096, LAUNCH_Z slots, all 32
+    layers, 3 steps through ``steps_dist.make_train_step`` (finite per-slot
+    losses; every step's LoRA and flash launches; the peak GiB); then at
+    LAUNCH_CHECK_LAYERS layers (Z 4, ranks 4-32 bound, S 1,024):
+    ``remat=False`` equal to ``remat=True`` bit for bit on losses and LoRA
+    grads, opt levels 0, 1 and 2 bit for bit on losses and grad norms (the
+    1x1 mesh's model_size is 1), and the scan kernel at the policy's
+    ``scan_chunk`` 32 against its plain version; then ``main`` through
+    the CLI with ``--reduced --steps 2``. Returns {path: launches}."""
+    from repro_torch.core import lora as LORA
+    from repro_torch.core import steps as STEPS
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.configs.shapes import TRAIN_4K
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.linear_scan import linear_scan as LSK
+    from repro_torch.kernels.linear_scan import ref as lsref
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import partitioning as PT
+    from repro_torch.launch import steps_dist as SD
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    cfg = get_arch("stablelm-3b")
+    _, b = TRAIN_4K.decompose()
+    S = TRAIN_4K.seq_len
+    want, _, (want_flash, _) = _step_launches(cfg)
+    launches = {"launch_train": {fam: {k: 0 for k in want} for fam in fams},
+                "launch_flash": 0}
+    with MESH.process_group("cuda"):
+        mesh = MESH.make_local_mesh((1, 1))
+        print(f"launch: world-size-1 NCCL group, mesh "
+              f"{MESH.axis_sizes(mesh)}")
+        per_step = []
+
+        def hook(t, metrics, seconds):
+            per_step.append(_counts(fams, FA))
+
+        _counts(fams, FA)
+        t0 = time.perf_counter()
+        res = TRAIN.run(cfg, LAUNCH_Z, b, S, mesh, 3, device="cuda",
+                        step_hook=hook, log=lambda m: print(f"launch: {m}"))
+        losses = torch.tensor(res["losses"])
+        require(bool(torch.isfinite(losses).all()),
+                f"launch: non-finite per-slot losses {res['losses']}")
+        for t, got in enumerate(per_step):
+            require(got["dense"] == want and got["flash"] == want_flash
+                    and not any(got["ragged"].values())
+                    and not any(got["rank-local"].values()),
+                    f"launch step {t}: launches {got}, expected dense "
+                    f"{want} and flash {want_flash}")
+            for k in want:
+                launches["launch_train"]["dense"][k] += got["dense"][k]
+            launches["launch_flash"] += got["flash"]
+        print(f"launch: stablelm-3b Z {LAUNCH_Z}, b {b}, S {S}, "
+              f"{cfg.num_layers} layers: 3 steps of "
+              f"{[round(v, 3) for v in res['step_s']]} s, per-slot losses "
+              f"{res['losses']}, peak {res['peak_gib']:.2f} GiB; each step "
+              f"LoRA (dense) {list(want.values())}, flash {want_flash}; "
+              f"{res['policy_decisions']} constraint decisions resolved, "
+              f"{time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 4 layers: remat=False == remat=True, opt levels 0/1/2
+        cfg4 = dataclasses.replace(cfg, num_layers=LAUNCH_CHECK_LAYERS)
+        Z4, S4, dev = 4, 1024, "cuda"
+        params = M.init_params(cfg4, seed=0, device=dev)
+        ranks = torch.tensor(TRAIN_RANKS, dtype=torch.int32, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        lora0 = LORA.init_lora_tree(gen, cfg4, Z4, ranks,
+                                    M.target_shapes(cfg4))
+        for ab in lora0.values():        # non-zero B inside each rank
+            ab["B"].normal_(generator=gen).mul_(0.01)
+            LORA.mask_lora_tree({"t": ab}, ranks, cfg4.lora.r_max)
+        tok = torch.randint(0, cfg4.vocab_size, (Z4, b, S4), generator=gen,
+                            device=dev, dtype=torch.int32)
+        batch = {"tokens": tok, "labels": tok, "slot_ranks": ranks}
+        active = torch.ones((Z4,), dtype=torch.int32, device=dev)
+
+        def clone(tree):
+            return {t: {k: v.clone() for k, v in ab.items()}
+                    for t, ab in tree.items()}
+
+        got = {r: STEPS.lora_grads(cfg4, params, clone(lora0), batch,
+                                   active, remat=r) for r in (True, False)}
+        require(torch.equal(got[True][0], got[False][0])
+                and all(torch.equal(got[True][1][t][k], got[False][1][t][k])
+                        for t in got[True][1] for k in got[True][1][t]),
+                "launch: remat=False differs from remat=True")
+        print(f"launch: {LAUNCH_CHECK_LAYERS} layers, Z {Z4}, b {b}, S {S4}:"
+              f" remat=False == remat=True bit for bit (losses "
+              f"{got[True][0].tolist()} and all "
+              f"{sum(len(ab) for ab in got[True][1].values())} LoRA grads)")
+        per_level = {}
+        for level in (0, 1, 2):
+            step = SD.make_train_step(cfg4, mesh, opt_level=level)
+            lora = clone(lora0)
+            opt = adamw.init_state(lora, Z4)
+            hp = adamw.SlotHParams.broadcast(Z4, lr=1e-3, device=dev)
+            _, _, m = step(params, lora, opt, hp, active, ranks, batch)
+            per_level[level] = m
+            require(step.policy.hints["model_size"] == 1,
+                    f"launch: model_size {step.policy.hints}")
+        for level in (1, 2):
+            require(torch.equal(per_level[level]["per_slot_loss"],
+                                per_level[0]["per_slot_loss"])
+                    and torch.equal(per_level[level]["grad_norm"],
+                                    per_level[0]["grad_norm"]),
+                    f"launch: opt level {level} differs from level 0")
+        print(f"launch: opt levels 0, 1, 2 bit for bit on the 1x1 mesh "
+              f"(losses {per_level[0]['per_slot_loss'].tolist()})")
+        del params, lora0, got, per_level
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the scan kernel at the opt-level-2 policy's scan_chunk
+        chunk = PT.activation_policy(mesh, opt_level=2).hints["scan_chunk"]
+        g = torch.Generator(device=dev).manual_seed(9)
+        B, Sx, K = 160, 256, 64
+        q, k, v = (torch.randn(B, Sx, K, generator=g, device=dev)
+                   for _ in range(3))
+        logw = -torch.exp(torch.rand(B, Sx, K, generator=g, device=dev) * 4
+                          - 3)
+        bonus = torch.randn(B, K, generator=g, device=dev) * 0.1
+        y, st = LSK.linear_scan(q, k, v, logw, bonus=bonus, chunk=chunk)
+        py, pst = lsref.linear_scan_ref(q, k, v, logw, bonus=bonus,
+                                        chunk=chunk)
+        for name, a, p in (("y", y, py), ("state", st, pst)):
+            bar = SCAN_RTOL["fp32"] * p.abs() + SCAN_ATOL_REL * \
+                p.abs().max()
+            require(bool(((a - p).abs() <= bar).all()),
+                    f"launch: scan at chunk {chunk}: {name} off its bar")
+        print(f"launch: the scan kernel at scan_chunk {chunk} (fp32, B {B}, "
+              f"S {Sx}, K = V = {K}) within 1e-5 of its plain version")
+    _counts(fams, FA)
+
+    t0 = time.perf_counter()
+    out = TRAIN.main(["--reduced", "--steps", "2"])
+    require(all(math.isfinite(v) for row in out["losses"] for v in row),
+            f"launch CLI: losses {out['losses']}")
+    print(f"launch: the CLI (--reduced --steps 2) finished in "
+          f"{time.perf_counter() - t0:.1f} s")
+    _counts(fams, FA)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5323,6 +5705,9 @@ def main() -> int:
     fams = {"dense": GL, "ragged": RG, "rank-local": RL}
     cfg = get_arch("stablelm-3b")
     flash, _ = flash_kernel_phase(torch, FA, fref, cfg)
+    t = time.perf_counter()
+    autotune_phase(torch, fams)
+    print(f"autotune phase {time.perf_counter() - t:.1f} s")
     print(f"kernel phases done at {time.perf_counter() - t_all:.1f} s")
 
     t = time.perf_counter()
@@ -5399,6 +5784,12 @@ def main() -> int:
     f_lora, f_flash, f_paths = family_phases(torch, fams, t_all)
     f_dense = f_paths.pop("dense_cfg_train")
     f_paths["dense_cfg_train"] = f_dense["rank-local"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    launch = launch_phase(torch, fams)
+    print(f"launch phase {time.perf_counter() - t:.1f} s, done at "
+          f"{time.perf_counter() - t_all:.1f} s")
 
     csrc = "src/repro_torch/kernels/grouped_lora/csrc"
     rows = [  # (name, kernel source, TPU kernel file, its pallas_call line)
@@ -5420,7 +5811,9 @@ def main() -> int:
             prefix, by_path, res = "grouped_lora", {
                 "lr_sweep": lr_launches[name],
                 "colocation": colo_launches["dense"][name],
-                "dense_cfg_train": f_dense["dense"][name]}, dense[name]
+                "dense_cfg_train": f_dense["dense"][name],
+                "launch_train": launch["launch_train"]["dense"][name]}, \
+                dense[name]
         elif src == "ragged.cu":
             prefix, by_path, res = "ragged", {
                 "colocation": colo_launches["ragged"][name]}, ragged[name]
@@ -5495,6 +5888,7 @@ def main() -> int:
                   for path, got in f_paths.items()}}
     by_path["dense_cfg_train"] = sum(got["flash_attention"]
                                      for got in f_dense.values())
+    by_path["launch_train"] = launch["launch_flash"]
     table["kernels"].append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"

@@ -4,9 +4,9 @@ The port imports nothing of the JAX package, so the dataclasses and
 ``reduced()`` are copied here unchanged; the two packages must agree on
 every field so that a test can hand the same configuration to both.
 
-``TrainConfig`` (per-job training hyperparameters) is copied too; the
-input-shape and mesh configs of the JAX package come with the slices that
-use them.
+``TrainConfig`` (per-job training hyperparameters), the input shapes
+(``ShapeConfig``, with the ``KIND_*`` step kinds) and the logical mesh
+(``MeshConfig``) are copied too.
 
 Design rules:
   * No config object ever touches device state at import time.
@@ -245,6 +245,55 @@ class ModelConfig:
             lora=replace(self.lora, r_max=8),
             num_modality_tokens=min(self.num_modality_tokens, 8),
         )
+
+
+# ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+KIND_TRAIN = "train"
+KIND_PREFILL = "prefill"
+KIND_DECODE = "decode"
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+    # preferred (Z, b) decomposition; 0 -> auto
+    num_slots: int = 0
+    per_adapter_batch: int = 0
+
+    def decompose(self) -> Tuple[int, int]:
+        """global_batch = Z * b (ALTO slots x per-adapter batch)."""
+        if self.num_slots:
+            z = self.num_slots
+            b = self.per_adapter_batch or (self.global_batch // z)
+        else:
+            z = min(64, self.global_batch)
+            b = self.global_batch // z
+        assert z * b == self.global_batch, (
+            f"{self.name}: {z}*{b} != {self.global_batch}")
+        return z, b
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == KIND_DECODE
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Logical mesh description (built by launch/mesh.py)."""
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
 
 
 @dataclass(frozen=True)

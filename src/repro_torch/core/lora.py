@@ -48,6 +48,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.grouped_lora import ops as kops
 from repro_torch.kernels.grouped_lora import ref as kref
+from repro_torch.models.shardctx import constrain
 
 _backend = threading.local()
 
@@ -187,10 +188,16 @@ def _lora_delta_torch(x, A, B, scale):
 
 def proj(x: torch.Tensor, W: torch.Tensor,
          lora_pair: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-         scale: torch.Tensor | float = 2.0) -> torch.Tensor:
+         scale: torch.Tensor | float = 2.0,
+         name: Optional[str] = None) -> torch.Tensor:
     """Frozen base projection + optional grouped LoRA residual.
 
-    x: [Z, ..., d_in]; W: [d_in, d_out] (frozen, slot-shared)."""
+    x: [Z, ..., d_in]; W: [d_in, d_out] (frozen, slot-shared). ``name``
+    lets the sharding policy (``models/shardctx``) gather the frozen weight
+    over the adapter ("data") axis before use, as the reference's
+    ``proj`` does at opt_level >= 1."""
+    if name is not None:
+        W = constrain(W, f"weight:{name}")
     y = x @ W
     if lora_pair is not None:
         A, B = lora_pair

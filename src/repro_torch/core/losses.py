@@ -27,15 +27,18 @@ def check_loss_kind(loss_kind: str) -> None:
 
 
 def sft_loss(cfg: ModelConfig, params: Dict, lora: Dict, batch: Dict,
-             active: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+             active: torch.Tensor, remat: bool = True
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (total scalar for backward, per-slot mean NLL [Z] fp32).
+    ``remat``: checkpoint every layer of a forward that records gradients.
 
     MoE adds ``router_aux_weight`` times the load-balance term to the
     total, unmasked by ``active``, as the JAX package does: it is a mean
     over token groups that may span slots."""
     h, aux, _ = M.forward(cfg, params, lora, batch["tokens"],
                           positions=batch.get("positions"),
-                          modal_embeds=batch.get("modal_embeds"))
+                          modal_embeds=batch.get("modal_embeds"),
+                          remat=remat)
     nll_sum, cnt = M.per_slot_xent(cfg, params, h, batch["labels"])
     per_slot = nll_sum / torch.clamp_min(cnt, 1.0)
     total = torch.sum(per_slot * active.float())
@@ -45,7 +48,7 @@ def sft_loss(cfg: ModelConfig, params: Dict, lora: Dict, batch: Dict,
 
 
 def dpo_loss(cfg: ModelConfig, params: Dict, lora: Dict, batch: Dict,
-             active: torch.Tensor, beta: float = 0.1
+             active: torch.Tensor, beta: float = 0.1, remat: bool = True
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Direct Preference Optimization over (chosen, rejected) pairs.
 
@@ -57,7 +60,7 @@ def dpo_loss(cfg: ModelConfig, params: Dict, lora: Dict, batch: Dict,
 
     Returns (total scalar, per-slot mean -log sigmoid margin [Z])."""
     def seq_logp(lora_tree, tokens, labels):
-        h, _, _ = M.forward(cfg, params, lora_tree, tokens)
+        h, _, _ = M.forward(cfg, params, lora_tree, tokens, remat=remat)
         nll_sum, _ = M.per_slot_xent(cfg, params, h, labels)
         return -nll_sum   # sum log p per slot
 

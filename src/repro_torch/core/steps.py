@@ -34,12 +34,12 @@ def _bind(batch: Dict):
 
 
 def lora_grads(cfg: ModelConfig, params: Dict, lora: Dict, batch: Dict,
-               active: torch.Tensor, *, loss_kind: str = "sft"
-               ) -> Tuple[torch.Tensor, Dict]:
+               active: torch.Tensor, *, loss_kind: str = "sft",
+               remat: bool = True) -> Tuple[torch.Tensor, Dict]:
     """(per-slot loss [Z], gradient tree) of the summed active per-slot
     loss with respect to the LoRA leaves only (the backbone is frozen).
     ``batch`` may carry ``slot_rows``/``slot_ranks`` as ``make_train_step``
-    describes."""
+    describes; ``remat`` checkpoints every layer of the forward."""
     LS.check_loss_kind(loss_kind)
     keys = [(t, m) for t in sorted(lora) for m in sorted(lora[t])]
     leaves = {t: {m: x.detach().requires_grad_(True)
@@ -51,7 +51,7 @@ def lora_grads(cfg: ModelConfig, params: Dict, lora: Dict, batch: Dict,
                for t, ab in leaves.items()}
     with _bind(batch) as b:
         total, per_slot = LS.LOSSES[loss_kind](cfg, params, layered, b,
-                                               active)
+                                               active, remat=remat)
         flat = torch.autograd.grad(total, [leaves[t][m] for t, m in keys])
     grads: Dict[str, Dict[str, torch.Tensor]] = {t: {} for t in lora}
     for (t, m), g in zip(keys, flat):
@@ -77,18 +77,16 @@ def make_train_step(cfg: ModelConfig, *, loss_kind: str = "sft",
 
     ``loss_kind`` is "sft" or "dpo" (``core/losses.py``; a DPO batch
     carries ``tokens_chosen``/``labels_chosen``/``tokens_rejected``/
-    ``labels_rejected``). The forward is always rematerialized, one
-    checkpoint per layer (``models.model.forward``); ``remat=False`` is
-    not ported and raises."""
+    ``labels_rejected``). ``remat`` (the default) rematerializes the
+    forward, one checkpoint per layer (``models.model.forward``);
+    ``remat=False`` keeps every layer's activations for the backward, as
+    the reference's ``steps.py:26-49``."""
     LS.check_loss_kind(loss_kind)
-    if not remat:
-        raise NotImplementedError("remat=False is not ported: the train "
-                                  "step checkpoints every layer")
 
     def train_step(params, lora, opt_state, hp: adamw.SlotHParams,
                    active: torch.Tensor, ranks: torch.Tensor, batch: Dict):
         per_slot, grads = lora_grads(cfg, params, lora, batch, active,
-                                     loss_kind=loss_kind)
+                                     loss_kind=loss_kind, remat=remat)
         norms = adamw.per_slot_global_norm(grads)
         new_lora, new_opt = adamw.apply_updates(
             lora, grads, opt_state, hp, active,

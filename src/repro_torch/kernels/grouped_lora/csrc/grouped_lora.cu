@@ -61,46 +61,50 @@
 
 // dtype: 0 = float32, 1 = bfloat16 (the activation type of every non-master
 // operand). scale is [Z] fp32, never null; ybase may be null (no base add).
+// plan: an index into GL_PLANS (bf16 only), negative = the default tile.
 // Each returns cudaGetLastError() after its launch (0 = launched).
 extern "C" int gl_xa(const void* x, const float* A, void* S, int Z, int T,
-                     int din, int r, int dtype, void* stream) {
+                     int din, int r, int dtype, int plan, void* stream) {
   GL_DISPATCH_ACT(dtype, launch_xa<Act, false, false>(
-      x, A, S, nullptr, nullptr, Z, T, din, r, (cudaStream_t)stream));
+      x, A, S, nullptr, nullptr, Z, T, din, r, plan,
+      (cudaStream_t)stream));
 }
 
 extern "C" int gl_sb_add(const void* S, const float* B, const float* scale,
                          const void* ybase, void* Y, int Z, int T, int r,
-                         int dout, int dtype, void* stream) {
+                         int dout, int dtype, int plan, void* stream) {
   if (scale == nullptr) return (int)cudaErrorInvalidValue;
   GL_DISPATCH_ACT(dtype, launch_sb_add<Act, false, false>(
-      S, B, scale, 0.f, ybase, Y, nullptr, nullptr, Z, T, r, dout,
+      S, B, scale, 0.f, ybase, Y, nullptr, nullptr, Z, T, r, dout, plan,
       (cudaStream_t)stream));
 }
 
 extern "C" int gl_ds(const void* dy, const float* B, const float* scale,
                      void* dS, int Z, int T, int dout, int r, int dtype,
-                     void* stream) {
+                     int plan, void* stream) {
   GL_DISPATCH_ACT(dtype, launch_ds<Act, false, false>(
-      dy, B, scale, dS, nullptr, nullptr, Z, T, dout, r,
+      dy, B, scale, dS, nullptr, nullptr, Z, T, dout, r, plan,
       (cudaStream_t)stream));
 }
 
 extern "C" int gl_dx(const void* dS, const float* A, void* dX, int Z, int T,
-                     int din, int r, int dtype, void* stream) {
+                     int din, int r, int dtype, int plan, void* stream) {
   GL_DISPATCH_ACT(dtype, launch_dx<Act, false, false>(
-      dS, A, dX, nullptr, nullptr, Z, T, din, r, (cudaStream_t)stream));
+      dS, A, dX, nullptr, nullptr, Z, T, din, r, plan,
+      (cudaStream_t)stream));
 }
 
 extern "C" int gl_da(const void* x, const void* dS, float* dA, int Z, int T,
-                     int din, int r, int dtype, void* stream) {
+                     int din, int r, int dtype, int plan, void* stream) {
   GL_DISPATCH_ACT(dtype, launch_da<Act, false, false>(
-      x, dS, dA, nullptr, nullptr, Z, T, din, r, (cudaStream_t)stream));
+      x, dS, dA, nullptr, nullptr, Z, T, din, r, plan,
+      (cudaStream_t)stream));
 }
 
 extern "C" int gl_db(const void* S, const void* dy, const float* scale,
                      float* dB, int Z, int T, int dout, int r, int dtype,
-                     void* stream) {
+                     int plan, void* stream) {
   GL_DISPATCH_ACT(dtype, launch_db<Act, false, false>(
-      S, dy, scale, dB, nullptr, nullptr, Z, T, dout, r,
+      S, dy, scale, dB, nullptr, nullptr, Z, T, dout, r, plan,
       (cudaStream_t)stream));
 }

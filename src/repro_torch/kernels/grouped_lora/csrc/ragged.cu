@@ -56,55 +56,61 @@
 #include "ranklocal_common.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16 (the activation type of every non-master
-// operand). rows is [Z] int32, never null; scale is [Z] fp32, never null;
+// operand). plan: an index into GL_PLANS (bf16 only), negative = the
+// default tile. rows is [Z] int32, never null; scale is [Z] fp32, never null;
 // ybase may be null (no base add). Each returns cudaGetLastError() after
 // its launch (0 = launched).
 extern "C" int rg_xa(const void* x, const float* A, void* S, const int* rows,
-                     int Z, int T, int din, int r, int dtype, void* stream) {
+                     int Z, int T, int din, int r, int dtype, int plan,
+                     void* stream) {
   if (rows == nullptr) return (int)cudaErrorInvalidValue;
   GL_DISPATCH_ACT(dtype, launch_xa<Act, true, false>(
-      x, A, S, rows, nullptr, Z, T, din, r, (cudaStream_t)stream));
+      x, A, S, rows, nullptr, Z, T, din, r, plan,
+      (cudaStream_t)stream));
 }
 
 extern "C" int rg_sb_add(const void* S, const float* B, const float* scale,
                          const void* ybase, void* Y, const int* rows, int Z,
-                         int T, int r, int dout, int dtype, void* stream) {
+                         int T, int r, int dout, int dtype, int plan,
+                         void* stream) {
   if (rows == nullptr || scale == nullptr) return (int)cudaErrorInvalidValue;
   GL_DISPATCH_ACT(dtype, launch_sb_add<Act, true, false>(
-      S, B, scale, 0.f, ybase, Y, rows, nullptr, Z, T, r, dout,
+      S, B, scale, 0.f, ybase, Y, rows, nullptr, Z, T, r, dout, plan,
       (cudaStream_t)stream));
 }
 
 extern "C" int rg_ds(const void* dy, const float* B, const float* scale,
                      void* dS, const int* rows, int Z, int T, int dout, int r,
-                     int dtype, void* stream) {
+                     int dtype, int plan, void* stream) {
   if (rows == nullptr) return (int)cudaErrorInvalidValue;
   GL_DISPATCH_ACT(dtype, launch_ds<Act, true, false>(
-      dy, B, scale, dS, rows, nullptr, Z, T, dout, r,
+      dy, B, scale, dS, rows, nullptr, Z, T, dout, r, plan,
       (cudaStream_t)stream));
 }
 
 extern "C" int rg_dx(const void* dS, const float* A, void* dX,
                      const int* rows, int Z, int T, int din, int r, int dtype,
-                     void* stream) {
+                     int plan, void* stream) {
   if (rows == nullptr) return (int)cudaErrorInvalidValue;
   GL_DISPATCH_ACT(dtype, launch_dx<Act, true, false>(
-      dS, A, dX, rows, nullptr, Z, T, din, r, (cudaStream_t)stream));
+      dS, A, dX, rows, nullptr, Z, T, din, r, plan,
+      (cudaStream_t)stream));
 }
 
 extern "C" int rg_da(const void* x, const void* dS, float* dA,
                      const int* rows, int Z, int T, int din, int r, int dtype,
-                     void* stream) {
+                     int plan, void* stream) {
   if (rows == nullptr) return (int)cudaErrorInvalidValue;
   GL_DISPATCH_ACT(dtype, launch_da<Act, true, false>(
-      x, dS, dA, rows, nullptr, Z, T, din, r, (cudaStream_t)stream));
+      x, dS, dA, rows, nullptr, Z, T, din, r, plan,
+      (cudaStream_t)stream));
 }
 
 extern "C" int rg_db(const void* S, const void* dy, const float* scale,
                      float* dB, const int* rows, int Z, int T, int dout,
-                     int r, int dtype, void* stream) {
+                     int r, int dtype, int plan, void* stream) {
   if (rows == nullptr) return (int)cudaErrorInvalidValue;
   GL_DISPATCH_ACT(dtype, launch_db<Act, true, false>(
-      S, dy, scale, dB, rows, nullptr, Z, T, dout, r,
+      S, dy, scale, dB, rows, nullptr, Z, T, dout, r, plan,
       (cudaStream_t)stream));
 }

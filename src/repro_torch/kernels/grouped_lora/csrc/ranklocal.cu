@@ -51,12 +51,14 @@
 #include "ranklocal_common.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16. rows may be null (every row live).
+// plan: an index into GL_PLANS (bf16 only), negative = the default tile.
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int rl_xa(const void* x, const float* A, void* S, const int* rows,
                      const int* ranks, int Z, int T, int din, int r,
-                     int dtype, void* stream) {
+                     int dtype, int plan, void* stream) {
   GL_DISPATCH_ACT(dtype, launch_xa<Act, true, true>(
-      x, A, S, rows, ranks, Z, T, din, r, (cudaStream_t)stream));
+      x, A, S, rows, ranks, Z, T, din, r, plan,
+      (cudaStream_t)stream));
 }
 
 // scale may be null (then every slot uses scale_all); ybase may be null
@@ -64,8 +66,29 @@ extern "C" int rl_xa(const void* x, const float* A, void* S, const int* rows,
 extern "C" int rl_sb_add(const void* S, const float* B, const float* scale,
                          float scale_all, const void* ybase, void* Y,
                          const int* rows, const int* ranks, int Z, int T,
-                         int r, int dout, int dtype, void* stream) {
+                         int r, int dout, int dtype, int plan,
+                         void* stream) {
   GL_DISPATCH_ACT(dtype, launch_sb_add<Act, true, true>(
-      S, B, scale, scale_all, ybase, Y, rows, ranks, Z, T, r, dout,
+      S, B, scale, scale_all, ybase, Y, rows, ranks, Z, T, r, dout, plan,
       (cudaStream_t)stream));
+}
+
+// The compiled plan set (GL_PLANS, ranklocal_common.cuh): the number of
+// plans, and plan i's (bm, bn, br) in out[0..2] (-1 for an index outside
+// the set). The wrappers hold a copy of the list (autotune.PLAN_SET); the
+// autotuner's card check compares the two.
+extern "C" int gl_plan_count() {
+#define GL_PLAN_ONE(i, bm, bn, br) +1
+  return 0 GL_PLANS(GL_PLAN_ONE);
+#undef GL_PLAN_ONE
+}
+
+extern "C" int gl_plan_tiles(int i, int* out) {
+  return with_plan(i, [&](auto p) {
+    using P = decltype(p);
+    out[0] = P::bm;
+    out[1] = P::bn;
+    out[2] = P::br;
+    return 0;
+  });
 }

@@ -66,32 +66,39 @@
 #include "ranklocal_common.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16 (the activation type of every non-master
-// operand). rows may be null (every row live); scale is [Z] fp32, never
+// operand). plan: an index into GL_PLANS (bf16 only), negative = the
+// default tile. rows may be null (every row live); scale is [Z] fp32, never
 // null. Each returns cudaGetLastError() after its launch (0 = launched).
 extern "C" int rl_ds(const void* dy, const float* B, const float* scale,
                      void* dS, const int* rows, const int* ranks, int Z,
-                     int T, int dout, int r, int dtype, void* stream) {
+                     int T, int dout, int r, int dtype, int plan,
+                     void* stream) {
   GL_DISPATCH_ACT(dtype, launch_ds<Act, true, true>(
-      dy, B, scale, dS, rows, ranks, Z, T, dout, r, (cudaStream_t)stream));
+      dy, B, scale, dS, rows, ranks, Z, T, dout, r, plan,
+      (cudaStream_t)stream));
 }
 
 extern "C" int rl_dx(const void* dS, const float* A, void* dX,
                      const int* rows, const int* ranks, int Z, int T,
-                     int din, int r, int dtype, void* stream) {
+                     int din, int r, int dtype, int plan, void* stream) {
   GL_DISPATCH_ACT(dtype, launch_dx<Act, true, true>(
-      dS, A, dX, rows, ranks, Z, T, din, r, (cudaStream_t)stream));
+      dS, A, dX, rows, ranks, Z, T, din, r, plan,
+      (cudaStream_t)stream));
 }
 
 extern "C" int rl_da(const void* x, const void* dS, float* dA,
                      const int* rows, const int* ranks, int Z, int T,
-                     int din, int r, int dtype, void* stream) {
+                     int din, int r, int dtype, int plan, void* stream) {
   GL_DISPATCH_ACT(dtype, launch_da<Act, true, true>(
-      x, dS, dA, rows, ranks, Z, T, din, r, (cudaStream_t)stream));
+      x, dS, dA, rows, ranks, Z, T, din, r, plan,
+      (cudaStream_t)stream));
 }
 
 extern "C" int rl_db(const void* S, const void* dy, const float* scale,
                      float* dB, const int* rows, const int* ranks, int Z,
-                     int T, int dout, int r, int dtype, void* stream) {
+                     int T, int dout, int r, int dtype, int plan,
+                     void* stream) {
   GL_DISPATCH_ACT(dtype, launch_db<Act, true, true>(
-      S, dy, scale, dB, rows, ranks, Z, T, dout, r, (cudaStream_t)stream));
+      S, dy, scale, dB, rows, ranks, Z, T, dout, r, plan,
+      (cudaStream_t)stream));
 }

@@ -102,7 +102,8 @@ bool grid_ok(int gx, int gy, int gz) {
 // bf16 (every timed call). What bounds it: 2*T*r*K flops on T*K bf16
 // activations plus K*r fp32 masters, ~r flops a byte, far below the ~295
 // the tensor cores need: bytes. A block owns BM token rows x BN rank
-// columns of one slot: 64 x 32 (32 x 32 for rank-local calls, where most
+// columns of one slot (by default; a tile plan may pick another tile):
+// 64 x 32 (32 x 32 for rank-local calls, where most
 // rank tiles past 32 are dead; 16 x 8 when a slot has at most 16 rows, as
 // at decode, so that a slot's master spreads over ranks[z] / 8 blocks).
 // The tile moves no bit. Its 8 warps split the contraction: warp w takes
@@ -415,7 +416,8 @@ narrow_out_kernel(const T* __restrict__ X, const float* __restrict__ W,
 // masters, ~r/2 flops a byte: bytes, almost all of them the wide output.
 // So the design moves each output byte once, in 16-byte stores, and keeps
 // the rest on chip. A block owns BM token rows x BN output columns of one
-// slot: 128 x 128, its 8 warps 32 x 64 each (2 m16 x 8 n8 tiles, fp32
+// slot (by default; a tile plan may pick another tile): 128 x 128, its 8
+// warps 32 x 64 each (2 m16 x 8 n8 tiles, fp32
 // accumulators), so the fp32 master crosses L2 once per 128 rows and S
 // once per 128 columns; at T <= 16 (decode) 16 x 64, each warp 16 x 8, so
 // a slot's master spreads over N / 64 blocks. The block stages the whole
@@ -771,7 +773,8 @@ rank_sum_kernel(const T* __restrict__ S, const float* __restrict__ W,
 // bf16 (every timed call). What bounds it: 2*rows*r*d flops on rows*d bf16
 // of the wide operand (X or dY) and rows*r of the narrow one: bytes. A
 // block owns BA x BB = 64 x 64 outputs, so one block covers every rank of
-// r_max = 64 and reads each wide-operand entry once; 8 warps own 32 x 16
+// r_max = 64 and reads each wide-operand entry once (the default tile; a
+// tile plan may pick another); 8 warps own 32 x 16
 // each (2 m16 x 2 n8 tiles, fp32 accumulators). The token loop runs in
 // 128-row stages from row 0 up to rows[z], staged in a 3-deep cp.async
 // ring (110 KB: two blocks an SM) with dead rows and dead rank columns
@@ -1009,10 +1012,46 @@ tn_kernel(const T* __restrict__ P, const T* __restrict__ Q,
 }
 
 // ---------------------------------------------------------------------------
+// Tile plans (bf16 only). A plan is an index into GL_PLANS, the set compiled
+// into the library: plan (bm, bn, br) tiles narrow_out (xa, ds) by bm token
+// rows x br rank columns, rank_sum (sb_add, dx) by bm rows x bn output
+// columns and tn by bn feature x br rank entries (da: BA = bn, BB = br; db:
+// BA = br, BB = bn). A negative plan is each launcher's default tile for
+// the shape; any other index is refused. Every tile of a template gives each
+// output element the same fp32 summation order (the contraction splits
+// NO_BK and TC_BK are not part of a plan), so a plan moves no bit; the
+// autotuner (autotune.py) checks that on the card before it keeps one. The
+// fp32 instantiations have one tile each and refuse a plan. The list must
+// match autotune.PLAN_SET (gl_plan_tiles reports it).
+// ---------------------------------------------------------------------------
+#define GL_PLANS(X)                                                     \
+  X(0, 64, 128, 32) X(1, 32, 128, 32) X(2, 32, 64, 64) X(3, 16, 128, 32) \
+  X(4, 64, 64, 32)
+
+template <int BM, int BN, int BR> struct Plan {
+  static constexpr int bm = BM, bn = BN, br = BR;
+};
+
+// f(Plan<bm, bn, br>{}) for plan index p; an index outside the set:
+// cudaErrorInvalidValue
+template <typename F> int with_plan(int p, F&& f) {
+  switch (p) {
+#define GL_PLAN_CASE(i, bm, bn, br) \
+  case i:                           \
+    return f(Plan<bm, bn, br>{});
+    GL_PLANS(GL_PLAN_CASE)
+#undef GL_PLAN_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers: one grid per function and tile, shared by all three
 // instantiations. Act is the activation type of every non-master operand.
 // rows is read only when ROWS (null rows: every row live), ranks only when
-// RANKS. Each returns cudaGetLastError() after its launch (0 = launched).
+// RANKS; plan as above. Each returns cudaGetLastError() after its launch
+// (0 = launched).
 // ---------------------------------------------------------------------------
 
 template <typename Act, bool W_KN, int BM, int BN, bool ROWS, bool RANKS>
@@ -1038,19 +1077,26 @@ int launch_narrow_out(const void* x, const float* W, int sk, int sj,
   return (int)cudaGetLastError();
 }
 
-// the bf16 tile of xa / ds: 16 x 8 when a slot has at most 16 rows
+// the default bf16 tile of xa / ds: 16 x 8 when a slot has at most 16 rows
 // (decode: the most blocks for the master's bytes), else 32 or 64 rows x
 // 32 ranks (rank-local calls: most rank tiles past 32 are dead, so half the
-// rows a block keeps the card filled)
+// rows a block keeps the card filled); a plan: bm x br
 template <typename Act, bool W_KN, bool ROWS, bool RANKS>
 int launch_narrow(const void* x, const float* W, int sk, int sj,
                   const float* scale, void* out, const int* rows,
                   const int* ranks, int Z, int T, int K, int r, int vec,
-                  cudaStream_t st) {
-  if constexpr (std::is_same<Act, float>::value)
+                  int plan, cudaStream_t st) {
+  if constexpr (std::is_same<Act, float>::value) {
+    if (plan >= 0) return (int)cudaErrorInvalidValue;   // one fp32 tile
     return launch_narrow_out<Act, false, NO_BM, NO_BR, ROWS, RANKS>(
         x, W, sk, sj, scale, out, rows, ranks, Z, T, K, r, vec, st);
-  else if (T <= 16)
+  } else if (plan >= 0) {
+    return with_plan(plan, [&](auto p) {
+      using P = decltype(p);
+      return launch_narrow_out<Act, W_KN, P::bm, P::br, ROWS, RANKS>(
+          x, W, sk, sj, scale, out, rows, ranks, Z, T, K, r, vec, st);
+    });
+  } else if (T <= 16)
     return launch_narrow_out<Act, W_KN, 16, 8, ROWS, RANKS>(
         x, W, sk, sj, scale, out, rows, ranks, Z, T, K, r, vec, st);
   else
@@ -1060,12 +1106,12 @@ int launch_narrow(const void* x, const float* W, int sk, int sj,
 
 template <typename Act, bool ROWS, bool RANKS>
 int launch_xa(const void* x, const float* A, void* S, const int* rows,
-              const int* ranks, int Z, int T, int din, int r,
+              const int* ranks, int Z, int T, int din, int r, int plan,
               cudaStream_t st) {
   const int vec = (aligned16(x) && din % 8 == 0 ? 1 : 0) |
                   (aligned16(A) && r % 4 == 0 ? 2 : 0);
   return launch_narrow<Act, true, ROWS, RANKS>(
-      x, A, r, 1, nullptr, S, rows, ranks, Z, T, din, r, vec, st);
+      x, A, r, 1, nullptr, S, rows, ranks, Z, T, din, r, vec, plan, st);
 }
 
 template <typename Act, bool W_T, int BM, int BN, bool ROWS, bool RANKS>
@@ -1092,23 +1138,31 @@ int launch_rank_sum_tile(const void* S, const float* W, const float* scale,
   return (int)cudaGetLastError();
 }
 
-// the bf16 tile of sb_add / dx: 16 x 64 when a slot has at most 16 rows
-// (decode: the most blocks for the master's bytes), else 128 x 128; fp32
-// 32 x 64
+// the default bf16 tile of sb_add / dx: 16 x 64 when a slot has at most 16
+// rows (decode: the most blocks for the master's bytes), else 128 x 128; a
+// plan: bm x bn; fp32 32 x 64
 template <typename Act, bool W_T, bool ROWS, bool RANKS>
 int launch_rank_sum(const void* S, const float* W, const float* scale,
                     float scale_all, const void* base, void* out,
                     const int* rows, const int* ranks, int Z, int T, int r,
-                    int N, cudaStream_t st) {
+                    int N, int plan, cudaStream_t st) {
   const bool rows16 = aligned16(out) && N % 8 == 0 &&
                       (base == nullptr || aligned16(base));
   const int vec = (aligned16(S) && r % 8 == 0 ? 1 : 0) |
                   (aligned16(W) && (W_T ? r : N) % 4 == 0 ? 2 : 0) |
                   (rows16 ? 4 : 0);
-  if constexpr (std::is_same<Act, float>::value)
+  if constexpr (std::is_same<Act, float>::value) {
+    if (plan >= 0) return (int)cudaErrorInvalidValue;   // one fp32 tile
     return launch_rank_sum_tile<Act, W_T, RS_BM, RS_BN, ROWS, RANKS>(
         S, W, scale, scale_all, base, out, rows, ranks, Z, T, r, N, vec, st);
-  else if (T <= 16)
+  } else if (plan >= 0) {
+    return with_plan(plan, [&](auto p) {
+      using P = decltype(p);
+      return launch_rank_sum_tile<Act, W_T, P::bm, P::bn, ROWS, RANKS>(
+          S, W, scale, scale_all, base, out, rows, ranks, Z, T, r, N, vec,
+          st);
+    });
+  } else if (T <= 16)
     return launch_rank_sum_tile<Act, W_T, 16, 64, ROWS, RANKS>(
         S, W, scale, scale_all, base, out, rows, ranks, Z, T, r, N, vec, st);
   else
@@ -1120,28 +1174,28 @@ template <typename Act, bool ROWS, bool RANKS>
 int launch_sb_add(const void* S, const float* B, const float* scale,
                   float scale_all, const void* ybase, void* Y,
                   const int* rows, const int* ranks, int Z, int T, int r,
-                  int dout, cudaStream_t st) {
+                  int dout, int plan, cudaStream_t st) {
   return launch_rank_sum<Act, false, ROWS, RANKS>(
-      S, B, scale, scale_all, ybase, Y, rows, ranks, Z, T, r, dout, st);
+      S, B, scale, scale_all, ybase, Y, rows, ranks, Z, T, r, dout, plan, st);
 }
 
 template <typename Act, bool ROWS, bool RANKS>
 int launch_ds(const void* dy, const float* B, const float* scale, void* dS,
               const int* rows, const int* ranks, int Z, int T, int dout,
-              int r, cudaStream_t st) {
+              int r, int plan, cudaStream_t st) {
   if (scale == nullptr) return (int)cudaErrorInvalidValue;
   const int vec = (aligned16(dy) && dout % 8 == 0 ? 1 : 0) |
                   (aligned16(B) && dout % 4 == 0 ? 2 : 0);
   return launch_narrow<Act, false, ROWS, RANKS>(
-      dy, B, 1, dout, scale, dS, rows, ranks, Z, T, dout, r, vec, st);
+      dy, B, 1, dout, scale, dS, rows, ranks, Z, T, dout, r, vec, plan, st);
 }
 
 template <typename Act, bool ROWS, bool RANKS>
 int launch_dx(const void* dS, const float* A, void* dX, const int* rows,
-              const int* ranks, int Z, int T, int din, int r,
+              const int* ranks, int Z, int T, int din, int r, int plan,
               cudaStream_t st) {
   return launch_rank_sum<Act, true, ROWS, RANKS>(
-      dS, A, nullptr, 1.f, nullptr, dX, rows, ranks, Z, T, r, din, st);
+      dS, A, nullptr, 1.f, nullptr, dX, rows, ranks, Z, T, r, din, plan, st);
 }
 
 // OUT [NA, NB] = sc * P^T Q over BA x BB output tiles
@@ -1169,27 +1223,48 @@ int launch_tn(const void* P, const void* Q, const float* scale, float* out,
   return (int)cudaGetLastError();
 }
 
-// fp32 tiles 128 x 16 (da) and 16 x 128 (db); bf16 64 x 64: every rank of
-// r_max 64 in one block
+// fp32 tiles 128 x 16 (da) and 16 x 128 (db); bf16 64 x 64 by default
+// (every rank of r_max 64 in one block), a plan's bn x br (da) and br x bn
+// (db)
 template <typename Act, bool ROWS, bool RANKS>
 int launch_da(const void* x, const void* dS, float* dA, const int* rows,
-              const int* ranks, int Z, int T, int din, int r,
+              const int* ranks, int Z, int T, int din, int r, int plan,
               cudaStream_t st) {
-  constexpr bool FP32 = std::is_same<Act, float>::value;
-  return launch_tn<Act, FP32 ? 128 : TC_TILE, FP32 ? 16 : TC_TILE, false,
-                   ROWS, RANKS>(x, dS, nullptr, dA, rows, ranks, Z, T, din,
-                                r, r, st);
+  if constexpr (std::is_same<Act, float>::value) {
+    if (plan >= 0) return (int)cudaErrorInvalidValue;   // one fp32 tile
+    return launch_tn<Act, 128, 16, false, ROWS, RANKS>(
+        x, dS, nullptr, dA, rows, ranks, Z, T, din, r, r, st);
+  } else if (plan >= 0) {
+    return with_plan(plan, [&](auto p) {
+      using P = decltype(p);
+      return launch_tn<Act, P::bn, P::br, false, ROWS, RANKS>(
+          x, dS, nullptr, dA, rows, ranks, Z, T, din, r, r, st);
+    });
+  } else {
+    return launch_tn<Act, TC_TILE, TC_TILE, false, ROWS, RANKS>(
+        x, dS, nullptr, dA, rows, ranks, Z, T, din, r, r, st);
+  }
 }
 
 template <typename Act, bool ROWS, bool RANKS>
 int launch_db(const void* S, const void* dy, const float* scale, float* dB,
               const int* rows, const int* ranks, int Z, int T, int dout,
-              int r, cudaStream_t st) {
-  constexpr bool FP32 = std::is_same<Act, float>::value;
+              int r, int plan, cudaStream_t st) {
   if (scale == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_tn<Act, FP32 ? 16 : TC_TILE, FP32 ? 128 : TC_TILE, true,
-                   ROWS, RANKS>(S, dy, scale, dB, rows, ranks, Z, T, r, dout,
-                                r, st);
+  if constexpr (std::is_same<Act, float>::value) {
+    if (plan >= 0) return (int)cudaErrorInvalidValue;   // one fp32 tile
+    return launch_tn<Act, 16, 128, true, ROWS, RANKS>(
+        S, dy, scale, dB, rows, ranks, Z, T, r, dout, r, st);
+  } else if (plan >= 0) {
+    return with_plan(plan, [&](auto p) {
+      using P = decltype(p);
+      return launch_tn<Act, P::br, P::bn, true, ROWS, RANKS>(
+          S, dy, scale, dB, rows, ranks, Z, T, r, dout, r, st);
+    });
+  } else {
+    return launch_tn<Act, TC_TILE, TC_TILE, true, ROWS, RANKS>(
+        S, dy, scale, dB, rows, ranks, Z, T, r, dout, r, st);
+  }
 }
 
 }  // namespace

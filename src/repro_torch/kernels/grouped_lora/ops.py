@@ -33,7 +33,9 @@ ranks, ``_assemble`` rows), as in the JAX package: bound ranks take the
 rank-local Function, bound rows alone the ragged one, no binding the dense
 one. The three give bitwise one
 result where they meet (full rank; rows = T), so the choice never moves a
-loss.
+loss. Each takes ``plan=None`` (``autotune.TilePlan``), as the reference's
+``ops.py:155,252,364`` do, for its forward and backward launches: a tile
+plan moves no bit either.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.grouped_lora import grouped_lora as GL
+from repro_torch.kernels.grouped_lora.autotune import TilePlan
 from repro_torch.kernels.grouped_lora import ragged as RG
 from repro_torch.kernels.grouped_lora import ranklocal as RL
 
@@ -58,11 +61,11 @@ def _scale_tensor(scale: torch.Tensor | float, x: torch.Tensor
 class _GroupedLoRA(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, A, B, scale, y_base):
-        s = GL.xa(x, A)
-        y = GL.sb_add(s, B, scale, y_base)
+    def forward(ctx, x, A, B, scale, y_base, plan):
+        s = GL.xa(x, A, plan=plan)
+        y = GL.sb_add(s, B, scale, y_base, plan=plan)
         ctx.save_for_backward(x, A, B, scale, s)
-        ctx.has_base = y_base is not None
+        ctx.has_base, ctx.plan = y_base is not None, plan
         return y
 
     @staticmethod
@@ -70,36 +73,40 @@ class _GroupedLoRA(torch.autograd.Function):
         x, A, B, scale, s = ctx.saved_tensors
         need_x, need_a, need_b = ctx.needs_input_grad[:3]
         dy = dy.to(x.dtype).contiguous()
+        plan = ctx.plan
         dx = da = db = None
         if need_x or need_a:
-            ds = GL.ds(dy, B, scale)
+            ds = GL.ds(dy, B, scale, plan=plan)
             if need_x:
-                dx = GL.dx(ds, A)
+                dx = GL.dx(ds, A, plan=plan)
             if need_a:
-                da = GL.da(x, ds)
+                da = GL.da(x, ds, plan=plan)
         if need_b:
-            db = GL.db(s, dy, scale)
-        return dx, da, db, None, (dy if ctx.has_base else None)
+            db = GL.db(s, dy, scale, plan=plan)
+        return dx, da, db, None, (dy if ctx.has_base else None), None
 
 
 def grouped_lora(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                  scale: torch.Tensor | float,
-                 y_base: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 y_base: Optional[torch.Tensor] = None, *,
+                 plan: Optional[TilePlan] = None) -> torch.Tensor:
     """x: [Z,T,din]; A: [Z,din,r] and B: [Z,r,dout] fp32 masters (rounded
-    to x's dtype inside the kernels); scale: float or [Z] fp32. Returns
-    [Z,T,dout] in x's dtype, differentiable in x, A, B and y_base."""
+    to x's dtype inside the kernels); scale: float or [Z] fp32; ``plan``: a
+    tile plan (``autotune``; None = the default) for the forward and
+    backward launches. Returns [Z,T,dout] in x's dtype, differentiable in
+    x, A, B and y_base."""
     return _GroupedLoRA.apply(x.contiguous(), A.contiguous(), B.contiguous(),
-                              _scale_tensor(scale, x), y_base)
+                              _scale_tensor(scale, x), y_base, plan)
 
 
 class _RaggedLoRA(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, A, B, scale, rows, y_base):
-        s = RG.xa(x, A, rows)
-        y = RG.sb_add(s, B, scale, rows, y_base)
+    def forward(ctx, x, A, B, scale, rows, y_base, plan):
+        s = RG.xa(x, A, rows, plan=plan)
+        y = RG.sb_add(s, B, scale, rows, y_base, plan=plan)
         ctx.save_for_backward(x, A, B, scale, rows, s)
-        ctx.has_base = y_base is not None
+        ctx.has_base, ctx.plan = y_base is not None, plan
         return y
 
     @staticmethod
@@ -107,39 +114,41 @@ class _RaggedLoRA(torch.autograd.Function):
         x, A, B, scale, rows, s = ctx.saved_tensors
         need_x, need_a, need_b = ctx.needs_input_grad[:3]
         dy = dy.to(x.dtype).contiguous()
+        plan = ctx.plan
         dx = da = db = None
         if need_x or need_a:
-            ds = RG.ds(dy, B, scale, rows)
+            ds = RG.ds(dy, B, scale, rows, plan=plan)
             if need_x:
-                dx = RG.dx(ds, A, rows)
+                dx = RG.dx(ds, A, rows, plan=plan)
             if need_a:
-                da = RG.da(x, ds, rows)
+                da = RG.da(x, ds, rows, plan=plan)
         if need_b:
-            db = RG.db(s, dy, scale, rows)
-        return dx, da, db, None, None, (dy if ctx.has_base else None)
+            db = RG.db(s, dy, scale, rows, plan=plan)
+        return (dx, da, db, None, None, (dy if ctx.has_base else None),
+                None)
 
 
 def ragged_grouped_lora(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                         scale: torch.Tensor | float, rows: torch.Tensor,
-                        y_base: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        y_base: Optional[torch.Tensor] = None, *,
+                        plan: Optional[TilePlan] = None) -> torch.Tensor:
     """x: [Z,T,din]; A: [Z,din,r] and B: [Z,r,dout] fp32 masters (rounded
     to x's dtype inside the kernels); scale: float or [Z] fp32; rows: [Z]
-    int32. Returns [Z,T,dout] in x's dtype, differentiable in x, A, B and
-    y_base; rows >= rows[z] of slot z get a zero delta and zero
-    gradients."""
+    int32; ``plan`` as ``grouped_lora``'s. Returns [Z,T,dout] in x's
+    dtype, differentiable in x, A, B and y_base; rows >= rows[z] of slot z
+    get a zero delta and zero gradients."""
     return _RaggedLoRA.apply(x.contiguous(), A.contiguous(), B.contiguous(),
-                             _scale_tensor(scale, x), rows, y_base)
+                             _scale_tensor(scale, x), rows, y_base, plan)
 
 
 class _RankLocalLoRA(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, A, B, scale, ranks, rows, y_base):
-        s = RL.xa(x, A, rows, ranks)
-        y = RL.sb_add(s, B, scale, rows, ranks, y_base)
+    def forward(ctx, x, A, B, scale, ranks, rows, y_base, plan):
+        s = RL.xa(x, A, rows, ranks, plan=plan)
+        y = RL.sb_add(s, B, scale, rows, ranks, y_base, plan=plan)
         ctx.save_for_backward(x, A, B, scale, ranks, rows, s)
-        ctx.has_base = y_base is not None
+        ctx.has_base, ctx.plan = y_base is not None, plan
         return y
 
     @staticmethod
@@ -147,27 +156,30 @@ class _RankLocalLoRA(torch.autograd.Function):
         x, A, B, scale, ranks, rows, s = ctx.saved_tensors
         need_x, need_a, need_b = ctx.needs_input_grad[:3]
         dy = dy.to(x.dtype).contiguous()
+        plan = ctx.plan
         dx = da = db = None
         if need_x or need_a:
-            ds = RL.ds(dy, B, scale, rows, ranks)
+            ds = RL.ds(dy, B, scale, rows, ranks, plan=plan)
             if need_x:
-                dx = RL.dx(ds, A, rows, ranks)
+                dx = RL.dx(ds, A, rows, ranks, plan=plan)
             if need_a:
-                da = RL.da(x, ds, rows, ranks)
+                da = RL.da(x, ds, rows, ranks, plan=plan)
         if need_b:
-            db = RL.db(s, dy, scale, rows, ranks)
-        return dx, da, db, None, None, None, (dy if ctx.has_base else None)
+            db = RL.db(s, dy, scale, rows, ranks, plan=plan)
+        return (dx, da, db, None, None, None,
+                (dy if ctx.has_base else None), None)
 
 
 def ranklocal_grouped_lora(x: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                            scale: torch.Tensor | float, ranks: torch.Tensor,
                            rows: Optional[torch.Tensor] = None,
-                           y_base: Optional[torch.Tensor] = None
+                           y_base: Optional[torch.Tensor] = None, *,
+                           plan: Optional[TilePlan] = None
                            ) -> torch.Tensor:
     """x: [Z,T,din]; A: [Z,din,r] and B: [Z,r,dout] fp32 masters (rounded
     to x's dtype inside the kernels); scale: float or [Z] fp32;
-    ranks/rows: [Z] int32. Returns [Z,T,dout] in x's dtype,
-    differentiable in x, A, B and y_base."""
+    ranks/rows: [Z] int32; ``plan`` as ``grouped_lora``'s. Returns
+    [Z,T,dout] in x's dtype, differentiable in x, A, B and y_base."""
     return _RankLocalLoRA.apply(x.contiguous(), A.contiguous(),
                                 B.contiguous(), _scale_tensor(scale, x),
-                                ranks, rows, y_base)
+                                ranks, rows, y_base, plan)

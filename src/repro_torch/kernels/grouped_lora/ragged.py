@@ -31,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.grouped_lora import autotune as AT
 from repro_torch.kernels.grouped_lora import ranklocal as RL
 from repro_torch.kernels.grouped_lora import ref
 
@@ -48,9 +49,11 @@ def _launched(err: int, name: str) -> None:
     LAUNCHES[name] += 1
 
 
-def xa(x: torch.Tensor, A: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+def xa(x: torch.Tensor, A: torch.Tensor, rows: torch.Tensor, *,
+       plan: Optional[AT.TilePlan] = None) -> torch.Tensor:
     """x: [Z,T,din], A: [Z,din,r] fp32, rows: [Z] int32 -> S [Z,T,r] in
     x's dtype; rows past rows[z] are exactly 0."""
+    p = RL._plan(plan, x, x.shape[1], x.shape[0])
     if not RL._on_card("xa", x):
         return ref.ragged_xa_ref(x, A, rows)
     Z, T, din = x.shape
@@ -62,16 +65,18 @@ def xa(x: torch.Tensor, A: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     _launched(RL._load().rg_xa(x.data_ptr(), A.data_ptr(), s.data_ptr(),
                                rows.data_ptr(), Z, T, din, r,
                                RL._DTYPE_CODE[x.dtype],
-                               RL._stream(x.device)), "xa")
+                               p, RL._stream(x.device)), "xa")
     return s
 
 
 def sb_add(s: torch.Tensor, B: torch.Tensor, scale: torch.Tensor,
            rows: torch.Tensor,
-           y_base: Optional[torch.Tensor] = None) -> torch.Tensor:
+           y_base: Optional[torch.Tensor] = None, *,
+           plan: Optional[AT.TilePlan] = None) -> torch.Tensor:
     """s: [Z,T,r], B: [Z,r,dout] fp32, scale: [Z] fp32, rows: [Z] int32 ->
     Y [Z,T,dout] in s's dtype; dead rows give a zero delta (the base passes
     through)."""
+    p = RL._plan(plan, s, s.shape[1], s.shape[0])
     if not RL._on_card("sb_add", s):
         return ref.ragged_sb_add_ref(s, B, scale, rows, y_base)
     Z, T, r = s.shape
@@ -87,15 +92,17 @@ def sb_add(s: torch.Tensor, B: torch.Tensor, scale: torch.Tensor,
                                    scale.data_ptr(), RL._ptr(y_base),
                                    y.data_ptr(), rows.data_ptr(), Z, T, r,
                                    dout, RL._DTYPE_CODE[s.dtype],
-                                   RL._stream(s.device)), "sb_add")
+                                   p, RL._stream(s.device)), "sb_add")
     return y
 
 
 def ds(dy: torch.Tensor, B: torch.Tensor, scale: torch.Tensor,
-       rows: torch.Tensor) -> torch.Tensor:
+       rows: torch.Tensor, *,
+       plan: Optional[AT.TilePlan] = None) -> torch.Tensor:
     """dy: [Z,T,dout] (x's dtype), B: [Z,r,dout] fp32, scale: [Z] fp32 ->
     dS = scale[z] * dY @ B^T [Z,T,r] in dy's dtype; rows past rows[z] are
     exactly 0."""
+    p = RL._plan(plan, dy, dy.shape[1], dy.shape[0])
     if not RL._on_card("ds", dy):
         return ref.ragged_ds_ref(dy, B, scale, rows)
     Z, T, dout = dy.shape
@@ -108,14 +115,16 @@ def ds(dy: torch.Tensor, B: torch.Tensor, scale: torch.Tensor,
     _launched(RL._load().rg_ds(dy.data_ptr(), B.data_ptr(), scale.data_ptr(),
                                out.data_ptr(), rows.data_ptr(), Z, T, dout,
                                r, RL._DTYPE_CODE[dy.dtype],
-                               RL._stream(dy.device)), "ds")
+                               p, RL._stream(dy.device)), "ds")
     return out
 
 
 def dx(ds_: torch.Tensor, A: torch.Tensor,
-       rows: torch.Tensor) -> torch.Tensor:
+       rows: torch.Tensor, *,
+       plan: Optional[AT.TilePlan] = None) -> torch.Tensor:
     """ds: [Z,T,r], A: [Z,din,r] fp32 -> dX = dS @ A^T [Z,T,din] in ds's
     dtype; rows past rows[z] are exactly 0."""
+    p = RL._plan(plan, ds_, ds_.shape[1], ds_.shape[0])
     if not RL._on_card("dx", ds_):
         return ref.ragged_dx_ref(ds_, A, rows)
     Z, T, r = ds_.shape
@@ -127,14 +136,16 @@ def dx(ds_: torch.Tensor, A: torch.Tensor,
     _launched(RL._load().rg_dx(ds_.data_ptr(), A.data_ptr(), out.data_ptr(),
                                rows.data_ptr(), Z, T, din, r,
                                RL._DTYPE_CODE[ds_.dtype],
-                               RL._stream(ds_.device)), "dx")
+                               p, RL._stream(ds_.device)), "dx")
     return out
 
 
 def da(x: torch.Tensor, ds_: torch.Tensor,
-       rows: torch.Tensor) -> torch.Tensor:
+       rows: torch.Tensor, *,
+       plan: Optional[AT.TilePlan] = None) -> torch.Tensor:
     """x: [Z,T,din], ds: [Z,T,r] (one dtype) -> dA = X^T @ dS [Z,din,r]
     fp32 over rows < rows[z]."""
+    p = RL._plan(plan, x, x.shape[1], x.shape[0])
     if not RL._on_card("da", x):
         return ref.ragged_da_ref(x, ds_, rows)
     Z, T, din = x.shape
@@ -146,14 +157,16 @@ def da(x: torch.Tensor, ds_: torch.Tensor,
     _launched(RL._load().rg_da(x.data_ptr(), ds_.data_ptr(), out.data_ptr(),
                                rows.data_ptr(), Z, T, din, r,
                                RL._DTYPE_CODE[x.dtype],
-                               RL._stream(x.device)), "da")
+                               p, RL._stream(x.device)), "da")
     return out
 
 
 def db(s: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
-       rows: torch.Tensor) -> torch.Tensor:
+       rows: torch.Tensor, *,
+       plan: Optional[AT.TilePlan] = None) -> torch.Tensor:
     """s: [Z,T,r], dy: [Z,T,dout] (one dtype), scale: [Z] fp32 ->
     dB = scale[z] * S^T @ dY [Z,r,dout] fp32 over rows < rows[z]."""
+    p = RL._plan(plan, s, s.shape[1], s.shape[0])
     if not RL._on_card("db", s):
         return ref.ragged_db_ref(s, dy, scale, rows)
     Z, T, r = s.shape
@@ -166,5 +179,5 @@ def db(s: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
     _launched(RL._load().rg_db(s.data_ptr(), dy.data_ptr(), scale.data_ptr(),
                                out.data_ptr(), rows.data_ptr(), Z, T, dout,
                                r, RL._DTYPE_CODE[s.dtype],
-                               RL._stream(s.device)), "db")
+                               p, RL._stream(s.device)), "db")
     return out

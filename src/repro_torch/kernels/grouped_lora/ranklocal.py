@@ -21,7 +21,11 @@ shared library with a plain C interface under ``build/`` beside this file
 at first use, and called through ``ctypes``. A wrapper takes its plain
 PyTorch version (``ref.py``) only for tensors on the CPU; for CUDA tensors
 it launches the kernel or raises — there is no fallback. ``LAUNCHES``
-counts kernel launches (plain-version calls do not count).
+counts kernel launches (plain-version calls do not count). Every wrapper of
+the three sets takes ``plan=`` (``autotune.TilePlan``; None = each
+launcher's default tile): a bf16 tile plan of the compiled set, passed to
+the C entry point as its index; an illegal plan raises, and the plain
+versions validate a plan and ignore it.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.grouped_lora import autotune as AT
 from repro_torch.kernels.grouped_lora import ref
 from repro_torch.kernels.nvcc import NVCC_FLAGS, build_library
 
@@ -69,25 +74,27 @@ def build() -> Path:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # argument types of every C entry point in the library (all return int)
 _SIGNATURES = {
-    "rl_xa": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rl_xa": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "rl_sb_add": [_P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _I, _I, _I,
-                  _I, _I, _P],
-    "rl_ds": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "rl_dx": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "rl_da": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "rl_db": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "gl_xa": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "gl_sb_add": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "gl_ds": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "gl_dx": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "gl_da": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "gl_db": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "rg_xa": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "rg_sb_add": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "rg_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "rg_dx": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "rg_da": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "rg_db": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                  _I, _I, _I, _P],
+    "rl_ds": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "rl_dx": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "rl_da": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "rl_db": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gl_xa": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gl_sb_add": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gl_ds": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gl_dx": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gl_da": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gl_db": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "rg_xa": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "rg_sb_add": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "rg_ds": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "rg_dx": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "rg_da": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "rg_db": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gl_plan_count": [],
+    "gl_plan_tiles": [_I, _P],
 }
 
 
@@ -145,6 +152,19 @@ def _on_card(name: str, t: torch.Tensor) -> bool:
     return True
 
 
+def _plan(plan: Optional[AT.TilePlan], t: torch.Tensor, T: int,
+          Z: int) -> int:
+    """The C entry points' plan argument for a call on ``t`` (raises for
+    an illegal plan, and for a plan on fp32 tensors on the card, whose
+    kernels have one tile each); on the CPU the plan is validated and the
+    plain version ignores it."""
+    idx = AT.plan_index(plan, T, Z)
+    if idx >= 0 and t.device.type == "cuda" and t.dtype != torch.bfloat16:
+        raise ValueError(f"tile plans select bf16 tiles; {t.dtype} kernels "
+                         "have one tile each")
+    return idx
+
+
 def _check_counts(rows: Optional[torch.Tensor], ranks: torch.Tensor, Z: int,
                   device: torch.device) -> None:
     _check("ranks", ranks, torch.int32, (Z,), device)
@@ -153,9 +173,12 @@ def _check_counts(rows: Optional[torch.Tensor], ranks: torch.Tensor, Z: int,
 
 
 def xa(x: torch.Tensor, A: torch.Tensor, rows: Optional[torch.Tensor],
-       ranks: torch.Tensor) -> torch.Tensor:
+       ranks: torch.Tensor, *, plan: Optional[AT.TilePlan] = None
+       ) -> torch.Tensor:
     """x: [Z,T,din], A: [Z,din,r] fp32 -> S [Z,T,r] in x's dtype; entries
-    past rows[z] / ranks[z] are exactly 0. ``rows=None`` = every row."""
+    past rows[z] / ranks[z] are exactly 0. ``rows=None`` = every row;
+    ``plan``: a tile plan of ``autotune.PLAN_SET`` (None = the default)."""
+    p = _plan(plan, x, x.shape[1], x.shape[0])
     if not _on_card("xa", x):
         return ref.ranklocal_xa_ref(x, A, rows, ranks)
     Z, T, din = x.shape
@@ -166,7 +189,7 @@ def xa(x: torch.Tensor, A: torch.Tensor, rows: Optional[torch.Tensor],
     s = torch.empty((Z, T, r), dtype=x.dtype, device=x.device)
     err = _load().rl_xa(x.data_ptr(), A.data_ptr(), s.data_ptr(),
                         _ptr(rows), ranks.data_ptr(), Z, T, din, r,
-                        _DTYPE_CODE[x.dtype], _stream(x.device))
+                        _DTYPE_CODE[x.dtype], p, _stream(x.device))
     _raise_if(err, "xa")
     LAUNCHES["xa"] += 1
     return s
@@ -174,10 +197,12 @@ def xa(x: torch.Tensor, A: torch.Tensor, rows: Optional[torch.Tensor],
 
 def sb_add(s: torch.Tensor, B: torch.Tensor, scale: torch.Tensor | float,
            rows: Optional[torch.Tensor], ranks: torch.Tensor,
-           y_base: Optional[torch.Tensor] = None) -> torch.Tensor:
+           y_base: Optional[torch.Tensor] = None, *,
+           plan: Optional[AT.TilePlan] = None) -> torch.Tensor:
     """s: [Z,T,r], B: [Z,r,dout] fp32 -> Y [Z,T,dout] in s's dtype;
     ``scale`` is a float for every slot or a [Z] fp32 tensor. Dead rows and
     empty slots (rank 0) give a zero delta: the base passes through."""
+    p = _plan(plan, s, s.shape[1], s.shape[0])
     if not _on_card("sb_add", s):
         return ref.ranklocal_sb_add_ref(s, B, scale, rows, ranks, y_base)
     Z, T, r = s.shape
@@ -196,17 +221,19 @@ def sb_add(s: torch.Tensor, B: torch.Tensor, scale: torch.Tensor | float,
     err = _load().rl_sb_add(s.data_ptr(), B.data_ptr(), scale_ptr, scale_all,
                             _ptr(y_base), y.data_ptr(), _ptr(rows),
                             ranks.data_ptr(), Z, T, r, dout,
-                            _DTYPE_CODE[s.dtype], _stream(s.device))
+                            _DTYPE_CODE[s.dtype], p, _stream(s.device))
     _raise_if(err, "sb_add")
     LAUNCHES["sb_add"] += 1
     return y
 
 
 def ds(dy: torch.Tensor, B: torch.Tensor, scale: torch.Tensor,
-       rows: Optional[torch.Tensor], ranks: torch.Tensor) -> torch.Tensor:
+       rows: Optional[torch.Tensor], ranks: torch.Tensor, *,
+       plan: Optional[AT.TilePlan] = None) -> torch.Tensor:
     """dy: [Z,T,dout] (x's dtype), B: [Z,r,dout] fp32, scale: [Z] fp32 ->
     dS = scale[z] * dY @ B^T [Z,T,r] in dy's dtype; entries past ranks[z]
     / rows[z] are exactly 0."""
+    p = _plan(plan, dy, dy.shape[1], dy.shape[0])
     if not _on_card("ds", dy):
         return ref.ranklocal_ds_ref(dy, B, scale, rows, ranks)
     Z, T, dout = dy.shape
@@ -218,16 +245,19 @@ def ds(dy: torch.Tensor, B: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((Z, T, r), dtype=dy.dtype, device=dy.device)
     err = _load().rl_ds(dy.data_ptr(), B.data_ptr(), scale.data_ptr(),
                         out.data_ptr(), _ptr(rows), ranks.data_ptr(), Z, T,
-                        dout, r, _DTYPE_CODE[dy.dtype], _stream(dy.device))
+                        dout, r, _DTYPE_CODE[dy.dtype], p,
+                        _stream(dy.device))
     _raise_if(err, "ds")
     LAUNCHES["ds"] += 1
     return out
 
 
 def dx(ds_: torch.Tensor, A: torch.Tensor, rows: Optional[torch.Tensor],
-       ranks: torch.Tensor) -> torch.Tensor:
+       ranks: torch.Tensor, *, plan: Optional[AT.TilePlan] = None
+       ) -> torch.Tensor:
     """ds: [Z,T,r], A: [Z,din,r] fp32 -> dX = dS @ A^T [Z,T,din] in ds's
     dtype; only ranks < ranks[z] and rows < rows[z] contribute."""
+    p = _plan(plan, ds_, ds_.shape[1], ds_.shape[0])
     if not _on_card("dx", ds_):
         return ref.ranklocal_dx_ref(ds_, A, rows, ranks)
     Z, T, r = ds_.shape
@@ -238,16 +268,18 @@ def dx(ds_: torch.Tensor, A: torch.Tensor, rows: Optional[torch.Tensor],
     out = torch.empty((Z, T, din), dtype=ds_.dtype, device=ds_.device)
     err = _load().rl_dx(ds_.data_ptr(), A.data_ptr(), out.data_ptr(),
                         _ptr(rows), ranks.data_ptr(), Z, T, din, r,
-                        _DTYPE_CODE[ds_.dtype], _stream(ds_.device))
+                        _DTYPE_CODE[ds_.dtype], p, _stream(ds_.device))
     _raise_if(err, "dx")
     LAUNCHES["dx"] += 1
     return out
 
 
 def da(x: torch.Tensor, ds_: torch.Tensor, rows: Optional[torch.Tensor],
-       ranks: torch.Tensor) -> torch.Tensor:
+       ranks: torch.Tensor, *, plan: Optional[AT.TilePlan] = None
+       ) -> torch.Tensor:
     """x: [Z,T,din], ds: [Z,T,r] (one dtype) -> dA = X^T @ dS [Z,din,r]
     fp32 over rows < rows[z]; columns past ranks[z] are exactly 0."""
+    p = _plan(plan, x, x.shape[1], x.shape[0])
     if not _on_card("da", x):
         return ref.ranklocal_da_ref(x, ds_, rows, ranks)
     Z, T, din = x.shape
@@ -258,17 +290,19 @@ def da(x: torch.Tensor, ds_: torch.Tensor, rows: Optional[torch.Tensor],
     out = torch.empty((Z, din, r), dtype=torch.float32, device=x.device)
     err = _load().rl_da(x.data_ptr(), ds_.data_ptr(), out.data_ptr(),
                         _ptr(rows), ranks.data_ptr(), Z, T, din, r,
-                        _DTYPE_CODE[x.dtype], _stream(x.device))
+                        _DTYPE_CODE[x.dtype], p, _stream(x.device))
     _raise_if(err, "da")
     LAUNCHES["da"] += 1
     return out
 
 
 def db(s: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
-       rows: Optional[torch.Tensor], ranks: torch.Tensor) -> torch.Tensor:
+       rows: Optional[torch.Tensor], ranks: torch.Tensor, *,
+       plan: Optional[AT.TilePlan] = None) -> torch.Tensor:
     """s: [Z,T,r], dy: [Z,T,dout] (one dtype), scale: [Z] fp32 ->
     dB = scale[z] * S^T @ dY [Z,r,dout] fp32 over rows < rows[z]; rows
     past ranks[z] are exactly 0."""
+    p = _plan(plan, s, s.shape[1], s.shape[0])
     if not _on_card("db", s):
         return ref.ranklocal_db_ref(s, dy, scale, rows, ranks)
     Z, T, r = s.shape
@@ -280,7 +314,7 @@ def db(s: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((Z, r, dout), dtype=torch.float32, device=s.device)
     err = _load().rl_db(s.data_ptr(), dy.data_ptr(), scale.data_ptr(),
                         out.data_ptr(), _ptr(rows), ranks.data_ptr(), Z, T,
-                        dout, r, _DTYPE_CODE[s.dtype], _stream(s.device))
+                        dout, r, _DTYPE_CODE[s.dtype], p, _stream(s.device))
     _raise_if(err, "db")
     LAUNCHES["db"] += 1
     return out

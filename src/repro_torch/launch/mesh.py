@@ -1,0 +1,134 @@
+"""Mesh construction (the port of ``repro.launch.mesh``).
+
+Defined as functions, so that importing this module touches no device or
+process-group state.
+
+Axis semantics (the reference's DESIGN.md §5):
+  "pod"   : cross-pod data parallelism over the per-adapter batch
+  "data"  : ADAPTER PARALLELISM — each data-rank owns a disjoint slice of
+            the adapter slots Z; adapter params/grads/opt-state never cross
+            this axis (the paper's rank-local AP)
+  "model" : tensor/sequence sharding of the frozen backbone
+
+A real mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over an
+initialized process group (``process_group`` makes a one-rank one: NCCL on
+the card, gloo only when the caller asks for the CPU). ``abstract_mesh``
+is a plain object with the same ``shape`` / ``axis_names`` view and no
+devices, for the spec tests and the production meshes' spec trees.
+"""
+from __future__ import annotations
+
+import contextlib
+import socket
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+from repro_torch.configs.base import MeshConfig
+from repro_torch.models.common import resolve_device
+
+SINGLE_POD = MeshConfig(shape=(16, 16), axes=("data", "model"))
+MULTI_POD = MeshConfig(shape=(2, 16, 16), axes=("pod", "data", "model"))
+
+
+class AbstractMesh:
+    """A mesh by axis names and sizes alone: ``shape`` maps each name to
+    its size (as ``jax.sharding.AbstractMesh.shape`` does) and
+    ``axis_names`` keeps their order."""
+
+    def __init__(self, shape: Tuple[int, ...], axes: Tuple[str, ...]):
+        if len(shape) != len(axes):
+            raise ValueError(f"{len(shape)} sizes for {len(axes)} axes")
+        self.axis_names = tuple(axes)
+        self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
+
+
+def abstract_mesh(shape: Tuple[int, ...],
+                  axes: Tuple[str, ...]) -> AbstractMesh:
+    return AbstractMesh(shape, axes)
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of an ``AbstractMesh`` or a ``DeviceMesh``."""
+    if isinstance(mesh, DeviceMesh):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return dict(mesh.shape)
+
+
+def axis_names(mesh) -> Tuple[str, ...]:
+    if isinstance(mesh, DeviceMesh):
+        return tuple(mesh.mesh_dim_names)
+    return tuple(mesh.axis_names)
+
+
+def mesh_config(mesh) -> MeshConfig:
+    sizes = axis_sizes(mesh)
+    names = axis_names(mesh)
+    return MeshConfig(shape=tuple(sizes[a] for a in names), axes=names)
+
+
+def free_port() -> int:
+    """A free TCP port on this machine."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def process_group(device=None, init_method: Optional[str] = None):
+    """A world-size-1 process group for the duration of the context,
+    destroyed at its end even on failure: NCCL on the card, gloo on the
+    CPU (only when ``device`` asks for it). ``init_method`` defaults to
+    ``tcp://127.0.0.1:<a free port>``; a ``file://`` path works too."""
+    dev = resolve_device(device)
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":      # the communicator's device, before the mesh
+        torch.cuda.set_device(dev if dev.index is not None else 0)
+    dist.init_process_group(
+        backend, init_method=init_method or f"tcp://127.0.0.1:{free_port()}",
+        rank=0, world_size=1)
+    try:
+        yield dev
+    finally:
+        dist.destroy_process_group()
+
+
+def make_local_mesh(shape: Tuple[int, ...] = (1, 1),
+                    axes: Tuple[str, ...] = ("data", "model"), *,
+                    device=None) -> DeviceMesh:
+    """A mesh over the ranks of the initialized process group (whose world
+    size must be the mesh's size), on the card unless ``device`` says
+    otherwise."""
+    dev = resolve_device(device)
+    n = 1
+    for s in shape:
+        n *= s
+    if not dist.is_initialized():
+        raise RuntimeError("make_local_mesh needs an initialized process "
+                           "group (launch.mesh.process_group)")
+    if dist.get_world_size() != n:
+        raise RuntimeError(f"a {shape} mesh needs {n} ranks, the process "
+                           f"group has {dist.get_world_size()}")
+    return DeviceMesh(dev.type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """The 16 x 16 (or 2 x 16 x 16) production mesh over a process group
+    of exactly that many ranks (the reference asserts the device count,
+    ``mesh.py:39-46``)."""
+    cfg = MULTI_POD if multi_pod else SINGLE_POD
+    n = cfg.num_devices
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have != n:
+        raise RuntimeError(f"the production mesh needs {n} ranks, the "
+                           f"process group has {have}")
+    return DeviceMesh("cuda", torch.arange(n).reshape(cfg.shape),
+                      mesh_dim_names=cfg.axes)

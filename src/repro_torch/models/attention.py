@@ -1,5 +1,5 @@
 """GQA causal attention: the flash-attention kernel for contiguous causal
-forwards, the JAX package's single-device "baseline" path otherwise.
+forwards, the JAX package's einsum paths otherwise.
 
 Under the "kernel" model backend (``models/backend.py``, the default) a
 contiguous causal forward — more than one query, no ``kv_valid_len``, 1-D
@@ -11,8 +11,19 @@ repeated to the query heads for GQA, as ``src/repro/models/attention.py:
 decode and the "torch" backend take the baseline path: grouped-query
 einsums with an fp32 softmax per query chunk, a per-lane ``[Z, b, Sq, Sk]``
 bias when positions carry lane dims (continuous batching), and
-``_softmax_chunk``'s ``-1e30`` floor so fully masked rows give zeros. The
-repeat/kshard sharding layouts come with the ``launch/`` slice.
+``_softmax_chunk``'s ``-1e30`` floor so fully masked rows give zeros.
+
+Sharding-aware layouts (opt_level >= 1 with a model axis of more than one
+rank, from the ``models/shardctx`` hints; reference ``attention.py:6-21,
+60-70``): "grouped" (KV % m == 0: the grouped-query einsums, KV sharded),
+"repeat" (H % m == 0: K/V repeated to the H query heads, H sharded) and
+"kshard" (otherwise: keys, values and probabilities sharded along Sk), each
+with the reference's per-dim constraints; at opt_level >= 2 each query
+chunk is checkpointed (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` around its scan body, ``:211-214``). Without hints, and
+on one card, where ``model_size`` is 1, the mode is "baseline". The flash
+dispatch comes first, as in the reference, so a contiguous causal forward
+takes the kernel under every mode.
 """
 from __future__ import annotations
 
@@ -20,9 +31,13 @@ from typing import Optional
 
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.models import backend as BK
+from repro_torch.models import shardctx
 from repro_torch.models.common import causal_mask_bias
+from repro_torch.models.shardctx import constrain, get_hint
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -43,6 +58,32 @@ def _softmax_chunk(scores: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     e = torch.exp(s - m)
     denom = e.sum(dim=-1, keepdim=True)
     return e / denom.clamp_min(1e-30)
+
+
+def _dims(x: torch.Tensor, *axes) -> torch.Tensor:
+    """Constrain with an explicit per-dim axis assignment (the policy drops
+    an axis that does not divide its dim)."""
+    return constrain(x, "dims:" + ",".join(a or "-" for a in axes))
+
+
+def _pick_mode(H: int, KV: int) -> str:
+    if get_hint("opt_level", 0) < 1:
+        return "baseline"
+    m = get_hint("model_size", 0) or 0
+    if m <= 1:
+        return "baseline"
+    if KV % m == 0:
+        return "grouped"
+    if H % m == 0:
+        return "repeat"
+    return "kshard"
+
+
+def _chunk_under(state, fn, q_c, pos_c):
+    """``fn(q_c, pos_c)`` under a ``shardctx`` state: a checkpointed
+    chunk's recompute may run in autograd's own thread."""
+    with shardctx.installed(state):
+        return fn(q_c, pos_c)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -79,6 +120,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = FA.flash_attention(qf, kf, vf, causal=True, window=window)
         return out.reshape(Z, b, H, Sq, hd).permute(0, 1, 3, 2, 4)
     scale = hd ** -0.5
+    mode = _pick_mode(H, KV)
     kv_index = torch.arange(k.shape[2], dtype=torch.int32, device=q.device)
 
     def bias_for(pos_c):
@@ -92,14 +134,53 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             else:
                 bias = bias + torch.where(kv_index[None, :] < vlen,
                                           zero, zero - float("inf"))
-        # per-lane [Z, b, Sq, Sk] -> broadcast over the (KV, G) head dims
-        return bias if bias.dim() == 2 else bias[:, :, None, None]
+        return bias
 
-    q = (q * scale).reshape(Z, b, Sq, KV, G, hd)
+    def headed(bias, n_head_dims):
+        """A per-lane [Z, b, Sq, Sk] bias with broadcast head dims, to line
+        up with [Z, b, <heads...>, Sq, Sk] scores; a plain [Sq, Sk] bias
+        already broadcasts."""
+        if bias.dim() == 2:
+            return bias
+        return bias.reshape(*bias.shape[:2], *(1,) * n_head_dims,
+                            *bias.shape[2:])
 
-    def chunk_attn(q_c, pos_c):
-        p = _softmax_chunk(_gqa_scores(q_c, k), bias_for(pos_c))
-        return _gqa_combine(p, v)
+    if mode == "repeat":
+        k = _dims(k.repeat_interleave(G, dim=3), "data", "pod", None, "model")
+        v = _dims(v.repeat_interleave(G, dim=3), "data", "pod", None, "model")
+        q = _dims(q * scale, "data", "pod", None, "model")
+
+        def chunk_attn(q_c, pos_c):
+            scores = torch.einsum("zbqhd,zbshd->zbhqs", q_c.float(),
+                                  k.float())
+            scores = _dims(scores, "data", "pod", "model")
+            p = _softmax_chunk(scores, headed(bias_for(pos_c), 1))
+            out = torch.einsum("zbhqs,zbshd->zbqhd", p.to(v.dtype), v)
+            return _dims(out, "data", "pod", None, "model")
+    elif mode == "kshard":
+        k = _dims(k, "data", "pod", "model")
+        v = _dims(v, "data", "pod", "model")
+        q = _dims(q * scale, "data", "pod").reshape(Z, b, Sq, KV, G, hd)
+
+        def chunk_attn(q_c, pos_c):
+            scores = _dims(_gqa_scores(q_c, k), "data", "pod", None, None,
+                           None, "model")
+            p = _softmax_chunk(scores, headed(bias_for(pos_c), 2))
+            return _dims(_gqa_combine(p, v), "data", "pod")
+    else:
+        # baseline, and grouped: KV-sharded when it divides
+        q = (q * scale).reshape(Z, b, Sq, KV, G, hd)
+        if mode == "grouped":
+            q = _dims(q, "data", "pod", None, "model")
+            k = _dims(k, "data", "pod", None, "model")
+            v = _dims(v, "data", "pod", None, "model")
+
+        def chunk_attn(q_c, pos_c):
+            scores = _gqa_scores(q_c, k)
+            if mode == "grouped":
+                scores = _dims(scores, "data", "pod", "model")
+            p = _softmax_chunk(scores, headed(bias_for(pos_c), 2))
+            return _gqa_combine(p, v)
 
     if Sq <= q_chunk:
         out = chunk_attn(q, q_pos)
@@ -107,7 +188,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if q_pos.dim() != 1 or Sq % q_chunk:
             raise ValueError("chunked attention needs shared positions and "
                              f"Sq % q_chunk == 0 (Sq={Sq}, q_chunk={q_chunk})")
-        out = torch.cat([chunk_attn(q[:, :, i:i + q_chunk],
-                                    q_pos[i:i + q_chunk])
-                         for i in range(0, Sq, q_chunk)], dim=2)
-    return out.reshape(Z, b, Sq, H, hd)
+        remat = get_hint("opt_level", 0) >= 2 and torch.is_grad_enabled()
+        state = shardctx.current()
+        outs = []
+        for i in range(0, Sq, q_chunk):
+            q_c, pos_c = q[:, :, i:i + q_chunk], q_pos[i:i + q_chunk]
+            if remat:
+                # per-chunk fp32 scores recomputed in the backward, not kept
+                outs.append(checkpoint(_chunk_under, state, chunk_attn, q_c,
+                                       pos_c, use_reentrant=False))
+            else:
+                outs.append(chunk_attn(q_c, pos_c))
+        out = torch.cat(outs, dim=2)
+    out = out.reshape(Z, b, Sq, H, hd)
+    if mode == "baseline":
+        out = constrain(out, "attn_qkv")
+    return out

@@ -17,6 +17,12 @@ written IN PLACE, and only for the lanes allowed to write
 instead builds a whole new cache with a ``jnp.where`` select and restores
 idle lanes afterwards, which at full width copies the whole cache every
 step. Lanes outside the mask keep their cache bitwise untouched.
+
+The sharding hints of ``models/shardctx`` sit where the reference's do
+(``blocks.py:111-122,173,217-251``): the weight names of every projection,
+the opt-level >= 2 sequence-sharded q/k/v, ``attn_qkv``, ``ffn_hidden`` and
+the residual constraints before and after each add. With no policy
+installed they return their inputs.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from repro_torch.models.mamba import (init_mamba_params, mamba_block,
 from repro_torch.models.rope import apply_rope
 from repro_torch.models.rwkv import (init_rwkv_layer, rwkv_channel_mix,
                                      rwkv_target_shapes, rwkv_time_mix)
+from repro_torch.models.shardctx import constrain, get_hint
 
 
 # ---------------------------------------------------------------------------
@@ -177,12 +184,23 @@ def attn_sublayer(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
     Z, b, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
 
-    q = proj(x, p["q_proj"], lora_at(lora, "q_proj", layer), scale)
-    k = proj(x, p["k_proj"], lora_at(lora, "k_proj", layer), scale)
-    v = proj(x, p["v_proj"], lora_at(lora, "v_proj", layer), scale)
-    q = apply_rope(q.reshape(Z, b, S, H, hd), angles)
-    k = apply_rope(k.reshape(Z, b, S, KV, hd), angles)
-    v = v.reshape(Z, b, S, KV, hd)
+    def lp(t):
+        return lora_at(lora, t, layer)
+
+    q = proj(x, p["q_proj"], lp("q_proj"), scale,
+             name="q_proj").reshape(Z, b, S, H, hd)
+    k = proj(x, p["k_proj"], lp("k_proj"), scale,
+             name="k_proj").reshape(Z, b, S, KV, hd)
+    v = proj(x, p["v_proj"], lp("v_proj"), scale,
+             name="v_proj").reshape(Z, b, S, KV, hd)
+    if S > 1 and get_hint("opt_level", 0) >= 2:
+        # q/k/v sequence-sharded through the token-local projections and
+        # rope; attention re-constrains them to its head layout
+        q = constrain(q, "dims:data,pod,model")
+        k = constrain(k, "dims:data,pod,model")
+        v = constrain(v, "dims:data,pod,model")
+    q = constrain(apply_rope(q, angles), "attn_qkv")
+    k = apply_rope(k, angles)
 
     if cache is not None and write_index is not None:
         ck, cv = cache["k"], cache["v"]
@@ -217,7 +235,7 @@ def attn_sublayer(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
     out = attention(q, k_all, v_all, q_pos, kp, window=window,
                     q_chunk=cfg_q_chunk(cfg, S), kv_valid_len=kv_valid_len)
     out = out.reshape(Z, b, S, H * hd)
-    return proj(out, p["o_proj"], lora_at(lora, "o_proj", layer), scale)
+    return proj(out, p["o_proj"], lp("o_proj"), scale, name="o_proj")
 
 
 def mlp_sublayer(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
@@ -225,9 +243,11 @@ def mlp_sublayer(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
     def lp(t):
         return lora_at(lora, t, layer)
 
-    h = swiglu(proj(x, p["gate_proj"], lp("gate_proj"), scale),
-               proj(x, p["up_proj"], lp("up_proj"), scale))
-    return proj(h, p["down_proj"], lp("down_proj"), scale)
+    h = swiglu(proj(x, p["gate_proj"], lp("gate_proj"), scale,
+                    name="gate_proj"),
+               proj(x, p["up_proj"], lp("up_proj"), scale, name="up_proj"))
+    h = constrain(h, "ffn_hidden")
+    return proj(h, p["down_proj"], lp("down_proj"), scale, name="down_proj")
 
 
 def transformer_block(cfg: ModelConfig, x: torch.Tensor, p: Dict,
@@ -263,12 +283,16 @@ def transformer_block(cfg: ModelConfig, x: torch.Tensor, p: Dict,
             for name, new in new_mamba.items():
                 _write_state(cache[name], new, ctx.get("write_mask"))
     else:
-        x = x + attn_out
+        # the delta constrained before the add, as the reference's (its
+        # row-parallel o_proj then lowers to a reduce-scatter)
+        x = x + constrain(attn_out, "residual")
+    x = constrain(x, "residual")
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
     if cfg.is_moe:
         moe_out, aux = MOE.moe_block(h, p["moe"], cfg.moe)
-        return x + moe_out, aux
-    return x + mlp_sublayer(h, p, lora, layer, scale), None
+        return constrain(x + moe_out, "residual"), aux
+    x = x + constrain(mlp_sublayer(h, p, lora, layer, scale), "residual")
+    return constrain(x, "residual"), None
 
 
 def rwkv_block(cfg: ModelConfig, x: torch.Tensor, p: Dict, lora: Dict,
@@ -285,11 +309,11 @@ def rwkv_block(cfg: ModelConfig, x: torch.Tensor, p: Dict, lora: Dict,
     tm_out, wkv, tm_last = rwkv_time_mix(
         xn, p, lora, layer, cfg, prev_x=state.get("tm_x"),
         state=state.get("wkv"), scale=scale)
-    x = x + tm_out
+    x = constrain(x + tm_out, "residual")
     xn = rms_norm(x, p["cm_norm"], cfg.norm_eps)
     cm_out, cm_last = rwkv_channel_mix(xn, p, lora, layer, cfg,
                                        prev_x=state.get("cm_x"), scale=scale)
-    x = x + cm_out
+    x = constrain(x + cm_out, "residual")
     if cache is not None:
         mask = ctx.get("write_mask")
         for name, new in (("wkv", wkv), ("tm_x", tm_last), ("cm_x", cm_last)):

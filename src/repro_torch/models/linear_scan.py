@@ -15,10 +15,16 @@ exactly in log space (``kernels/linear_scan/ref.py`` holds the plain core).
 through the chunked linear-scan kernel under the "kernel" model backend
 (``models/backend.py``, the default) and through the plain core under
 "torch", as ``src/repro/models/linear_scan.py:58-73`` dispatches to the
-Pallas kernel. The JAX core's two tuning hints (``scan_chunk``,
-``opt_level``) keep their defaults here: the configured chunk, and the
-plain core's per-chunk checkpoint while gradients are recorded, which
-gives the numbers of ``opt_level >= 2``.
+Pallas kernel.
+
+The two tuning hints of ``models/shardctx`` (reference ``:51-52``):
+``scan_chunk`` overrides the chunk (the launcher's opt-level 2 train policy
+sets 32; the kernel takes any chunk that divides S and fits its shared
+memory, and raises otherwise, never taking the plain core); and
+``opt_level >= 2`` asks for the per-chunk checkpoint, which the port's
+plain core, the scan's backward, keeps at every opt level while gradients
+are recorded (the same numbers; holding every chunk's ``[B, C, C, K]``
+pair tensors is what the hint exists to avoid).
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import torch
 from repro_torch.kernels.linear_scan import ops as LSK
 from repro_torch.kernels.linear_scan import ref
 from repro_torch.models import backend as BK
+from repro_torch.models.shardctx import get_hint
 
 
 def chunked_linear_attention(
@@ -44,7 +51,7 @@ def chunked_linear_attention(
     Returns (y [Z,b,S,H,V] in q's dtype, final_state [Z,b,H,K,V] fp32)."""
     Z, b, S, H, K = q.shape
     V = v.shape[-1]
-    C = min(chunk, S)
+    C = min(int(get_hint("scan_chunk", 0) or chunk), S)
     while S % C:
         C -= 1
     Bf = Z * b * H

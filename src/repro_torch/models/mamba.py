@@ -86,7 +86,8 @@ def mamba_block(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
     inner, H, hs = mamba_dims(cfg)
     N, Wd = cfg.ssm.state_size, cfg.ssm.conv_width
 
-    xz = proj(x, p["in_proj"], lora_at(lora, "in_proj", layer), scale)
+    xz = proj(x, p["in_proj"], lora_at(lora, "in_proj", layer), scale,
+              name="in_proj")
     xt, z = xz.chunk(2, dim=-1)
 
     conv_buf = state["conv"] if state is not None else None
@@ -97,7 +98,7 @@ def mamba_block(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
         stream = torch.cat([conv_buf.to(xt.dtype), xt], dim=2)
     new_conv = stream[:, :, -(Wd - 1):].float()
 
-    bc = proj(xc, p["bc_proj"])                           # [Z,b,S,2N] frozen
+    bc = proj(xc, p["bc_proj"], name="bc_proj")   # [Z,b,S,2N] frozen
     Bm, Cm = bc.float().chunk(2, dim=-1)
     dt = softplus(xc.float() @ p["dt_proj"] + p["dt_bias"])     # [Z,b,S,H]
     logw = -dt * torch.exp(p["A_log"])                          # < 0
@@ -120,7 +121,7 @@ def mamba_block(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
 
     y = y + xc.reshape(Z, b, S, H, hs) * p["D"][:, None].to(xc.dtype)
     y = y.reshape(Z, b, S, inner) * silu(z)
-    out = proj(y, p["out_proj"])                          # frozen out proj
+    out = proj(y, p["out_proj"], name="out_proj")    # frozen out proj
     return out, {"conv": new_conv, "ssm": new_ssm}
 
 

@@ -10,6 +10,10 @@ and ``prefill_lanes`` write the K/V rows (dense), the recurrent state (RWKV,
 (with ``pos`` / ``k_pos`` replaced). Lanes a call does not own — idle lanes
 under ``active``, lanes outside ``lane_mask`` — stay bitwise untouched, the
 contract the JAX package keeps with whole-cache selects.
+
+The sharding hints (``models/shardctx``) sit where the reference's do
+(``model.py:67-80,189-200``): the embedded residual stream, the
+``lm_head`` weight and the logits.
 """
 from __future__ import annotations
 
@@ -24,8 +28,10 @@ from repro_torch.models import backend as BK
 from repro_torch.models import blocks as B
 from repro_torch.models.common import (dtype_of, he_init, normal_init,
                                        resolve_device, rms_norm)
+from repro_torch.models import shardctx
 from repro_torch.models.mamba import init_mamba_state
 from repro_torch.models.rope import rope_angles, text_positions
+from repro_torch.models.shardctx import constrain
 
 RING_INIT_POS = -(1 << 30)    # ring-cache slots start far in the past
 
@@ -82,7 +88,7 @@ def _embed(params: Dict, tokens: torch.Tensor,
     if modal_embeds is not None:
         P = modal_embeds.shape[2]
         x = torch.cat([modal_embeds.to(x.dtype), x[:, :, P:]], dim=2)
-    return x
+    return constrain(x, "residual")
 
 
 def _angles(cfg: ModelConfig,
@@ -94,18 +100,20 @@ def _angles(cfg: ModelConfig,
 
 def _unembed(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     W = params["lm_head"] if not cfg.tie_embeddings else params["embed"].T
-    return x @ W
+    W = constrain(W, "weight:lm_head")
+    return constrain(x @ W, "logits")
 
 
-def _remat_block(binding, model_backend: str, cfg: ModelConfig,
+def _remat_block(binding, model_backend: str, sharding, cfg: ModelConfig,
                  x: torch.Tensor, p: Dict, lora: Dict, layer: int,
                  ctx: Dict[str, Any]
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One layer under the LoRA binding and model backend of the forward
-    that checkpointed it: the recompute runs in the backward pass, possibly
-    in autograd's own thread, where the thread-local choices are not
-    set."""
-    with LORA.bound(binding), BK.backend(model_backend):
+    """One layer under the LoRA binding, model backend and sharding hints
+    of the forward that checkpointed it: the recompute runs in the backward
+    pass, possibly in autograd's own thread, where the thread-local choices
+    are not set."""
+    with (LORA.bound(binding), BK.backend(model_backend),
+          shardctx.installed(sharding)):
         return B.apply_block(cfg, x, p, lora, layer, ctx)
 
 
@@ -128,14 +136,16 @@ def _run_layers(cfg: ModelConfig, x: torch.Tensor, params: Dict, lora: Dict,
     without experts)."""
     stacked = params["layers"]
     binding, model_backend = LORA.current_binding(), BK.get_backend()
+    sharding = shardctx.current()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l in range(cfg.num_layers):
         p = _layer_slice(stacked, l)
         if layers is not None:
             ctx["cache"] = B.layer_cache(cfg, layers, l)
         if remat:
-            x, a = checkpoint(_remat_block, binding, model_backend, cfg, x,
-                              p, lora, l, ctx, use_reentrant=False)
+            x, a = checkpoint(_remat_block, binding, model_backend,
+                              sharding, cfg, x, p, lora, l, ctx,
+                              use_reentrant=False)
         else:
             x, a = B.apply_block(cfg, x, p, lora, l, ctx)
         if a is not None:
@@ -150,7 +160,7 @@ def _run_layers(cfg: ModelConfig, x: torch.Tensor, params: Dict, lora: Dict,
 def forward(cfg: ModelConfig, params: Dict, lora: Dict, tokens: torch.Tensor,
             *, positions: Optional[torch.Tensor] = None,
             modal_embeds: Optional[torch.Tensor] = None,
-            cache: Optional[Dict] = None
+            cache: Optional[Dict] = None, remat: bool = True
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
     """Full-sequence causal forward.
 
@@ -165,7 +175,7 @@ def forward(cfg: ModelConfig, params: Dict, lora: Dict, tokens: torch.Tensor,
     place and the cache's position is set to S. While gradients
     are recorded and no cache is written (a training forward), every layer
     is checkpointed (``torch.utils.checkpoint``), as the JAX package's
-    train step rematerializes its forward."""
+    train step rematerializes its forward, unless ``remat`` is False."""
     Z, b, S = tokens.shape
     dev = tokens.device
     x = _embed(params, tokens, modal_embeds)
@@ -178,7 +188,7 @@ def forward(cfg: ModelConfig, params: Dict, lora: Dict, tokens: torch.Tensor,
     }
     if cache is not None:
         ctx["write_index"] = 0
-    remat = cache is None and torch.is_grad_enabled()
+    remat = remat and cache is None and torch.is_grad_enabled()
     x, aux = _run_layers(cfg, x, params, lora, ctx,
                          cache["layers"] if cache is not None else None,
                          remat)
@@ -210,6 +220,7 @@ def per_slot_xent(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
     Z, b, S, d = hidden.shape
     W = (params["lm_head"] if not cfg.tie_embeddings
          else params["embed"].T)
+    W = constrain(W, "weight:lm_head")
     c = min(chunk, S)
     while S % c:
         c -= 1
@@ -217,7 +228,7 @@ def per_slot_xent(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
     cnt = torch.zeros((Z,), dtype=torch.float32, device=hidden.device)
     for i in range(0, S, c):
         lab = labels[:, :, i:i + c]
-        logits = (hidden[:, :, i:i + c] @ W).float()
+        logits = constrain((hidden[:, :, i:i + c] @ W).float(), "logits")
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1,
                             lab.clamp_min(0).long()[..., None])[..., 0]

@@ -26,6 +26,13 @@ so this layer has no kernel of its own).
 ``moe_block`` reads ``route`` and its other parts at call time, so a check
 can wrap one (to read the routing or time it) or replace it (to plant a
 fault).
+
+The sharding hints of ``models/shardctx`` sit where the reference's do
+(``moe.py:76-138``): the token groups and the output over data+pod at
+opt_level >= 1, the expert weights by name, and the expert-major buffers
+as ``moe_expert`` ([E, G, cap, d] views). The reference's opt-level
+constraints on its ``[G, s, E, cap]`` dispatch and combine one-hots have no
+tensor to attach to here: the index route never forms them.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ import torch
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.common import he_init, swiglu
+from repro_torch.models.shardctx import constrain, get_hint
 
 
 def pick_group_size(num_tokens: int, lo: int = 128, hi: int = 4096) -> int:
@@ -188,11 +196,25 @@ def moe_block(x: torch.Tensor, params: Dict, moe: MoEConfig
     G = T // s
     cap = capacity(moe, s)
     E = moe.num_experts
+    opt = get_hint("opt_level", 0) >= 1
     xt = x.reshape(G, s, d)
+    if opt:
+        xt = constrain(xt, "dims:data+pod")
     gates, expert_idx, pos, keep, aux = route(xt, params["router"], moe, cap)
     slot = slots(expert_idx, pos, keep, E, cap)
-    out = combine(experts(dispatch(xt, slot, E, cap), params), slot, gates,
-                  x.dtype)
+    weights = {n: constrain(params[n], f"weight:{n}")
+               for n in ("w_gate", "w_up", "w_down")}
+    expert_in = constrain(dispatch(xt, slot, E, cap).reshape(E, G, cap, d),
+                          "moe_expert")
+    expert_out = constrain(
+        experts(expert_in.reshape(E, G * cap, d), weights).reshape(
+            E, G, cap, d), "moe_expert")
+    out = combine(expert_out.reshape(-1, d), slot, gates, x.dtype)
+    if opt:
+        out = constrain(out, "dims:data+pod")
     if "shared" in params:
-        out = out + shared_expert(xt, params["shared"])
+        sh = params["shared"]
+        out = out + shared_expert(xt, {
+            n: constrain(sh[n], f"weight:shared/{n}")
+            for n in ("gate", "up", "down")})
     return out.reshape(Z, b, S, d), aux

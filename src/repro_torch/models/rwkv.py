@@ -99,10 +99,10 @@ def rwkv_time_mix(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
     def lp(t):
         return lora_at(lora, t, layer)
 
-    r = heads(proj(xr, p["r_proj"], lp("r_proj"), scale))
-    k = heads(proj(xk, p["k_proj"], lp("k_proj"), scale))
-    v = heads(proj(xv, p["v_proj"], lp("v_proj"), scale))
-    g = proj(xg, p["g_proj"], lp("g_proj"), scale)
+    r = heads(proj(xr, p["r_proj"], lp("r_proj"), scale, name="r_proj"))
+    k = heads(proj(xk, p["k_proj"], lp("k_proj"), scale, name="k_proj"))
+    v = heads(proj(xv, p["v_proj"], lp("v_proj"), scale, name="v_proj"))
+    g = proj(xg, p["g_proj"], lp("g_proj"), scale, name="g_proj")
 
     # data-dependent decay (fp32): logw = -exp(w0 + tanh(xw w1) w2) < 0
     dd = torch.tanh(xw.float() @ p["w1"]) @ p["w2"]
@@ -124,7 +124,8 @@ def rwkv_time_mix(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
     var = yf.var(dim=-1, keepdim=True, unbiased=False)
     yn = (yf - mean) * torch.rsqrt(var + 1e-5)
     yn = (yn.reshape(Z, b, S, d) * p["ln_x"]).to(x.dtype)
-    out = proj(yn * silu(g), p["o_proj"], lp("o_proj"), scale)
+    out = proj(yn * silu(g), p["o_proj"], lp("o_proj"), scale,
+               name="o_proj")
     return out, new_state, x[:, :, -1]
 
 
@@ -134,7 +135,8 @@ def rwkv_channel_mix(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
                      scale=2.0) -> Tuple[torch.Tensor, torch.Tensor]:
     xx = _token_shift(x, prev_x)
     xk = x + (xx - x) * p["mu_ffn"].to(x.dtype)
-    k = proj(xk, p["ffn_k"], lora_at(lora, "ffn_k", layer), scale)
+    k = proj(xk, p["ffn_k"], lora_at(lora, "ffn_k", layer), scale,
+             name="ffn_k")
     k = torch.square(torch.relu(k))
-    return (proj(k, p["ffn_v"], lora_at(lora, "ffn_v", layer), scale),
-            x[:, :, -1])
+    return (proj(k, p["ffn_v"], lora_at(lora, "ffn_v", layer), scale,
+                 name="ffn_v"), x[:, :, -1])

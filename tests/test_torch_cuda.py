@@ -16,7 +16,11 @@ the bar, its autograd Function's gradients, and the rwkv model's scans
 launching it; and, at hymba-1.5b's shapes, the bf16 LoRA contractions of
 its five projections, flash attention with the window of 1,024 at S 2,048
 and the scan in SSD mode at S 2,048, each with a planted fault outside
-the bar, and the hybrid model's forwards launching both sequence kernels.
+the bar, and the hybrid model's forwards launching both sequence kernels;
+and the grouped-LoRA tile plans (``autotune.PLAN_SET``): the library's
+compiled set equals it, every plan gives the default plan's bits in the
+three Functions' forward and backward and dense == ragged == rank-local
+under it, and the fp32 kernels refuse a plan.
 
 Imports neither JAX nor the JAX package, so it runs on a machine with a
 card and no JAX: ``PYTHONPATH=src python -m pytest -q --noconftest
@@ -28,6 +32,7 @@ import pytest
 import torch
 
 from repro_torch.core import lora as LORA
+from repro_torch.kernels.grouped_lora import autotune as AT
 from repro_torch.kernels.grouped_lora import grouped_lora as GL
 from repro_torch.kernels.grouped_lora import ops
 from repro_torch.kernels.grouped_lora import ragged as RG
@@ -1046,3 +1051,79 @@ def test_cuda_hybrid_model_forwards_launch_flash_and_the_scan():
     torch.cuda.synchronize()
     assert counts() == {"flash_attention": L, "linear_scan": L}
     torch.testing.assert_close(h1, h2, rtol=1e-4, atol=1e-4)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+
+
+@pytest.mark.cuda
+def test_cuda_compiled_plan_set_is_autotunes():
+    _need_card()
+    import ctypes
+    lib = RL._load()
+    out = (ctypes.c_int * 3)()
+    got = []
+    for i in range(lib.gl_plan_count()):
+        assert lib.gl_plan_tiles(i, out) == 0
+        got.append(tuple(out))
+    assert got == [(p.bm, p.bn, p.br) for p in AT.PLAN_SET]
+    assert lib.gl_plan_tiles(len(got), out) != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [4, 300])
+def test_cuda_tile_plans_are_bitwise_in_the_three_functions(T):
+    """Every compiled plan: forward and backward of the dense, ragged and
+    rank-local Functions in bf16 equal the default plan's bit for bit, and
+    at full rank with every row live the three equal each other."""
+    _need_card()
+    Z, din, dout, r = 4, 640, 896, 64
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(Z, T, din, generator=g, device="cuda").bfloat16()
+    A = torch.randn(Z, din, r, generator=g, device="cuda") / din ** 0.5
+    B = torch.randn(Z, r, dout, generator=g, device="cuda") / 8
+    dy = torch.randn(Z, T, dout, generator=g, device="cuda").bfloat16()
+    scale = torch.tensor([0.5, 1.0, 1.5, 2.0], device="cuda")
+    full = torch.full((Z,), r, dtype=torch.int32, device="cuda")
+    rows = torch.full((Z,), T, dtype=torch.int32, device="cuda")
+    mixed = torch.tensor([8, 16, 33, 64], dtype=torch.int32, device="cuda")
+    tail = torch.tensor([T, T // 2, T, 1], dtype=torch.int32, device="cuda")
+
+    def run(fn, plan):
+        xs, As, Bs = (t.clone().requires_grad_(True) for t in (x, A, B))
+        y = fn(xs, As, Bs, plan)
+        y.backward(dy)
+        return [y.detach(), xs.grad, As.grad, Bs.grad]
+
+    fns = {"dense": lambda a, b, c, p: ops.grouped_lora(a, b, c, scale,
+                                                        plan=p),
+           "ragged": lambda a, b, c, p: ops.ragged_grouped_lora(
+               a, b, c, scale, rows, plan=p),
+           "rank-local": lambda a, b, c, p: ops.ranklocal_grouped_lora(
+               a, b, c, scale, full, rows, plan=p),
+           "rank-local mixed": lambda a, b, c, p: ops.ranklocal_grouped_lora(
+               a, b, c, scale, mixed, tail, plan=p)}
+    base = {fam: run(fn, None) for fam, fn in fns.items()}
+    for plan in AT.PLAN_SET:
+        outs = {fam: run(fn, plan) for fam, fn in fns.items()}
+        for fam in fns:
+            assert all(torch.equal(a, b) for a, b in zip(outs[fam],
+                                                         base[fam])), (
+                fam, plan)
+        assert all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in
+                   zip(outs["dense"], outs["ragged"], outs["rank-local"]))
+
+
+@pytest.mark.cuda
+def test_cuda_fp32_kernels_refuse_a_plan():
+    _need_card()
+    x = torch.zeros((2, 8, 64), device="cuda")
+    A = torch.zeros((2, 64, 16), device="cuda")
+    with pytest.raises(ValueError):
+        GL.xa(x, A, plan=AT.PLAN_SET[0])
+    with pytest.raises(ValueError):
+        RL.xa(x, A, None, torch.full((2,), 16, dtype=torch.int32,
+                                     device="cuda"), plan=AT.PLAN_SET[0])
+    assert torch.equal(GL.xa(x, A), GL.xa(x, A, plan=None))

@@ -6,7 +6,8 @@ scheduler (``sched/``, the journal and chaos harness among it), the engine
 (``core/engine.py``), the tuning service (``core/service.py``) and the
 serving lease (``serve/driver.py``) included.
 (f) Entry points run on the card by default: called without ``device`` on
-a machine without one they raise instead of running on the CPU.
+a machine without one they raise instead of running on the CPU (the
+training CLI, its process group and the tile autotuner among them).
 """
 import ast
 import pathlib
@@ -20,7 +21,10 @@ from repro_torch.core.engine import Engine
 from repro_torch.core.executor import BatchedExecutor, SharedBackboneExecutor
 from repro_torch.core.service import TuningService
 from repro_torch.data.synthetic import make_task_dataset
+from repro_torch.kernels.grouped_lora import autotune as AT
+from repro_torch.launch import mesh as MESH
 from repro_torch.launch import serve as cli
+from repro_torch.launch import train as train_cli
 from repro_torch.models import model as M
 from repro_torch.serve import AdapterPool, ServingReplica
 
@@ -57,6 +61,11 @@ def test_scan_tells_repro_torch_from_repro(tmp_path):
         "jax", "repro"]
 
 
+def _one_rank_group():
+    with MESH.process_group():
+        pass
+
+
 def _tiny():
     return get_arch("paper-llama-tiny").reduced(num_layers=1, d_model=64,
                                                 vocab=64)
@@ -70,6 +79,11 @@ ENTRY_POINTS = {
         _tiny(), M.init_params(_tiny(), device="cpu"),
         AdapterPool(_tiny(), 1, device="cpu")),
     "cli": lambda: cli.main(["--arch", "paper-llama-tiny", "--reduced"]),
+    "train_cli": lambda: train_cli.main(["--arch", "paper-llama-tiny",
+                                         "--reduced", "--steps", "1"]),
+    "process_group": _one_rank_group,
+    "autotune_tile_plan": lambda: AT.autotune_tile_plan(72, 40, 24, Z=3,
+                                                        tokens=5),
     "SlotManager": lambda: SlotManager(_tiny(), 1,
                                        M.target_shapes(_tiny())),
     "SharedBackboneExecutor": lambda: SharedBackboneExecutor(

@@ -560,6 +560,38 @@ def test_forward_checkpoints_every_layer_of_training_forwards_only(
     assert len(calls) == (cfg.num_layers if mode == "train" else 0)
 
 
-def test_train_step_without_remat_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        TSTEPS.make_train_step(_tiny_cfg(), remat=False)
+def test_train_step_without_remat_is_not_ported(monkeypatch):
+    """``remat=False``: the train step's forward runs with no per-layer
+    checkpoint, and its losses, gradient norms and updated adapters equal
+    the rematerialized step's bit for bit."""
+    cfg = _tiny_cfg()
+    params = TM.init_params(cfg, seed=0, device="cpu")
+    ranks = torch.tensor([2, 4], dtype=torch.int32)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 2, 8)).astype(np.int32))
+    batch = {"tokens": tokens, "labels": tokens, "slot_ranks": ranks}
+    active = torch.ones(2, dtype=torch.int32)
+    calls = []
+    real = TM.checkpoint
+
+    def counting(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+    monkeypatch.setattr(TM, "checkpoint", counting)
+    out = {}
+    for remat in (True, False):
+        gen = torch.Generator().manual_seed(0)
+        lt = TLORA.init_lora_tree(gen, cfg, 2, ranks, TM.target_shapes(cfg))
+        opt = TAD.init_state(lt, 2)
+        hp = TAD.SlotHParams.broadcast(2, lr=1e-2)
+        calls.clear()
+        lt, opt, m = TSTEPS.make_train_step(cfg, remat=remat)(
+            params, lt, opt, hp, active, ranks, batch)
+        assert len(calls) == (cfg.num_layers if remat else 0)
+        out[remat] = (lt, m)
+    (lt1, m1), (lt0, m0) = out[True], out[False]
+    assert torch.equal(m1["per_slot_loss"], m0["per_slot_loss"])
+    assert torch.equal(m1["grad_norm"], m0["grad_norm"])
+    for t in lt1:
+        for k in lt1[t]:
+            assert torch.equal(lt1[t][k], lt0[t][k]), (t, k)
