@@ -505,7 +505,9 @@ and DENSE_LAYERS layers; random weights from a seed:
             at train_4k's b = 4 and S = 4,096 with LAUNCH_Z slots and all 32
             layers, 3 steps through ``steps_dist.make_train_step`` (finite
             per-slot losses, the peak GiB, LoRA 448/448/224/221/224/224 on
-            the dense set and flash 64 in every step); at
+            the dense set and flash 64 in every step) and the step's MFU
+            (the roofline's ``model_flops`` at rank 8 over the median step
+            at the bf16 peak); at
             LAUNCH_CHECK_LAYERS = 4 layers ``remat=False`` == ``remat=True``
             and opt levels 0 / 1 / 2 bit for bit, and the scan kernel at the
             opt-level-2 policy's ``scan_chunk`` 32 against its plain
@@ -688,6 +690,7 @@ FAMILY_LOSS_REL = 2e-6
 # slots of train_4k's 64 (what the card holds, see PERF.md), all 32
 # layers; its bitwise checks at LAUNCH_CHECK_LAYERS layers
 LAUNCH_Z = 1
+LAUNCH_RANK = 8             # the launcher's default adapter rank
 LAUNCH_CHECK_LAYERS = 4
 # device busy ms per profiled train step of each executor phase, by task
 STEP_BUSY_MS = {}
@@ -5490,6 +5493,20 @@ def _counts(fams, FA):
     return got
 
 
+def launch_mfu(cfg, Z: int, b: int, S: int, rank: int, step_s):
+    """(MFU, model FLOPs, median step s) of the launcher's step: the
+    roofline's ``model_flops`` (frozen base 4ND plus the adapters' 6ND at
+    ``rank``) of Z slots of b sequences of S tokens, over the median of
+    ``step_s`` at the card's dense bf16 peak."""
+    from repro_torch.configs.shapes import TRAIN_4K
+    from repro_torch.roofline.analysis import model_flops
+    shape = dataclasses.replace(TRAIN_4K, seq_len=S, global_batch=Z * b,
+                                num_slots=Z, per_adapter_batch=b)
+    flops = model_flops(cfg, shape, lora_rank=rank)
+    med = statistics.median(step_s)
+    return flops / (med * H100_BF16_FLOPS), flops, med
+
+
 def launch_phase(torch, fams):
     """The training launcher (``launch/train.py``) over a world-size-1 NCCL
     process group (127.0.0.1, a free port; destroyed at the end, even on
@@ -5534,8 +5551,9 @@ def launch_phase(torch, fams):
 
         _counts(fams, FA)
         t0 = time.perf_counter()
-        res = TRAIN.run(cfg, LAUNCH_Z, b, S, mesh, 3, device="cuda",
-                        step_hook=hook, log=lambda m: print(f"launch: {m}"))
+        res = TRAIN.run(cfg, LAUNCH_Z, b, S, mesh, 3, rank=LAUNCH_RANK,
+                        device="cuda", step_hook=hook,
+                        log=lambda m: print(f"launch: {m}"))
         losses = torch.tensor(res["losses"])
         require(bool(torch.isfinite(losses).all()),
                 f"launch: non-finite per-slot losses {res['losses']}")
@@ -5555,6 +5573,11 @@ def launch_phase(torch, fams):
               f"LoRA (dense) {list(want.values())}, flash {want_flash}; "
               f"{res['policy_decisions']} constraint decisions resolved, "
               f"{time.perf_counter() - t0:.1f} s")
+        mfu, flops, med = launch_mfu(cfg, LAUNCH_Z, b, S, LAUNCH_RANK,
+                                     res["step_s"])
+        print(f"launch: step MFU {mfu:.4f} = model_flops {flops:.4e} "
+              f"(Z {LAUNCH_Z}, b {b}, S {S}, rank {LAUNCH_RANK}) / (median "
+              f"step {med:.3f} s x {H100_BF16_FLOPS:.4g} FLOP/s)")
         gc.collect()
         torch.cuda.empty_cache()
 

@@ -12,7 +12,9 @@ Axis semantics (the reference's DESIGN.md §5):
 
 A real mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over an
 initialized process group (``process_group`` makes a one-rank one: NCCL on
-the card, gloo only when the caller asks for the CPU). ``abstract_mesh``
+the card, gloo only when the caller asks for the CPU; ``fake_group`` makes
+a many-rank one that moves nothing, for the shapes-only dry run).
+``abstract_mesh``
 is a plain object with the same ``shape`` / ``axis_names`` view and no
 devices, for the spec tests and the production meshes' spec trees.
 """
@@ -120,15 +122,42 @@ def make_local_mesh(shape: Tuple[int, ...] = (1, 1),
                       mesh_dim_names=tuple(axes))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda") -> DeviceMesh:
     """The 16 x 16 (or 2 x 16 x 16) production mesh over a process group
     of exactly that many ranks (the reference asserts the device count,
-    ``mesh.py:39-46``)."""
+    ``mesh.py:39-46``), on the card unless ``device_type`` says otherwise
+    (the dry run's "cpu" mesh over ``fake_group``)."""
     cfg = MULTI_POD if multi_pod else SINGLE_POD
     n = cfg.num_devices
     have = dist.get_world_size() if dist.is_initialized() else 0
     if have != n:
         raise RuntimeError(f"the production mesh needs {n} ranks, the "
                            f"process group has {have}")
-    return DeviceMesh("cuda", torch.arange(n).reshape(cfg.shape),
+    return DeviceMesh(device_type, torch.arange(n).reshape(cfg.shape),
                       mesh_dim_names=cfg.axes)
+
+
+@contextlib.contextmanager
+def fake_group(world_size: int):
+    """A ``world_size``-rank process group on torch's ``fake`` backend, in
+    this one process, for the duration of the context: its collectives
+    return tensors of the right shapes and move no data, so a mesh over it
+    serves a shapes-only trace (``launch/dryrun.py``). Destroyed at its end,
+    even on failure."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized")
+    # registers the "fake" backend; torch keeps it under a private path
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def is_fake(mesh) -> bool:
+    """Whether ``mesh`` is a ``DeviceMesh`` over a ``fake_group``."""
+    return (isinstance(mesh, DeviceMesh)
+            and dist.get_backend(mesh.get_group(0)) == "fake")

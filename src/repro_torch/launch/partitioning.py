@@ -25,7 +25,10 @@ without a copy, ``local`` takes it back). The activation policy resolves
 and records each constraint's spec and returns the tensor unchanged. A
 real mesh of more than one rank raises ``NotImplementedError``: sharded
 execution needs more than one card (``ROADMAP.md`` §1, "sharded
-execution").
+execution"). The activation policy lets a mesh over a ``fake`` group
+(``mesh.fake_group``) through: it moves no data, and the dry run
+(``launch/dryrun.py``) resolves the policy's decisions on the production
+mesh through it. ``distribute`` refuses every mesh of more than one rank.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.launch.mesh import axis_names, axis_sizes
+from repro_torch.launch.mesh import axis_names, axis_sizes, is_fake
 
 SHARDED_EXECUTION = ("sharded execution over a mesh of more than one rank "
                      "is not ported (ROADMAP.md §1, sharded execution): "
@@ -88,7 +91,10 @@ def has_pod(mesh) -> bool:
 
 
 def _real_multi_rank(mesh) -> bool:
-    return isinstance(mesh, DeviceMesh) and mesh.size() > 1
+    """A ``DeviceMesh`` of more than one rank whose group moves data (a
+    ``fake`` group's does not)."""
+    return (isinstance(mesh, DeviceMesh) and mesh.size() > 1
+            and not is_fake(mesh))
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,8 @@ the JAX package (the counterpart of ``tests/test_sharding.py``,
     batch and cache — equal the reference's, as tuples, for every assigned
     arch and paper-llama-tiny on the single- and multi-pod abstract meshes.
     The port's trees are built under ``FakeTensorMode`` (shapes only; no
-    full-size weight is allocated), the reference's by ``jax.eval_shape``.
+    full-size weight is allocated; the state by the dry run's
+    ``abstract_state``), the reference's by ``jax.eval_shape``.
 (b) ``pick_spec``'s divisibility fallback, the activation policy's
     decisions (kind, shape) -> spec and its hints, ``shapes.py`` and
     ``ShapeConfig.decompose`` equal the reference's; the reference's
@@ -55,11 +56,11 @@ from repro_torch import bridge
 from repro_torch.configs import base as TBASE
 from repro_torch.configs import shapes as TSHAPES
 from repro_torch.configs.registry import get_arch as tget_arch
-from repro_torch.core import lora as TLORA
 from repro_torch.core import losses as TLS
 from repro_torch.core import steps as TSTEPS
 from repro_torch.kernels.flash_attention import ops as TFA
 from repro_torch.kernels.linear_scan import ref as TSCANREF
+from repro_torch.launch import dryrun as TDR
 from repro_torch.launch import mesh as TMESH
 from repro_torch.launch import partitioning as TPT
 from repro_torch.launch import steps_dist as TSD
@@ -129,11 +130,7 @@ def _jax_trees(cfg, Z, b, S, Zc, bc, Sc):
 
 def _port_trees(cfg, Z, b, S, Zc, bc, Sc):
     with FakeTensorMode():
-        params = TM.init_params(cfg, device="cpu")
-        ranks = torch.full((Z,), min(16, cfg.lora.r_max), dtype=torch.int32)
-        lora = TLORA.init_lora_tree(torch.Generator().manual_seed(0), cfg, Z,
-                                    ranks, TM.target_shapes(cfg))
-        opt = TAD.init_state(lora, Z)
+        params, lora, opt = TDR.abstract_state(cfg, Z)
         hp = TAD.SlotHParams.broadcast(Z)
         batch = {"tokens": torch.zeros((Z, b, S), dtype=torch.int32),
                  "labels": torch.zeros((Z, b, S), dtype=torch.int32)}
