@@ -9,9 +9,11 @@ serving and rank-sweep LoRA training of rwkv6-3b, of hymba-1.5b, of the
 MoE granite-moe-1b-a400m, of the vision-language qwen2-vl-72b (depth cut,
 with image-prefixed train and serve checks) and of musicgen-medium, and
 train checks of llama4-scout-17b-a16e, glm4-9b, granite-8b and
-mistral-nemo-12b at full width, the grouped-LoRA tile autotuner, and the
-training launcher on a one-rank mesh at train_4k's sequence length, on one
-NVIDIA card, through the port's hand-written CUDA kernels.
+mistral-nemo-12b at full width, the grouped-LoRA tile autotuner, the
+training launcher on a one-rank mesh at train_4k's sequence length, and
+its sharded step on a 2 x 2 (data, model) mesh of four processes sharing
+the card, on one NVIDIA card, through the port's hand-written CUDA
+kernels.
 
     python3 chip_smoke.py
 
@@ -374,7 +376,8 @@ the window binds in every forward:
             ssm state bitwise untouched (phase 17 holds the same for
             rwkv6-3b's state).
 22. hymba train — phase 5 on hymba-1.5b at S = 2,048, b = 2, in fp32 at
-            full width and depth (the kernels' fp32 instantiations): every
+            full width and HYMBA_CHECK_LAYERS = 16 of 32 layers (the
+            kernels' fp32 instantiations): every
             bar and every planted fault of phase 5 (the loss bar an fp32
             one, HYMBA_LOSS_REL), with two more forward faults that must
             break the loss bar: the plain scan's decay applied before the
@@ -513,6 +516,30 @@ and DENSE_LAYERS layers; random weights from a seed:
             opt-level-2 policy's ``scan_chunk`` 32 against its plain
             version; then the CLI, ``main(["--reduced", "--steps",
             "2"])``.
+35. ap train — Adapter Parallelism on a real multi-rank mesh: the six
+            rank-local kernels at the 2 x 2 split's shapes (column-parallel
+            2560 -> 1280 and 2560 -> 3456, row-parallel 1280 -> 2560, timed,
+            and 3456 -> 2560, T = AP_B * AP_S rows a slot) and flash on each
+            rank's 16 heads (hd 80) against their plain versions; then
+            AP_PROCS processes of ``python -m repro_torch.launch.train
+            --mesh 2x2 --backend gloo`` on this one card (the main path,
+            alone on the card; the kernel libraries built above, loaded,
+            not rebuilt) on full-width, full-depth stablelm-3b at AP_Z
+            slots, b = AP_B, S = AP_S, ranks 8/16/32/64 bound, AP_STEPS
+            steps, each rank asserting its device and printing its step s,
+            peak GiB, kernel launches (summed into the table: per rank and
+            step 448/448/224/221/224/224 rank-local and 64 flash) and logged
+            collective bytes by axis and role (no data-axis collective of
+            role adapter_grad or with a last dim of r_max; model-axis
+            adapter-gradient all-reduces); then the launcher's one-rank run
+            (``launch.train.run``, NCCL) with the same settings, beside
+            AP_PROCS processes of this script's ``--ap-faults`` run
+            (AP_STEPS steps; on data rank 0 layer AP_FAULT_LAYER's
+            row-parallel reduce-scatter skipped, data rank 1 fed rank 0's
+            slots). The main path's per-slot losses of both steps and every
+            updated adapter leaf must lie within AP_LOSS_REL and
+            AP_ADAPTER_REL of the one-rank run's, and each fault, on its
+            own slots, must break both bars.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernel table as JSON (twenty kernels), with each kernel's launches by
@@ -524,7 +551,8 @@ llama4-scout's kernel step, ``vlm_train``, ``vlm_sweep``, ``vlm_serve``
 and ``vlm_prompt`` for qwen2-vl's train check, sweep, serve and image
 prompt, ``audio_sweep``, ``audio_serve`` and ``audio_train`` for
 musicgen's, ``dense_cfg_train`` for the dense configs' train checks,
-``launch_train`` for the launcher's full-width steps).
+``launch_train`` for the launcher's full-width steps, ``ap_train`` for the
+sharded steps' four ranks, summed).
 """
 from __future__ import annotations
 
@@ -643,6 +671,10 @@ HYMBA_SHAPES = ((1600, 1600), (1600, 320), (1600, 6400), (1600, 5504),
 # mildest planted forward fault's (slot 0's rank-4 delta halved, 6.6e-05;
 # see PERF.md)
 HYMBA_LOSS_REL = 2e-6
+# layers of hymba's fp32 train and ring-wrap checks: cut from 32 so that
+# phase 35 fits the script's time (its runs at 32 layers read the figures
+# above)
+HYMBA_CHECK_LAYERS = 16
 # hymba-1.5b's ring past its wrap: two lanes prefilled with RING_PREFILL
 # tokens, then one lane decodes RING_STEPS more (positions 1,000-1,063: the
 # ring of 1,024 slots wraps after 24 steps), in fp32; its logits against
@@ -692,6 +724,30 @@ FAMILY_LOSS_REL = 2e-6
 LAUNCH_Z = 1
 LAUNCH_RANK = 8             # the launcher's default adapter rank
 LAUNCH_CHECK_LAYERS = 4
+# phase 35: the launcher's sharded step over a 2 x 2 (data, model) mesh of
+# AP_RANKS processes sharing the card (gloo), on full-width, full-depth
+# stablelm-3b at AP_Z slots of AP_B sequences of AP_S tokens, slot ranks
+# RANKS, AP_STEPS steps; held against the one-rank run of the same seed.
+# Bars (bf16, relative): per slot and step |loss diff| / |loss|; per adapter
+# leaf and slot the RMS of (sharded - one-rank) over the RMS of the
+# one-rank run's update (one-rank - init). The planted faults (one layer's
+# row-parallel reduce-scatter skipped; data rank 1 fed rank 0's slots)
+# must break both. The adapter reading is large even when sound: B starts
+# at 0, so A's first nonzero gradient comes at step 1, and AdamW's first
+# step there moves each entry by about lr times the sign of its gradient;
+# the sharded run's bf16 partial sums flip the signs of the gradient
+# entries nearest 0. On an H100 the sound run reads 6.84e-4 and 0.429, the
+# faults, each on its own slots, at least 6.96e-3 and 1.23 (PERF.md).
+AP_MESH = "2x2"
+AP_PROCS = 4
+AP_Z, AP_B, AP_S, AP_STEPS = 4, 2, 512, 2
+AP_FAULT_LAYER = 5
+# the slots each planted fault reaches (one run plants both: one on each
+# data rank)
+AP_FAULT_SLOTS = {"skip_scatter": (0, 1), "swap_slots": (2, 3)}
+AP_LOSS_REL = 3e-3
+AP_ADAPTER_REL = 0.75
+AP_TIMEOUT_S = 420
 # device busy ms per profiled train step of each executor phase, by task
 STEP_BUSY_MS = {}
 DPO_B = 2                     # preference pairs per slot in the DPO phase
@@ -1200,7 +1256,7 @@ def serve_phase(torch, RL, cfg, params):
 
 
 def backward_kernel_phase(torch, RL, ref, cases=None,
-                          timed=("train", 2560, 2560)):
+                          timed=("train", 2560, 2560), untimed=("dpo",)):
     """The four backward kernels, and the forward pair, against their
     plain versions at the training shapes (Z = 4 slots, T = TRAIN_B *
     TRAIN_S = 1024 token rows per slot, d in {2560, 6912}, true ranks
@@ -1210,7 +1266,8 @@ def backward_kernel_phase(torch, RL, ref, cases=None,
     per-kernel results (times of the backward four at the q/k/v/o shape,
     din = dout = 2560; the forward pair's there under ``shapes["train"]``)
     and prints every case. ``cases`` replaces the shapes: then the times of
-    all six at ``timed`` (label, din, dout) go under ``shapes[label]``."""
+    all six at ``timed`` (label, din, dout) go under ``shapes[label]``;
+    cases labelled in ``untimed`` are checked, not timed."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(2)
     Z, r = len(TRAIN_RANKS), 64
@@ -1299,7 +1356,7 @@ def backward_kernel_phase(torch, RL, ref, cases=None,
               f"max_abs_err {errs['xa']:.3g}, {errs['sb_add']:.3g} (within "
               f"one bf16 ulp of the plain versions)")
         del outs, y
-        if label == "dpo":
+        if label in untimed:
             print(f"ds, dx, da, db {label} T={T} {din:5d} {dout:5d}  "
                   f"max_abs_err " + ", ".join(
                       f"{errs[n]:.3g}" for n in ("ds", "dx", "da", "db"))
@@ -4911,8 +4968,10 @@ def hymba_phases(torch, fams, t_all):
     print(f"init: {hcfg.name} backbone in {time.perf_counter() - t:.1f} s")
     serve = streamed_serve_phase(torch, RL, hcfg, hparams)
     print(f"hymba serve phase done at {time.perf_counter() - t_all:.1f} s")
-    ccfg = dataclasses.replace(hcfg, dtype="float32")
-    cparams = _cut_layers(hparams, hcfg.num_layers, torch.float32)
+    # depth cut (HYMBA_CHECK_LAYERS) to keep the script within its time
+    ccfg = dataclasses.replace(hcfg, dtype="float32",
+                               num_layers=HYMBA_CHECK_LAYERS)
+    cparams = _cut_layers(hparams, HYMBA_CHECK_LAYERS, torch.float32)
     train_check(torch, fams, ccfg, cparams, TRAIN_RANKS, "rank-local", S=S,
                 b=HYMBA_B, loss_bar=HYMBA_LOSS_REL)
     ring_wrap_check(torch, ccfg, cparams)
@@ -5665,6 +5724,335 @@ def launch_phase(torch, fams):
     return launches
 
 
+def _ap_env(rank: int, port: int) -> dict:
+    import os
+    src = str(ROOT / "src")
+    env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(AP_PROCS),
+               LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port), OMP_NUM_THREADS="2",
+               PYTHONPATH=src + (":" + os.environ["PYTHONPATH"]
+                                 if os.environ.get("PYTHONPATH") else ""))
+    return env
+
+
+def _ap_start(cmd, out_dir: Path, tag: str):
+    """AP_PROCS processes of ``cmd`` (torchrun-style environment, one free
+    port), their output to ``out_dir/<tag><rank>.log``."""
+    from repro_torch.launch.mesh import free_port
+    port = free_port()
+    logs = [open(out_dir / f"{tag}{r}.log", "w") for r in range(AP_PROCS)]
+    procs = [subprocess.Popen(cmd, cwd=ROOT, env=_ap_env(r, port),
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(AP_PROCS)]
+    return procs, logs, out_dir, tag
+
+
+def _ap_kill(started) -> None:
+    """Kill whichever of ``_ap_start``'s processes still run."""
+    procs, logs, _, _ = started
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    for f in logs:
+        f.close()
+
+
+def _ap_wait(started) -> list:
+    """Wait for ``_ap_start``'s processes; every one is killed if any fails
+    or the time runs out (or the caller fails meanwhile). Returns each
+    rank's output."""
+    procs, logs, out_dir, tag = started
+    try:
+        deadline = time.perf_counter() + AP_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if (time.perf_counter() > deadline
+                    or any(p.poll() not in (None, 0) for p in procs)):
+                break
+            time.sleep(0.2)
+    finally:
+        _ap_kill(started)
+    texts = [(out_dir / f"{tag}{r}.log").read_text()
+             for r in range(AP_PROCS)]
+    for r, p in enumerate(procs):
+        require(p.returncode == 0, f"ap {tag} rank {r} exited "
+                f"{p.returncode}:\n{texts[r][-3000:]}")
+    return texts
+
+
+def _ap_args(reduced: bool, device: str) -> list:
+    return ((["--reduced"] if reduced else ["--arch", "stablelm-3b"])
+            + ["--slots", str(AP_Z), "--batch", str(AP_B), "--seq",
+               str(AP_S), "--ranks", ",".join(map(str, RANKS)),
+               "--mesh", AP_MESH, "--backend", "gloo", "--device", device])
+
+
+@contextlib.contextmanager
+def _planted(layer: int):
+    """Two faults planted in this process's sharded step, each on its own
+    data rank's slots: on data rank 0 (slots AP_FAULT_SLOTS["skip_scatter"])
+    layer ``layer``'s row-parallel partial sums are sliced, not
+    reduce-scattered; data rank 1 (slots AP_FAULT_SLOTS["swap_slots"]) is
+    fed rank 0's slots."""
+    from repro_torch.launch import partitioning as PT
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.models import blocks as B
+    here = {"layer": None}
+    apply_block, residual = B.apply_block, PT.SpmdPlan.residual
+    next_batch = TRAIN.SlotBatcher.next_batch
+
+    def block(cfg, x, p, lora, layer_, ctx):
+        prev, here["layer"] = here["layer"], layer_
+        try:
+            return apply_block(cfg, x, p, lora, layer_, ctx)
+        finally:
+            here["layer"] = prev
+
+    def skip(self, x):
+        if (here["layer"] == layer and self.mesh.get_local_rank("data") == 0
+                and getattr(x, "_spmd_partial", False)):
+            return self.local(x, 2)
+        return residual(self, x)
+
+    def swapped(self):
+        tok, lab = next_batch(self)
+        half = self.Z // 2
+        tok[half:], lab[half:] = tok[:half].copy(), lab[:half].copy()
+        return tok, lab
+
+    B.apply_block, PT.SpmdPlan.residual = block, skip
+    TRAIN.SlotBatcher.next_batch = swapped
+    try:
+        yield
+    finally:
+        B.apply_block, PT.SpmdPlan.residual = apply_block, residual
+        TRAIN.SlotBatcher.next_batch = next_batch
+
+
+def ap_fault_child(argv) -> int:
+    """One rank of phase 35's planted-fault run (``chip_smoke.py
+    --ap-faults <dir>`` and the sharded run's launcher flags): once
+    ``<dir>/go`` exists, the steps under ``_planted``'s two faults, the
+    losses and adapters written by rank 0 to ``<dir>/faults.npz``."""
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ap-faults", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--arch", default="stablelm-3b")
+    for flag in ("--slots", "--batch", "--seq", "--steps"):
+        ap.add_argument(flag, type=int, required=True)
+    for flag in ("--ranks", "--mesh", "--backend", "--device"):
+        ap.add_argument(flag, required=True)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import train as TRAIN
+    cfg = _ap_config(args.reduced)
+    ranks = [int(r) for r in args.ranks.split(",")]
+    gate = Path(args.ap_faults) / "go"
+    with MESH.process_group(args.device, backend=args.backend) as dev:
+        require(dev.type == args.device.split(":")[0], f"device {dev}")
+        mesh = TRAIN.build_mesh(args.mesh, dev)
+        while not gate.exists():       # the parent opens it (or kills us)
+            time.sleep(0.05)
+        with _planted(min(AP_FAULT_LAYER, cfg.num_layers - 1)):
+            res = TRAIN.run(cfg, args.slots, args.batch, args.seq, mesh,
+                            args.steps, ranks=ranks, device=dev,
+                            log=lambda m: print(f"faults: {m}"))
+        TRAIN.write_out(str(Path(args.ap_faults) / "faults.npz"), mesh, res)
+    return 0
+
+
+def _ap_config(reduced: bool):
+    from repro_torch.configs.registry import get_arch
+    cfg = get_arch("stablelm-3b")
+    return (dataclasses.replace(cfg.reduced(), dtype="float32") if reduced
+            else cfg)
+
+
+def _ap_readings(np, got: dict, want: dict, init: dict, slots):
+    """(largest relative loss difference of ``slots`` over the steps,
+    largest per-leaf, per-slot relative RMS adapter difference of
+    ``slots``: the RMS of got - want over the RMS of want - init)."""
+    gl = np.asarray(got["losses"])[:, list(slots)]
+    wl = np.asarray(want["losses"])[:, list(slots)]
+    loss = float((np.abs(gl - wl) / np.abs(wl)).max())
+    worst, where = 0.0, None
+    for key, w in want.items():
+        if not key.startswith("lora/"):
+            continue
+        g, w0 = got[key], init[key]
+        for z in slots:
+            step = np.sqrt(np.mean((w[:, z] - w0[:, z]) ** 2))
+            if step == 0:
+                continue
+            r = float(np.sqrt(np.mean((g[:, z] - w[:, z]) ** 2)) / step)
+            if r > worst:
+                worst, where = r, f"{key}[slot {z}]"
+    print(f"ap: largest adapter reading {worst:.3e} at {where}")
+    return loss, worst
+
+
+def _ap_parse(text: str, what: str):
+    lines = [ln for ln in text.splitlines() if ln.startswith(what + " ")]
+    require(len(lines) == 1, f"ap: {len(lines)} '{what}' lines")
+    return json.loads(lines[0][len(what) + 1:])
+
+
+def ap_train_phase(torch, cfg, device: str = "cuda",
+                   reduced: bool = False, kernel_checks=None) -> dict:
+    """Phase 35's runs: AP_PROCS processes of ``python -m
+    repro_torch.launch.train --mesh 2x2 --backend gloo`` (the main path)
+    and AP_PROCS of this script's planted-fault run start together; while
+    they start up, ``kernel_checks()`` runs here; the main path then has
+    the card to itself; after it, the fault ranks run beside the one-rank
+    reference (``launch.train.run`` on a one-rank group), and both sharded
+    runs are held against the reference.
+    Returns {"launches": the kernel launches summed over the ranks,
+    "seconds": the phase's parts}."""
+    import numpy as np
+    from repro_torch.core import lora as LORA
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.models import model as M
+
+    seconds = {}
+    out = Path(tempfile.mkdtemp(prefix="ap_phase_"))
+    t = time.perf_counter()
+    try:
+        sharded = _ap_start(
+            [sys.executable, "-m", "repro_torch.launch.train",
+             *_ap_args(reduced, device), "--steps", str(AP_STEPS), "--out",
+             str(out / "ap.npz")], out, "rank")
+        # the fault ranks start too, and wait at their gate until the
+        # main path is done: it has the card to itself
+        faulted = _ap_start([sys.executable, str(ROOT / "chip_smoke.py"),
+                             "--ap-faults", str(out),
+                             *_ap_args(reduced, device), "--steps",
+                             str(AP_STEPS)], out, "fault")
+        try:
+            if kernel_checks is not None:
+                kernel_checks()
+                print(f"ap: kernel checks done {time.perf_counter() - t:.1f}"
+                      f" s after the ranks started")
+            texts = _ap_wait(sharded)
+            seconds["sharded"] = time.perf_counter() - t
+            (out / "go").touch()
+            # the controls' timing is not read: the fault ranks and the
+            # one-rank reference share the card
+            t = time.perf_counter()
+            with MESH.process_group(device) as dev:
+                mesh = MESH.make_local_mesh((1, 1), device=dev)
+                one = TRAIN.run(cfg, AP_Z, AP_B, AP_S, mesh, AP_STEPS,
+                                ranks=RANKS, device=dev,
+                                log=lambda m: print(f"ap 1x1: {m}"))
+            want = {"losses": np.asarray(one["losses"])}
+            want.update({f"lora/{t}/{k}": v.float().cpu().numpy()
+                         for t, ab in one["lora"].items()
+                         for k, v in ab.items()})
+            del one
+            gen = torch.Generator(device=dev).manual_seed(1)  # seed + 1
+            ranks_t = torch.tensor(RANKS, dtype=torch.int32, device=dev)
+            init = {f"lora/{t}/{k}": v.cpu().numpy() for t, ab in
+                    LORA.init_lora_tree(gen, cfg, AP_Z, ranks_t,
+                                        M.target_shapes(cfg)).items()
+                    for k, v in ab.items()}
+            got = dict(np.load(out / "ap.npz"))
+            _ap_wait(faulted)
+        finally:
+            for started in (sharded, faulted):
+                _ap_kill(started)
+        seconds["one_rank_and_faults"] = time.perf_counter() - t
+        faults = dict(np.load(out / "faults.npz"))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    r_max = cfg.lora.r_max
+    launches = {}
+    for r, text in enumerate(texts):
+        require(f"device={device}" in text, f"ap rank {r}: device")
+        for fam, ks in _ap_parse(text, "launches").items():
+            for k, v in ks.items():
+                launches.setdefault(fam, {}).setdefault(k, 0)
+                launches[fam][k] += v
+        shapes = _ap_parse(text, "collective shapes")
+        bad = [s for s in shapes if s[0] == "data"
+               and (s[1] == "adapter_grad" or s[3] == r_max)]
+        require(not bad, f"ap rank {r}: adapter collectives over data {bad}")
+        require(any(s[0] == "model" and s[1] == "adapter_grad"
+                    for s in shapes), f"ap rank {r}: no model-axis "
+                "adapter-gradient all-reduce")
+        steps = [float(ln.split()[2].rstrip("s")) for ln in text.splitlines()
+                 if ln.startswith("step ")]
+        setup = [ln for ln in text.splitlines() if ln.startswith("set-up ")]
+        peak = [ln for ln in text.splitlines() if ln.startswith("peak ")]
+        print(f"ap rank {r}: {setup[0] if setup else ''}; steps {steps} s, "
+              f"{peak[0] if peak else ''}; "
+              f"logged bytes {_ap_parse(text, 'collective bytes')}")
+    loss, adapters = _ap_readings(np, got, want, init, range(AP_Z))
+    print(f"ap: {AP_MESH} vs 1x1, {cfg.name} {cfg.num_layers} layers, Z "
+          f"{AP_Z}, b {AP_B}, S {AP_S}, ranks {RANKS}: loss reading "
+          f"{loss:.3e} (bar {AP_LOSS_REL}), adapter reading {adapters:.3e} "
+          f"(bar {AP_ADAPTER_REL}); losses {got['losses'].tolist()} vs "
+          f"{want['losses'].tolist()}")
+    require(loss <= AP_LOSS_REL and adapters <= AP_ADAPTER_REL,
+            f"ap: readings {loss}, {adapters} past the bars")
+    for fault, slots in AP_FAULT_SLOTS.items():
+        fl, fa = _ap_readings(np, faults, want, init, slots)
+        print(f"ap: planted fault {fault}: loss reading {fl:.3e}, adapter "
+              f"reading {fa:.3e}")
+        require(fl > AP_LOSS_REL and fa > AP_ADAPTER_REL,
+                f"ap: planted fault {fault} within the bars ({fl}, {fa})")
+    print(f"ap: seconds {seconds}")
+    return {"launches": launches, "seconds": seconds}
+
+
+def ap_phase(torch, fams) -> tuple:
+    """Phase 35: rows 13-18 and flash at the sharded step's shapes, then
+    ``ap_train_phase`` on full-width, full-depth stablelm-3b. Returns (the
+    rank-local kernels' results, flash's, the launches of the sharded
+    runs' ranks, summed)."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.grouped_lora import ref
+
+    cfg = _ap_config(False)
+    d, ff = cfg.d_model, cfg.d_ff
+    m = int(AP_MESH.split("x")[1])
+    T = AP_B * AP_S
+    lora, flash = {}, {}
+
+    def kernel_checks():
+        _merged(lora, backward_kernel_phase(
+            torch, fams["rank-local"], ref, timed=("ap_row", d // m, d),
+            untimed=("ap_col", "ap_ff"),
+            cases=[("ap_col", T, d, d // m, RANKS, None),
+                   ("ap_ff", T, d, ff // m, RANKS, None),
+                   ("ap_row", T, d // m, d, RANKS, None),
+                   ("ap_ff", T, ff // m, d, RANKS, None)]))
+        H = cfg.num_heads // m
+        _, cases = flash_kernel_phase(
+            torch, FA, fref, cfg, plain_labels=("train",),
+            cases=[("train", AP_Z // int(AP_MESH.split("x")[0]) * AP_B * H,
+                    AP_S, AP_S, cfg.resolved_head_dim, 0, torch.bfloat16)])
+        flash.update({f"ap_{k}": v for k, v in cases.items()})
+
+    res = ap_train_phase(torch, cfg, kernel_checks=kernel_checks)
+    want, _, (want_flash, _) = _step_launches(cfg)
+    got = res["launches"]
+    per = AP_PROCS * AP_STEPS
+    require(got["rank-local"] == {k: v * per for k, v in want.items()}
+            and got["flash"]["flash_attention"] == want_flash * per
+            and not any(got["dense"].values())
+            and not any(got["ragged"].values()),
+            f"ap: launches {got}, expected rank-local {want} and flash "
+            f"{want_flash} a step on each of {AP_PROCS} ranks")
+    return lora, flash, got
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5813,6 +6201,12 @@ def main() -> int:
     launch = launch_phase(torch, fams)
     print(f"launch phase {time.perf_counter() - t:.1f} s, done at "
           f"{time.perf_counter() - t_all:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ap_lora, ap_flash, ap_launches = ap_phase(torch, fams)
+    print(f"ap phase {time.perf_counter() - t:.1f} s, done at "
+          f"{time.perf_counter() - t_all:.1f} s")
 
     csrc = "src/repro_torch/kernels/grouped_lora/csrc"
     rows = [  # (name, kernel source, TPU kernel file, its pallas_call line)
@@ -5848,7 +6242,8 @@ def main() -> int:
                 "hymba_train": h_launches[name],
                 "moe_train": m_launches[name],
                 "llama4_train": l4_launches[name],
-                **{path: got[name] for path, got in f_paths.items()}}, \
+                **{path: got[name] for path, got in f_paths.items()},
+                "ap_train": ap_launches["rank-local"][name]}, \
                 dict(kern[name])
             by_path["serve"] = serve_launches[name]
             by_path["rwkv_serve"] = rwkv_serve[name]
@@ -5857,11 +6252,13 @@ def main() -> int:
             res["shapes"] = {**res.get("shapes", {}),
                              **h_lora[name]["shapes"],
                              **m_lora[name]["shapes"],
-                             **f_lora[name]["shapes"]}
+                             **f_lora[name]["shapes"],
+                             **ap_lora[name]["shapes"]}
             res["max_abs_err"] = max(res["max_abs_err"],
                                      h_lora[name]["max_abs_err"],
                                      m_lora[name]["max_abs_err"],
-                                     f_lora[name]["max_abs_err"])
+                                     f_lora[name]["max_abs_err"],
+                                     ap_lora[name]["max_abs_err"])
         fam = {"grouped_lora": "dense", "ragged": "ragged"}.get(
             prefix, "rank-local")
         by_path["engine_static"] = eng_static[fam][name]
@@ -5912,13 +6309,15 @@ def main() -> int:
     by_path["dense_cfg_train"] = sum(got["flash_attention"]
                                      for got in f_dense.values())
     by_path["launch_train"] = launch["launch_flash"]
+    by_path["ap_train"] = ap_launches["flash"]["flash_attention"]
     table["kernels"].append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:89",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
-        **with_paths(flash, hymba=h_flash, moe=m_flash, families=f_flash)})
+        **with_paths(flash, hymba=h_flash, moe=m_flash, families=f_flash,
+                     ap=ap_flash)})
     by_path = {"rwkv_train": rwkv_launches["linear_scan"],
                "rwkv_serve": rwkv_serve["linear_scan"],
                "hymba_train": h_launches["linear_scan"],
@@ -5941,4 +6340,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ap-faults"]:
+        sys.exit(ap_fault_child(sys.argv[1:]))
     sys.exit(main())

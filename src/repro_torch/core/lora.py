@@ -48,6 +48,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.grouped_lora import ops as kops
 from repro_torch.kernels.grouped_lora import ref as kref
+from repro_torch.models import shardctx
 from repro_torch.models.shardctx import constrain
 
 _backend = threading.local()
@@ -195,14 +196,31 @@ def proj(x: torch.Tensor, W: torch.Tensor,
     x: [Z, ..., d_in]; W: [d_in, d_out] (frozen, slot-shared). ``name``
     lets the sharding policy (``models/shardctx``) gather the frozen weight
     over the adapter ("data") axis before use, as the reference's
-    ``proj`` does at opt_level >= 1."""
+    ``proj`` does at opt_level >= 1.
+
+    Sharded over "model" (``shardctx.spmd()``), W is this rank's block. A
+    column-parallel W ([d_in, d_out/m]) reads the normed residual gathered
+    over "model" and the LoRA term takes the whole A and B's local output
+    columns; a row-parallel W ([d_in/m, d_out]) reads x's local input
+    columns, the LoRA term A's local input rows and the whole B, and the
+    output is this rank's partial sum, base and LoRA term alike, which the
+    "residual" constraint reduce-scatters (the partial LoRA terms add up
+    to the LoRA term once). The kernels get contiguous local operands."""
     if name is not None:
         W = constrain(W, f"weight:{name}")
+    sp = shardctx.spmd()
+    split = sp.split(name) if sp is not None and name is not None else None
+    if split == "col":
+        x = sp.columns(x)
     y = x @ W
     if lora_pair is not None:
         A, B = lora_pair
+        if split == "col":
+            B = sp.local(B, -1).contiguous()
+        elif split == "row":
+            A = sp.local(A, -2).contiguous()
         y = y + lora_delta(x, A, B, scale)
-    return y
+    return sp.partial(y) if split == "row" else y
 
 
 # ---------------------------------------------------------------------------

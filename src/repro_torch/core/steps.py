@@ -19,6 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import losses as LS
 from repro_torch.core import lora as LORA
 from repro_torch.models import model as M
+from repro_torch.models import shardctx
 from repro_torch.optim import adamw
 
 
@@ -39,7 +40,9 @@ def lora_grads(cfg: ModelConfig, params: Dict, lora: Dict, batch: Dict,
     """(per-slot loss [Z], gradient tree) of the summed active per-slot
     loss with respect to the LoRA leaves only (the backbone is frozen).
     ``batch`` may carry ``slot_rows``/``slot_ranks`` as ``make_train_step``
-    describes; ``remat`` checkpoints every layer of the forward."""
+    describes; ``remat`` checkpoints every layer of the forward. Sharded
+    (``shardctx.spmd()``), each gradient is all-reduced over "model" only:
+    the slots, and so the adapters, of another data rank are not here."""
     LS.check_loss_kind(loss_kind)
     keys = [(t, m) for t in sorted(lora) for m in sorted(lora[t])]
     leaves = {t: {m: x.detach().requires_grad_(True)
@@ -56,6 +59,9 @@ def lora_grads(cfg: ModelConfig, params: Dict, lora: Dict, batch: Dict,
     grads: Dict[str, Dict[str, torch.Tensor]] = {t: {} for t in lora}
     for (t, m), g in zip(keys, flat):
         grads[t][m] = g
+    sp = shardctx.spmd()
+    if sp is not None:          # partial sums over "model"; none over "data"
+        grads = sp.reduce_grads(grads)
     return per_slot.detach(), grads
 
 
@@ -80,7 +86,12 @@ def make_train_step(cfg: ModelConfig, *, loss_kind: str = "sft",
     ``labels_rejected``). ``remat`` (the default) rematerializes the
     forward, one checkpoint per layer (``models.model.forward``);
     ``remat=False`` keeps every layer's activations for the backward, as
-    the reference's ``steps.py:26-49``."""
+    the reference's ``steps.py:26-49``.
+
+    Sharded on a real multi-rank mesh (``launch/steps_dist.py``), the
+    step updates this data rank's slots, with the clipping norms taken
+    after the gradients' all-reduce over "model", and the metrics are
+    gathered over "data" to all Z slots."""
     LS.check_loss_kind(loss_kind)
 
     def train_step(params, lora, opt_state, hp: adamw.SlotHParams,
@@ -92,6 +103,9 @@ def make_train_step(cfg: ModelConfig, *, loss_kind: str = "sft",
             lora, grads, opt_state, hp, active,
             rank_masker=lambda t: LORA.mask_lora_tree(t, ranks,
                                                       cfg.lora.r_max))
+        sp = shardctx.spmd()
+        if sp is not None:
+            per_slot, norms = sp.gather_metrics(per_slot, norms)
         return new_lora, new_opt, {"per_slot_loss": per_slot,
                                    "grad_norm": norms}
 

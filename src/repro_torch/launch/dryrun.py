@@ -35,9 +35,11 @@ figures:
     size, ring traffic) and weighted by the times a step runs it:
       - a base weight sharded over "data" is all-gathered over "data" once
         per forward pass over its layer (the forward, and remat's recompute
-        when remat is on) and once more for the backward; the embedding
-        table only in the forward unless it is tied to the unembedding (no
-        gradient flows through a lookup of integer tokens);
+        when remat is on), and the gathered weight is kept for the
+        backward; the unembedding once; the embedding table once for the
+        lookup and, tied to the unembedding, once more for it. This is what
+        the sharded step moves (``launch/partitioning.py``): its logged
+        data-axis gathers equal this count (``tests/test_torch_ap.py``);
       - the residual stream, where the policy sequence-shards it over
         "model", is all-gathered before each of a layer's two sublayers and
         reduce-scattered after it, in each pass;
@@ -288,7 +290,8 @@ def _schedule(cfg: ModelConfig, shape: ShapeConfig, mesh, params, p_specs,
     times a step runs it)]: the module docstring's schedule. An axis of
     size 1 moves nothing."""
     train = shape.kind == "train"
-    passes = (3 if remat else 2) if train else 1
+    passes = (3 if remat else 2) if train else 1    # the activations'
+    forward = 2 if train and remat else 1           # the weights'
     L = cfg.num_layers
     sizes = MESH.axis_sizes(mesh)
     moves = [a for a in MESH.axis_names(mesh) if sizes[a] > 1]
@@ -297,10 +300,10 @@ def _schedule(cfg: ModelConfig, shape: ShapeConfig, mesh, params, p_specs,
         if "data" not in moves or not _names(spec, "data"):
             continue
         if path.startswith("layers/"):        # one layer's slice, [1:]
-            shp, spec, trips = leaf.shape[1:], PT.P(*spec[1:]), L * passes
+            shp, spec, trips = leaf.shape[1:], PT.P(*spec[1:]), L * forward
         else:
             shp = leaf.shape
-            trips = 1 + (train and (path != "embed" or cfg.tie_embeddings))
+            trips = 1 + (path == "embed" and cfg.tie_embeddings)
         src = PT.placements(mesh, spec)
         out.append(("data", f"weight {path}", shp, leaf.dtype, src,
                     _swap(src, mesh, "data", Replicate()), trips))

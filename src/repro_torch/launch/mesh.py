@@ -11,9 +11,11 @@ Axis semantics (the reference's DESIGN.md §5):
   "model" : tensor/sequence sharding of the frozen backbone
 
 A real mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over an
-initialized process group (``process_group`` makes a one-rank one: NCCL on
-the card, gloo only when the caller asks for the CPU; ``fake_group`` makes
-a many-rank one that moves nothing, for the shapes-only dry run).
+initialized process group (``process_group`` makes one of any number of
+ranks, torchrun-style: NCCL when each rank has its card, gloo on the CPU
+or for ranks that share one card; ``fake_group`` makes a many-rank one that
+moves nothing, for the shapes-only dry run). The sharded train step runs
+on a real mesh of several ranks (``launch/partitioning.py``).
 ``abstract_mesh``
 is a plain object with the same ``shape`` / ``axis_names`` view and no
 devices, for the spec tests and the production meshes' spec trees.
@@ -21,6 +23,7 @@ devices, for the spec tests and the production meshes' spec trees.
 from __future__ import annotations
 
 import contextlib
+import os
 import socket
 from typing import Dict, Optional, Tuple
 
@@ -29,6 +32,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.configs.base import MeshConfig
+from repro_torch.launch import collectives as C
 from repro_torch.models.common import resolve_device
 
 SINGLE_POD = MeshConfig(shape=(16, 16), axes=("data", "model"))
@@ -82,22 +86,54 @@ def free_port() -> int:
 
 
 @contextlib.contextmanager
-def process_group(device=None, init_method: Optional[str] = None):
-    """A world-size-1 process group for the duration of the context,
-    destroyed at its end even on failure: NCCL on the card, gloo on the
-    CPU (only when ``device`` asks for it). ``init_method`` defaults to
-    ``tcp://127.0.0.1:<a free port>``; a ``file://`` path works too."""
+def process_group(device=None, init_method: Optional[str] = None, *,
+                  backend: Optional[str] = None, rank: Optional[int] = None,
+                  world_size: Optional[int] = None):
+    """A process group for the duration of the context, destroyed at its
+    end even on failure; yields this rank's device.
+
+    ``rank`` and ``world_size`` default to torchrun's ``RANK`` and
+    ``WORLD_SIZE`` (else 0 and 1); ``init_method`` to ``env://`` when
+    ``MASTER_ADDR`` and ``MASTER_PORT`` are set, else, for one rank,
+    ``tcp://127.0.0.1:<a free port>`` (a ``file://`` path works too).
+    ``backend`` is the caller's choice: "nccl" when each rank has a card
+    of its own, "gloo" on the CPU or for ranks that share one card; left
+    out, it is "nccl" on the card and "gloo" on the CPU. It is never
+    switched on a failure. On the card a device without an index is
+    ``cuda:<LOCAL_RANK>`` under NCCL and ``cuda:<LOCAL_RANK mod the cards>``
+    under gloo (one card: every rank on ``cuda:0``)."""
     dev = resolve_device(device)
     if dist.is_initialized():
         raise RuntimeError("a process group is already initialized")
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+    env = os.environ
+    rank = int(env.get("RANK", 0)) if rank is None else rank
+    world_size = (int(env.get("WORLD_SIZE", 1)) if world_size is None
+                  else world_size)
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError("the nccl backend needs the card")
+    if init_method is None:
+        if "MASTER_ADDR" in env and "MASTER_PORT" in env:
+            init_method = "env://"
+        elif world_size == 1:
+            init_method = f"tcp://127.0.0.1:{free_port()}"
+        else:
+            raise ValueError(f"{world_size} ranks need an init_method or "
+                             "MASTER_ADDR and MASTER_PORT")
     if dev.type == "cuda":      # the communicator's device, before the mesh
-        torch.cuda.set_device(dev if dev.index is not None else 0)
-    dist.init_process_group(
-        backend, init_method=init_method or f"tcp://127.0.0.1:{free_port()}",
-        rank=0, world_size=1)
+        if dev.index is None:
+            local = int(env.get("LOCAL_RANK", rank))
+            dev = torch.device("cuda", local if backend == "nccl"
+                               else local % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world_size)
     try:
         yield dev
+        C.release_shares()        # every rank got here: no one still reads
     finally:
         dist.destroy_process_group()
 
@@ -106,8 +142,8 @@ def make_local_mesh(shape: Tuple[int, ...] = (1, 1),
                     axes: Tuple[str, ...] = ("data", "model"), *,
                     device=None) -> DeviceMesh:
     """A mesh over the ranks of the initialized process group (whose world
-    size must be the mesh's size), on the card unless ``device`` says
-    otherwise."""
+    size must be the mesh's size), rank-major in ``shape``, with one
+    subgroup per axis, on the card unless ``device`` says otherwise."""
     dev = resolve_device(device)
     n = 1
     for s in shape:

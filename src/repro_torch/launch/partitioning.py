@@ -19,16 +19,36 @@ tuples of names), the leaf paths are the reference's ``_leaf_path_str``
 ("layers/q_proj", "moe/w_gate", ...), and ``to_named`` turns a spec into
 DTensor placements (``Shard(d)`` / ``Replicate()`` per mesh dimension).
 
-Execution: the port runs the step on the local shards of a one-rank mesh,
-whose shards are whole (``distribute`` wraps each tensor as a DTensor
-without a copy, ``local`` takes it back). The activation policy resolves
-and records each constraint's spec and returns the tensor unchanged. A
-real mesh of more than one rank raises ``NotImplementedError``: sharded
-execution needs more than one card (``ROADMAP.md`` §1, "sharded
-execution"). The activation policy lets a mesh over a ``fake`` group
-(``mesh.fake_group``) through: it moves no data, and the dry run
-(``launch/dryrun.py``) resolves the policy's decisions on the production
-mesh through it. ``distribute`` refuses every mesh of more than one rank.
+Execution: the step runs on local shards, with the collectives issued
+where the reference places its constraints (``SpmdPlan``, through
+``launch/collectives.py``). On a one-rank mesh the shards are whole
+(``distribute`` wraps each tensor as a DTensor without a copy, ``local``
+takes it back) and nothing moves: the activation policy resolves and
+records each constraint's spec and returns the tensor unchanged. On a real
+multi-rank ``(data, model)`` mesh ``distribute`` slices each rank's shard
+out of the full tensor, and the policy's ``SpmdPlan`` runs the train step
+(the dense family only; ``check_sharded``):
+
+  * "data" is Adapter Parallelism (paper Fig. 8): each data rank holds its
+    Z/d slots' adapters, gradients, AdamW state, hyper-parameters, ranks
+    and batch rows, and no adapter tensor crosses the axis; the frozen base
+    weights are ZeRO-sharded over it and all-gathered forward-only (one
+    gather a forward pass of a layer, the gathered weight kept for its
+    backward; no backward reduce-scatter, the base is frozen);
+  * "model" is tensor and sequence parallelism: q/k/v and gate/up
+    column-parallel, o/down row-parallel (their partial sums,
+    the LoRA term's included, reduce-scattered along S by the "residual"
+    constraint), the residual stream sequence-sharded between blocks and
+    all-gathered once before each sublayer's column-parallel projections,
+    the embedding and the logits vocabulary-parallel; adapter gradients
+    are all-reduced over "model" only.
+
+Every opt level runs this one schedule: the levels change only the recorded
+``decisions`` and the hints, and the numbers stay equal. A mesh over a
+``fake`` group (``mesh.fake_group``) moves no data: the activation policy
+lets it through, records its decisions and moves nothing (the dry run,
+``launch/dryrun.py``, resolves the policy on the production mesh through
+it), and ``distribute`` refuses it.
 """
 from __future__ import annotations
 
@@ -36,14 +56,19 @@ import re
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.launch import collectives as C
 from repro_torch.launch.mesh import axis_names, axis_sizes, is_fake
 
-SHARDED_EXECUTION = ("sharded execution over a mesh of more than one rank "
-                     "is not ported (ROADMAP.md §1, sharded execution): "
-                     "it needs more than one card")
+SHARDED_EXECUTION = ("sharded execution over a fake group is not possible: "
+                     "its collectives move no data (launch/dryrun.py "
+                     "traces shapes only)")
+# what a multi-rank mesh runs today, and where the rest is queued
+SHARDED_FAMILIES = ("dense",)
+SHARDED_QUEUE = "queued in ROADMAP.md §1, the rest of sharded execution"
 
 
 class PartitionSpec(tuple):
@@ -111,9 +136,13 @@ def activation_policy(mesh, *, seq_shard: bool = True,
     The decision is recorded in ``policy.decisions`` ({(kind, shape):
     spec}) and ``x`` is returned unchanged: on a one-rank mesh no tensor
     moves. ``policy.hints`` carries ``model_size``, ``opt_level`` and, at
-    opt_level >= 2 in training, ``scan_chunk`` 32 and ``scan_opt``."""
-    if _real_multi_rank(mesh):
-        raise NotImplementedError(SHARDED_EXECUTION)
+    opt_level >= 2 in training, ``scan_chunk`` 32 and ``scan_opt``.
+
+    On a real multi-rank mesh ``policy.spmd`` is the step's ``SpmdPlan``
+    (None otherwise): "weight:<name>" then returns the weight all-gathered
+    over "data", "residual" reduce-scatters (or, unsharded, all-reduces) a
+    partial sum over "model", and every decision is recorded on the
+    global shape of the tensor whose local shard passes."""
     if step_kind == "decode":
         opt_level = 0
     pod = "pod" if has_pod(mesh) else None
@@ -184,13 +213,24 @@ def activation_policy(mesh, *, seq_shard: bool = True,
         return pick_spec(mesh, shape, cands)
 
     def policy(x: torch.Tensor, kind: str) -> torch.Tensor:
+        spmd = policy.spmd
         shape = tuple(x.shape)
+        if spmd is not None:
+            shape = spmd.global_shape(x, kind)
         key = (kind, shape)
         if key not in policy.decisions:
             policy.decisions[key] = decide(shape, kind)
+        if spmd is None:
+            return x
+        if kind.startswith("weight:"):
+            return spmd.weight(x, kind.split(":", 1)[1])
+        if kind == "residual":
+            return spmd.residual(x)
         return x
 
     policy.decisions = {}
+    policy.spmd = (SpmdPlan(mesh, step_kind, decide)
+                   if _real_multi_rank(mesh) else None)
     policy.hints = {
         "model_size": axis_sizes(mesh).get("model", 1),
         "opt_level": opt_level,
@@ -369,17 +409,46 @@ def to_named(mesh, spec_tree: Any) -> Any:
 
 
 def distribute(mesh: DeviceMesh, tree: Any, named: Any) -> Any:
-    """Each tensor of ``tree`` as a DTensor on ``mesh`` with its placements
-    from ``named`` (a ``to_named`` tree of the same structure). On a
-    one-rank mesh a tensor is its own local shard: no copy is made."""
-    if mesh.size() > 1:
+    """Each tensor of ``tree`` (the full, global tensor) as a DTensor on
+    ``mesh`` with its placements from ``named`` (a ``to_named`` tree of the
+    same structure). On a one-rank mesh a tensor is its own local shard: no
+    copy is made. On a real multi-rank mesh each rank keeps a copy of its
+    shard, sliced out by the placements (mesh dimensions in order, so a
+    dim sharded over several axes is split data-major); a sharded dim must
+    divide evenly. A mesh over a fake group is refused."""
+    if is_fake(mesh):
         raise NotImplementedError(SHARDED_EXECUTION)
 
     def wrap(path, t):
-        return DTensor.from_local(t, mesh, _lookup(named, path),
+        pl = _lookup(named, path)
+        return DTensor.from_local(shard_of(mesh, t, pl), mesh, pl,
                                   run_check=False)
 
     return _map_with_path(tree, wrap)
+
+
+def shard_of(mesh: DeviceMesh, t: torch.Tensor, pl: Tuple) -> torch.Tensor:
+    """This rank's shard of the full tensor ``t`` under placements ``pl``
+    (``t`` itself when no dim is split)."""
+    out = t
+    for i, p in enumerate(pl):
+        n = mesh.size(i)
+        if not isinstance(p, Shard) or n == 1:
+            continue
+        if out.shape[p.dim] % n:
+            raise ValueError(f"dim {p.dim} of {tuple(t.shape)} does not "
+                             f"split over {n} ranks")
+        k = out.shape[p.dim] // n
+        out = out.narrow(p.dim, mesh.get_local_rank(i) * k, k)
+    return out if out is t else out.clone(
+        memory_format=torch.contiguous_format)
+
+
+def from_local(mesh: DeviceMesh, tree: Any, named: Any) -> Any:
+    """Each local shard of ``tree`` as a DTensor with its placements from
+    ``named``, without a copy (a step's outputs, which are local)."""
+    return _map_with_path(tree, lambda path, t: DTensor.from_local(
+        t, mesh, _lookup(named, path), run_check=False))
 
 
 def _lookup(tree: Any, path: Tuple) -> Any:
@@ -393,3 +462,307 @@ def local(tree: Any) -> Any:
     kernels take plain tensors)."""
     return _map(tree, lambda t: t.to_local() if isinstance(t, DTensor)
                 else t)
+
+
+# ---------------------------------------------------------------------------
+# Sharded execution on a real multi-rank mesh
+# ---------------------------------------------------------------------------
+
+def _model_dim(spec: P, ndim: int) -> Optional[int]:
+    """The (negative) dim of a spec that names "model", else None."""
+    for d, e in enumerate(spec):
+        if e is not None and "model" in (e if isinstance(e, tuple) else (e,)):
+            return d - ndim
+    return None
+
+
+def check_sharded(cfg, mesh, loss_kind: str = "sft") -> None:
+    """Raise ``NotImplementedError`` unless the sharded train step runs
+    ``cfg`` on the real multi-rank ``mesh``: the dense family, the SFT
+    loss, a ("data", "model") mesh, and, over a model axis of m > 1 ranks,
+    the Megatron layout (q/k/v and gate/up split by output columns, o and
+    down by input rows, the embedding and the unembedding by vocabulary)
+    with whole heads on each rank (H and KV divisible by m; GSPMD splits a
+    head, the port does not)."""
+    names = tuple(axis_names(mesh))
+    if names != ("data", "model"):
+        raise NotImplementedError(
+            f"sharded execution over axes {names}: only (data, model) runs; "
+            f"the pod axis is queued ({SHARDED_QUEUE})")
+    if cfg.family not in SHARDED_FAMILIES:
+        raise NotImplementedError(
+            f"sharded execution of the {cfg.family} family ({cfg.name}) is "
+            f"not ported ({SHARDED_QUEUE})")
+    if loss_kind != "sft":
+        raise NotImplementedError(
+            f"sharded execution of the {loss_kind} loss is not ported "
+            f"({SHARDED_QUEUE})")
+    m = axis_sizes(mesh)["model"]
+    if m == 1:
+        return
+    d, L = cfg.d_model, cfg.num_layers
+    shapes = {"q_proj": (L, d, cfg.q_dim), "k_proj": (L, d, cfg.kv_dim),
+              "v_proj": (L, d, cfg.kv_dim), "o_proj": (L, cfg.q_dim, d),
+              "gate_proj": (L, d, cfg.d_ff), "up_proj": (L, d, cfg.d_ff),
+              "down_proj": (L, cfg.d_ff, d)}
+    want = {"q_proj": -1, "k_proj": -1, "v_proj": -1, "o_proj": -2,
+            "gate_proj": -1, "up_proj": -1, "down_proj": -2}
+    tree = {"embed": torch.empty((cfg.vocab_size, d), device="meta"),
+            "layers": {k: torch.empty(v, device="meta")
+                       for k, v in shapes.items()}}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = torch.empty((d, cfg.vocab_size), device="meta")
+        want["lm_head"] = -1
+    want["embed"] = -2
+    specs = base_param_specs(mesh, tree)
+    flat = dict(specs["layers"], **{k: v for k, v in specs.items()
+                                    if k != "layers"})
+    for name, dim in want.items():
+        spec = flat[name]
+        ndim = 3 if name in shapes else 2
+        if _model_dim(spec, ndim) != dim:
+            raise NotImplementedError(
+                f"{cfg.name}: {name} takes spec {spec} on mesh "
+                f"{axis_sizes(mesh)}; the sharded step needs it split over "
+                f"model along dim {dim}")
+    for what, n in (("heads", cfg.num_heads), ("kv heads", cfg.num_kv_heads)):
+        if n % m:
+            raise NotImplementedError(
+                f"{cfg.name}: {n} {what} do not split whole over model "
+                f"{m} (k_proj spec {flat['k_proj']}); the sharded step keeps "
+                f"whole heads on each rank")
+
+
+class SpmdPlan:
+    """The collectives of the sharded train step on a real ("data",
+    "model") mesh, issued on local shards through ``launch/collectives.py``
+    (the module docstring has the layout). ``bind`` reads each base
+    weight's placements off the DTensor parameters and the batch's global
+    shape; the model reaches the plan through ``models.shardctx.spmd()``;
+    ``log`` collects the ``collectives.Record`` of every collective the
+    step's calls issue."""
+
+    def __init__(self, mesh: DeviceMesh, step_kind: str, decide):
+        sizes = axis_sizes(mesh)
+        self.mesh = mesh
+        self.d, self.m = sizes.get("data", 1), sizes.get("model", 1)
+        self.model_rank = (mesh.get_local_rank("model")
+                           if "model" in sizes else 0)
+        self.step_kind = step_kind
+        self.decide = decide           # the policy's: (shape, kind) -> spec
+        self.layouts: Optional[Dict[str, Dict[str, Optional[int]]]] = None
+        self.seq_len = self.z = self.z_local = self.d_model = 0
+        self.seq_sharded = False
+        self._cols: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self.log: List[C.Record] = []     # every collective of every call
+
+    # -- per call ----------------------------------------------------------
+
+    def bind(self, params: Dict, batch: Dict) -> None:
+        if self.step_kind != "train":
+            raise NotImplementedError(
+                f"sharded execution of a {self.step_kind} step is not "
+                f"ported ({SHARDED_QUEUE})")
+        if self.layouts is None:
+            self.layouts = _weight_layouts(self.mesh, params)
+        emb = params["embed"]
+        if not isinstance(emb, DTensor):
+            raise ValueError("the sharded step takes the parameters as "
+                             "DTensors (partitioning.distribute)")
+        self.d_model = emb.shape[1]
+        tok = batch["tokens"]
+        if isinstance(tok, DTensor):
+            self.z, b, self.seq_len = tok.shape
+            self.z_local = tok.to_local().shape[0]
+        else:
+            self.z_local, b, self.seq_len = tok.shape
+            self.z = self.z_local * self.d
+        if self.z != self.z_local * self.d:
+            raise NotImplementedError(
+                f"Z = {self.z} slots do not split over data {self.d}")
+        if batch.get("slot_rows") is not None and self.m > 1:
+            raise NotImplementedError(
+                "ragged slot rows on a split model axis are not ported "
+                f"({SHARDED_QUEUE})")
+        spec = self.decide((self.z, b, self.seq_len, self.d_model),
+                           "residual")
+        self.seq_sharded = self.m > 1 and len(spec) > 2 and \
+            spec[2] == "model"
+
+    def end(self) -> None:
+        self._cols = None
+
+    def global_shape(self, x: torch.Tensor, kind: str) -> Tuple[int, ...]:
+        """The global shape of the tensor whose local shard ``x`` passes a
+        ``kind`` constraint (the shape the reference decides on)."""
+        shape = list(x.shape)
+        if kind.startswith("weight:"):
+            lay = self._layout(kind.split(":", 1)[1])
+            for axis, n in (("data", self.d), ("model", self.m)):
+                if lay[axis] is not None:
+                    shape[lay[axis]] *= n
+            return tuple(shape)
+        if self.z and shape and shape[0] == self.z_local:
+            shape[0] = self.z
+        if self.m > 1:
+            if kind == "residual" and len(shape) == 4 and \
+                    shape[2] != self.seq_len:
+                shape[2] *= self.m
+            elif kind in ("attn_qkv", "ffn_hidden") and len(shape) >= 4:
+                shape[3] *= self.m
+            elif kind == "logits":
+                shape[-1] *= self.m
+        return tuple(shape)
+
+    # -- weights -----------------------------------------------------------
+
+    def _layout(self, name: str) -> Dict[str, Optional[int]]:
+        lay = self.layouts.get(name)
+        if lay is None and name == "lm_head":      # tied: embed transposed
+            e = self.layouts["embed"]
+            lay = {a: (None if v is None else -3 - v) for a, v in e.items()}
+        if lay is None:
+            return {"data": None, "model": None}
+        return lay
+
+    def weight(self, W: torch.Tensor, name: str) -> torch.Tensor:
+        """The frozen weight ``name`` all-gathered over "data" (forward
+        only: it takes no gradient); still split over "model"."""
+        dim = self._layout(name)["data"]
+        if dim is None or self.d == 1:
+            return W
+        return C.all_gather(W.detach(), self.mesh, "data", dim,
+                            "base_weight", self.log)
+
+    def split(self, name: str) -> Optional[str]:
+        """"col" or "row": how weight ``name`` is split over "model"
+        (None: whole on every rank)."""
+        if self.m == 1:
+            return None
+        return {-1: "col", -2: "row"}.get(self._layout(name)["model"])
+
+    def local(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This model rank's block of the whole tensor ``t`` along ``dim``
+        (a differentiable slice)."""
+        k = t.shape[dim] // self.m
+        return t.narrow(dim, self.model_rank * k, k)
+
+    # -- activations -------------------------------------------------------
+
+    def columns(self, x: torch.Tensor) -> torch.Tensor:
+        """The input of a column-parallel projection: the normed residual
+        all-gathered along S over "model" (or, unsharded, passed with its
+        gradient all-reduced), once for all the projections that read the
+        same ``x``."""
+        if self.m == 1:
+            return x
+        if self._cols is not None and self._cols[0] is x:
+            return self._cols[1]
+        y = (C.gather(x, self.mesh, "model", 2, "activation", self.log)
+             if self.seq_sharded else
+             C.broadcast_grad(x, self.mesh, "model", "activation",
+                              self.log))
+        self._cols = (x, y)
+        return y
+
+    @staticmethod
+    def partial(y: torch.Tensor) -> torch.Tensor:
+        """Mark ``y`` as this rank's partial sum over "model"."""
+        y._spmd_partial = True
+        return y
+
+    def residual(self, x: torch.Tensor) -> torch.Tensor:
+        """The "residual" constraint: a partial sum is reduce-scattered
+        along S (sequence-sharded) or all-reduced; a residual already in
+        place passes."""
+        if self.m == 1:
+            return x
+        partial = getattr(x, "_spmd_partial", False)
+        if self.seq_sharded:
+            if partial:
+                return C.scatter(x, self.mesh, "model", 2, "activation",
+                                 self.log)
+            if x.shape[2] == self.seq_len:
+                raise RuntimeError("a whole-sequence residual that is not a "
+                                   "partial sum reached the constraint")
+            return x
+        return (C.reduce(x, self.mesh, "model", "activation", self.log)
+                if partial else x)
+
+    def embed(self, table: torch.Tensor, tokens: torch.Tensor
+              ) -> torch.Tensor:
+        """The vocabulary-parallel lookup: each model rank reads the rows of
+        its vocabulary block (zeros elsewhere), a partial sum for the
+        "residual" constraint."""
+        W = self.weight(table, "embed")
+        tok = tokens.long()
+        if self.split("embed") is None:
+            x = W[tok]
+            if self.seq_sharded:
+                x = self.local(x, 2).contiguous()
+            return x
+        n = W.shape[0]
+        loc = tok - self.model_rank * n
+        ok = (loc >= 0) & (loc < n)
+        x = W[loc.clamp(0, n - 1)]
+        x = torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+        return self.partial(x)
+
+    def xent(self, logits: torch.Tensor, labels: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(log-sum-exp, gold logit) of fp32 vocabulary-parallel ``logits``
+        ([..., V/m]) at ``labels`` (-1: no gold, 0), each all-reduced over
+        "model"."""
+        if self.m == 1 or self.split("lm_head") is None:
+            gold = torch.gather(logits, -1,
+                                labels.clamp_min(0).long()[..., None])
+            return torch.logsumexp(logits, dim=-1), gold[..., 0]
+        n = logits.shape[-1]
+        mx = C.all_reduce(logits.detach().amax(dim=-1), self.mesh, "model",
+                          "activation", self.log, op=dist.ReduceOp.MAX)
+        se = torch.exp(logits - mx[..., None]).sum(dim=-1)
+        lse = mx + torch.log(C.reduce(se, self.mesh, "model", "activation",
+                                      self.log))
+        loc = labels.long() - self.model_rank * n
+        ok = (loc >= 0) & (loc < n) & (labels >= 0)
+        g = torch.gather(logits, -1, loc.clamp(0, n - 1)[..., None])[..., 0]
+        g = torch.where(ok, g, torch.zeros((), dtype=g.dtype,
+                                           device=g.device))
+        return lse, C.reduce(g, self.mesh, "model", "activation", self.log)
+
+    # -- after the backward ------------------------------------------------
+
+    def reduce_grads(self, grads: Dict) -> Dict:
+        """Each adapter gradient (a partial sum over "model") all-reduced
+        over "model"; nothing crosses "data"."""
+        return {t: {k: C.all_reduce(g, self.mesh, "model", "adapter_grad",
+                                    self.log)
+                    for k, g in ab.items()} for t, ab in grads.items()}
+
+    def gather_metrics(self, *vecs: torch.Tensor) -> List[torch.Tensor]:
+        """The per-slot [Z/d] vectors gathered over "data" to [Z], in one
+        collective."""
+        both = torch.stack([v.float() for v in vecs], dim=-1)
+        full = C.all_gather(both, self.mesh, "data", 0, "metric", self.log)
+        return list(full.unbind(-1))
+
+
+def _weight_layouts(mesh,
+                    params: Dict) -> Dict[str, Dict[str, Optional[int]]]:
+    """{leaf name: {"data": dim, "model": dim}} of each DTensor parameter:
+    the negative tensor dim each axis splits (None: not split), the same
+    for a layer-stacked leaf and one layer's slice of it."""
+    names = axis_names(mesh)
+    out: Dict[str, Dict[str, Optional[int]]] = {}
+
+    def visit(path, leaf):
+        lay = {"data": None, "model": None}
+        if isinstance(leaf, DTensor):
+            for axis, p in zip(names, leaf.placements):
+                if isinstance(p, Shard) and axis in lay:
+                    lay[axis] = p.dim - leaf.ndim
+        out[str(path[-1])] = lay
+
+    _map_with_path(params, visit)
+    return out

@@ -5,8 +5,19 @@ The sharding policy (``launch/partitioning.py``) is installed through
 ``models/shardctx`` for the duration of each call, so the same model code
 runs with no policy in tests and annotated under the launcher. The wrapped
 step takes DTensors or plain tensors: a DTensor argument is replaced by its
-local shard (the kernels take plain tensors; on a one-rank mesh the shard
-is the whole tensor, so the step's in-place updates land in the DTensor).
+local shard (the kernels take plain tensors; the step's in-place updates
+land in the local shards).
+
+On a one-rank mesh the shards are whole and nothing moves. On a real
+multi-rank ("data", "model") mesh the train step runs sharded: the policy's
+``SpmdPlan`` reads the parameters' placements and the batch's global shape
+at each call and issues the collectives (``launch/collectives.py``);
+``partitioning.check_sharded`` refuses, with ``NotImplementedError``, what
+the sharded step does not run (the families other than dense, the DPO
+loss, the pod axis, a split that is not head-aligned), and the eval,
+prefill and serve steps raise on such a mesh. One schedule serves every
+opt level: the levels change only the recorded decisions and hints, and
+the numbers stay equal.
 """
 from __future__ import annotations
 
@@ -22,11 +33,18 @@ def _wrap(mesh, fn: Callable, seq_shard: bool = True, opt_level: int = 0,
           step_kind: str = "train") -> Callable:
     policy = PT.activation_policy(mesh, seq_shard=seq_shard,
                                   opt_level=opt_level, step_kind=step_kind)
+    plan = policy.spmd
 
     def wrapped(*args, **kw):
+        if plan is not None:       # (params, lora, opt, hp, active, ranks,
+            plan.bind(args[0], kw.get("batch", args[-1]))   # batch)
         args, kw = PT.local(list(args)), PT.local(kw)
-        with shardctx.sharding_policy(policy):
-            return fn(*args, **kw)
+        try:
+            with shardctx.sharding_policy(policy):
+                return fn(*args, **kw)
+        finally:
+            if plan is not None:
+                plan.end()
 
     wrapped.policy = policy
     return wrapped
@@ -35,6 +53,8 @@ def _wrap(mesh, fn: Callable, seq_shard: bool = True, opt_level: int = 0,
 def make_train_step(cfg: ModelConfig, mesh, *, loss_kind="sft",
                     remat: bool = True, seq_shard: bool = True,
                     opt_level: int = 0) -> Callable:
+    if PT._real_multi_rank(mesh):
+        PT.check_sharded(cfg, mesh, loss_kind)
     return _wrap(mesh, S.make_train_step(cfg, loss_kind=loss_kind,
                                          remat=remat), seq_shard, opt_level,
                  "train")

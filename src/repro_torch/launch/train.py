@@ -5,15 +5,28 @@ multi-LoRA train step with the production sharding rules on a mesh.
         --shape train_4k --steps 10 [--reduced] [--mesh dxm]
 
 The reference's flags (``python -m repro.launch.train``), plus ``--device``
-(the card by default; ``--device cpu`` runs on the CPU over gloo) and
-``--seed`` (the random weights, adapters and data). ``--reduced`` takes the
-tiny fp32 variant of the architecture at Z 4, b 2, S 64; otherwise Z and b
-come from the shape (``train_4k``: Z 64, b 4, S 4,096), and the step tries
-them as they are: nothing cuts Z. The mesh is a world-size-1 process group
-(NCCL on the card) under a ``DeviceMesh`` named ("data", "model"); the
-spec trees of ``launch/partitioning.py`` place every tensor, and the step
-runs on the local shards, which on one rank are whole. A mesh of more than
-one rank raises ``NotImplementedError``.
+(the card by default; ``--device cpu`` runs on the CPU), ``--backend``
+(``nccl`` or ``gloo``; the default is NCCL on the card, gloo on the CPU),
+``--ranks`` (per-slot adapter ranks, bound to the rank-local kernels),
+``--seed`` (the random weights, adapters and data) and ``--out`` (rank 0
+writes the per-slot losses and the updated adapters of every slot as
+``.npz``). ``--reduced`` takes the tiny fp32 variant of the architecture at
+Z 4, b 2, S 64; otherwise Z and b come from the shape (``train_4k``: Z 64,
+b 4, S 4,096), and the step tries them as they are: nothing cuts Z.
+
+``--mesh dxm`` runs over d·m ranks, started torchrun-style (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``); 1x1 needs
+none of them. Every rank builds the same full weights, adapters and batches
+from the seed, and ``partitioning.distribute`` keeps its shards: the slots
+of its data rank (Adapter Parallelism) and its blocks of the backbone over
+"model". Four ranks on the CPU:
+
+    for r in 0 1 2 3; do RANK=$r WORLD_SIZE=4 MASTER_ADDR=127.0.0.1 \\
+      MASTER_PORT=29511 PYTHONPATH=src python -m repro_torch.launch.train \\
+      --reduced --mesh 2x2 --steps 2 --device cpu --backend gloo & done; wait
+
+On one card shared by several ranks pass ``--backend gloo`` (NCCL takes one
+card a rank).
 
 ``run(cfg, Z, b, S, mesh, steps, ...)`` is the body, for callers that build
 their own config or mesh; ``main(argv)`` parses the flags and calls it.
@@ -22,11 +35,12 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
-from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import ASSIGNED, get_arch
@@ -42,36 +56,52 @@ from repro_torch.optim import adamw
 
 
 def build_mesh(spec: str, device=None):
-    """``--mesh dxm`` over the initialized process group. Only 1x1 runs:
-    sharded execution needs more than one card."""
+    """``--mesh dxm`` over the initialized process group (d·m ranks)."""
     d, m = (int(x) for x in spec.split("x"))
-    if d * m != 1:
-        raise NotImplementedError(PT.SHARDED_EXECUTION)
     return MESH.make_local_mesh((d, m), ("data", "model"), device=device)
 
 
+def _launch_counts() -> Dict[str, Dict[str, int]]:
+    """Every kernel's launch counter, by kernel set."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.grouped_lora import grouped_lora as GL
+    from repro_torch.kernels.grouped_lora import ragged as RG
+    from repro_torch.kernels.grouped_lora import ranklocal as RL
+    from repro_torch.kernels.linear_scan import linear_scan as LS
+    return {"dense": dict(GL.LAUNCHES), "ragged": dict(RG.LAUNCHES),
+            "rank-local": dict(RL.LAUNCHES), "flash": dict(FA.LAUNCHES),
+            "scan": dict(LS.LAUNCHES)}
+
+
 def run(cfg: ModelConfig, Z: int, b: int, S: int, mesh, steps: int, *,
-        lr: float = 1e-3, rank: int = 8, seed: int = 0, device=None,
+        lr: float = 1e-3, rank: int = 8,
+        ranks: Optional[Sequence[int]] = None, seed: int = 0, device=None,
         step_hook: Optional[Callable[[int, Dict, float], None]] = None,
         log: Callable[[str], None] = print) -> Dict:
     """``steps`` Adapter-Parallel train steps of ``cfg`` on ``mesh`` with
-    Z slots of b sequences of S tokens, every slot at ``min(rank, r_max)``.
-    ``step_hook(t, metrics, seconds)`` runs after each step. Returns
-    {"losses": per step the [Z] per-slot losses, "step_s": seconds per
-    step, "peak_gib": the card's peak allocated GiB over the steps (None
-    on the CPU)}."""
+    Z slots of b sequences of S tokens, every slot at ``min(rank, r_max)``,
+    or slot z at ``ranks[z]`` with the ranks bound (``slot_ranks``: the
+    rank-local kernels). ``step_hook(t, metrics, seconds)`` runs after each
+    step. Returns {"losses": per step the [Z] per-slot losses (all slots,
+    gathered over "data"), "step_s": seconds per step, "peak_gib": the
+    card's peak allocated GiB over the steps (None on the CPU), "lora":
+    this rank's updated adapters (its slots), "collectives": the records
+    the steps logged (``launch/collectives.py``), "launches": the kernel
+    launches of the steps, by set}."""
     dev = resolve_device(device)
-    if isinstance(mesh, DeviceMesh) and mesh.size() > 1:
-        raise NotImplementedError(PT.SHARDED_EXECUTION)
+    t_setup = time.perf_counter()
     log(f"arch={cfg.name} Z={Z} b={b} S={S} layers={cfg.num_layers} "
         f"mesh={MESH.axis_sizes(mesh)} devices="
         f"{torch.distributed.get_world_size()} device={dev}")
 
     params = M.init_params(cfg, seed=seed, device=dev)
-    ranks = torch.full((Z,), min(rank, cfg.lora.r_max), dtype=torch.int32,
-                       device=dev)
+    per_slot = [min(rank, cfg.lora.r_max)] * Z if ranks is None else \
+        list(ranks)
+    if len(per_slot) != Z:
+        raise ValueError(f"{len(per_slot)} ranks for {Z} slots")
+    ranks_t = torch.tensor(per_slot, dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    lora = LORA.init_lora_tree(gen, cfg, Z, ranks, M.target_shapes(cfg))
+    lora = LORA.init_lora_tree(gen, cfg, Z, ranks_t, M.target_shapes(cfg))
     opt = adamw.init_state(lora, Z)
     hp = adamw.SlotHParams.broadcast(Z, lr=lr, device=dev)
     active = torch.ones((Z,), dtype=torch.int32, device=dev)
@@ -79,13 +109,14 @@ def run(cfg: ModelConfig, Z: int, b: int, S: int, mesh, steps: int, *,
     def placed(tree, specs):
         return PT.distribute(mesh, tree, PT.to_named(mesh, specs))
 
-    l_specs = PT.lora_param_specs(mesh, lora)
-    o_specs = PT.opt_state_specs(mesh, opt)
+    l_named = PT.to_named(mesh, PT.lora_param_specs(mesh, lora))
+    o_named = PT.to_named(mesh, PT.opt_state_specs(mesh, opt))
     params = placed(params, PT.base_param_specs(mesh, params))
-    lora, opt = placed(lora, l_specs), placed(opt, o_specs)
+    lora = PT.distribute(mesh, lora, l_named)
+    opt = PT.distribute(mesh, opt, o_named)
     hp = placed(hp, PT.hp_specs(mesh, hp))
     v_spec = PT.pick_spec(mesh, (Z,), [{0: "data"}, {}])
-    active, ranks = (placed(t, v_spec) for t in (active, ranks))
+    active, ranks_t = (placed(t, v_spec) for t in (active, ranks_t))
 
     ds = make_task_dataset("launch", cfg.vocab_size, seq_len=S,
                            num_train=max(4 * Z * b, 64), difficulty=0.3,
@@ -97,16 +128,22 @@ def run(cfg: ModelConfig, Z: int, b: int, S: int, mesh, steps: int, *,
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     out: Dict = {"losses": [], "step_s": [], "peak_gib": None}
+    log(f"set-up {time.perf_counter() - t_setup:.2f} s (weights, adapters, "
+        f"placement)")
+    before = _launch_counts()
     for t in range(steps):
         tokens, labels = batcher.next_batch()
         batch = {"tokens": torch.as_tensor(tokens, device=dev),
                  "labels": torch.as_tensor(labels, device=dev)}
         batch = placed(batch, PT.batch_specs(mesh, batch))
+        if ranks is not None:
+            batch["slot_ranks"] = ranks_t
         t0 = time.perf_counter()
-        lora, opt, metrics = step(params, lora, opt, hp, active, ranks,
+        lora, opt, metrics = step(params, lora, opt, hp, active, ranks_t,
                                   batch)
         # the step updated the local shards in place and returns them
-        lora, opt = placed(lora, l_specs), placed(opt, o_specs)
+        lora = PT.from_local(mesh, lora, l_named)
+        opt = PT.from_local(mesh, opt, o_named)
         loss = metrics["per_slot_loss"].float().cpu()   # waits for the card
         dt = time.perf_counter() - t0
         out["losses"].append(loss.tolist())
@@ -115,12 +152,69 @@ def run(cfg: ModelConfig, Z: int, b: int, S: int, mesh, steps: int, *,
             f"{[round(v, 3) for v in loss.tolist()]}")
         if step_hook is not None:
             step_hook(t, metrics, dt)
+    after = _launch_counts()
+    out["launches"] = {fam: {k: after[fam][k] - before[fam][k] for k in ks}
+                       for fam, ks in after.items()}
+    records = step.policy.spmd.log if step.policy.spmd is not None else []
+    out["collectives"] = list(records)
     if on_card:
         out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         log(f"peak {out['peak_gib']:.2f} GiB allocated")
     out["policy_decisions"] = len(step.policy.decisions)
+    out["lora"] = PT.local(lora)
+    log(f"launches {json.dumps(out['launches'])}")
+    log(f"collective bytes {json.dumps(collective_bytes(records))}")
+    log(f"collective shapes {json.dumps(collective_shapes(records))}")
     log("done")
     return out
+
+
+def collective_bytes(records) -> Dict[str, Dict[str, int]]:
+    """{axis: {role: bytes}} of collective records."""
+    out: Dict[str, Dict[str, int]] = {}
+    for r in records:
+        by_role = out.setdefault(r.axis, {})
+        by_role[r.role] = by_role.get(r.role, 0) + r.bytes
+    return out
+
+
+def collective_shapes(records) -> list:
+    """The distinct [axis, role, kind, last dim] of collective records."""
+    return sorted({(r.axis, r.role, r.kind, r.shape[-1] if r.shape else 0)
+                   for r in records})
+
+
+def write_out(path: str, mesh, res: Dict) -> None:
+    """Rank 0 writes ``path`` (.npz): "losses" [steps, Z] and each
+    adapter leaf "lora/<target>/<A|B>" [L, Z, ...] of every slot. The
+    first model rank of each other data rank leaves its slots in a file
+    beside it, which rank 0 merges and removes (a file, so that no adapter
+    crosses the data axis)."""
+    import numpy as np
+    sizes = MESH.axis_sizes(mesh)
+    d = sizes.get("data", 1)
+    me = mesh.get_local_rank("data") if d > 1 else 0
+    first = sizes.get("model", 1) == 1 or mesh.get_local_rank("model") == 0
+    mine = ({f"lora/{t}/{k}": v.detach().float().cpu().numpy()
+             for t, ab in res["lora"].items() for k, v in ab.items()}
+            if first else {})
+    losses = np.asarray(res["losses"], np.float32)
+    parts = [f"{path}.data{i}.npz" for i in range(d)]
+    if d == 1:
+        if first:
+            np.savez(path, losses=losses, **mine)
+        return
+    if first and me:
+        np.savez(parts[me], **mine)
+    torch.distributed.barrier()
+    if torch.distributed.get_rank() == 0:
+        got = [mine] + [dict(np.load(p)) for p in parts[1:]]
+        np.savez(path, losses=losses,
+                 **{k: np.concatenate([g[k] for g in got], axis=1)
+                    for k in mine})
+        for p in parts[1:]:
+            os.remove(p)
+    torch.distributed.barrier()
 
 
 def main(argv=None) -> Dict:
@@ -134,9 +228,18 @@ def main(argv=None) -> Dict:
     ap.add_argument("--mesh", default="1x1")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--rank", type=int, default=8)
+    ap.add_argument("--ranks", default=None,
+                    help="per-slot ranks, comma-separated (binds them)")
+    ap.add_argument("--slots", type=int, default=None, help="override Z")
+    ap.add_argument("--batch", type=int, default=None, help="override b")
+    ap.add_argument("--seq", type=int, default=None, help="override S")
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' runs on the CPU")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="default: nccl on the card, gloo on the CPU")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None,
+                    help="rank 0 writes losses and adapters here (.npz)")
     args = ap.parse_args(argv)
 
     cfg = get_arch(args.arch)
@@ -147,10 +250,16 @@ def main(argv=None) -> Dict:
     else:
         Z, b = shape.decompose()
         S = shape.seq_len
-    with MESH.process_group(args.device) as dev:
+    Z, b, S = args.slots or Z, args.batch or b, args.seq or S
+    ranks = ([int(r) for r in args.ranks.split(",")] if args.ranks
+             else None)
+    with MESH.process_group(args.device, backend=args.backend) as dev:
         mesh = build_mesh(args.mesh, dev)
-        return run(cfg, Z, b, S, mesh, args.steps, lr=args.lr,
-                   rank=args.rank, seed=args.seed, device=dev)
+        res = run(cfg, Z, b, S, mesh, args.steps, lr=args.lr,
+                  rank=args.rank, ranks=ranks, seed=args.seed, device=dev)
+        if args.out:
+            write_out(args.out, mesh, res)
+    return res
 
 
 if __name__ == "__main__":

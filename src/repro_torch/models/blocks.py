@@ -180,19 +180,25 @@ def attn_sublayer(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
                   write_mask: Optional[torch.Tensor] = None,
                   window: int = 0, scale=2.0) -> torch.Tensor:
     """x: [Z,b,S,d] (normed) -> attention output [Z,b,S,d]; the layer's
-    K/V are written into ``cache`` in place when ``write_index`` is set."""
-    Z, b, S, _ = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    K/V are written into ``cache`` in place when ``write_index`` is set.
+    Sharded over "model" (``shardctx.spmd()``), x holds this rank's
+    sequence block and the heads are this rank's H/m and KV/m: the
+    column-parallel q/k/v read the whole sequence, and the output is the
+    row-parallel o_proj's partial sum."""
+    Z, b = x.shape[:2]
+    hd = cfg.resolved_head_dim
 
     def lp(t):
         return lora_at(lora, t, layer)
 
-    q = proj(x, p["q_proj"], lp("q_proj"), scale,
-             name="q_proj").reshape(Z, b, S, H, hd)
+    q = proj(x, p["q_proj"], lp("q_proj"), scale, name="q_proj")
+    S = q.shape[2]
+    q = q.reshape(Z, b, S, -1, hd)
     k = proj(x, p["k_proj"], lp("k_proj"), scale,
-             name="k_proj").reshape(Z, b, S, KV, hd)
+             name="k_proj").reshape(Z, b, S, -1, hd)
     v = proj(x, p["v_proj"], lp("v_proj"), scale,
-             name="v_proj").reshape(Z, b, S, KV, hd)
+             name="v_proj").reshape(Z, b, S, -1, hd)
+    H = q.shape[3]
     if S > 1 and get_hint("opt_level", 0) >= 2:
         # q/k/v sequence-sharded through the token-local projections and
         # rope; attention re-constrains them to its head layout

@@ -13,7 +13,10 @@ contract the JAX package keeps with whole-cache selects.
 
 The sharding hints (``models/shardctx``) sit where the reference's do
 (``model.py:67-80,189-200``): the embedded residual stream, the
-``lm_head`` weight and the logits.
+``lm_head`` weight and the logits. On a real multi-rank mesh they issue
+the sharded train step's collectives (``launch/partitioning.py``); a
+remat recompute re-issues its layer's collectives, in the same order on
+every rank.
 """
 from __future__ import annotations
 
@@ -83,7 +86,12 @@ def _train_window(cfg: ModelConfig) -> int:
 def _embed(params: Dict, tokens: torch.Tensor,
            modal_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token embeddings [Z,b,S,d]; ``modal_embeds`` ([Z,b,P,d], the stub
-    modality encoder's output) replace the first P positions."""
+    modality encoder's output) replace the first P positions. Sharded
+    (``shardctx.spmd()``), the lookup is vocabulary-parallel and the
+    "residual" constraint reduce-scatters it along S over "model"."""
+    sp = shardctx.spmd()
+    if sp is not None:
+        return constrain(sp.embed(params["embed"], tokens), "residual")
     x = params["embed"][tokens.long()]                     # [Z,b,S,d]
     if modal_embeds is not None:
         P = modal_embeds.shape[2]
@@ -216,7 +224,14 @@ def per_slot_xent(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
 
     Returns (sum_nll [Z] fp32, token_count [Z] fp32). The logits of one
     sequence chunk at a time are computed in the hidden dtype and taken to
-    fp32, as the JAX package's scan over chunks does."""
+    fp32, as the JAX package's scan over chunks does. Sharded
+    (``shardctx.spmd()``), the hidden states are gathered along S over
+    "model" and each rank's logits cover its vocabulary block: the
+    log-sum-exp and the gold logit are all-reduced over "model" per
+    chunk."""
+    sp = shardctx.spmd()
+    if sp is not None:
+        hidden = sp.columns(hidden)
     Z, b, S, d = hidden.shape
     W = (params["lm_head"] if not cfg.tie_embeddings
          else params["embed"].T)
@@ -229,9 +244,12 @@ def per_slot_xent(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
     for i in range(0, S, c):
         lab = labels[:, :, i:i + c]
         logits = constrain((hidden[:, :, i:i + c] @ W).float(), "logits")
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            lab.clamp_min(0).long()[..., None])[..., 0]
+        if sp is not None:
+            lse, gold = sp.xent(logits, lab)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1,
+                                lab.clamp_min(0).long()[..., None])[..., 0]
         mask = (lab >= 0).float()
         s = s + ((lse - gold) * mask).sum(dim=(1, 2))
         cnt = cnt + mask.sum(dim=(1, 2))

@@ -6,8 +6,11 @@ is installed (single-device runs and tests) and ``policy(x, kind)``
 otherwise: the launcher's policy (``launch/partitioning.py``) resolves the
 sharding the reference's ``jax.lax.with_sharding_constraint`` would apply,
 records it, and on a one-rank mesh returns the same tensor (no tensor
-moves). Policies are divisibility-aware: a constraint whose sharded dim does
-not divide by the mesh axis size degrades to replicated on that dim.
+moves). On a real multi-rank mesh the policy carries the step's
+``SpmdPlan`` (``spmd()``), through which the model issues the collectives
+of tensor and sequence parallelism on its local shards. Policies are
+divisibility-aware: a constraint whose sharded dim does not divide by the
+mesh axis size degrades to replicated on that dim.
 
 The state is thread-local, as the reference's. A layer recomputed in the
 backward pass (remat) may run in autograd's own thread, so the model takes
@@ -68,6 +71,12 @@ def sharding_policy(policy: Callable, hints: Optional[dict] = None):
     finally:
         _state.policy = prev
         _state.hints = prev_hints
+
+
+def spmd():
+    """The installed policy's ``SpmdPlan`` (``launch/partitioning.py``):
+    None unless the step runs sharded on a real multi-rank mesh."""
+    return getattr(_policy(), "spmd", None)
 
 
 def current():

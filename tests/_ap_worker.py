@@ -1,0 +1,140 @@
+"""One rank of the port's side of ``tests/test_torch_ap.py``: a 4-rank gloo
+group on the CPU, started torchrun-style (``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``).
+
+    python tests/_ap_worker.py <workdir>
+
+Reads ``<workdir>/init.npz`` (the reference's weights, adapters and
+batches) and writes, rank 0 for the group:
+  * ``port_<d>x<m>.npz`` — 3 steps of ``steps_dist.make_train_step`` on
+    each mesh of ``PORT_MESHES`` (losses and every slot's adapters, merged
+    over "data" by ``launch.train.write_out``); ``port_2x2_opt2.npz`` at
+    opt level 2; ``port_2x2_div.npz`` with the example's diverging lrs and
+    no clipping over ``DIVERGE_STEPS`` steps, and ``port_2x2_div_ctl.npz``
+    with slot 3 at 3e-3;
+  * ``log_<d>x<m>_rank<r>.json`` — each rank's collective records of the
+    opt-level-0 run on each mesh;
+  * ``refusals.json`` — the ``NotImplementedError`` message of each
+    family other than dense on the 2x2 mesh, of glm4-9b's 2 KV heads over
+    a 4-way model axis, and of a prefill step on the 2x2 mesh.
+"""
+import dataclasses
+import json
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+
+from repro_torch import bridge  # noqa: E402
+from repro_torch.configs.registry import get_arch  # noqa: E402
+from repro_torch.launch import mesh as MESH  # noqa: E402
+from repro_torch.launch import partitioning as PT  # noqa: E402
+from repro_torch.launch import steps_dist as SD  # noqa: E402
+from repro_torch.launch import train as TRAIN  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from tests import _ap_common as common  # noqa: E402
+
+OTHER_FAMILIES = {"moe": "granite-moe-1b-a400m", "ssm": "rwkv6-3b",
+                  "hybrid": "hymba-1.5b", "vlm": "qwen2-vl-72b",
+                  "audio": "musicgen-medium"}
+
+
+def train(cfg, init, mesh, *, lrs=None, clip=1.0, opt_level=0,
+          steps=common.STEPS):
+    Z = common.Z
+    params = bridge.params_from_numpy(cfg, common.unflat(init, "params/"),
+                                      "cpu")
+    lora = bridge.lora_from_numpy(common.unflat(init, "lora/"), "cpu")
+    opt = adamw.init_state(lora, Z)
+    hp = adamw.SlotHParams.broadcast(Z, lr=common.LR, grad_clip=clip)
+    for slot, lr in enumerate(lrs or ()):
+        hp = hp.replace_slot(slot, lr=lr)
+    ranks = torch.tensor(common.RANKS, dtype=torch.int32)
+    active = torch.ones((Z,), dtype=torch.int32)
+
+    def placed(tree, specs):
+        return PT.distribute(mesh, tree, PT.to_named(mesh, specs))
+
+    l_named = PT.to_named(mesh, PT.lora_param_specs(mesh, lora))
+    o_named = PT.to_named(mesh, PT.opt_state_specs(mesh, opt))
+    params = placed(params, PT.base_param_specs(mesh, params))
+    lora = PT.distribute(mesh, lora, l_named)
+    opt = PT.distribute(mesh, opt, o_named)
+    hp = placed(hp, PT.hp_specs(mesh, hp))
+    v_spec = PT.pick_spec(mesh, (Z,), [{0: "data"}, {}])
+    active, ranks = (placed(t, v_spec) for t in (active, ranks))
+    step = SD.make_train_step(cfg, mesh, opt_level=opt_level)
+    losses = []
+    for t in range(steps):
+        i = t % common.STEPS
+        batch = {"tokens": torch.from_numpy(init["tokens"][i]),
+                 "labels": torch.from_numpy(init["labels"][i])}
+        batch = placed(batch, PT.batch_specs(mesh, batch))
+        lora, opt, metrics = step(params, lora, opt, hp, active, ranks,
+                                  batch)
+        lora = PT.from_local(mesh, lora, l_named)
+        opt = PT.from_local(mesh, opt, o_named)
+        losses.append(metrics["per_slot_loss"].numpy())
+    return {"losses": np.stack(losses), "lora": PT.local(lora),
+            "log": [dataclasses.asdict(r) for r in step.policy.spmd.log]}
+
+
+def refusal(fn) -> str:
+    try:
+        fn()
+    except NotImplementedError as e:
+        return str(e)
+    return ""
+
+
+def main(workdir: str) -> None:
+    torch.set_num_threads(1)
+    init = dict(np.load(os.path.join(workdir, "init.npz")))
+    cfg = common.port_config()
+    with MESH.process_group("cpu", backend="gloo"):
+        me = dist.get_rank()
+        meshes = {s: MESH.make_local_mesh(s, device="cpu")
+                  for s in common.PORT_MESHES + ((1, 4),)}
+
+        def save(name, res, mesh):
+            TRAIN.write_out(os.path.join(workdir, name), mesh, res)
+
+        for shape in common.PORT_MESHES:
+            res = train(cfg, init, meshes[shape])
+            tag = "%dx%d" % shape
+            save(f"port_{tag}.npz", res, meshes[shape])
+            with open(os.path.join(workdir, f"log_{tag}_rank{me}.json"),
+                      "w") as f:
+                json.dump(res["log"], f)
+        m22 = meshes[(2, 2)]
+        save("port_2x2_opt2.npz", train(cfg, init, m22, opt_level=2), m22)
+        div = dict(clip=0.0, steps=common.DIVERGE_STEPS)
+        save("port_2x2_div.npz", train(cfg, init, m22,
+                                       lrs=common.DIVERGE_LRS, **div), m22)
+        ctl = common.DIVERGE_LRS[:3] + (common.LR,)
+        save("port_2x2_div_ctl.npz", train(cfg, init, m22, lrs=ctl, **div),
+             m22)
+        msgs = {fam: refusal(lambda: SD.make_train_step(get_arch(arch), m22))
+                for fam, arch in OTHER_FAMILIES.items()}
+        msgs["glm4-9b at model 4"] = refusal(
+            lambda: SD.make_train_step(get_arch("glm4-9b"), meshes[(1, 4)]))
+        msgs["prefill"] = refusal(
+            lambda: SD.make_prefill_step(cfg, m22)(
+                {"embed": PT.distribute(m22, torch.zeros(cfg.vocab_size,
+                                                         cfg.d_model),
+                                        PT.placements(m22, PT.P()))},
+                {}, None, {"tokens": torch.zeros(4, 1, 8, dtype=torch.int32)}))
+        if me == 0:
+            with open(os.path.join(workdir, "refusals.json"), "w") as f:
+                json.dump(msgs, f)
+        dist.barrier()
+    print("done")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1])

@@ -1,0 +1,344 @@
+"""PyTorch port: Adapter Parallelism on a real multi-rank mesh — the
+launcher's sharded train step over ("data", "model") ranks, held against
+the JAX package's GSPMD step on 4 forced CPU devices.
+
+The shared setting is ``examples/adapter_parallel.py``'s: reduced
+paper-llama-tiny (2 layers, d 128, 4 heads, vocab 512) in fp32, Z 4, b 4,
+S 32, ranks [8, 8, 4, 4], 3 steps, the reference's init (this process)
+handed to both sides through ``init.npz``. The reference runs in a
+subprocess with ``--xla_force_host_platform_device_count=4``
+(``tests/_ap_reference.py``; this worker's JAX is already initialised with
+one device), the port as 4 gloo processes on the CPU
+(``tests/_ap_worker.py``), and the launcher's CLI as 4 more; all start
+together in one module fixture.
+
+(a) The 2x2 and 4x1 sharded steps against the reference's on the same mesh:
+    per-slot losses of every step within 1e-5 relative; every updated
+    adapter leaf within rtol 1e-5 / atol 1e-6 but for a few entries a leaf
+    (``ADAM_SHARE``), each within 2 lr a step of the reference's. Why sum
+    order needs that: AdamW's step m / (sqrt(v) + eps) is about lr times
+    the sign of a gradient entry near zero, so a last-bit difference in
+    such an entry moves the updated entry by up to 2 lr a step. The
+    reference differs from itself the same way between its 1x1 and 2x2
+    meshes (asserted here).
+(b) The AP invariant, from the collective log of every rank: the data axis
+    carries only "base_weight" all-gathers and the one [Z] "metric"
+    gather; no "adapter_grad" collective and no collective whose last dim
+    is r_max crosses it; the model axis all-reduces the adapter gradients
+    (2x2), and a 1-wide model axis carries nothing (4x1).
+(c) The example's lrs [3e-3, 1e-3, 1e-2, 300] with no clipping, 6 steps
+    (the batches cycled): slot 3 diverges, and slots 0-2 are bit for bit
+    those of a run whose slot 3 has lr 3e-3 — slot isolation across and
+    within ranks.
+(d) Opt levels 0 and 2 agree within rtol 2e-4 on the 2x2 mesh (one
+    schedule: they are in fact equal); the one-rank step (this process, a
+    one-rank gloo group) agrees with the 2x2 and 4x1 steps within (a)'s
+    bars.
+(e) The families other than dense, glm4-9b's 2 KV heads over a 4-way model
+    axis (a split that is not head-aligned) and a prefill step raise
+    ``NotImplementedError`` on a real mesh, naming what they refuse.
+(f) ``launch.train.main(["--reduced", "--mesh", "2x2", "--steps", "2",
+    "--backend", "gloo", "--device", "cpu"])`` runs under 4 spawned
+    processes.
+(g) The dry run's data-axis weight gathers for the same config and 2x2
+    mesh (``launch/dryrun.py`` on a fake 4-rank group) equal, byte for
+    byte, what the 2x2 step logged per step.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import lora as JLORA
+from repro.data.synthetic import SlotBatcher, make_task_dataset
+from repro.models import model as JM
+from repro_torch import bridge
+from repro_torch.configs.base import KIND_TRAIN, ShapeConfig
+from repro_torch.launch import dryrun as DR
+from repro_torch.launch import mesh as TMESH
+from repro_torch.launch import steps_dist as TSD
+from repro_torch.optim import adamw as TAD
+from tests import _ap_common as common
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LOSS = dict(rtol=1e-5, atol=0.0)
+LEAF = dict(rtol=1e-5, atol=1e-6)
+ADAM_SHARE = 0.002          # entries of a leaf allowed past LEAF
+ADAM_BOUND = 2 * common.LR * common.STEPS
+TIMEOUT = 600
+
+
+def _env(**kw):
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src"), ROOT]))
+    env.update(kw)
+    return env
+
+
+def _ranks(cmd, n, port, log_dir, tag):
+    """``n`` processes of ``cmd``, torchrun-style, output to files."""
+    procs = []
+    for r in range(n):
+        out = open(os.path.join(log_dir, f"{tag}{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            cmd, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT,
+            env=_env(RANK=str(r), WORLD_SIZE=str(n), LOCAL_RANK=str(r),
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))), out))
+    return procs
+
+
+def _init(work):
+    jcfg = common.jax_config()
+    key = jax.random.PRNGKey(0)
+    params = JM.init_params(key, jcfg)
+    ranks = jnp.asarray(common.RANKS)
+    lora = JLORA.init_lora_tree(key, jcfg, common.Z, ranks,
+                                JM.target_shapes(jcfg))
+    ds = make_task_dataset("ap-demo", jcfg.vocab_size, seq_len=common.S,
+                           num_train=64, difficulty=0.25)
+    batcher = SlotBatcher(ds, common.Z, common.B)
+    toks, labs = zip(*(batcher.next_batch() for _ in range(common.STEPS)))
+    np_ = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    np.savez(os.path.join(work, "init.npz"),
+             **common.flat(np_(params), "params/"),
+             **common.flat(np_(lora), "lora/"),
+             tokens=np.stack(toks), labels=np.stack(labs))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    work = str(tmp_path_factory.mktemp("ap"))
+    _init(work)
+    jax_proc = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "tests", "_ap_reference.py"),
+         work], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True,
+        env=_env(JAX_PLATFORMS="cpu",
+                 XLA_FLAGS="--xla_force_host_platform_device_count=4"))
+    workers = _ranks([sys.executable, os.path.join(ROOT, "tests",
+                                                   "_ap_worker.py"), work],
+                     4, TMESH.free_port(), work, "worker")
+    cli = _ranks([sys.executable, "-m", "repro_torch.launch.train",
+                  "--reduced", "--mesh", "2x2", "--steps", "2", "--backend",
+                  "gloo", "--device", "cpu"], 4, TMESH.free_port(), work,
+                 "cli")
+    jax_out = jax_proc.communicate(timeout=TIMEOUT)[0]
+    codes = {}
+    for tag, procs in (("worker", workers), ("cli", cli)):
+        for r, (p, f) in enumerate(procs):
+            codes[f"{tag}{r}"] = p.wait(timeout=TIMEOUT)
+            f.close()
+
+    def text(name):
+        with open(os.path.join(work, f"{name}.log")) as f:
+            return f.read()
+
+    assert jax_proc.returncode == 0, jax_out
+    for name, rc in codes.items():
+        if name.startswith("worker"):
+            assert rc == 0, text(name)
+    return {"dir": work, "codes": codes, "text": text}
+
+
+def _load(runs, name):
+    return dict(np.load(os.path.join(runs["dir"], name)))
+
+
+def _leaves(d):
+    return sorted(k for k in d if k.startswith("lora/"))
+
+
+def _adapters_close(got, want, what):
+    """(a)'s bar on every adapter leaf; returns the largest share of
+    entries past LEAF."""
+    worst = 0.0
+    assert _leaves(got) == _leaves(want)
+    for k in _leaves(want):
+        a, b = got[k], want[k]
+        assert a.shape == b.shape, (what, k)
+        past = np.abs(a - b) > LEAF["atol"] + LEAF["rtol"] * np.abs(b)
+        worst = max(worst, past.mean())
+        assert past.mean() <= ADAM_SHARE, (what, k, past.mean())
+        np.testing.assert_allclose(a, b, rtol=0, atol=ADAM_BOUND,
+                                   err_msg=f"{what} {k}")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# (a) against the reference's GSPMD step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mesh", ["2x2", "4x1"])
+def test_sharded_step_matches_the_reference(runs, mesh):
+    got = _load(runs, f"port_{mesh}.npz")
+    want = _load(runs, f"jax_{mesh}.npz")
+    assert got["losses"].shape == (common.STEPS, common.Z)
+    np.testing.assert_allclose(got["losses"], want["losses"], **LOSS)
+    _adapters_close(got, want, f"port {mesh} vs reference {mesh}")
+
+
+def test_the_reference_moves_with_its_own_sum_order(runs):
+    """The reference's 2x2 mesh against its 1x1: the same kind of
+    differences as (a)'s, within the same bars."""
+    one, four = _load(runs, "jax_1x1.npz"), _load(runs, "jax_2x2.npz")
+    np.testing.assert_allclose(four["losses"], one["losses"], **LOSS)
+    _adapters_close(four, one, "reference 2x2 vs 1x1")
+
+
+# ---------------------------------------------------------------------------
+# (b) the AP invariant from the collective log
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mesh", ["2x2", "4x1"])
+def test_no_adapter_collective_crosses_the_data_axis(runs, mesh):
+    r_max = common.port_config().lora.r_max
+    d, m = (int(x) for x in mesh.split("x"))
+    for r in range(4):
+        with open(os.path.join(runs["dir"], f"log_{mesh}_rank{r}.json")) as f:
+            log = json.load(f)
+        data = [c for c in log if c["axis"] == "data"]
+        model = [c for c in log if c["axis"] == "model"]
+        assert {c["role"] for c in data} == {"base_weight", "metric"}
+        assert all(c["kind"] == "all-gather" for c in data)
+        metric = [c for c in data if c["role"] == "metric"]
+        assert len(metric) == common.STEPS
+        assert all(c["shape"][0] == common.Z for c in metric)
+        assert not any(c["shape"][-1] == r_max for c in data)
+        if m == 1:
+            assert not model
+            continue
+        grads = [c for c in model if c["role"] == "adapter_grad"]
+        assert grads and all(c["kind"] == "all-reduce" for c in grads)
+        assert len(grads) == common.STEPS * 14      # 7 targets x (A, B)
+        assert {c["role"] for c in model} == {"activation", "adapter_grad"}
+
+
+# ---------------------------------------------------------------------------
+# (c) slot isolation
+# ---------------------------------------------------------------------------
+
+def test_a_diverging_slot_leaves_the_others_bitwise(runs):
+    div = _load(runs, "port_2x2_div.npz")
+    ctl = _load(runs, "port_2x2_div_ctl.npz")
+    last = div["losses"][-1]
+    # the example's reading: slot 3 no longer learns while slot 0 does,
+    # and its adapters blow up (AdamW at lr 300 with decay 0.01 doubles
+    # them each step)
+    assert not np.isfinite(last[3]) or last[3] > last[0], div["losses"]
+    big = np.abs(div["lora/q_proj/B"][:, 3]).max()
+    assert big > 1e4 * np.abs(div["lora/q_proj/B"][:, :3]).max(), big
+    assert np.array_equal(div["losses"][:, :3], ctl["losses"][:, :3])
+    for k in _leaves(ctl):
+        assert np.array_equal(div[k][:, :3], ctl[k][:, :3]), k
+        assert not np.array_equal(div[k][:, 3], ctl[k][:, 3]), k
+
+
+# ---------------------------------------------------------------------------
+# (d) opt levels, and one rank against many
+# ---------------------------------------------------------------------------
+
+def _one_rank(init, tmp_path):
+    cfg = common.port_config()
+    with TMESH.process_group("cpu", f"file://{tmp_path / 'pg'}"):
+        mesh = TMESH.make_local_mesh((1, 1), device="cpu")
+        params = bridge.params_from_numpy(cfg, common.unflat(init,
+                                                             "params/"),
+                                          "cpu")
+        lora = bridge.lora_from_numpy(common.unflat(init, "lora/"), "cpu")
+        opt = TAD.init_state(lora, common.Z)
+        hp = TAD.SlotHParams.broadcast(common.Z, lr=common.LR)
+        ranks = torch.tensor(common.RANKS, dtype=torch.int32)
+        active = torch.ones((common.Z,), dtype=torch.int32)
+        step = TSD.make_train_step(cfg, mesh)
+        losses = []
+        for t in range(common.STEPS):
+            batch = {"tokens": torch.from_numpy(init["tokens"][t]),
+                     "labels": torch.from_numpy(init["labels"][t])}
+            lora, opt, m = step(params, lora, opt, hp, active, ranks, batch)
+            losses.append(m["per_slot_loss"].numpy())
+    out = {"losses": np.stack(losses)}
+    out.update({f"lora/{t}/{k}": v.numpy() for t, ab in lora.items()
+                for k, v in ab.items()})
+    return out
+
+
+def test_opt_levels_and_one_rank_agree(runs, tmp_path):
+    base, opt2 = _load(runs, "port_2x2.npz"), _load(runs, "port_2x2_opt2.npz")
+    np.testing.assert_allclose(opt2["losses"], base["losses"], rtol=2e-4)
+    for k in _leaves(base):
+        np.testing.assert_allclose(opt2[k], base[k], rtol=2e-4, atol=1e-7)
+    one = _one_rank(_load(runs, "init.npz"), tmp_path)
+    np.testing.assert_allclose(base["losses"], one["losses"], **LOSS)
+    _adapters_close(base, one, "port 2x2 vs port 1x1")
+    four = _load(runs, "port_4x1.npz")
+    np.testing.assert_allclose(four["losses"], one["losses"], **LOSS)
+    _adapters_close(four, one, "port 4x1 vs port 1x1")
+
+
+# ---------------------------------------------------------------------------
+# (e) what a real mesh refuses
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("what,names", [
+    ("moe", ("moe", "granite-moe-1b-a400m")),
+    ("ssm", ("ssm", "rwkv6-3b")),
+    ("hybrid", ("hybrid", "hymba-1.5b")),
+    ("vlm", ("vlm", "qwen2-vl-72b")),
+    ("audio", ("audio", "musicgen-medium")),
+    ("glm4-9b at model 4", ("glm4-9b", "kv heads", "k_proj")),
+    ("prefill", ("prefill",)),
+])
+def test_unported_splits_raise_by_name(runs, what, names):
+    with open(os.path.join(runs["dir"], "refusals.json")) as f:
+        msg = json.load(f)[what]
+    assert msg, f"{what}: no NotImplementedError"
+    for n in names:
+        assert n in msg, (what, msg)
+    assert "ROADMAP.md" in msg or what.startswith("glm4")
+
+
+# ---------------------------------------------------------------------------
+# (f) the launcher's CLI over 4 ranks
+# ---------------------------------------------------------------------------
+
+def test_the_launcher_runs_on_four_ranks(runs):
+    for r in range(4):
+        text = runs["text"](f"cli{r}")
+        assert runs["codes"][f"cli{r}"] == 0, text
+        assert "mesh={'data': 2, 'model': 2} devices=4" in text
+        lines = [ln for ln in text.splitlines() if ln.startswith("step")]
+        assert len(lines) == 2, text
+        losses = [float(v) for v in
+                  lines[-1].split("[")[1].rstrip("]").split(",")]
+        assert len(losses) == 4 and all(np.isfinite(losses))
+        assert text.rstrip().endswith("done")
+
+
+# ---------------------------------------------------------------------------
+# (g) the dry run's data-axis gathers against the logged ones
+# ---------------------------------------------------------------------------
+
+def test_dryrun_data_gathers_equal_the_logged_bytes(runs):
+    cfg = common.port_config()
+    shape = ShapeConfig("ap_train", common.S, common.Z * common.B,
+                        KIND_TRAIN, num_slots=common.Z,
+                        per_adapter_batch=common.B)
+    with TMESH.fake_group(4):
+        mesh = TMESH.DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                                mesh_dim_names=("data", "model"))
+        low = DR.lower_step(cfg, shape, mesh)
+    want = sum(op.result_bytes * op.trip_count for op in low.collectives
+               if op.line.startswith("data: weight"))
+    for r in range(4):
+        with open(os.path.join(runs["dir"], f"log_2x2_rank{r}.json")) as f:
+            log = json.load(f)
+        got = sum(c["bytes"] for c in log
+                  if c["axis"] == "data" and c["role"] == "base_weight")
+        assert got == want * common.STEPS, (got / common.STEPS, want)
+    assert want > 0

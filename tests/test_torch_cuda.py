@@ -1127,3 +1127,54 @@ def test_cuda_fp32_kernels_refuse_a_plan():
         RL.xa(x, A, None, torch.full((2,), 16, dtype=torch.int32,
                                      device="cuda"), plan=AT.PLAN_SET[0])
     assert torch.equal(GL.xa(x, A), GL.xa(x, A, plan=None))
+
+
+_CARD_SHARE = """
+import sys, torch, torch.distributed as dist
+from repro_torch.launch import collectives as C
+rank, init = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2)
+g = dist.group.WORLD
+gen = torch.Generator().manual_seed(rank)
+for dt in (torch.float32, torch.bfloat16):
+    # larger than a workspace, so the chunks are exercised
+    n = C.WORKSPACE_BYTES // 2 + 37
+    x = torch.randn(2 * n, generator=gen).to(dt)
+    card, host = x.to("cuda"), x
+    assert C._card_share(g, card) is not None
+    assert C._card_share(g, host) is None
+    for name, fn in (("gather", lambda t: C._gather(t, 0, g)),
+                     ("sum", lambda t: C._sum(t.float(), g).to(dt)),
+                     ("max", lambda t: C._sum(t, g, dist.ReduceOp.MAX)),
+                     ("scatter", lambda t: C._scatter(t.float(), 0, g)
+                      .to(dt))):
+        a, b = fn(card).cpu(), fn(host)
+        assert torch.equal(a, b), (name, dt, (a - b).abs().max())
+C.release_shares()
+dist.destroy_process_group()
+print("ok")
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_card_share_collectives_equal_gloo_on_the_host(tmp_path):
+    """Two gloo ranks on one card: the card-memory data path
+    (``collectives._CardShare``) gives the host gloo path's bits for an
+    all-gather, a sum, a max and a reduce-scatter, in chunks larger than a
+    workspace, fp32 and bf16 (the sums taken in fp32 on both paths)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (CUDA IPC has no CPU mode)")
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    init = f"file://{tmp_path / 'pg'}"
+    procs = [subprocess.Popen([sys.executable, "-c", _CARD_SHARE, str(r),
+                               init], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in (0, 1)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0 and out.strip().endswith("ok"), out

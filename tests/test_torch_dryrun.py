@@ -7,9 +7,9 @@ Adapter Parallelism vs FSDP (``launch/sharding_variants.py``).
     ``tests/test_torch_launch.py``, whose port trees it builds).
 (b) The fake group: a mesh over ``fake_group`` passes the activation
     policy's guard (``distribute`` still refuses it); a real two-rank gloo
-    mesh (two processes) still raises ``NotImplementedError`` in
-    ``activation_policy`` and ``distribute``; the group refuses a second
-    one and is destroyed after a failure.
+    mesh (two processes) distributes, steps and agrees with one rank, and
+    still raises ``NotImplementedError`` for a prefill step; the group
+    refuses a second one and is destroyed after a failure.
 (c) ``dryrun_one`` on a reduced config over a fake 16 x 16 group: ok, its
     FLOPs the direct global count / 256, its collective schedule the
     placements' (weight gathers per pass, residual all-gathers and
@@ -29,6 +29,8 @@ Adapter Parallelism vs FSDP (``launch/sharding_variants.py``).
     by three named sets of dots, each counted from the config, and by
     nothing else.
 """
+import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -55,6 +57,7 @@ from repro_torch.launch import dryrun as DR
 from repro_torch.launch import mesh as MESH
 from repro_torch.launch import partitioning as PT
 from repro_torch.launch import sharding_variants as SV
+from repro_torch.launch import train as TTRAIN
 from repro_torch.models import model as TM
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -167,34 +170,39 @@ def test_a_fake_mesh_passes_the_guard():
 
 
 _TWO_RANKS = textwrap.dedent("""
-    import sys, torch, torch.distributed as dist
-    from torch.distributed.device_mesh import DeviceMesh
+    import dataclasses, json, sys, torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import mesh as MESH
     from repro_torch.launch import partitioning as PT
+    from repro_torch.launch import steps_dist as SD
+    from repro_torch.launch import train as TRAIN
     rank, init = int(sys.argv[1]), sys.argv[2]
-    dist.init_process_group("gloo", init_method=init, rank=rank,
-                            world_size=2)
-    try:
-        mesh = DeviceMesh("cpu", torch.arange(2).reshape(2, 1),
-                          mesh_dim_names=("data", "model"))
+    torch.set_num_threads(1)
+    cfg = dataclasses.replace(get_arch("stablelm-3b").reduced(
+        num_layers=2, d_model=64, vocab=64), dtype="float32")
+    with MESH.process_group("cpu", init, backend="gloo", rank=rank,
+                            world_size=2):
+        mesh = TRAIN.build_mesh("1x2", "cpu")
         assert PT._real_multi_rank(mesh)
-        named = {"w": PT.placements(mesh, PT.P())}
-        for call in (lambda: PT.activation_policy(mesh),
-                     lambda: PT.distribute(mesh, {"w": torch.zeros(2)},
-                                           named)):
-            try:
-                call()
-            except NotImplementedError as e:
-                assert "sharded execution" in str(e)
-            else:
-                raise SystemExit("no NotImplementedError")
-    finally:
-        dist.destroy_process_group()
-    print("raised")
+        res = TRAIN.run(cfg, 2, 2, 16, mesh, 2, device="cpu",
+                        log=lambda m: None)
+        try:        # what stays unported on a real mesh
+            SD.make_prefill_step(cfg, mesh)({}, {}, None, {})
+        except NotImplementedError as e:
+            assert "prefill" in str(e)
+        else:
+            raise SystemExit("no NotImplementedError")
+    print(json.dumps(res["losses"]))
 """)
 
 
 def test_a_real_two_rank_mesh_still_raises(tmp_path):
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    """A real two-rank gloo mesh (two processes, model axis 2) distributes
+    the weights, takes two sharded train steps whose per-slot losses agree
+    with one rank's, and still raises ``NotImplementedError`` for what
+    stays unported there (a prefill step)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
     init = f"file://{tmp_path / 'pg'}"
     procs = [subprocess.Popen([sys.executable, "-c", _TWO_RANKS, str(r),
                                init], env=env, stdout=subprocess.PIPE,
@@ -202,7 +210,16 @@ def test_a_real_two_rank_mesh_still_raises(tmp_path):
              for r in (0, 1)]
     outs = [p.communicate(timeout=120)[0] for p in procs]
     for p, out in zip(procs, outs):
-        assert p.returncode == 0 and out.strip().endswith("raised"), out
+        assert p.returncode == 0, out
+    two = [json.loads(out.strip().splitlines()[-1]) for out in outs]
+    assert two[0] == two[1]
+    cfg = dataclasses.replace(tget_arch("stablelm-3b").reduced(
+        num_layers=2, d_model=64, vocab=64), dtype="float32")
+    with MESH.process_group("cpu", f"file://{tmp_path / 'pg1'}"):
+        mesh = MESH.make_local_mesh((1, 1), device="cpu")
+        one = TTRAIN.run(cfg, 2, 2, 16, mesh, 2, device="cpu",
+                          log=lambda m: None)["losses"]
+    np.testing.assert_allclose(two[0], one, rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -233,14 +250,15 @@ def test_dryrun_one_on_a_reduced_config(reduced_stablelm):
     assert (res.compile_s, res.cost_analysis_flops) == (0.0, 0.0)
     assert res.memory_per_device > 0 and "estimate" in res.memory_analysis
     # the schedule: each "data"-sharded layer weight gathered in the
-    # forward, remat's recompute and the backward; lm_head forward and
-    # backward, the embedding forward only; the residual's all-gather and
-    # reduce-scatter around 2 sublayers a layer in the same 3 passes
+    # forward and remat's recompute (the gathered weight kept for the
+    # backward, as the sharded step does); lm_head and the embedding once;
+    # the residual's all-gather and reduce-scatter around 2 sublayers a
+    # layer in the forward, the recompute and the backward
     L, passes = cfg.num_layers, 3
     layer_w = sum(1 for path, _, spec in DR._leaves(params, p_specs)
                   if path.startswith("layers/") and DR._names(spec, "data"))
     assert layer_w == 7 and direct["residual"] == ("data", None, "model")
-    want_ag = layer_w * L * passes + 1 + 2 + 2 * L * passes
+    want_ag = layer_w * L * 2 + 1 + 1 + 2 * L * passes
     assert res.collectives["all-gather"]["count"] == want_ag
     assert res.collectives["reduce-scatter"]["count"] == 2 * L * passes
     assert "all-reduce" not in res.collectives

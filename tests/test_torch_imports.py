@@ -51,6 +51,14 @@ def test_port_imports_nothing_of_jax_or_the_jax_package(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_the_collectives_module_is_scanned():
+    """``launch/collectives.py`` (the sharded step's collectives) is among
+    the files the import rule covers, and imports neither."""
+    path = ROOT / "src" / "repro_torch" / "launch" / "collectives.py"
+    assert path in PORT_FILES
+    assert not {m for m in _imported_roots(path) if m in FORBIDDEN}
+
+
 def test_scan_tells_repro_torch_from_repro(tmp_path):
     ok = tmp_path / "ok.py"
     ok.write_text("import repro_torch.models\nfrom repro_torch import x\n")
