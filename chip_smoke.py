@@ -494,8 +494,10 @@ and DENSE_LAYERS layers; random weights from a seed:
 32. musicgen — at full size (1.82 B parameters, 3.6 GB in bf16): the rank
             sweep (the audio family's main path; LoRA
             672/672/336/333/336/336 and flash 96 a train step, 336 and 48
-            an eval step), a serve, and an fp32 train check at full depth
-            (phase 5's bars and faults, loss bar FAMILY_LOSS_REL).
+            an eval step), a serve, and an fp32 train check at
+            AUDIO_CHECK_LAYERS = 24 of its 48 layers (phase 5's bars and
+            faults, loss bar FAMILY_LOSS_REL; cut from full depth to keep
+            the script within its limit once phase 36 came).
 33. dense configs — fp32 train checks of glm4-9b, granite-8b and
             mistral-nemo-12b at full width and DENSE_LAYERS = 2 layers on
             the rank-local path (phase 5's bars and faults, loss bar
@@ -524,7 +526,8 @@ and DENSE_LAYERS layers; random weights from a seed:
             AP_PROCS processes of ``python -m repro_torch.launch.train
             --mesh 2x2 --backend gloo`` on this one card (the main path,
             alone on the card; the kernel libraries built above, loaded,
-            not rebuilt) on full-width, full-depth stablelm-3b at AP_Z
+            not rebuilt) on full-width stablelm-3b at AP_LAYERS = 16 of its
+            32 layers (cut to make room for phase 36) at AP_Z
             slots, b = AP_B, S = AP_S, ranks 8/16/32/64 bound, AP_STEPS
             steps, each rank asserting its device and printing its step s,
             peak GiB, kernel launches (summed into the table: per rank and
@@ -540,6 +543,25 @@ and DENSE_LAYERS layers; random weights from a seed:
             updated adapter leaf must lie within AP_LOSS_REL and
             AP_ADAPTER_REL of the one-rank run's, and each fault, on its
             own slots, must break both bars.
+36. ap moe — the MoE family on the same mesh and load: the six
+            rank-local kernels at granite-moe's 2 x 2 split (q 1,024 -> 512
+            and k/v 1,024 -> 256 column-parallel, o 512 -> 1,024
+            row-parallel, timed) and flash on a rank's 8 heads of hd 64
+            against their plain versions; then phase 35's runs on
+            full-size granite-moe-1b-a400m (experts over "model", capacity
+            routing across data ranks: the one-rank run prints each layer's
+            dropped share of each data rank's choices, and data rank 1 must
+            drop some in layer AP_MOE_ROUTE_LAYER), within AP_MOE_LOSS_REL
+            and AP_MOE_ADAPTER_REL, the data axis carrying only base
+            weights, metrics and the router's counts; planted faults, each
+            in a run of its own: data rank 1 routes layer
+            AP_MOE_ROUTE_LAYER without rank 0's counts (read on slots 2-3),
+            data rank 0's MoE partial sum in layer AP_MOE_SLICE_LAYER
+            sliced, not reduce-scattered (slots 0-1); then
+            llama4-scout-17b-a16e at full width and AP_LLAMA4_LAYERS
+            layers (top-1 routing, the shared expert, a vocabulary split
+            over "model"), AP_LLAMA4_STEPS step, 2 x 2 against 1 x 1 within
+            AP_LLAMA4_LOSS_REL and AP_LLAMA4_ADAPTER_REL.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernel table as JSON (twenty kernels), with each kernel's launches by
@@ -551,8 +573,9 @@ llama4-scout's kernel step, ``vlm_train``, ``vlm_sweep``, ``vlm_serve``
 and ``vlm_prompt`` for qwen2-vl's train check, sweep, serve and image
 prompt, ``audio_sweep``, ``audio_serve`` and ``audio_train`` for
 musicgen's, ``dense_cfg_train`` for the dense configs' train checks,
-``launch_train`` for the launcher's full-width steps, ``ap_train`` for the
-sharded steps' four ranks, summed).
+``launch_train`` for the launcher's full-width steps, ``ap_train``,
+``ap_moe_train`` and ``ap_llama4_train`` for the sharded steps' four ranks,
+summed).
 """
 from __future__ import annotations
 
@@ -706,6 +729,9 @@ IMAGE_DECODES, IMAGE_TEXT = 8, 64
 # glm4-9b, granite-8b and mistral-nemo-12b at full width, DENSE_LAYERS of
 # their 36-40 layers, in their fp32 train checks
 DENSE_LAYERS = 2
+# musicgen's fp32 train check: 24 of its 48 layers (cut to keep the script
+# within its limit once phase 36 came; PERF.md §4)
+AUDIO_CHECK_LAYERS = 24
 # the LoRA projections (din, dout) of the last families: qwen2-vl's q/o,
 # k/v, gate/up and down; mistral-nemo's q and o (q_dim 4,096 != d_model
 # 5,120); glm4's k/v (2 KV heads of 128) and down (13,696 = 107 x 128);
@@ -725,9 +751,10 @@ LAUNCH_Z = 1
 LAUNCH_RANK = 8             # the launcher's default adapter rank
 LAUNCH_CHECK_LAYERS = 4
 # phase 35: the launcher's sharded step over a 2 x 2 (data, model) mesh of
-# AP_RANKS processes sharing the card (gloo), on full-width, full-depth
-# stablelm-3b at AP_Z slots of AP_B sequences of AP_S tokens, slot ranks
-# RANKS, AP_STEPS steps; held against the one-rank run of the same seed.
+# AP_RANKS processes sharing the card (gloo), on full-width stablelm-3b at
+# AP_LAYERS of its 32 layers (cut from full depth to make room for phase 36)
+# at AP_Z slots of AP_B sequences of AP_S tokens, slot ranks RANKS, AP_STEPS
+# steps; held against the one-rank run of the same seed.
 # Bars (bf16, relative): per slot and step |loss diff| / |loss|; per adapter
 # leaf and slot the RMS of (sharded - one-rank) over the RMS of the
 # one-rank run's update (one-rank - init). The planted faults (one layer's
@@ -740,6 +767,7 @@ LAUNCH_CHECK_LAYERS = 4
 # faults, each on its own slots, at least 6.96e-3 and 1.23 (PERF.md).
 AP_MESH = "2x2"
 AP_PROCS = 4
+AP_LAYERS = 16
 AP_Z, AP_B, AP_S, AP_STEPS = 4, 2, 512, 2
 AP_FAULT_LAYER = 5
 # the slots each planted fault reaches (one run plants both: one on each
@@ -748,6 +776,27 @@ AP_FAULT_SLOTS = {"skip_scatter": (0, 1), "swap_slots": (2, 3)}
 AP_LOSS_REL = 3e-3
 AP_ADAPTER_REL = 0.75
 AP_TIMEOUT_S = 420
+# phase 36: the MoE family's sharded step, on the same mesh, load and
+# ranks as phase 35: full-size granite-moe-1b-a400m (bf16) against its
+# one-rank run; then llama4-scout-17b-a16e at full width and
+# AP_LLAMA4_LAYERS layers, AP_LLAMA4_STEPS step, against its one-rank run.
+# Planted faults, each in a run of its own, one after the other in the same
+# fault ranks (rank 0's tokens reach rank 1's queue places through the
+# counts, so one run could not tell them apart):
+# data rank 1 routes layer AP_MOE_ROUTE_LAYER without rank 0's counts (its
+# queue places start at 0; it drops 42% of its choices there on an H100,
+# PERF.md), read on slots 2-3; data rank 0's MoE partial sum in layer
+# AP_MOE_SLICE_LAYER is sliced, not reduce-scattered, read on slots 0-1.
+# The bars are bf16 readings, set from the card's sound runs (PERF.md).
+AP_MOE_ARCH = "granite-moe-1b-a400m"
+AP_MOE_FAULT_RUNS = ({"route_blind": (2, 3)}, {"moe_slice": (0, 1)})
+AP_MOE_ROUTE_LAYER = AP_MOE_SLICE_LAYER = 0
+AP_MOE_LOSS_REL = 1.5e-3
+AP_MOE_ADAPTER_REL = 0.75
+AP_LLAMA4_ARCH = "llama4-scout-17b-a16e"
+AP_LLAMA4_LAYERS, AP_LLAMA4_STEPS = 2, 1
+AP_LLAMA4_LOSS_REL = 3e-3
+AP_LLAMA4_ADAPTER_REL = 0.75
 # device busy ms per profiled train step of each executor phase, by task
 STEP_BUSY_MS = {}
 DPO_B = 2                     # preference pairs per slot in the DPO phase
@@ -5405,7 +5454,8 @@ def family_phases(torch, fams, t_all):
     prefix) at QWEN_LAYERS layers, with an image-prefixed fp32 train check
     at QWEN_TRAIN_LAYERS, a rank sweep (its main path), a serve and an
     image-prefixed prompt; musicgen-medium (the audio family) at full size:
-    its rank sweep (its main path), a serve and an fp32 train check; then
+    its rank sweep (its main path), a serve and an fp32 train check at
+    AUDIO_CHECK_LAYERS layers; then
     fp32 train checks of glm4-9b, granite-8b and mistral-nemo-12b at
     DENSE_LAYERS layers (mistral's also on the dense path). Returns (the
     rank-local kernels' results, flash's by case, launches by path: of the
@@ -5504,8 +5554,9 @@ def family_phases(torch, fams, t_all):
     print(f"audio rank-sweep executor phase done at "
           f"{time.perf_counter() - t_all:.1f} s")
     paths["audio_serve"] = serve_phase(torch, RL, mcfg, mparams)
-    m32 = dataclasses.replace(mcfg, dtype="float32")
-    cparams = _cut_layers(mparams, mcfg.num_layers, torch.float32)
+    m32 = dataclasses.replace(mcfg, dtype="float32",
+                              num_layers=AUDIO_CHECK_LAYERS)
+    cparams = _cut_layers(mparams, AUDIO_CHECK_LAYERS, torch.float32)
     del mparams
     paths["audio_train"] = train_check(torch, fams, m32, cparams,
                                        TRAIN_RANKS, "rank-local",
@@ -5780,11 +5831,16 @@ def _ap_wait(started) -> list:
     return texts
 
 
-def _ap_args(reduced: bool, device: str) -> list:
-    return ((["--reduced"] if reduced else ["--arch", "stablelm-3b"])
+def _ap_args(cfg, reduced: bool, device: str, steps: int) -> list:
+    """The launcher's flags for ``cfg`` (its arch, reduced or cut to its
+    depth) on phase 35's mesh and load."""
+    return (["--arch", cfg.name]
+            + (["--reduced"] if reduced else
+               ["--layers", str(cfg.num_layers)])
             + ["--slots", str(AP_Z), "--batch", str(AP_B), "--seq",
                str(AP_S), "--ranks", ",".join(map(str, RANKS)),
-               "--mesh", AP_MESH, "--backend", "gloo", "--device", device])
+               "--mesh", AP_MESH, "--backend", "gloo", "--device", device,
+               "--steps", str(steps)])
 
 
 @contextlib.contextmanager
@@ -5829,16 +5885,69 @@ def _planted(layer: int):
         TRAIN.SlotBatcher.next_batch = next_batch
 
 
+@contextlib.contextmanager
+def _planted_moe(faults, route_layer: int, slice_layer: int):
+    """Phase 36's faults named in ``faults``: "route_blind", data rank 1
+    routes layer ``route_layer`` without the lower data ranks' counts (the
+    counts still cross "data"); "moe_slice", data rank 0's MoE partial sum
+    in layer ``slice_layer`` is sliced along S, not reduce-scattered."""
+    from repro_torch.launch import partitioning as PT
+    from repro_torch.models import blocks as B
+    from repro_torch.models import moe as MOE
+    here = {"layer": None}
+    apply_block, moe_block = B.apply_block, MOE.moe_block
+    exchange, residual = PT.SpmdPlan.route_exchange, PT.SpmdPlan.residual
+
+    def block(cfg, x, p, lora, layer_, ctx):
+        prev, here["layer"] = here["layer"], layer_
+        try:
+            return apply_block(cfg, x, p, lora, layer_, ctx)
+        finally:
+            here["layer"] = prev
+
+    def blind(self, counts, top1, piece, group):
+        offset, top1 = exchange(self, counts, top1, piece, group)
+        if ("route_blind" in faults and here["layer"] == route_layer
+                and self.data_rank == 1):
+            offset = offset.new_zeros(offset.shape)
+        return offset, top1
+
+    def moe(x, params, cfg_moe):
+        out, aux = moe_block(x, params, cfg_moe)
+        out._planted_slice = ("moe_slice" in faults
+                              and here["layer"] == slice_layer)
+        return out, aux
+
+    def skip(self, x):
+        if getattr(x, "_planted_slice", False) and self.data_rank == 0:
+            return self.local(x, 2)
+        return residual(self, x)
+
+    saved = (B.apply_block, MOE.moe_block, PT.SpmdPlan.route_exchange,
+             PT.SpmdPlan.residual)
+    B.apply_block, MOE.moe_block = block, moe
+    PT.SpmdPlan.route_exchange, PT.SpmdPlan.residual = blind, skip
+    try:
+        yield
+    finally:
+        (B.apply_block, MOE.moe_block, PT.SpmdPlan.route_exchange,
+         PT.SpmdPlan.residual) = saved
+
+
 def ap_fault_child(argv) -> int:
-    """One rank of phase 35's planted-fault run (``chip_smoke.py
-    --ap-faults <dir>`` and the sharded run's launcher flags): once
-    ``<dir>/go`` exists, the steps under ``_planted``'s two faults, the
-    losses and adapters written by rank 0 to ``<dir>/faults.npz``."""
+    """One rank of the planted-fault runs of phase 35 or 36 (``chip_smoke.py
+    --ap-faults <dir> --faults <a,b> [--faults <c> ...]`` and the sharded
+    run's launcher flags): once ``<dir>/go`` exists, for each ``--faults``
+    in turn, the steps under the faults it names (``_planted``: the dense
+    family's two; ``_planted_moe``: MoE's), the losses and adapters written
+    by rank 0 to ``<dir>/faults_<a+b>.npz``."""
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--ap-faults", required=True)
+    ap.add_argument("--faults", action="append", required=True)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--arch", default="stablelm-3b")
+    ap.add_argument("--layers", type=int, default=None)
     for flag in ("--slots", "--batch", "--seq", "--steps"):
         ap.add_argument(flag, type=int, required=True)
     for flag in ("--ranks", "--mesh", "--backend", "--device"):
@@ -5847,27 +5956,40 @@ def ap_fault_child(argv) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.launch import mesh as MESH
     from repro_torch.launch import train as TRAIN
-    cfg = _ap_config(args.reduced)
+    cfg = _ap_config(args.reduced, args.arch, args.layers)
     ranks = [int(r) for r in args.ranks.split(",")]
     gate = Path(args.ap_faults) / "go"
+    last = cfg.num_layers - 1
     with MESH.process_group(args.device, backend=args.backend) as dev:
         require(dev.type == args.device.split(":")[0], f"device {dev}")
         mesh = TRAIN.build_mesh(args.mesh, dev)
         while not gate.exists():       # the parent opens it (or kills us)
             time.sleep(0.05)
-        with _planted(min(AP_FAULT_LAYER, cfg.num_layers - 1)):
-            res = TRAIN.run(cfg, args.slots, args.batch, args.seq, mesh,
-                            args.steps, ranks=ranks, device=dev,
-                            log=lambda m: print(f"faults: {m}"))
-        TRAIN.write_out(str(Path(args.ap_faults) / "faults.npz"), mesh, res)
+        for run in args.faults:
+            faults = run.split(",")
+            planted = (_planted_moe(faults, min(AP_MOE_ROUTE_LAYER, last),
+                                    min(AP_MOE_SLICE_LAYER, last))
+                       if cfg.is_moe else
+                       _planted(min(AP_FAULT_LAYER, last)))
+            with planted:
+                res = TRAIN.run(cfg, args.slots, args.batch, args.seq, mesh,
+                                args.steps, ranks=ranks, device=dev,
+                                log=lambda m: print(f"faults: {m}"))
+            TRAIN.write_out(str(Path(args.ap_faults)
+                                / f"faults_{'+'.join(faults)}.npz"), mesh,
+                            res)
+            del res
     return 0
 
 
-def _ap_config(reduced: bool):
+def _ap_config(reduced: bool, arch: str = "stablelm-3b", layers=None):
+    """``arch``'s config as the launcher builds it: ``--reduced`` (the tiny
+    fp32 variant) or full width, cut to ``layers`` (``--layers``)."""
     from repro_torch.configs.registry import get_arch
-    cfg = get_arch("stablelm-3b")
-    return (dataclasses.replace(cfg.reduced(), dtype="float32") if reduced
-            else cfg)
+    cfg = get_arch(arch)
+    if reduced:
+        return dataclasses.replace(cfg.reduced(), dtype="float32")
+    return (dataclasses.replace(cfg, num_layers=layers) if layers else cfg)
 
 
 def _ap_readings(np, got: dict, want: dict, init: dict, slots):
@@ -5899,53 +6021,96 @@ def _ap_parse(text: str, what: str):
     return json.loads(lines[0][len(what) + 1:])
 
 
+def _moe_drops(cfg, d: int):
+    """A context that reads, from the first forward of the one-rank run,
+    each MoE layer's dropped share of the choices of each of ``d`` data
+    ranks' token rows (Z-major, as the sharded step splits them); the
+    shares land in the list it yields, one [d] row a layer."""
+    from repro_torch.models import moe as MOE
+
+    @contextlib.contextmanager
+    def ctx():
+        shares, real = [], MOE.route
+
+        def tapped(*args, **kw):
+            out = real(*args, **kw)
+            if len(shares) < cfg.num_layers:
+                keep = out[3].reshape(-1).float()
+                shares.append([round(1.0 - float(part.mean()), 6)
+                               for part in keep.chunk(d)])
+            return out
+
+        MOE.route = tapped
+        try:
+            yield shares
+        finally:
+            MOE.route = real
+
+    return ctx()
+
+
 def ap_train_phase(torch, cfg, device: str = "cuda",
-                   reduced: bool = False, kernel_checks=None) -> dict:
-    """Phase 35's runs: AP_PROCS processes of ``python -m
+                   reduced: bool = False, kernel_checks=None, *,
+                   steps: int = AP_STEPS, fault_runs=(AP_FAULT_SLOTS,),
+                   bars=(AP_LOSS_REL, AP_ADAPTER_REL),
+                   tag: str = "ap") -> dict:
+    """Phase 35's and 36's runs: AP_PROCS processes of ``python -m
     repro_torch.launch.train --mesh 2x2 --backend gloo`` (the main path)
-    and AP_PROCS of this script's planted-fault run start together; while
-    they start up, ``kernel_checks()`` runs here; the main path then has
-    the card to itself; after it, the fault ranks run beside the one-rank
-    reference (``launch.train.run`` on a one-rank group), and both sharded
-    runs are held against the reference.
+    and AP_PROCS of this script's planted-fault runs (each of ``fault_runs``
+    in turn, each {fault: the slots it reaches}, planted together) start
+    together; while they start up, ``kernel_checks()`` runs here; the
+    main path then has the card to itself; after it, the fault ranks run
+    beside the one-rank reference (``launch.train.run`` on a one-rank
+    group), and every sharded run is held against the reference: the main
+    path within ``bars`` (loss, adapters), each fault past both on its own
+    slots. An MoE config's one-rank run prints each layer's dropped share
+    of each data rank's choices.
     Returns {"launches": the kernel launches summed over the ranks,
-    "seconds": the phase's parts}."""
+    "seconds": the phase's parts, "drops": the dropped shares by layer}."""
     import numpy as np
     from repro_torch.core import lora as LORA
     from repro_torch.launch import mesh as MESH
     from repro_torch.launch import train as TRAIN
     from repro_torch.models import model as M
 
-    seconds = {}
+    loss_bar, adapter_bar = bars
+    d = int(AP_MESH.split("x")[0])
+    seconds, drops = {}, []
     out = Path(tempfile.mkdtemp(prefix="ap_phase_"))
+    args = _ap_args(cfg, reduced, device, steps)
     t = time.perf_counter()
     try:
         sharded = _ap_start(
-            [sys.executable, "-m", "repro_torch.launch.train",
-             *_ap_args(reduced, device), "--steps", str(AP_STEPS), "--out",
-             str(out / "ap.npz")], out, "rank")
+            [sys.executable, "-m", "repro_torch.launch.train", *args,
+             "--out", str(out / "ap.npz")], out, "rank")
         # the fault ranks start too, and wait at their gate until the
         # main path is done: it has the card to itself
-        faulted = _ap_start([sys.executable, str(ROOT / "chip_smoke.py"),
-                             "--ap-faults", str(out),
-                             *_ap_args(reduced, device), "--steps",
-                             str(AP_STEPS)], out, "fault")
+        faulted = ([_ap_start([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--ap-faults", str(out),
+                               *(a for run in fault_runs
+                                 for a in ("--faults", ",".join(run))),
+                               *args], out, "fault")]
+                   if fault_runs else [])
+        started = [sharded, *faulted]
         try:
             if kernel_checks is not None:
                 kernel_checks()
-                print(f"ap: kernel checks done {time.perf_counter() - t:.1f}"
-                      f" s after the ranks started")
+                print(f"{tag}: kernel checks done "
+                      f"{time.perf_counter() - t:.1f} s after the ranks "
+                      f"started")
             texts = _ap_wait(sharded)
             seconds["sharded"] = time.perf_counter() - t
             (out / "go").touch()
             # the controls' timing is not read: the fault ranks and the
             # one-rank reference share the card
             t = time.perf_counter()
-            with MESH.process_group(device) as dev:
+            tap = (_moe_drops(cfg, d) if cfg.is_moe
+                   else contextlib.nullcontext([]))
+            with MESH.process_group(device) as dev, tap as drops:
                 mesh = MESH.make_local_mesh((1, 1), device=dev)
-                one = TRAIN.run(cfg, AP_Z, AP_B, AP_S, mesh, AP_STEPS,
+                one = TRAIN.run(cfg, AP_Z, AP_B, AP_S, mesh, steps,
                                 ranks=RANKS, device=dev,
-                                log=lambda m: print(f"ap 1x1: {m}"))
+                                log=lambda m: print(f"{tag} 1x1: {m}"))
             want = {"losses": np.asarray(one["losses"])}
             want.update({f"lora/{t}/{k}": v.float().cpu().numpy()
                          for t, ab in one["lora"].items()
@@ -5958,12 +6123,14 @@ def ap_train_phase(torch, cfg, device: str = "cuda",
                                         M.target_shapes(cfg)).items()
                     for k, v in ab.items()}
             got = dict(np.load(out / "ap.npz"))
-            _ap_wait(faulted)
+            for run in faulted:
+                _ap_wait(run)
         finally:
-            for started in (sharded, faulted):
-                _ap_kill(started)
+            for p in started:
+                _ap_kill(p)
         seconds["one_rank_and_faults"] = time.perf_counter() - t
-        faults = dict(np.load(out / "faults.npz"))
+        bad = [(run, dict(np.load(out / f"faults_{'+'.join(run)}.npz")))
+               for run in fault_runs]
     finally:
         shutil.rmtree(out, ignore_errors=True)
     gc.collect()
@@ -5973,53 +6140,75 @@ def ap_train_phase(torch, cfg, device: str = "cuda",
     r_max = cfg.lora.r_max
     launches = {}
     for r, text in enumerate(texts):
-        require(f"device={device}" in text, f"ap rank {r}: device")
+        require(f"device={device}" in text, f"{tag} rank {r}: device")
         for fam, ks in _ap_parse(text, "launches").items():
             for k, v in ks.items():
                 launches.setdefault(fam, {}).setdefault(k, 0)
                 launches[fam][k] += v
         shapes = _ap_parse(text, "collective shapes")
-        bad = [s for s in shapes if s[0] == "data"
-               and (s[1] == "adapter_grad" or s[3] == r_max)]
-        require(not bad, f"ap rank {r}: adapter collectives over data {bad}")
+        bad_shapes = [s for s in shapes if s[0] == "data"
+                      and (s[1] == "adapter_grad" or s[3] == r_max)]
+        require(not bad_shapes, f"{tag} rank {r}: adapter collectives over "
+                f"data {bad_shapes}")
         require(any(s[0] == "model" and s[1] == "adapter_grad"
-                    for s in shapes), f"ap rank {r}: no model-axis "
+                    for s in shapes), f"{tag} rank {r}: no model-axis "
                 "adapter-gradient all-reduce")
-        steps = [float(ln.split()[2].rstrip("s")) for ln in text.splitlines()
-                 if ln.startswith("step ")]
+        moved = _ap_parse(text, "collective bytes")
+        roles = set(moved.get("data", {}))
+        require(roles <= {"base_weight", "metric", "route"},
+                f"{tag} rank {r}: data-axis roles {roles}")
+        step_s = [float(ln.split()[2].rstrip("s"))
+                  for ln in text.splitlines() if ln.startswith("step ")]
         setup = [ln for ln in text.splitlines() if ln.startswith("set-up ")]
         peak = [ln for ln in text.splitlines() if ln.startswith("peak ")]
-        print(f"ap rank {r}: {setup[0] if setup else ''}; steps {steps} s, "
-              f"{peak[0] if peak else ''}; "
-              f"logged bytes {_ap_parse(text, 'collective bytes')}")
+        print(f"{tag} rank {r}: {setup[0] if setup else ''}; steps {step_s} "
+              f"s, {peak[0] if peak else ''}; logged bytes {moved}")
+    for layer, share in enumerate(drops):
+        print(f"{tag}: layer {layer} dropped share by data rank {share}")
     loss, adapters = _ap_readings(np, got, want, init, range(AP_Z))
-    print(f"ap: {AP_MESH} vs 1x1, {cfg.name} {cfg.num_layers} layers, Z "
-          f"{AP_Z}, b {AP_B}, S {AP_S}, ranks {RANKS}: loss reading "
-          f"{loss:.3e} (bar {AP_LOSS_REL}), adapter reading {adapters:.3e} "
-          f"(bar {AP_ADAPTER_REL}); losses {got['losses'].tolist()} vs "
-          f"{want['losses'].tolist()}")
-    require(loss <= AP_LOSS_REL and adapters <= AP_ADAPTER_REL,
-            f"ap: readings {loss}, {adapters} past the bars")
-    for fault, slots in AP_FAULT_SLOTS.items():
-        fl, fa = _ap_readings(np, faults, want, init, slots)
-        print(f"ap: planted fault {fault}: loss reading {fl:.3e}, adapter "
-              f"reading {fa:.3e}")
-        require(fl > AP_LOSS_REL and fa > AP_ADAPTER_REL,
-                f"ap: planted fault {fault} within the bars ({fl}, {fa})")
-    print(f"ap: seconds {seconds}")
-    return {"launches": launches, "seconds": seconds}
+    print(f"{tag}: {AP_MESH} vs 1x1, {cfg.name} {cfg.num_layers} layers, "
+          f"Z {AP_Z}, b {AP_B}, S {AP_S}, ranks {RANKS}, {steps} steps: "
+          f"loss reading {loss:.3e} (bar {loss_bar}), adapter reading "
+          f"{adapters:.3e} (bar {adapter_bar}); losses "
+          f"{got['losses'].tolist()} vs {want['losses'].tolist()}")
+    require(loss <= loss_bar and adapters <= adapter_bar,
+            f"{tag}: readings {loss}, {adapters} past the bars")
+    for run, faults in bad:
+        for fault, slots in run.items():
+            fl, fa = _ap_readings(np, faults, want, init, slots)
+            print(f"{tag}: planted fault {fault}: loss reading {fl:.3e}, "
+                  f"adapter reading {fa:.3e}")
+            require(fl > loss_bar and fa > adapter_bar,
+                    f"{tag}: planted fault {fault} within the bars ({fl}, "
+                    f"{fa})")
+    print(f"{tag}: seconds {seconds}")
+    return {"launches": launches, "seconds": seconds, "drops": drops}
+
+
+def _ap_launches(torch, cfg, got: dict, steps: int, tag: str) -> None:
+    """Every rank ran the rank-local set and flash as the one-rank step
+    would, each step; nothing on the dense or ragged sets."""
+    want, _, (want_flash, _) = _step_launches(cfg)
+    per = AP_PROCS * steps
+    require(got["rank-local"] == {k: v * per for k, v in want.items()}
+            and got["flash"]["flash_attention"] == want_flash * per
+            and not any(got["dense"].values())
+            and not any(got["ragged"].values()),
+            f"{tag}: launches {got}, expected rank-local {want} and flash "
+            f"{want_flash} a step on each of {AP_PROCS} ranks")
 
 
 def ap_phase(torch, fams) -> tuple:
     """Phase 35: rows 13-18 and flash at the sharded step's shapes, then
-    ``ap_train_phase`` on full-width, full-depth stablelm-3b. Returns (the
+    ``ap_train_phase`` on full-width stablelm-3b at AP_LAYERS layers.
+    Returns (the
     rank-local kernels' results, flash's, the launches of the sharded
     runs' ranks, summed)."""
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.grouped_lora import ref
 
-    cfg = _ap_config(False)
+    cfg = _ap_config(False, layers=AP_LAYERS)
     d, ff = cfg.d_model, cfg.d_ff
     m = int(AP_MESH.split("x")[1])
     T = AP_B * AP_S
@@ -6041,16 +6230,57 @@ def ap_phase(torch, fams) -> tuple:
         flash.update({f"ap_{k}": v for k, v in cases.items()})
 
     res = ap_train_phase(torch, cfg, kernel_checks=kernel_checks)
-    want, _, (want_flash, _) = _step_launches(cfg)
-    got = res["launches"]
-    per = AP_PROCS * AP_STEPS
-    require(got["rank-local"] == {k: v * per for k, v in want.items()}
-            and got["flash"]["flash_attention"] == want_flash * per
-            and not any(got["dense"].values())
-            and not any(got["ragged"].values()),
-            f"ap: launches {got}, expected rank-local {want} and flash "
-            f"{want_flash} a step on each of {AP_PROCS} ranks")
-    return lora, flash, got
+    _ap_launches(torch, cfg, res["launches"], AP_STEPS, "ap")
+    return lora, flash, res["launches"]
+
+
+def ap_moe_phase(torch, fams) -> tuple:
+    """Phase 36: rows 13-18 at granite-moe's 2 x 2 split (q 1,024 -> 512 and
+    k/v 1,024 -> 256 column-parallel, o 512 -> 1,024 row-parallel, timed)
+    and flash on a rank's 8 heads of hd 64 against their plain versions;
+    then ``ap_train_phase`` on full-size granite-moe-1b-a400m with both
+    planted faults, and on llama4-scout at full width and AP_LLAMA4_LAYERS
+    layers, AP_LLAMA4_STEPS step, without. Returns (the rank-local
+    kernels' results, flash's, the launches of granite's sharded ranks and
+    of llama4's, summed over the ranks)."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.grouped_lora import ref
+
+    cfg = _ap_config(False, AP_MOE_ARCH)
+    d, q, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    dd, m = (int(x) for x in AP_MESH.split("x"))
+    T = AP_B * AP_S
+    lora, flash = {}, {}
+
+    def kernel_checks():
+        _merged(lora, backward_kernel_phase(
+            torch, fams["rank-local"], ref,
+            timed=("apmoe_row", q // m, d), untimed=("apmoe_col",),
+            cases=[("apmoe_col", T, d, q // m, RANKS, None),
+                   ("apmoe_col", T, d, kv // m, RANKS, None),
+                   ("apmoe_row", T, q // m, d, RANKS, None)]))
+        H = cfg.num_heads // m
+        _, cases = flash_kernel_phase(
+            torch, FA, fref, cfg, plain_labels=("train",),
+            cases=[("train", AP_Z // dd * AP_B * H, AP_S, AP_S,
+                    cfg.resolved_head_dim, 0, torch.bfloat16)])
+        flash.update({f"apmoe_{k}": v for k, v in cases.items()})
+
+    res = ap_train_phase(torch, cfg, kernel_checks=kernel_checks,
+                         fault_runs=AP_MOE_FAULT_RUNS,
+                         bars=(AP_MOE_LOSS_REL, AP_MOE_ADAPTER_REL),
+                         tag="ap moe")
+    route = res["drops"][min(AP_MOE_ROUTE_LAYER, cfg.num_layers - 1)]
+    require(route[1] > 0, f"ap moe: data rank 1 drops no choice in layer "
+            f"{AP_MOE_ROUTE_LAYER}: fault (a) would test nothing")
+    _ap_launches(torch, cfg, res["launches"], AP_STEPS, "ap moe")
+    lcfg = _ap_config(False, AP_LLAMA4_ARCH, AP_LLAMA4_LAYERS)
+    l4 = ap_train_phase(torch, lcfg, steps=AP_LLAMA4_STEPS, fault_runs=(),
+                        bars=(AP_LLAMA4_LOSS_REL, AP_LLAMA4_ADAPTER_REL),
+                        tag="ap llama4")
+    _ap_launches(torch, lcfg, l4["launches"], AP_LLAMA4_STEPS, "ap llama4")
+    return lora, flash, res["launches"], l4["launches"]
 
 
 def main() -> int:
@@ -6207,6 +6437,13 @@ def main() -> int:
     ap_lora, ap_flash, ap_launches = ap_phase(torch, fams)
     print(f"ap phase {time.perf_counter() - t:.1f} s, done at "
           f"{time.perf_counter() - t_all:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    apm_lora, apm_flash, apm_launches, apl_launches = ap_moe_phase(torch,
+                                                                   fams)
+    print(f"ap moe phase {time.perf_counter() - t:.1f} s, done at "
+          f"{time.perf_counter() - t_all:.1f} s")
 
     csrc = "src/repro_torch/kernels/grouped_lora/csrc"
     rows = [  # (name, kernel source, TPU kernel file, its pallas_call line)
@@ -6243,7 +6480,9 @@ def main() -> int:
                 "moe_train": m_launches[name],
                 "llama4_train": l4_launches[name],
                 **{path: got[name] for path, got in f_paths.items()},
-                "ap_train": ap_launches["rank-local"][name]}, \
+                "ap_train": ap_launches["rank-local"][name],
+                "ap_moe_train": apm_launches["rank-local"][name],
+                "ap_llama4_train": apl_launches["rank-local"][name]}, \
                 dict(kern[name])
             by_path["serve"] = serve_launches[name]
             by_path["rwkv_serve"] = rwkv_serve[name]
@@ -6253,12 +6492,14 @@ def main() -> int:
                              **h_lora[name]["shapes"],
                              **m_lora[name]["shapes"],
                              **f_lora[name]["shapes"],
-                             **ap_lora[name]["shapes"]}
+                             **ap_lora[name]["shapes"],
+                             **apm_lora[name]["shapes"]}
             res["max_abs_err"] = max(res["max_abs_err"],
                                      h_lora[name]["max_abs_err"],
                                      m_lora[name]["max_abs_err"],
                                      f_lora[name]["max_abs_err"],
-                                     ap_lora[name]["max_abs_err"])
+                                     ap_lora[name]["max_abs_err"],
+                                     apm_lora[name]["max_abs_err"])
         fam = {"grouped_lora": "dense", "ragged": "ragged"}.get(
             prefix, "rank-local")
         by_path["engine_static"] = eng_static[fam][name]
@@ -6310,6 +6551,8 @@ def main() -> int:
                                      for got in f_dense.values())
     by_path["launch_train"] = launch["launch_flash"]
     by_path["ap_train"] = ap_launches["flash"]["flash_attention"]
+    by_path["ap_moe_train"] = apm_launches["flash"]["flash_attention"]
+    by_path["ap_llama4_train"] = apl_launches["flash"]["flash_attention"]
     table["kernels"].append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -6317,7 +6560,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:89",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         **with_paths(flash, hymba=h_flash, moe=m_flash, families=f_flash,
-                     ap=ap_flash)})
+                     ap=ap_flash, apmoe=apm_flash)})
     by_path = {"rwkv_train": rwkv_launches["linear_scan"],
                "rwkv_serve": rwkv_serve["linear_scan"],
                "hymba_train": h_launches["linear_scan"],

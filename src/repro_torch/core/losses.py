@@ -34,7 +34,11 @@ def sft_loss(cfg: ModelConfig, params: Dict, lora: Dict, batch: Dict,
 
     MoE adds ``router_aux_weight`` times the load-balance term to the
     total, unmasked by ``active``, as the JAX package does: it is a mean
-    over token groups that may span slots."""
+    over token groups that may span slots. Sharded, each rank's forward
+    returns its share of the term (``models/moe.py``: its tokens' router
+    mass against the groups' top-1 shares counted over every data rank, on
+    model rank 0 only), so the shares add up to the term once over the
+    mesh and each rank's adapters take its gradient once."""
     h, aux, _ = M.forward(cfg, params, lora, batch["tokens"],
                           positions=batch.get("positions"),
                           modal_embeds=batch.get("modal_embeds"),

@@ -16,15 +16,17 @@ add up to the true value) has a gradient that every rank holds whole. So:
   * ``broadcast_grad`` — identity; backward: all-reduce (a whole tensor
                      entering computations that split over the axis);
   * ``all_gather`` / ``all_reduce`` — no autograd: frozen weights,
-                     gradients after the backward, metrics.
+                     gradients after the backward, metrics, the MoE
+                     router's int32 expert counts.
 
 Every call appends a ``Record`` (axis, kind, role, shape, dtype, bytes) to
 the ``log`` list its caller passes (the step's ``SpmdPlan.log``): ``role``
-is "base_weight", "activation", "adapter_grad" or "metric"; ``shape`` and
-``bytes`` are those of the result (the gathered tensor, the scattered
-shard, the reduced tensor), as the dry run's counter charges them
-(``roofline/hlo.py``). A call over an axis of size 1 moves nothing and
-logs nothing.
+is "base_weight", "activation", "adapter_grad", "metric" or "route" (the
+MoE router's per-expert counts of a token group that spans data ranks);
+``shape`` and ``bytes`` are those of the result (the gathered tensor, the
+scattered shard, the reduced tensor), as the dry run's counter charges
+them (``roofline/hlo.py``). A call over an axis of size 1 moves nothing
+and logs nothing.
 
 Transport: ``all_gather_into_tensor``, ``reduce_scatter_tensor`` and
 ``all_reduce`` on the tensors where they lie, over NCCL (a card a rank) or
@@ -45,7 +47,8 @@ from typing import List, Tuple
 import torch
 import torch.distributed as dist
 
-ROLES = ("base_weight", "activation", "adapter_grad", "metric")
+ROLES = ("base_weight", "activation", "adapter_grad", "metric",
+         "route")
 
 
 @dataclasses.dataclass(frozen=True)

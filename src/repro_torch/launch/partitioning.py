@@ -27,7 +27,7 @@ takes it back) and nothing moves: the activation policy resolves and
 records each constraint's spec and returns the tensor unchanged. On a real
 multi-rank ``(data, model)`` mesh ``distribute`` slices each rank's shard
 out of the full tensor, and the policy's ``SpmdPlan`` runs the train step
-(the dense family only; ``check_sharded``):
+(the dense and MoE families; ``check_sharded``):
 
   * "data" is Adapter Parallelism (paper Fig. 8): each data rank holds its
     Z/d slots' adapters, gradients, AdamW state, hyper-parameters, ranks
@@ -40,8 +40,19 @@ out of the full tensor, and the policy's ``SpmdPlan`` runs the train step
     the LoRA term's included, reduce-scattered along S by the "residual"
     constraint), the residual stream sequence-sharded between blocks and
     all-gathered once before each sublayer's column-parallel projections,
-    the embedding and the logits vocabulary-parallel; adapter gradients
-    are all-reduced over "model" only.
+    the embedding and the logits vocabulary-parallel (or, where the
+    vocabulary does not split, whole on every rank and the loss
+    sequence-parallel); adapter gradients are all-reduced over "model"
+    only;
+  * MoE: "model" is expert parallelism. The router is whole: every model
+    rank routes all of its data rank's tokens (the normed residual
+    gathered along S, as for a column-parallel projection) and runs the
+    choices of its block of E/m experts; the shared expert is column- and
+    row-parallel; their fp32 partial sum is reduce-scattered by the
+    "residual" constraint (experts that do not split run whole on every
+    rank). A token group that spans data ranks takes one all-gather of
+    per-expert counts over "data" (role "route") for its queue places and
+    its top-1 shares; the load-balance term enters the gradient once.
 
 Every opt level runs this one schedule: the levels change only the recorded
 ``decisions`` and the hints, and the numbers stay equal. A mesh over a
@@ -67,7 +78,7 @@ SHARDED_EXECUTION = ("sharded execution over a fake group is not possible: "
                      "its collectives move no data (launch/dryrun.py "
                      "traces shapes only)")
 # what a multi-rank mesh runs today, and where the rest is queued
-SHARDED_FAMILIES = ("dense",)
+SHARDED_FAMILIES = ("dense", "moe")
 SHARDED_QUEUE = "queued in ROADMAP.md §1, the rest of sharded execution"
 
 
@@ -478,12 +489,15 @@ def _model_dim(spec: P, ndim: int) -> Optional[int]:
 
 def check_sharded(cfg, mesh, loss_kind: str = "sft") -> None:
     """Raise ``NotImplementedError`` unless the sharded train step runs
-    ``cfg`` on the real multi-rank ``mesh``: the dense family, the SFT
-    loss, a ("data", "model") mesh, and, over a model axis of m > 1 ranks,
-    the Megatron layout (q/k/v and gate/up split by output columns, o and
-    down by input rows, the embedding and the unembedding by vocabulary)
-    with whole heads on each rank (H and KV divisible by m; GSPMD splits a
-    head, the port does not)."""
+    ``cfg`` on the real multi-rank ``mesh``: the dense or MoE family, the
+    SFT loss, a ("data", "model") mesh, and, over a model axis of m > 1
+    ranks, the Megatron layout (q/k/v and gate/up split by output columns,
+    o and down by input rows) with whole heads on each rank (H and KV
+    divisible by m; GSPMD splits a head, the port does not). The embedding
+    and an untied unembedding are split by vocabulary or, where the rule
+    falls back, whole. MoE: the router whole, the routed experts split by
+    expert or whole, the shared expert's gate/up by columns and its down
+    by rows, or all three whole."""
     names = tuple(axis_names(mesh))
     if names != ("data", "model"):
         raise NotImplementedError(
@@ -502,35 +516,65 @@ def check_sharded(cfg, mesh, loss_kind: str = "sft") -> None:
         return
     d, L = cfg.d_model, cfg.num_layers
     shapes = {"q_proj": (L, d, cfg.q_dim), "k_proj": (L, d, cfg.kv_dim),
-              "v_proj": (L, d, cfg.kv_dim), "o_proj": (L, cfg.q_dim, d),
-              "gate_proj": (L, d, cfg.d_ff), "up_proj": (L, d, cfg.d_ff),
-              "down_proj": (L, cfg.d_ff, d)}
-    want = {"q_proj": -1, "k_proj": -1, "v_proj": -1, "o_proj": -2,
-            "gate_proj": -1, "up_proj": -1, "down_proj": -2}
-    tree = {"embed": torch.empty((cfg.vocab_size, d), device="meta"),
-            "layers": {k: torch.empty(v, device="meta")
-                       for k, v in shapes.items()}}
+              "v_proj": (L, d, cfg.kv_dim), "o_proj": (L, cfg.q_dim, d)}
+    # each leaf's allowed dims over "model" (None: whole)
+    want = {"q_proj": (-1,), "k_proj": (-1,), "v_proj": (-1,),
+            "o_proj": (-2,), "embed": (-2, None)}
+    layers = {}
+    if cfg.is_moe:
+        E, ff = cfg.moe.num_experts, cfg.moe.d_ff_expert
+        moe = {"router": (L, d, E), "w_gate": (L, E, d, ff),
+               "w_up": (L, E, d, ff), "w_down": (L, E, ff, d)}
+        want.update(router=(None,), w_gate=(-3, None), w_up=(-3, None),
+                    w_down=(-3, None))
+        if cfg.moe.num_shared_experts:
+            ffs = cfg.moe.d_ff_shared * cfg.moe.num_shared_experts
+            moe["shared"] = {"gate": (L, d, ffs), "up": (L, d, ffs),
+                             "down": (L, ffs, d)}
+            want.update({"shared/gate": (-1, None), "shared/up": (-1, None),
+                         "shared/down": (-2, None)})
+        layers["moe"] = moe
+    else:
+        shapes.update(gate_proj=(L, d, cfg.d_ff), up_proj=(L, d, cfg.d_ff),
+                      down_proj=(L, cfg.d_ff, d))
+        want.update(gate_proj=(-1,), up_proj=(-1,), down_proj=(-2,))
+    layers.update(shapes)
+
+    def meta(node):
+        if isinstance(node, dict):
+            return {k: meta(v) for k, v in node.items()}
+        return torch.empty(node, device="meta")
+
+    tree = {"embed": meta((cfg.vocab_size, d)), "layers": meta(layers)}
     if not cfg.tie_embeddings:
-        tree["lm_head"] = torch.empty((d, cfg.vocab_size), device="meta")
-        want["lm_head"] = -1
-    want["embed"] = -2
+        tree["lm_head"] = meta((d, cfg.vocab_size))
+        want["lm_head"] = (-1, None)
     specs = base_param_specs(mesh, tree)
-    flat = dict(specs["layers"], **{k: v for k, v in specs.items()
-                                    if k != "layers"})
-    for name, dim in want.items():
-        spec = flat[name]
-        ndim = 3 if name in shapes else 2
-        if _model_dim(spec, ndim) != dim:
+    flat: Dict[str, Tuple[P, int]] = {}       # name -> (spec, ndim)
+    _map_with_path(tree, lambda path, leaf: flat.__setitem__(
+        _weight_name(path), (_lookup(specs, path), leaf.ndim)))
+    for name, dims in want.items():
+        spec, ndim = flat[name]
+        if _model_dim(spec, ndim) not in dims:
             raise NotImplementedError(
                 f"{cfg.name}: {name} takes spec {spec} on mesh "
-                f"{axis_sizes(mesh)}; the sharded step needs it split over "
-                f"model along dim {dim}")
+                f"{axis_sizes(mesh)}; the sharded step needs it "
+                + " or ".join("whole over model" if d_ is None else
+                              f"split over model along dim {d_}"
+                              for d_ in dims))
     for what, n in (("heads", cfg.num_heads), ("kv heads", cfg.num_kv_heads)):
         if n % m:
             raise NotImplementedError(
                 f"{cfg.name}: {n} {what} do not split whole over model "
-                f"{m} (k_proj spec {flat['k_proj']}); the sharded step keeps "
-                f"whole heads on each rank")
+                f"{m} (k_proj spec {flat['k_proj'][0]}); the sharded step "
+                f"keeps whole heads on each rank")
+
+
+def _weight_name(path: Tuple) -> str:
+    """A parameter's name as the model's "weight:<name>" hints give it:
+    its path without the "layers" and "moe" levels ("q_proj", "w_gate",
+    "shared/gate", "embed")."""
+    return "/".join(str(p) for p in path if p not in ("layers", "moe"))
 
 
 class SpmdPlan:
@@ -548,12 +592,16 @@ class SpmdPlan:
         self.d, self.m = sizes.get("data", 1), sizes.get("model", 1)
         self.model_rank = (mesh.get_local_rank("model")
                            if "model" in sizes else 0)
+        self.data_rank = (mesh.get_local_rank("data")
+                          if "data" in sizes else 0)
         self.step_kind = step_kind
         self.decide = decide           # the policy's: (shape, kind) -> spec
         self.layouts: Optional[Dict[str, Dict[str, Optional[int]]]] = None
         self.seq_len = self.z = self.z_local = self.d_model = 0
         self.seq_sharded = False
         self._cols: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        # the MoE layer's groups: (experts E, groups G, tokens a group s)
+        self._moe: Optional[Tuple[int, int, int]] = None
         self.log: List[C.Record] = []     # every collective of every call
 
     # -- per call ----------------------------------------------------------
@@ -590,7 +638,7 @@ class SpmdPlan:
             spec[2] == "model"
 
     def end(self) -> None:
-        self._cols = None
+        self._cols = self._moe = None
 
     def global_shape(self, x: torch.Tensor, kind: str) -> Tuple[int, ...]:
         """The global shape of the tensor whose local shard ``x`` passes a
@@ -602,21 +650,33 @@ class SpmdPlan:
                 if lay[axis] is not None:
                     shape[lay[axis]] *= n
             return tuple(shape)
+        if self._moe is not None and (
+                kind == "moe_expert" or kind.startswith("dims:")
+                and len(shape) == 3):
+            E, G, s = self._moe             # [E, G, cap, d] or [G, s, d]
+            if kind == "moe_expert":
+                shape[:2] = [E, G]
+            else:
+                shape[:2] = [G, s]
+            return tuple(shape)
         if self.z and shape and shape[0] == self.z_local:
             shape[0] = self.z
         if self.m > 1:
             if kind == "residual" and len(shape) == 4 and \
                     shape[2] != self.seq_len:
                 shape[2] *= self.m
-            elif kind in ("attn_qkv", "ffn_hidden") and len(shape) >= 4:
-                shape[3] *= self.m
-            elif kind == "logits":
+            elif (kind in ("attn_qkv", "ffn_hidden") and len(shape) >= 4
+                  or kind.startswith("dims:") and len(shape) == 5):
+                shape[3] *= self.m          # [Z, b, S, H/m | ff/m, ...]
+            elif kind == "logits" and self.split("lm_head") is not None:
                 shape[-1] *= self.m
         return tuple(shape)
 
     # -- weights -----------------------------------------------------------
 
     def _layout(self, name: str) -> Dict[str, Optional[int]]:
+        """{"data": dim, "model": dim} of weight ``name`` (its
+        "weight:<name>" hint)."""
         lay = self.layouts.get(name)
         if lay is None and name == "lm_head":      # tied: embed transposed
             e = self.layouts["embed"]
@@ -646,6 +706,52 @@ class SpmdPlan:
         (a differentiable slice)."""
         k = t.shape[dim] // self.m
         return t.narrow(dim, self.model_rank * k, k)
+
+    # -- MoE ---------------------------------------------------------------
+
+    def experts_local(self, num_experts: int) -> Tuple[int, int]:
+        """(first, count) of this model rank's block of the routed experts:
+        E/m of them where the expert weights split over "model", else all
+        E."""
+        if self._layout("w_gate")["model"] is None:
+            return 0, num_experts
+        k = num_experts // self.m
+        return self.model_rank * k, k
+
+    def moe_groups(self, tokens: int, group: int, num_experts: int
+                   ) -> Tuple[int, int]:
+        """This data rank's ``tokens`` rows (Z/d slots, Z-major: the rows
+        from ``data_rank · tokens`` on of the flat Z·b·S) against the token
+        groups of ``group`` rows: (pieces, rows a piece). Whole groups where
+        they lie inside the rank; else one piece of the group it shares
+        with the neighbouring data ranks."""
+        if tokens % group and group % tokens:
+            raise NotImplementedError(
+                f"MoE token groups of {group} rows across data ranks of "
+                f"{tokens} rows: neither divides the other")
+        piece = min(group, tokens)
+        self._moe = (num_experts, tokens * self.d // group, group)
+        return tokens // piece, piece
+
+    def route_exchange(self, counts: torch.Tensor, top1: torch.Tensor,
+                       piece: int, group: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``counts``, ``top1``: [n, E] int32 per-expert counts of this
+        rank's choices (kept or not) and of its tokens' top-1 experts in
+        each of its n pieces. Returns (offset: the choices of each piece's
+        group on lower data ranks, each expert's queue places taken before
+        this rank's; the group's top-1 counts over every data rank in it).
+        Groups inside the rank need no exchange; a spanning group takes one
+        all-gather of both counts over "data" (no gradient)."""
+        if piece == group or self.d == 1:
+            return torch.zeros_like(counts), top1
+        both = torch.stack([counts, top1])[None]              # [1,2,n,E]
+        every = C.all_gather(both, self.mesh, "data", 0, "route", self.log)
+        first = self.data_rank * piece // group * group // piece
+        mates = range(first, first + group // piece)
+        offset = sum((every[r, 0] for r in mates if r < self.data_rank),
+                     torch.zeros_like(counts))
+        return offset, sum(every[r, 1] for r in mates)
 
     # -- activations -------------------------------------------------------
 
@@ -709,6 +815,28 @@ class SpmdPlan:
                                                       device=x.device))
         return self.partial(x)
 
+    def loss_rows(self, hidden: torch.Tensor, labels: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The loss head's (hidden, labels): with the vocabulary split over
+        "model", the hidden states gathered along S; with it whole, this
+        rank's sequence block of both (the loss sums then add over
+        "model", ``loss_sums``)."""
+        if self.split("lm_head") is not None:
+            return self.columns(hidden), labels
+        if self.seq_sharded:
+            labels = self.local(labels, 2)
+        return hidden, labels
+
+    def loss_sums(self, *sums: torch.Tensor) -> List[torch.Tensor]:
+        """Per-slot sums over this rank's sequence block added over
+        "model" (whole-vocabulary loss, sequence-sharded), in one
+        all-reduce; else as they are."""
+        if self.split("lm_head") is not None or not self.seq_sharded:
+            return list(sums)
+        both = C.reduce(torch.stack(sums), self.mesh, "model", "activation",
+                        self.log)
+        return list(both.unbind(0))
+
     def xent(self, logits: torch.Tensor, labels: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(log-sum-exp, gold logit) of fp32 vocabulary-parallel ``logits``
@@ -762,7 +890,7 @@ def _weight_layouts(mesh,
             for axis, p in zip(names, leaf.placements):
                 if isinstance(p, Shard) and axis in lay:
                     lay[axis] = p.dim - leaf.ndim
-        out[str(path[-1])] = lay
+        out[_weight_name(path)] = lay
 
     _map_with_path(params, visit)
     return out

@@ -13,8 +13,8 @@ multi-rank ("data", "model") mesh the train step runs sharded: the policy's
 ``SpmdPlan`` reads the parameters' placements and the batch's global shape
 at each call and issues the collectives (``launch/collectives.py``);
 ``partitioning.check_sharded`` refuses, with ``NotImplementedError``, what
-the sharded step does not run (the families other than dense, the DPO
-loss, the pod axis, a split that is not head-aligned), and the eval,
+the sharded step does not run (the families other than dense and MoE, the
+DPO loss, the pod axis, a split that is not head-aligned), and the eval,
 prefill and serve steps raise on such a mesh. One schedule serves every
 opt level: the levels change only the recorded decisions and hints, and
 the numbers stay equal.

@@ -8,9 +8,9 @@ The reference's flags (``python -m repro.launch.train``), plus ``--device``
 (the card by default; ``--device cpu`` runs on the CPU), ``--backend``
 (``nccl`` or ``gloo``; the default is NCCL on the card, gloo on the CPU),
 ``--ranks`` (per-slot adapter ranks, bound to the rank-local kernels),
-``--seed`` (the random weights, adapters and data) and ``--out`` (rank 0
-writes the per-slot losses and the updated adapters of every slot as
-``.npz``). ``--reduced`` takes the tiny fp32 variant of the architecture at
+``--seed`` (the random weights, adapters and data), ``--layers`` (a depth
+cut: the first N layers of the architecture) and ``--out`` (rank 0 writes
+the per-slot losses and the updated adapters of every slot as ``.npz``). ``--reduced`` takes the tiny fp32 variant of the architecture at
 Z 4, b 2, S 64; otherwise Z and b come from the shape (``train_4k``: Z 64,
 b 4, S 4,096), and the step tries them as they are: nothing cuts Z.
 
@@ -19,7 +19,9 @@ b 4, S 4,096), and the step tries them as they are: nothing cuts Z.
 none of them. Every rank builds the same full weights, adapters and batches
 from the seed, and ``partitioning.distribute`` keeps its shards: the slots
 of its data rank (Adapter Parallelism) and its blocks of the backbone over
-"model". Four ranks on the CPU:
+"model". The dense and MoE families run sharded (``partitioning
+.check_sharded`` names what does not); an MoE rank routes its data rank's
+tokens and runs its block of the experts. Four ranks on the CPU:
 
     for r in 0 1 2 3; do RANK=$r WORLD_SIZE=4 MASTER_ADDR=127.0.0.1 \\
       MASTER_PORT=29511 PYTHONPATH=src python -m repro_torch.launch.train \\
@@ -51,7 +53,7 @@ from repro_torch.launch import mesh as MESH
 from repro_torch.launch import partitioning as PT
 from repro_torch.launch import steps_dist
 from repro_torch.models import model as M
-from repro_torch.models.common import resolve_device
+from repro_torch.models.common import dtype_of, resolve_device
 from repro_torch.optim import adamw
 
 
@@ -59,6 +61,31 @@ def build_mesh(spec: str, device=None):
     """``--mesh dxm`` over the initialized process group (d·m ranks)."""
     d, m = (int(x) for x in spec.split("x"))
     return MESH.make_local_mesh((d, m), ("data", "model"), device=device)
+
+
+def _card_turns(cfg: ModelConfig, dev) -> tuple:
+    """(this rank's turn, the turns): the ranks of the group that share
+    this rank's card build the full weights and keep their shards as many
+    at a time as the card holds (twice the weights' bytes a rank, for the
+    fp32 draws), in rank order (llama4-scout's weights at 2 layers take 12
+    GB, and four at once do not fit an 80 GB card). A rank with a card of
+    its own, or on the CPU: (0, 1)."""
+    world = torch.distributed.get_world_size()
+    if dev.type != "cuda" or world == 1:
+        return 0, 1
+    me = (str(torch.cuda.get_device_properties(dev).uuid),
+          torch.cuda.mem_get_info(dev)[0])
+    got = [None] * world
+    torch.distributed.all_gather_object(got, me)
+    need = 2 * cfg.param_count() * dtype_of(cfg.dtype).itemsize
+    cards = {u: [r for r, (v, _) in enumerate(got) if v == u]
+             for u, _ in got}
+    # ranks at once: the fewest any card holds
+    at_once = max(1, min(min(got[r][1] for r in rs) // need
+                         for rs in cards.values()))
+    turns = max(-(-len(rs) // at_once) for rs in cards.values())
+    return (cards[me[0]].index(torch.distributed.get_rank()) // at_once,
+            turns)
 
 
 def _launch_counts() -> Dict[str, Dict[str, int]]:
@@ -94,7 +121,6 @@ def run(cfg: ModelConfig, Z: int, b: int, S: int, mesh, steps: int, *,
         f"mesh={MESH.axis_sizes(mesh)} devices="
         f"{torch.distributed.get_world_size()} device={dev}")
 
-    params = M.init_params(cfg, seed=seed, device=dev)
     per_slot = [min(rank, cfg.lora.r_max)] * Z if ranks is None else \
         list(ranks)
     if len(per_slot) != Z:
@@ -111,7 +137,15 @@ def run(cfg: ModelConfig, Z: int, b: int, S: int, mesh, steps: int, *,
 
     l_named = PT.to_named(mesh, PT.lora_param_specs(mesh, lora))
     o_named = PT.to_named(mesh, PT.opt_state_specs(mesh, opt))
-    params = placed(params, PT.base_param_specs(mesh, params))
+    turn, turns = _card_turns(cfg, dev)
+    for t in range(turns):
+        if t == turn:
+            params = M.init_params(cfg, seed=seed, device=dev)
+            params = placed(params, PT.base_param_specs(mesh, params))
+            if dev.type == "cuda" and turns > 1:
+                torch.cuda.empty_cache()   # the full weights, for the next
+        if turns > 1:
+            torch.distributed.barrier()
     lora = PT.distribute(mesh, lora, l_named)
     opt = PT.distribute(mesh, opt, o_named)
     hp = placed(hp, PT.hp_specs(mesh, hp))
@@ -238,11 +272,15 @@ def main(argv=None) -> Dict:
     ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
                     help="default: nccl on the card, gloo on the CPU")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to the first N layers")
     ap.add_argument("--out", default=None,
                     help="rank 0 writes losses and adapters here (.npz)")
     args = ap.parse_args(argv)
 
     cfg = get_arch(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     shape = get_shape(args.shape)
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), dtype="float32")

@@ -295,8 +295,12 @@ def transformer_block(cfg: ModelConfig, x: torch.Tensor, p: Dict,
     x = constrain(x, "residual")
     h = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
     if cfg.is_moe:
+        # the delta constrained before the add, as the MLP's below: sharded,
+        # it is the experts' fp32 partial sum over "model" (reduce-scattered
+        # here, then cast) while x holds this rank's sequence block
         moe_out, aux = MOE.moe_block(h, p["moe"], cfg.moe)
-        return constrain(x + moe_out, "residual"), aux
+        x = x + constrain(moe_out, "residual").to(x.dtype)
+        return constrain(x, "residual"), aux
     x = x + constrain(mlp_sublayer(h, p, lora, layer, scale), "residual")
     return constrain(x, "residual"), None
 

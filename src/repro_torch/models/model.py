@@ -225,13 +225,15 @@ def per_slot_xent(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
     Returns (sum_nll [Z] fp32, token_count [Z] fp32). The logits of one
     sequence chunk at a time are computed in the hidden dtype and taken to
     fp32, as the JAX package's scan over chunks does. Sharded
-    (``shardctx.spmd()``), the hidden states are gathered along S over
-    "model" and each rank's logits cover its vocabulary block: the
-    log-sum-exp and the gold logit are all-reduced over "model" per
-    chunk."""
+    (``shardctx.spmd()``) with the vocabulary split over "model", the
+    hidden states are gathered along S over "model" and each rank's logits
+    cover its vocabulary block: the log-sum-exp and the gold logit are
+    all-reduced over "model" per chunk. With the vocabulary whole (it does
+    not divide), each rank takes its own sequence block and the per-slot
+    sums are all-reduced over "model" once (``SpmdPlan.loss_rows``)."""
     sp = shardctx.spmd()
     if sp is not None:
-        hidden = sp.columns(hidden)
+        hidden, labels = sp.loss_rows(hidden, labels)
     Z, b, S, d = hidden.shape
     W = (params["lm_head"] if not cfg.tie_embeddings
          else params["embed"].T)
@@ -253,6 +255,8 @@ def per_slot_xent(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
         mask = (lab >= 0).float()
         s = s + ((lse - gold) * mask).sum(dim=(1, 2))
         cnt = cnt + mask.sum(dim=(1, 2))
+    if sp is not None:
+        s, cnt = sp.loss_sums(s, cnt)
     return s, cnt
 
 

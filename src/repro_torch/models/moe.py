@@ -33,14 +33,38 @@ opt_level >= 1, the expert weights by name, and the expert-major buffers
 as ``moe_expert`` ([E, G, cap, d] views). The reference's opt-level
 constraints on its ``[G, s, E, cap]`` dispatch and combine one-hots have no
 tensor to attach to here: the index route never forms them.
+
+Sharded over a real (data, model) mesh (``shardctx.spmd()``, the launcher's
+``SpmdPlan``), "model" is expert parallelism and "data" holds Z/d slots:
+  * every model rank gathers its data rank's normed tokens along S and
+    routes all of them with the whole router (the same result on each);
+  * the groups are the global ones over the flat Z·b·S: a group that lies
+    inside the data rank is routed as on one rank; a group that spans data
+    ranks is routed in pieces, each rank's queue places starting after the
+    choices of the lower data ranks in its group and its top-1 shares
+    counted over the whole group (``SpmdPlan.route_exchange``, one
+    all-gather of [n, E] counts over "data");
+  * each model rank dispatches only the choices of its block of E/m
+    experts into a local buffer of ``E/m · n · cap + 1`` rows (its local
+    queue places; the spare row takes dropped and other ranks' choices),
+    runs them on its local expert weights (gathered over "data") and sums
+    its choices in fp32: a partial sum over "model", with the shared
+    expert's row-parallel partial, that the "residual" constraint
+    reduce-scatters once. Experts that do not split over "model" run whole
+    on every rank, and a whole output is sliced along S;
+  * ``aux`` is the rank's share: its tokens' router mass against the
+    group's top-1 shares, on model rank 0 only (0 elsewhere), so the shares
+    add up to the reference's term over the mesh and it enters the
+    gradient once.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.models import shardctx
 from repro_torch.models.common import he_init, swiglu
 from repro_torch.models.shardctx import constrain, get_hint
 
@@ -86,22 +110,42 @@ def init_moe_params(gen: torch.Generator, d_model: int, moe: MoEConfig,
     return p
 
 
-def route(xt: torch.Tensor, router: torch.Tensor, moe: MoEConfig, cap: int
+class Groups(NamedTuple):
+    """A data rank's part of the token groups in a sharded step: each
+    piece of ``xt`` is a whole group of ``size`` tokens, or this rank's
+    part of one that spans data ranks; ``count`` groups over all data
+    ranks; ``exchange(counts, top1)`` ([n, E] int32 each) returns (the
+    queue places the lower data ranks took in each piece's group, the
+    group's top-1 counts): ``SpmdPlan.route_exchange``."""
+    size: int
+    count: int
+    exchange: Callable
+
+
+def route(xt: torch.Tensor, router: torch.Tensor, moe: MoEConfig, cap: int,
+          groups: Optional[Groups] = None
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                      torch.Tensor]:
     """xt: [G, s, d] -> (gates [G,s,k] fp32 with dropped choices zeroed,
     expert_idx [G,s,k], pos [G,s,k] (each choice's place in its expert's
-    queue), keep [G,s,k] bool, aux scalar fp32)."""
+    queue), keep [G,s,k] bool, aux scalar fp32). With ``groups`` (a
+    sharded step) xt holds this data rank's pieces of the groups, ``pos``
+    the places among the piece's own choices, ``keep`` says whether the
+    place in the whole group's queue is within ``cap``, and ``aux`` is this
+    rank's share of the term (its tokens' router mass, the groups' top-1
+    shares)."""
     E, k = moe.num_experts, moe.top_k
     probs = torch.softmax(xt.float() @ router, dim=-1)           # [G,s,E]
     gates, expert_idx = torch.topk(probs, k, dim=-1, sorted=True)
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
 
     ids = torch.arange(E, device=xt.device)
-    # load balance: mean router mass times the top-1 share, per group
-    me = probs.mean(dim=1)                                       # [G,E]
-    ce = (expert_idx[..., :1] == ids).float().mean(dim=1)       # [G,E]
-    aux = E * (me * ce).sum(-1).mean()
+    top1 = expert_idx[..., :1] == ids                            # [G,s,E]
+    if groups is None:
+        # load balance: mean router mass times the top-1 share, per group
+        me = probs.mean(dim=1)                                   # [G,E]
+        ce = top1.float().mean(dim=1)                            # [G,E]
+        aux = E * (me * ce).sum(-1).mean()
 
     # place in the expert's queue over the flattened (s, k) axis: earlier
     # tokens first, then lower k. The running counts run along the last
@@ -112,19 +156,31 @@ def route(xt: torch.Tensor, router: torch.Tensor, moe: MoEConfig, cap: int
     sel = (flat == ids[:, None]).to(torch.int32)                 # [G,E,s·k]
     before = torch.cumsum(sel, dim=-1, dtype=torch.int32) - sel
     pos = before.gather(1, flat).reshape(G, s, k)
-    keep = pos < cap
+    if groups is None:
+        keep = pos < cap
+        return gates * keep, expert_idx, pos, keep, aux
+    offset, top1 = groups.exchange(sel.sum(-1, dtype=torch.int32),
+                                   top1.sum(1, dtype=torch.int32))
+    keep = pos + offset.gather(1, flat[:, 0]).reshape(G, s, k) < cap
+    me = probs.sum(dim=1) / groups.size                          # [G,E]
+    ce = top1.float() / groups.size
+    aux = E * (me * ce).sum() / groups.count
     return gates * keep, expert_idx, pos, keep, aux
 
 
 def slots(expert_idx: torch.Tensor, pos: torch.Tensor, keep: torch.Tensor,
-          num_experts: int, cap: int) -> torch.Tensor:
+          num_experts: int, cap: int, first: int = 0) -> torch.Tensor:
     """Each choice's row of the flat expert buffer, ``[G·s·k]``: row
     ``(e·G + g)·cap + pos`` (the reference's ``egcd`` layout), or the
-    spare last row ``E·G·cap`` for a dropped choice."""
+    spare last row ``E·G·cap`` for a dropped choice. Sharded, the buffer
+    holds the ``num_experts`` experts from ``first`` on, and a choice of
+    another expert takes the spare row too."""
     G = expert_idx.shape[0]
     g = torch.arange(G, device=pos.device)[:, None, None]
-    row = (expert_idx * G + g) * cap + pos
-    return torch.where(keep, row, num_experts * G * cap).reshape(-1)
+    e = expert_idx - first
+    row = (e * G + g) * cap + pos
+    mine = keep & (e >= 0) & (e < num_experts)
+    return torch.where(mine, row, num_experts * G * cap).reshape(-1)
 
 
 def dispatch(xt: torch.Tensor, slot: torch.Tensor, num_experts: int,
@@ -170,16 +226,18 @@ class _GatherRows(torch.autograd.Function):
 
 
 def combine(expert_out: torch.Tensor, slot: torch.Tensor,
-            gates: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+            gates: torch.Tensor, dtype: torch.dtype,
+            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Each token's k expert outputs gathered back (a dropped choice reads
     the zero spare row) and summed over k in fp32, weighted by the gates
-    cast to the activation dtype: -> [G, s, d] in ``dtype``."""
+    cast to the activation dtype: -> [G, s, d] in ``out_dtype`` (default
+    ``dtype``; a sharded step's partial sum stays fp32)."""
     G, s, k = gates.shape
     d = expert_out.shape[-1]
     spare = torch.cat([expert_out, expert_out.new_zeros((1, d))])
     picked = _GatherRows.apply(spare, slot).reshape(G, s, k, d)
     w = gates.to(dtype).float()[..., None]
-    return (picked.float() * w).sum(dim=2).to(dtype)
+    return (picked.float() * w).sum(dim=2).to(out_dtype or dtype)
 
 
 def shared_expert(xt: torch.Tensor, sh: Dict) -> torch.Tensor:
@@ -189,32 +247,80 @@ def shared_expert(xt: torch.Tensor, sh: Dict) -> torch.Tensor:
 
 def moe_block(x: torch.Tensor, params: Dict, moe: MoEConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [Z, b, S, d] -> (out [Z, b, S, d], aux scalar fp32)."""
+    """x: [Z, b, S, d] -> (out [Z, b, S, d], aux scalar fp32). Sharded
+    (``shardctx.spmd()``), x is this rank's sequence block of its data
+    rank's slots, and out is the fp32 partial sum over "model" of the whole
+    sequence (the "residual" constraint reduce-scatters it) or, where
+    nothing splits over "model", this rank's block of the whole output;
+    aux is this rank's share (the module docstring)."""
+    sp = shardctx.spmd()
+    if sp is not None:
+        x = sp.columns(x)
     Z, b, S, d = x.shape
     T = Z * b * S
-    s = pick_group_size(T)
-    G = T // s
-    cap = capacity(moe, s)
     E = moe.num_experts
+    first, E_loc, groups = 0, E, None
+    if sp is None:
+        s = pick_group_size(T)
+        G = T // s
+    else:
+        s = pick_group_size(T * sp.d)
+        G, piece = sp.moe_groups(T, s, E)
+        groups = Groups(s, T * sp.d // s, lambda counts, top1:
+                        sp.route_exchange(counts, top1, piece, s))
+        first, E_loc = sp.experts_local(E)
+    cap = capacity(moe, s)
     opt = get_hint("opt_level", 0) >= 1
-    xt = x.reshape(G, s, d)
+    xt = x.reshape(G, T // G, d)
     if opt:
         xt = constrain(xt, "dims:data+pod")
-    gates, expert_idx, pos, keep, aux = route(xt, params["router"], moe, cap)
-    slot = slots(expert_idx, pos, keep, E, cap)
+    gates, expert_idx, pos, keep, aux = (
+        route(xt, params["router"], moe, cap) if groups is None
+        else route(xt, params["router"], moe, cap, groups))
+    slot = slots(expert_idx, pos, keep, E_loc, cap, first)
     weights = {n: constrain(params[n], f"weight:{n}")
                for n in ("w_gate", "w_up", "w_down")}
-    expert_in = constrain(dispatch(xt, slot, E, cap).reshape(E, G, cap, d),
-                          "moe_expert")
+    expert_in = constrain(dispatch(xt, slot, E_loc, cap).reshape(
+        E_loc, G, cap, d), "moe_expert")
     expert_out = constrain(
-        experts(expert_in.reshape(E, G * cap, d), weights).reshape(
-            E, G, cap, d), "moe_expert")
-    out = combine(expert_out.reshape(-1, d), slot, gates, x.dtype)
+        experts(expert_in.reshape(E_loc, G * cap, d), weights).reshape(
+            E_loc, G, cap, d), "moe_expert")
+    out = combine(expert_out.reshape(-1, d), slot, gates, x.dtype,
+                  None if sp is None else torch.float32)
     if opt:
         out = constrain(out, "dims:data+pod")
+    shared = None
     if "shared" in params:
         sh = params["shared"]
-        out = out + shared_expert(xt, {
+        shared = shared_expert(xt, {
             n: constrain(sh[n], f"weight:shared/{n}")
             for n in ("gate", "up", "down")})
-    return out.reshape(Z, b, S, d), aux
+    if sp is None:
+        if shared is not None:
+            out = out + shared
+        return out.reshape(Z, b, S, d), aux
+    return _sharded_out(sp, out, shared, E_loc < E, x.shape, x.dtype), (
+        aux if sp.model_rank == 0 else torch.zeros_like(aux))
+
+
+def _sharded_out(sp, routed: torch.Tensor, shared: Optional[torch.Tensor],
+                 experts_split: bool, shape, dtype: torch.dtype
+                 ) -> torch.Tensor:
+    """The sharded MoE output [Z/d, b, S, d] from the routed experts' fp32
+    sum over this rank's choices and the shared expert's output: one fp32
+    partial sum over "model" when either is split over it (a whole part
+    counted on model rank 0 only), else the whole output in the model
+    dtype, cut to this rank's sequence block."""
+    shared_split = shared is not None and sp.split("shared/down") == "row"
+    if not (experts_split or shared_split):
+        out = routed.to(dtype)
+        if shared is not None:
+            out = out + shared
+        out = out.reshape(shape)
+        return sp.local(out, 2).contiguous() if sp.seq_sharded else out
+    parts = [(routed, experts_split)]
+    if shared is not None:
+        parts.append((shared.float(), shared_split))
+    out = sum(p if split or sp.model_rank == 0 else torch.zeros_like(p)
+              for p, split in parts)
+    return sp.partial(out.reshape(shape))

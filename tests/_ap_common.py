@@ -53,3 +53,69 @@ def unflat(arrays: dict, prefix: str) -> dict:
             node = node.setdefault(p, {})
         node[leaf] = v
     return out
+
+
+# The MoE family on the same meshes (``tests/test_torch_ap_moe.py``):
+# reduced fp32 granite-moe-1b-a400m (E 4, top-2, tied embedding) and
+# llama4-scout-17b-a16e (E 4, top-1, a shared expert), 2 layers, d 128, at
+# Z 4 and the example's ranks and lr, 3 steps. Case -> (b, S, vocab, the
+# slots that repeat one token, REPEAT, at three of every four positions,
+# the meshes):
+#   span   — T 512: one group spanning every data rank; slots 1-2 repeat,
+#            so their experts' capacity binds for slots 2-3;
+#   moved  — span with slot 0 repeating too: the co-tenant dependence of
+#            slots 2-3 (the other data rank at 2x2) on slot 0's tokens;
+#   inside — T 8,192: groups of 4,096 inside each data rank at 2x2 and
+#            spanning two ranks at 4x1 (natural data; capacity binds);
+#   v515   — a vocabulary that does not split over "model" (whole there);
+#   e3     — 3 routed experts, which do not split over "model": every model
+#            rank runs all of them (granite: the output sliced along S;
+#            llama4: beside its split shared expert, one partial sum); one
+#            step (MOE_STEPS): at its third step a token of granite's slot 1
+#            changes its route with sum order, in the port's one-rank step
+#            and in the reference's own 2x2 against its 1x1 alike.
+MOE_ARCHS = {"granite": "granite-moe-1b-a400m",
+             "llama4": "llama4-scout-17b-a16e"}
+MOE_CASES = {"span": (4, 32, 512, (1, 2), ((2, 2), (4, 1))),
+             "moved": (4, 32, 512, (0, 1, 2), ((2, 2),)),
+             "inside": (4, 512, 512, (), ((2, 2), (4, 1))),
+             "v515": (4, 32, 515, (), ((2, 2), (4, 1))),
+             "e3": (4, 32, 512, (), ((2, 2),))}
+MOE_EXPERTS = {"e3": 3}
+MOE_STEPS = {"e3": 1}
+MOE_DIMS = dict(num_layers=2, d_model=128)
+# a slot of one token alone would give its attention equal values and
+# its q/k adapters a gradient of rounding noise: every fourth position
+# keeps its own token
+REPEAT = 7
+# AdamW's first steps move an entry by about lr times the sign of its
+# gradient, so sum order flips the entries whose gradient is near 0: more
+# of them in the MoE runs than in the dense example. The reference's own
+# meshes differ from its 1x1 run in up to 0.65% of a leaf's entries
+# (llama4, b 4, S 512, 2x2: q_proj A), past the dense example's
+# ``ADAM_SHARE``; the MoE runs take this share instead, with the same
+# per-entry bars and bound (``tests/test_torch_ap.py``). The reference
+# runs that case at 1x1 too, for the comparison
+MOE_ADAM_SHARE = 0.02
+MOE_SELF_RUN = "llama4_inside"
+# the port's planted fault (a): data rank 1 routes FAULT_LAYER without the
+# lower ranks' counts, on the span case of granite at 2x2
+FAULT_CASE, FAULT_MESH, FAULT_LAYER = "granite_span", (2, 2), 1
+
+
+def moe_runs():
+    """[(name "<arch>_<case>", arch, case, mesh)] of every MoE run."""
+    return [(f"{a}_{c}", arch, c, mesh) for a, arch in MOE_ARCHS.items()
+            for c, spec in MOE_CASES.items() for mesh in spec[4]]
+
+
+def moe_config(name: str, package: str):
+    """The reduced fp32 config of run ``name`` in ``package`` ("repro" or
+    "repro_torch")."""
+    import importlib
+    a, c = name.split("_")
+    get_arch = importlib.import_module(f"{package}.configs.registry").get_arch
+    cfg = get_arch(MOE_ARCHS[a]).reduced(vocab=MOE_CASES[c][2], **MOE_DIMS)
+    moe = dataclasses.replace(cfg.moe, num_experts=MOE_EXPERTS.get(
+        c, cfg.moe.num_experts))
+    return dataclasses.replace(cfg, moe=moe, dtype="float32")

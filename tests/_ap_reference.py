@@ -1,8 +1,8 @@
 """The JAX package's sharded train step on forced CPU host devices, for
-``tests/test_torch_ap.py``.
+``tests/test_torch_ap.py`` and ``tests/test_torch_ap_moe.py``.
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \\
-        python tests/_ap_reference.py <workdir>
+        python tests/_ap_reference.py <workdir> [--moe <arch key> <case>...]
 
 Reads ``<workdir>/init.npz`` (the shared weights, adapters and batches, see
 ``tests/_ap_common.py``) and writes ``<workdir>/jax_<d>x<m>.npz`` (per-step
@@ -10,7 +10,16 @@ per-slot losses and the updated adapters) for each mesh of
 ``common.JAX_MESHES``, built as ``examples/adapter_parallel.py`` builds its
 mesh, with Auto axes (jax >= 0.7 makes Explicit axes by default, which the
 reference's constraints cannot name).
+
+With ``--moe <key> <case>...`` (a key of ``common.MOE_ARCHS`` and keys of
+``common.MOE_CASES``) it runs those MoE cases of that arch instead:
+``init_<key>_<case>.npz`` in, ``jax_<key>_<case>_<d>x<m>.npz`` out for
+each of the case's meshes (and 1x1 for ``common.MOE_SELF_RUN``), and, for
+the span case, ``drops_<key>_span.json``: the choices the reference's
+``moe_block`` drops in each call of a one-device forward of the first
+batch, per slot (read from its one ``jnp.where`` by a debug callback).
 """
+import json
 import os
 import sys
 
@@ -27,7 +36,7 @@ from repro.optim import adamw  # noqa: E402
 from tests import _ap_common as common  # noqa: E402
 
 
-def run(cfg, init, shape):
+def run(cfg, init, shape, steps=common.STEPS):
     mesh = jax.make_mesh(shape, ("data", "model"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
     params = jax.tree_util.tree_map(jnp.asarray, common.unflat(init,
@@ -55,7 +64,7 @@ def run(cfg, init, shape):
     opt = jax.device_put(opt, o_sh)
     losses = []
     with mesh:
-        for t in range(common.STEPS):
+        for t in range(steps):
             batch = {"tokens": jnp.asarray(init["tokens"][t]),
                      "labels": jnp.asarray(init["labels"][t])}
             lora, opt, metrics = step(params, lora, opt, hp, active, ranks,
@@ -67,15 +76,70 @@ def run(cfg, init, shape):
     return out
 
 
-def main(workdir: str) -> None:
+class _Over:
+    """A module with some attributes replaced (the rest read through)."""
+
+    def __init__(self, base, **over):
+        self._base = base
+        self.__dict__.update(over)
+
+    def __getattr__(self, name):
+        return getattr(self._base, name)
+
+
+def drops(cfg, init) -> list:
+    """Per ``moe_block`` call of a forward of the first batch, the dropped
+    choices of each slot."""
+    from repro.models import model as JM
+    from repro.models import moe as JMOE
+    seen = []
+
+    def where(c, a, b):
+        jax.debug.callback(lambda k: seen.append(np.asarray(k)), c)
+        return jnp.where(c, a, b)
+
+    params = jax.tree_util.tree_map(jnp.asarray, common.unflat(init,
+                                                               "params/"))
+    real = JMOE.jnp
+    JMOE.jnp = _Over(jnp, where=where)
+    try:
+        fwd = jax.jit(lambda p, t: JM.forward(cfg, p, {}, t, remat=False)[0])
+        fwd(params, jnp.asarray(init["tokens"][0])).block_until_ready()
+    finally:
+        JMOE.jnp = real
+    return [[int((~q).sum()) for q in np.split(k.reshape(-1), common.Z)]
+            for k in seen]
+
+
+def main(workdir: str, moe: str = "", cases=()) -> None:
     assert len(jax.devices()) == 4, jax.devices()
-    init = dict(np.load(os.path.join(workdir, "init.npz")))
-    cfg = common.jax_config()
-    for shape in common.JAX_MESHES:
-        out = run(cfg, init, shape)
-        np.savez(os.path.join(workdir, "jax_%dx%d.npz" % shape), **out)
+    if not moe:
+        init = dict(np.load(os.path.join(workdir, "init.npz")))
+        cfg = common.jax_config()
+        for shape in common.JAX_MESHES:
+            out = run(cfg, init, shape)
+            np.savez(os.path.join(workdir, "jax_%dx%d.npz" % shape), **out)
+        print("done")
+        return
+    for case in cases:
+        name = f"{moe}_{case}"
+        init = dict(np.load(os.path.join(workdir, f"init_{name}.npz")))
+        cfg = common.moe_config(name, "repro")
+        meshes = common.MOE_CASES[case][4]
+        for shape in ((1, 1),) * (name == common.MOE_SELF_RUN) + meshes:
+            out = run(cfg, init, shape,
+                      common.MOE_STEPS.get(case, common.STEPS))
+            np.savez(os.path.join(workdir, f"jax_{name}_%dx%d.npz" % shape),
+                     **out)
+        if case == "span":
+            with open(os.path.join(workdir, f"drops_{name}.json"),
+                      "w") as f:
+                json.dump(drops(cfg, init), f)
     print("done")
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    if sys.argv[2:3] == ["--moe"]:
+        main(sys.argv[1], sys.argv[3], sys.argv[4:])
+    else:
+        main(sys.argv[1])

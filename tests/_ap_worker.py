@@ -15,8 +15,18 @@ batches) and writes, rank 0 for the group:
   * ``log_<d>x<m>_rank<r>.json`` — each rank's collective records of the
     opt-level-0 run on each mesh;
   * ``refusals.json`` — the ``NotImplementedError`` message of each
-    family other than dense on the 2x2 mesh, of glm4-9b's 2 KV heads over
-    a 4-way model axis, and of a prefill step on the 2x2 mesh.
+    family that the sharded step does not run on the 2x2 mesh, of the DPO
+    loss there, of glm4-9b's 2 KV heads over a 4-way model axis, and of a
+    prefill step on the 2x2 mesh.
+
+    python tests/_ap_worker.py <workdir> --moe
+
+runs the MoE family instead (``tests/test_torch_ap_moe.py``): for each run
+of ``common.moe_runs()``, ``init_<name>.npz`` in, ``port_<name>_<d>x<m>
+.npz`` and ``log_<name>_<d>x<m>_rank<r>.json`` out; on ``FAULT_CASE`` at
+``FAULT_MESH`` also the planted fault (a), ``port_<tag>_fault.npz`` (data
+rank 1 routes ``FAULT_LAYER`` without the lower ranks' counts), and opt
+level 2, ``port_<tag>_opt2.npz``.
 """
 import dataclasses
 import json
@@ -37,11 +47,11 @@ from repro_torch.launch import partitioning as PT  # noqa: E402
 from repro_torch.launch import steps_dist as SD  # noqa: E402
 from repro_torch.launch import train as TRAIN  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+import chip_smoke  # noqa: E402
 from tests import _ap_common as common  # noqa: E402
 
-OTHER_FAMILIES = {"moe": "granite-moe-1b-a400m", "ssm": "rwkv6-3b",
-                  "hybrid": "hymba-1.5b", "vlm": "qwen2-vl-72b",
-                  "audio": "musicgen-medium"}
+OTHER_FAMILIES = {"ssm": "rwkv6-3b", "hybrid": "hymba-1.5b",
+                  "vlm": "qwen2-vl-72b", "audio": "musicgen-medium"}
 
 
 def train(cfg, init, mesh, *, lrs=None, clip=1.0, opt_level=0,
@@ -92,8 +102,42 @@ def refusal(fn) -> str:
     return ""
 
 
+def moe_main(workdir: str) -> None:
+    with MESH.process_group("cpu", backend="gloo"):
+        me = dist.get_rank()
+        meshes = {s: MESH.make_local_mesh(s, device="cpu")
+                  for s in ((2, 2), (4, 1))}
+        for name, _, case, shape in common.moe_runs():
+            init = dict(np.load(os.path.join(workdir, f"init_{name}.npz")))
+            cfg = common.moe_config(name, "repro_torch")
+            tag = f"{name}_%dx%d" % shape
+            res = train(cfg, init, meshes[shape],
+                        steps=common.MOE_STEPS.get(case, common.STEPS))
+            TRAIN.write_out(os.path.join(workdir, f"port_{tag}.npz"),
+                            meshes[shape], res)
+            with open(os.path.join(workdir, f"log_{tag}_rank{me}.json"),
+                      "w") as f:
+                json.dump(res["log"], f)
+            if (name, shape) == (common.FAULT_CASE, common.FAULT_MESH):
+                # chip_smoke.py's fault (a), as phase 36 plants it
+                with chip_smoke._planted_moe(("route_blind",),
+                                             common.FAULT_LAYER,
+                                             common.FAULT_LAYER):
+                    res = train(cfg, init, meshes[shape])
+                TRAIN.write_out(os.path.join(workdir,
+                                             f"port_{tag}_fault.npz"),
+                                meshes[shape], res)
+                TRAIN.write_out(os.path.join(workdir, f"port_{tag}_opt2.npz"),
+                                meshes[shape],
+                                train(cfg, init, meshes[shape], opt_level=2))
+        dist.barrier()
+    print("done")
+
+
 def main(workdir: str) -> None:
     torch.set_num_threads(1)
+    if sys.argv[2:3] == ["--moe"]:
+        return moe_main(workdir)
     init = dict(np.load(os.path.join(workdir, "init.npz")))
     cfg = common.port_config()
     with MESH.process_group("cpu", backend="gloo"):
@@ -121,6 +165,8 @@ def main(workdir: str) -> None:
              m22)
         msgs = {fam: refusal(lambda: SD.make_train_step(get_arch(arch), m22))
                 for fam, arch in OTHER_FAMILIES.items()}
+        msgs["dpo"] = refusal(
+            lambda: SD.make_train_step(cfg, m22, loss_kind="dpo"))
         msgs["glm4-9b at model 4"] = refusal(
             lambda: SD.make_train_step(get_arch("glm4-9b"), meshes[(1, 4)]))
         msgs["prefill"] = refusal(

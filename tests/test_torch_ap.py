@@ -34,8 +34,9 @@ together in one module fixture.
     schedule: they are in fact equal); the one-rank step (this process, a
     one-rank gloo group) agrees with the 2x2 and 4x1 steps within (a)'s
     bars.
-(e) The families other than dense, glm4-9b's 2 KV heads over a 4-way model
-    axis (a split that is not head-aligned) and a prefill step raise
+(e) The families other than dense and MoE (``tests/test_torch_ap_moe.py``),
+    the DPO loss, glm4-9b's 2 KV heads over a 4-way model axis (a split
+    that is not head-aligned) and a prefill step raise
     ``NotImplementedError`` on a real mesh, naming what they refuse.
 (f) ``launch.train.main(["--reduced", "--mesh", "2x2", "--steps", "2",
     "--backend", "gloo", "--device", "cpu"])`` runs under 4 spawned
@@ -154,9 +155,9 @@ def _leaves(d):
     return sorted(k for k in d if k.startswith("lora/"))
 
 
-def _adapters_close(got, want, what):
-    """(a)'s bar on every adapter leaf; returns the largest share of
-    entries past LEAF."""
+def _adapters_close(got, want, what, share=ADAM_SHARE):
+    """(a)'s bar on every adapter leaf, with at most ``share`` of a leaf's
+    entries past LEAF; returns the largest share of entries past LEAF."""
     worst = 0.0
     assert _leaves(got) == _leaves(want)
     for k in _leaves(want):
@@ -164,7 +165,7 @@ def _adapters_close(got, want, what):
         assert a.shape == b.shape, (what, k)
         past = np.abs(a - b) > LEAF["atol"] + LEAF["rtol"] * np.abs(b)
         worst = max(worst, past.mean())
-        assert past.mean() <= ADAM_SHARE, (what, k, past.mean())
+        assert past.mean() <= share, (what, k, past.mean())
         np.testing.assert_allclose(a, b, rtol=0, atol=ADAM_BOUND,
                                    err_msg=f"{what} {k}")
     return worst
@@ -286,7 +287,7 @@ def test_opt_levels_and_one_rank_agree(runs, tmp_path):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("what,names", [
-    ("moe", ("moe", "granite-moe-1b-a400m")),
+    ("dpo", ("dpo", "loss")),
     ("ssm", ("ssm", "rwkv6-3b")),
     ("hybrid", ("hybrid", "hymba-1.5b")),
     ("vlm", ("vlm", "qwen2-vl-72b")),
