@@ -167,15 +167,16 @@ package. Phases, none of them caught:
             4/8, b = 2 guest (the rank-local kernels): every task's
             histories bitwise equal alone and fused.
 11. lr sweep — phase 6 with 8 jobs all at rank 64 (lr 1e-4/3e-4/1e-3/3e-3
-            x weight decay 0/0.01), at full width and 8 of the 32 layers
-            (depth cut for time): every step on the dense
+            x weight decay 0/0.01), at full width and SWEEP_LAYERS = 8
+            of the 32 layers (depth cut for time): every step on the dense
             kernels (the launch counts of 8 layers), the rank-local and
             ragged kernels never.
 12. heterogeneous co-location — the slice's main path: three full-rank
             tuning tasks of widths (b, S) = (4, 256), (2, 256) and
             (4, 128), 4 jobs each on 2 slots each, through run_colocated
             over one SharedBackboneExecutor (Z = 4, b_cap = 4, seq_cap =
-            256) on full-size stablelm-3b; the third waits at the admission
+            256) on stablelm-3b at full width and SWEEP_LAYERS (depth cut
+            for time); the third waits at the admission
             gate until a running task frees its slots. Every train step
             launches the kernel set its dense flag selects (ragged when a
             slot is narrower than the lane, dense otherwise; the rank-local
@@ -198,18 +199,20 @@ package. Phases, none of them caught:
 14. DPO    — the slice's main path: BatchedExecutor(Z = 4,
             per_adapter_batch = 2, loss_kind = "dpo", PairSlotBatcher,
             EarlyExitConfig(0.25, 0.25), eval_every = 2).run_task on
-            full-size stablelm-3b, 8 jobs (ranks 4/8/16/32 x lr 1e-4/1e-3),
+            stablelm-3b at full width and SWEEP_LAYERS (depth cut for
+            time), 8 jobs (ranks 4/8/16/32 x lr 1e-4/1e-3),
             S = 256: two warmup waves with rotation, selection, continue.
             Every slot's first DPO loss must read log 2 within 1e-3 (B = 0:
             the policy is the reference); every train step must launch
-            flash 192 times (two policy forwards with remat, two reference
-            forwards), the rank-local xa/sb_add 896, ds/da/db 448, dx 442,
-            every eval step flash 128 and xa/sb_add 448, the dense and
+            flash 48 times (two policy forwards with remat, two reference
+            forwards), the rank-local xa/sb_add 224, ds/da/db 112, dx 106,
+            every eval step flash 32 and xa/sb_add 112, the dense and
             ragged kernels never; the same measurements as phase 6, with
             flash attention's share of the device time.
 14a. engine — the slice's main path: Listing 1 through the port's entry
-            points. Engine(total_gpus = 2, eval_every = 2) on full-size
-            stablelm-3b (its own backbone, random weights from seed 0)
+            points. Engine(total_gpus = 2, eval_every = 2) on stablelm-3b
+            at full width and SWEEP_LAYERS (depth cut for time; its own
+            backbone, random weights from seed 0)
             with three tasks at S = 256, max_steps = 8, Z from the memory
             model at the card's HBM_BYTES (num_slots = 0) and
             EarlyExit(0.25, 0.5): "rank-sweep" (ranks 8/32 x lr
@@ -240,8 +243,9 @@ package. Phases, none of them caught:
             memory model's M_hat(Z b) beside the measured peak, the
             analytic step time beside the observed wall step
             (ExecutorTaskDriver.observed_wall_step_s), real tokens/s.
-14b. service — one live TuningService session on full-size stablelm-3b (its
-            own backbone from seed 0): Engine(total_gpus = 2, eval_every =
+14b. service — one live TuningService session on stablelm-3b at full
+            width and SWEEP_LAYERS, as phase 14a (its own backbone from
+            seed 0): Engine(total_gpus = 2, eval_every =
             2) with the service's defaults (bounded-delay adoption at
             delta 2, co-location, fusion planning, migration), winners
             written under a temporary serve_dir, and phase 4's frontend
@@ -263,7 +267,8 @@ package. Phases, none of them caught:
             observations of the key and its two step observations (the
             memory model's peak printed beside the card's); every step's
             launches as in 14a.
-15. recovery — the DPO task of phase 14 at full width and 4 layers, run
+15. recovery — the DPO task of phase 14 at full width and RECOVERY_LAYERS
+            = 2 layers (depth cut for time), run
             uninterrupted, then again with a TaskCheckpointer(every=1) as
             its ckpt_hook and a SimulatedCrash after the third durable
             checkpoint (the one exception caught, by type), then resumed
@@ -275,8 +280,9 @@ package. Phases, none of them caught:
             uninterrupted run's winner perturbed must change the loss
             histories and the winner's adapter.
 15a. service recovery — kill and recover through the service at full
-            width and 4 layers: a task of 8 jobs (lr 1e-4/1e-3, rank
-            8/32, b 2/4) on 4 slots, 12 steps a job, EarlyExit(0.2, 0.5),
+            width and RECOVERY_LAYERS layers: a task of 8 jobs (lr
+            1e-4/1e-3, rank 8/32, b 2/4) on 4 slots, 12 steps a job,
+            EarlyExit(0.2, 0.5),
             run by an uninterrupted session; then by a session with a
             state_dir (the write-ahead journal and a checkpoint every
             chunk) and a serve_dir that a SimulatedCrash ends after the
@@ -339,13 +345,13 @@ per forward) follow:
             through the plain version (as the JAX package's custom VJP),
             one chunk at a time (``torch.utils.checkpoint`` per chunk).
 19. rwkv rank sweep — the slice's main path: phase 6 on rwkv6-3b at full
-            width and RWKV_SWEEP_LAYERS = 16 of its 32 layers (depth cut
+            width and RWKV_SWEEP_LAYERS = 8 of its 32 layers (depth cut
             for time; 8 jobs, ranks 4/8/16/32 x lr 1e-4/1e-3, Z = 4, b =
             4, S = 256): every fused train step must launch the rank-local
-            xa/sb_add 224 times, ds/da/db 112, dx 108 (the first layer's
+            xa/sb_add 112 times, ds/da/db 56, dx 52 (the first layer's
             r/k/v/g read the embedding's token-shift lerps), the linear
-            scan 32 and flash 0; every eval step xa/sb_add 112 and the
-            linear scan 16; the dense and ragged kernels never. The same
+            scan 16 and flash 0; every eval step xa/sb_add 56 and the
+            linear scan 8; the dense and ragged kernels never. The same
             measurements as phase 6, with the scan kernel's share of the
             device time.
 
@@ -376,7 +382,7 @@ the window binds in every forward:
             ssm state bitwise untouched (phase 17 holds the same for
             rwkv6-3b's state).
 22. hymba train — phase 5 on hymba-1.5b at S = 2,048, b = 2, in fp32 at
-            full width and HYMBA_CHECK_LAYERS = 16 of 32 layers (the
+            full width and HYMBA_CHECK_LAYERS = 8 of 32 layers (the
             kernels' fp32 instantiations): every
             bar and every planted fault of phase 5 (the loss bar an fp32
             one, HYMBA_LOSS_REL), with two more forward faults that must
@@ -387,13 +393,13 @@ the window binds in every forward:
             8e-06 on dA / dB at 32 layers). The kernel runs launch flash
             and the scan twice per layer each.
 23. hymba rank sweep — the slice's main path: phase 6 on hymba-1.5b at full
-            width and HYMBA_SWEEP_LAYERS = 16 of its 32 layers (depth cut
+            width and HYMBA_SWEEP_LAYERS = 8 of its 32 layers (depth cut
             for time; 8 jobs, ranks 4/8/16/32 x lr 1e-4/1e-3, Z = 4, b = 2,
             S = 2,048, eval b = 4): every fused train step must launch the
-            rank-local xa/sb_add 256 times, ds/da/db 128, dx 124 (the first
-            layer's q/k/v and in_proj read the normed embedding), flash 32
-            and the scan 32; every eval step xa/sb_add 128, flash 16 and
-            the scan 16; the dense and ragged kernels never. The same measurements as phase 6, with flash's and the
+            rank-local xa/sb_add 128 times, ds/da/db 64, dx 60 (the first
+            layer's q/k/v and in_proj read the normed embedding), flash 16
+            and the scan 16; every eval step xa/sb_add 64, flash 8 and
+            the scan 8; the dense and ragged kernels never. The same measurements as phase 6, with flash's and the
             scan's shares of the device time.
 
 The hymba-1.5b backbone is freed; the MoE phases follow
@@ -491,13 +497,11 @@ and DENSE_LAYERS layers; random weights from a seed:
             ``make_prefill_step``, 8 greedy ``make_serve_step`` steps, the
             logits held against the plain versions within phase 4's bars,
             the run without the patch embeddings outside them.
-32. musicgen — at full size (1.82 B parameters, 3.6 GB in bf16): the rank
-            sweep (the audio family's main path; LoRA
-            672/672/336/333/336/336 and flash 96 a train step, 336 and 48
-            an eval step), a serve, and an fp32 train check at
-            AUDIO_CHECK_LAYERS = 24 of its 48 layers (phase 5's bars and
-            faults, loss bar FAMILY_LOSS_REL; cut from full depth to keep
-            the script within its limit once phase 36 came).
+32. musicgen — at full width and AUDIO_LAYERS = 16 of its 48 layers
+            (depth cut for time): the rank sweep (the audio family's main
+            path; LoRA 224/224/112/109/112/112 and flash 32 a train step,
+            112 and 16 an eval step), a serve, and an fp32 train check
+            (phase 5's bars and faults, loss bar FAMILY_LOSS_REL).
 33. dense configs — fp32 train checks of glm4-9b, granite-8b and
             mistral-nemo-12b at full width and DENSE_LAYERS = 2 layers on
             the rank-local path (phase 5's bars and faults, loss bar
@@ -536,8 +540,11 @@ and DENSE_LAYERS layers; random weights from a seed:
             role adapter_grad or with a last dim of r_max; model-axis
             adapter-gradient all-reduces); then the launcher's one-rank run
             (``launch.train.run``, NCCL) with the same settings, beside
-            AP_PROCS processes of this script's ``--ap-faults`` run
-            (AP_STEPS steps; on data rank 0 layer AP_FAULT_LAYER's
+            a job of the planted-fault pool (``ApRuns``: AP_PROCS processes
+            of this script's ``--ap-faults`` loop, started once with phase
+            35's ranks, serving phases 35-37; each run's launcher ranks
+            start while the previous run's controls run) (AP_STEPS steps;
+            on data rank 0 layer AP_FAULT_LAYER's
             row-parallel reduce-scatter skipped, data rank 1 fed rank 0's
             slots). The main path's per-slot losses of both steps and every
             updated adapter leaf must lie within AP_LOSS_REL and
@@ -562,6 +569,25 @@ and DENSE_LAYERS layers; random weights from a seed:
             layers (top-1 routing, the shared expert, a vocabulary split
             over "model"), AP_LLAMA4_STEPS step, 2 x 2 against 1 x 1 within
             AP_LLAMA4_LOSS_REL and AP_LLAMA4_ADAPTER_REL.
+37. ap ssm / hybrid — the ssm and hybrid families on the same mesh
+            (``ap_ssm_phase``): rows 13-18 at each rank's shapes of the
+            2 x 2 split (rwkv6-3b's column- and row-parallel r/k/v/g/o and
+            ffn_k/ffn_v; hymba-1.5b's in_proj in blocks, its whole q/k/v/o
+            and its MLP), the scan on a rank's heads (20 RWKV heads at S
+            512; 25 Mamba heads in SSD mode at S 2,048) and flash on
+            hymba's whole 25 heads with the window of 1,024, against their
+            plain versions; then phase 35's runs on rwkv6-3b at full width
+            and AP_RWKV_LAYERS layers in bf16 (Z 4, b 2, S 512; scan heads
+            over "model", one gather before each token shift; held on the
+            loss, its adapters noise-bound: RWKV amplifies the rounding of
+            bf16 partial sums), again in fp32 at AP_RWKV_CHECK_LAYERS
+            layers with fault (a), data rank 0 shifting each model rank's
+            block alone (slots 0-1), and on hymba-1.5b at full width and
+            AP_HYMBA_LAYERS layers (Z 4, b 1, S 2,048; attention whole on
+            every model rank, Mamba heads split, bc/dt partial products
+            all-reduced) with fault (b), data rank 1 taking in_proj's
+            contiguous column block (slots 2-3), each 2 x 2 against 1 x 1
+            within its bars.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernel table as JSON (twenty kernels), with each kernel's launches by
@@ -574,8 +600,8 @@ and ``vlm_prompt`` for qwen2-vl's train check, sweep, serve and image
 prompt, ``audio_sweep``, ``audio_serve`` and ``audio_train`` for
 musicgen's, ``dense_cfg_train`` for the dense configs' train checks,
 ``launch_train`` for the launcher's full-width steps, ``ap_train``,
-``ap_moe_train`` and ``ap_llama4_train`` for the sharded steps' four ranks,
-summed).
+``ap_moe_train``, ``ap_llama4_train``, ``ap_rwkv_train`` and
+``ap_hymba_train`` for the sharded steps' four ranks, summed).
 """
 from __future__ import annotations
 
@@ -635,9 +661,15 @@ TRAIN_B, TRAIN_S = 4, 256
 FULL_RANKS = (64, 64, 64, 64)
 # layers of the co-located == solo phases (full width, depth cut for time)
 COLO_LAYERS = 4
-# layers of the lr sweep (full width; cut from 32 so that the rwkv6-3b
-# phases fit in half the script's time limit)
-LR_SWEEP_LAYERS = 8
+# layers of the recovery and service recovery phases (full width; cut from
+# 4 so that the script with phase 37 fits its limit on a slow host: their
+# checkpoints, written every chunk, shrink with the depth; PERF.md §4)
+RECOVERY_LAYERS = 2
+# layers of stablelm-3b's lr sweep, heterogeneous co-location, DPO sweep,
+# engine and service phases (full width; the lr sweep cut from 32 so that
+# the rwkv6-3b phases fit in half the script's time limit, the others so
+# that the script with phase 37 fits its limit on a slow host; PERF.md §4)
+SWEEP_LAYERS = 8
 # token rows per slot of the executor's b = 4 / b = 2 mix (S = 256), and a
 # pattern with a boundary inside a tile and an empty slot
 RAGGED_ROWS = (1024, 512, 1024, 512)
@@ -675,15 +707,17 @@ SFU_PER_CLOCK_SM = 16         # exponentials per clock per SM (cc 9.0)
 # bar and every fault
 RWKV_GRAD_LAYERS = 2
 # layers of the rwkv rank sweep (full width; cut from 32 so that the last
-# families' phases fit the script's time)
-RWKV_SWEEP_LAYERS = 16
+# families' phases fit the script's time, and from 16 to make room for
+# phase 37)
+RWKV_SWEEP_LAYERS = 8
 # hymba-1.5b's paths: S = 2048 (its sliding window of 1024 binds in every
 # forward), b = 2 sequences a slot in a train step, HYMBA_EVAL_B in an eval
 # step; its LoRA projections (din, dout): q/o, k/v, in_proj, gate/up, down
 HYMBA_S, HYMBA_B, HYMBA_EVAL_B = 2048, 2, 4
 # layers of the hymba rank sweep (full width; cut from 32 so that the
-# autotune and launch phases fit the script's time)
-HYMBA_SWEEP_LAYERS = 16
+# autotune and launch phases fit the script's time, and from 16 to make
+# room for phase 37)
+HYMBA_SWEEP_LAYERS = 8
 HYMBA_SHAPES = ((1600, 1600), (1600, 320), (1600, 6400), (1600, 5504),
                 (5504, 1600))
 # hymba-1.5b's train check runs in fp32 at full depth (its backward at
@@ -694,10 +728,10 @@ HYMBA_SHAPES = ((1600, 1600), (1600, 320), (1600, 6400), (1600, 5504),
 # mildest planted forward fault's (slot 0's rank-4 delta halved, 6.6e-05;
 # see PERF.md)
 HYMBA_LOSS_REL = 2e-6
-# layers of hymba's fp32 train and ring-wrap checks: cut from 32 so that
-# phase 35 fits the script's time (its runs at 32 layers read the figures
-# above)
-HYMBA_CHECK_LAYERS = 16
+# layers of hymba's fp32 train and ring-wrap checks: cut from 32 to 16 so
+# that phase 35 fits the script's time, and to 8 for phase 37 (its runs at
+# 32 layers read the figures above)
+HYMBA_CHECK_LAYERS = 8
 # hymba-1.5b's ring past its wrap: two lanes prefilled with RING_PREFILL
 # tokens, then one lane decodes RING_STEPS more (positions 1,000-1,063: the
 # ring of 1,024 slots wraps after 24 steps), in fp32; its logits against
@@ -729,9 +763,11 @@ IMAGE_DECODES, IMAGE_TEXT = 8, 64
 # glm4-9b, granite-8b and mistral-nemo-12b at full width, DENSE_LAYERS of
 # their 36-40 layers, in their fp32 train checks
 DENSE_LAYERS = 2
-# musicgen's fp32 train check: 24 of its 48 layers (cut to keep the script
-# within its limit once phase 36 came; PERF.md §4)
-AUDIO_CHECK_LAYERS = 24
+# musicgen-medium at full width is cut to AUDIO_LAYERS of its 48 layers for
+# its rank sweep, serve and fp32 train check (the check cut from 48 to 24
+# once phase 36 came, all three to 16 so that the script with phase 37 fits
+# its limit on a slow host; PERF.md §4)
+AUDIO_LAYERS = 16
 # the LoRA projections (din, dout) of the last families: qwen2-vl's q/o,
 # k/v, gate/up and down; mistral-nemo's q and o (q_dim 4,096 != d_model
 # 5,120); glm4's k/v (2 KV heads of 128) and down (13,696 = 107 x 128);
@@ -767,8 +803,15 @@ LAUNCH_CHECK_LAYERS = 4
 # faults, each on its own slots, at least 6.96e-3 and 1.23 (PERF.md).
 AP_MESH = "2x2"
 AP_PROCS = 4
+# a run's ranks start while the previous run's controls hold the card only
+# if, all building their full weights at once (launch.train.init_bytes a
+# rank), they need at most this much of it: llama4-scout's 155 GB (its
+# ranks take turns sized to the card's free memory when they start) waits
+# for the controls to end
+AP_EARLY_BYTES = 36e9
 AP_LAYERS = 16
 AP_Z, AP_B, AP_S, AP_STEPS = 4, 2, 512, 2
+AP_LOAD = (AP_Z, AP_B, AP_S)
 AP_FAULT_LAYER = 5
 # the slots each planted fault reaches (one run plants both: one on each
 # data rank)
@@ -797,6 +840,38 @@ AP_LLAMA4_ARCH = "llama4-scout-17b-a16e"
 AP_LLAMA4_LAYERS, AP_LLAMA4_STEPS = 2, 1
 AP_LLAMA4_LOSS_REL = 3e-3
 AP_LLAMA4_ADAPTER_REL = 0.75
+# phase 37: the ssm and hybrid families' sharded step, on the same mesh
+# and ranks as phase 35: rwkv6-3b at full width (40 heads: 20 a model
+# rank) and AP_RWKV_LAYERS of its 32 layers (cut from 8 for time) at Z 4,
+# b 2, S 512; hymba-1.5b
+# at full width (25 heads and 5 KV heads, whole on every model rank; 50
+# Mamba heads, 25 a rank) and AP_HYMBA_LAYERS of its 32 layers at Z 4, b 1,
+# S 2,048 (its window of 1,024 binds); AP_STEPS steps each, against its
+# one-rank run. Planted faults, in layer AP_SSM_FAULT_LAYER, each on its
+# own data rank's slots: (a) rwkv, data rank 0 shifts each model rank's
+# sequence block alone (slots 0-1); (b) hymba, data rank 1 takes in_proj's
+# contiguous column block for its x/z split (slots 2-3). The bars are set
+# from the card's sound runs (PERF.md). RWKV's step amplifies rounding: in
+# bf16 the sharded partial sums move its loss by 1.5e-4 at step 0 and, by
+# step 1, 9.6e-4 at 4 layers (1.6e-3 at 8), as much as fault (a) moves it
+# (9.2e-4 at 8 layers), so the bf16 run (the main path) is held on the loss
+# and its fault ranks run the same width in fp32 at AP_RWKV_CHECK_LAYERS
+# layers, sound and with fault (a): the sound fp32 loss agrees within 1e-7
+# at step 0 and 1.2e-4 at step 1, the fault's reads 8.9e-4. The adapters,
+# in both dtypes, differ by about their whole update (AdamW's first steps
+# move an entry by lr times the sign of its gradient, and the sums flip
+# the signs of RWKV's many near-zero gradient entries: 0.96 in fp32, the
+# fault 1.11): their bars only bound that noise, and the fault must pass
+# the loss bar.
+AP_RWKV_ARCH, AP_RWKV_LAYERS, AP_RWKV_LOAD = "rwkv6-3b", 4, (4, 2, 512)
+AP_RWKV_CHECK_LAYERS = 4
+AP_HYMBA_ARCH, AP_HYMBA_LAYERS, AP_HYMBA_LOAD = "hymba-1.5b", 4, (4, 1, 2048)
+AP_SSM_FAULT_LAYER = 0
+AP_RWKV_FAULT_RUNS = ({"shift_local": (0, 1)},)
+AP_HYMBA_FAULT_RUNS = ({"in_proj_cols": (2, 3)},)
+AP_RWKV_LOSS_REL, AP_RWKV_ADAPTER_REL = 3e-3, 2.5
+AP_RWKV_FP32_LOSS_REL, AP_RWKV_FP32_ADAPTER_REL = 3e-4, 1.5
+AP_HYMBA_LOSS_REL, AP_HYMBA_ADAPTER_REL = 1e-3, 0.75
 # device busy ms per profiled train step of each executor phase, by task
 STEP_BUSY_MS = {}
 DPO_B = 2                     # preference pairs per slot in the DPO phase
@@ -3276,7 +3351,7 @@ def _histories(lc):
 
 def recovery_phase(torch, cfg):
     """Crash and resume of the DPO task on the card, stablelm-3b at full
-    width and COLO_LAYERS layers, RECOVERY_STEPS steps per job (three
+    width and RECOVERY_LAYERS layers, RECOVERY_STEPS steps per job (three
     warmup steps per wave, so the third chunk boundary falls inside the
     second wave, with the first wave's jobs rotated out: the crash lands
     mid-rotation): uninterrupted; crashed by a
@@ -3301,7 +3376,7 @@ def recovery_phase(torch, cfg):
     from repro_torch.data.synthetic import PairSlotBatcher
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(cfg, num_layers=COLO_LAYERS)
+    cfg = dataclasses.replace(cfg, num_layers=RECOVERY_LAYERS)
     params = M.init_params(cfg, seed=0, device="cuda")
     chosen, rejected = _pair_data(cfg)
     jobs = _dpo_jobs()
@@ -3619,7 +3694,7 @@ def engine_phase(torch, fams):
     require(profiler.HBM_BYTES <= total,
             f"the planner's HBM_BYTES {profiler.HBM_BYTES} exceeds the "
             f"card's {total} bytes")
-    cfg = get_arch("stablelm-3b")
+    cfg = dataclasses.replace(get_arch("stablelm-3b"), num_layers=SWEEP_LAYERS)
     ee = alto.EarlyExit(warmup_ratio=0.25, select_ratio=0.5)
     probe = LaunchProbe(torch, fams, cfg)
 
@@ -3798,7 +3873,7 @@ def service_phase(torch, fams, handover):
     from repro_torch.serve import SPEC_VERSION
 
     t = time.perf_counter()
-    cfg = get_arch("stablelm-3b")
+    cfg = dataclasses.replace(get_arch("stablelm-3b"), num_layers=SWEEP_LAYERS)
     ee = alto.EarlyExit(warmup_ratio=0.25, select_ratio=0.5)
     probe = LaunchProbe(torch, fams, cfg)
     tasks = {x.task_name: x for x in _engine_tasks(alto, cfg)}
@@ -3981,7 +4056,7 @@ def service_phase(torch, fams, handover):
 
 
 def service_recovery_phase(torch, fams):
-    """Kill and recover through the service at full width and COLO_LAYERS
+    """Kill and recover through the service at full width and RECOVERY_LAYERS
     layers: the reference's recovery task (8 jobs of lr 1e-4/1e-3, rank
     8/32, b 2/4 on 4 slots, 1 GPU, RECOVERY_STEPS steps a job,
     EarlyExit(0.2, 0.5)) run by an uninterrupted session; then by a
@@ -4005,7 +4080,8 @@ def service_recovery_phase(torch, fams):
     from repro_torch.sched.journal import replay_journal
 
     t = time.perf_counter()
-    cfg = dataclasses.replace(get_arch("stablelm-3b"), num_layers=COLO_LAYERS)
+    cfg = dataclasses.replace(get_arch("stablelm-3b"),
+                              num_layers=RECOVERY_LAYERS)
     ee = alto.EarlyExit(warmup_ratio=0.2, select_ratio=0.5)
     probe = LaunchProbe(torch, fams, cfg)
     params = M.init_params(cfg, seed=0, device="cuda")
@@ -4701,8 +4777,9 @@ def scan_kernel_phase(torch, LSK, lsref, cfg, cases=None, S=TRAIN_S):
     res = dict(results["train"])
     del res["pair_exp_bound_ms"]
     res["max_abs_err"] = max(results[lab]["max_abs_err"]
-                             for lab in ("train", "eval"))
-    res["eval_ms"] = results["eval"]["ms"]
+                             for lab in ("train", "eval") if lab in results)
+    if "eval" in results:
+        res["eval_ms"] = results["eval"]["ms"]
     return res, results
 
 
@@ -5453,9 +5530,9 @@ def family_phases(torch, fams, t_all):
     qwen2-vl-72b (the vlm family: M-RoPE and the stub vision tower's patch
     prefix) at QWEN_LAYERS layers, with an image-prefixed fp32 train check
     at QWEN_TRAIN_LAYERS, a rank sweep (its main path), a serve and an
-    image-prefixed prompt; musicgen-medium (the audio family) at full size:
-    its rank sweep (its main path), a serve and an fp32 train check at
-    AUDIO_CHECK_LAYERS layers; then
+    image-prefixed prompt; musicgen-medium (the audio family) at full width
+    and AUDIO_LAYERS: its rank sweep (its main path), a serve and an fp32
+    train check; then
     fp32 train checks of glm4-9b, granite-8b and mistral-nemo-12b at
     DENSE_LAYERS layers (mistral's also on the dense path). Returns (the
     rank-local kernels' results, flash's by case, launches by path: of the
@@ -5544,19 +5621,20 @@ def family_phases(torch, fams, t_all):
     print(f"vlm serve phases done at {time.perf_counter() - t_all:.1f} s")
 
     t = time.perf_counter()
-    mparams = M.init_params(mcfg, seed=0, device="cuda")
+    m16 = dataclasses.replace(mcfg, num_layers=AUDIO_LAYERS)
+    mparams = M.init_params(m16, seed=0, device="cuda")
     torch.cuda.synchronize()
-    print(f"init: {mcfg.name} backbone in {time.perf_counter() - t:.1f} s "
+    print(f"init: {mcfg.name} at full width, {AUDIO_LAYERS} of "
+          f"{mcfg.num_layers} layers, in {time.perf_counter() - t:.1f} s "
           f"({_gbytes(mparams):.2f} GB)")
     paths["audio_sweep"] = executor_phase(
-        torch, RL, (fams["dense"], fams["ragged"]), mcfg, mparams,
+        torch, RL, (fams["dense"], fams["ragged"]), m16, mparams,
         "audio-rank-sweep", rank_jobs)
     print(f"audio rank-sweep executor phase done at "
           f"{time.perf_counter() - t_all:.1f} s")
-    paths["audio_serve"] = serve_phase(torch, RL, mcfg, mparams)
-    m32 = dataclasses.replace(mcfg, dtype="float32",
-                              num_layers=AUDIO_CHECK_LAYERS)
-    cparams = _cut_layers(mparams, AUDIO_CHECK_LAYERS, torch.float32)
+    paths["audio_serve"] = serve_phase(torch, RL, m16, mparams)
+    m32 = dataclasses.replace(m16, dtype="float32")
+    cparams = _cut_layers(mparams, AUDIO_LAYERS, torch.float32)
     del mparams
     paths["audio_train"] = train_check(torch, fams, m32, cparams,
                                        TRAIN_RANKS, "rank-local",
@@ -5812,33 +5890,38 @@ def _ap_kill(started) -> None:
 def _ap_wait(started) -> list:
     """Wait for ``_ap_start``'s processes; every one is killed if any fails
     or the time runs out (or the caller fails meanwhile). Returns each
-    rank's output."""
+    rank's output; a failure names the ranks that failed before the kill."""
     procs, logs, out_dir, tag = started
+    failed = []
     try:
         deadline = time.perf_counter() + AP_TIMEOUT_S
         while any(p.poll() is None for p in procs):
-            if (time.perf_counter() > deadline
-                    or any(p.poll() not in (None, 0) for p in procs)):
+            failed = [r for r, p in enumerate(procs)
+                      if p.poll() not in (None, 0)]
+            if failed or time.perf_counter() > deadline:
                 break
             time.sleep(0.2)
     finally:
         _ap_kill(started)
     texts = [(out_dir / f"{tag}{r}.log").read_text()
              for r in range(AP_PROCS)]
-    for r, p in enumerate(procs):
-        require(p.returncode == 0, f"ap {tag} rank {r} exited "
-                f"{p.returncode}:\n{texts[r][-3000:]}")
+    for r in failed + list(range(AP_PROCS)):
+        require(procs[r].returncode == 0, f"ap {tag} rank {r} exited "
+                f"{procs[r].returncode} (first to fail: ranks {failed}):\n"
+                f"{texts[r][-3000:]}")
     return texts
 
 
-def _ap_args(cfg, reduced: bool, device: str, steps: int) -> list:
+def _ap_args(cfg, reduced: bool, device: str, steps: int,
+             load=AP_LOAD) -> list:
     """The launcher's flags for ``cfg`` (its arch, reduced or cut to its
-    depth) on phase 35's mesh and load."""
+    depth) on phase 35's mesh and ``load`` (Z, b, S)."""
+    Z, b, S = load
     return (["--arch", cfg.name]
             + (["--reduced"] if reduced else
                ["--layers", str(cfg.num_layers)])
-            + ["--slots", str(AP_Z), "--batch", str(AP_B), "--seq",
-               str(AP_S), "--ranks", ",".join(map(str, RANKS)),
+            + ["--slots", str(Z), "--batch", str(b), "--seq",
+               str(S), "--ranks", ",".join(map(str, RANKS)),
                "--mesh", AP_MESH, "--backend", "gloo", "--device", device,
                "--steps", str(steps)])
 
@@ -5934,62 +6017,302 @@ def _planted_moe(faults, route_layer: int, slice_layer: int):
          PT.SpmdPlan.residual) = saved
 
 
+@contextlib.contextmanager
+def _planted_ssm(faults, layer: int):
+    """Phase 37's faults named in ``faults``, in layer ``layer``:
+    "shift_local", data rank 0 shifts each model rank's sequence block
+    alone (the first token of every block but the first takes zeros, not
+    its true predecessor; RWKV's time and channel mixes); "in_proj_cols",
+    data rank 1 takes in_proj's contiguous column block (the rule's plain
+    Shard(-1)) for its x/z split, and the same block of its LoRA B
+    (Mamba)."""
+    from repro_torch.core import lora as LORA
+    from repro_torch.models import blocks as B
+    from repro_torch.models import mamba as MAMBA
+    from repro_torch.models import rwkv as RW
+    from repro_torch.models import shardctx
+    here = {"layer": None}
+    apply_block, shift, proj = B.apply_block, RW._token_shift, MAMBA.proj
+
+    def block(cfg, x, p, lora, layer_, ctx):
+        prev, here["layer"] = here["layer"], layer_
+        try:
+            return apply_block(cfg, x, p, lora, layer_, ctx)
+        finally:
+            here["layer"] = prev
+
+    def local_shift(x, prev):
+        out = shift(x, prev)
+        sp = shardctx.spmd()
+        if ("shift_local" in faults and here["layer"] == layer
+                and sp is not None and sp.data_rank == 0 and sp.m > 1):
+            k = x.shape[2] // sp.m
+            out = out.clone()
+            out[:, :, k::k] = 0
+        return out
+
+    def cols_proj(x, W, lora_pair=None, scale=2.0, name=None, **kw):
+        sp = shardctx.spmd()
+        if not ("in_proj_cols" in faults and name == "in_proj"
+                and here["layer"] == layer and sp is not None
+                and sp.data_rank == 1 and sp.m > 1):
+            return proj(x, W, lora_pair, scale, name, **kw)
+        W = sp.local(sp.gather_model(sp.weight(W, name), name), -1)
+        x = sp.columns(x)
+        A, Bm = lora_pair
+        return x @ W + LORA.lora_delta(x, A, sp.local(Bm, -1).contiguous(),
+                                       scale)
+
+    saved = B.apply_block, RW._token_shift, MAMBA.proj
+    B.apply_block, RW._token_shift, MAMBA.proj = block, local_shift, cols_proj
+    try:
+        yield
+    finally:
+        B.apply_block, RW._token_shift, MAMBA.proj = saved
+
+
 def ap_fault_child(argv) -> int:
-    """One rank of the planted-fault runs of phase 35 or 36 (``chip_smoke.py
-    --ap-faults <dir> --faults <a,b> [--faults <c> ...]`` and the sharded
-    run's launcher flags): once ``<dir>/go`` exists, for each ``--faults``
-    in turn, the steps under the faults it names (``_planted``: the dense
-    family's two; ``_planted_moe``: MoE's), the losses and adapters written
-    by rank 0 to ``<dir>/faults_<a+b>.npz``."""
+    """One rank of phases 35-37's planted-fault pool (``chip_smoke.py
+    --ap-faults <dir> --device <d> --backend <b>``, AP_PROCS ranks in
+    ``_ap_env``'s torchrun-style environment, started once by ``ApRuns``):
+    for k = 0, 1, ... it waits for ``<dir>/job<k>.json`` (``ApRuns.faults``:
+    a sharded run's launcher flags, its fault runs, its output directory)
+    and runs the job (``_fault_job``), frees what it can of the card, then
+    writes what it still holds there to ``<dir>/done<k>_<rank>``; it ends
+    when ``<dir>/end`` exists and no job is waiting."""
     import argparse
+
+    import torch
     ap = argparse.ArgumentParser()
     ap.add_argument("--ap-faults", required=True)
-    ap.add_argument("--faults", action="append", required=True)
+    ap.add_argument("--device", required=True)
+    ap.add_argument("--backend", required=True)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import mesh as MESH
+    jobs, meshes = Path(args.ap_faults), {}
+    with MESH.process_group(args.device, backend=args.backend) as dev:
+        require(dev.type == args.device.split(":")[0], f"device {dev}")
+        rank, k = torch.distributed.get_rank(), 0
+        while True:
+            job = jobs / f"job{k}.json"
+            while not job.exists():
+                if (jobs / "end").exists():
+                    return 0
+                time.sleep(0.05)
+            _fault_job(json.loads(job.read_text()), dev, meshes)
+            gc.collect()            # the steps' graphs: the next run's
+            if dev.type == "cuda":  # weights need the card
+                torch.cuda.empty_cache()
+                held = (f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} "
+                        f"GiB allocated, "
+                        f"{torch.cuda.memory_reserved(dev) / 2**30:.2f} "
+                        f"reserved")
+            else:
+                held = "on the CPU"
+            (jobs / f"held{k}_{rank}").write_text(held)
+            (jobs / f"held{k}_{rank}").rename(jobs / f"done{k}_{rank}")
+            k += 1
+
+
+def _fault_job(spec: dict, dev, meshes: dict) -> None:
+    """One job of the fault pool: for each of ``spec["faults"]`` in turn
+    (a comma-separated list of faults, or "none": a sound control), the
+    steps of ``spec["args"]`` (the launcher's flags and ``--dtype``) under
+    the faults it names (``_planted``: the dense family's two;
+    ``_planted_moe``: MoE's; ``_planted_ssm``: the ssm and hybrid
+    families'), the losses and adapters written by rank 0 to
+    ``<spec["out"]>/faults_<a+b>.npz``. ``meshes`` keeps each mesh built."""
+    import argparse
+
+    from repro_torch.launch import train as TRAIN
+    ap = argparse.ArgumentParser()
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--arch", default="stablelm-3b")
     ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--dtype", default=None)
     for flag in ("--slots", "--batch", "--seq", "--steps"):
         ap.add_argument(flag, type=int, required=True)
     for flag in ("--ranks", "--mesh", "--backend", "--device"):
         ap.add_argument(flag, required=True)
-    args = ap.parse_args(argv)
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.launch import mesh as MESH
-    from repro_torch.launch import train as TRAIN
-    cfg = _ap_config(args.reduced, args.arch, args.layers)
+    args = ap.parse_args(spec["args"])
+    cfg = _ap_config(args.reduced, args.arch, args.layers, args.dtype)
     ranks = [int(r) for r in args.ranks.split(",")]
-    gate = Path(args.ap_faults) / "go"
-    last = cfg.num_layers - 1
-    with MESH.process_group(args.device, backend=args.backend) as dev:
-        require(dev.type == args.device.split(":")[0], f"device {dev}")
-        mesh = TRAIN.build_mesh(args.mesh, dev)
-        while not gate.exists():       # the parent opens it (or kills us)
-            time.sleep(0.05)
-        for run in args.faults:
-            faults = run.split(",")
-            planted = (_planted_moe(faults, min(AP_MOE_ROUTE_LAYER, last),
-                                    min(AP_MOE_SLICE_LAYER, last))
-                       if cfg.is_moe else
-                       _planted(min(AP_FAULT_LAYER, last)))
-            with planted:
-                res = TRAIN.run(cfg, args.slots, args.batch, args.seq, mesh,
-                                args.steps, ranks=ranks, device=dev,
-                                log=lambda m: print(f"faults: {m}"))
-            TRAIN.write_out(str(Path(args.ap_faults)
-                                / f"faults_{'+'.join(faults)}.npz"), mesh,
-                            res)
-            del res
-    return 0
+    if args.mesh not in meshes:
+        meshes[args.mesh] = TRAIN.build_mesh(args.mesh, dev)
+    mesh, last = meshes[args.mesh], cfg.num_layers - 1
+    for run in spec["faults"]:
+        faults = run.split(",")
+        if faults == ["none"]:
+            planted = contextlib.nullcontext()
+        elif cfg.is_moe:
+            planted = _planted_moe(faults, min(AP_MOE_ROUTE_LAYER, last),
+                                   min(AP_MOE_SLICE_LAYER, last))
+        elif cfg.family in ("ssm", "hybrid"):
+            planted = _planted_ssm(faults, min(AP_SSM_FAULT_LAYER, last))
+        else:
+            planted = _planted(min(AP_FAULT_LAYER, last))
+        with planted:
+            res = TRAIN.run(cfg, args.slots, args.batch, args.seq, mesh,
+                            args.steps, ranks=ranks, device=dev,
+                            log=lambda m: print(f"faults: {m}"))
+        TRAIN.write_out(str(Path(spec["out"]) / f"faults_{'+'.join(faults)}"
+                            ".npz"), mesh, res)
+        del res
 
 
-def _ap_config(reduced: bool, arch: str = "stablelm-3b", layers=None):
+def _ap_order() -> list:
+    """Phases 35-37's sharded runs, (config, steps, load), in the order the
+    phases take them."""
+    return [(_ap_config(False, layers=AP_LAYERS), AP_STEPS, AP_LOAD),
+            (_ap_config(False, AP_MOE_ARCH), AP_STEPS, AP_LOAD),
+            (_ap_config(False, AP_LLAMA4_ARCH, AP_LLAMA4_LAYERS),
+             AP_LLAMA4_STEPS, AP_LOAD),
+            (_ap_config(False, AP_RWKV_ARCH, AP_RWKV_LAYERS), AP_STEPS,
+             AP_RWKV_LOAD),
+            (_ap_config(False, AP_HYMBA_ARCH, AP_HYMBA_LAYERS), AP_STEPS,
+             AP_HYMBA_LOAD)]
+
+
+class ApRuns:
+    """Phases 35-37's sharded runs, in ``order`` (each (config, steps,
+    load)), and one pool of AP_PROCS planted-fault ranks for all of them.
+
+    A run's AP_PROCS launcher ranks start when the previous run's ranks
+    have ended (``start_next``), so that their start-up (~14 s of imports
+    a process on the card's host) overlaps that run's controls, unless
+    their weights are too large for that (AP_EARLY_BYTES); the others',
+    and the pool's, start at the run's ``take``. A fault job
+    (``faults``) is given to the pool only once its run's launcher ranks
+    have ended: the main path has the card to itself unless the previous
+    run's controls outlast its start-up (``ap_train_phase`` prints which).
+    With ``reduced`` every run is its config's tiny fp32 variant (the
+    launcher's ``--reduced``; on the CPU, a check of this machinery)."""
+
+    def __init__(self, order, device: str = "cuda", reduced: bool = False):
+        self.order, self.device, self.reduced = list(order), device, reduced
+        self.dir = Path(tempfile.mkdtemp(prefix="ap_runs_"))
+        self.taken, self.jobs = 0, 0
+        self.next = self.pool = None
+        self.t_next = self.lead = 0.0
+
+    @staticmethod
+    def _key(cfg, steps, load):
+        return cfg.name, cfg.num_layers, cfg.dtype, steps, tuple(load)
+
+    def _start(self, i: int):
+        cfg, steps, load = self.order[i]
+        out = Path(tempfile.mkdtemp(prefix="ap_run_", dir=self.dir))
+        return _ap_start([sys.executable, "-m", "repro_torch.launch.train",
+                          *_ap_args(cfg, self.reduced, self.device, steps,
+                                    load),
+                          "--out", str(out / "ap.npz")], out, "rank")
+
+    def take(self, cfg, steps: int, load):
+        """The launcher ranks of the next run, which must be ``cfg`` at
+        ``steps`` and ``load``: started by ``start_next``, or now."""
+        i = self.taken
+        require(i < len(self.order)
+                and self._key(*self.order[i]) == self._key(cfg, steps, load),
+                f"ap: {cfg.name} is not run {i} of {len(self.order)}")
+        self.taken += 1
+        if self.device == "cuda":
+            import torch
+            free, total = torch.cuda.mem_get_info()
+            print(f"ap: the card has {free / 2**30:.2f} of "
+                  f"{total / 2**30:.2f} GiB free as {cfg.name}'s run is "
+                  f"taken")
+        now = time.perf_counter()
+        self.lead = now - self.t_next if self.next is not None else 0.0
+        started, self.next = self.next or self._start(i), None
+        if self.pool is None:
+            self.pool = _ap_start(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--ap-faults",
+                 str(self.dir), "--device", self.device, "--backend",
+                 "gloo"], self.dir, "fault")
+        return started
+
+    def start_next(self) -> None:
+        """Start the following run's launcher ranks, if one is left and
+        its ranks' weights are small enough (AP_EARLY_BYTES)."""
+        from repro_torch.launch.train import init_bytes
+        if self.taken < len(self.order):
+            cfg = self.order[self.taken][0]
+            if AP_PROCS * init_bytes(cfg) <= AP_EARLY_BYTES:
+                self.next = self._start(self.taken)
+                self.t_next = time.perf_counter()
+
+    def next_stage(self) -> str:
+        """How far the following run's ranks have come: "none" (no run
+        left), "starting", "set up" or "stepping"."""
+        if self.next is None:
+            return "none"
+        text = (self.next[2] / "rank0.log").read_text()
+        lines = [ln.split()[0] for ln in text.splitlines() if ln.strip()]
+        return ("stepping" if "step" in lines else
+                "set up" if "set-up" in lines else "starting")
+
+    def faults(self, runs, cfg, steps: int, load, out: Path) -> int:
+        """Give the pool ``runs`` (each a list of faults; empty: a sound
+        run) of ``cfg`` at ``steps`` and ``load``, their files to ``out``.
+        Returns the job's number for ``wait``."""
+        k, self.jobs = self.jobs, self.jobs + 1
+        spec = {"faults": [",".join(r) or "none" for r in runs],
+                "args": _ap_args(cfg, self.reduced, self.device, steps,
+                                 load) + ["--dtype", cfg.dtype],
+                "out": str(out)}
+        tmp = self.dir / f"job{k}.tmp"
+        tmp.write_text(json.dumps(spec))
+        tmp.rename(self.dir / f"job{k}.json")
+        return k
+
+    def wait(self, k: int) -> None:
+        """Wait for job ``k`` on every rank of the pool; the pool is killed
+        if a rank fails or the time runs out."""
+        procs = self.pool[0]
+        done = [self.dir / f"done{k}_{r}" for r in range(AP_PROCS)]
+        deadline = time.perf_counter() + AP_TIMEOUT_S
+        while not all(f.exists() for f in done):
+            if (time.perf_counter() > deadline
+                    or any(p.poll() is not None for p in procs)):
+                _ap_kill(self.pool)
+                texts = [(self.dir / f"fault{r}.log").read_text()[-3000:]
+                         for r in range(AP_PROCS)]
+                require(False, f"ap fault job {k}: ranks exited "
+                        f"{[p.returncode for p in procs]}:\n{texts}")
+            time.sleep(0.2)
+        print(f"ap fault job {k}: the pool's ranks hold "
+              f"{[f.read_text() for f in done]} of the card")
+
+    def close(self, ok: bool = True) -> None:
+        """End the pool (with ``ok``, let it exit and check that it did;
+        else kill it) and kill the following run's ranks if they were
+        started but never taken."""
+        try:
+            if self.next is not None:
+                _ap_kill(self.next)
+            if self.pool is not None:
+                if ok:
+                    (self.dir / "end").touch()
+                    _ap_wait(self.pool)
+                else:
+                    _ap_kill(self.pool)
+        finally:
+            shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _ap_config(reduced: bool, arch: str = "stablelm-3b", layers=None,
+               dtype=None):
     """``arch``'s config as the launcher builds it: ``--reduced`` (the tiny
-    fp32 variant) or full width, cut to ``layers`` (``--layers``)."""
+    fp32 variant) or full width, cut to ``layers`` (``--layers``), in
+    ``dtype`` (``--dtype``; the config's by default)."""
     from repro_torch.configs.registry import get_arch
     cfg = get_arch(arch)
     if reduced:
         return dataclasses.replace(cfg.reduced(), dtype="float32")
-    return (dataclasses.replace(cfg, num_layers=layers) if layers else cfg)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
 
 
 def _ap_readings(np, got: dict, want: dict, init: dict, slots):
@@ -6049,24 +6372,33 @@ def _moe_drops(cfg, d: int):
     return ctx()
 
 
-def ap_train_phase(torch, cfg, device: str = "cuda",
-                   reduced: bool = False, kernel_checks=None, *,
+def ap_train_phase(torch, runs: ApRuns, cfg, kernel_checks=None, *,
                    steps: int = AP_STEPS, fault_runs=(AP_FAULT_SLOTS,),
                    bars=(AP_LOSS_REL, AP_ADAPTER_REL),
-                   tag: str = "ap") -> dict:
-    """Phase 35's and 36's runs: AP_PROCS processes of ``python -m
-    repro_torch.launch.train --mesh 2x2 --backend gloo`` (the main path)
-    and AP_PROCS of this script's planted-fault runs (each of ``fault_runs``
-    in turn, each {fault: the slots it reaches}, planted together) start
-    together; while they start up, ``kernel_checks()`` runs here; the
-    main path then has the card to itself; after it, the fault ranks run
-    beside the one-rank reference (``launch.train.run`` on a one-rank
-    group), and every sharded run is held against the reference: the main
-    path within ``bars`` (loss, adapters), each fault past both on its own
-    slots. An MoE config's one-rank run prints each layer's dropped share
-    of each data rank's choices.
+                   tag: str = "ap", load=AP_LOAD,
+                   fault_reads=("loss", "adapters"), fault_cfg=None,
+                   fault_bars=None) -> dict:
+    """Phase 35's, 36's and 37's runs at ``load`` (Z, b, S): AP_PROCS
+    processes of ``python -m
+    repro_torch.launch.train --mesh 2x2 --backend gloo`` (the main path;
+    ``runs.take``: started when the previous run's ended, or now); while
+    they start up, ``kernel_checks()`` runs here; the main path then has
+    the card to itself; after it, the next run's ranks start
+    (``runs.start_next``) and the fault pool runs each of ``fault_runs``
+    in turn (each {fault: the slots it reaches}, planted together) beside
+    the one-rank reference (``launch.train.run`` on a one-rank group), and
+    every sharded run is held against the reference: the main path within
+    ``bars`` (loss, adapters), each fault past the bars of ``fault_reads``
+    on its own slots (both, unless the adapter reading is only a bound on
+    the noise: RWKV's). With ``fault_cfg`` (RWKV's fp32 check beside its
+    bf16 main path) the fault ranks run that config instead, first sound,
+    held against its own one-rank run within ``fault_bars``, then each
+    fault, read against that run and those bars. An MoE config's one-rank
+    run prints each layer's dropped share of each data rank's choices.
     Returns {"launches": the kernel launches summed over the ranks,
-    "seconds": the phase's parts, "drops": the dropped shares by layer}."""
+    "seconds": the phase's parts (``started_before``: how long before the
+    run was taken its ranks started), "drops": the dropped shares by
+    layer}."""
     import numpy as np
     from repro_torch.core import lora as LORA
     from repro_torch.launch import mesh as MESH
@@ -6074,43 +6406,40 @@ def ap_train_phase(torch, cfg, device: str = "cuda",
     from repro_torch.models import model as M
 
     loss_bar, adapter_bar = bars
+    device = runs.device
     d = int(AP_MESH.split("x")[0])
+    Z, b, S = load
     seconds, drops = {}, []
-    out = Path(tempfile.mkdtemp(prefix="ap_phase_"))
-    args = _ap_args(cfg, reduced, device, steps)
+    fcfg = fault_cfg or cfg
+    # the fault ranks' runs: with a config of their own, a sound one first
+    frs = ([{}] if fcfg is not cfg else []) + list(fault_runs)
+    fault_bars = fault_bars or bars
     t = time.perf_counter()
+    sharded = runs.take(cfg, steps, load)
+    out = sharded[2]
+    seconds["started_before"] = runs.lead
     try:
-        sharded = _ap_start(
-            [sys.executable, "-m", "repro_torch.launch.train", *args,
-             "--out", str(out / "ap.npz")], out, "rank")
-        # the fault ranks start too, and wait at their gate until the
-        # main path is done: it has the card to itself
-        faulted = ([_ap_start([sys.executable, str(ROOT / "chip_smoke.py"),
-                               "--ap-faults", str(out),
-                               *(a for run in fault_runs
-                                 for a in ("--faults", ",".join(run))),
-                               *args], out, "fault")]
-                   if fault_runs else [])
-        started = [sharded, *faulted]
-        try:
-            if kernel_checks is not None:
-                kernel_checks()
-                print(f"{tag}: kernel checks done "
-                      f"{time.perf_counter() - t:.1f} s after the ranks "
-                      f"started")
-            texts = _ap_wait(sharded)
-            seconds["sharded"] = time.perf_counter() - t
-            (out / "go").touch()
-            # the controls' timing is not read: the fault ranks and the
-            # one-rank reference share the card
-            t = time.perf_counter()
-            tap = (_moe_drops(cfg, d) if cfg.is_moe
-                   else contextlib.nullcontext([]))
-            with MESH.process_group(device) as dev, tap as drops:
+        if kernel_checks is not None:
+            kernel_checks()
+            print(f"{tag}: kernel checks done {time.perf_counter() - t:.1f} "
+                  f"s after the run was taken")
+        texts = _ap_wait(sharded)
+        seconds["sharded"] = time.perf_counter() - t
+        runs.start_next()
+        job = runs.faults(frs, fcfg, steps, load, out) if frs else None
+        # the controls' timing is not read: the fault ranks and the
+        # one-rank reference share the card
+        t = time.perf_counter()
+
+        def one_rank(c, tap, label):
+            """(the one-rank run's losses and adapters, its initial
+            adapters) of config ``c``."""
+            with MESH.process_group(device) as dev, tap as seen:
                 mesh = MESH.make_local_mesh((1, 1), device=dev)
-                one = TRAIN.run(cfg, AP_Z, AP_B, AP_S, mesh, steps,
+                one = TRAIN.run(c, Z, b, S, mesh, steps,
                                 ranks=RANKS, device=dev,
-                                log=lambda m: print(f"{tag} 1x1: {m}"))
+                                log=lambda m: print(f"{label}: {m}"))
+            drops.extend(seen)
             want = {"losses": np.asarray(one["losses"])}
             want.update({f"lora/{t}/{k}": v.float().cpu().numpy()
                          for t, ab in one["lora"].items()
@@ -6119,25 +6448,35 @@ def ap_train_phase(torch, cfg, device: str = "cuda",
             gen = torch.Generator(device=dev).manual_seed(1)  # seed + 1
             ranks_t = torch.tensor(RANKS, dtype=torch.int32, device=dev)
             init = {f"lora/{t}/{k}": v.cpu().numpy() for t, ab in
-                    LORA.init_lora_tree(gen, cfg, AP_Z, ranks_t,
-                                        M.target_shapes(cfg)).items()
+                    LORA.init_lora_tree(gen, c, Z, ranks_t,
+                                        M.target_shapes(c)).items()
                     for k, v in ab.items()}
-            got = dict(np.load(out / "ap.npz"))
-            for run in faulted:
-                _ap_wait(run)
-        finally:
-            for p in started:
-                _ap_kill(p)
+            return want, init, dev
+
+        want, init, dev = one_rank(
+            cfg, _moe_drops(cfg, d) if cfg.is_moe
+            else contextlib.nullcontext([]), f"{tag} 1x1")
+        fwant, finit = want, init
+        if fcfg is not cfg:
+            fwant, finit, _ = one_rank(fcfg, contextlib.nullcontext([]),
+                                       f"{tag} {fcfg.dtype} 1x1")
+        got = dict(np.load(out / "ap.npz"))
+        if job is not None:
+            runs.wait(job)
         seconds["one_rank_and_faults"] = time.perf_counter() - t
-        bad = [(run, dict(np.load(out / f"faults_{'+'.join(run)}.npz")))
-               for run in fault_runs]
+        print(f"{tag}: the controls ended with the next run's ranks "
+              f"{runs.next_stage()}")
+        bad = [(run, dict(np.load(
+            out / f"faults_{'+'.join(run) or 'none'}.npz"))) for run in frs]
     finally:
+        _ap_kill(sharded)
         shutil.rmtree(out, ignore_errors=True)
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
     r_max = cfg.lora.r_max
+    weight_dims = _weight_last_dims(cfg)
     launches = {}
     for r, text in enumerate(texts):
         require(f"device={device}" in text, f"{tag} rank {r}: device")
@@ -6146,8 +6485,12 @@ def ap_train_phase(torch, cfg, device: str = "cuda",
                 launches.setdefault(fam, {}).setdefault(k, 0)
                 launches[fam][k] += v
         shapes = _ap_parse(text, "collective shapes")
-        bad_shapes = [s for s in shapes if s[0] == "data"
-                      and (s[1] == "adapter_grad" or s[3] == r_max)]
+        # a base weight's gather is as wide as a base weight; nothing else
+        # over "data" is r_max wide
+        bad_shapes = [s for s in shapes if s[0] == "data" and (
+            s[1] == "adapter_grad"
+            or s[1] == "base_weight" and s[3] not in weight_dims
+            or s[1] != "base_weight" and s[3] == r_max)]
         require(not bad_shapes, f"{tag} rank {r}: adapter collectives over "
                 f"data {bad_shapes}")
         require(any(s[0] == "model" and s[1] == "adapter_grad"
@@ -6165,40 +6508,79 @@ def ap_train_phase(torch, cfg, device: str = "cuda",
               f"s, {peak[0] if peak else ''}; logged bytes {moved}")
     for layer, share in enumerate(drops):
         print(f"{tag}: layer {layer} dropped share by data rank {share}")
-    loss, adapters = _ap_readings(np, got, want, init, range(AP_Z))
+    loss, adapters = _ap_readings(np, got, want, init, range(Z))
     print(f"{tag}: {AP_MESH} vs 1x1, {cfg.name} {cfg.num_layers} layers, "
-          f"Z {AP_Z}, b {AP_B}, S {AP_S}, ranks {RANKS}, {steps} steps: "
+          f"Z {Z}, b {b}, S {S}, ranks {RANKS}, {steps} steps: "
           f"loss reading {loss:.3e} (bar {loss_bar}), adapter reading "
           f"{adapters:.3e} (bar {adapter_bar}); losses "
           f"{got['losses'].tolist()} vs {want['losses'].tolist()}")
     require(loss <= loss_bar and adapters <= adapter_bar,
             f"{tag}: readings {loss}, {adapters} past the bars")
     for run, faults in bad:
+        if not run:                 # the fault ranks' own sound run
+            fl, fa = _ap_readings(np, faults, fwant, finit, range(Z))
+            print(f"{tag}: {fcfg.dtype} at {fcfg.num_layers} layers, "
+                  f"{AP_MESH} vs 1x1: loss reading {fl:.3e} (bar "
+                  f"{fault_bars[0]}), adapter reading {fa:.3e} (bar "
+                  f"{fault_bars[1]})")
+            require(fl <= fault_bars[0] and fa <= fault_bars[1],
+                    f"{tag}: {fcfg.dtype} readings {fl}, {fa} past the bars")
         for fault, slots in run.items():
-            fl, fa = _ap_readings(np, faults, want, init, slots)
+            fl, fa = _ap_readings(np, faults, fwant, finit, slots)
             print(f"{tag}: planted fault {fault}: loss reading {fl:.3e}, "
-                  f"adapter reading {fa:.3e}")
-            require(fl > loss_bar and fa > adapter_bar,
+                  f"adapter reading {fa:.3e} (must pass the "
+                  f"{' and '.join(fault_reads)} bar)")
+            past = {"loss": fl > fault_bars[0],
+                    "adapters": fa > fault_bars[1]}
+            require(all(past[r] for r in fault_reads),
                     f"{tag}: planted fault {fault} within the bars ({fl}, "
                     f"{fa})")
     print(f"{tag}: seconds {seconds}")
     return {"launches": launches, "seconds": seconds, "drops": drops}
 
 
+def _weight_last_dims(cfg) -> set:
+    """The last dims of ``cfg``'s base weights as their gathers over "data"
+    on AP_MESH give them (whole over "data", this rank's block over
+    "model" where the rule splits them there; a tied unembedding is the
+    embedding transposed)."""
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import partitioning as PT
+    shape = tuple(int(x) for x in AP_MESH.split("x"))
+    amesh = MESH.abstract_mesh(shape, ("data", "model"))
+    params, _, _ = DR.abstract_state(cfg, 1)
+    dims = set()
+    for path, leaf, spec in DR._leaves(params,
+                                       PT.base_param_specs(amesh, params)):
+        if not DR._names(spec, "data"):
+            continue
+        local = [n // shape[1] if i < len(spec) and spec[i] == "model"
+                 else n for i, n in enumerate(leaf.shape)]
+        dims.add(local[-1])
+        if path == "embed" and cfg.tie_embeddings:
+            dims.add(local[0])
+    return dims
+
+
 def _ap_launches(torch, cfg, got: dict, steps: int, tag: str) -> None:
-    """Every rank ran the rank-local set and flash as the one-rank step
-    would, each step; nothing on the dense or ragged sets."""
-    want, _, (want_flash, _) = _step_launches(cfg)
+    """Every rank ran the rank-local set and the family's sequence kernels
+    (flash, the scan) as the one-rank step would, each step; nothing on the
+    dense or ragged sets."""
+    want, _, (want_seq, _) = _step_launches(cfg)
     per = AP_PROCS * steps
+    seq = _seq_counts(cfg, want_seq * per)
     require(got["rank-local"] == {k: v * per for k, v in want.items()}
-            and got["flash"]["flash_attention"] == want_flash * per
+            and got["flash"]["flash_attention"] == seq["flash_attention"]
+            and got["scan"]["linear_scan"] == seq["linear_scan"]
             and not any(got["dense"].values())
             and not any(got["ragged"].values()),
-            f"{tag}: launches {got}, expected rank-local {want} and flash "
-            f"{want_flash} a step on each of {AP_PROCS} ranks")
+            f"{tag}: launches {got}, expected rank-local {want} and "
+            f"{SEQ_KERNELS[cfg.family]} {want_seq} a step on each of "
+            f"{AP_PROCS} ranks")
 
 
-def ap_phase(torch, fams) -> tuple:
+def ap_phase(torch, fams, runs: ApRuns) -> tuple:
     """Phase 35: rows 13-18 and flash at the sharded step's shapes, then
     ``ap_train_phase`` on full-width stablelm-3b at AP_LAYERS layers.
     Returns (the
@@ -6229,12 +6611,12 @@ def ap_phase(torch, fams) -> tuple:
                     AP_S, AP_S, cfg.resolved_head_dim, 0, torch.bfloat16)])
         flash.update({f"ap_{k}": v for k, v in cases.items()})
 
-    res = ap_train_phase(torch, cfg, kernel_checks=kernel_checks)
+    res = ap_train_phase(torch, runs, cfg, kernel_checks=kernel_checks)
     _ap_launches(torch, cfg, res["launches"], AP_STEPS, "ap")
     return lora, flash, res["launches"]
 
 
-def ap_moe_phase(torch, fams) -> tuple:
+def ap_moe_phase(torch, fams, runs: ApRuns) -> tuple:
     """Phase 36: rows 13-18 at granite-moe's 2 x 2 split (q 1,024 -> 512 and
     k/v 1,024 -> 256 column-parallel, o 512 -> 1,024 row-parallel, timed)
     and flash on a rank's 8 heads of hd 64 against their plain versions;
@@ -6267,7 +6649,7 @@ def ap_moe_phase(torch, fams) -> tuple:
                     cfg.resolved_head_dim, 0, torch.bfloat16)])
         flash.update({f"apmoe_{k}": v for k, v in cases.items()})
 
-    res = ap_train_phase(torch, cfg, kernel_checks=kernel_checks,
+    res = ap_train_phase(torch, runs, cfg, kernel_checks=kernel_checks,
                          fault_runs=AP_MOE_FAULT_RUNS,
                          bars=(AP_MOE_LOSS_REL, AP_MOE_ADAPTER_REL),
                          tag="ap moe")
@@ -6276,11 +6658,106 @@ def ap_moe_phase(torch, fams) -> tuple:
             f"{AP_MOE_ROUTE_LAYER}: fault (a) would test nothing")
     _ap_launches(torch, cfg, res["launches"], AP_STEPS, "ap moe")
     lcfg = _ap_config(False, AP_LLAMA4_ARCH, AP_LLAMA4_LAYERS)
-    l4 = ap_train_phase(torch, lcfg, steps=AP_LLAMA4_STEPS, fault_runs=(),
+    l4 = ap_train_phase(torch, runs, lcfg, steps=AP_LLAMA4_STEPS,
+                        fault_runs=(),
                         bars=(AP_LLAMA4_LOSS_REL, AP_LLAMA4_ADAPTER_REL),
                         tag="ap llama4")
     _ap_launches(torch, lcfg, l4["launches"], AP_LLAMA4_STEPS, "ap llama4")
     return lora, flash, res["launches"], l4["launches"]
+
+
+def ap_ssm_phase(torch, fams, runs: ApRuns) -> tuple:
+    """Phase 37: the ssm and hybrid families' sharded step. Rows 13-18 at
+    each rank's shapes of a 2 x 2 split (rwkv6-3b: r/k/v/g 2,560 -> 1,280
+    and ffn_k 2,560 -> 4,480 column-parallel, o 1,280 -> 2,560 and ffn_v
+    4,480 -> 2,560 row-parallel; hymba-1.5b: in_proj 1,600 -> 2 x 1,600 in
+    blocks, q/k/v whole 1,600 -> 1,600 / 320, o whole on a rank's 1,024
+    rows, gate/up 1,600 -> 2,752, down 2,752 -> 1,600), row 20 (the scan on
+    a rank's 20 RWKV heads of 64 at S 512, and on its 25 Mamba heads in SSD
+    mode, K 16, at S 2,048) and row 19 (flash on hymba's whole 25 heads, 5
+    KV heads of 64, window 1,024, S 2,048) against their plain versions,
+    while the ranks start; then ``ap_train_phase`` on rwkv6-3b at full
+    width and AP_RWKV_LAYERS layers in bf16 (its fault ranks run it in
+    fp32 at AP_RWKV_CHECK_LAYERS layers, sound and with fault (a)), and on
+    hymba-1.5b at full width and AP_HYMBA_LAYERS layers with fault (b).
+    Returns (the rank-local kernels' results, flash's, the scan's, the
+    launches of rwkv's and of hymba's sharded ranks, summed over the
+    ranks)."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.grouped_lora import ref
+    from repro_torch.kernels.linear_scan import linear_scan as LSK
+    from repro_torch.kernels.linear_scan import ref as lsref
+    from repro_torch.models.mamba import mamba_dims
+
+    dd, m = (int(x) for x in AP_MESH.split("x"))
+    bf16, RL = torch.bfloat16, fams["rank-local"]
+    lora, flash, scan = {}, {}, {}
+
+    rcfg = _ap_config(False, AP_RWKV_ARCH, AP_RWKV_LAYERS)
+    Z, b, S = AP_RWKV_LOAD
+    d, ff, hs = rcfg.d_model, rcfg.d_ff, rcfg.ssm.head_size
+    T = b * S
+
+    def rwkv_checks():
+        _merged(lora, backward_kernel_phase(
+            torch, RL, ref, timed=("aprwkv_row", d // m, d),
+            untimed=("aprwkv_col", "aprwkv_ff"),
+            cases=[("aprwkv_col", T, d, d // m, RANKS, None),
+                   ("aprwkv_ff", T, d, ff // m, RANKS, None),
+                   ("aprwkv_row", T, d // m, d, RANKS, None),
+                   ("aprwkv_ff", T, ff // m, d, RANKS, None)]))
+        _, cases = scan_kernel_phase(
+            torch, LSK, lsref, rcfg, S=S,
+            cases=[("train", Z // dd * b * rcfg.num_heads // m, hs, hs,
+                    False, False, 1.0, bf16)])
+        scan.update({f"aprwkv_{k}": v for k, v in cases.items()})
+
+    rwkv = ap_train_phase(
+        torch, runs, rcfg, kernel_checks=rwkv_checks,
+        fault_runs=AP_RWKV_FAULT_RUNS,
+        bars=(AP_RWKV_LOSS_REL, AP_RWKV_ADAPTER_REL), tag="ap rwkv",
+        load=AP_RWKV_LOAD, fault_reads=("loss",),
+        fault_cfg=_ap_config(False, AP_RWKV_ARCH, AP_RWKV_CHECK_LAYERS,
+                             "float32"),
+        fault_bars=(AP_RWKV_FP32_LOSS_REL, AP_RWKV_FP32_ADAPTER_REL))
+    _ap_launches(torch, rcfg, rwkv["launches"], AP_STEPS, "ap rwkv")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    hcfg = _ap_config(False, AP_HYMBA_ARCH, AP_HYMBA_LAYERS)
+    Z, b, S = AP_HYMBA_LOAD
+    d, ff, q, kv = hcfg.d_model, hcfg.d_ff, hcfg.q_dim, hcfg.kv_dim
+    inner, Hs, hs = mamba_dims(hcfg)
+    T = b * S
+
+    def hymba_checks():
+        _merged(lora, backward_kernel_phase(
+            torch, RL, ref, timed=("aphymba_in", d, 2 * inner // m),
+            untimed=("aphymba_whole", "aphymba_ff"),
+            cases=[("aphymba_in", T, d, 2 * inner // m, RANKS, None),
+                   ("aphymba_whole", T, d, q, RANKS, None),
+                   ("aphymba_whole", T, d, kv, RANKS, None),
+                   ("aphymba_whole", T // m, q, d, RANKS, None),
+                   ("aphymba_ff", T, d, ff // m, RANKS, None),
+                   ("aphymba_ff", T, ff // m, d, RANKS, None)]))
+        _, cases = flash_kernel_phase(
+            torch, FA, fref, hcfg, plain_labels=("train",),
+            cases=[("train", Z // dd * b * hcfg.num_heads, S, S,
+                    hcfg.resolved_head_dim, hcfg.sliding_window, bf16)])
+        flash.update({f"aphymba_{k}": v for k, v in cases.items()})
+        _, cases = scan_kernel_phase(
+            torch, LSK, lsref, hcfg, S=S,
+            cases=[("train", Z // dd * b * Hs // m, hcfg.ssm.state_size, hs,
+                    True, False, 1.0, bf16)])
+        scan.update({f"aphymba_{k}": v for k, v in cases.items()})
+
+    hymba = ap_train_phase(torch, runs, hcfg, kernel_checks=hymba_checks,
+                           fault_runs=AP_HYMBA_FAULT_RUNS,
+                           bars=(AP_HYMBA_LOSS_REL, AP_HYMBA_ADAPTER_REL),
+                           tag="ap hymba", load=AP_HYMBA_LOAD)
+    _ap_launches(torch, hcfg, hymba["launches"], AP_STEPS, "ap hymba")
+    return lora, flash, scan, rwkv["launches"], hymba["launches"]
 
 
 def main() -> int:
@@ -6377,15 +6854,14 @@ def main() -> int:
                    learning_rate=lr, weight_decay=wd,
                    lora_rank=cfg.lora.r_max, per_adapter_batch=TRAIN_B)
                for lr in (1e-4, 3e-4, 1e-3, 3e-3) for wd in (0.0, 0.01)}
-    # depth cut (LR_SWEEP_LAYERS) to keep the script within half its limit
-    lr_cfg = dataclasses.replace(cfg, num_layers=LR_SWEEP_LAYERS)
-    lr_params = _cut_layers(params, LR_SWEEP_LAYERS, torch.bfloat16)
-    lr_launches = executor_phase(torch, GL, (RL, RG), lr_cfg, lr_params,
+    # depth cut (SWEEP_LAYERS) to keep the script within its limit
+    sw_cfg = dataclasses.replace(cfg, num_layers=SWEEP_LAYERS)
+    sw_params = _cut_layers(params, SWEEP_LAYERS, torch.bfloat16)
+    lr_launches = executor_phase(torch, GL, (RL, RG), sw_cfg, sw_params,
                                  "lr-sweep", lr_jobs)
-    del lr_params
     print(f"lr-sweep executor phase done at "
           f"{time.perf_counter() - t_all:.1f} s")
-    colo_launches = colocation_phase(torch, fams, cfg, params)
+    colo_launches = colocation_phase(torch, fams, sw_cfg, sw_params)
     print(f"heterogeneous co-location phase done at "
           f"{time.perf_counter() - t_all:.1f} s")
     train_check(torch, fams, cfg, params, TRAIN_RANKS, "rank-local",
@@ -6393,11 +6869,11 @@ def main() -> int:
     print(f"DPO train check done at {time.perf_counter() - t_all:.1f} s")
     chosen, rejected = _pair_data(cfg)
     dpo_launches = executor_phase(
-        torch, RL, (GL, RG), cfg, params, "dpo", _dpo_jobs(),
+        torch, RL, (GL, RG), sw_cfg, sw_params, "dpo", _dpo_jobs(),
         loss_kind="dpo", b=DPO_B,
         batcher=PairSlotBatcher(chosen, rejected, 4, DPO_B, seed=0))
     print(f"DPO executor phase done at {time.perf_counter() - t_all:.1f} s")
-    del params
+    del params, sw_params
     gc.collect()
     torch.cuda.empty_cache()
     eng_static, eng_elastic, handover = engine_phase(torch, fams)
@@ -6433,17 +6909,30 @@ def main() -> int:
           f"{time.perf_counter() - t_all:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
-    t = time.perf_counter()
-    ap_lora, ap_flash, ap_launches = ap_phase(torch, fams)
-    print(f"ap phase {time.perf_counter() - t:.1f} s, done at "
-          f"{time.perf_counter() - t_all:.1f} s")
-    gc.collect()
-    torch.cuda.empty_cache()
-    t = time.perf_counter()
-    apm_lora, apm_flash, apm_launches, apl_launches = ap_moe_phase(torch,
-                                                                   fams)
-    print(f"ap moe phase {time.perf_counter() - t:.1f} s, done at "
-          f"{time.perf_counter() - t_all:.1f} s")
+    runs = ApRuns(_ap_order())
+    ok = False
+    try:
+        t = time.perf_counter()
+        ap_lora, ap_flash, ap_launches = ap_phase(torch, fams, runs)
+        print(f"ap phase {time.perf_counter() - t:.1f} s, done at "
+              f"{time.perf_counter() - t_all:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        apm_lora, apm_flash, apm_launches, apl_launches = ap_moe_phase(
+            torch, fams, runs)
+        print(f"ap moe phase {time.perf_counter() - t:.1f} s, done at "
+              f"{time.perf_counter() - t_all:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        aps_lora, aps_flash, aps_scan, apr_launches, aph_launches = \
+            ap_ssm_phase(torch, fams, runs)
+        print(f"ap ssm / hybrid phase {time.perf_counter() - t:.1f} s, done "
+              f"at {time.perf_counter() - t_all:.1f} s")
+        ok = True
+    finally:
+        runs.close(ok)
 
     csrc = "src/repro_torch/kernels/grouped_lora/csrc"
     rows = [  # (name, kernel source, TPU kernel file, its pallas_call line)
@@ -6482,7 +6971,9 @@ def main() -> int:
                 **{path: got[name] for path, got in f_paths.items()},
                 "ap_train": ap_launches["rank-local"][name],
                 "ap_moe_train": apm_launches["rank-local"][name],
-                "ap_llama4_train": apl_launches["rank-local"][name]}, \
+                "ap_llama4_train": apl_launches["rank-local"][name],
+                "ap_rwkv_train": apr_launches["rank-local"][name],
+                "ap_hymba_train": aph_launches["rank-local"][name]}, \
                 dict(kern[name])
             by_path["serve"] = serve_launches[name]
             by_path["rwkv_serve"] = rwkv_serve[name]
@@ -6493,13 +6984,15 @@ def main() -> int:
                              **m_lora[name]["shapes"],
                              **f_lora[name]["shapes"],
                              **ap_lora[name]["shapes"],
-                             **apm_lora[name]["shapes"]}
+                             **apm_lora[name]["shapes"],
+                             **aps_lora[name]["shapes"]}
             res["max_abs_err"] = max(res["max_abs_err"],
                                      h_lora[name]["max_abs_err"],
                                      m_lora[name]["max_abs_err"],
                                      f_lora[name]["max_abs_err"],
                                      ap_lora[name]["max_abs_err"],
-                                     apm_lora[name]["max_abs_err"])
+                                     apm_lora[name]["max_abs_err"],
+                                     aps_lora[name]["max_abs_err"])
         fam = {"grouped_lora": "dense", "ragged": "ragged"}.get(
             prefix, "rank-local")
         by_path["engine_static"] = eng_static[fam][name]
@@ -6553,6 +7046,7 @@ def main() -> int:
     by_path["ap_train"] = ap_launches["flash"]["flash_attention"]
     by_path["ap_moe_train"] = apm_launches["flash"]["flash_attention"]
     by_path["ap_llama4_train"] = apl_launches["flash"]["flash_attention"]
+    by_path["ap_hymba_train"] = aph_launches["flash"]["flash_attention"]
     table["kernels"].append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -6560,19 +7054,21 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:89",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         **with_paths(flash, hymba=h_flash, moe=m_flash, families=f_flash,
-                     ap=ap_flash, apmoe=apm_flash)})
+                     ap=ap_flash, apmoe=apm_flash, apssm=aps_flash)})
     by_path = {"rwkv_train": rwkv_launches["linear_scan"],
                "rwkv_serve": rwkv_serve["linear_scan"],
                "hymba_train": h_launches["linear_scan"],
                "hymba_serve": h_serve["linear_scan"],
                "service": svc_launches["scan"]["linear_scan"],
-               "service_recovery": svc_rec_launches["scan"]["linear_scan"]}
+               "service_recovery": svc_rec_launches["scan"]["linear_scan"],
+               "ap_rwkv_train": apr_launches["scan"]["linear_scan"],
+               "ap_hymba_train": aph_launches["scan"]["linear_scan"]}
     table["kernels"].append({
         "name": "linear_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
         "replaces": "src/repro/kernels/linear_scan/linear_scan.py:111",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
-        **with_paths(scan, hymba=h_scan)})
+        **with_paths(scan, hymba=h_scan, apssm=aps_scan)})
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(card_line())
     print(json.dumps(table))

@@ -190,7 +190,7 @@ def _lora_delta_torch(x, A, B, scale):
 def proj(x: torch.Tensor, W: torch.Tensor,
          lora_pair: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
          scale: torch.Tensor | float = 2.0,
-         name: Optional[str] = None) -> torch.Tensor:
+         name: Optional[str] = None, *, whole: bool = False) -> torch.Tensor:
     """Frozen base projection + optional grouped LoRA residual.
 
     x: [Z, ..., d_in]; W: [d_in, d_out] (frozen, slot-shared). ``name``
@@ -200,23 +200,29 @@ def proj(x: torch.Tensor, W: torch.Tensor,
 
     Sharded over "model" (``shardctx.spmd()``), W is this rank's block. A
     column-parallel W ([d_in, d_out/m]) reads the normed residual gathered
-    over "model" and the LoRA term takes the whole A and B's local output
-    columns; a row-parallel W ([d_in/m, d_out]) reads x's local input
-    columns, the LoRA term A's local input rows and the whole B, and the
-    output is this rank's partial sum, base and LoRA term alike, which the
-    "residual" constraint reduce-scatters (the partial LoRA terms add up
-    to the LoRA term once). The kernels get contiguous local operands."""
+    over "model" (an input already made whole, ``SpmdPlan.gathered``, is
+    read as it is) and the LoRA term takes the whole A and B's local output
+    columns (a ``BLOCKED`` weight's blocks); a row-parallel W ([d_in/m,
+    d_out]) reads x's local input columns, the LoRA term A's local input
+    rows and the whole B, and the output is this rank's partial sum, base
+    and LoRA term alike, which the "residual" constraint reduce-scatters
+    (the partial LoRA terms add up to the LoRA term once). With ``whole``
+    (attention whose heads do not split) W is gathered over "model" too and
+    the projection runs whole on x as given. The kernels get contiguous
+    local operands."""
     if name is not None:
         W = constrain(W, f"weight:{name}")
     sp = shardctx.spmd()
     split = sp.split(name) if sp is not None and name is not None else None
+    if whole and split is not None:
+        W, split = sp.gather_model(W, name), None
     if split == "col":
         x = sp.columns(x)
     y = x @ W
     if lora_pair is not None:
         A, B = lora_pair
         if split == "col":
-            B = sp.local(B, -1).contiguous()
+            B = sp.local_out(B, name)
         elif split == "row":
             A = sp.local(A, -2).contiguous()
         y = y + lora_delta(x, A, B, scale)

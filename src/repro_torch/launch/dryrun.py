@@ -40,9 +40,20 @@ figures:
         lookup and, tied to the unembedding, once more for it. This is what
         the sharded step moves (``launch/partitioning.py``): its logged
         data-axis gathers equal this count (``tests/test_torch_ap.py``);
+      - a weight that runs whole over "model" in the sharded step is
+        all-gathered over "model" too, after its "data" gather and as
+        often: Mamba's bc_proj and dt_proj, and q/k/v/o where attention's
+        heads do not split (``partitioning.whole_heads``). Their data- and
+        model-axis gathers equal what the sharded step logs
+        (``tests/test_torch_ap_ssm.py``);
+      - Mamba's fp32 partial products of bc_proj and dt_proj ([Z, b, S,
+        2N + H]) are all-reduced over "model" in each forward pass and once
+        in the backward;
       - the residual stream, where the policy sequence-shards it over
         "model", is all-gathered before each of a layer's two sublayers and
-        reduce-scattered after it, in each pass;
+        reduce-scattered after it, in each pass (Hymba reduce-scatters its
+        two branch outputs apart, and attention that runs whole needs no
+        reduce-scatter: this schedule charges two a layer);
       - adapters, their gradients and their optimizer state move over no
         axis where they are sharded with the batch (Adapter Parallelism).
         Over an axis that shards the batch but not the adapters ("pod", or
@@ -307,6 +318,25 @@ def _schedule(cfg: ModelConfig, shape: ShapeConfig, mesh, params, p_specs,
         src = PT.placements(mesh, spec)
         out.append(("data", f"weight {path}", shp, leaf.dtype, src,
                     _swap(src, mesh, "data", Replicate()), trips))
+    for path, leaf, spec in _leaves(params, p_specs):
+        name = path.rsplit("/", 1)[-1]
+        if ("model" not in moves or not _names(spec, "model")
+                or not path.startswith("layers/")
+                or name not in _model_whole(cfg, sizes["model"])):
+            continue
+        src = _swap(PT.placements(mesh, PT.P(*spec[1:])), mesh, "data",
+                    Replicate())
+        out.append(("model", f"weight {path}", leaf.shape[1:], leaf.dtype,
+                    src, _swap(src, mesh, "model", Replicate()),
+                    L * forward))
+    if "model" in moves and cfg.family == "hybrid" and train:
+        Z, b = shape.decompose()
+        H = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_size
+        shp = (Z, b, shape.seq_len, 2 * cfg.ssm.state_size + H)
+        src = PT.placements(mesh, PT.P(*tokens_spec[:2]))
+        out.append(("model", "mamba bc/dt partial products", shp,
+                    torch.float32, _swap(src, mesh, "model", Partial()), src,
+                    L * passes))
     if ("model" in moves and residual is not None and len(residual) > 2
             and _names((residual[2],), "model")):
         Z, b = shape.decompose()
@@ -333,6 +363,18 @@ def _schedule(cfg: ModelConfig, shape: ShapeConfig, mesh, params, p_specs,
         out.append((axis, "adapter grads", (n,), dtype, src,
                     (Replicate(),) * len(src), 1))
     return out
+
+
+def _model_whole(cfg: ModelConfig, m: int) -> Tuple[str, ...]:
+    """The layer weights the sharded step gathers over "model" (forward
+    only): Mamba's bc_proj and dt_proj, and attention's q/k/v/o where its
+    heads do not split over the m ranks."""
+    names: Tuple[str, ...] = ()
+    if cfg.family == "hybrid":
+        names += ("bc_proj", "dt_proj")
+    if PT.whole_heads(cfg, m):
+        names += ("q_proj", "k_proj", "v_proj", "o_proj")
+    return names
 
 
 def _realise(mesh, counter: HLO.Counter, shp, dtype, src,

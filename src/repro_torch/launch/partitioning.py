@@ -27,7 +27,7 @@ takes it back) and nothing moves: the activation policy resolves and
 records each constraint's spec and returns the tensor unchanged. On a real
 multi-rank ``(data, model)`` mesh ``distribute`` slices each rank's shard
 out of the full tensor, and the policy's ``SpmdPlan`` runs the train step
-(the dense and MoE families; ``check_sharded``):
+(the dense, MoE, ssm and hybrid families; ``check_sharded``):
 
   * "data" is Adapter Parallelism (paper Fig. 8): each data rank holds its
     Z/d slots' adapters, gradients, AdamW state, hyper-parameters, ranks
@@ -43,7 +43,10 @@ out of the full tensor, and the policy's ``SpmdPlan`` runs the train step
     the embedding and the logits vocabulary-parallel (or, where the
     vocabulary does not split, whole on every rank and the loss
     sequence-parallel); adapter gradients are all-reduced over "model"
-    only;
+    only. Attention whose heads or KV heads do not split over "model"
+    runs whole on every model rank: q/k/v/o all-gathered over "model"
+    too (forward only), q/k/v over the whole sequence, the output cut to
+    this rank's sequence block before o_proj;
   * MoE: "model" is expert parallelism. The router is whole: every model
     rank routes all of its data rank's tokens (the normed residual
     gathered along S, as for a column-parallel projection) and runs the
@@ -52,7 +55,23 @@ out of the full tensor, and the policy's ``SpmdPlan`` runs the train step
     "residual" constraint (experts that do not split run whole on every
     rank). A token group that spans data ranks takes one all-gather of
     per-expert counts over "data" (role "route") for its queue places and
-    its top-1 shares; the load-balance term enters the gradient once.
+    its top-1 shares; the load-balance term enters the gradient once;
+  * ssm (RWKV-6) and hybrid (Hymba's Mamba branch): "model" splits the
+    scan heads. Each model rank runs the chunked scan on its H/m heads
+    over the whole sequence; no scan state crosses ranks (training starts
+    from zeros and drops the final state). RWKV gathers its normed input
+    along S once, so the token shift reads the true previous token and
+    the five mixes share the gather; r/k/v/g and ffn_k are
+    column-parallel, o and ffn_v row-parallel, and each rank slices the
+    decay, the bonus ``u`` and ``ln_x`` to its heads. Mamba's ``in_proj``
+    is laid out in blocks (``BLOCKED``: rank r holds the x half's inner
+    block r and the z half's, matching ``conv``'s split); ``bc_proj`` and
+    ``dt_proj``, which contract over all of inner, are gathered over
+    "model" (forward only) and each rank's rows of them multiply its
+    inner block, the fp32 partial products summed in one all-reduce over
+    "model" (``row_products``); ``out_proj`` is row-parallel. Hymba's
+    branch outputs are reduce-scattered, each by its own "residual"
+    constraint, before their branch norms.
 
 Every opt level runs this one schedule: the levels change only the recorded
 ``decisions`` and the hints, and the numbers stay equal. A mesh over a
@@ -78,7 +97,7 @@ SHARDED_EXECUTION = ("sharded execution over a fake group is not possible: "
                      "its collectives move no data (launch/dryrun.py "
                      "traces shapes only)")
 # what a multi-rank mesh runs today, and where the rest is queued
-SHARDED_FAMILIES = ("dense", "moe")
+SHARDED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 SHARDED_QUEUE = "queued in ROADMAP.md §1, the rest of sharded execution"
 
 
@@ -432,25 +451,42 @@ def distribute(mesh: DeviceMesh, tree: Any, named: Any) -> Any:
 
     def wrap(path, t):
         pl = _lookup(named, path)
-        return DTensor.from_local(shard_of(mesh, t, pl), mesh, pl,
+        blocks = BLOCKED.get(_weight_name(path), 1)
+        return DTensor.from_local(shard_of(mesh, t, pl, blocks), mesh, pl,
                                   run_check=False)
 
     return _map_with_path(tree, wrap)
 
 
-def shard_of(mesh: DeviceMesh, t: torch.Tensor, pl: Tuple) -> torch.Tensor:
+# weights whose output columns are several halves side by side, each split
+# over "model" on its own: {name: halves}. Mamba's in_proj [d, 2·inner]
+# holds x and z; model rank r keeps x's inner block r and z's (the block
+# its conv and scan heads take), so its local [d, 2·inner/m] splits into
+# its own x and z as the whole one does. The DTensor's placements still
+# say Shard(-1); only the local shards are used
+BLOCKED = {"in_proj": 2}
+
+
+def shard_of(mesh: DeviceMesh, t: torch.Tensor, pl: Tuple,
+             blocks: int = 1) -> torch.Tensor:
     """This rank's shard of the full tensor ``t`` under placements ``pl``
-    (``t`` itself when no dim is split)."""
-    out = t
+    (``t`` itself when no dim is split); with ``blocks`` > 1 the last dim's
+    split over "model" takes this rank's part of each of ``blocks`` equal
+    halves (``BLOCKED``)."""
+    out, names = t, axis_names(mesh)
     for i, p in enumerate(pl):
         n = mesh.size(i)
         if not isinstance(p, Shard) or n == 1:
             continue
-        if out.shape[p.dim] % n:
+        parts = (blocks if names[i] == "model" and p.dim == t.dim() - 1
+                 else 1)
+        if out.shape[p.dim] % (n * parts):
             raise ValueError(f"dim {p.dim} of {tuple(t.shape)} does not "
                              f"split over {n} ranks")
-        k = out.shape[p.dim] // n
-        out = out.narrow(p.dim, mesh.get_local_rank(i) * k, k)
+        out = out.unflatten(p.dim, (parts, -1))
+        k = out.shape[p.dim + 1] // n
+        out = out.narrow(p.dim + 1, mesh.get_local_rank(i) * k, k).flatten(
+            p.dim, p.dim + 1)
     return out if out is t else out.clone(
         memory_format=torch.contiguous_format)
 
@@ -487,17 +523,27 @@ def _model_dim(spec: P, ndim: int) -> Optional[int]:
     return None
 
 
+def whole_heads(cfg, m: int) -> bool:
+    """Whether attention runs whole on every rank of a model axis of ``m``
+    ranks: its heads or KV heads do not split over it (GSPMD splits a
+    head; the port does not)."""
+    return (cfg.family != "ssm" and m > 1
+            and bool(cfg.num_heads % m or cfg.num_kv_heads % m))
+
+
 def check_sharded(cfg, mesh, loss_kind: str = "sft") -> None:
     """Raise ``NotImplementedError`` unless the sharded train step runs
-    ``cfg`` on the real multi-rank ``mesh``: the dense or MoE family, the
-    SFT loss, a ("data", "model") mesh, and, over a model axis of m > 1
-    ranks, the Megatron layout (q/k/v and gate/up split by output columns,
-    o and down by input rows) with whole heads on each rank (H and KV
-    divisible by m; GSPMD splits a head, the port does not). The embedding
-    and an untied unembedding are split by vocabulary or, where the rule
-    falls back, whole. MoE: the router whole, the routed experts split by
-    expert or whole, the shared expert's gate/up by columns and its down
-    by rows, or all three whole."""
+    ``cfg`` on the real multi-rank ``mesh``: the dense, MoE, ssm or hybrid
+    family, the SFT loss, a ("data", "model") mesh, and, over a model axis
+    of m > 1 ranks, the Megatron layout (q/k/v, gate/up, RWKV's r/k/v/g and
+    ffn_k, Mamba's in_proj and conv split by output columns; o, down,
+    ffn_v and out_proj by input rows). Attention whose heads do not split
+    runs whole (``whole_heads``): its weights may take any split. Scan
+    heads (RWKV's and Mamba's) must divide by m. The embedding and an
+    untied unembedding are split by vocabulary or, where the rule falls
+    back, whole. MoE: the router whole, the routed experts split by expert
+    or whole, the shared expert's gate/up by columns and its down by rows,
+    or all three whole."""
     names = tuple(axis_names(mesh))
     if names != ("data", "model"):
         raise NotImplementedError(
@@ -514,17 +560,30 @@ def check_sharded(cfg, mesh, loss_kind: str = "sft") -> None:
     m = axis_sizes(mesh)["model"]
     if m == 1:
         return
-    d, L = cfg.d_model, cfg.num_layers
-    shapes = {"q_proj": (L, d, cfg.q_dim), "k_proj": (L, d, cfg.kv_dim),
-              "v_proj": (L, d, cfg.kv_dim), "o_proj": (L, cfg.q_dim, d)}
+    d, L, ff = cfg.d_model, cfg.num_layers, cfg.d_ff
+    layers: Dict[str, Any] = {}
     # each leaf's allowed dims over "model" (None: whole)
-    want = {"q_proj": (-1,), "k_proj": (-1,), "v_proj": (-1,),
-            "o_proj": (-2,), "embed": (-2, None)}
-    layers = {}
+    want: Dict[str, Tuple] = {"embed": (-2, None)}
+    scan = None                                 # (what, heads)
+    if cfg.family == "ssm":
+        from repro_torch.models.rwkv import DECAY_LORA_DIM as R
+        for n in ("r_proj", "k_proj", "v_proj", "g_proj"):
+            layers[n], want[n] = (L, d, d), (-1,)
+        layers.update(o_proj=(L, d, d), ffn_k=(L, d, ff), ffn_v=(L, ff, d),
+                      w1=(L, d, R), w2=(L, R, d))
+        want.update(o_proj=(-2,), ffn_k=(-1,), ffn_v=(-2,), w1=(None,),
+                    w2=(None,))
+        scan = ("RWKV heads", cfg.num_heads)
+    else:
+        col, row = ((-1, None), (-2, None)) if whole_heads(cfg, m) else \
+            ((-1,), (-2,))
+        layers.update(q_proj=(L, d, cfg.q_dim), k_proj=(L, d, cfg.kv_dim),
+                      v_proj=(L, d, cfg.kv_dim), o_proj=(L, cfg.q_dim, d))
+        want.update(q_proj=col, k_proj=col, v_proj=col, o_proj=row)
     if cfg.is_moe:
-        E, ff = cfg.moe.num_experts, cfg.moe.d_ff_expert
-        moe = {"router": (L, d, E), "w_gate": (L, E, d, ff),
-               "w_up": (L, E, d, ff), "w_down": (L, E, ff, d)}
+        E, ffe = cfg.moe.num_experts, cfg.moe.d_ff_expert
+        moe = {"router": (L, d, E), "w_gate": (L, E, d, ffe),
+               "w_up": (L, E, d, ffe), "w_down": (L, E, ffe, d)}
         want.update(router=(None,), w_gate=(-3, None), w_up=(-3, None),
                     w_down=(-3, None))
         if cfg.moe.num_shared_experts:
@@ -534,11 +593,21 @@ def check_sharded(cfg, mesh, loss_kind: str = "sft") -> None:
             want.update({"shared/gate": (-1, None), "shared/up": (-1, None),
                          "shared/down": (-2, None)})
         layers["moe"] = moe
-    else:
-        shapes.update(gate_proj=(L, d, cfg.d_ff), up_proj=(L, d, cfg.d_ff),
-                      down_proj=(L, cfg.d_ff, d))
+    elif cfg.family != "ssm":
+        layers.update(gate_proj=(L, d, ff), up_proj=(L, d, ff),
+                      down_proj=(L, ff, d))
         want.update(gate_proj=(-1,), up_proj=(-1,), down_proj=(-2,))
-    layers.update(shapes)
+    if cfg.family == "hybrid":
+        inner, N = cfg.ssm.expand * d, cfg.ssm.state_size
+        H = inner // cfg.ssm.head_size
+        layers["mamba"] = {
+            "in_proj": (L, d, 2 * inner), "conv": (L, cfg.ssm.conv_width,
+                                                   inner),
+            "bc_proj": (L, inner, 2 * N), "dt_proj": (L, inner, H),
+            "out_proj": (L, inner, d)}
+        want.update(in_proj=(-1,), conv=(-1,), bc_proj=(-1, None),
+                    dt_proj=(-1, None), out_proj=(-2,))
+        scan = ("Mamba heads", H)
 
     def meta(node):
         if isinstance(node, dict):
@@ -562,19 +631,19 @@ def check_sharded(cfg, mesh, loss_kind: str = "sft") -> None:
                 + " or ".join("whole over model" if d_ is None else
                               f"split over model along dim {d_}"
                               for d_ in dims))
-    for what, n in (("heads", cfg.num_heads), ("kv heads", cfg.num_kv_heads)):
-        if n % m:
-            raise NotImplementedError(
-                f"{cfg.name}: {n} {what} do not split whole over model "
-                f"{m} (k_proj spec {flat['k_proj'][0]}); the sharded step "
-                f"keeps whole heads on each rank")
+    if scan is not None and scan[1] % m:
+        raise NotImplementedError(
+            f"{cfg.name}: {scan[1]} {scan[0]} do not split whole over model "
+            f"{m}; the sharded step runs whole scan heads on each rank")
 
 
 def _weight_name(path: Tuple) -> str:
     """A parameter's name as the model's "weight:<name>" hints give it:
-    its path without the "layers" and "moe" levels ("q_proj", "w_gate",
-    "shared/gate", "embed")."""
-    return "/".join(str(p) for p in path if p not in ("layers", "moe"))
+    its path without the "layers", "moe" and "mamba" levels ("q_proj",
+    "w_gate", "shared/gate", "in_proj", "embed"), as the reference's
+    ``weight_spec`` tries those prefixes."""
+    return "/".join(str(p) for p in path
+                    if p not in ("layers", "moe", "mamba"))
 
 
 class SpmdPlan:
@@ -599,6 +668,9 @@ class SpmdPlan:
         self.layouts: Optional[Dict[str, Dict[str, Optional[int]]]] = None
         self.seq_len = self.z = self.z_local = self.d_model = 0
         self.seq_sharded = False
+        # attention runs whole on every model rank (``whole_heads``); set
+        # by ``steps_dist.make_train_step``
+        self.attn_whole = False
         self._cols: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         # the MoE layer's groups: (experts E, groups G, tokens a group s)
         self._moe: Optional[Tuple[int, int, int]] = None
@@ -609,8 +681,8 @@ class SpmdPlan:
     def bind(self, params: Dict, batch: Dict) -> None:
         if self.step_kind != "train":
             raise NotImplementedError(
-                f"sharded execution of a {self.step_kind} step is not "
-                f"ported ({SHARDED_QUEUE})")
+                f"sharded execution of an eval, prefill or serve step (step "
+                f"kind {self.step_kind}) is not ported ({SHARDED_QUEUE})")
         if self.layouts is None:
             self.layouts = _weight_layouts(self.mesh, params)
         emb = params["embed"]
@@ -665,8 +737,10 @@ class SpmdPlan:
             if kind == "residual" and len(shape) == 4 and \
                     shape[2] != self.seq_len:
                 shape[2] *= self.m
-            elif (kind in ("attn_qkv", "ffn_hidden") and len(shape) >= 4
-                  or kind.startswith("dims:") and len(shape) == 5):
+            elif (kind == "ffn_hidden" and len(shape) >= 4
+                  or not self.attn_whole and (
+                      kind == "attn_qkv" and len(shape) >= 4
+                      or kind.startswith("dims:") and len(shape) == 5)):
                 shape[3] *= self.m          # [Z, b, S, H/m | ff/m, ...]
             elif kind == "logits" and self.split("lm_head") is not None:
                 shape[-1] *= self.m
@@ -694,6 +768,22 @@ class SpmdPlan:
         return C.all_gather(W.detach(), self.mesh, "data", dim,
                             "base_weight", self.log)
 
+    def gather_model(self, W: torch.Tensor, name: str) -> torch.Tensor:
+        """The frozen weight ``name`` (gathered over "data") all-gathered
+        over "model" too, where it splits there: whole on every rank
+        (forward only, role "base_weight"). A ``BLOCKED`` weight's blocks
+        are put back in their global order."""
+        dim = self._layout(name)["model"]
+        if dim is None or self.m == 1:
+            return W
+        out = C.all_gather(W.detach(), self.mesh, "model", dim,
+                           "base_weight", self.log)
+        parts = BLOCKED.get(name, 1)
+        if parts > 1:            # [.., m, parts, n] -> [.., parts, m, n]
+            out = out.unflatten(-1, (self.m, parts, -1)).transpose(
+                -3, -2).flatten(-3)
+        return out
+
     def split(self, name: str) -> Optional[str]:
         """"col" or "row": how weight ``name`` is split over "model"
         (None: whole on every rank)."""
@@ -706,6 +796,16 @@ class SpmdPlan:
         (a differentiable slice)."""
         k = t.shape[dim] // self.m
         return t.narrow(dim, self.model_rank * k, k)
+
+    def local_out(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """This model rank's output columns of the column-parallel weight
+        ``name`` in the last dim of ``t`` (the whole LoRA B), laid out as
+        the weight's local shard (``BLOCKED``), contiguous."""
+        parts = BLOCKED.get(name, 1)
+        if parts == 1:
+            return self.local(t, -1).contiguous()
+        return self.local(t.unflatten(-1, (parts, -1)), -1).flatten(
+            -2).contiguous()
 
     # -- MoE ---------------------------------------------------------------
 
@@ -760,7 +860,7 @@ class SpmdPlan:
         all-gathered along S over "model" (or, unsharded, passed with its
         gradient all-reduced), once for all the projections that read the
         same ``x``."""
-        if self.m == 1:
+        if self.m == 1 or getattr(x, "_spmd_whole", False):
             return x
         if self._cols is not None and self._cols[0] is x:
             return self._cols[1]
@@ -776,6 +876,41 @@ class SpmdPlan:
         """Mark ``y`` as this rank's partial sum over "model"."""
         y._spmd_partial = True
         return y
+
+    @staticmethod
+    def gathered(y: torch.Tensor) -> torch.Tensor:
+        """Mark ``y`` as an input of column-parallel projections that is
+        already whole (made from a ``columns`` result): ``columns`` passes
+        it as it is."""
+        y._spmd_whole = True
+        return y
+
+    def whole_out(self, y: torch.Tensor) -> torch.Tensor:
+        """The output of a sublayer that every model rank runs whole, on
+        its own sequence block: as it is where the residual is
+        sequence-sharded; else every rank computed all of it, and it
+        counts once: model rank 0's, a partial sum for the "residual"
+        constraint."""
+        if self.m == 1 or self.seq_sharded:
+            return y
+        return self.partial(y if self.model_rank == 0 else y * 0)
+
+    def row_products(self, x: torch.Tensor, weights: Dict[str, torch.Tensor]
+                     ) -> List[torch.Tensor]:
+        """``x @ W`` in fp32 for each frozen weight W ([inner, n], gathered
+        over "data") of ``weights`` ({name: W}), where x's last dim is this
+        model rank's block of inner: each W gathered over "model" (forward
+        only), this rank's rows of it taken, and the partial products
+        summed over "model" in one fp32 all-reduce. Each rank uses the sum
+        for its own heads only, so its gradient is all-reduced back."""
+        parts = [x.float() @ self.local(self.gather_model(W, n), -2).float()
+                 for n, W in weights.items()]
+        y = torch.cat(parts, dim=-1)
+        if self.m > 1:
+            y = C.broadcast_grad(
+                C.reduce(y, self.mesh, "model", "activation", self.log),
+                self.mesh, "model", "activation", self.log)
+        return list(y.split([t.shape[-1] for t in parts], dim=-1))
 
     def residual(self, x: torch.Tensor) -> torch.Tensor:
         """The "residual" constraint: a partial sum is reduce-scattered

@@ -13,9 +13,11 @@ multi-rank ("data", "model") mesh the train step runs sharded: the policy's
 ``SpmdPlan`` reads the parameters' placements and the batch's global shape
 at each call and issues the collectives (``launch/collectives.py``);
 ``partitioning.check_sharded`` refuses, with ``NotImplementedError``, what
-the sharded step does not run (the families other than dense and MoE, the
-DPO loss, the pod axis, a split that is not head-aligned), and the eval,
-prefill and serve steps raise on such a mesh. One schedule serves every
+the sharded step does not run (the vlm and audio families, the DPO loss,
+the pod axis, scan heads that do not split over "model"), and the eval,
+prefill and serve steps raise on such a mesh. Attention whose heads do not
+split over "model" runs whole on every model rank
+(``partitioning.whole_heads``). One schedule serves every
 opt level: the levels change only the recorded decisions and hints, and
 the numbers stay equal.
 """
@@ -55,9 +57,13 @@ def make_train_step(cfg: ModelConfig, mesh, *, loss_kind="sft",
                     opt_level: int = 0) -> Callable:
     if PT._real_multi_rank(mesh):
         PT.check_sharded(cfg, mesh, loss_kind)
-    return _wrap(mesh, S.make_train_step(cfg, loss_kind=loss_kind,
+    step = _wrap(mesh, S.make_train_step(cfg, loss_kind=loss_kind,
                                          remat=remat), seq_shard, opt_level,
                  "train")
+    plan = step.policy.spmd
+    if plan is not None:
+        plan.attn_whole = PT.whole_heads(cfg, plan.m)
+    return step
 
 
 def make_eval_step(cfg: ModelConfig, mesh, *, opt_level: int = 0,

@@ -19,9 +19,10 @@ b 4, S 4,096), and the step tries them as they are: nothing cuts Z.
 none of them. Every rank builds the same full weights, adapters and batches
 from the seed, and ``partitioning.distribute`` keeps its shards: the slots
 of its data rank (Adapter Parallelism) and its blocks of the backbone over
-"model". The dense and MoE families run sharded (``partitioning
-.check_sharded`` names what does not); an MoE rank routes its data rank's
-tokens and runs its block of the experts. Four ranks on the CPU:
+"model". The dense, MoE, ssm and hybrid families run sharded
+(``partitioning.check_sharded`` names what does not); an MoE rank routes
+its data rank's tokens and runs its block of the experts, an RWKV or Mamba
+rank its block of the scan heads. Four ranks on the CPU:
 
     for r in 0 1 2 3; do RANK=$r WORLD_SIZE=4 MASTER_ADDR=127.0.0.1 \\
       MASTER_PORT=29511 PYTHONPATH=src python -m repro_torch.launch.train \\
@@ -63,13 +64,21 @@ def build_mesh(spec: str, device=None):
     return MESH.make_local_mesh((d, m), ("data", "model"), device=device)
 
 
+def init_bytes(cfg: ModelConfig) -> int:
+    """The card bytes a rank holds while it draws ``cfg``'s full weights:
+    three times the weights' bytes (the weights, the fp32 draws of the
+    largest leaves and the allocator's slack: llama4-scout's 2 layers, 13
+    GB of weights, reserve ~24 GB while they are drawn)."""
+    return 3 * cfg.param_count() * dtype_of(cfg.dtype).itemsize
+
+
 def _card_turns(cfg: ModelConfig, dev) -> tuple:
     """(this rank's turn, the turns): the ranks of the group that share
     this rank's card build the full weights and keep their shards as many
-    at a time as the card holds (twice the weights' bytes a rank, for the
-    fp32 draws), in rank order (llama4-scout's weights at 2 layers take 12
-    GB, and four at once do not fit an 80 GB card). A rank with a card of
-    its own, or on the CPU: (0, 1)."""
+    at a time as the card holds (``init_bytes`` a rank), in rank order
+    (three llama4-scout ranks at 2 layers at once do not fit an 80 GB card
+    beside other processes). A rank with a card of its own, or on the CPU:
+    (0, 1)."""
     world = torch.distributed.get_world_size()
     if dev.type != "cuda" or world == 1:
         return 0, 1
@@ -77,7 +86,7 @@ def _card_turns(cfg: ModelConfig, dev) -> tuple:
           torch.cuda.mem_get_info(dev)[0])
     got = [None] * world
     torch.distributed.all_gather_object(got, me)
-    need = 2 * cfg.param_count() * dtype_of(cfg.dtype).itemsize
+    need = init_bytes(cfg)
     cards = {u: [r for r, (v, _) in enumerate(got) if v == u]
              for u, _ in got}
     # ranks at once: the fewest any card holds

@@ -38,6 +38,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models.mamba import (init_mamba_params, mamba_block,
                                       mamba_target_shapes)
 from repro_torch.models.rope import apply_rope
+from repro_torch.models import shardctx
 from repro_torch.models.rwkv import (init_rwkv_layer, rwkv_channel_mix,
                                      rwkv_target_shapes, rwkv_time_mix)
 from repro_torch.models.shardctx import constrain, get_hint
@@ -184,20 +185,29 @@ def attn_sublayer(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
     Sharded over "model" (``shardctx.spmd()``), x holds this rank's
     sequence block and the heads are this rank's H/m and KV/m: the
     column-parallel q/k/v read the whole sequence, and the output is the
-    row-parallel o_proj's partial sum."""
+    row-parallel o_proj's partial sum. Where the heads do not split
+    (``SpmdPlan.attn_whole``), every model rank runs all of them: q/k/v
+    over the whole sequence with the weights gathered over "model", the
+    output cut to this rank's sequence block before o_proj
+    (``SpmdPlan.whole_out``)."""
     Z, b = x.shape[:2]
     hd = cfg.resolved_head_dim
+    sp = shardctx.spmd()
+    whole = sp is not None and sp.attn_whole
+    if whole:
+        x = sp.columns(x)
 
     def lp(t):
         return lora_at(lora, t, layer)
 
-    q = proj(x, p["q_proj"], lp("q_proj"), scale, name="q_proj")
+    q = proj(x, p["q_proj"], lp("q_proj"), scale, name="q_proj",
+             whole=whole)
     S = q.shape[2]
     q = q.reshape(Z, b, S, -1, hd)
-    k = proj(x, p["k_proj"], lp("k_proj"), scale,
-             name="k_proj").reshape(Z, b, S, -1, hd)
-    v = proj(x, p["v_proj"], lp("v_proj"), scale,
-             name="v_proj").reshape(Z, b, S, -1, hd)
+    k = proj(x, p["k_proj"], lp("k_proj"), scale, name="k_proj",
+             whole=whole).reshape(Z, b, S, -1, hd)
+    v = proj(x, p["v_proj"], lp("v_proj"), scale, name="v_proj",
+             whole=whole).reshape(Z, b, S, -1, hd)
     H = q.shape[3]
     if S > 1 and get_hint("opt_level", 0) >= 2:
         # q/k/v sequence-sharded through the token-local projections and
@@ -241,7 +251,12 @@ def attn_sublayer(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
     out = attention(q, k_all, v_all, q_pos, kp, window=window,
                     q_chunk=cfg_q_chunk(cfg, S), kv_valid_len=kv_valid_len)
     out = out.reshape(Z, b, S, H * hd)
-    return proj(out, p["o_proj"], lp("o_proj"), scale, name="o_proj")
+    if not whole:
+        return proj(out, p["o_proj"], lp("o_proj"), scale, name="o_proj")
+    if sp.seq_sharded:
+        out = sp.local(out, 2).contiguous()
+    return sp.whole_out(proj(out, p["o_proj"], lp("o_proj"), scale,
+                             name="o_proj", whole=True))
 
 
 def mlp_sublayer(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
@@ -265,8 +280,10 @@ def transformer_block(cfg: ModelConfig, x: torch.Tensor, p: Dict,
     angles, positions, window and this layer's cache (``ctx["cache"]``).
 
     Hybrid (Hymba): attention and the Mamba branch both read the same
-    normed ``h``; each output is RMS-normed by its own branch norm and the
-    residual adds their mean. With a cache the Mamba branch continues from
+    normed ``h``; each output passes its own "residual" constraint (sharded
+    over "model", a partial sum is reduce-scattered there: the norm needs
+    the sum), is RMS-normed by its own branch norm, and the residual adds
+    their mean. With a cache the Mamba branch continues from
     the cached ``conv`` / ``ssm`` state and writes the new one back in
     place under ``ctx["write_mask"]``."""
     scale = cfg.lora.scale_for_rank(0)
@@ -282,8 +299,10 @@ def transformer_block(cfg: ModelConfig, x: torch.Tensor, p: Dict,
     if cfg.family == "hybrid":
         ssm_out, new_mamba = mamba_block(h, p["mamba"], lora, layer, cfg,
                                          state=cache, scale=scale)
-        attn_out = rms_norm(attn_out, p["branch_norm_attn"], cfg.norm_eps)
-        ssm_out = rms_norm(ssm_out, p["branch_norm_ssm"], cfg.norm_eps)
+        attn_out = rms_norm(constrain(attn_out, "residual"),
+                            p["branch_norm_attn"], cfg.norm_eps)
+        ssm_out = rms_norm(constrain(ssm_out, "residual"),
+                           p["branch_norm_ssm"], cfg.norm_eps)
         x = x + 0.5 * (attn_out + ssm_out)
         if cache is not None:
             for name, new in new_mamba.items():
@@ -311,7 +330,10 @@ def rwkv_block(cfg: ModelConfig, x: torch.Tensor, p: Dict, lora: Dict,
     ``wkv`` / ``tm_x`` / ``cm_x`` views) the recurrence continues from the
     cached state and the new state is written back in place under
     ``ctx["write_mask"]``. The token-shift states carry the normed stream,
-    so decode continues exactly (RMS pre-norms, as the JAX package)."""
+    so decode continues exactly (RMS pre-norms, as the JAX package). Each
+    mix's output is constrained before the add, as the transformer block's
+    (sharded, it is a partial sum over "model" of the whole sequence while
+    x holds this rank's block)."""
     scale = cfg.lora.scale_for_rank(0)
     cache = ctx.get("cache")
     state = cache if cache is not None else {}
@@ -319,11 +341,11 @@ def rwkv_block(cfg: ModelConfig, x: torch.Tensor, p: Dict, lora: Dict,
     tm_out, wkv, tm_last = rwkv_time_mix(
         xn, p, lora, layer, cfg, prev_x=state.get("tm_x"),
         state=state.get("wkv"), scale=scale)
-    x = constrain(x + tm_out, "residual")
+    x = constrain(x + constrain(tm_out, "residual"), "residual")
     xn = rms_norm(x, p["cm_norm"], cfg.norm_eps)
     cm_out, cm_last = rwkv_channel_mix(xn, p, lora, layer, cfg,
                                        prev_x=state.get("cm_x"), scale=scale)
-    x = constrain(x + cm_out, "residual")
+    x = constrain(x + constrain(cm_out, "residual"), "residual")
     if cache is not None:
         mask = ctx.get("write_mask")
         for name, new in (("wkv", wkv), ("tm_x", tm_last), ("cm_x", cm_last)):

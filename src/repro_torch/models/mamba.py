@@ -9,9 +9,21 @@ runs through the chunked linear-scan core (``models/linear_scan.py``,
 "kernel" backend, the recurrent step for one decoded token.
 
 Decode carries (conv buffer [Z,b,W-1,inner] fp32, ssm state [Z,b,H,N,hs]
-fp32). Only ``in_proj`` carries LoRA; ``bc_proj`` and ``out_proj`` are
-frozen plain matmuls. Weights have the JAX package's keys, so
-``bridge.py`` maps them 1:1.
+fp32). Only ``in_proj`` carries LoRA; every other weight is frozen:
+``bc_proj`` and ``out_proj`` are plain projections (``proj`` without an
+adapter) and ``dt_proj``, ``conv``, ``dt_bias``, ``A_log`` and ``D`` are
+used as they are. Weights have the JAX package's keys, so ``bridge.py``
+maps them 1:1.
+
+Sharded over "model" (``shardctx.spmd()``, the launcher's train step),
+this rank runs H/m of the heads over the whole sequence: ``in_proj`` is
+column-parallel in blocks (its local shard holds this rank's inner block
+of x and of z, ``partitioning.BLOCKED``), ``conv`` holds the same inner
+block, ``bc_proj`` and ``dt_proj`` contract over all of inner (this
+rank's rows of each, the fp32 partial products summed over "model",
+``SpmdPlan.row_products``), ``dt_bias``, ``A_log`` and ``D`` are sliced
+to this rank's heads, and ``out_proj`` is row-parallel (the output a
+partial sum over "model").
 """
 from __future__ import annotations
 
@@ -21,6 +33,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lora import proj
+from repro_torch.models import shardctx
 from repro_torch.models.common import he_init, lora_at, normal_init, silu
 from repro_torch.models.linear_scan import (chunked_linear_attention,
                                             linear_attention_decode_step)
@@ -81,14 +94,19 @@ def mamba_block(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
     """x: [Z,b,S,d] -> (out [Z,b,S,d], new state {conv, ssm}). ``state``
     (a dict holding conv [Z,b,W-1,inner] and ssm [Z,b,H,N,hs], fp32: a
     layer's cache views) continues a cached stream; None starts from
-    zeros."""
-    Z, b, S, _ = x.shape
-    inner, H, hs = mamba_dims(cfg)
+    zeros. Sharded over "model" (the module docstring), x is this rank's
+    sequence block, H its heads and out its partial sum over the whole
+    sequence."""
+    hs = cfg.ssm.head_size
     N, Wd = cfg.ssm.state_size, cfg.ssm.conv_width
+    sp = shardctx.spmd()
 
     xz = proj(x, p["in_proj"], lora_at(lora, "in_proj", layer), scale,
               name="in_proj")
+    Z, b, S = xz.shape[:3]
     xt, z = xz.chunk(2, dim=-1)
+    inner = xt.shape[-1]                 # this rank's block
+    H = inner // hs
 
     conv_buf = state["conv"] if state is not None else None
     xc = _causal_conv(xt, p["conv"], conv_buf)
@@ -98,10 +116,23 @@ def mamba_block(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
         stream = torch.cat([conv_buf.to(xt.dtype), xt], dim=2)
     new_conv = stream[:, :, -(Wd - 1):].float()
 
-    bc = proj(xc, p["bc_proj"], name="bc_proj")   # [Z,b,S,2N] frozen
+    dt_bias, A_log, D = p["dt_bias"], p["A_log"], p["D"]
+    if sp is None:
+        bc = proj(xc, p["bc_proj"], name="bc_proj")   # [Z,b,S,2N] frozen
+        dt = xc.float() @ p["dt_proj"]
+    else:
+        # both contract over all of inner: this rank's rows, summed over
+        # "model" in fp32; bc then rounded to x's dtype, as proj's is. Each
+        # is gathered over "data" as the one-rank path reads it: bc_proj
+        # through its weight hint, dt_proj (no hint) directly
+        bc, dt = sp.row_products(xc, {
+            "bc_proj": shardctx.constrain(p["bc_proj"], "weight:bc_proj"),
+            "dt_proj": sp.weight(p["dt_proj"], "dt_proj")})
+        bc, dt = bc.to(xc.dtype), sp.local(dt, -1)
+        dt_bias, A_log, D = (sp.local(t, -1) for t in (dt_bias, A_log, D))
     Bm, Cm = bc.float().chunk(2, dim=-1)
-    dt = softplus(xc.float() @ p["dt_proj"] + p["dt_bias"])     # [Z,b,S,H]
-    logw = -dt * torch.exp(p["A_log"])                          # < 0
+    dt = softplus(dt + dt_bias)                                 # [Z,b,S,H]
+    logw = -dt * torch.exp(A_log)                               # < 0
 
     v = xc.reshape(Z, b, S, H, hs) * dt[..., None].to(xc.dtype)
     q = Cm[..., None, :].expand(Z, b, S, H, N).to(xc.dtype)
@@ -119,7 +150,7 @@ def mamba_block(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
             q, k, v, lw, decay_on_query=True, initial_state=ssm_state,
             chunk=cfg.ssm.chunk_size)
 
-    y = y + xc.reshape(Z, b, S, H, hs) * p["D"][:, None].to(xc.dtype)
+    y = y + xc.reshape(Z, b, S, H, hs) * D[:, None].to(xc.dtype)
     y = y.reshape(Z, b, S, inner) * silu(z)
     out = proj(y, p["out_proj"], name="out_proj")    # frozen out proj
     return out, {"conv": new_conv, "ssm": new_ssm}

@@ -12,6 +12,14 @@
 
 LoRA targets: r/k/v/g/o projections + ffn_k/ffn_v. Weights have the JAX
 package's keys, so ``bridge.py`` maps them 1:1.
+
+Sharded over "model" (``shardctx.spmd()``, the launcher's train step), x
+is this rank's sequence block: each mix gathers it along S once, before
+the token shift (so the first token of a block reads its true
+predecessor, and the five time-mix inputs share the gather); r/k/v/g and
+ffn_k are column-parallel, so this rank holds H/m heads, and it takes its
+heads' columns of the decay, its rows of ``u`` and its block of ``ln_x``;
+o and ffn_v are row-parallel (their outputs partial sums over "model").
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lora import proj
+from repro_torch.models import shardctx
 from repro_torch.models.common import he_init, lora_at, normal_init, silu
 from repro_torch.models.linear_scan import (chunked_linear_attention,
                                             linear_attention_decode_step)
@@ -78,6 +87,17 @@ def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]
     return torch.cat([first, x[:, :, :-1]], dim=2)
 
 
+def _shift_input(x: torch.Tensor):
+    """(x, mark): sharded over "model", x gathered along S (the whole
+    sequence: the shift then reads each token's true predecessor) and
+    ``mark`` tagging the mixes made from it as already whole for the
+    column-parallel projections; else x and the identity."""
+    sp = shardctx.spmd()
+    if sp is None:
+        return x, lambda t: t
+    return sp.columns(x), sp.gathered
+
+
 def rwkv_time_mix(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
                   cfg: ModelConfig, *,
                   prev_x: Optional[torch.Tensor] = None,
@@ -86,36 +106,47 @@ def rwkv_time_mix(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
                                       torch.Tensor]:
     """Time-mix over a sequence. x: [Z,b,S,d] (normed).
 
-    Returns (out, final wkv state [Z,b,H,hs,hs] fp32, last x [Z,b,d])."""
-    Z, b, S, d = x.shape
-    H, hs = cfg.num_heads, cfg.ssm.head_size
+    Returns (out, final wkv state [Z,b,H,hs,hs] fp32, last x [Z,b,d]);
+    sharded over "model" (the module docstring), H is this rank's heads
+    and out its partial sum over the whole sequence."""
+    x, mark = _shift_input(x)
+    Z, b, S, _ = x.shape
+    hs = cfg.ssm.head_size
     xx = _token_shift(x, prev_x)
     mu = p["mu"].to(x.dtype)
-    xr, xk, xv, xg, xw = (x + (xx - x) * mu[i] for i in range(5))
-
-    def heads(t):
-        return t.reshape(Z, b, S, H, hs)
+    xr, xk, xv, xg, xw = (mark(x + (xx - x) * mu[i]) for i in range(5))
 
     def lp(t):
         return lora_at(lora, t, layer)
 
-    r = heads(proj(xr, p["r_proj"], lp("r_proj"), scale, name="r_proj"))
+    r = proj(xr, p["r_proj"], lp("r_proj"), scale, name="r_proj")
+    H = r.shape[-1] // hs                # this rank's heads
+
+    def heads(t):
+        return t.reshape(Z, b, S, H, hs)
+
+    r = heads(r)
     k = heads(proj(xk, p["k_proj"], lp("k_proj"), scale, name="k_proj"))
     v = heads(proj(xv, p["v_proj"], lp("v_proj"), scale, name="v_proj"))
     g = proj(xg, p["g_proj"], lp("g_proj"), scale, name="g_proj")
 
+    w0, w2, u, ln_x = p["w0"], p["w2"], p["u"], p["ln_x"]
+    sp = shardctx.spmd()
+    if sp is not None:                   # this rank's heads' channels
+        w0, w2, ln_x, u = (sp.local(w0, -1), sp.local(w2, -1),
+                           sp.local(ln_x, -1), sp.local(u, 0))
     # data-dependent decay (fp32): logw = -exp(w0 + tanh(xw w1) w2) < 0
-    dd = torch.tanh(xw.float() @ p["w1"]) @ p["w2"]
-    logw = heads(-torch.exp(torch.clamp(p["w0"] + dd, -8.0, 4.0)))
+    dd = torch.tanh(xw.float() @ p["w1"]) @ w2
+    logw = heads(-torch.exp(torch.clamp(w0 + dd, -8.0, 4.0)))
 
     if S == 1 and state is not None:
         y, new_state = linear_attention_decode_step(
             r[:, :, 0], k[:, :, 0], v[:, :, 0], logw[:, :, 0], state,
-            bonus=p["u"], decay_on_query=False)
+            bonus=u, decay_on_query=False)
         y = y[:, :, None]
     else:
         y, new_state = chunked_linear_attention(
-            r, k, v, logw, bonus=p["u"], decay_on_query=False,
+            r, k, v, logw, bonus=u, decay_on_query=False,
             initial_state=state, chunk=cfg.ssm.chunk_size)
 
     # per-head group norm, gate, output projection
@@ -123,7 +154,7 @@ def rwkv_time_mix(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
     mean = yf.mean(dim=-1, keepdim=True)
     var = yf.var(dim=-1, keepdim=True, unbiased=False)
     yn = (yf - mean) * torch.rsqrt(var + 1e-5)
-    yn = (yn.reshape(Z, b, S, d) * p["ln_x"]).to(x.dtype)
+    yn = (yn.reshape(Z, b, S, H * hs) * ln_x).to(x.dtype)
     out = proj(yn * silu(g), p["o_proj"], lp("o_proj"), scale,
                name="o_proj")
     return out, new_state, x[:, :, -1]
@@ -133,8 +164,9 @@ def rwkv_channel_mix(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
                      cfg: ModelConfig, *,
                      prev_x: Optional[torch.Tensor] = None,
                      scale=2.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    x, mark = _shift_input(x)
     xx = _token_shift(x, prev_x)
-    xk = x + (xx - x) * p["mu_ffn"].to(x.dtype)
+    xk = mark(x + (xx - x) * p["mu_ffn"].to(x.dtype))
     k = proj(xk, p["ffn_k"], lora_at(lora, "ffn_k", layer), scale,
              name="ffn_k")
     k = torch.square(torch.relu(k))

@@ -119,3 +119,54 @@ def moe_config(name: str, package: str):
     moe = dataclasses.replace(cfg.moe, num_experts=MOE_EXPERTS.get(
         c, cfg.moe.num_experts))
     return dataclasses.replace(cfg, moe=moe, dtype="float32")
+
+
+# The ssm and hybrid families, and attention whose heads do not split
+# (``tests/test_torch_ap_ssm.py``): reduced fp32 configs, 2 layers, vocab
+# 512, at Z 4, b 4 and the example's ranks and lr, 3 steps. Run -> (arch,
+# d_model, S, the meshes):
+#   rwkv     — rwkv6-3b, 4 heads of 32: S 32 is two scan chunks of 16, and
+#              each model rank's block of 16 tokens starts with a token
+#              whose shift reads across the block boundary;
+#   hymba128 — hymba-1.5b, 4 heads, 4 KV heads and 8 Mamba heads: every
+#              head splits over "model";
+#   hymba160 — hymba-1.5b, 5 heads, 5 KV heads (which do not split at 2x2:
+#              attention runs whole on every model rank) and 10 Mamba
+#              heads, at S 128, where the reduced window of 64 binds;
+#   glm4     — glm4-9b, 4 heads and 2 KV heads on a 1x4 mesh: the KV
+#              heads do not split over a model axis of 4.
+SSM_RUNS = {"rwkv": ("rwkv6-3b", 128, 32, ((2, 2), (4, 1))),
+            "hymba128": ("hymba-1.5b", 128, 32, ((2, 2), (4, 1))),
+            "hymba160": ("hymba-1.5b", 160, 128, ((2, 2), (4, 1))),
+            "glm4": ("glm4-9b", 128, 32, ((1, 4),))}
+# chip_smoke.py phase 37's planted faults, planted in the port's 2x2 step
+# in SSM_FAULT_LAYER: (a) data rank 0 shifts each model rank's sequence
+# block alone (slots 0-1), (b) data rank 1 takes in_proj's contiguous
+# column block for its x/z split (slots 2-3)
+SSM_FAULTS = {"rwkv": ("shift_local", (0, 1)),
+              "hymba128": ("in_proj_cols", (2, 3))}
+SSM_FAULT_LAYER = 0
+# The runs whose one-rank steps differ between the packages by more than
+# the sharded step's sum order: the port's RWKV scan and its backward take
+# another formulation than the reference's (``tests/test_torch_rwkv.py``
+# holds their gradients at 2e-3), and after 3 AdamW steps up to 12% of a B
+# leaf's entries differ past ``LEAF`` at one rank already. The reference
+# runs them at 1x1 too, and the test holds the sharded runs' shares against
+# the one-rank runs' own
+SSM_ONE_RANK = ("rwkv",)
+
+
+def ssm_runs():
+    """[(name, mesh)] of every run of ``SSM_RUNS``."""
+    return [(name, mesh) for name, spec in SSM_RUNS.items()
+            for mesh in spec[3]]
+
+
+def ssm_config(name: str, package: str):
+    """The reduced fp32 config of run ``name`` in ``package`` ("repro" or
+    "repro_torch")."""
+    import importlib
+    arch, d, _, _ = SSM_RUNS[name]
+    get_arch = importlib.import_module(f"{package}.configs.registry").get_arch
+    return dataclasses.replace(get_arch(arch).reduced(
+        num_layers=2, d_model=d, vocab=512), dtype="float32")

@@ -18,6 +18,11 @@ each of the case's meshes (and 1x1 for ``common.MOE_SELF_RUN``), and, for
 the span case, ``drops_<key>_span.json``: the choices the reference's
 ``moe_block`` drops in each call of a one-device forward of the first
 batch, per slot (read from its one ``jnp.where`` by a debug callback).
+
+With ``--ssm <run>...`` (keys of ``common.SSM_RUNS``) it runs those ssm,
+hybrid and whole-heads runs: ``init_<run>.npz`` in,
+``jax_<run>_<d>x<m>.npz`` out for each of the run's meshes (and 1x1 for
+those of ``common.SSM_ONE_RANK``).
 """
 import json
 import os
@@ -111,6 +116,18 @@ def drops(cfg, init) -> list:
             for k in seen]
 
 
+def ssm_main(workdir: str, names) -> None:
+    assert len(jax.devices()) == 4, jax.devices()
+    for name in names:
+        init = dict(np.load(os.path.join(workdir, f"init_{name}.npz")))
+        cfg = common.ssm_config(name, "repro")
+        for shape in ((1, 1),) * (name in common.SSM_ONE_RANK) + \
+                common.SSM_RUNS[name][3]:
+            np.savez(os.path.join(workdir, f"jax_{name}_%dx%d.npz" % shape),
+                     **run(cfg, init, shape))
+    print("done")
+
+
 def main(workdir: str, moe: str = "", cases=()) -> None:
     assert len(jax.devices()) == 4, jax.devices()
     if not moe:
@@ -141,5 +158,7 @@ def main(workdir: str, moe: str = "", cases=()) -> None:
 if __name__ == "__main__":
     if sys.argv[2:3] == ["--moe"]:
         main(sys.argv[1], sys.argv[3], sys.argv[4:])
+    elif sys.argv[2:3] == ["--ssm"]:
+        ssm_main(sys.argv[1], sys.argv[3:])
     else:
         main(sys.argv[1])

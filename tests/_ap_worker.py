@@ -16,8 +16,9 @@ batches) and writes, rank 0 for the group:
     opt-level-0 run on each mesh;
   * ``refusals.json`` — the ``NotImplementedError`` message of each
     family that the sharded step does not run on the 2x2 mesh, of the DPO
-    loss there, of glm4-9b's 2 KV heads over a 4-way model axis, and of a
-    prefill step on the 2x2 mesh.
+    loss there, of a mesh with a pod axis, of ragged slot rows on the 2x2
+    mesh's split model axis, and of an eval and a prefill step on the 2x2
+    mesh.
 
     python tests/_ap_worker.py <workdir> --moe
 
@@ -27,6 +28,16 @@ of ``common.moe_runs()``, ``init_<name>.npz`` in, ``port_<name>_<d>x<m>
 ``FAULT_MESH`` also the planted fault (a), ``port_<tag>_fault.npz`` (data
 rank 1 routes ``FAULT_LAYER`` without the lower ranks' counts), and opt
 level 2, ``port_<tag>_opt2.npz``.
+
+    python tests/_ap_worker.py <workdir> --ssm
+
+runs the ssm and hybrid families and the whole-heads attention instead
+(``tests/test_torch_ap_ssm.py``): for each run of ``common.ssm_runs()``,
+``init_<name>.npz`` in, ``port_<name>_<d>x<m>.npz`` and
+``log_<name>_<d>x<m>_rank<r>.json`` out; for each run of
+``common.SSM_FAULTS``, that fault planted at 2x2
+(``chip_smoke._planted_ssm``), ``port_<name>_2x2_fault.npz``; and opt
+level 2 of rwkv at 2x2, ``port_rwkv_2x2_opt2.npz``.
 """
 import dataclasses
 import json
@@ -50,8 +61,7 @@ from repro_torch.optim import adamw  # noqa: E402
 import chip_smoke  # noqa: E402
 from tests import _ap_common as common  # noqa: E402
 
-OTHER_FAMILIES = {"ssm": "rwkv6-3b", "hybrid": "hymba-1.5b",
-                  "vlm": "qwen2-vl-72b", "audio": "musicgen-medium"}
+OTHER_FAMILIES = {"vlm": "qwen2-vl-72b", "audio": "musicgen-medium"}
 
 
 def train(cfg, init, mesh, *, lrs=None, clip=1.0, opt_level=0,
@@ -134,16 +144,53 @@ def moe_main(workdir: str) -> None:
     print("done")
 
 
+def ssm_main(workdir: str) -> None:
+    with MESH.process_group("cpu", backend="gloo"):
+        me = dist.get_rank()
+        meshes = {s: MESH.make_local_mesh(s, device="cpu")
+                  for s in ((2, 2), (4, 1), (1, 4))}
+        for name, shape in common.ssm_runs():
+            init = dict(np.load(os.path.join(workdir, f"init_{name}.npz")))
+            cfg = common.ssm_config(name, "repro_torch")
+            tag = f"{name}_%dx%d" % shape
+            res = train(cfg, init, meshes[shape])
+            TRAIN.write_out(os.path.join(workdir, f"port_{tag}.npz"),
+                            meshes[shape], res)
+            with open(os.path.join(workdir, f"log_{tag}_rank{me}.json"),
+                      "w") as f:
+                json.dump(res["log"], f)
+            if shape != (2, 2):
+                continue
+            if name in common.SSM_FAULTS:
+                fault = common.SSM_FAULTS[name][0]
+                with chip_smoke._planted_ssm((fault,),
+                                             common.SSM_FAULT_LAYER):
+                    res = train(cfg, init, meshes[shape])
+                TRAIN.write_out(os.path.join(workdir,
+                                             f"port_{tag}_fault.npz"),
+                                meshes[shape], res)
+            if name == "rwkv":
+                TRAIN.write_out(os.path.join(workdir, f"port_{tag}_opt2.npz"),
+                                meshes[shape],
+                                train(cfg, init, meshes[shape], opt_level=2))
+        dist.barrier()
+    print("done")
+
+
 def main(workdir: str) -> None:
     torch.set_num_threads(1)
     if sys.argv[2:3] == ["--moe"]:
         return moe_main(workdir)
+    if sys.argv[2:3] == ["--ssm"]:
+        return ssm_main(workdir)
     init = dict(np.load(os.path.join(workdir, "init.npz")))
     cfg = common.port_config()
     with MESH.process_group("cpu", backend="gloo"):
         me = dist.get_rank()
         meshes = {s: MESH.make_local_mesh(s, device="cpu")
-                  for s in common.PORT_MESHES + ((1, 4),)}
+                  for s in common.PORT_MESHES}
+        pod = MESH.make_local_mesh((2, 1, 2), ("pod", "data", "model"),
+                                   device="cpu")
 
         def save(name, res, mesh):
             TRAIN.write_out(os.path.join(workdir, name), mesh, res)
@@ -167,14 +214,21 @@ def main(workdir: str) -> None:
                 for fam, arch in OTHER_FAMILIES.items()}
         msgs["dpo"] = refusal(
             lambda: SD.make_train_step(cfg, m22, loss_kind="dpo"))
-        msgs["glm4-9b at model 4"] = refusal(
-            lambda: SD.make_train_step(get_arch("glm4-9b"), meshes[(1, 4)]))
-        msgs["prefill"] = refusal(
-            lambda: SD.make_prefill_step(cfg, m22)(
-                {"embed": PT.distribute(m22, torch.zeros(cfg.vocab_size,
+        msgs["pod axis"] = refusal(lambda: SD.make_train_step(cfg, pod))
+        embed = {"embed": PT.distribute(m22, torch.zeros(cfg.vocab_size,
                                                          cfg.d_model),
-                                        PT.placements(m22, PT.P()))},
-                {}, None, {"tokens": torch.zeros(4, 1, 8, dtype=torch.int32)}))
+                                        PT.placements(m22, PT.P()))}
+        tokens = torch.zeros(4, 1, 8, dtype=torch.int32)
+        msgs["ragged rows"] = refusal(
+            lambda: SD.make_train_step(cfg, m22)(
+                embed, {}, None, None, None, None,
+                {"tokens": tokens, "slot_rows": torch.full((4,), 8)}))
+        msgs["eval"] = refusal(
+            lambda: SD.make_eval_step(cfg, m22)(embed, {}, None,
+                                                {"tokens": tokens}))
+        msgs["prefill"] = refusal(
+            lambda: SD.make_prefill_step(cfg, m22)(embed, {}, None,
+                                                   {"tokens": tokens}))
         if me == 0:
             with open(os.path.join(workdir, "refusals.json"), "w") as f:
                 json.dump(msgs, f)

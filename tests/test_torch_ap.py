@@ -34,10 +34,11 @@ together in one module fixture.
     schedule: they are in fact equal); the one-rank step (this process, a
     one-rank gloo group) agrees with the 2x2 and 4x1 steps within (a)'s
     bars.
-(e) The families other than dense and MoE (``tests/test_torch_ap_moe.py``),
-    the DPO loss, glm4-9b's 2 KV heads over a 4-way model axis (a split
-    that is not head-aligned) and a prefill step raise
-    ``NotImplementedError`` on a real mesh, naming what they refuse.
+(e) The vlm and audio families, the DPO loss, a mesh with a pod axis,
+    ragged slot rows on a split model axis, and the eval and prefill steps
+    raise ``NotImplementedError`` on a real mesh, naming what they refuse
+    (the MoE, ssm and hybrid families run: ``tests/test_torch_ap_moe.py``,
+    ``tests/test_torch_ap_ssm.py``).
 (f) ``launch.train.main(["--reduced", "--mesh", "2x2", "--steps", "2",
     "--backend", "gloo", "--device", "cpu"])`` runs under 4 spawned
     processes.
@@ -244,8 +245,8 @@ def test_a_diverging_slot_leaves_the_others_bitwise(runs):
 # (d) opt levels, and one rank against many
 # ---------------------------------------------------------------------------
 
-def _one_rank(init, tmp_path):
-    cfg = common.port_config()
+def _one_rank(init, tmp_path, cfg=None):
+    cfg = cfg or common.port_config()
     with TMESH.process_group("cpu", f"file://{tmp_path / 'pg'}"):
         mesh = TMESH.make_local_mesh((1, 1), device="cpu")
         params = bridge.params_from_numpy(cfg, common.unflat(init,
@@ -288,11 +289,11 @@ def test_opt_levels_and_one_rank_agree(runs, tmp_path):
 
 @pytest.mark.parametrize("what,names", [
     ("dpo", ("dpo", "loss")),
-    ("ssm", ("ssm", "rwkv6-3b")),
-    ("hybrid", ("hybrid", "hymba-1.5b")),
+    ("pod axis", ("pod",)),
+    ("ragged rows", ("ragged", "model")),
     ("vlm", ("vlm", "qwen2-vl-72b")),
     ("audio", ("audio", "musicgen-medium")),
-    ("glm4-9b at model 4", ("glm4-9b", "kv heads", "k_proj")),
+    ("eval", ("eval",)),
     ("prefill", ("prefill",)),
 ])
 def test_unported_splits_raise_by_name(runs, what, names):
@@ -301,7 +302,7 @@ def test_unported_splits_raise_by_name(runs, what, names):
     assert msg, f"{what}: no NotImplementedError"
     for n in names:
         assert n in msg, (what, msg)
-    assert "ROADMAP.md" in msg or what.startswith("glm4")
+    assert "ROADMAP.md" in msg
 
 
 # ---------------------------------------------------------------------------

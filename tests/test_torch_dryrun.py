@@ -253,12 +253,19 @@ def test_dryrun_one_on_a_reduced_config(reduced_stablelm):
     # forward and remat's recompute (the gathered weight kept for the
     # backward, as the sharded step does); lm_head and the embedding once;
     # the residual's all-gather and reduce-scatter around 2 sublayers a
-    # layer in the forward, the recompute and the backward
+    # layer in the forward, the recompute and the backward; the 2 heads do
+    # not split over the 16-way model axis, so attention runs whole there:
+    # q/k/v/o gathered over "model" too, as often as over "data"
     L, passes = cfg.num_layers, 3
     layer_w = sum(1 for path, _, spec in DR._leaves(params, p_specs)
                   if path.startswith("layers/") and DR._names(spec, "data"))
     assert layer_w == 7 and direct["residual"] == ("data", None, "model")
-    want_ag = layer_w * L * 2 + 1 + 1 + 2 * L * passes
+    assert PT.whole_heads(cfg, 16) and cfg.num_heads == 2
+    model_w = sum(1 for path, _, spec in DR._leaves(params, p_specs)
+                  if path.split("/")[-1] in ("q_proj", "k_proj", "v_proj",
+                                             "o_proj")
+                  and DR._names(spec, "model"))
+    want_ag = (layer_w + model_w) * L * 2 + 1 + 1 + 2 * L * passes
     assert res.collectives["all-gather"]["count"] == want_ag
     assert res.collectives["reduce-scatter"]["count"] == 2 * L * passes
     assert "all-reduce" not in res.collectives
