@@ -542,7 +542,7 @@ and DENSE_LAYERS layers; random weights from a seed:
             (``launch.train.run``, NCCL) with the same settings, beside
             a job of the planted-fault pool (``ApRuns``: AP_PROCS processes
             of this script's ``--ap-faults`` loop, started once with phase
-            35's ranks, serving phases 35-37; each run's launcher ranks
+            35's ranks, serving phases 35-38; each run's launcher ranks
             start while the previous run's controls run) (AP_STEPS steps;
             on data rank 0 layer AP_FAULT_LAYER's
             row-parallel reduce-scatter skipped, data rank 1 fed rank 0's
@@ -588,6 +588,35 @@ and DENSE_LAYERS layers; random weights from a seed:
             all-reduced) with fault (b), data rank 1 taking in_proj's
             contiguous column block (slots 2-3), each 2 x 2 against 1 x 1
             within its bars.
+38. ap vlm / audio — the vlm and audio families on the same mesh
+            (``ap_modal_phase``): rows 13-18 at each rank's shapes of the
+            2 x 2 split (qwen2-vl-72b: q 8,192 -> 4,096, k/v 8,192 -> 512,
+            gate/up 8,192 -> 14,784 column-parallel, o 4,096 -> 8,192,
+            timed, and down 14,784 -> 8,192 row-parallel; musicgen-medium:
+            q/k/v 1,536 -> 768, gate/up 1,536 -> 3,072, o 768 -> 1,536,
+            timed, down 3,072 -> 1,536) and flash on a rank's heads
+            (qwen2-vl's 32 heads of 128 at S 384, musicgen's 12 of 64 at S
+            512) against their plain versions; then phase 35's runs on
+            musicgen-medium at full width and AP_AUDIO_LAYERS layers (Z 4,
+            b 2, S 512), and on qwen2-vl-72b at full width and AP_QWEN_LAYERS
+            layers (Z 4, b 2, S 384: the 256-patch prefix, N(0, 0.02),
+            crosses the model ranks' boundary at 192; M-RoPE positions of a
+            16 x 16 patch grid for slots 0-1 and 8 x 32 for slots 2-3,
+            ``launch.train.modal_inputs``) with faults (c), data rank 0's
+            model ranks writing the prefix at the head of their own blocks
+            (slots 0-1), and (d), data rank 1 taking data rank 0's
+            positions (slots 2-3), planted together (their fault ranks run
+            before the one-rank run: four ranks drawing qwen2-vl's weights
+            and the one-rank run do not share the card), each 2 x 2
+            against 1 x 1 within phase 35's bars; a fault must pass both.
+            Every sharded run of phases 35-38 (and each fault run) ends
+            with one sharded eval step on the next batch with its trained
+            adapters; its per-slot losses are read against the one-rank
+            run's eval step on the same adapters, weights and batch within
+            the run's loss bar, and a fault whose train loss reads past
+            its bar must read AP_EVAL_FAULT_X times the sound eval reading
+            of its config (but AP_EVAL_UNSEEN). Each rank's eval launches
+            are counted apart from its steps'.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernel table as JSON (twenty kernels), with each kernel's launches by
@@ -600,8 +629,9 @@ and ``vlm_prompt`` for qwen2-vl's train check, sweep, serve and image
 prompt, ``audio_sweep``, ``audio_serve`` and ``audio_train`` for
 musicgen's, ``dense_cfg_train`` for the dense configs' train checks,
 ``launch_train`` for the launcher's full-width steps, ``ap_train``,
-``ap_moe_train``, ``ap_llama4_train``, ``ap_rwkv_train`` and
-``ap_hymba_train`` for the sharded steps' four ranks, summed).
+``ap_moe_train``, ``ap_llama4_train``, ``ap_rwkv_train``,
+``ap_hymba_train``, ``ap_vlm_train`` and ``ap_audio_train`` for the sharded
+steps' four ranks, summed).
 """
 from __future__ import annotations
 
@@ -818,6 +848,19 @@ AP_FAULT_LAYER = 5
 AP_FAULT_SLOTS = {"skip_scatter": (0, 1), "swap_slots": (2, 3)}
 AP_LOSS_REL = 3e-3
 AP_ADAPTER_REL = 0.75
+# every sharded run of phases 35-38 ends with one sharded eval step, read
+# against the one-rank run's eval step on the same adapters and batch: per
+# slot |eval diff| / |eval|, held within the run's loss bar. A planted
+# fault whose train loss reads past its bar must read at least
+# AP_EVAL_FAULT_X times the sound eval reading of its config in the same
+# call (the main path's, or the fault ranks' own sound run where they run
+# a config of their own). At random init a forward fault moves an eval
+# 9x to 4,400x a sound run's on an H100 (PERF.md), except granite's route
+# fault, 1.9x: data rank 1 drops other choices, whose random experts move
+# a loss as little as rounding does. Its train loss and adapters hold it
+# (AP_EVAL_UNSEEN)
+AP_EVAL_FAULT_X = 4
+AP_EVAL_UNSEEN = ("route_blind",)
 AP_TIMEOUT_S = 420
 # phase 36: the MoE family's sharded step, on the same mesh, load and
 # ranks as phase 35: full-size granite-moe-1b-a400m (bf16) against its
@@ -872,6 +915,19 @@ AP_HYMBA_FAULT_RUNS = ({"in_proj_cols": (2, 3)},)
 AP_RWKV_LOSS_REL, AP_RWKV_ADAPTER_REL = 3e-3, 2.5
 AP_RWKV_FP32_LOSS_REL, AP_RWKV_FP32_ADAPTER_REL = 3e-4, 1.5
 AP_HYMBA_LOSS_REL, AP_HYMBA_ADAPTER_REL = 1e-3, 0.75
+# phase 38: the vlm and audio families' sharded step, on the same mesh,
+# ranks and bars as phase 35: musicgen-medium at full width and
+# AP_AUDIO_LAYERS of its 48 layers at Z 4, b 2, S 512, no fault of its own
+# (its path is phase 35's dense one); then qwen2-vl-72b at full width (64
+# heads and 8 KV heads: 32 and 4 a model rank) and AP_QWEN_LAYERS of its 80
+# layers at Z 4, b 2, S 384 (its 256-patch prefix spans both model ranks'
+# blocks of 192), with faults (c) and (d) planted together, each on its own
+# data rank's slots. Both cut for time (4 and 16 layers put the script past
+# 1,100 s on an H100's host; PERF.md)
+AP_QWEN_ARCH, AP_QWEN_LAYERS, AP_QWEN_LOAD = "qwen2-vl-72b", 2, (4, 2, 384)
+AP_QWEN_FAULT_RUNS = ({"prefix_head": (0, 1), "positions_rank0": (2, 3)},)
+AP_AUDIO_ARCH, AP_AUDIO_LAYERS, AP_AUDIO_LOAD = ("musicgen-medium", 8,
+                                                 (4, 2, 512))
 # device busy ms per profiled train step of each executor phase, by task
 STEP_BUSY_MS = {}
 DPO_B = 2                     # preference pairs per slot in the DPO phase
@@ -5363,25 +5419,13 @@ def moe_phases(torch, fams, t_all):
 
 
 
-def image_positions(torch, grid, S, device):
-    """[3, S] M-RoPE positions of a patch-grid prefix and the text after
-    it: patch (row, col) at (0, row, col), text token i at (G + i, G + i,
-    G + i) with G = max(grid) (Qwen2-VL's rule for one still image at the
-    start of a sequence)."""
-    rows, cols = grid
-    idx = torch.arange(rows * cols, device=device)
-    text = max(grid) + torch.arange(S - rows * cols, device=device)
-    return torch.stack([torch.cat([torch.zeros_like(idx), text]),
-                        torch.cat([idx // cols, text]),
-                        torch.cat([idx % cols, text])]).to(torch.int32)
-
-
 def image_inputs(torch, cfg, Z, b, S, seed=4):
     """The stub vision tower's output for a [Z, b, S] batch: the
     ``num_modality_tokens`` patch embeddings of a QWEN_GRID image a sequence
     ([Z, b, P, d] in the config's dtype, N(0, 0.02) from a seeded
     generator, as tests/test_arch_smoke.py makes them) and the (t, h, w)
     positions of the patches and the text after them ([3, Z, b, S])."""
+    from repro_torch.launch.train import image_positions
     from repro_torch.models.common import dtype_of
 
     P = cfg.num_modality_tokens
@@ -5390,7 +5434,7 @@ def image_inputs(torch, cfg, Z, b, S, seed=4):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     emb = 0.02 * torch.randn(Z, b, P, cfg.d_model, generator=gen,
                              device="cuda")
-    pos = image_positions(torch, QWEN_GRID, S, "cuda")
+    pos = image_positions(QWEN_GRID, S, "cuda")
     return {"modal_embeds": emb.to(dtype_of(cfg.dtype)),
             "positions": pos[:, None, None].expand(3, Z, b, S).contiguous()}
 
@@ -6071,8 +6115,40 @@ def _planted_ssm(faults, layer: int):
         B.apply_block, RW._token_shift, MAMBA.proj = saved
 
 
+@contextlib.contextmanager
+def _planted_modal(faults):
+    """Phase 38's faults named in ``faults``: (c) "prefix_head", data rank
+    0's model ranks each write the prefix's first rows at the head of their
+    own sequence block (model rank 0's are right; the others' are not);
+    (d) "positions_rank0", data rank 1 takes data rank 0's slots of the
+    per-slot positions."""
+    import torch
+
+    from repro_torch.launch import partitioning as PT
+    prefix, positions = PT.SpmdPlan.prefix, PT.SpmdPlan.slot_positions
+
+    def head(self, x, modal):
+        if "prefix_head" not in faults or self.data_rank != 0:
+            return prefix(self, x, modal)
+        n = min(modal.shape[2], x.shape[2])
+        return torch.cat([modal[:, :, :n].to(x.dtype), x[:, :, n:]], dim=2)
+
+    def first(self, pos, mrope):
+        if "positions_rank0" not in faults or self.data_rank != 1:
+            return positions(self, pos, mrope)
+        dim = 1 if mrope else 0
+        return (pos.narrow(dim, 0, self.z_local)
+                if pos.dim() == dim + 3 else pos)
+
+    PT.SpmdPlan.prefix, PT.SpmdPlan.slot_positions = head, first
+    try:
+        yield
+    finally:
+        PT.SpmdPlan.prefix, PT.SpmdPlan.slot_positions = prefix, positions
+
+
 def ap_fault_child(argv) -> int:
-    """One rank of phases 35-37's planted-fault pool (``chip_smoke.py
+    """One rank of phases 35-38's planted-fault pool (``chip_smoke.py
     --ap-faults <dir> --device <d> --backend <b>``, AP_PROCS ranks in
     ``_ap_env``'s torchrun-style environment, started once by ``ApRuns``):
     for k = 0, 1, ... it waits for ``<dir>/job<k>.json`` (``ApRuns.faults``:
@@ -6121,7 +6197,8 @@ def _fault_job(spec: dict, dev, meshes: dict) -> None:
     steps of ``spec["args"]`` (the launcher's flags and ``--dtype``) under
     the faults it names (``_planted``: the dense family's two;
     ``_planted_moe``: MoE's; ``_planted_ssm``: the ssm and hybrid
-    families'), the losses and adapters written by rank 0 to
+    families'; ``_planted_modal``: the vlm family's), the losses, eval
+    losses and adapters written by rank 0 to
     ``<spec["out"]>/faults_<a+b>.npz``. ``meshes`` keeps each mesh built."""
     import argparse
 
@@ -6150,6 +6227,8 @@ def _fault_job(spec: dict, dev, meshes: dict) -> None:
                                    min(AP_MOE_SLICE_LAYER, last))
         elif cfg.family in ("ssm", "hybrid"):
             planted = _planted_ssm(faults, min(AP_SSM_FAULT_LAYER, last))
+        elif cfg.family == "vlm":
+            planted = _planted_modal(faults)
         else:
             planted = _planted(min(AP_FAULT_LAYER, last))
         with planted:
@@ -6162,7 +6241,7 @@ def _fault_job(spec: dict, dev, meshes: dict) -> None:
 
 
 def _ap_order() -> list:
-    """Phases 35-37's sharded runs, (config, steps, load), in the order the
+    """Phases 35-38's sharded runs, (config, steps, load), in the order the
     phases take them."""
     return [(_ap_config(False, layers=AP_LAYERS), AP_STEPS, AP_LOAD),
             (_ap_config(False, AP_MOE_ARCH), AP_STEPS, AP_LOAD),
@@ -6171,11 +6250,15 @@ def _ap_order() -> list:
             (_ap_config(False, AP_RWKV_ARCH, AP_RWKV_LAYERS), AP_STEPS,
              AP_RWKV_LOAD),
             (_ap_config(False, AP_HYMBA_ARCH, AP_HYMBA_LAYERS), AP_STEPS,
-             AP_HYMBA_LOAD)]
+             AP_HYMBA_LOAD),
+            (_ap_config(False, AP_AUDIO_ARCH, AP_AUDIO_LAYERS), AP_STEPS,
+             AP_AUDIO_LOAD),
+            (_ap_config(False, AP_QWEN_ARCH, AP_QWEN_LAYERS), AP_STEPS,
+             AP_QWEN_LOAD)]
 
 
 class ApRuns:
-    """Phases 35-37's sharded runs, in ``order`` (each (config, steps,
+    """Phases 35-38's sharded runs, in ``order`` (each (config, steps,
     load)), and one pool of AP_PROCS planted-fault ranks for all of them.
 
     A run's AP_PROCS launcher ranks start when the previous run's ranks
@@ -6338,6 +6421,25 @@ def _ap_readings(np, got: dict, want: dict, init: dict, slots):
     return loss, worst
 
 
+def _ap_eval(np, got, want, slots) -> float:
+    """The largest relative difference of ``slots``' per-slot eval losses
+    ``got`` (a sharded eval step's) from ``want`` (the one-rank eval step's
+    on the same adapters)."""
+    g, w = np.asarray(got)[list(slots)], np.asarray(want)[list(slots)]
+    return float((np.abs(g - w) / np.abs(w)).max())
+
+
+def _lora_tree(torch, tree: dict) -> dict:
+    """The adapters of ``tree`` (every slot's "lora/<target>/<A|B>", as
+    ``launch.train.write_out`` writes them) as {target: {"A", "B"}}."""
+    lora = {}
+    for key, v in tree.items():
+        if key.startswith("lora/"):
+            _, t, k = key.split("/")
+            lora.setdefault(t, {})[k] = torch.from_numpy(v)
+    return lora
+
+
 def _ap_parse(text: str, what: str):
     lines = [ln for ln in text.splitlines() if ln.startswith(what + " ")]
     require(len(lines) == 1, f"ap: {len(lines)} '{what}' lines")
@@ -6386,14 +6488,22 @@ def ap_train_phase(torch, runs: ApRuns, cfg, kernel_checks=None, *,
     the card to itself; after it, the next run's ranks start
     (``runs.start_next``) and the fault pool runs each of ``fault_runs``
     in turn (each {fault: the slots it reaches}, planted together) beside
-    the one-rank reference (``launch.train.run`` on a one-rank group), and
+    the one-rank reference (``launch.train.run`` on a one-rank group;
+    before it where the fault ranks' weights are too large to share the
+    card with it, AP_EARLY_BYTES), and
     every sharded run is held against the reference: the main path within
     ``bars`` (loss, adapters), each fault past the bars of ``fault_reads``
     on its own slots (both, unless the adapter reading is only a bound on
-    the noise: RWKV's). With ``fault_cfg`` (RWKV's fp32 check beside its
-    bf16 main path) the fault ranks run that config instead, first sound,
-    held against its own one-rank run within ``fault_bars``, then each
-    fault, read against that run and those bars. An MoE config's one-rank
+    the noise: RWKV's). Each run ends with one sharded eval step
+    (``launch.train.run``), whose per-slot losses are held within the
+    run's loss bar of the one-rank run's eval step on the same adapters
+    (its ``eval_trees``: the one-rank run evaluates the sharded runs'
+    adapters on its own weights and eval batch); a fault whose loss reads
+    past its loss bar must read AP_EVAL_FAULT_X times the sound eval
+    reading (but AP_EVAL_UNSEEN). With ``fault_cfg`` (RWKV's fp32 check
+    beside its bf16 main path) the fault ranks run that config instead,
+    first sound, held against its own one-rank run within ``fault_bars``,
+    then each fault, read against that run and those bars. An MoE config's one-rank
     run prints each layer's dropped share of each data rank's choices.
     Returns {"launches": the kernel launches summed over the ranks,
     "seconds": the phase's parts (``started_before``: how long before the
@@ -6425,22 +6535,44 @@ def ap_train_phase(torch, runs: ApRuns, cfg, kernel_checks=None, *,
                   f"s after the run was taken")
         texts = _ap_wait(sharded)
         seconds["sharded"] = time.perf_counter() - t
-        runs.start_next()
-        job = runs.faults(frs, fcfg, steps, load, out) if frs else None
+        got = dict(np.load(out / "ap.npz"))
+        # the fault ranks run beside the one-rank run unless, drawing their
+        # full weights, they would crowd it off the card (AP_EARLY_BYTES):
+        # then before it, and the next run's ranks start only after it
+        beside = AP_PROCS * TRAIN.init_bytes(fcfg) <= AP_EARLY_BYTES
+        if beside or not frs:
+            runs.start_next()
         # the controls' timing is not read: the fault ranks and the
         # one-rank reference share the card
         t = time.perf_counter()
+        if frs and not beside:
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        job = runs.faults(frs, fcfg, steps, load, out) if frs else None
+        if job is not None and not beside:
+            runs.wait(job)
 
-        def one_rank(c, tap, label):
-            """(the one-rank run's losses and adapters, its initial
-            adapters) of config ``c``."""
+        def fault_trees():
+            """The fault runs' adapters, once the pool has written them."""
+            if beside:
+                runs.wait(job)
+            return [_lora_tree(torch, dict(np.load(
+                out / f"faults_{'+'.join(run) or 'none'}.npz")))
+                for run in frs]
+
+        def one_rank(c, tap, label, trees):
+            """(the one-rank run's losses, adapters and its evals of the
+            adapter trees ``trees()`` on its weights and eval batch, its
+            initial adapters) of config ``c``."""
             with MESH.process_group(device) as dev, tap as seen:
                 mesh = MESH.make_local_mesh((1, 1), device=dev)
                 one = TRAIN.run(c, Z, b, S, mesh, steps,
-                                ranks=RANKS, device=dev,
+                                ranks=RANKS, device=dev, eval_trees=trees,
                                 log=lambda m: print(f"{label}: {m}"))
             drops.extend(seen)
-            want = {"losses": np.asarray(one["losses"])}
+            want = {"losses": np.asarray(one["losses"]),
+                    "evals": [np.asarray(e) for e in one["evals"]]}
             want.update({f"lora/{t}/{k}": v.float().cpu().numpy()
                          for t, ab in one["lora"].items()
                          for k, v in ab.items()})
@@ -6453,21 +6585,29 @@ def ap_train_phase(torch, runs: ApRuns, cfg, kernel_checks=None, *,
                     for k, v in ab.items()}
             return want, init, dev
 
+        # the one-rank eval step on the adapters each sharded eval took:
+        # the main path's, then (on the config they ran) the fault runs'
+        mine = [_lora_tree(torch, got)]
         want, init, dev = one_rank(
             cfg, _moe_drops(cfg, d) if cfg.is_moe
-            else contextlib.nullcontext([]), f"{tag} 1x1")
-        fwant, finit = want, init
+            else contextlib.nullcontext([]), f"{tag} 1x1",
+            lambda: mine + (fault_trees() if fcfg is cfg and frs else []))
+        fwant, finit, fevals = want, init, want["evals"][1:]
         if fcfg is not cfg:
             fwant, finit, _ = one_rank(fcfg, contextlib.nullcontext([]),
-                                       f"{tag} {fcfg.dtype} 1x1")
-        got = dict(np.load(out / "ap.npz"))
-        if job is not None:
-            runs.wait(job)
+                                       f"{tag} {fcfg.dtype} 1x1",
+                                       fault_trees)
+            fevals = fwant["evals"]
+        if frs and not beside:
+            runs.start_next()
         seconds["one_rank_and_faults"] = time.perf_counter() - t
         print(f"{tag}: the controls ended with the next run's ranks "
               f"{runs.next_stage()}")
+        want["eval"] = want["evals"][0]
         bad = [(run, dict(np.load(
             out / f"faults_{'+'.join(run) or 'none'}.npz"))) for run in frs]
+        for (_, faults), ev in zip(bad, fevals):
+            faults["one_rank_eval"] = ev
     finally:
         _ap_kill(sharded)
         shutil.rmtree(out, ignore_errors=True)
@@ -6477,13 +6617,15 @@ def ap_train_phase(torch, runs: ApRuns, cfg, kernel_checks=None, *,
 
     r_max = cfg.lora.r_max
     weight_dims = _weight_last_dims(cfg)
-    launches = {}
+    launches, eval_launches = {}, {}
     for r, text in enumerate(texts):
         require(f"device={device}" in text, f"{tag} rank {r}: device")
-        for fam, ks in _ap_parse(text, "launches").items():
-            for k, v in ks.items():
-                launches.setdefault(fam, {}).setdefault(k, 0)
-                launches[fam][k] += v
+        for what, into in (("launches", launches),
+                           ("eval launches", eval_launches)):
+            for fam, ks in _ap_parse(text, what).items():
+                for k, v in ks.items():
+                    into.setdefault(fam, {}).setdefault(k, 0)
+                    into[fam][k] += v
         shapes = _ap_parse(text, "collective shapes")
         # a base weight's gather is as wide as a base weight; nothing else
         # over "data" is r_max wide
@@ -6503,12 +6645,19 @@ def ap_train_phase(torch, runs: ApRuns, cfg, kernel_checks=None, *,
         step_s = [float(ln.split()[2].rstrip("s"))
                   for ln in text.splitlines() if ln.startswith("step ")]
         setup = [ln for ln in text.splitlines() if ln.startswith("set-up ")]
-        peak = [ln for ln in text.splitlines() if ln.startswith("peak ")]
+        peak = [ln for ln in text.splitlines()
+                if ln.startswith(("peak ", "eval peak "))]
         print(f"{tag} rank {r}: {setup[0] if setup else ''}; steps {step_s} "
-              f"s, {peak[0] if peak else ''}; logged bytes {moved}")
+              f"s, {'; '.join(peak)}; logged bytes {moved}")
     for layer, share in enumerate(drops):
         print(f"{tag}: layer {layer} dropped share by data rank {share}")
     loss, adapters = _ap_readings(np, got, want, init, range(Z))
+    ev = _ap_eval(np, got["eval"], want["eval"], range(Z))
+    print(f"{tag}: eval step after the steps, {AP_MESH} vs 1x1 on the same "
+          f"adapters: reading {ev:.3e} (bar {loss_bar}); per-slot eval "
+          f"losses {got['eval'].tolist()} vs {want['eval'].tolist()}")
+    require(ev <= loss_bar, f"{tag}: eval reading {ev} past the bar")
+    sound = ev        # the sound eval reading of the fault ranks' config
     print(f"{tag}: {AP_MESH} vs 1x1, {cfg.name} {cfg.num_layers} layers, "
           f"Z {Z}, b {b}, S {S}, ranks {RANKS}, {steps} steps: "
           f"loss reading {loss:.3e} (bar {loss_bar}), adapter reading "
@@ -6519,24 +6668,44 @@ def ap_train_phase(torch, runs: ApRuns, cfg, kernel_checks=None, *,
     for run, faults in bad:
         if not run:                 # the fault ranks' own sound run
             fl, fa = _ap_readings(np, faults, fwant, finit, range(Z))
+            fe = _ap_eval(np, faults["eval"], faults["one_rank_eval"],
+                          range(Z))
             print(f"{tag}: {fcfg.dtype} at {fcfg.num_layers} layers, "
                   f"{AP_MESH} vs 1x1: loss reading {fl:.3e} (bar "
                   f"{fault_bars[0]}), adapter reading {fa:.3e} (bar "
-                  f"{fault_bars[1]})")
-            require(fl <= fault_bars[0] and fa <= fault_bars[1],
-                    f"{tag}: {fcfg.dtype} readings {fl}, {fa} past the bars")
+                  f"{fault_bars[1]}), eval reading {fe:.3e} (bar "
+                  f"{fault_bars[0]})")
+            require(fl <= fault_bars[0] and fa <= fault_bars[1]
+                    and fe <= fault_bars[0],
+                    f"{tag}: {fcfg.dtype} readings {fl}, {fa}, {fe} past "
+                    f"the bars")
+            sound = fe
         for fault, slots in run.items():
             fl, fa = _ap_readings(np, faults, fwant, finit, slots)
+            fe = _ap_eval(np, faults["eval"], faults["one_rank_eval"],
+                          slots)
+            seen = fault not in AP_EVAL_UNSEEN
             print(f"{tag}: planted fault {fault}: loss reading {fl:.3e}, "
-                  f"adapter reading {fa:.3e} (must pass the "
-                  f"{' and '.join(fault_reads)} bar)")
+                  f"adapter reading {fa:.3e}, eval reading {fe:.3e}, "
+                  f"{fe / sound if sound else float('inf'):.1f}x the "
+                  f"sound eval reading {sound:.3e} "
+                  f"(must pass the {' and '.join(fault_reads)} bar"
+                  + (f"; the eval {AP_EVAL_FAULT_X}x the sound one where "
+                     f"the loss does)" if seen else "; not read on the "
+                     "eval, AP_EVAL_UNSEEN)"))
             past = {"loss": fl > fault_bars[0],
                     "adapters": fa > fault_bars[1]}
             require(all(past[r] for r in fault_reads),
                     f"{tag}: planted fault {fault} within the bars ({fl}, "
                     f"{fa})")
+            require(not (seen and past["loss"])
+                    or fe >= AP_EVAL_FAULT_X * sound,
+                    f"{tag}: planted fault {fault}: the train loss reads "
+                    f"past its bar ({fl}), the eval ({fe}) not "
+                    f"{AP_EVAL_FAULT_X}x the sound one ({sound})")
     print(f"{tag}: seconds {seconds}")
-    return {"launches": launches, "seconds": seconds, "drops": drops}
+    return {"launches": launches, "eval_launches": eval_launches,
+            "seconds": seconds, "drops": drops}
 
 
 def _weight_last_dims(cfg) -> set:
@@ -6563,21 +6732,27 @@ def _weight_last_dims(cfg) -> set:
     return dims
 
 
-def _ap_launches(torch, cfg, got: dict, steps: int, tag: str) -> None:
+def _ap_launches(cfg, res: dict, steps: int, tag: str) -> None:
     """Every rank ran the rank-local set and the family's sequence kernels
-    (flash, the scan) as the one-rank step would, each step; nothing on the
+    (flash, the scan) as the one-rank steps would, each step, and the
+    forward ones as the one-rank eval step would in its eval (``res``:
+    ``ap_train_phase``'s "launches" and "eval_launches"); nothing on the
     dense or ragged sets."""
-    want, _, (want_seq, _) = _step_launches(cfg)
-    per = AP_PROCS * steps
-    seq = _seq_counts(cfg, want_seq * per)
-    require(got["rank-local"] == {k: v * per for k, v in want.items()}
-            and got["flash"]["flash_attention"] == seq["flash_attention"]
-            and got["scan"]["linear_scan"] == seq["linear_scan"]
-            and not any(got["dense"].values())
-            and not any(got["ragged"].values()),
-            f"{tag}: launches {got}, expected rank-local {want} and "
-            f"{SEQ_KERNELS[cfg.family]} {want_seq} a step on each of "
-            f"{AP_PROCS} ranks")
+    train, evals, (train_seq, eval_seq) = _step_launches(cfg)
+    for what, want, want_seq, per in (
+            ("launches", train, train_seq, AP_PROCS * steps),
+            ("eval_launches", evals, eval_seq, AP_PROCS)):
+        got, seq = res[what], _seq_counts(cfg, want_seq * per)
+        require(got["rank-local"] == {k: v * per for k, v in want.items()}
+                and got["flash"]["flash_attention"] == seq["flash_attention"]
+                and got["scan"]["linear_scan"] == seq["linear_scan"]
+                and not any(got["dense"].values())
+                and not any(got["ragged"].values()),
+                f"{tag}: {what} {got}, expected rank-local {want} and "
+                f"{SEQ_KERNELS[cfg.family]} {want_seq} a step on each of "
+                f"{AP_PROCS} ranks")
+    print(f"{tag}: eval launches, summed over the ranks, "
+          f"{res['eval_launches']}")
 
 
 def ap_phase(torch, fams, runs: ApRuns) -> tuple:
@@ -6612,7 +6787,7 @@ def ap_phase(torch, fams, runs: ApRuns) -> tuple:
         flash.update({f"ap_{k}": v for k, v in cases.items()})
 
     res = ap_train_phase(torch, runs, cfg, kernel_checks=kernel_checks)
-    _ap_launches(torch, cfg, res["launches"], AP_STEPS, "ap")
+    _ap_launches(cfg, res, AP_STEPS, "ap")
     return lora, flash, res["launches"]
 
 
@@ -6656,13 +6831,13 @@ def ap_moe_phase(torch, fams, runs: ApRuns) -> tuple:
     route = res["drops"][min(AP_MOE_ROUTE_LAYER, cfg.num_layers - 1)]
     require(route[1] > 0, f"ap moe: data rank 1 drops no choice in layer "
             f"{AP_MOE_ROUTE_LAYER}: fault (a) would test nothing")
-    _ap_launches(torch, cfg, res["launches"], AP_STEPS, "ap moe")
+    _ap_launches(cfg, res, AP_STEPS, "ap moe")
     lcfg = _ap_config(False, AP_LLAMA4_ARCH, AP_LLAMA4_LAYERS)
     l4 = ap_train_phase(torch, runs, lcfg, steps=AP_LLAMA4_STEPS,
                         fault_runs=(),
                         bars=(AP_LLAMA4_LOSS_REL, AP_LLAMA4_ADAPTER_REL),
                         tag="ap llama4")
-    _ap_launches(torch, lcfg, l4["launches"], AP_LLAMA4_STEPS, "ap llama4")
+    _ap_launches(lcfg, l4, AP_LLAMA4_STEPS, "ap llama4")
     return lora, flash, res["launches"], l4["launches"]
 
 
@@ -6721,7 +6896,7 @@ def ap_ssm_phase(torch, fams, runs: ApRuns) -> tuple:
         fault_cfg=_ap_config(False, AP_RWKV_ARCH, AP_RWKV_CHECK_LAYERS,
                              "float32"),
         fault_bars=(AP_RWKV_FP32_LOSS_REL, AP_RWKV_FP32_ADAPTER_REL))
-    _ap_launches(torch, rcfg, rwkv["launches"], AP_STEPS, "ap rwkv")
+    _ap_launches(rcfg, rwkv, AP_STEPS, "ap rwkv")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6756,8 +6931,73 @@ def ap_ssm_phase(torch, fams, runs: ApRuns) -> tuple:
                            fault_runs=AP_HYMBA_FAULT_RUNS,
                            bars=(AP_HYMBA_LOSS_REL, AP_HYMBA_ADAPTER_REL),
                            tag="ap hymba", load=AP_HYMBA_LOAD)
-    _ap_launches(torch, hcfg, hymba["launches"], AP_STEPS, "ap hymba")
+    _ap_launches(hcfg, hymba, AP_STEPS, "ap hymba")
     return lora, flash, scan, rwkv["launches"], hymba["launches"]
+
+
+def ap_modal_phase(torch, fams, runs: ApRuns) -> tuple:
+    """Phase 38: the vlm and audio families' sharded step. Rows 13-18 at
+    each rank's shapes of a 2 x 2 split and row 19 on a rank's heads
+    (qwen2-vl-72b: 32 heads and 4 KV heads of 128 at S 384; musicgen: 12
+    heads of 64 at S 512) against their plain versions while each run's
+    ranks start; then ``ap_train_phase`` on musicgen-medium at full width
+    and AP_AUDIO_LAYERS layers (its ranks start during phase 37's last
+    controls), and on qwen2-vl-72b at full width and AP_QWEN_LAYERS
+    layers, its batches holding the launcher's 256-patch prefix and
+    per-slot M-RoPE positions, with faults (c) and (d). Returns (the
+    rank-local kernels' results, flash's, the launches of qwen2-vl's and
+    of musicgen's sharded ranks, summed over the ranks)."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.grouped_lora import ref
+
+    dd, m = (int(x) for x in AP_MESH.split("x"))
+    bf16, RL = torch.bfloat16, fams["rank-local"]
+    lora, flash = {}, {}
+
+    def checks(cfg, load, tag):
+        """Rows 13-18 at ``cfg``'s column- and row-parallel shapes on one
+        rank (o timed) and flash on its heads, at ``load`` (Z, b, S)."""
+        Z, b, S = load
+        d, q, kv, ff = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+        T = b * S
+
+        def run():
+            _merged(lora, backward_kernel_phase(
+                torch, RL, ref, timed=(f"{tag}_row", q // m, d),
+                untimed=(f"{tag}_col", f"{tag}_ff"),
+                cases=[(f"{tag}_col", T, d, q // m, RANKS, None),
+                       (f"{tag}_col", T, d, kv // m, RANKS, None),
+                       (f"{tag}_ff", T, d, ff // m, RANKS, None),
+                       (f"{tag}_row", T, q // m, d, RANKS, None),
+                       (f"{tag}_ff", T, ff // m, d, RANKS, None)]))
+            _, cases = flash_kernel_phase(
+                torch, FA, fref, cfg, plain_labels=("train",),
+                cases=[("train", Z // dd * b * cfg.num_heads // m, S, S,
+                        cfg.resolved_head_dim, 0, bf16)])
+            flash.update({f"{tag}_{k}": v for k, v in cases.items()})
+
+        return run
+
+    acfg = _ap_config(False, AP_AUDIO_ARCH, AP_AUDIO_LAYERS)
+    audio = ap_train_phase(
+        torch, runs, acfg,
+        kernel_checks=checks(acfg, AP_AUDIO_LOAD, "apaudio"), fault_runs=(),
+        tag="ap audio", load=AP_AUDIO_LOAD)
+    _ap_launches(acfg, audio, AP_STEPS, "ap audio")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    qcfg = _ap_config(False, AP_QWEN_ARCH, AP_QWEN_LAYERS)
+    require(qcfg.input_mode == "mixed"
+            and AP_QWEN_LOAD[2] // m < qcfg.num_modality_tokens,
+            f"ap vlm: the {qcfg.num_modality_tokens}-patch prefix must span "
+            f"the model ranks' blocks of {AP_QWEN_LOAD[2] // m}")
+    qwen = ap_train_phase(
+        torch, runs, qcfg, kernel_checks=checks(qcfg, AP_QWEN_LOAD, "apvlm"),
+        fault_runs=AP_QWEN_FAULT_RUNS, tag="ap vlm", load=AP_QWEN_LOAD)
+    _ap_launches(qcfg, qwen, AP_STEPS, "ap vlm")
+    return lora, flash, qwen["launches"], audio["launches"]
 
 
 def main() -> int:
@@ -6930,6 +7170,13 @@ def main() -> int:
             ap_ssm_phase(torch, fams, runs)
         print(f"ap ssm / hybrid phase {time.perf_counter() - t:.1f} s, done "
               f"at {time.perf_counter() - t_all:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        apv_lora, apv_flash, apv_launches, apa_launches = ap_modal_phase(
+            torch, fams, runs)
+        print(f"ap vlm / audio phase {time.perf_counter() - t:.1f} s, done "
+              f"at {time.perf_counter() - t_all:.1f} s")
         ok = True
     finally:
         runs.close(ok)
@@ -6973,7 +7220,9 @@ def main() -> int:
                 "ap_moe_train": apm_launches["rank-local"][name],
                 "ap_llama4_train": apl_launches["rank-local"][name],
                 "ap_rwkv_train": apr_launches["rank-local"][name],
-                "ap_hymba_train": aph_launches["rank-local"][name]}, \
+                "ap_hymba_train": aph_launches["rank-local"][name],
+                "ap_vlm_train": apv_launches["rank-local"][name],
+                "ap_audio_train": apa_launches["rank-local"][name]}, \
                 dict(kern[name])
             by_path["serve"] = serve_launches[name]
             by_path["rwkv_serve"] = rwkv_serve[name]
@@ -6985,14 +7234,16 @@ def main() -> int:
                              **f_lora[name]["shapes"],
                              **ap_lora[name]["shapes"],
                              **apm_lora[name]["shapes"],
-                             **aps_lora[name]["shapes"]}
+                             **aps_lora[name]["shapes"],
+                             **apv_lora[name]["shapes"]}
             res["max_abs_err"] = max(res["max_abs_err"],
                                      h_lora[name]["max_abs_err"],
                                      m_lora[name]["max_abs_err"],
                                      f_lora[name]["max_abs_err"],
                                      ap_lora[name]["max_abs_err"],
                                      apm_lora[name]["max_abs_err"],
-                                     aps_lora[name]["max_abs_err"])
+                                     aps_lora[name]["max_abs_err"],
+                                     apv_lora[name]["max_abs_err"])
         fam = {"grouped_lora": "dense", "ragged": "ragged"}.get(
             prefix, "rank-local")
         by_path["engine_static"] = eng_static[fam][name]
@@ -7047,6 +7298,8 @@ def main() -> int:
     by_path["ap_moe_train"] = apm_launches["flash"]["flash_attention"]
     by_path["ap_llama4_train"] = apl_launches["flash"]["flash_attention"]
     by_path["ap_hymba_train"] = aph_launches["flash"]["flash_attention"]
+    by_path["ap_vlm_train"] = apv_launches["flash"]["flash_attention"]
+    by_path["ap_audio_train"] = apa_launches["flash"]["flash_attention"]
     table["kernels"].append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -7054,7 +7307,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:89",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         **with_paths(flash, hymba=h_flash, moe=m_flash, families=f_flash,
-                     ap=ap_flash, apmoe=apm_flash, apssm=aps_flash)})
+                     ap=ap_flash, apmoe=apm_flash, apssm=aps_flash,
+                     apmodal=apv_flash)})
     by_path = {"rwkv_train": rwkv_launches["linear_scan"],
                "rwkv_serve": rwkv_serve["linear_scan"],
                "hymba_train": h_launches["linear_scan"],

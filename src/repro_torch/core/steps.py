@@ -117,12 +117,17 @@ def make_eval_step(cfg: ModelConfig, *, loss_kind: str = "sft") -> Callable:
 
     ``batch`` may carry ``slot_ranks`` like the train step (eval rides the
     same rank-local LoRA path as training on mixed-rank replicas). Runs
-    under ``torch.no_grad()``."""
+    under ``torch.no_grad()``. Sharded on a real multi-rank mesh
+    (``launch/steps_dist.py``), it runs the train step's forward on this
+    data rank's slots and returns all Z losses, gathered over "data"."""
     LS.check_loss_kind(loss_kind)
 
     def eval_step(params, lora, active, batch):
         with torch.no_grad(), _bind(batch) as b:
             _, per_slot = LS.LOSSES[loss_kind](cfg, params, lora, b, active)
+            sp = shardctx.spmd()
+            if sp is not None:
+                per_slot, = sp.gather_metrics(per_slot)
         return per_slot
 
     return eval_step

@@ -26,8 +26,10 @@ where the reference places its constraints (``SpmdPlan``, through
 takes it back) and nothing moves: the activation policy resolves and
 records each constraint's spec and returns the tensor unchanged. On a real
 multi-rank ``(data, model)`` mesh ``distribute`` slices each rank's shard
-out of the full tensor, and the policy's ``SpmdPlan`` runs the train step
-(the dense, MoE, ssm and hybrid families; ``check_sharded``):
+out of the full tensor, and the policy's ``SpmdPlan`` runs the train and
+eval steps (the dense, MoE, ssm, hybrid, vlm and audio families;
+``check_sharded``; the eval step is the train step's forward, with no
+backward):
 
   * "data" is Adapter Parallelism (paper Fig. 8): each data rank holds its
     Z/d slots' adapters, gradients, AdamW state, hyper-parameters, ranks
@@ -71,7 +73,15 @@ out of the full tensor, and the policy's ``SpmdPlan`` runs the train step
     inner block, the fp32 partial products summed in one all-reduce over
     "model" (``row_products``); ``out_proj`` is row-parallel. Hymba's
     branch outputs are reduce-scattered, each by its own "residual"
-    constraint, before their branch norms.
+    constraint, before their branch norms;
+  * vlm (Qwen2-VL) and audio (MusicGen) take the dense layout. The stub
+    encoder's prefix ``modal_embeds`` arrives as the data rank's slots, and
+    after the embedding's "residual" constraint each model rank writes the
+    prefix rows that fall in its own sequence block (``SpmdPlan.prefix``;
+    no collective). Per-slot positions (``[Z, b, S]``, M-RoPE's ``[3, Z, b,
+    S]``) arrive whole, as the reference's batch spec keeps them, and each
+    data rank takes its own slots' before the rotary angles
+    (``SpmdPlan.slot_positions``).
 
 Every opt level runs this one schedule: the levels change only the recorded
 ``decisions`` and the hints, and the numbers stay equal. A mesh over a
@@ -97,7 +107,11 @@ SHARDED_EXECUTION = ("sharded execution over a fake group is not possible: "
                      "its collectives move no data (launch/dryrun.py "
                      "traces shapes only)")
 # what a multi-rank mesh runs today, and where the rest is queued
-SHARDED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+SHARDED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+# the step builders (``steps_dist.make_<name>_step``) whose steps run
+# sharded; the prefill and serve steps need the caches sharded
+# (``cache_specs``)
+SHARDED_STEPS = ("train", "eval")
 SHARDED_QUEUE = "queued in ROADMAP.md §1, the rest of sharded execution"
 
 
@@ -259,7 +273,7 @@ def activation_policy(mesh, *, seq_shard: bool = True,
         return x
 
     policy.decisions = {}
-    policy.spmd = (SpmdPlan(mesh, step_kind, decide)
+    policy.spmd = (SpmdPlan(mesh, decide)
                    if _real_multi_rank(mesh) else None)
     policy.hints = {
         "model_size": axis_sizes(mesh).get("model", 1),
@@ -532,10 +546,11 @@ def whole_heads(cfg, m: int) -> bool:
 
 
 def check_sharded(cfg, mesh, loss_kind: str = "sft") -> None:
-    """Raise ``NotImplementedError`` unless the sharded train step runs
-    ``cfg`` on the real multi-rank ``mesh``: the dense, MoE, ssm or hybrid
-    family, the SFT loss, a ("data", "model") mesh, and, over a model axis
-    of m > 1 ranks, the Megatron layout (q/k/v, gate/up, RWKV's r/k/v/g and
+    """Raise ``NotImplementedError`` unless the sharded train and eval
+    steps run ``cfg`` on the real multi-rank ``mesh``: the dense, MoE, ssm,
+    hybrid, vlm or audio family (vlm and audio as dense), the SFT loss, a
+    ("data", "model") mesh, and, over a model axis of m > 1 ranks, the
+    Megatron layout (q/k/v, gate/up, RWKV's r/k/v/g and
     ffn_k, Mamba's in_proj and conv split by output columns; o, down,
     ffn_v and out_proj by input rows). Attention whose heads do not split
     runs whole (``whole_heads``): its weights may take any split. Scan
@@ -647,15 +662,16 @@ def _weight_name(path: Tuple) -> str:
 
 
 class SpmdPlan:
-    """The collectives of the sharded train step on a real ("data",
-    "model") mesh, issued on local shards through ``launch/collectives.py``
-    (the module docstring has the layout). ``bind`` reads each base
+    """The collectives of the sharded train and eval steps on a real
+    ("data", "model") mesh, issued on local shards through
+    ``launch/collectives.py`` (the module docstring has the layout).
+    ``bind`` reads each base
     weight's placements off the DTensor parameters and the batch's global
     shape; the model reaches the plan through ``models.shardctx.spmd()``;
     ``log`` collects the ``collectives.Record`` of every collective the
     step's calls issue."""
 
-    def __init__(self, mesh: DeviceMesh, step_kind: str, decide):
+    def __init__(self, mesh: DeviceMesh, decide):
         sizes = axis_sizes(mesh)
         self.mesh = mesh
         self.d, self.m = sizes.get("data", 1), sizes.get("model", 1)
@@ -663,13 +679,12 @@ class SpmdPlan:
                            if "model" in sizes else 0)
         self.data_rank = (mesh.get_local_rank("data")
                           if "data" in sizes else 0)
-        self.step_kind = step_kind
         self.decide = decide           # the policy's: (shape, kind) -> spec
         self.layouts: Optional[Dict[str, Dict[str, Optional[int]]]] = None
         self.seq_len = self.z = self.z_local = self.d_model = 0
         self.seq_sharded = False
         # attention runs whole on every model rank (``whole_heads``); set
-        # by ``steps_dist.make_train_step``
+        # by ``steps_dist``'s step builders
         self.attn_whole = False
         self._cols: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         # the MoE layer's groups: (experts E, groups G, tokens a group s)
@@ -679,10 +694,6 @@ class SpmdPlan:
     # -- per call ----------------------------------------------------------
 
     def bind(self, params: Dict, batch: Dict) -> None:
-        if self.step_kind != "train":
-            raise NotImplementedError(
-                f"sharded execution of an eval, prefill or serve step (step "
-                f"kind {self.step_kind}) is not ported ({SHARDED_QUEUE})")
         if self.layouts is None:
             self.layouts = _weight_layouts(self.mesh, params)
         emb = params["embed"]
@@ -949,6 +960,36 @@ class SpmdPlan:
         x = torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype,
                                                       device=x.device))
         return self.partial(x)
+
+    def prefix(self, x: torch.Tensor, modal: torch.Tensor) -> torch.Tensor:
+        """The embedded residual ``x`` (after its "residual" constraint:
+        this model rank's sequence block where the residual is
+        sequence-sharded, else the whole sequence) with the rows of the
+        prefix ``modal`` ([Z/d, b, P, d], this data rank's slots) that fall
+        at its positions in place of the token embeddings there: the global
+        positions [r·S/m, (r+1)·S/m) ∩ [0, P) on model rank r."""
+        P, n_rows = modal.shape[2], x.shape[2]
+        lo = self.model_rank * n_rows if self.seq_sharded else 0
+        n = min(max(P - lo, 0), n_rows)
+        if n == 0:
+            return x
+        return torch.cat([modal[:, :, lo:lo + n].to(x.dtype), x[:, :, n:]],
+                         dim=2)
+
+    def slot_positions(self, positions: torch.Tensor, mrope: bool
+                       ) -> torch.Tensor:
+        """This data rank's slots of per-slot ``positions`` ([Z, b, S], or
+        [3, Z, b, S] under M-RoPE: whole on every rank, as the batch spec
+        keeps them), data-major as ``shard_of`` cuts the batch; [S] and
+        [3, S] positions pass as they are."""
+        dim = 1 if mrope else 0
+        if positions.dim() != dim + 3:
+            return positions
+        if positions.shape[dim] != self.z:
+            raise ValueError(f"positions {tuple(positions.shape)} for "
+                             f"{self.z} slots")
+        return positions.narrow(dim, self.data_rank * self.z_local,
+                                self.z_local)
 
     def loss_rows(self, hidden: torch.Tensor, labels: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:

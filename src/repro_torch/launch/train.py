@@ -19,10 +19,17 @@ b 4, S 4,096), and the step tries them as they are: nothing cuts Z.
 none of them. Every rank builds the same full weights, adapters and batches
 from the seed, and ``partitioning.distribute`` keeps its shards: the slots
 of its data rank (Adapter Parallelism) and its blocks of the backbone over
-"model". The dense, MoE, ssm and hybrid families run sharded
+"model". The dense, MoE, ssm, hybrid, vlm and audio families run sharded
 (``partitioning.check_sharded`` names what does not); an MoE rank routes
 its data rank's tokens and runs its block of the experts, an RWKV or Mamba
-rank its block of the scan heads. Four ranks on the CPU:
+rank its block of the scan heads. A ``mixed`` config's batch (Qwen2-VL's)
+holds what the reference's dry run gives it: the stub vision tower's
+``num_modality_tokens`` patch embeddings a sequence (``modal_embeds``,
+N(0, 0.02) from the seed, labels -1 over them) and the M-RoPE positions of
+their patch grid and the text after it, one grid for the first half of the
+slots and another for the second (``patch_grids``). After the steps one
+sharded eval step runs on the next batch with the trained adapters. Four
+ranks on the CPU:
 
     for r in 0 1 2 3; do RANK=$r WORLD_SIZE=4 MASTER_ADDR=127.0.0.1 \\
       MASTER_PORT=29511 PYTHONPATH=src python -m repro_torch.launch.train \\
@@ -41,7 +48,7 @@ import dataclasses
 import json
 import os
 import time
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import torch
 
@@ -109,21 +116,85 @@ def _launch_counts() -> Dict[str, Dict[str, int]]:
             "scan": dict(LS.LAUNCHES)}
 
 
+def patch_grids(P: int) -> tuple:
+    """Two (rows, cols) grids of ``P`` patches: the squarest, and one with
+    half its rows and twice its columns (a single row where its rows are
+    odd): 16 x 16 and 8 x 32 for Qwen2-VL's 256."""
+    a = max(r for r in range(1, P + 1) if P % r == 0 and r * r <= P)
+    return (a, P // a), ((a // 2, 2 * P // a) if a % 2 == 0 else (1, P))
+
+
+def image_positions(grid, S: int, device=None) -> torch.Tensor:
+    """[3, S] M-RoPE positions of a patch-grid prefix and the text after
+    it: patch (row, col) at (0, row, col), text token i at (G + i, G + i,
+    G + i) with G = max(grid) (Qwen2-VL's rule for one still image at the
+    start of a sequence)."""
+    rows, cols = grid
+    idx = torch.arange(rows * cols, device=device)
+    text = max(grid) + torch.arange(S - rows * cols, device=device)
+    return torch.stack([torch.cat([torch.zeros_like(idx), text]),
+                        torch.cat([idx // cols, text]),
+                        torch.cat([idx % cols, text])]).to(torch.int32)
+
+
+def modal_inputs(cfg: ModelConfig, Z: int, b: int, S: int, gen,
+                 device) -> Dict[str, torch.Tensor]:
+    """A ``mixed`` config's stub inputs for a [Z, b, S] batch:
+    "modal_embeds" [Z, b, P, d] in the model dtype, N(0, 0.02) from
+    ``gen``, and "positions" [3, Z, b, S], the first half of the slots on
+    ``patch_grids(P)[0]``, the rest on its second grid."""
+    P = cfg.num_modality_tokens
+    emb = 0.02 * torch.randn(Z, b, P, cfg.d_model, generator=gen,
+                             device=device)
+    grids = patch_grids(P)
+    pos = torch.stack([image_positions(grids[z >= Z // 2 and Z > 1], S,
+                                       device) for z in range(Z)], dim=1)
+    return {"modal_embeds": emb.to(dtype_of(cfg.dtype)),
+            "positions": pos[:, :, None].expand(3, Z, b, S).contiguous()}
+
+
+def batches(cfg: ModelConfig, Z: int, b: int, S: int, seed: int = 0,
+            device=None) -> Iterator[Dict[str, torch.Tensor]]:
+    """``run``'s batches, whole (every slot), in order: tokens and labels
+    of the seed's synthetic task and, for a ``mixed`` config,
+    ``modal_inputs`` from the seed with labels -1 over the prefix."""
+    ds = make_task_dataset("launch", cfg.vocab_size, seq_len=S,
+                           num_train=max(4 * Z * b, 64), difficulty=0.3,
+                           seed=seed)
+    batcher = SlotBatcher(ds, Z, b, seed=seed)
+    modal_gen = torch.Generator(device=device).manual_seed(seed + 2)
+    while True:
+        tokens, labels = batcher.next_batch()
+        batch = {"tokens": torch.as_tensor(tokens, device=device),
+                 "labels": torch.as_tensor(labels, device=device)}
+        if cfg.input_mode == "mixed":
+            batch.update(modal_inputs(cfg, Z, b, S, modal_gen, device))
+            batch["labels"][:, :, :cfg.num_modality_tokens] = -1
+        yield batch
+
+
 def run(cfg: ModelConfig, Z: int, b: int, S: int, mesh, steps: int, *,
         lr: float = 1e-3, rank: int = 8,
         ranks: Optional[Sequence[int]] = None, seed: int = 0, device=None,
         step_hook: Optional[Callable[[int, Dict, float], None]] = None,
+        eval_trees: Optional[Callable[[], Sequence[Dict]]] = None,
         log: Callable[[str], None] = print) -> Dict:
     """``steps`` Adapter-Parallel train steps of ``cfg`` on ``mesh`` with
     Z slots of b sequences of S tokens, every slot at ``min(rank, r_max)``,
     or slot z at ``ranks[z]`` with the ranks bound (``slot_ranks``: the
     rank-local kernels). ``step_hook(t, metrics, seconds)`` runs after each
-    step. Returns {"losses": per step the [Z] per-slot losses (all slots,
-    gathered over "data"), "step_s": seconds per step, "peak_gib": the
-    card's peak allocated GiB over the steps (None on the CPU), "lora":
-    this rank's updated adapters (its slots), "collectives": the records
-    the steps logged (``launch/collectives.py``), "launches": the kernel
-    launches of the steps, by set}."""
+    step. The batches are ``batches``'s. After the steps, one eval step on
+    the next batch with the trained adapters, then, on the same weights and
+    batch, one with each adapter tree that ``eval_trees()`` returns (whole
+    trees of every slot, {target: {"A", "B"}}). Returns {"losses": per
+    step the [Z] per-slot losses (all slots, gathered over "data"),
+    "eval": the [Z] per-slot eval losses, "evals": those of each of
+    ``eval_trees()``, "step_s": seconds per step, "peak_gib" and
+    "eval_peak_gib": the card's peak allocated GiB over the steps and over
+    the eval step (None on the CPU), "lora": this rank's updated adapters
+    (its slots), "collectives": the records the steps logged
+    (``launch/collectives.py``), "launches" and "eval_launches": the
+    kernel launches of the steps and of the eval step, by set}."""
     dev = resolve_device(device)
     t_setup = time.perf_counter()
     log(f"arch={cfg.name} Z={Z} b={b} S={S} layers={cfg.num_layers} "
@@ -161,11 +232,16 @@ def run(cfg: ModelConfig, Z: int, b: int, S: int, mesh, steps: int, *,
     v_spec = PT.pick_spec(mesh, (Z,), [{0: "data"}, {}])
     active, ranks_t = (placed(t, v_spec) for t in (active, ranks_t))
 
-    ds = make_task_dataset("launch", cfg.vocab_size, seq_len=S,
-                           num_train=max(4 * Z * b, 64), difficulty=0.3,
-                           seed=seed)
-    batcher = SlotBatcher(ds, Z, b, seed=seed)
+    stream = batches(cfg, Z, b, S, seed, dev)
     step = steps_dist.make_train_step(cfg, mesh)
+
+    def next_batch() -> Dict:
+        batch = next(stream)
+        batch = placed(batch, PT.batch_specs(mesh, batch))
+        if ranks is not None:
+            batch["slot_ranks"] = ranks_t
+        return batch
+
     on_card = dev.type == "cuda"
     if on_card:
         torch.cuda.synchronize(dev)
@@ -175,12 +251,7 @@ def run(cfg: ModelConfig, Z: int, b: int, S: int, mesh, steps: int, *,
         f"placement)")
     before = _launch_counts()
     for t in range(steps):
-        tokens, labels = batcher.next_batch()
-        batch = {"tokens": torch.as_tensor(tokens, device=dev),
-                 "labels": torch.as_tensor(labels, device=dev)}
-        batch = placed(batch, PT.batch_specs(mesh, batch))
-        if ranks is not None:
-            batch["slot_ranks"] = ranks_t
+        batch = next_batch()
         t0 = time.perf_counter()
         lora, opt, metrics = step(params, lora, opt, hp, active, ranks_t,
                                   batch)
@@ -204,8 +275,29 @@ def run(cfg: ModelConfig, Z: int, b: int, S: int, mesh, steps: int, *,
         out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         log(f"peak {out['peak_gib']:.2f} GiB allocated")
     out["policy_decisions"] = len(step.policy.decisions)
+    evaluate, batch = steps_dist.make_eval_step(cfg, mesh), next_batch()
+    out["eval_peak_gib"] = None
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = _launch_counts()
+    out["eval"] = evaluate(params, lora, active, batch).float().cpu().tolist()
+    after = _launch_counts()
+    out["eval_launches"] = {fam: {k: after[fam][k] - before[fam][k]
+                                  for k in ks} for fam, ks in after.items()}
+    log(f"eval loss/slot: {[round(v, 3) for v in out['eval']]}")
+    if on_card:
+        out["eval_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        log(f"eval peak {out['eval_peak_gib']:.2f} GiB allocated")
+    out["evals"] = []
+    for tree in eval_trees() if eval_trees is not None else ():
+        other = PT.distribute(mesh, {
+            t: {k: v.to(dev, lora[t][k].dtype) for k, v in ab.items()}
+            for t, ab in tree.items()}, l_named)
+        out["evals"].append(
+            evaluate(params, other, active, batch).float().cpu().tolist())
     out["lora"] = PT.local(lora)
     log(f"launches {json.dumps(out['launches'])}")
+    log(f"eval launches {json.dumps(out['eval_launches'])}")
     log(f"collective bytes {json.dumps(collective_bytes(records))}")
     log(f"collective shapes {json.dumps(collective_shapes(records))}")
     log("done")
@@ -228,11 +320,11 @@ def collective_shapes(records) -> list:
 
 
 def write_out(path: str, mesh, res: Dict) -> None:
-    """Rank 0 writes ``path`` (.npz): "losses" [steps, Z] and each
-    adapter leaf "lora/<target>/<A|B>" [L, Z, ...] of every slot. The
-    first model rank of each other data rank leaves its slots in a file
-    beside it, which rank 0 merges and removes (a file, so that no adapter
-    crosses the data axis)."""
+    """Rank 0 writes ``path`` (.npz): "losses" [steps, Z], "eval" [Z]
+    (where ``res`` has it) and each adapter leaf "lora/<target>/<A|B>"
+    [L, Z, ...] of every slot. The first model rank of each other data
+    rank leaves its slots in a file beside it, which rank 0 merges and
+    removes (a file, so that no adapter crosses the data axis)."""
     import numpy as np
     sizes = MESH.axis_sizes(mesh)
     d = sizes.get("data", 1)
@@ -241,18 +333,20 @@ def write_out(path: str, mesh, res: Dict) -> None:
     mine = ({f"lora/{t}/{k}": v.detach().float().cpu().numpy()
              for t, ab in res["lora"].items() for k, v in ab.items()}
             if first else {})
-    losses = np.asarray(res["losses"], np.float32)
+    losses = {"losses": np.asarray(res["losses"], np.float32)}
+    if "eval" in res:
+        losses["eval"] = np.asarray(res["eval"], np.float32)
     parts = [f"{path}.data{i}.npz" for i in range(d)]
     if d == 1:
         if first:
-            np.savez(path, losses=losses, **mine)
+            np.savez(path, **losses, **mine)
         return
     if first and me:
         np.savez(parts[me], **mine)
     torch.distributed.barrier()
     if torch.distributed.get_rank() == 0:
         got = [mine] + [dict(np.load(p)) for p in parts[1:]]
-        np.savez(path, losses=losses,
+        np.savez(path, **losses,
                  **{k: np.concatenate([g[k] for g in got], axis=1)
                     for k in mine})
         for p in parts[1:]:

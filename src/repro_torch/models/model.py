@@ -88,10 +88,13 @@ def _embed(params: Dict, tokens: torch.Tensor,
     """Token embeddings [Z,b,S,d]; ``modal_embeds`` ([Z,b,P,d], the stub
     modality encoder's output) replace the first P positions. Sharded
     (``shardctx.spmd()``), the lookup is vocabulary-parallel and the
-    "residual" constraint reduce-scatters it along S over "model"."""
+    "residual" constraint reduce-scatters it along S over "model"; each
+    model rank then writes the prefix rows of its own sequence block
+    (``SpmdPlan.prefix``)."""
     sp = shardctx.spmd()
     if sp is not None:
-        return constrain(sp.embed(params["embed"], tokens), "residual")
+        x = constrain(sp.embed(params["embed"], tokens), "residual")
+        return x if modal_embeds is None else sp.prefix(x, modal_embeds)
     x = params["embed"][tokens.long()]                     # [Z,b,S,d]
     if modal_embeds is not None:
         P = modal_embeds.shape[2]
@@ -187,8 +190,11 @@ def forward(cfg: ModelConfig, params: Dict, lora: Dict, tokens: torch.Tensor,
     Z, b, S = tokens.shape
     dev = tokens.device
     x = _embed(params, tokens, modal_embeds)
+    sp = shardctx.spmd()
     if positions is None:
         positions = text_positions((), S, cfg.rope, device=dev)
+    elif sp is not None:        # per-slot positions: this data rank's slots
+        positions = sp.slot_positions(positions, cfg.rope.is_mrope)
     ctx: Dict[str, Any] = {
         "angles": _angles(cfg, positions),
         "q_pos": torch.arange(S, dtype=torch.int32, device=dev),

@@ -170,3 +170,107 @@ def ssm_config(name: str, package: str):
     get_arch = importlib.import_module(f"{package}.configs.registry").get_arch
     return dataclasses.replace(get_arch(arch).reduced(
         num_layers=2, d_model=d, vocab=512), dtype="float32")
+
+
+# The sharded eval step (``steps_dist.make_eval_step``) after the steps, on
+# the first batch with the trained adapters, against the reference's on the
+# same mesh: every run of the dense example and of ``MODAL_RUNS``, and these
+# runs of the MoE and ssm tests (on every mesh each runs)
+MOE_EVALS = ("granite_span",)
+SSM_EVALS = ("rwkv", "hymba128", "hymba160")
+
+# The vlm and audio families (``tests/test_torch_ap_modal.py``): reduced
+# fp32 qwen2-vl-72b (4 heads and 4 KV heads of 32, M-RoPE sections (8, 4,
+# 4)) and musicgen-medium, 2 layers, d 128, at Z 4, b 4 and the example's
+# ranks and lr, 3 steps. Run -> (arch, S, vocab, the stub prefix's rows P,
+# the meshes):
+#   vlm40  — a 40-row prefix at S 64: at 2x2 it crosses the model ranks'
+#            boundary at 32 (rank 1's block starts with 8 prefix rows);
+#   vlm8   — an 8-row prefix inside model rank 0's block;
+#   vlm515 — vlm40 with a vocabulary that does not split over "model": the
+#            whole-vocabulary lookup, cut to the rank's block, carries the
+#            prefix;
+#   audio  — musicgen-medium's EnCodec tokens, no prefix.
+# A vlm batch's M-RoPE positions are those of a patch grid and the text
+# after it, one grid for slots 0-1 and another for slots 2-3
+# (``MODAL_GRIDS``), so that the data ranks' positions differ.
+MODAL_RUNS = {"vlm40": ("qwen2-vl-72b", 64, 512, 40, ((2, 2), (4, 1))),
+              "vlm8": ("qwen2-vl-72b", 64, 512, 8, ((2, 2), (4, 1))),
+              "vlm515": ("qwen2-vl-72b", 64, 515, 40, ((2, 2),)),
+              "audio": ("musicgen-medium", 32, 512, 0, ((2, 2), (4, 1)))}
+MODAL_GRIDS = {40: ((5, 8), (4, 10)), 8: ((2, 4), (1, 8))}
+# The runs whose one-rank steps already differ between the packages by
+# more than the sharded step's sum order: with a vocabulary of 515 the
+# logits' sums round differently in the two packages, and AdamW's sign
+# steps take that past MOE_ADAM_SHARE of a leaf's entries (rtol 1e-5)
+# after 3 steps at one rank. The reference runs them at 1x1 too, and the
+# test holds each package's sharded run against its own one-rank run
+MODAL_ONE_RANK = ("vlm515",)
+# chip_smoke.py phase 38's planted faults, each in a 2x2 run of its own on
+# MODAL_FAULT_RUN: (c) data rank 0's model ranks write the prefix at the
+# head of their own sequence blocks (slots 0-1); (d) data rank 1 takes data
+# rank 0's positions (slots 2-3)
+MODAL_FAULTS = {"prefix_head": (0, 1), "positions_rank0": (2, 3)}
+MODAL_FAULT_RUN = "vlm40"
+
+
+def port_batch(init: dict, t: int) -> dict:
+    """Step ``t``'s batch of ``init`` as the port's tensors: tokens and
+    labels, and, where ``init`` holds them, the stub prefix
+    ("modal_embeds") and the per-slot positions."""
+    import torch
+    batch = {"tokens": torch.from_numpy(init["tokens"][t]),
+             "labels": torch.from_numpy(init["labels"][t])}
+    if "modal" in init:
+        batch["modal_embeds"] = torch.from_numpy(init["modal"][t])
+        batch["positions"] = torch.from_numpy(init["positions"])
+    return batch
+
+
+def modal_runs():
+    """[(name, mesh)] of every run of ``MODAL_RUNS``."""
+    return [(name, mesh) for name, spec in MODAL_RUNS.items()
+            for mesh in spec[4]]
+
+
+def modal_config(name: str, package: str):
+    """The reduced fp32 config of run ``name`` in ``package`` ("repro" or
+    "repro_torch")."""
+    import importlib
+    arch, _, vocab, P, _ = MODAL_RUNS[name]
+    get_arch = importlib.import_module(f"{package}.configs.registry").get_arch
+    cfg = get_arch(arch).reduced(num_layers=2, d_model=128, vocab=vocab)
+    return dataclasses.replace(cfg, num_modality_tokens=P, dtype="float32")
+
+
+def grid_positions(grid, S: int) -> np.ndarray:
+    """[3, S] int32 M-RoPE positions of a (rows, cols) patch-grid prefix and
+    the text after it: patch (row, col) at (0, row, col), text token i at
+    G + i in all three with G = max(grid) (Qwen2-VL's rule)."""
+    rows, cols = grid
+    idx = np.arange(rows * cols)
+    text = max(grid) + np.arange(S - rows * cols)
+    return np.stack([np.concatenate([np.zeros_like(idx), text]),
+                     np.concatenate([idx // cols, text]),
+                     np.concatenate([idx % cols, text])]).astype(np.int32)
+
+
+def modal_batches(name: str, tokens: np.ndarray, labels: np.ndarray,
+                  d_model: int, seed: int = 0) -> dict:
+    """The vlm run ``name``'s extra batch entries for ``tokens``/``labels``
+    [steps, Z, b, S]: "modal" [steps, Z, b, P, d] fp32 N(0, 0.02) from a
+    numpy seed, "positions" [3, Z, b, S] (``MODAL_GRIDS``: the first grid
+    for slots 0-1, the second for slots 2-3), and "labels" -1 over the
+    prefix."""
+    _, S, _, P, _ = MODAL_RUNS[name]
+    steps, Zs, b, _ = tokens.shape
+    rng = np.random.default_rng(seed)
+    modal = (0.02 * rng.standard_normal((steps, Zs, b, P, d_model))
+             ).astype(np.float32)
+    pos = np.stack([grid_positions(MODAL_GRIDS[P][z >= Zs // 2], S)
+                    for z in range(Zs)], axis=1)
+    labels = labels.copy()
+    labels[..., :P] = -1
+    return {"modal": modal, "labels": labels,
+            "positions": np.ascontiguousarray(np.broadcast_to(
+                pos[:, :, None], (3, Zs, b, S)))}

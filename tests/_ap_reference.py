@@ -1,8 +1,10 @@
 """The JAX package's sharded train step on forced CPU host devices, for
-``tests/test_torch_ap.py`` and ``tests/test_torch_ap_moe.py``.
+``tests/test_torch_ap.py``, ``tests/test_torch_ap_moe.py``,
+``tests/test_torch_ap_ssm.py`` and ``tests/test_torch_ap_modal.py``.
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \\
-        python tests/_ap_reference.py <workdir> [--moe <arch key> <case>...]
+        python tests/_ap_reference.py <workdir> [--moe <arch key> <case>...
+            | --ssm <run>... | --modal <run>...]
 
 Reads ``<workdir>/init.npz`` (the shared weights, adapters and batches, see
 ``tests/_ap_common.py``) and writes ``<workdir>/jax_<d>x<m>.npz`` (per-step
@@ -23,6 +25,17 @@ With ``--ssm <run>...`` (keys of ``common.SSM_RUNS``) it runs those ssm,
 hybrid and whole-heads runs: ``init_<run>.npz`` in,
 ``jax_<run>_<d>x<m>.npz`` out for each of the run's meshes (and 1x1 for
 those of ``common.SSM_ONE_RANK``).
+
+With ``--modal <run>...`` (keys of ``common.MODAL_RUNS``) it runs those vlm
+and audio runs: ``init_<run>.npz`` in (with the stub prefix ``modal`` and
+the per-slot M-RoPE ``positions`` for the vlm runs),
+``jax_<run>_<d>x<m>.npz`` out for each of the run's meshes (and 1x1 for
+those of ``common.MODAL_ONE_RANK``).
+
+Every run of the dense example, of ``common.MOE_EVALS``, of
+``common.SSM_EVALS`` and of ``common.MODAL_RUNS`` also writes "eval": the
+reference's ``make_eval_step`` on the same mesh after the steps, on the
+first batch with the trained adapters.
 """
 import json
 import os
@@ -41,7 +54,21 @@ from repro.optim import adamw  # noqa: E402
 from tests import _ap_common as common  # noqa: E402
 
 
-def run(cfg, init, shape, steps=common.STEPS):
+def _batch(init, t):
+    """Step ``t``'s batch of ``init``: tokens and labels, and, where
+    ``init`` holds them, the stub prefix and the per-slot positions."""
+    batch = {"tokens": jnp.asarray(init["tokens"][t]),
+             "labels": jnp.asarray(init["labels"][t])}
+    if "modal" in init:
+        batch["modal_embeds"] = jnp.asarray(init["modal"][t])
+        batch["positions"] = jnp.asarray(init["positions"])
+    return batch
+
+
+def run(cfg, init, shape, steps=common.STEPS, evals=False):
+    """``steps`` steps of the GSPMD train step on a ``shape`` mesh; with
+    ``evals`` also its eval step after them, on the first batch with the
+    trained adapters ("eval": the [Z] per-slot losses)."""
     mesh = jax.make_mesh(shape, ("data", "model"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
     params = jax.tree_util.tree_map(jnp.asarray, common.unflat(init,
@@ -52,8 +79,7 @@ def run(cfg, init, shape, steps=common.STEPS):
     hp = adamw.SlotHParams.broadcast(Z, lr=common.LR)
     ranks = jnp.asarray(common.RANKS, jnp.int32)
     active = jnp.ones((Z,), jnp.int32)
-    batch = {"tokens": jnp.asarray(init["tokens"][0]),
-             "labels": jnp.asarray(init["labels"][0])}
+    batch = _batch(init, 0)
     ns = lambda t: PT.to_named(mesh, t)  # noqa: E731
     p_sh = ns(PT.base_param_specs(mesh, params))
     l_sh = ns(PT.lora_param_specs(mesh, lora))
@@ -70,12 +96,16 @@ def run(cfg, init, shape, steps=common.STEPS):
     losses = []
     with mesh:
         for t in range(steps):
-            batch = {"tokens": jnp.asarray(init["tokens"][t]),
-                     "labels": jnp.asarray(init["labels"][t])}
             lora, opt, metrics = step(params, lora, opt, hp, active, ranks,
-                                      batch)
+                                      _batch(init, t))
             losses.append(np.asarray(metrics["per_slot_loss"]))
+        if evals:
+            ev = jax.jit(SD.make_eval_step(cfg, mesh),
+                         in_shardings=(p_sh, l_sh, v_sh, b_sh))
+            per_slot = np.asarray(ev(params, lora, active, batch))
     out = {"losses": np.stack(losses)}
+    if evals:
+        out["eval"] = per_slot
     out.update(common.flat(jax.tree_util.tree_map(np.asarray, lora),
                            "lora/"))
     return out
@@ -124,7 +154,20 @@ def ssm_main(workdir: str, names) -> None:
         for shape in ((1, 1),) * (name in common.SSM_ONE_RANK) + \
                 common.SSM_RUNS[name][3]:
             np.savez(os.path.join(workdir, f"jax_{name}_%dx%d.npz" % shape),
-                     **run(cfg, init, shape))
+                     **run(cfg, init, shape,
+                           evals=name in common.SSM_EVALS))
+    print("done")
+
+
+def modal_main(workdir: str, names) -> None:
+    assert len(jax.devices()) == 4, jax.devices()
+    for name in names:
+        init = dict(np.load(os.path.join(workdir, f"init_{name}.npz")))
+        cfg = common.modal_config(name, "repro")
+        for shape in ((1, 1),) * (name in common.MODAL_ONE_RANK) + \
+                common.MODAL_RUNS[name][4]:
+            np.savez(os.path.join(workdir, f"jax_{name}_%dx%d.npz" % shape),
+                     **run(cfg, init, shape, evals=True))
     print("done")
 
 
@@ -134,7 +177,7 @@ def main(workdir: str, moe: str = "", cases=()) -> None:
         init = dict(np.load(os.path.join(workdir, "init.npz")))
         cfg = common.jax_config()
         for shape in common.JAX_MESHES:
-            out = run(cfg, init, shape)
+            out = run(cfg, init, shape, evals=True)
             np.savez(os.path.join(workdir, "jax_%dx%d.npz" % shape), **out)
         print("done")
         return
@@ -145,7 +188,8 @@ def main(workdir: str, moe: str = "", cases=()) -> None:
         meshes = common.MOE_CASES[case][4]
         for shape in ((1, 1),) * (name == common.MOE_SELF_RUN) + meshes:
             out = run(cfg, init, shape,
-                      common.MOE_STEPS.get(case, common.STEPS))
+                      common.MOE_STEPS.get(case, common.STEPS),
+                      evals=name in common.MOE_EVALS)
             np.savez(os.path.join(workdir, f"jax_{name}_%dx%d.npz" % shape),
                      **out)
         if case == "span":
@@ -160,5 +204,7 @@ if __name__ == "__main__":
         main(sys.argv[1], sys.argv[3], sys.argv[4:])
     elif sys.argv[2:3] == ["--ssm"]:
         ssm_main(sys.argv[1], sys.argv[3:])
+    elif sys.argv[2:3] == ["--modal"]:
+        modal_main(sys.argv[1], sys.argv[3:])
     else:
         main(sys.argv[1])

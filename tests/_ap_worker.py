@@ -14,11 +14,15 @@ batches) and writes, rank 0 for the group:
     with slot 3 at 3e-3;
   * ``log_<d>x<m>_rank<r>.json`` — each rank's collective records of the
     opt-level-0 run on each mesh;
-  * ``refusals.json`` — the ``NotImplementedError`` message of each
-    family that the sharded step does not run on the 2x2 mesh, of the DPO
-    loss there, of a mesh with a pod axis, of ragged slot rows on the 2x2
-    mesh's split model axis, and of an eval and a prefill step on the 2x2
-    mesh.
+  * ``refusals.json`` — the ``NotImplementedError`` message of the DPO
+    loss's train and eval steps on the 2x2 mesh, of a mesh with a pod axis,
+    of ragged slot rows on the 2x2 mesh's split model axis, and of a
+    prefill and a serve step on the 2x2 mesh.
+
+Each ``port_<d>x<m>.npz`` also holds "eval": the sharded eval step after
+the steps, on the first batch with the trained adapters (so do the MoE
+runs of ``common.MOE_EVALS``, the ssm runs of ``common.SSM_EVALS`` and
+every modal run).
 
     python tests/_ap_worker.py <workdir> --moe
 
@@ -38,6 +42,17 @@ runs the ssm and hybrid families and the whole-heads attention instead
 ``common.SSM_FAULTS``, that fault planted at 2x2
 (``chip_smoke._planted_ssm``), ``port_<name>_2x2_fault.npz``; and opt
 level 2 of rwkv at 2x2, ``port_rwkv_2x2_opt2.npz``.
+
+    python tests/_ap_worker.py <workdir> --modal
+
+runs the vlm and audio families instead (``tests/test_torch_ap_modal.py``):
+for each run of ``common.modal_runs()``, ``init_<name>.npz`` in,
+``port_<name>_<d>x<m>.npz``, ``log_<name>_<d>x<m>_rank<r>.json`` (the
+train steps' collective records) and ``eval_log_<...>.json`` (the eval
+step's) out; on
+``common.MODAL_FAULT_RUN`` at 2x2 also each fault of
+``common.MODAL_FAULTS`` planted alone (``chip_smoke._planted_modal``),
+``port_<tag>_<fault>.npz``.
 """
 import dataclasses
 import json
@@ -52,7 +67,6 @@ import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
 from repro_torch import bridge  # noqa: E402
-from repro_torch.configs.registry import get_arch  # noqa: E402
 from repro_torch.launch import mesh as MESH  # noqa: E402
 from repro_torch.launch import partitioning as PT  # noqa: E402
 from repro_torch.launch import steps_dist as SD  # noqa: E402
@@ -61,11 +75,10 @@ from repro_torch.optim import adamw  # noqa: E402
 import chip_smoke  # noqa: E402
 from tests import _ap_common as common  # noqa: E402
 
-OTHER_FAMILIES = {"vlm": "qwen2-vl-72b", "audio": "musicgen-medium"}
-
-
 def train(cfg, init, mesh, *, lrs=None, clip=1.0, opt_level=0,
-          steps=common.STEPS):
+          steps=common.STEPS, evals=False):
+    """``steps`` sharded train steps; with ``evals`` then the sharded eval
+    step on the first batch with the trained adapters ("eval")."""
     Z = common.Z
     params = bridge.params_from_numpy(cfg, common.unflat(init, "params/"),
                                       "cpu")
@@ -91,17 +104,22 @@ def train(cfg, init, mesh, *, lrs=None, clip=1.0, opt_level=0,
     step = SD.make_train_step(cfg, mesh, opt_level=opt_level)
     losses = []
     for t in range(steps):
-        i = t % common.STEPS
-        batch = {"tokens": torch.from_numpy(init["tokens"][i]),
-                 "labels": torch.from_numpy(init["labels"][i])}
+        batch = common.port_batch(init, t % common.STEPS)
         batch = placed(batch, PT.batch_specs(mesh, batch))
         lora, opt, metrics = step(params, lora, opt, hp, active, ranks,
                                   batch)
         lora = PT.from_local(mesh, lora, l_named)
         opt = PT.from_local(mesh, opt, o_named)
         losses.append(metrics["per_slot_loss"].numpy())
-    return {"losses": np.stack(losses), "lora": PT.local(lora),
-            "log": [dataclasses.asdict(r) for r in step.policy.spmd.log]}
+    out = {"losses": np.stack(losses), "lora": PT.local(lora),
+           "log": [dataclasses.asdict(r) for r in step.policy.spmd.log]}
+    if evals:
+        batch = common.port_batch(init, 0)
+        ev = SD.make_eval_step(cfg, mesh, opt_level=opt_level)
+        out["eval"] = ev(params, lora, active,
+                         placed(batch, PT.batch_specs(mesh, batch))).numpy()
+        out["eval_log"] = [dataclasses.asdict(r) for r in ev.policy.spmd.log]
+    return out
 
 
 def refusal(fn) -> str:
@@ -122,7 +140,8 @@ def moe_main(workdir: str) -> None:
             cfg = common.moe_config(name, "repro_torch")
             tag = f"{name}_%dx%d" % shape
             res = train(cfg, init, meshes[shape],
-                        steps=common.MOE_STEPS.get(case, common.STEPS))
+                        steps=common.MOE_STEPS.get(case, common.STEPS),
+                        evals=name in common.MOE_EVALS)
             TRAIN.write_out(os.path.join(workdir, f"port_{tag}.npz"),
                             meshes[shape], res)
             with open(os.path.join(workdir, f"log_{tag}_rank{me}.json"),
@@ -133,13 +152,15 @@ def moe_main(workdir: str) -> None:
                 with chip_smoke._planted_moe(("route_blind",),
                                              common.FAULT_LAYER,
                                              common.FAULT_LAYER):
-                    res = train(cfg, init, meshes[shape])
+                    res = train(cfg, init, meshes[shape],
+                                evals=name in common.MOE_EVALS)
                 TRAIN.write_out(os.path.join(workdir,
                                              f"port_{tag}_fault.npz"),
                                 meshes[shape], res)
                 TRAIN.write_out(os.path.join(workdir, f"port_{tag}_opt2.npz"),
                                 meshes[shape],
-                                train(cfg, init, meshes[shape], opt_level=2))
+                                train(cfg, init, meshes[shape], opt_level=2,
+                                      evals=name in common.MOE_EVALS))
         dist.barrier()
     print("done")
 
@@ -153,7 +174,8 @@ def ssm_main(workdir: str) -> None:
             init = dict(np.load(os.path.join(workdir, f"init_{name}.npz")))
             cfg = common.ssm_config(name, "repro_torch")
             tag = f"{name}_%dx%d" % shape
-            res = train(cfg, init, meshes[shape])
+            res = train(cfg, init, meshes[shape],
+                        evals=name in common.SSM_EVALS)
             TRAIN.write_out(os.path.join(workdir, f"port_{tag}.npz"),
                             meshes[shape], res)
             with open(os.path.join(workdir, f"log_{tag}_rank{me}.json"),
@@ -177,12 +199,42 @@ def ssm_main(workdir: str) -> None:
     print("done")
 
 
+def modal_main(workdir: str) -> None:
+    with MESH.process_group("cpu", backend="gloo"):
+        me = dist.get_rank()
+        meshes = {s: MESH.make_local_mesh(s, device="cpu")
+                  for s in ((2, 2), (4, 1))}
+        for name, shape in common.modal_runs():
+            init = dict(np.load(os.path.join(workdir, f"init_{name}.npz")))
+            cfg = common.modal_config(name, "repro_torch")
+            tag = f"{name}_%dx%d" % shape
+            res = train(cfg, init, meshes[shape], evals=True)
+            TRAIN.write_out(os.path.join(workdir, f"port_{tag}.npz"),
+                            meshes[shape], res)
+            for kind in ("log", "eval_log"):
+                with open(os.path.join(workdir,
+                                       f"{kind}_{tag}_rank{me}.json"),
+                          "w") as f:
+                    json.dump(res[kind], f)
+            if (name, shape) != (common.MODAL_FAULT_RUN, (2, 2)):
+                continue
+            for fault in common.MODAL_FAULTS:
+                with chip_smoke._planted_modal((fault,)):
+                    res = train(cfg, init, meshes[shape], evals=True)
+                TRAIN.write_out(os.path.join(
+                    workdir, f"port_{tag}_{fault}.npz"), meshes[shape], res)
+        dist.barrier()
+    print("done")
+
+
 def main(workdir: str) -> None:
     torch.set_num_threads(1)
     if sys.argv[2:3] == ["--moe"]:
         return moe_main(workdir)
     if sys.argv[2:3] == ["--ssm"]:
         return ssm_main(workdir)
+    if sys.argv[2:3] == ["--modal"]:
+        return modal_main(workdir)
     init = dict(np.load(os.path.join(workdir, "init.npz")))
     cfg = common.port_config()
     with MESH.process_group("cpu", backend="gloo"):
@@ -196,7 +248,7 @@ def main(workdir: str) -> None:
             TRAIN.write_out(os.path.join(workdir, name), mesh, res)
 
         for shape in common.PORT_MESHES:
-            res = train(cfg, init, meshes[shape])
+            res = train(cfg, init, meshes[shape], evals=True)
             tag = "%dx%d" % shape
             save(f"port_{tag}.npz", res, meshes[shape])
             with open(os.path.join(workdir, f"log_{tag}_rank{me}.json"),
@@ -210,10 +262,10 @@ def main(workdir: str) -> None:
         ctl = common.DIVERGE_LRS[:3] + (common.LR,)
         save("port_2x2_div_ctl.npz", train(cfg, init, m22, lrs=ctl, **div),
              m22)
-        msgs = {fam: refusal(lambda: SD.make_train_step(get_arch(arch), m22))
-                for fam, arch in OTHER_FAMILIES.items()}
-        msgs["dpo"] = refusal(
-            lambda: SD.make_train_step(cfg, m22, loss_kind="dpo"))
+        msgs = {"dpo": refusal(
+            lambda: SD.make_train_step(cfg, m22, loss_kind="dpo")),
+            "dpo eval": refusal(
+            lambda: SD.make_eval_step(cfg, m22, loss_kind="dpo"))}
         msgs["pod axis"] = refusal(lambda: SD.make_train_step(cfg, pod))
         embed = {"embed": PT.distribute(m22, torch.zeros(cfg.vocab_size,
                                                          cfg.d_model),
@@ -223,12 +275,12 @@ def main(workdir: str) -> None:
             lambda: SD.make_train_step(cfg, m22)(
                 embed, {}, None, None, None, None,
                 {"tokens": tokens, "slot_rows": torch.full((4,), 8)}))
-        msgs["eval"] = refusal(
-            lambda: SD.make_eval_step(cfg, m22)(embed, {}, None,
-                                                {"tokens": tokens}))
         msgs["prefill"] = refusal(
             lambda: SD.make_prefill_step(cfg, m22)(embed, {}, None,
                                                    {"tokens": tokens}))
+        msgs["serve"] = refusal(
+            lambda: SD.make_serve_step(cfg, m22)(embed, {}, None,
+                                                 tokens[:, :, 0]))
         if me == 0:
             with open(os.path.join(workdir, "refusals.json"), "w") as f:
                 json.dump(msgs, f)

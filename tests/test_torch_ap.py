@@ -34,11 +34,14 @@ together in one module fixture.
     schedule: they are in fact equal); the one-rank step (this process, a
     one-rank gloo group) agrees with the 2x2 and 4x1 steps within (a)'s
     bars.
-(e) The vlm and audio families, the DPO loss, a mesh with a pod axis,
-    ragged slot rows on a split model axis, and the eval and prefill steps
-    raise ``NotImplementedError`` on a real mesh, naming what they refuse
-    (the MoE, ssm and hybrid families run: ``tests/test_torch_ap_moe.py``,
-    ``tests/test_torch_ap_ssm.py``).
+(e) The DPO loss (train and eval steps), a mesh with a pod axis, ragged
+    slot rows on a split model axis, and the prefill and serve steps raise
+    ``NotImplementedError`` on a real mesh, naming what they refuse (the
+    MoE, ssm, hybrid, vlm and audio families run:
+    ``tests/test_torch_ap_moe.py``, ``tests/test_torch_ap_ssm.py``,
+    ``tests/test_torch_ap_modal.py``; so does the eval step, whose per-slot
+    losses after the 2x2 and 4x1 runs are held within 1e-5 relative of the
+    reference's ``make_eval_step`` on the same mesh).
 (f) ``launch.train.main(["--reduced", "--mesh", "2x2", "--steps", "2",
     "--backend", "gloo", "--device", "cpu"])`` runs under 4 spawned
     processes.
@@ -185,6 +188,14 @@ def test_sharded_step_matches_the_reference(runs, mesh):
     _adapters_close(got, want, f"port {mesh} vs reference {mesh}")
 
 
+@pytest.mark.parametrize("mesh", ["2x2", "4x1"])
+def test_sharded_eval_matches_the_reference(runs, mesh):
+    got = _load(runs, f"port_{mesh}.npz")["eval"]
+    want = _load(runs, f"jax_{mesh}.npz")["eval"]
+    assert got.shape == (common.Z,) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **LOSS)
+
+
 def test_the_reference_moves_with_its_own_sum_order(runs):
     """The reference's 2x2 mesh against its 1x1: the same kind of
     differences as (a)'s, within the same bars."""
@@ -246,6 +257,8 @@ def test_a_diverging_slot_leaves_the_others_bitwise(runs):
 # ---------------------------------------------------------------------------
 
 def _one_rank(init, tmp_path, cfg=None):
+    """The port's steps on a one-rank mesh (this process), then its eval
+    step on the first batch ("eval")."""
     cfg = cfg or common.port_config()
     with TMESH.process_group("cpu", f"file://{tmp_path / 'pg'}"):
         mesh = TMESH.make_local_mesh((1, 1), device="cpu")
@@ -260,11 +273,12 @@ def _one_rank(init, tmp_path, cfg=None):
         step = TSD.make_train_step(cfg, mesh)
         losses = []
         for t in range(common.STEPS):
-            batch = {"tokens": torch.from_numpy(init["tokens"][t]),
-                     "labels": torch.from_numpy(init["labels"][t])}
-            lora, opt, m = step(params, lora, opt, hp, active, ranks, batch)
+            lora, opt, m = step(params, lora, opt, hp, active, ranks,
+                                common.port_batch(init, t))
             losses.append(m["per_slot_loss"].numpy())
-    out = {"losses": np.stack(losses)}
+        evals = TSD.make_eval_step(cfg, mesh)(params, lora, active,
+                                              common.port_batch(init, 0))
+    out = {"losses": np.stack(losses), "eval": evals.numpy()}
     out.update({f"lora/{t}/{k}": v.numpy() for t, ab in lora.items()
                 for k, v in ab.items()})
     return out
@@ -291,10 +305,9 @@ def test_opt_levels_and_one_rank_agree(runs, tmp_path):
     ("dpo", ("dpo", "loss")),
     ("pod axis", ("pod",)),
     ("ragged rows", ("ragged", "model")),
-    ("vlm", ("vlm", "qwen2-vl-72b")),
-    ("audio", ("audio", "musicgen-medium")),
-    ("eval", ("eval",)),
-    ("prefill", ("prefill",)),
+    ("prefill", ("prefill", "cache")),
+    ("serve", ("serve", "cache")),
+    ("dpo eval", ("dpo", "loss")),
 ])
 def test_unported_splits_raise_by_name(runs, what, names):
     with open(os.path.join(runs["dir"], "refusals.json")) as f:

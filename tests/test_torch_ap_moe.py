@@ -38,6 +38,10 @@ an arch (``tests/_ap_reference.py --moe``), and the port's 4 gloo ranks
     for granite's span case on 2x2, byte for byte; opt level 2 (the
     reference's ``dims:data+pod`` hints) gives opt level 0's numbers bit for
     bit there.
+(f) The sharded eval step after the steps (the first batch, the trained
+    adapters) of ``common.MOE_EVALS``' runs against the reference's
+    ``make_eval_step`` on the same mesh, within 1e-5 relative; the planted
+    route fault breaks it on slots 2-3 too.
 """
 import json
 import os
@@ -158,6 +162,22 @@ def test_moe_sharded_step_matches_the_reference(runs, name, mesh):
 SELF = [r for r in RUNS if r[0] == common.MOE_SELF_RUN]
 
 
+EVALS = [(n, mesh) for n, _, _, mesh in RUNS if n in common.MOE_EVALS]
+
+
+@pytest.mark.parametrize("name,mesh", EVALS,
+                         ids=[_tag(*r) for r in EVALS])
+def test_moe_sharded_eval_matches_the_reference(runs, name, mesh):
+    """The sharded eval step after the steps (the first batch, the trained
+    adapters; its token group spans every data rank) against the
+    reference's ``make_eval_step`` on the same mesh."""
+    tag = _tag(name, mesh)
+    got = _load(runs, f"port_{tag}.npz")["eval"]
+    want = _load(runs, f"jax_{tag}.npz")["eval"]
+    assert got.shape == (common.Z,) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **LOSS)
+
+
 @pytest.mark.parametrize("name,mesh", [(r[0], r[3]) for r in SELF],
                          ids=[_tag(r[0], r[3]) for r in SELF])
 def test_the_moe_reference_moves_with_its_own_sum_order(runs, name, mesh):
@@ -192,6 +212,10 @@ def test_a_planted_route_fault_breaks_parity(runs):
                                **LOSS)
     off = np.abs(bad["losses"][:, 2:] - want["losses"][:, 2:])
     assert (off > LOSS["rtol"] * np.abs(want["losses"][:, 2:])).any(), off
+    # the eval step routes that layer blind too
+    np.testing.assert_allclose(bad["eval"][:2], want["eval"][:2], **LOSS)
+    off = np.abs(bad["eval"][2:] - want["eval"][2:])
+    assert (off > LOSS["rtol"] * np.abs(want["eval"][2:])).any(), off
 
 
 # ---------------------------------------------------------------------------

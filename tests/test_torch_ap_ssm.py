@@ -43,6 +43,10 @@ processes (``tests/_ap_reference.py --ssm``), and the port's 4 gloo ranks
     for rwkv and hymba d 128 on 2x2, byte for byte, and so do the
     model-axis weight gathers; opt level 2 (the reference's ``scan_chunk``
     hint) gives opt level 0's numbers within the bars on rwkv at 2x2.
+(e) The sharded eval step after the steps (the first batch, the trained
+    adapters) of ``common.SSM_EVALS``' runs (rwkv, hymba at d 128 and, with
+    its attention whole, at d 160) against the reference's
+    ``make_eval_step`` on the same mesh, within 1e-5 relative.
 """
 import json
 import os
@@ -193,6 +197,21 @@ def test_ssm_sharded_step_matches_the_reference(runs, one_rank, name, mesh):
     # the one-rank runs
     assert port_moves <= SELF_MOVES * ref_moves, (port_moves, ref_moves)
     assert gap <= ONE_RANK_GAP * gap_one, (gap, gap_one)
+
+
+EVALS = [r for r in RUNS if r[0] in common.SSM_EVALS]
+
+
+@pytest.mark.parametrize("name,mesh", EVALS, ids=[_tag(*r) for r in EVALS])
+def test_ssm_sharded_eval_matches_the_reference(runs, name, mesh):
+    """The sharded eval step after the steps (the first batch, the trained
+    adapters) against the reference's ``make_eval_step`` on the same mesh:
+    rwkv's scan heads over "model", hymba d 160's whole attention heads."""
+    tag = _tag(name, mesh)
+    got = _load(runs, f"port_{tag}.npz")["eval"]
+    want = _load(runs, f"jax_{tag}.npz")["eval"]
+    assert got.shape == (common.Z,) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **LOSS)
 
 
 def test_the_whole_heads_runs_are_the_ones_asked_for():
