@@ -11,9 +11,9 @@ with image-prefixed train and serve checks) and of musicgen-medium, and
 train checks of llama4-scout-17b-a16e, glm4-9b, granite-8b and
 mistral-nemo-12b at full width, the grouped-LoRA tile autotuner, the
 training launcher on a one-rank mesh at train_4k's sequence length, and
-its sharded step on a 2 x 2 (data, model) mesh of four processes sharing
-the card, on one NVIDIA card, through the port's hand-written CUDA
-kernels.
+its sharded steps (SFT and DPO train and eval, prefill and serve) on a
+2 x 2 (data, model) mesh of four processes sharing the card, on one NVIDIA
+card, through the port's hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -335,8 +335,9 @@ per forward) follow:
             kernels' fp32 instantiations): at its random init the
             backward amplifies rounding past any bar at full depth (the
             plain step against itself with 1e-7 noise on the scan's output
-            reads as the kernels do; RWKV_GRAD_LAYERS), so at 32 layers
-            the loss bar is held with the two forward faults (slot 0's
+            reads as the kernels do; RWKV_GRAD_LAYERS), so at
+            RWKV_CHECK_LAYERS = 16 of its 32 layers (cut for time) the loss
+            bar is held with the two forward faults (slot 0's
             delta halved; the bonus dropped from the plain scan) and the
             gradient readings are printed, and at 2 layers every bar and
             every planted fault of phase 5 is held. The kernel runs launch
@@ -382,7 +383,7 @@ the window binds in every forward:
             ssm state bitwise untouched (phase 17 holds the same for
             rwkv6-3b's state).
 22. hymba train — phase 5 on hymba-1.5b at S = 2,048, b = 2, in fp32 at
-            full width and HYMBA_CHECK_LAYERS = 8 of 32 layers (the
+            full width and HYMBA_CHECK_LAYERS = 4 of 32 layers (the
             kernels' fp32 instantiations): every
             bar and every planted fault of phase 5 (the loss bar an fp32
             one, HYMBA_LOSS_REL), with two more forward faults that must
@@ -530,8 +531,8 @@ and DENSE_LAYERS layers; random weights from a seed:
             AP_PROCS processes of ``python -m repro_torch.launch.train
             --mesh 2x2 --backend gloo`` on this one card (the main path,
             alone on the card; the kernel libraries built above, loaded,
-            not rebuilt) on full-width stablelm-3b at AP_LAYERS = 16 of its
-            32 layers (cut to make room for phase 36) at AP_Z
+            not rebuilt) on full-width stablelm-3b at AP_LAYERS = 8 of its
+            32 layers (cut to make room for phases 36 and 39) at AP_Z
             slots, b = AP_B, S = AP_S, ranks 8/16/32/64 bound, AP_STEPS
             steps, each rank asserting its device and printing its step s,
             peak GiB, kernel launches (summed into the table: per rank and
@@ -617,6 +618,28 @@ and DENSE_LAYERS layers; random weights from a seed:
             its bar must read AP_EVAL_FAULT_X times the sound eval reading
             of its config (but AP_EVAL_UNSEEN). Each rank's eval launches
             are counted apart from its steps'.
+39. ap dpo / serve — the sharded DPO loss and the sharded prefill and
+            serve steps (``steps_dist``) as two jobs of the fault pool's
+            four ranks on the same mesh: rows 13-18 at a rank's fp32 DPO
+            shapes, rows 13-14 at its decode shapes (T 2 a slot) and flash
+            in fp32 on its 16 heads at S AP_DPO_S against their plain
+            versions; then (i) full-width stablelm-3b in fp32 at
+            AP_DPO_LAYERS layers, Z 4, DPO_B pairs of S 256 a slot,
+            AP_DPO_STEPS DPO steps and a DPO eval against a one-rank run
+            (loss, eval and adapter readings within AP_DPO_LOSS_REL /
+            AP_DPO_ADAPTER_REL; fault "dpo_swap", data rank 1's policy
+            forwards swapping each pair, past all three on slots 2-3), and
+            (ii) full-width stablelm-3b in bf16 at AP_SERVE_LAYERS layers,
+            Z 4, b 2, a per-lane cache: a prompt of AP_SERVE_S tokens
+            prefilled into a cache as long as the prompt (flash), the cache
+            grown, AP_SERVE_DECODES serve steps fed the one-rank run's
+            greedy tokens and one with AP_IDLE_LANES idle, every step's
+            logits per slot within LOGITS_ATOL_REL / LOGITS_REL_RMS of the
+            one-rank run's (the greedy agreement printed), the idle lanes'
+            K/V rows and positions bitwise untouched on every rank, fault
+            "kv_roll" (data rank 0's last model rank writing its KV heads
+            rolled) past both bars on slots 0-1 and the other slots within
+            them. Every rank's launches of rows 13-19 are checked.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernel table as JSON (twenty kernels), with each kernel's launches by
@@ -631,7 +654,8 @@ musicgen's, ``dense_cfg_train`` for the dense configs' train checks,
 ``launch_train`` for the launcher's full-width steps, ``ap_train``,
 ``ap_moe_train``, ``ap_llama4_train``, ``ap_rwkv_train``,
 ``ap_hymba_train``, ``ap_vlm_train`` and ``ap_audio_train`` for the sharded
-steps' four ranks, summed).
+steps' four ranks, summed, and ``ap_dpo`` and ``ap_serve`` for phase 39's
+sound sharded DPO steps and serving, its four ranks summed).
 """
 from __future__ import annotations
 
@@ -736,6 +760,9 @@ SFU_PER_CLOCK_SM = 16         # exponentials per clock per SM (cc 9.0)
 # the kernels read <= 3.6e-4 against the 0.05 gradient bars, holding every
 # bar and every fault
 RWKV_GRAD_LAYERS = 2
+# the depth of that first check, the loss bar's (cut from full depth, 32,
+# to make room for phase 39)
+RWKV_CHECK_LAYERS = 16
 # layers of the rwkv rank sweep (full width; cut from 32 so that the last
 # families' phases fit the script's time, and from 16 to make room for
 # phase 37)
@@ -759,9 +786,9 @@ HYMBA_SHAPES = ((1600, 1600), (1600, 320), (1600, 6400), (1600, 5504),
 # see PERF.md)
 HYMBA_LOSS_REL = 2e-6
 # layers of hymba's fp32 train and ring-wrap checks: cut from 32 to 16 so
-# that phase 35 fits the script's time, and to 8 for phase 37 (its runs at
-# 32 layers read the figures above)
-HYMBA_CHECK_LAYERS = 8
+# that phase 35 fits the script's time, to 8 for phase 37 and to 4 for
+# phase 39 (its runs at 32 layers read the figures above)
+HYMBA_CHECK_LAYERS = 4
 # hymba-1.5b's ring past its wrap: two lanes prefilled with RING_PREFILL
 # tokens, then one lane decodes RING_STEPS more (positions 1,000-1,063: the
 # ring of 1,024 slots wraps after 24 steps), in fp32; its logits against
@@ -818,7 +845,8 @@ LAUNCH_RANK = 8             # the launcher's default adapter rank
 LAUNCH_CHECK_LAYERS = 4
 # phase 35: the launcher's sharded step over a 2 x 2 (data, model) mesh of
 # AP_RANKS processes sharing the card (gloo), on full-width stablelm-3b at
-# AP_LAYERS of its 32 layers (cut from full depth to make room for phase 36)
+# AP_LAYERS of its 32 layers (cut from full depth to make room for phase 36,
+# and from 16 to 8 for phase 39)
 # at AP_Z slots of AP_B sequences of AP_S tokens, slot ranks RANKS, AP_STEPS
 # steps; held against the one-rank run of the same seed.
 # Bars (bf16, relative): per slot and step |loss diff| / |loss|; per adapter
@@ -839,7 +867,7 @@ AP_PROCS = 4
 # ranks take turns sized to the card's free memory when they start) waits
 # for the controls to end
 AP_EARLY_BYTES = 36e9
-AP_LAYERS = 16
+AP_LAYERS = 8
 AP_Z, AP_B, AP_S, AP_STEPS = 4, 2, 512, 2
 AP_LOAD = (AP_Z, AP_B, AP_S)
 AP_FAULT_LAYER = 5
@@ -880,7 +908,8 @@ AP_MOE_ROUTE_LAYER = AP_MOE_SLICE_LAYER = 0
 AP_MOE_LOSS_REL = 1.5e-3
 AP_MOE_ADAPTER_REL = 0.75
 AP_LLAMA4_ARCH = "llama4-scout-17b-a16e"
-AP_LLAMA4_LAYERS, AP_LLAMA4_STEPS = 2, 1
+# (AP_LLAMA4_LAYERS cut from 2 to 1, every layer an MoE one, for phase 39)
+AP_LLAMA4_LAYERS, AP_LLAMA4_STEPS = 1, 1
 AP_LLAMA4_LOSS_REL = 3e-3
 AP_LLAMA4_ADAPTER_REL = 0.75
 # phase 37: the ssm and hybrid families' sharded step, on the same mesh
@@ -928,6 +957,36 @@ AP_QWEN_ARCH, AP_QWEN_LAYERS, AP_QWEN_LOAD = "qwen2-vl-72b", 2, (4, 2, 384)
 AP_QWEN_FAULT_RUNS = ({"prefix_head": (0, 1), "positions_rank0": (2, 3)},)
 AP_AUDIO_ARCH, AP_AUDIO_LAYERS, AP_AUDIO_LOAD = ("musicgen-medium", 8,
                                                  (4, 2, 512))
+# phase 39: the fault pool's two jobs of the sharded DPO loss and the
+# sharded prefill and serve steps, on the same mesh and ranks as phase 35,
+# each against a one-rank run in this process. (i) DPO: full-width
+# stablelm-3b in fp32 (DPO's margin, beta times a difference of per-slot
+# sums of log-probabilities, amplifies bf16 rounding about 660x, PERF.md)
+# at AP_DPO_LAYERS layers, Z 4, DPO_B pairs a slot of S 256, AP_DPO_STEPS
+# steps at lr AP_DPO_LR (1e-3 carries margins far enough for -log sigmoid
+# to round to 0 in a step or two), then the DPO eval step on the next
+# pairs; planted fault "dpo_swap": data rank 1's policy forwards swap each
+# pair (slots 2-3). (ii) Serving: full-width stablelm-3b in bf16 at
+# AP_SERVE_LAYERS layers, Z 4, b 2, a per-lane cache, a prompt of
+# AP_SERVE_S random tokens prefilled into a cache as long as the prompt
+# (the flash kernel), grown by AP_SERVE_DECODES + 1 rows, then
+# AP_SERVE_DECODES serve steps fed the one-rank run's greedy tokens and one
+# more with AP_IDLE_LANES idle (one lane on each data rank); planted fault
+# "kv_roll": on data rank 0 the last model rank writes its KV heads rolled
+# by one head (slots 0-1). The DPO bars are relative (loss and eval per
+# slot, and the adapters' RMS reading of phase 35), set from the card's
+# sound runs: on an H100 the sound run reads 6.545e-05 (loss), 1.184e-04
+# (eval) and 4.455e-03 (adapters: in fp32 few gradient signs flip), the
+# fault 7.403, 1.613 and 1.997 (PERF.md). The serving bars are
+# LOGITS_ATOL_REL / LOGITS_REL_RMS per slot over every step's logits: the
+# sound run reads at most 0.02033 / 0.02084 there, the fault at least
+# 1.40123 / 1.37081 on its slots.
+AP_DPO_LAYERS, AP_DPO_STEPS, AP_DPO_S, AP_DPO_LR = 4, 2, 256, 1e-4
+AP_DPO_LOSS_REL, AP_DPO_ADAPTER_REL = 5e-4, 0.05
+AP_DPO_FAULT = {"dpo_swap": (2, 3)}
+AP_SERVE_LAYERS, AP_SERVE_S, AP_SERVE_DECODES = 8, 512, 16
+AP_IDLE_LANES = ((0, 1), (3, 0))
+AP_SERVE_FAULT = {"kv_roll": (0, 1)}
 # device busy ms per profiled train step of each executor phase, by task
 STEP_BUSY_MS = {}
 DPO_B = 2                     # preference pairs per slot in the DPO phase
@@ -1436,7 +1495,8 @@ def serve_phase(torch, RL, cfg, params):
 
 
 def backward_kernel_phase(torch, RL, ref, cases=None,
-                          timed=("train", 2560, 2560), untimed=("dpo",)):
+                          timed=("train", 2560, 2560), untimed=("dpo",),
+                          dtype=None):
     """The four backward kernels, and the forward pair, against their
     plain versions at the training shapes (Z = 4 slots, T = TRAIN_B *
     TRAIN_S = 1024 token rows per slot, d in {2560, 6912}, true ranks
@@ -1447,8 +1507,10 @@ def backward_kernel_phase(torch, RL, ref, cases=None,
     din = dout = 2560; the forward pair's there under ``shapes["train"]``)
     and prints every case. ``cases`` replaces the shapes: then the times of
     all six at ``timed`` (label, din, dout) go under ``shapes[label]``;
-    cases labelled in ``untimed`` are checked, not timed."""
+    cases labelled in ``untimed`` are checked, not timed. ``dtype`` (bf16
+    by default) is the activations' and the gradients'."""
     dev = "cuda"
+    dtype = dtype or torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(2)
     Z, r = len(TRAIN_RANKS), 64
     T_train, T_dpo = TRAIN_B * TRAIN_S, DPO_B * TRAIN_S
@@ -1475,15 +1537,15 @@ def backward_kernel_phase(torch, RL, ref, cases=None,
         # two copies of the activations (2 x 4 x 1024 x 6912 bf16 = 113 MB,
         # more than the 50 MB L2), so a timing loop reads them from memory
         xs = [torch.randn(Z, T, din, generator=gen, device=dev)
-              .to(torch.bfloat16) for _ in range(2)]
+              .to(dtype) for _ in range(2)]
         dys = [torch.randn(Z, T, dout, generator=gen, device=dev)
-               .to(torch.bfloat16) for _ in range(2)]
+               .to(dtype) for _ in range(2)]
         A = torch.randn(Z, din, r, generator=gen, device=dev) / din ** 0.5
         B = torch.randn(Z, r, dout, generator=gen, device=dev) / r ** 0.5
         scale = torch.full((Z,), 2.0, device=dev)
         keep = (torch.arange(r, device=dev)[None, :] < ranks[:, None])
-        A_lib = (A * keep[:, None, :]).to(torch.bfloat16).transpose(1, 2)
-        B_lib = (B * keep[:, :, None]).to(torch.bfloat16).transpose(1, 2)
+        A_lib = (A * keep[:, None, :]).to(dtype).transpose(1, 2)
+        B_lib = (B * keep[:, :, None]).to(dtype).transpose(1, 2)
         ss = [RL.xa(x, A, rows, ranks) for x in xs]
         dss = [RL.ds(dy, B, scale, rows, ranks) for dy in dys]
         torch.cuda.synchronize()
@@ -1574,27 +1636,31 @@ def backward_kernel_phase(torch, RL, ref, cases=None,
         }
         # the bytes each function must move (inputs read once, outputs
         # written once, live rows/ranks only) and its flops
+        # (activations e bytes an element, the masters fp32; fp32
+        # activations take the FMA units' peak)
         sum_rr = sum(rk * nr for rk, nr in zip(live, nrows))
         rows_x = sum(nr for nr, rk in zip(nrows, live) if rk)
+        e = x.element_size()
+        peak = None if dtype == torch.bfloat16 else H100_FP32_FLOPS
         work = {
-            "xa": (rows_x * din * 2 + sum(live) * din * 4 + Z * T * r * 2,
+            "xa": (rows_x * din * e + sum(live) * din * 4 + Z * T * r * e,
                    2 * sum_rr * din),
-            "sb_add": (sum_rr * 2 + sum(live) * dout * 4 + Z * T * dout * 2,
+            "sb_add": (sum_rr * e + sum(live) * dout * 4 + Z * T * dout * e,
                        2 * sum_rr * dout),
-            "ds": (rows_x * dout * 2 + sum(live) * dout * 4 + Z * T * r * 2,
+            "ds": (rows_x * dout * e + sum(live) * dout * 4 + Z * T * r * e,
                    2 * sum_rr * dout),
-            "dx": (sum_rr * 2 + sum(live) * din * 4 + Z * T * din * 2,
+            "dx": (sum_rr * e + sum(live) * din * 4 + Z * T * din * e,
                    2 * sum_rr * din),
-            "da": (rows_x * din * 2 + sum_rr * 2 + Z * din * r * 4,
+            "da": (rows_x * din * e + sum_rr * e + Z * din * r * 4,
                    2 * sum_rr * din),
-            "db": (sum_rr * 2 + rows_x * dout * 2 + Z * r * dout * 4,
+            "db": (sum_rr * e + rows_x * dout * e + Z * r * dout * 4,
                    2 * sum_rr * dout),
         }
         for name, (kern, plain, lib) in timing.items():
             ms, _ = time_ms(torch, kern, 10)
             plain_ms, _ = time_ms(torch, plain, 10)
             lib_ms, _ = time_ms(torch, lib, 10)
-            bound_ms, bound_by = bound(*work[name])
+            bound_ms, bound_by = bound(*work[name], peak)
             print(f"{name:7s} {label:8s} {din:5d} {dout:5d}  "
                   f"{str(rows_t):22s} {ms:9.5f} {plain_ms:9.5f} "
                   f"{lib_ms:9.5f}  {bound_ms:9.6f} {bound_by:10s} "
@@ -5200,7 +5266,8 @@ def rwkv_phases(torch, fams, t_all):
     print(f"init: {rcfg.name} backbone in {time.perf_counter() - t:.1f} s")
     serve = streamed_serve_phase(torch, RL, rcfg, rparams)
     print(f"rwkv serve phase done at {time.perf_counter() - t_all:.1f} s")
-    for layers, hold in ((rcfg.num_layers, False), (RWKV_GRAD_LAYERS, True)):
+    for layers, hold in ((RWKV_CHECK_LAYERS, False),
+                         (RWKV_GRAD_LAYERS, True)):
         ccfg = dataclasses.replace(rcfg, num_layers=layers, dtype="float32")
         cparams = _cut_layers(rparams, layers, torch.float32)
         train_check(torch, fams, ccfg, cparams, TRAIN_RANKS, "rank-local",
@@ -6147,6 +6214,324 @@ def _planted_modal(faults):
         PT.SpmdPlan.prefix, PT.SpmdPlan.slot_positions = prefix, positions
 
 
+@contextlib.contextmanager
+def _planted_serve(faults):
+    """The faults of the sharded DPO and serving jobs named in ``faults``:
+    "dpo_swap", data rank 1's policy forwards score the rejected sequences
+    as chosen and the chosen as rejected (the frozen reference's forwards
+    do not); "kv_roll", on data rank 0 the last model rank writes its KV
+    heads into the cache rolled by one head (prefill and decode)."""
+    import torch
+
+    from repro_torch.core import losses as LS
+    from repro_torch.models import blocks as B
+    from repro_torch.models import shardctx
+    seq, span, lanes = LS._seq_logp, B._write_span, B._write_lanes
+
+    def other(cfg, params, lora, tokens, labels, remat):
+        sp = shardctx.spmd()
+        batch = swap.get("batch")
+        if ("dpo_swap" in faults and lora and batch is not None
+                and sp is not None and sp.data_rank == 1):
+            which = ("rejected" if tokens is batch["tokens_chosen"]
+                     else "chosen")
+            tokens, labels = (batch[f"tokens_{which}"],
+                              batch[f"labels_{which}"])
+        return seq(cfg, params, lora, tokens, labels, remat)
+
+    loss = LS.LOSSES["dpo"]
+    swap = {}
+
+    def dpo(cfg, params, lora, batch, active, **kw):
+        swap["batch"] = batch
+        try:
+            return loss(cfg, params, lora, batch, active, **kw)
+        finally:
+            swap.clear()
+
+    def rolled(new):
+        sp = shardctx.spmd()
+        if ("kv_roll" in faults and sp is not None and sp.data_rank == 0
+                and sp.model_rank == sp.m - 1):
+            return torch.roll(new, 1, dims=-2)   # [..., KV/m, hd]
+        return new
+
+    def write_span(c, new, start, mask):
+        return span(c, rolled(new), start, mask)
+
+    def write_lanes(c, new, index, mask):
+        return lanes(c, rolled(new), index, mask)
+
+    LS._seq_logp, LS.LOSSES["dpo"] = other, dpo
+    B._write_span, B._write_lanes = write_span, write_lanes
+    try:
+        yield
+    finally:
+        LS._seq_logp, LS.LOSSES["dpo"] = seq, loss
+        B._write_span, B._write_lanes = span, lanes
+
+
+def _placed(mesh, tree, specs):
+    from repro_torch.launch import partitioning as PT
+    return PT.distribute(mesh, tree, PT.to_named(mesh, specs))
+
+
+def _data_slots(mesh, Z: int) -> slice:
+    """The slots of this rank's data rank on ``mesh`` (all Z on a mesh
+    without a split data axis)."""
+    from repro_torch.launch.mesh import axis_sizes
+    d = axis_sizes(mesh).get("data", 1)
+    r = mesh.get_local_rank("data") if d > 1 else 0
+    return slice(r * Z // d, (r + 1) * Z // d)
+
+
+def ap_dpo(torch, cfg, mesh, params, lora, batches, ranks, *, lr: float,
+           bind_ranks: bool = True) -> dict:
+    """``len(batches) - 1`` DPO train steps (``steps_dist``, sharded on a
+    real multi-rank ``mesh``; on a one-rank mesh, the one-rank run), one a
+    batch, then the DPO eval step on the last batch with the trained
+    adapters. ``params``, ``lora`` and each batch (the pairs' tokens and
+    labels, [Z, b, S]) are whole: distributed here; slot z trains at
+    ``ranks[z]``, bound (the rank-local kernels) with ``bind_ranks``.
+    Returns {"losses": [steps, Z], "eval": [Z] (all slots, gathered over
+    "data"), "lora": this rank's adapters, "launches" and
+    "eval_launches": the kernel launches of the steps and of the eval
+    step, by set}."""
+    from repro_torch.launch import partitioning as PT
+    from repro_torch.launch import steps_dist as SD
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.optim import adamw
+    Z = ranks.shape[0]
+    dev = ranks.device
+    opt = adamw.init_state(lora, Z)
+    hp = adamw.SlotHParams.broadcast(Z, lr=lr, device=dev)
+    active = torch.ones((Z,), dtype=torch.int32, device=dev)
+    l_named = PT.to_named(mesh, PT.lora_param_specs(mesh, lora))
+    o_named = PT.to_named(mesh, PT.opt_state_specs(mesh, opt))
+    params = _placed(mesh, params, PT.base_param_specs(mesh, params))
+    lora = PT.distribute(mesh, lora, l_named)
+    opt = PT.distribute(mesh, opt, o_named)
+    hp = _placed(mesh, hp, PT.hp_specs(mesh, hp))
+    v_spec = PT.pick_spec(mesh, (Z,), [{0: "data"}, {}])
+    active, ranks = (_placed(mesh, t, v_spec) for t in (active, ranks))
+
+    def placed(batch):
+        batch = _placed(mesh, batch, PT.batch_specs(mesh, batch))
+        if bind_ranks:
+            batch["slot_ranks"] = ranks
+        return batch
+
+    step = SD.make_train_step(cfg, mesh, loss_kind="dpo")
+    out = {"losses": []}
+    before = TRAIN._launch_counts()
+    for batch in batches[:-1]:
+        lora, opt, metrics = step(params, lora, opt, hp, active, ranks,
+                                  placed(batch))
+        lora = PT.from_local(mesh, lora, l_named)
+        opt = PT.from_local(mesh, opt, o_named)
+        out["losses"].append(metrics["per_slot_loss"].float().cpu().tolist())
+    mid = TRAIN._launch_counts()
+    evaluate = SD.make_eval_step(cfg, mesh, loss_kind="dpo")
+    out["eval"] = evaluate(params, lora, active,
+                           placed(batches[-1])).float().cpu().tolist()
+    after = TRAIN._launch_counts()
+    out["launches"], out["eval_launches"] = (
+        {fam: {k: b[fam][k] - a[fam][k] for k in ks}
+         for fam, ks in b.items()} for a, b in ((before, mid), (mid, after)))
+    out["lora"] = PT.local(lora)
+    return out
+
+
+def ap_serve(torch, cfg, mesh, params, lora, batch, ranks, n: int, *,
+             per_lane: bool = False, grow: bool = False, feed=None,
+             idle=None) -> dict:
+    """The prefill step then ``n`` serve steps (``steps_dist``, sharded on
+    a real multi-rank ``mesh``; on a one-rank mesh, the one-rank run).
+    ``params``, ``lora`` and ``batch`` (tokens [Z, b, S] and a vlm's
+    prefix and positions) are whole: distributed here, the cache laid out
+    by ``cache_specs``: S + n rows (and one more for an ``idle`` step) or,
+    with ``grow``, S rows, grown by the rest after the prefill (a cache as
+    long as the prompt takes the flash kernel); a global position, or with
+    ``per_lane`` a [Z, b] one. Each serve step takes the previous logits'
+    greedy tokens or ``feed[i]`` ([Z, b], whole); with ``idle`` ((slot,
+    lane) pairs, a per-lane cache) one more step runs with those lanes
+    idle (``active``). The LoRA terms take the rank-local kernels at
+    ``ranks`` ([Z]; None: nothing bound). Returns, for this rank:
+    "logits" [n + 1, Z/d, b, V] fp32 (this data rank's slots, the whole
+    vocabulary), "tokens" [n (+ 1 with ``idle``), Z/d, b] (those fed),
+    "k" / "v" (the local K/V shards after the prefill), "launches" (by
+    set, every step), and with ``idle``: "idle_logits"
+    [Z/d, b, V], "idle_changed" (the entries of idle lanes' local K/V rows
+    and positions the step changed: must be 0) and "live_changed" (the
+    live lanes' entries it changed)."""
+    from repro_torch.core import lora as LORA
+    from repro_torch.launch import partitioning as PT
+    from repro_torch.launch import steps_dist as SD
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.models import model as M
+    tokens = batch["tokens"]
+    dev, (Z, b, S) = tokens.device, tuple(tokens.shape)
+    extra = n + (idle is not None)
+    params = _placed(mesh, params, PT.base_param_specs(mesh, params))
+    lora = _placed(mesh, lora, PT.lora_param_specs(mesh, lora))
+    batch = _placed(mesh, batch, PT.batch_specs(mesh, batch))
+    cache = M.init_cache(cfg, Z, b, S if grow else S + extra,
+                         per_lane=per_lane, device=dev)
+    named = PT.to_named(mesh, PT.cache_specs(mesh, cache))
+    cache = PT.distribute(mesh, cache, named)
+    mine = _data_slots(mesh, Z)
+    prefill = SD.make_prefill_step(cfg, mesh)
+    serve = SD.make_serve_step(cfg, mesh)
+    out = {"logits": [], "tokens": []}
+    before = TRAIN._launch_counts()
+    with (torch.inference_mode(),
+          LORA.slot_ranks(None if ranks is None else ranks[mine])):
+        logits, local = prefill(params, lora, cache, batch)
+        attn = local["layers"]["attn"]
+        out["k"], out["v"] = attn["k"].clone(), attn["v"].clone()
+        if grow:
+            for key, t in list(attn.items()):
+                attn[key] = torch.cat([t, t.new_zeros(
+                    t.shape[:3] + (extra,) + t.shape[4:])], dim=3)
+        cache = PT.from_local(mesh, local, named)
+        for i in range(n):
+            out["logits"].append(logits.float())
+            cur = (logits.argmax(-1).to(torch.int32) if feed is None
+                   else feed[i][mine].to(dev, torch.int32))
+            out["tokens"].append(cur)
+            logits, local = serve(params, lora, cache, cur)
+            cache = PT.from_local(mesh, local, named)
+        out["logits"].append(logits.float())
+        if idle is not None:
+            active = torch.ones((Z, b), dtype=torch.bool, device=dev)
+            for z, lane in idle:
+                active[z, lane] = False
+            attn = local["layers"]["attn"]
+            was = [attn["k"].clone(), attn["v"].clone(),
+                   local["pos"].clone()]
+            cur = (logits.argmax(-1).to(torch.int32) if feed is None
+                   else feed[n][mine].to(dev, torch.int32))
+            out["tokens"].append(cur)
+            out["idle_logits"], local = serve(params, lora, cache, cur,
+                                              active)
+            now = [local["layers"]["attn"]["k"], local["layers"]["attn"]["v"],
+                   local["pos"]]
+            # changed entries per lane of this data rank's slots [Z/d, b]
+            diff = (now[2] != was[2])[mine].long() + sum(
+                (a != w).sum(dim=(0, *range(3, a.dim())))
+                for a, w in zip(now[:2], was[:2]))
+            live = active[mine]
+            out["idle_changed"] = int(diff[~live].sum())
+            out["live_changed"] = int(diff[live].sum())
+    after = TRAIN._launch_counts()
+    out["launches"] = {fam: {k: after[fam][k] - before[fam][k] for k in ks}
+                       for fam, ks in after.items()}
+    out["logits"] = torch.stack(out["logits"])
+    out["tokens"] = torch.stack(out["tokens"]) if n else None
+    return out
+
+
+def _dpo_inputs(torch, dev, reduced: bool = False):
+    """Phase 39's DPO job, as every process builds it from the seeds:
+    (config (``reduced``: the tiny fp32 variant), full weights, adapters,
+    [AP_DPO_STEPS + 1] batches of pairs, ranks) on ``dev``."""
+    from repro_torch.core import lora as LORA
+    from repro_torch.data.synthetic import PairSlotBatcher
+    from repro_torch.models import model as M
+    cfg = _ap_config(reduced, layers=AP_DPO_LAYERS, dtype="float32")
+    Z = len(RANKS)
+    ranks = torch.tensor(RANKS, dtype=torch.int32, device=dev)
+    params = M.init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    lora = LORA.init_lora_tree(gen, cfg, Z, ranks, M.target_shapes(cfg))
+    pairs = PairSlotBatcher(*_pair_data(cfg), Z, DPO_B, seed=0)
+    require(pairs.seq_len == AP_DPO_S, f"DPO pairs of {pairs.seq_len}")
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                pairs.next_batch_dict().items()}
+               for _ in range(AP_DPO_STEPS + 1)]
+    return cfg, params, lora, batches, ranks
+
+
+def _serve_inputs(torch, dev, reduced: bool = False):
+    """Phase 39's serving job, as every process builds it from the seeds:
+    (config (``reduced``: the tiny fp32 variant), full weights, adapters
+    (B drawn N(0, 0.003)), the prompt batch [Z, 2, AP_SERVE_S], ranks) on
+    ``dev``."""
+    from repro_torch.core import lora as LORA
+    from repro_torch.models import model as M
+    cfg = _ap_config(reduced, layers=AP_SERVE_LAYERS)
+    Z = len(RANKS)
+    ranks = torch.tensor(RANKS, dtype=torch.int32, device=dev)
+    params = M.init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    lora = LORA.init_lora_tree(gen, cfg, Z, ranks, M.target_shapes(cfg))
+    for ab in lora.values():
+        ab["B"].normal_(0.0, 0.003, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (Z, 2, AP_SERVE_S),
+                           generator=gen, device=dev, dtype=torch.int32)
+    return cfg, params, lora, {"tokens": tokens}, ranks
+
+
+def _pool_job(spec: dict, dev, meshes: dict) -> None:
+    """Phase 39's jobs of the fault pool: ``spec["kind"]`` "dpo" (the
+    sharded DPO steps and eval of ``_dpo_inputs``, sound and with
+    AP_DPO_FAULT) or "serve" (the sharded serving of ``_serve_inputs``,
+    fed ``spec["feed"]``'s tokens, sound with the idle step and with
+    AP_SERVE_FAULT), one weight draw for both runs (with
+    ``spec["reduced"]``, of the tiny fp32 configs). Each run's results go
+    to ``spec["out"]``: the DPO runs' losses, evals and adapters as
+    ``launch.train.write_out`` writes them (``dpo_<fault>.npz``), and per
+    rank ``<kind>_<fault>_rank<r>.json`` (launches; the serving's idle
+    readings) and, from each data rank's first model rank, the serving
+    logits (``serve_<fault>_data<i>.npz``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import train as TRAIN
+    out, kind = Path(spec["out"]), spec["kind"]
+    if AP_MESH not in meshes:
+        meshes[AP_MESH] = TRAIN.build_mesh(AP_MESH, dev)
+    mesh = meshes[AP_MESH]
+    rank = torch.distributed.get_rank()
+    first = mesh.get_local_rank("model") == 0
+    data = mesh.get_local_rank("data")
+    if kind == "dpo":
+        cfg, params, lora, batches, ranks = _dpo_inputs(torch, dev,
+                                                        spec["reduced"])
+        faults = AP_DPO_FAULT
+    else:
+        cfg, params, lora, batch, ranks = _serve_inputs(torch, dev,
+                                                        spec["reduced"])
+        feed = torch.load(spec["feed"], map_location=dev)
+        faults = AP_SERVE_FAULT
+    for fault in ("none", *faults):
+        planted = (contextlib.nullcontext() if fault == "none"
+                   else _planted_serve((fault,)))
+        with planted:
+            if kind == "dpo":
+                res = ap_dpo(torch, cfg, mesh, params, lora, batches,
+                             ranks, lr=AP_DPO_LR)
+                TRAIN.write_out(str(out / f"dpo_{fault}.npz"), mesh, res)
+                info = {k: res[k] for k in ("launches", "eval_launches")}
+            else:
+                res = ap_serve(torch, cfg, mesh, params, lora, batch,
+                               ranks, AP_SERVE_DECODES, per_lane=True,
+                               grow=True, feed=feed,
+                               idle=AP_IDLE_LANES if fault == "none"
+                               else None)
+                info = {k: res[k] for k in ("launches", "idle_changed",
+                                            "live_changed") if k in res}
+                if first:
+                    logits = {"logits": res["logits"].cpu().numpy()}
+                    if "idle_logits" in res:
+                        logits["idle_logits"] = res["idle_logits"].float(
+                            ).cpu().numpy()
+                    np.savez(out / f"serve_{fault}_data{data}.npz", **logits)
+        (out / f"{kind}_{fault}_rank{rank}.json").write_text(
+            json.dumps(info))
+        del res
+
+
 def ap_fault_child(argv) -> int:
     """One rank of phases 35-38's planted-fault pool (``chip_smoke.py
     --ap-faults <dir> --device <d> --backend <b>``, AP_PROCS ranks in
@@ -6176,7 +6561,8 @@ def ap_fault_child(argv) -> int:
                 if (jobs / "end").exists():
                     return 0
                 time.sleep(0.05)
-            _fault_job(json.loads(job.read_text()), dev, meshes)
+            spec = json.loads(job.read_text())
+            (_pool_job if "kind" in spec else _fault_job)(spec, dev, meshes)
             gc.collect()            # the steps' graphs: the next run's
             if dev.type == "cuda":  # weights need the card
                 torch.cuda.empty_cache()
@@ -6308,12 +6694,15 @@ class ApRuns:
         now = time.perf_counter()
         self.lead = now - self.t_next if self.next is not None else 0.0
         started, self.next = self.next or self._start(i), None
+        self._start_pool()
+        return started
+
+    def _start_pool(self) -> None:
         if self.pool is None:
             self.pool = _ap_start(
                 [sys.executable, str(ROOT / "chip_smoke.py"), "--ap-faults",
                  str(self.dir), "--device", self.device, "--backend",
                  "gloo"], self.dir, "fault")
-        return started
 
     def start_next(self) -> None:
         """Start the following run's launcher ranks, if one is left and
@@ -6339,11 +6728,17 @@ class ApRuns:
         """Give the pool ``runs`` (each a list of faults; empty: a sound
         run) of ``cfg`` at ``steps`` and ``load``, their files to ``out``.
         Returns the job's number for ``wait``."""
+        return self.job({"faults": [",".join(r) or "none" for r in runs],
+                         "args": _ap_args(cfg, self.reduced, self.device,
+                                          steps, load)
+                         + ["--dtype", cfg.dtype],
+                         "out": str(out)})
+
+    def job(self, spec: dict) -> int:
+        """Give the pool the job ``spec`` (``_fault_job``'s, or with a
+        "kind" ``_pool_job``'s); returns its number for ``wait``."""
+        self._start_pool()
         k, self.jobs = self.jobs, self.jobs + 1
-        spec = {"faults": [",".join(r) or "none" for r in runs],
-                "args": _ap_args(cfg, self.reduced, self.device, steps,
-                                 load) + ["--dtype", cfg.dtype],
-                "out": str(out)}
         tmp = self.dir / f"job{k}.tmp"
         tmp.write_text(json.dumps(spec))
         tmp.rename(self.dir / f"job{k}.json")
@@ -7000,6 +7395,265 @@ def ap_modal_phase(torch, fams, runs: ApRuns) -> tuple:
     return lora, flash, qwen["launches"], audio["launches"]
 
 
+def ap_dpo_serve_phase(torch, fams, runs: ApRuns) -> tuple:
+    """Phase 39: the fault pool's jobs of the sharded DPO loss and the
+    sharded prefill and serve steps (see AP_DPO_LAYERS). While the card is
+    free, rows 13-18 at a rank's shapes of the fp32 DPO job (T = DPO_B ·
+    AP_DPO_S rows a slot: q/k/v and gate/up column-parallel, o and down
+    row-parallel), rows 13-14 at a rank's decode shapes (T = b = 2 rows a
+    slot) and row 19 on a rank's heads in fp32 at S AP_DPO_S against their
+    plain versions (the prefill's bf16 flash shape is phase 35's); then the
+    DPO job goes to the pool while this process runs the one-rank serving
+    (whose greedy tokens feed the pool's serving job) and the one-rank DPO
+    run. Each sharded run is held against its one-rank run: DPO per slot on
+    the loss, the eval and the adapter reading, within AP_DPO_LOSS_REL /
+    AP_DPO_ADAPTER_REL, the fault past all three on its slots; serving per
+    slot over every step's logits and the idle step's live lanes within
+    LOGITS_ATOL_REL / LOGITS_REL_RMS, the idle lanes' K/V rows and
+    positions bitwise untouched on every rank, the fault past both bars on
+    its slots. Every rank's launches of rows 13-19 are checked. Returns
+    (the rank-local kernels' results, flash's, the DPO job's and the
+    serving job's sound launches, summed over the pool's ranks)."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.grouped_lora import ref
+
+    RL, fp32 = fams["rank-local"], torch.float32
+    dd, m = (int(x) for x in AP_MESH.split("x"))
+    t0 = time.perf_counter()
+    lora, flash = {}, {}
+    dcfg = _ap_config(False, layers=AP_DPO_LAYERS, dtype="float32")
+    d, ff = dcfg.d_model, dcfg.d_ff
+    T = DPO_B * AP_DPO_S
+    _merged(lora, backward_kernel_phase(
+        torch, RL, ref, timed=("apdpo_row", d // m, d),
+        untimed=("apdpo_col", "apdpo_ff"), dtype=fp32,
+        cases=[("apdpo_col", T, d, d // m, RANKS, None),
+               ("apdpo_ff", T, d, ff // m, RANKS, None),
+               ("apdpo_row", T, d // m, d, RANKS, None),
+               ("apdpo_ff", T, ff // m, d, RANKS, None)]))
+    _merged(lora, kernel_phase(
+        torch, RL, ref, timed={("apdecode", d // m, d): "apdecode"},
+        cases=[("apdecode", 2, d, d // m, RANKS, None),
+               ("apdecode", 2, d, ff // m, RANKS, None),
+               ("apdecode", 2, d // m, d, RANKS, None),
+               ("apdecode", 2, ff // m, d, RANKS, None)]))
+    H = dcfg.num_heads // m
+    _, cases = flash_kernel_phase(
+        torch, FA, fref, dcfg, plain_labels=("train",),
+        cases=[("train", AP_Z // dd * DPO_B * H, AP_DPO_S, AP_DPO_S,
+                dcfg.resolved_head_dim, 0, fp32)])
+    flash.update({f"apdpo_{k}": v for k, v in cases.items()})
+    print(f"ap dpo / serve: kernel checks {time.perf_counter() - t0:.1f} s")
+    dcfg, scfg, dpo_parts, serve_parts = ap_dpo_serve_jobs(torch, runs)
+    train, evals, (train_seq, eval_seq) = _step_launches(dcfg, "dpo")
+    for r, part in enumerate(dpo_parts):
+        for what, want, want_seq, n in (
+                ("launches", train, train_seq, AP_DPO_STEPS),
+                ("eval_launches", evals, eval_seq, 1)):
+            got = part[what]
+            require(got["rank-local"] == {k: v * n for k, v in want.items()}
+                    and got["flash"]["flash_attention"] == want_seq * n
+                    and not any(got["dense"].values())
+                    and not any(got["ragged"].values())
+                    and not any(got["scan"].values()),
+                    f"ap dpo rank {r}: {what} {got}, expected rank-local "
+                    f"{want} and flash {want_seq} a step")
+    per_forward = len(scfg.lora.targets) * scfg.num_layers
+    forwards = 1 + AP_SERVE_DECODES + 1
+    for r, part in enumerate(serve_parts):
+        got = part["launches"]
+        want = {k: (per_forward * forwards if k in ("xa", "sb_add") else 0)
+                for k in got["rank-local"]}
+        require(got["rank-local"] == want
+                and got["flash"]["flash_attention"] == scfg.num_layers
+                and not any(got["dense"].values())
+                and not any(got["ragged"].values())
+                and not any(got["scan"].values()),
+                f"ap serve rank {r}: launches {got}, expected rank-local "
+                f"{want} and flash {scfg.num_layers} (the prefill)")
+    print(f"ap dpo / serve phase: {time.perf_counter() - t0:.1f} s")
+    return (lora, flash, _summed(dpo_parts, "launches"),
+            _summed(serve_parts, "launches"))
+
+
+def _summed(parts, what: str) -> dict:
+    """The launches ``what`` of each rank's results ``parts``, by set,
+    summed over the ranks."""
+    tot = {}
+    for part in parts:
+        for fam, ks in part[what].items():
+            for k, v in ks.items():
+                tot.setdefault(fam, {}).setdefault(k, 0)
+                tot[fam][k] += v
+    return tot
+
+
+def ap_dpo_serve_jobs(torch, runs: ApRuns) -> tuple:
+    """Phase 39's jobs and readings (``ap_dpo_serve_phase``): the DPO job
+    to the pool, the one-rank serving (its greedy tokens feed the pool's
+    serving job) and DPO runs here, then every reading against its bars.
+    With ``runs.reduced`` every run is its config's tiny fp32 variant (on
+    the CPU, a check of this machinery; its bars are not the card's).
+    Returns (the DPO config, the serving config, each pool rank's results
+    of the sound DPO and serving runs)."""
+    import numpy as np
+    from repro_torch.launch import mesh as MESH
+
+    Z = len(RANKS)
+    dd = int(AP_MESH.split("x")[0])
+    t = time.perf_counter()
+    seconds = {}
+    dcfg = _ap_config(runs.reduced, layers=AP_DPO_LAYERS, dtype="float32")
+    out = Path(tempfile.mkdtemp(prefix="ap_dpo_serve_", dir=runs.dir))
+    k_dpo = runs.job({"kind": "dpo", "out": str(out),
+                      "reduced": runs.reduced})
+    with MESH.process_group(runs.device) as dev:
+        mesh = MESH.make_local_mesh((1, 1), device=dev)
+        scfg, params, slora, batch, ranks = _serve_inputs(torch, dev,
+                                                          runs.reduced)
+        one = ap_serve(torch, scfg, mesh, params, slora, batch, ranks,
+                       AP_SERVE_DECODES, per_lane=True, grow=True,
+                       idle=AP_IDLE_LANES)
+        torch.save(one["tokens"].cpu(), out / "feed.pt")
+        k_serve = runs.job({"kind": "serve", "out": str(out),
+                            "feed": str(out / "feed.pt"),
+                            "reduced": runs.reduced})
+        del params, slora, batch
+        _, params, dlora, batches, ranks = _dpo_inputs(torch, dev,
+                                                       runs.reduced)
+        # a copy: the one-rank step updates the adapters in place
+        init = {f"lora/{tg}/{k}": v.cpu().numpy().copy()
+                for tg, ab in dlora.items() for k, v in ab.items()}
+        res = ap_dpo(torch, dcfg, mesh, params, dlora, batches, ranks,
+                     lr=AP_DPO_LR)
+        one_dpo = {"losses": np.asarray(res["losses"]),
+                   "eval": np.asarray(res["eval"]),
+                   **{f"lora/{tg}/{k}": v.cpu().numpy()
+                      for tg, ab in res["lora"].items()
+                      for k, v in ab.items()}}
+        del params, dlora, batches, res
+    seconds["one_rank"] = time.perf_counter() - t
+    runs.wait(k_dpo)
+    runs.wait(k_serve)
+    seconds["one_rank_and_jobs"] = time.perf_counter() - t
+    gc.collect()
+    if runs.device == "cuda":
+        torch.cuda.empty_cache()
+
+    def rank_files(kind, fault):
+        return [json.loads((out / f"{kind}_{fault}_rank{r}.json").read_text())
+                for r in range(AP_PROCS)]
+
+    # -- (i) DPO
+    dpo_parts = rank_files("dpo", "none")
+    got = dict(np.load(out / "dpo_none.npz"))
+    loss, adapters = _ap_readings(np, got, one_dpo, init, range(Z))
+    ev = _ap_eval(np, got["eval"], one_dpo["eval"], range(Z))
+    print(f"ap dpo: {AP_MESH} vs 1x1, {dcfg.name} {dcfg.num_layers} layers "
+          f"fp32, Z {Z}, {DPO_B} pairs of {AP_DPO_S} a slot, ranks {RANKS}, "
+          f"{AP_DPO_STEPS} steps at lr {AP_DPO_LR}: loss reading {loss:.3e} "
+          f"(bar {AP_DPO_LOSS_REL}), adapter reading {adapters:.3e} (bar "
+          f"{AP_DPO_ADAPTER_REL}), eval reading {ev:.3e} (bar "
+          f"{AP_DPO_LOSS_REL}); losses {got['losses'].tolist()} vs "
+          f"{one_dpo['losses'].tolist()}; evals {got['eval'].tolist()} vs "
+          f"{one_dpo['eval'].tolist()}")
+    require(bool(np.isfinite(got["losses"]).all()
+                 and np.isfinite(got["eval"]).all())
+            and bool((np.abs(one_dpo["eval"] - np.log(2.0)) > 1e-4).all()),
+            "ap dpo: losses not finite, or the eval still reads log 2")
+    require(loss <= AP_DPO_LOSS_REL and adapters <= AP_DPO_ADAPTER_REL
+            and ev <= AP_DPO_LOSS_REL,
+            f"ap dpo: readings {loss}, {adapters}, {ev} past the bars")
+    for fault, slots in AP_DPO_FAULT.items():
+        bad = dict(np.load(out / f"dpo_{fault}.npz"))
+        fl, fa = _ap_readings(np, bad, one_dpo, init, slots)
+        fe = _ap_eval(np, bad["eval"], one_dpo["eval"], slots)
+        kept = [z for z in range(Z) if z not in slots]
+        kl, ka = _ap_readings(np, bad, one_dpo, init, kept)
+        print(f"ap dpo: planted fault {fault}: loss reading {fl:.3e}, "
+              f"adapter reading {fa:.3e}, eval reading {fe:.3e} on slots "
+              f"{slots} (must pass all three bars); the other slots "
+              f"{kl:.3e}, {ka:.3e}")
+        require(fl > AP_DPO_LOSS_REL and fa > AP_DPO_ADAPTER_REL
+                and fe > AP_DPO_LOSS_REL,
+                f"ap dpo: planted fault {fault} within a bar")
+        require(kl <= AP_DPO_LOSS_REL and ka <= AP_DPO_ADAPTER_REL,
+                f"ap dpo: planted fault {fault} reaches slots {kept}")
+
+    # -- (ii) serving
+    serve_parts = rank_files("serve", "none")
+    for r, part in enumerate(serve_parts):
+        require(part["idle_changed"] == 0 and part["live_changed"] > 0,
+                f"ap serve rank {r}: the idle step changed "
+                f"{part['idle_changed']} entries of idle lanes and "
+                f"{part['live_changed']} of live ones")
+    print(f"ap serve: every rank's idle-step lanes: "
+          f"{[(p['idle_changed'], p['live_changed']) for p in serve_parts]}"
+          f" (idle, live) entries changed")
+
+    def sharded(fault):
+        parts = [dict(np.load(out / f"serve_{fault}_data{i}.npz"))
+                 for i in range(dd)]
+        return {k: np.concatenate([p[k] for p in parts],
+                                  axis=1 if k == "logits" else 0)
+                for k in parts[0]}
+
+    def gap(a, b):
+        """Per slot over every step ([steps, Z, ...]): max|a-b| / max|b|
+        and the relative RMS."""
+        dlt = (a - b).swapaxes(0, 1).reshape(Z, -1)
+        b = b.swapaxes(0, 1).reshape(Z, -1)
+        return (np.abs(dlt).max(1) / np.abs(b).max(1),
+                np.linalg.norm(dlt, axis=1) / np.linalg.norm(b, axis=1))
+
+    def show(g):
+        return (f"max|diff|/max|logit| {[round(float(v), 5) for v in g[0]]}"
+                f", relative RMS {[round(float(v), 5) for v in g[1]]}")
+
+    want = one["logits"].cpu().numpy()
+    live = np.ones((Z, 2), bool)
+    for z, lane in AP_IDLE_LANES:
+        live[z, lane] = False
+    got = sharded("none")
+    sound = gap(got["logits"], want)
+    idle_want = one["idle_logits"].float().cpu().numpy()
+    idle = gap(np.where(live[..., None], got["idle_logits"], 0)[None],
+               np.where(live[..., None], idle_want, 0)[None])
+    agree = float((got["logits"].argmax(-1) == want.argmax(-1)).mean())
+    print(f"ap serve: {AP_MESH} vs 1x1, {scfg.name} {scfg.num_layers} "
+          f"layers {scfg.dtype}, Z {Z}, b 2, a {AP_SERVE_S}-token prompt "
+          f"into a per-lane cache then {AP_SERVE_DECODES} steps fed the "
+          f"one-rank "
+          f"run's tokens: per slot over the {AP_SERVE_DECODES + 1} logits "
+          f"{show(sound)}; the idle step's live lanes {show(idle)} (bars "
+          f"{LOGITS_ATOL_REL}, {LOGITS_REL_RMS}); greedy agreement "
+          f"{agree:.3f}")
+    require(bool(np.isfinite(got["logits"]).all())
+            and got["logits"].shape == (AP_SERVE_DECODES + 1, Z, 2,
+                                        scfg.vocab_size),
+            f"ap serve: logits {got['logits'].shape} not finite or "
+            f"misshapen")
+    require(max(sound[0].max(), idle[0].max()) <= LOGITS_ATOL_REL
+            and max(sound[1].max(), idle[1].max()) <= LOGITS_REL_RMS,
+            "ap serve: sharded logits too far from the one-rank run's")
+    for fault, slots in AP_SERVE_FAULT.items():
+        bad = gap(sharded(fault)["logits"], want)
+        kept = [z for z in range(Z) if z not in slots]
+        print(f"ap serve: planted fault {fault}: {show(bad)} (slots {slots} "
+              f"must pass both bars, {kept} stay within them)")
+        require(min(bad[0][list(slots)]) > LOGITS_ATOL_REL
+                and min(bad[1][list(slots)]) > LOGITS_REL_RMS,
+                f"ap serve: planted fault {fault} within the bars")
+        require(max(bad[0][kept]) <= LOGITS_ATOL_REL
+                and max(bad[1][kept]) <= LOGITS_REL_RMS,
+                f"ap serve: planted fault {fault} reaches slots {kept}")
+    shutil.rmtree(out, ignore_errors=True)
+    seconds["jobs_phase"] = time.perf_counter() - t
+    print(f"ap dpo / serve: seconds {seconds}")
+    return dcfg, scfg, dpo_parts, serve_parts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7177,6 +7831,13 @@ def main() -> int:
             torch, fams, runs)
         print(f"ap vlm / audio phase {time.perf_counter() - t:.1f} s, done "
               f"at {time.perf_counter() - t_all:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        apx_lora, apx_flash, apdpo_launches, apserve_launches = \
+            ap_dpo_serve_phase(torch, fams, runs)
+        print(f"ap dpo / serve phase {time.perf_counter() - t:.1f} s, done "
+              f"at {time.perf_counter() - t_all:.1f} s")
         ok = True
     finally:
         runs.close(ok)
@@ -7222,7 +7883,9 @@ def main() -> int:
                 "ap_rwkv_train": apr_launches["rank-local"][name],
                 "ap_hymba_train": aph_launches["rank-local"][name],
                 "ap_vlm_train": apv_launches["rank-local"][name],
-                "ap_audio_train": apa_launches["rank-local"][name]}, \
+                "ap_audio_train": apa_launches["rank-local"][name],
+                "ap_dpo": apdpo_launches["rank-local"][name],
+                "ap_serve": apserve_launches["rank-local"][name]}, \
                 dict(kern[name])
             by_path["serve"] = serve_launches[name]
             by_path["rwkv_serve"] = rwkv_serve[name]
@@ -7235,8 +7898,10 @@ def main() -> int:
                              **ap_lora[name]["shapes"],
                              **apm_lora[name]["shapes"],
                              **aps_lora[name]["shapes"],
-                             **apv_lora[name]["shapes"]}
+                             **apv_lora[name]["shapes"],
+                             **apx_lora[name]["shapes"]}
             res["max_abs_err"] = max(res["max_abs_err"],
+                                     apx_lora[name]["max_abs_err"],
                                      h_lora[name]["max_abs_err"],
                                      m_lora[name]["max_abs_err"],
                                      f_lora[name]["max_abs_err"],
@@ -7300,6 +7965,8 @@ def main() -> int:
     by_path["ap_hymba_train"] = aph_launches["flash"]["flash_attention"]
     by_path["ap_vlm_train"] = apv_launches["flash"]["flash_attention"]
     by_path["ap_audio_train"] = apa_launches["flash"]["flash_attention"]
+    by_path["ap_dpo"] = apdpo_launches["flash"]["flash_attention"]
+    by_path["ap_serve"] = apserve_launches["flash"]["flash_attention"]
     table["kernels"].append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -7308,7 +7975,7 @@ def main() -> int:
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         **with_paths(flash, hymba=h_flash, moe=m_flash, families=f_flash,
                      ap=ap_flash, apmoe=apm_flash, apssm=aps_flash,
-                     apmodal=apv_flash)})
+                     apmodal=apv_flash, apdpo=apx_flash)})
     by_path = {"rwkv_train": rwkv_launches["linear_scan"],
                "rwkv_serve": rwkv_serve["linear_scan"],
                "hymba_train": h_launches["linear_scan"],

@@ -51,6 +51,16 @@ def sft_loss(cfg: ModelConfig, params: Dict, lora: Dict, batch: Dict,
     return total, per_slot
 
 
+def _seq_logp(cfg: ModelConfig, params: Dict, lora: Dict,
+              tokens: torch.Tensor, labels: torch.Tensor,
+              remat: bool) -> torch.Tensor:
+    """Per-slot sum of the labels' log-probabilities [Z] under ``lora``
+    (the empty tree: the frozen base model)."""
+    h, _, _ = M.forward(cfg, params, lora, tokens, remat=remat)
+    nll_sum, _ = M.per_slot_xent(cfg, params, h, labels)
+    return -nll_sum
+
+
 def dpo_loss(cfg: ModelConfig, params: Dict, lora: Dict, batch: Dict,
              active: torch.Tensor, beta: float = 0.1, remat: bool = True
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -60,20 +70,21 @@ def dpo_loss(cfg: ModelConfig, params: Dict, lora: Dict, batch: Dict,
     each [Z, b, S]. The REFERENCE policy is the frozen base model — the
     LoRA-free forward (the empty adapter tree) — so no reference copy is
     ever materialized. The reference forwards take no gradient and run
-    under ``torch.no_grad()``: the same values, no graph kept.
+    under ``torch.no_grad()``: the same values, no graph kept, and no LoRA
+    launch. As in the JAX package, the loss takes no MoE load-balance term.
+    Sharded (``shardctx.spmd()``), each of the four forwards runs on this
+    data rank's slots under the plan, the per-slot sums are all-reduced
+    over "model" by ``per_slot_xent``, and the total covers this rank's
+    slots (the step gathers the per-slot losses over "data").
 
     Returns (total scalar, per-slot mean -log sigmoid margin [Z])."""
-    def seq_logp(lora_tree, tokens, labels):
-        h, _, _ = M.forward(cfg, params, lora_tree, tokens, remat=remat)
-        nll_sum, _ = M.per_slot_xent(cfg, params, h, labels)
-        return -nll_sum   # sum log p per slot
+    def seq_logp(lora_tree, which):
+        return _seq_logp(cfg, params, lora_tree, batch[f"tokens_{which}"],
+                         batch[f"labels_{which}"], remat)
 
-    lp_c = seq_logp(lora, batch["tokens_chosen"], batch["labels_chosen"])
-    lp_r = seq_logp(lora, batch["tokens_rejected"], batch["labels_rejected"])
+    lp_c, lp_r = seq_logp(lora, "chosen"), seq_logp(lora, "rejected")
     with torch.no_grad():   # reference = base model (empty adapter set)
-        ref_c = seq_logp({}, batch["tokens_chosen"], batch["labels_chosen"])
-        ref_r = seq_logp({}, batch["tokens_rejected"],
-                         batch["labels_rejected"])
+        ref_c, ref_r = seq_logp({}, "chosen"), seq_logp({}, "rejected")
     margin = beta * ((lp_c - ref_c) - (lp_r - ref_r))
     per_slot = -torch.log(torch.clamp(
         (1.0 / (1.0 + torch.exp(-margin))).float(), 1e-12, 1.0))

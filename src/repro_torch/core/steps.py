@@ -135,14 +135,24 @@ def make_eval_step(cfg: ModelConfig, *, loss_kind: str = "sft") -> Callable:
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
     """prefill_step(params, lora, cache, batch) -> (last-token logits,
-    cache)."""
+    cache).
+
+    Sharded on a real multi-rank mesh (``launch/steps_dist.py``), the
+    logits are those of this data rank's slots ([Z/d, b, V]), over the
+    whole vocabulary on every model rank: the last token's hidden state
+    comes from the model rank whose sequence block holds it
+    (``SpmdPlan.last_row``) and a vocabulary-parallel unembedding's logits
+    are gathered over "model"; the cache is this rank's shard, its K/V
+    heads of its slots written in place."""
 
     def prefill_step(params, lora, cache, batch):
         h, _, cache = M.forward(cfg, params, lora, batch["tokens"],
                                 positions=batch.get("positions"),
                                 modal_embeds=batch.get("modal_embeds"),
                                 cache=cache)
-        return M._unembed(cfg, params, h[:, :, -1]), cache
+        sp = shardctx.spmd()
+        last = h[:, :, -1] if sp is None else sp.last_row(h)
+        return M._unembed(cfg, params, last), cache
 
     return prefill_step
 
@@ -150,7 +160,13 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
 def make_serve_step(cfg: ModelConfig) -> Callable:
     """serve_step(params, lora, cache, tokens[Z,b], active=None)
     -> (logits, cache). ``active`` ([Z, b] bool, per-lane caches) freezes
-    idle lanes bitwise while live lanes decode."""
+    idle lanes bitwise while live lanes decode.
+
+    Sharded on a real multi-rank mesh, ``tokens`` are this data rank's
+    slots (or a DTensor of all of them), the cache's positions and
+    ``active`` arrive whole, and the step returns this data rank's slots'
+    logits ([Z/d, b, V], the whole vocabulary) and the cache's local
+    shards with the positions updated whole (``models.model.decode_step``)."""
 
     def serve_step(params, lora, cache, tokens, active=None):
         return M.decode_step(cfg, params, lora, cache, tokens, active=active)

@@ -27,9 +27,10 @@ takes it back) and nothing moves: the activation policy resolves and
 records each constraint's spec and returns the tensor unchanged. On a real
 multi-rank ``(data, model)`` mesh ``distribute`` slices each rank's shard
 out of the full tensor, and the policy's ``SpmdPlan`` runs the train and
-eval steps (the dense, MoE, ssm, hybrid, vlm and audio families;
-``check_sharded``; the eval step is the train step's forward, with no
-backward):
+eval steps (the dense, MoE, ssm, hybrid, vlm and audio families, the SFT
+and DPO losses; ``check_sharded``; the eval step is the train step's
+forward, with no backward) and the prefill and serve steps (the dense, vlm
+and audio families, their attention heads split over "model"):
 
   * "data" is Adapter Parallelism (paper Fig. 8): each data rank holds its
     Z/d slots' adapters, gradients, AdamW state, hyper-parameters, ranks
@@ -81,7 +82,24 @@ backward):
     no collective). Per-slot positions (``[Z, b, S]``, M-RoPE's ``[3, Z, b,
     S]``) arrive whole, as the reference's batch spec keeps them, and each
     data rank takes its own slots' before the rotary angles
-    (``SpmdPlan.slot_positions``).
+    (``SpmdPlan.slot_positions``);
+  * DPO: the policy's two forwards and the frozen reference's two (the
+    empty adapter tree, no gradient) each run the layout above on the data
+    rank's slots; the per-slot log-probability sums are all-reduced over
+    "model" by the loss head, and each rank's total covers its own slots;
+  * prefill and serve (``cache_specs``): the K/V cache [L, Z, b, Sc, KV,
+    hd] is split by slots over "data" and by KV heads over "model"; each
+    rank writes its KV heads of its slots, for the whole sequence of the
+    column-parallel projections' gathered input. The positions (``pos``, a
+    ring's ``k_pos``) and a serve step's ``active`` lanes arrive whole on
+    every rank and each data rank reads its own slots' lanes
+    (``SpmdPlan.slot_lanes``); the updated positions are computed whole.
+    A serve step's residual (S 1) is not sequence-sharded: its partial sums
+    are all-reduced. The last token's hidden state comes from the model
+    rank whose sequence block holds it (``SpmdPlan.last_row``), and a
+    vocabulary-parallel unembedding's logits are gathered over "model"
+    (``SpmdPlan.whole_vocab``): every rank returns its data rank's slots'
+    logits over the whole vocabulary.
 
 Every opt level runs this one schedule: the levels change only the recorded
 ``decisions`` and the hints, and the numbers stay equal. A mesh over a
@@ -109,9 +127,15 @@ SHARDED_EXECUTION = ("sharded execution over a fake group is not possible: "
 # what a multi-rank mesh runs today, and where the rest is queued
 SHARDED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 # the step builders (``steps_dist.make_<name>_step``) whose steps run
-# sharded; the prefill and serve steps need the caches sharded
-# (``cache_specs``)
-SHARDED_STEPS = ("train", "eval")
+# sharded; the prefill and serve steps only for the families whose cache is
+# K/V alone, with the attention heads split over "model"
+SHARDED_STEPS = ("train", "eval", "prefill", "serve")
+SHARDED_CACHE_FAMILIES = ("dense", "vlm", "audio")
+# the caches of the families whose prefill and serve steps are queued
+_QUEUED_CACHES = {"moe": "K/V beside the routed experts' decode",
+                  "ssm": "the wkv / tm_x / cm_x recurrent state",
+                  "hybrid": "K/V (or a ring) beside the Mamba conv / ssm "
+                            "state"}
 SHARDED_QUEUE = "queued in ROADMAP.md §1, the rest of sharded execution"
 
 
@@ -545,20 +569,24 @@ def whole_heads(cfg, m: int) -> bool:
             and bool(cfg.num_heads % m or cfg.num_kv_heads % m))
 
 
-def check_sharded(cfg, mesh, loss_kind: str = "sft") -> None:
-    """Raise ``NotImplementedError`` unless the sharded train and eval
-    steps run ``cfg`` on the real multi-rank ``mesh``: the dense, MoE, ssm,
-    hybrid, vlm or audio family (vlm and audio as dense), the SFT loss, a
-    ("data", "model") mesh, and, over a model axis of m > 1 ranks, the
-    Megatron layout (q/k/v, gate/up, RWKV's r/k/v/g and
-    ffn_k, Mamba's in_proj and conv split by output columns; o, down,
-    ffn_v and out_proj by input rows). Attention whose heads do not split
-    runs whole (``whole_heads``): its weights may take any split. Scan
-    heads (RWKV's and Mamba's) must divide by m. The embedding and an
+def check_sharded(cfg, mesh, step: str = "train") -> None:
+    """Raise ``NotImplementedError`` unless the ``step`` builder's step
+    (``SHARDED_STEPS``) runs ``cfg`` on the real multi-rank ``mesh``: the
+    dense, MoE, ssm, hybrid, vlm or audio family (vlm and audio as dense)
+    with either loss (SFT or DPO), a ("data", "model") mesh, and, over a
+    model axis of m > 1 ranks, the Megatron layout (q/k/v, gate/up, RWKV's
+    r/k/v/g and ffn_k, Mamba's in_proj and conv split by output columns;
+    o, down, ffn_v and out_proj by input rows). Attention whose heads do
+    not split runs whole (``whole_heads``): its weights may take any split.
+    Scan heads (RWKV's and Mamba's) must divide by m. The embedding and an
     untied unembedding are split by vocabulary or, where the rule falls
     back, whole. MoE: the router whole, the routed experts split by expert
     or whole, the shared expert's gate/up by columns and its down by rows,
-    or all three whole."""
+    or all three whole. The prefill and serve steps run the families of
+    ``SHARDED_CACHE_FAMILIES`` only, with their attention heads split over
+    "model" (the K/V cache split by KV heads, ``cache_specs``)."""
+    if step not in SHARDED_STEPS:
+        raise ValueError(f"unknown step {step!r}")
     names = tuple(axis_names(mesh))
     if names != ("data", "model"):
         raise NotImplementedError(
@@ -568,11 +596,20 @@ def check_sharded(cfg, mesh, loss_kind: str = "sft") -> None:
         raise NotImplementedError(
             f"sharded execution of the {cfg.family} family ({cfg.name}) is "
             f"not ported ({SHARDED_QUEUE})")
-    if loss_kind != "sft":
-        raise NotImplementedError(
-            f"sharded execution of the {loss_kind} loss is not ported "
-            f"({SHARDED_QUEUE})")
     m = axis_sizes(mesh)["model"]
+    if step in ("prefill", "serve"):
+        what = f"sharded execution of the {step} step (make_{step}_step)"
+        if cfg.family not in SHARDED_CACHE_FAMILIES:
+            raise NotImplementedError(
+                f"{what} of the {cfg.family} family ({cfg.name}) is not "
+                f"ported: its cache ({_QUEUED_CACHES[cfg.family]}) is not "
+                f"laid out over the mesh ({SHARDED_QUEUE})")
+        if whole_heads(cfg, m):
+            raise NotImplementedError(
+                f"{what} of {cfg.name} is not ported: its {cfg.num_heads} "
+                f"heads and {cfg.num_kv_heads} KV heads do not split over "
+                f"model {m}, so attention runs whole heads there and the K/V "
+                f"cache does not split by KV heads ({SHARDED_QUEUE})")
     if m == 1:
         return
     d, L, ff = cfg.d_model, cfg.num_layers, cfg.d_ff
@@ -662,14 +699,14 @@ def _weight_name(path: Tuple) -> str:
 
 
 class SpmdPlan:
-    """The collectives of the sharded train and eval steps on a real
-    ("data", "model") mesh, issued on local shards through
+    """The collectives of the sharded train, eval, prefill and serve steps
+    on a real ("data", "model") mesh, issued on local shards through
     ``launch/collectives.py`` (the module docstring has the layout).
     ``bind`` reads each base
-    weight's placements off the DTensor parameters and the batch's global
-    shape; the model reaches the plan through ``models.shardctx.spmd()``;
-    ``log`` collects the ``collectives.Record`` of every collective the
-    step's calls issue."""
+    weight's placements off the DTensor parameters and the global shape of
+    the call's tokens; the model reaches the plan through
+    ``models.shardctx.spmd()``; ``log`` collects the ``collectives.Record``
+    of every collective the step's calls issue."""
 
     def __init__(self, mesh: DeviceMesh, decide):
         sizes = axis_sizes(mesh)
@@ -693,7 +730,14 @@ class SpmdPlan:
 
     # -- per call ----------------------------------------------------------
 
-    def bind(self, params: Dict, batch: Dict) -> None:
+    def bind(self, params: Dict, tokens: torch.Tensor,
+             batch: Optional[Dict] = None) -> None:
+        """Bind one call: the weights' placements (read once) and the
+        shapes of ``tokens``, the call's [Z, b, S] tokens (a DPO batch's
+        chosen ones) or a serve step's [Z, b] (S 1: the residual is not
+        sequence-sharded), a DTensor (its global shape) or this data rank's
+        slots; ``batch``, where the step takes one, may not carry ragged
+        slot rows over a split model axis."""
         if self.layouts is None:
             self.layouts = _weight_layouts(self.mesh, params)
         emb = params["embed"]
@@ -701,17 +745,18 @@ class SpmdPlan:
             raise ValueError("the sharded step takes the parameters as "
                              "DTensors (partitioning.distribute)")
         self.d_model = emb.shape[1]
-        tok = batch["tokens"]
-        if isinstance(tok, DTensor):
-            self.z, b, self.seq_len = tok.shape
-            self.z_local = tok.to_local().shape[0]
+        shape = tuple(tokens.shape)
+        self.z, b = shape[:2]
+        self.seq_len = shape[2] if len(shape) > 2 else 1
+        if isinstance(tokens, DTensor):
+            self.z_local = tokens.to_local().shape[0]
         else:
-            self.z_local, b, self.seq_len = tok.shape
-            self.z = self.z_local * self.d
+            self.z_local, self.z = self.z, self.z * self.d
         if self.z != self.z_local * self.d:
             raise NotImplementedError(
                 f"Z = {self.z} slots do not split over data {self.d}")
-        if batch.get("slot_rows") is not None and self.m > 1:
+        if (batch is not None and batch.get("slot_rows") is not None
+                and self.m > 1):
             raise NotImplementedError(
                 "ragged slot rows on a split model axis are not ported "
                 f"({SHARDED_QUEUE})")
@@ -990,6 +1035,38 @@ class SpmdPlan:
                              f"{self.z} slots")
         return positions.narrow(dim, self.data_rank * self.z_local,
                                 self.z_local)
+
+    def slot_lanes(self, t: torch.Tensor) -> torch.Tensor:
+        """This data rank's slots of a per-lane tensor ([Z, b, ...]: a
+        cache's ``pos`` or ring ``k_pos``, a serve step's ``active``), which
+        arrives whole on every rank, as ``cache_specs`` keeps the positions,
+        data-major as ``shard_of`` cuts the cache: each rank writes and
+        reads its own lanes at their own indices."""
+        if t.shape[0] != self.z:
+            raise ValueError(f"per-lane {tuple(t.shape)} for {self.z} "
+                             f"slots")
+        return t.narrow(0, self.data_rank * self.z_local, self.z_local)
+
+    def last_row(self, h: torch.Tensor) -> torch.Tensor:
+        """The hidden state of the last token ([Z/d, b, d]) of ``h`` ([Z/d,
+        b, S or S/m, d]) on every model rank: where the residual is
+        sequence-sharded it lies in model rank m-1's block, and every rank
+        gathers the blocks' last rows over "model" (forward only) and takes
+        that one."""
+        if self.m == 1 or not self.seq_sharded:
+            return h[:, :, -1]
+        rows = C.all_gather(h[:, :, -1:].contiguous(), self.mesh, "model", 2,
+                            "activation", self.log)
+        return rows[:, :, -1]
+
+    def whole_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """Logits of a vocabulary-parallel unembedding ([..., V/m])
+        gathered over "model" to the whole vocabulary on every model rank
+        (forward only); where the unembedding is whole, as they are."""
+        if self.split("lm_head") is None:
+            return logits
+        return C.all_gather(logits.contiguous(), self.mesh, "model", -1,
+                            "activation", self.log)
 
     def loss_rows(self, hidden: torch.Tensor, labels: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:

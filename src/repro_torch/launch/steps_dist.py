@@ -9,20 +9,25 @@ local shard (the kernels take plain tensors; the step's in-place updates
 land in the local shards).
 
 On a one-rank mesh the shards are whole and nothing moves. On a real
-multi-rank ("data", "model") mesh the train and eval steps run sharded: the
-policy's ``SpmdPlan`` reads the parameters' placements and the batch's
-global shape at each call and issues the collectives
-(``launch/collectives.py``); ``partitioning.check_sharded`` refuses, with
-``NotImplementedError``, what the sharded steps do not run (the DPO loss,
-the pod axis, scan heads that do not split over "model"), and the prefill
-and serve steps raise on such a mesh (they need the caches sharded). The
-eval step is the train step's forward with no backward: every family the
-train step runs (dense, MoE, ssm, hybrid, vlm, audio), the same schedule,
-and every rank returns all Z per-slot losses, gathered over "data".
-Attention whose heads do not split over "model" runs whole on every model
-rank (``partitioning.whole_heads``). One schedule serves every opt level:
-the levels change only the recorded decisions and hints, and the numbers
-stay equal.
+multi-rank ("data", "model") mesh every step runs sharded: the policy's
+``SpmdPlan`` reads the parameters' placements and the global shape of the
+call's tokens at each call and issues the collectives
+(``launch/collectives.py``). ``partitioning.check_sharded`` refuses, with
+``NotImplementedError``, what a step does not run on ``cfg`` (the pod axis,
+scan heads that do not split over "model", and the prefill and serve steps
+of the MoE, ssm and hybrid families and of attention whose heads do not
+split). The train and eval steps run every family (dense, MoE, ssm,
+hybrid, vlm, audio) with either loss (SFT or DPO); the eval step is the
+train step's forward with no backward, on the same schedule, and every rank
+returns all Z per-slot losses, gathered over "data". Attention whose heads
+do not split over "model" runs whole on every model rank
+(``partitioning.whole_heads``) in those two. The prefill and serve steps
+(dense, vlm, audio) take the cache as ``cache_specs`` lays it out (K/V by
+slots over "data" and by KV heads over "model", ``pos`` whole) and a serve
+step's ``active`` whole; each returns its data rank's slots' logits over the
+whole vocabulary and the cache's local shards. One schedule serves every
+opt level: the levels change only the recorded decisions and hints, and
+the numbers stay equal.
 """
 from __future__ import annotations
 
@@ -37,30 +42,36 @@ from repro_torch.models import shardctx
 # each step builder's name and the activation policy's step kind for it
 STEP_KINDS = {"train": "train", "eval": "prefill", "prefill": "prefill",
               "serve": "decode"}
+# the argument of each step whose shape a sharded call binds, (name,
+# position): train(params, lora, opt, hp, active, ranks, batch),
+# eval(params, lora, active, batch), prefill(params, lora, cache, batch),
+# serve(params, lora, cache, tokens, active=None)
+BOUND_ARG = {"train": ("batch", 6), "eval": ("batch", 3),
+             "prefill": ("batch", 3), "serve": ("tokens", 3)}
 
 
 def _wrap(cfg: ModelConfig, mesh, fn: Callable, step: str,
           seq_shard: bool = True, opt_level: int = 0) -> Callable:
     """``fn``, the ``step`` builder's step, under the policy of ``mesh``;
-    on a real multi-rank mesh a call refuses the steps that do not run
-    sharded (``partitioning.SHARDED_STEPS``), and the plan runs attention
-    whole where ``cfg``'s heads do not split."""
+    on a real multi-rank mesh each call binds the plan to its own
+    arguments (``BOUND_ARG``), and the plan runs attention whole where
+    ``cfg``'s heads do not split."""
     policy = PT.activation_policy(mesh, seq_shard=seq_shard,
                                   opt_level=opt_level,
                                   step_kind=STEP_KINDS[step])
     plan = policy.spmd
     if plan is not None:
         plan.attn_whole = PT.whole_heads(cfg, plan.m)
+    name, at = BOUND_ARG[step]
 
     def wrapped(*args, **kw):
         if plan is not None:
-            if step not in PT.SHARDED_STEPS:
-                raise NotImplementedError(
-                    f"sharded execution of the {step} step (make_{step}_"
-                    f"step) is not ported: it needs the K/V and recurrent "
-                    f"caches sharded ({PT.SHARDED_QUEUE})")
-            # (params, lora, opt, hp, active, ranks, batch)
-            plan.bind(args[0], kw.get("batch", args[-1]))
+            x = kw[name] if name in kw else args[at]
+            if name == "tokens":
+                plan.bind(args[0], x)
+            else:
+                plan.bind(args[0], x.get("tokens", x.get("tokens_chosen")),
+                          x)
         args, kw = PT.local(list(args)), PT.local(kw)
         try:
             with shardctx.sharding_policy(policy):
@@ -73,11 +84,15 @@ def _wrap(cfg: ModelConfig, mesh, fn: Callable, step: str,
     return wrapped
 
 
+def _checked(cfg: ModelConfig, mesh, step: str) -> None:
+    if PT._real_multi_rank(mesh):
+        PT.check_sharded(cfg, mesh, step)
+
+
 def make_train_step(cfg: ModelConfig, mesh, *, loss_kind="sft",
                     remat: bool = True, seq_shard: bool = True,
                     opt_level: int = 0) -> Callable:
-    if PT._real_multi_rank(mesh):
-        PT.check_sharded(cfg, mesh, loss_kind)
+    _checked(cfg, mesh, "train")
     return _wrap(cfg, mesh, S.make_train_step(cfg, loss_kind=loss_kind,
                                               remat=remat),
                  "train", seq_shard, opt_level)
@@ -85,19 +100,20 @@ def make_train_step(cfg: ModelConfig, mesh, *, loss_kind="sft",
 
 def make_eval_step(cfg: ModelConfig, mesh, *, opt_level: int = 0,
                    **kw) -> Callable:
-    if PT._real_multi_rank(mesh):
-        PT.check_sharded(cfg, mesh, kw.get("loss_kind", "sft"))
+    _checked(cfg, mesh, "eval")
     return _wrap(cfg, mesh, S.make_eval_step(cfg, **kw), "eval",
                  opt_level=opt_level)
 
 
 def make_prefill_step(cfg: ModelConfig, mesh, *,
                       opt_level: int = 0) -> Callable:
+    _checked(cfg, mesh, "prefill")
     return _wrap(cfg, mesh, S.make_prefill_step(cfg), "prefill",
                  opt_level=opt_level)
 
 
 def make_serve_step(cfg: ModelConfig, mesh, *,
                     opt_level: int = 0) -> Callable:
+    _checked(cfg, mesh, "serve")
     return _wrap(cfg, mesh, S.make_serve_step(cfg), "serve",
                  opt_level=opt_level)

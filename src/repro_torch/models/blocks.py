@@ -185,8 +185,11 @@ def attn_sublayer(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
     Sharded over "model" (``shardctx.spmd()``), x holds this rank's
     sequence block and the heads are this rank's H/m and KV/m: the
     column-parallel q/k/v read the whole sequence, and the output is the
-    row-parallel o_proj's partial sum. Where the heads do not split
-    (``SpmdPlan.attn_whole``), every model rank runs all of them: q/k/v
+    row-parallel o_proj's partial sum. With a cache (this rank's shard:
+    its slots' lanes, its KV heads) the rank writes its KV heads for the
+    whole sequence of the gathered input, or, decoding, its lanes at their
+    own indices under its lanes of ``write_mask``. Where the heads do not
+    split (``SpmdPlan.attn_whole``), every model rank runs all of them: q/k/v
     over the whole sequence with the weights gathered over "model", the
     output cut to this rank's sequence block before o_proj
     (``SpmdPlan.whole_out``)."""

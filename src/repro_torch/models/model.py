@@ -14,7 +14,7 @@ contract the JAX package keeps with whole-cache selects.
 The sharding hints (``models/shardctx``) sit where the reference's do
 (``model.py:67-80,189-200``): the embedded residual stream, the
 ``lm_head`` weight and the logits. On a real multi-rank mesh they issue
-the sharded train step's collectives (``launch/partitioning.py``); a
+the sharded steps' collectives (``launch/partitioning.py``); a
 remat recompute re-issues its layer's collectives, in the same order on
 every rank.
 """
@@ -110,9 +110,15 @@ def _angles(cfg: ModelConfig,
 
 
 def _unembed(cfg: ModelConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Logits of the hidden states ``x`` [..., d]. Sharded
+    (``shardctx.spmd()``), a vocabulary-parallel unembedding's logits are
+    gathered over "model": every model rank returns the whole
+    vocabulary."""
     W = params["lm_head"] if not cfg.tie_embeddings else params["embed"].T
     W = constrain(W, "weight:lm_head")
-    return constrain(x @ W, "logits")
+    logits = constrain(x @ W, "logits")
+    sp = shardctx.spmd()
+    return logits if sp is None else sp.whole_vocab(logits)
 
 
 def _remat_block(binding, model_backend: str, sharding, cfg: ModelConfig,
@@ -329,24 +335,38 @@ def decode_step(cfg: ModelConfig, params: Dict, lora: Dict, cache: Dict,
     [Z, b]) each (slot, lane) stream writes at its own index and sees only
     keys up to its own position. ``active`` ([Z, b] bool, per-lane caches
     only) freezes idle lanes: their K/V rows and recurrent state and
-    position stay bitwise untouched while live lanes advance."""
+    position stay bitwise untouched while live lanes advance.
+
+    Sharded (``shardctx.spmd()``), ``tokens`` and the cache's K/V are this
+    rank's shards, while a per-lane ``pos`` (and ring ``k_pos``) and
+    ``active`` arrive whole: the layers read this data rank's slots of them
+    (``SpmdPlan.slot_lanes``) for the positions, the write indices and the
+    write mask, and the new positions are computed whole, the same on every
+    rank."""
     Z, bsz = tokens.shape
     pos = cache["pos"]
     per_lane = pos.dim() == 2
     if active is not None and not per_lane:
         raise ValueError("an active mask needs a per-lane cache")
     dev = tokens.device
+    sp = shardctx.spmd()
+
+    def mine(t):
+        """A per-lane tensor's lanes of the slots this call runs."""
+        return t if sp is None or t is None else sp.slot_lanes(t)
+
     x = _embed(params, tokens[:, :, None])
+    lane_pos = mine(pos) if per_lane else pos
     if per_lane:
-        positions = pos[..., None]                         # [Z, b, 1]
+        positions = lane_pos[..., None]                    # [Z, b, 1]
         if cfg.rope.is_mrope:
             positions = positions.expand(3, Z, bsz, 1)
     else:
         positions = text_positions((), 1, cfg.rope, offset=pos, device=dev)
     ctx: Dict[str, Any] = {
         "angles": _angles(cfg, positions),
-        "q_pos": pos[..., None] if per_lane else pos[None],
-        "write_mask": active,
+        "q_pos": lane_pos[..., None] if per_lane else pos[None],
+        "write_mask": mine(active),
     }
     new_kpos = None
     if cfg.family == "ssm":
@@ -364,9 +384,10 @@ def decode_step(cfg: ModelConfig, params: Dict, lora: Dict, cache: Dict,
         else:
             new_kpos = cache["k_pos"].clone()
             new_kpos.index_copy_(0, widx.view(1).long(), pos.view(1))
-        ctx.update(write_index=widx, k_pos=new_kpos, window=W)
+        ctx.update(write_index=mine(widx) if per_lane else widx,
+                   k_pos=mine(new_kpos) if per_lane else new_kpos, window=W)
     else:
-        ctx.update(write_index=pos, kv_valid_len=pos + 1,
+        ctx.update(write_index=lane_pos, kv_valid_len=lane_pos + 1,
                    window=_train_window(cfg))
     x, _ = _run_layers(cfg, x, params, lora, ctx, cache["layers"])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -274,3 +274,94 @@ def modal_batches(name: str, tokens: np.ndarray, labels: np.ndarray,
     return {"modal": modal, "labels": labels,
             "positions": np.ascontiguousarray(np.broadcast_to(
                 pos[:, :, None], (3, Zs, b, S)))}
+
+
+# The DPO loss and the prefill and serve steps on the same meshes. DPO
+# batch t pairs the run's batch t (chosen) with its next batch (rejected,
+# cycled); the dense example takes DPO_STEPS steps on every mesh of
+# PORT_MESHES, and each run of DPO_RUNS (a key of the other AP test files'
+# runs) one step on DPO_MESH; each ends with the DPO eval step on DPO batch
+# 0 with the trained adapters. The prefill step fills a cache of S +
+# SERVE_DECODES rows with the run's first batch (its prefix and positions
+# too), then SERVE_DECODES greedy serve steps decode, with the adapters of
+# ``serve_lora`` (B nonzero, so that every LoRA term counts): the dense
+# example and the runs of SERVE_RUNS, on their meshes.
+DPO_STEPS = 2
+# the DPO steps' lr: at LR two steps carry the margins past 17, where
+# -log sigmoid is 0 in fp32 and the eval step would read nothing
+DPO_LR = 1e-4
+DPO_RUNS = ("granite_span", "rwkv", "hymba128", "vlm40", "audio")
+DPO_MESH = (2, 2)
+SERVE_DECODES = 8
+SERVE_RUNS = ("vlm40", "audio")
+# the per-lane check of the dense example on 2x2 (``tests/test_torch_ap.py``
+# (h)): after the prefill and one decode step of every lane, a serve step
+# with these (slot, lane) idle, one on each data rank
+IDLE_LANES = ((1, 0), (2, 3))
+# chip_smoke.py's planted faults of the new paths, each planted alone in a
+# 2x2 run of the dense example: "dpo_swap", data rank 1's policy forwards
+# score the rejected sequences as chosen and the chosen as rejected (slots
+# 2-3); "kv_roll", on data rank 0 the last model rank writes its KV heads
+# into the cache rolled by one head (slots 0-1)
+SERVE_FAULTS = {"dpo_swap": (2, 3), "kv_roll": (0, 1)}
+
+
+def dpo_batch(init: dict, t: int) -> dict:
+    """DPO batch ``t`` of ``init`` as numpy arrays: its batch t chosen, its
+    batch t + 1 (cycled) rejected."""
+    r = (t + 1) % init["tokens"].shape[0]
+    return {"tokens_chosen": init["tokens"][t],
+            "labels_chosen": init["labels"][t],
+            "tokens_rejected": init["tokens"][r],
+            "labels_rejected": init["labels"][r]}
+
+
+def serve_lora(init: dict, seed: int = 1) -> dict:
+    """The serving runs' adapters: ``init``'s, each B drawn N(0, 0.01) from
+    a numpy seed (A's columns past a slot's rank are 0, so its rank
+    holds)."""
+    rng = np.random.default_rng(seed)
+    lora = unflat(init, "lora/")
+    for ab in lora.values():
+        ab["B"] = (0.01 * rng.standard_normal(ab["B"].shape)).astype(
+            ab["B"].dtype)
+    return lora
+
+
+def serve_batch(init: dict) -> dict:
+    """The prefill step's batch as numpy arrays: the run's first batch's
+    tokens and, where ``init`` holds them, its prefix and positions."""
+    batch = {"tokens": init["tokens"][0]}
+    if "modal" in init:
+        batch["modal_embeds"] = init["modal"][0]
+        batch["positions"] = init["positions"]
+    return batch
+
+
+def served(work: str, name: str, shape) -> dict:
+    """The serving results ``<name>_rank<r>.npz`` of every rank of a
+    ``shape`` (d, m) mesh (rank r at data rank r // m, model rank r % m),
+    assembled: "logits" [n + 1, Z, b, V] and "tokens" [n, Z, b] (and
+    "idle_logits" [Z, b, V]) from each data rank's model rank 0, after
+    checking that its other model ranks returned the same bitwise; "k" /
+    "v" [L, Z, b, Sc, KV, hd] from every rank's shard; "ranks", every
+    rank's file."""
+    import os
+    d, m = shape
+    parts = [dict(np.load(os.path.join(work, f"{name}_rank{r}.npz")))
+             for r in range(d * m)]
+    out = {"ranks": parts}
+    for key in ("logits", "tokens", "idle_logits"):
+        if key not in parts[0]:
+            continue
+        for i in range(d):
+            for j in range(1, m):
+                assert np.array_equal(parts[i * m + j][key],
+                                      parts[i * m][key]), (name, key, i, j)
+        out[key] = np.concatenate([parts[i * m][key] for i in range(d)],
+                                  axis=1 if key != "idle_logits" else 0)
+    for key in ("k", "v"):
+        out[key] = np.concatenate([np.concatenate(
+            [parts[i * m + j][key] for j in range(m)], axis=4)
+            for i in range(d)], axis=1)
+    return out

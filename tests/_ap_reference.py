@@ -35,7 +35,13 @@ those of ``common.MODAL_ONE_RANK``).
 Every run of the dense example, of ``common.MOE_EVALS``, of
 ``common.SSM_EVALS`` and of ``common.MODAL_RUNS`` also writes "eval": the
 reference's ``make_eval_step`` on the same mesh after the steps, on the
-first batch with the trained adapters.
+first batch with the trained adapters. The dense example also writes
+``jax_dpo_<d>x<m>.npz`` (``common.DPO_STEPS`` GSPMD DPO steps and the DPO
+eval step) and ``jax_serve_<d>x<m>.npz`` (the GSPMD prefill step and
+``common.SERVE_DECODES`` greedy serve steps, ``serve``) on each mesh of
+``common.PORT_MESHES``; the runs of ``common.DPO_RUNS`` write
+``jax_<name>_dpo_2x2.npz`` and those of ``common.SERVE_RUNS``
+``jax_serve_<name>_<d>x<m>.npz`` (``extras``).
 """
 import json
 import os
@@ -65,21 +71,33 @@ def _batch(init, t):
     return batch
 
 
-def run(cfg, init, shape, steps=common.STEPS, evals=False):
+def _mesh(shape):
+    return jax.make_mesh(shape, ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+
+
+def run(cfg, init, shape, steps=common.STEPS, evals=False,
+        loss_kind="sft"):
     """``steps`` steps of the GSPMD train step on a ``shape`` mesh; with
     ``evals`` also its eval step after them, on the first batch with the
-    trained adapters ("eval": the [Z] per-slot losses)."""
-    mesh = jax.make_mesh(shape, ("data", "model"),
-                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    trained adapters ("eval": the [Z] per-slot losses). With ``loss_kind``
+    "dpo", the DPO loss on ``common.dpo_batch``'s pairs."""
+    mesh = _mesh(shape)
+    if loss_kind == "dpo":
+        batch_of = lambda t: {k: jnp.asarray(v) for k, v in  # noqa: E731
+                              common.dpo_batch(init, t).items()}
+    else:
+        batch_of = lambda t: _batch(init, t)  # noqa: E731
     params = jax.tree_util.tree_map(jnp.asarray, common.unflat(init,
                                                                "params/"))
     lora = jax.tree_util.tree_map(jnp.asarray, common.unflat(init, "lora/"))
     Z = common.Z
     opt = adamw.init_state(lora, Z)
-    hp = adamw.SlotHParams.broadcast(Z, lr=common.LR)
+    hp = adamw.SlotHParams.broadcast(
+        Z, lr=common.DPO_LR if loss_kind == "dpo" else common.LR)
     ranks = jnp.asarray(common.RANKS, jnp.int32)
     active = jnp.ones((Z,), jnp.int32)
-    batch = _batch(init, 0)
+    batch = batch_of(0)
     ns = lambda t: PT.to_named(mesh, t)  # noqa: E731
     p_sh = ns(PT.base_param_specs(mesh, params))
     l_sh = ns(PT.lora_param_specs(mesh, lora))
@@ -87,7 +105,7 @@ def run(cfg, init, shape, steps=common.STEPS, evals=False):
     h_sh = ns(PT.hp_specs(mesh, hp))
     v_sh = PT.to_named(mesh, PT.pick_spec(mesh, (Z,), [{0: "data"}, {}]))
     b_sh = ns(PT.batch_specs(mesh, batch))
-    step = jax.jit(SD.make_train_step(cfg, mesh),
+    step = jax.jit(SD.make_train_step(cfg, mesh, loss_kind=loss_kind),
                    in_shardings=(p_sh, l_sh, o_sh, h_sh, v_sh, v_sh, b_sh),
                    out_shardings=(l_sh, o_sh, None))
     params = jax.device_put(params, p_sh)
@@ -97,10 +115,10 @@ def run(cfg, init, shape, steps=common.STEPS, evals=False):
     with mesh:
         for t in range(steps):
             lora, opt, metrics = step(params, lora, opt, hp, active, ranks,
-                                      _batch(init, t))
+                                      batch_of(t))
             losses.append(np.asarray(metrics["per_slot_loss"]))
         if evals:
-            ev = jax.jit(SD.make_eval_step(cfg, mesh),
+            ev = jax.jit(SD.make_eval_step(cfg, mesh, loss_kind=loss_kind),
                          in_shardings=(p_sh, l_sh, v_sh, b_sh))
             per_slot = np.asarray(ev(params, lora, active, batch))
     out = {"losses": np.stack(losses)}
@@ -109,6 +127,67 @@ def run(cfg, init, shape, steps=common.STEPS, evals=False):
     out.update(common.flat(jax.tree_util.tree_map(np.asarray, lora),
                            "lora/"))
     return out
+
+
+def serve(cfg, init, shape, n=common.SERVE_DECODES):
+    """The GSPMD prefill step on ``common.serve_batch`` into a cache of S +
+    ``n`` rows laid out by ``cache_specs``, then ``n`` greedy serve steps,
+    with ``common.serve_lora``'s adapters on a ``shape`` mesh: "logits"
+    [n + 1, Z, b, V] (the prefill's last token's, then each step's),
+    "tokens" [n, Z, b] (the greedy stream) and the prefilled cache's
+    "cache_k" / "cache_v" [L, Z, b, S + n, KV, hd]."""
+    from repro.models import model as JM
+    mesh = _mesh(shape)
+    params = jax.tree_util.tree_map(jnp.asarray, common.unflat(init,
+                                                               "params/"))
+    lora = jax.tree_util.tree_map(jnp.asarray, common.serve_lora(init))
+    batch = {k: jnp.asarray(v) for k, v in common.serve_batch(init).items()}
+    Z, b, S = batch["tokens"].shape
+    cache = JM.init_cache(cfg, Z, b, S + n)
+    ns = lambda t: PT.to_named(mesh, t)  # noqa: E731
+    p_sh = ns(PT.base_param_specs(mesh, params))
+    l_sh = ns(PT.lora_param_specs(mesh, lora))
+    c_sh = ns(PT.cache_specs(mesh, cache))
+    b_sh = ns(PT.batch_specs(mesh, batch))
+    t_sh = ns(PT.pick_spec(mesh, (Z, b), [{0: "data"}, {}]))
+    pre = jax.jit(SD.make_prefill_step(cfg, mesh),
+                  in_shardings=(p_sh, l_sh, c_sh, b_sh),
+                  out_shardings=(None, c_sh))
+    dec = jax.jit(SD.make_serve_step(cfg, mesh),
+                  in_shardings=(p_sh, l_sh, c_sh, t_sh),
+                  out_shardings=(None, c_sh))
+    params = jax.device_put(params, p_sh)
+    lora = jax.device_put(lora, l_sh)
+    cache = jax.device_put(cache, c_sh)
+    with mesh:
+        logits, cache = pre(params, lora, cache, batch)
+        out = {"cache_k": np.asarray(cache["layers"]["attn"]["k"]),
+               "cache_v": np.asarray(cache["layers"]["attn"]["v"])}
+        logs, toks = [np.asarray(logits)], []
+        for _ in range(n):
+            cur = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+            toks.append(np.asarray(cur))
+            logits, cache = dec(params, lora, cache, cur)
+            logs.append(np.asarray(logits))
+    out.update(logits=np.stack(logs), tokens=np.stack(toks))
+    return out
+
+
+def extras(workdir, name, cfg, init, shapes) -> None:
+    """The DPO and serving runs of run ``name`` (``common.DPO_RUNS``,
+    ``common.SERVE_RUNS``): ``jax_<name>_dpo_<d>x<m>.npz`` on
+    ``common.DPO_MESH`` and ``jax_serve_<name>_<d>x<m>.npz`` on each of
+    ``shapes``."""
+    if name in common.DPO_RUNS:
+        np.savez(os.path.join(workdir, f"jax_{name}_dpo_%dx%d.npz"
+                              % common.DPO_MESH),
+                 **run(cfg, init, common.DPO_MESH, 1, evals=True,
+                       loss_kind="dpo"))
+    if name in common.SERVE_RUNS:
+        for shape in shapes:
+            np.savez(os.path.join(workdir,
+                                  f"jax_serve_{name}_%dx%d.npz" % shape),
+                     **serve(cfg, init, shape))
 
 
 class _Over:
@@ -156,6 +235,7 @@ def ssm_main(workdir: str, names) -> None:
             np.savez(os.path.join(workdir, f"jax_{name}_%dx%d.npz" % shape),
                      **run(cfg, init, shape,
                            evals=name in common.SSM_EVALS))
+        extras(workdir, name, cfg, init, ())
     print("done")
 
 
@@ -168,6 +248,7 @@ def modal_main(workdir: str, names) -> None:
                 common.MODAL_RUNS[name][4]:
             np.savez(os.path.join(workdir, f"jax_{name}_%dx%d.npz" % shape),
                      **run(cfg, init, shape, evals=True))
+        extras(workdir, name, cfg, init, common.MODAL_RUNS[name][4])
     print("done")
 
 
@@ -179,6 +260,13 @@ def main(workdir: str, moe: str = "", cases=()) -> None:
         for shape in common.JAX_MESHES:
             out = run(cfg, init, shape, evals=True)
             np.savez(os.path.join(workdir, "jax_%dx%d.npz" % shape), **out)
+        for shape in common.PORT_MESHES:
+            tag = "%dx%d" % shape
+            np.savez(os.path.join(workdir, f"jax_dpo_{tag}.npz"),
+                     **run(cfg, init, shape, common.DPO_STEPS, evals=True,
+                           loss_kind="dpo"))
+            np.savez(os.path.join(workdir, f"jax_serve_{tag}.npz"),
+                     **serve(cfg, init, shape))
         print("done")
         return
     for case in cases:
@@ -192,6 +280,7 @@ def main(workdir: str, moe: str = "", cases=()) -> None:
                       evals=name in common.MOE_EVALS)
             np.savez(os.path.join(workdir, f"jax_{name}_%dx%d.npz" % shape),
                      **out)
+        extras(workdir, name, cfg, init, ())
         if case == "span":
             with open(os.path.join(workdir, f"drops_{name}.json"),
                       "w") as f:

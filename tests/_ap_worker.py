@@ -14,10 +14,17 @@ batches) and writes, rank 0 for the group:
     with slot 3 at 3e-3;
   * ``log_<d>x<m>_rank<r>.json`` — each rank's collective records of the
     opt-level-0 run on each mesh;
-  * ``refusals.json`` — the ``NotImplementedError`` message of the DPO
-    loss's train and eval steps on the 2x2 mesh, of a mesh with a pod axis,
-    of ragged slot rows on the 2x2 mesh's split model axis, and of a
-    prefill and a serve step on the 2x2 mesh.
+  * ``port_dpo_<d>x<m>.npz`` — 2 sharded DPO steps and the DPO eval step
+    on each mesh (``chip_smoke.ap_dpo``), and ``port_dpo_2x2_dpo_swap.npz``
+    with ``chip_smoke._planted_serve``'s "dpo_swap";
+  * ``serve_<d>x<m>_rank<r>.npz`` — each rank's prefill and greedy serve
+    steps (``chip_smoke.ap_serve``), ``serve_2x2_kv_roll_rank<r>.npz``
+    with the planted "kv_roll", and ``lanes_2x2_rank<r>.npz`` over a
+    per-lane cache with ``common.IDLE_LANES`` idle in a last step;
+  * ``refusals.json`` — the ``NotImplementedError`` message of a mesh with
+    a pod axis, of ragged slot rows on the 2x2 mesh's split model axis, and
+    of the prefill and serve steps of the moe, ssm and hybrid families and
+    of attention whose heads do not split, on the 2x2 mesh.
 
 Each ``port_<d>x<m>.npz`` also holds "eval": the sharded eval step after
 the steps, on the first batch with the trained adapters (so do the MoE
@@ -53,6 +60,11 @@ step's) out; on
 ``common.MODAL_FAULT_RUN`` at 2x2 also each fault of
 ``common.MODAL_FAULTS`` planted alone (``chip_smoke._planted_modal``),
 ``port_<tag>_<fault>.npz``.
+
+The MoE, ssm and modal runs of ``common.DPO_RUNS`` also write
+``port_<name>_dpo_2x2.npz`` (one DPO step and the DPO eval step), and those
+of ``common.SERVE_RUNS`` ``serve_<name>_<d>x<m>_rank<r>.npz`` on each of
+their meshes.
 """
 import dataclasses
 import json
@@ -122,6 +134,58 @@ def train(cfg, init, mesh, *, lrs=None, clip=1.0, opt_level=0,
     return out
 
 
+def dpo(cfg, init, mesh, steps=1):
+    """``steps`` sharded DPO steps on ``common.dpo_batch``'s pairs, then
+    the DPO eval step on DPO batch 0 with the trained adapters
+    (``chip_smoke.ap_dpo``, ranks unbound as in the reference's step)."""
+    params = bridge.params_from_numpy(cfg, common.unflat(init, "params/"),
+                                      "cpu")
+    lora = bridge.lora_from_numpy(common.unflat(init, "lora/"), "cpu")
+    batches = [{k: torch.from_numpy(v) for k, v in
+                common.dpo_batch(init, t).items()}
+               for t in (*range(steps), 0)]
+    return chip_smoke.ap_dpo(torch, cfg, mesh, params, lora, batches,
+                             torch.tensor(common.RANKS, dtype=torch.int32),
+                             lr=common.DPO_LR, bind_ranks=False)
+
+
+def serve(workdir, name, cfg, init, mesh, **kw) -> None:
+    """The sharded prefill step and ``common.SERVE_DECODES`` greedy serve
+    steps (``chip_smoke.ap_serve``: ``serve_lora``'s adapters, ranks
+    unbound as in the reference's steps); each rank writes its results,
+    its data rank's slots, to ``<name>_rank<r>.npz``."""
+    params = bridge.params_from_numpy(cfg, common.unflat(init, "params/"),
+                                      "cpu")
+    lora = bridge.lora_from_numpy(common.serve_lora(init), "cpu")
+    batch = {k: torch.from_numpy(v)
+             for k, v in common.serve_batch(init).items()}
+    res = chip_smoke.ap_serve(torch, cfg, mesh, params, lora, batch, None,
+                              common.SERVE_DECODES, **kw)
+    out = {k: res[k].numpy() for k in ("logits", "tokens", "k", "v")}
+    if "idle_logits" in res:
+        out.update(idle_logits=res["idle_logits"].float().numpy(),
+                   idle_changed=res["idle_changed"],
+                   live_changed=res["live_changed"])
+    np.savez(os.path.join(workdir, f"{name}_rank{dist.get_rank()}.npz"),
+             **out)
+
+
+def extras(workdir, name, cfg, init, meshes, shapes=()) -> None:
+    """The DPO and serving runs of run ``name`` (``common.DPO_RUNS``,
+    ``common.SERVE_RUNS``): ``port_<name>_dpo_<d>x<m>.npz`` on
+    ``common.DPO_MESH``, ``serve_<name>_<d>x<m>_rank<r>.npz`` on each of
+    ``shapes`` (``meshes``: {shape: mesh})."""
+    if name in common.DPO_RUNS:
+        mesh = meshes[common.DPO_MESH]
+        TRAIN.write_out(os.path.join(
+            workdir, f"port_{name}_dpo_%dx%d.npz" % common.DPO_MESH), mesh,
+            dpo(cfg, init, mesh))
+    if name in common.SERVE_RUNS:
+        for shape in shapes:
+            serve(workdir, f"serve_{name}_%dx%d" % shape, cfg, init,
+                  meshes[shape])
+
+
 def refusal(fn) -> str:
     try:
         fn()
@@ -138,6 +202,8 @@ def moe_main(workdir: str) -> None:
         for name, _, case, shape in common.moe_runs():
             init = dict(np.load(os.path.join(workdir, f"init_{name}.npz")))
             cfg = common.moe_config(name, "repro_torch")
+            if shape == common.MOE_CASES[case][4][0]:
+                extras(workdir, name, cfg, init, meshes)
             tag = f"{name}_%dx%d" % shape
             res = train(cfg, init, meshes[shape],
                         steps=common.MOE_STEPS.get(case, common.STEPS),
@@ -173,6 +239,8 @@ def ssm_main(workdir: str) -> None:
         for name, shape in common.ssm_runs():
             init = dict(np.load(os.path.join(workdir, f"init_{name}.npz")))
             cfg = common.ssm_config(name, "repro_torch")
+            if shape == common.SSM_RUNS[name][3][0]:
+                extras(workdir, name, cfg, init, meshes)
             tag = f"{name}_%dx%d" % shape
             res = train(cfg, init, meshes[shape],
                         evals=name in common.SSM_EVALS)
@@ -207,6 +275,9 @@ def modal_main(workdir: str) -> None:
         for name, shape in common.modal_runs():
             init = dict(np.load(os.path.join(workdir, f"init_{name}.npz")))
             cfg = common.modal_config(name, "repro_torch")
+            if shape == common.MODAL_RUNS[name][4][0]:
+                extras(workdir, name, cfg, init, meshes,
+                       common.MODAL_RUNS[name][4])
             tag = f"{name}_%dx%d" % shape
             res = train(cfg, init, meshes[shape], evals=True)
             TRAIN.write_out(os.path.join(workdir, f"port_{tag}.npz"),
@@ -262,11 +333,19 @@ def main(workdir: str) -> None:
         ctl = common.DIVERGE_LRS[:3] + (common.LR,)
         save("port_2x2_div_ctl.npz", train(cfg, init, m22, lrs=ctl, **div),
              m22)
-        msgs = {"dpo": refusal(
-            lambda: SD.make_train_step(cfg, m22, loss_kind="dpo")),
-            "dpo eval": refusal(
-            lambda: SD.make_eval_step(cfg, m22, loss_kind="dpo"))}
-        msgs["pod axis"] = refusal(lambda: SD.make_train_step(cfg, pod))
+        for shape in common.PORT_MESHES:
+            tag, mesh = "%dx%d" % shape, meshes[shape]
+            save(f"port_dpo_{tag}.npz",
+                 dpo(cfg, init, mesh, common.DPO_STEPS), mesh)
+            serve(workdir, f"serve_{tag}", cfg, init, mesh)
+        with chip_smoke._planted_serve(("dpo_swap",)):
+            save("port_dpo_2x2_dpo_swap.npz",
+                 dpo(cfg, init, m22, common.DPO_STEPS), m22)
+        with chip_smoke._planted_serve(("kv_roll",)):
+            serve(workdir, "serve_2x2_kv_roll", cfg, init, m22)
+        serve(workdir, "lanes_2x2", cfg, init, m22, per_lane=True,
+              idle=common.IDLE_LANES)
+        msgs = {"pod axis": refusal(lambda: SD.make_train_step(cfg, pod))}
         embed = {"embed": PT.distribute(m22, torch.zeros(cfg.vocab_size,
                                                          cfg.d_model),
                                         PT.placements(m22, PT.P()))}
@@ -275,12 +354,15 @@ def main(workdir: str) -> None:
             lambda: SD.make_train_step(cfg, m22)(
                 embed, {}, None, None, None, None,
                 {"tokens": tokens, "slot_rows": torch.full((4,), 8)}))
-        msgs["prefill"] = refusal(
-            lambda: SD.make_prefill_step(cfg, m22)(embed, {}, None,
-                                                   {"tokens": tokens}))
-        msgs["serve"] = refusal(
-            lambda: SD.make_serve_step(cfg, m22)(embed, {}, None,
-                                                 tokens[:, :, 0]))
+        # the prefill and serve steps of the caches still queued
+        for what, other in (
+                ("moe", common.moe_config("granite_span", "repro_torch")),
+                ("ssm", common.ssm_config("rwkv", "repro_torch")),
+                ("hybrid", common.ssm_config("hymba128", "repro_torch")),
+                ("whole heads", dataclasses.replace(cfg, num_kv_heads=1))):
+            for step in ("prefill", "serve"):
+                build = getattr(SD, f"make_{step}_step")
+                msgs[f"{step} {what}"] = refusal(lambda: build(other, m22))
         if me == 0:
             with open(os.path.join(workdir, "refusals.json"), "w") as f:
                 json.dump(msgs, f)

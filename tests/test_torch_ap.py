@@ -34,20 +34,40 @@ together in one module fixture.
     schedule: they are in fact equal); the one-rank step (this process, a
     one-rank gloo group) agrees with the 2x2 and 4x1 steps within (a)'s
     bars.
-(e) The DPO loss (train and eval steps), a mesh with a pod axis, ragged
-    slot rows on a split model axis, and the prefill and serve steps raise
-    ``NotImplementedError`` on a real mesh, naming what they refuse (the
-    MoE, ssm, hybrid, vlm and audio families run:
-    ``tests/test_torch_ap_moe.py``, ``tests/test_torch_ap_ssm.py``,
-    ``tests/test_torch_ap_modal.py``; so does the eval step, whose per-slot
-    losses after the 2x2 and 4x1 runs are held within 1e-5 relative of the
-    reference's ``make_eval_step`` on the same mesh).
+(e) A mesh with a pod axis, ragged slot rows on a split model axis, and the
+    prefill and serve steps of the families whose caches are not laid out
+    over the mesh (moe, ssm, hybrid) and of attention whose heads do not
+    split raise ``NotImplementedError`` on a real mesh, naming what they
+    refuse and ``ROADMAP.md`` (the MoE, ssm, hybrid, vlm and audio families'
+    train and eval steps run: ``tests/test_torch_ap_moe.py``,
+    ``tests/test_torch_ap_ssm.py``, ``tests/test_torch_ap_modal.py``; so
+    does the eval step, whose per-slot losses after the 2x2 and 4x1 runs
+    are held within 1e-5 relative of the reference's ``make_eval_step`` on
+    the same mesh).
 (f) ``launch.train.main(["--reduced", "--mesh", "2x2", "--steps", "2",
     "--backend", "gloo", "--device", "cpu"])`` runs under 4 spawned
     processes.
 (g) The dry run's data-axis weight gathers for the same config and 2x2
     mesh (``launch/dryrun.py`` on a fake 4-rank group) equal, byte for
     byte, what the 2x2 step logged per step.
+(h) The DPO loss (``common.dpo_batch``'s pairs, lr ``common.DPO_LR``): 2
+    sharded DPO steps and the DPO eval step on 2x2 and 4x1 against the
+    reference's GSPMD DPO steps on the same mesh, the losses within
+    ``DPO_LOSS`` (the reference's own meshes differ by more than ``LOSS``:
+    asserted within ``DPO_LOSS``) and the adapters within (a)'s bars;
+    ``chip_smoke.py``'s planted fault "dpo_swap" breaks only data rank 1's
+    slots.
+(i) The prefill step (a cache of S + 8 rows laid out by ``cache_specs``)
+    and 8 greedy serve steps on 2x2 and 4x1 with ``common.serve_lora``'s
+    adapters against the reference's: every step's logits and the
+    prefilled cache within 1e-5 relative to their scale, the greedy stream
+    equal to the reference's and to the port's one-rank run's; a per-lane
+    cache on 2x2 whose step with ``common.IDLE_LANES`` idle leaves their
+    K/V rows and positions bitwise untouched on every rank, its live lanes
+    as the one-rank run's; the planted fault "kv_roll" breaks only data
+    rank 0's slots. The other families' DPO and serving runs
+    (``common.DPO_RUNS``, ``common.SERVE_RUNS``) are held in their own
+    files through ``family_dpo_held`` and ``_serve_held``.
 """
 import json
 import os
@@ -74,6 +94,12 @@ from tests import _ap_common as common
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOSS = dict(rtol=1e-5, atol=0.0)
 LEAF = dict(rtol=1e-5, atol=1e-6)
+# the DPO losses: the margin is beta times a difference of per-slot sums
+# of log-probabilities (about -800 for the dense example's 128 tokens a
+# slot), so fp32 sum order moves a loss by more than LOSS allows: the
+# reference's own 2x2 and 4x1 DPO steps differ by up to 4.1e-5 relative
+# (asserted within this bar)
+DPO_LOSS = dict(rtol=1e-4, atol=0.0)
 ADAM_SHARE = 0.002          # entries of a leaf allowed past LEAF
 ADAM_BOUND = 2 * common.LR * common.STEPS
 TIMEOUT = 600
@@ -302,12 +328,16 @@ def test_opt_levels_and_one_rank_agree(runs, tmp_path):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("what,names", [
-    ("dpo", ("dpo", "loss")),
     ("pod axis", ("pod",)),
     ("ragged rows", ("ragged", "model")),
-    ("prefill", ("prefill", "cache")),
-    ("serve", ("serve", "cache")),
-    ("dpo eval", ("dpo", "loss")),
+    ("prefill moe", ("prefill", "moe", "experts")),
+    ("serve moe", ("serve", "moe", "experts")),
+    ("prefill ssm", ("prefill", "ssm", "wkv")),
+    ("serve ssm", ("serve", "ssm", "wkv")),
+    ("prefill hybrid", ("prefill", "hybrid", "Mamba")),
+    ("serve hybrid", ("serve", "hybrid", "Mamba")),
+    ("prefill whole heads", ("prefill", "do not split", "whole heads")),
+    ("serve whole heads", ("serve", "do not split", "whole heads")),
 ])
 def test_unported_splits_raise_by_name(runs, what, names):
     with open(os.path.join(runs["dir"], "refusals.json")) as f:
@@ -357,3 +387,171 @@ def test_dryrun_data_gathers_equal_the_logged_bytes(runs):
                   if c["axis"] == "data" and c["role"] == "base_weight")
         assert got == want * common.STEPS, (got / common.STEPS, want)
     assert want > 0
+
+
+# ---------------------------------------------------------------------------
+# (h) the DPO loss against the reference's GSPMD DPO step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mesh", ["2x2", "4x1"])
+def test_sharded_dpo_matches_the_reference(runs, mesh):
+    got = _load(runs, f"port_dpo_{mesh}.npz")
+    want = _load(runs, f"jax_dpo_{mesh}.npz")
+    assert got["losses"].shape == (common.DPO_STEPS, common.Z)
+    # the first step reads log 2 exactly: B is 0, the policy is the base
+    np.testing.assert_array_equal(got["losses"][0], want["losses"][0])
+    np.testing.assert_allclose(got["losses"], want["losses"], **DPO_LOSS)
+    _adapters_close(got, want, f"port DPO {mesh} vs reference {mesh}")
+
+
+def test_the_reference_dpo_moves_with_its_own_sum_order(runs):
+    """The reference's 2x2 DPO step against its 4x1: past LOSS, within
+    DPO_LOSS and (a)'s adapter bars."""
+    two, four = _load(runs, "jax_dpo_2x2.npz"), _load(runs, "jax_dpo_4x1.npz")
+    for key in ("losses", "eval"):
+        spread = np.abs(two[key] - four[key]) / np.abs(four[key])
+        print(f"reference DPO {key}, 2x2 vs 4x1: {spread.max():.3e}")
+        np.testing.assert_allclose(two[key], four[key], **DPO_LOSS)
+    _adapters_close(two, four, "reference DPO 2x2 vs 4x1")
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "4x1"])
+def test_sharded_dpo_eval_matches_the_reference(runs, mesh):
+    got = _load(runs, f"port_dpo_{mesh}.npz")["eval"]
+    want = _load(runs, f"jax_dpo_{mesh}.npz")["eval"]
+    assert got.shape == (common.Z,) and np.isfinite(got).all()
+    # the trained adapters move the policy off the reference: log 2 no more
+    assert (np.abs(want - np.log(2.0)) > 1e-4).all(), want
+    np.testing.assert_allclose(got, want, **DPO_LOSS)
+
+
+def test_a_planted_dpo_fault_breaks_parity_on_its_slots(runs):
+    """``chip_smoke._planted_serve(("dpo_swap",))``: data rank 1's policy
+    forwards swap the pairs; its slots' losses (from the first step on)
+    and eval break, data rank 0's stay within the bars."""
+    bad = _load(runs, "port_dpo_2x2_dpo_swap.npz")
+    want = _load(runs, "jax_dpo_2x2.npz")
+    hit = list(common.SERVE_FAULTS["dpo_swap"])
+    kept = [z for z in range(common.Z) if z not in hit]
+    for key in ("losses", "eval"):
+        np.testing.assert_allclose(bad[key][..., kept], want[key][..., kept],
+                                   **DPO_LOSS)
+        off = np.abs(bad[key][..., hit] - want[key][..., hit])
+        assert (off > 1e-3 * np.abs(want[key][..., hit])).all(), (key, off)
+
+
+# ---------------------------------------------------------------------------
+# (i) the prefill and serve steps against the reference's
+# ---------------------------------------------------------------------------
+
+def close_logits(got, want, what):
+    """Logits (or cache rows) within 1e-5 relative of ``want``'s scale:
+    |got - want| <= 1e-5 |want| + 1e-5 max|want|."""
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()),
+                               err_msg=what)
+
+
+def one_rank_serve(init, tmp_path, cfg, **kw):
+    """The port's prefill and greedy serve steps on a one-rank mesh (this
+    process, a one-rank gloo group): ``chip_smoke.ap_serve`` with
+    ``serve_lora``'s adapters, as the sharded runs take them."""
+    import chip_smoke
+    with TMESH.process_group("cpu", f"file://{tmp_path / 'pg'}"):
+        mesh = TMESH.make_local_mesh((1, 1), device="cpu")
+        params = bridge.params_from_numpy(cfg, common.unflat(init,
+                                                             "params/"),
+                                          "cpu")
+        lora = bridge.lora_from_numpy(common.serve_lora(init), "cpu")
+        batch = {k: torch.from_numpy(v)
+                 for k, v in common.serve_batch(init).items()}
+        res = chip_smoke.ap_serve(torch, cfg, mesh, params, lora, batch,
+                                  None, common.SERVE_DECODES, **kw)
+    return {k: (v.float().numpy() if torch.is_tensor(v) else v)
+            for k, v in res.items()}
+
+
+@pytest.fixture(scope="module")
+def one_serve(runs, tmp_path_factory):
+    """The dense example's one-rank serving runs: a global position, and
+    per lane with ``common.IDLE_LANES`` idle in one more step."""
+    init = _load(runs, "init.npz")
+    return {"global": one_rank_serve(init, tmp_path_factory.mktemp("sg"),
+                                     common.port_config()),
+            "lanes": one_rank_serve(init, tmp_path_factory.mktemp("sl"),
+                                    common.port_config(), per_lane=True,
+                                    idle=common.IDLE_LANES)}
+
+
+def _serve_held(got, want, one, what):
+    """(i)'s bars: every step's logits and the prefilled cache against the
+    reference's, and the greedy stream equal to the reference's and to the
+    port's one-rank run."""
+    assert got["logits"].shape == want["logits"].shape, what
+    assert np.isfinite(got["logits"]).all(), what
+    close_logits(got["logits"], want["logits"], f"{what} logits")
+    for key in ("k", "v"):
+        close_logits(got[key], want[f"cache_{key}"], f"{what} cache {key}")
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
+    np.testing.assert_array_equal(got["tokens"], one["tokens"])
+
+
+@pytest.mark.parametrize("mesh", [(2, 2), (4, 1)], ids=["2x2", "4x1"])
+def test_sharded_serve_matches_the_reference(runs, one_serve, mesh):
+    tag = "%dx%d" % mesh
+    _serve_held(common.served(runs["dir"], f"serve_{tag}", mesh),
+                _load(runs, f"jax_serve_{tag}.npz"), one_serve["global"],
+                f"serve {tag}")
+
+
+def test_idle_lanes_stay_bitwise_on_every_rank(runs, one_serve):
+    """A per-lane cache on 2x2: after the prefill and the greedy steps of
+    every lane, a serve step with ``common.IDLE_LANES`` idle (one on each
+    data rank) leaves their local K/V rows and positions bitwise untouched
+    on every rank and writes the live ones; every step's logits of every
+    lane, and the idle step's of the live lanes, match the port's
+    one-rank run."""
+    got = common.served(runs["dir"], "lanes_2x2", (2, 2))
+    one = one_serve["lanes"]
+    for r, part in enumerate(got["ranks"]):
+        assert int(part["idle_changed"]) == 0, r
+        assert int(part["live_changed"]) > 0, r
+    close_logits(got["logits"], one["logits"], "per-lane logits")
+    np.testing.assert_array_equal(got["tokens"], one["tokens"])
+    live = np.ones((common.Z, common.B), bool)
+    for z, lane in common.IDLE_LANES:
+        live[z, lane] = False
+    close_logits(got["idle_logits"][live], one["idle_logits"][live],
+                 "the idle step's live lanes")
+
+
+def test_a_planted_cache_fault_breaks_parity_on_its_slots(runs):
+    """``chip_smoke._planted_serve(("kv_roll",))``: on data rank 0 the last
+    model rank writes its KV heads rolled; data rank 0's slots' logits
+    break from the prefill on, data rank 1's stay within the bars."""
+    got = common.served(runs["dir"], "serve_2x2_kv_roll", (2, 2))
+    want = _load(runs, "jax_serve_2x2.npz")
+    hit = list(common.SERVE_FAULTS["kv_roll"])
+    kept = [z for z in range(common.Z) if z not in hit]
+    close_logits(got["logits"][:, kept], want["logits"][:, kept],
+                 "the other data rank's slots")
+    np.testing.assert_array_equal(got["tokens"][:, kept],
+                                  want["tokens"][:, kept])
+    off = np.abs(got["logits"][0, hit] - want["logits"][0, hit]).max()
+    assert off > 1e-2 * np.abs(want["logits"][0, hit]).max(), off
+
+
+def family_dpo_held(work, name, share=common.MOE_ADAM_SHARE):
+    """Run ``name`` of another AP test file (``common.DPO_RUNS``): its one
+    sharded DPO step on ``common.DPO_MESH`` and the DPO eval step after it
+    against the reference's, losses within DPO_LOSS and adapters within
+    (a)'s bars with at most ``share`` of a leaf's entries past LEAF."""
+    tag = f"{name}_dpo_%dx%d" % common.DPO_MESH
+    got = dict(np.load(os.path.join(work, f"port_{tag}.npz")))
+    want = dict(np.load(os.path.join(work, f"jax_{tag}.npz")))
+    assert got["losses"].shape == (1, common.Z)
+    assert got["eval"].shape == (common.Z,) and np.isfinite(got["eval"]).all()
+    for key in ("losses", "eval"):
+        np.testing.assert_allclose(got[key], want[key], **DPO_LOSS)
+    assert (np.abs(want["eval"] - np.log(2.0)) > 1e-5).all(), want["eval"]
+    _adapters_close(got, want, f"port {tag} vs reference", share)

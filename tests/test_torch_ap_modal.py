@@ -38,6 +38,13 @@ processes (``tests/_ap_reference.py --modal``), and the port's 4 gloo ranks
     "data" but a base weight is r_max-wide.
 (d) The data-axis and model-axis weight gathers a step equal
     ``launch/dryrun.py``'s count for qwen2-vl on 2x2, byte for byte.
+(e) One sharded DPO step and the DPO eval step of vlm40 and audio on 2x2
+    against the reference's (``tests/test_torch_ap.py``'s
+    ``family_dpo_held``); the prefill step (vlm40: its prefix and M-RoPE
+    positions, the prefix crossing the model ranks' boundary at 2x2) and 8
+    greedy serve steps of vlm40 and audio on 2x2 and 4x1 against the
+    reference's, the streams equal to the reference's and to the port's
+    one-rank run's (``_serve_held``).
 """
 import json
 import os
@@ -60,7 +67,8 @@ from repro_torch.launch import partitioning as TPT
 from repro_torch.launch import train as TTRAIN
 from tests import _ap_common as common
 from tests.test_torch_ap import ADAM_BOUND, LOSS, ROOT, TIMEOUT, \
-    _adapters_close, _env, _leaves, _one_rank, _ranks
+    _adapters_close, _env, _leaves, _one_rank, _ranks, _serve_held, \
+    family_dpo_held, one_rank_serve
 
 RUNS = common.modal_runs()
 
@@ -304,3 +312,38 @@ def test_the_launcher_grids_follow_the_reference_rule():
     assert torch.equal(pos[:, 0], pos[:, 1]) and torch.equal(pos[:, 2],
                                                              pos[:, 3])
     assert not torch.equal(pos[:, 1], pos[:, 2])
+
+
+# ---------------------------------------------------------------------------
+# (e) the DPO loss and the prefill and serve steps against the reference's
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", [n for n in common.DPO_RUNS
+                                  if n in common.MODAL_RUNS])
+def test_modal_sharded_dpo_matches_the_reference(runs, name):
+    family_dpo_held(runs, name)
+
+
+SERVES = [(name, mesh) for name in common.SERVE_RUNS
+          for mesh in common.MODAL_RUNS[name][4]]
+
+
+@pytest.fixture(scope="module")
+def one_serve(runs, tmp_path_factory):
+    """The port's one-rank serving runs of ``common.SERVE_RUNS``."""
+    return {name: one_rank_serve(_load(runs, f"init_{name}.npz"),
+                                 tmp_path_factory.mktemp(f"serve_{name}"),
+                                 common.modal_config(name, "repro_torch"))
+            for name in common.SERVE_RUNS}
+
+
+@pytest.mark.parametrize("name,mesh", SERVES, ids=[_tag(*r) for r in SERVES])
+def test_modal_sharded_serve_matches_the_reference(runs, one_serve, name,
+                                                   mesh):
+    """vlm40: the 40-row prefix and its M-RoPE positions in the prefill
+    (crossing the model ranks' boundary at 2x2), then decode at the
+    sequence index; audio: EnCodec tokens."""
+    tag = _tag(name, mesh)
+    _serve_held(common.served(runs, f"serve_{tag}", mesh),
+                _load(runs, f"jax_serve_{tag}.npz"), one_serve[name],
+                f"serve {tag}")

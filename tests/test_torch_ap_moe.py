@@ -42,6 +42,9 @@ an arch (``tests/_ap_reference.py --moe``), and the port's 4 gloo ranks
     adapters) of ``common.MOE_EVALS``' runs against the reference's
     ``make_eval_step`` on the same mesh, within 1e-5 relative; the planted
     route fault breaks it on slots 2-3 too.
+(g) One sharded DPO step and the DPO eval step of granite's span case on
+    2x2 against the reference's (``tests/test_torch_ap.py``'s
+    ``family_dpo_held``).
 """
 import json
 import os
@@ -63,7 +66,7 @@ from repro_torch.launch import mesh as TMESH
 from repro_torch.models.moe import pick_group_size
 from tests import _ap_common as common
 from tests.test_torch_ap import LOSS, ROOT, TIMEOUT, _adapters_close, \
-    _env, _ranks
+    _env, _ranks, family_dpo_held
 
 RUNS = common.moe_runs()
 MOVES = 1e-3                 # (c): the smallest relative move held
@@ -301,3 +304,16 @@ def test_moe_dryrun_data_gathers_equal_the_logged_bytes(runs):
         got = sum(c["bytes"] for c in _log(runs, _tag(name, (2, 2)), r)
                   if c["axis"] == "data" and c["role"] == "base_weight")
         assert got == want * common.STEPS, (got / common.STEPS, want)
+
+
+# ---------------------------------------------------------------------------
+# (g) the DPO loss against the reference's GSPMD DPO step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", [n for n in common.DPO_RUNS
+                                  if n.split("_")[0] in common.MOE_ARCHS])
+def test_moe_sharded_dpo_matches_the_reference(runs, name):
+    """One DPO step of granite's span case, whose token group spans every
+    data rank in each of the four forwards (no load-balance term: the
+    reference's DPO loss takes none), and the DPO eval after it."""
+    family_dpo_held(runs, name)

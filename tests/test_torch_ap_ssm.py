@@ -47,6 +47,9 @@ processes (``tests/_ap_reference.py --ssm``), and the port's 4 gloo ranks
     adapters) of ``common.SSM_EVALS``' runs (rwkv, hymba at d 128 and, with
     its attention whole, at d 160) against the reference's
     ``make_eval_step`` on the same mesh, within 1e-5 relative.
+(f) One sharded DPO step and the DPO eval step of rwkv and hymba d 128 on
+    2x2 against the reference's (``tests/test_torch_ap.py``'s
+    ``family_dpo_held``).
 """
 import json
 import os
@@ -69,7 +72,7 @@ from repro_torch.launch import partitioning as TPT
 import chip_smoke
 from tests import _ap_common as common
 from tests.test_torch_ap import ADAM_BOUND, LEAF, LOSS, ROOT, TIMEOUT, \
-    _adapters_close, _env, _leaves, _one_rank, _ranks
+    _adapters_close, _env, _leaves, _one_rank, _ranks, family_dpo_held
 
 RUNS = common.ssm_runs()
 # (a) for the runs of ``common.SSM_ONE_RANK``, on chip_smoke.py's relative
@@ -324,3 +327,15 @@ def test_ssm_opt_levels_agree(runs):
     np.testing.assert_allclose(opt2["losses"], base["losses"], **LOSS)
     _adapters_close(opt2, base, "port rwkv 2x2 opt 2 vs opt 0",
                     common.MOE_ADAM_SHARE)
+
+
+# ---------------------------------------------------------------------------
+# (f) the DPO loss against the reference's GSPMD DPO step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", [n for n in common.DPO_RUNS
+                                  if n in common.SSM_RUNS])
+def test_ssm_sharded_dpo_matches_the_reference(runs, name):
+    """One DPO step of rwkv (scan heads over "model") and of hymba d 128,
+    and the DPO eval after it."""
+    family_dpo_held(runs, name)
