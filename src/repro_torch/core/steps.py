@@ -142,8 +142,9 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
     whole vocabulary on every model rank: the last token's hidden state
     comes from the model rank whose sequence block holds it
     (``SpmdPlan.last_row``) and a vocabulary-parallel unembedding's logits
-    are gathered over "model"; the cache is this rank's shard, its K/V
-    heads of its slots written in place."""
+    are gathered over "model"; the cache is this rank's shard
+    (``partitioning.serve_cache_specs``), what its heads write of its slots
+    written in place."""
 
     def prefill_step(params, lora, cache, batch):
         h, _, cache = M.forward(cfg, params, lora, batch["tokens"],

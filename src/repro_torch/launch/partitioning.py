@@ -26,11 +26,10 @@ where the reference places its constraints (``SpmdPlan``, through
 takes it back) and nothing moves: the activation policy resolves and
 records each constraint's spec and returns the tensor unchanged. On a real
 multi-rank ``(data, model)`` mesh ``distribute`` slices each rank's shard
-out of the full tensor, and the policy's ``SpmdPlan`` runs the train and
-eval steps (the dense, MoE, ssm, hybrid, vlm and audio families, the SFT
-and DPO losses; ``check_sharded``; the eval step is the train step's
-forward, with no backward) and the prefill and serve steps (the dense, vlm
-and audio families, their attention heads split over "model"):
+out of the full tensor, and the policy's ``SpmdPlan`` runs the train,
+eval, prefill and serve steps of the dense, MoE, ssm, hybrid, vlm and audio
+families (the SFT and DPO losses; ``check_sharded``; the eval step is the
+train step's forward, with no backward):
 
   * "data" is Adapter Parallelism (paper Fig. 8): each data rank holds its
     Z/d slots' adapters, gradients, AdamW state, hyper-parameters, ranks
@@ -87,16 +86,30 @@ and audio families, their attention heads split over "model"):
     empty adapter tree, no gradient) each run the layout above on the data
     rank's slots; the per-slot log-probability sums are all-reduced over
     "model" by the loss head, and each rank's total covers its own slots;
-  * prefill and serve (``cache_specs``): the K/V cache [L, Z, b, Sc, KV,
-    hd] is split by slots over "data" and by KV heads over "model"; each
-    rank writes its KV heads of its slots, for the whole sequence of the
-    column-parallel projections' gathered input. The positions (``pos``, a
-    ring's ``k_pos``) and a serve step's ``active`` lanes arrive whole on
-    every rank and each data rank reads its own slots' lanes
-    (``SpmdPlan.slot_lanes``); the updated positions are computed whole.
-    A serve step's residual (S 1) is not sequence-sharded: its partial sums
-    are all-reduced. The last token's hidden state comes from the model
-    rank whose sequence block holds it (``SpmdPlan.last_row``), and a
+  * prefill and serve (``serve_cache_specs``): every cache leaf is split by
+    slots over "data" and by what this rank's heads write over "model":
+    the K/V cache [L, Z, b, Sc, KV, hd] by KV heads, as ``cache_specs``
+    lays it out, or, where the heads do not split (``whole_heads``), whole:
+    every model rank computes and writes all the heads; RWKV's ``wkv`` and
+    Mamba's ``ssm`` state by scan heads (``cache_specs``, the reference's
+    layout, splits their key channel or N); Mamba's ``conv`` buffer by its
+    inner block, the block of this rank's ``in_proj`` x half; RWKV's
+    token-shift rows ``tm_x`` / ``cm_x`` whole (the mixes read the gathered
+    x). The step refuses a cache laid out any other way
+    (``check_serve_cache``). A prefill writes this rank's heads of its
+    slots for the whole sequence of the column-parallel projections'
+    gathered input, and the scan starts from the cache's state. The
+    positions (``pos``, a ring's ``k_pos``) and a serve step's ``active``
+    lanes arrive whole on every rank and each data rank reads its own
+    slots' lanes (``SpmdPlan.slot_lanes``) for its positions, write indices
+    and write mask; the updated positions are computed whole. A serve
+    step's residual (S 1) is not sequence-sharded: its partial sums are
+    all-reduced, RWKV's mixes read the whole x, Mamba's ``bc_proj`` /
+    ``dt_proj`` products are summed over "model" at the one token, and an
+    MoE decode step's Z·b one-token rows form one lossless token group
+    across the data ranks (its count exchange still runs, role "route").
+    The last token's hidden state comes from the model rank whose
+    sequence block holds it (``SpmdPlan.last_row``), and a
     vocabulary-parallel unembedding's logits are gathered over "model"
     (``SpmdPlan.whole_vocab``): every rank returns its data rank's slots'
     logits over the whole vocabulary.
@@ -127,15 +140,8 @@ SHARDED_EXECUTION = ("sharded execution over a fake group is not possible: "
 # what a multi-rank mesh runs today, and where the rest is queued
 SHARDED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 # the step builders (``steps_dist.make_<name>_step``) whose steps run
-# sharded; the prefill and serve steps only for the families whose cache is
-# K/V alone, with the attention heads split over "model"
+# sharded, every family each
 SHARDED_STEPS = ("train", "eval", "prefill", "serve")
-SHARDED_CACHE_FAMILIES = ("dense", "vlm", "audio")
-# the caches of the families whose prefill and serve steps are queued
-_QUEUED_CACHES = {"moe": "K/V beside the routed experts' decode",
-                  "ssm": "the wkv / tm_x / cm_x recurrent state",
-                  "hybrid": "K/V (or a ring) beside the Mamba conv / ssm "
-                            "state"}
 SHARDED_QUEUE = "queued in ROADMAP.md §1, the rest of sharded execution"
 
 
@@ -452,6 +458,35 @@ def cache_specs(mesh, cache: Any) -> Any:
     return _map_with_path(cache, spec_of)
 
 
+def serve_cache_specs(cfg, mesh, cache: Any) -> Any:
+    """The cache layout the sharded prefill and serve steps take on a real
+    ("data", "model") mesh: slots over "data" in every leaf but the
+    positions, and over "model" what this rank's heads write. K/V [L, Z, b,
+    Sc, KV, hd] split by KV heads, as ``cache_specs`` lays it out, or whole
+    where the heads do not split (``whole_heads``: every model rank writes
+    all of them); RWKV's ``wkv`` and Mamba's ``ssm`` [L, Z, b, H, ., hs]
+    split by scan heads; ``conv`` [L, Z, b, W-1, inner] by inner (this
+    rank's block of in_proj's x half, ``BLOCKED``); ``tm_x`` / ``cm_x`` [L,
+    Z, b, d] whole (the mixes read the gathered x); ``pos`` and ``k_pos``
+    whole. ``cache_specs`` (the reference's layout, which the dry run reads)
+    differs where it splits the key channel, N, d or hd. The splits divide:
+    ``check_sharded`` refuses scan heads that do not, and ``whole_heads``
+    keeps whole the K/V heads that do not."""
+    m_dim = {"k": 4, "v": 4, "wkv": 3, "ssm": 3, "conv": 4}
+    whole = whole_heads(cfg, axis_sizes(mesh).get("model", 1))
+
+    def spec_of(path, leaf) -> P:
+        name = path[-1]
+        if name in ("pos", "k_pos"):
+            return P()
+        dims = {1: "data"}
+        if name in m_dim and not (whole and name in ("k", "v")):
+            dims[m_dim[name]] = "model"
+        return P(*(dims.get(d) for d in range(max(dims) + 1)))
+
+    return _map_with_path(cache, spec_of)
+
+
 # ---------------------------------------------------------------------------
 # Specs -> DTensor placements, and the one-rank execution
 # ---------------------------------------------------------------------------
@@ -582,9 +617,8 @@ def check_sharded(cfg, mesh, step: str = "train") -> None:
     untied unembedding are split by vocabulary or, where the rule falls
     back, whole. MoE: the router whole, the routed experts split by expert
     or whole, the shared expert's gate/up by columns and its down by rows,
-    or all three whole. The prefill and serve steps run the families of
-    ``SHARDED_CACHE_FAMILIES`` only, with their attention heads split over
-    "model" (the K/V cache split by KV heads, ``cache_specs``)."""
+    or all three whole. The prefill and serve steps take every family, the
+    cache laid out by ``serve_cache_specs``."""
     if step not in SHARDED_STEPS:
         raise ValueError(f"unknown step {step!r}")
     names = tuple(axis_names(mesh))
@@ -597,19 +631,6 @@ def check_sharded(cfg, mesh, step: str = "train") -> None:
             f"sharded execution of the {cfg.family} family ({cfg.name}) is "
             f"not ported ({SHARDED_QUEUE})")
     m = axis_sizes(mesh)["model"]
-    if step in ("prefill", "serve"):
-        what = f"sharded execution of the {step} step (make_{step}_step)"
-        if cfg.family not in SHARDED_CACHE_FAMILIES:
-            raise NotImplementedError(
-                f"{what} of the {cfg.family} family ({cfg.name}) is not "
-                f"ported: its cache ({_QUEUED_CACHES[cfg.family]}) is not "
-                f"laid out over the mesh ({SHARDED_QUEUE})")
-        if whole_heads(cfg, m):
-            raise NotImplementedError(
-                f"{what} of {cfg.name} is not ported: its {cfg.num_heads} "
-                f"heads and {cfg.num_kv_heads} KV heads do not split over "
-                f"model {m}, so attention runs whole heads there and the K/V "
-                f"cache does not split by KV heads ({SHARDED_QUEUE})")
     if m == 1:
         return
     d, L, ff = cfg.d_model, cfg.num_layers, cfg.d_ff
@@ -686,7 +707,31 @@ def check_sharded(cfg, mesh, step: str = "train") -> None:
     if scan is not None and scan[1] % m:
         raise NotImplementedError(
             f"{cfg.name}: {scan[1]} {scan[0]} do not split whole over model "
-            f"{m}; the sharded step runs whole scan heads on each rank")
+            f"{m}; the sharded {step} step runs whole scan heads on each "
+            f"rank ({SHARDED_QUEUE})")
+
+
+def check_serve_cache(cfg, mesh, cache: Dict) -> None:
+    """Raise ``ValueError`` unless every leaf of ``cache`` is a DTensor laid
+    out as ``serve_cache_specs`` says: the sharded prefill and serve steps
+    read a rank's local shard as its slots' lanes and its heads' rows, and
+    a cache cut any other way would be read wrongly."""
+    want = to_named(mesh, serve_cache_specs(cfg, mesh, cache))
+
+    def visit(path, leaf):
+        name = _leaf_path_str(path)
+        if not isinstance(leaf, DTensor):
+            raise ValueError(
+                f"the sharded step takes the cache as DTensors laid out by "
+                f"serve_cache_specs; {name} is a {type(leaf).__name__}")
+        if tuple(leaf.placements) != _lookup(want, path):
+            raise ValueError(
+                f"cache leaf {name} {tuple(leaf.shape)} is laid out as "
+                f"{leaf.placements}; the sharded {cfg.family} prefill and "
+                f"serve steps take {_lookup(want, path)} "
+                f"(serve_cache_specs)")
+
+    _map_with_path(cache, visit)
 
 
 def _weight_name(path: Tuple) -> str:
@@ -884,7 +929,7 @@ class SpmdPlan:
         if tokens % group and group % tokens:
             raise NotImplementedError(
                 f"MoE token groups of {group} rows across data ranks of "
-                f"{tokens} rows: neither divides the other")
+                f"{tokens} rows: neither divides the other ({SHARDED_QUEUE})")
         piece = min(group, tokens)
         self._moe = (num_experts, tokens * self.d // group, group)
         return tokens // piece, piece

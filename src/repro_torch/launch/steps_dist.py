@@ -14,20 +14,21 @@ multi-rank ("data", "model") mesh every step runs sharded: the policy's
 call's tokens at each call and issues the collectives
 (``launch/collectives.py``). ``partitioning.check_sharded`` refuses, with
 ``NotImplementedError``, what a step does not run on ``cfg`` (the pod axis,
-scan heads that do not split over "model", and the prefill and serve steps
-of the MoE, ssm and hybrid families and of attention whose heads do not
-split). The train and eval steps run every family (dense, MoE, ssm,
-hybrid, vlm, audio) with either loss (SFT or DPO); the eval step is the
-train step's forward with no backward, on the same schedule, and every rank
-returns all Z per-slot losses, gathered over "data". Attention whose heads
-do not split over "model" runs whole on every model rank
-(``partitioning.whole_heads``) in those two. The prefill and serve steps
-(dense, vlm, audio) take the cache as ``cache_specs`` lays it out (K/V by
-slots over "data" and by KV heads over "model", ``pos`` whole) and a serve
-step's ``active`` whole; each returns its data rank's slots' logits over the
-whole vocabulary and the cache's local shards. One schedule serves every
-opt level: the levels change only the recorded decisions and hints, and
-the numbers stay equal.
+scan heads that do not split over "model"). Every step runs every family
+(dense, MoE, ssm, hybrid, vlm, audio); the train and eval steps with either
+loss (SFT or DPO); the eval step is the train step's forward with no
+backward, on the same schedule, and every rank returns all Z per-slot
+losses, gathered over "data". Attention whose heads do not split over
+"model" runs whole on every model rank (``partitioning.whole_heads``). The
+prefill and serve steps take the cache as ``serve_cache_specs`` lays it out
+(slots over "data"; K/V by KV heads over "model", or whole where the heads
+do not split; RWKV's and Mamba's scan states by heads, Mamba's conv buffer
+by its inner block, RWKV's token-shift rows and the positions whole) and a
+serve step's ``active`` whole; a cache laid out any other way raises
+``ValueError`` (``partitioning.check_serve_cache``). Each returns its data
+rank's slots' logits over the whole vocabulary and the cache's local
+shards. One schedule serves every opt level: the levels change only the
+recorded decisions and hints, and the numbers stay equal.
 """
 from __future__ import annotations
 
@@ -54,8 +55,9 @@ def _wrap(cfg: ModelConfig, mesh, fn: Callable, step: str,
           seq_shard: bool = True, opt_level: int = 0) -> Callable:
     """``fn``, the ``step`` builder's step, under the policy of ``mesh``;
     on a real multi-rank mesh each call binds the plan to its own
-    arguments (``BOUND_ARG``), and the plan runs attention whole where
-    ``cfg``'s heads do not split."""
+    arguments (``BOUND_ARG``), a prefill or serve step's cache is checked
+    against its layout, and the plan runs attention whole where ``cfg``'s
+    heads do not split."""
     policy = PT.activation_policy(mesh, seq_shard=seq_shard,
                                   opt_level=opt_level,
                                   step_kind=STEP_KINDS[step])
@@ -66,6 +68,9 @@ def _wrap(cfg: ModelConfig, mesh, fn: Callable, step: str,
 
     def wrapped(*args, **kw):
         if plan is not None:
+            if step in ("prefill", "serve"):
+                PT.check_serve_cache(cfg, mesh, kw["cache"] if "cache" in kw
+                                     else args[2])
             x = kw[name] if name in kw else args[at]
             if name == "tokens":
                 plan.bind(args[0], x)

@@ -192,7 +192,8 @@ def attn_sublayer(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
     split (``SpmdPlan.attn_whole``), every model rank runs all of them: q/k/v
     over the whole sequence with the weights gathered over "model", the
     output cut to this rank's sequence block before o_proj
-    (``SpmdPlan.whole_out``)."""
+    (``SpmdPlan.whole_out``); its cache shard is then whole over "model"
+    (``serve_cache_specs``) and every model rank writes the same rows."""
     Z, b = x.shape[:2]
     hd = cfg.resolved_head_dim
     sp = shardctx.spmd()
@@ -288,7 +289,8 @@ def transformer_block(cfg: ModelConfig, x: torch.Tensor, p: Dict,
     the sum), is RMS-normed by its own branch norm, and the residual adds
     their mean. With a cache the Mamba branch continues from
     the cached ``conv`` / ``ssm`` state and writes the new one back in
-    place under ``ctx["write_mask"]``."""
+    place under ``ctx["write_mask"]``; sharded, this rank's heads of it
+    under its lanes of the mask."""
     scale = cfg.lora.scale_for_rank(0)
     cache = ctx.get("cache")
     h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
@@ -336,7 +338,9 @@ def rwkv_block(cfg: ModelConfig, x: torch.Tensor, p: Dict, lora: Dict,
     so decode continues exactly (RMS pre-norms, as the JAX package). Each
     mix's output is constrained before the add, as the transformer block's
     (sharded, it is a partial sum over "model" of the whole sequence while
-    x holds this rank's block)."""
+    x holds this rank's block). Sharded, the cache views are this rank's:
+    its heads of ``wkv``, and ``tm_x`` / ``cm_x`` whole (the gathered x's
+    last rows, the same on every model rank)."""
     scale = cfg.lora.scale_for_rank(0)
     cache = ctx.get("cache")
     state = cache if cache is not None else {}

@@ -15,15 +15,18 @@ adapter) and ``dt_proj``, ``conv``, ``dt_bias``, ``A_log`` and ``D`` are
 used as they are. Weights have the JAX package's keys, so ``bridge.py``
 maps them 1:1.
 
-Sharded over "model" (``shardctx.spmd()``, the launcher's train step),
-this rank runs H/m of the heads over the whole sequence: ``in_proj`` is
+Sharded over "model" (``shardctx.spmd()``: the launcher's train, eval,
+prefill and serve steps), this rank runs H/m of the heads over the whole
+sequence (decode: the one token): ``in_proj`` is
 column-parallel in blocks (its local shard holds this rank's inner block
 of x and of z, ``partitioning.BLOCKED``), ``conv`` holds the same inner
 block, ``bc_proj`` and ``dt_proj`` contract over all of inner (this
 rank's rows of each, the fp32 partial products summed over "model",
 ``SpmdPlan.row_products``), ``dt_bias``, ``A_log`` and ``D`` are sliced
 to this rank's heads, and ``out_proj`` is row-parallel (the output a
-partial sum over "model").
+partial sum over "model"). A cache's ``conv`` buffer holds this rank's
+inner block and its ``ssm`` state this rank's heads
+(``partitioning.serve_cache_specs``).
 """
 from __future__ import annotations
 

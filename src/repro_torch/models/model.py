@@ -337,12 +337,13 @@ def decode_step(cfg: ModelConfig, params: Dict, lora: Dict, cache: Dict,
     only) freezes idle lanes: their K/V rows and recurrent state and
     position stay bitwise untouched while live lanes advance.
 
-    Sharded (``shardctx.spmd()``), ``tokens`` and the cache's K/V are this
-    rank's shards, while a per-lane ``pos`` (and ring ``k_pos``) and
-    ``active`` arrive whole: the layers read this data rank's slots of them
-    (``SpmdPlan.slot_lanes``) for the positions, the write indices and the
-    write mask, and the new positions are computed whole, the same on every
-    rank."""
+    Sharded (``shardctx.spmd()``), ``tokens`` and the cache's layer leaves
+    are this rank's shards (``partitioning.serve_cache_specs``), while a
+    per-lane ``pos`` (and ring ``k_pos``) and ``active`` arrive whole: the
+    layers read this data rank's slots of them (``SpmdPlan.slot_lanes``)
+    for the positions, the write indices and the write mask, and the new
+    positions are computed whole, the same on every rank (a ring's
+    ``k_pos`` too, each rank then reading its own lanes)."""
     Z, bsz = tokens.shape
     pos = cache["pos"]
     per_lane = pos.dim() == 2

@@ -55,7 +55,10 @@ Sharded over a real (data, model) mesh (``shardctx.spmd()``, the launcher's
   * ``aux`` is the rank's share: its tokens' router mass against the
     group's top-1 shares, on model rank 0 only (0 elsewhere), so the shares
     add up to the reference's term over the mesh and it enters the
-    gradient once.
+    gradient once;
+  * a serve step's Z·b one-token rows are one group across the data ranks
+    (``pick_group_size``), whose capacity is lossless: its count exchange
+    changes no choice, and runs all the same.
 """
 from __future__ import annotations
 

@@ -13,13 +13,16 @@
 LoRA targets: r/k/v/g/o projections + ffn_k/ffn_v. Weights have the JAX
 package's keys, so ``bridge.py`` maps them 1:1.
 
-Sharded over "model" (``shardctx.spmd()``, the launcher's train step), x
-is this rank's sequence block: each mix gathers it along S once, before
-the token shift (so the first token of a block reads its true
-predecessor, and the five time-mix inputs share the gather); r/k/v/g and
-ffn_k are column-parallel, so this rank holds H/m heads, and it takes its
-heads' columns of the decay, its rows of ``u`` and its block of ``ln_x``;
-o and ffn_v are row-parallel (their outputs partial sums over "model").
+Sharded over "model" (``shardctx.spmd()``: the launcher's train, eval,
+prefill and serve steps), x is this rank's sequence block: each mix
+gathers it along S once, before the token shift (so the first token of a
+block reads its true predecessor, and the five time-mix inputs share the
+gather); r/k/v/g and ffn_k are column-parallel, so this rank holds H/m
+heads, and it takes its heads' columns of the decay, its rows of ``u`` and
+its block of ``ln_x``; o and ffn_v are row-parallel (their outputs partial
+sums over "model"). With a cache, the scan (a prefill) or the recurrent
+step (decode, S 1: x is whole on every rank) continues this rank's heads
+of the ``wkv`` state, and the token-shift rows come back whole.
 """
 from __future__ import annotations
 

@@ -293,17 +293,39 @@ DPO_LR = 1e-4
 DPO_RUNS = ("granite_span", "rwkv", "hymba128", "vlm40", "audio")
 DPO_MESH = (2, 2)
 SERVE_DECODES = 8
-SERVE_RUNS = ("vlm40", "audio")
+# every family's prefill and serve steps, each run on the meshes of its
+# train steps: vlm40 and audio; granite's span case (one token group of
+# the prefill spans the data ranks, and capacity binds); rwkv (the wkv
+# state by heads over "model"); hymba160 (whole attention heads at 2x2
+# beside the Mamba state by heads, S 128 past the window of 64); glm4 on
+# 1x4 (whole heads, dense)
+SERVE_RUNS = ("vlm40", "audio", "granite_span", "rwkv", "hymba160", "glm4")
 # the per-lane check of the dense example on 2x2 (``tests/test_torch_ap.py``
-# (h)): after the prefill and one decode step of every lane, a serve step
-# with these (slot, lane) idle, one on each data rank
+# (h)) and of these runs on these meshes: after the prefill and the greedy
+# steps of every lane, a serve step with these (slot, lane) idle, one on
+# each data rank (the 1x4 mesh has one data rank: both there)
 IDLE_LANES = ((1, 0), (2, 3))
+SERVE_IDLE = {"granite_span": (2, 2), "rwkv": (2, 2), "hymba160": (2, 2),
+              "glm4": (1, 4)}
+# a per-lane ring cache of hymba160's reduced window of 64 on 2x2, no
+# prefill: RING_STEPS serve steps fed the run's first batch, past the
+# window, against the reference's serve steps over its own ring cache
+RING_RUN, RING_MESH, RING_STEPS = "hymba160", (2, 2), 72
 # chip_smoke.py's planted faults of the new paths, each planted alone in a
-# 2x2 run of the dense example: "dpo_swap", data rank 1's policy forwards
-# score the rejected sequences as chosen and the chosen as rejected (slots
-# 2-3); "kv_roll", on data rank 0 the last model rank writes its KV heads
-# into the cache rolled by one head (slots 0-1)
-SERVE_FAULTS = {"dpo_swap": (2, 3), "kv_roll": (0, 1)}
+# 2x2 run: "dpo_swap", data rank 1's policy forwards score the rejected
+# sequences as chosen and the chosen as rejected (slots 2-3); "kv_roll", on
+# data rank 0 the last model rank writes its KV heads into the cache rolled
+# by one head (slots 0-1), both in the dense example; "state_roll" (rwkv),
+# on data rank 1 the last model rank's wkv heads of layer 0 are rolled by
+# one head after the prefill (slots 2-3); "conv_roll" (hymba160), on data
+# rank 0 the last model rank's conv block of layer 0 is rolled by one row
+# along W-1 after the prefill (slots 0-1); and phase 36's "route_blind" on
+# granite's span case (data rank 1 routes the prefill's layer 0 without the
+# lower ranks' counts, slots 2-3)
+SERVE_FAULTS = {"dpo_swap": (2, 3), "kv_roll": (0, 1), "state_roll": (2, 3),
+                "conv_roll": (0, 1), "route_blind": (2, 3)}
+SERVE_FAULT_RUNS = {"state_roll": "rwkv", "conv_roll": "hymba160",
+                    "route_blind": "granite_span"}
 
 
 def dpo_batch(init: dict, t: int) -> dict:
@@ -343,10 +365,12 @@ def served(work: str, name: str, shape) -> dict:
     ``shape`` (d, m) mesh (rank r at data rank r // m, model rank r % m),
     assembled: "logits" [n + 1, Z, b, V] and "tokens" [n, Z, b] (and
     "idle_logits" [Z, b, V]) from each data rank's model rank 0, after
-    checking that its other model ranks returned the same bitwise; "k" /
-    "v" [L, Z, b, Sc, KV, hd] from every rank's shard; "ranks", every
-    rank's file."""
+    checking that its other model ranks returned the same bitwise;
+    "cache/<path>" every leaf of the prefilled cache from every rank's
+    shard (``chip_smoke.cache_whole``); "ranks", every rank's file."""
     import os
+
+    import chip_smoke
     d, m = shape
     parts = [dict(np.load(os.path.join(work, f"{name}_rank{r}.npz")))
              for r in range(d * m)]
@@ -360,8 +384,5 @@ def served(work: str, name: str, shape) -> dict:
                                       parts[i * m][key]), (name, key, i, j)
         out[key] = np.concatenate([parts[i * m][key] for i in range(d)],
                                   axis=1 if key != "idle_logits" else 0)
-    for key in ("k", "v"):
-        out[key] = np.concatenate([np.concatenate(
-            [parts[i * m + j][key] for j in range(m)], axis=4)
-            for i in range(d)], axis=1)
+    out.update(chip_smoke.cache_whole(parts, d, m, np.concatenate))
     return out

@@ -129,13 +129,16 @@ def run(cfg, init, shape, steps=common.STEPS, evals=False,
     return out
 
 
-def serve(cfg, init, shape, n=common.SERVE_DECODES):
+def serve(cfg, init, shape, n=common.SERVE_DECODES, ring=False):
     """The GSPMD prefill step on ``common.serve_batch`` into a cache of S +
     ``n`` rows laid out by ``cache_specs``, then ``n`` greedy serve steps,
     with ``common.serve_lora``'s adapters on a ``shape`` mesh: "logits"
     [n + 1, Z, b, V] (the prefill's last token's, then each step's),
-    "tokens" [n, Z, b] (the greedy stream) and the prefilled cache's
-    "cache_k" / "cache_v" [L, Z, b, S + n, KV, hd]."""
+    "tokens" [n, Z, b] (the greedy stream) and every leaf of the prefilled
+    cache, "cache/<path>" (K/V [L, Z, b, S + n, KV, hd], the recurrent
+    states). With ``ring``, no prefill: a per-lane ring cache of the
+    sliding window takes ``n`` serve steps fed the batch's tokens 0..n-1,
+    "logits" [n, Z, b, V]."""
     from repro.models import model as JM
     mesh = _mesh(shape)
     params = jax.tree_util.tree_map(jnp.asarray, common.unflat(init,
@@ -143,7 +146,7 @@ def serve(cfg, init, shape, n=common.SERVE_DECODES):
     lora = jax.tree_util.tree_map(jnp.asarray, common.serve_lora(init))
     batch = {k: jnp.asarray(v) for k, v in common.serve_batch(init).items()}
     Z, b, S = batch["tokens"].shape
-    cache = JM.init_cache(cfg, Z, b, S + n)
+    cache = JM.init_cache(cfg, Z, b, S + n, ring=ring, per_lane=ring)
     ns = lambda t: PT.to_named(mesh, t)  # noqa: E731
     p_sh = ns(PT.base_param_specs(mesh, params))
     l_sh = ns(PT.lora_param_specs(mesh, lora))
@@ -159,16 +162,25 @@ def serve(cfg, init, shape, n=common.SERVE_DECODES):
     params = jax.device_put(params, p_sh)
     lora = jax.device_put(lora, l_sh)
     cache = jax.device_put(cache, c_sh)
+    out, logs, toks = {}, [], []
     with mesh:
-        logits, cache = pre(params, lora, cache, batch)
-        out = {"cache_k": np.asarray(cache["layers"]["attn"]["k"]),
-               "cache_v": np.asarray(cache["layers"]["attn"]["v"])}
-        logs, toks = [np.asarray(logits)], []
-        for _ in range(n):
-            cur = jnp.argmax(logits, axis=-1).astype(jnp.int32)
-            toks.append(np.asarray(cur))
-            logits, cache = dec(params, lora, cache, cur)
+        if ring:
+            for i in range(n):
+                cur = batch["tokens"][:, :, i]
+                toks.append(np.asarray(cur))
+                logits, cache = dec(params, lora, cache, cur)
+                logs.append(np.asarray(logits))
+        else:
+            logits, cache = pre(params, lora, cache, batch)
+            out = common.flat(jax.tree_util.tree_map(np.asarray,
+                                                     cache["layers"]),
+                              "cache/")
             logs.append(np.asarray(logits))
+            for _ in range(n):
+                cur = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+                toks.append(np.asarray(cur))
+                logits, cache = dec(params, lora, cache, cur)
+                logs.append(np.asarray(logits))
     out.update(logits=np.stack(logs), tokens=np.stack(toks))
     return out
 
@@ -176,8 +188,10 @@ def serve(cfg, init, shape, n=common.SERVE_DECODES):
 def extras(workdir, name, cfg, init, shapes) -> None:
     """The DPO and serving runs of run ``name`` (``common.DPO_RUNS``,
     ``common.SERVE_RUNS``): ``jax_<name>_dpo_<d>x<m>.npz`` on
-    ``common.DPO_MESH`` and ``jax_serve_<name>_<d>x<m>.npz`` on each of
-    ``shapes``."""
+    ``common.DPO_MESH``, ``jax_serve_<name>_<d>x<m>.npz`` on each of
+    ``shapes`` and, for ``common.RING_RUN``, ``jax_ring_<name>_<d>x<m>.npz``
+    (``common.RING_STEPS`` steps over a ring cache) on
+    ``common.RING_MESH``."""
     if name in common.DPO_RUNS:
         np.savez(os.path.join(workdir, f"jax_{name}_dpo_%dx%d.npz"
                               % common.DPO_MESH),
@@ -188,6 +202,11 @@ def extras(workdir, name, cfg, init, shapes) -> None:
             np.savez(os.path.join(workdir,
                                   f"jax_serve_{name}_%dx%d.npz" % shape),
                      **serve(cfg, init, shape))
+    if name == common.RING_RUN:
+        np.savez(os.path.join(workdir, f"jax_ring_{name}_%dx%d.npz"
+                              % common.RING_MESH),
+                 **serve(cfg, init, common.RING_MESH, common.RING_STEPS,
+                         ring=True))
 
 
 class _Over:
@@ -235,7 +254,7 @@ def ssm_main(workdir: str, names) -> None:
             np.savez(os.path.join(workdir, f"jax_{name}_%dx%d.npz" % shape),
                      **run(cfg, init, shape,
                            evals=name in common.SSM_EVALS))
-        extras(workdir, name, cfg, init, ())
+        extras(workdir, name, cfg, init, common.SSM_RUNS[name][3])
     print("done")
 
 
@@ -280,7 +299,7 @@ def main(workdir: str, moe: str = "", cases=()) -> None:
                       evals=name in common.MOE_EVALS)
             np.savez(os.path.join(workdir, f"jax_{name}_%dx%d.npz" % shape),
                      **out)
-        extras(workdir, name, cfg, init, ())
+        extras(workdir, name, cfg, init, meshes)
         if case == "span":
             with open(os.path.join(workdir, f"drops_{name}.json"),
                       "w") as f:

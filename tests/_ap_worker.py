@@ -23,8 +23,8 @@ batches) and writes, rank 0 for the group:
     per-lane cache with ``common.IDLE_LANES`` idle in a last step;
   * ``refusals.json`` — the ``NotImplementedError`` message of a mesh with
     a pod axis, of ragged slot rows on the 2x2 mesh's split model axis, and
-    of the prefill and serve steps of the moe, ssm and hybrid families and
-    of attention whose heads do not split, on the 2x2 mesh.
+    of the prefill and serve steps of hymba d 160 on a 1x4 mesh, whose 10
+    Mamba heads do not split over a model axis of 4.
 
 Each ``port_<d>x<m>.npz`` also holds "eval": the sharded eval step after
 the steps, on the first batch with the trained adapters (so do the MoE
@@ -47,8 +47,10 @@ runs the ssm and hybrid families and the whole-heads attention instead
 ``init_<name>.npz`` in, ``port_<name>_<d>x<m>.npz`` and
 ``log_<name>_<d>x<m>_rank<r>.json`` out; for each run of
 ``common.SSM_FAULTS``, that fault planted at 2x2
-(``chip_smoke._planted_ssm``), ``port_<name>_2x2_fault.npz``; and opt
-level 2 of rwkv at 2x2, ``port_rwkv_2x2_opt2.npz``.
+(``chip_smoke._planted_ssm``), ``port_<name>_2x2_fault.npz``; opt level 2
+of rwkv at 2x2, ``port_rwkv_2x2_opt2.npz``; and ``layout_refusals.json``,
+the ``ValueError`` of the sharded prefill and serve steps given rwkv's
+cache laid out by ``cache_specs`` on 2x2.
 
     python tests/_ap_worker.py <workdir> --modal
 
@@ -64,7 +66,8 @@ step's) out; on
 The MoE, ssm and modal runs of ``common.DPO_RUNS`` also write
 ``port_<name>_dpo_2x2.npz`` (one DPO step and the DPO eval step), and those
 of ``common.SERVE_RUNS`` ``serve_<name>_<d>x<m>_rank<r>.npz`` on each of
-their meshes.
+their meshes, with the per-lane idle step, the planted serving faults and
+the ring stream where ``common`` names them (``extras``).
 """
 import dataclasses
 import json
@@ -152,16 +155,21 @@ def dpo(cfg, init, mesh, steps=1):
 def serve(workdir, name, cfg, init, mesh, **kw) -> None:
     """The sharded prefill step and ``common.SERVE_DECODES`` greedy serve
     steps (``chip_smoke.ap_serve``: ``serve_lora``'s adapters, ranks
-    unbound as in the reference's steps); each rank writes its results,
-    its data rank's slots, to ``<name>_rank<r>.npz``."""
+    unbound as in the reference's steps; with ``ring``, the ring stream
+    fed the first batch); each rank writes its results, its data rank's
+    slots and its cache shards, to ``<name>_rank<r>.npz``."""
     params = bridge.params_from_numpy(cfg, common.unflat(init, "params/"),
                                       "cpu")
     lora = bridge.lora_from_numpy(common.serve_lora(init), "cpu")
     batch = {k: torch.from_numpy(v)
              for k, v in common.serve_batch(init).items()}
+    n = common.SERVE_DECODES
+    if kw.get("ring"):
+        n, kw["feed"] = common.RING_STEPS, batch["tokens"].movedim(2, 0)
     res = chip_smoke.ap_serve(torch, cfg, mesh, params, lora, batch, None,
-                              common.SERVE_DECODES, **kw)
-    out = {k: res[k].numpy() for k in ("logits", "tokens", "k", "v")}
+                              n, **kw)
+    out = {k: res[k].numpy() for k in ("logits", "tokens")}
+    out.update({k: np.asarray(v) for k, v in res["cache"].items()})
     if "idle_logits" in res:
         out.update(idle_logits=res["idle_logits"].float().numpy(),
                    idle_changed=res["idle_changed"],
@@ -173,17 +181,35 @@ def serve(workdir, name, cfg, init, mesh, **kw) -> None:
 def extras(workdir, name, cfg, init, meshes, shapes=()) -> None:
     """The DPO and serving runs of run ``name`` (``common.DPO_RUNS``,
     ``common.SERVE_RUNS``): ``port_<name>_dpo_<d>x<m>.npz`` on
-    ``common.DPO_MESH``, ``serve_<name>_<d>x<m>_rank<r>.npz`` on each of
-    ``shapes`` (``meshes``: {shape: mesh})."""
+    ``common.DPO_MESH``; ``serve_<name>_<d>x<m>_rank<r>.npz`` on each of
+    ``shapes`` (``meshes``: {shape: mesh}), ``lanes_<name>_rank<r>.npz``
+    over a per-lane cache with ``common.IDLE_LANES`` idle in a last step
+    on its ``common.SERVE_IDLE`` mesh, its planted fault of
+    ``common.SERVE_FAULT_RUNS`` at 2x2 (``serve_<name>_<fault>_rank<r>
+    .npz``), and the ring stream of ``common.RING_RUN``
+    (``ring_<name>_rank<r>.npz``)."""
     if name in common.DPO_RUNS:
         mesh = meshes[common.DPO_MESH]
         TRAIN.write_out(os.path.join(
             workdir, f"port_{name}_dpo_%dx%d.npz" % common.DPO_MESH), mesh,
             dpo(cfg, init, mesh))
-    if name in common.SERVE_RUNS:
-        for shape in shapes:
-            serve(workdir, f"serve_{name}_%dx%d" % shape, cfg, init,
-                  meshes[shape])
+    if name not in common.SERVE_RUNS:
+        return
+    for shape in shapes:
+        serve(workdir, f"serve_{name}_%dx%d" % shape, cfg, init,
+              meshes[shape])
+    if name in common.SERVE_IDLE:
+        serve(workdir, f"lanes_{name}", cfg, init,
+              meshes[common.SERVE_IDLE[name]], per_lane=True,
+              idle=common.IDLE_LANES)
+    for fault, run in common.SERVE_FAULT_RUNS.items():
+        if run == name:
+            with chip_smoke._serve_fault(cfg, fault):
+                serve(workdir, f"serve_{name}_{fault}", cfg, init,
+                      meshes[(2, 2)])
+    if name == common.RING_RUN:
+        serve(workdir, f"ring_{name}", cfg, init, meshes[common.RING_MESH],
+              ring=True)
 
 
 def refusal(fn) -> str:
@@ -192,6 +218,25 @@ def refusal(fn) -> str:
     except NotImplementedError as e:
         return str(e)
     return ""
+
+
+def layout_refusals(cfg, mesh) -> dict:
+    """{step: the ``ValueError`` message} of the sharded prefill and serve
+    steps given a cache laid out by ``cache_specs`` (the reference's
+    layout, which splits rwkv's wkv by its key channel, not its heads)."""
+    from repro_torch.models import model as M
+    cache = M.init_cache(cfg, common.Z, common.B, 1, device="cpu")
+    cache = chip_smoke._placed(mesh, cache, PT.cache_specs(mesh, cache))
+    tokens = torch.zeros((common.Z, common.B, 1), dtype=torch.int32)
+    args = {"prefill": ({"tokens": tokens},), "serve": (tokens[:, :, 0],)}
+    out = {}
+    for step, rest in args.items():
+        try:
+            getattr(SD, f"make_{step}_step")(cfg, mesh)({}, {}, cache, *rest)
+            out[step] = ""
+        except ValueError as e:
+            out[step] = str(e)
+    return out
 
 
 def moe_main(workdir: str) -> None:
@@ -203,7 +248,8 @@ def moe_main(workdir: str) -> None:
             init = dict(np.load(os.path.join(workdir, f"init_{name}.npz")))
             cfg = common.moe_config(name, "repro_torch")
             if shape == common.MOE_CASES[case][4][0]:
-                extras(workdir, name, cfg, init, meshes)
+                extras(workdir, name, cfg, init, meshes,
+                       common.MOE_CASES[case][4])
             tag = f"{name}_%dx%d" % shape
             res = train(cfg, init, meshes[shape],
                         steps=common.MOE_STEPS.get(case, common.STEPS),
@@ -240,7 +286,8 @@ def ssm_main(workdir: str) -> None:
             init = dict(np.load(os.path.join(workdir, f"init_{name}.npz")))
             cfg = common.ssm_config(name, "repro_torch")
             if shape == common.SSM_RUNS[name][3][0]:
-                extras(workdir, name, cfg, init, meshes)
+                extras(workdir, name, cfg, init, meshes,
+                       common.SSM_RUNS[name][3])
             tag = f"{name}_%dx%d" % shape
             res = train(cfg, init, meshes[shape],
                         evals=name in common.SSM_EVALS)
@@ -263,6 +310,11 @@ def ssm_main(workdir: str) -> None:
                 TRAIN.write_out(os.path.join(workdir, f"port_{tag}_opt2.npz"),
                                 meshes[shape],
                                 train(cfg, init, meshes[shape], opt_level=2))
+                msgs = layout_refusals(cfg, meshes[shape])
+                if me == 0:
+                    with open(os.path.join(workdir, "layout_refusals.json"),
+                              "w") as f:
+                        json.dump(msgs, f)
         dist.barrier()
     print("done")
 
@@ -354,15 +406,13 @@ def main(workdir: str) -> None:
             lambda: SD.make_train_step(cfg, m22)(
                 embed, {}, None, None, None, None,
                 {"tokens": tokens, "slot_rows": torch.full((4,), 8)}))
-        # the prefill and serve steps of the caches still queued
-        for what, other in (
-                ("moe", common.moe_config("granite_span", "repro_torch")),
-                ("ssm", common.ssm_config("rwkv", "repro_torch")),
-                ("hybrid", common.ssm_config("hymba128", "repro_torch")),
-                ("whole heads", dataclasses.replace(cfg, num_kv_heads=1))):
-            for step in ("prefill", "serve"):
-                build = getattr(SD, f"make_{step}_step")
-                msgs[f"{step} {what}"] = refusal(lambda: build(other, m22))
+        # scan heads that do not split over "model": hymba160's 10 Mamba
+        # heads on a model axis of 4
+        m14 = MESH.make_local_mesh((1, 4), device="cpu")
+        hymba = common.ssm_config("hymba160", "repro_torch")
+        for step in ("prefill", "serve"):
+            build = getattr(SD, f"make_{step}_step")
+            msgs[f"{step} scan heads"] = refusal(lambda: build(hymba, m14))
         if me == 0:
             with open(os.path.join(workdir, "refusals.json"), "w") as f:
                 json.dump(msgs, f)

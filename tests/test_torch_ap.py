@@ -35,11 +35,10 @@ together in one module fixture.
     one-rank gloo group) agrees with the 2x2 and 4x1 steps within (a)'s
     bars.
 (e) A mesh with a pod axis, ragged slot rows on a split model axis, and the
-    prefill and serve steps of the families whose caches are not laid out
-    over the mesh (moe, ssm, hybrid) and of attention whose heads do not
-    split raise ``NotImplementedError`` on a real mesh, naming what they
-    refuse and ``ROADMAP.md`` (the MoE, ssm, hybrid, vlm and audio families'
-    train and eval steps run: ``tests/test_torch_ap_moe.py``,
+    prefill and serve steps of scan heads that do not split over "model"
+    (hymba d 160's 10 Mamba heads on 1x4) raise ``NotImplementedError`` on
+    a real mesh, naming what they refuse and ``ROADMAP.md`` (every family's
+    train, eval, prefill and serve steps run: ``tests/test_torch_ap_moe.py``,
     ``tests/test_torch_ap_ssm.py``, ``tests/test_torch_ap_modal.py``; so
     does the eval step, whose per-slot losses after the 2x2 and 4x1 runs
     are held within 1e-5 relative of the reference's ``make_eval_step`` on
@@ -57,17 +56,18 @@ together in one module fixture.
     asserted within ``DPO_LOSS``) and the adapters within (a)'s bars;
     ``chip_smoke.py``'s planted fault "dpo_swap" breaks only data rank 1's
     slots.
-(i) The prefill step (a cache of S + 8 rows laid out by ``cache_specs``)
-    and 8 greedy serve steps on 2x2 and 4x1 with ``common.serve_lora``'s
-    adapters against the reference's: every step's logits and the
-    prefilled cache within 1e-5 relative to their scale, the greedy stream
-    equal to the reference's and to the port's one-rank run's; a per-lane
-    cache on 2x2 whose step with ``common.IDLE_LANES`` idle leaves their
-    K/V rows and positions bitwise untouched on every rank, its live lanes
-    as the one-rank run's; the planted fault "kv_roll" breaks only data
-    rank 0's slots. The other families' DPO and serving runs
-    (``common.DPO_RUNS``, ``common.SERVE_RUNS``) are held in their own
-    files through ``family_dpo_held`` and ``_serve_held``.
+(i) The prefill step (a cache of S + 8 rows laid out by
+    ``serve_cache_specs``, the K/V by KV heads as the reference's
+    ``cache_specs``) and 8 greedy serve steps on 2x2 and 4x1 with
+    ``common.serve_lora``'s adapters against the reference's: every step's
+    logits and the prefilled cache within 1e-5 relative to their scale,
+    the greedy stream equal to the reference's and to the port's one-rank
+    run's; a per-lane cache on 2x2 whose step with ``common.IDLE_LANES``
+    idle leaves their K/V rows and positions bitwise untouched on every
+    rank, its live lanes as the one-rank run's; the planted fault "kv_roll"
+    breaks only data rank 0's slots. The other families' DPO and serving
+    runs (``common.DPO_RUNS``, ``common.SERVE_RUNS``) are held in their own
+    files through ``family_dpo_held``, ``_serve_held`` and ``lanes_held``.
 """
 import json
 import os
@@ -330,14 +330,8 @@ def test_opt_levels_and_one_rank_agree(runs, tmp_path):
 @pytest.mark.parametrize("what,names", [
     ("pod axis", ("pod",)),
     ("ragged rows", ("ragged", "model")),
-    ("prefill moe", ("prefill", "moe", "experts")),
-    ("serve moe", ("serve", "moe", "experts")),
-    ("prefill ssm", ("prefill", "ssm", "wkv")),
-    ("serve ssm", ("serve", "ssm", "wkv")),
-    ("prefill hybrid", ("prefill", "hybrid", "Mamba")),
-    ("serve hybrid", ("serve", "hybrid", "Mamba")),
-    ("prefill whole heads", ("prefill", "do not split", "whole heads")),
-    ("serve whole heads", ("serve", "do not split", "whole heads")),
+    ("prefill scan heads", ("prefill", "10 Mamba heads", "model 4")),
+    ("serve scan heads", ("serve", "10 Mamba heads", "model 4")),
 ])
 def test_unported_splits_raise_by_name(runs, what, names):
     with open(os.path.join(runs["dir"], "refusals.json")) as f:
@@ -484,14 +478,17 @@ def one_serve(runs, tmp_path_factory):
 
 
 def _serve_held(got, want, one, what):
-    """(i)'s bars: every step's logits and the prefilled cache against the
-    reference's, and the greedy stream equal to the reference's and to the
-    port's one-rank run."""
+    """(i)'s bars: every step's logits and every leaf of the prefilled
+    cache against the reference's, and the greedy stream equal to the
+    reference's and to the port's one-rank run."""
     assert got["logits"].shape == want["logits"].shape, what
     assert np.isfinite(got["logits"]).all(), what
     close_logits(got["logits"], want["logits"], f"{what} logits")
-    for key in ("k", "v"):
-        close_logits(got[key], want[f"cache_{key}"], f"{what} cache {key}")
+    leaves = sorted(k for k in want if k.startswith("cache/"))
+    assert leaves and leaves == sorted(k for k in got
+                                       if k.startswith("cache/")), what
+    for key in leaves:
+        close_logits(got[key], want[key], f"{what} {key}")
     np.testing.assert_array_equal(got["tokens"], want["tokens"])
     np.testing.assert_array_equal(got["tokens"], one["tokens"])
 
@@ -504,6 +501,24 @@ def test_sharded_serve_matches_the_reference(runs, one_serve, mesh):
                 f"serve {tag}")
 
 
+def lanes_held(got, one, what):
+    """A per-lane cache's idle step (``common.IDLE_LANES``): on every rank
+    the idle lanes' entries of every local cache leaf and their positions
+    stay bitwise untouched and the live lanes' change; every step's logits
+    of every lane, and the idle step's of the live lanes, match the port's
+    one-rank run (``one``)."""
+    for r, part in enumerate(got["ranks"]):
+        assert int(part["idle_changed"]) == 0, (what, r)
+        assert int(part["live_changed"]) > 0, (what, r)
+    close_logits(got["logits"], one["logits"], f"{what} per-lane logits")
+    np.testing.assert_array_equal(got["tokens"], one["tokens"])
+    live = np.ones(got["idle_logits"].shape[:2], bool)
+    for z, lane in common.IDLE_LANES:
+        live[z, lane] = False
+    close_logits(got["idle_logits"][live], one["idle_logits"][live],
+                 f"{what}: the idle step's live lanes")
+
+
 def test_idle_lanes_stay_bitwise_on_every_rank(runs, one_serve):
     """A per-lane cache on 2x2: after the prefill and the greedy steps of
     every lane, a serve step with ``common.IDLE_LANES`` idle (one on each
@@ -511,18 +526,8 @@ def test_idle_lanes_stay_bitwise_on_every_rank(runs, one_serve):
     on every rank and writes the live ones; every step's logits of every
     lane, and the idle step's of the live lanes, match the port's
     one-rank run."""
-    got = common.served(runs["dir"], "lanes_2x2", (2, 2))
-    one = one_serve["lanes"]
-    for r, part in enumerate(got["ranks"]):
-        assert int(part["idle_changed"]) == 0, r
-        assert int(part["live_changed"]) > 0, r
-    close_logits(got["logits"], one["logits"], "per-lane logits")
-    np.testing.assert_array_equal(got["tokens"], one["tokens"])
-    live = np.ones((common.Z, common.B), bool)
-    for z, lane in common.IDLE_LANES:
-        live[z, lane] = False
-    close_logits(got["idle_logits"][live], one["idle_logits"][live],
-                 "the idle step's live lanes")
+    lanes_held(common.served(runs["dir"], "lanes_2x2", (2, 2)),
+               one_serve["lanes"], "dense 2x2")
 
 
 def test_a_planted_cache_fault_breaks_parity_on_its_slots(runs):

@@ -324,17 +324,18 @@ def test_modal_sharded_dpo_matches_the_reference(runs, name):
     family_dpo_held(runs, name)
 
 
-SERVES = [(name, mesh) for name in common.SERVE_RUNS
+SERVE_NAMES = [n for n in common.SERVE_RUNS if n in common.MODAL_RUNS]
+SERVES = [(name, mesh) for name in SERVE_NAMES
           for mesh in common.MODAL_RUNS[name][4]]
 
 
 @pytest.fixture(scope="module")
 def one_serve(runs, tmp_path_factory):
-    """The port's one-rank serving runs of ``common.SERVE_RUNS``."""
+    """The port's one-rank serving runs of ``SERVE_NAMES``."""
     return {name: one_rank_serve(_load(runs, f"init_{name}.npz"),
                                  tmp_path_factory.mktemp(f"serve_{name}"),
                                  common.modal_config(name, "repro_torch"))
-            for name in common.SERVE_RUNS}
+            for name in SERVE_NAMES}
 
 
 @pytest.mark.parametrize("name,mesh", SERVES, ids=[_tag(*r) for r in SERVES])

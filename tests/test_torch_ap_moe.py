@@ -45,6 +45,18 @@ an arch (``tests/_ap_reference.py --moe``), and the port's 4 gloo ranks
 (g) One sharded DPO step and the DPO eval step of granite's span case on
     2x2 against the reference's (``tests/test_torch_ap.py``'s
     ``family_dpo_held``).
+(h) The prefill step and 8 greedy serve steps of granite's span case on
+    2x2 and 4x1 against the reference's GSPMD steps on the same mesh
+    (``tests/test_torch_ap.py``'s ``_serve_held``: every step's logits and
+    every leaf of the prefilled cache within 1e-5 of their scale, the greedy
+    stream equal to the reference's and to the port's one-rank run's): the
+    prefill's one token group spans the data ranks and its capacity binds
+    (one count exchange over "data" a layer), and each decode step's Z·b
+    one-token rows form one lossless group across the data ranks. A
+    per-lane cache on 2x2 with ``common.IDLE_LANES`` idle in a last step
+    (``lanes_held``: every leaf and position of an idle lane bitwise
+    untouched on every rank); phase 36's route fault, planted in layer 0 of
+    the prefill, breaks data rank 1's slots only.
 """
 import json
 import os
@@ -66,7 +78,8 @@ from repro_torch.launch import mesh as TMESH
 from repro_torch.models.moe import pick_group_size
 from tests import _ap_common as common
 from tests.test_torch_ap import LOSS, ROOT, TIMEOUT, _adapters_close, \
-    _env, _ranks, family_dpo_held
+    _env, _ranks, _serve_held, close_logits, family_dpo_held, lanes_held, \
+    one_rank_serve
 
 RUNS = common.moe_runs()
 MOVES = 1e-3                 # (c): the smallest relative move held
@@ -317,3 +330,61 @@ def test_moe_sharded_dpo_matches_the_reference(runs, name):
     data rank in each of the four forwards (no load-balance term: the
     reference's DPO loss takes none), and the DPO eval after it."""
     family_dpo_held(runs, name)
+
+
+# ---------------------------------------------------------------------------
+# (h) the prefill and serve steps against the reference's
+# ---------------------------------------------------------------------------
+
+SERVE_RUN = "granite_span"
+SERVES = [(SERVE_RUN, mesh) for mesh in common.MOE_CASES["span"][4]]
+
+
+@pytest.fixture(scope="module")
+def one_serve(runs, tmp_path_factory):
+    """The port's one-rank serving runs of granite's span case: a global
+    position, and per lane with ``common.IDLE_LANES`` idle in one more
+    step."""
+    init = _load(runs, f"init_{SERVE_RUN}.npz")
+    cfg = common.moe_config(SERVE_RUN, "repro_torch")
+    return {"global": one_rank_serve(init, tmp_path_factory.mktemp("sg"),
+                                     cfg),
+            "lanes": one_rank_serve(init, tmp_path_factory.mktemp("sl"), cfg,
+                                    per_lane=True, idle=common.IDLE_LANES)}
+
+
+@pytest.mark.parametrize("name,mesh", SERVES, ids=[_tag(*r) for r in SERVES])
+def test_moe_sharded_serve_matches_the_reference(runs, one_serve, name,
+                                                 mesh):
+    tag = _tag(name, mesh)
+    _serve_held(common.served(runs, f"serve_{tag}", mesh),
+                _load(runs, f"jax_serve_{tag}.npz"), one_serve["global"],
+                f"serve {tag}")
+
+
+def test_moe_idle_lanes_stay_bitwise_on_every_rank(runs, one_serve):
+    lanes_held(common.served(runs, f"lanes_{SERVE_RUN}",
+                             common.SERVE_IDLE[SERVE_RUN]),
+               one_serve["lanes"], f"{SERVE_RUN} lanes")
+
+
+def test_a_planted_route_fault_breaks_serving_on_its_slots(runs):
+    """Data rank 1 routes the prefill's layer 0 without rank 0's counts:
+    its queue places start at 0, so it keeps the choices the group's
+    capacity drops there (the reference drops some of slot 3's, none of
+    slot 2's: ``drops_<run>.json``), and the K/V of layer 1 and every
+    later step move on those slots; every other slot stays within the
+    bars."""
+    got = common.served(runs, f"serve_{SERVE_RUN}_route_blind", (2, 2))
+    want = _load(runs, f"jax_serve_{_tag(SERVE_RUN, (2, 2))}.npz")
+    with open(os.path.join(runs, f"drops_{SERVE_RUN}.json")) as f:
+        dropped = json.load(f)[0]
+    hit = [z for z in common.SERVE_FAULTS["route_blind"] if dropped[z]]
+    kept = [z for z in range(common.Z) if z not in hit]
+    assert hit == [3], dropped
+    close_logits(got["logits"][:, kept], want["logits"][:, kept],
+                 "the slots with no dropped choice in layer 0")
+    scale = np.abs(want["logits"]).max()
+    for z in hit:
+        off = np.abs(got["logits"][1:, z] - want["logits"][1:, z]).max()
+        assert off > 1e-3 * scale, (z, off, scale)

@@ -50,6 +50,26 @@ processes (``tests/_ap_reference.py --ssm``), and the port's 4 gloo ranks
 (f) One sharded DPO step and the DPO eval step of rwkv and hymba d 128 on
     2x2 against the reference's (``tests/test_torch_ap.py``'s
     ``family_dpo_held``).
+(g) The prefill step and 8 greedy serve steps of rwkv and hymba d 160 on
+    2x2 and 4x1, and of glm4 on 1x4, against the reference's GSPMD steps on
+    the same mesh (``tests/test_torch_ap.py``'s ``_serve_held``: every
+    step's logits and every leaf of the prefilled cache within 1e-5 of
+    their scale, the greedy stream equal to the reference's and to the
+    port's one-rank run's): the cache laid out by ``serve_cache_specs``
+    (rwkv's wkv and Mamba's ssm by heads over "model", conv by its inner
+    block, tm_x / cm_x whole; hymba d 160's and glm4's K/V whole, every
+    model rank writing all the heads). A per-lane cache with
+    ``common.IDLE_LANES`` idle in a last step (``lanes_held``: every leaf
+    and position of an idle lane bitwise untouched on every rank); a
+    per-lane ring cache of hymba d 160's window of 64 on 2x2 streamed
+    ``common.RING_STEPS`` tokens, past the window, against the reference's
+    serve steps over its ring cache; ``chip_smoke.py``'s planted faults
+    "state_roll" (rwkv) and "conv_roll" (hymba d 160) break their own data
+    rank's slots only.
+(h) ``serve_cache_specs`` lays each family's cache out as (g) says, on 2x2
+    and 1x4, and equals ``cache_specs`` where the two agree; a cache laid
+    out by ``cache_specs`` where they differ (rwkv's wkv, split by its key
+    channel) is refused by name by the sharded prefill and serve steps.
 """
 import json
 import os
@@ -72,7 +92,8 @@ from repro_torch.launch import partitioning as TPT
 import chip_smoke
 from tests import _ap_common as common
 from tests.test_torch_ap import ADAM_BOUND, LEAF, LOSS, ROOT, TIMEOUT, \
-    _adapters_close, _env, _leaves, _one_rank, _ranks, family_dpo_held
+    _adapters_close, _env, _leaves, _one_rank, _ranks, _serve_held, \
+    close_logits, family_dpo_held, lanes_held, one_rank_serve
 
 RUNS = common.ssm_runs()
 # (a) for the runs of ``common.SSM_ONE_RANK``, on chip_smoke.py's relative
@@ -339,3 +360,149 @@ def test_ssm_sharded_dpo_matches_the_reference(runs, name):
     """One DPO step of rwkv (scan heads over "model") and of hymba d 128,
     and the DPO eval after it."""
     family_dpo_held(runs, name)
+
+
+# ---------------------------------------------------------------------------
+# (g) the prefill and serve steps against the reference's
+# ---------------------------------------------------------------------------
+
+SERVE_NAMES = [n for n in common.SERVE_RUNS if n in common.SSM_RUNS]
+SERVES = [(name, mesh) for name in SERVE_NAMES
+          for mesh in common.SSM_RUNS[name][3]]
+
+
+@pytest.fixture(scope="module")
+def one_serve(runs, tmp_path_factory):
+    """The port's one-rank serving runs: per run of ``SERVE_NAMES`` a
+    global position, and per lane with ``common.IDLE_LANES`` idle in one
+    more step."""
+    out = {}
+    for name in SERVE_NAMES:
+        init = _load(runs, f"init_{name}.npz")
+        cfg = common.ssm_config(name, "repro_torch")
+        out[name] = {
+            "global": one_rank_serve(init, tmp_path_factory.mktemp(
+                f"sg_{name}"), cfg),
+            "lanes": one_rank_serve(init, tmp_path_factory.mktemp(
+                f"sl_{name}"), cfg, per_lane=True, idle=common.IDLE_LANES)}
+    return out
+
+
+@pytest.mark.parametrize("name,mesh", SERVES, ids=[_tag(*r) for r in SERVES])
+def test_ssm_sharded_serve_matches_the_reference(runs, one_serve, name,
+                                                 mesh):
+    tag = _tag(name, mesh)
+    _serve_held(common.served(runs, f"serve_{tag}", mesh),
+                _load(runs, f"jax_serve_{tag}.npz"),
+                one_serve[name]["global"], f"serve {tag}")
+
+
+@pytest.mark.parametrize("name", [n for n in common.SERVE_IDLE
+                                  if n in common.SSM_RUNS])
+def test_ssm_idle_lanes_stay_bitwise_on_every_rank(runs, one_serve, name):
+    lanes_held(common.served(runs, f"lanes_{name}", common.SERVE_IDLE[name]),
+               one_serve[name]["lanes"], f"{name} lanes")
+
+
+def test_hymba_ring_stream_past_the_window_matches_the_reference(runs):
+    """A per-lane ring cache of the window's 64 rows on 2x2 (K/V whole over
+    "model", ``k_pos`` whole), ``common.RING_STEPS`` steps fed the first
+    batch's tokens: every step's logits against the reference's serve
+    steps over its own ring cache, and the greedy picks equal."""
+    cfg = common.ssm_config(common.RING_RUN, "repro_torch")
+    assert common.RING_STEPS > cfg.sliding_window == 64
+    tag = _tag(common.RING_RUN, common.RING_MESH)
+    got = common.served(runs, f"ring_{common.RING_RUN}", common.RING_MESH)
+    want = _load(runs, f"jax_ring_{tag}.npz")
+    assert got["logits"].shape == want["logits"].shape
+    close_logits(got["logits"], want["logits"], f"ring {tag}")
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
+    np.testing.assert_array_equal(got["logits"].argmax(-1),
+                                  want["logits"].argmax(-1))
+
+
+@pytest.mark.parametrize("fault", ["state_roll", "conv_roll"])
+def test_a_planted_serving_fault_breaks_parity_on_its_slots(runs, fault):
+    """``chip_smoke._planted_serve``: after the prefill, one model rank of
+    one data rank rolls its wkv heads (rwkv) or its conv rows (hymba d
+    160) of layer 0; that data rank's slots break from the first decode
+    step on, the other's stay within the bars."""
+    name = common.SERVE_FAULT_RUNS[fault]
+    got = common.served(runs, f"serve_{name}_{fault}", (2, 2))
+    want = _load(runs, f"jax_serve_{_tag(name, (2, 2))}.npz")
+    hit = list(common.SERVE_FAULTS[fault])
+    kept = [z for z in range(common.Z) if z not in hit]
+    close_logits(got["logits"][:, kept], want["logits"][:, kept],
+                 f"{fault}: the other data rank's slots")
+    # the prefill's own logits come before the fault
+    close_logits(got["logits"][0], want["logits"][0], f"{fault}: prefill")
+    scale = np.abs(want["logits"]).max()
+    for z in hit:
+        off = np.abs(got["logits"][1:, z] - want["logits"][1:, z]).max()
+        assert off > 1e-3 * scale, (fault, z, off, scale)
+
+
+# ---------------------------------------------------------------------------
+# (h) the serving cache's layout
+# ---------------------------------------------------------------------------
+
+D, M_ = "data", "model"
+# leaf -> its spec under serve_cache_specs, per case (run, mesh)
+LAYOUTS = {
+    ("rwkv", (2, 2)): {"wkv": (None, D, None, M_), "tm_x": (None, D),
+                       "cm_x": (None, D)},
+    ("hymba128", (2, 2)): {"attn/k": (None, D, None, None, M_),
+                           "attn/v": (None, D, None, None, M_),
+                           "mamba/conv": (None, D, None, None, M_),
+                           "mamba/ssm": (None, D, None, M_)},
+    ("hymba160", (2, 2)): {"attn/k": (None, D), "attn/v": (None, D),
+                           "mamba/conv": (None, D, None, None, M_),
+                           "mamba/ssm": (None, D, None, M_)},
+    ("glm4", (1, 4)): {"attn/k": (None, D), "attn/v": (None, D)},
+    ("granite_span", (2, 2)): {"attn/k": (None, D, None, None, M_),
+                               "attn/v": (None, D, None, None, M_)},
+    ("rwkv", (1, 4)): {"wkv": (None, D, None, M_), "tm_x": (None, D),
+                       "cm_x": (None, D)},
+    ("hymba128", (1, 4)): {"attn/k": (None, D, None, None, M_),
+                           "attn/v": (None, D, None, None, M_),
+                           "mamba/conv": (None, D, None, None, M_),
+                           "mamba/ssm": (None, D, None, M_)},
+}
+
+
+def _config(name):
+    if name.split("_")[0] in common.MOE_ARCHS:
+        return common.moe_config(name, "repro_torch")
+    return common.ssm_config(name, "repro_torch")
+
+
+@pytest.mark.parametrize("name,mesh", list(LAYOUTS),
+                         ids=[_tag(*k) for k in LAYOUTS])
+@pytest.mark.parametrize("ring", [False, True], ids=["full", "ring"])
+def test_serve_cache_layout(name, mesh, ring):
+    from repro_torch.models import model as TM
+    cfg = _config(name)
+    amesh = TMESH.abstract_mesh(mesh, ("data", "model"))
+    cache = TM.init_cache(cfg, common.Z, common.B, 32, ring=ring,
+                          per_lane=True, device="meta")
+    got = TPT.serve_cache_specs(cfg, amesh, cache)
+    ref = TPT.cache_specs(amesh, cache)
+    flat = chip_smoke._flat_leaves(got["layers"])
+    assert {k: tuple(v) for k, v in flat.items()} == LAYOUTS[(name, mesh)]
+    assert got["pos"] == TPT.P() and got.get("k_pos", TPT.P()) == TPT.P()
+    if ring and cfg.family != "ssm":
+        assert "k_pos" in got
+    # the K/V of heads that split take the reference's layout
+    if "attn" in cache["layers"] and not TPT.whole_heads(cfg, mesh[1]):
+        assert got["layers"]["attn"] == ref["layers"]["attn"]
+
+
+@pytest.mark.parametrize("step", ["prefill", "serve"])
+def test_a_cache_in_the_reference_layout_is_refused(runs, step):
+    """rwkv's cache laid out by ``cache_specs`` on 2x2 (wkv split by its
+    key channel, tm_x / cm_x by d) given to the sharded step: a
+    ``ValueError`` that names the leaf and ``serve_cache_specs``, raised
+    before anything is read."""
+    with open(os.path.join(runs, "layout_refusals.json")) as f:
+        msg = json.load(f)[step]
+    assert "wkv" in msg and "serve_cache_specs" in msg, msg

@@ -8,7 +8,8 @@ Adapter Parallelism vs FSDP (``launch/sharding_variants.py``).
 (b) The fake group: a mesh over ``fake_group`` passes the activation
     policy's guard (``distribute`` still refuses it); a real two-rank gloo
     mesh (two processes) distributes, steps and agrees with one rank, and
-    still raises ``NotImplementedError`` for an RWKV prefill step; the group
+    still raises ``NotImplementedError`` for the prefill step of an RWKV
+    config whose scan heads do not split over its model axis; the group
     refuses a second one and is destroyed after a failure.
 (c) ``dryrun_one`` on a reduced config over a fake 16 x 16 group: ok, its
     FLOPs the direct global count / 256, its collective schedule the
@@ -187,11 +188,12 @@ _TWO_RANKS = textwrap.dedent("""
         res = TRAIN.run(cfg, 2, 2, 16, mesh, 2, device="cpu",
                         log=lambda m: None)
         rwkv = dataclasses.replace(get_arch("rwkv6-3b").reduced(
-            num_layers=2, d_model=64, vocab=64), dtype="float32")
-        try:        # what stays unported on a real mesh
+            num_layers=2, d_model=96, vocab=64), dtype="float32")
+        try:        # what stays unported on a real mesh: 3 scan heads
             SD.make_prefill_step(rwkv, mesh)({}, {}, None, {})
         except NotImplementedError as e:
-            assert "prefill" in str(e) and "ssm" in str(e)
+            assert "prefill" in str(e) and "3 RWKV heads" in str(e)
+            assert "ROADMAP.md" in str(e)
         else:
             raise SystemExit("no NotImplementedError")
     print(json.dumps(res["losses"]))
@@ -202,8 +204,8 @@ def test_a_real_two_rank_mesh_still_raises(tmp_path):
     """A real two-rank gloo mesh (two processes, model axis 2) distributes
     the weights, takes two sharded train steps whose per-slot losses agree
     with one rank's, and still raises ``NotImplementedError`` for what
-    stays unported there (the prefill step of an RWKV config, whose
-    recurrent cache is not laid out over the mesh)."""
+    stays unported there (the prefill step of an RWKV config whose 3 scan
+    heads do not split over the model axis of 2)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
     init = f"file://{tmp_path / 'pg'}"
