@@ -346,13 +346,13 @@ per forward) follow:
             through the plain version (as the JAX package's custom VJP),
             one chunk at a time (``torch.utils.checkpoint`` per chunk).
 19. rwkv rank sweep — the slice's main path: phase 6 on rwkv6-3b at full
-            width and RWKV_SWEEP_LAYERS = 8 of its 32 layers (depth cut
+            width and RWKV_SWEEP_LAYERS = 4 of its 32 layers (depth cut
             for time; 8 jobs, ranks 4/8/16/32 x lr 1e-4/1e-3, Z = 4, b =
             4, S = 256): every fused train step must launch the rank-local
-            xa/sb_add 112 times, ds/da/db 56, dx 52 (the first layer's
+            xa/sb_add 56 times, ds/da/db 28, dx 24 (the first layer's
             r/k/v/g read the embedding's token-shift lerps), the linear
-            scan 16 and flash 0; every eval step xa/sb_add 56 and the
-            linear scan 8; the dense and ragged kernels never. The same
+            scan 8 and flash 0; every eval step xa/sb_add 28 and the
+            linear scan 4; the dense and ragged kernels never. The same
             measurements as phase 6, with the scan kernel's share of the
             device time.
 
@@ -394,13 +394,13 @@ the window binds in every forward:
             8e-06 on dA / dB at 32 layers). The kernel runs launch flash
             and the scan twice per layer each.
 23. hymba rank sweep — the slice's main path: phase 6 on hymba-1.5b at full
-            width and HYMBA_SWEEP_LAYERS = 8 of its 32 layers (depth cut
+            width and HYMBA_SWEEP_LAYERS = 4 of its 32 layers (depth cut
             for time; 8 jobs, ranks 4/8/16/32 x lr 1e-4/1e-3, Z = 4, b = 2,
             S = 2,048, eval b = 4): every fused train step must launch the
-            rank-local xa/sb_add 128 times, ds/da/db 64, dx 60 (the first
-            layer's q/k/v and in_proj read the normed embedding), flash 16
-            and the scan 16; every eval step xa/sb_add 64, flash 8 and
-            the scan 8; the dense and ragged kernels never. The same measurements as phase 6, with flash's and the
+            rank-local xa/sb_add 64 times, ds/da/db 32, dx 28 (the first
+            layer's q/k/v and in_proj read the normed embedding), flash 8
+            and the scan 8; every eval step xa/sb_add 32, flash 4 and
+            the scan 4; the dense and ragged kernels never. The same measurements as phase 6, with flash's and the
             scan's shares of the device time.
 
 The hymba-1.5b backbone is freed; the MoE phases follow
@@ -498,10 +498,10 @@ and DENSE_LAYERS layers; random weights from a seed:
             ``make_prefill_step``, 8 greedy ``make_serve_step`` steps, the
             logits held against the plain versions within phase 4's bars,
             the run without the patch embeddings outside them.
-32. musicgen — at full width and AUDIO_LAYERS = 16 of its 48 layers
+32. musicgen — at full width and AUDIO_LAYERS = 8 of its 48 layers
             (depth cut for time): the rank sweep (the audio family's main
-            path; LoRA 224/224/112/109/112/112 and flash 32 a train step,
-            112 and 16 an eval step), a serve, and an fp32 train check
+            path; LoRA 112/112/56/53/56/56 and flash 16 a train step, 56
+            and 8 an eval step), a serve, and an fp32 train check
             (phase 5's bars and faults, loss bar FAMILY_LOSS_REL).
 33. dense configs — fp32 train checks of glm4-9b, granite-8b and
             mistral-nemo-12b at full width and DENSE_LAYERS = 2 layers on
@@ -780,17 +780,17 @@ RWKV_GRAD_LAYERS = 2
 # to make room for phase 39)
 RWKV_CHECK_LAYERS = 16
 # layers of the rwkv rank sweep (full width; cut from 32 so that the last
-# families' phases fit the script's time, and from 16 to make room for
-# phase 37)
-RWKV_SWEEP_LAYERS = 8
+# families' phases fit the script's time, from 16 to make room for phase
+# 37, and from 8 for phase 39's pod jobs)
+RWKV_SWEEP_LAYERS = 4
 # hymba-1.5b's paths: S = 2048 (its sliding window of 1024 binds in every
 # forward), b = 2 sequences a slot in a train step, HYMBA_EVAL_B in an eval
 # step; its LoRA projections (din, dout): q/o, k/v, in_proj, gate/up, down
 HYMBA_S, HYMBA_B, HYMBA_EVAL_B = 2048, 2, 4
 # layers of the hymba rank sweep (full width; cut from 32 so that the
-# autotune and launch phases fit the script's time, and from 16 to make
-# room for phase 37)
-HYMBA_SWEEP_LAYERS = 8
+# autotune and launch phases fit the script's time, from 16 to make room
+# for phase 37, and from 8 for phase 39's pod jobs)
+HYMBA_SWEEP_LAYERS = 4
 HYMBA_SHAPES = ((1600, 1600), (1600, 320), (1600, 6400), (1600, 5504),
                 (5504, 1600))
 # hymba-1.5b's train check runs in fp32 at full depth (its backward at
@@ -839,8 +839,8 @@ DENSE_LAYERS = 2
 # musicgen-medium at full width is cut to AUDIO_LAYERS of its 48 layers for
 # its rank sweep, serve and fp32 train check (the check cut from 48 to 24
 # once phase 36 came, all three to 16 so that the script with phase 37 fits
-# its limit on a slow host; PERF.md §4)
-AUDIO_LAYERS = 16
+# its limit on a slow host, and to 8 for phase 39's pod jobs; PERF.md §4)
+AUDIO_LAYERS = 8
 # the LoRA projections (din, dout) of the last families: qwen2-vl's q/o,
 # k/v, gate/up and down; mistral-nemo's q and o (q_dim 4,096 != d_model
 # 5,120); glm4's k/v (2 KV heads of 128) and down (13,696 = 107 x 128);
@@ -1036,6 +1036,35 @@ AP_SERVE_JOBS = {
     "hymba": (AP_HYMBA_ARCH, AP_HYMBA_LAYERS, 2048, {"conv_roll": (0, 1)},
               (LOGITS_ATOL_REL, LOGITS_REL_RMS)),
 }
+# (vi-viii) the pod jobs: the sharded steps on a real ("pod", "data",
+# "model") mesh over the pool's AP_PROCS ranks, "pod" splitting each slot's
+# b = 2 rows, one a pod rank; the adapters, their AdamW state and the base
+# weights replicated over it. "pod_train": phase 35's run (stablelm-3b,
+# AP_LAYERS layers, AP_LOAD, RANKS, AP_STEPS steps and an eval step) on pod
+# 2 x data 1 x model 2, read against phase 35's one-rank run at its bars;
+# fault "pod_grad_skip", slots 2-3's adapter gradients not all-reduced over
+# "pod" (each pod rank steps on its own row's share). "pod_moe": phase 36's
+# run (full-size granite-moe-1b-a400m) on pod 2 x data 2 x model 1, its one
+# group of 4,096 tokens in 8 interleaved pieces of 512, 2 a rank, read
+# against phase 36's one-rank run at its bars; fault "route_pod_blind",
+# pod rank 1 of data rank 1 routes layer AP_MOE_ROUTE_LAYER without its pod
+# peer's counts (slots 2-3, the pieces of their lane 1). "pod_serve": job
+# (ii) on pod 2 x data 1 x model 2, fed the one-rank stablelm run's tokens
+# and held against its logits per (slot, lane) at (ii)'s bars, then the idle
+# step; fault "pod_kv_roll", on pod rank 1 the last model rank writes its KV
+# heads rolled by one head (lane 1 of every slot). Each: name -> (arch,
+# layers (None: every layer), mesh (p, d, m), faults {fault: the slots, or
+# for "pod_serve" the lanes,
+# it reaches}). A reduced rehearsal's train jobs take AP_POD_REDUCED_LOAD
+AP_POD_AXES = ("pod", "data", "model")
+AP_POD_JOBS = {
+    "pod_train": ("stablelm-3b", AP_LAYERS, (2, 1, 2),
+                  {"pod_grad_skip": (2, 3)}),
+    "pod_moe": (AP_MOE_ARCH, None, (2, 2, 1), {"route_pod_blind": (2, 3)}),
+    "pod_serve": ("stablelm-3b", AP_SERVE_LAYERS, (2, 1, 2),
+                  {"pod_kv_roll": (1,)}),
+}
+AP_POD_REDUCED_LOAD = (4, 2, 32)
 # a reduced rehearsal's prompts are cut to this many tokens
 AP_SERVE_REDUCED_S = 128
 # the token the granite job's slots 1 and 2 repeat in their prompts
@@ -5795,19 +5824,19 @@ def family_phases(torch, fams, t_all):
     print(f"vlm serve phases done at {time.perf_counter() - t_all:.1f} s")
 
     t = time.perf_counter()
-    m16 = dataclasses.replace(mcfg, num_layers=AUDIO_LAYERS)
-    mparams = M.init_params(m16, seed=0, device="cuda")
+    mcut = dataclasses.replace(mcfg, num_layers=AUDIO_LAYERS)
+    mparams = M.init_params(mcut, seed=0, device="cuda")
     torch.cuda.synchronize()
     print(f"init: {mcfg.name} at full width, {AUDIO_LAYERS} of "
           f"{mcfg.num_layers} layers, in {time.perf_counter() - t:.1f} s "
           f"({_gbytes(mparams):.2f} GB)")
     paths["audio_sweep"] = executor_phase(
-        torch, RL, (fams["dense"], fams["ragged"]), m16, mparams,
+        torch, RL, (fams["dense"], fams["ragged"]), mcut, mparams,
         "audio-rank-sweep", rank_jobs)
     print(f"audio rank-sweep executor phase done at "
           f"{time.perf_counter() - t_all:.1f} s")
-    paths["audio_serve"] = serve_phase(torch, RL, m16, mparams)
-    m32 = dataclasses.replace(m16, dtype="float32")
+    paths["audio_serve"] = serve_phase(torch, RL, mcut, mparams)
+    m32 = dataclasses.replace(mcut, dtype="float32")
     cparams = _cut_layers(mparams, AUDIO_LAYERS, torch.float32)
     del mparams
     paths["audio_train"] = train_check(torch, fams, m32, cparams,
@@ -6284,6 +6313,7 @@ def _planted_serve(faults):
     as chosen and the chosen as rejected (the frozen reference's forwards
     do not); "kv_roll", on data rank 0 the last model rank writes its KV
     heads into the cache rolled by one head (prefill and decode);
+    "pod_kv_roll", the same on pod rank 1 (its lanes of every slot);
     "state_roll", on data rank 1 the last model rank's wkv heads of layer 0
     are rolled by one head after the prefill (RWKV); "conv_roll", on data
     rank 0 the last model rank's conv block of layer 0 is rolled by one
@@ -6320,8 +6350,10 @@ def _planted_serve(faults):
 
     def rolled(new):
         sp = shardctx.spmd()
-        if ("kv_roll" in faults and sp is not None and sp.data_rank == 0
-                and sp.model_rank == sp.m - 1):
+        if sp is None or sp.model_rank != sp.m - 1:
+            return new
+        if ("kv_roll" in faults and sp.data_rank == 0
+                or "pod_kv_roll" in faults and sp.pod_rank == 1):
             return torch.roll(new, 1, dims=-2)   # [..., KV/m, hd]
         return new
 
@@ -6356,18 +6388,100 @@ def _planted_serve(faults):
         M.forward = forward
 
 
+@contextlib.contextmanager
+def _planted_pod(faults, route_layer: int = AP_MOE_ROUTE_LAYER):
+    """Phase 39's pod faults named in ``faults``: "pod_grad_skip", the
+    adapter gradients of the slots ``AP_POD_JOBS["pod_train"]`` names are
+    not all-reduced over "pod" (each pod rank steps on its own rows'
+    share); "route_pod_blind", pod rank 1 of data rank 1 routes layer
+    ``route_layer`` without its pod peer's counts (they still cross
+    "pod"); "pod_kv_roll", ``_planted_serve``'s."""
+    import torch
+
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch import partitioning as PT
+    from repro_torch.models import blocks as B
+    here = {"layer": None}
+    apply_block = B.apply_block
+    reduce_grads = PT.SpmdPlan.reduce_grads
+    exchange = PT.SpmdPlan.route_exchange
+    skipped = AP_POD_JOBS["pod_train"][3]["pod_grad_skip"]
+
+    def block(cfg, x, p, lora, layer_, ctx):
+        prev, here["layer"] = here["layer"], layer_
+        try:
+            return apply_block(cfg, x, p, lora, layer_, ctx)
+        finally:
+            here["layer"] = prev
+
+    def grads(self, g):
+        out = reduce_grads(self, g)
+        if "pod_grad_skip" not in faults or self.p == 1:
+            return out
+        p, self.p = self.p, 1            # the all-reduce over "model" only
+        try:
+            mine = reduce_grads(self, g)
+        finally:
+            self.p = p
+        first = self.data_rank * self.z_local
+        keep = [z - first for z in skipped
+                if first <= z < first + self.z_local]
+        for t, ab in out.items():
+            for k, v in ab.items():
+                v[:, keep] = mine[t][k][:, keep]
+        return out
+
+    def blind(self, counts, top1, piece, group):
+        if not ("route_pod_blind" in faults and here["layer"] == route_layer
+                and self.pod_rank == 1 and self.data_rank == 1):
+            return exchange(self, counts, top1, piece, group)
+        gather = C.all_gather
+
+        def own(x, mesh, axis, dim, role, log):
+            out = gather(x, mesh, axis, dim, role, log)
+            if axis == "pod":              # [p, 2, n, E]: peers' zeroed
+                out = torch.stack([t if i == self.pod_rank
+                                   else torch.zeros_like(t)
+                                   for i, t in enumerate(out)])
+            return out
+
+        C.all_gather = own
+        try:
+            return exchange(self, counts, top1, piece, group)
+        finally:
+            C.all_gather = gather
+
+    saved = (B.apply_block, PT.SpmdPlan.reduce_grads,
+             PT.SpmdPlan.route_exchange)
+    B.apply_block, PT.SpmdPlan.reduce_grads = block, grads
+    PT.SpmdPlan.route_exchange = blind
+    try:
+        with (_planted_serve(faults) if "pod_kv_roll" in faults
+              else contextlib.nullcontext()):
+            yield
+    finally:
+        (B.apply_block, PT.SpmdPlan.reduce_grads,
+         PT.SpmdPlan.route_exchange) = saved
+
+
 def _placed(mesh, tree, specs):
     from repro_torch.launch import partitioning as PT
     return PT.distribute(mesh, tree, PT.to_named(mesh, specs))
 
 
-def _data_slots(mesh, Z: int) -> slice:
-    """The slots of this rank's data rank on ``mesh`` (all Z on a mesh
-    without a split data axis)."""
+def _rank_lanes(mesh, Z: int, b: int) -> tuple:
+    """(slots, lanes): the slots of this rank's data rank on ``mesh`` and
+    its pod rank's ``b``/p lanes of each (all Z and all b on a mesh
+    without a split data or pod axis)."""
     from repro_torch.launch.mesh import axis_sizes
-    d = axis_sizes(mesh).get("data", 1)
-    r = mesh.get_local_rank("data") if d > 1 else 0
-    return slice(r * Z // d, (r + 1) * Z // d)
+    sizes = axis_sizes(mesh)
+
+    def block(axis, n):
+        k = sizes.get(axis, 1)
+        r = mesh.get_local_rank(axis) if k > 1 else 0
+        return slice(r * n // k, (r + 1) * n // k)
+
+    return block("data", Z), block("pod", b)
 
 
 def ap_dpo(torch, cfg, mesh, params, lora, batches, ranks, *, lr: float,
@@ -6455,12 +6569,15 @@ def ap_serve(torch, cfg, mesh, params, lora, batch, ranks, n: int, *,
     lane) pairs, a per-lane cache) one more step runs with those lanes
     idle (``active``). The LoRA terms take the rank-local kernels at
     ``ranks`` ([Z]; None: nothing bound). Returns, for this rank:
-    "logits" [n + 1 (n with ``ring``), Z/d, b, V] fp32 (this data rank's
-    slots, the whole vocabulary), "tokens" [n (+ 1 with ``idle``), Z/d, b]
-    (those fed), "cache" ({"cache/attn/k": ..., "cache/wkv": ...}: every
+    "logits" [n + 1 (n with ``ring``), Z/d, b/p, V] fp32 (this data rank's
+    slots, on a pod mesh its pod rank's lanes of them, the whole
+    vocabulary), "tokens" [n (+ 1 with ``idle``), Z/d, b/p] (those fed),
+    "cache" ({"cache/attn/k": ..., "cache/wkv": ...}: every
     local leaf of the cache after the prefill, and "split/<path>": the dim
     it splits over "model", -1 where it is whole there; ``cache_whole``
-    joins the ranks' shards), "launches" (by set, every step), and
+    joins the ranks' shards), "launches" (by set, every step), "log" (on a
+    real multi-rank mesh, {"prefill" | "serve": the steps' collective
+    records}), and
     with ``idle``: "idle_logits" [Z/d, b, V], "idle_changed" (the entries
     of idle lanes' local cache rows, in every leaf, and positions the step
     changed: must be 0) and "live_changed" (the live lanes' entries it
@@ -6481,13 +6598,13 @@ def ap_serve(torch, cfg, mesh, params, lora, batch, ranks, n: int, *,
     specs = PT.serve_cache_specs(cfg, mesh, cache)
     named = PT.to_named(mesh, specs)
     cache = PT.distribute(mesh, cache, named)
-    mine = _data_slots(mesh, Z)
+    mine = _rank_lanes(mesh, Z, b)
     prefill = SD.make_prefill_step(cfg, mesh)
     serve = SD.make_serve_step(cfg, mesh)
     out = {"logits": [], "tokens": []}
     before = TRAIN._launch_counts()
     with (torch.inference_mode(),
-          LORA.slot_ranks(None if ranks is None else ranks[mine])):
+          LORA.slot_ranks(None if ranks is None else ranks[mine[0]])):
         if ring:
             logits, local = None, PT.local(cache)
         else:
@@ -6537,32 +6654,40 @@ def ap_serve(torch, cfg, mesh, params, lora, batch, ranks, n: int, *,
     after = TRAIN._launch_counts()
     out["launches"] = {fam: {k: after[fam][k] - before[fam][k] for k in ks}
                        for fam, ks in after.items()}
+    out["log"] = {name: [dataclasses.asdict(r) for r in step.policy.spmd.log]
+                  for name, step in (("prefill", prefill), ("serve", serve))
+                  if step.policy.spmd is not None}
     out["logits"] = torch.stack(out["logits"])
     out["tokens"] = torch.stack(out["tokens"]) if n else None
     return out
 
 
-def cache_whole(parts, d: int, m: int, cat) -> dict:
+def cache_whole(parts, d: int, m: int, cat, p: int = 1) -> dict:
     """The whole prefilled cache {"cache/<path>": leaf} from the shards of
-    every rank of a (d, m) mesh (``parts`` by global rank, rank r at data
-    rank r // m and model rank r % m, each ``ap_serve``'s "cache"): the
-    data ranks' slots joined along dim 1, the model ranks' shards along
-    their "split/<path>" dim; a leaf whole over "model" must be the same on
-    every model rank of a data rank, bitwise. ``cat``: ``np.concatenate``
-    or ``torch.cat``."""
+    every rank of a (d, m) or (p, d, m) mesh (``parts`` by global rank,
+    rank r at pod rank r // (d·m), data rank r // m mod d and model rank
+    r % m, each ``ap_serve``'s "cache"): the model ranks' shards joined
+    along their "split/<path>" dim, the pod ranks' lanes along dim 2 and
+    the data ranks' slots along dim 1; a leaf whole over "model" must be
+    the same on every model rank of a (pod, data) rank, bitwise. ``cat``:
+    ``np.concatenate`` or ``torch.cat``."""
     out = {}
     for key in (k for k in parts[0] if k.startswith("cache/")):
         dim = int(parts[0]["split/" + key[len("cache/"):]])
         rows = []
         for i in range(d):
-            ps = [parts[i * m + j][key] for j in range(m)]
-            if dim < 0:
-                require(all(bool((p == ps[0]).all()) for p in ps[1:]),
-                        f"{key}: the model ranks of data rank {i} hold "
-                        f"different copies of a leaf whole over model")
-                rows.append(ps[0])
-            else:
-                rows.append(cat(ps, dim))
+            lanes = []
+            for k in range(p):
+                ps = [parts[(k * d + i) * m + j][key] for j in range(m)]
+                if dim < 0:
+                    require(all(bool((q == ps[0]).all()) for q in ps[1:]),
+                            f"{key}: the model ranks of pod rank {k}, data "
+                            f"rank {i} hold different copies of a leaf "
+                            f"whole over model")
+                    lanes.append(ps[0])
+                else:
+                    lanes.append(cat(ps, dim))
+            rows.append(cat(lanes, 2) if p > 1 else lanes[0])
         out[key] = cat(rows, 1)
     return out
 
@@ -6647,6 +6772,8 @@ def _pool_job(spec: dict, dev, meshes: dict) -> None:
 
     from repro_torch.launch import train as TRAIN
     out, kind = Path(spec["out"]), spec["kind"]
+    if kind in AP_POD_JOBS:
+        return _pod_job(spec, dev, meshes)
     if AP_MESH not in meshes:
         meshes[AP_MESH] = TRAIN.build_mesh(AP_MESH, dev)
     mesh = meshes[AP_MESH]
@@ -6695,6 +6822,88 @@ def _pool_job(spec: dict, dev, meshes: dict) -> None:
                             ).cpu().numpy()
                     np.savez(out / f"{kind}_{fault}_data{data}.npz", **logits)
         (out / f"{kind}_{fault}_rank{rank}.json").write_text(
+            json.dumps(info))
+        del res
+
+
+def _digests(lora) -> list:
+    """Per local slot, the sha256 of its entries of every adapter leaf
+    ({target: {"A", "B"}: [L, Z/d, ...]}), leaf by leaf in order."""
+    import hashlib
+    leaves = [lora[t][k] for t in sorted(lora) for k in sorted(lora[t])]
+    out = []
+    for z in range(leaves[0].shape[1]):
+        h = hashlib.sha256()
+        for v in leaves:
+            h.update(v[:, z].float().contiguous().cpu().numpy().tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+def _pod_job(spec: dict, dev, meshes: dict) -> None:
+    """Phase 39's pod job ``spec["kind"]`` (``AP_POD_JOBS``) on its
+    ("pod", "data", "model") mesh (kept in ``meshes`` by shape), sound and
+    with each of its faults (``_planted_pod``). "pod_train" / "pod_moe":
+    ``launch.train.run`` at ``spec["load"]``, AP_STEPS steps and the eval
+    step, written by ``launch.train.write_out`` (``<job>_<fault>.npz``);
+    "pod_serve": ``ap_serve`` of job (ii)'s inputs fed ``spec["feed"]``,
+    with the idle step in the sound run, each (pod, data) rank's first
+    model rank writing its logits (``<job>_<fault>_rank<r>.npz``). Every
+    rank writes ``<job>_<fault>_rank<r>.json``: its launches, its
+    collective records (axis, role, kind, bytes), and for the train jobs
+    its adapters' bytes and per-slot digests (``_digests``), for the
+    serving job its idle readings."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import train as TRAIN
+    out, job = Path(spec["out"]), spec["kind"]
+    _, _, shape, faults = AP_POD_JOBS[job]
+    if shape not in meshes:
+        meshes[shape] = MESH.make_local_mesh(shape, AP_POD_AXES, device=dev)
+    mesh = meshes[shape]
+    rank = torch.distributed.get_rank()
+    first = mesh.get_local_rank("model") == 0
+    if job == "pod_serve":
+        cfg, params, lora, batch, ranks = _serve_inputs(
+            torch, dev, spec["reduced"], "stablelm")
+        feed = torch.load(spec["feed"], map_location=dev)
+    else:
+        cfg = _pod_config(job, spec["reduced"])
+    for fault in ("none", *faults):
+        planted = (contextlib.nullcontext() if fault == "none"
+                   else _planted_pod((fault,)))
+        with planted:
+            if job == "pod_serve":
+                res = ap_serve(torch, cfg, mesh, params, lora, batch, ranks,
+                               AP_SERVE_DECODES, per_lane=True, grow=True,
+                               feed=feed, idle=AP_IDLE_LANES
+                               if fault == "none" else None)
+                info = {k: res[k] for k in ("launches", "idle_changed",
+                                            "live_changed") if k in res}
+                info["log"] = [(c["axis"], c["role"], c["kind"], c["bytes"])
+                               for log in res["log"].values() for c in log]
+                if first:
+                    got = {"logits": res["logits"].cpu().numpy()}
+                    if "idle_logits" in res:
+                        got["idle_logits"] = res["idle_logits"].float(
+                            ).cpu().numpy()
+                    np.savez(out / f"{job}_{fault}_rank{rank}.npz", **got)
+            else:
+                Z, b, S = spec["load"]
+                res = TRAIN.run(cfg, Z, b, S, mesh, AP_STEPS, ranks=RANKS,
+                                device=dev,
+                                log=lambda m: print(f"{job} {fault}: {m}"))
+                TRAIN.write_out(str(out / f"{job}_{fault}.npz"), mesh, res)
+                info = {k: res[k] for k in ("launches", "eval_launches")}
+                info["log"] = [(c.axis, c.role, c.kind, c.bytes)
+                               for c in res["collectives"]]
+                info["slots"] = _digests(res["lora"])
+                info["lora_bytes"] = sum(
+                    v.numel() * v.element_size()
+                    for ab in res["lora"].values() for v in ab.values())
+        (out / f"{job}_{fault}_rank{rank}.json").write_text(
             json.dumps(info))
         del res
 
@@ -7036,6 +7245,19 @@ def _moe_drops(cfg, d: int):
     return ctx()
 
 
+def _run_init(torch, cfg, dev) -> dict:
+    """The initial adapters of ``launch.train.run``'s seed-0 run of ``cfg``
+    at RANKS, every slot's, as numpy ("lora/<target>/<A|B>")."""
+    from repro_torch.core import lora as LORA
+    from repro_torch.models import model as M
+    gen = torch.Generator(device=dev).manual_seed(1)  # seed + 1
+    ranks_t = torch.tensor(RANKS, dtype=torch.int32, device=dev)
+    return {f"lora/{t}/{k}": v.cpu().numpy() for t, ab in
+            LORA.init_lora_tree(gen, cfg, len(RANKS), ranks_t,
+                                M.target_shapes(cfg)).items()
+            for k, v in ab.items()}
+
+
 def ap_train_phase(torch, runs: ApRuns, cfg, kernel_checks=None, *,
                    steps: int = AP_STEPS, fault_runs=(AP_FAULT_SLOTS,),
                    bars=(AP_LOSS_REL, AP_ADAPTER_REL),
@@ -7070,12 +7292,12 @@ def ap_train_phase(torch, runs: ApRuns, cfg, kernel_checks=None, *,
     Returns {"launches": the kernel launches summed over the ranks,
     "seconds": the phase's parts (``started_before``: how long before the
     run was taken its ranks started), "drops": the dropped shares by
-    layer}."""
+    layer, "one_rank": {"want": the one-rank run's losses, adapters,
+    evals and own eval ("eval_own"), "init": its initial adapters}, which
+    phase 39's pod jobs are read against}."""
     import numpy as np
-    from repro_torch.core import lora as LORA
     from repro_torch.launch import mesh as MESH
     from repro_torch.launch import train as TRAIN
-    from repro_torch.models import model as M
 
     loss_bar, adapter_bar = bars
     device = runs.device
@@ -7134,18 +7356,13 @@ def ap_train_phase(torch, runs: ApRuns, cfg, kernel_checks=None, *,
                                 log=lambda m: print(f"{label}: {m}"))
             drops.extend(seen)
             want = {"losses": np.asarray(one["losses"]),
-                    "evals": [np.asarray(e) for e in one["evals"]]}
+                    "evals": [np.asarray(e) for e in one["evals"]],
+                    "eval_own": np.asarray(one["eval"])}
             want.update({f"lora/{t}/{k}": v.float().cpu().numpy()
                          for t, ab in one["lora"].items()
                          for k, v in ab.items()})
             del one
-            gen = torch.Generator(device=dev).manual_seed(1)  # seed + 1
-            ranks_t = torch.tensor(RANKS, dtype=torch.int32, device=dev)
-            init = {f"lora/{t}/{k}": v.cpu().numpy() for t, ab in
-                    LORA.init_lora_tree(gen, c, Z, ranks_t,
-                                        M.target_shapes(c)).items()
-                    for k, v in ab.items()}
-            return want, init, dev
+            return want, _run_init(torch, c, dev), dev
 
         # the one-rank eval step on the adapters each sharded eval took:
         # the main path's, then (on the config they ran) the fault runs'
@@ -7267,7 +7484,8 @@ def ap_train_phase(torch, runs: ApRuns, cfg, kernel_checks=None, *,
                     f"{AP_EVAL_FAULT_X}x the sound one ({sound})")
     print(f"{tag}: seconds {seconds}")
     return {"launches": launches, "eval_launches": eval_launches,
-            "seconds": seconds, "drops": drops}
+            "seconds": seconds, "drops": drops,
+            "one_rank": {"want": want, "init": init}}
 
 
 def _weight_last_dims(cfg) -> set:
@@ -7320,9 +7538,9 @@ def _ap_launches(cfg, res: dict, steps: int, tag: str) -> None:
 def ap_phase(torch, fams, runs: ApRuns) -> tuple:
     """Phase 35: rows 13-18 and flash at the sharded step's shapes, then
     ``ap_train_phase`` on full-width stablelm-3b at AP_LAYERS layers.
-    Returns (the
-    rank-local kernels' results, flash's, the launches of the sharded
-    runs' ranks, summed)."""
+    Returns (the rank-local kernels' results, flash's, the launches of the
+    sharded runs' ranks, summed, the one-rank run's results for phase 39's
+    "pod_train")."""
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.grouped_lora import ref
@@ -7350,7 +7568,7 @@ def ap_phase(torch, fams, runs: ApRuns) -> tuple:
 
     res = ap_train_phase(torch, runs, cfg, kernel_checks=kernel_checks)
     _ap_launches(cfg, res, AP_STEPS, "ap")
-    return lora, flash, res["launches"]
+    return lora, flash, res["launches"], res["one_rank"]
 
 
 def ap_moe_phase(torch, fams, runs: ApRuns) -> tuple:
@@ -7361,7 +7579,8 @@ def ap_moe_phase(torch, fams, runs: ApRuns) -> tuple:
     planted faults, and on llama4-scout at full width and AP_LLAMA4_LAYERS
     layers, AP_LLAMA4_STEPS step, without. Returns (the rank-local
     kernels' results, flash's, the launches of granite's sharded ranks and
-    of llama4's, summed over the ranks)."""
+    of llama4's, summed over the ranks, granite's one-rank run's results
+    for phase 39's "pod_moe")."""
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.grouped_lora import ref
@@ -7400,7 +7619,7 @@ def ap_moe_phase(torch, fams, runs: ApRuns) -> tuple:
                         bars=(AP_LLAMA4_LOSS_REL, AP_LLAMA4_ADAPTER_REL),
                         tag="ap llama4")
     _ap_launches(lcfg, l4, AP_LLAMA4_STEPS, "ap llama4")
-    return lora, flash, res["launches"], l4["launches"]
+    return lora, flash, res["launches"], l4["launches"], res["one_rank"]
 
 
 def ap_ssm_phase(torch, fams, runs: ApRuns) -> tuple:
@@ -7562,7 +7781,7 @@ def ap_modal_phase(torch, fams, runs: ApRuns) -> tuple:
     return lora, flash, qwen["launches"], audio["launches"]
 
 
-def ap_dpo_serve_phase(torch, fams, runs: ApRuns) -> tuple:
+def ap_dpo_serve_phase(torch, fams, runs: ApRuns, pod_refs=None) -> tuple:
     """Phase 39: the fault pool's jobs of the sharded DPO loss and the
     sharded prefill and serve steps of every family (see AP_DPO_LAYERS and
     AP_SERVE_JOBS). While the card is free, rows 13-18 at a rank's shapes
@@ -7575,15 +7794,20 @@ def ap_dpo_serve_phase(torch, fams, runs: ApRuns) -> tuple:
     = 100, S 2,048, window 1,024 (stablelm's and granite's prefill shapes
     are phases 35 and 36's), and row 20 on hymba's prefill, 25 Mamba heads
     a rank, B = 100, SSD mode (rwkv's, 20 heads a rank at S 512, is phase
-    37's), against their plain versions; then the jobs
-    (``ap_dpo_serve_jobs``). Every rank's launches of rows 13-20 are
+    37's), and rows 13-18 at the pod jobs' rank shapes (b/p = 1 row a
+    slot: stablelm's column and row halves at T 512, granite's whole
+    widths at T 512, stablelm's decode at T 1; their flash shapes are
+    phase 35's and 36's), against their plain versions; then the jobs
+    (``ap_dpo_serve_jobs``; the pod jobs read against ``pod_refs``, phase
+    35's and 36's one-rank runs). Every rank's launches of rows 13-20 are
     checked: a serving job's rows 13-14 once a LoRA target and layer of
     every forward (the prefill, AP_SERVE_DECODES steps, the idle step),
     row 19 once a layer of an attention family's prefill, row 20 once a
     layer of an ssm or hybrid prefill, none in decode, and nothing of the
-    dense, ragged or backward sets. Returns (the rank-local kernels'
-    results, flash's, the scan's, the DPO job's sound launches and each
-    serving job's, summed over the pool's ranks)."""
+    dense, ragged or backward sets; a pod train job's as a one-rank step's
+    on its shapes (``ap_pod_readings``). Returns (the rank-local kernels'
+    results, flash's, the scan's, the DPO job's sound launches, each
+    serving job's and each pod job's, summed over the pool's ranks)."""
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.grouped_lora import ref
@@ -7658,12 +7882,41 @@ def ap_dpo_serve_phase(torch, fams, runs: ApRuns) -> tuple:
         cases=[("train", AP_Z // dd * 2 * Hs // m, hcfg.ssm.state_size, hs,
                 True, False, 1.0, bf16)])
     scan.update({f"apshymba_{k}": v for k, v in cases.items()})
+    # the pod jobs' rank shapes, b/p = 1 row a slot: pod_train's halves
+    # (model 2) and pod_moe's whole widths (model 1) at T = S = 512, 4
+    # slots as phases 35's and 36's checks take them; pod_serve's decode
+    # at T 1 a slot
+    sd, sff = d, ff                       # stablelm's widths (the DPO job's)
+    _merged(lora, backward_kernel_phase(
+        torch, RL, ref, timed=("appod_row", sd // m, sd),
+        untimed=("appod_col", "appod_ff"),
+        cases=[("appod_col", AP_S, sd, sd // m, RANKS, None),
+               ("appod_ff", AP_S, sd, sff // m, RANKS, None),
+               ("appod_row", AP_S, sd // m, sd, RANKS, None),
+               ("appod_ff", AP_S, sff // m, sd, RANKS, None)]))
+    _merged(lora, backward_kernel_phase(
+        torch, RL, ref, timed=("appodmoe", g_q, g_d),
+        untimed=("appodmoe_chk",),
+        cases=[("appodmoe_chk", AP_S, g_d, g_q, RANKS, None),
+               ("appodmoe_chk", AP_S, g_d, g_kv, RANKS, None),
+               ("appodmoe", AP_S, g_q, g_d, RANKS, None)]))
+    _merged(lora, kernel_phase(
+        torch, RL, ref, timed={("appoddecode", sd // m, sd): "appoddecode"},
+        untimed={"appoddecode_chk"},
+        cases=[("appoddecode", 1, sd // m, sd, RANKS, None),
+               ("appoddecode_chk", 1, sd, sd // m, RANKS, None),
+               ("appoddecode_chk", 1, sd, sff // m, RANKS, None),
+               ("appoddecode_chk", 1, sff // m, sd, RANKS, None)]))
     print("ap serve: the granite and rwkv prefills' rank shapes (T 1,024 a "
           "slot) are phase 36's and 37's row 13-18 checks; flash on the "
           "stablelm and granite prefills (B 64 and 32, S 512) phase 35's "
-          "and 36's; the scan on rwkv's (B 80, S 512) phase 37's")
+          "and 36's; the scan on rwkv's (B 80, S 512) phase 37's. ap pod: "
+          "flash on pod_train's and pod_serve's rank shapes (B 4 x 1 x 16 = "
+          "64, S 512) is phase 35's check, on pod_moe's (B 2 x 1 x 16 = 32, "
+          "S 512, hd 64) phase 36's")
     print(f"ap dpo / serve: kernel checks {time.perf_counter() - t0:.1f} s")
-    dcfg, dpo_parts, serve_jobs = ap_dpo_serve_jobs(torch, runs)
+    dcfg, dpo_parts, serve_jobs, pod_jobs = ap_dpo_serve_jobs(torch, runs,
+                                                              pod_refs)
     train, evals, (train_seq, eval_seq) = _step_launches(dcfg, "dpo")
     for r, part in enumerate(dpo_parts):
         for what, want, want_seq, n in (
@@ -7696,7 +7949,9 @@ def ap_dpo_serve_phase(torch, fams, runs: ApRuns) -> tuple:
     print(f"ap dpo / serve phase: {time.perf_counter() - t0:.1f} s")
     return (lora, flash, scan, _summed(dpo_parts, "launches"),
             {job: _summed(parts, "launches")
-             for job, (_, parts) in serve_jobs.items()})
+             for job, (_, parts) in serve_jobs.items()},
+            {job: _summed(parts, "launches")
+             for job, (_, parts) in pod_jobs.items()})
 
 
 def _summed(parts, what: str) -> dict:
@@ -7711,16 +7966,19 @@ def _summed(parts, what: str) -> dict:
     return tot
 
 
-def ap_dpo_serve_jobs(torch, runs: ApRuns) -> tuple:
+def ap_dpo_serve_jobs(torch, runs: ApRuns, pod_refs=None) -> tuple:
     """Phase 39's jobs and readings (``ap_dpo_serve_phase``): the DPO job
-    to the pool, the one-rank serving runs of ``AP_SERVE_JOBS`` (each one's
-    greedy tokens feed the pool's serving job of the same name, given to
-    the pool as soon as they are known) and the one-rank DPO run here,
-    then every reading against its bars. With ``runs.reduced`` every run
-    is its config's tiny fp32 variant (on the CPU, a check of this
+    and the pod train jobs to the pool, the one-rank serving runs of
+    ``AP_SERVE_JOBS`` (each one's greedy tokens feed the pool's serving job
+    of the same name, and stablelm's the "pod_serve" job too, given to the
+    pool as soon as they are known) and the one-rank DPO run here, then
+    every reading against its bars (``ap_pod_readings`` for the pod jobs,
+    against ``pod_refs``: phase 35's and 36's one-rank runs; without them,
+    phase 39 alone, one-rank runs made here). With ``runs.reduced`` every
+    run is its config's tiny fp32 variant (on the CPU, a check of this
     machinery; its bars are not the card's). Returns (the DPO config, the
     pool ranks' results of the sound DPO run, {job: (its config, the pool
-    ranks' results of its sound serving run)})."""
+    ranks' results of its sound serving run)}, {pod job: the same})."""
     import numpy as np
     from repro_torch.launch import mesh as MESH
 
@@ -7732,6 +7990,10 @@ def ap_dpo_serve_jobs(torch, runs: ApRuns) -> tuple:
     out = Path(tempfile.mkdtemp(prefix="ap_dpo_serve_", dir=runs.dir))
     k_dpo = runs.job({"kind": "dpo", "out": str(out),
                       "reduced": runs.reduced})
+    load = AP_POD_REDUCED_LOAD if runs.reduced else AP_LOAD
+    k_pod = {job: runs.job({"kind": job, "out": str(out), "load": load,
+                            "reduced": runs.reduced})
+             for job in ("pod_train", "pod_moe")}
     ones, k_serve = {}, {}
     with MESH.process_group(runs.device) as dev:
         mesh = MESH.make_local_mesh((1, 1), device=dev)
@@ -7751,6 +8013,11 @@ def ap_dpo_serve_jobs(torch, runs: ApRuns) -> tuple:
                                      "out": str(out),
                                      "feed": str(out / f"feed_{job}.pt"),
                                      "reduced": runs.reduced})
+            if job == "stablelm":
+                k_pod["pod_serve"] = runs.job({
+                    "kind": "pod_serve", "out": str(out),
+                    "feed": str(out / f"feed_{job}.pt"),
+                    "reduced": runs.reduced})
             ones[job] = (scfg, batch["tokens"].shape[-1], {
                 "logits": one["logits"].cpu().numpy(),
                 "idle_logits": one["idle_logits"].float().cpu().numpy(),
@@ -7771,10 +8038,14 @@ def ap_dpo_serve_jobs(torch, runs: ApRuns) -> tuple:
                       for tg, ab in res["lora"].items()
                       for k, v in ab.items()}}
         del params, dlora, batches, res
+        if pod_refs is None:
+            pod_refs = {job: _one_rank_ref(torch, np, job, load, mesh, dev,
+                                           runs.reduced)
+                        for job in ("pod_train", "pod_moe")}
     seconds["one_rank"] = time.perf_counter() - t
     runs.wait(k_dpo)
     seconds["dpo_job"] = time.perf_counter() - t
-    for job, k in k_serve.items():
+    for job, k in {**k_pod, **k_serve}.items():
         runs.wait(k)
         seconds[f"{job}_job"] = time.perf_counter() - t
     gc.collect()
@@ -7825,11 +8096,14 @@ def ap_dpo_serve_jobs(torch, runs: ApRuns) -> tuple:
     serve_parts = {job: ap_serve_readings(torch, np, out, job, *ones[job],
                                           dd, m)
                    for job in AP_SERVE_JOBS}
+    scfg, _, one = ones["stablelm"]
+    pod_parts = ap_pod_readings(np, out, pod_refs, dict(one, cfg=scfg),
+                                runs.reduced)
     shutil.rmtree(out, ignore_errors=True)
     seconds["jobs_phase"] = time.perf_counter() - t
     print(f"ap dpo / serve: seconds "
           f"{ {k: round(v, 1) for k, v in seconds.items()} }")
-    return dcfg, dpo_parts, serve_parts
+    return dcfg, dpo_parts, serve_parts, pod_parts
 
 
 def ap_serve_readings(torch, np, out: Path, job: str, cfg, S: int, one: dict,
@@ -7934,6 +8208,229 @@ def ap_serve_readings(torch, np, out: Path, job: str, cfg, S: int, one: dict,
                 and max(bad[1][kept]) <= rel_rms,
                 f"{tag}: planted fault {fault} reaches slots {kept}")
     return cfg, parts
+
+
+def _pod_config(job: str, reduced: bool):
+    arch, layers = AP_POD_JOBS[job][:2]
+    return _ap_config(reduced, arch, layers)
+
+
+def _one_rank_ref(torch, np, job: str, load, mesh, dev,
+                  reduced: bool) -> dict:
+    """The one-rank run pod job ``job`` is read against, where phase 35 or
+    36 did not make it (phase 39 run alone: a dev script or the CPU
+    rehearsal): ``launch.train.run`` of its config on the one-rank
+    ``mesh``, as ``ap_train_phase``'s "one_rank" gives it."""
+    from repro_torch.launch import train as TRAIN
+    cfg = _pod_config(job, reduced)
+    one = TRAIN.run(cfg, *load, mesh, AP_STEPS, ranks=RANKS, device=dev,
+                    log=lambda m: print(f"{job} 1x1: {m}"))
+    want = {"losses": np.asarray(one["losses"]),
+            "eval_own": np.asarray(one["eval"])}
+    want.update({f"lora/{t}/{k}": v.float().cpu().numpy()
+                 for t, ab in one["lora"].items() for k, v in ab.items()})
+    return {"want": want, "init": _run_init(torch, cfg, dev)}
+
+
+def _pod_parts(out: Path, job: str, fault: str) -> list:
+    return [json.loads((out / f"{job}_{fault}_rank{r}.json").read_text())
+            for r in range(AP_PROCS)]
+
+
+def _pod_peer(r: int, shape) -> int:
+    """The global rank of rank ``r``'s pod peer on a (2, d, m) mesh."""
+    _, d, m = shape
+    return (r + d * m) % (2 * d * m)
+
+
+def _pod_invariant(parts, tag: str, moe: bool, steps: int = 0) -> None:
+    """The pod invariant from every rank's collective records ``parts``
+    ("log": (axis, role, kind, bytes)): "pod" carries only ``steps``
+    all-reduces of the adapter gradients (role "adapter_grad"), each of the
+    rank's adapter bytes, the per-slot loss sums (role "loss") and, for
+    the MoE family, the route counts; "data" only base weights, the metric
+    gather and route counts. A serving job (``steps`` 0, no adapter bytes)
+    sends nothing over "pod" but, for the MoE family, route counts."""
+    route = {"route"} if moe else set()
+    for r, part in enumerate(parts):
+        pod = [c for c in part["log"] if c[0] == "pod"]
+        roles = {c[1] for c in pod}
+        data = {c[1] for c in part["log"] if c[0] == "data"}
+        grads = [c for c in pod if c[1] == "adapter_grad"]
+        want = ({"adapter_grad", "loss"} | route) if steps else route
+        require(roles <= want and data <= {"base_weight", "metric", "route"}
+                and len(grads) == steps
+                and all(c[2] == "all-reduce" and c[3] == part["lora_bytes"]
+                        for c in grads),
+                f"{tag} rank {r}: pod roles {roles}, data roles {data}, "
+                f"{len(grads)} adapter-gradient all-reduces over pod "
+                f"{[c[3] for c in grads]} (want {steps} of "
+                f"{part.get('lora_bytes')} bytes)")
+    pods = [sum(c[3] for c in part["log"] if c[0] == "pod")
+            for part in parts]
+    print(f"{tag}: pod invariant holds on every rank; bytes over pod a "
+          f"rank {pods}")
+
+
+def ap_pod_readings(np, out: Path, refs: dict, one_serve: dict,
+                    reduced: bool) -> dict:
+    """Phase 39's pod jobs' readings: "pod_train" and "pod_moe" against
+    their one-rank runs ``refs[job]`` (phase 35's and 36's: "want" its
+    losses, adapters and own eval, "init" the initial adapters) at their
+    phases' bars, the pod ranks' adapters bitwise equal slot by slot, each
+    fault past the bars on its slots (the adapters; for the route fault
+    the loss too) and within them on the others, with pod_grad_skip's
+    slots no longer equal over "pod"; "pod_serve" against the one-rank
+    stablelm serving run ``one_serve`` per (slot, lane) at job (ii)'s bars,
+    the idle lanes untouched, its fault past both bars on the lane it
+    reaches and within them on the other; every job's pod invariant and
+    launches a rank. Returns {job: (config, the ranks' sound results)}."""
+    Z = len(RANKS)
+    res = {}
+    for job in ("pod_train", "pod_moe"):
+        _, _, shape, faults = AP_POD_JOBS[job]
+        cfg = _pod_config(job, reduced)
+        tag = f"ap {job}"
+        loss_bar, adapter_bar = ((AP_LOSS_REL, AP_ADAPTER_REL)
+                                 if job == "pod_train" else
+                                 (AP_MOE_LOSS_REL, AP_MOE_ADAPTER_REL))
+        want, init = refs[job]["want"], refs[job]["init"]
+        parts = _pod_parts(out, job, "none")
+        got = dict(np.load(out / f"{job}_none.npz"))
+        loss, adapters = _ap_readings(np, got, want, init, range(Z))
+        ev = _ap_eval(np, got["eval"], want["eval_own"], range(Z))
+        print(f"{tag}: pod x data x model {shape} vs 1x1, {cfg.name} "
+              f"{cfg.num_layers} layers, {AP_STEPS} steps: loss reading "
+              f"{loss:.3e} (bar {loss_bar}), adapter reading {adapters:.3e} "
+              f"(bar {adapter_bar}), eval reading {ev:.3e} against the "
+              f"one-rank run's own eval (bar {loss_bar}); losses "
+              f"{got['losses'].tolist()} vs {want['losses'].tolist()}")
+        require(bool(np.isfinite(got["losses"]).all()) and loss <= loss_bar
+                and adapters <= adapter_bar and ev <= loss_bar,
+                f"{tag}: readings {loss}, {adapters}, {ev} past the bars")
+        require(all(p["slots"] == parts[_pod_peer(r, shape)]["slots"]
+                    for r, p in enumerate(parts)),
+                f"{tag}: the pod ranks' adapters differ")
+        print(f"{tag}: the pod ranks' adapters bitwise equal, slot by slot")
+        _pod_invariant(parts, tag, cfg.is_moe, AP_STEPS)
+        train, evals, (train_seq, eval_seq) = _step_launches(cfg)
+        for r, part in enumerate(parts):
+            for what, w, w_seq, n in (("launches", train, train_seq,
+                                       AP_STEPS),
+                                      ("eval_launches", evals, eval_seq, 1)):
+                g = part[what]
+                require(g["rank-local"] == {k: v * n for k, v in w.items()}
+                        and g["flash"]["flash_attention"] == w_seq * n
+                        and not any(g["scan"].values())
+                        and not any(g["dense"].values())
+                        and not any(g["ragged"].values()),
+                        f"{tag} rank {r}: {what} {g}, expected rank-local "
+                        f"{w} and flash {w_seq} a step")
+        for fault, slots in faults.items():
+            bad = dict(np.load(out / f"{job}_{fault}.npz"))
+            fparts = _pod_parts(out, job, fault)
+            kept = [z for z in range(Z) if z not in slots]
+            fl, fa = _ap_readings(np, bad, want, init, slots)
+            kl, ka = _ap_readings(np, bad, want, init, kept)
+            print(f"{tag}: planted fault {fault}: loss reading {fl:.3e}, "
+                  f"adapter reading {fa:.3e} on slots {slots}; the other "
+                  f"slots {kl:.3e}, {ka:.3e}")
+            reads = ((fa > adapter_bar) if fault == "pod_grad_skip"
+                     else (fl > loss_bar and fa > adapter_bar))
+            require(reads, f"{tag}: planted fault {fault} within the bars")
+            require(kl <= loss_bar and ka <= adapter_bar,
+                    f"{tag}: planted fault {fault} reaches slots {kept}")
+            if fault == "pod_grad_skip":
+                first = [r for r in range(AP_PROCS)
+                         if r < _pod_peer(r, shape)]
+                same = [[fparts[r]["slots"][z]
+                         == fparts[_pod_peer(r, shape)]["slots"][z]
+                         for z in range(Z)] for r in first]
+                require(all(s == [z not in slots for z in range(Z)]
+                            for s in same),
+                        f"{tag}: {fault}: the pod ranks' slots equal "
+                        f"{same}, expected only slots {kept}")
+        res[job] = (cfg, parts)
+    # -- pod_serve
+    job, tag = "pod_serve", "ap pod_serve"
+    _, _, shape, faults = AP_POD_JOBS[job]
+    scfg = one_serve["cfg"]
+    p, dd, m = shape
+    atol_rel, rel_rms = AP_SERVE_JOBS["stablelm"][4]
+    parts = _pod_parts(out, job, "none")
+    for r, part in enumerate(parts):
+        require(part["idle_changed"] == 0 and part["live_changed"] > 0,
+                f"{tag} rank {r}: the idle step changed "
+                f"{part['idle_changed']} entries of idle lanes and "
+                f"{part['live_changed']} of live ones")
+    _pod_invariant([dict(q, lora_bytes=0) for q in parts], tag, False)
+    per_forward = len(scfg.lora.targets) * scfg.num_layers
+    seq = _seq_counts(scfg, scfg.num_layers)
+    for r, part in enumerate(parts):
+        g = part["launches"]
+        w = {k: (per_forward * (AP_SERVE_DECODES + 2)
+                 if k in ("xa", "sb_add") else 0) for k in g["rank-local"]}
+        require(g["rank-local"] == w
+                and g["flash"]["flash_attention"] == seq["flash_attention"]
+                and not any(g["scan"].values())
+                and not any(g["dense"].values())
+                and not any(g["ragged"].values()),
+                f"{tag} rank {r}: launches {g}, expected rank-local {w} "
+                f"and flash {seq['flash_attention']} (the prefill)")
+
+    def sharded(fault):
+        """[steps, Z, b, V] (and the idle step's [Z, b, V]): each pod
+        rank's lanes of the slots, from its first model rank."""
+        got = [dict(np.load(out / f"{job}_{fault}_rank{k * dd * m}.npz"))
+               for k in range(p)]
+        return {key: np.concatenate([g[key] for g in got],
+                                    axis=2 if key == "logits" else 1)
+                for key in got[0]}
+
+    def gap(a, b):
+        """Per (slot, lane) over every step: max|a-b| / max|b| and the
+        relative RMS, [Z, b] each."""
+        dlt = np.moveaxis(a - b, 0, 2).reshape(Z, a.shape[2], -1)
+        ref = np.moveaxis(b, 0, 2).reshape(Z, a.shape[2], -1)
+        return (np.abs(dlt).max(-1) / np.abs(ref).max(-1),
+                np.linalg.norm(dlt, axis=-1) / np.linalg.norm(ref, axis=-1))
+
+    want = one_serve["logits"]
+    got = sharded("none")
+    sound = gap(got["logits"], want)
+    live = np.ones((Z, 2), bool)
+    for z, lane in AP_IDLE_LANES:
+        live[z, lane] = False
+    idle = gap(got["idle_logits"][None], one_serve["idle_logits"][None])
+    print(f"{tag}: pod x data x model {shape} vs 1x1, {scfg.name} "
+          f"{scfg.num_layers} layers, b 2 (one lane a pod rank): per "
+          f"(slot, lane) over the {AP_SERVE_DECODES + 1} logits "
+          f"max|diff|/max|logit| {np.round(sound[0], 5).tolist()}, relative "
+          f"RMS {np.round(sound[1], 5).tolist()}; the idle step's live "
+          f"lanes {np.round(np.where(live, idle[0], 0), 5).tolist()}, "
+          f"{np.round(np.where(live, idle[1], 0), 5).tolist()} (bars "
+          f"{atol_rel}, {rel_rms})")
+    require(bool(np.isfinite(got["logits"]).all())
+            and got["logits"].shape == want.shape,
+            f"{tag}: logits {got['logits'].shape} not finite or misshapen")
+    require(max(sound[0].max(), idle[0][live].max()) <= atol_rel
+            and max(sound[1].max(), idle[1][live].max()) <= rel_rms,
+            f"{tag}: sharded logits too far from the one-rank run's")
+    for fault, lanes in faults.items():
+        bad = gap(sharded(fault)["logits"], want)
+        kept = [lane for lane in range(2) if lane not in lanes]
+        print(f"{tag}: planted fault {fault}: max|diff|/max|logit| "
+              f"{np.round(bad[0], 5).tolist()}, relative RMS "
+              f"{np.round(bad[1], 5).tolist()} (lanes {list(lanes)} of every "
+              f"slot must pass both bars, lanes {kept} stay within them)")
+        require(bad[0][:, list(lanes)].min() > atol_rel
+                and bad[1][:, list(lanes)].min() > rel_rms,
+                f"{tag}: planted fault {fault} within the bars")
+        require(bad[0][:, kept].max() <= atol_rel
+                and bad[1][:, kept].max() <= rel_rms,
+                f"{tag}: planted fault {fault} reaches lanes {kept}")
+    res[job] = (scfg, parts)
+    return res
 
 
 def main() -> int:
@@ -8089,14 +8586,16 @@ def main() -> int:
     ok = False
     try:
         t = time.perf_counter()
-        ap_lora, ap_flash, ap_launches = ap_phase(torch, fams, runs)
+        ap_lora, ap_flash, ap_launches, pod_refs = ap_phase(torch, fams,
+                                                            runs)
+        pod_refs = {"pod_train": pod_refs}
         print(f"ap phase {time.perf_counter() - t:.1f} s, done at "
               f"{time.perf_counter() - t_all:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        apm_lora, apm_flash, apm_launches, apl_launches = ap_moe_phase(
-            torch, fams, runs)
+        (apm_lora, apm_flash, apm_launches, apl_launches,
+         pod_refs["pod_moe"]) = ap_moe_phase(torch, fams, runs)
         print(f"ap moe phase {time.perf_counter() - t:.1f} s, done at "
               f"{time.perf_counter() - t_all:.1f} s")
         gc.collect()
@@ -8116,8 +8615,8 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        apx_lora, apx_flash, apx_scan, apdpo_launches, apserve_launches = \
-            ap_dpo_serve_phase(torch, fams, runs)
+        (apx_lora, apx_flash, apx_scan, apdpo_launches, apserve_launches,
+         appod_launches) = ap_dpo_serve_phase(torch, fams, runs, pod_refs)
         print(f"ap dpo / serve phase {time.perf_counter() - t:.1f} s, done "
               f"at {time.perf_counter() - t_all:.1f} s")
         ok = True
@@ -8168,7 +8667,9 @@ def main() -> int:
                 "ap_audio_train": apa_launches["rank-local"][name],
                 "ap_dpo": apdpo_launches["rank-local"][name],
                 **{f"ap_serve_{job}": got["rank-local"][name]
-                   for job, got in apserve_launches.items()}}, \
+                   for job, got in apserve_launches.items()},
+                **{f"ap_{job}": got["rank-local"][name]
+                   for job, got in appod_launches.items()}}, \
                 dict(kern[name])
             by_path["serve"] = serve_launches[name]
             by_path["rwkv_serve"] = rwkv_serve[name]
@@ -8251,6 +8752,8 @@ def main() -> int:
     by_path["ap_dpo"] = apdpo_launches["flash"]["flash_attention"]
     by_path.update({f"ap_serve_{job}": got["flash"]["flash_attention"]
                     for job, got in apserve_launches.items()})
+    by_path.update({f"ap_{job}": got["flash"]["flash_attention"]
+                    for job, got in appod_launches.items()})
     table["kernels"].append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -8269,7 +8772,9 @@ def main() -> int:
                "ap_rwkv_train": apr_launches["scan"]["linear_scan"],
                "ap_hymba_train": aph_launches["scan"]["linear_scan"],
                **{f"ap_serve_{job}": got["scan"]["linear_scan"]
-                  for job, got in apserve_launches.items()}}
+                  for job, got in apserve_launches.items()},
+               **{f"ap_{job}": got["scan"]["linear_scan"]
+                  for job, got in appod_launches.items()}}
     table["kernels"].append({
         "name": "linear_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",

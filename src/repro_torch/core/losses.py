@@ -73,9 +73,10 @@ def dpo_loss(cfg: ModelConfig, params: Dict, lora: Dict, batch: Dict,
     under ``torch.no_grad()``: the same values, no graph kept, and no LoRA
     launch. As in the JAX package, the loss takes no MoE load-balance term.
     Sharded (``shardctx.spmd()``), each of the four forwards runs on this
-    data rank's slots under the plan, the per-slot sums are all-reduced
-    over "model" by ``per_slot_xent``, and the total covers this rank's
-    slots (the step gathers the per-slot losses over "data").
+    rank's slots (on a pod mesh its rows of them) under the plan, the
+    per-slot sums are all-reduced over "model" and "pod" by
+    ``per_slot_xent`` before the log-sigmoid, and the total covers this
+    rank's slots (the step gathers the per-slot losses over "data").
 
     Returns (total scalar, per-slot mean -log sigmoid margin [Z])."""
     def seq_logp(lora_tree, which):

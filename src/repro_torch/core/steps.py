@@ -42,7 +42,8 @@ def lora_grads(cfg: ModelConfig, params: Dict, lora: Dict, batch: Dict,
     ``batch`` may carry ``slot_rows``/``slot_ranks`` as ``make_train_step``
     describes; ``remat`` checkpoints every layer of the forward. Sharded
     (``shardctx.spmd()``), each gradient is all-reduced over "model" only:
-    the slots, and so the adapters, of another data rank are not here."""
+    the slots, and so the adapters, of another data rank are not here; on a
+    pod mesh then over "pod" (each pod rank's is its own rows' share)."""
     LS.check_loss_kind(loss_kind)
     keys = [(t, m) for t in sorted(lora) for m in sorted(lora[t])]
     leaves = {t: {m: x.detach().requires_grad_(True)
@@ -90,8 +91,9 @@ def make_train_step(cfg: ModelConfig, *, loss_kind: str = "sft",
 
     Sharded on a real multi-rank mesh (``launch/steps_dist.py``), the
     step updates this data rank's slots, with the clipping norms taken
-    after the gradients' all-reduce over "model", and the metrics are
-    gathered over "data" to all Z slots."""
+    after the gradients' all-reduce over "model" (and "pod"), and the
+    metrics are gathered over "data" to all Z slots. The pod ranks take the
+    same update of the same adapters: they stay bitwise equal."""
     LS.check_loss_kind(loss_kind)
 
     def train_step(params, lora, opt_state, hp: adamw.SlotHParams,
@@ -138,7 +140,8 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
     cache).
 
     Sharded on a real multi-rank mesh (``launch/steps_dist.py``), the
-    logits are those of this data rank's slots ([Z/d, b, V]), over the
+    logits are those of this rank's slots and lanes ([Z/d, b/p, V]), over
+    the
     whole vocabulary on every model rank: the last token's hidden state
     comes from the model rank whose sequence block holds it
     (``SpmdPlan.last_row``) and a vocabulary-parallel unembedding's logits
@@ -163,11 +166,12 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
     -> (logits, cache). ``active`` ([Z, b] bool, per-lane caches) freezes
     idle lanes bitwise while live lanes decode.
 
-    Sharded on a real multi-rank mesh, ``tokens`` are this data rank's
-    slots (or a DTensor of all of them), the cache's positions and
-    ``active`` arrive whole, and the step returns this data rank's slots'
-    logits ([Z/d, b, V], the whole vocabulary) and the cache's local
-    shards with the positions updated whole (``models.model.decode_step``)."""
+    Sharded on a real multi-rank mesh, ``tokens`` are this rank's block
+    (its data rank's slots, its pod rank's lanes of them) or a DTensor of
+    all of them, the cache's positions and ``active`` arrive whole, and the
+    step returns this rank's lanes' logits ([Z/d, b/p, V], the whole
+    vocabulary) and the cache's local shards with the positions updated
+    whole (``models.model.decode_step``)."""
 
     def serve_step(params, lora, cache, tokens, active=None):
         return M.decode_step(cfg, params, lora, cache, tokens, active=active)

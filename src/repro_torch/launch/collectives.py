@@ -21,8 +21,9 @@ add up to the true value) has a gradient that every rank holds whole. So:
 
 Every call appends a ``Record`` (axis, kind, role, shape, dtype, bytes) to
 the ``log`` list its caller passes (the step's ``SpmdPlan.log``): ``role``
-is "base_weight", "activation", "adapter_grad", "metric" or "route" (the
-MoE router's per-expert counts of a token group that spans data ranks);
+is "base_weight", "activation", "adapter_grad", "metric", "route" (the
+MoE router's per-expert counts of a token group that spans data or pod
+ranks) or "loss" (the per-slot loss sums added over "pod");
 ``shape`` and ``bytes`` are those of the result (the gathered tensor, the
 scattered shard, the reduced tensor), as the dry run's counter charges
 them (``roofline/hlo.py``). A call over an axis of size 1 moves nothing
@@ -48,7 +49,7 @@ import torch
 import torch.distributed as dist
 
 ROLES = ("base_weight", "activation", "adapter_grad", "metric",
-         "route")
+         "route", "loss")
 
 
 @dataclasses.dataclass(frozen=True)

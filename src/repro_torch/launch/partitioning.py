@@ -25,11 +25,12 @@ where the reference places its constraints (``SpmdPlan``, through
 (``distribute`` wraps each tensor as a DTensor without a copy, ``local``
 takes it back) and nothing moves: the activation policy resolves and
 records each constraint's spec and returns the tensor unchanged. On a real
-multi-rank ``(data, model)`` mesh ``distribute`` slices each rank's shard
-out of the full tensor, and the policy's ``SpmdPlan`` runs the train,
-eval, prefill and serve steps of the dense, MoE, ssm, hybrid, vlm and audio
-families (the SFT and DPO losses; ``check_sharded``; the eval step is the
-train step's forward, with no backward):
+multi-rank ``(data, model)`` or ``(pod, data, model)`` mesh ``distribute``
+slices each rank's shard out of the full tensor, and the policy's
+``SpmdPlan`` runs the train, eval, prefill and serve steps of the dense,
+MoE, ssm, hybrid, vlm and audio families (the SFT and DPO losses;
+``check_sharded``; the eval step is the train step's forward, with no
+backward):
 
   * "data" is Adapter Parallelism (paper Fig. 8): each data rank holds its
     Z/d slots' adapters, gradients, AdamW state, hyper-parameters, ranks
@@ -37,6 +38,18 @@ train step's forward, with no backward):
     weights are ZeRO-sharded over it and all-gathered forward-only (one
     gather a forward pass of a layer, the gathered weight kept for its
     backward; no backward reduce-scatter, the base is frozen);
+  * "pod" is data parallelism over the per-adapter batch: each (data, pod)
+    rank holds b/p of its slots' b rows (the batch, the prefix and, cut
+    here, the per-slot positions; the cache's lanes), and the base
+    weights, adapters, AdamW state and hyper-parameters are replicated
+    over it. Three things cross it: the per-slot loss sums (nll and count,
+    or DPO's log-probability sums), added over "pod" in one all-reduce
+    before any nonlinearity (role "loss"; backward: identity, so each pod
+    rank's gradient is its own rows' share); one all-reduce of the adapter
+    gradients a train step (role "adapter_grad"), after which every pod
+    rank takes the same AdamW update and holds the same adapters,
+    bitwise; and the MoE route counts (below). A serve step of the other
+    families sends nothing over it;
   * "model" is tensor and sequence parallelism: q/k/v and gate/up
     column-parallel, o/down row-parallel (their partial sums,
     the LoRA term's included, reduce-scattered along S by the "residual"
@@ -57,7 +70,11 @@ train step's forward, with no backward):
     "residual" constraint (experts that do not split run whole on every
     rank). A token group that spans data ranks takes one all-gather of
     per-expert counts over "data" (role "route") for its queue places and
-    its top-1 shares; the load-balance term enters the gradient once;
+    its top-1 shares; the load-balance term enters the gradient once. On a
+    pod mesh a rank's tokens are Z/d runs of (b/p)·S rows, one a slot, in
+    the flat Z·b·S order, between the other pod ranks' runs: each piece
+    takes its queue places from the pieces before it in its group, by
+    global flat offset, and its counts cross "pod" and "data";
   * ssm (RWKV-6) and hybrid (Hymba's Mamba branch): "model" splits the
     scan heads. Each model rank runs the chunked scan on its H/m heads
     over the whole sequence; no scan state crosses ranks (training starts
@@ -75,13 +92,13 @@ train step's forward, with no backward):
     branch outputs are reduce-scattered, each by its own "residual"
     constraint, before their branch norms;
   * vlm (Qwen2-VL) and audio (MusicGen) take the dense layout. The stub
-    encoder's prefix ``modal_embeds`` arrives as the data rank's slots, and
+    encoder's prefix ``modal_embeds`` arrives as the rank's slots, and
     after the embedding's "residual" constraint each model rank writes the
     prefix rows that fall in its own sequence block (``SpmdPlan.prefix``;
     no collective). Per-slot positions (``[Z, b, S]``, M-RoPE's ``[3, Z, b,
     S]``) arrive whole, as the reference's batch spec keeps them, and each
-    data rank takes its own slots' before the rotary angles
-    (``SpmdPlan.slot_positions``);
+    rank takes its own slots' (and its pod rank's rows of them) before the
+    rotary angles (``SpmdPlan.slot_positions``);
   * DPO: the policy's two forwards and the frozen reference's two (the
     empty adapter tree, no gradient) each run the layout above on the data
     rank's slots; the per-slot log-probability sums are all-reduced over
@@ -100,9 +117,11 @@ train step's forward, with no backward):
     slots for the whole sequence of the column-parallel projections'
     gathered input, and the scan starts from the cache's state. The
     positions (``pos``, a ring's ``k_pos``) and a serve step's ``active``
-    lanes arrive whole on every rank and each data rank reads its own
-    slots' lanes (``SpmdPlan.slot_lanes``) for its positions, write indices
-    and write mask; the updated positions are computed whole. A serve
+    lanes arrive whole on every rank and each rank reads its own slots'
+    lanes (``SpmdPlan.slot_lanes``; on a pod mesh its pod rank's b/p of
+    them, as every other leaf splits b over "pod") for its positions,
+    write indices and write mask; the updated positions are computed
+    whole. A serve
     step's residual (S 1) is not sequence-sharded: its partial sums are
     all-reduced, RWKV's mixes read the whole x, Mamba's ``bc_proj`` /
     ``dt_proj`` products are summed over "model" at the one token, and an
@@ -111,8 +130,8 @@ train step's forward, with no backward):
     The last token's hidden state comes from the model rank whose
     sequence block holds it (``SpmdPlan.last_row``), and a
     vocabulary-parallel unembedding's logits are gathered over "model"
-    (``SpmdPlan.whole_vocab``): every rank returns its data rank's slots'
-    logits over the whole vocabulary.
+    (``SpmdPlan.whole_vocab``): every rank returns its (data, pod) rank's
+    slots' lanes' logits over the whole vocabulary.
 
 Every opt level runs this one schedule: the levels change only the recorded
 ``decisions`` and the hints, and the numbers stay equal. A mesh over a
@@ -143,6 +162,8 @@ SHARDED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 # sharded, every family each
 SHARDED_STEPS = ("train", "eval", "prefill", "serve")
 SHARDED_QUEUE = "queued in ROADMAP.md §1, the rest of sharded execution"
+# the meshes' axes, in order, whose steps run sharded
+SHARDED_AXES = (("data", "model"), ("pod", "data", "model"))
 
 
 class PartitionSpec(tuple):
@@ -460,8 +481,10 @@ def cache_specs(mesh, cache: Any) -> Any:
 
 def serve_cache_specs(cfg, mesh, cache: Any) -> Any:
     """The cache layout the sharded prefill and serve steps take on a real
-    ("data", "model") mesh: slots over "data" in every leaf but the
-    positions, and over "model" what this rank's heads write. K/V [L, Z, b,
+    ("data", "model") or ("pod", "data", "model") mesh: slots over "data"
+    and lanes (b) over "pod" in every leaf but the positions, as
+    ``cache_specs`` splits them, and over "model" what this rank's heads
+    write. K/V [L, Z, b,
     Sc, KV, hd] split by KV heads, as ``cache_specs`` lays it out, or whole
     where the heads do not split (``whole_heads``: every model rank writes
     all of them); RWKV's ``wkv`` and Mamba's ``ssm`` [L, Z, b, H, ., hs]
@@ -474,12 +497,13 @@ def serve_cache_specs(cfg, mesh, cache: Any) -> Any:
     keeps whole the K/V heads that do not."""
     m_dim = {"k": 4, "v": 4, "wkv": 3, "ssm": 3, "conv": 4}
     whole = whole_heads(cfg, axis_sizes(mesh).get("model", 1))
+    lanes = {1: "data", 2: "pod"} if has_pod(mesh) else {1: "data"}
 
     def spec_of(path, leaf) -> P:
         name = path[-1]
         if name in ("pos", "k_pos"):
             return P()
-        dims = {1: "data"}
+        dims = dict(lanes)
         if name in m_dim and not (whole and name in ("k", "v")):
             dims[m_dim[name]] = "model"
         return P(*(dims.get(d) for d in range(max(dims) + 1)))
@@ -608,8 +632,10 @@ def check_sharded(cfg, mesh, step: str = "train") -> None:
     """Raise ``NotImplementedError`` unless the ``step`` builder's step
     (``SHARDED_STEPS``) runs ``cfg`` on the real multi-rank ``mesh``: the
     dense, MoE, ssm, hybrid, vlm or audio family (vlm and audio as dense)
-    with either loss (SFT or DPO), a ("data", "model") mesh, and, over a
-    model axis of m > 1 ranks, the Megatron layout (q/k/v, gate/up, RWKV's
+    with either loss (SFT or DPO), a ("data", "model") mesh or a ("pod",
+    "data", "model") one (``MULTI_POD``'s order; "pod" splits the
+    per-adapter batch), and, over a model axis of m > 1 ranks, the
+    Megatron layout (q/k/v, gate/up, RWKV's
     r/k/v/g and ffn_k, Mamba's in_proj and conv split by output columns;
     o, down, ffn_v and out_proj by input rows). Attention whose heads do
     not split runs whole (``whole_heads``): its weights may take any split.
@@ -618,14 +644,16 @@ def check_sharded(cfg, mesh, step: str = "train") -> None:
     back, whole. MoE: the router whole, the routed experts split by expert
     or whole, the shared expert's gate/up by columns and its down by rows,
     or all three whole. The prefill and serve steps take every family, the
-    cache laid out by ``serve_cache_specs``."""
+    cache laid out by ``serve_cache_specs``. Ragged slot rows are refused
+    per call (``SpmdPlan.bind``)."""
     if step not in SHARDED_STEPS:
         raise ValueError(f"unknown step {step!r}")
     names = tuple(axis_names(mesh))
-    if names != ("data", "model"):
+    if names not in SHARDED_AXES:
         raise NotImplementedError(
-            f"sharded execution over axes {names}: only (data, model) runs; "
-            f"the pod axis is queued ({SHARDED_QUEUE})")
+            f"sharded execution over axes {names}: only "
+            + " and ".join(f"({', '.join(a)})" for a in SHARDED_AXES)
+            + f" run ({SHARDED_QUEUE})")
     if cfg.family not in SHARDED_FAMILIES:
         raise NotImplementedError(
             f"sharded execution of the {cfg.family} family ({cfg.name}) is "
@@ -745,7 +773,8 @@ def _weight_name(path: Tuple) -> str:
 
 class SpmdPlan:
     """The collectives of the sharded train, eval, prefill and serve steps
-    on a real ("data", "model") mesh, issued on local shards through
+    on a real ("data", "model") or ("pod", "data", "model") mesh, issued on
+    local shards through
     ``launch/collectives.py`` (the module docstring has the layout).
     ``bind`` reads each base
     weight's placements off the DTensor parameters and the global shape of
@@ -757,13 +786,14 @@ class SpmdPlan:
         sizes = axis_sizes(mesh)
         self.mesh = mesh
         self.d, self.m = sizes.get("data", 1), sizes.get("model", 1)
-        self.model_rank = (mesh.get_local_rank("model")
-                           if "model" in sizes else 0)
-        self.data_rank = (mesh.get_local_rank("data")
-                          if "data" in sizes else 0)
+        self.p = sizes.get("pod", 1)      # a mesh without "pod": p = 1
+        self.model_rank, self.data_rank, self.pod_rank = (
+            mesh.get_local_rank(a) if a in sizes else 0
+            for a in ("model", "data", "pod"))
         self.decide = decide           # the policy's: (shape, kind) -> spec
         self.layouts: Optional[Dict[str, Dict[str, Optional[int]]]] = None
         self.seq_len = self.z = self.z_local = self.d_model = 0
+        self.b = self.b_local = 0         # rows a slot: global, this rank's
         self.seq_sharded = False
         # attention runs whole on every model rank (``whole_heads``); set
         # by ``steps_dist``'s step builders
@@ -780,9 +810,10 @@ class SpmdPlan:
         """Bind one call: the weights' placements (read once) and the
         shapes of ``tokens``, the call's [Z, b, S] tokens (a DPO batch's
         chosen ones) or a serve step's [Z, b] (S 1: the residual is not
-        sequence-sharded), a DTensor (its global shape) or this data rank's
-        slots; ``batch``, where the step takes one, may not carry ragged
-        slot rows over a split model axis."""
+        sequence-sharded), a DTensor (its global shape) or this rank's
+        block (its data rank's slots, its pod rank's rows of them);
+        ``batch``, where the step takes one, may not carry ragged slot rows
+        over a split model axis or a pod axis."""
         if self.layouts is None:
             self.layouts = _weight_layouts(self.mesh, params)
         emb = params["embed"]
@@ -791,21 +822,31 @@ class SpmdPlan:
                              "DTensors (partitioning.distribute)")
         self.d_model = emb.shape[1]
         shape = tuple(tokens.shape)
-        self.z, b = shape[:2]
+        self.z, self.b = shape[:2]
         self.seq_len = shape[2] if len(shape) > 2 else 1
         if isinstance(tokens, DTensor):
-            self.z_local = tokens.to_local().shape[0]
+            self.z_local, self.b_local = tokens.to_local().shape[:2]
         else:
-            self.z_local, self.z = self.z, self.z * self.d
+            self.z_local, self.b_local = self.z, self.b
+            self.z, self.b = self.z * self.d, self.b * self.p
         if self.z != self.z_local * self.d:
             raise NotImplementedError(
                 f"Z = {self.z} slots do not split over data {self.d}")
-        if (batch is not None and batch.get("slot_rows") is not None
-                and self.m > 1):
+        if self.b != self.b_local * self.p:
             raise NotImplementedError(
-                "ragged slot rows on a split model axis are not ported "
-                f"({SHARDED_QUEUE})")
-        spec = self.decide((self.z, b, self.seq_len, self.d_model),
+                f"b = {self.b} rows a slot do not split over pod {self.p}")
+        if batch is not None and batch.get("slot_rows") is not None:
+            if self.p > 1:
+                raise NotImplementedError(
+                    "ragged slot rows on a pod axis: the reference's "
+                    "batch_specs cannot lay out the [Z] slot_rows leaf "
+                    "with a pod axis (its {0: data, 1: pod} candidate "
+                    f"indexes a dim the leaf lacks; {SHARDED_QUEUE})")
+            if self.m > 1:
+                raise NotImplementedError(
+                    "ragged slot rows on a split model axis are not ported "
+                    f"({SHARDED_QUEUE})")
+        spec = self.decide((self.z, self.b, self.seq_len, self.d_model),
                            "residual")
         self.seq_sharded = self.m > 1 and len(spec) > 2 and \
             spec[2] == "model"
@@ -834,6 +875,8 @@ class SpmdPlan:
             return tuple(shape)
         if self.z and shape and shape[0] == self.z_local:
             shape[0] = self.z
+            if self.p > 1 and len(shape) >= 3:
+                shape[1] *= self.p          # [Z, b/p, ...]: rows over pod
         if self.m > 1:
             if kind == "residual" and len(shape) == 4 and \
                     shape[2] != self.seq_len:
@@ -921,38 +964,70 @@ class SpmdPlan:
 
     def moe_groups(self, tokens: int, group: int, num_experts: int
                    ) -> Tuple[int, int]:
-        """This data rank's ``tokens`` rows (Z/d slots, Z-major: the rows
-        from ``data_rank · tokens`` on of the flat Z·b·S) against the token
-        groups of ``group`` rows: (pieces, rows a piece). Whole groups where
-        they lie inside the rank; else one piece of the group it shares
-        with the neighbouring data ranks."""
-        if tokens % group and group % tokens:
+        """This rank's ``tokens`` rows against the token groups of
+        ``group`` rows of the flat Z·b·S: (pieces, rows a piece). The rows
+        lie in runs that are contiguous in the flat order: one run of all
+        of them on a mesh without "pod" (the Z/d slots from ``data_rank ·
+        tokens`` on), else Z/d runs of (b/p)·S, one a slot, each between
+        the other pod ranks' runs. Whole groups where they lie inside a
+        run; else each run is one piece of the group it shares with other
+        ranks' runs (``route_exchange``)."""
+        run = tokens if self.p == 1 else tokens // self.z_local
+        if run % group and group % run:
             raise NotImplementedError(
-                f"MoE token groups of {group} rows across data ranks of "
-                f"{tokens} rows: neither divides the other ({SHARDED_QUEUE})")
-        piece = min(group, tokens)
-        self._moe = (num_experts, tokens * self.d // group, group)
+                f"MoE token groups of {group} rows across ranks' runs of "
+                f"{run} contiguous rows (Z/d slots, or one slot's b/p rows "
+                f"on a pod mesh): neither divides the other "
+                f"({SHARDED_QUEUE})")
+        piece = min(group, run)
+        self._moe = (num_experts, tokens * self.d * self.p // group, group)
         return tokens // piece, piece
+
+    def _offsets(self, tokens: int, piece: int, data_rank, pod_rank
+                 ) -> torch.Tensor:
+        """[n] flat Z·b·S offsets of the pieces of ``piece`` rows of the
+        rank at (``data_rank``, ``pod_rank``), each holding ``tokens``
+        rows: local row i of its slot zl lies at ((data_rank · Z/d + zl) ·
+        p + pod_rank) · (b/p)·S + i."""
+        per_slot = tokens // self.z_local
+        rows = torch.arange(0, tokens, piece)
+        zl, i = rows // per_slot, rows % per_slot
+        return ((data_rank * self.z_local + zl) * self.p + pod_rank
+                ) * per_slot + i
 
     def route_exchange(self, counts: torch.Tensor, top1: torch.Tensor,
                        piece: int, group: int
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``counts``, ``top1``: [n, E] int32 per-expert counts of this
         rank's choices (kept or not) and of its tokens' top-1 experts in
-        each of its n pieces. Returns (offset: the choices of each piece's
-        group on lower data ranks, each expert's queue places taken before
-        this rank's; the group's top-1 counts over every data rank in it).
-        Groups inside the rank need no exchange; a spanning group takes one
-        all-gather of both counts over "data" (no gradient)."""
-        if piece == group or self.d == 1:
+        each of its n pieces. Returns (offset: the choices of the pieces
+        before each piece in the flat order within its group, each
+        expert's queue places taken before this piece's; the group's top-1
+        counts over every piece in it). Groups inside a run need no
+        exchange; a spanning group takes one all-gather of both counts over
+        "pod" and one over "data" (no gradient)."""
+        if piece == group or self.d * self.p == 1:
             return torch.zeros_like(counts), top1
-        both = torch.stack([counts, top1])[None]              # [1,2,n,E]
-        every = C.all_gather(both, self.mesh, "data", 0, "route", self.log)
-        first = self.data_rank * piece // group * group // piece
-        mates = range(first, first + group // piece)
-        offset = sum((every[r, 0] for r in mates if r < self.data_rank),
-                     torch.zeros_like(counts))
-        return offset, sum(every[r, 1] for r in mates)
+        every = torch.stack([counts, top1])[None]             # [1,2,n,E]
+        for axis, n in (("pod", self.p), ("data", self.d)):
+            if n > 1:
+                every = C.all_gather(every, self.mesh, axis, 0, "route",
+                                     self.log)
+        # every[r], r = data_rank · p + pod_rank: [2, n, E]
+        tokens = counts.shape[0] * piece
+        at = torch.stack([self._offsets(tokens, piece, r // self.p,
+                                        r % self.p)
+                          for r in range(self.d * self.p)]).to(
+                              counts.device)                   # [R, n]
+        mine = at[self.data_rank * self.p + self.pod_rank]     # [n]
+        mates = at // group == (mine // group)[:, None, None]  # [n, R, n]
+        before = mates & (at < mine[:, None, None])
+        flat = every.movedim(0, 1).flatten(1, 2)[:, None]      # [2,1,R·n,E]
+
+        def total(mask, c):
+            return (mask.flatten(1)[..., None] * c).sum(1).to(counts.dtype)
+
+        return total(before, flat[0]), total(mates, flat[1])
 
     # -- activations -------------------------------------------------------
 
@@ -1055,9 +1130,11 @@ class SpmdPlan:
         """The embedded residual ``x`` (after its "residual" constraint:
         this model rank's sequence block where the residual is
         sequence-sharded, else the whole sequence) with the rows of the
-        prefix ``modal`` ([Z/d, b, P, d], this data rank's slots) that fall
+        prefix ``modal`` ([Z/d, b/p, P, d], this rank's slots) that fall
         at its positions in place of the token embeddings there: the global
-        positions [r·S/m, (r+1)·S/m) ∩ [0, P) on model rank r."""
+        positions [r·S/m, (r+1)·S/m) ∩ [0, P) on model rank r. On a pod
+        mesh ``modal`` arrives as this rank's rows of its slots too, cut as
+        the batch spec cuts it ({0: data, 1: pod})."""
         P, n_rows = modal.shape[2], x.shape[2]
         lo = self.model_rank * n_rows if self.seq_sharded else 0
         n = min(max(P - lo, 0), n_rows)
@@ -1068,29 +1145,36 @@ class SpmdPlan:
 
     def slot_positions(self, positions: torch.Tensor, mrope: bool
                        ) -> torch.Tensor:
-        """This data rank's slots of per-slot ``positions`` ([Z, b, S], or
-        [3, Z, b, S] under M-RoPE: whole on every rank, as the batch spec
-        keeps them), data-major as ``shard_of`` cuts the batch; [S] and
-        [3, S] positions pass as they are."""
+        """This rank's block of per-slot ``positions`` ([Z, b, S], or [3, Z,
+        b, S] under M-RoPE: whole on every rank, as the batch spec keeps
+        them): its data rank's slots and its pod rank's rows of them, cut
+        as ``shard_of`` cuts the batch; [S] and [3, S] positions pass as
+        they are."""
         dim = 1 if mrope else 0
         if positions.dim() != dim + 3:
             return positions
-        if positions.shape[dim] != self.z:
+        if positions.shape[dim:dim + 2] != (self.z, self.b):
             raise ValueError(f"positions {tuple(positions.shape)} for "
-                             f"{self.z} slots")
-        return positions.narrow(dim, self.data_rank * self.z_local,
-                                self.z_local)
+                             f"{self.z} slots of {self.b} rows")
+        return self._block(positions, dim)
 
     def slot_lanes(self, t: torch.Tensor) -> torch.Tensor:
-        """This data rank's slots of a per-lane tensor ([Z, b, ...]: a
-        cache's ``pos`` or ring ``k_pos``, a serve step's ``active``), which
-        arrives whole on every rank, as ``cache_specs`` keeps the positions,
-        data-major as ``shard_of`` cuts the cache: each rank writes and
-        reads its own lanes at their own indices."""
-        if t.shape[0] != self.z:
+        """This rank's lanes of a per-lane tensor ([Z, b, ...]: a cache's
+        ``pos`` or ring ``k_pos``, a serve step's ``active``), which
+        arrives whole on every rank, as ``cache_specs`` keeps the
+        positions: its data rank's slots and its pod rank's lanes of them,
+        cut as ``shard_of`` cuts the cache, so each rank writes and reads
+        its own lanes at their own indices."""
+        if t.shape[:2] != (self.z, self.b):
             raise ValueError(f"per-lane {tuple(t.shape)} for {self.z} "
-                             f"slots")
-        return t.narrow(0, self.data_rank * self.z_local, self.z_local)
+                             f"slots of {self.b} lanes")
+        return self._block(t, 0)
+
+    def _block(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The (data, pod) block of ``t``'s slots (``dim``) and rows
+        (``dim`` + 1)."""
+        t = t.narrow(dim, self.data_rank * self.z_local, self.z_local)
+        return t.narrow(dim + 1, self.pod_rank * self.b_local, self.b_local)
 
     def last_row(self, h: torch.Tensor) -> torch.Tensor:
         """The hidden state of the last token ([Z/d, b, d]) of ``h`` ([Z/d,
@@ -1126,13 +1210,17 @@ class SpmdPlan:
         return hidden, labels
 
     def loss_sums(self, *sums: torch.Tensor) -> List[torch.Tensor]:
-        """Per-slot sums over this rank's sequence block added over
-        "model" (whole-vocabulary loss, sequence-sharded), in one
-        all-reduce; else as they are."""
-        if self.split("lm_head") is not None or not self.seq_sharded:
-            return list(sums)
-        both = C.reduce(torch.stack(sums), self.mesh, "model", "activation",
-                        self.log)
+        """Per-slot sums over this rank's rows: added over "model" where
+        each rank took its own sequence block (whole-vocabulary loss,
+        sequence-sharded), in one all-reduce, then over "pod" (its b/p
+        rows of each slot), in one more (role "loss"). Both are partial
+        sums whose backward is the identity: each pod rank's gradient
+        is its own rows' share, which ``reduce_grads`` adds up."""
+        both = torch.stack(sums)
+        if self.split("lm_head") is None and self.seq_sharded:
+            both = C.reduce(both, self.mesh, "model", "activation", self.log)
+        if self.p > 1:
+            both = C.reduce(both, self.mesh, "pod", "loss", self.log)
         return list(both.unbind(0))
 
     def xent(self, logits: torch.Tensor, labels: torch.Tensor
@@ -1161,14 +1249,23 @@ class SpmdPlan:
 
     def reduce_grads(self, grads: Dict) -> Dict:
         """Each adapter gradient (a partial sum over "model") all-reduced
-        over "model"; nothing crosses "data"."""
-        return {t: {k: C.all_reduce(g, self.mesh, "model", "adapter_grad",
-                                    self.log)
-                    for k, g in ab.items()} for t, ab in grads.items()}
+        over "model", then all of them (each pod rank's share of its rows)
+        in one all-reduce over "pod", flat; nothing crosses "data"."""
+        out = {t: {k: C.all_reduce(g, self.mesh, "model", "adapter_grad",
+                                   self.log)
+                   for k, g in ab.items()} for t, ab in grads.items()}
+        if self.p == 1:
+            return out
+        leaves = [g for ab in out.values() for g in ab.values()]
+        flat = C.all_reduce(torch.cat([g.reshape(-1) for g in leaves]),
+                            self.mesh, "pod", "adapter_grad", self.log)
+        parts = iter(flat.split([g.numel() for g in leaves]))
+        return {t: {k: next(parts).view_as(g) for k, g in ab.items()}
+                for t, ab in out.items()}
 
     def gather_metrics(self, *vecs: torch.Tensor) -> List[torch.Tensor]:
         """The per-slot [Z/d] vectors gathered over "data" to [Z], in one
-        collective."""
+        collective (every pod rank already holds the same ones)."""
         both = torch.stack([v.float() for v in vecs], dim=-1)
         full = C.all_gather(both, self.mesh, "data", 0, "metric", self.log)
         return list(full.unbind(-1))

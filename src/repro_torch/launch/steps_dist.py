@@ -9,12 +9,16 @@ local shard (the kernels take plain tensors; the step's in-place updates
 land in the local shards).
 
 On a one-rank mesh the shards are whole and nothing moves. On a real
-multi-rank ("data", "model") mesh every step runs sharded: the policy's
-``SpmdPlan`` reads the parameters' placements and the global shape of the
-call's tokens at each call and issues the collectives
-(``launch/collectives.py``). ``partitioning.check_sharded`` refuses, with
-``NotImplementedError``, what a step does not run on ``cfg`` (the pod axis,
-scan heads that do not split over "model"). Every step runs every family
+multi-rank ("data", "model") or ("pod", "data", "model") mesh every step
+runs sharded: the policy's ``SpmdPlan`` reads the parameters' placements
+and the global shape of the call's tokens at each call and issues the
+collectives (``launch/collectives.py``); "pod" splits each slot's b rows,
+and the adapters, their AdamW state and the base weights are replicated
+over it. ``partitioning.check_sharded`` refuses, with
+``NotImplementedError``, what a step does not run on ``cfg`` (axes in
+another order, scan heads that do not split over "model"), and
+``SpmdPlan.bind`` ragged slot rows over a split model axis or a pod
+axis. Every step runs every family
 (dense, MoE, ssm, hybrid, vlm, audio); the train and eval steps with either
 loss (SFT or DPO); the eval step is the train step's forward with no
 backward, on the same schedule, and every rank returns all Z per-slot
@@ -23,11 +27,12 @@ losses, gathered over "data". Attention whose heads do not split over
 prefill and serve steps take the cache as ``serve_cache_specs`` lays it out
 (slots over "data"; K/V by KV heads over "model", or whole where the heads
 do not split; RWKV's and Mamba's scan states by heads, Mamba's conv buffer
-by its inner block, RWKV's token-shift rows and the positions whole) and a
-serve step's ``active`` whole; a cache laid out any other way raises
-``ValueError`` (``partitioning.check_serve_cache``). Each returns its data
-rank's slots' logits over the whole vocabulary and the cache's local
-shards. One schedule serves every opt level: the levels change only the
+by its inner block, RWKV's token-shift rows and the positions whole; lanes
+over "pod") and a serve step's ``active`` whole, its [Z, b] tokens a
+DTensor or this rank's block of them; a cache laid out any other way raises
+``ValueError`` (``partitioning.check_serve_cache``). Each returns its (data,
+pod) rank's slots' lanes' logits over the whole vocabulary and the cache's
+local shards. One schedule serves every opt level: the levels change only the
 recorded decisions and hints, and the numbers stay equal.
 """
 from __future__ import annotations

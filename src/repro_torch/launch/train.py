@@ -323,13 +323,15 @@ def write_out(path: str, mesh, res: Dict) -> None:
     """Rank 0 writes ``path`` (.npz): "losses" [steps, Z], "eval" [Z]
     (where ``res`` has it) and each adapter leaf "lora/<target>/<A|B>"
     [L, Z, ...] of every slot. The first model rank of each other data
-    rank leaves its slots in a file beside it, which rank 0 merges and
-    removes (a file, so that no adapter crosses the data axis)."""
+    rank (on a pod mesh, of pod rank 0: the pod ranks hold the same
+    adapters) leaves its slots in a file beside it, which rank 0 merges
+    and removes (a file, so that no adapter crosses the data axis)."""
     import numpy as np
     sizes = MESH.axis_sizes(mesh)
     d = sizes.get("data", 1)
     me = mesh.get_local_rank("data") if d > 1 else 0
-    first = sizes.get("model", 1) == 1 or mesh.get_local_rank("model") == 0
+    first = all(sizes.get(a, 1) == 1 or mesh.get_local_rank(a) == 0
+                for a in ("model", "pod"))
     mine = ({f"lora/{t}/{k}": v.detach().float().cpu().numpy()
              for t, ab in res["lora"].items() for k, v in ab.items()}
             if first else {})

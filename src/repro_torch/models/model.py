@@ -199,7 +199,7 @@ def forward(cfg: ModelConfig, params: Dict, lora: Dict, tokens: torch.Tensor,
     sp = shardctx.spmd()
     if positions is None:
         positions = text_positions((), S, cfg.rope, device=dev)
-    elif sp is not None:        # per-slot positions: this data rank's slots
+    elif sp is not None:        # per-slot positions: this rank's block
         positions = sp.slot_positions(positions, cfg.rope.is_mrope)
     ctx: Dict[str, Any] = {
         "angles": _angles(cfg, positions),
@@ -242,7 +242,9 @@ def per_slot_xent(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
     cover its vocabulary block: the log-sum-exp and the gold logit are
     all-reduced over "model" per chunk. With the vocabulary whole (it does
     not divide), each rank takes its own sequence block and the per-slot
-    sums are all-reduced over "model" once (``SpmdPlan.loss_rows``)."""
+    sums are all-reduced over "model" once (``SpmdPlan.loss_rows``). On a
+    pod mesh the sums of this rank's b/p rows are then added over "pod"
+    (``SpmdPlan.loss_sums``), before the caller's mean or log-sigmoid."""
     sp = shardctx.spmd()
     if sp is not None:
         hidden, labels = sp.loss_rows(hidden, labels)
@@ -340,7 +342,7 @@ def decode_step(cfg: ModelConfig, params: Dict, lora: Dict, cache: Dict,
     Sharded (``shardctx.spmd()``), ``tokens`` and the cache's layer leaves
     are this rank's shards (``partitioning.serve_cache_specs``), while a
     per-lane ``pos`` (and ring ``k_pos``) and ``active`` arrive whole: the
-    layers read this data rank's slots of them (``SpmdPlan.slot_lanes``)
+    layers read this rank's lanes of them (``SpmdPlan.slot_lanes``)
     for the positions, the write indices and the write mask, and the new
     positions are computed whole, the same on every rank (a ring's
     ``k_pos`` too, each rank then reading its own lanes)."""

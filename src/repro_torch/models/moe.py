@@ -34,16 +34,19 @@ as ``moe_expert`` ([E, G, cap, d] views). The reference's opt-level
 constraints on its ``[G, s, E, cap]`` dispatch and combine one-hots have no
 tensor to attach to here: the index route never forms them.
 
-Sharded over a real (data, model) mesh (``shardctx.spmd()``, the launcher's
-``SpmdPlan``), "model" is expert parallelism and "data" holds Z/d slots:
+Sharded over a real (data, model) or (pod, data, model) mesh
+(``shardctx.spmd()``, the launcher's ``SpmdPlan``), "model" is expert
+parallelism, "data" holds Z/d slots and "pod" b/p rows of each:
   * every model rank gathers its data rank's normed tokens along S and
     routes all of them with the whole router (the same result on each);
   * the groups are the global ones over the flat Z·b·S: a group that lies
-    inside the data rank is routed as on one rank; a group that spans data
-    ranks is routed in pieces, each rank's queue places starting after the
-    choices of the lower data ranks in its group and its top-1 shares
-    counted over the whole group (``SpmdPlan.route_exchange``, one
-    all-gather of [n, E] counts over "data");
+    inside one of the rank's contiguous runs of rows (all of its rows, or
+    on a pod mesh one slot's b/p rows) is routed as on one rank; a group
+    that spans ranks is routed in pieces, each piece's queue places
+    starting after the choices of the pieces before it in the flat order
+    and its top-1 shares counted over the whole group
+    (``SpmdPlan.route_exchange``, one all-gather of [n, E] counts over
+    "pod" and one over "data");
   * each model rank dispatches only the choices of its block of E/m
     experts into a local buffer of ``E/m · n · cap + 1`` rows (its local
     queue places; the spare row takes dropped and other ranks' choices),
@@ -56,9 +59,9 @@ Sharded over a real (data, model) mesh (``shardctx.spmd()``, the launcher's
     group's top-1 shares, on model rank 0 only (0 elsewhere), so the shares
     add up to the reference's term over the mesh and it enters the
     gradient once;
-  * a serve step's Z·b one-token rows are one group across the data ranks
-    (``pick_group_size``), whose capacity is lossless: its count exchange
-    changes no choice, and runs all the same.
+  * a serve step's Z·b one-token rows are one group across the data and
+    pod ranks (``pick_group_size``), whose capacity is lossless: its count
+    exchange changes no choice, and runs all the same.
 """
 from __future__ import annotations
 
@@ -114,12 +117,12 @@ def init_moe_params(gen: torch.Generator, d_model: int, moe: MoEConfig,
 
 
 class Groups(NamedTuple):
-    """A data rank's part of the token groups in a sharded step: each
-    piece of ``xt`` is a whole group of ``size`` tokens, or this rank's
-    part of one that spans data ranks; ``count`` groups over all data
-    ranks; ``exchange(counts, top1)`` ([n, E] int32 each) returns (the
-    queue places the lower data ranks took in each piece's group, the
-    group's top-1 counts): ``SpmdPlan.route_exchange``."""
+    """A rank's part of the token groups in a sharded step: each piece of
+    ``xt`` is a whole group of ``size`` tokens, or this rank's part of one
+    that spans ranks; ``count`` groups over all ranks; ``exchange(counts,
+    top1)`` ([n, E] int32 each) returns (the queue places the pieces
+    before each piece took in its group, the group's top-1 counts):
+    ``SpmdPlan.route_exchange``."""
     size: int
     count: int
     exchange: Callable
@@ -252,7 +255,7 @@ def moe_block(x: torch.Tensor, params: Dict, moe: MoEConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [Z, b, S, d] -> (out [Z, b, S, d], aux scalar fp32). Sharded
     (``shardctx.spmd()``), x is this rank's sequence block of its data
-    rank's slots, and out is the fp32 partial sum over "model" of the whole
+    rank's slots (its pod rank's rows of them), and out is the fp32 partial sum over "model" of the whole
     sequence (the "residual" constraint reduce-scatters it) or, where
     nothing splits over "model", this rank's block of the whole output;
     aux is this rank's share (the module docstring)."""
@@ -267,9 +270,9 @@ def moe_block(x: torch.Tensor, params: Dict, moe: MoEConfig
         s = pick_group_size(T)
         G = T // s
     else:
-        s = pick_group_size(T * sp.d)
+        s = pick_group_size(T * sp.d * sp.p)
         G, piece = sp.moe_groups(T, s, E)
-        groups = Groups(s, T * sp.d // s, lambda counts, top1:
+        groups = Groups(s, T * sp.d * sp.p // s, lambda counts, top1:
                         sp.route_exchange(counts, top1, piece, s))
         first, E_loc = sp.experts_local(E)
     cap = capacity(moe, s)

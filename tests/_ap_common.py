@@ -362,27 +362,92 @@ def serve_batch(init: dict) -> dict:
 
 def served(work: str, name: str, shape) -> dict:
     """The serving results ``<name>_rank<r>.npz`` of every rank of a
-    ``shape`` (d, m) mesh (rank r at data rank r // m, model rank r % m),
-    assembled: "logits" [n + 1, Z, b, V] and "tokens" [n, Z, b] (and
-    "idle_logits" [Z, b, V]) from each data rank's model rank 0, after
-    checking that its other model ranks returned the same bitwise;
-    "cache/<path>" every leaf of the prefilled cache from every rank's
-    shard (``chip_smoke.cache_whole``); "ranks", every rank's file."""
+    ``shape`` (d, m) or (p, d, m) mesh (rank r at pod rank r // (d·m), data
+    rank r // m mod d, model rank r % m), assembled: "logits" [n + 1, Z, b,
+    V] and "tokens" [n, Z, b] (and "idle_logits" [Z, b, V]) from each
+    (pod, data) rank's model rank 0, after checking that its other model
+    ranks returned the same bitwise, its lanes joined over "pod" and its
+    slots over "data"; "cache/<path>" every leaf of the prefilled cache
+    from every rank's shard (``chip_smoke.cache_whole``); "ranks", every
+    rank's file."""
     import os
 
     import chip_smoke
-    d, m = shape
+    p, d, m = (1,) * (3 - len(shape)) + tuple(shape)
     parts = [dict(np.load(os.path.join(work, f"{name}_rank{r}.npz")))
-             for r in range(d * m)]
+             for r in range(p * d * m)]
     out = {"ranks": parts}
     for key in ("logits", "tokens", "idle_logits"):
         if key not in parts[0]:
             continue
+        lead = key == "idle_logits"         # [Z, b, V]: no step dim
+        rows = []
         for i in range(d):
-            for j in range(1, m):
-                assert np.array_equal(parts[i * m + j][key],
-                                      parts[i * m][key]), (name, key, i, j)
-        out[key] = np.concatenate([parts[i * m][key] for i in range(d)],
-                                  axis=1 if key != "idle_logits" else 0)
-    out.update(chip_smoke.cache_whole(parts, d, m, np.concatenate))
+            lanes = []
+            for k in range(p):
+                first = (k * d + i) * m
+                for j in range(1, m):
+                    assert np.array_equal(parts[first + j][key],
+                                          parts[first][key]), (name, key,
+                                                               k, i, j)
+                lanes.append(parts[first][key])
+            rows.append(np.concatenate(lanes, axis=2 - lead))
+        out[key] = np.concatenate(rows, axis=1 - lead)
+    out.update(chip_smoke.cache_whole(parts, d, m, np.concatenate, p))
     return out
+
+
+# The pod axis (``tests/test_torch_ap_pod.py``: dense and MoE;
+# ``tests/test_torch_ap_pod_families.py``: ssm, hybrid, vlm and audio):
+# every run on a real ("pod", "data", "model") mesh of POD_MESH, 8 gloo
+# ranks, against the reference's GSPMD steps on 8 forced CPU devices with
+# the same axes. "pod" splits each slot's b = 4 rows, 2 a pod rank. Run ->
+# its parts: "train" (STEPS SFT steps; with the eval step after them for
+# POD_EVALS), "dpo" (DPO_STEPS DPO steps and the DPO eval step), "serve"
+# (the prefill and SERVE_DECODES greedy serve steps) and "lanes" (the same
+# over a per-lane cache, then one step with IDLE_LANES idle: lane (1, 0)
+# on pod rank 0, lane (2, 3) on pod rank 1). The MoE runs are granite's
+# span case (T 512: one token group over all 8 ranks, each rank's 2 slots
+# 64-row pieces of it, interleaved with its pod peer's) and its inside
+# case (groups of 4,096 inside each data rank, each spanning its two pod
+# ranks in pieces of 1,024); rwkv and hymba160 (whole attention heads at
+# m 2, 5 Mamba heads a rank) are the ssm and hybrid runs of SSM_RUNS,
+# vlm40 and audio those of MODAL_RUNS.
+POD_MESH = (2, 2, 2)
+POD_AXES = ("pod", "data", "model")
+POD_RUNS = {"dense": ("train", "dpo", "serve", "lanes"),
+            "granite_span": ("train", "serve"),
+            "granite_inside": ("train",),
+            "rwkv": ("train", "serve"), "hymba160": ("train", "serve"),
+            "vlm40": ("train", "serve"), "audio": ("train",)}
+POD_EVALS = ("dense", "vlm40")
+# the runs of each test file: its fixture's one reference process and one
+# group of 8 port ranks run them all
+POD_FILES = {"pod": ("dense", "granite_span", "granite_inside"),
+             "pod_families": ("rwkv", "hymba160", "vlm40", "audio")}
+
+
+def pod_config(name: str, package: str):
+    """The reduced fp32 config of pod run ``name`` in ``package``."""
+    import importlib
+    if name in SSM_RUNS:
+        return ssm_config(name, package)
+    if name in MODAL_RUNS:
+        return modal_config(name, package)
+    if name != "dense":
+        return moe_config(name, package)
+    get_arch = importlib.import_module(f"{package}.configs.registry").get_arch
+    return dataclasses.replace(get_arch("paper-llama-tiny").reduced(**DIMS),
+                               dtype="float32")
+
+
+def pod_init(name: str) -> str:
+    """The file the other AP tests' ``_init`` writes for run ``name``."""
+    return "init.npz" if name == "dense" else f"init_{name}.npz"
+
+
+def pod_coords(rank: int, shape=POD_MESH) -> tuple:
+    """(pod, data, model) rank of global rank ``rank`` on a (p, d, m)
+    mesh."""
+    _, d, m = shape
+    return rank // (d * m), rank // m % d, rank % m

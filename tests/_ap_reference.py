@@ -1,10 +1,11 @@
 """The JAX package's sharded train step on forced CPU host devices, for
 ``tests/test_torch_ap.py``, ``tests/test_torch_ap_moe.py``,
-``tests/test_torch_ap_ssm.py`` and ``tests/test_torch_ap_modal.py``.
+``tests/test_torch_ap_ssm.py``, ``tests/test_torch_ap_modal.py``,
+``tests/test_torch_ap_pod.py`` and ``tests/test_torch_ap_pod_families.py``.
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \\
         python tests/_ap_reference.py <workdir> [--moe <arch key> <case>...
-            | --ssm <run>... | --modal <run>...]
+            | --ssm <run>... | --modal <run>... | --pod <run>...]
 
 Reads ``<workdir>/init.npz`` (the shared weights, adapters and batches, see
 ``tests/_ap_common.py``) and writes ``<workdir>/jax_<d>x<m>.npz`` (per-step
@@ -25,6 +26,10 @@ With ``--ssm <run>...`` (keys of ``common.SSM_RUNS``) it runs those ssm,
 hybrid and whole-heads runs: ``init_<run>.npz`` in,
 ``jax_<run>_<d>x<m>.npz`` out for each of the run's meshes (and 1x1 for
 those of ``common.SSM_ONE_RANK``).
+
+With ``--pod <run>...`` (keys of ``common.POD_RUNS``, with
+``--xla_force_host_platform_device_count=8``) it runs those runs on a
+("pod", "data", "model") mesh of ``common.POD_MESH`` (``pod_main``).
 
 With ``--modal <run>...`` (keys of ``common.MODAL_RUNS``) it runs those vlm
 and audio runs: ``init_<run>.npz`` in (with the stub prefix ``modal`` and
@@ -72,8 +77,11 @@ def _batch(init, t):
 
 
 def _mesh(shape):
-    return jax.make_mesh(shape, ("data", "model"),
-                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    """A (d, m) ("data", "model") or (p, d, m) ("pod", "data", "model")
+    mesh with Auto axes."""
+    axes = ("pod", "data", "model")[-len(shape):]
+    return jax.make_mesh(shape, axes,
+                         axis_types=(jax.sharding.AxisType.Auto,) * len(axes))
 
 
 def run(cfg, init, shape, steps=common.STEPS, evals=False,
@@ -152,7 +160,8 @@ def serve(cfg, init, shape, n=common.SERVE_DECODES, ring=False):
     l_sh = ns(PT.lora_param_specs(mesh, lora))
     c_sh = ns(PT.cache_specs(mesh, cache))
     b_sh = ns(PT.batch_specs(mesh, batch))
-    t_sh = ns(PT.pick_spec(mesh, (Z, b), [{0: "data"}, {}]))
+    # a serve step's [Z, b] tokens, laid out as the batch's
+    t_sh = ns(PT.batch_specs(mesh, {"t": batch["tokens"][..., 0]}))["t"]
     pre = jax.jit(SD.make_prefill_step(cfg, mesh),
                   in_shardings=(p_sh, l_sh, c_sh, b_sh),
                   out_shardings=(None, c_sh))
@@ -271,6 +280,34 @@ def modal_main(workdir: str, names) -> None:
     print("done")
 
 
+def pod_main(workdir: str, names) -> None:
+    """The pod runs ``names`` (keys of ``common.POD_RUNS``) on a
+    ``common.POD_MESH`` ("pod", "data", "model") mesh:
+    ``<common.pod_init(name)>`` in, ``jax_pod_<name>.npz`` (the SFT steps,
+    with the eval step for ``common.POD_EVALS``), ``jax_pod_<name>_dpo
+    .npz`` and ``jax_pod_<name>_serve.npz`` out, as the run's parts say,
+    and, for ``common.SSM_ONE_RANK``, the SFT steps at 1x1
+    (``jax_pod_<name>_1x1.npz``)."""
+    assert len(jax.devices()) == 8, jax.devices()
+    shape = common.POD_MESH
+    for name in names:
+        init = dict(np.load(os.path.join(workdir, common.pod_init(name))))
+        cfg = common.pod_config(name, "repro")
+        parts = common.POD_RUNS[name]
+        out = os.path.join(workdir, f"jax_pod_{name}")
+        np.savez(out + ".npz", **run(cfg, init, shape,
+                                     evals=name in common.POD_EVALS))
+        if name in common.SSM_ONE_RANK:
+            np.savez(out + "_1x1.npz", **run(cfg, init, (1, 1)))
+        if "dpo" in parts:
+            np.savez(out + "_dpo.npz", **run(cfg, init, shape,
+                                             common.DPO_STEPS, evals=True,
+                                             loss_kind="dpo"))
+        if "serve" in parts:
+            np.savez(out + "_serve.npz", **serve(cfg, init, shape))
+    print("done")
+
+
 def main(workdir: str, moe: str = "", cases=()) -> None:
     assert len(jax.devices()) == 4, jax.devices()
     if not moe:
@@ -314,5 +351,7 @@ if __name__ == "__main__":
         ssm_main(sys.argv[1], sys.argv[3:])
     elif sys.argv[2:3] == ["--modal"]:
         modal_main(sys.argv[1], sys.argv[3:])
+    elif sys.argv[2:3] == ["--pod"]:
+        pod_main(sys.argv[1], sys.argv[3:])
     else:
         main(sys.argv[1])

@@ -1,6 +1,6 @@
 """One rank of the port's side of ``tests/test_torch_ap.py``: a 4-rank gloo
-group on the CPU, started torchrun-style (``RANK``, ``WORLD_SIZE``,
-``MASTER_ADDR``, ``MASTER_PORT``).
+group on the CPU (8 ranks with ``--pod``), started torchrun-style
+(``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``).
 
     python tests/_ap_worker.py <workdir>
 
@@ -21,10 +21,10 @@ batches) and writes, rank 0 for the group:
     steps (``chip_smoke.ap_serve``), ``serve_2x2_kv_roll_rank<r>.npz``
     with the planted "kv_roll", and ``lanes_2x2_rank<r>.npz`` over a
     per-lane cache with ``common.IDLE_LANES`` idle in a last step;
-  * ``refusals.json`` — the ``NotImplementedError`` message of a mesh with
-    a pod axis, of ragged slot rows on the 2x2 mesh's split model axis, and
-    of the prefill and serve steps of hymba d 160 on a 1x4 mesh, whose 10
-    Mamba heads do not split over a model axis of 4.
+  * ``refusals.json`` — the ``NotImplementedError`` message of ragged slot
+    rows on the 2x2 mesh's split model axis, and of the prefill and serve
+    steps of hymba d 160 on a 1x4 mesh, whose 10 Mamba heads do not split
+    over a model axis of 4.
 
 Each ``port_<d>x<m>.npz`` also holds "eval": the sharded eval step after
 the steps, on the first batch with the trained adapters (so do the MoE
@@ -63,6 +63,13 @@ step's) out; on
 ``common.MODAL_FAULTS`` planted alone (``chip_smoke._planted_modal``),
 ``port_<tag>_<fault>.npz``.
 
+    python tests/_ap_worker.py <workdir> --pod <run>...
+
+runs the pod runs instead (``tests/test_torch_ap_pod.py`` and
+``tests/test_torch_ap_pod_families.py``, 8 ranks): those runs of
+``common.POD_RUNS`` on a ``common.POD_MESH`` ("pod", "data", "model") mesh
+(``pod_main``), and, with "dense", ``refusals_pod.json``.
+
 The MoE, ssm and modal runs of ``common.DPO_RUNS`` also write
 ``port_<name>_dpo_2x2.npz`` (one DPO step and the DPO eval step), and those
 of ``common.SERVE_RUNS`` ``serve_<name>_<d>x<m>_rank<r>.npz`` on each of
@@ -93,7 +100,9 @@ from tests import _ap_common as common  # noqa: E402
 def train(cfg, init, mesh, *, lrs=None, clip=1.0, opt_level=0,
           steps=common.STEPS, evals=False):
     """``steps`` sharded train steps; with ``evals`` then the sharded eval
-    step on the first batch with the trained adapters ("eval")."""
+    step on the first batch with the trained adapters ("eval");
+    "digests", this rank's adapters' per-slot digests after each step
+    (``chip_smoke._digests``)."""
     Z = common.Z
     params = bridge.params_from_numpy(cfg, common.unflat(init, "params/"),
                                       "cpu")
@@ -117,7 +126,7 @@ def train(cfg, init, mesh, *, lrs=None, clip=1.0, opt_level=0,
     v_spec = PT.pick_spec(mesh, (Z,), [{0: "data"}, {}])
     active, ranks = (placed(t, v_spec) for t in (active, ranks))
     step = SD.make_train_step(cfg, mesh, opt_level=opt_level)
-    losses = []
+    losses, digests = [], []
     for t in range(steps):
         batch = common.port_batch(init, t % common.STEPS)
         batch = placed(batch, PT.batch_specs(mesh, batch))
@@ -126,8 +135,10 @@ def train(cfg, init, mesh, *, lrs=None, clip=1.0, opt_level=0,
         lora = PT.from_local(mesh, lora, l_named)
         opt = PT.from_local(mesh, opt, o_named)
         losses.append(metrics["per_slot_loss"].numpy())
+        digests.append(chip_smoke._digests(PT.local(lora)))
     out = {"losses": np.stack(losses), "lora": PT.local(lora),
-           "log": [dataclasses.asdict(r) for r in step.policy.spmd.log]}
+           "log": [dataclasses.asdict(r) for r in step.policy.spmd.log],
+           "digests": digests}
     if evals:
         batch = common.port_batch(init, 0)
         ev = SD.make_eval_step(cfg, mesh, opt_level=opt_level)
@@ -176,6 +187,9 @@ def serve(workdir, name, cfg, init, mesh, **kw) -> None:
                    live_changed=res["live_changed"])
     np.savez(os.path.join(workdir, f"{name}_rank{dist.get_rank()}.npz"),
              **out)
+    with open(os.path.join(workdir, f"{name}_log_rank{dist.get_rank()}"
+                           ".json"), "w") as f:
+        json.dump(res["log"], f)
 
 
 def extras(workdir, name, cfg, init, meshes, shapes=()) -> None:
@@ -350,8 +364,82 @@ def modal_main(workdir: str) -> None:
     print("done")
 
 
+def pod_refusals(mesh) -> dict:
+    """{case: the ``NotImplementedError`` message} of what a pod mesh
+    refuses: ragged slot rows on the 2x2x2 mesh, hymba d 160's 10 Mamba
+    heads on a 2x1x4 one, and a mesh whose axes are in another order."""
+    cfg = common.port_config()
+    embed = {"embed": PT.distribute(mesh, torch.zeros(cfg.vocab_size,
+                                                      cfg.d_model),
+                                    PT.placements(mesh, PT.P()))}
+    tokens = torch.zeros(2, 1, 8, dtype=torch.int32)
+    msgs = {"pod ragged rows": refusal(
+        lambda: SD.make_train_step(cfg, mesh)(
+            embed, {}, None, None, None, None,
+            {"tokens": tokens, "slot_rows": torch.full((2,), 8)}))}
+    m4 = MESH.make_local_mesh((2, 1, 4), common.POD_AXES, device="cpu")
+    hymba = common.ssm_config("hymba160", "repro_torch")
+    for step in ("train", "serve"):
+        build = getattr(SD, f"make_{step}_step")
+        msgs[f"pod {step} scan heads"] = refusal(lambda: build(hymba, m4))
+    order = MESH.make_local_mesh((2, 2, 2), ("data", "pod", "model"),
+                                 device="cpu")
+    msgs["pod axis order"] = refusal(lambda: SD.make_train_step(cfg, order))
+    return msgs
+
+
+def pod_main(workdir: str, names) -> None:
+    """The pod runs ``names`` (``common.POD_RUNS``) on a
+    ``common.POD_MESH`` mesh of 8 ranks: ``port_pod_<name>.npz`` (the SFT
+    steps and, for ``common.POD_EVALS``, the eval step; ``write_out``),
+    ``log_pod_<name>_rank<r>.json`` (this rank's collective records of the
+    train and eval steps, its adapters' digest after each SFT step and
+    after the DPO steps), ``port_pod_<name>_dpo.npz``,
+    ``serve_pod_<name>_rank<r>.npz`` and ``lanes_pod_<name>_rank<r>.npz``
+    (``serve``, each with its ``_log_rank<r>.json``), as the run's parts
+    say; with "dense", ``refusals_pod.json`` (``pod_refusals``)."""
+    with MESH.process_group("cpu", backend="gloo"):
+        me = dist.get_rank()
+        mesh = MESH.make_local_mesh(common.POD_MESH, common.POD_AXES,
+                                    device="cpu")
+        for name in names:
+            init = dict(np.load(os.path.join(workdir,
+                                             common.pod_init(name))))
+            cfg = common.pod_config(name, "repro_torch")
+            parts = common.POD_RUNS[name]
+            tag = f"pod_{name}"
+            res = train(cfg, init, mesh, evals=name in common.POD_EVALS)
+            TRAIN.write_out(os.path.join(workdir, f"port_{tag}.npz"), mesh,
+                            res)
+            log = {k: res[k] for k in ("log", "eval_log", "digests")
+                   if k in res}
+            if "dpo" in parts:
+                res = dpo(cfg, init, mesh, common.DPO_STEPS)
+                TRAIN.write_out(os.path.join(workdir, f"port_{tag}_dpo.npz"),
+                                mesh, res)
+                log["dpo_digest"] = chip_smoke._digests(res["lora"])
+            with open(os.path.join(workdir, f"log_{tag}_rank{me}.json"),
+                      "w") as f:
+                json.dump(log, f)
+            if "serve" in parts:
+                serve(workdir, f"serve_{tag}", cfg, init, mesh)
+            if "lanes" in parts:
+                serve(workdir, f"lanes_{tag}", cfg, init, mesh,
+                      per_lane=True, idle=common.IDLE_LANES)
+            if name == "dense":
+                msgs = pod_refusals(mesh)
+                if me == 0:
+                    with open(os.path.join(workdir, "refusals_pod.json"),
+                              "w") as f:
+                        json.dump(msgs, f)
+        dist.barrier()
+    print("done")
+
+
 def main(workdir: str) -> None:
     torch.set_num_threads(1)
+    if sys.argv[2:3] == ["--pod"]:
+        return pod_main(workdir, sys.argv[3:])
     if sys.argv[2:3] == ["--moe"]:
         return moe_main(workdir)
     if sys.argv[2:3] == ["--ssm"]:
@@ -364,8 +452,6 @@ def main(workdir: str) -> None:
         me = dist.get_rank()
         meshes = {s: MESH.make_local_mesh(s, device="cpu")
                   for s in common.PORT_MESHES}
-        pod = MESH.make_local_mesh((2, 1, 2), ("pod", "data", "model"),
-                                   device="cpu")
 
         def save(name, res, mesh):
             TRAIN.write_out(os.path.join(workdir, name), mesh, res)
@@ -397,7 +483,7 @@ def main(workdir: str) -> None:
             serve(workdir, "serve_2x2_kv_roll", cfg, init, m22)
         serve(workdir, "lanes_2x2", cfg, init, m22, per_lane=True,
               idle=common.IDLE_LANES)
-        msgs = {"pod axis": refusal(lambda: SD.make_train_step(cfg, pod))}
+        msgs = {}
         embed = {"embed": PT.distribute(m22, torch.zeros(cfg.vocab_size,
                                                          cfg.d_model),
                                         PT.placements(m22, PT.P()))}

@@ -34,13 +34,15 @@ together in one module fixture.
     schedule: they are in fact equal); the one-rank step (this process, a
     one-rank gloo group) agrees with the 2x2 and 4x1 steps within (a)'s
     bars.
-(e) A mesh with a pod axis, ragged slot rows on a split model axis, and the
-    prefill and serve steps of scan heads that do not split over "model"
-    (hymba d 160's 10 Mamba heads on 1x4) raise ``NotImplementedError`` on
-    a real mesh, naming what they refuse and ``ROADMAP.md`` (every family's
-    train, eval, prefill and serve steps run: ``tests/test_torch_ap_moe.py``,
-    ``tests/test_torch_ap_ssm.py``, ``tests/test_torch_ap_modal.py``; so
-    does the eval step, whose per-slot losses after the 2x2 and 4x1 runs
+(e) Ragged slot rows on a split model axis, and the prefill and serve
+    steps of scan heads that do not split over "model" (hymba d 160's 10
+    Mamba heads on 1x4) raise ``NotImplementedError`` on a real mesh,
+    naming what they refuse and ``ROADMAP.md`` (every family's train, eval,
+    prefill and serve steps run: ``tests/test_torch_ap_moe.py``,
+    ``tests/test_torch_ap_ssm.py``, ``tests/test_torch_ap_modal.py``, and
+    on a ("pod", "data", "model") mesh ``tests/test_torch_ap_pod.py`` and
+    ``tests/test_torch_ap_pod_families.py``, which hold what a pod mesh
+    refuses; so does the eval step, whose per-slot losses after the 2x2 and 4x1 runs
     are held within 1e-5 relative of the reference's ``make_eval_step`` on
     the same mesh).
 (f) ``launch.train.main(["--reduced", "--mesh", "2x2", "--steps", "2",
@@ -328,7 +330,6 @@ def test_opt_levels_and_one_rank_agree(runs, tmp_path):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("what,names", [
-    ("pod axis", ("pod",)),
     ("ragged rows", ("ragged", "model")),
     ("prefill scan heads", ("prefill", "10 Mamba heads", "model 4")),
     ("serve scan heads", ("serve", "10 Mamba heads", "model 4")),
