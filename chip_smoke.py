@@ -167,9 +167,9 @@ package. Phases, none of them caught:
             4/8, b = 2 guest (the rank-local kernels): every task's
             histories bitwise equal alone and fused.
 11. lr sweep — phase 6 with 8 jobs all at rank 64 (lr 1e-4/3e-4/1e-3/3e-3
-            x weight decay 0/0.01), at full width and SWEEP_LAYERS = 8
+            x weight decay 0/0.01), at full width and SWEEP_LAYERS = 4
             of the 32 layers (depth cut for time): every step on the dense
-            kernels (the launch counts of 8 layers), the rank-local and
+            kernels (the launch counts of 4 layers), the rank-local and
             ragged kernels never.
 12. heterogeneous co-location — the slice's main path: three full-rank
             tuning tasks of widths (b, S) = (4, 256), (2, 256) and
@@ -204,9 +204,9 @@ package. Phases, none of them caught:
             S = 256: two warmup waves with rotation, selection, continue.
             Every slot's first DPO loss must read log 2 within 1e-3 (B = 0:
             the policy is the reference); every train step must launch
-            flash 48 times (two policy forwards with remat, two reference
-            forwards), the rank-local xa/sb_add 224, ds/da/db 112, dx 106,
-            every eval step flash 32 and xa/sb_add 112, the dense and
+            flash 24 times (two policy forwards with remat, two reference
+            forwards), the rank-local xa/sb_add 112, ds/da/db 56, dx 50,
+            every eval step flash 16 and xa/sb_add 56, the dense and
             ragged kernels never; the same measurements as phase 6, with
             flash attention's share of the device time.
 14a. engine — the slice's main path: Listing 1 through the port's entry
@@ -229,8 +229,8 @@ package. Phases, none of them caught:
             co-location), from the same schedule. One card trains every
             task in turn; the strategies differ in the virtual timeline.
             Every train step must launch exactly one
-            LoRA set at phase 6's counts and flash 64 times, every eval
-            step one set's forward pair (224 each) and flash 32 times, the
+            LoRA set at its depth's counts and flash twice a layer, every
+            eval step one set's forward pair and flash once a layer, the
             scan never; each strategy must launch all three sets. Each
             task's results (best job and value, every job's exit, steps,
             samples, loss and validation histories, the kept adapters)
@@ -336,7 +336,7 @@ per forward) follow:
             backward amplifies rounding past any bar at full depth (the
             plain step against itself with 1e-7 noise on the scan's output
             reads as the kernels do; RWKV_GRAD_LAYERS), so at
-            RWKV_CHECK_LAYERS = 16 of its 32 layers (cut for time) the loss
+            RWKV_CHECK_LAYERS = 8 of its 32 layers (cut for time) the loss
             bar is held with the two forward faults (slot 0's
             delta halved; the bonus dropped from the plain scan) and the
             gradient readings are printed, and at 2 layers every bar and
@@ -653,8 +653,18 @@ and DENSE_LAYERS layers; random weights from a seed:
             relative RMS against the one-rank run printed leaf by leaf;
             rows 13-14 at each job's per-rank decode widths and hymba's
             prefill, flash and the SSD scan at hymba's prefill shapes
-            checked first. Every rank's launches of rows 13-20 are
-            checked.
+            checked first; (vi-viii) the pod jobs, AP_POD_JOBS, on
+            ("pod", "data", "model") meshes of the pool's four ranks;
+            (ix-xii) the uneven jobs, AP_UNEVEN_JOBS, on ("data",
+            "model") meshes of them: hymba-1.5b's train and serve steps
+            with its 50 Mamba and 25 attention heads whole on 1 x 4,
+            hymba's train step with ragged slot rows over a split model
+            axis on 2 x 2 (the ragged kernels), full granite-moe's at S
+            768, whose token groups of 2,048 neither divide nor are
+            divided by a data rank's run of 3,072 rows, on 2 x 2; each
+            with one planted fault, rows 7-12, 13-18, 19 and 20 checked
+            first at their rank shapes. Every rank's launches of rows
+            7-20 are checked.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 kernel table as JSON (twenty kernels), with each kernel's launches by
@@ -738,8 +748,9 @@ RECOVERY_LAYERS = 2
 # layers of stablelm-3b's lr sweep, heterogeneous co-location, DPO sweep,
 # engine and service phases (full width; the lr sweep cut from 32 so that
 # the rwkv6-3b phases fit in half the script's time limit, the others so
-# that the script with phase 37 fits its limit on a slow host; PERF.md §4)
-SWEEP_LAYERS = 8
+# that the script with phase 37 fits its limit on a slow host, and all of
+# them from 8 to 4 for phase 39's uneven jobs; PERF.md §4)
+SWEEP_LAYERS = 4
 # token rows per slot of the executor's b = 4 / b = 2 mix (S = 256), and a
 # pattern with a boundary inside a tile and an empty slot
 RAGGED_ROWS = (1024, 512, 1024, 512)
@@ -777,8 +788,8 @@ SFU_PER_CLOCK_SM = 16         # exponentials per clock per SM (cc 9.0)
 # bar and every fault
 RWKV_GRAD_LAYERS = 2
 # the depth of that first check, the loss bar's (cut from full depth, 32,
-# to make room for phase 39)
-RWKV_CHECK_LAYERS = 16
+# to make room for phase 39, and from 16 for its uneven jobs)
+RWKV_CHECK_LAYERS = 8
 # layers of the rwkv rank sweep (full width; cut from 32 so that the last
 # families' phases fit the script's time, from 16 to make room for phase
 # 37, and from 8 for phase 39's pod jobs)
@@ -968,10 +979,11 @@ AP_HYMBA_LOSS_REL, AP_HYMBA_ADAPTER_REL = 1e-3, 0.75
 # layers at Z 4, b 2, S 384 (its 256-patch prefix spans both model ranks'
 # blocks of 192), with faults (c) and (d) planted together, each on its own
 # data rank's slots. Both cut for time (4 and 16 layers put the script past
-# 1,100 s on an H100's host; PERF.md)
+# 1,100 s on an H100's host; PERF.md), musicgen again from 8 to 4 for phase
+# 39's uneven jobs
 AP_QWEN_ARCH, AP_QWEN_LAYERS, AP_QWEN_LOAD = "qwen2-vl-72b", 2, (4, 2, 384)
 AP_QWEN_FAULT_RUNS = ({"prefix_head": (0, 1), "positions_rank0": (2, 3)},)
-AP_AUDIO_ARCH, AP_AUDIO_LAYERS, AP_AUDIO_LOAD = ("musicgen-medium", 8,
+AP_AUDIO_ARCH, AP_AUDIO_LAYERS, AP_AUDIO_LOAD = ("musicgen-medium", 4,
                                                  (4, 2, 512))
 # phase 39: the fault pool's two jobs of the sharded DPO loss and the
 # sharded prefill and serve steps, on the same mesh and ranks as phase 35,
@@ -1000,7 +1012,9 @@ AP_AUDIO_ARCH, AP_AUDIO_LAYERS, AP_AUDIO_LOAD = ("musicgen-medium", 8,
 AP_DPO_LAYERS, AP_DPO_STEPS, AP_DPO_S, AP_DPO_LR = 4, 2, 256, 1e-4
 AP_DPO_LOSS_REL, AP_DPO_ADAPTER_REL = 5e-4, 0.05
 AP_DPO_FAULT = {"dpo_swap": (2, 3)}
-AP_SERVE_LAYERS, AP_SERVE_S, AP_SERVE_DECODES = 8, 512, 16
+# (AP_SERVE_LAYERS cut from 8 to 4 for the uneven jobs: the readings
+# below are 8 layers')
+AP_SERVE_LAYERS, AP_SERVE_S, AP_SERVE_DECODES = 4, 512, 16
 AP_IDLE_LANES = ((0, 1), (3, 0))
 AP_SERVE_FAULT = {"kv_roll": (0, 1)}
 # (iii-v) the serving job of the other families, each as (ii): Z 4, b 2,
@@ -1065,6 +1079,62 @@ AP_POD_JOBS = {
                   {"pod_kv_roll": (1,)}),
 }
 AP_POD_REDUCED_LOAD = (4, 2, 32)
+# (ix-xii) the last sharded refusals: each a job of the pool on a ("data",
+# "model") mesh of its own over the pool's AP_PROCS ranks
+# (``launch.mesh.make_local_mesh``, kept by shape), sound and with one
+# planted fault, read against a one-rank run. "scan_whole": phase 37's hymba
+# run (full width, AP_HYMBA_LAYERS layers, AP_HYMBA_LOAD, RANKS, AP_STEPS
+# steps and an eval step) on data 1 x model 4, where neither its 50 Mamba
+# heads nor its 25 attention heads split: both run whole on every model
+# rank; read against phase 37's one-rank run at its bars; fault
+# "scan_block_wrong", in layer AP_SSM_FAULT_LAYER model rank 3 keeps model
+# rank 2's sequence block of the whole Mamba output for slots 2-3.
+# "scan_whole_serve": job (v), hymba's serving, on data 1 x model 4, fed
+# the one-rank hymba serving's tokens and held against its logits at (v)'s
+# bars, the idle step's lanes untouched and the model ranks' conv and ssm
+# leaves bitwise equal; fault "whole_state_roll", model rank 0's ssm heads
+# of every layer rolled by one head for slots 0-1 after the prefill (layer
+# 0's alone read 0.05208 / 0.02726 on slot 0 on an H100, PERF.md; a decode
+# step counts model rank 0's whole output once, so the other model ranks'
+# states reach no logit: the bitwise check holds them). "ragged_model":
+# hymba at full width and AP_HYMBA_LAYERS layers, Z 4, b 2, S 1,024, every
+# slot at r_max with only its rows bound (the ragged kernels), widths
+# AP_RAGGED_WIDTHS (slot_rows 2,048, 1,024, 1,024, 2,048; a lane's tail
+# padded as the executor pads it) on data 2 x model 2 (attention whole: its
+# o_proj's LoRA on a rank's sequence block of 512), AP_STEPS steps and no
+# eval step (neither package's eval step takes slot rows), against a
+# one-rank run of the same load and rows at phase 37's hymba bars; fault
+# "rows_swapped", data rank 1 binds data rank 0's rows: slot 3's second
+# row loses its LoRA term, and slot 2's extra row is padding. "moe_odd":
+# full-size granite-moe-1b-a400m at Z 4, b 2, S 768 on data 2 x model 2: T
+# 6,144, groups of 2,048, a data rank's run of 3,072, so three pieces of
+# 1,024 a rank, one group across the data ranks' boundary; AP_STEPS steps
+# and an eval step against a one-rank run of the same load at phase 36's
+# bars; fault "route_blind" (phase 36's: data rank 1 routes layer
+# AP_MOE_ROUTE_LAYER without the other data rank's counts), which reaches
+# slot 2: only its first 1,024 tokens share a group (flat 2,048-4,095)
+# with data rank 0; it must read past the adapter bar there (an H100
+# reads 0.9993, its loss 4.728e-04 under the bar, as phase 36's loss
+# reading sat near its bar), and slot 3, whose tokens share group 2
+# with slot 2's tail, moves at step 1 within the bars (1.167e-03, 0.6721;
+# PERF.md). Each: name -> (arch, layers (None: every layer), mesh
+# (d, m), load (Z, b, S; None: the serving job's), faults {fault: the slots
+# it reaches}, what each fault must read past its bars). A reduced
+# rehearsal's train jobs take AP_UNEVEN_REDUCED_LOADS
+AP_RAGGED_WIDTHS = (2, 1, 1, 2)
+AP_UNEVEN_JOBS = {
+    "scan_whole": (AP_HYMBA_ARCH, AP_HYMBA_LAYERS, (1, 4), AP_HYMBA_LOAD,
+                   {"scan_block_wrong": (2, 3)}, ("loss", "adapters")),
+    "scan_whole_serve": (AP_HYMBA_ARCH, AP_HYMBA_LAYERS, (1, 4), None,
+                         {"whole_state_roll": (0, 1)}, ()),
+    "ragged_model": (AP_HYMBA_ARCH, AP_HYMBA_LAYERS, (2, 2), (4, 2, 1024),
+                     {"rows_swapped": (3,)}, ("loss", "adapters")),
+    "moe_odd": (AP_MOE_ARCH, None, (2, 2), (4, 2, 768),
+                {"route_blind": (2,)}, ("adapters",)),
+}
+AP_UNEVEN_REDUCED_LOADS = {"scan_whole": (4, 1, 64),
+                           "ragged_model": (4, 2, 32),
+                           "moe_odd": (4, 4, 24)}
 # a reduced rehearsal's prompts are cut to this many tokens
 AP_SERVE_REDUCED_S = 128
 # the token the granite job's slots 1 and 2 repeat in their prompts
@@ -2419,9 +2489,10 @@ def flash_kernel_phase(torch, FA, fref, cfg, cases=None,
     """The flash-attention kernel against its plain version at the shapes
     the path gives it and at the edges of its mask; the reading of each
     case (largest |diff| in units of the bar) with two planted faults of
-    the plain version beside it (with a window, a third: the window one
-    key wider); the batch-independence check; times of the kernel, the
-    plain version (cases labelled in ``plain_labels``) and the SDPA
+    the plain version beside it (with a window shorter than the keys, a
+    third: the window one key wider); the batch-independence check;
+    times of the kernel, the plain version (cases labelled in
+    ``plain_labels``) and the SDPA
     yardstick (with the window as a boolean mask) beside the bound.
     ``cases`` replaces stablelm-3b's. Returns (the results at the SFT
     train step's shape, every case's results by label)."""
@@ -2475,7 +2546,7 @@ def flash_kernel_phase(torch, FA, fref, cfg, cases=None,
                   reading(_attention_plain(torch, q, k, v, window,
                                            scale_mul=1.01)),
                   reading(_attention_plain(torch, q, k, v, window + 1))
-                  if window else None)
+                  if 0 < window < Sk else None)
         require(bool(torch.isfinite(out).all()) and sound <= 1.0,
                 f"flash {label}: kernel reads {sound:.3g} of the bar")
         require(min(f for f in faults if f is not None) > 1.0,
@@ -6175,7 +6246,8 @@ def _planted(layer: int):
 def _planted_moe(faults, route_layer: int, slice_layer: int):
     """Phase 36's faults named in ``faults``: "route_blind", data rank 1
     routes layer ``route_layer`` without the lower data ranks' counts (the
-    counts still cross "data"); "moe_slice", data rank 0's MoE partial sum
+    counts still cross "data"; the places its own earlier pieces of a
+    group took still count); "moe_slice", data rank 0's MoE partial sum
     in layer ``slice_layer`` is sliced along S, not reduce-scattered."""
     from repro_torch.launch import partitioning as PT
     from repro_torch.models import blocks as B
@@ -6195,7 +6267,14 @@ def _planted_moe(faults, route_layer: int, slice_layer: int):
         offset, top1 = exchange(self, counts, top1, piece, group)
         if ("route_blind" in faults and here["layer"] == route_layer
                 and self.data_rank == 1):
-            offset = offset.new_zeros(offset.shape)
+            # the places its own earlier pieces of a group took, alone
+            at = self._offsets(counts.shape[0] * piece, piece,
+                               self.data_rank, self.pod_rank).to(
+                                   counts.device)
+            before = ((at // group)[:, None] == (at // group)[None]) & (
+                at[None] < at[:, None])
+            offset = (before[..., None] * counts[None]).sum(1).to(
+                offset.dtype)
         return offset, top1
 
     def moe(x, params, cfg_moe):
@@ -6464,9 +6543,140 @@ def _planted_pod(faults, route_layer: int = AP_MOE_ROUTE_LAYER):
          PT.SpmdPlan.route_exchange) = saved
 
 
+@contextlib.contextmanager
+def _planted_uneven(faults):
+    """The uneven jobs' faults (``AP_UNEVEN_JOBS``) named in ``faults``:
+    "scan_block_wrong", in layer AP_SSM_FAULT_LAYER model rank 3 keeps
+    model rank 2's sequence block of the whole Mamba output for the slots
+    the job names; "whole_state_roll", after the prefill model rank 0's
+    ssm heads of every layer rolled by one head for the slots the job
+    names;
+    "rows_swapped", data rank 1 binds data rank 0's slot rows."""
+    import torch
+
+    from repro_torch.launch import partitioning as PT
+    from repro_torch.models import blocks as B
+    from repro_torch.models import model as M
+    from repro_torch.models import shardctx
+    here = {"layer": None, "mamba": False}
+    saved = (B.apply_block, B.mamba_block, PT.SpmdPlan.seq_block,
+             PT.SpmdPlan.slot_vectors, M.forward)
+    apply_block, mamba_block, seq_block, slot_vectors, forward = saved
+
+    def block(cfg, x, p, lora, layer_, ctx):
+        prev, here["layer"] = here["layer"], layer_
+        try:
+            return apply_block(cfg, x, p, lora, layer_, ctx)
+        finally:
+            here["layer"] = prev
+
+    def mamba(*args, **kw):
+        here["mamba"] = True
+        try:
+            return mamba_block(*args, **kw)
+        finally:
+            here["mamba"] = False
+
+    def local_slots(self, slots):
+        first = self.data_rank * self.z_local
+        return [z - first for z in slots if first <= z < first + self.z_local]
+
+    def wrong(self, t):
+        out = seq_block(self, t)
+        if not ("scan_block_wrong" in faults and here["mamba"]
+                and here["layer"] == AP_SSM_FAULT_LAYER
+                and self.model_rank == 3):
+            return out
+        slots = local_slots(
+            self, AP_UNEVEN_JOBS["scan_whole"][4]["scan_block_wrong"])
+        pick = torch.zeros(t.shape[0], dtype=torch.bool, device=t.device)
+        pick[slots] = True
+        k = t.shape[2] // self.m
+        out = torch.where(pick.view(-1, *(1,) * (t.dim() - 1)),
+                          t.narrow(2, 2 * k, k), out).contiguous()
+        out._spmd_block = True
+        return out
+
+    def swapped(self, batch):
+        out = slot_vectors(self, batch)
+        if ("rows_swapped" in faults and self.data_rank == 1
+                and out.get("slot_rows") is not None):
+            rows = out["slot_rows"]
+            out["slot_rows"] = torch.tensor(
+                [w * self.seq_len for w in AP_RAGGED_WIDTHS[:self.z_local]],
+                dtype=rows.dtype, device=rows.device)
+        return out
+
+    def rolled(*args, **kw):
+        h, aux, cache = forward(*args, **kw)
+        sp = shardctx.spmd()
+        if ("whole_state_roll" in faults and cache is not None
+                and sp is not None and sp.model_rank == 0):
+            ssm = cache["layers"]["mamba"]["ssm"]      # [L, Z, b, H, N, hs]
+            for z in local_slots(sp, AP_UNEVEN_JOBS["scan_whole_serve"][4][
+                    "whole_state_roll"]):
+                ssm[:, z] = torch.roll(ssm[:, z], 1, dims=2)
+        return h, aux, cache
+
+    B.apply_block, B.mamba_block = block, mamba
+    PT.SpmdPlan.seq_block, PT.SpmdPlan.slot_vectors = wrong, swapped
+    M.forward = rolled
+    try:
+        yield
+    finally:
+        (B.apply_block, B.mamba_block, PT.SpmdPlan.seq_block,
+         PT.SpmdPlan.slot_vectors, M.forward) = saved
+
+
 def _placed(mesh, tree, specs):
     from repro_torch.launch import partitioning as PT
     return PT.distribute(mesh, tree, PT.to_named(mesh, specs))
+
+
+class _Ragged:
+    """The ragged kernels (rows 7-12) behind the rank-local wrappers'
+    signatures (``RG``) and their plain versions behind the rank-local
+    plain versions' names (``ref``), for ``backward_kernel_phase``: every
+    slot at r_max, so the ranks are not passed on."""
+
+    def __init__(self, RG=None, ref=None):
+        self.RG, self.ref = RG, ref
+
+    def xa(self, x, A, rows, ranks):
+        return self.RG.xa(x, A, rows)
+
+    def sb_add(self, s, B, scale, rows, ranks, base=None):
+        return self.RG.sb_add(s, B, scale, rows, base)
+
+    def ds(self, dy, B, scale, rows, ranks):
+        return self.RG.ds(dy, B, scale, rows)
+
+    def dx(self, dS, A, rows, ranks):
+        return self.RG.dx(dS, A, rows)
+
+    def da(self, x, dS, rows, ranks):
+        return self.RG.da(x, dS, rows)
+
+    def db(self, s, dy, scale, rows, ranks):
+        return self.RG.db(s, dy, scale, rows)
+
+    def ranklocal_xa_ref(self, x, A, rows, ranks):
+        return self.ref.ragged_xa_ref(x, A, rows)
+
+    def ranklocal_sb_add_ref(self, s, B, scale, rows, ranks, base=None):
+        return self.ref.ragged_sb_add_ref(s, B, scale, rows, base)
+
+    def ranklocal_ds_ref(self, dy, B, scale, rows, ranks):
+        return self.ref.ragged_ds_ref(dy, B, scale, rows)
+
+    def ranklocal_dx_ref(self, dS, A, rows, ranks):
+        return self.ref.ragged_dx_ref(dS, A, rows)
+
+    def ranklocal_da_ref(self, x, dS, rows, ranks):
+        return self.ref.ragged_da_ref(x, dS, rows)
+
+    def ranklocal_db_ref(self, s, dy, scale, rows, ranks):
+        return self.ref.ragged_db_ref(s, dy, scale, rows)
 
 
 def _rank_lanes(mesh, Z: int, b: int) -> tuple:
@@ -6774,6 +6984,8 @@ def _pool_job(spec: dict, dev, meshes: dict) -> None:
     out, kind = Path(spec["out"]), spec["kind"]
     if kind in AP_POD_JOBS:
         return _pod_job(spec, dev, meshes)
+    if kind in AP_UNEVEN_JOBS:
+        return _uneven_job(spec, dev, meshes)
     if AP_MESH not in meshes:
         meshes[AP_MESH] = TRAIN.build_mesh(AP_MESH, dev)
     mesh = meshes[AP_MESH]
@@ -6870,7 +7082,7 @@ def _pod_job(spec: dict, dev, meshes: dict) -> None:
             torch, dev, spec["reduced"], "stablelm")
         feed = torch.load(spec["feed"], map_location=dev)
     else:
-        cfg = _pod_config(job, spec["reduced"])
+        cfg = _job_config(job, spec["reduced"])
     for fault in ("none", *faults):
         planted = (contextlib.nullcontext() if fault == "none"
                    else _planted_pod((fault,)))
@@ -6903,6 +7115,87 @@ def _pod_job(spec: dict, dev, meshes: dict) -> None:
                 info["lora_bytes"] = sum(
                     v.numel() * v.element_size()
                     for ab in res["lora"].values() for v in ab.values())
+        (out / f"{job}_{fault}_rank{rank}.json").write_text(
+            json.dumps(info))
+        del res
+
+
+def _uneven_job(spec: dict, dev, meshes: dict) -> None:
+    """Phase 39's uneven job ``spec["kind"]`` (``AP_UNEVEN_JOBS``) on its
+    ("data", "model") mesh (kept in ``meshes`` by shape), sound and with its
+    fault (``_planted_uneven``; phase 36's ``_planted_moe`` for
+    "route_blind"). The train jobs: ``launch.train.run`` at
+    ``spec["load"]``, AP_STEPS steps and (but "ragged_model") the eval
+    step, written by ``launch.train.write_out`` (``<job>_<fault>.npz``);
+    "ragged_model" with every slot at r_max, nothing but its rows bound
+    (``widths`` AP_RAGGED_WIDTHS), the others at RANKS. "scan_whole_serve":
+    ``ap_serve`` of job (v)'s inputs fed ``spec["feed"]``, with the idle
+    step in the sound run, which keeps its cache shards
+    (``cache_<job>_rank<r>.pt``), each data rank's first model rank
+    writing its logits (``<job>_<fault>_data<i>.npz``). Every rank writes
+    ``<job>_<fault>_rank<r>.json``: its launches and its collective
+    records (axis, role, kind, bytes), and for the serving job its idle
+    readings."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import train as TRAIN
+    out, job = Path(spec["out"]), spec["kind"]
+    _, _, shape, _, faults, _ = AP_UNEVEN_JOBS[job]
+    if shape not in meshes:
+        meshes[shape] = MESH.make_local_mesh(shape, ("data", "model"),
+                                             device=dev)
+    mesh = meshes[shape]
+    rank = torch.distributed.get_rank()
+    first = mesh.get_local_rank("model") == 0
+    data = mesh.get_local_rank("data")
+    cfg = _job_config(job, spec["reduced"])
+    if job == "scan_whole_serve":
+        cfg, params, lora, batch, ranks = _serve_inputs(
+            torch, dev, spec["reduced"], "hymba")
+        feed = torch.load(spec["feed"], map_location=dev)
+    for fault in ("none", *faults):
+        if fault == "none":
+            planted = contextlib.nullcontext()
+        elif fault == "route_blind":
+            last = cfg.num_layers - 1
+            planted = _planted_moe((fault,), min(AP_MOE_ROUTE_LAYER, last),
+                                   min(AP_MOE_SLICE_LAYER, last))
+        else:
+            planted = _planted_uneven((fault,))
+        with planted:
+            if job == "scan_whole_serve":
+                res = ap_serve(torch, cfg, mesh, params, lora, batch, ranks,
+                               AP_SERVE_DECODES, per_lane=True, grow=True,
+                               feed=feed, idle=AP_IDLE_LANES
+                               if fault == "none" else None)
+                info = {k: res[k] for k in ("launches", "idle_changed",
+                                            "live_changed") if k in res}
+                info["log"] = [(c["axis"], c["role"], c["kind"], c["bytes"])
+                               for log in res["log"].values() for c in log]
+                if fault == "none":
+                    torch.save(res["cache"], out / f"cache_{job}_rank{rank}"
+                               ".pt")
+                if first:
+                    got = {"logits": res["logits"].cpu().numpy()}
+                    if "idle_logits" in res:
+                        got["idle_logits"] = res["idle_logits"].float(
+                            ).cpu().numpy()
+                    np.savez(out / f"{job}_{fault}_data{data}.npz", **got)
+            else:
+                ragged = job == "ragged_model"
+                Z, b, S = spec["load"]
+                res = TRAIN.run(cfg, Z, b, S, mesh, AP_STEPS,
+                                ranks=None if ragged else RANKS,
+                                rank=cfg.lora.r_max, device=dev,
+                                widths=AP_RAGGED_WIDTHS if ragged else None,
+                                log=lambda m: print(f"{job} {fault}: {m}"))
+                TRAIN.write_out(str(out / f"{job}_{fault}.npz"), mesh, res)
+                info = {k: res[k] for k in ("launches", "eval_launches")
+                        if k in res}
+                info["log"] = [(c.axis, c.role, c.kind, c.bytes)
+                               for c in res["collectives"]]
         (out / f"{job}_{fault}_rank{rank}.json").write_text(
             json.dumps(info))
         del res
@@ -7245,13 +7538,13 @@ def _moe_drops(cfg, d: int):
     return ctx()
 
 
-def _run_init(torch, cfg, dev) -> dict:
+def _run_init(torch, cfg, dev, ranks=RANKS) -> dict:
     """The initial adapters of ``launch.train.run``'s seed-0 run of ``cfg``
-    at RANKS, every slot's, as numpy ("lora/<target>/<A|B>")."""
+    at ``ranks``, every slot's, as numpy ("lora/<target>/<A|B>")."""
     from repro_torch.core import lora as LORA
     from repro_torch.models import model as M
     gen = torch.Generator(device=dev).manual_seed(1)  # seed + 1
-    ranks_t = torch.tensor(RANKS, dtype=torch.int32, device=dev)
+    ranks_t = torch.tensor(ranks, dtype=torch.int32, device=dev)
     return {f"lora/{t}/{k}": v.cpu().numpy() for t, ab in
             LORA.init_lora_tree(gen, cfg, len(RANKS), ranks_t,
                                 M.target_shapes(cfg)).items()
@@ -7638,7 +7931,7 @@ def ap_ssm_phase(torch, fams, runs: ApRuns) -> tuple:
     hymba-1.5b at full width and AP_HYMBA_LAYERS layers with fault (b).
     Returns (the rank-local kernels' results, flash's, the scan's, the
     launches of rwkv's and of hymba's sharded ranks, summed over the
-    ranks)."""
+    ranks, hymba's one-rank run for phase 39's "scan_whole")."""
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.grouped_lora import ref
@@ -7713,7 +8006,8 @@ def ap_ssm_phase(torch, fams, runs: ApRuns) -> tuple:
                            bars=(AP_HYMBA_LOSS_REL, AP_HYMBA_ADAPTER_REL),
                            tag="ap hymba", load=AP_HYMBA_LOAD)
     _ap_launches(hcfg, hymba, AP_STEPS, "ap hymba")
-    return lora, flash, scan, rwkv["launches"], hymba["launches"]
+    return (lora, flash, scan, rwkv["launches"], hymba["launches"],
+            hymba["one_rank"])
 
 
 def ap_modal_phase(torch, fams, runs: ApRuns) -> tuple:
@@ -7805,9 +8099,17 @@ def ap_dpo_serve_phase(torch, fams, runs: ApRuns, pod_refs=None) -> tuple:
     row 19 once a layer of an attention family's prefill, row 20 once a
     layer of an ssm or hybrid prefill, none in decode, and nothing of the
     dense, ragged or backward sets; a pod train job's as a one-rank step's
-    on its shapes (``ap_pod_readings``). Returns (the rank-local kernels'
-    results, flash's, the scan's, the DPO job's sound launches, each
-    serving job's and each pod job's, summed over the pool's ranks)."""
+    on its shapes (``ap_pod_readings``). Then the uneven jobs' rank shapes
+    (``AP_UNEVEN_JOBS``): rows 7-12 at ragged_model's (every slot at r_max,
+    its rows, whole attention's o_proj on a block with the block's rows),
+    rows 13-18 at scan_whole's whole hymba projections on 1 x 4 and at
+    moe_odd's granite halves at T 1,536, row 20 on all 50 Mamba heads of 4
+    slots (B 200, S 2,048) and row 19 at ragged_model's S 1,024 and
+    moe_odd's S 768; their launches, every rank's, are checked by
+    ``ap_uneven_readings``. Returns (the rank-local kernels' results,
+    flash's, the scan's, the ragged kernels', the DPO job's sound launches,
+    each serving job's, and each pod and uneven job's, summed over the
+    pool's ranks)."""
     from repro_torch.kernels.flash_attention import flash_attention as FA
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.grouped_lora import ref
@@ -7914,9 +8216,75 @@ def ap_dpo_serve_phase(torch, fams, runs: ApRuns, pod_refs=None) -> tuple:
           "flash on pod_train's and pod_serve's rank shapes (B 4 x 1 x 16 = "
           "64, S 512) is phase 35's check, on pod_moe's (B 2 x 1 x 16 = 32, "
           "S 512, hd 64) phase 36's")
+    # the uneven jobs' rank shapes (AP_UNEVEN_JOBS). ragged_model, data 2 x
+    # model 2: rows 7-12 at every slot's r_max and its rows, T = b·S =
+    # 2,048 a slot, in_proj's block, q/k/v whole, gate/up/down halves, and
+    # whole attention's o_proj on a model rank's block of S/2 with the
+    # rows of that block (SpmdPlan.block_rows); flash on a data rank's 2
+    # slots of b 2 and the 25 whole heads at S 1,024
+    RG = _Ragged(fams["ragged"], ref)
+    rZ, rb, rS = AP_UNEVEN_JOBS["ragged_model"][3]
+    rm = AP_UNEVEN_JOBS["ragged_model"][2][1]
+    rT, n = rb * rS, rS // rm
+    rows = tuple(w * rS for w in AP_RAGGED_WIDTHS)
+    block = tuple(rw // rS * n + min(max(rw % rS, 0), n) for rw in rows)
+    full = (hcfg.lora.r_max,) * len(RANKS)
+    ragged = backward_kernel_phase(
+        torch, RG, RG, timed=("apragged", h_d, 2 * inner // rm),
+        untimed=("apragged_chk",),
+        cases=[("apragged", rT, h_d, 2 * inner // rm, full, rows),
+               ("apragged_chk", rT, h_d, h_q, full, rows),
+               ("apragged_chk", rT, h_d, h_kv, full, rows),
+               ("apragged_chk", n * rb, h_q, h_d, full, block),
+               ("apragged_chk", rT, h_d, h_ff // rm, full, rows),
+               ("apragged_chk", rT, h_ff // rm, h_d, full, rows)])
+    _, cases = flash_kernel_phase(
+        torch, FA, fref, hcfg, plain_labels=("train",),
+        cases=[("train", rZ // 2 * rb * hcfg.num_heads, rS, rS,
+                hcfg.resolved_head_dim, hcfg.sliding_window, bf16)])
+    flash.update({f"apragged_{k}": v for k, v in cases.items()})
+    # scan_whole, data 1 x model 4: rows 13-18 at hymba's whole in_proj
+    # (T 2,048), its o_proj on a rank's block of 512, gate/up/down quarters
+    # (q/k/v whole at T 2,048 are phase 37's aphymba_whole checks), and the
+    # scan on all 50 Mamba heads of the 4 slots (B 200, S 2,048); its
+    # flash on the 25 whole heads of 4 slots (B 100) is the check above
+    # (apshymba); the serving job's prefill takes the scan at B 400, the
+    # hymba phases' ssd check
+    wZ, wb, wS = AP_HYMBA_LOAD
+    wm = AP_UNEVEN_JOBS["scan_whole"][2][1]
+    wT = wb * wS
+    _merged(lora, backward_kernel_phase(
+        torch, RL, ref, timed=("apwhole", h_d, 2 * inner),
+        untimed=("apwhole_chk",),
+        cases=[("apwhole", wT, h_d, 2 * inner, RANKS, None),
+               ("apwhole_chk", wT // wm, h_q, h_d, RANKS, None),
+               ("apwhole_chk", wT, h_d, h_ff // wm, RANKS, None),
+               ("apwhole_chk", wT, h_ff // wm, h_d, RANKS, None)]))
+    _, cases = scan_kernel_phase(
+        torch, LSK, lsref, hcfg, S=wS,
+        cases=[("train", wZ * wb * Hs, hcfg.ssm.state_size, hs, True, False,
+                1.0, bf16)])
+    scan.update({f"apwhole_{k}": v for k, v in cases.items()})
+    # moe_odd, data 2 x model 2: granite's q/k/v halves and o at T = b·S =
+    # 1,536 a slot, and flash on a data rank's 2 slots of b 2 and 8 heads
+    # at S 768 (granite's attention is global: no window on its path)
+    oZ, ob, oS = AP_UNEVEN_JOBS["moe_odd"][3]
+    om = AP_UNEVEN_JOBS["moe_odd"][2][1]
+    oT = ob * oS
+    _merged(lora, backward_kernel_phase(
+        torch, RL, ref, timed=("apodd", g_q // om, g_d),
+        untimed=("apodd_chk",),
+        cases=[("apodd_chk", oT, g_d, g_q // om, RANKS, None),
+               ("apodd_chk", oT, g_d, g_kv // om, RANKS, None),
+               ("apodd", oT, g_q // om, g_d, RANKS, None)]))
+    _, cases = flash_kernel_phase(
+        torch, FA, fref, gcfg, plain_labels=("train",),
+        cases=[("train", oZ // 2 * ob * gcfg.num_heads // om, oS, oS,
+                gcfg.resolved_head_dim, 0, bf16)])
+    flash.update({f"apodd_{k}": v for k, v in cases.items()})
     print(f"ap dpo / serve: kernel checks {time.perf_counter() - t0:.1f} s")
-    dcfg, dpo_parts, serve_jobs, pod_jobs = ap_dpo_serve_jobs(torch, runs,
-                                                              pod_refs)
+    (dcfg, dpo_parts, serve_jobs, pod_jobs,
+     uneven_jobs) = ap_dpo_serve_jobs(torch, runs, pod_refs)
     train, evals, (train_seq, eval_seq) = _step_launches(dcfg, "dpo")
     for r, part in enumerate(dpo_parts):
         for what, want, want_seq, n in (
@@ -7947,11 +8315,11 @@ def ap_dpo_serve_phase(torch, fams, runs: ApRuns, pod_refs=None) -> tuple:
                     f"ap serve {job} rank {r}: launches {got}, expected "
                     f"rank-local {want} and {seq} (the prefill)")
     print(f"ap dpo / serve phase: {time.perf_counter() - t0:.1f} s")
-    return (lora, flash, scan, _summed(dpo_parts, "launches"),
+    return (lora, flash, scan, ragged, _summed(dpo_parts, "launches"),
             {job: _summed(parts, "launches")
              for job, (_, parts) in serve_jobs.items()},
             {job: _summed(parts, "launches")
-             for job, (_, parts) in pod_jobs.items()})
+             for job, (_, parts) in {**pod_jobs, **uneven_jobs}.items()})
 
 
 def _summed(parts, what: str) -> dict:
@@ -7974,11 +8342,16 @@ def ap_dpo_serve_jobs(torch, runs: ApRuns, pod_refs=None) -> tuple:
     pool as soon as they are known) and the one-rank DPO run here, then
     every reading against its bars (``ap_pod_readings`` for the pod jobs,
     against ``pod_refs``: phase 35's and 36's one-rank runs; without them,
-    phase 39 alone, one-rank runs made here). With ``runs.reduced`` every
+    phase 39 alone, one-rank runs made here), and the uneven jobs
+    (``AP_UNEVEN_JOBS``: the train jobs to the pool with the pod jobs, the
+    serving job when the one-rank hymba serving's tokens are known; read
+    by ``ap_uneven_readings`` against one-rank runs made here, or, for
+    "scan_whole", phase 37's in ``pod_refs``). With ``runs.reduced`` every
     run is its config's tiny fp32 variant (on the CPU, a check of this
     machinery; its bars are not the card's). Returns (the DPO config, the
     pool ranks' results of the sound DPO run, {job: (its config, the pool
-    ranks' results of its sound serving run)}, {pod job: the same})."""
+    ranks' results of its sound serving run)}, {pod job: the same},
+    {uneven job: the same})."""
     import numpy as np
     from repro_torch.launch import mesh as MESH
 
@@ -7994,6 +8367,15 @@ def ap_dpo_serve_jobs(torch, runs: ApRuns, pod_refs=None) -> tuple:
     k_pod = {job: runs.job({"kind": job, "out": str(out), "load": load,
                             "reduced": runs.reduced})
              for job in ("pod_train", "pod_moe")}
+
+    def uneven_load(job):
+        return (AP_UNEVEN_REDUCED_LOADS[job] if runs.reduced
+                else AP_UNEVEN_JOBS[job][3])
+
+    k_uneven = {job: runs.job({"kind": job, "out": str(out),
+                               "load": uneven_load(job),
+                               "reduced": runs.reduced})
+                for job in ("scan_whole", "ragged_model", "moe_odd")}
     ones, k_serve = {}, {}
     with MESH.process_group(runs.device) as dev:
         mesh = MESH.make_local_mesh((1, 1), device=dev)
@@ -8018,6 +8400,11 @@ def ap_dpo_serve_jobs(torch, runs: ApRuns, pod_refs=None) -> tuple:
                     "kind": "pod_serve", "out": str(out),
                     "feed": str(out / f"feed_{job}.pt"),
                     "reduced": runs.reduced})
+            if job == "hymba":
+                k_uneven["scan_whole_serve"] = runs.job({
+                    "kind": "scan_whole_serve", "out": str(out),
+                    "feed": str(out / f"feed_{job}.pt"),
+                    "reduced": runs.reduced})
             ones[job] = (scfg, batch["tokens"].shape[-1], {
                 "logits": one["logits"].cpu().numpy(),
                 "idle_logits": one["idle_logits"].float().cpu().numpy(),
@@ -8038,14 +8425,20 @@ def ap_dpo_serve_jobs(torch, runs: ApRuns, pod_refs=None) -> tuple:
                       for tg, ab in res["lora"].items()
                       for k, v in ab.items()}}
         del params, dlora, batches, res
-        if pod_refs is None:
-            pod_refs = {job: _one_rank_ref(torch, np, job, load, mesh, dev,
-                                           runs.reduced)
-                        for job in ("pod_train", "pod_moe")}
+        # the uneven jobs' own loads; phase 37's one-rank hymba run where
+        # it ran (scan_whole's load is its)
+        refs = dict(pod_refs or {})
+        for job in ("pod_train", "pod_moe", "scan_whole", "ragged_model",
+                    "moe_odd"):
+            if job not in refs:
+                refs[job] = _one_rank_ref(
+                    torch, np, job,
+                    load if job in AP_POD_JOBS else uneven_load(job), mesh,
+                    dev, runs.reduced)
     seconds["one_rank"] = time.perf_counter() - t
     runs.wait(k_dpo)
     seconds["dpo_job"] = time.perf_counter() - t
-    for job, k in {**k_pod, **k_serve}.items():
+    for job, k in {**k_pod, **k_uneven, **k_serve}.items():
         runs.wait(k)
         seconds[f"{job}_job"] = time.perf_counter() - t
     gc.collect()
@@ -8097,17 +8490,20 @@ def ap_dpo_serve_jobs(torch, runs: ApRuns, pod_refs=None) -> tuple:
                                           dd, m)
                    for job in AP_SERVE_JOBS}
     scfg, _, one = ones["stablelm"]
-    pod_parts = ap_pod_readings(np, out, pod_refs, dict(one, cfg=scfg),
+    pod_parts = ap_pod_readings(np, out, refs, dict(one, cfg=scfg),
                                 runs.reduced)
+    uneven_parts = ap_uneven_readings(torch, np, out, refs, ones["hymba"],
+                                      runs.reduced)
     shutil.rmtree(out, ignore_errors=True)
     seconds["jobs_phase"] = time.perf_counter() - t
     print(f"ap dpo / serve: seconds "
           f"{ {k: round(v, 1) for k, v in seconds.items()} }")
-    return dcfg, dpo_parts, serve_parts, pod_parts
+    return dcfg, dpo_parts, serve_parts, pod_parts, uneven_parts
 
 
 def ap_serve_readings(torch, np, out: Path, job: str, cfg, S: int, one: dict,
-                      dd: int, m: int) -> tuple:
+                      dd: int, m: int, kind=None, faults=None,
+                      bars=None) -> tuple:
     """The readings of phase 39's serving job ``job`` against its one-rank
     run ``one`` (its logits, idle step's logits and prefilled cache):
     every pool rank's idle step left the idle lanes' entries of every leaf
@@ -8116,10 +8512,14 @@ def ap_serve_readings(torch, np, out: Path, job: str, cfg, S: int, one: dict,
     max|logit| and the relative RMS within the job's bars
     (``AP_SERVE_JOBS``); the prefilled cache's relative RMS, leaf by leaf (the
     ranks' shards joined, ``cache_whole``; printed); the planted fault past
-    both bars on its slots and within them on the others. Returns (the
-    config, the pool ranks' results of the sound run)."""
+    both bars on its slots and within them on the others. ``kind`` (the
+    job's files' prefix, ``serve_<job>`` by default), ``faults`` and
+    ``bars`` replace ``AP_SERVE_JOBS[job]``'s (phase 39's uneven serving
+    job, on a ``dd`` x ``m`` mesh of its own). Returns (the config, the
+    pool ranks' results of the sound run)."""
     Z = len(RANKS)
-    kind = f"serve_{job}"
+    kind = kind or f"serve_{job}"
+    faults = AP_SERVE_JOBS[job][3] if faults is None else faults
     tag = f"ap serve {job}"
     parts = [json.loads((out / f"{kind}_none_rank{r}.json").read_text())
              for r in range(AP_PROCS)]
@@ -8152,7 +8552,7 @@ def ap_serve_readings(torch, np, out: Path, job: str, cfg, S: int, one: dict,
                 f", relative RMS {[round(float(v), 5) for v in g[1]]}")
 
     want = one["logits"]
-    atol_rel, rel_rms = AP_SERVE_JOBS[job][4]
+    atol_rel, rel_rms = bars or AP_SERVE_JOBS[job][4]
     live = np.ones((Z, 2), bool)
     for z, lane in AP_IDLE_LANES:
         live[z, lane] = False
@@ -8161,7 +8561,7 @@ def ap_serve_readings(torch, np, out: Path, job: str, cfg, S: int, one: dict,
     idle = gap(np.where(live[..., None], got["idle_logits"], 0)[None],
                np.where(live[..., None], one["idle_logits"], 0)[None])
     agree = float((got["logits"].argmax(-1) == want.argmax(-1)).mean())
-    print(f"{tag}: {AP_MESH} vs 1x1, {cfg.name} {cfg.num_layers} layers "
+    print(f"{tag}: {dd}x{m} vs 1x1, {cfg.name} {cfg.num_layers} layers "
           f"{cfg.dtype}, Z {Z}, b 2, a {S}-token prompt into a per-lane "
           f"cache then {AP_SERVE_DECODES} steps fed the one-rank run's "
           f"tokens: per slot over the {AP_SERVE_DECODES + 1} logits "
@@ -8184,11 +8584,15 @@ def ap_serve_readings(torch, np, out: Path, job: str, cfg, S: int, one: dict,
         require(a.shape == b.shape and bool(torch.isfinite(a).all()),
                 f"{tag}: {key} {tuple(a.shape)} vs {tuple(b.shape)}")
         rms[key[len("cache/"):]] = float((a - b).norm() / b.norm())
+    whole_leaves = [k for k in rms
+                    if int(shards[0]["split/" + k]) < 0]
     print(f"{tag}: the prefilled cache's relative RMS against the one-rank "
           f"run, leaf by leaf: "
-          f"{ {k: f'{v:.3e}' for k, v in rms.items()} }")
+          f"{ {k: f'{v:.3e}' for k, v in rms.items()} }; the leaves whole "
+          f"over model ({whole_leaves}) bitwise equal on the {m} model "
+          f"ranks of each data rank (cache_whole)")
     del shards, whole
-    for fault, slots in AP_SERVE_JOBS[job][3].items():
+    for fault, slots in faults.items():
         if fault == "route_blind":
             layer = one["drops"][min(AP_MOE_ROUTE_LAYER, cfg.num_layers - 1)]
             print(f"{tag}: each slot's dropped share of its choices in the "
@@ -8210,26 +8614,35 @@ def ap_serve_readings(torch, np, out: Path, job: str, cfg, S: int, one: dict,
     return cfg, parts
 
 
-def _pod_config(job: str, reduced: bool):
-    arch, layers = AP_POD_JOBS[job][:2]
+def _job_config(job: str, reduced: bool):
+    """The config of pod or uneven job ``job`` (``AP_POD_JOBS``,
+    ``AP_UNEVEN_JOBS``)."""
+    arch, layers = {**AP_POD_JOBS, **AP_UNEVEN_JOBS}[job][:2]
     return _ap_config(reduced, arch, layers)
 
 
 def _one_rank_ref(torch, np, job: str, load, mesh, dev,
                   reduced: bool) -> dict:
-    """The one-rank run pod job ``job`` is read against, where phase 35 or
-    36 did not make it (phase 39 run alone: a dev script or the CPU
-    rehearsal): ``launch.train.run`` of its config on the one-rank
-    ``mesh``, as ``ap_train_phase``'s "one_rank" gives it."""
+    """The one-rank run pod or uneven job ``job`` is read against:
+    ``launch.train.run`` of its config on the one-rank ``mesh``, as
+    ``ap_train_phase``'s "one_rank" gives it ("ragged_model": every slot at
+    r_max, its widths, no eval step), where phase 35, 36 or 37 did not make
+    it (phase 39 run alone: a dev script or the CPU rehearsal) or for a
+    load of its own."""
     from repro_torch.launch import train as TRAIN
-    cfg = _pod_config(job, reduced)
-    one = TRAIN.run(cfg, *load, mesh, AP_STEPS, ranks=RANKS, device=dev,
+    cfg = _job_config(job, reduced)
+    ragged = job == "ragged_model"
+    one = TRAIN.run(cfg, *load, mesh, AP_STEPS,
+                    ranks=None if ragged else RANKS, rank=cfg.lora.r_max,
+                    device=dev, widths=AP_RAGGED_WIDTHS if ragged else None,
                     log=lambda m: print(f"{job} 1x1: {m}"))
-    want = {"losses": np.asarray(one["losses"]),
-            "eval_own": np.asarray(one["eval"])}
+    want = {"losses": np.asarray(one["losses"])}
+    if "eval" in one:
+        want["eval_own"] = np.asarray(one["eval"])
     want.update({f"lora/{t}/{k}": v.float().cpu().numpy()
                  for t, ab in one["lora"].items() for k, v in ab.items()})
-    return {"want": want, "init": _run_init(torch, cfg, dev)}
+    return {"want": want, "init": _run_init(
+        torch, cfg, dev, (cfg.lora.r_max,) * len(RANKS) if ragged else RANKS)}
 
 
 def _pod_parts(out: Path, job: str, fault: str) -> list:
@@ -8289,7 +8702,7 @@ def ap_pod_readings(np, out: Path, refs: dict, one_serve: dict,
     res = {}
     for job in ("pod_train", "pod_moe"):
         _, _, shape, faults = AP_POD_JOBS[job]
-        cfg = _pod_config(job, reduced)
+        cfg = _job_config(job, reduced)
         tag = f"ap {job}"
         loss_bar, adapter_bar = ((AP_LOSS_REL, AP_ADAPTER_REL)
                                  if job == "pod_train" else
@@ -8431,6 +8844,125 @@ def ap_pod_readings(np, out: Path, refs: dict, one_serve: dict,
                 f"{tag}: planted fault {fault} reaches lanes {kept}")
     res[job] = (scfg, parts)
     return res
+
+
+def ap_uneven_readings(torch, np, out: Path, refs: dict, one_serve: tuple,
+                       reduced: bool) -> dict:
+    """Phase 39's uneven jobs' readings (``AP_UNEVEN_JOBS``): each train
+    job against its one-rank run ``refs[job]`` ("want": losses, adapters and
+    own eval; "init": the initial adapters) at its phase's bars (hymba's of
+    phase 37, granite's of phase 36), its fault past the bars its job names
+    on the slots it reaches and within them on the others; every rank's
+    launches a step as one rank's on its shapes ("ragged_model": the
+    ragged set, nothing of the rank-local one; the others the rank-local
+    set), the sequence kernels once a layer of every forward and
+    recompute; every rank's collective records: "data" only base weights,
+    the metric gather and route counts, "model"'s base weights only
+    all-gathered. "scan_whole_serve" against the one-rank hymba serving
+    ``one_serve`` ((config, S, results)) through ``ap_serve_readings`` at
+    job (v)'s bars (its cache's whole leaves bitwise equal on every model
+    rank), its launches a rank those of a serving job. Returns {job:
+    (config, the ranks' sound results)}."""
+    Z = len(RANKS)
+    res = {}
+    for job in ("scan_whole", "ragged_model", "moe_odd"):
+        _, _, shape, _, faults, reads = AP_UNEVEN_JOBS[job]
+        cfg = _job_config(job, reduced)
+        tag = f"ap {job}"
+        loss_bar, adapter_bar = ((AP_MOE_LOSS_REL, AP_MOE_ADAPTER_REL)
+                                 if cfg.is_moe else
+                                 (AP_HYMBA_LOSS_REL, AP_HYMBA_ADAPTER_REL))
+        want, init = refs[job]["want"], refs[job]["init"]
+        parts = _pod_parts(out, job, "none")
+        got = dict(np.load(out / f"{job}_none.npz"))
+        loss, adapters = _ap_readings(np, got, want, init, range(Z))
+        ev = (_ap_eval(np, got["eval"], want["eval_own"], range(Z))
+              if "eval_own" in want else 0.0)
+        print(f"{tag}: data x model {shape} vs 1x1, {cfg.name} "
+              f"{cfg.num_layers} layers, {AP_STEPS} steps: loss reading "
+              f"{loss:.3e} (bar {loss_bar}), adapter reading {adapters:.3e} "
+              f"(bar {adapter_bar}), eval reading {ev:.3e} against the "
+              f"one-rank run's own eval (bar {loss_bar}; 0: no eval step); "
+              f"losses {got['losses'].tolist()} vs "
+              f"{want['losses'].tolist()}")
+        require(bool(np.isfinite(got["losses"]).all()) and loss <= loss_bar
+                and adapters <= adapter_bar and ev <= loss_bar,
+                f"{tag}: readings {loss}, {adapters}, {ev} past the bars")
+        ragged = job == "ragged_model"
+        fam, other = (("ragged", "rank-local") if ragged
+                      else ("rank-local", "ragged"))
+        train, evals, (train_seq, eval_seq) = _step_launches(cfg)
+        for r, part in enumerate(parts):
+            for what, w, w_seq, n in (("launches", train, train_seq,
+                                       AP_STEPS),
+                                      ("eval_launches", evals, eval_seq, 1)):
+                if what not in part:
+                    continue
+                g, seq = part[what], _seq_counts(cfg, w_seq * n)
+                require(g[fam] == {k: v * n for k, v in w.items()}
+                        and g["flash"]["flash_attention"]
+                        == seq["flash_attention"]
+                        and g["scan"]["linear_scan"] == seq["linear_scan"]
+                        and not any(g[other].values())
+                        and not any(g["dense"].values()),
+                        f"{tag} rank {r}: {what} {g}, expected {fam} {w} "
+                        f"and {seq} a step")
+            data = {c[1] for c in part["log"] if c[0] == "data"}
+            model = [c for c in part["log"]
+                     if c[0] == "model" and c[1] == "base_weight"]
+            require(data <= {"base_weight", "metric", "route"}
+                    and all(c[2] == "all-gather" for c in model)
+                    and not any(c[0] == "pod" for c in part["log"]),
+                    f"{tag} rank {r}: data roles {data}, model-axis base "
+                    f"weights {sorted({c[2] for c in model})}")
+        print(f"{tag}: every rank's launches as one rank's on its shapes; "
+              f"rank 0's collective bytes by (axis, role): "
+              f"{_summed_bytes(parts[0]['log'])}")
+        for fault, slots in faults.items():
+            bad = dict(np.load(out / f"{job}_{fault}.npz"))
+            kept = [z for z in range(Z) if z not in slots]
+            fl, fa = _ap_readings(np, bad, want, init, slots)
+            kl, ka = _ap_readings(np, bad, want, init, kept)
+            print(f"{tag}: planted fault {fault}: loss reading {fl:.3e}, "
+                  f"adapter reading {fa:.3e} on slots {list(slots)} (must "
+                  f"pass the bars of {list(reads)}); the other slots "
+                  f"{kl:.3e}, {ka:.3e}")
+            require(("loss" not in reads or fl > loss_bar)
+                    and ("adapters" not in reads or fa > adapter_bar),
+                    f"{tag}: planted fault {fault} within the bars")
+            require(kl <= loss_bar and ka <= adapter_bar,
+                    f"{tag}: planted fault {fault} reaches slots {kept}")
+        res[job] = (cfg, parts)
+    job = "scan_whole_serve"
+    _, _, (dd, m), _, faults, _ = AP_UNEVEN_JOBS[job]
+    scfg, S, one = one_serve
+    _, parts = ap_serve_readings(torch, np, out, job, scfg, S, one, dd, m,
+                                 kind=job, faults=faults,
+                                 bars=AP_SERVE_JOBS["hymba"][4])
+    per_forward = len(scfg.lora.targets) * scfg.num_layers
+    seq = _seq_counts(scfg, scfg.num_layers)
+    for r, part in enumerate(parts):
+        g = part["launches"]
+        w = {k: (per_forward * (AP_SERVE_DECODES + 2)
+                 if k in ("xa", "sb_add") else 0) for k in g["rank-local"]}
+        require(g["rank-local"] == w
+                and g["flash"]["flash_attention"] == seq["flash_attention"]
+                and g["scan"]["linear_scan"] == seq["linear_scan"]
+                and not any(g["dense"].values())
+                and not any(g["ragged"].values()),
+                f"ap {job} rank {r}: launches {g}, expected rank-local {w} "
+                f"and {seq} (the prefill)")
+    res[job] = (scfg, parts)
+    return res
+
+
+def _summed_bytes(log) -> dict:
+    """{"axis/role": bytes} of collective records (axis, role, kind,
+    bytes)."""
+    out = {}
+    for axis, role, _, n in log:
+        out[f"{axis}/{role}"] = out.get(f"{axis}/{role}", 0) + n
+    return out
 
 
 def main() -> int:
@@ -8601,8 +9133,8 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        aps_lora, aps_flash, aps_scan, apr_launches, aph_launches = \
-            ap_ssm_phase(torch, fams, runs)
+        (aps_lora, aps_flash, aps_scan, apr_launches, aph_launches,
+         pod_refs["scan_whole"]) = ap_ssm_phase(torch, fams, runs)
         print(f"ap ssm / hybrid phase {time.perf_counter() - t:.1f} s, done "
               f"at {time.perf_counter() - t_all:.1f} s")
         gc.collect()
@@ -8615,8 +9147,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        (apx_lora, apx_flash, apx_scan, apdpo_launches, apserve_launches,
-         appod_launches) = ap_dpo_serve_phase(torch, fams, runs, pod_refs)
+        (apx_lora, apx_flash, apx_scan, apx_ragged, apdpo_launches,
+         apserve_launches, appod_launches) = ap_dpo_serve_phase(
+            torch, fams, runs, pod_refs)
         print(f"ap dpo / serve phase {time.perf_counter() - t:.1f} s, done "
               f"at {time.perf_counter() - t_all:.1f} s")
         ok = True
@@ -8648,7 +9181,14 @@ def main() -> int:
                 dense[name]
         elif src == "ragged.cu":
             prefix, by_path, res = "ragged", {
-                "colocation": colo_launches["ragged"][name]}, ragged[name]
+                "colocation": colo_launches["ragged"][name],
+                "ap_ragged_model":
+                    appod_launches["ragged_model"]["ragged"][name]}, \
+                dict(ragged[name])
+            res["shapes"] = {**res.get("shapes", {}),
+                             **apx_ragged[name]["shapes"]}
+            res["max_abs_err"] = max(res["max_abs_err"],
+                                     apx_ragged[name]["max_abs_err"])
         else:
             prefix, by_path, res = "ranklocal", {
                 "train": train_launches[name],

@@ -207,9 +207,12 @@ def proj(x: torch.Tensor, W: torch.Tensor,
     rows and the whole B, and the output is this rank's partial sum, base
     and LoRA term alike, which the "residual" constraint reduce-scatters
     (the partial LoRA terms add up to the LoRA term once). With ``whole``
-    (attention whose heads do not split) W is gathered over "model" too and
-    the projection runs whole on x as given. The kernels get contiguous
-    local operands."""
+    (attention or a scan branch whose heads do not split) W is gathered
+    over "model" too and the projection runs whole on x as given. Where x
+    is this rank's sequence block of such a sublayer's output
+    (``SpmdPlan.seq_block``), bound ragged rows are taken in the block
+    (``SpmdPlan.block_rows``). The kernels get contiguous local
+    operands."""
     if name is not None:
         W = constrain(W, f"weight:{name}")
     sp = shardctx.spmd()
@@ -225,7 +228,11 @@ def proj(x: torch.Tensor, W: torch.Tensor,
             B = sp.local_out(B, name)
         elif split == "row":
             A = sp.local(A, -2).contiguous()
-        y = y + lora_delta(x, A, B, scale)
+        rows = get_ragged_rows()
+        if rows is not None and getattr(x, "_spmd_block", False):
+            rows = sp.block_rows(rows)
+        with ragged_rows(rows):
+            y = y + lora_delta(x, A, B, scale)
     return sp.partial(y) if split == "row" else y
 
 

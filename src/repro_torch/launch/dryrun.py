@@ -42,13 +42,16 @@ figures:
         data-axis gathers equal this count (``tests/test_torch_ap.py``);
       - a weight that runs whole over "model" in the sharded step is
         all-gathered over "model" too, after its "data" gather and as
-        often: Mamba's bc_proj and dt_proj, and q/k/v/o where attention's
-        heads do not split (``partitioning.whole_heads``). Their data- and
-        model-axis gathers equal what the sharded step logs
-        (``tests/test_torch_ap_ssm.py``);
+        often: Mamba's bc_proj and dt_proj, q/k/v/o where attention's
+        heads do not split (``partitioning.whole_heads``), and the scan
+        branch's weights where its heads do not (``partitioning
+        .whole_scan``: RWKV's r/k/v/g/o, Mamba's in_proj, conv and
+        out_proj). Their data- and model-axis gathers equal what the
+        sharded step logs (``tests/test_torch_ap_ssm.py``,
+        ``tests/test_torch_ap_uneven.py``);
       - Mamba's fp32 partial products of bc_proj and dt_proj ([Z, b, S,
         2N + H]) are all-reduced over "model" in each forward pass and once
-        in the backward;
+        in the backward, where its heads split;
       - the residual stream, where the policy sequence-shards it over
         "model", is all-gathered before each of a layer's two sublayers and
         reduce-scattered after it, in each pass (Hymba reduce-scatters its
@@ -329,7 +332,8 @@ def _schedule(cfg: ModelConfig, shape: ShapeConfig, mesh, params, p_specs,
         out.append(("model", f"weight {path}", leaf.shape[1:], leaf.dtype,
                     src, _swap(src, mesh, "model", Replicate()),
                     L * forward))
-    if "model" in moves and cfg.family == "hybrid" and train:
+    if ("model" in moves and cfg.family == "hybrid" and train
+            and not PT.whole_scan(cfg, sizes["model"])):
         Z, b = shape.decompose()
         H = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_size
         shp = (Z, b, shape.seq_len, 2 * cfg.ssm.state_size + H)
@@ -367,13 +371,19 @@ def _schedule(cfg: ModelConfig, shape: ShapeConfig, mesh, params, p_specs,
 
 def _model_whole(cfg: ModelConfig, m: int) -> Tuple[str, ...]:
     """The layer weights the sharded step gathers over "model" (forward
-    only): Mamba's bc_proj and dt_proj, and attention's q/k/v/o where its
-    heads do not split over the m ranks."""
+    only): Mamba's bc_proj and dt_proj, attention's q/k/v/o where its
+    heads do not split over the m ranks, and the scan branch's weights
+    where its heads do not (RWKV's r/k/v/g/o, Mamba's in_proj, conv and
+    out_proj)."""
     names: Tuple[str, ...] = ()
     if cfg.family == "hybrid":
         names += ("bc_proj", "dt_proj")
     if PT.whole_heads(cfg, m):
         names += ("q_proj", "k_proj", "v_proj", "o_proj")
+    if PT.whole_scan(cfg, m):
+        names += (("r_proj", "k_proj", "v_proj", "g_proj", "o_proj")
+                  if cfg.family == "ssm" else
+                  ("in_proj", "conv", "out_proj"))
     return names
 
 

@@ -74,7 +74,16 @@ backward):
     pod mesh a rank's tokens are Z/d runs of (b/p)·S rows, one a slot, in
     the flat Z·b·S order, between the other pod ranks' runs: each piece
     takes its queue places from the pieces before it in its group, by
-    global flat offset, and its counts cross "pod" and "data";
+    global flat offset, and its counts cross "pod" and "data". Where
+    neither a group nor a run divides the other, the pieces are gcd(run,
+    group) rows, each inside one group (``SpmdPlan.moe_groups``);
+  * ragged slot rows (``slot_rows``, a [Z] leaf laid out as the batch's
+    slots) are cut to the data rank's slots; a projection over the whole
+    sequence takes a slot's rows as they are, and one over this rank's
+    sequence block (the o_proj of attention or RWKV's time mix that runs
+    whole) the prefix of them that lies in the block
+    (``SpmdPlan.block_rows``). Ragged rows on a pod mesh are refused: the
+    reference's ``batch_specs`` cannot lay them out;
   * ssm (RWKV-6) and hybrid (Hymba's Mamba branch): "model" splits the
     scan heads. Each model rank runs the chunked scan on its H/m heads
     over the whole sequence; no scan state crosses ranks (training starts
@@ -90,7 +99,15 @@ backward):
     inner block, the fp32 partial products summed in one all-reduce over
     "model" (``row_products``); ``out_proj`` is row-parallel. Hymba's
     branch outputs are reduce-scattered, each by its own "residual"
-    constraint, before their branch norms;
+    constraint, before their branch norms. Scan heads that do not split
+    over "model" (``whole_scan``: GSPMD splits a head; the port does not)
+    run whole on every model rank, as attention's do: the branch's
+    weights (RWKV's r/k/v/g/o, Mamba's in_proj, conv, bc_proj, dt_proj
+    and out_proj) all-gathered over "model" (forward only), the
+    projections, the conv and the scan over all heads and the whole
+    sequence, the output cut to this rank's sequence block before o_proj
+    / out_proj (``SpmdPlan.whole_out``); RWKV's channel mix keeps its
+    split;
   * vlm (Qwen2-VL) and audio (MusicGen) take the dense layout. The stub
     encoder's prefix ``modal_embeds`` arrives as the rank's slots, and
     after the embedding's "residual" constraint each model rank writes the
@@ -110,9 +127,11 @@ backward):
     every model rank computes and writes all the heads; RWKV's ``wkv`` and
     Mamba's ``ssm`` state by scan heads (``cache_specs``, the reference's
     layout, splits their key channel or N); Mamba's ``conv`` buffer by its
-    inner block, the block of this rank's ``in_proj`` x half; RWKV's
-    token-shift rows ``tm_x`` / ``cm_x`` whole (the mixes read the gathered
-    x). The step refuses a cache laid out any other way
+    inner block, the block of this rank's ``in_proj`` x half; where the
+    scan heads do not split (``whole_scan``) ``wkv``, ``ssm`` and ``conv``
+    whole, every model rank writing all of them; RWKV's token-shift rows
+    ``tm_x`` / ``cm_x`` whole (the mixes read the gathered x). The step
+    refuses a cache laid out any other way
     (``check_serve_cache``). A prefill writes this rank's heads of its
     slots for the whole sequence of the column-parallel projections'
     gathered input, and the scan starts from the cache's state. The
@@ -142,6 +161,7 @@ it), and ``distribute`` refuses it.
 """
 from __future__ import annotations
 
+import math
 import re
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -156,12 +176,16 @@ from repro_torch.launch.mesh import axis_names, axis_sizes, is_fake
 SHARDED_EXECUTION = ("sharded execution over a fake group is not possible: "
                      "its collectives move no data (launch/dryrun.py "
                      "traces shapes only)")
-# what a multi-rank mesh runs today, and where the rest is queued
+# what a multi-rank mesh runs: every step the reference's GSPMD steps run
+# on these families, but ragged rows on a pod mesh
 SHARDED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 # the step builders (``steps_dist.make_<name>_step``) whose steps run
 # sharded, every family each
 SHARDED_STEPS = ("train", "eval", "prefill", "serve")
-SHARDED_QUEUE = "queued in ROADMAP.md §1, the rest of sharded execution"
+# where each refusal is recorded
+SHARDED_REFUSED = "recorded in ROADMAP.md §1, not queued"
+POD_RAGGED = ("recorded in ROADMAP.md §3, 'Ragged slot rows on a pod mesh': "
+              "a fault of the reference")
 # the meshes' axes, in order, whose steps run sharded
 SHARDED_AXES = (("data", "model"), ("pod", "data", "model"))
 
@@ -493,10 +517,13 @@ def serve_cache_specs(cfg, mesh, cache: Any) -> Any:
     Z, b, d] whole (the mixes read the gathered x); ``pos`` and ``k_pos``
     whole. ``cache_specs`` (the reference's layout, which the dry run reads)
     differs where it splits the key channel, N, d or hd. The splits divide:
-    ``check_sharded`` refuses scan heads that do not, and ``whole_heads``
-    keeps whole the K/V heads that do not."""
+    ``whole_heads`` keeps whole the K/V heads that do not, and
+    ``whole_scan`` the scan states and the conv buffer of scan heads that
+    do not."""
     m_dim = {"k": 4, "v": 4, "wkv": 3, "ssm": 3, "conv": 4}
-    whole = whole_heads(cfg, axis_sizes(mesh).get("model", 1))
+    m = axis_sizes(mesh).get("model", 1)
+    whole = (("k", "v") if whole_heads(cfg, m) else ()) + (
+        ("wkv", "ssm", "conv") if whole_scan(cfg, m) else ())
     lanes = {1: "data", 2: "pod"} if has_pod(mesh) else {1: "data"}
 
     def spec_of(path, leaf) -> P:
@@ -504,7 +531,7 @@ def serve_cache_specs(cfg, mesh, cache: Any) -> Any:
         if name in ("pos", "k_pos"):
             return P()
         dims = dict(lanes)
-        if name in m_dim and not (whole and name in ("k", "v")):
+        if name in m_dim and name not in whole:
             dims[m_dim[name]] = "model"
         return P(*(dims.get(d) for d in range(max(dims) + 1)))
 
@@ -628,6 +655,20 @@ def whole_heads(cfg, m: int) -> bool:
             and bool(cfg.num_heads % m or cfg.num_kv_heads % m))
 
 
+def whole_scan(cfg, m: int) -> bool:
+    """Whether the scan branch (RWKV's time mix, Hymba's Mamba branch) runs
+    whole on every rank of a model axis of ``m`` ranks: its scan heads
+    (RWKV's ``num_heads``, Mamba's inner // head_size) do not split over it
+    (GSPMD splits a head; the port does not)."""
+    if cfg.family == "ssm":
+        heads = cfg.num_heads
+    elif cfg.family == "hybrid":
+        heads = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_size
+    else:
+        return False
+    return m > 1 and bool(heads % m)
+
+
 def check_sharded(cfg, mesh, step: str = "train") -> None:
     """Raise ``NotImplementedError`` unless the ``step`` builder's step
     (``SHARDED_STEPS``) runs ``cfg`` on the real multi-rank ``mesh``: the
@@ -638,14 +679,16 @@ def check_sharded(cfg, mesh, step: str = "train") -> None:
     Megatron layout (q/k/v, gate/up, RWKV's
     r/k/v/g and ffn_k, Mamba's in_proj and conv split by output columns;
     o, down, ffn_v and out_proj by input rows). Attention whose heads do
-    not split runs whole (``whole_heads``): its weights may take any split.
-    Scan heads (RWKV's and Mamba's) must divide by m. The embedding and an
+    not split runs whole (``whole_heads``), and so does a scan branch whose
+    heads do not (``whole_scan``: RWKV's r/k/v/g/o, Mamba's in_proj, conv
+    and out_proj): their weights may take either layout. RWKV's channel
+    mix keeps its split. The embedding and an
     untied unembedding are split by vocabulary or, where the rule falls
     back, whole. MoE: the router whole, the routed experts split by expert
     or whole, the shared expert's gate/up by columns and its down by rows,
     or all three whole. The prefill and serve steps take every family, the
-    cache laid out by ``serve_cache_specs``. Ragged slot rows are refused
-    per call (``SpmdPlan.bind``)."""
+    cache laid out by ``serve_cache_specs``. Ragged slot rows on a pod mesh
+    are refused per call (``SpmdPlan.bind``)."""
     if step not in SHARDED_STEPS:
         raise ValueError(f"unknown step {step!r}")
     names = tuple(axis_names(mesh))
@@ -653,11 +696,11 @@ def check_sharded(cfg, mesh, step: str = "train") -> None:
         raise NotImplementedError(
             f"sharded execution over axes {names}: only "
             + " and ".join(f"({', '.join(a)})" for a in SHARDED_AXES)
-            + f" run ({SHARDED_QUEUE})")
+            + f" run ({SHARDED_REFUSED})")
     if cfg.family not in SHARDED_FAMILIES:
         raise NotImplementedError(
             f"sharded execution of the {cfg.family} family ({cfg.name}) is "
-            f"not ported ({SHARDED_QUEUE})")
+            f"not ported ({SHARDED_REFUSED})")
     m = axis_sizes(mesh)["model"]
     if m == 1:
         return
@@ -665,22 +708,22 @@ def check_sharded(cfg, mesh, step: str = "train") -> None:
     layers: Dict[str, Any] = {}
     # each leaf's allowed dims over "model" (None: whole)
     want: Dict[str, Tuple] = {"embed": (-2, None)}
-    scan = None                                 # (what, heads)
+    col, row = ((-1, None), (-2, None)) if whole_scan(cfg, m) else \
+        ((-1,), (-2,))                          # the scan branch's
     if cfg.family == "ssm":
         from repro_torch.models.rwkv import DECAY_LORA_DIM as R
         for n in ("r_proj", "k_proj", "v_proj", "g_proj"):
-            layers[n], want[n] = (L, d, d), (-1,)
+            layers[n], want[n] = (L, d, d), col
         layers.update(o_proj=(L, d, d), ffn_k=(L, d, ff), ffn_v=(L, ff, d),
                       w1=(L, d, R), w2=(L, R, d))
-        want.update(o_proj=(-2,), ffn_k=(-1,), ffn_v=(-2,), w1=(None,),
+        want.update(o_proj=row, ffn_k=(-1,), ffn_v=(-2,), w1=(None,),
                     w2=(None,))
-        scan = ("RWKV heads", cfg.num_heads)
     else:
-        col, row = ((-1, None), (-2, None)) if whole_heads(cfg, m) else \
+        a_col, a_row = ((-1, None), (-2, None)) if whole_heads(cfg, m) else \
             ((-1,), (-2,))
         layers.update(q_proj=(L, d, cfg.q_dim), k_proj=(L, d, cfg.kv_dim),
                       v_proj=(L, d, cfg.kv_dim), o_proj=(L, cfg.q_dim, d))
-        want.update(q_proj=col, k_proj=col, v_proj=col, o_proj=row)
+        want.update(q_proj=a_col, k_proj=a_col, v_proj=a_col, o_proj=a_row)
     if cfg.is_moe:
         E, ffe = cfg.moe.num_experts, cfg.moe.d_ff_expert
         moe = {"router": (L, d, E), "w_gate": (L, E, d, ffe),
@@ -706,9 +749,8 @@ def check_sharded(cfg, mesh, step: str = "train") -> None:
                                                    inner),
             "bc_proj": (L, inner, 2 * N), "dt_proj": (L, inner, H),
             "out_proj": (L, inner, d)}
-        want.update(in_proj=(-1,), conv=(-1,), bc_proj=(-1, None),
-                    dt_proj=(-1, None), out_proj=(-2,))
-        scan = ("Mamba heads", H)
+        want.update(in_proj=col, conv=col, bc_proj=(-1, None),
+                    dt_proj=(-1, None), out_proj=row)
 
     def meta(node):
         if isinstance(node, dict):
@@ -732,11 +774,6 @@ def check_sharded(cfg, mesh, step: str = "train") -> None:
                 + " or ".join("whole over model" if d_ is None else
                               f"split over model along dim {d_}"
                               for d_ in dims))
-    if scan is not None and scan[1] % m:
-        raise NotImplementedError(
-            f"{cfg.name}: {scan[1]} {scan[0]} do not split whole over model "
-            f"{m}; the sharded {step} step runs whole scan heads on each "
-            f"rank ({SHARDED_QUEUE})")
 
 
 def check_serve_cache(cfg, mesh, cache: Dict) -> None:
@@ -795,9 +832,10 @@ class SpmdPlan:
         self.seq_len = self.z = self.z_local = self.d_model = 0
         self.b = self.b_local = 0         # rows a slot: global, this rank's
         self.seq_sharded = False
-        # attention runs whole on every model rank (``whole_heads``); set
-        # by ``steps_dist``'s step builders
-        self.attn_whole = False
+        # attention, and the scan branch, run whole on every model rank
+        # (``whole_heads``, ``whole_scan``); set by ``steps_dist``'s step
+        # builders
+        self.attn_whole = self.scan_whole = False
         self._cols: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         # the MoE layer's groups: (experts E, groups G, tokens a group s)
         self._moe: Optional[Tuple[int, int, int]] = None
@@ -813,7 +851,7 @@ class SpmdPlan:
         sequence-sharded), a DTensor (its global shape) or this rank's
         block (its data rank's slots, its pod rank's rows of them);
         ``batch``, where the step takes one, may not carry ragged slot rows
-        over a split model axis or a pod axis."""
+        on a pod axis."""
         if self.layouts is None:
             self.layouts = _weight_layouts(self.mesh, params)
         emb = params["embed"]
@@ -835,17 +873,13 @@ class SpmdPlan:
         if self.b != self.b_local * self.p:
             raise NotImplementedError(
                 f"b = {self.b} rows a slot do not split over pod {self.p}")
-        if batch is not None and batch.get("slot_rows") is not None:
-            if self.p > 1:
-                raise NotImplementedError(
-                    "ragged slot rows on a pod axis: the reference's "
-                    "batch_specs cannot lay out the [Z] slot_rows leaf "
-                    "with a pod axis (its {0: data, 1: pod} candidate "
-                    f"indexes a dim the leaf lacks; {SHARDED_QUEUE})")
-            if self.m > 1:
-                raise NotImplementedError(
-                    "ragged slot rows on a split model axis are not ported "
-                    f"({SHARDED_QUEUE})")
+        if (batch is not None and batch.get("slot_rows") is not None
+                and self.p > 1):
+            raise NotImplementedError(
+                "ragged slot rows on a pod axis: the reference's "
+                "batch_specs cannot lay out the [Z] slot_rows leaf with a "
+                "pod axis (its {0: data, 1: pod} candidate indexes a dim "
+                f"the leaf lacks; {POD_RAGGED})")
         spec = self.decide((self.z, self.b, self.seq_len, self.d_model),
                            "residual")
         self.seq_sharded = self.m > 1 and len(spec) > 2 and \
@@ -853,6 +887,29 @@ class SpmdPlan:
 
     def end(self) -> None:
         self._cols = self._moe = None
+
+    def slot_vectors(self, batch: Dict) -> Dict:
+        """``batch`` (local shards) with its ragged ``slot_rows`` ([Z]) cut
+        to this data rank's Z/d slots where they arrive whole (laid out as
+        ``batch_specs`` lays out a [Z] leaf, {0: "data"}, they arrive
+        cut)."""
+        rows = batch.get("slot_rows")
+        if rows is None or rows.shape[0] != self.z or self.z == self.z_local:
+            return batch
+        return dict(batch, slot_rows=rows.narrow(
+            0, self.data_rank * self.z_local, self.z_local))
+
+    def block_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """Ragged slot rows ([Z/d]: slot z's valid rows R in its flat b·S
+        order) counted in the flat [b, S/m] order of this model rank's
+        sequence block, where the valid rows are still a prefix: q·(S/m) +
+        clamp(R - q·S - r·S/m, 0, S/m) of them, q = R // S, r the model
+        rank."""
+        S = self.seq_len
+        n = S // self.m
+        q = torch.div(rows, S, rounding_mode="floor")
+        tail = (rows - q * S - self.model_rank * n).clamp(0, n)
+        return (q * n + tail).to(rows.dtype)
 
     def global_shape(self, x: torch.Tensor, kind: str) -> Tuple[int, ...]:
         """The global shape of the tensor whose local shard ``x`` passes a
@@ -969,17 +1026,14 @@ class SpmdPlan:
         lie in runs that are contiguous in the flat order: one run of all
         of them on a mesh without "pod" (the Z/d slots from ``data_rank ·
         tokens`` on), else Z/d runs of (b/p)·S, one a slot, each between
-        the other pod ranks' runs. Whole groups where they lie inside a
-        run; else each run is one piece of the group it shares with other
-        ranks' runs (``route_exchange``)."""
+        the other pod ranks' runs. The pieces are gcd(run, group) rows:
+        whole groups where they lie inside a run, a run where it lies
+        inside a group, else smaller; every run starts at a multiple of
+        the run and every group at a multiple of the group, so each piece
+        lies inside one group, which may hold several pieces of this rank
+        and of others (``route_exchange``)."""
         run = tokens if self.p == 1 else tokens // self.z_local
-        if run % group and group % run:
-            raise NotImplementedError(
-                f"MoE token groups of {group} rows across ranks' runs of "
-                f"{run} contiguous rows (Z/d slots, or one slot's b/p rows "
-                f"on a pod mesh): neither divides the other "
-                f"({SHARDED_QUEUE})")
-        piece = min(group, run)
+        piece = math.gcd(run, group)
         self._moe = (num_experts, tokens * self.d * self.p // group, group)
         return tokens // piece, piece
 
@@ -1060,6 +1114,15 @@ class SpmdPlan:
         it as it is."""
         y._spmd_whole = True
         return y
+
+    def seq_block(self, t: torch.Tensor) -> torch.Tensor:
+        """This model rank's sequence block of the whole-sequence output
+        ``t`` ([Z, b, S, ...]) of a sublayer that runs whole, contiguous
+        and marked so that a LoRA projection on it takes its slots' ragged
+        rows in the block (``block_rows``)."""
+        out = self.local(t, 2).contiguous()
+        out._spmd_block = True
+        return out
 
     def whole_out(self, y: torch.Tensor) -> torch.Tensor:
         """The output of a sublayer that every model rank runs whole, on

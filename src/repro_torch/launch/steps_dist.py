@@ -14,20 +14,24 @@ runs sharded: the policy's ``SpmdPlan`` reads the parameters' placements
 and the global shape of the call's tokens at each call and issues the
 collectives (``launch/collectives.py``); "pod" splits each slot's b rows,
 and the adapters, their AdamW state and the base weights are replicated
-over it. ``partitioning.check_sharded`` refuses, with
-``NotImplementedError``, what a step does not run on ``cfg`` (axes in
-another order, scan heads that do not split over "model"), and
-``SpmdPlan.bind`` ragged slot rows over a split model axis or a pod
-axis. Every step runs every family
+over it. The sharded steps run what the reference's GSPMD steps run, but
+for what ``ROADMAP.md`` records: ``partitioning.check_sharded`` refuses,
+with ``NotImplementedError``, axes in another order and a family outside
+``SHARDED_FAMILIES``, and ``SpmdPlan.bind`` ragged slot rows on a pod
+axis (the reference cannot lay them out). Every step runs every family
 (dense, MoE, ssm, hybrid, vlm, audio); the train and eval steps with either
 loss (SFT or DPO); the eval step is the train step's forward with no
 backward, on the same schedule, and every rank returns all Z per-slot
-losses, gathered over "data". Attention whose heads do not split over
-"model" runs whole on every model rank (``partitioning.whole_heads``). The
+losses, gathered over "data". Ragged slot rows ([Z] ``slot_rows``, whole
+or laid out as the batch's slots) are cut to the data rank's slots.
+Attention whose heads do not split over "model" runs whole on every model
+rank (``partitioning.whole_heads``), and so does a scan branch whose heads
+do not (``partitioning.whole_scan``). The
 prefill and serve steps take the cache as ``serve_cache_specs`` lays it out
 (slots over "data"; K/V by KV heads over "model", or whole where the heads
 do not split; RWKV's and Mamba's scan states by heads, Mamba's conv buffer
-by its inner block, RWKV's token-shift rows and the positions whole; lanes
+by its inner block, or the three whole where the scan heads do not split;
+RWKV's token-shift rows and the positions whole; lanes
 over "pod") and a serve step's ``active`` whole, its [Z, b] tokens a
 DTensor or this rank's block of them; a cache laid out any other way raises
 ``ValueError`` (``partitioning.check_serve_cache``). Each returns its (data,
@@ -61,14 +65,16 @@ def _wrap(cfg: ModelConfig, mesh, fn: Callable, step: str,
     """``fn``, the ``step`` builder's step, under the policy of ``mesh``;
     on a real multi-rank mesh each call binds the plan to its own
     arguments (``BOUND_ARG``), a prefill or serve step's cache is checked
-    against its layout, and the plan runs attention whole where ``cfg``'s
-    heads do not split."""
+    against its layout, a batch's ragged slot rows are cut to the data
+    rank's slots, and the plan runs attention and the scan branch whole
+    where ``cfg``'s heads do not split."""
     policy = PT.activation_policy(mesh, seq_shard=seq_shard,
                                   opt_level=opt_level,
                                   step_kind=STEP_KINDS[step])
     plan = policy.spmd
     if plan is not None:
         plan.attn_whole = PT.whole_heads(cfg, plan.m)
+        plan.scan_whole = PT.whole_scan(cfg, plan.m)
     name, at = BOUND_ARG[step]
 
     def wrapped(*args, **kw):
@@ -83,6 +89,11 @@ def _wrap(cfg: ModelConfig, mesh, fn: Callable, step: str,
                 plan.bind(args[0], x.get("tokens", x.get("tokens_chosen")),
                           x)
         args, kw = PT.local(list(args)), PT.local(kw)
+        if plan is not None and name == "batch":
+            if name in kw:
+                kw[name] = plan.slot_vectors(kw[name])
+            else:
+                args[at] = plan.slot_vectors(args[at])
         try:
             with shardctx.sharding_policy(policy):
                 return fn(*args, **kw)

@@ -178,12 +178,19 @@ def run(cfg: ModelConfig, Z: int, b: int, S: int, mesh, steps: int, *,
         ranks: Optional[Sequence[int]] = None, seed: int = 0, device=None,
         step_hook: Optional[Callable[[int, Dict, float], None]] = None,
         eval_trees: Optional[Callable[[], Sequence[Dict]]] = None,
+        widths: Optional[Sequence[int]] = None,
         log: Callable[[str], None] = print) -> Dict:
     """``steps`` Adapter-Parallel train steps of ``cfg`` on ``mesh`` with
     Z slots of b sequences of S tokens, every slot at ``min(rank, r_max)``,
     or slot z at ``ranks[z]`` with the ranks bound (``slot_ranks``: the
-    rank-local kernels). ``step_hook(t, metrics, seconds)`` runs after each
-    step. The batches are ``batches``'s. After the steps, one eval step on
+    rank-local kernels). With ``widths``, slot z keeps the first
+    ``widths[z]`` <= b rows of each batch and the rest is padding (tokens
+    0, labels -1, as the executor's ``_assemble`` pads a lane), its
+    ``slot_rows`` (widths[z] · S) bound: ragged slot widths.
+    ``step_hook(t, metrics, seconds)`` runs after each
+    step. The batches are ``batches``'s. After the steps (but with
+    ``widths``: the eval step takes no slot rows, in the reference as
+    here), one eval step on
     the next batch with the trained adapters, then, on the same weights and
     batch, one with each adapter tree that ``eval_trees()`` returns (whole
     trees of every slot, {target: {"A", "B"}}). Returns {"losses": per
@@ -237,6 +244,12 @@ def run(cfg: ModelConfig, Z: int, b: int, S: int, mesh, steps: int, *,
 
     def next_batch() -> Dict:
         batch = next(stream)
+        if widths is not None:
+            for z, w in enumerate(widths):
+                batch["tokens"][z, w:] = 0
+                batch["labels"][z, w:] = -1
+            batch["slot_rows"] = torch.tensor([w * S for w in widths],
+                                              dtype=torch.int32, device=dev)
         batch = placed(batch, PT.batch_specs(mesh, batch))
         if ranks is not None:
             batch["slot_ranks"] = ranks_t
@@ -275,12 +288,18 @@ def run(cfg: ModelConfig, Z: int, b: int, S: int, mesh, steps: int, *,
         out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         log(f"peak {out['peak_gib']:.2f} GiB allocated")
     out["policy_decisions"] = len(step.policy.decisions)
-    evaluate, batch = steps_dist.make_eval_step(cfg, mesh), next_batch()
+    if widths is not None:
+        out["lora"] = PT.local(lora)
+        log(f"launches {json.dumps(out['launches'])}")
+        log("done")
+        return out
+    eval_step, batch = steps_dist.make_eval_step(cfg, mesh), next_batch()
     out["eval_peak_gib"] = None
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
     before = _launch_counts()
-    out["eval"] = evaluate(params, lora, active, batch).float().cpu().tolist()
+    out["eval"] = eval_step(params, lora, active, batch).float().cpu(
+        ).tolist()
     after = _launch_counts()
     out["eval_launches"] = {fam: {k: after[fam][k] - before[fam][k]
                                   for k in ks} for fam, ks in after.items()}
@@ -294,7 +313,7 @@ def run(cfg: ModelConfig, Z: int, b: int, S: int, mesh, steps: int, *,
             t: {k: v.to(dev, lora[t][k].dtype) for k, v in ab.items()}
             for t, ab in tree.items()}, l_named)
         out["evals"].append(
-            evaluate(params, other, active, batch).float().cpu().tolist())
+            eval_step(params, other, active, batch).float().cpu().tolist())
     out["lora"] = PT.local(lora)
     log(f"launches {json.dumps(out['launches'])}")
     log(f"eval launches {json.dumps(out['eval_launches'])}")

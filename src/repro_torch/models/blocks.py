@@ -258,7 +258,7 @@ def attn_sublayer(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
     if not whole:
         return proj(out, p["o_proj"], lp("o_proj"), scale, name="o_proj")
     if sp.seq_sharded:
-        out = sp.local(out, 2).contiguous()
+        out = sp.seq_block(out)
     return sp.whole_out(proj(out, p["o_proj"], lp("o_proj"), scale,
                              name="o_proj", whole=True))
 

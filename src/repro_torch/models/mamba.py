@@ -26,7 +26,15 @@ rank's rows of each, the fp32 partial products summed over "model",
 to this rank's heads, and ``out_proj`` is row-parallel (the output a
 partial sum over "model"). A cache's ``conv`` buffer holds this rank's
 inner block and its ``ssm`` state this rank's heads
-(``partitioning.serve_cache_specs``).
+(``partitioning.serve_cache_specs``). Where the heads do not split over
+"model" (``SpmdPlan.scan_whole``), every model rank runs the branch whole,
+as attention whose heads do not split: x gathered along S, ``in_proj``,
+``conv``, ``bc_proj``, ``dt_proj`` and ``out_proj`` gathered over "model"
+(forward only), the projections (the whole LoRA A and B), the conv and the
+scan over all heads and the whole sequence, ``bc`` / ``dt`` plain
+products, and the output cut to this rank's sequence block before
+``out_proj`` (``SpmdPlan.whole_out``); the cache's ``conv`` and ``ssm``
+are whole on every model rank, and every rank writes the same.
 """
 from __future__ import annotations
 
@@ -99,20 +107,25 @@ def mamba_block(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
     layer's cache views) continues a cached stream; None starts from
     zeros. Sharded over "model" (the module docstring), x is this rank's
     sequence block, H its heads and out its partial sum over the whole
-    sequence."""
+    sequence; with the heads whole, H is all of them and out this rank's
+    block (``SpmdPlan.whole_out``)."""
     hs = cfg.ssm.head_size
     N, Wd = cfg.ssm.state_size, cfg.ssm.conv_width
     sp = shardctx.spmd()
+    whole = sp is not None and sp.scan_whole
+    if whole:
+        x = sp.columns(x)
 
     xz = proj(x, p["in_proj"], lora_at(lora, "in_proj", layer), scale,
-              name="in_proj")
+              name="in_proj", whole=whole)
     Z, b, S = xz.shape[:3]
     xt, z = xz.chunk(2, dim=-1)
     inner = xt.shape[-1]                 # this rank's block
     H = inner // hs
 
     conv_buf = state["conv"] if state is not None else None
-    xc = _causal_conv(xt, p["conv"], conv_buf)
+    xc = _causal_conv(xt, sp.gather_model(p["conv"], "conv") if whole
+                      else p["conv"], conv_buf)
     if conv_buf is None:
         stream = torch.nn.functional.pad(xt, (0, 0, Wd - 1, 0))
     else:
@@ -120,9 +133,12 @@ def mamba_block(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
     new_conv = stream[:, :, -(Wd - 1):].float()
 
     dt_bias, A_log, D = p["dt_bias"], p["A_log"], p["D"]
-    if sp is None:
-        bc = proj(xc, p["bc_proj"], name="bc_proj")   # [Z,b,S,2N] frozen
-        dt = xc.float() @ p["dt_proj"]
+    if sp is None or whole:
+        dt_w = p["dt_proj"] if sp is None else sp.gather_model(
+            sp.weight(p["dt_proj"], "dt_proj"), "dt_proj")
+        bc = proj(xc, p["bc_proj"], name="bc_proj",    # [Z,b,S,2N] frozen
+                  whole=whole)
+        dt = xc.float() @ dt_w
     else:
         # both contract over all of inner: this rank's rows, summed over
         # "model" in fp32; bc then rounded to x's dtype, as proj's is. Each
@@ -155,7 +171,13 @@ def mamba_block(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
 
     y = y + xc.reshape(Z, b, S, H, hs) * D[:, None].to(xc.dtype)
     y = y.reshape(Z, b, S, inner) * silu(z)
-    out = proj(y, p["out_proj"], name="out_proj")    # frozen out proj
+    if not whole:
+        out = proj(y, p["out_proj"], name="out_proj")    # frozen out proj
+    else:
+        if sp.seq_sharded:
+            y = sp.seq_block(y)
+        out = sp.whole_out(proj(y, p["out_proj"], name="out_proj",
+                                whole=True))
     return out, {"conv": new_conv, "ssm": new_ssm}
 
 

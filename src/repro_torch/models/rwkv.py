@@ -22,7 +22,14 @@ heads, and it takes its heads' columns of the decay, its rows of ``u`` and
 its block of ``ln_x``; o and ffn_v are row-parallel (their outputs partial
 sums over "model"). With a cache, the scan (a prefill) or the recurrent
 step (decode, S 1: x is whole on every rank) continues this rank's heads
-of the ``wkv`` state, and the token-shift rows come back whole.
+of the ``wkv`` state, and the token-shift rows come back whole. Where the
+heads do not split over "model" (``SpmdPlan.scan_whole``), every model rank
+runs the time mix whole, as attention whose heads do not split: r/k/v/g
+and o gathered over "model" (forward only), the projections (the whole
+LoRA A and B) and the scan over all heads and the whole sequence, and the
+gated output cut to this rank's sequence block before o_proj
+(``SpmdPlan.whole_out``); the cache's ``wkv`` is whole on every model
+rank. The channel mix keeps its split.
 """
 from __future__ import annotations
 
@@ -111,7 +118,10 @@ def rwkv_time_mix(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
 
     Returns (out, final wkv state [Z,b,H,hs,hs] fp32, last x [Z,b,d]);
     sharded over "model" (the module docstring), H is this rank's heads
-    and out its partial sum over the whole sequence."""
+    and out its partial sum over the whole sequence; with the heads whole,
+    H is all of them and out this rank's block (``SpmdPlan.whole_out``)."""
+    sp = shardctx.spmd()
+    whole = sp is not None and sp.scan_whole
     x, mark = _shift_input(x)
     Z, b, S, _ = x.shape
     hs = cfg.ssm.head_size
@@ -122,20 +132,23 @@ def rwkv_time_mix(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
     def lp(t):
         return lora_at(lora, t, layer)
 
-    r = proj(xr, p["r_proj"], lp("r_proj"), scale, name="r_proj")
+    r = proj(xr, p["r_proj"], lp("r_proj"), scale, name="r_proj",
+             whole=whole)
     H = r.shape[-1] // hs                # this rank's heads
 
     def heads(t):
         return t.reshape(Z, b, S, H, hs)
 
     r = heads(r)
-    k = heads(proj(xk, p["k_proj"], lp("k_proj"), scale, name="k_proj"))
-    v = heads(proj(xv, p["v_proj"], lp("v_proj"), scale, name="v_proj"))
-    g = proj(xg, p["g_proj"], lp("g_proj"), scale, name="g_proj")
+    k = heads(proj(xk, p["k_proj"], lp("k_proj"), scale, name="k_proj",
+                   whole=whole))
+    v = heads(proj(xv, p["v_proj"], lp("v_proj"), scale, name="v_proj",
+                   whole=whole))
+    g = proj(xg, p["g_proj"], lp("g_proj"), scale, name="g_proj",
+             whole=whole)
 
     w0, w2, u, ln_x = p["w0"], p["w2"], p["u"], p["ln_x"]
-    sp = shardctx.spmd()
-    if sp is not None:                   # this rank's heads' channels
+    if sp is not None and not whole:     # this rank's heads' channels
         w0, w2, ln_x, u = (sp.local(w0, -1), sp.local(w2, -1),
                            sp.local(ln_x, -1), sp.local(u, 0))
     # data-dependent decay (fp32): logw = -exp(w0 + tanh(xw w1) w2) < 0
@@ -157,9 +170,14 @@ def rwkv_time_mix(x: torch.Tensor, p: Dict, lora: Dict, layer: int,
     mean = yf.mean(dim=-1, keepdim=True)
     var = yf.var(dim=-1, keepdim=True, unbiased=False)
     yn = (yf - mean) * torch.rsqrt(var + 1e-5)
-    yn = (yn.reshape(Z, b, S, H * hs) * ln_x).to(x.dtype)
-    out = proj(yn * silu(g), p["o_proj"], lp("o_proj"), scale,
-               name="o_proj")
+    yn = (yn.reshape(Z, b, S, H * hs) * ln_x).to(x.dtype) * silu(g)
+    if not whole:
+        out = proj(yn, p["o_proj"], lp("o_proj"), scale, name="o_proj")
+    else:
+        if sp.seq_sharded:
+            yn = sp.seq_block(yn)
+        out = sp.whole_out(proj(yn, p["o_proj"], lp("o_proj"), scale,
+                                name="o_proj", whole=True))
     return out, new_state, x[:, :, -1]
 
 

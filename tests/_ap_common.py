@@ -68,6 +68,8 @@ def unflat(arrays: dict, prefix: str) -> dict:
 #   inside — T 8,192: groups of 4,096 inside each data rank at 2x2 and
 #            spanning two ranks at 4x1 (natural data; capacity binds);
 #   v515   — a vocabulary that does not split over "model" (whole there);
+#   odd    — T 384, groups of 128 that neither divide nor are divided by a
+#            rank's run of rows (``UNEVEN_RUNS``);
 #   e3     — 3 routed experts, which do not split over "model": every model
 #            rank runs all of them (granite: the output sliced along S;
 #            llama4: beside its split shared expert, one partial sum); one
@@ -80,7 +82,11 @@ MOE_CASES = {"span": (4, 32, 512, (1, 2), ((2, 2), (4, 1))),
              "moved": (4, 32, 512, (0, 1, 2), ((2, 2),)),
              "inside": (4, 512, 512, (), ((2, 2), (4, 1))),
              "v515": (4, 32, 515, (), ((2, 2), (4, 1))),
-             "e3": (4, 32, 512, (), ((2, 2),))}
+             "e3": (4, 32, 512, (), ((2, 2),)),
+             # T 384 (Z 4, b 4, S 24), groups of 128: run by
+             # tests/test_torch_ap_uneven.py and tests/test_torch_ap_pod.py
+             # (UNEVEN_RUNS, POD_RUNS), no mesh of this file's own
+             "odd": (4, 24, 512, (), ())}
 MOE_EXPERTS = {"e3": 3}
 MOE_STEPS = {"e3": 1}
 MOE_DIMS = dict(num_layers=2, d_model=128)
@@ -408,22 +414,28 @@ def served(work: str, name: str, shape) -> dict:
 # over a per-lane cache, then one step with IDLE_LANES idle: lane (1, 0)
 # on pod rank 0, lane (2, 3) on pod rank 1). The MoE runs are granite's
 # span case (T 512: one token group over all 8 ranks, each rank's 2 slots
-# 64-row pieces of it, interleaved with its pod peer's) and its inside
+# 64-row pieces of it, interleaved with its pod peer's), its inside
 # case (groups of 4,096 inside each data rank, each spanning its two pod
-# ranks in pieces of 1,024); rwkv and hymba160 (whole attention heads at
-# m 2, 5 Mamba heads a rank) are the ssm and hybrid runs of SSM_RUNS,
+# ranks in pieces of 1,024) and its odd case (POD_STEPS); rwkv and
+# hymba160 (whole attention heads at m 2, 5 Mamba heads a rank) are the
+# ssm and hybrid runs of SSM_RUNS,
 # vlm40 and audio those of MODAL_RUNS.
 POD_MESH = (2, 2, 2)
 POD_AXES = ("pod", "data", "model")
 POD_RUNS = {"dense": ("train", "dpo", "serve", "lanes"),
             "granite_span": ("train", "serve"),
             "granite_inside": ("train",),
+            "granite_odd": ("train",),
             "rwkv": ("train", "serve"), "hymba160": ("train", "serve"),
             "vlm40": ("train", "serve"), "audio": ("train",)}
 POD_EVALS = ("dense", "vlm40")
+# the SFT steps of a pod run, where they are not STEPS: granite's odd case
+# (T 384, groups of 128; a rank's runs of (b/p)·S = 48 rows, pieces of 16)
+POD_STEPS = {"granite_odd": 2}
 # the runs of each test file: its fixture's one reference process and one
 # group of 8 port ranks run them all
-POD_FILES = {"pod": ("dense", "granite_span", "granite_inside"),
+POD_FILES = {"pod": ("dense", "granite_span", "granite_inside",
+                     "granite_odd"),
              "pod_families": ("rwkv", "hymba160", "vlm40", "audio")}
 
 
@@ -451,3 +463,72 @@ def pod_coords(rank: int, shape=POD_MESH) -> tuple:
     mesh."""
     _, d, m = shape
     return rank // (d * m), rank // m % d, rank % m
+
+
+# The last sharded refusals (``tests/test_torch_ap_uneven.py``): reduced
+# fp32 configs, 2 layers, vocab 512, Z 4 and the example's ranks and lr.
+# Run -> (arch, d_model, b, S, the meshes, its parts):
+#   dense_rows  — the dense example with ragged ``slot_rows`` (UNEVEN_ROWS)
+#                 on 2x2, nothing else bound: the ragged Function over a
+#                 split model axis;
+#   hymba_rows  — hymba-1.5b d 160 (5 heads: attention whole at m 2) with
+#                 ``slot_rows`` and ``slot_ranks`` bound on 2x2: the
+#                 rank-local Function with rows, and whole attention's
+#                 o_proj on a sequence block of 64 of S 128;
+#   hymba_whole — hymba-1.5b d 160 on 1x4: its 10 Mamba heads and 5
+#                 attention heads do not split over 4, both run whole;
+#   rwkv_whole  — rwkv6-3b d 96, 3 heads of 32, on 2x2;
+#   granite_odd — granite-moe's odd case (T 384, groups of 128): runs of
+#                 192 rows at 2x2 (pieces of 64), 96 at 4x1 (pieces of 32).
+# Parts: "train" (UNEVEN_STEPS SFT steps), "eval" (the eval step after
+# them), "serve" (the prefill and SERVE_DECODES greedy serve steps on the
+# run's first mesh), "lanes" (a per-lane cache, then a step with
+# IDLE_LANES idle). The rows of both row runs end mid-sequence in two
+# slots, and every row is labelled, so that a row mapped wrongly moves a
+# loss. rwkv's one-rank steps already drift from the reference's
+# (SSM_ONE_RANK): its runs are held against the port's own one-rank run,
+# and the reference does not run them.
+UNEVEN_RUNS = {
+    "dense_rows": ("paper-llama-tiny", 128, 4, 32, ((2, 2),), ("train",)),
+    "hymba_rows": ("hymba-1.5b", 160, 4, 128, ((2, 2),), ("train",)),
+    "hymba_whole": ("hymba-1.5b", 160, 4, 128, ((1, 4),),
+                    ("train", "eval", "serve", "lanes")),
+    "rwkv_whole": ("rwkv6-3b", 96, 4, 32, ((2, 2),),
+                   ("train", "eval", "serve")),
+    "granite_odd": ("granite-moe-1b-a400m", 128, 4, 24, ((2, 2), (4, 1)),
+                    ("train", "eval", "serve")),
+}
+UNEVEN_STEPS = 3
+UNEVEN_ROWS = {"dense_rows": (128, 80, 96, 40),
+               "hymba_rows": (512, 320, 384, 160)}
+# the row runs whose slot ranks are bound in the batch
+UNEVEN_RANKS_BOUND = ("hymba_rows",)
+UNEVEN_ONE_RANK = ("rwkv_whole",)
+# ragged rows flip the signs of more near-zero gradient entries than the
+# dense example's full rows: the reference's own 2x2 and 1x1 runs of
+# dense_rows differ past ADAM_SHARE (0.0054 of a leaf's entries), so the
+# uneven runs take MOE_ADAM_SHARE; the reference runs dense_rows at 1x1
+# too, for that comparison
+UNEVEN_SELF_RUN = "dense_rows"
+
+
+def uneven_config(name: str, package: str):
+    """The reduced fp32 config of uneven run ``name`` in ``package``."""
+    import importlib
+    if name == "granite_odd":
+        return moe_config(name, package)
+    arch, d, _, _, _, _ = UNEVEN_RUNS[name]
+    get_arch = importlib.import_module(f"{package}.configs.registry").get_arch
+    return dataclasses.replace(get_arch(arch).reduced(
+        num_layers=2, d_model=d, vocab=512), dtype="float32")
+
+
+def uneven_extra(name: str) -> dict:
+    """Run ``name``'s per-slot batch leaves as numpy arrays: its
+    ``slot_rows`` and, where bound, its ``slot_ranks``."""
+    out = {}
+    if name in UNEVEN_ROWS:
+        out["slot_rows"] = np.asarray(UNEVEN_ROWS[name], np.int32)
+    if name in UNEVEN_RANKS_BOUND:
+        out["slot_ranks"] = np.asarray(RANKS, np.int32)
+    return out

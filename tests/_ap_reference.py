@@ -1,11 +1,13 @@
 """The JAX package's sharded train step on forced CPU host devices, for
 ``tests/test_torch_ap.py``, ``tests/test_torch_ap_moe.py``,
 ``tests/test_torch_ap_ssm.py``, ``tests/test_torch_ap_modal.py``,
-``tests/test_torch_ap_pod.py`` and ``tests/test_torch_ap_pod_families.py``.
+``tests/test_torch_ap_pod.py``, ``tests/test_torch_ap_pod_families.py``
+and ``tests/test_torch_ap_uneven.py``.
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \\
         python tests/_ap_reference.py <workdir> [--moe <arch key> <case>...
-            | --ssm <run>... | --modal <run>... | --pod <run>...]
+            | --ssm <run>... | --modal <run>... | --pod <run>...
+            | --uneven <run>...]
 
 Reads ``<workdir>/init.npz`` (the shared weights, adapters and batches, see
 ``tests/_ap_common.py``) and writes ``<workdir>/jax_<d>x<m>.npz`` (per-step
@@ -30,6 +32,11 @@ those of ``common.SSM_ONE_RANK``).
 With ``--pod <run>...`` (keys of ``common.POD_RUNS``, with
 ``--xla_force_host_platform_device_count=8``) it runs those runs on a
 ("pod", "data", "model") mesh of ``common.POD_MESH`` (``pod_main``).
+
+With ``--uneven <run>...`` (keys of ``common.UNEVEN_RUNS``) it runs those
+runs of the last sharded refusals (``uneven_main``): ragged slot rows on a
+split model axis, scan heads that do not divide the model axis, MoE token
+groups that divide neither way.
 
 With ``--modal <run>...`` (keys of ``common.MODAL_RUNS``) it runs those vlm
 and audio runs: ``init_<run>.npz`` in (with the stub prefix ``modal`` and
@@ -85,17 +92,19 @@ def _mesh(shape):
 
 
 def run(cfg, init, shape, steps=common.STEPS, evals=False,
-        loss_kind="sft"):
+        loss_kind="sft", extra=None):
     """``steps`` steps of the GSPMD train step on a ``shape`` mesh; with
     ``evals`` also its eval step after them, on the first batch with the
     trained adapters ("eval": the [Z] per-slot losses). With ``loss_kind``
-    "dpo", the DPO loss on ``common.dpo_batch``'s pairs."""
+    "dpo", the DPO loss on ``common.dpo_batch``'s pairs. ``extra`` ({name:
+    array}) joins every train batch (``slot_rows``, ``slot_ranks``)."""
     mesh = _mesh(shape)
+    more = {k: jnp.asarray(v) for k, v in (extra or {}).items()}
     if loss_kind == "dpo":
         batch_of = lambda t: {k: jnp.asarray(v) for k, v in  # noqa: E731
                               common.dpo_batch(init, t).items()}
     else:
-        batch_of = lambda t: _batch(init, t)  # noqa: E731
+        batch_of = lambda t: {**_batch(init, t), **more}  # noqa: E731
     params = jax.tree_util.tree_map(jnp.asarray, common.unflat(init,
                                                                "params/"))
     lora = jax.tree_util.tree_map(jnp.asarray, common.unflat(init, "lora/"))
@@ -126,9 +135,13 @@ def run(cfg, init, shape, steps=common.STEPS, evals=False,
                                       batch_of(t))
             losses.append(np.asarray(metrics["per_slot_loss"]))
         if evals:
+            # the eval step takes no ragged rows (the reference's eval
+            # step binds none)
+            first = {k: v for k, v in batch.items() if k not in more}
             ev = jax.jit(SD.make_eval_step(cfg, mesh, loss_kind=loss_kind),
-                         in_shardings=(p_sh, l_sh, v_sh, b_sh))
-            per_slot = np.asarray(ev(params, lora, active, batch))
+                         in_shardings=(p_sh, l_sh, v_sh,
+                                       ns(PT.batch_specs(mesh, first))))
+            per_slot = np.asarray(ev(params, lora, active, first))
     out = {"losses": np.stack(losses)}
     if evals:
         out["eval"] = per_slot
@@ -296,6 +309,8 @@ def pod_main(workdir: str, names) -> None:
         parts = common.POD_RUNS[name]
         out = os.path.join(workdir, f"jax_pod_{name}")
         np.savez(out + ".npz", **run(cfg, init, shape,
+                                     common.POD_STEPS.get(name,
+                                                          common.STEPS),
                                      evals=name in common.POD_EVALS))
         if name in common.SSM_ONE_RANK:
             np.savez(out + "_1x1.npz", **run(cfg, init, (1, 1)))
@@ -305,6 +320,30 @@ def pod_main(workdir: str, names) -> None:
                                              loss_kind="dpo"))
         if "serve" in parts:
             np.savez(out + "_serve.npz", **serve(cfg, init, shape))
+    print("done")
+
+
+def uneven_main(workdir: str, names) -> None:
+    """The uneven runs ``names`` (keys of ``common.UNEVEN_RUNS``):
+    ``init_<name>.npz`` in, ``jax_<name>_<d>x<m>.npz`` out for each of the
+    run's meshes (``common.UNEVEN_STEPS`` SFT steps with its
+    ``common.uneven_extra`` leaves in every batch, and on its first mesh
+    the eval step where its parts name one), and
+    ``jax_serve_<name>_<d>x<m>.npz`` on its first mesh where they name
+    "serve"; ``common.UNEVEN_SELF_RUN`` at 1x1 too."""
+    assert len(jax.devices()) == 4, jax.devices()
+    for name in names:
+        init = dict(np.load(os.path.join(workdir, f"init_{name}.npz")))
+        cfg = common.uneven_config(name, "repro")
+        *_, meshes, parts = common.UNEVEN_RUNS[name]
+        for shape in ((1, 1),) * (name == common.UNEVEN_SELF_RUN) + meshes:
+            np.savez(os.path.join(workdir, f"jax_{name}_%dx%d.npz" % shape),
+                     **run(cfg, init, shape, common.UNEVEN_STEPS,
+                           evals="eval" in parts and shape == meshes[0],
+                           extra=common.uneven_extra(name)))
+        if "serve" in parts:
+            np.savez(os.path.join(workdir, f"jax_serve_{name}_%dx%d.npz"
+                                  % meshes[0]), **serve(cfg, init, meshes[0]))
     print("done")
 
 
@@ -353,5 +392,7 @@ if __name__ == "__main__":
         modal_main(sys.argv[1], sys.argv[3:])
     elif sys.argv[2:3] == ["--pod"]:
         pod_main(sys.argv[1], sys.argv[3:])
+    elif sys.argv[2:3] == ["--uneven"]:
+        uneven_main(sys.argv[1], sys.argv[3:])
     else:
         main(sys.argv[1])

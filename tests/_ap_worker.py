@@ -20,11 +20,7 @@ batches) and writes, rank 0 for the group:
   * ``serve_<d>x<m>_rank<r>.npz`` — each rank's prefill and greedy serve
     steps (``chip_smoke.ap_serve``), ``serve_2x2_kv_roll_rank<r>.npz``
     with the planted "kv_roll", and ``lanes_2x2_rank<r>.npz`` over a
-    per-lane cache with ``common.IDLE_LANES`` idle in a last step;
-  * ``refusals.json`` — the ``NotImplementedError`` message of ragged slot
-    rows on the 2x2 mesh's split model axis, and of the prefill and serve
-    steps of hymba d 160 on a 1x4 mesh, whose 10 Mamba heads do not split
-    over a model axis of 4.
+    per-lane cache with ``common.IDLE_LANES`` idle in a last step.
 
 Each ``port_<d>x<m>.npz`` also holds "eval": the sharded eval step after
 the steps, on the first batch with the trained adapters (so do the MoE
@@ -70,6 +66,11 @@ runs the pod runs instead (``tests/test_torch_ap_pod.py`` and
 ``common.POD_RUNS`` on a ``common.POD_MESH`` ("pod", "data", "model") mesh
 (``pod_main``), and, with "dense", ``refusals_pod.json``.
 
+    python tests/_ap_worker.py <workdir> --uneven <run>...
+
+runs those runs of ``common.UNEVEN_RUNS`` instead
+(``tests/test_torch_ap_uneven.py``, ``uneven_main``).
+
 The MoE, ssm and modal runs of ``common.DPO_RUNS`` also write
 ``port_<name>_dpo_2x2.npz`` (one DPO step and the DPO eval step), and those
 of ``common.SERVE_RUNS`` ``serve_<name>_<d>x<m>_rank<r>.npz`` on each of
@@ -98,11 +99,13 @@ import chip_smoke  # noqa: E402
 from tests import _ap_common as common  # noqa: E402
 
 def train(cfg, init, mesh, *, lrs=None, clip=1.0, opt_level=0,
-          steps=common.STEPS, evals=False):
+          steps=common.STEPS, evals=False, extra=None, whole=False):
     """``steps`` sharded train steps; with ``evals`` then the sharded eval
     step on the first batch with the trained adapters ("eval");
     "digests", this rank's adapters' per-slot digests after each step
-    (``chip_smoke._digests``)."""
+    (``chip_smoke._digests``). ``extra`` ({name: array}, per-slot [Z]
+    leaves) joins every train batch, laid out as ``batch_specs`` lays out
+    the batch or, with ``whole``, whole (the step cuts them)."""
     Z = common.Z
     params = bridge.params_from_numpy(cfg, common.unflat(init, "params/"),
                                       "cpu")
@@ -126,10 +129,13 @@ def train(cfg, init, mesh, *, lrs=None, clip=1.0, opt_level=0,
     v_spec = PT.pick_spec(mesh, (Z,), [{0: "data"}, {}])
     active, ranks = (placed(t, v_spec) for t in (active, ranks))
     step = SD.make_train_step(cfg, mesh, opt_level=opt_level)
+    more = {k: torch.from_numpy(v) for k, v in (extra or {}).items()}
+    if more and not whole:
+        more = placed(more, PT.batch_specs(mesh, more))
     losses, digests = [], []
     for t in range(steps):
         batch = common.port_batch(init, t % common.STEPS)
-        batch = placed(batch, PT.batch_specs(mesh, batch))
+        batch = {**placed(batch, PT.batch_specs(mesh, batch)), **more}
         lora, opt, metrics = step(params, lora, opt, hp, active, ranks,
                                   batch)
         lora = PT.from_local(mesh, lora, l_named)
@@ -366,8 +372,8 @@ def modal_main(workdir: str) -> None:
 
 def pod_refusals(mesh) -> dict:
     """{case: the ``NotImplementedError`` message} of what a pod mesh
-    refuses: ragged slot rows on the 2x2x2 mesh, hymba d 160's 10 Mamba
-    heads on a 2x1x4 one, and a mesh whose axes are in another order."""
+    refuses: ragged slot rows on the 2x2x2 mesh, and a mesh whose axes are
+    in another order."""
     cfg = common.port_config()
     embed = {"embed": PT.distribute(mesh, torch.zeros(cfg.vocab_size,
                                                       cfg.d_model),
@@ -377,11 +383,6 @@ def pod_refusals(mesh) -> dict:
         lambda: SD.make_train_step(cfg, mesh)(
             embed, {}, None, None, None, None,
             {"tokens": tokens, "slot_rows": torch.full((2,), 8)}))}
-    m4 = MESH.make_local_mesh((2, 1, 4), common.POD_AXES, device="cpu")
-    hymba = common.ssm_config("hymba160", "repro_torch")
-    for step in ("train", "serve"):
-        build = getattr(SD, f"make_{step}_step")
-        msgs[f"pod {step} scan heads"] = refusal(lambda: build(hymba, m4))
     order = MESH.make_local_mesh((2, 2, 2), ("data", "pod", "model"),
                                  device="cpu")
     msgs["pod axis order"] = refusal(lambda: SD.make_train_step(cfg, order))
@@ -408,7 +409,8 @@ def pod_main(workdir: str, names) -> None:
             cfg = common.pod_config(name, "repro_torch")
             parts = common.POD_RUNS[name]
             tag = f"pod_{name}"
-            res = train(cfg, init, mesh, evals=name in common.POD_EVALS)
+            res = train(cfg, init, mesh, evals=name in common.POD_EVALS,
+                        steps=common.POD_STEPS.get(name, common.STEPS))
             TRAIN.write_out(os.path.join(workdir, f"port_{tag}.npz"), mesh,
                             res)
             log = {k: res[k] for k in ("log", "eval_log", "digests")
@@ -436,10 +438,55 @@ def pod_main(workdir: str, names) -> None:
     print("done")
 
 
+def uneven_main(workdir: str, names) -> None:
+    """The uneven runs ``names`` (``common.UNEVEN_RUNS``) on 4 ranks: for
+    each of a run's meshes ``port_<name>_<d>x<m>.npz`` (the SFT steps with
+    the run's per-slot leaves, ``common.uneven_extra``: whole for
+    "dense_rows", laid out as the batch for the others; and, on its first
+    mesh, the eval step where its parts name one) and
+    ``log_<name>_<d>x<m>_rank<r>.json`` (this rank's collective records of
+    the train steps, "log", and of the eval step, "eval_log"); on its first
+    mesh ``serve_<name>_<d>x<m>_rank<r>.npz`` and
+    ``lanes_<name>_rank<r>.npz`` (``serve``), as its parts say."""
+    with MESH.process_group("cpu", backend="gloo"):
+        me = dist.get_rank()
+        meshes = {}
+        for name in names:
+            init = dict(np.load(os.path.join(workdir, f"init_{name}.npz")))
+            cfg = common.uneven_config(name, "repro_torch")
+            *_, shapes, parts = common.UNEVEN_RUNS[name]
+            for shape in shapes:
+                if shape not in meshes:
+                    meshes[shape] = MESH.make_local_mesh(shape, device="cpu")
+                tag = f"{name}_%dx%d" % shape
+                res = train(cfg, init, meshes[shape],
+                            steps=common.UNEVEN_STEPS,
+                            evals="eval" in parts and shape == shapes[0],
+                            extra=common.uneven_extra(name),
+                            whole=name == "dense_rows")
+                TRAIN.write_out(os.path.join(workdir, f"port_{tag}.npz"),
+                                meshes[shape], res)
+                with open(os.path.join(workdir, f"log_{tag}_rank{me}.json"),
+                          "w") as f:
+                    json.dump({k: res[k] for k in ("log", "eval_log")
+                               if k in res}, f)
+            mesh = meshes[shapes[0]]
+            if "serve" in parts:
+                serve(workdir, f"serve_{name}_%dx%d" % shapes[0], cfg, init,
+                      mesh)
+            if "lanes" in parts:
+                serve(workdir, f"lanes_{name}", cfg, init, mesh,
+                      per_lane=True, idle=common.IDLE_LANES)
+        dist.barrier()
+    print("done")
+
+
 def main(workdir: str) -> None:
     torch.set_num_threads(1)
     if sys.argv[2:3] == ["--pod"]:
         return pod_main(workdir, sys.argv[3:])
+    if sys.argv[2:3] == ["--uneven"]:
+        return uneven_main(workdir, sys.argv[3:])
     if sys.argv[2:3] == ["--moe"]:
         return moe_main(workdir)
     if sys.argv[2:3] == ["--ssm"]:
@@ -483,25 +530,6 @@ def main(workdir: str) -> None:
             serve(workdir, "serve_2x2_kv_roll", cfg, init, m22)
         serve(workdir, "lanes_2x2", cfg, init, m22, per_lane=True,
               idle=common.IDLE_LANES)
-        msgs = {}
-        embed = {"embed": PT.distribute(m22, torch.zeros(cfg.vocab_size,
-                                                         cfg.d_model),
-                                        PT.placements(m22, PT.P()))}
-        tokens = torch.zeros(4, 1, 8, dtype=torch.int32)
-        msgs["ragged rows"] = refusal(
-            lambda: SD.make_train_step(cfg, m22)(
-                embed, {}, None, None, None, None,
-                {"tokens": tokens, "slot_rows": torch.full((4,), 8)}))
-        # scan heads that do not split over "model": hymba160's 10 Mamba
-        # heads on a model axis of 4
-        m14 = MESH.make_local_mesh((1, 4), device="cpu")
-        hymba = common.ssm_config("hymba160", "repro_torch")
-        for step in ("prefill", "serve"):
-            build = getattr(SD, f"make_{step}_step")
-            msgs[f"{step} scan heads"] = refusal(lambda: build(hymba, m14))
-        if me == 0:
-            with open(os.path.join(workdir, "refusals.json"), "w") as f:
-                json.dump(msgs, f)
         dist.barrier()
     print("done")
 

@@ -34,17 +34,17 @@ together in one module fixture.
     schedule: they are in fact equal); the one-rank step (this process, a
     one-rank gloo group) agrees with the 2x2 and 4x1 steps within (a)'s
     bars.
-(e) Ragged slot rows on a split model axis, and the prefill and serve
-    steps of scan heads that do not split over "model" (hymba d 160's 10
-    Mamba heads on 1x4) raise ``NotImplementedError`` on a real mesh,
-    naming what they refuse and ``ROADMAP.md`` (every family's train, eval,
-    prefill and serve steps run: ``tests/test_torch_ap_moe.py``,
+(e) What was refused here runs now: ragged slot rows over a split model
+    axis, scan heads that do not divide by m and MoE token groups that
+    divide neither way are held against the reference in
+    ``tests/test_torch_ap_uneven.py`` (every family's train, eval, prefill
+    and serve steps run: ``tests/test_torch_ap_moe.py``,
     ``tests/test_torch_ap_ssm.py``, ``tests/test_torch_ap_modal.py``, and
     on a ("pod", "data", "model") mesh ``tests/test_torch_ap_pod.py`` and
     ``tests/test_torch_ap_pod_families.py``, which hold what a pod mesh
-    refuses; so does the eval step, whose per-slot losses after the 2x2 and 4x1 runs
-    are held within 1e-5 relative of the reference's ``make_eval_step`` on
-    the same mesh).
+    refuses); so does the eval step, whose per-slot losses after the 2x2
+    and 4x1 runs are held within 1e-5 relative of the reference's
+    ``make_eval_step`` on the same mesh.
 (f) ``launch.train.main(["--reduced", "--mesh", "2x2", "--steps", "2",
     "--backend", "gloo", "--device", "cpu"])`` runs under 4 spawned
     processes.
@@ -323,24 +323,6 @@ def test_opt_levels_and_one_rank_agree(runs, tmp_path):
     four = _load(runs, "port_4x1.npz")
     np.testing.assert_allclose(four["losses"], one["losses"], **LOSS)
     _adapters_close(four, one, "port 4x1 vs port 1x1")
-
-
-# ---------------------------------------------------------------------------
-# (e) what a real mesh refuses
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("what,names", [
-    ("ragged rows", ("ragged", "model")),
-    ("prefill scan heads", ("prefill", "10 Mamba heads", "model 4")),
-    ("serve scan heads", ("serve", "10 Mamba heads", "model 4")),
-])
-def test_unported_splits_raise_by_name(runs, what, names):
-    with open(os.path.join(runs["dir"], "refusals.json")) as f:
-        msg = json.load(f)[what]
-    assert msg, f"{what}: no NotImplementedError"
-    for n in names:
-        assert n in msg, (what, msg)
-    assert "ROADMAP.md" in msg
 
 
 # ---------------------------------------------------------------------------

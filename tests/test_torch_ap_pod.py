@@ -9,12 +9,14 @@ paper-llama-tiny, Z 4, b 4, S 32; 3 SFT steps and the eval step, 2 DPO
 steps and the DPO eval step, the prefill and 8 greedy serve steps, and a
 per-lane cache whose last step has ``common.IDLE_LANES`` idle, lane (1, 0)
 on pod rank 0 and lane (2, 3) on pod rank 1), and granite-moe's span case
-(T 512: one token group over all 8 ranks; train and serve) and inside case
+(T 512: one token group over all 8 ranks; train and serve), inside case
 (T 8,192: groups of 4,096 inside each data rank, each spanning its two pod
-ranks; train). "pod" splits each slot's 4 rows, 2 a pod rank. The other
-AP tests' inits reach both sides through their ``init`` files; one module
-fixture starts the reference (``tests/_ap_reference.py --pod``) and the
-port's 8 gloo ranks (``tests/_ap_worker.py --pod``) together.
+ranks; train) and odd case (T 384, groups of 128, a rank's runs of 48 rows:
+pieces of 16; 2 train steps, ``common.POD_STEPS``). "pod" splits each
+slot's 4 rows, 2 a pod rank. The other AP tests' inits reach both sides
+through their ``init`` files; one module fixture starts the reference
+(``tests/_ap_reference.py --pod``) and the port's 8 gloo ranks
+(``tests/_ap_worker.py --pod``) together.
 
 (a) Every run against the reference's on the same mesh: per-slot losses
     within 1e-5 relative (DPO: ``DPO_LOSS``), the eval steps too, every
@@ -32,9 +34,9 @@ port's 8 gloo ranks (``tests/_ap_worker.py --pod``) together.
     route counts; nothing crosses "data" but base weights, the metric
     gather and route counts; a dense serve step sends nothing over "pod".
 (e) Ragged slot rows on a pod mesh (naming the reference's
-    ``batch_specs``), scan heads that do not divide by m on a pod mesh,
-    and axes in another order raise ``NotImplementedError`` naming
-    ``ROADMAP.md``; ``serve_cache_specs`` splits the lanes over "pod".
+    ``batch_specs``) and axes in another order raise
+    ``NotImplementedError`` naming ``ROADMAP.md``; ``serve_cache_specs``
+    splits the lanes over "pod".
 (f) The dry run's pod-axis "adapter grads" bucket for the dense example
     on 2x2x2 equals, byte for byte, what a train step logged over "pod"
     in role "adapter_grad".
@@ -130,11 +132,16 @@ def one_serve(runs, tmp_path_factory):
     return one_serves(runs, SERVES, tmp_path_factory)
 
 
+def sft_steps(name) -> int:
+    """The SFT steps of pod run ``name``."""
+    return common.POD_STEPS.get(name, common.STEPS)
+
+
 def step_held(work, name, share):
     """(a) for the SFT steps of run ``name``."""
     got = load(work, f"port_pod_{name}.npz")
     want = load(work, f"jax_pod_{name}.npz")
-    assert got["losses"].shape == (common.STEPS, common.Z)
+    assert got["losses"].shape == (sft_steps(name), common.Z)
     np.testing.assert_allclose(got["losses"], want["losses"], **LOSS)
     _adapters_close(got, want, f"port pod {name} vs reference", share)
     if name in common.POD_EVALS:
@@ -153,7 +160,7 @@ def same_adapters(work, name):
         peer = parts[((1 - pod) * 2 + data) * 2 + model]
         for key in keys:
             assert part[key] == peer[key], (name, r, key)
-        assert len({tuple(d) for d in part["digests"]}) == common.STEPS, (
+        assert len({tuple(d) for d in part["digests"]}) == sft_steps(name), (
             name, r)
 
 
@@ -189,7 +196,7 @@ def pod_invariant(work, name, cfg):
             if kind == "eval_log":
                 assert not grads
                 continue
-            assert len(grads) == common.STEPS, (name, r)
+            assert len(grads) == sft_steps(name), (name, r)
             assert all(c["kind"] == "all-reduce" and c["bytes"] == lora
                        for c in grads), (name, r, grads[0], lora)
             if moe:
@@ -269,8 +276,6 @@ def test_pod_axis_carries_only_grads_loss_sums_and_routes(runs, name):
 
 @pytest.mark.parametrize("what,names", [
     ("pod ragged rows", ("ragged", "pod", "batch_specs")),
-    ("pod train scan heads", ("train", "10 Mamba heads", "model 4")),
-    ("pod serve scan heads", ("serve", "10 Mamba heads", "model 4")),
     ("pod axis order", ("'data', 'pod', 'model'", "(pod, data, model)")),
 ])
 def test_pod_unported_splits_raise_by_name(runs, what, names):

@@ -8,9 +8,10 @@ Adapter Parallelism vs FSDP (``launch/sharding_variants.py``).
 (b) The fake group: a mesh over ``fake_group`` passes the activation
     policy's guard (``distribute`` still refuses it); a real two-rank gloo
     mesh (two processes) distributes, steps and agrees with one rank, and
-    still raises ``NotImplementedError`` for the prefill step of an RWKV
-    config whose scan heads do not split over its model axis; the group
-    refuses a second one and is destroyed after a failure.
+    runs the prefill step of an RWKV config whose 3 scan heads do not
+    split over its model axis (whole on both ranks), its logits one
+    rank's within 1e-5; the group refuses a second one and is destroyed
+    after a failure.
 (c) ``dryrun_one`` on a reduced config over a fake 16 x 16 group: ok, its
     FLOPs the direct global count / 256, its collective schedule the
     placements' (weight gathers per pass, residual all-gathers and
@@ -173,6 +174,7 @@ def test_a_fake_mesh_passes_the_guard():
 _TWO_RANKS = textwrap.dedent("""
     import dataclasses, json, sys, torch
     from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as M
     from repro_torch.launch import mesh as MESH
     from repro_torch.launch import partitioning as PT
     from repro_torch.launch import steps_dist as SD
@@ -187,25 +189,35 @@ _TWO_RANKS = textwrap.dedent("""
         assert PT._real_multi_rank(mesh)
         res = TRAIN.run(cfg, 2, 2, 16, mesh, 2, device="cpu",
                         log=lambda m: None)
+        # 3 scan heads, whole on both model ranks
         rwkv = dataclasses.replace(get_arch("rwkv6-3b").reduced(
             num_layers=2, d_model=96, vocab=64), dtype="float32")
-        try:        # what stays unported on a real mesh: 3 scan heads
-            SD.make_prefill_step(rwkv, mesh)({}, {}, None, {})
-        except NotImplementedError as e:
-            assert "prefill" in str(e) and "3 RWKV heads" in str(e)
-            assert "ROADMAP.md" in str(e)
-        else:
-            raise SystemExit("no NotImplementedError")
-    print(json.dumps(res["losses"]))
+        assert PT.whole_scan(rwkv, 2)
+        params = M.init_params(rwkv, seed=0, device="cpu")
+        tokens = torch.randint(0, 64, (2, 2, 16), dtype=torch.int32,
+                               generator=torch.Generator().manual_seed(1))
+        cache = M.init_cache(rwkv, 2, 2, 16, device="cpu")
+
+        def place(tree, specs):
+            return PT.distribute(mesh, tree, PT.to_named(mesh, specs))
+
+        batch = {"tokens": tokens}
+        logits, _ = SD.make_prefill_step(rwkv, mesh)(
+            place(params, PT.base_param_specs(mesh, params)), {},
+            place(cache, PT.serve_cache_specs(rwkv, mesh, cache)),
+            place(batch, PT.batch_specs(mesh, batch)))
+    print(json.dumps({"losses": res["losses"],
+                      "logits": logits.tolist()}))
 """)
 
 
-def test_a_real_two_rank_mesh_still_raises(tmp_path):
+def test_a_real_two_rank_mesh_steps_and_prefills_whole_scan_heads(
+        tmp_path):
     """A real two-rank gloo mesh (two processes, model axis 2) distributes
     the weights, takes two sharded train steps whose per-slot losses agree
-    with one rank's, and still raises ``NotImplementedError`` for what
-    stays unported there (the prefill step of an RWKV config whose 3 scan
-    heads do not split over the model axis of 2)."""
+    with one rank's, and runs the prefill step of an RWKV config whose 3
+    scan heads do not split over the model axis of 2 (each rank runs them
+    whole): both ranks' logits equal, one rank's within 1e-5."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
     init = f"file://{tmp_path / 'pg'}"
@@ -224,7 +236,20 @@ def test_a_real_two_rank_mesh_still_raises(tmp_path):
         mesh = MESH.make_local_mesh((1, 1), device="cpu")
         one = TTRAIN.run(cfg, 2, 2, 16, mesh, 2, device="cpu",
                           log=lambda m: None)["losses"]
-    np.testing.assert_allclose(two[0], one, rtol=1e-5)
+    np.testing.assert_allclose(two[0]["losses"], one, rtol=1e-5)
+    from repro_torch.core import steps as TS
+    rwkv = dataclasses.replace(tget_arch("rwkv6-3b").reduced(
+        num_layers=2, d_model=96, vocab=64), dtype="float32")
+    tokens = torch.randint(0, 64, (2, 2, 16), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want, _ = TS.make_prefill_step(rwkv)(
+            TM.init_params(rwkv, seed=0, device="cpu"), {},
+            TM.init_cache(rwkv, 2, 2, 16, device="cpu"), {"tokens": tokens})
+    got = np.asarray(two[0]["logits"], np.float32)
+    assert got.shape == tuple(want.shape)
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
 
 
 # ---------------------------------------------------------------------------
